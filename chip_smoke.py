@@ -1,0 +1,524 @@
+"""Build and drive the PyTorch/CUDA port on one NVIDIA GPU, and hold every
+hand-written kernel against its plain PyTorch version.
+
+    python3 chip_smoke.py [--seed 0] [--rows 2000000] [--valid-rows 200000]
+                          [--rounds 5]
+
+Phases, in order, each printing one JSON line (any failure raises and the
+script exits non-zero; nothing is caught):
+
+  device          nvidia-smi's name and power limit, torch's device name
+  build           nvcc of every kernel source in lightgbm_tpu_torch/csrc/
+  hist_tile       full-row form at the train phase's shapes (N=--rows,
+                  F=28, B=255, 255 leaves, a 42-slot tile of 21 computed
+                  leaves): bitwise vs the plain version on integer-valued
+                  stats, within 1e-5 of the summed magnitudes on float stats;
+                  kernel / plain / index_add_ times and the bound
+  hist_tile_gather the gather form over the trainer's two compaction rungs
+                  (N/2 and N/8 rounded up to 64 rows)
+  split_epilogue  P=42, F=28, B=255 with derived slots: bitwise vs plain
+  train           lightgbm_tpu_torch.train, binary, 255 leaves, max_bin 255,
+                  lr 0.1, on Higgs-shaped data made from --seed (2M train,
+                  200k valid rows, 5 rounds): sec/iter, valid AUC (> 0.6),
+                  rows read per tree and each kernel's launches on this run
+                  (both hist_tile forms and split_epilogue must launch, at
+                  the shapes the kernel phases checked)
+  parity          the same training at 50,000 x 28, 63 leaves, 3 rounds on
+                  the card and on the CPU plain path: same split features
+                  and thresholds, leaf values within 1e-4; whether two card
+                  runs give the same model text
+
+then a ``kernels`` line, nvidia-smi's ``name, power.limit`` line, and last
+``{"ok": true, "device": {...}}``. Without a CUDA device it exits 1 and
+prints no result. Times come from CUDA events (median of >= 10 launches
+after warm-up, the L2 cache flushed before each); bounds use the H100 SXM
+data-sheet peaks (3.35 TB/s, 67 TFLOP/s float32), whatever the card's power
+limit.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
+F32_FLOP_PER_S = 67e12         # float32 outside the tensor cores
+# the main path's kernel shapes: Higgs width, max_bin 255, 255 leaves, the
+# grower's 42-slot tile (train_phase checks the trainer used these)
+F, B, LEAVES, P = 28, 255, 255, 42
+
+
+def emit(phase: str, **kw) -> None:
+    print(json.dumps({"phase": phase, **kw}), flush=True)
+
+
+def nvidia_smi() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+
+
+def bound(nbytes: float, flops: float):
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+    return (max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations")
+
+
+_flush_buf = None
+
+
+def flush_l2() -> None:
+    """Overwrite the 50 MB L2 with a 64 MB buffer."""
+    global _flush_buf
+    if _flush_buf is None:
+        _flush_buf = torch.empty(16 << 20, dtype=torch.float32, device="cuda")
+    _flush_buf.zero_()
+
+
+def time_ms(fn, reps: int = 10, warm: int = 2) -> float:
+    """Median device time of ``fn`` over ``reps`` launches, each timed alone
+    with CUDA events on a cold L2."""
+    for _ in range(warm):
+        fn()
+    times = []
+    for _ in range(reps):
+        flush_l2()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def float_err(kernel: torch.Tensor, plain: torch.Tensor,
+              magnitude: torch.Tensor, rtol: float = 1e-5) -> float:
+    """Max |kernel - plain|; fails unless every cell is within ``rtol`` of
+    the sum of the magnitudes that cell accumulated (a float32 sum's error
+    is bounded by the magnitudes, not by the possibly cancelling result)."""
+    diff = (kernel - plain).abs()
+    bad = diff > rtol * magnitude + 1e-30
+    if bool(bad.any()):
+        raise AssertionError(f"kernel disagrees with its plain version at "
+                             f"{int(bad.sum())} cells (max err "
+                             f"{float(diff.max())})")
+    return float(diff.max())
+
+
+# --------------------------------------------------------------- kernels
+def ladder_rungs(n: int):
+    """The compaction ladder's row buffers for N rows, as the trainer sizes
+    them (models/gbdt.py _compaction_ladder): 0.125 and 0.5 of N, rounded
+    up to 64 rows, ascending."""
+    return [-(-max(int(round(n * fr)), 1) // 64) * 64 for fr in (0.125, 0.5)]
+
+
+def tile_selection():
+    """A tile as the grower hands it to hist_tile: P slots, the computed
+    smaller sibling of each pair in the even slot, the odd (derived) slot
+    -1 -- 21 computed leaves out of LEAVES."""
+    sel = torch.full((P,), -1, dtype=torch.int32)
+    sel[0::2] = torch.arange(P // 2, dtype=torch.int32) * (LEAVES // (P // 2))
+    return sel
+
+
+def hist_inputs(n, seed, integer, tile_leaves, share):
+    """Random rows over LEAVES leaves, ``share`` of them in the tile's
+    computed leaves."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    binsT = torch.randint(0, B, (F, n), generator=g, device="cuda",
+                          dtype=torch.int32).to(torch.uint8)
+    others = torch.ones(LEAVES, dtype=torch.bool)
+    others[tile_leaves.long()] = False
+    others = torch.nonzero(others).reshape(-1).to(torch.int32).cuda()
+    in_tile = torch.rand(n, generator=g, device="cuda") < share
+    pick_t = torch.randint(0, tile_leaves.shape[0], (n,), generator=g,
+                           device="cuda")
+    pick_o = torch.randint(0, others.shape[0], (n,), generator=g,
+                           device="cuda")
+    leaf = torch.where(in_tile, tile_leaves.cuda()[pick_t],
+                       others[pick_o]).contiguous()
+    if integer:
+        stats = torch.stack([
+            torch.randint(-3, 4, (n,), generator=g, device="cuda"),
+            torch.randint(0, 4, (n,), generator=g, device="cuda"),
+            torch.ones(n, device="cuda")], 1).to(torch.float32)
+    else:
+        stats = torch.stack([
+            torch.randn(n, generator=g, device="cuda"),
+            torch.rand(n, generator=g, device="cuda"),
+            torch.ones(n, device="cuda")], 1)
+    return binsT, leaf, stats.contiguous()
+
+
+def hist_phase(cuda_hist, n, m=None, seed=0):
+    """Kernel vs plain on integer-valued and float stats at the shapes of
+    one main-path pass: the full form (``m`` None; 3/4 of the rows in the
+    tile, as when a full pass is taken) or the gather form over a rung of
+    ``m`` rows holding the tile's rows (9/10 of the rung) in row order,
+    padded with N, as the grower builds it."""
+    from lightgbm_tpu_torch.ops.histogram import compact_indices
+    sel = tile_selection()
+    tile_leaves = sel[sel >= 0]
+    chan = cuda_hist.chan_leaf_table(sel).cuda()
+    share = 0.75 if m is None else 0.9 * m / n
+    out = {}
+    for integer in (True, False):
+        binsT, leaf, stats = hist_inputs(n, seed, integer, tile_leaves, share)
+        in_tile = torch.isin(leaf, tile_leaves.cuda())
+        n_tile = int(in_tile.sum())
+        idx = None
+        if m is not None:
+            if n_tile > m:
+                raise AssertionError(f"{n_tile} tile rows overflow the "
+                                     f"{m}-row rung")
+            idx = compact_indices(in_tile, m)
+        args = (binsT, leaf, stats, chan, P, B, LEAVES, idx)
+        k = cuda_hist.hist_tile(*args)
+        p = cuda_hist.hist_tile_plain(*args)
+        torch.cuda.synchronize()
+        if integer:
+            if not torch.equal(k.view(torch.int32), p.view(torch.int32)):
+                raise AssertionError("hist_tile is not bitwise equal to its "
+                                     "plain version on integer-valued stats")
+            out["int_max_abs_err"] = float((k - p).abs().max())
+            continue
+        mag = cuda_hist.hist_tile_plain(binsT, leaf, stats.abs(), chan, P, B,
+                                        LEAVES, idx)
+        out["max_abs_err"] = float_err(k, p, mag)
+        out["ms"] = time_ms(lambda: cuda_hist.hist_tile(*args))
+        out["plain_ms"] = time_ms(lambda: cuda_hist.hist_tile_plain(*args),
+                                  reps=10, warm=1)
+        # one PyTorch call computing the same function: index_add_ over the
+        # tile rows' flattened (slot, feature, bin) cells
+        r = torch.nonzero(in_tile).reshape(-1)
+        slot_of_leaf = torch.full((LEAVES,), -1, dtype=torch.long,
+                                  device="cuda")
+        slot_of_leaf[tile_leaves.long().cuda()] = \
+            torch.nonzero(sel >= 0).reshape(-1).cuda()
+        s = slot_of_leaf[leaf[r].long()]
+        flat = ((s[:, None] * F + torch.arange(F, device="cuda")[None, :]) * B
+                + binsT[:, r].T.long()).reshape(-1)
+        contrib = stats[r][:, None, :].expand(r.shape[0], F, 3).reshape(-1, 3)
+        acc = torch.zeros((P * F * B, 3), device="cuda")
+        out["library_ms"] = time_ms(lambda: acc.index_add_(0, flat, contrib))
+        # least traffic: the row-index buffer (gather form), the leaf id of
+        # every row it names, the bins and stats of the tile's rows, the
+        # planes written once; one add per (tile row, feature, stat)
+        scanned = n if idx is None else n_tile
+        nbytes = (0 if idx is None else 4 * m) + 4 * scanned \
+            + n_tile * (F + 12) + P * F * B * 3 * 4
+        out["bound_ms"], out["bound_by"] = bound(nbytes, 3 * n_tile * F)
+        out["rows"], out["tile_rows"] = (n if m is None else m), n_tile
+    return out
+
+
+def epilogue_phase(cuda_hist, seed=0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    tile = torch.zeros((P, F, B, 3), device="cuda")
+    parent = torch.zeros_like(tile)
+    derive = torch.zeros(P, dtype=torch.bool)
+    derive[1::2] = True
+    # planes of random rows: grad N(0,1), hess U(0,1), count 1 per row
+    for p in range(P):
+        cnt = torch.randint(0, 40, (F, B), generator=g, device="cuda")
+        cnt = cnt.to(torch.float32)
+        gsum = torch.randn((F, B), generator=g, device="cuda") * cnt.sqrt()
+        hsum = torch.rand((F, B), generator=g, device="cuda") * cnt
+        plane = torch.stack([gsum, hsum, cnt], -1)
+        if derive[p]:
+            parent[p] = plane + tile[p - 1]
+        else:
+            tile[p] = plane
+    full = torch.where(derive.cuda()[:, None, None, None],
+                       parent - torch.cat([tile[:1] * 0, tile[:-1]]), tile)
+    s = full[:, 0].sum(1)                                   # [P, 3]
+    la = cuda_hist.pack_leaf_aux(s[:, 0], s[:, 1], s[:, 2],
+                                 -0.1 * s[:, 0] / (s[:, 1] + 1)).cuda()
+    nb = torch.full((F,), B, dtype=torch.int32)
+    nb[3], nb[7] = 64, 2
+    mt = torch.zeros(F, dtype=torch.int32)
+    mt[5], mt[6] = 2, 1                                     # NaN, Zero
+    db = torch.zeros(F, dtype=torch.int32)
+    db[6] = 17
+    fm = cuda_hist.pack_feature_meta(nb, mt, db,
+                                     torch.zeros(F, dtype=torch.int32)).cuda()
+    pv = torch.tensor([0.0, 1.0, 0.0, 0.0, 20.0, 1e-3, 0.0, 0.0],
+                      device="cuda")
+    der = cuda_hist._epilogue_lanes(torch.arange(P, dtype=torch.int32),
+                                    derive).cuda()
+    args = (tile, parent, der, la, fm, pv)
+    kf, kc = cuda_hist.split_epilogue(*args)
+    pf, pc = cuda_hist.split_epilogue_plain(*args)
+    torch.cuda.synchronize()
+    if not (torch.equal(kc.view(torch.int32), pc.view(torch.int32))
+            and torch.equal(kf.view(torch.int32), pf.view(torch.int32))):
+        raise AssertionError("split_epilogue is not bitwise equal to its "
+                             "plain version")
+    valid = int(torch.isfinite(kc[..., 0]).sum())
+    if valid == 0:
+        raise AssertionError("split_epilogue found no valid candidate")
+    plane_bytes = P * F * B * 3 * 4
+    nbytes = 3 * plane_bytes + P * F * 12 * 4 + P * 8 * 4 + F * 8 * 4
+    bms, by = bound(nbytes, 60 * P * F * B)
+    return {"max_abs_err": float((kc - pc).nan_to_num(0.0).abs().max()),
+            "valid_candidates": valid,
+            "ms": time_ms(lambda: cuda_hist.split_epilogue(*args)),
+            "plain_ms": time_ms(lambda: cuda_hist.split_epilogue_plain(*args),
+                                reps=10, warm=1),
+            "library_ms": None, "bound_ms": bms, "bound_by": by}
+
+
+# ------------------------------------------------------------ main path
+def higgs_like(n: int, seed: int):
+    """Higgs-shaped data: 28 float32 features (21 low-level kinematics --
+    positive momenta, angles in [-pi, pi], Gaussian-ish components -- and 7
+    high-level mass-like features) and a binary label from a nonlinear
+    function of them plus noise."""
+    rng = np.random.RandomState(seed)
+    X = np.empty((n, 28), np.float32)
+    for j in range(21):
+        kind = j % 3
+        if kind == 0:
+            X[:, j] = rng.exponential(1.0, n)
+        elif kind == 1:
+            X[:, j] = rng.uniform(-np.pi, np.pi, n)
+        else:
+            X[:, j] = rng.standard_normal(n)
+    for j in range(21, 28):
+        X[:, j] = np.abs(rng.standard_normal(n) * 0.5 + 1.0) \
+            + 0.1 * X[:, (j - 21) * 3]
+    z = (0.9 * X[:, 21] - 0.8 * X[:, 24] + 0.6 * np.sin(X[:, 1]) * X[:, 0]
+         + 0.5 * X[:, 2] * X[:, 5] - 0.4 * X[:, 26] ** 2 + 0.3 * X[:, 9]
+         + rng.logistic(0.0, 1.0, n) * 0.8)
+    y = (z > np.median(z)).astype(np.float64)
+    return X, y
+
+
+def auc(score: np.ndarray, y: np.ndarray) -> float:
+    order = np.argsort(-score, kind="stable")
+    ys = y[order]
+    npos = ys.sum()
+    nneg = len(ys) - npos
+    neg_below = nneg - np.cumsum(1 - ys)
+    return float((ys * neg_below).sum() / (npos * nneg))
+
+
+PARAMS = {"objective": "binary", "num_leaves": 255, "max_bin": 255,
+          "learning_rate": 0.1, "metric": "auc", "verbosity": -1}
+
+
+def train_phase(lgb, cuda_hist, args):
+    t0 = time.time()
+    X, y = higgs_like(args.rows + args.valid_rows, args.seed)
+    Xv, yv = X[args.rows:], y[args.rows:]
+    X, y = X[:args.rows], y[:args.rows]
+    t_data = time.time() - t0
+    params = dict(PARAMS, device_type="cuda")
+    train = lgb.Dataset(X, label=y, params=params)
+    valid = lgb.Dataset(Xv, label=yv, reference=train)
+    t0 = time.time()
+    train.construct()
+    valid.construct()
+    torch.cuda.synchronize()
+    t_construct = time.time() - t0
+    evals = {}
+    cuda_hist.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    booster = lgb.train(params, train, args.rounds, valid_sets=[valid],
+                        valid_names=["valid"], evals_result=evals)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = {"hist_tile": cuda_hist.hist_tile.launches,
+                "hist_tile_gather": cuda_hist.hist_tile.gather_launches,
+                "split_epilogue": cuda_hist.split_epilogue.launches}
+    valid_auc = evals["valid"]["auc"][-1]
+    check_auc = auc(booster.predict(Xv, raw_score=True), yv)
+    out = {"rows": args.rows, "valid_rows": args.valid_rows,
+           "features": 28, "rounds": args.rounds,
+           "sec_per_iter": wall / args.rounds, "train_wall_s": wall,
+           "data_s": t_data, "construct_s": t_construct,
+           "valid_auc": valid_auc, "valid_auc_from_predict": check_auc,
+           "rows_streamed_per_tree": booster.rows_streamed_per_tree,
+           "full_passes_per_tree": (launches["hist_tile"]
+                                    - launches["hist_tile_gather"])
+           / args.rounds,
+           "launches": launches, "trees": booster.num_trees(),
+           "leaves_last_tree": booster._boosting.host_trees[-1].num_leaves}
+    gb = booster._boosting
+    shapes = {"features": gb.train_set.binsT.shape[0],
+              "num_bins": gb.train_set.max_num_bins,
+              "num_leaves": gb.config.num_leaves,
+              "tile_slots": gb.config.tile_leaves
+              or cuda_hist.structural_tile_leaves(),
+              "rungs": list(gb._compaction_ladder())}
+    if shapes != {"features": F, "num_bins": B, "num_leaves": LEAVES,
+                  "tile_slots": P, "rungs": ladder_rungs(args.rows)}:
+        raise AssertionError(f"the kernel checks ran at other shapes than "
+                             f"the main path's {shapes}")
+    out["kernel_shapes"] = shapes
+    if launches["hist_tile_gather"] <= 0 or \
+            launches["hist_tile"] - launches["hist_tile_gather"] <= 0 or \
+            launches["split_epilogue"] <= 0:
+        raise AssertionError(f"the main path missed a kernel: {launches}")
+    # the valid-score cache adds float32 tree outputs, predict accumulates
+    # in float64: scores that tie in one may not in the other
+    if not (valid_auc > 0.6 and abs(valid_auc - check_auc) < 1e-3):
+        raise AssertionError(f"valid AUC {valid_auc} (predict: {check_auc})")
+    out["profile"] = profile_iteration(booster, wall / args.rounds)
+    return out, launches
+
+
+def profile_iteration(booster, sec_per_iter: float):
+    """Where one more boosting iteration's time goes: device time by kernel
+    (torch.profiler, CUDA activity only) against the unprofiled sec/iter,
+    and the host's hottest Python functions (cProfile over a further
+    iteration; its own overhead inflates the host times)."""
+    import cProfile
+    import pstats
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        booster.update()
+        torch.cuda.synchronize()
+    rows = []
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0))
+        if dev_us > 0:
+            rows.append((dev_us, ev.key, ev.count))
+    rows.sort(reverse=True)
+    busy_ms = sum(r[0] for r in rows) / 1e3
+    out = {"device_busy_ms": busy_ms if busy_ms > 0 else "not measured",
+           "top_device": [{"name": k[:60], "ms": us / 1e3, "calls": c}
+                          for us, k, c in rows[:8]]}
+    if busy_ms > 0:
+        out["device_idle_share"] = max(0.0, 1 - busy_ms
+                                       / (sec_per_iter * 1e3))
+    prof_host = cProfile.Profile()
+    t0 = time.time()
+    prof_host.enable()
+    booster.update()
+    torch.cuda.synchronize()
+    prof_host.disable()
+    out["cprofile_iteration_ms"] = (time.time() - t0) * 1e3
+    st = pstats.Stats(prof_host)
+    top = sorted(st.stats.items(), key=lambda kv: -kv[1][2])[:10]
+    out["top_host"] = [{"fn": f"{os.path.basename(k[0])}:{k[1]}:{k[2]}",
+                        "tottime_ms": v[2] * 1e3, "calls": v[1]}
+                       for k, v in top]
+    return out
+
+
+def parity_phase(lgb, seed):
+    from lightgbm_tpu_torch.io.model_text import load_model
+    X, y = higgs_like(50_000, seed + 7)
+    params = dict(PARAMS, num_leaves=63)
+    texts = {}
+    for dev in ("cuda", "cuda_again", "cpu"):
+        p = dict(params, device_type=dev.split("_")[0])
+        b = lgb.train(p, lgb.Dataset(X, label=y, params=p), 3)
+        texts[dev] = b.model_to_string()
+    tc, tp = load_model(texts["cuda"]).trees, load_model(texts["cpu"]).trees
+    same = all(a.split_feature.tolist() == b.split_feature.tolist()
+               and a.threshold.tolist() == b.threshold.tolist()
+               and a.left_child.tolist() == b.left_child.tolist()
+               and a.right_child.tolist() == b.right_child.tolist()
+               for a, b in zip(tc, tp)) and len(tc) == len(tp)
+    leaf_err = max(float(np.abs(a.leaf_value - b.leaf_value).max())
+                   for a, b in zip(tc, tp))
+    out = {"rows": 50_000, "num_leaves": 63, "rounds": 3,
+           "same_structure_as_cpu": same, "max_leaf_abs_err": leaf_err,
+           "card_runs_identical_text": texts["cuda"] == texts["cuda_again"]}
+    if not same or leaf_err > 1e-4:
+        raise AssertionError(f"card vs CPU plain path disagree: {out}")
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--rows", type=int, default=2_000_000)
+    ap.add_argument("--valid-rows", type=int, default=200_000)
+    ap.add_argument("--rounds", type=int, default=5)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+              "False); nothing was run", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch.ops import cuda_hist
+    t_start = time.time()
+
+    smi = nvidia_smi()
+    kind = torch.cuda.get_device_name(0)
+    emit("device", nvidia_smi=smi, kind=kind,
+         count=torch.cuda.device_count(), torch=torch.__version__,
+         cuda=torch.version.cuda)
+
+    t0 = time.time()
+    cuda_hist.build_kernels()
+    ptxas = [ln.strip() for text in cuda_hist.build_log.values()
+             for ln in text.splitlines() if "registers" in ln or "smem" in ln]
+    emit("build", seconds=time.time() - t0, ptxas=ptxas)
+
+    n = args.rows
+    full = hist_phase(cuda_hist, n)
+    emit("hist_tile", n=n, f=F, b=B, p=P, leaves=LEAVES, **full)
+    rungs = {}
+    for m in ladder_rungs(n):
+        rungs[str(m)] = hist_phase(cuda_hist, n, m=m, seed=3)
+    emit("hist_tile_gather", n=n, f=F, b=B, p=P, leaves=LEAVES, rungs=rungs)
+    epi = epilogue_phase(cuda_hist)
+    emit("split_epilogue", p=P, f=F, b=B, **epi)
+
+    tr, launches = train_phase(lgb, cuda_hist, args)
+    emit("train", **tr)
+    emit("parity", **parity_phase(lgb, args.seed))
+
+    hist_err = max([full["max_abs_err"]]
+                   + [r["max_abs_err"] for r in rungs.values()])
+    kernels = [
+        {"name": "hist_tile", "route": "cuda",
+         "source": "lightgbm_tpu_torch/csrc/hist_tile.cu",
+         "replaces": "lightgbm_tpu/ops/pallas_hist.py:497 _fused_epi_kernel "
+                     "+ :527 _gather_epi_kernel (accumulation)",
+         "launches": launches["hist_tile"], "max_abs_err": hist_err,
+         "ms": full["ms"], "plain_ms": full["plain_ms"],
+         "bound_ms": full["bound_ms"], "bound_by": full["bound_by"],
+         "library_ms": full["library_ms"],
+         "gather_launches": launches["hist_tile_gather"],
+         "gather_ms": {k: v["ms"] for k, v in rungs.items()},
+         "gather_bound_ms": {k: v["bound_ms"] for k, v in rungs.items()}},
+        {"name": "split_epilogue", "route": "cuda",
+         "source": "lightgbm_tpu_torch/csrc/split_epilogue.cu",
+         "replaces": "lightgbm_tpu/ops/pallas_hist.py:465 _epilogue_compute "
+                     "(epilogue of :497 and :527)",
+         "launches": launches["split_epilogue"],
+         "max_abs_err": epi["max_abs_err"], "ms": epi["ms"],
+         "plain_ms": epi["plain_ms"], "bound_ms": epi["bound_ms"],
+         "bound_by": epi["bound_by"], "library_ms": None},
+    ]
+    print(json.dumps({"kernels": kernels,
+                      "total_seconds": time.time() - t_start}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

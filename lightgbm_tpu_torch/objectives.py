@@ -1,0 +1,156 @@
+"""Objective functions: per-row gradients/hessians on the device.
+
+The port of lightgbm_tpu's ``objectives.py`` for the slice's two
+objectives (reference: src/objective/regression_objective.hpp RegressionL2loss,
+src/objective/binary_objective.hpp BinaryLogloss). Gradients are float32
+tensors on the run's device; ``boost_from_score`` is computed on the host
+in float64 exactly as the JAX package does. ``torch.exp`` and ``jnp.exp``
+differ by an ulp on some inputs, so binary gradients match the JAX
+package's to an ulp, not bitwise; L2 gradients match bitwise.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .utils import log
+
+K_EPSILON = 1e-15
+
+
+class ObjectiveFunction:
+    """Base objective (reference: include/LightGBM/objective_function.h)."""
+
+    name = "base"
+    num_model_per_iteration = 1
+
+    def __init__(self, config):
+        self.config = config
+
+    def init(self, label: np.ndarray, weight: Optional[np.ndarray],
+             device="cpu") -> None:
+        self.label_np = np.asarray(label, dtype=np.float64)
+        self.weight_np = (np.asarray(weight, dtype=np.float64)
+                          if weight is not None else None)
+        self.num_data = len(self.label_np)
+        self.device = torch.device(device)
+        self.label = torch.as_tensor(self.label_np.astype(np.float32),
+                                     device=self.device)
+        self.weight = (torch.as_tensor(self.weight_np.astype(np.float32),
+                                       device=self.device)
+                       if weight is not None else None)
+
+    def _apply_weight(self, grad, hess):
+        if self.weight is not None:
+            return grad * self.weight, hess * self.weight
+        return grad, hess
+
+    def get_grad_hess(self, score: torch.Tensor):
+        raise NotImplementedError
+
+    def boost_from_score(self, class_id: int = 0) -> float:
+        return 0.0
+
+    def convert_output(self, raw):
+        """Raw score -> output space, in the input's own dtype (numpy f64
+        for predictions and metrics)."""
+        return raw
+
+
+class RegressionL2(ObjectiveFunction):
+    """reference: regression_objective.hpp:93-201 (RegressionL2loss)."""
+    name = "regression"
+
+    def get_grad_hess(self, score):
+        return self._apply_weight(score - self.label, torch.ones_like(score))
+
+    def boost_from_score(self, class_id: int = 0) -> float:
+        # reference: regression_objective.hpp:173-198 (weighted mean label)
+        if self.weight_np is not None:
+            return float(np.sum(self.label_np * self.weight_np)
+                         / np.sum(self.weight_np))
+        return float(np.mean(self.label_np))
+
+
+class BinaryLogloss(ObjectiveFunction):
+    """reference: src/objective/binary_objective.hpp:21-199."""
+    name = "binary"
+
+    def __init__(self, config):
+        super().__init__(config)
+        self.sigmoid = float(config.sigmoid)
+        if self.sigmoid <= 0:
+            log.fatal(f"Sigmoid parameter {self.sigmoid} should be greater "
+                      f"than zero")
+
+    def init(self, label, weight, device="cpu"):
+        super().init(label, weight, device)
+        is_pos = self.label_np > 0
+        cnt_pos = int(np.sum(is_pos))
+        cnt_neg = self.num_data - cnt_pos
+        self.need_train = not (cnt_pos == 0 or cnt_neg == 0)
+        if not self.need_train:
+            log.warning("Contains only one class")
+        # label weights (binary_objective.hpp:88-102)
+        w_pos, w_neg = 1.0, 1.0
+        if self.config.is_unbalance and cnt_pos > 0 and cnt_neg > 0:
+            if cnt_pos > cnt_neg:
+                w_neg = cnt_pos / cnt_neg
+            else:
+                w_pos = cnt_neg / cnt_pos
+        w_pos *= self.config.scale_pos_weight
+        self._is_pos_np = is_pos
+        self.label_sign = torch.as_tensor(
+            np.where(is_pos, 1.0, -1.0).astype(np.float32), device=self.device)
+        self.label_weight = torch.as_tensor(
+            np.where(is_pos, w_pos, w_neg).astype(np.float32),
+            device=self.device)
+        log.info(f"Number of positive: {cnt_pos}, number of negative: "
+                 f"{cnt_neg}")
+
+    def get_grad_hess(self, score):
+        # reference: binary_objective.hpp:110-136
+        if not self.need_train:
+            return torch.zeros_like(score), torch.zeros_like(score)
+        sig = torch.tensor(self.sigmoid, dtype=torch.float32,
+                           device=score.device)
+        response = -self.label_sign * sig / (
+            1.0 + torch.exp(self.label_sign * sig * score))
+        abs_response = torch.abs(response)
+        g = response * self.label_weight
+        h = abs_response * (sig - abs_response) * self.label_weight
+        return self._apply_weight(g, h)
+
+    def boost_from_score(self, class_id: int = 0) -> float:
+        # reference: binary_objective.hpp:139-161
+        if self.weight_np is not None:
+            pavg = float(np.sum(self._is_pos_np * self.weight_np)
+                         / np.sum(self.weight_np))
+        else:
+            pavg = float(np.mean(self._is_pos_np))
+        pavg = min(max(pavg, K_EPSILON), 1.0 - K_EPSILON)
+        initscore = float(np.log(pavg / (1.0 - pavg)) / self.sigmoid)
+        log.info(f"[binary:BoostFromScore]: pavg={pavg:.6f} -> "
+                 f"initscore={initscore:.6f}")
+        return initscore
+
+    def convert_output(self, raw):
+        return 1.0 / (1.0 + np.exp(-self.sigmoid * np.asarray(raw)))
+
+
+_REGISTRY = {c.name: c for c in (RegressionL2, BinaryLogloss)}
+
+
+def create_objective(config) -> ObjectiveFunction:
+    """reference: src/objective/objective_function.cpp
+    CreateObjectiveFunction (regression and binary in this slice; Config
+    rejects the others)."""
+    if config.objective not in _REGISTRY:
+        raise NotImplementedError(
+            f"objective={config.objective!r} is not ported to "
+            f"lightgbm_tpu_torch yet; it arrives with ROADMAP.md Queue 1 "
+            f"item 10 (boosting modes and objectives)")
+    return _REGISTRY[config.objective](config)

@@ -1,0 +1,376 @@
+"""Hopper kernels of the histogram tile pass, their wrappers and plain versions.
+
+The port of lightgbm_tpu's ``ops/pallas_hist.py`` for the fused split path.
+On the TPU one Pallas kernel (``_fused_epi_kernel`` for full-row passes,
+``_gather_epi_kernel`` for compaction-rung passes) accumulates a tile's
+histogram planes in VMEM and runs the split epilogue on its last grid step.
+On Hopper that pipeline is two hand-written CUDA kernels (``csrc/``):
+
+- ``hist_tile`` (``csrc/hist_tile.cu``): the ``[P, F, B, 3]`` planes of the
+  tile's computed slots, in the full-row form (``idx=None``) or the gather
+  form (rows ``idx[M]``, entries >= N are padding);
+- ``split_epilogue`` (``csrc/split_epilogue.cu``): the derived slots'
+  planes as parent - computed sibling, then the numerical split scan
+  (``ops/split.py numerical_candidates``) -> the ``[P, F, 12]`` table.
+
+Each wrapper checks device, dtype, shape and contiguity, allocates its
+outputs, launches on the current stream, raises if the launch failed, and
+adds one to its ``launches`` counter. On a CPU tensor it runs the kernel's
+plain PyTorch version instead (``hist_tile_plain``, ``split_epilogue_plain``),
+and only then: on a CUDA tensor it launches the kernel or raises.
+
+The kernels are built from the package's sources on first use, with
+``nvcc`` into one shared library per source (both compiles started
+together) under ``lightgbm_tpu_torch/_build/``, and bound through
+``ctypes`` with a plain C interface -- no PyTorch headers, so a build takes
+seconds. ``nvcc`` runs with ``--fmad=false``: the epilogue's candidate
+table must be bitwise equal to the plain version's.
+
+The argument-layout helpers (``_chan_layout``, ``chan_leaf_table``,
+``_epilogue_lanes``, ``pack_leaf_aux``, ``pack_feature_meta``,
+``pack_scan_params``, ``structural_tile_leaves``) are the JAX package's, so
+the tables the kernels take compare one to one with the TPU kernels'.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+_PAD = 128                  # lane width of the TPU layout tables
+_STATS = 3                  # (grad, hess, count) per row
+MAX_BINS = 256              # split_epilogue: one thread per bin
+SMEM_PER_BLOCK = 232_448    # Hopper: dynamic shared memory a block can use
+_CSRC = Path(__file__).resolve().parent.parent / "csrc"
+_BUILD = Path(__file__).resolve().parent.parent / "_build"
+_SOURCES = ("hist_tile", "split_epilogue")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+              "--fmad=false", "-std=c++17", "-shared", "-Xcompiler",
+              "-fPIC", "-Xptxas", "-v")
+
+
+# ------------------------------------------------------------ layout helpers
+def _chan_layout(p: int, s: int):
+    """Static per-lane channel layout: lane q carries stat ``s_of_q[q]`` of
+    slot ``p_of_q[q]`` (q < p*s; higher lanes are dead padding)."""
+    q = np.arange(_PAD)
+    valid = q < p * s
+    p_of_q = np.where(valid, np.minimum(q // s, p - 1), 0)
+    s_of_q = np.where(valid, q % s, 0)
+    return p_of_q, s_of_q, valid
+
+
+def chan_leaf_table(sel: torch.Tensor, s: int = _STATS) -> torch.Tensor:
+    """[1, 128] int32: the leaf id each lane accumulates, -9 for dead
+    lanes. ``hist_tile`` reads the leaf of slot p at lane 3p."""
+    p = sel.shape[0]
+    p_of_q, _, valid = _chan_layout(p, s)
+    dev = sel.device
+    out = torch.where(torch.as_tensor(valid, device=dev),
+                      sel.to(torch.int32)[torch.as_tensor(p_of_q, device=dev)],
+                      torch.tensor(-9, dtype=torch.int32, device=dev))
+    return out[None, :].contiguous()
+
+
+def _epilogue_lanes(sel: torch.Tensor, derive: torch.Tensor,
+                    s: int = _STATS) -> torch.Tensor:
+    """[1, 128] int32 derive-lane table: lane q of a derived slot (sibling
+    at slot p-1) is 1. ``split_epilogue`` reads slot p at lane 3p."""
+    p = sel.shape[0]
+    p_of_q, _, valid = _chan_layout(p, s)
+    dev = sel.device
+    pq = torch.as_tensor(p_of_q, device=dev)
+    dl = (torch.as_tensor(valid, device=dev) & derive.to(torch.bool)[pq]
+          & (sel[pq] >= 0))
+    return dl.to(torch.int32)[None, :].contiguous()
+
+
+def pack_leaf_aux(sum_g, sum_h, cnt, output) -> torch.Tensor:
+    """[P, 8] f32 per-slot leaf aggregates (columns: sum_g, sum_h, cnt,
+    output, min, max, 0, 0; min/max are the unconstrained bounds)."""
+    p = sum_g.shape[0]
+    big = float(np.finfo(np.float32).max)
+    dev = sum_g.device
+    cols = [sum_g, sum_h, cnt, output,
+            torch.full((p,), -big, device=dev), torch.full((p,), big, device=dev),
+            torch.zeros((p,), device=dev), torch.zeros((p,), device=dev)]
+    return torch.stack([c.to(torch.float32) for c in cols], dim=1).contiguous()
+
+
+def pack_feature_meta(num_bins_f, missing_type_f, default_bin_f,
+                      monotone_f) -> torch.Tensor:
+    """[F, 8] f32 per-feature scan metadata (columns: num_bins,
+    missing_type, default_bin, monotone, 0...)."""
+    f = num_bins_f.shape[0]
+    cols = [num_bins_f, missing_type_f, default_bin_f, monotone_f]
+    cols = [c.to(torch.float32) for c in cols] + \
+        [torch.zeros((f,), device=num_bins_f.device)] * 4
+    return torch.stack(cols, dim=1).contiguous()
+
+
+def pack_scan_params(p) -> torch.Tensor:
+    """[8] f32 packed numerical-scan SplitParams (7 fields + one pad, the
+    TPU kernel's ``pv2d`` row)."""
+    vals = [p.lambda_l1, p.lambda_l2, p.max_delta_step, p.path_smooth,
+            p.min_data_in_leaf, p.min_sum_hessian_in_leaf,
+            p.min_gain_to_split]
+    out = torch.stack([torch.as_tensor(v, dtype=torch.float32) for v in vals])
+    return torch.cat([out, out.new_zeros((1,))]).contiguous()
+
+
+def structural_tile_leaves(stats_channels: int = _STATS) -> int:
+    """The widest leaf tile whose (slot x stat) channels fit the 128-lane
+    layout tables: 42 slots of 3 stats."""
+    return max(1, _PAD // max(stats_channels, 1))
+
+
+# --------------------------------------------------------------------- build
+_libs: Dict[str, ctypes.CDLL] = {}
+build_log: Dict[str, str] = {}      # source name -> nvcc output (ptxas -v)
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("building the CUDA kernels needs nvcc (CUDA toolkit), "
+                       "which was not found on PATH or in /usr/local/cuda")
+
+
+def _lib_path(name: str) -> Path:
+    src = (_CSRC / f"{name}.cu").read_bytes()
+    key = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return _BUILD / f"lib{name}_{key}.so"
+
+
+def build_kernels() -> float:
+    """Compile every kernel source that has no up-to-date library, one
+    ``nvcc`` per source, all started together; load them. Returns the
+    seconds spent."""
+    t0 = time.time()
+    _BUILD.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in _SOURCES:
+        if name in _libs:
+            continue
+        out = _lib_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".tmp{os.getpid()}.so")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out)
+    for name, (proc, tmp, out) in procs.items():
+        text, _ = proc.communicate()
+        build_log[name] = text
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on csrc/{name}.cu:\n{text}")
+        os.replace(tmp, out)
+    for name in _SOURCES:
+        if name not in _libs:
+            _libs[name] = _bind(name, ctypes.CDLL(str(_lib_path(name))))
+    return time.time() - t0
+
+
+def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    if name == "hist_tile":
+        lib.hist_tile_launch.argtypes = [vp] * 7 + [ci] * 7 + [vp]
+        lib.hist_tile_launch.restype = ci
+    else:
+        lib.split_epilogue_launch.argtypes = [vp] * 8 + [ci] * 3 + [vp]
+        lib.split_epilogue_launch.restype = ci
+    return lib
+
+
+def _lib(name: str) -> ctypes.CDLL:
+    if name not in _libs:
+        build_kernels()
+    return _libs[name]
+
+
+def _check(cond: bool, what: str) -> None:
+    if not cond:
+        raise ValueError(what)
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def _raise_on(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+
+
+# ------------------------------------------------------------------ hist_tile
+def hist_tile_plain(binsT: torch.Tensor, leaf_ids: torch.Tensor,
+                    stats: torch.Tensor, chan: torch.Tensor, num_slots: int,
+                    num_bins: int, num_leaves: int,
+                    idx: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain version of ``hist_tile``: one flat ``index_add_`` over the
+    kept rows in row order -- on the CPU bitwise equal to the JAX package's
+    ``histogram_scatter`` / scatter-method tile. Returns [P, F, B, 3] f32."""
+    f, n = binsT.shape
+    dev = binsT.device
+    rows = (torch.arange(n, device=dev) if idx is None
+            else idx[idx < n].to(torch.int64))
+    slot_of_leaf = torch.full((num_leaves + 1,), -1, dtype=torch.int64,
+                              device=dev)
+    lane_leaf = chan.reshape(-1)[0:num_slots * _STATS:_STATS].to(torch.int64)
+    ok = lane_leaf >= 0
+    slot_of_leaf[torch.where(ok, lane_leaf, num_leaves)] = torch.where(
+        ok, torch.arange(num_slots, device=dev), -1)
+    slot_of_leaf[num_leaves] = -1
+    lid = leaf_ids[rows].to(torch.int64)
+    slot = slot_of_leaf[torch.where((lid >= 0) & (lid < num_leaves), lid,
+                                    num_leaves)]
+    keep = slot >= 0
+    rows, slot = rows[keep], slot[keep]
+    flat = ((slot[:, None] * f + torch.arange(f, device=dev)[None, :])
+            * num_bins + binsT[:, rows].T.to(torch.int64))
+    contrib = stats[rows].to(torch.float32)[:, None, :].expand(
+        rows.shape[0], f, _STATS).reshape(-1, _STATS)
+    hist = torch.zeros((num_slots * f * num_bins, _STATS),
+                       dtype=torch.float32, device=dev)
+    hist.index_add_(0, flat.reshape(-1), contrib)
+    return hist.reshape(num_slots, f, num_bins, _STATS)
+
+
+def _hist_chunks(f: int, m: int, dev: torch.device) -> int:
+    """Row chunks per feature: one wave of blocks over the card's SMs (one
+    block per SM fits at the main path's shared-memory size), no chunk
+    under 1024 rows."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return int(max(1, min(max(1, sms // max(f, 1)), -(-m // 1024))))
+
+
+def hist_tile(binsT: torch.Tensor, leaf_ids: torch.Tensor,
+              stats: torch.Tensor, chan: torch.Tensor, num_slots: int,
+              num_bins: int, num_leaves: int,
+              idx: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """[P, F, B, 3] histogram planes of the computed slots (see the module
+    docstring). ``binsT`` [F, N] uint8, ``leaf_ids`` [N] int32, ``stats``
+    [N, 3] f32, ``chan`` [1, 128] int32 (chan_leaf_table of the computed
+    selection), ``idx`` [M] int32 or None."""
+    if binsT.device.type == "cpu":
+        return hist_tile_plain(binsT, leaf_ids, stats, chan, num_slots,
+                               num_bins, num_leaves, idx)
+    _check(binsT.device.type == "cuda", f"hist_tile: no kernel for device "
+           f"{binsT.device}")
+    f, n = binsT.shape
+    dev = binsT.device
+    for name, t, dt in (("binsT", binsT, torch.uint8),
+                        ("leaf_ids", leaf_ids, torch.int32),
+                        ("stats", stats, torch.float32),
+                        ("chan", chan, torch.int32)) + (
+            (("idx", idx, torch.int32),) if idx is not None else ()):
+        _check(t.device == dev, f"hist_tile: {name} on {t.device}, binsT on "
+               f"{dev}")
+        _check(t.dtype == dt, f"hist_tile: {name} must be {dt}, got {t.dtype}")
+        _check(t.is_contiguous(), f"hist_tile: {name} must be contiguous")
+    _check(leaf_ids.shape == (n,), f"hist_tile: leaf_ids {tuple(leaf_ids.shape)}"
+           f" != ({n},)")
+    _check(stats.shape == (n, _STATS), f"hist_tile: stats "
+           f"{tuple(stats.shape)} != ({n}, 3)")
+    _check(chan.numel() == _PAD, "hist_tile: chan must hold 128 lanes")
+    _check(1 <= num_slots and num_slots * _STATS <= _PAD,
+           f"hist_tile: {num_slots} slots exceed the 128-lane tables")
+    _check(1 <= num_bins <= MAX_BINS, f"hist_tile: num_bins {num_bins} "
+           f"outside [1, {MAX_BINS}]")
+    _check(n < 2 ** 31, "hist_tile: more than 2^31 rows")
+    smem = num_slots * num_bins * _STATS * 4 + num_leaves * 4
+    _check(smem <= SMEM_PER_BLOCK, f"hist_tile: {num_slots} slots x "
+           f"{num_bins} bins + {num_leaves} leaves need {smem} bytes of "
+           f"shared memory, more than a block's {SMEM_PER_BLOCK}")
+    m = n if idx is None else idx.shape[0]
+    out = torch.empty((num_slots, f, num_bins, _STATS), dtype=torch.float32,
+                      device=dev)
+    if m == 0 or f == 0:
+        return out.zero_()
+    nchunk = _hist_chunks(f, m, dev)
+    partial = torch.empty((nchunk,) + tuple(out.shape), dtype=torch.float32,
+                          device=dev)
+    err = _lib("hist_tile").hist_tile_launch(
+        _ptr(binsT), _ptr(leaf_ids), _ptr(stats), _ptr(chan), _ptr(idx),
+        _ptr(partial), _ptr(out), n, f, m, num_slots, num_bins, num_leaves,
+        nchunk, torch.cuda.current_stream(dev).cuda_stream)
+    hist_tile.launches += 1
+    if idx is not None:
+        hist_tile.gather_launches += 1
+    _raise_on(err, "hist_tile")
+    return out
+
+
+hist_tile.launches = 0
+hist_tile.gather_launches = 0
+
+
+# ------------------------------------------------------------- split_epilogue
+def split_epilogue_plain(tile: torch.Tensor, parent: torch.Tensor,
+                         der: torch.Tensor, la: torch.Tensor, fm: torch.Tensor,
+                         pv: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of ``split_epilogue``: ops/histogram.py
+    ``derive_and_scan`` with the derived slots read from the lane table.
+    Returns (full planes [P, F, B, 3], cand [P, F, 12])."""
+    from .histogram import derive_and_scan
+    p = tile.shape[0]
+    derive = der.reshape(-1)[0:p * _STATS:_STATS] != 0
+    return derive_and_scan(tile, derive, parent, la, fm, pv)
+
+
+def split_epilogue(tile: torch.Tensor, parent: torch.Tensor,
+                   der: torch.Tensor, la: torch.Tensor, fm: torch.Tensor,
+                   pv: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Derive + numerical split scan of one tile (see the module
+    docstring). ``tile``/``parent`` [P, F, B, 3] f32, ``der`` [1, 128] int32
+    (_epilogue_lanes), ``la`` [P, 8], ``fm`` [F, 8], ``pv`` [8] f32.
+    Returns (full planes [P, F, B, 3], cand [P, F, 12])."""
+    if tile.device.type == "cpu":
+        return split_epilogue_plain(tile, parent, der, la, fm, pv)
+    _check(tile.device.type == "cuda", f"split_epilogue: no kernel for "
+           f"device {tile.device}")
+    dev = tile.device
+    p, f, b, s = tile.shape
+    for name, t, dt, shape in (("tile", tile, torch.float32, (p, f, b, 3)),
+                               ("parent", parent, torch.float32, (p, f, b, 3)),
+                               ("der", der, torch.int32, (1, _PAD)),
+                               ("la", la, torch.float32, (p, 8)),
+                               ("fm", fm, torch.float32, (f, 8)),
+                               ("pv", pv, torch.float32, (8,))):
+        _check(t.device == dev, f"split_epilogue: {name} on {t.device}")
+        _check(t.dtype == dt, f"split_epilogue: {name} must be {dt}")
+        _check(tuple(t.shape) == shape, f"split_epilogue: {name} "
+               f"{tuple(t.shape)} != {shape}")
+        _check(t.is_contiguous(), f"split_epilogue: {name} not contiguous")
+    _check(s == _STATS and p * _STATS <= _PAD and 1 <= b <= MAX_BINS,
+           f"split_epilogue: tile shape {tuple(tile.shape)} unsupported")
+    from .split import CAND_CHANNELS
+    full = torch.empty_like(tile)
+    cand = torch.empty((p, f, CAND_CHANNELS), dtype=torch.float32, device=dev)
+    err = _lib("split_epilogue").split_epilogue_launch(
+        _ptr(tile), _ptr(parent), _ptr(der), _ptr(la), _ptr(fm), _ptr(pv),
+        _ptr(full), _ptr(cand), p, f, b,
+        torch.cuda.current_stream(dev).cuda_stream)
+    split_epilogue.launches += 1
+    _raise_on(err, "split_epilogue")
+    return full, cand
+
+
+split_epilogue.launches = 0
+
+
+def reset_launch_counts() -> None:
+    hist_tile.launches = 0
+    hist_tile.gather_launches = 0
+    split_epilogue.launches = 0

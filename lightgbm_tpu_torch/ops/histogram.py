@@ -1,0 +1,100 @@
+"""Per-leaf gradient-statistics histograms for a tile of leaves.
+
+The port of lightgbm_tpu's ``ops/histogram.py`` for the fused split path.
+A tile pass builds the ``[P, F, B, 3]`` (grad, hess, count) planes of up to
+P pending leaves in one data pass and reduces each (leaf, feature) to its
+best numerical split candidate:
+
+- on a CUDA tensor through the two Hopper kernels of ``ops/cuda_hist.py``
+  (``hist_tile`` then ``split_epilogue``);
+- on a CPU tensor through their plain versions: a flat ``index_add_``
+  (bitwise equal to the JAX package's ``histogram_scatter``) and
+  ``derive_and_scan`` (the JAX package's XLA twin of the in-kernel epilogue,
+  the same ops in the same order).
+
+The compaction ladder's row-index buffer (``compact_indices``) selects the
+gather form of the pass.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from ..config import HIST_METHODS
+from . import cuda_hist
+from .split import SplitParams, numerical_candidates
+
+
+def resolve_method(method: str, device: torch.device) -> str:
+    """Map ``histogram_method`` onto the port's one histogram path:
+    ``"cuda"`` (the Hopper kernels) on a CUDA device, ``"plain"`` (their
+    plain PyTorch versions) on the CPU. ``pallas`` and ``pallas_hilo`` both
+    mean the f32 kernel here: the TPU's bf16 hi/lo split is an MXU device,
+    and Hopper accumulates true f32 (within hilo's documented ~2^-17)."""
+    if method not in HIST_METHODS:
+        raise NotImplementedError(
+            f"histogram_method={method!r} is not ported to lightgbm_tpu_torch "
+            f"yet (the port has {', '.join(HIST_METHODS)})")
+    return "cuda" if torch.device(device).type == "cuda" else "plain"
+
+
+def compact_indices(keep: torch.Tensor, size: int) -> torch.Tensor:
+    """[size] int32 indices of the ``keep`` rows in original row order,
+    padded with N (the compaction ladder's row-index buffer). The caller
+    guarantees ``keep.sum() <= size``."""
+    n = keep.shape[0]
+    out = torch.full((size,), n, dtype=torch.int32, device=keep.device)
+    nz = torch.nonzero(keep).reshape(-1)
+    out[:nz.shape[0]] = nz.to(torch.int32)
+    return out
+
+
+def histogram_tiles(binsT: torch.Tensor, stats: torch.Tensor,
+                    leaf_ids: torch.Tensor, sel: torch.Tensor, num_bins: int,
+                    num_leaves: int,
+                    gather_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """[P, F, B, 3] planes: slot p accumulates the rows whose leaf is
+    ``sel[p]`` (< 0 = inactive slot, zero output); ``gather_idx`` restricts
+    the pass to those rows (entries >= N are padding)."""
+    chan = cuda_hist.chan_leaf_table(sel)
+    return cuda_hist.hist_tile(binsT, leaf_ids, stats, chan, sel.shape[0],
+                               num_bins, num_leaves, gather_idx)
+
+
+def derive_and_scan(tile, derive, parent_planes, leaf_aux, fmeta, pvec
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The split epilogue at plane level: derive the odd slots' planes as
+    parent - computed sibling (a one-slot roll, the TPU kernel's static
+    lane shift), then scan every slot to its per-feature best candidate.
+    Returns (full planes, cand [P, F, 12])."""
+    params = SplitParams.from_packed(pvec.to(torch.float32))
+    tile = tile.to(torch.float32)
+    shifted = torch.cat([torch.zeros_like(tile[:1]), tile[:-1]], dim=0)
+    full = torch.where(derive.to(torch.bool)[:, None, None, None],
+                       parent_planes.to(torch.float32) - shifted, tile)
+    la = leaf_aux.to(torch.float32)
+    fm = fmeta.to(torch.float32)
+    cand = numerical_candidates(
+        full, la[:, 0], la[:, 1], la[:, 2], la[:, 3],
+        fm[:, 0].to(torch.int32), fm[:, 1].to(torch.int32),
+        fm[:, 2].to(torch.int32), params)
+    return full, cand
+
+
+def histogram_tiles_with_candidates(binsT, stats, leaf_ids, sel, derive,
+                                    parent_planes, leaf_aux, fmeta, pvec,
+                                    num_bins: int, num_leaves: int,
+                                    gather_idx=None):
+    """Histogram tile pass + split epilogue: the computed (even) slots are
+    histogrammed, the derived (odd) slots come from parent - sibling, and
+    every (leaf, feature) reduces to its best candidate. Returns (tile
+    [P, F, B, 3] with the derived planes filled in, cand [P, F, 12])."""
+    sel_compute = torch.where(derive, torch.full_like(sel, -1), sel)
+    tile = histogram_tiles(binsT, stats, leaf_ids, sel_compute, num_bins,
+                           num_leaves, gather_idx)
+    der = cuda_hist._epilogue_lanes(sel, derive)
+    return cuda_hist.split_epilogue(tile, parent_planes.contiguous(), der,
+                                    leaf_aux.contiguous(), fmeta.contiguous(),
+                                    pvec.contiguous())

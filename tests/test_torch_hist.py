@@ -1,0 +1,163 @@
+"""Histogram tile pass of the PyTorch port (lightgbm_tpu_torch/ops/cuda_hist.py
+and ops/histogram.py) against the JAX package.
+
+The port's ``hist_tile_plain`` (the plain version of the Hopper ``hist_tile``
+kernel, and the CPU path of the ``hist_tile`` wrapper) is held to:
+
+- the JAX Pallas kernel ``histogram_tiles_pallas_mode(mode="highest")`` run
+  through the Pallas interpreter, full-row and gather forms: bitwise on
+  integer-valued stats, whose sums are exact in any order (the JAX package's
+  parity contract);
+- the JAX ``histogram_scatter`` on full-mantissa float stats: bitwise (one
+  flat scatter-add in row order on both sides);
+
+plus the argument-layout tables the kernels take, which must equal the JAX
+package's one to one. The kernel itself needs the card: it is held to its
+plain version by tests/test_torch_cuda.py and by ``chip_smoke.py``.
+"""
+
+import numpy as np
+import pytest
+
+import jax.numpy as jnp
+import torch
+
+from lightgbm_tpu.ops import pallas_hist as jph
+from lightgbm_tpu.ops.histogram import compact_indices as j_compact
+from lightgbm_tpu.ops.histogram import histogram_scatter
+from lightgbm_tpu_torch.ops import cuda_hist
+from lightgbm_tpu_torch.ops.histogram import (compact_indices,
+                                              histogram_tiles, resolve_method)
+
+# one intra-op thread: the suite runs in worker processes that share the cores
+torch.set_num_threads(1)
+
+SEL = np.array([0, 2, 5, 7, 9, 11, -1, -1], np.int32)
+
+
+def _mk(n, f, b, n_leaves=12, seed=0, representable=True):
+    rng = np.random.RandomState(seed)
+    binsT = rng.randint(0, b, size=(f, n)).astype(np.uint8)
+    if representable:
+        stats = (rng.randint(-1023, 1024, size=(n, 3)) / 1024.0
+                 ).astype(np.float32)
+    else:
+        stats = rng.randn(n, 3).astype(np.float32)
+    stats[:, 2] = 1.0
+    leaf = rng.randint(0, n_leaves, n).astype(np.int32)
+    return binsT, stats, leaf
+
+
+def _port_tile(binsT, stats, leaf, sel, b, n_leaves, idx=None):
+    return histogram_tiles(
+        torch.from_numpy(binsT), torch.from_numpy(stats),
+        torch.from_numpy(leaf), torch.from_numpy(sel), b, n_leaves,
+        None if idx is None else torch.from_numpy(idx)).numpy()
+
+
+def _bits_equal(a, b):
+    np.testing.assert_array_equal(np.asarray(a).view(np.uint32),
+                                  np.asarray(b).view(np.uint32))
+
+
+@pytest.mark.parametrize("n,f,b", [(1000, 3, 63), (1537, 4, 16),
+                                   (700, 2, 255)])
+def test_full_form_matches_pallas_highest(n, f, b):
+    binsT, stats, leaf = _mk(n, f, b)
+    ref = jph.histogram_tiles_pallas_mode(
+        jnp.asarray(binsT), jnp.asarray(stats), jnp.asarray(leaf),
+        jnp.asarray(SEL), b, block=512, mode="highest", interpret=True)
+    _bits_equal(_port_tile(binsT, stats, leaf, SEL, b, 12), ref)
+
+
+@pytest.mark.parametrize("keep_frac,size_pad", [(0.5, 0), (0.125, 37)])
+def test_gather_form_matches_pallas_highest(keep_frac, size_pad):
+    n, f, b = 1300, 3, 63
+    binsT, stats, leaf = _mk(n, f, b, seed=1)
+    rng = np.random.RandomState(2)
+    keep = rng.rand(n) < keep_frac
+    size = int(keep.sum()) + size_pad       # padded with N
+    idx = np.asarray(j_compact(jnp.asarray(keep), size))
+    ref = jph.histogram_tiles_pallas_mode(
+        jnp.asarray(binsT), jnp.asarray(stats), jnp.asarray(leaf),
+        jnp.asarray(SEL), b, block=256, mode="highest",
+        idx=jnp.asarray(idx), interpret=True)
+    _bits_equal(_port_tile(binsT, stats, leaf, SEL, b, 12, idx), ref)
+
+
+@pytest.mark.parametrize("n_leaves", [4, 31])
+def test_plain_matches_histogram_scatter_on_float_stats(n_leaves):
+    n, f, b = 4000, 5, 63
+    binsT, stats, leaf = _mk(n, f, b, n_leaves=n_leaves, seed=3,
+                             representable=False)
+    ref = histogram_scatter(jnp.asarray(binsT.T), jnp.asarray(stats),
+                            jnp.asarray(leaf), n_leaves, b)
+    sel = np.arange(n_leaves, dtype=np.int32)
+    _bits_equal(_port_tile(binsT, stats, leaf, sel, b, n_leaves), ref)
+
+
+def test_compact_indices_match():
+    keep = np.random.RandomState(4).rand(999) < 0.3
+    size = int(keep.sum()) + 11
+    np.testing.assert_array_equal(
+        compact_indices(torch.from_numpy(keep), size).numpy(),
+        np.asarray(j_compact(jnp.asarray(keep), size)))
+
+
+@pytest.mark.parametrize("derive", [[0, 1, 0, 1, 0, 0, 0, 0],
+                                    [0, 0, 0, 0, 0, 0, 0, 0]])
+def test_lane_tables_match(derive):
+    derive = np.asarray(derive, bool)
+    sel = torch.from_numpy(SEL)
+    np.testing.assert_array_equal(
+        cuda_hist.chan_leaf_table(sel).numpy(),
+        np.asarray(jph.chan_leaf_table(jnp.asarray(SEL), 3)))
+    dl, _ = jph._epilogue_lanes(jnp.asarray(SEL), jnp.asarray(derive), 3)
+    np.testing.assert_array_equal(
+        cuda_hist._epilogue_lanes(sel, torch.from_numpy(derive)).numpy(),
+        np.asarray(dl))
+
+
+def test_pack_tables_match():
+    rng = np.random.RandomState(5)
+    cols = [rng.randn(6).astype(np.float32) for _ in range(4)]
+    _bits_equal(cuda_hist.pack_leaf_aux(*map(torch.from_numpy, cols)),
+                jph.pack_leaf_aux(*map(jnp.asarray, cols)))
+    meta = [np.array([63, 2, 17], np.int32), np.array([0, 2, 1], np.int32),
+            np.array([3, 0, 5], np.int32), np.zeros(3, np.int32)]
+    _bits_equal(cuda_hist.pack_feature_meta(*map(torch.from_numpy, meta)),
+                jph.pack_feature_meta(*map(jnp.asarray, meta)))
+    assert cuda_hist.structural_tile_leaves() == jph.structural_tile_leaves()
+
+
+def test_wrapper_on_cpu_runs_plain_version_and_counts_no_launch():
+    binsT, stats, leaf = _mk(500, 2, 15, seed=6)
+    chan = cuda_hist.chan_leaf_table(torch.from_numpy(SEL))
+    cuda_hist.reset_launch_counts()
+    args = (torch.from_numpy(binsT), torch.from_numpy(leaf),
+            torch.from_numpy(stats), chan, len(SEL), 15, 12)
+    out = cuda_hist.hist_tile(*args)
+    _bits_equal(out.numpy(), cuda_hist.hist_tile_plain(*args).numpy())
+    assert cuda_hist.hist_tile.launches == 0
+
+
+def test_wrapper_refuses_a_device_it_has_no_kernel_for():
+    meta = torch.empty((2, 8), dtype=torch.uint8, device="meta")
+    with pytest.raises(ValueError, match="no kernel for device"):
+        cuda_hist.hist_tile(meta, torch.empty(8, dtype=torch.int32),
+                            torch.empty(8, 3), torch.empty(1, 128,
+                                                           dtype=torch.int32),
+                            1, 4, 2)
+
+
+@pytest.mark.parametrize("method,device,want", [
+    ("auto", "cpu", "plain"), ("pallas", "cpu", "plain"),
+    ("pallas_hilo", "cuda", "cuda"), ("auto", "cuda", "cuda")])
+def test_resolve_method(method, device, want):
+    assert resolve_method(method, torch.device(device)) == want
+
+
+@pytest.mark.parametrize("method", ["scatter", "onehot", "pallas_q8"])
+def test_resolve_method_rejects_unported(method):
+    with pytest.raises(NotImplementedError, match=method):
+        resolve_method(method, torch.device("cpu"))
