@@ -12,21 +12,41 @@ script exits non-zero; nothing is caught):
   hist_tile       full-row form at the train phase's shapes (N=--rows,
                   F=28, B=255, 255 leaves, a 42-slot tile of 21 computed
                   leaves): bitwise vs the plain version on integer-valued
-                  stats, within 1e-5 of the summed magnitudes on float stats;
-                  kernel / plain / index_add_ times and the bound
+                  stats, within 1e-5 of the summed magnitudes on float stats,
+                  bitwise equal to hist_tile_exact (its own fixed-point
+                  arithmetic in plain torch) and to a second launch on float
+                  stats (deterministic); kernel / plain / index_add_ times
+                  and the bound
   hist_tile_gather the gather form over the trainer's two compaction rungs
                   (N/2 and N/8 rounded up to 64 rows)
   split_epilogue  P=42, F=28, B=255 with derived slots: bitwise vs plain
   train           lightgbm_tpu_torch.train, binary, 255 leaves, max_bin 255,
                   lr 0.1, on Higgs-shaped data made from --seed (2M train,
-                  200k valid rows, 5 rounds): sec/iter, valid AUC (> 0.6),
-                  rows read per tree and each kernel's launches on this run
-                  (both hist_tile forms and split_epilogue must launch, at
-                  the shapes the kernel phases checked)
+                  200k valid rows, 5 rounds; the fused split path):
+                  sec/iter, valid AUC (> 0.6), rows read per tree and each
+                  kernel's launches on this run (both hist_tile forms and
+                  split_epilogue must launch, at the shapes the kernel
+                  phases checked)
   parity          the same training at 50,000 x 28, 63 leaves, 3 rounds on
                   the card and on the CPU plain path: same split features
-                  and thresholds, leaf values within 1e-4; whether two card
-                  runs give the same model text
+                  and thresholds, leaf values within 1e-4; two card runs,
+                  and a CPU run with the kernel's fixed-point sums
+                  (kernel_sums_on_cpu), give identical model text
+  hist_plane      the plane-only launch (the classic path's kernels 3-4)
+                  at train_cat's shapes (N=--rows, F=8, B=255, 42 computed
+                  slots): full form and both rungs, the hist_tile checks
+  train_cat       the classic split path: binary, 255 leaves, lr 0.1, on
+                  Expo-shaped (airline on-time) data made from --seed, six
+                  categorical columns (2M train, 200k valid rows, 5 rounds):
+                  sec/iter, valid AUC (> 0.6), categorical nodes (> 0), the
+                  plane-only launches (> 0) and no split_epilogue launch
+  parity_cat,     the classic path at 50,000 rows, 3 rounds, card vs CPU:
+  parity_sparse   Expo-shaped at 63 leaves, and 28 Higgs-shaped columns of
+                  which 4 are >= 90% zeros (sparse device columns): two
+                  card runs and the kernel-sums CPU run identical; against
+                  the CPU's float32 sums the first tree that differs (a
+                  near-tie among categories can flip when the sums differ
+                  in the last bit) and the leaf error before it
 
 then a ``kernels`` line, nvidia-smi's ``name, power.limit`` line, and last
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 1 and
@@ -39,6 +59,7 @@ limit.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import statistics
@@ -52,8 +73,10 @@ import torch
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 F32_FLOP_PER_S = 67e12         # float32 outside the tensor cores
 # the main path's kernel shapes: Higgs width, max_bin 255, 255 leaves, the
-# grower's 42-slot tile (train_phase checks the trainer used these)
+# grower's 42-slot tile (train_phase checks the trainer used these); the
+# classic path's: the Expo width of 8 columns, all 42 slots computed
 F, B, LEAVES, P = 28, 255, 255, 42
+F_CAT = 8
 
 
 def emit(phase: str, **kw) -> None:
@@ -123,20 +146,23 @@ def ladder_rungs(n: int):
     return [-(-max(int(round(n * fr)), 1) // 64) * 64 for fr in (0.125, 0.5)]
 
 
-def tile_selection():
-    """A tile as the grower hands it to hist_tile: P slots, the computed
-    smaller sibling of each pair in the even slot, the odd (derived) slot
-    -1 -- 21 computed leaves out of LEAVES."""
+def tile_selection(plane=False):
+    """A tile as the grower hands it to hist_tile. Fused path: P slots, the
+    computed smaller sibling of each pair in the even slot, the odd
+    (derived) slot -1 -- 21 computed leaves out of LEAVES. Classic path
+    (``plane``): all P slots computed."""
+    if plane:
+        return torch.arange(P, dtype=torch.int32) * (LEAVES // P)
     sel = torch.full((P,), -1, dtype=torch.int32)
     sel[0::2] = torch.arange(P // 2, dtype=torch.int32) * (LEAVES // (P // 2))
     return sel
 
 
-def hist_inputs(n, seed, integer, tile_leaves, share):
+def hist_inputs(n, f, seed, integer, tile_leaves, share):
     """Random rows over LEAVES leaves, ``share`` of them in the tile's
     computed leaves."""
     g = torch.Generator(device="cuda").manual_seed(seed)
-    binsT = torch.randint(0, B, (F, n), generator=g, device="cuda",
+    binsT = torch.randint(0, B, (f, n), generator=g, device="cuda",
                           dtype=torch.int32).to(torch.uint8)
     others = torch.ones(LEAVES, dtype=torch.bool)
     others[tile_leaves.long()] = False
@@ -161,20 +187,23 @@ def hist_inputs(n, seed, integer, tile_leaves, share):
     return binsT, leaf, stats.contiguous()
 
 
-def hist_phase(cuda_hist, n, m=None, seed=0):
+def hist_phase(cuda_hist, n, m=None, seed=0, f=F, plane=False):
     """Kernel vs plain on integer-valued and float stats at the shapes of
     one main-path pass: the full form (``m`` None; 3/4 of the rows in the
     tile, as when a full pass is taken) or the gather form over a rung of
     ``m`` rows holding the tile's rows (9/10 of the rung) in row order,
-    padded with N, as the grower builds it."""
+    padded with N, as the grower builds it. ``plane``: the classic path's
+    plane-only launch (all slots computed). Two launches on float stats
+    must give the same bits."""
     from lightgbm_tpu_torch.ops.histogram import compact_indices
-    sel = tile_selection()
+    sel = tile_selection(plane)
     tile_leaves = sel[sel >= 0]
     chan = cuda_hist.chan_leaf_table(sel).cuda()
     share = 0.75 if m is None else 0.9 * m / n
     out = {}
     for integer in (True, False):
-        binsT, leaf, stats = hist_inputs(n, seed, integer, tile_leaves, share)
+        binsT, leaf, stats = hist_inputs(n, f, seed, integer, tile_leaves,
+                                         share)
         in_tile = torch.isin(leaf, tile_leaves.cuda())
         n_tile = int(in_tile.sum())
         idx = None
@@ -184,7 +213,7 @@ def hist_phase(cuda_hist, n, m=None, seed=0):
                                      f"{m}-row rung")
             idx = compact_indices(in_tile, m)
         args = (binsT, leaf, stats, chan, P, B, LEAVES, idx)
-        k = cuda_hist.hist_tile(*args)
+        k = cuda_hist.hist_tile(*args, plane=plane)
         p = cuda_hist.hist_tile_plain(*args)
         torch.cuda.synchronize()
         if integer:
@@ -193,10 +222,22 @@ def hist_phase(cuda_hist, n, m=None, seed=0):
                                      "plain version on integer-valued stats")
             out["int_max_abs_err"] = float((k - p).abs().max())
             continue
+        again = cuda_hist.hist_tile(*args, plane=plane)
+        exact = cuda_hist.hist_tile_exact(*args)
+        torch.cuda.synchronize()
+        if not torch.equal(k.view(torch.int32), again.view(torch.int32)):
+            raise AssertionError("two hist_tile launches on the same float "
+                                 "stats differ")
+        if not torch.equal(k.view(torch.int32), exact.view(torch.int32)):
+            raise AssertionError("hist_tile is not bitwise equal to "
+                                 "hist_tile_exact (its own arithmetic in "
+                                 "plain PyTorch) on float stats")
+        out["deterministic"] = True
+        out["bitwise_vs_exact"] = True
         mag = cuda_hist.hist_tile_plain(binsT, leaf, stats.abs(), chan, P, B,
                                         LEAVES, idx)
         out["max_abs_err"] = float_err(k, p, mag)
-        out["ms"] = time_ms(lambda: cuda_hist.hist_tile(*args))
+        out["ms"] = time_ms(lambda: cuda_hist.hist_tile(*args, plane=plane))
         out["plain_ms"] = time_ms(lambda: cuda_hist.hist_tile_plain(*args),
                                   reps=10, warm=1)
         # one PyTorch call computing the same function: index_add_ over the
@@ -207,18 +248,18 @@ def hist_phase(cuda_hist, n, m=None, seed=0):
         slot_of_leaf[tile_leaves.long().cuda()] = \
             torch.nonzero(sel >= 0).reshape(-1).cuda()
         s = slot_of_leaf[leaf[r].long()]
-        flat = ((s[:, None] * F + torch.arange(F, device="cuda")[None, :]) * B
+        flat = ((s[:, None] * f + torch.arange(f, device="cuda")[None, :]) * B
                 + binsT[:, r].T.long()).reshape(-1)
-        contrib = stats[r][:, None, :].expand(r.shape[0], F, 3).reshape(-1, 3)
-        acc = torch.zeros((P * F * B, 3), device="cuda")
+        contrib = stats[r][:, None, :].expand(r.shape[0], f, 3).reshape(-1, 3)
+        acc = torch.zeros((P * f * B, 3), device="cuda")
         out["library_ms"] = time_ms(lambda: acc.index_add_(0, flat, contrib))
         # least traffic: the row-index buffer (gather form), the leaf id of
         # every row it names, the bins and stats of the tile's rows, the
         # planes written once; one add per (tile row, feature, stat)
         scanned = n if idx is None else n_tile
         nbytes = (0 if idx is None else 4 * m) + 4 * scanned \
-            + n_tile * (F + 12) + P * F * B * 3 * 4
-        out["bound_ms"], out["bound_by"] = bound(nbytes, 3 * n_tile * F)
+            + n_tile * (f + 12) + P * f * B * 3 * 4
+        out["bound_ms"], out["bound_by"] = bound(nbytes, 3 * n_tile * f)
         out["rows"], out["tile_rows"] = (n if m is None else m), n_tile
     return out
 
@@ -342,6 +383,7 @@ def train_phase(lgb, cuda_hist, args):
     wall = time.time() - t0
     launches = {"hist_tile": cuda_hist.hist_tile.launches,
                 "hist_tile_gather": cuda_hist.hist_tile.gather_launches,
+                "hist_tile_plane": cuda_hist.hist_tile.launches_plane,
                 "split_epilogue": cuda_hist.split_epilogue.launches}
     valid_auc = evals["valid"]["auc"][-1]
     check_auc = auc(booster.predict(Xv, raw_score=True), yv)
@@ -370,8 +412,9 @@ def train_phase(lgb, cuda_hist, args):
     out["kernel_shapes"] = shapes
     if launches["hist_tile_gather"] <= 0 or \
             launches["hist_tile"] - launches["hist_tile_gather"] <= 0 or \
-            launches["split_epilogue"] <= 0:
-        raise AssertionError(f"the main path missed a kernel: {launches}")
+            launches["split_epilogue"] <= 0 or launches["hist_tile_plane"]:
+        raise AssertionError(f"the main path missed a kernel or left the "
+                             f"fused path: {launches}")
     # the valid-score cache adds float32 tree outputs, predict accumulates
     # in float64: scores that tie in one may not in the other
     if not (valid_auc > 0.6 and abs(valid_auc - check_auc) < 1e-3):
@@ -421,28 +464,177 @@ def profile_iteration(booster, sec_per_iter: float):
     return out
 
 
-def parity_phase(lgb, seed):
+def expo_like(n: int, seed: int):
+    """Expo-shaped data (the airline on-time set of LightGBM's categorical
+    benchmark, docs/Experiments.rst), its 8 columns in its order: Month
+    (12), DayofMonth (31), DayOfWeek (7), DepTime (hhmm), UniqueCarrier
+    (22), Origin and Dest (300 airports each, Zipf-skewed: p ~ (rank +
+    8)^-2, so the busiest airport has 11% of the flights and 220 airports
+    99%, which keeps the mappers' 99% category cut within 255 bins) and
+    Distance (miles); the six categorical columns hold category codes. The
+    label is logistic in per-category effects plus the two numericals."""
+    rng = np.random.RandomState(seed)
+    X = np.empty((n, 8), np.float32)
+    zipf = 1.0 / (np.arange(1, 301) + 8.0) ** 2
+    zipf /= zipf.sum()
+    z = rng.logistic(0.0, 1.0, n) * 0.8
+    for j, card in ((0, 12), (1, 31), (2, 7), (4, 22), (5, 300), (6, 300)):
+        codes = (rng.choice(card, n, p=zipf) if card == 300
+                 else rng.randint(0, card, n))
+        X[:, j] = codes
+        z += rng.standard_normal(card)[codes] * (0.3 if j == 1 else 0.6)
+    minutes = np.clip(rng.normal(13.5, 4.0, n), 0, 23.99) * 60
+    X[:, 3] = (minutes // 60) * 100 + minutes % 60
+    X[:, 7] = np.exp(rng.normal(6.5, 0.7, n)).clip(30, 5000)
+    z += 0.15 * (minutes / 60 - 13.5) + 0.3 * (np.log(X[:, 7]) - 6.5)
+    y = (z > np.median(z)).astype(np.float64)
+    return X, y
+
+
+CAT_COLUMNS = [0, 1, 2, 4, 5, 6]
+
+
+def sparse_higgs_like(n: int, seed: int):
+    """Higgs-shaped data with 4 of its 28 columns >= 90% zeros (each row
+    keeps a value with probability 0.06): the sparse device columns."""
+    X, y = higgs_like(n, seed)
+    rng = np.random.RandomState(seed + 1)
+    for j in (3, 10, 17, 24):
+        X[rng.rand(n) >= 0.06, j] = 0.0
+    return X, y
+
+
+def train_cat_phase(lgb, cuda_hist, args):
+    X, y = expo_like(args.rows + args.valid_rows, args.seed + 11)
+    Xv, yv = X[args.rows:], y[args.rows:]
+    X, y = X[:args.rows], y[:args.rows]
+    params = dict(PARAMS, device_type="cuda")
+    train = lgb.Dataset(X, label=y, params=params,
+                        categorical_feature=CAT_COLUMNS)
+    valid = lgb.Dataset(Xv, label=yv, reference=train)
+    t0 = time.time()
+    train.construct()
+    valid.construct()
+    torch.cuda.synchronize()
+    t_construct = time.time() - t0
+    evals = {}
+    cuda_hist.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    booster = lgb.train(params, train, args.rounds, valid_sets=[valid],
+                        valid_names=["valid"], evals_result=evals)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = {"hist_tile": cuda_hist.hist_tile.launches,
+                "hist_tile_gather": cuda_hist.hist_tile.gather_launches,
+                "hist_tile_plane": cuda_hist.hist_tile.launches_plane,
+                "split_epilogue": cuda_hist.split_epilogue.launches}
+    gb = booster._boosting
+    cat_nodes = int(sum(int(np.sum(ht.is_cat)) for ht in gb.host_trees))
+    valid_auc = evals["valid"]["auc"][-1]
+    shapes = {"features": gb.train_set.binsT.shape[0],
+              "num_bins": gb.train_set.max_num_bins,
+              "num_leaves": gb.config.num_leaves,
+              "tile_slots": gb.config.tile_leaves
+              or cuda_hist.structural_tile_leaves(),
+              "rungs": list(gb._compaction_ladder()),
+              "sparse_columns": int(gb.train_set.has_sparse_cols),
+              "split_fusion": gb._split_fusion_on()}
+    out = {"rows": args.rows, "valid_rows": args.valid_rows, "features": 8,
+           "categorical": CAT_COLUMNS, "rounds": args.rounds,
+           "sec_per_iter": wall / args.rounds, "train_wall_s": wall,
+           "construct_s": t_construct, "valid_auc": valid_auc,
+           "categorical_nodes": cat_nodes,
+           "rows_streamed_per_tree": booster.rows_streamed_per_tree,
+           "launches": launches, "kernel_shapes": shapes,
+           "leaves_last_tree": gb.host_trees[-1].num_leaves}
+    if shapes != {"features": F_CAT, "num_bins": B, "num_leaves": LEAVES,
+                  "tile_slots": P, "rungs": ladder_rungs(args.rows),
+                  "sparse_columns": 0, "split_fusion": False}:
+        raise AssertionError(f"the plane-only kernel checks ran at other "
+                             f"shapes than the classic path's {shapes}")
+    if launches["hist_tile_plane"] <= 0 or launches["split_epilogue"] != 0 \
+            or launches["hist_tile_plane"] != launches["hist_tile"]:
+        raise AssertionError(f"the classic path did not run on the "
+                             f"plane-only kernel alone: {launches}")
+    if not (valid_auc > 0.6 and cat_nodes > 0):
+        raise AssertionError(f"valid AUC {valid_auc}, {cat_nodes} "
+                             f"categorical nodes")
+    out["profile"] = profile_iteration(booster, wall / args.rounds)
+    return out, launches
+
+
+def _structure(text):
     from lightgbm_tpu_torch.io.model_text import load_model
-    X, y = higgs_like(50_000, seed + 7)
-    params = dict(PARAMS, num_leaves=63)
+    return [(t.split_feature.tolist(), t.threshold.tolist(),
+             t.decision_type.tolist(), t.cat_threshold.tolist(),
+             t.left_child.tolist(), t.right_child.tolist())
+            for t in load_model(text).trees]
+
+
+def _parity(lgb, X, y, params, categorical=None, strict=False):
+    """One training (3 rounds) on the card twice and on the CPU twice: with
+    the CPU path's float32 sums (the JAX package's order) and with the
+    kernel's fixed-point sums (``kernel_sums_on_cpu``). The two card runs
+    and the kernel-sums CPU run must give the same model text, bit for bit.
+    Against the float32-sum run: the first tree whose structure (split
+    features, thresholds, category bitsets, children) differs, and the
+    largest leaf difference of the trees before it; ``strict`` requires
+    the same structure throughout and leaves within 1e-4."""
+    from lightgbm_tpu_torch.io.model_text import load_model
+    from lightgbm_tpu_torch.ops import cuda_hist
     texts = {}
-    for dev in ("cuda", "cuda_again", "cpu"):
-        p = dict(params, device_type=dev.split("_")[0])
-        b = lgb.train(p, lgb.Dataset(X, label=y, params=p), 3)
-        texts[dev] = b.model_to_string()
+    kw = {} if categorical is None else {"categorical_feature": categorical}
+    for run in ("cuda", "cuda_again", "cpu", "cpu_kernel_sums"):
+        p = dict(params, device_type=run.split("_")[0])
+        with (cuda_hist.kernel_sums_on_cpu() if run == "cpu_kernel_sums"
+              else contextlib.nullcontext()):
+            b = lgb.train(p, lgb.Dataset(X, label=y, params=p, **kw), 3)
+        texts[run] = b.model_to_string()
+    sc, sp = _structure(texts["cuda"]), _structure(texts["cpu"])
+    diverge = next((i for i, (a, b) in enumerate(zip(sc, sp)) if a != b),
+                   None if len(sc) == len(sp) else min(len(sc), len(sp)))
     tc, tp = load_model(texts["cuda"]).trees, load_model(texts["cpu"]).trees
-    same = all(a.split_feature.tolist() == b.split_feature.tolist()
-               and a.threshold.tolist() == b.threshold.tolist()
-               and a.left_child.tolist() == b.left_child.tolist()
-               and a.right_child.tolist() == b.right_child.tolist()
-               for a, b in zip(tc, tp)) and len(tc) == len(tp)
-    leaf_err = max(float(np.abs(a.leaf_value - b.leaf_value).max())
-                   for a, b in zip(tc, tp))
-    out = {"rows": 50_000, "num_leaves": 63, "rounds": 3,
-           "same_structure_as_cpu": same, "max_leaf_abs_err": leaf_err,
-           "card_runs_identical_text": texts["cuda"] == texts["cuda_again"]}
-    if not same or leaf_err > 1e-4:
-        raise AssertionError(f"card vs CPU plain path disagree: {out}")
+    upto = len(tc) if diverge is None else diverge
+    leaf_err = max([float(np.abs(a.leaf_value - b.leaf_value).max())
+                    for a, b in zip(tc[:upto], tp[:upto])] or [0.0])
+    out = {"rows": len(X), "num_leaves": params["num_leaves"], "rounds": 3,
+           "card_runs_identical_text": texts["cuda"] == texts["cuda_again"],
+           "card_equals_cpu_kernel_sums": texts["cuda"]
+           == texts["cpu_kernel_sums"],
+           "same_structure_as_cpu": diverge is None,
+           "first_divergent_tree_vs_cpu": diverge,
+           "max_leaf_abs_err_before_divergence": leaf_err,
+           "categorical_nodes": int(sum(t.num_cat for t in tc))}
+    if not (out["card_runs_identical_text"]
+            and out["card_equals_cpu_kernel_sums"]) or (
+            strict and (diverge is not None or leaf_err > 1e-4)):
+        raise AssertionError(f"card vs CPU disagree: {out}")
+    return out
+
+
+def parity_phase(lgb, seed):
+    X, y = higgs_like(50_000, seed + 7)
+    return _parity(lgb, X, y, dict(PARAMS, num_leaves=63), strict=True)
+
+
+def parity_cat_phase(lgb, seed):
+    X, y = expo_like(50_000, seed + 13)
+    out = _parity(lgb, X, y, dict(PARAMS, num_leaves=63), CAT_COLUMNS)
+    if out["categorical_nodes"] <= 0:
+        raise AssertionError(f"no categorical node: {out}")
+    return out
+
+
+def parity_sparse_phase(lgb, seed):
+    X, y = sparse_higgs_like(50_000, seed + 17)
+    ds = lgb.Dataset(X, label=y, params=dict(PARAMS, device_type="cpu"))
+    ds.construct()
+    if not ds.has_sparse_cols or len(ds.sp_cols) != 4:
+        raise AssertionError(f"expected 4 sparse device columns, got "
+                             f"{ds.sp_cols}")
+    out = _parity(lgb, X, y, dict(PARAMS, num_leaves=63))
+    out["sparse_columns"] = ds.sp_cols.tolist()
     return out
 
 
@@ -488,8 +680,21 @@ def main() -> int:
     emit("train", **tr)
     emit("parity", **parity_phase(lgb, args.seed))
 
+    plane_full = hist_phase(cuda_hist, n, f=F_CAT, plane=True, seed=5)
+    plane_rungs = {str(m): hist_phase(cuda_hist, n, m=m, seed=6, f=F_CAT,
+                                      plane=True)
+                   for m in ladder_rungs(n)}
+    emit("hist_plane", n=n, f=F_CAT, b=B, p=P, leaves=LEAVES, **plane_full,
+         rungs=plane_rungs)
+    tc, cat_launches = train_cat_phase(lgb, cuda_hist, args)
+    emit("train_cat", **tc)
+    emit("parity_cat", **parity_cat_phase(lgb, args.seed))
+    emit("parity_sparse", **parity_sparse_phase(lgb, args.seed))
+
     hist_err = max([full["max_abs_err"]]
                    + [r["max_abs_err"] for r in rungs.values()])
+    plane_err = max([plane_full["max_abs_err"]]
+                    + [r["max_abs_err"] for r in plane_rungs.values()])
     kernels = [
         {"name": "hist_tile", "route": "cuda",
          "source": "lightgbm_tpu_torch/csrc/hist_tile.cu",
@@ -502,6 +707,21 @@ def main() -> int:
          "gather_launches": launches["hist_tile_gather"],
          "gather_ms": {k: v["ms"] for k, v in rungs.items()},
          "gather_bound_ms": {k: v["bound_ms"] for k, v in rungs.items()}},
+        {"name": "hist_tile (plane-only)", "route": "cuda",
+         "source": "lightgbm_tpu_torch/csrc/hist_tile.cu",
+         "replaces": "lightgbm_tpu/ops/pallas_hist.py:154 _fused_kernel "
+                     "(pallas_call :270) + :205 _gather_kernel "
+                     "(pallas_call :324)",
+         "launches": cat_launches["hist_tile_plane"],
+         "max_abs_err": plane_err, "ms": plane_full["ms"],
+         "plain_ms": plane_full["plain_ms"],
+         "bound_ms": plane_full["bound_ms"],
+         "bound_by": plane_full["bound_by"],
+         "library_ms": plane_full["library_ms"],
+         "gather_launches": cat_launches["hist_tile_gather"],
+         "gather_ms": {k: v["ms"] for k, v in plane_rungs.items()},
+         "gather_bound_ms": {k: v["bound_ms"]
+                             for k, v in plane_rungs.items()}},
         {"name": "split_epilogue", "route": "cuda",
          "source": "lightgbm_tpu_torch/csrc/split_epilogue.cu",
          "replaces": "lightgbm_tpu/ops/pallas_hist.py:465 _epilogue_compute "

@@ -1,8 +1,8 @@
-"""Feature quantization (binning), numerical features.
+"""Feature quantization (binning), numerical and categorical features.
 
-The port of lightgbm_tpu's ``binning.py`` for dense numerical data. The bin
-mappers are fitted on the host exactly as there (numpy, float64), so they
-are bit-identical to the JAX package's:
+The port of lightgbm_tpu's ``binning.py`` for dense data. The bin mappers
+are fitted on the host exactly as there (numpy, float64), so they are
+bit-identical to the JAX package's:
 
 - ``greedy_find_bin``: equal-count greedy bin boundaries over sampled
   distinct values (reference ``GreedyFindBin``, bin.cpp:78-155).
@@ -10,20 +10,25 @@ are bit-identical to the JAX package's:
   ±kZeroThreshold (reference ``FindBinWithZeroAsOneBin``, bin.cpp:256-314).
 - Missing handling ``MissingType {None, Zero, NaN}`` (reference bin.h:26):
   with NaN present and ``use_missing``, the LAST bin is the NaN bin.
+- Categorical features (reference bin.cpp:424-490): categories ordered by
+  count, bin 0 the other/NaN bin, negative values read as NaN.
 
 The data matrix is quantized on the device (``bin_data_device``): one
 ``torch.searchsorted`` over the feature-major matrix against the per-feature
 bound tables of ``device_bin_tables``, which returns the feature-major
-``binsT [F, N]`` the histogram kernels read directly. Categorical features,
-forced bins, streaming sketches and EFB wait for ROADMAP Queue 1 items 2/9.
+``binsT [F, N]`` the histogram kernels read directly; categorical columns
+are mapped on the host (``values_to_bins``) and copied in. Forced bins,
+streaming sketches and EFB wait for ROADMAP Queue 1 items 2/9.
 """
 
 from __future__ import annotations
 
 import math
-from typing import List, Sequence
+from typing import Dict, List, Sequence
 
 import numpy as np
+
+from .utils import log
 
 # reference: include/LightGBM/bin.h:30 (kZeroThreshold = 1e-35)
 K_ZERO_THRESHOLD = 1e-35
@@ -35,6 +40,7 @@ MISSING_ZERO = 1
 MISSING_NAN = 2
 
 BIN_TYPE_NUMERICAL = 0
+BIN_TYPE_CATEGORICAL = 1
 
 
 def _get_double_upper_bound(a: float) -> float:
@@ -49,14 +55,22 @@ def _check_double_equal_ordered(a: float, b: float) -> bool:
 
 
 def need_filter(cnt_in_bin: np.ndarray, total_cnt: int,
-                filter_cnt: int) -> bool:
+                filter_cnt: int, bin_type: int = BIN_TYPE_NUMERICAL) -> bool:
     """Pre-filter: no threshold leaves >= filter_cnt on both sides
-    (reference: bin.cpp:54-76 NeedFilter, numerical branch)."""
-    sum_left = 0
-    for i in range(len(cnt_in_bin) - 1):
-        sum_left += int(cnt_in_bin[i])
-        if sum_left >= filter_cnt and total_cnt - sum_left >= filter_cnt:
+    (reference: bin.cpp:54-76 NeedFilter)."""
+    if bin_type == BIN_TYPE_NUMERICAL:
+        sum_left = 0
+        for i in range(len(cnt_in_bin) - 1):
+            sum_left += int(cnt_in_bin[i])
+            if sum_left >= filter_cnt and total_cnt - sum_left >= filter_cnt:
+                return False
+    else:
+        if len(cnt_in_bin) > 2:
             return False
+        for i in range(len(cnt_in_bin) - 1):
+            sum_left = int(cnt_in_bin[i])
+            if sum_left >= filter_cnt and total_cnt - sum_left >= filter_cnt:
+                return False
     return True
 
 
@@ -167,7 +181,7 @@ def find_bin_with_zero_as_one_bin(distinct_values: np.ndarray,
 
 
 class BinMapper:
-    """Per-feature value->bin mapping, numerical features (reference:
+    """Per-feature value->bin mapping (reference:
     include/LightGBM/bin.h:61-225)."""
 
     def __init__(self):
@@ -177,6 +191,8 @@ class BinMapper:
         self.is_trivial: bool = True
         self.sparse_rate: float = 1.0
         self.bin_upper_bound: np.ndarray = np.array([math.inf])
+        self.bin_2_categorical: List[int] = []
+        self.categorical_2_bin: Dict[int, int] = {}
         self.default_bin: int = 0       # bin of value 0 (bin.h GetDefaultBin)
         self.most_freq_bin: int = 0
         self.min_val: float = 0.0
@@ -185,6 +201,7 @@ class BinMapper:
     def find_bin(self, values: np.ndarray, total_sample_cnt: int,
                  max_bin: int, min_data_in_bin: int = 3,
                  min_split_data: int = 0, pre_filter: bool = False,
+                 bin_type: int = BIN_TYPE_NUMERICAL,
                  use_missing: bool = True,
                  zero_as_missing: bool = False) -> None:
         """Fit the mapper on sampled values (reference: bin.cpp:325-520).
@@ -205,6 +222,7 @@ class BinMapper:
             self.missing_type = MISSING_ZERO
         else:
             self.missing_type = MISSING_NAN if na_cnt > 0 else MISSING_NONE
+        self.bin_type = bin_type
         self.default_bin = 0
         zero_cnt = int(total_sample_cnt - counts.sum() - na_cnt)
         # zero slot positioned in sorted order (reference: bin.cpp:355-395)
@@ -219,33 +237,20 @@ class BinMapper:
         self.max_val = float(vals[-1]) if len(vals) else 0.0
         counts = counts.astype(np.int64)
 
-        if self.missing_type in (MISSING_ZERO, MISSING_NONE):
-            bounds = find_bin_with_zero_as_one_bin(
-                vals, counts, max_bin, total_sample_cnt, min_data_in_bin)
-            if self.missing_type == MISSING_ZERO and len(bounds) == 2:
-                self.missing_type = MISSING_NONE
-        else:  # NaN bin appended as the last bin (bin.cpp:398-402)
-            bounds = find_bin_with_zero_as_one_bin(
-                vals, counts, max_bin - 1, total_sample_cnt - na_cnt,
-                min_data_in_bin)
-            bounds.append(math.nan)
-        self.bin_upper_bound = np.asarray(bounds)
-        self.num_bin = len(bounds)
-        # count per bin (bin.cpp:404-421)
-        n_real = self.num_bin - (1 if self.missing_type == MISSING_NAN else 0)
-        finite_bounds = self.bin_upper_bound[:n_real]
-        cnt_in_bin = np.zeros(self.num_bin, dtype=np.int64)
-        if len(vals):
-            idx = np.searchsorted(finite_bounds, vals, side="left")
-            np.add.at(cnt_in_bin, np.minimum(idx, n_real - 1), counts)
-        if self.missing_type == MISSING_NAN:
-            cnt_in_bin[self.num_bin - 1] = na_cnt
+        if bin_type == BIN_TYPE_NUMERICAL:
+            cnt_in_bin = self._fit_numerical(vals, counts, na_cnt,
+                                             total_sample_cnt, max_bin,
+                                             min_data_in_bin)
+        else:
+            cnt_in_bin = self._fit_categorical(vals, counts, na_cnt,
+                                               total_sample_cnt, max_bin,
+                                               min_data_in_bin)
 
         # trivial / pre-filter (bin.cpp:494-503)
         self.is_trivial = self.num_bin <= 1
         if (not self.is_trivial and pre_filter
                 and need_filter(cnt_in_bin, int(total_sample_cnt),
-                                int(min_split_data))):
+                                int(min_split_data), bin_type)):
             self.is_trivial = True
         if not self.is_trivial:
             self.default_bin = self.value_to_bin(0.0)
@@ -260,13 +265,97 @@ class BinMapper:
         else:
             self.sparse_rate = 1.0
 
+    def _fit_numerical(self, vals, counts, na_cnt, total_sample_cnt, max_bin,
+                       min_data_in_bin) -> np.ndarray:
+        """Numerical bounds and the count per bin (bin.cpp:398-421)."""
+        if self.missing_type in (MISSING_ZERO, MISSING_NONE):
+            bounds = find_bin_with_zero_as_one_bin(
+                vals, counts, max_bin, total_sample_cnt, min_data_in_bin)
+            if self.missing_type == MISSING_ZERO and len(bounds) == 2:
+                self.missing_type = MISSING_NONE
+        else:  # NaN bin appended as the last bin (bin.cpp:398-402)
+            bounds = find_bin_with_zero_as_one_bin(
+                vals, counts, max_bin - 1, total_sample_cnt - na_cnt,
+                min_data_in_bin)
+            bounds.append(math.nan)
+        self.bin_upper_bound = np.asarray(bounds)
+        self.num_bin = len(bounds)
+        n_real = self.num_bin - (1 if self.missing_type == MISSING_NAN else 0)
+        finite_bounds = self.bin_upper_bound[:n_real]
+        cnt_in_bin = np.zeros(self.num_bin, dtype=np.int64)
+        if len(vals):
+            idx = np.searchsorted(finite_bounds, vals, side="left")
+            np.add.at(cnt_in_bin, np.minimum(idx, n_real - 1), counts)
+        if self.missing_type == MISSING_NAN:
+            cnt_in_bin[self.num_bin - 1] = na_cnt
+        return cnt_in_bin
+
+    def _fit_categorical(self, vals, counts, na_cnt, total_sample_cnt,
+                         max_bin, min_data_in_bin) -> np.ndarray:
+        """Categories by descending count, bin 0 the other/NaN bin; the
+        count per bin (bin.cpp:424-490)."""
+        vals_int = vals.astype(np.int64)
+        neg = vals_int < 0
+        if neg.any():
+            log.warning("Met negative value in categorical features, will "
+                        "convert it to NaN")
+            na_cnt += int(counts[neg].sum())
+            vals_int, counts = vals_int[~neg], counts[~neg]
+        if len(vals_int):            # merge the duplicates of the int cast
+            vals_u, inv = np.unique(vals_int, return_inverse=True)
+            counts_u = np.zeros(len(vals_u), dtype=np.int64)
+            np.add.at(counts_u, inv, counts)
+        else:
+            vals_u, counts_u = vals_int, counts
+        rest_cnt = total_sample_cnt - na_cnt
+        self.bin_2_categorical = [-1]
+        self.categorical_2_bin = {-1: 0}
+        cnt_list = [0]
+        self.num_bin = 1
+        if rest_cnt > 0 and len(vals_u):
+            order = np.argsort(-counts_u, kind="stable")
+            cut_cnt = int(round((total_sample_cnt - na_cnt) * 0.99))
+            distinct_cnt = len(vals_u) + (1 if na_cnt > 0 else 0)
+            eff_max_bin = min(distinct_cnt, max_bin)
+            used_cnt = 0
+            for rank, j in enumerate(order):
+                if not (used_cnt < cut_cnt or self.num_bin < eff_max_bin):
+                    break
+                if counts_u[j] < min_data_in_bin and rank > 1:
+                    break
+                cat = int(vals_u[j])
+                self.bin_2_categorical.append(cat)
+                self.categorical_2_bin[cat] = self.num_bin
+                used_cnt += int(counts_u[j])
+                cnt_list.append(int(counts_u[j]))
+                self.num_bin += 1
+            all_used = (self.num_bin - 1) == len(vals_u)
+            self.missing_type = (MISSING_NONE if (all_used and na_cnt == 0)
+                                 else MISSING_NAN)
+            cnt_list[0] = int(total_sample_cnt - used_cnt)
+        return np.asarray(cnt_list, dtype=np.int64)
+
     def value_to_bin(self, value: float) -> int:
         """Scalar value->bin (reference: bin.h:464-502 ValueToBin)."""
         return int(self.values_to_bins(np.array([value]))[0])
 
     def values_to_bins(self, values: np.ndarray) -> np.ndarray:
-        """Vectorized value->bin for a whole column (host, float64)."""
+        """Vectorized value->bin for a whole column (host, float64). A
+        category outside the mapper, NaN or a negative value -> bin 0."""
         values = np.asarray(values, dtype=np.float64)
+        if self.bin_type == BIN_TYPE_CATEGORICAL:
+            out = np.zeros(len(values), dtype=np.int32)
+            cats = np.array(self.bin_2_categorical[1:], dtype=np.int64)
+            if len(cats):
+                bins = np.arange(1, self.num_bin, dtype=np.int32)
+                vals_int = np.where(np.isnan(values), -1,
+                                    values).astype(np.int64)
+                sorter = np.argsort(cats)
+                pos = np.clip(np.searchsorted(cats[sorter], vals_int), 0,
+                              len(cats) - 1)
+                matched = cats[sorter][pos] == vals_int
+                out = np.where(matched, bins[sorter][pos], 0).astype(np.int32)
+            return out
         has_nan_bin = self.missing_type == MISSING_NAN
         n_real = self.num_bin - (1 if has_nan_bin else 0)
         finite_bounds = (self.bin_upper_bound[:n_real - 1] if n_real > 0
@@ -281,7 +370,11 @@ class BinMapper:
         return idx
 
     def bin_to_value(self, bin_idx: int) -> float:
-        """Real threshold of a bin boundary (reference: tree.h RealThreshold)."""
+        """Real threshold of a bin boundary (reference: tree.h
+        RealThreshold); a categorical bin's category value."""
+        if self.bin_type == BIN_TYPE_CATEGORICAL:
+            return (float(self.bin_2_categorical[bin_idx])
+                    if bin_idx < len(self.bin_2_categorical) else -1.0)
         return float(self.bin_upper_bound[bin_idx])
 
 
@@ -299,13 +392,17 @@ def filter_cnt_for_sample(config, sample_cnt: int, num_data: int) -> int:
     return int(config.min_data_in_leaf * sample_cnt / max(num_data, 1))
 
 
-def find_bin_mappers(X: np.ndarray, config) -> List[BinMapper]:
+def find_bin_mappers(X: np.ndarray, config,
+                     categorical_features: Sequence[int] = ()
+                     ) -> List[BinMapper]:
     """Fit one BinMapper per column (reference: DatasetLoader::
-    ConstructBinMappersFromTextData, dataset_loader.cpp:953-1140)."""
+    ConstructBinMappersFromTextData, dataset_loader.cpp:953-1140); the
+    columns in ``categorical_features`` get categorical mappers."""
     num_data, num_features = X.shape
     sample_idx = sample_indices(num_data, config.bin_construct_sample_cnt,
                                 config.data_random_seed)
     filter_cnt = filter_cnt_for_sample(config, len(sample_idx), num_data)
+    cat_set = set(int(c) for c in categorical_features)
     mappers = []
     for j in range(num_features):
         m = BinMapper()
@@ -314,6 +411,8 @@ def find_bin_mappers(X: np.ndarray, config) -> List[BinMapper]:
                    min_data_in_bin=config.min_data_in_bin,
                    min_split_data=filter_cnt,
                    pre_filter=config.feature_pre_filter,
+                   bin_type=(BIN_TYPE_CATEGORICAL if j in cat_set
+                             else BIN_TYPE_NUMERICAL),
                    use_missing=config.use_missing,
                    zero_as_missing=config.zero_as_missing)
         mappers.append(m)
@@ -393,4 +492,9 @@ def bin_data_device(X: np.ndarray, mappers: Sequence[BinMapper], device,
         xb = torch.as_tensor(np.ascontiguousarray(X[s:s + block].T),
                              device=device)
         out[:, s:s + block] = quantize_block(xb, bd, nzt, nbt).to(out_dtype)
+    # categorical columns: the host's category lookup overwrites the row
+    for j, m in enumerate(mappers):
+        if m.bin_type == BIN_TYPE_CATEGORICAL:
+            out[j] = torch.as_tensor(m.values_to_bins(X[:, j]),
+                                     device=device).to(out_dtype)
     return out

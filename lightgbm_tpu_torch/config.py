@@ -12,9 +12,14 @@ the same ``parameters:`` block into model text), with three port rules:
   all three resolve to the hand-written Hopper kernels (which accumulate
   true f32, so ``pallas_hilo`` equals ``pallas`` there), on the CPU to their
   plain versions. Any other value raises.
+- ``deterministic`` is accepted and changes nothing: the port's kernels
+  add their float sums in a fixed order, so two runs on the card give the
+  same bits whether it is set or not (and on Hopper there is no hi/lo
+  split for it to turn off).
 - Every parameter outside the port's implemented slice (dense numerical
-  data, serial learner, gbdt boosting, regression/binary objectives, the
-  fused split epilogue) raises NotImplementedError when set to a
+  and categorical data with sparse device columns, serial learner, gbdt
+  boosting, regression/binary objectives, the fused split epilogue and
+  the classic split path) raises NotImplementedError when set to a
   non-default value, naming the ROADMAP item that brings it
   (``_check_slice``). Nothing is silently ignored.
 """
@@ -712,7 +717,10 @@ _SLICE_PARAMS = frozenset({
     "metric_freq", "is_provide_training_metric", "histogram_method",
     "split_fusion", "hist_subtraction", "hist_compaction",
     "hist_compaction_ladder", "tile_leaves", "fused_iteration",
-    "tree_growth_mode",
+    "tree_growth_mode", "deterministic",
+    # categorical features (the classic split path)
+    "categorical_feature", "max_cat_threshold", "cat_l2", "cat_smooth",
+    "max_cat_to_onehot", "min_data_per_group",
     # sub-seeds derived from ``seed`` in __post_init__
     "bagging_seed", "drop_seed", "feature_fraction_seed", "extra_seed",
 })
@@ -720,16 +728,14 @@ _SLICE_PARAMS = frozenset({
 # ROADMAP.md "Queue 1" item that brings each group of parameters
 _ROADMAP_ITEM = {}
 for _names, _item in (
-        (("categorical_feature", "max_cat_threshold", "cat_l2", "cat_smooth",
-          "max_cat_to_onehot", "min_data_per_group", "monotone_constraints",
-          "monotone_constraints_method", "monotone_penalty",
-          "feature_contri", "forcedsplits_filename", "cegb_tradeoff",
-          "cegb_penalty_split", "cegb_penalty_feature_lazy",
+        (("monotone_constraints", "monotone_constraints_method",
+          "monotone_penalty", "feature_contri", "forcedsplits_filename",
+          "cegb_tradeoff", "cegb_penalty_split", "cegb_penalty_feature_lazy",
           "cegb_penalty_feature_coupled", "interaction_constraints",
           "extra_trees", "feature_fraction", "feature_fraction_bynode",
-          "forcedbins_filename", "max_bin_by_feature", "split_fusion",
+          "forcedbins_filename", "max_bin_by_feature",
           "histogram_pool_size", "force_col_wise", "force_row_wise"),
-         "Queue 1 item 9 (classic split path and features)"),
+         "Queue 1 item 9 (the classic path's remaining features)"),
         (("bagging_fraction", "pos_bagging_fraction", "neg_bagging_fraction",
           "bagging_freq", "top_rate", "other_rate", "drop_rate", "max_drop",
           "skip_drop", "xgboost_dart_mode", "uniform_drop", "reg_sqrt",
@@ -741,10 +747,7 @@ for _names, _item in (
         (("quantized_grad", "gpu_use_dp", "linear_tree", "linear_lambda"),
          "Queue 1 item 11 (precision modes)"),
         (("histogram_method",),
-         "Queue 2 (kernels 3-4 and the q8 mode) and Queue 1 item 11"),
-        (("deterministic",),
-         "Queue 2 (a hist_tile whose float sums are the same from run to "
-         "run)"),
+         "Queue 2 (the q8 mode of kernels 1-4) and Queue 1 item 11"),
         (("hist_block", "hist_autotune"),
          "Queue 2 (autotune_hist becomes a Hopper sweep over rows per "
          "block)"),
@@ -824,10 +827,6 @@ def _check_slice(cfg: Config) -> None:
     if cfg.histogram_method not in HIST_METHODS:
         _not_in_slice("histogram_method", cfg.histogram_method,
                       f" (the port has {', '.join(HIST_METHODS)})")
-    if cfg.split_fusion == "off":
-        _not_in_slice("split_fusion", "off",
-                      " (the port grows trees through the fused split "
-                      "epilogue only)")
     if not 0 <= cfg.tile_leaves <= 42:
         log.fatal(f"tile_leaves must be in [0, 42] (42 slots of 3 stats fill "
                   f"the kernels' 128-lane tables), got {cfg.tile_leaves}")

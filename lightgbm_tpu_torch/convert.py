@@ -6,8 +6,10 @@ numpy: one dict per tree with the fields of ``HostTree`` (``num_leaves``,
 ``threshold``, ``default_left``, ``left_child``, ``right_child``,
 ``leaf_value``, ``leaf_weight``, ``leaf_count``, ``split_gain``,
 ``internal_value``/``_weight``/``_count``, ``leaf_depth``,
-``leaf_parent``, ``shrinkage``, and the per-node ``missing_type``), plus
-the bin mappers and the objective. The port never sees a foreign object:
+``leaf_parent``, ``shrinkage``, the per-node ``missing_type``, and for
+categorical nodes ``is_cat`` and the bin bitset ``cat_bitset`` [nodes,
+words]), plus the bin mappers (categorical ones with their
+``bin_2_categorical``) and the objective. The port never sees a foreign object:
 the caller converts to numpy first.
 
     booster = booster_from_numpy(trees, {
@@ -27,7 +29,7 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 
 from .basic import Dataset
-from .binning import BinMapper
+from .binning import BIN_TYPE_CATEGORICAL, BinMapper
 from .booster import Booster
 from .config import Config
 from .models.gbdt import GBDT
@@ -37,15 +39,27 @@ from .models.tree import HostTree, tree_from_host_fields
 def mappers_from_numpy(bin_upper_bounds: Sequence[Sequence[float]],
                        missing_types: Sequence[int],
                        min_vals: Optional[Sequence[float]] = None,
-                       max_vals: Optional[Sequence[float]] = None
+                       max_vals: Optional[Sequence[float]] = None,
+                       bin_2_categoricals: Optional[Sequence] = None
                        ) -> List[BinMapper]:
-    """Numerical BinMappers from their bin upper bounds (the NaN bin's NaN
-    bound included) and missing types; a one-bin mapper is trivial."""
+    """BinMappers from their bin upper bounds (the NaN bin's NaN bound
+    included) and missing types; a one-bin mapper is trivial. A column
+    whose ``bin_2_categoricals`` entry is a sequence (bin 0 = -1, then the
+    category of each bin) is categorical, and its bounds are ignored."""
     out = []
     for j, (ub, mt) in enumerate(zip(bin_upper_bounds, missing_types)):
         m = BinMapper()
-        m.bin_upper_bound = np.asarray(ub, np.float64)
-        m.num_bin = len(m.bin_upper_bound)
+        cats = (None if bin_2_categoricals is None
+                else bin_2_categoricals[j])
+        if cats is not None:
+            m.bin_type = BIN_TYPE_CATEGORICAL
+            m.bin_2_categorical = [int(c) for c in cats]
+            m.categorical_2_bin = {c: b for b, c in
+                                   enumerate(m.bin_2_categorical)}
+            m.num_bin = len(m.bin_2_categorical)
+        else:
+            m.bin_upper_bound = np.asarray(ub, np.float64)
+            m.num_bin = len(m.bin_upper_bound)
         m.missing_type = int(mt)
         m.is_trivial = m.num_bin <= 1
         if not m.is_trivial:

@@ -1,71 +1,130 @@
-// hist_tile.cu -- the histogram tile pass of the fused split-finding pipeline.
+// hist_tile.cu -- the histogram tile pass, deterministic.
 //
-// Replaces (accumulation half of) lightgbm_tpu/ops/pallas_hist.py:
-//   _fused_epi_kernel   full-row form  (idx == nullptr)
-//   _gather_epi_kernel  gather form    (idx[m]; entries >= n are padding)
-// The epilogue half of those kernels is csrc/split_epilogue.cu.
+// Replaces lightgbm_tpu/ops/pallas_hist.py:
+//   _fused_kernel       plane-only full-row form   (idx == nullptr)
+//   _gather_kernel      plane-only gather form     (idx[m]; entries >= n
+//                                                   are padding)
+// and the accumulation half of
+//   _fused_epi_kernel   full-row form of the fused split epilogue
+//   _gather_epi_kernel  gather form of the fused split epilogue
+// (their epilogue half is csrc/split_epilogue.cu). The classic split path
+// launches it alone; the fused path launches split_epilogue after it.
 //
 // What it computes: out[p, f, b, s] = sum of stats[r, s] over the rows r
-// whose leaf id is the leaf of computed slot p (chan[3p], the TPU lane table
-// of chan_leaf_table) and whose bin of feature f is b. Derived and inactive
-// slots (chan lane < 0) accumulate nothing and come out zero.
+// whose leaf id is the leaf of slot p (chan[3p], the TPU lane table of
+// chan_leaf_table) and whose bin of feature f is b. Slots whose lane holds
+// no leaf (derived or inactive) come out zero.
 //
 // What bounds it on an H100: memory. One pass must read the bin matrix once
 // (n*F bytes), the leaf ids and stats once (16*n bytes) and write the tile
-// (P*F*B*3*4 bytes); the additions are 3*n*F f32 adds, far below the f32
-// rate. This first design re-reads leaf and stats once per feature
-// (16*n*F bytes, mostly from L2), so it runs well above that bound; a
-// design that reads each row once for all features is the next step
-// (PERF.md has the measured times).
+// (P*F*B*3*4 bytes); the additions are 3*n*F, far below any rate. This
+// design re-reads leaf ids and stats once per feature (and once per slot
+// part, below), mostly from L2, so it runs well above that bound (PERF.md
+// has the measured times).
 //
 // Design: the Pallas kernel keeps a [F*B, 128] accumulator resident in VMEM
-// across a sequential grid; GPU blocks run in parallel and in no order and
-// 3.7 MB does not fit in shared memory. So the grid is (feature, row chunk):
-// each block privatises ONE feature's [P, B, 3] plane in shared memory
-// (<= 42*256*3*4 = 129,024 bytes, above 48 KB only through the dynamic
-// shared-memory attribute), maps leaf -> slot through a table in shared
-// memory, adds with shared-memory atomics, and writes its plane to a
-// per-chunk partial buffer. A second launch sums the chunk partials in a
-// fixed order (chunk 0, 1, ...) -- the layout of the reference's
-// histogram_16_64_256.cu sub-histograms.
+// across a sequential grid; GPU blocks run in parallel and in no order, and
+// 3.7 MB does not fit in shared memory. So the grid is (feature, row chunk,
+// slot part): each block privatises ONE feature's plane for a part of the
+// tile's computed slots in shared memory, maps leaf -> slot through a table
+// in shared memory, and writes its plane to a per-chunk partial buffer; a
+// second launch sums the chunk partials.
 //
-// Numerics: f32 throughout, the `highest` semantics. The TPU's `hilo`
-// bf16 hi/lo split is an MXU device; here `pallas` and `pallas_hilo` both
-// accumulate true f32 (within hilo's documented ~2^-17 bound). Within a
-// chunk the shared-memory atomics add in an order that changes from run to
-// run, so float sums may differ in the last bits between runs; sums of
-// integer-valued stats are exact in any order and come out bitwise equal to
-// the plain version (the JAX package's parity contract).
+// Determinism: the sums are the same bits from run to run. Each stat is
+// added as a 64-bit fixed-point integer, value * 2^k rounded to the nearest
+// integer, where k (one per stat channel and launch) is the largest that
+// keeps any sum of the pass below 2^61: k = 61 - e with max|stat| * rows
+// < 2^e (stat_absmax finds max|stat| first; a max is order-free). Integer
+// addition is associative, so neither the shared-memory atomics' order nor
+// the chunk split changes a bit, and the one conversion back to float32 at
+// the end rounds once. Integer-valued stats (and any stat that is a
+// multiple of 2^-k) are summed exactly, so they come out bitwise equal to
+// the plain version; float stats come out within 2^-k-ish of the exact
+// sum, closer than a float32 sum. A non-finite stat makes its channel NaN.
+// The int64 plane is twice a float plane: a slot part holds as many slots
+// as fit in the 227 KB a block can have (37 at 255 bins), so a tile of 42
+// computed slots runs as two parts.
+//
+// Numerics on Hopper: `pallas` and `pallas_hilo` are the same here. The
+// TPU's `hilo` bf16 hi/lo split is an MXU device; this kernel needs none.
 
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int kStats = 3;
 constexpr int kThreads = 1024;
+constexpr int kMaxExp = 1000;
 
+// Exponent k of the fixed-point scale 2^k for a channel whose largest
+// |stat| has float bits `amax_bits`, over `rows` rows; INT_MIN when the
+// channel holds a non-finite value.
+__device__ int fixed_exponent(unsigned amax_bits, long long rows) {
+  const float amax = __uint_as_float(amax_bits);
+  if (!isfinite(amax)) return -2147483647 - 1;
+  const double bound = (double)amax * (double)rows;
+  if (bound == 0.0) return 61;
+  int e;
+  frexp(bound, &e);                       // bound < 2^e
+  const int k = 61 - e;
+  return k > kMaxExp ? kMaxExp : (k < -kMaxExp ? -kMaxExp : k);
+}
+
+// amax_bits[s] = float bits of max |stats[r, s]| over all rows (NaN bits
+// order above every finite value and inf, so a NaN wins).
+__global__ void stat_absmax(const float* __restrict__ stats,
+                            unsigned* __restrict__ amax_bits, int n) {
+  unsigned local[kStats] = {0u, 0u, 0u};
+  for (long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x; r < n;
+       r += (long long)gridDim.x * blockDim.x) {
+    for (int s = 0; s < kStats; ++s) {
+      const unsigned bits = __float_as_uint(stats[r * kStats + s]) &
+                            0x7fffffffu;
+      local[s] = local[s] > bits ? local[s] : bits;
+    }
+  }
+  for (int s = 0; s < kStats; ++s) {
+    const unsigned w = __reduce_max_sync(0xffffffffu, local[s]);
+    if ((threadIdx.x & 31) == 0) atomicMax(amax_bits + s, w);
+  }
+}
+
+// Block (feat, chunk, part): slots of compact index [part*S, part*S + S).
+// comp[p] is slot p's compact index among the computed slots (-1: none).
 __global__ void hist_tile_accumulate(const uint8_t* __restrict__ binsT,
                                      const int32_t* __restrict__ leaf,
                                      const float* __restrict__ stats,
                                      const int32_t* __restrict__ chan,
+                                     const int32_t* __restrict__ comp,
                                      const int32_t* __restrict__ idx,
-                                     float* __restrict__ partial,
+                                     const unsigned* __restrict__ amax_bits,
+                                     long long* __restrict__ partial,
                                      int n, int f, int m, int p, int b, int l,
-                                     int nchunk) {
-  extern __shared__ float smem[];
-  float* hist = smem;                                   // [p][b][3]
-  int* slot_of_leaf = reinterpret_cast<int*>(smem + (size_t)p * b * kStats);
+                                     int nchunk, int active, int per_part) {
+  extern __shared__ unsigned long long plane[];        // [S][b][3]
+  int* slot_of_leaf = reinterpret_cast<int*>(plane +
+                                             (size_t)per_part * b * kStats);
+  __shared__ double scale[kStats];
   const int feat = blockIdx.x;
   const int chunk = blockIdx.y;
-  const int cells = p * b * kStats;
+  const int c0 = blockIdx.z * per_part;
+  const int here = min(per_part, active - c0);
+  if (here <= 0) return;
+  const int cells = here * b * kStats;
 
-  for (int i = threadIdx.x; i < cells; i += blockDim.x) hist[i] = 0.f;
+  for (int i = threadIdx.x; i < cells; i += blockDim.x) plane[i] = 0ull;
   for (int i = threadIdx.x; i < l; i += blockDim.x) slot_of_leaf[i] = -1;
+  if (threadIdx.x < kStats) {
+    const int k = fixed_exponent(amax_bits[threadIdx.x], m);
+    scale[threadIdx.x] = ldexp(1.0, k == -2147483647 - 1 ? 0 : k);
+  }
   __syncthreads();
   if (threadIdx.x < p) {
     const int lf = chan[threadIdx.x * kStats];
-    if (lf >= 0 && lf < l) slot_of_leaf[lf] = threadIdx.x;
+    const int c = comp[threadIdx.x] - c0;
+    if (lf >= 0 && lf < l && c >= 0 && c < here) slot_of_leaf[lf] = c;
   }
   __syncthreads();
 
@@ -82,64 +141,99 @@ __global__ void hist_tile_accumulate(const uint8_t* __restrict__ binsT,
     if (s < 0) continue;
     const int bin = col[r];
     if (bin >= b) continue;
-    float* cell = hist + ((size_t)s * b + bin) * kStats;
+    unsigned long long* cell = plane + ((size_t)s * b + bin) * kStats;
     const float* st = stats + (size_t)r * kStats;
-    atomicAdd(cell + 0, st[0]);
-    atomicAdd(cell + 1, st[1]);
-    atomicAdd(cell + 2, st[2]);
+    for (int c = 0; c < kStats; ++c) {
+      const long long v = __double2ll_rn((double)st[c] * scale[c]);
+      atomicAdd(cell + c, (unsigned long long)v);
+    }
   }
   __syncthreads();
 
-  // partial layout [chunk][p][f][b][3]: the reduce below walks it with the
-  // output's own [p][f][b][3] index
-  const int plane = b * kStats;
+  // partial layout [chunk][active][f][b][3]
+  const int row = b * kStats;
   for (int i = threadIdx.x; i < cells; i += blockDim.x) {
-    const int s = i / plane;
-    const int rem = i - s * plane;
-    partial[(((size_t)chunk * p + s) * f + feat) * plane + rem] = hist[i];
+    const int s = i / row;
+    const int rem = i - s * row;
+    partial[(((size_t)chunk * active + c0 + s) * f + feat) * row + rem] =
+        (long long)plane[i];
   }
 }
 
-__global__ void hist_tile_reduce(const float* __restrict__ partial,
-                                 float* __restrict__ out, long long cells,
-                                 int nchunk) {
+// out[p][f][b][s] = the chunk partials of slot p's compact index, summed
+// as integers, converted to float32 once (0 for a slot with none).
+__global__ void hist_tile_reduce(const long long* __restrict__ partial,
+                                 const int32_t* __restrict__ comp,
+                                 const unsigned* __restrict__ amax_bits,
+                                 float* __restrict__ out, int p, int f, int b,
+                                 int m, int nchunk, int active) {
+  const long long per_slot = (long long)f * b * kStats;
+  const long long cells = (long long)p * per_slot;
   for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
        e < cells; e += (long long)gridDim.x * blockDim.x) {
-    float acc = 0.f;
-    for (int c = 0; c < nchunk; ++c) acc += partial[(size_t)c * cells + e];
-    out[e] = acc;
+    const int slot = (int)(e / per_slot);
+    const long long rest = e - slot * per_slot;
+    const int c = comp[slot];
+    if (c < 0) {
+      out[e] = 0.f;
+      continue;
+    }
+    const int k = fixed_exponent(amax_bits[rest % kStats], m);
+    if (k == -2147483647 - 1) {
+      out[e] = __int_as_float(0x7fffffff);
+      continue;
+    }
+    long long acc = 0;
+    for (int ch = 0; ch < nchunk; ++ch)
+      acc += partial[((long long)ch * active + c) * per_slot + rest];
+    out[e] = (float)((double)acc * ldexp(1.0, -k));
   }
 }
 
 }  // namespace
 
-// Returns cudaGetLastError() (0 = launched). `partial` holds
-// nchunk * p * f * b * 3 floats; `out` p * f * b * 3 floats.
+// Returns cudaGetLastError() (0 = launched). `amax_bits` holds 3 zeroed
+// words; `partial` nchunk * active * f * b * 3 int64; `out` p * f * b * 3
+// floats; `comp` p int32 compact slot indices; grid (f, nchunk, nparts)
+// with `per_part` slots a part.
 extern "C" int hist_tile_launch(const void* binsT, const void* leaf,
                                 const void* stats, const void* chan,
-                                const void* idx, void* partial, void* out,
+                                const void* comp, const void* idx,
+                                void* amax_bits, void* partial, void* out,
                                 int n, int f, int m, int p, int b, int l,
-                                int nchunk, void* stream) {
-  const size_t smem = (size_t)p * b * kStats * sizeof(float)
-                      + (size_t)l * sizeof(int);
-  cudaError_t err = cudaFuncSetAttribute(
-      hist_tile_accumulate, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
+                                int nchunk, int active, int per_part,
+                                int nparts, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  dim3 grid(f, nchunk);
+  const int ablocks = (int)(((long long)n + 255) / 256 < 1024
+                                ? ((long long)n + 255) / 256 : 1024);
+  stat_absmax<<<ablocks > 0 ? ablocks : 1, 256, 0, st>>>(
+      static_cast<const float*>(stats), static_cast<unsigned*>(amax_bits), n);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  const size_t smem = (size_t)per_part * b * kStats * sizeof(long long)
+                      + (size_t)l * sizeof(int);
+  err = cudaFuncSetAttribute(hist_tile_accumulate,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(f, nchunk, nparts);
   hist_tile_accumulate<<<grid, kThreads, smem, st>>>(
       static_cast<const uint8_t*>(binsT), static_cast<const int32_t*>(leaf),
       static_cast<const float*>(stats), static_cast<const int32_t*>(chan),
-      static_cast<const int32_t*>(idx), static_cast<float*>(partial),
-      n, f, m, p, b, l, nchunk);
+      static_cast<const int32_t*>(comp), static_cast<const int32_t*>(idx),
+      static_cast<const unsigned*>(amax_bits),
+      static_cast<long long*>(partial), n, f, m, p, b, l, nchunk, active,
+      per_part);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const long long cells = (long long)p * f * b * kStats;
   const long long want = (cells + 255) / 256;
   const int blocks = (int)(want < 65535 ? want : 65535);
   hist_tile_reduce<<<blocks, 256, 0, st>>>(
-      static_cast<const float*>(partial), static_cast<float*>(out), cells,
-      nchunk);
+      static_cast<const long long*>(partial),
+      static_cast<const int32_t*>(comp),
+      static_cast<const unsigned*>(amax_bits), static_cast<float*>(out), p, f,
+      b, m, nchunk, active);
   return (int)cudaGetLastError();
 }

@@ -28,11 +28,15 @@ def train(params: Dict[str, Any], train_set: Dataset,
           num_boost_round: int = 100,
           valid_sets: Optional[List[Dataset]] = None,
           valid_names: Optional[List[str]] = None,
-          evals_result: Optional[dict] = None) -> Booster:
+          evals_result: Optional[dict] = None,
+          categorical_feature="auto") -> Booster:
     """Train a booster (reference: python-package engine.py:14-278).
     ``evals_result`` collects ``{valid_name: {metric: [value per
-    iteration]}}``."""
+    iteration]}}``; ``categorical_feature`` (indices or names), when not
+    "auto", replaces the training Dataset's before it is constructed."""
     params = copy.deepcopy(params)
+    if categorical_feature != "auto":
+        train_set.categorical_feature = categorical_feature
     num_boost_round = _resolve_num_boost_round(params, num_boost_round)
     if not train_set._constructed:
         merged = dict(train_set.params or {})

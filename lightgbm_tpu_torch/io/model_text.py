@@ -1,15 +1,17 @@
-"""Model text serialization (v3 format), numerical trees.
+"""Model text serialization (v3 format), numerical and categorical trees.
 
 The port of lightgbm_tpu's ``io/model_text.py`` for the slice: dump and
 load of the reference's ``version=v3`` text (reference:
 src/boosting/gbdt_model_text.cpp:311-520, src/io/tree.cpp:336-410 and
 :653+): header key=values, per-tree blocks with real-valued thresholds and
-packed ``decision_type`` bytes (default-left bit | missing-type << 2,
-reference tree.h:19-20,269), feature importances and the echoed parameters
-block. The dump is character for character the JAX package's for the same
-trees. A loaded model predicts by traversing real thresholds over raw
-features, with no bin mappers, like the reference. Categorical bitsets and
-linear leaves wait for ROADMAP.md Queue 1 items 9 and 11.
+packed ``decision_type`` bytes (categorical bit | default-left bit |
+missing-type << 2, reference tree.h:19-20,269), the categorical nodes'
+category-value bitsets (``cat_boundaries``/``cat_threshold``, built from
+the mappers' ``bin_2_categorical``), feature importances and the echoed
+parameters block. The dump is character for character the JAX package's
+for the same trees. A loaded model predicts by traversing real thresholds
+and category bitsets over raw features, with no bin mappers, like the
+reference. Linear leaves wait for ROADMAP.md Queue 1 item 11.
 """
 
 from __future__ import annotations
@@ -18,7 +20,8 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from ..binning import K_ZERO_THRESHOLD, MISSING_NAN, MISSING_ZERO
+from ..binning import (BIN_TYPE_CATEGORICAL, K_ZERO_THRESHOLD, MISSING_NAN,
+                       MISSING_ZERO)
 from ..config import Config
 from ..utils import log
 
@@ -42,6 +45,7 @@ class ModelTree:
 
     def __init__(self):
         self.num_leaves = 1
+        self.num_cat = 0
         self.split_feature = np.zeros(0, np.int32)
         self.split_gain = np.zeros(0, np.float64)
         self.threshold = np.zeros(0, np.float64)
@@ -54,11 +58,16 @@ class ModelTree:
         self.internal_value = np.zeros(0, np.float64)
         self.internal_weight = np.zeros(0, np.float64)
         self.internal_count = np.zeros(0, np.int64)
+        self.cat_boundaries = np.zeros(1, np.int32)   # [num_cat + 1]
+        self.cat_threshold = np.zeros(0, np.uint32)
         self.shrinkage = 1.0
 
     @classmethod
-    def from_host(cls, ht) -> "ModelTree":
-        """A trained HostTree (bin space) in model space."""
+    def from_host(cls, ht, mappers) -> "ModelTree":
+        """A trained HostTree (bin space) in model space. ``mappers``: the
+        dataset's BinMappers by original feature; a categorical node's
+        bin bitset becomes a bitset over category values (the reference's
+        cat_threshold, tree.h:349-360)."""
         t = cls()
         n = ht.num_leaves - 1
         t.num_leaves = ht.num_leaves
@@ -76,10 +85,29 @@ class ModelTree:
         t.internal_count = np.asarray(np.round(ht.internal_count), np.int64)
         t.shrinkage = ht.shrinkage
         dt = np.zeros(n, np.int8)
+        cat_boundaries, cat_words = [0], []
         for i in range(n):
-            d = _DEFAULT_LEFT_MASK if bool(ht.default_left[i]) else 0
+            d = 0
+            if bool(ht.is_cat[i]):
+                d |= _CAT_MASK
+                mapper = mappers[t.split_feature[i]]
+                nbits = min(mapper.num_bin, ht.cat_bitset.shape[1] * 32)
+                cats = [mapper.bin_2_categorical[b] for b in range(nbits)
+                        if (int(ht.cat_bitset[i, b >> 5]) >> (b & 31)) & 1
+                        and mapper.bin_2_categorical[b] >= 0]
+                words = [0] * ((max(cats) if cats else 0) // 32 + 1)
+                for cval in cats:
+                    words[cval >> 5] |= 1 << (cval & 31)
+                t.threshold[i] = t.num_cat      # index into cat_boundaries
+                t.num_cat += 1
+                cat_words.extend(words)
+                cat_boundaries.append(len(cat_words))
+            if bool(ht.default_left[i]):
+                d |= _DEFAULT_LEFT_MASK
             dt[i] = d | (int(ht.missing_type[i]) << 2)
         t.decision_type = dt
+        t.cat_boundaries = np.asarray(cat_boundaries, np.int32)
+        t.cat_threshold = np.asarray(cat_words, np.uint32)
         return t
 
     def to_string(self) -> str:
@@ -87,7 +115,7 @@ class ModelTree:
         n = self.num_leaves - 1
         lines = [
             f"num_leaves={self.num_leaves}",
-            "num_cat=0",
+            f"num_cat={self.num_cat}",
             "split_feature=" + _join(self.split_feature),
             "split_gain=" + _join(self.split_gain, _d2s),
             "threshold=" + _join(self.threshold, _d2s),
@@ -100,9 +128,11 @@ class ModelTree:
             "internal_value=" + _join(self.internal_value[:n], _d2s),
             "internal_weight=" + _join(self.internal_weight[:n], _d2s),
             "internal_count=" + _join(self.internal_count[:n]),
-            "is_linear=0",
-            f"shrinkage={_d2s(self.shrinkage)}",
         ]
+        if self.num_cat > 0:
+            lines.append("cat_boundaries=" + _join(self.cat_boundaries))
+            lines.append("cat_threshold=" + _join(self.cat_threshold))
+        lines += ["is_linear=0", f"shrinkage={_d2s(self.shrinkage)}"]
         return "\n".join(lines) + "\n\n"
 
     @classmethod
@@ -115,11 +145,11 @@ class ModelTree:
         t.num_leaves = int(kv["num_leaves"])
         if t.num_leaves < 1:
             raise ValueError(f"invalid num_leaves={t.num_leaves}")
-        if int(kv.get("num_cat", "0")) or int(kv.get("is_linear", "0")):
+        if int(kv.get("is_linear", "0")):
             raise NotImplementedError(
-                "categorical and linear-leaf trees are not ported to "
-                "lightgbm_tpu_torch yet; they arrive with ROADMAP.md Queue 1 "
-                "items 9 and 11")
+                "linear-leaf trees are not ported to lightgbm_tpu_torch yet; "
+                "they arrive with ROADMAP.md Queue 1 item 11")
+        t.num_cat = int(kv.get("num_cat", "0"))
         n = t.num_leaves - 1
 
         def arr(key, dtype, count):
@@ -147,15 +177,23 @@ class ModelTree:
         t.internal_value = arr("internal_value", np.float64, n)
         t.internal_weight = arr("internal_weight", np.float64, n)
         t.internal_count = arr("internal_count", np.int64, n)
+        if t.num_cat > 0:
+            t.cat_boundaries = arr("cat_boundaries", np.int32, t.num_cat + 1)
+            if "cat_threshold" not in kv:
+                raise ValueError("missing 'cat_threshold' section")
+            t.cat_threshold = np.asarray(kv["cat_threshold"].split(),
+                                         dtype=np.uint64).astype(np.uint32)
         t.shrinkage = float(kv.get("shrinkage", "1"))
         return t
 
     def _go_left(self, nd: np.ndarray, fval: np.ndarray) -> np.ndarray:
         """Split decision for nodes ``nd`` on raw values ``fval``
-        (reference: tree.h:320-340 NumericalDecision)."""
+        (reference: tree.h:320-360 NumericalDecision and
+        CategoricalDecision)."""
         dt = self.decision_type[nd]
         missing_type = (dt.astype(np.int32) >> 2) & 3
         default_left = (dt & _DEFAULT_LEFT_MASK) > 0
+        is_cat = (dt & _CAT_MASK) > 0
         # NaN with non-NaN missing handling is treated as 0.0 (tree.h:330)
         fv = np.where(np.isnan(fval) & (missing_type != MISSING_NAN), 0.0,
                       fval)
@@ -163,7 +201,24 @@ class ModelTree:
                        & (np.abs(fv) <= K_ZERO_THRESHOLD))
                       | ((missing_type == MISSING_NAN) & np.isnan(fv)))
         with np.errstate(invalid="ignore"):
-            return np.where(is_missing, default_left, fv <= self.threshold[nd])
+            num_left = np.where(is_missing, default_left,
+                                fv <= self.threshold[nd])
+        if not is_cat.any():
+            return num_left
+        # categorical: int(fval) in the node's category bitset; NaN and
+        # negative values go right
+        cat_left = np.zeros(len(nd), dtype=bool)
+        for i in np.nonzero(is_cat)[0]:
+            ci = int(self.threshold[nd[i]])
+            lo, hi = self.cat_boundaries[ci], self.cat_boundaries[ci + 1]
+            v = fval[i]
+            if np.isnan(v) or v < 0:
+                continue
+            iv = int(v)
+            if (iv >> 5) < hi - lo:
+                cat_left[i] = bool((int(self.cat_threshold[lo + (iv >> 5)])
+                                    >> (iv & 31)) & 1)
+        return np.where(is_cat, cat_left, num_left)
 
     def leaf_index(self, X: np.ndarray) -> np.ndarray:
         """Per-row leaf index over raw features [N, F]."""
@@ -196,9 +251,18 @@ def _objective_string(config: Config) -> Optional[str]:
 
 
 def _feature_infos(mappers) -> List[str]:
-    """Per-feature info strings (reference: bin.h:190-199)."""
-    return ["none" if m.is_trivial
-            else f"[{m.min_val:.17g}:{m.max_val:.17g}]" for m in mappers]
+    """Per-feature info strings (reference: bin.h:190-199): the value
+    range, or the categories of a categorical feature."""
+    infos = []
+    for m in mappers:
+        if m.is_trivial:
+            infos.append("none")
+        elif m.bin_type == BIN_TYPE_CATEGORICAL:
+            infos.append(":".join(str(c) for c in m.bin_2_categorical
+                                  if c >= 0))
+        else:
+            infos.append(f"[{m.min_val:.17g}:{m.max_val:.17g}]")
+    return infos
 
 
 def _collect(boosting, num_iteration: int = -1, start_iteration: int = 0
@@ -220,7 +284,8 @@ def _collect(boosting, num_iteration: int = -1, start_iteration: int = 0
             "feature_infos": _feature_infos(ds.mappers),
             "parameters": cfg.to_params(),
         }
-        all_trees = [ModelTree.from_host(ht) for ht in boosting.host_trees]
+        all_trees = [ModelTree.from_host(ht, ds.mappers)
+                     for ht in boosting.host_trees]
     total = len(all_trees)
     start = min(max(start_iteration, 0), total)
     end = (min(start + num_iteration, total)
@@ -318,7 +383,7 @@ class LoadedGBDT:
         raw = self.predict_raw(X, num_iteration, start_iteration)
         if raw_score or self.objective is None:
             return raw
-        return self.objective.convert_output(raw)
+        return self.objective.convert_output(raw.astype(np.float32))
 
 
 def load_model(model_str: str, config: Optional[Config] = None) -> LoadedGBDT:

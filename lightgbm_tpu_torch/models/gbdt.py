@@ -3,7 +3,10 @@
 The port of lightgbm_tpu's ``models/gbdt.py`` for the slice: the unfused
 iteration (``train_one_iter``: gradients, one tree, shrinkage, the train
 and valid score updates, the boost-from-average bias fold), evaluation,
-and raw prediction as a float64 accumulation in tree order. The JAX
+and raw prediction as a float64 accumulation in tree order. The grower
+takes the fused split path unless ``_split_fusion_on`` finds a reason not
+to (categorical features, sparse device columns, ``split_fusion=off``),
+as the JAX package resolves it. The JAX
 package's fused one-program iteration, K-block dispatch, compile cache,
 sentinels, flight recorder and OOM ladder wait for later ROADMAP items;
 its fused and unfused iterations give the same trees, so the port runs the
@@ -122,6 +125,8 @@ class GBDT:
             return (empty_tree(cfg.num_leaves),
                     torch.zeros((ts.num_data,), dtype=torch.int32,
                                 device=self.device), 0.0)
+        sp = ((ts.sp_cols, ts.sp_rows, ts.sp_bins, ts.sp_default)
+              if ts.has_sparse_cols else None)
         return grow_tree(
             ts.binsT, g, h, ts.feature_meta, self.split_params,
             ts.missing_bin, max_leaves=cfg.num_leaves,
@@ -129,7 +134,31 @@ class GBDT:
             exact=cfg.tree_growth_mode == "exact",
             tile_leaves=cfg.tile_leaves,
             hist_subtraction=cfg.hist_subtraction,
-            compaction_ladder=self._compaction_ladder())
+            compaction_ladder=self._compaction_ladder(),
+            split_fusion=self._split_fusion_on(),
+            with_categorical=ts.has_categorical, sp=sp)
+
+    def _split_fusion_on(self) -> bool:
+        """Resolve ``split_fusion`` as the JAX package does: "auto" fuses
+        the split search into the tile passes unless the classic search
+        has to run -- categorical features or sparse device columns (the
+        reasons the port has); "on" raises with either; "off" never
+        fuses."""
+        mode = self.config.split_fusion
+        if mode == "off" or self.train_set is None:
+            return False
+        ts = self.train_set
+        reasons = []
+        if ts.has_categorical:
+            reasons.append("categorical features")
+        if ts.has_sparse_cols:
+            reasons.append("sparse device columns")
+        if mode == "on" and reasons:
+            raise ValueError(
+                "split_fusion=on is unsupported with " + ", ".join(reasons)
+                + " (these split semantics live in the classic search; use "
+                "split_fusion=auto to fall back automatically)")
+        return not reasons
 
     def train_one_iter(self) -> bool:
         """One boosting iteration (gbdt.cpp:369-452). Returns True when the
@@ -254,8 +283,11 @@ class GBDT:
     def predict(self, X, raw_score: bool = False,
                 num_iteration: Optional[int] = None,
                 start_iteration: int = 0) -> np.ndarray:
+        """Raw scores (float64), or the objective's output computed from
+        the raw scores cast to float32, as the JAX package converts."""
         raw = self.predict_raw(X, num_iteration, start_iteration)
-        return raw if raw_score else self.objective.convert_output(raw)
+        return raw if raw_score else self.objective.convert_output(
+            raw.astype(np.float32))
 
     def feature_importance(self, importance_type: str = "split") -> np.ndarray:
         imp = np.zeros(self.train_set.num_total_features, np.float64)

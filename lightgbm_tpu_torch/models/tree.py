@@ -1,12 +1,14 @@
 """Tree model object: fixed-capacity arrays + traversal over binned data.
 
-The port of lightgbm_tpu's ``models/tree.py`` for numerical trees. A tree
+The port of lightgbm_tpu's ``models/tree.py`` for numerical and
+categorical trees. A tree
 with leaf capacity L has L-1 internal-node slots and L leaf slots; child
 links follow the reference's encoding (``child >= 0`` is a node,
 ``child < 0`` is ``~leaf``, reference tree.h left_child_/right_child_).
 Thresholds are bin indices for traversal over the binned matrix; the real
-thresholds for model text come from the bin mappers (``HostTree``).
-Categorical bitsets and EFB segments wait for ROADMAP Queue 1 item 9.
+thresholds for model text come from the bin mappers (``HostTree``). A
+categorical node sends left the bins whose bit is set in its bitset (32-bit
+words held as int64). EFB segments wait for ROADMAP Queue 1 item 9.
 """
 
 from __future__ import annotations
@@ -29,6 +31,8 @@ class TreeArrays(NamedTuple):
     node_value: torch.Tensor        # f32 [L-1] internal output
     node_weight: torch.Tensor       # f32 [L-1] sum_hessian at node
     node_count: torch.Tensor        # f32 [L-1]
+    node_cat: torch.Tensor          # bool [L-1] categorical split
+    node_cat_bitset: torch.Tensor   # int64 [L-1, CAT_WORDS] left bins' bits
     leaf_value: torch.Tensor        # f32 [L]
     leaf_weight: torch.Tensor       # f32 [L]
     leaf_count: torch.Tensor        # f32 [L]
@@ -44,7 +48,8 @@ class TreeArrays(NamedTuple):
         return TreeArrays(*(t.detach().cpu().numpy() for t in self))
 
 
-def empty_tree(max_leaves: int, device="cpu") -> TreeArrays:
+def empty_tree(max_leaves: int, cat_words: int = 8,
+               device="cpu") -> TreeArrays:
     li, lf = max(max_leaves - 1, 0), max_leaves
 
     def i32(n, v=0):
@@ -60,17 +65,25 @@ def empty_tree(max_leaves: int, device="cpu") -> TreeArrays:
         node_left=i32(li, -1), node_right=i32(li, -1),
         node_gain=f32(li), node_value=f32(li), node_weight=f32(li),
         node_count=f32(li),
+        node_cat=torch.zeros((li,), dtype=torch.bool, device=device),
+        node_cat_bitset=torch.zeros((li, cat_words), dtype=torch.int64,
+                                    device=device),
         leaf_value=f32(lf), leaf_weight=f32(lf), leaf_count=f32(lf),
         leaf_depth=i32(lf), leaf_parent=i32(lf, -1),
         shrinkage=torch.tensor(1.0, dtype=torch.float32, device=device))
 
 
-def _decide_left_bins(bin_val, threshold_bin, default_left, missing_bin):
-    """Numerical split decision in bin space: the bin routed by the
+def _decide_left_bins(bin_val, threshold_bin, default_left, missing_bin,
+                      is_cat, cat_word):
+    """Split decision in bin space. Numerical: the bin routed by the
     default direction (``missing_bin`` >= 0) follows ``default_left``,
-    every other bin goes left iff ``bin <= threshold``."""
+    every other bin goes left iff ``bin <= threshold``. Categorical: left
+    iff the bin's bit is set in ``cat_word``, the bitset word that holds
+    it (reference Tree::CategoricalDecision, tree.h:349)."""
     num_default = (bin_val == missing_bin) & (missing_bin >= 0)
-    return torch.where(num_default, default_left, bin_val <= threshold_bin)
+    num_left = torch.where(num_default, default_left, bin_val <= threshold_bin)
+    cat_left = ((cat_word >> (bin_val & 31).long()) & 1) == 1
+    return torch.where(is_cat, cat_left, num_left)
 
 
 def predict_leaf_bins(tree: TreeArrays, binsT: torch.Tensor,
@@ -86,13 +99,16 @@ def predict_leaf_bins(tree: TreeArrays, binsT: torch.Tensor,
     t = tree.to(dev)
     cols = torch.arange(n, device=dev)
     cur = torch.zeros((n,), dtype=torch.int64, device=dev)
+    words = t.node_cat_bitset.shape[1]
+    bits = t.node_cat_bitset.reshape(-1)
     for _ in range(int(tree.num_leaves) - 1):   # depth <= num_leaves - 1
         node = cur.clamp(min=0)
         feat = t.node_feature[node].to(torch.int64)
         b = binsT[feat, cols].to(torch.int32)
+        word = bits[node * words + (b >> 5).long()]
         go_left = _decide_left_bins(b, t.node_threshold_bin[node],
                                     t.node_default_left[node],
-                                    missing_bin[feat])
+                                    missing_bin[feat], t.node_cat[node], word)
         nxt = torch.where(go_left, t.node_left[node],
                           t.node_right[node]).to(torch.int64)
         active = cur >= 0
@@ -124,6 +140,8 @@ class HostTree:
         self.internal_value = t.node_value[:n]
         self.internal_weight = t.node_weight[:n]
         self.internal_count = t.node_count[:n]
+        self.is_cat = t.node_cat[:n]
+        self.cat_bitset = t.node_cat_bitset[:n]
         self.leaf_value = t.leaf_value[:self.num_leaves]
         self.leaf_weight = t.leaf_weight[:self.num_leaves]
         self.leaf_count = t.leaf_count[:self.num_leaves]
@@ -141,7 +159,8 @@ def tree_from_host_fields(fields: dict, max_leaves: int | None = None
     """TreeArrays from HostTree-shaped numpy fields (``convert.py``)."""
     nl = int(fields["num_leaves"])
     cap = max(nl, max_leaves or nl)
-    t = empty_tree(cap)
+    bits = np.asarray(fields.get("cat_bitset", np.zeros((0, 1))))
+    t = empty_tree(cap, max(bits.shape[1] if bits.ndim == 2 else 1, 1))
     n = nl - 1
     # (TreeArrays field, HostTree field, entries, required); an optional
     # field that is absent keeps empty_tree's values
@@ -155,6 +174,8 @@ def tree_from_host_fields(fields: dict, max_leaves: int | None = None
             (t.node_value, "internal_value", n, False),
             (t.node_weight, "internal_weight", n, False),
             (t.node_count, "internal_count", n, False),
+            (t.node_cat, "is_cat", n, False),
+            (t.node_cat_bitset, "cat_bitset", n, False),
             (t.leaf_value, "leaf_value", nl, True),
             (t.leaf_weight, "leaf_weight", nl, False),
             (t.leaf_count, "leaf_count", nl, False),

@@ -4,9 +4,10 @@ The port of lightgbm_tpu's ``objectives.py`` for the slice's two
 objectives (reference: src/objective/regression_objective.hpp RegressionL2loss,
 src/objective/binary_objective.hpp BinaryLogloss). Gradients are float32
 tensors on the run's device; ``boost_from_score`` is computed on the host
-in float64 exactly as the JAX package does. ``torch.exp`` and ``jnp.exp``
-differ by an ulp on some inputs, so binary gradients match the JAX
-package's to an ulp, not bitwise; L2 gradients match bitwise.
+in float64 exactly as the JAX package does. ``exp`` is XLA:CPU's float32
+``exp`` written out in PyTorch operations (``exp_f32``; ``torch.exp``
+rounds differently), so binary gradients and converted outputs are bitwise
+the JAX package's on the CPU, and the card computes the same bits.
 """
 
 from __future__ import annotations
@@ -19,6 +20,56 @@ import torch
 from .utils import log
 
 K_EPSILON = 1e-15
+
+# XLA:CPU's float32 exp (the Cephes scheme): the input clamped below at
+# -88.376, range reduction by ln 2 with a hi/lo split of the constant, a
+# degree-5 polynomial in fused multiply-adds, scaling by 2^n with n capped
+# at 127, results below FLT_MIN flushed to 0
+_EXP_LO = -88.3762626647949
+_EXP_LOG2E = 1.44269504088896341
+_EXP_LN2_HI = 0.693359375
+_EXP_LN2_LO = -2.12194440e-4
+_EXP_POLY = (1.9875691500e-4, 1.3981999507e-3, 8.3334519073e-3,
+             4.1665795894e-2, 1.6666665459e-1, 5.0000001201e-1)
+_FLT_MIN = float(np.finfo(np.float32).tiny)
+
+
+def _fma(a: torch.Tensor, b, c) -> torch.Tensor:
+    """float32 ``a * b + c`` with one rounding: the product of two float32
+    values is exact in float64, so only the add rounds before the cast."""
+    return (a.to(torch.float64) * b + c).to(torch.float32)
+
+
+def _c32(v: float) -> float:
+    """A constant as the float32 value XLA embeds, carried as a double."""
+    return float(np.float32(v))
+
+
+def _ftz(x: torch.Tensor) -> torch.Tensor:
+    """Flush a float32 result below FLT_MIN to a zero of its sign, as
+    XLA:CPU's flush-to-zero mode does for every operation it runs."""
+    return torch.where(x.abs() < _FLT_MIN, x * 0.0, x)
+
+
+def exp_f32(x: torch.Tensor) -> torch.Tensor:
+    """``exp`` of a float32 tensor, bit for bit as XLA computes it on the
+    CPU (``jnp.exp``), on any device: every step is an IEEE operation that
+    eager PyTorch runs as written (no contraction), each fused multiply-add
+    evaluated in float64 and rounded once."""
+    x = x.to(torch.float32).clamp(min=_c32(_EXP_LO))
+    n = torch.floor(_fma(x, _c32(_EXP_LOG2E), 0.5)).clamp(max=127.0)
+    r = _fma(n, -_c32(_EXP_LN2_HI), x)
+    r = _fma(n, -_c32(_EXP_LN2_LO), r)
+    z = r * r
+    y = _fma(r, _c32(_EXP_POLY[0]), _c32(_EXP_POLY[1]))
+    for c in _EXP_POLY[2:]:
+        y = _fma(y, r, _c32(c))
+    y = _fma(y, z, r) + 1.0
+    # 2^n built from its bits (exact on every device), the product exact
+    two_n = ((n.to(torch.int64) + 1023) << 52).view(torch.float64)
+    out = (y.to(torch.float64) * two_n).to(torch.float32)
+    out = torch.where(out < _FLT_MIN, torch.zeros_like(out), out)
+    return torch.where(torch.isnan(x), x, out)
 
 
 class ObjectiveFunction:
@@ -55,8 +106,7 @@ class ObjectiveFunction:
         return 0.0
 
     def convert_output(self, raw):
-        """Raw score -> output space, in the input's own dtype (numpy f64
-        for predictions and metrics)."""
+        """Raw score -> output space (the identity here)."""
         return raw
 
 
@@ -117,12 +167,15 @@ class BinaryLogloss(ObjectiveFunction):
             return torch.zeros_like(score), torch.zeros_like(score)
         sig = torch.tensor(self.sigmoid, dtype=torch.float32,
                            device=score.device)
-        response = -self.label_sign * sig / (
-            1.0 + torch.exp(self.label_sign * sig * score))
+        # every result that can fall below FLT_MIN is flushed, as XLA does
+        response = _ftz(-self.label_sign * sig / (
+            1.0 + exp_f32(self.label_sign * sig * score)))
         abs_response = torch.abs(response)
-        g = response * self.label_weight
-        h = abs_response * (sig - abs_response) * self.label_weight
-        return self._apply_weight(g, h)
+        g = _ftz(response * self.label_weight)
+        h = _ftz(_ftz(abs_response * (sig - abs_response))
+                 * self.label_weight)
+        g, h = self._apply_weight(g, h)
+        return _ftz(g), _ftz(h)
 
     def boost_from_score(self, class_id: int = 0) -> float:
         # reference: binary_objective.hpp:139-161
@@ -138,7 +191,11 @@ class BinaryLogloss(ObjectiveFunction):
         return initscore
 
     def convert_output(self, raw):
-        return 1.0 / (1.0 + np.exp(-self.sigmoid * np.asarray(raw)))
+        """Probabilities as float32 numpy: the raw scores are cast to
+        float32 first, as the JAX package's conversion does."""
+        r = torch.as_tensor(np.asarray(raw)).to(torch.float32)
+        sig = torch.tensor(-self.sigmoid, dtype=torch.float32)
+        return _ftz(1.0 / (1.0 + exp_f32(sig * r))).numpy()
 
 
 _REGISTRY = {c.name: c for c in (RegressionL2, BinaryLogloss)}

@@ -1,14 +1,18 @@
 """Hopper kernels of the histogram tile pass, their wrappers and plain versions.
 
-The port of lightgbm_tpu's ``ops/pallas_hist.py`` for the fused split path.
-On the TPU one Pallas kernel (``_fused_epi_kernel`` for full-row passes,
-``_gather_epi_kernel`` for compaction-rung passes) accumulates a tile's
-histogram planes in VMEM and runs the split epilogue on its last grid step.
-On Hopper that pipeline is two hand-written CUDA kernels (``csrc/``):
+The port of lightgbm_tpu's ``ops/pallas_hist.py``. On the TPU a Pallas
+kernel accumulates a tile's histogram planes in VMEM: plane-only for the
+classic split path (``_fused_kernel`` for full-row passes, ``_gather_kernel``
+for compaction-rung passes), or with the split epilogue on its last grid
+step for the fused path (``_fused_epi_kernel``, ``_gather_epi_kernel``). On
+Hopper that is two hand-written CUDA kernels (``csrc/``):
 
 - ``hist_tile`` (``csrc/hist_tile.cu``): the ``[P, F, B, 3]`` planes of the
   tile's computed slots, in the full-row form (``idx=None``) or the gather
-  form (rows ``idx[M]``, entries >= N are padding);
+  form (rows ``idx[M]``, entries >= N are padding); deterministic (64-bit
+  fixed-point sums), so two launches give the same bits. ``plane=True``
+  marks a launch of the classic path (the plane-only kernels 3-4), counted
+  apart in ``hist_tile.launches_plane``;
 - ``split_epilogue`` (``csrc/split_epilogue.cu``): the derived slots'
   planes as parent - computed sibling, then the numerical split scan
   (``ops/split.py numerical_candidates``) -> the ``[P, F, 12]`` table.
@@ -18,6 +22,10 @@ outputs, launches on the current stream, raises if the launch failed, and
 adds one to its ``launches`` counter. On a CPU tensor it runs the kernel's
 plain PyTorch version instead (``hist_tile_plain``, ``split_epilogue_plain``),
 and only then: on a CUDA tensor it launches the kernel or raises.
+``hist_tile_exact`` is the plain version of ``hist_tile``'s own fixed-point
+arithmetic (bitwise the kernel's planes on float stats too);
+``kernel_sums_on_cpu`` makes the CPU path use it, for a CPU run that gives a
+card run's bits.
 
 The kernels are built from the package's sources on first use, with
 ``nvcc`` into one shared library per source (both compiles started
@@ -34,6 +42,7 @@ the tables the kernels take compare one to one with the TPU kernels'.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -185,7 +194,7 @@ def build_kernels() -> float:
 def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     if name == "hist_tile":
-        lib.hist_tile_launch.argtypes = [vp] * 7 + [ci] * 7 + [vp]
+        lib.hist_tile_launch.argtypes = [vp] * 9 + [ci] * 10 + [vp]
         lib.hist_tile_launch.restype = ci
     else:
         lib.split_epilogue_launch.argtypes = [vp] * 8 + [ci] * 3 + [vp]
@@ -214,13 +223,9 @@ def _raise_on(err: int, name: str) -> None:
 
 
 # ------------------------------------------------------------------ hist_tile
-def hist_tile_plain(binsT: torch.Tensor, leaf_ids: torch.Tensor,
-                    stats: torch.Tensor, chan: torch.Tensor, num_slots: int,
-                    num_bins: int, num_leaves: int,
-                    idx: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Plain version of ``hist_tile``: one flat ``index_add_`` over the
-    kept rows in row order -- on the CPU bitwise equal to the JAX package's
-    ``histogram_scatter`` / scatter-method tile. Returns [P, F, B, 3] f32."""
+def _tile_cells(binsT, leaf_ids, chan, num_slots, num_bins, num_leaves, idx):
+    """The rows a tile pass adds (in row order) and each one's flattened
+    (slot, feature, bin) cell per feature: (rows [R], cells [R, F])."""
     f, n = binsT.shape
     dev = binsT.device
     rows = (torch.arange(n, device=dev) if idx is None
@@ -237,35 +242,120 @@ def hist_tile_plain(binsT: torch.Tensor, leaf_ids: torch.Tensor,
                                     num_leaves)]
     keep = slot >= 0
     rows, slot = rows[keep], slot[keep]
-    flat = ((slot[:, None] * f + torch.arange(f, device=dev)[None, :])
-            * num_bins + binsT[:, rows].T.to(torch.int64))
+    cells = ((slot[:, None] * f + torch.arange(f, device=dev)[None, :])
+             * num_bins + binsT[:, rows].T.to(torch.int64))
+    return rows, cells
+
+
+def hist_tile_plain(binsT: torch.Tensor, leaf_ids: torch.Tensor,
+                    stats: torch.Tensor, chan: torch.Tensor, num_slots: int,
+                    num_bins: int, num_leaves: int,
+                    idx: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain version of ``hist_tile``: one flat float32 ``index_add_`` over
+    the kept rows in row order -- on the CPU bitwise equal to the JAX
+    package's ``histogram_scatter`` / scatter-method tile, and the CPU
+    path's histogram. Returns [P, F, B, 3] f32."""
+    f = binsT.shape[0]
+    rows, cells = _tile_cells(binsT, leaf_ids, chan, num_slots, num_bins,
+                              num_leaves, idx)
     contrib = stats[rows].to(torch.float32)[:, None, :].expand(
         rows.shape[0], f, _STATS).reshape(-1, _STATS)
     hist = torch.zeros((num_slots * f * num_bins, _STATS),
-                       dtype=torch.float32, device=dev)
-    hist.index_add_(0, flat.reshape(-1), contrib)
+                       dtype=torch.float32, device=binsT.device)
+    hist.index_add_(0, cells.reshape(-1), contrib)
     return hist.reshape(num_slots, f, num_bins, _STATS)
 
 
-def _hist_chunks(f: int, m: int, dev: torch.device) -> int:
-    """Row chunks per feature: one wave of blocks over the card's SMs (one
-    block per SM fits at the main path's shared-memory size), no chunk
-    under 1024 rows."""
+def _fixed_exponent(amax: torch.Tensor, rows: int) -> torch.Tensor:
+    """The kernel's fixed-point exponent k per stat channel: the largest
+    that keeps max|stat| * rows * 2^k below 2^61 (csrc/hist_tile.cu
+    fixed_exponent), as int64."""
+    bound = amax.to(torch.float64) * rows
+    _, e = torch.frexp(bound)
+    k = torch.where(bound == 0, torch.full_like(e, 61), 61 - e)
+    return k.clamp(-1000, 1000).to(torch.int64)
+
+
+def hist_tile_exact(binsT: torch.Tensor, leaf_ids: torch.Tensor,
+                    stats: torch.Tensor, chan: torch.Tensor, num_slots: int,
+                    num_bins: int, num_leaves: int,
+                    idx: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``hist_tile``'s own arithmetic in plain PyTorch: each stat scaled by
+    2^k and rounded to a 64-bit integer, integer sums (order-free), one
+    conversion back to float32 -- bitwise the kernel's planes on any stats
+    (a non-finite stat makes its channel NaN). Returns [P, F, B, 3] f32."""
+    f, n = binsT.shape
+    m = n if idx is None else idx.shape[0]
+    dev = binsT.device
+    rows, cells = _tile_cells(binsT, leaf_ids, chan, num_slots, num_bins,
+                              num_leaves, idx)
+    amax = stats.to(torch.float32).abs().amax(0)
+    finite = torch.isfinite(amax)
+    k = torch.where(finite, _fixed_exponent(amax, m), 0)
+    one = torch.ones((_STATS,), dtype=torch.float64, device=dev)
+    fixed = torch.round(stats[rows].to(torch.float64)
+                        * torch.ldexp(one, k)).to(torch.int64)
+    contrib = fixed[:, None, :].expand(rows.shape[0], f, _STATS).reshape(
+        -1, _STATS)
+    acc = torch.zeros((num_slots * f * num_bins, _STATS), dtype=torch.int64,
+                      device=dev)
+    acc.index_add_(0, cells.reshape(-1), contrib)
+    out = (acc.to(torch.float64) * torch.ldexp(one, -k)).to(torch.float32)
+    out = torch.where(finite, out, torch.full_like(out, float("nan")))
+    return out.reshape(num_slots, f, num_bins, _STATS)
+
+
+_cpu_sums = {"kernel": False}
+
+
+@contextlib.contextmanager
+def kernel_sums_on_cpu():
+    """Within the block, ``hist_tile`` on a CPU tensor sums as the kernel
+    does (``hist_tile_exact``) instead of in the JAX package's float32
+    order: a CPU run that reproduces a card run's bits."""
+    old = _cpu_sums["kernel"]
+    _cpu_sums["kernel"] = True
+    try:
+        yield
+    finally:
+        _cpu_sums["kernel"] = old
+
+
+def _hist_chunks(blocks_per_chunk: int, m: int, dev: torch.device) -> int:
+    """Row chunks: one wave of blocks over the card's SMs (one block per
+    SM fits at the main path's shared-memory size), no chunk under 1024
+    rows."""
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    return int(max(1, min(max(1, sms // max(f, 1)), -(-m // 1024))))
+    return int(max(1, min(max(1, sms // max(blocks_per_chunk, 1)),
+                          -(-m // 1024))))
+
+
+def hist_slot_parts(active: int, num_bins: int, num_leaves: int
+                    ) -> Tuple[int, int]:
+    """(parts, slots per part): the int64 planes of ``active`` computed
+    slots split into parts that each fit a block's shared memory."""
+    fit = (SMEM_PER_BLOCK - num_leaves * 4) // (num_bins * _STATS * 8)
+    _check(fit >= 1, f"hist_tile: {num_bins} bins + {num_leaves} leaves "
+           f"leave no room for one slot in {SMEM_PER_BLOCK} bytes of shared "
+           f"memory")
+    parts = -(-active // fit)
+    return parts, -(-active // parts)
 
 
 def hist_tile(binsT: torch.Tensor, leaf_ids: torch.Tensor,
               stats: torch.Tensor, chan: torch.Tensor, num_slots: int,
               num_bins: int, num_leaves: int,
-              idx: Optional[torch.Tensor] = None) -> torch.Tensor:
+              idx: Optional[torch.Tensor] = None,
+              plane: bool = False) -> torch.Tensor:
     """[P, F, B, 3] histogram planes of the computed slots (see the module
     docstring). ``binsT`` [F, N] uint8, ``leaf_ids`` [N] int32, ``stats``
     [N, 3] f32, ``chan`` [1, 128] int32 (chan_leaf_table of the computed
-    selection), ``idx`` [M] int32 or None."""
+    selection; read on the host to size the launch), ``idx`` [M] int32 or
+    None; ``plane`` marks a classic-path launch."""
     if binsT.device.type == "cpu":
-        return hist_tile_plain(binsT, leaf_ids, stats, chan, num_slots,
-                               num_bins, num_leaves, idx)
+        plain = hist_tile_exact if _cpu_sums["kernel"] else hist_tile_plain
+        return plain(binsT, leaf_ids, stats, chan, num_slots, num_bins,
+                     num_leaves, idx)
     _check(binsT.device.type == "cuda", f"hist_tile: no kernel for device "
            f"{binsT.device}")
     f, n = binsT.shape
@@ -275,8 +365,8 @@ def hist_tile(binsT: torch.Tensor, leaf_ids: torch.Tensor,
                         ("stats", stats, torch.float32),
                         ("chan", chan, torch.int32)) + (
             (("idx", idx, torch.int32),) if idx is not None else ()):
-        _check(t.device == dev, f"hist_tile: {name} on {t.device}, binsT on "
-               f"{dev}")
+        _check(t.device == dev or name == "chan", f"hist_tile: {name} on "
+               f"{t.device}, binsT on {dev}")
         _check(t.dtype == dt, f"hist_tile: {name} must be {dt}, got {t.dtype}")
         _check(t.is_contiguous(), f"hist_tile: {name} must be contiguous")
     _check(leaf_ids.shape == (n,), f"hist_tile: leaf_ids {tuple(leaf_ids.shape)}"
@@ -289,31 +379,42 @@ def hist_tile(binsT: torch.Tensor, leaf_ids: torch.Tensor,
     _check(1 <= num_bins <= MAX_BINS, f"hist_tile: num_bins {num_bins} "
            f"outside [1, {MAX_BINS}]")
     _check(n < 2 ** 31, "hist_tile: more than 2^31 rows")
-    smem = num_slots * num_bins * _STATS * 4 + num_leaves * 4
-    _check(smem <= SMEM_PER_BLOCK, f"hist_tile: {num_slots} slots x "
-           f"{num_bins} bins + {num_leaves} leaves need {smem} bytes of "
-           f"shared memory, more than a block's {SMEM_PER_BLOCK}")
+    # the computed slots, in slot order, get compact plane indices
+    lanes = chan.reshape(-1)[0:num_slots * _STATS:_STATS].cpu().numpy()
+    computed = (lanes >= 0) & (lanes < num_leaves)
+    comp_np = np.where(computed, np.cumsum(computed) - 1, -1).astype(np.int32)
+    active = int(computed.sum())
     m = n if idx is None else idx.shape[0]
     out = torch.empty((num_slots, f, num_bins, _STATS), dtype=torch.float32,
                       device=dev)
     if m == 0 or f == 0:
         return out.zero_()
-    nchunk = _hist_chunks(f, m, dev)
-    partial = torch.empty((nchunk,) + tuple(out.shape), dtype=torch.float32,
-                          device=dev)
+    # a tile with no computed slot still launches (its blocks return at
+    # once and the reduce writes zeros)
+    parts, per_part = hist_slot_parts(max(active, 1), num_bins, num_leaves)
+    nchunk = _hist_chunks(f * parts, m, dev)
+    comp = torch.as_tensor(comp_np).to(dev)
+    chan_d = chan.to(dev).contiguous()
+    amax = torch.zeros((_STATS,), dtype=torch.int32, device=dev)
+    partial = torch.empty((nchunk, active, f, num_bins, _STATS),
+                          dtype=torch.int64, device=dev)
     err = _lib("hist_tile").hist_tile_launch(
-        _ptr(binsT), _ptr(leaf_ids), _ptr(stats), _ptr(chan), _ptr(idx),
-        _ptr(partial), _ptr(out), n, f, m, num_slots, num_bins, num_leaves,
-        nchunk, torch.cuda.current_stream(dev).cuda_stream)
+        _ptr(binsT), _ptr(leaf_ids), _ptr(stats), _ptr(chan_d), _ptr(comp),
+        _ptr(idx), _ptr(amax), _ptr(partial), _ptr(out), n, f, m, num_slots,
+        num_bins, num_leaves, nchunk, active, per_part, parts,
+        torch.cuda.current_stream(dev).cuda_stream)
     hist_tile.launches += 1
     if idx is not None:
         hist_tile.gather_launches += 1
+    if plane:
+        hist_tile.launches_plane += 1
     _raise_on(err, "hist_tile")
     return out
 
 
 hist_tile.launches = 0
 hist_tile.gather_launches = 0
+hist_tile.launches_plane = 0
 
 
 # ------------------------------------------------------------- split_epilogue
@@ -373,4 +474,5 @@ split_epilogue.launches = 0
 def reset_launch_counts() -> None:
     hist_tile.launches = 0
     hist_tile.gather_launches = 0
+    hist_tile.launches_plane = 0
     split_epilogue.launches = 0

@@ -1,16 +1,20 @@
 """Per-leaf gradient-statistics histograms for a tile of leaves.
 
-The port of lightgbm_tpu's ``ops/histogram.py`` for the fused split path.
-A tile pass builds the ``[P, F, B, 3]`` (grad, hess, count) planes of up to
-P pending leaves in one data pass and reduces each (leaf, feature) to its
-best numerical split candidate:
+The port of lightgbm_tpu's ``ops/histogram.py``. A tile pass builds the
+``[P, F, B, 3]`` (grad, hess, count) planes of up to P pending leaves in
+one data pass. Two entries:
 
-- on a CUDA tensor through the two Hopper kernels of ``ops/cuda_hist.py``
-  (``hist_tile`` then ``split_epilogue``);
-- on a CPU tensor through their plain versions: a flat ``index_add_``
-  (bitwise equal to the JAX package's ``histogram_scatter``) and
-  ``derive_and_scan`` (the JAX package's XLA twin of the in-kernel epilogue,
-  the same ops in the same order).
+- ``histogram_tiles``: the planes alone (the classic split path, the JAX
+  package's plane-only Pallas kernels 3-4);
+- ``histogram_tiles_with_candidates``: the planes, the derived siblings'
+  planes and each (leaf, feature)'s best numerical candidate (the fused
+  split path, kernels 1-2).
+
+On a CUDA tensor they run the Hopper kernels of ``ops/cuda_hist.py``
+(``hist_tile``, then ``split_epilogue`` for the fused entry); on a CPU
+tensor their plain versions: a flat ``index_add_`` (bitwise equal to the JAX
+package's ``histogram_scatter``) and ``derive_and_scan`` (the JAX package's
+XLA twin of the in-kernel epilogue, the same ops in the same order).
 
 The compaction ladder's row-index buffer (``compact_indices``) selects the
 gather form of the pass.
@@ -54,13 +58,24 @@ def compact_indices(keep: torch.Tensor, size: int) -> torch.Tensor:
 def histogram_tiles(binsT: torch.Tensor, stats: torch.Tensor,
                     leaf_ids: torch.Tensor, sel: torch.Tensor, num_bins: int,
                     num_leaves: int,
-                    gather_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    gather_idx: Optional[torch.Tensor] = None,
+                    plane: bool = True) -> torch.Tensor:
     """[P, F, B, 3] planes: slot p accumulates the rows whose leaf is
     ``sel[p]`` (< 0 = inactive slot, zero output); ``gather_idx`` restricts
-    the pass to those rows (entries >= N are padding)."""
+    the pass to those rows (entries >= N are padding). Every slot is
+    computed; no epilogue runs. ``sel`` may live on the host (its lane
+    table is read there to size the launch)."""
     chan = cuda_hist.chan_leaf_table(sel)
     return cuda_hist.hist_tile(binsT, leaf_ids, stats, chan, sel.shape[0],
-                               num_bins, num_leaves, gather_idx)
+                               num_bins, num_leaves, gather_idx, plane=plane)
+
+
+def epilogue_supported(p: int, s: int) -> bool:
+    """Whether a tile of ``p`` slots of ``s`` stats fits the split
+    epilogue's 128-lane tables (the JAX package's precondition; on the
+    port every device has the epilogue, as a kernel or its plain
+    version)."""
+    return s == 3 and p * s <= 128
 
 
 def derive_and_scan(tile, derive, parent_planes, leaf_aux, fmeta, pvec
@@ -93,8 +108,8 @@ def histogram_tiles_with_candidates(binsT, stats, leaf_ids, sel, derive,
     [P, F, B, 3] with the derived planes filled in, cand [P, F, 12])."""
     sel_compute = torch.where(derive, torch.full_like(sel, -1), sel)
     tile = histogram_tiles(binsT, stats, leaf_ids, sel_compute, num_bins,
-                           num_leaves, gather_idx)
-    der = cuda_hist._epilogue_lanes(sel, derive)
+                           num_leaves, gather_idx, plane=False)
+    der = cuda_hist._epilogue_lanes(sel, derive).to(tile.device)
     return cuda_hist.split_epilogue(tile, parent_planes.contiguous(), der,
                                     leaf_aux.contiguous(), fmeta.contiguous(),
                                     pvec.contiguous())

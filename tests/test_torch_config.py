@@ -87,17 +87,21 @@ def test_sampled_parameters_configure_alike_or_raise(seed):
                               if k != "device_type"}
 
 
+@pytest.mark.parametrize("is_enable_sparse", [False, True])
 @pytest.mark.parametrize("seed", range(5))
-def test_sampled_l2_training_bitwise(seed):
+def test_sampled_l2_training_bitwise(seed, is_enable_sparse):
+    """With sparse storage on (the default), column 7 (>= 90% zeros) lives
+    as device streams and the trees take the classic split path."""
     rng = np.random.RandomState(2000 + seed)
     params = {k: v for k, v in _sample_params(rng).items()
               if k not in OUTSIDE}
-    params.update(objective="regression", is_enable_sparse=False,
+    params.update(objective="regression", is_enable_sparse=is_enable_sparse,
                   eta=params.pop("learning_rate"))          # an alias too
     n = 1200
     X = rng.normal(size=(n, 8))
     if rng.rand() < 0.5:
         X[rng.uniform(size=X.shape) < 0.05] = np.nan
+    X[rng.uniform(size=n) < 0.95, 7] = 0.0
     y = np.nan_to_num(X[:, 0]) + 0.5 * np.nan_to_num(X[:, 1]) ** 2 \
         + 0.1 * rng.normal(size=n)
     bj = lj.train(dict(params), lj.Dataset(X, label=y), 6)

@@ -9,8 +9,11 @@ host without them:
 
 Bars: ``hist_tile`` bitwise equal to ``hist_tile_plain`` on integer-valued
 stats (sums exact in any order), within 1e-5 of the summed magnitudes on
-float stats; ``split_epilogue`` bitwise equal to ``split_epilogue_plain``
-on identical planes (built with ``--fmad=false``).
+float stats, and two launches bitwise equal on float stats (its 64-bit
+fixed-point sums are deterministic); ``split_epilogue`` bitwise equal to
+``split_epilogue_plain`` on identical planes (built with ``--fmad=false``);
+training on the card gives the same model text twice, and the CPU plain
+path's structure, on the fused and on the classic path.
 """
 
 import numpy as np
@@ -48,6 +51,7 @@ def _hist_inputs(n, f, b, leaves, seed, integer):
     (5_000, 3, 16, 7, True), (777, 1, 2, 1, False)])
 @pytest.mark.parametrize("integer", [True, False])
 def test_hist_tile_matches_plain(dev, n, f, b, p, gather, integer):
+    """42 computed slots at 255 bins take two slot parts; fewer, one."""
     leaves = p + 5
     binsT, leaf, stats = _hist_inputs(n, f, b, leaves, n + f, integer)
     sel = torch.arange(p, dtype=torch.int32)
@@ -60,6 +64,7 @@ def test_hist_tile_matches_plain(dev, n, f, b, p, gather, integer):
     args = [t.to(dev) for t in (binsT, leaf, stats, chan)]
     gidx = None if idx is None else idx.to(dev)
     before = cuda_hist.hist_tile.launches
+    before_plane = cuda_hist.hist_tile.launches_plane
     k = cuda_hist.hist_tile(*args, p, b, leaves, gidx)
     assert cuda_hist.hist_tile.launches == before + 1
     ref = cuda_hist.hist_tile_plain(*args, p, b, leaves, gidx)
@@ -70,6 +75,13 @@ def test_hist_tile_matches_plain(dev, n, f, b, p, gather, integer):
         mag = cuda_hist.hist_tile_plain(args[0], args[1], args[2].abs(),
                                         args[3], p, b, leaves, gidx)
         assert bool(((k - ref).abs() <= 1e-5 * mag + 1e-30).all())
+    # deterministic: a second (plane-only) launch gives the same bits, and
+    # so does the kernel's own arithmetic in plain torch
+    again = cuda_hist.hist_tile(*args, p, b, leaves, gidx, plane=True)
+    assert cuda_hist.hist_tile.launches_plane == before_plane + 1
+    assert torch.equal(k.view(torch.int32), again.view(torch.int32))
+    exact = cuda_hist.hist_tile_exact(*args, p, b, leaves, gidx)
+    assert torch.equal(k.view(torch.int32), exact.view(torch.int32))
     # and the plain version on the card equals it on the CPU (integer sums)
     if integer:
         cpu = cuda_hist.hist_tile_plain(binsT, leaf, stats, chan, p, b,
@@ -142,25 +154,36 @@ def test_wrapper_raises_instead_of_falling_back(dev):
                             chan.to(dev), 2, 8, 60_000)
 
 
-def test_training_on_card_matches_cpu_structure(dev):
+@pytest.mark.parametrize("path", ["fused", "categorical", "sparse"])
+def test_training_on_card_matches_cpu_structure(dev, path):
     import lightgbm_tpu_torch as lgb
     from lightgbm_tpu_torch.io.model_text import load_model
     rng = np.random.RandomState(0)
     X = rng.randn(20_000, 10).astype(np.float32)
-    y = (X[:, 0] + X[:, 1] * X[:, 2] + 0.5 * rng.randn(20_000) > 0)
+    kw = {}
+    if path == "categorical":
+        X[:, 3] = rng.randint(0, 30, 20_000)
+        kw = {"categorical_feature": [3]}
+    elif path == "sparse":
+        X[rng.rand(20_000) < 0.95, 4] = 0.0
+    y = (X[:, 0] + X[:, 1] * X[:, 2] + np.sin(X[:, 3])
+         + 0.5 * rng.randn(20_000) > 0)
     texts = {}
-    for d in ("cuda", "cpu"):
+    for d in ("cuda", "cuda_again", "cpu"):
         p = {"objective": "binary", "num_leaves": 31, "verbosity": -1,
-             "device_type": d}
+             "device_type": d.split("_")[0]}
         texts[d] = lgb.train(p, lgb.Dataset(X, label=y.astype(float),
-                                            params=p), 3).model_to_string()
-    # float atomics reorder the histogram sums; a leaf's sums are
-    # differences of cumulative sums whose rounding scales with the
-    # parent's gradient mass, so leaves agree to an absolute 1e-4
+                                            params=p, **kw),
+                             3).model_to_string()
+    assert texts["cuda"] == texts["cuda_again"]
+    # the kernel's sums are closer to exact than the CPU's float32 sums; a
+    # leaf's sums are differences of cumulative sums whose rounding scales
+    # with the parent's gradient mass, so leaves agree to an absolute 1e-4
     # (chip_smoke.py's parity bar), not to a relative one
     for a, b in zip(load_model(texts["cuda"]).trees,
                     load_model(texts["cpu"]).trees):
         assert a.split_feature.tolist() == b.split_feature.tolist()
         assert a.threshold.tolist() == b.threshold.tolist()
+        assert a.cat_threshold.tolist() == b.cat_threshold.tolist()
         np.testing.assert_allclose(a.leaf_value, b.leaf_value, rtol=0,
                                    atol=1e-4)

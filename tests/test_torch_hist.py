@@ -161,3 +161,100 @@ def test_resolve_method(method, device, want):
 def test_resolve_method_rejects_unported(method):
     with pytest.raises(NotImplementedError, match=method):
         resolve_method(method, torch.device("cpu"))
+
+
+# -------------------------------------------------- the kernel's arithmetic
+@pytest.mark.parametrize("gather", [False, True])
+def test_exact_form_matches_pallas_on_integer_stats(gather):
+    """hist_tile_exact (the kernel's fixed-point sums in plain PyTorch) is
+    exact on representable stats: bitwise the interpreted Pallas kernel."""
+    n, f, b = 1400, 3, 31
+    binsT, stats, leaf = _mk(n, f, b, seed=8)
+    idx = None
+    if gather:
+        keep = np.random.RandomState(9).rand(n) < 0.4
+        idx = np.asarray(j_compact(jnp.asarray(keep), int(keep.sum()) + 9))
+    ref = jph.histogram_tiles_pallas_mode(
+        jnp.asarray(binsT), jnp.asarray(stats), jnp.asarray(leaf),
+        jnp.asarray(SEL), b, block=256, mode="highest",
+        idx=None if idx is None else jnp.asarray(idx), interpret=True)
+    chan = cuda_hist.chan_leaf_table(torch.from_numpy(SEL))
+    out = cuda_hist.hist_tile_exact(
+        torch.from_numpy(binsT), torch.from_numpy(leaf),
+        torch.from_numpy(stats), chan, len(SEL), b, 12,
+        None if idx is None else torch.from_numpy(idx))
+    _bits_equal(out.numpy(), ref)
+
+
+def test_exact_form_on_float_stats_and_the_cpu_switch():
+    """On float stats the fixed-point sums sit within a few float32 ulps of
+    the float32 row-order sums; kernel_sums_on_cpu makes the CPU path use
+    them (a CPU run with a card run's bits); a non-finite stat makes its
+    channel NaN."""
+    n, f, b = 3000, 4, 16
+    binsT, stats, leaf = _mk(n, f, b, seed=10, representable=False)
+    args = (torch.from_numpy(binsT), torch.from_numpy(leaf),
+            torch.from_numpy(stats),
+            cuda_hist.chan_leaf_table(torch.from_numpy(SEL)), len(SEL), b, 12)
+    plain = cuda_hist.hist_tile_plain(*args)
+    exact = cuda_hist.hist_tile_exact(*args)
+    mag = cuda_hist.hist_tile_plain(*args[:2], args[2].abs(), *args[3:])
+    assert bool(((plain - exact).abs() <= 1e-6 * mag + 1e-30).all())
+    assert not torch.equal(plain, exact)
+    with cuda_hist.kernel_sums_on_cpu():
+        _bits_equal(cuda_hist.hist_tile(*args).numpy(), exact.numpy())
+    _bits_equal(cuda_hist.hist_tile(*args).numpy(), plain.numpy())
+    bad = args[2].clone()
+    bad[7, 1] = float("inf")
+    out = cuda_hist.hist_tile_exact(*args[:2], bad, *args[3:])
+    assert torch.isnan(out[..., 1]).all() and torch.isfinite(out[..., 0]).all()
+
+
+# ------------------------------------------- the classic tile pass, sparse
+def test_classic_tile_pass_with_sparse_columns_matches_jax():
+    """One plane-only tile pass over 5 pending leaves on data whose
+    concentrated columns live as (row, bin) streams: the dense columns'
+    planes from the histogram pass, the sparse columns' from
+    combine_sparse (scatter of the stream entries + the default bin rebuilt
+    from per-slot totals), bitwise the JAX package's on float stats."""
+    import lightgbm_tpu as lj
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu.models.grower import _grower_fns
+    from lightgbm_tpu.ops.split import SplitParams as JSP
+    from lightgbm_tpu_torch.models import grower as tgrower
+    from lightgbm_tpu_torch.ops.split import SplitParams as TSP
+    n = 2500
+    rng = np.random.RandomState(11)
+    X = rng.randn(n, 5).astype(np.float32)
+    X[rng.rand(n) < 0.94, 1] = 0.0
+    X[rng.rand(n) < 0.92, 3] = -1.0
+    params = {"max_bin": 31, "verbosity": -1}
+    jds = lj.Dataset(X, params=dict(params)).construct()
+    tds = lt.Dataset(X, params=dict(params, device_type="cpu")).construct()
+    assert tds.sp_cols.tolist() == [1, 3] == list(jds.sp_cols)
+    g = rng.randn(n).astype(np.float32)
+    h = (rng.rand(n) + 0.3).astype(np.float32)
+    leaf = rng.randint(0, 5, n).astype(np.int32)
+    f = len(jds.used_features)
+    jp = JSP.from_config(lj.Config.from_params(dict(params)))
+    fns = _grower_fns(
+        jds.bins, jnp.asarray(g), jnp.asarray(h), jnp.ones(n, jnp.float32),
+        jds.feature_meta, jp, jnp.ones(f, jnp.float32), jds.missing_bin,
+        max_leaves=8, num_bins=jds.max_num_bins, hist_method="scatter",
+        binsT=jds.bins_T, sp_cols=tuple(int(c) for c in jds.sp_cols),
+        sp_rows=jds.sp_rows, sp_bins=jds.sp_bins, sp_default=jds.sp_default)
+    st = fns["init_state"]()._replace(leaf_id=jnp.asarray(leaf),
+                                      num_leaves=jnp.int32(5))
+    jhist_ = np.asarray(fns["hist_phase"](st).hist)
+    gr = tgrower.Grower(
+        tds.binsT, torch.from_numpy(g), torch.from_numpy(h),
+        tds.feature_meta, TSP.from_config(lt.Config.from_params(
+            dict(params, device_type="cpu"))), tds.missing_bin,
+        max_leaves=8, num_bins=tds.max_num_bins, split_fusion=False,
+        sp=(tds.sp_cols, tds.sp_rows, tds.sp_bins, tds.sp_default))
+    pst = gr.init_state()
+    pst.leaf_id = torch.from_numpy(leaf)
+    pst.num_leaves = 5
+    gr.tile_pass(pst)
+    _bits_equal(pst.hist.numpy(), jhist_)
+    assert pst.hist_valid[:5].all() and not pst.hist_valid[5:].any()

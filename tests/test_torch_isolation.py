@@ -81,9 +81,9 @@ def test_default_device_without_cuda_raises(monkeypatch):
 @pytest.mark.parametrize("key,value", [
     ("histogram_method", "pallas_q8"),
     ("histogram_method", "scatter"),
-    ("categorical_feature", "0"),
+    ("cegb_tradeoff", 0.5),
     ("quantized_grad", True),
-    ("split_fusion", "off"),
+    ("forcedsplits_filename", "forced.json"),
     ("bagging_fraction", 0.5),
     ("boosting", "dart"),
     ("objective", "multiclass"),

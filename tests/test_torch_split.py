@@ -256,3 +256,147 @@ def test_split_epilogue_wrapper_on_cpu_counts_no_launch():
     _bits_equal(cand.numpy(), pcand.numpy())
     _bits_equal(full.numpy(), pfull.numpy())
     assert cuda_hist.split_epilogue.launches == 0
+
+
+# ---------------------------------------------------------------- classic
+# the classic search over resident [L, F, B, 3] planes, numerical and
+# categorical: per feature (num_bins, missing_type, default_bin, categorical)
+CB = 20
+CFEATS = [(20, 0, 0, False), (4, 2, 0, True), (20, 2, 0, True),
+          (12, 0, 0, True), (14, 2, 0, False), (9, 0, 0, True)]
+CAT_PARAMS = {
+    "defaults": {},
+    "small_groups": {"min_data_per_group": 5, "cat_smooth": 1.0,
+                     "max_cat_threshold": 3, "min_data_in_leaf": 3},
+    "all_onehot": {"max_cat_to_onehot": 32, "cat_l2": 1.0},
+    "smoothed": {"path_smooth": 2.0, "lambda_l1": 0.5, "cat_smooth": 3.0,
+                 "min_data_per_group": 20, "lambda_l2": 1.0},
+}
+
+
+def _classic_inputs(seed, n=6000, leaves=6):
+    """Planes of ``leaves`` leaves over CFEATS: skewed categories (rare
+    bins fall under cat_smooth), feature 3's bins 1..6 given identical
+    sums (ties in g / (h + cat_smooth)), feature 5 a copy of feature 3
+    (cross-feature ties)."""
+    rng = np.random.RandomState(seed)
+    f = len(CFEATS)
+    binsT = np.zeros((f, n), np.uint8)
+    for j, (nb, _, _, _) in enumerate(CFEATS):
+        p = rng.dirichlet(np.full(nb, 0.7))
+        binsT[j] = rng.choice(nb, size=n, p=p)
+    g = rng.randn(n) + 0.8 * np.sin(binsT[2])
+    h = rng.rand(n) + 0.1
+    stats = np.stack([g, h, np.ones(n)], 1).astype(np.float32)
+    leaf = rng.randint(0, leaves, n).astype(np.int32)
+    planes = np.array(jhist.histogram_scatter(
+        jnp.asarray(binsT.T), jnp.asarray(stats), jnp.asarray(leaf), leaves,
+        CB))
+    planes[:, 3, 1:7] = planes[:, 3, 1:2]
+    planes[:, 5] = planes[:, 3]
+    s = planes[:, 0].sum(axis=1)
+    aux = [s[:, 0], s[:, 1], s[:, 2], (-0.2 * s[:, 0] / (s[:, 1] + 1)
+                                       ).astype(np.float32)]
+    return planes, aux
+
+
+def _metas():
+    nb = np.array([c[0] for c in CFEATS], np.int32)
+    mt = np.array([c[1] for c in CFEATS], np.int32)
+    db = np.array([c[2] for c in CFEATS], np.int32)
+    cat = np.array([c[3] for c in CFEATS])
+    f = len(CFEATS)
+    jmeta = jsplit.FeatureMeta(
+        num_bins=jnp.asarray(nb), missing_type=jnp.asarray(mt),
+        default_bin=jnp.asarray(db), is_categorical=jnp.asarray(cat),
+        monotone=jnp.zeros(f, jnp.int8), penalty=jnp.ones(f, jnp.float32))
+    tmeta = tsplit.FeatureMeta(
+        num_bins=torch.from_numpy(nb), missing_type=torch.from_numpy(mt),
+        default_bin=torch.from_numpy(db), is_categorical=torch.from_numpy(cat),
+        monotone=torch.zeros(f, dtype=torch.int8),
+        penalty=torch.ones(f, dtype=torch.float32))
+    return jmeta, tmeta
+
+
+def _params(pname):
+    jp = jsplit.SplitParams.from_config(
+        JConfig.from_params(dict(CAT_PARAMS[pname])))
+    tp = tsplit.SplitParams.from_config(
+        TConfig.from_params(dict(CAT_PARAMS[pname], device_type="cpu")))
+    return jp, tp
+
+
+def _same(a, b, name):
+    a, b = np.asarray(a), np.asarray(b)
+    if a.dtype == np.float32:
+        _bits_equal(b, a)
+    else:
+        np.testing.assert_array_equal(b, a, err_msg=name)
+
+
+@pytest.mark.parametrize("pname", sorted(CAT_PARAMS))
+@pytest.mark.parametrize("seed", [0, 1])
+def test_find_best_cat_splits_matches_jax(pname, seed):
+    planes, aux = _classic_inputs(seed)
+    jmeta, tmeta = _metas()
+    jp, tp = _params(pname)
+    depth = np.array([0, 1, 2, 3, 2, 1], np.int32)
+    fmask = np.ones((6, len(CFEATS)), bool)
+    fmask[4, 2] = False
+    cw = tsplit.cat_words_for(CB)
+    jout = jsplit.find_best_cat_splits(
+        jnp.asarray(planes), *map(jnp.asarray, aux), jnp.asarray(depth),
+        jmeta, jp, jnp.asarray(fmask), 3, cw)
+    tout = tsplit.find_best_cat_splits(
+        torch.from_numpy(planes), *map(torch.from_numpy, aux),
+        torch.from_numpy(depth), tmeta, tp, torch.from_numpy(fmask), 3, cw)
+    for name, a, b in zip(("gain", "feature", "left_g", "left_h", "left_c",
+                           "bitset", "l2"), jout, tout):
+        _same(a, b.numpy(), name)
+    assert np.isfinite(np.asarray(jout[0])).any()
+
+
+@pytest.mark.parametrize("pname", sorted(CAT_PARAMS))
+@pytest.mark.parametrize("with_categorical", [False, True])
+def test_find_best_splits_matches_jax(pname, with_categorical):
+    planes, aux = _classic_inputs(7)
+    jmeta, tmeta = _metas()
+    jp, tp = _params(pname)
+    depth = np.array([0, 1, 2, 3, 2, 1], np.int32)
+    cw = tsplit.cat_words_for(CB)
+    jinfo = jsplit.find_best_splits(
+        jnp.asarray(planes), *map(jnp.asarray, aux), jnp.asarray(depth),
+        jmeta, jp, jnp.ones(len(CFEATS), jnp.float32), 3,
+        with_categorical=with_categorical, cat_words=cw)
+    tinfo = tsplit.find_best_splits(
+        torch.from_numpy(planes), *map(torch.from_numpy, aux),
+        torch.from_numpy(depth), tmeta, tp,
+        torch.ones(len(CFEATS), dtype=torch.bool), 3,
+        with_categorical=with_categorical, cat_words=cw)
+    for name in tsplit.SplitInfo._fields:
+        _same(getattr(jinfo, name), getattr(tinfo, name).numpy(), name)
+    if with_categorical:
+        assert np.asarray(jinfo.is_cat).any()
+
+
+def test_sorted_categories_tie_in_bin_order():
+    """Bins whose g / (h + cat_smooth) ties keep bin order (a stable sort,
+    as jnp.argsort's): the chosen bitset is the lowest bins of the tie."""
+    planes, aux = _classic_inputs(3)
+    planes[:, 3, 1:7] = np.array([-50.0, 40.0, 60.0], np.float32)
+    jmeta, tmeta = _metas()
+    jp, tp = _params("defaults")
+    cw = tsplit.cat_words_for(CB)
+    only3 = np.zeros((6, len(CFEATS)), bool)
+    only3[:, 3] = True
+    args = (*map(np.asarray, aux), np.zeros(6, np.int32))
+    jout = jsplit.find_best_cat_splits(
+        jnp.asarray(planes), *map(jnp.asarray, args), jmeta, jp,
+        jnp.asarray(only3), -1, cw)
+    tout = tsplit.find_best_cat_splits(
+        torch.from_numpy(planes), *map(torch.from_numpy, args), tmeta, tp,
+        torch.from_numpy(only3), -1, cw)
+    _same(jout[5], tout[5].numpy(), "bitset")
+    words = tout[5].numpy()
+    chosen = [b for b in range(CB) if (words[0, b >> 5] >> (b & 31)) & 1]
+    assert chosen and chosen == sorted(chosen)

@@ -1,21 +1,20 @@
 """End to end: the PyTorch port's ``train`` + ``predict`` + ``model_to_string``
 against ``lightgbm_tpu.train`` at the same parameters, on the CPU.
 
-- L2 regression: model text bitwise equal after 10 rounds (every float of
-  the path is the JAX package's operation in its order).
-- Binary: the same split features, thresholds and tree shapes; leaf values
-  within rtol 1e-5. Gradients differ from JAX's by an ulp through ``exp``
-  (torch's and XLA's ``exp`` round differently), so the bits cannot match.
-  For the same reason the missing-value direction may differ at a node that
-  no row with a missing value reaches: there the forward and reverse scans
-  split the rows identically, their gains tie in exact arithmetic, and the
-  rounding decides; the test checks that every such node sees no missing
-  value.
-- Carrying across: the JAX package's trained trees, converted to numpy by
-  the test, become a port Booster (``booster_from_numpy``) whose
-  predictions agree within 1e-12 (float64 accumulation in tree order).
-- The port's model text loads back into a port Booster that predicts the
-  same and dumps the same text.
+- L2 regression and binary: model text bitwise equal after 10 rounds
+  (every float of the path is the JAX package's operation in its order,
+  XLA's float32 ``exp`` included), raw and converted predictions bitwise,
+  with sparse device storage off and on (the default; a >= 90% zero column
+  then lives as streams and the trees take the classic split path).
+- Categorical features (one-hot and many-vs-many columns, NaN): the same,
+  through the classic split path, on their own and beside concentrated
+  columns.
+- Carrying across: the JAX package's trained trees (categorical ones
+  included), converted to numpy by the test, become a port Booster
+  (``booster_from_numpy``) whose predictions agree within 1e-12 (float64
+  accumulation in tree order).
+- The port's model text (category bitsets included) loads back into a port
+  Booster that predicts the same and dumps the same text.
 Objectives and metrics are checked against the JAX package on the same
 scores as well.
 """
@@ -46,16 +45,40 @@ def _data(seed=0, n=2500, f=6):
     X[rng.rand(n) < 0.1, 1] = np.nan
     X[rng.rand(n) < 0.3, 2] = 0.0
     X[:, 3] = np.round(X[:, 3] * 3)
+    X[rng.rand(n) < 0.93, 4] = 0.0                 # concentrated
     y = (1.5 * X[:, 0] + np.nan_to_num(X[:, 1]) - X[:, 2] * X[:, 3]
-         + 0.3 * rng.randn(n))
+         + 0.8 * X[:, 4] + 0.3 * rng.randn(n))
     return X, y
 
 
-def _train_both(params, X, y, Xv=None, yv=None):
-    params = dict(params, verbosity=-1, is_enable_sparse=False)
+def _cat_data(seed=0, n=2500):
+    """Column 2 one-hot categorical (5 codes), column 3 many-vs-many (30
+    codes, skewed, NaN), column 5 concentrated (>= 90% zeros), column 6
+    categorical and concentrated (91% one code: sparse streams)."""
+    rng = np.random.RandomState(seed)
+    X = rng.randn(n, 7).astype(np.float32)
+    X[:, 2] = rng.randint(0, 5, n)
+    X[:, 3] = rng.choice(30, n, p=rng.dirichlet(np.full(30, 0.8)))
+    X[rng.rand(n) < 0.04, 3] = np.nan
+    X[rng.rand(n) < 0.95, 5] = 0.0
+    X[:, 6] = np.where(rng.rand(n) < 0.91, 3, rng.randint(0, 3, n))
+    eff = np.random.RandomState(99).randn(31)
+    y = (X[:, 0] + 0.7 * eff[X[:, 2].astype(int)]
+         + eff[np.nan_to_num(X[:, 3], nan=30).astype(int)]
+         + 0.5 * X[:, 5] + 4.0 * (X[:, 6] == 1) + 0.3 * rng.randn(n))
+    return X, y
+
+
+CAT = [2, 3, 6]
+
+
+def _train_both(params, X, y, Xv=None, yv=None, is_enable_sparse=False,
+                categorical=None):
+    params = dict(params, verbosity=-1, is_enable_sparse=is_enable_sparse)
+    kw = {} if categorical is None else {"categorical_feature": categorical}
     jres, tres = {}, {}
-    jtrain = lj.Dataset(X, label=y)
-    ttrain = lt.Dataset(X, label=y)
+    jtrain = lj.Dataset(X, label=y, **kw)
+    ttrain = lt.Dataset(X, label=y, **kw)
     jv = [lj.Dataset(Xv, label=yv, reference=jtrain)] if Xv is not None \
         else None
     tv = [lt.Dataset(Xv, label=yv, reference=ttrain)] if Xv is not None \
@@ -79,17 +102,20 @@ L2_PARAMS = {
 }
 
 
+@pytest.mark.parametrize("is_enable_sparse", [False, True])
 @pytest.mark.parametrize("pname", sorted(L2_PARAMS))
-def test_l2_model_text_bitwise(pname):
+def test_l2_model_text_bitwise(pname, is_enable_sparse):
     X, y = _data()
     Xv, yv = _data(seed=1, n=500)
-    bj, bt, jres, tres = _train_both(L2_PARAMS[pname], X, y, Xv, yv)
+    bj, bt, jres, tres = _train_both(L2_PARAMS[pname], X, y, Xv, yv,
+                                     is_enable_sparse)
+    assert bt._boosting.train_set.has_sparse_cols == is_enable_sparse
     assert bt.model_to_string() == bj.model_to_string()
     assert bt.rows_streamed_per_tree == bj._boosting.rows_streamed_per_tree
     np.testing.assert_array_equal(bt.predict(Xv, raw_score=True),
                                   bj.predict(Xv, raw_score=True))
-    # the JAX package converts in float32; the port keeps float64
-    np.testing.assert_allclose(bt.predict(Xv), bj.predict(Xv), rtol=2e-7)
+    # both convert from float32 raw scores
+    np.testing.assert_array_equal(bt.predict(Xv), bj.predict(Xv))
     for metric, vals in jres["v"].items():
         np.testing.assert_allclose(tres["v"][metric], vals, rtol=1e-12)
 
@@ -118,29 +144,70 @@ def _rows_reaching(tree, X, node):
     return reached
 
 
+@pytest.mark.parametrize("is_enable_sparse", [False, True])
 @pytest.mark.parametrize("params", [
     {"num_leaves": 31, "max_bin": 63},
     {"num_leaves": 15, "max_bin": 63, "scale_pos_weight": 2.0,
      "metric": ["auc", "binary_logloss"]}], ids=["leaves31", "weighted_auc"])
-def test_binary_same_structure_leaves_close(params):
+def test_binary_same_structure_leaves_close(params, is_enable_sparse):
+    """Binary is bitwise too now that ``exp`` is XLA's: the same model
+    text, predictions and metrics."""
     X, y = _data(seed=2)
     Xv, yv = _data(seed=3, n=500)
     bj, bt, jres, tres = _train_both(dict(params, objective="binary"),
                                      X, (y > 0).astype(np.float64),
-                                     Xv, (yv > 0).astype(np.float64))
+                                     Xv, (yv > 0).astype(np.float64),
+                                     is_enable_sparse)
     sj, st = bj.model_to_string(), bt.model_to_string()
     assert _structure(st) == _structure(sj)
-    for a, b in zip(load_model(sj).trees, load_model(st).trees):
-        # rtol 1e-5 of the tree's leaf scale: a leaf near zero sums
-        # gradients that cancel, so its own relative error is larger
-        np.testing.assert_allclose(b.leaf_value, a.leaf_value, rtol=1e-5,
-                                   atol=1e-5 * np.abs(a.leaf_value).max())
-        for node in np.nonzero(a.decision_type != b.decision_type)[0]:
-            rows = _rows_reaching(a, X.astype(np.float64), node)
-            assert not np.isnan(X[rows, a.split_feature[node]]).any()
-    np.testing.assert_allclose(bt.predict(Xv), bj.predict(Xv), rtol=1e-5)
+    assert st == sj
+    np.testing.assert_array_equal(bt.predict(Xv), bj.predict(Xv))
     for metric, vals in jres["v"].items():
-        np.testing.assert_allclose(tres["v"][metric], vals, rtol=1e-5)
+        np.testing.assert_allclose(tres["v"][metric], vals, rtol=1e-12)
+
+
+@pytest.mark.parametrize("objective", ["regression", "binary"])
+@pytest.mark.parametrize("params", [
+    {"num_leaves": 31, "max_bin": 63},
+    {"num_leaves": 20, "max_bin": 31, "max_cat_to_onehot": 8,
+     "cat_smooth": 3.0, "cat_l2": 2.0, "min_data_per_group": 30,
+     "max_cat_threshold": 6, "lambda_l2": 1.0},
+    {"num_leaves": 31, "max_bin": 63, "split_fusion": "off",
+     "is_enable_sparse": False}],
+    ids=["defaults", "cat_params", "no_sparse"])
+def test_categorical_model_text_bitwise(objective, params):
+    X, y = _cat_data()
+    Xv, yv = _cat_data(seed=1, n=600)
+    if objective == "binary":
+        y, yv = (y > 0).astype(np.float64), (yv > 0).astype(np.float64)
+    bj, bt, jres, tres = _train_both(
+        dict(params, objective=objective), X, y, Xv, yv,
+        params.get("is_enable_sparse", True), CAT)
+    ts = bt._boosting.train_set
+    assert ts.has_categorical and not bt._boosting._split_fusion_on()
+    st = bt.model_to_string()
+    assert st == bj.model_to_string()
+    assert sum(t.num_cat for t in load_model(st).trees) > 0
+    assert bt.rows_streamed_per_tree == bj._boosting.rows_streamed_per_tree
+    np.testing.assert_array_equal(bt.predict(Xv, raw_score=True),
+                                  bj.predict(Xv, raw_score=True))
+    np.testing.assert_array_equal(bt.predict(Xv), bj.predict(Xv))
+    for metric, vals in jres["v"].items():
+        np.testing.assert_allclose(tres["v"][metric], vals, rtol=1e-12)
+    # the model text predicts through category values, with no mappers
+    loaded = lt.Booster(model_str=st, params={"device_type": "cpu"})
+    np.testing.assert_allclose(loaded.predict(Xv, raw_score=True),
+                               bt.predict(Xv, raw_score=True), rtol=0,
+                               atol=1e-12)
+    assert loaded.model_to_string() == st
+
+
+def test_split_fusion_on_raises_with_categorical():
+    X, y = _cat_data(seed=2, n=800)
+    with pytest.raises(ValueError, match="categorical features"):
+        lt.train({"objective": "regression", "split_fusion": "on",
+                  "verbosity": -1, "device_type": "cpu"},
+                 lt.Dataset(X, label=y, categorical_feature=CAT), 1)
 
 
 def _jax_trees_as_numpy(booster):
@@ -154,29 +221,36 @@ def _jax_trees_as_numpy(booster):
             "left_child", "right_child", "split_gain", "internal_value",
             "internal_weight", "internal_count", "leaf_value",
             "leaf_weight", "leaf_count", "leaf_depth", "leaf_parent",
-            "missing_type")})
+            "missing_type", "is_cat", "cat_bitset")})
         trees[-1]["num_leaves"] = ht.num_leaves
         trees[-1]["shrinkage"] = ht.shrinkage
     ds = g.train_set
     mappers = lt.mappers_from_numpy(
         [m.bin_upper_bound for m in ds.mappers],
         [m.missing_type for m in ds.mappers],
-        [m.min_val for m in ds.mappers], [m.max_val for m in ds.mappers])
+        [m.min_val for m in ds.mappers], [m.max_val for m in ds.mappers],
+        [list(m.bin_2_categorical) if m.bin_type == 1 else None
+         for m in ds.mappers])
     return trees, mappers, np.asarray(ds.used_features)
 
 
-@pytest.mark.parametrize("objective", ["regression", "binary"])
-def test_carried_across_predictions(objective):
-    X, y = _data(seed=4)
+@pytest.mark.parametrize("objective,categorical", [
+    ("regression", False), ("binary", False), ("regression", True),
+    ("binary", True)])
+def test_carried_across_predictions(objective, categorical):
+    X, y = _cat_data(seed=4) if categorical else _data(seed=4)
     if objective == "binary":
         y = (y > 0).astype(np.float64)
     bj = lj.train({"objective": objective, "num_leaves": 15, "max_bin": 63,
-                   "verbosity": -1}, lj.Dataset(X, label=y), ROUNDS)
+                   "verbosity": -1},
+                  lj.Dataset(X, label=y,
+                             categorical_feature=CAT if categorical
+                             else "auto"), ROUNDS)
     trees, mappers, used = _jax_trees_as_numpy(bj)
     bt = lt.booster_from_numpy(trees, {
         "mappers": mappers, "used_features": used, "objective": objective,
         "device_type": "cpu"})
-    Xt, _ = _data(seed=5, n=700)
+    Xt, _ = (_cat_data if categorical else _data)(seed=5, n=700)
     np.testing.assert_allclose(bt.predict(Xt, raw_score=True),
                                bj.predict(Xt, raw_score=True), rtol=0,
                                atol=1e-12)
@@ -241,18 +315,17 @@ def test_objective_gradients_match():
     ot.init(yb, None)
     (jg, jh), (tg, th) = (oj.get_grad_hess(jnp.asarray(score)),
                           ot.get_grad_hess(torch.from_numpy(score)))
-    ulps = np.abs(tg.numpy().view(np.int32).astype(np.int64)
-                  - np.asarray(jg).view(np.int32).astype(np.int64))
-    assert ulps.max() <= 2
-    # h = |r| * (sigmoid - |r|) cancels where |r| nears sigmoid, which
-    # magnifies the ulp of exp to a few parts in 1e6
-    np.testing.assert_allclose(th.numpy(), np.asarray(jh), rtol=5e-6)
+    # XLA's float32 exp, written out: bitwise
+    np.testing.assert_array_equal(tg.numpy().view(np.int32),
+                                  np.asarray(jg).view(np.int32))
+    np.testing.assert_array_equal(th.numpy().view(np.int32),
+                                  np.asarray(jh).view(np.int32))
     assert ot.boost_from_score() == oj.boost_from_score()
 
 
 @pytest.mark.parametrize("name,objective,rtol", [
     ("l2", None, 1e-12), ("rmse", None, 1e-12), ("auc", None, 1e-12),
-    ("binary_logloss", "binary", 1e-6)])
+    ("binary_logloss", "binary", 1e-12)])
 def test_metrics_match(name, objective, rtol):
     rng = np.random.RandomState(10)
     score = (rng.randn(3000) * 2).astype(np.float32).astype(np.float64)
