@@ -48,6 +48,38 @@ script exits non-zero; nothing is caught):
                   near-tie among categories can flip when the sums differ
                   in the last bit) and the leaf error before it
 
+The quantized-gradient (q8) mode, kernels 1-4 on int8 gradients:
+
+  hist_tile_q8    the q8 forms (int8 stats made from --seed, exact int32
+                  planes) at the main path's shapes (full form and both
+                  rungs) and at the classic path's (plane-only full form
+                  and both rungs): bitwise vs the plain version and vs a
+                  second launch; kernel / plain / int32 index_add_ times
+                  and the bound
+  split_epilogue_q8 the dequantizing epilogue on an int32 tile with a
+                  non-trivial q_scale, P=42, F=28, B=255: bitwise vs plain
+  train_q8        train's run with quantized_grad=True: sec/iter, valid AUC
+                  (> 0.6 and >= train's - 0.01, the JAX package's q8
+                  quality bar), q8 launches of every fused-path form and
+                  none of the f32 forms
+  train_q8_cat    train_cat's run with quantized_grad=True: AUC as above
+                  against train_cat, plane-only q8 launches only
+  parity_q8,      50,000 rows, 3 rounds, numerical and Expo-shaped, card
+  parity_q8_cat   vs CPU plain path: the model text bitwise equal (exact
+                  int32 sums, the same quantization arithmetic), and two
+                  card runs identical
+
+and kernel 5, the experiment script's one-hot histogram:
+
+  hist_variants   python -m lightgbm_tpu_torch.scripts.exp_hist_variants at
+                  its defaults (2M rows, 28 features, 255 bins, variants
+                  2x2048, 4x2048, 4x1024, 7x1024): each variant within
+                  1e-5 of each cell's summed magnitudes of
+                  hist_onehot_plain; kernel / plain / materialized one-hot
+                  cuBLAS matmul (the library stand-in) times, the bound
+                  (the function's least bytes and f32 adds) and, apart,
+                  the one-hot form's tensor-core floor
+
 then a ``kernels`` line, nvidia-smi's ``name, power.limit`` line, and last
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 1 and
 prints no result. Times come from CUDA events (median of >= 10 launches
@@ -71,7 +103,10 @@ import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
-F32_FLOP_PER_S = 67e12         # float32 outside the tensor cores
+F32_FLOP_PER_S = 67e12         # float32 outside the tensor cores (also the
+                               # bound's rate for integer adds: the guide's
+                               # table has no CUDA-core integer rate)
+BF16_FLOP_PER_S = 989e12       # bf16 tensor cores, dense
 # the main path's kernel shapes: Higgs width, max_bin 255, 255 leaves, the
 # grower's 42-slot tile (train_phase checks the trainer used these); the
 # classic path's: the Expo width of 8 columns, all 42 slots computed
@@ -90,8 +125,8 @@ def nvidia_smi() -> str:
         timeout=60, check=True).stdout.strip().splitlines()[0]
 
 
-def bound(nbytes: float, flops: float):
-    t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+def bound(nbytes: float, flops: float, rate: float = F32_FLOP_PER_S):
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / rate
     return (max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations")
 
 
@@ -320,6 +355,150 @@ def epilogue_phase(cuda_hist, seed=0):
             "library_ms": None, "bound_ms": bms, "bound_by": by}
 
 
+def q8_stats(n: int, seed: int) -> torch.Tensor:
+    """int8 stats as the quantized-gradient mode makes them: grad in
+    [-127, 127], hess in [0, 127], count 1."""
+    g = torch.Generator(device="cuda").manual_seed(seed + 101)
+    return torch.stack([
+        torch.randint(-127, 128, (n,), generator=g, device="cuda"),
+        torch.randint(0, 128, (n,), generator=g, device="cuda"),
+        torch.ones(n, dtype=torch.int64, device="cuda")],
+        1).to(torch.int8).contiguous()
+
+
+def hist_q8_phase(cuda_hist, n, m=None, seed=0, f=F, plane=False):
+    """The q8 form (int8 stats, exact int32 planes) at the shapes of one
+    main-path or classic-path pass, as hist_phase: bitwise vs the plain
+    version and vs a second launch."""
+    from lightgbm_tpu_torch.ops.histogram import compact_indices
+    sel = tile_selection(plane)
+    tile_leaves = sel[sel >= 0]
+    chan = cuda_hist.chan_leaf_table(sel).cuda()
+    share = 0.75 if m is None else 0.9 * m / n
+    binsT, leaf, _ = hist_inputs(n, f, seed, True, tile_leaves, share)
+    stats = q8_stats(n, seed)
+    in_tile = torch.isin(leaf, tile_leaves.cuda())
+    n_tile = int(in_tile.sum())
+    idx = None
+    if m is not None:
+        if n_tile > m:
+            raise AssertionError(f"{n_tile} tile rows overflow the {m}-row "
+                                 f"rung")
+        idx = compact_indices(in_tile, m)
+    args = (binsT, leaf, stats, chan, P, B, LEAVES, idx)
+    k = cuda_hist.hist_tile(*args, plane=plane)
+    again = cuda_hist.hist_tile(*args, plane=plane)
+    p = cuda_hist.hist_tile_plain(*args)
+    torch.cuda.synchronize()
+    if k.dtype != torch.int32 or not torch.equal(k, p):
+        raise AssertionError("q8 hist_tile is not bitwise equal to its plain "
+                             "version (exact int32 sums)")
+    if not torch.equal(k, again):
+        raise AssertionError("two q8 hist_tile launches differ")
+    out = {"bitwise_vs_plain": True, "deterministic": True,
+           "max_abs_err": float((k - p).abs().max())}
+    out["ms"] = time_ms(lambda: cuda_hist.hist_tile(*args, plane=plane))
+    out["plain_ms"] = time_ms(lambda: cuda_hist.hist_tile_plain(*args),
+                              reps=10, warm=1)
+    # one PyTorch call computing the same function: an int32 index_add_
+    # over the tile rows' flattened (slot, feature, bin) cells
+    r = torch.nonzero(in_tile).reshape(-1)
+    slot_of_leaf = torch.full((LEAVES,), -1, dtype=torch.long, device="cuda")
+    slot_of_leaf[tile_leaves.long().cuda()] = \
+        torch.nonzero(sel >= 0).reshape(-1).cuda()
+    s = slot_of_leaf[leaf[r].long()]
+    flat = ((s[:, None] * f + torch.arange(f, device="cuda")[None, :]) * B
+            + binsT[:, r].T.long()).reshape(-1)
+    contrib = stats[r].to(torch.int32)[:, None, :].expand(
+        r.shape[0], f, 3).reshape(-1, 3)
+    acc = torch.zeros((P * f * B, 3), dtype=torch.int32, device="cuda")
+    out["library_ms"] = time_ms(lambda: acc.index_add_(0, flat, contrib))
+    # least traffic: the row-index buffer (gather form), the leaf id of
+    # every row it names, the bins and 3 int8 stats of the tile's rows,
+    # the int32 planes written once; one add per (tile row, feature, stat)
+    scanned = n if idx is None else n_tile
+    nbytes = (0 if idx is None else 4 * m) + 4 * scanned \
+        + n_tile * (f + 3) + P * f * B * 3 * 4
+    out["bound_ms"], out["bound_by"] = bound(nbytes, 3 * n_tile * f)
+    out["rows"], out["tile_rows"] = (n if m is None else m), n_tile
+    return out
+
+
+def epilogue_q8_phase(cuda_hist, seed=0):
+    """The dequantizing epilogue: an int32 tile of exact sums (derived
+    slots zero), float32 parents (dequantized sums, as resident), a
+    non-trivial q_scale."""
+    g = torch.Generator(device="cuda").manual_seed(seed + 7)
+    q_scale = torch.tensor([0.0173, 0.00291, 1.0], device="cuda")
+    tile = torch.zeros((P, F, B, 3), dtype=torch.int32, device="cuda")
+    parent = torch.zeros((P, F, B, 3), device="cuda")
+    derive = torch.zeros(P, dtype=torch.bool)
+    derive[1::2] = True
+    for p in range(P):
+        cnt = torch.randint(0, 40, (F, B), generator=g, device="cuda")
+        plane = torch.stack([
+            torch.randint(-127, 128, (F, B), generator=g, device="cuda") * cnt,
+            torch.randint(0, 128, (F, B), generator=g, device="cuda") * cnt,
+            cnt], -1).to(torch.int32)
+        if derive[p]:
+            parent[p] = (plane + tile[p - 1]).to(torch.float32) * q_scale
+        else:
+            tile[p] = plane
+    deq = tile.to(torch.float32) * q_scale
+    full = torch.where(derive.cuda()[:, None, None, None],
+                       parent - torch.cat([deq[:1] * 0, deq[:-1]]), deq)
+    s = full[:, 0].sum(1)
+    la = cuda_hist.pack_leaf_aux(s[:, 0], s[:, 1], s[:, 2],
+                                 -0.1 * s[:, 0] / (s[:, 1] + 1)).cuda()
+    nb = torch.full((F,), B, dtype=torch.int32)
+    nb[3], nb[7] = 64, 2
+    mt = torch.zeros(F, dtype=torch.int32)
+    mt[5], mt[6] = 2, 1
+    db = torch.zeros(F, dtype=torch.int32)
+    db[6] = 17
+    fm = cuda_hist.pack_feature_meta(nb, mt, db,
+                                     torch.zeros(F, dtype=torch.int32)).cuda()
+    pv = torch.tensor([0.0, 1.0, 0.0, 0.0, 20.0, 1e-3, 0.0, 0.0],
+                      device="cuda")
+    der = cuda_hist._epilogue_lanes(torch.arange(P, dtype=torch.int32),
+                                    derive).cuda()
+    args = (tile, parent, der, la, fm, pv, q_scale)
+    kf, kc = cuda_hist.split_epilogue(*args)
+    kf2, kc2 = cuda_hist.split_epilogue(*args)
+    pf, pc = cuda_hist.split_epilogue_plain(*args)
+    torch.cuda.synchronize()
+    for a, b in ((kc, pc), (kf, pf), (kc, kc2), (kf, kf2)):
+        if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+            raise AssertionError("q8 split_epilogue is not bitwise equal to "
+                                 "its plain version and to a second launch")
+    valid = int(torch.isfinite(kc[..., 0]).sum())
+    if valid == 0:
+        raise AssertionError("q8 split_epilogue found no valid candidate")
+    plane_bytes = P * F * B * 3 * 4
+    nbytes = 3 * plane_bytes + P * F * 12 * 4 + P * 8 * 4 + F * 8 * 4 + 12
+    bms, by = bound(nbytes, 61 * P * F * B)
+    # the f32 form on the dequantized tile, timed in turns with the q8 form
+    # (f32, q8, q8, f32): the two modes' cost on the same data and clocks
+    f32_args = (tile.to(torch.float32) * q_scale,) + args[1:6]
+    ff, fc = cuda_hist.split_epilogue(*f32_args)
+    torch.cuda.synchronize()
+    if not (torch.equal(ff.view(torch.int32), kf.view(torch.int32))
+            and torch.equal(fc.view(torch.int32), kc.view(torch.int32))):
+        raise AssertionError("the q8 epilogue differs from the f32 one on "
+                             "the tile it dequantizes")
+    turns = {"f32": [], "q8": []}
+    for mode in ("f32", "q8", "q8", "f32"):
+        a = f32_args if mode == "f32" else args
+        turns[mode].append(time_ms(lambda: cuda_hist.split_epilogue(*a)))
+    return {"max_abs_err": float((kc - pc).nan_to_num(0.0).abs().max()),
+            "valid_candidates": valid, "q_scale": q_scale.tolist(),
+            "ms": statistics.median(turns["q8"]),
+            "turns_ms": turns,
+            "plain_ms": time_ms(lambda: cuda_hist.split_epilogue_plain(*args),
+                                reps=10, warm=1),
+            "library_ms": None, "bound_ms": bms, "bound_by": by}
+
+
 # ------------------------------------------------------------ main path
 def higgs_like(n: int, seed: int):
     """Higgs-shaped data: 28 float32 features (21 low-level kinematics --
@@ -359,13 +538,17 @@ PARAMS = {"objective": "binary", "num_leaves": 255, "max_bin": 255,
           "learning_rate": 0.1, "metric": "auc", "verbosity": -1}
 
 
-def train_phase(lgb, cuda_hist, args):
+def train_phase(lgb, cuda_hist, args, q8_ref_auc=None):
+    """The fused path on 2M Higgs-shaped rows; with ``q8_ref_auc`` (the
+    f32 run's AUC) the quantized-gradient mode, which must launch only the
+    q8 forms and keep the AUC within 0.01 of the f32 run's."""
+    q8 = q8_ref_auc is not None
     t0 = time.time()
     X, y = higgs_like(args.rows + args.valid_rows, args.seed)
     Xv, yv = X[args.rows:], y[args.rows:]
     X, y = X[:args.rows], y[:args.rows]
     t_data = time.time() - t0
-    params = dict(PARAMS, device_type="cuda")
+    params = dict(PARAMS, device_type="cuda", quantized_grad=q8)
     train = lgb.Dataset(X, label=y, params=params)
     valid = lgb.Dataset(Xv, label=yv, reference=train)
     t0 = time.time()
@@ -381,20 +564,19 @@ def train_phase(lgb, cuda_hist, args):
                         valid_names=["valid"], evals_result=evals)
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = {"hist_tile": cuda_hist.hist_tile.launches,
-                "hist_tile_gather": cuda_hist.hist_tile.gather_launches,
-                "hist_tile_plane": cuda_hist.hist_tile.launches_plane,
-                "split_epilogue": cuda_hist.split_epilogue.launches}
+    launches = cuda_hist.launch_counts()
+    sfx = "_q8" if q8 else ""
     valid_auc = evals["valid"]["auc"][-1]
     check_auc = auc(booster.predict(Xv, raw_score=True), yv)
     out = {"rows": args.rows, "valid_rows": args.valid_rows,
-           "features": 28, "rounds": args.rounds,
+           "features": 28, "rounds": args.rounds, "quantized_grad": q8,
            "sec_per_iter": wall / args.rounds, "train_wall_s": wall,
            "data_s": t_data, "construct_s": t_construct,
            "valid_auc": valid_auc, "valid_auc_from_predict": check_auc,
            "rows_streamed_per_tree": booster.rows_streamed_per_tree,
-           "full_passes_per_tree": (launches["hist_tile"]
-                                    - launches["hist_tile_gather"])
+           "full_passes_per_tree": (launches["hist_tile.launches" + sfx]
+                                    - launches["hist_tile.gather_launches"
+                                               + sfx])
            / args.rounds,
            "launches": launches, "trees": booster.num_trees(),
            "leaves_last_tree": booster._boosting.host_trees[-1].num_leaves}
@@ -410,15 +592,23 @@ def train_phase(lgb, cuda_hist, args):
         raise AssertionError(f"the kernel checks ran at other shapes than "
                              f"the main path's {shapes}")
     out["kernel_shapes"] = shapes
-    if launches["hist_tile_gather"] <= 0 or \
-            launches["hist_tile"] - launches["hist_tile_gather"] <= 0 or \
-            launches["split_epilogue"] <= 0 or launches["hist_tile_plane"]:
-        raise AssertionError(f"the main path missed a kernel or left the "
-                             f"fused path: {launches}")
+    other = "" if q8 else "_q8"
+    gather = launches["hist_tile.gather_launches" + sfx]
+    if gather <= 0 or \
+            launches["hist_tile.launches" + sfx] - gather <= 0 or \
+            launches["split_epilogue.launches" + sfx] <= 0 or \
+            launches["hist_tile.launches_plane" + sfx] or \
+            launches["hist_tile.launches" + other] or \
+            launches["split_epilogue.launches" + other]:
+        raise AssertionError(f"the main path missed a kernel, left the "
+                             f"fused path or ran the other mode: {launches}")
     # the valid-score cache adds float32 tree outputs, predict accumulates
     # in float64: scores that tie in one may not in the other
     if not (valid_auc > 0.6 and abs(valid_auc - check_auc) < 1e-3):
         raise AssertionError(f"valid AUC {valid_auc} (predict: {check_auc})")
+    if q8 and not valid_auc >= q8_ref_auc - 0.01:
+        raise AssertionError(f"q8 valid AUC {valid_auc} more than 0.01 "
+                             f"below the f32 run's {q8_ref_auc}")
     out["profile"] = profile_iteration(booster, wall / args.rounds)
     return out, launches
 
@@ -504,11 +694,14 @@ def sparse_higgs_like(n: int, seed: int):
     return X, y
 
 
-def train_cat_phase(lgb, cuda_hist, args):
+def train_cat_phase(lgb, cuda_hist, args, q8_ref_auc=None):
+    """The classic path on 2M Expo-shaped rows; ``q8_ref_auc`` as in
+    train_phase."""
+    q8 = q8_ref_auc is not None
     X, y = expo_like(args.rows + args.valid_rows, args.seed + 11)
     Xv, yv = X[args.rows:], y[args.rows:]
     X, y = X[:args.rows], y[:args.rows]
-    params = dict(PARAMS, device_type="cuda")
+    params = dict(PARAMS, device_type="cuda", quantized_grad=q8)
     train = lgb.Dataset(X, label=y, params=params,
                         categorical_feature=CAT_COLUMNS)
     valid = lgb.Dataset(Xv, label=yv, reference=train)
@@ -525,10 +718,8 @@ def train_cat_phase(lgb, cuda_hist, args):
                         valid_names=["valid"], evals_result=evals)
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = {"hist_tile": cuda_hist.hist_tile.launches,
-                "hist_tile_gather": cuda_hist.hist_tile.gather_launches,
-                "hist_tile_plane": cuda_hist.hist_tile.launches_plane,
-                "split_epilogue": cuda_hist.split_epilogue.launches}
+    launches = cuda_hist.launch_counts()
+    sfx, other = ("_q8", "") if q8 else ("", "_q8")
     gb = booster._boosting
     cat_nodes = int(sum(int(np.sum(ht.is_cat)) for ht in gb.host_trees))
     valid_auc = evals["valid"]["auc"][-1]
@@ -542,6 +733,7 @@ def train_cat_phase(lgb, cuda_hist, args):
               "split_fusion": gb._split_fusion_on()}
     out = {"rows": args.rows, "valid_rows": args.valid_rows, "features": 8,
            "categorical": CAT_COLUMNS, "rounds": args.rounds,
+           "quantized_grad": q8,
            "sec_per_iter": wall / args.rounds, "train_wall_s": wall,
            "construct_s": t_construct, "valid_auc": valid_auc,
            "categorical_nodes": cat_nodes,
@@ -553,13 +745,20 @@ def train_cat_phase(lgb, cuda_hist, args):
                   "sparse_columns": 0, "split_fusion": False}:
         raise AssertionError(f"the plane-only kernel checks ran at other "
                              f"shapes than the classic path's {shapes}")
-    if launches["hist_tile_plane"] <= 0 or launches["split_epilogue"] != 0 \
-            or launches["hist_tile_plane"] != launches["hist_tile"]:
+    plane = launches["hist_tile.launches_plane" + sfx]
+    if plane <= 0 or launches["split_epilogue.launches"] \
+            or launches["split_epilogue.launches_q8"] \
+            or plane != launches["hist_tile.launches" + sfx] \
+            or launches["hist_tile.launches" + other]:
         raise AssertionError(f"the classic path did not run on the "
-                             f"plane-only kernel alone: {launches}")
+                             f"plane-only kernel of its mode alone: "
+                             f"{launches}")
     if not (valid_auc > 0.6 and cat_nodes > 0):
         raise AssertionError(f"valid AUC {valid_auc}, {cat_nodes} "
                              f"categorical nodes")
+    if q8 and not valid_auc >= q8_ref_auc - 0.01:
+        raise AssertionError(f"q8 valid AUC {valid_auc} more than 0.01 "
+                             f"below the f32 run's {q8_ref_auc}")
     out["profile"] = profile_iteration(booster, wall / args.rounds)
     return out, launches
 
@@ -638,6 +837,108 @@ def parity_sparse_phase(lgb, seed):
     return out
 
 
+def _parity_q8(lgb, X, y, params, categorical=None):
+    """q8 training, 3 rounds, on the card twice and on the CPU plain path:
+    the int8 quantization is the same torch arithmetic on both devices and
+    the int32 sums are exact (127 * 50,000 < 2^24 keeps the root's float32
+    sums exact too), so all three model texts must be equal bit for bit."""
+    from lightgbm_tpu_torch.io.model_text import load_model
+    texts = {}
+    kw = {} if categorical is None else {"categorical_feature": categorical}
+    for run in ("cuda", "cuda_again", "cpu"):
+        p = dict(params, quantized_grad=True, device_type=run.split("_")[0])
+        b = lgb.train(p, lgb.Dataset(X, label=y, params=p, **kw), 3)
+        texts[run] = b.model_to_string()
+    out = {"rows": len(X), "num_leaves": params["num_leaves"], "rounds": 3,
+           "card_runs_identical_text": texts["cuda"] == texts["cuda_again"],
+           "card_equals_cpu_text": texts["cuda"] == texts["cpu"],
+           "categorical_nodes": int(sum(
+               t.num_cat for t in load_model(texts["cuda"]).trees))}
+    if not (out["card_runs_identical_text"] and out["card_equals_cpu_text"]):
+        raise AssertionError(f"q8 card vs CPU disagree: {out}")
+    return out
+
+
+def parity_q8_phase(lgb, seed):
+    X, y = higgs_like(50_000, seed + 7)
+    return _parity_q8(lgb, X, y, dict(PARAMS, num_leaves=63))
+
+
+def parity_q8_cat_phase(lgb, seed):
+    X, y = expo_like(50_000, seed + 13)
+    out = _parity_q8(lgb, X, y, dict(PARAMS, num_leaves=63), CAT_COLUMNS)
+    if out["categorical_nodes"] <= 0:
+        raise AssertionError(f"no categorical node: {out}")
+    return out
+
+
+VARIANT_RTOL = 1e-5     # of each cell's summed magnitudes (products exact)
+
+
+def hist_variants_phase(cuda_hist):
+    """Kernel 5 through its entry point, the experiment script's main at
+    its defaults; then each variant's output against hist_onehot_plain on
+    the same data, and the kernel, plain and library times."""
+    from lightgbm_tpu_torch.scripts import exp_hist_variants as ev
+    cuda_hist.reset_launch_counts()
+    results, (binsT, rhs) = ev.main(["--reps", "5"])
+    launches = cuda_hist.hist_onehot.launches
+    failed = [r for r in results if "error" in r]
+    if failed or launches <= 0:
+        raise AssertionError(f"hist_variants: {failed}, {launches} launches")
+    f, n = binsT.shape
+    b = 255
+    plain = cuda_hist.hist_onehot_plain(binsT, rhs, b)
+    mag = cuda_hist.hist_onehot_plain(binsT, rhs.abs(), b)
+    torch.cuda.synchronize()
+    variants = {}
+    for r in results:
+        diff = (r.pop("out") - plain).abs()
+        bad = diff > VARIANT_RTOL * mag
+        if bool(bad.any()):
+            raise AssertionError(f"hist_onehot fg={r['fg']} blk={r['blk']} "
+                                 f"disagrees with its plain version at "
+                                 f"{int(bad.sum())} cells")
+        rel = float((diff / mag.clamp_min(1e-30)).max())
+        binsT_p, rhs_p = ev.pad_rows(binsT, rhs, r["blk"])
+        ms = time_ms(lambda: cuda_hist.hist_onehot(
+            binsT_p, rhs_p, b, r["fg"], r["blk"]), reps=5, warm=1)
+        variants[f"{r['fg']}x{r['blk']}"] = {
+            "ms": ms, "script_ms_per_pass": r["ms_per_pass"],
+            "max_abs_err": float(diff.max()), "max_rel_err": rel}
+        del binsT_p, rhs_p
+    plain_ms = time_ms(lambda: cuda_hist.hist_onehot_plain(binsT, rhs, b),
+                       reps=3, warm=1)
+    # the library stand-in: one cuBLAS bf16 matmul of the materialized
+    # [F * B, N] one-hot against rhs (28.6 GB at the defaults); the fold of
+    # its two halves is left out
+    oh = torch.empty((f * b, n), dtype=torch.bfloat16, device="cuda")
+    ar = torch.arange(b, device="cuda", dtype=torch.uint8)[:, None]
+    for j in range(f):
+        oh[j * b:(j + 1) * b] = (binsT[j][None, :] == ar).to(torch.bfloat16)
+    library_ms = time_ms(lambda: torch.matmul(oh, rhs), reps=3, warm=1)
+    del oh
+    torch.cuda.empty_cache()
+    # the function's least work: bins and rhs read once, out written once;
+    # one f32 add per row and lane to fold the halves, one per (feature,
+    # row, lane) to sum. The one-hot form's floor, its 2*N*F*B*256 bf16
+    # products on the tensor cores (most of them by a zero), is kept apart.
+    nbytes = f * n + n * 256 * 2 + f * b * 128 * 4
+    bms, by = bound(nbytes, 1.0 * n * 128 * (f + 1))
+    onehot_floor_ms = 2.0 * n * f * b * 256 / BF16_FLOP_PER_S * 1e3
+    best = min(variants, key=lambda k: variants[k]["ms"])
+    return {"rows": n, "features": f, "bins": b, "launches": launches,
+            "variants": variants, "best": best, "ms": variants[best]["ms"],
+            "max_abs_err": max(v["max_abs_err"] for v in variants.values()),
+            "max_rel_err": max(v["max_rel_err"] for v in variants.values()),
+            "rtol": VARIANT_RTOL, "plain_ms": plain_ms,
+            "library_ms": library_ms,
+            "library": "torch.matmul of the materialized bf16 one-hot "
+                       "(cuBLAS), halves not folded",
+            "bound_ms": bms, "bound_by": by,
+            "onehot_floor_ms": onehot_floor_ms}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -691,6 +992,30 @@ def main() -> int:
     emit("parity_cat", **parity_cat_phase(lgb, args.seed))
     emit("parity_sparse", **parity_sparse_phase(lgb, args.seed))
 
+    q8_full = hist_q8_phase(cuda_hist, n, seed=21)
+    q8_rungs = {str(m): hist_q8_phase(cuda_hist, n, m=m, seed=22)
+                for m in ladder_rungs(n)}
+    q8_plane = hist_q8_phase(cuda_hist, n, f=F_CAT, plane=True, seed=23)
+    q8_plane_rungs = {str(m): hist_q8_phase(cuda_hist, n, m=m, seed=24,
+                                            f=F_CAT, plane=True)
+                      for m in ladder_rungs(n)}
+    emit("hist_tile_q8", n=n, b=B, p=P, leaves=LEAVES,
+         full={"f": F, **q8_full}, rungs=q8_rungs,
+         plane={"f": F_CAT, **q8_plane}, plane_rungs=q8_plane_rungs)
+    epi_q8 = epilogue_q8_phase(cuda_hist)
+    emit("split_epilogue_q8", p=P, f=F, b=B, **epi_q8)
+    tq, q8_launches = train_phase(lgb, cuda_hist, args,
+                                  q8_ref_auc=tr["valid_auc"])
+    emit("train_q8", **tq)
+    tqc, q8_cat_launches = train_cat_phase(lgb, cuda_hist, args,
+                                           q8_ref_auc=tc["valid_auc"])
+    emit("train_q8_cat", **tqc)
+    emit("parity_q8", **parity_q8_phase(lgb, args.seed))
+    emit("parity_q8_cat", **parity_q8_cat_phase(lgb, args.seed))
+
+    hv = hist_variants_phase(cuda_hist)
+    emit("hist_variants", **hv)
+
     hist_err = max([full["max_abs_err"]]
                    + [r["max_abs_err"] for r in rungs.values()])
     plane_err = max([plane_full["max_abs_err"]]
@@ -700,11 +1025,11 @@ def main() -> int:
          "source": "lightgbm_tpu_torch/csrc/hist_tile.cu",
          "replaces": "lightgbm_tpu/ops/pallas_hist.py:497 _fused_epi_kernel "
                      "+ :527 _gather_epi_kernel (accumulation)",
-         "launches": launches["hist_tile"], "max_abs_err": hist_err,
+         "launches": launches["hist_tile.launches"], "max_abs_err": hist_err,
          "ms": full["ms"], "plain_ms": full["plain_ms"],
          "bound_ms": full["bound_ms"], "bound_by": full["bound_by"],
          "library_ms": full["library_ms"],
-         "gather_launches": launches["hist_tile_gather"],
+         "gather_launches": launches["hist_tile.gather_launches"],
          "gather_ms": {k: v["ms"] for k, v in rungs.items()},
          "gather_bound_ms": {k: v["bound_ms"] for k, v in rungs.items()}},
         {"name": "hist_tile (plane-only)", "route": "cuda",
@@ -712,13 +1037,13 @@ def main() -> int:
          "replaces": "lightgbm_tpu/ops/pallas_hist.py:154 _fused_kernel "
                      "(pallas_call :270) + :205 _gather_kernel "
                      "(pallas_call :324)",
-         "launches": cat_launches["hist_tile_plane"],
+         "launches": cat_launches["hist_tile.launches_plane"],
          "max_abs_err": plane_err, "ms": plane_full["ms"],
          "plain_ms": plane_full["plain_ms"],
          "bound_ms": plane_full["bound_ms"],
          "bound_by": plane_full["bound_by"],
          "library_ms": plane_full["library_ms"],
-         "gather_launches": cat_launches["hist_tile_gather"],
+         "gather_launches": cat_launches["hist_tile.gather_launches"],
          "gather_ms": {k: v["ms"] for k, v in plane_rungs.items()},
          "gather_bound_ms": {k: v["bound_ms"]
                              for k, v in plane_rungs.items()}},
@@ -726,10 +1051,59 @@ def main() -> int:
          "source": "lightgbm_tpu_torch/csrc/split_epilogue.cu",
          "replaces": "lightgbm_tpu/ops/pallas_hist.py:465 _epilogue_compute "
                      "(epilogue of :497 and :527)",
-         "launches": launches["split_epilogue"],
+         "launches": launches["split_epilogue.launches"],
          "max_abs_err": epi["max_abs_err"], "ms": epi["ms"],
          "plain_ms": epi["plain_ms"], "bound_ms": epi["bound_ms"],
          "bound_by": epi["bound_by"], "library_ms": None},
+        {"name": "hist_tile (q8)", "route": "cuda",
+         "source": "lightgbm_tpu_torch/csrc/hist_tile.cu",
+         "replaces": "lightgbm_tpu/ops/pallas_hist.py:497 _fused_epi_kernel "
+                     "(pallas_call :588) + :527 _gather_epi_kernel "
+                     "(pallas_call :663), mode q8 (accumulation)",
+         "launches": q8_launches["hist_tile.launches_q8"],
+         "max_abs_err": max([q8_full["max_abs_err"]]
+                            + [r["max_abs_err"] for r in q8_rungs.values()]),
+         "ms": q8_full["ms"], "plain_ms": q8_full["plain_ms"],
+         "bound_ms": q8_full["bound_ms"], "bound_by": q8_full["bound_by"],
+         "library_ms": q8_full["library_ms"],
+         "gather_launches": q8_launches["hist_tile.gather_launches_q8"],
+         "gather_ms": {k: v["ms"] for k, v in q8_rungs.items()},
+         "gather_bound_ms": {k: v["bound_ms"] for k, v in q8_rungs.items()}},
+        {"name": "hist_tile (plane-only, q8)", "route": "cuda",
+         "source": "lightgbm_tpu_torch/csrc/hist_tile.cu",
+         "replaces": "lightgbm_tpu/ops/pallas_hist.py:154 _fused_kernel "
+                     "(pallas_call :270) + :205 _gather_kernel "
+                     "(pallas_call :324), mode q8",
+         "launches": q8_cat_launches["hist_tile.launches_plane_q8"],
+         "max_abs_err": max([q8_plane["max_abs_err"]]
+                            + [r["max_abs_err"]
+                               for r in q8_plane_rungs.values()]),
+         "ms": q8_plane["ms"], "plain_ms": q8_plane["plain_ms"],
+         "bound_ms": q8_plane["bound_ms"], "bound_by": q8_plane["bound_by"],
+         "library_ms": q8_plane["library_ms"],
+         "gather_launches": q8_cat_launches["hist_tile.gather_launches_q8"],
+         "gather_ms": {k: v["ms"] for k, v in q8_plane_rungs.items()},
+         "gather_bound_ms": {k: v["bound_ms"]
+                             for k, v in q8_plane_rungs.items()}},
+        {"name": "split_epilogue (q8)", "route": "cuda",
+         "source": "lightgbm_tpu_torch/csrc/split_epilogue.cu",
+         "replaces": "lightgbm_tpu/ops/pallas_hist.py:465 _epilogue_compute "
+                     "mode q8 (dequant + epilogue of :497 and :527)",
+         "launches": q8_launches["split_epilogue.launches_q8"],
+         "max_abs_err": epi_q8["max_abs_err"], "ms": epi_q8["ms"],
+         "plain_ms": epi_q8["plain_ms"], "bound_ms": epi_q8["bound_ms"],
+         "bound_by": epi_q8["bound_by"], "library_ms": None},
+        {"name": "hist_onehot", "route": "cuda",
+         "source": "lightgbm_tpu_torch/csrc/hist_onehot.cu",
+         "replaces": "scripts/exp_hist_variants.py:22 kernel in make_variant "
+                     "(pallas_call :44)",
+         "launches": hv["launches"], "max_abs_err": hv["max_abs_err"],
+         "max_rel_err": hv["max_rel_err"], "ms": hv["ms"],
+         "variant": hv["best"],
+         "variant_ms": {k: v["ms"] for k, v in hv["variants"].items()},
+         "plain_ms": hv["plain_ms"], "bound_ms": hv["bound_ms"],
+         "bound_by": hv["bound_by"], "library_ms": hv["library_ms"],
+         "onehot_floor_ms": hv["onehot_floor_ms"]},
     ]
     print(json.dumps({"kernels": kernels,
                       "total_seconds": time.time() - t_start}), flush=True)

@@ -8,20 +8,24 @@ the same ``parameters:`` block into model text), with three port rules:
   every kernel's plain PyTorch version. ``"cuda"`` on a machine without a
   CUDA device raises a RuntimeError naming the missing device — the port
   never continues on the CPU behind the caller's back (``torch_device``).
-- ``histogram_method`` accepts ``auto``/``pallas``/``pallas_hilo``: on CUDA
-  all three resolve to the hand-written Hopper kernels (which accumulate
-  true f32, so ``pallas_hilo`` equals ``pallas`` there), on the CPU to their
-  plain versions. Any other value raises.
+- ``histogram_method`` accepts ``auto``/``pallas``/``pallas_hilo``/
+  ``pallas_q8``: on CUDA all of them resolve to the hand-written Hopper
+  kernels (which accumulate true f32, so ``pallas_hilo`` equals ``pallas``
+  there), on the CPU to their plain versions. ``pallas_q8``, or
+  ``quantized_grad`` with any of the others, selects the kernels' q8 mode
+  (int8 gradients, exact int32 sums). Any other value raises: the XLA
+  methods (``scatter``, ``binloop``, ``onehot*``) have no counterpart in
+  the port, which has one histogram path.
 - ``deterministic`` is accepted and changes nothing: the port's kernels
   add their float sums in a fixed order, so two runs on the card give the
   same bits whether it is set or not (and on Hopper there is no hi/lo
   split for it to turn off).
 - Every parameter outside the port's implemented slice (dense numerical
   and categorical data with sparse device columns, serial learner, gbdt
-  boosting, regression/binary objectives, the fused split epilogue and
-  the classic split path) raises NotImplementedError when set to a
-  non-default value, naming the ROADMAP item that brings it
-  (``_check_slice``). Nothing is silently ignored.
+  boosting, regression/binary objectives, the fused split epilogue, the
+  classic split path, f32 and quantized-gradient histograms) raises
+  NotImplementedError when set to a non-default value, naming the ROADMAP
+  item that brings it (``_check_slice``). Nothing is silently ignored.
 """
 
 from __future__ import annotations
@@ -717,7 +721,7 @@ _SLICE_PARAMS = frozenset({
     "metric_freq", "is_provide_training_metric", "histogram_method",
     "split_fusion", "hist_subtraction", "hist_compaction",
     "hist_compaction_ladder", "tile_leaves", "fused_iteration",
-    "tree_growth_mode", "deterministic",
+    "tree_growth_mode", "deterministic", "quantized_grad",
     # categorical features (the classic split path)
     "categorical_feature", "max_cat_threshold", "cat_l2", "cat_smooth",
     "max_cat_to_onehot", "min_data_per_group",
@@ -744,10 +748,8 @@ for _names, _item in (
           "lambdarank_norm", "label_gain", "eval_at", "multi_error_top_k",
           "auc_mu_weights", "objective", "boosting", "num_class", "metric"),
          "Queue 1 item 10 (boosting modes and objectives)"),
-        (("quantized_grad", "gpu_use_dp", "linear_tree", "linear_lambda"),
+        (("gpu_use_dp", "linear_tree", "linear_lambda"),
          "Queue 1 item 11 (precision modes)"),
-        (("histogram_method",),
-         "Queue 2 (the q8 mode of kernels 1-4) and Queue 1 item 11"),
         (("hist_block", "hist_autotune"),
          "Queue 2 (autotune_hist becomes a Hopper sweep over rows per "
          "block)"),
@@ -791,7 +793,7 @@ for _names, _item in (
 
 _SLICE_OBJECTIVES = ("regression", "binary")
 _SLICE_METRICS = ("l2", "rmse", "binary_logloss", "auc")
-HIST_METHODS = ("auto", "pallas", "pallas_hilo")
+HIST_METHODS = ("auto", "pallas", "pallas_hilo", "pallas_q8")
 
 
 def _not_in_slice(name: str, value, why: str = "") -> None:
@@ -825,8 +827,12 @@ def _check_slice(cfg: Config) -> None:
             _not_in_slice("metric", m,
                           f" (the port has {', '.join(_SLICE_METRICS)})")
     if cfg.histogram_method not in HIST_METHODS:
-        _not_in_slice("histogram_method", cfg.histogram_method,
-                      f" (the port has {', '.join(HIST_METHODS)})")
+        raise NotImplementedError(
+            f"parameter histogram_method={cfg.histogram_method!r} has no "
+            f"counterpart in lightgbm_tpu_torch: the port has one histogram "
+            f"path, the Hopper kernels and their plain versions "
+            f"({', '.join(HIST_METHODS)}; with quantized_grad their q8 "
+            f"mode), and no XLA method to fall back to")
     if not 0 <= cfg.tile_leaves <= 42:
         log.fatal(f"tile_leaves must be in [0, 42] (42 slots of 3 stats fill "
                   f"the kernels' 128-lane tables), got {cfg.tile_leaves}")

@@ -1,13 +1,17 @@
 // split_epilogue.cu -- the split-finding epilogue of a histogram tile pass.
 //
 // Replaces the epilogue half of lightgbm_tpu/ops/pallas_hist.py
-// _fused_epi_kernel / _gather_epi_kernel, i.e. _epilogue_compute with
-// mode != "q8": derive each odd (derived) slot's plane as
-// parent - computed sibling, then ops/split.py numerical_candidates.
+// _fused_epi_kernel / _gather_epi_kernel, i.e. _epilogue_compute in both
+// of its modes: in q8 mode dequantize the int32 tile (each cell
+// acc * qscale[stat], rounded on its own before anything else touches it,
+// as the JAX package's _round_fence does), then in both modes derive each
+// odd (derived) slot's plane as parent - computed sibling, then
+// ops/split.py numerical_candidates.
 //
 // One block per (slot, feature); one thread per bin (B <= 256):
 //   1. full plane: derived slots read parent - tile[slot - 1], the others
-//      the tile itself (the TPU kernel's static lane shift);
+//      the tile itself (the TPU kernel's static lane shift); a q8 tile is
+//      read as __fmul_rn((float)acc, qscale[stat]);
 //   2. the excluded bins of missing types NaN and Zero are zeroed;
 //   3. the bin-axis cumulative sum in the plain version's order
 //      (utils/ordered.py blocked_cumsum: a left-to-right prefix inside each
@@ -87,7 +91,19 @@ __device__ __forceinline__ float gain_given_output(float g, float h,
   return -((2.f * sg) * out + ((h + p.l2) * out) * out);
 }
 
+// Cell `at` (stat c) of the tile: the f32 value, or in q8 mode (qscale
+// set) the int32 sum dequantized by one rounded multiply.
+__device__ __forceinline__ float tile_cell(const float* __restrict__ tile,
+                                           const int32_t* __restrict__ qtile,
+                                           const float* __restrict__ qscale,
+                                           size_t at, int c) {
+  if (qscale) return __fmul_rn(__int2float_rn(qtile[at]), qscale[c]);
+  return tile[at];
+}
+
 __global__ void split_epilogue_kernel(const float* __restrict__ tile,
+                                      const int32_t* __restrict__ qtile,
+                                      const float* __restrict__ qscale,
                                       const float* __restrict__ parent,
                                       const int32_t* __restrict__ der,
                                       const float* __restrict__ la,
@@ -124,9 +140,11 @@ __global__ void split_epilogue_kernel(const float* __restrict__ tile,
                       || (mode_a && is_zero && t == dbin);
     for (int c = 0; c < 3; ++c) {
       const size_t at = base + (size_t)t * 3 + c;
-      float v = tile[at];
+      float v = tile_cell(tile, qtile, qscale, at, c);
       if (derived) {
-        const float s = slot > 0 ? tile[sib + (size_t)t * 3 + c] : 0.f;
+        const float s = slot > 0
+            ? tile_cell(tile, qtile, qscale, sib + (size_t)t * 3 + c, c)
+            : 0.f;
         v = parent[at] - s;
       }
       full[at] = v;
@@ -249,17 +267,21 @@ __global__ void split_epilogue_kernel(const float* __restrict__ tile,
 
 }  // namespace
 
-// Returns cudaGetLastError() (0 = launched).
-extern "C" int split_epilogue_launch(const void* tile, const void* parent,
-                                     const void* der, const void* la,
-                                     const void* fm, const void* pv,
-                                     void* full, void* cand, int p, int f,
-                                     int b, void* stream) {
+// Returns cudaGetLastError() (0 = launched). `qscale` null: `tile` is
+// p * f * b * 3 floats; else int32 sums dequantized by qscale[3].
+extern "C" int split_epilogue_launch(const void* tile, const void* qscale,
+                                     const void* parent, const void* der,
+                                     const void* la, const void* fm,
+                                     const void* pv, void* full, void* cand,
+                                     int p, int f, int b, void* stream) {
   if (b > kMaxBins || b < 1) return (int)cudaErrorInvalidValue;
   dim3 grid(p, f);
+  const float* qs = static_cast<const float*>(qscale);
   split_epilogue_kernel<<<grid, kMaxBins, 0,
                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(tile), static_cast<const float*>(parent),
+      qs ? nullptr : static_cast<const float*>(tile),
+      qs ? static_cast<const int32_t*>(tile) : nullptr, qs,
+      static_cast<const float*>(parent),
       static_cast<const int32_t*>(der), static_cast<const float*>(la),
       static_cast<const float*>(fm), static_cast<const float*>(pv),
       static_cast<float*>(full), static_cast<float*>(cand), f, b);

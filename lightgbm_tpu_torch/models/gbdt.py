@@ -6,7 +6,10 @@ and valid score updates, the boost-from-average bias fold), evaluation,
 and raw prediction as a float64 accumulation in tree order. The grower
 takes the fused split path unless ``_split_fusion_on`` finds a reason not
 to (categorical features, sparse device columns, ``split_fusion=off``),
-as the JAX package resolves it. The JAX
+as the JAX package resolves it. ``quantized_grad`` (or
+``histogram_method=pallas_q8``) grows every tree in the q8 mode, each tree
+keyed ``fold_in(PRNGKey(extra_seed), iter * k + c)`` as in the JAX
+package. The JAX
 package's fused one-program iteration, K-block dispatch, compile cache,
 sentinels, flight recorder and OOM ladder wait for later ROADMAP items;
 its fused and unfused iterations give the same trees, so the port runs the
@@ -27,7 +30,9 @@ import torch
 from ..basic import Dataset
 from ..metrics import Metric, create_metric, default_metric_for_objective
 from ..objectives import ObjectiveFunction, create_objective
+from ..ops.histogram import resolve_method
 from ..ops.split import SplitParams
+from ..utils.random import fold_in, prng_key
 from .grower import grow_tree
 from .tree import HostTree, TreeArrays, empty_tree, predict_leaf_bins
 
@@ -87,6 +92,14 @@ class GBDT:
                                       dtype=torch.float32, device=self.device)
         self.shrinkage_rate = cfg.learning_rate
         self.split_params = SplitParams.from_config(cfg)
+        self._extra_rng_key = prng_key(cfg.extra_seed)
+        if cfg.quantized_grad and cfg.gpu_use_dp:
+            raise ValueError(
+                "quantized_grad and gpu_use_dp are exclusive: int8 "
+                "histograms with stochastic rounding and f64 accumulation "
+                "contradict each other — pick one precision model")
+        self._hist_method = resolve_method(cfg.histogram_method, self.device,
+                                           cfg.quantized_grad)
         self.metric_names = list(cfg.metric or
                                  default_metric_for_objective(cfg.objective))
         self._metric_cache = {}
@@ -127,6 +140,8 @@ class GBDT:
                                 device=self.device), 0.0)
         sp = ((ts.sp_cols, ts.sp_rows, ts.sp_bins, ts.sp_default)
               if ts.has_sparse_cols else None)
+        # one tree per iteration (k = 1, c = 0): fold_in(key, iter * k + c)
+        iter_key = fold_in(self._extra_rng_key, self.iter)
         return grow_tree(
             ts.binsT, g, h, ts.feature_meta, self.split_params,
             ts.missing_bin, max_leaves=cfg.num_leaves,
@@ -136,7 +151,8 @@ class GBDT:
             hist_subtraction=cfg.hist_subtraction,
             compaction_ladder=self._compaction_ladder(),
             split_fusion=self._split_fusion_on(),
-            with_categorical=ts.has_categorical, sp=sp)
+            with_categorical=ts.has_categorical, sp=sp,
+            hist_method=self._hist_method, rng_key=iter_key)
 
     def _split_fusion_on(self) -> bool:
         """Resolve ``split_fusion`` as the JAX package does: "auto" fuses

@@ -41,10 +41,18 @@ its splits' rows in one device pass at its end (a phase splits each leaf
 at most once, so the order of the routings does not matter), through the
 index tables sent once per phase.
 
+In the quantized-gradient mode (a ``*_q8`` histogram method) the
+gradients and hessians become int8 before growth, with per-tree scales and
+stochastic rounding drawn from the tree's key (``utils/random.py``, the
+JAX package's draw bit for bit); the tile passes sum them exactly in int32
+and dequantize once per pass (in the epilogue on the fused path, after
+``combine_sparse`` on the classic one), so the resident planes stay
+float32.
+
 Equivalence to the reference's leaf-wise order, the dead-leaf guard
 (BeforeFindBestSplit) and the tie rules are the JAX package's; trees are
 bitwise equal to its ``grow_tree`` on the same inputs where the histograms
-are (the CPU plain path is).
+are (the CPU plain path is; q8 sums are exact everywhere).
 """
 
 from __future__ import annotations
@@ -62,6 +70,7 @@ from ..ops.split import (FeatureMeta, SplitInfo, SplitParams,
                          calculate_leaf_output, candidates_to_splitinfo,
                          cat_words_for, find_best_splits)
 from ..utils.ordered import tree_sum
+from ..utils.random import fold_in, prng_key, uniform
 from .tree import TreeArrays, empty_tree
 
 NEG_INF = float("-inf")
@@ -113,7 +122,9 @@ class Grower:
                  max_depth: int = -1, exact: bool = False,
                  tile_leaves: int = 0, hist_subtraction: bool = True,
                  compaction_ladder: tuple = (), split_fusion: bool = True,
-                 with_categorical: bool = False, sp: Optional[tuple] = None):
+                 with_categorical: bool = False, sp: Optional[tuple] = None,
+                 hist_method: str = "",
+                 rng_key: Optional[torch.Tensor] = None):
         assert tuple(sorted(compaction_ladder)) == tuple(compaction_ladder), \
             "compaction_ladder must be ascending"
         assert not (split_fusion and (with_categorical or sp is not None)), \
@@ -141,8 +152,20 @@ class Grower:
         self.params = params.to("cpu")
         self.params_dev = params.to(self.dev)
         self.missing_bin_dev = missing_bin.to(self.dev).to(torch.int32)
-        self.stats = torch.stack([grad, hess, torch.ones_like(grad)],
-                                 dim=1).to(torch.float32).contiguous()
+        stats = torch.stack([grad, hess, torch.ones_like(grad)],
+                            dim=1).to(torch.float32).contiguous()
+        base = "cuda" if self.dev.type == "cuda" else "plain"
+        hist_method = hist_method or base
+        assert hist_method in (base, base + "_q8"), \
+            f"histogram method {hist_method!r} on device {self.dev}"
+        self.quant8 = hist_method.endswith("_q8")
+        self.q_scale = None
+        if self.quant8:
+            self.stats, self.q_scale, self.root = self._quantize(
+                stats, prng_key(0) if rng_key is None else rng_key)
+        else:
+            self.stats = stats
+            self.root = tree_sum(stats, 0).cpu()
         self.iota = np.arange(self.L, dtype=np.int32)
         self.two_min_data = np.float32(2.0) * np.float32(
             self.params.min_data_in_leaf)
@@ -166,10 +189,39 @@ class Grower:
             self.col2dense_dev = torch.as_tensor(col2dense).to(self.dev)
         self.max_rounds = 3 * self.L + 8
 
+    def _quantize(self, stats: torch.Tensor, rng_key: torch.Tensor):
+        """The quantized-gradient mode's int8 stats (JAX ``grow_tree``'s
+        quant8 block): per-tree scales max(max|stat|, 1e-12) / 127 for
+        grad and hess (the count channel's scale is exactly 1, so
+        ``floor(1 + u)`` keeps every count 1), stochastic rounding
+        ``floor(stat / scale + u)`` with ``u`` the JAX package's
+        ``uniform(fold_in(key, 0x5138), [N, 3])``, clipped to +-127.
+        Returns (int8 stats [N, 3], q_scale [3] f32, root sums on the host:
+        the float32 sum of the int8 stats in XLA's order, times the
+        scale)."""
+        if self.n > cuda_hist.Q8_MAX_ROWS:
+            raise ValueError(
+                f"quantized histograms overflow int32 beyond "
+                f"{cuda_hist.Q8_MAX_ROWS} rows (got {self.n}); use the "
+                f"pallas_hilo method at this scale")
+        floor = torch.tensor(1e-12, dtype=torch.float32, device=self.dev)
+        amax = torch.maximum(stats[:, :2].abs().amax(0), floor)
+        # XLA compiles the JAX package's ``amax / 127.0`` into a multiply
+        # by the float32 reciprocal of its constant divisor; the stochastic
+        # rounding's ``stats / q_scale`` (a divisor known at run time only)
+        # stays a true division
+        q_scale = torch.cat([amax * np.float32(1.0 / 127.0),
+                             torch.ones((1,), device=self.dev)])
+        u = uniform(fold_in(rng_key, 0x5138), (self.n, 3), device=self.dev)
+        q = torch.clamp(torch.floor(stats / q_scale[None, :] + u), -127,
+                        127).to(torch.int8).contiguous()
+        root = tree_sum(q.to(torch.float32), 0) * q_scale
+        return q, q_scale, root.cpu()
+
     # ------------------------------------------------------------- state
     def init_state(self) -> GrowState:
         L, W = self.L, self.cat_words
-        root = tree_sum(self.stats, 0).cpu()
+        root = self.root
         root_out = calculate_leaf_output(root[0], root[1], self.params,
                                          root[2], torch.tensor(0.0))
 
@@ -299,7 +351,7 @@ class Grower:
         tile, cand = histogram_tiles_with_candidates(
             self.binsT, self.stats, st.leaf_id, torch.from_numpy(sel),
             torch.from_numpy(derive), parent_planes, la, self.fm_pack,
-            self.pvec, self.B, self.L, gather_idx)
+            self.pvec, self.B, self.L, gather_idx, q_scale=self.q_scale)
 
         slots = sel[ok]
         st.hist[torch.as_tensor(slots.astype(np.int64)).to(dev)] = tile[
@@ -322,7 +374,8 @@ class Grower:
         rebuilt from per-slot totals -- the reference's most_freq elision
         + FixHistogram (sparse_bin.hpp ConstructHistogram; dataset.h:506).
         Returns the full [P, F, B, 3] tile with the dense planes at their
-        column ids."""
+        column ids: float32, or in q8 mode exact int32 sums of the int8
+        stats."""
         sp_cols, sp_rows, sp_bins, sp_default = self.sp
         n, B, f_sp = self.n, self.B, self.f_sp
         p = sel.shape[0]
@@ -333,21 +386,26 @@ class Grower:
         ok = sel >= 0
         slot_map[sel[ok]] = np.nonzero(ok)[0]
         slot = torch.as_tensor(slot_map).to(dev)[leaf_id[rclip].long()]
-        st = torch.where(valid[..., None], self.stats[rclip],
-                         torch.zeros((), device=dev))
+        acc = torch.int32 if self.quant8 else torch.float32
+        st = torch.where(valid[..., None], self.stats[rclip].to(acc),
+                         torch.zeros((), dtype=acc, device=dev))
         col = torch.arange(f_sp, device=dev)[:, None]
         idx = (slot * f_sp + col) * B + sp_bins.long()
         # an accumulating index_put_ adds each cell's entries one by one
         # in entry (row) order on both devices -- on CUDA through a stable
         # sort, not atomics -- so the planes are the same bits every run
-        flat = torch.zeros(((p + 1) * f_sp * B, 3), dtype=torch.float32,
-                           device=dev)
+        # (q8's integer sums are exact in any order)
+        flat = torch.zeros(((p + 1) * f_sp * B, 3), dtype=acc, device=dev)
         flat.index_put_((idx.reshape(-1),), st.reshape(-1, 3),
                         accumulate=True)
         sp_t = flat.reshape(p + 1, f_sp, B, 3)[:p]
         # per-slot totals: any dense column's plane partitions the rows
         if self.f_dense > 0:
             totals = tree_sum(tile[:, 0], 1)                 # [P, 3]
+        elif self.quant8:
+            slot_all = torch.as_tensor(slot_map).to(dev)[leaf_id.long()]
+            totals = torch.zeros((p + 1, 3), dtype=acc, device=dev)
+            totals = totals.index_add_(0, slot_all, self.stats.to(acc))[:p]
         else:
             eq = (leaf_id[:, None] == torch.as_tensor(sel).to(dev)[None, :])
             totals = eq.to(torch.float32).T @ self.stats
@@ -356,8 +414,7 @@ class Grower:
                 == sp_default.long()[:, None])               # [F_sp, B]
         recon = (totals[:, None, :] - others)[:, :, None, :]
         sp_t = torch.where(defm[None, :, :, None], recon, sp_t)
-        full = torch.zeros((p, self.f, B, 3), dtype=torch.float32,
-                           device=dev)
+        full = torch.zeros((p, self.f, B, 3), dtype=acc, device=dev)
         full[:, torch.as_tensor(self.dense_cols).to(dev)] = tile
         full[:, torch.as_tensor(self.sp_cols).to(dev)] = sp_t
         return full
@@ -377,9 +434,15 @@ class Grower:
                                    gather_idx)
         else:
             tile = torch.zeros((sel.shape[0], 0, self.B, 3),
-                               dtype=torch.float32, device=dev)
+                               dtype=torch.int32 if self.quant8
+                               else torch.float32, device=dev)
         if self.f_sp:
             tile = self.combine_sparse(tile, sel, st.leaf_id)
+        if self.quant8:
+            # exact int32 sums, dequantized once; the JAX package fences
+            # this product (_round_fence) against FMA contraction into the
+            # subtraction below, which eager torch never does
+            tile = tile.to(torch.float32) * self.q_scale
 
         computed = np.zeros((self.L,), dtype=bool)
         computed[chosen] = chosen_ok
@@ -577,17 +640,22 @@ def grow_tree(binsT: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
               max_depth: int = -1, exact: bool = False, tile_leaves: int = 0,
               hist_subtraction: bool = True, compaction_ladder: tuple = (),
               split_fusion: bool = True, with_categorical: bool = False,
-              sp: Optional[tuple] = None
+              sp: Optional[tuple] = None, hist_method: str = "",
+              rng_key: Optional[torch.Tensor] = None
               ) -> Tuple[TreeArrays, torch.Tensor, float]:
-    """Grow one tree from per-row gradients/hessians. Returns (tree arrays
-    on the host, per-row leaf index on the device, rows read by the
-    histogram passes)."""
+    """Grow one tree from per-row gradients/hessians. ``hist_method`` is
+    ``ops/histogram.resolve_method``'s answer (empty: the f32 mode of the
+    device's path); a ``*_q8`` method quantizes with ``rng_key`` (the
+    JAX package's ``PRNGKey(0)`` when None). Returns (tree arrays on the
+    host, per-row leaf index on the device, rows read by the histogram
+    passes)."""
     g = Grower(binsT, grad, hess, meta, params, missing_bin,
                max_leaves=max_leaves, num_bins=num_bins, max_depth=max_depth,
                exact=exact, tile_leaves=tile_leaves,
                hist_subtraction=hist_subtraction,
                compaction_ladder=compaction_ladder, split_fusion=split_fusion,
-               with_categorical=with_categorical, sp=sp)
+               with_categorical=with_categorical, sp=sp,
+               hist_method=hist_method, rng_key=rng_key)
     st = g.init_state()
     while g.outer_cond(st):
         g.dead_guard(st)

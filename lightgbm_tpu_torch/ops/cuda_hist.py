@@ -9,13 +9,18 @@ Hopper that is two hand-written CUDA kernels (``csrc/``):
 
 - ``hist_tile`` (``csrc/hist_tile.cu``): the ``[P, F, B, 3]`` planes of the
   tile's computed slots, in the full-row form (``idx=None``) or the gather
-  form (rows ``idx[M]``, entries >= N are padding); deterministic (64-bit
-  fixed-point sums), so two launches give the same bits. ``plane=True``
-  marks a launch of the classic path (the plane-only kernels 3-4), counted
-  apart in ``hist_tile.launches_plane``;
-- ``split_epilogue`` (``csrc/split_epilogue.cu``): the derived slots'
-  planes as parent - computed sibling, then the numerical split scan
-  (``ops/split.py numerical_candidates``) -> the ``[P, F, 12]`` table.
+  form (rows ``idx[M]``, entries >= N are padding); deterministic, so two
+  launches give the same bits. Two modes, chosen by the stats' dtype: f32
+  (float stats, 64-bit fixed-point sums, float32 planes) and q8 (the
+  quantized-gradient mode: int8 stats, exact int32 sums, int32 planes).
+  ``plane=True`` marks a launch of the classic path (the plane-only
+  kernels 3-4). Each mode counts its own launches: ``launches``,
+  ``gather_launches`` and ``launches_plane`` for f32, ``launches_q8``,
+  ``gather_launches_q8`` and ``launches_plane_q8`` for q8;
+- ``split_epilogue`` (``csrc/split_epilogue.cu``): in q8 mode the int32
+  tile dequantized by ``q_scale`` first, then the derived slots' planes as
+  parent - computed sibling, then the numerical split scan (``ops/split.py
+  numerical_candidates``) -> the ``[P, F, 12]`` table.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs, launches on the current stream, raises if the launch failed, and
@@ -23,16 +28,23 @@ adds one to its ``launches`` counter. On a CPU tensor it runs the kernel's
 plain PyTorch version instead (``hist_tile_plain``, ``split_epilogue_plain``),
 and only then: on a CUDA tensor it launches the kernel or raises.
 ``hist_tile_exact`` is the plain version of ``hist_tile``'s own fixed-point
-arithmetic (bitwise the kernel's planes on float stats too);
+arithmetic (bitwise the kernel's planes on float stats too; in q8 mode the
+plain version is exact already);
 ``kernel_sums_on_cpu`` makes the CPU path use it, for a CPU run that gives a
 card run's bits.
 
-The kernels are built from the package's sources on first use, with
-``nvcc`` into one shared library per source (both compiles started
-together) under ``lightgbm_tpu_torch/_build/``, and bound through
-``ctypes`` with a plain C interface -- no PyTorch headers, so a build takes
-seconds. ``nvcc`` runs with ``--fmad=false``: the epilogue's candidate
-table must be bitwise equal to the plain version's.
+Off the training path, ``hist_onehot`` (``csrc/hist_onehot.cu``) is the
+experiment script's one-hot histogram on the bf16 tensor cores
+(``scripts/exp_hist_variants.py``), with its plain version
+``hist_onehot_plain`` and its own ``launches`` counter.
+
+Each kernel source is built on the first use of one of its kernels, with
+``nvcc`` into one shared library per source under
+``lightgbm_tpu_torch/_build/`` (``build_kernels()`` builds them all, the
+compiles started together), and bound through ``ctypes`` with a plain
+C interface -- no PyTorch headers, so a build takes seconds. ``nvcc``
+runs with ``--fmad=false``: the epilogue's candidate table must be bitwise
+equal to the plain version's.
 
 The argument-layout helpers (``_chan_layout``, ``chan_leaf_table``,
 ``_epilogue_lanes``, ``pack_leaf_aux``, ``pack_feature_meta``,
@@ -58,10 +70,11 @@ import torch
 _PAD = 128                  # lane width of the TPU layout tables
 _STATS = 3                  # (grad, hess, count) per row
 MAX_BINS = 256              # split_epilogue: one thread per bin
+Q8_MAX_ROWS = (2 ** 31 - 1) // 127   # q8: |sum| <= 127 * rows fits int32
 SMEM_PER_BLOCK = 232_448    # Hopper: dynamic shared memory a block can use
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD = Path(__file__).resolve().parent.parent / "_build"
-_SOURCES = ("hist_tile", "split_epilogue")
+_SOURCES = ("hist_tile", "split_epilogue", "hist_onehot")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "--fmad=false", "-std=c++17", "-shared", "-Xcompiler",
               "-fPIC", "-Xptxas", "-v")
@@ -161,14 +174,14 @@ def _lib_path(name: str) -> Path:
     return _BUILD / f"lib{name}_{key}.so"
 
 
-def build_kernels() -> float:
-    """Compile every kernel source that has no up-to-date library, one
-    ``nvcc`` per source, all started together; load them. Returns the
-    seconds spent."""
+def build_kernels(names: Tuple[str, ...] = _SOURCES) -> float:
+    """Compile each of the kernel sources ``names`` that has no up-to-date
+    library, one ``nvcc`` per source, all started together; load them.
+    Returns the seconds spent."""
     t0 = time.time()
     _BUILD.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name in _SOURCES:
+    for name in names:
         if name in _libs:
             continue
         out = _lib_path(name)
@@ -185,7 +198,7 @@ def build_kernels() -> float:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on csrc/{name}.cu:\n{text}")
         os.replace(tmp, out)
-    for name in _SOURCES:
+    for name in names:
         if name not in _libs:
             _libs[name] = _bind(name, ctypes.CDLL(str(_lib_path(name))))
     return time.time() - t0
@@ -196,15 +209,22 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
     if name == "hist_tile":
         lib.hist_tile_launch.argtypes = [vp] * 9 + [ci] * 10 + [vp]
         lib.hist_tile_launch.restype = ci
-    else:
-        lib.split_epilogue_launch.argtypes = [vp] * 8 + [ci] * 3 + [vp]
+        lib.hist_tile_q8_launch.argtypes = [vp] * 8 + [ci] * 10 + [vp]
+        lib.hist_tile_q8_launch.restype = ci
+    elif name == "split_epilogue":
+        lib.split_epilogue_launch.argtypes = [vp] * 9 + [ci] * 3 + [vp]
         lib.split_epilogue_launch.restype = ci
+    else:
+        ll = ctypes.c_longlong
+        lib.hist_onehot_launch.argtypes = ([vp] * 4 + [ci, ll] + [ci] * 5
+                                           + [ll, vp])
+        lib.hist_onehot_launch.restype = ci
     return lib
 
 
 def _lib(name: str) -> ctypes.CDLL:
     if name not in _libs:
-        build_kernels()
+        build_kernels((name,))
     return _libs[name]
 
 
@@ -251,17 +271,19 @@ def hist_tile_plain(binsT: torch.Tensor, leaf_ids: torch.Tensor,
                     stats: torch.Tensor, chan: torch.Tensor, num_slots: int,
                     num_bins: int, num_leaves: int,
                     idx: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Plain version of ``hist_tile``: one flat float32 ``index_add_`` over
-    the kept rows in row order -- on the CPU bitwise equal to the JAX
-    package's ``histogram_scatter`` / scatter-method tile, and the CPU
-    path's histogram. Returns [P, F, B, 3] f32."""
+    """Plain version of ``hist_tile``: one flat ``index_add_`` over the kept
+    rows in row order. f32 mode: float32 sums, on the CPU bitwise equal to
+    the JAX package's ``histogram_scatter`` / scatter-method tile, and the
+    CPU path's histogram; q8 mode (int8 ``stats``): int32 sums, exact and
+    order-free. Returns [P, F, B, 3] f32, or int32 in q8 mode."""
     f = binsT.shape[0]
+    acc = torch.int32 if stats.dtype == torch.int8 else torch.float32
     rows, cells = _tile_cells(binsT, leaf_ids, chan, num_slots, num_bins,
                               num_leaves, idx)
-    contrib = stats[rows].to(torch.float32)[:, None, :].expand(
+    contrib = stats[rows].to(acc)[:, None, :].expand(
         rows.shape[0], f, _STATS).reshape(-1, _STATS)
-    hist = torch.zeros((num_slots * f * num_bins, _STATS),
-                       dtype=torch.float32, device=binsT.device)
+    hist = torch.zeros((num_slots * f * num_bins, _STATS), dtype=acc,
+                       device=binsT.device)
     hist.index_add_(0, cells.reshape(-1), contrib)
     return hist.reshape(num_slots, f, num_bins, _STATS)
 
@@ -330,11 +352,13 @@ def _hist_chunks(blocks_per_chunk: int, m: int, dev: torch.device) -> int:
                           -(-m // 1024))))
 
 
-def hist_slot_parts(active: int, num_bins: int, num_leaves: int
-                    ) -> Tuple[int, int]:
-    """(parts, slots per part): the int64 planes of ``active`` computed
-    slots split into parts that each fit a block's shared memory."""
-    fit = (SMEM_PER_BLOCK - num_leaves * 4) // (num_bins * _STATS * 8)
+def hist_slot_parts(active: int, num_bins: int, num_leaves: int,
+                    cell_bytes: int = 8) -> Tuple[int, int]:
+    """(parts, slots per part): the planes of ``active`` computed slots
+    (``cell_bytes`` a cell: 8 for the f32 mode's int64 sums, 4 for q8's
+    int32) split into parts that each fit a block's shared memory."""
+    fit = (SMEM_PER_BLOCK - num_leaves * 4) // (num_bins * _STATS
+                                                 * cell_bytes)
     _check(fit >= 1, f"hist_tile: {num_bins} bins + {num_leaves} leaves "
            f"leave no room for one slot in {SMEM_PER_BLOCK} bytes of shared "
            f"memory")
@@ -349,11 +373,16 @@ def hist_tile(binsT: torch.Tensor, leaf_ids: torch.Tensor,
               plane: bool = False) -> torch.Tensor:
     """[P, F, B, 3] histogram planes of the computed slots (see the module
     docstring). ``binsT`` [F, N] uint8, ``leaf_ids`` [N] int32, ``stats``
-    [N, 3] f32, ``chan`` [1, 128] int32 (chan_leaf_table of the computed
-    selection; read on the host to size the launch), ``idx`` [M] int32 or
-    None; ``plane`` marks a classic-path launch."""
+    [N, 3] f32 (f32 mode; float32 planes) or int8 (q8 mode; int32 planes),
+    ``chan`` [1, 128] int32 (chan_leaf_table of the computed selection;
+    read on the host to size the launch), ``idx`` [M] int32 or None;
+    ``plane`` marks a classic-path launch."""
+    q8 = stats.dtype == torch.int8
+    _check(not q8 or binsT.shape[1] <= Q8_MAX_ROWS, f"hist_tile: q8 sums "
+           f"overflow int32 beyond {Q8_MAX_ROWS} rows (got {binsT.shape[1]})")
     if binsT.device.type == "cpu":
-        plain = hist_tile_exact if _cpu_sums["kernel"] else hist_tile_plain
+        exact = _cpu_sums["kernel"] and not q8
+        plain = hist_tile_exact if exact else hist_tile_plain
         return plain(binsT, leaf_ids, stats, chan, num_slots, num_bins,
                      num_leaves, idx)
     _check(binsT.device.type == "cuda", f"hist_tile: no kernel for device "
@@ -362,7 +391,7 @@ def hist_tile(binsT: torch.Tensor, leaf_ids: torch.Tensor,
     dev = binsT.device
     for name, t, dt in (("binsT", binsT, torch.uint8),
                         ("leaf_ids", leaf_ids, torch.int32),
-                        ("stats", stats, torch.float32),
+                        ("stats", stats, torch.int8 if q8 else torch.float32),
                         ("chan", chan, torch.int32)) + (
             (("idx", idx, torch.int32),) if idx is not None else ()):
         _check(t.device == dev or name == "chan", f"hist_tile: {name} on "
@@ -385,70 +414,99 @@ def hist_tile(binsT: torch.Tensor, leaf_ids: torch.Tensor,
     comp_np = np.where(computed, np.cumsum(computed) - 1, -1).astype(np.int32)
     active = int(computed.sum())
     m = n if idx is None else idx.shape[0]
-    out = torch.empty((num_slots, f, num_bins, _STATS), dtype=torch.float32,
-                      device=dev)
+    out = torch.empty((num_slots, f, num_bins, _STATS),
+                      dtype=torch.int32 if q8 else torch.float32, device=dev)
     if m == 0 or f == 0:
         return out.zero_()
     # a tile with no computed slot still launches (its blocks return at
     # once and the reduce writes zeros)
-    parts, per_part = hist_slot_parts(max(active, 1), num_bins, num_leaves)
+    parts, per_part = hist_slot_parts(max(active, 1), num_bins, num_leaves,
+                                      4 if q8 else 8)
     nchunk = _hist_chunks(f * parts, m, dev)
     comp = torch.as_tensor(comp_np).to(dev)
     chan_d = chan.to(dev).contiguous()
-    amax = torch.zeros((_STATS,), dtype=torch.int32, device=dev)
     partial = torch.empty((nchunk, active, f, num_bins, _STATS),
-                          dtype=torch.int64, device=dev)
-    err = _lib("hist_tile").hist_tile_launch(
-        _ptr(binsT), _ptr(leaf_ids), _ptr(stats), _ptr(chan_d), _ptr(comp),
-        _ptr(idx), _ptr(amax), _ptr(partial), _ptr(out), n, f, m, num_slots,
-        num_bins, num_leaves, nchunk, active, per_part, parts,
-        torch.cuda.current_stream(dev).cuda_stream)
-    hist_tile.launches += 1
+                          dtype=torch.int32 if q8 else torch.int64,
+                          device=dev)
+    lib = _lib("hist_tile")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if q8:
+        err = lib.hist_tile_q8_launch(
+            _ptr(binsT), _ptr(leaf_ids), _ptr(stats), _ptr(chan_d),
+            _ptr(comp), _ptr(idx), _ptr(partial), _ptr(out), n, f, m,
+            num_slots, num_bins, num_leaves, nchunk, active, per_part, parts,
+            stream)
+    else:
+        amax = torch.zeros((_STATS,), dtype=torch.int32, device=dev)
+        err = lib.hist_tile_launch(
+            _ptr(binsT), _ptr(leaf_ids), _ptr(stats), _ptr(chan_d),
+            _ptr(comp), _ptr(idx), _ptr(amax), _ptr(partial), _ptr(out), n,
+            f, m, num_slots, num_bins, num_leaves, nchunk, active, per_part,
+            parts, stream)
+    sfx = "_q8" if q8 else ""
+    _count(hist_tile, "launches" + sfx)
     if idx is not None:
-        hist_tile.gather_launches += 1
+        _count(hist_tile, "gather_launches" + sfx)
     if plane:
-        hist_tile.launches_plane += 1
+        _count(hist_tile, "launches_plane" + sfx)
     _raise_on(err, "hist_tile")
     return out
 
 
-hist_tile.launches = 0
-hist_tile.gather_launches = 0
-hist_tile.launches_plane = 0
+_COUNTERS = {"hist_tile": ("launches", "gather_launches", "launches_plane",
+                           "launches_q8", "gather_launches_q8",
+                           "launches_plane_q8"),
+             "split_epilogue": ("launches", "launches_q8"),
+             "hist_onehot": ("launches",)}
+
+
+def _count(fn, name: str) -> None:
+    setattr(fn, name, getattr(fn, name) + 1)
 
 
 # ------------------------------------------------------------- split_epilogue
 def split_epilogue_plain(tile: torch.Tensor, parent: torch.Tensor,
                          der: torch.Tensor, la: torch.Tensor, fm: torch.Tensor,
-                         pv: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+                         pv: torch.Tensor,
+                         q_scale: Optional[torch.Tensor] = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of ``split_epilogue``: ops/histogram.py
-    ``derive_and_scan`` with the derived slots read from the lane table.
-    Returns (full planes [P, F, B, 3], cand [P, F, 12])."""
+    ``derive_and_scan`` with the derived slots read from the lane table
+    (q8 mode with ``q_scale``). Returns (full planes [P, F, B, 3], cand
+    [P, F, 12])."""
     from .histogram import derive_and_scan
     p = tile.shape[0]
     derive = der.reshape(-1)[0:p * _STATS:_STATS] != 0
-    return derive_and_scan(tile, derive, parent, la, fm, pv)
+    return derive_and_scan(tile, derive, parent, la, fm, pv,
+                           q8=q_scale is not None, q_scale=q_scale)
 
 
 def split_epilogue(tile: torch.Tensor, parent: torch.Tensor,
                    der: torch.Tensor, la: torch.Tensor, fm: torch.Tensor,
-                   pv: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+                   pv: torch.Tensor, q_scale: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Derive + numerical split scan of one tile (see the module
-    docstring). ``tile``/``parent`` [P, F, B, 3] f32, ``der`` [1, 128] int32
-    (_epilogue_lanes), ``la`` [P, 8], ``fm`` [F, 8], ``pv`` [8] f32.
-    Returns (full planes [P, F, B, 3], cand [P, F, 12])."""
+    docstring). ``tile`` [P, F, B, 3] f32, or int32 in q8 mode with
+    ``q_scale`` [3] f32; ``parent`` [P, F, B, 3] f32, ``der`` [1, 128]
+    int32 (_epilogue_lanes), ``la`` [P, 8], ``fm`` [F, 8], ``pv`` [8] f32.
+    Returns (full planes [P, F, B, 3] f32, cand [P, F, 12])."""
+    q8 = q_scale is not None
     if tile.device.type == "cpu":
-        return split_epilogue_plain(tile, parent, der, la, fm, pv)
+        return split_epilogue_plain(tile, parent, der, la, fm, pv, q_scale)
     _check(tile.device.type == "cuda", f"split_epilogue: no kernel for "
            f"device {tile.device}")
     dev = tile.device
     p, f, b, s = tile.shape
-    for name, t, dt, shape in (("tile", tile, torch.float32, (p, f, b, 3)),
-                               ("parent", parent, torch.float32, (p, f, b, 3)),
-                               ("der", der, torch.int32, (1, _PAD)),
-                               ("la", la, torch.float32, (p, 8)),
-                               ("fm", fm, torch.float32, (f, 8)),
-                               ("pv", pv, torch.float32, (8,))):
+    checks = (("tile", tile, torch.int32 if q8 else torch.float32,
+               (p, f, b, 3)),
+              ("parent", parent, torch.float32, (p, f, b, 3)),
+              ("der", der, torch.int32, (1, _PAD)),
+              ("la", la, torch.float32, (p, 8)),
+              ("fm", fm, torch.float32, (f, 8)),
+              ("pv", pv, torch.float32, (8,)))
+    if q8:
+        checks += (("q_scale", q_scale, torch.float32, (_STATS,)),)
+    for name, t, dt, shape in checks:
         _check(t.device == dev, f"split_epilogue: {name} on {t.device}")
         _check(t.dtype == dt, f"split_epilogue: {name} must be {dt}")
         _check(tuple(t.shape) == shape, f"split_epilogue: {name} "
@@ -457,22 +515,104 @@ def split_epilogue(tile: torch.Tensor, parent: torch.Tensor,
     _check(s == _STATS and p * _STATS <= _PAD and 1 <= b <= MAX_BINS,
            f"split_epilogue: tile shape {tuple(tile.shape)} unsupported")
     from .split import CAND_CHANNELS
-    full = torch.empty_like(tile)
+    full = torch.empty_like(parent)
     cand = torch.empty((p, f, CAND_CHANNELS), dtype=torch.float32, device=dev)
     err = _lib("split_epilogue").split_epilogue_launch(
-        _ptr(tile), _ptr(parent), _ptr(der), _ptr(la), _ptr(fm), _ptr(pv),
-        _ptr(full), _ptr(cand), p, f, b,
+        _ptr(tile), _ptr(q_scale), _ptr(parent), _ptr(der), _ptr(la),
+        _ptr(fm), _ptr(pv), _ptr(full), _ptr(cand), p, f, b,
         torch.cuda.current_stream(dev).cuda_stream)
-    split_epilogue.launches += 1
+    _count(split_epilogue, "launches_q8" if q8 else "launches")
     _raise_on(err, "split_epilogue")
     return full, cand
 
 
-split_epilogue.launches = 0
+# ---------------------------------------------------------------- hist_onehot
+_ONEHOT_LANES = 128         # folded output lanes
+_ONEHOT_RHS = 2 * _ONEHOT_LANES   # rhs lanes: the hi and lo halves
+_ONEHOT_TILE = 128          # output rows of one block's tile
+
+
+def hist_onehot_plain(binsT: torch.Tensor, rhs: torch.Tensor,
+                      num_bins: int) -> torch.Tensor:
+    """Plain version of ``hist_onehot``: per feature, one float32
+    ``index_add_`` of the folded rhs rows (``rhs[:, :128] + rhs[:, 128:]``
+    in float32) at their bins. Returns out [F * B, 128] f32."""
+    f, n = binsT.shape
+    folded = (rhs[:, :_ONEHOT_LANES].to(torch.float32)
+              + rhs[:, _ONEHOT_LANES:].to(torch.float32))
+    out = torch.zeros((f * num_bins, _ONEHOT_LANES), dtype=torch.float32,
+                      device=binsT.device)
+    for j in range(f):
+        bins = binsT[j].to(torch.int64)
+        keep = bins < num_bins
+        out[j * num_bins:(j + 1) * num_bins].index_add_(
+            0, bins[keep], folded[keep])
+    return out
+
+
+def _onehot_chunks(blocks: int, nblk: int, dev: torch.device) -> int:
+    """Row chunks (whole blk-row blocks each): about two blocks per SM."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return int(max(1, min(nblk, -(-2 * sms // max(blocks, 1)))))
+
+
+def hist_onehot(binsT: torch.Tensor, rhs: torch.Tensor, num_bins: int,
+                fg: int, blk: int) -> torch.Tensor:
+    """out [F * B, 128] f32: out[f*B + b, q] = sum over rows r with
+    binsT[f, r] == b of rhs[r, q] + rhs[r, q + 128], accumulated in f32.
+    ``binsT`` [F, N] uint8, ``rhs`` [N, 256] bf16, N a multiple of ``blk``;
+    ``fg`` features per group, ``blk`` rows per block (on this design they
+    set only the tiles' padding and the chunks' edges)."""
+    f, n = binsT.shape
+    _check(rhs.shape == (n, _ONEHOT_RHS), f"hist_onehot: rhs "
+           f"{tuple(rhs.shape)} != ({n}, {_ONEHOT_RHS})")
+    _check(fg >= 1 and blk >= 1 and n % blk == 0, f"hist_onehot: {n} rows "
+           f"are no multiple of blk={blk} (or fg={fg} < 1)")
+    _check(1 <= num_bins <= MAX_BINS, f"hist_onehot: num_bins {num_bins} "
+           f"outside [1, {MAX_BINS}]")
+    if binsT.device.type == "cpu":
+        return hist_onehot_plain(binsT, rhs, num_bins)
+    _check(binsT.device.type == "cuda", f"hist_onehot: no kernel for device "
+           f"{binsT.device}")
+    dev = binsT.device
+    for name, t, dt in (("binsT", binsT, torch.uint8),
+                        ("rhs", rhs, torch.bfloat16)):
+        _check(t.device == dev, f"hist_onehot: {name} on {t.device}, binsT "
+               f"on {dev}")
+        _check(t.dtype == dt, f"hist_onehot: {name} must be {dt}")
+        _check(t.is_contiguous(), f"hist_onehot: {name} must be contiguous")
+    ngroups = -(-f // fg)
+    tiles = -(-fg * num_bins // _ONEHOT_TILE)
+    nblk = n // blk
+    nchunk = _onehot_chunks(ngroups * tiles, nblk, dev) if nblk else 1
+    per_chunk = -(-nblk // nchunk) * blk
+    nchunk = max(1, -(-n // per_chunk)) if n else 1
+    out = torch.empty((f * num_bins, _ONEHOT_LANES), dtype=torch.float32,
+                      device=dev)
+    if n == 0 or f == 0:
+        return out.zero_()
+    partial = torch.empty((nchunk, ngroups, tiles * _ONEHOT_TILE,
+                           _ONEHOT_LANES), dtype=torch.float32, device=dev)
+    err = _lib("hist_onehot").hist_onehot_launch(
+        _ptr(binsT), _ptr(rhs), _ptr(partial), _ptr(out), f, n, num_bins, fg,
+        tiles, ngroups, nchunk, per_chunk,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _count(hist_onehot, "launches")
+    _raise_on(err, "hist_onehot")
+    return out
 
 
 def reset_launch_counts() -> None:
-    hist_tile.launches = 0
-    hist_tile.gather_launches = 0
-    hist_tile.launches_plane = 0
-    split_epilogue.launches = 0
+    """Set every kernel's launch counters to 0."""
+    for name, counters in _COUNTERS.items():
+        for c in counters:
+            setattr(globals()[name], c, 0)
+
+
+def launch_counts() -> Dict[str, int]:
+    """Every launch counter, as ``kernel.counter``."""
+    return {f"{name}.{c}": getattr(globals()[name], c)
+            for name, counters in _COUNTERS.items() for c in counters}
+
+
+reset_launch_counts()

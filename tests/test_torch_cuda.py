@@ -13,7 +13,12 @@ float stats, and two launches bitwise equal on float stats (its 64-bit
 fixed-point sums are deterministic); ``split_epilogue`` bitwise equal to
 ``split_epilogue_plain`` on identical planes (built with ``--fmad=false``);
 training on the card gives the same model text twice, and the CPU plain
-path's structure, on the fused and on the classic path.
+path's structure, on the fused and on the classic path. The q8 mode
+(quantized gradients): ``hist_tile`` on int8 stats and the dequantizing
+``split_epilogue`` bitwise equal to their plain versions (exact int32
+sums), and a q8 training's model text on the card bitwise the CPU's.
+The experiment script's ``hist_onehot`` (bf16 tensor cores) within 1e-5
+of each cell's summed magnitudes of its plain version.
 """
 
 import numpy as np
@@ -187,3 +192,103 @@ def test_training_on_card_matches_cpu_structure(dev, path):
         assert a.cat_threshold.tolist() == b.cat_threshold.tolist()
         np.testing.assert_allclose(a.leaf_value, b.leaf_value, rtol=0,
                                    atol=1e-4)
+
+
+@pytest.mark.parametrize("n,f,b,p,gather", [
+    (100_003, 28, 255, 42, False), (100_003, 8, 255, 42, True),
+    (5_000, 3, 16, 7, True), (777, 1, 2, 1, False)])
+def test_hist_tile_q8_matches_plain(dev, n, f, b, p, gather):
+    """int8 stats -> int32 planes, exact: bitwise the plain version (on
+    the card and on the CPU) and a second launch; counted as q8 launches
+    only. 42 computed slots at 255 bins fit one slot part."""
+    leaves = p + 5
+    binsT, leaf, _ = _hist_inputs(n, f, b, leaves, n + f + 1, True)
+    g = torch.Generator().manual_seed(n)
+    stats = torch.randint(-127, 128, (n, 3), generator=g).to(torch.int8)
+    stats[:, 2] = 1
+    sel = torch.arange(p, dtype=torch.int32)
+    sel[p // 2] = -1
+    chan = cuda_hist.chan_leaf_table(sel)
+    idx = None
+    if gather:
+        keep = torch.nonzero(leaf < p // 2 + 2).reshape(-1)
+        idx = torch.cat([keep, torch.full((13,), n)]).to(torch.int32)
+    args = [t.to(dev) for t in (binsT, leaf, stats, chan)]
+    gidx = None if idx is None else idx.to(dev)
+    cuda_hist.reset_launch_counts()
+    k = cuda_hist.hist_tile(*args, p, b, leaves, gidx, plane=True)
+    again = cuda_hist.hist_tile(*args, p, b, leaves, gidx)
+    ref = cuda_hist.hist_tile_plain(*args, p, b, leaves, gidx)
+    torch.cuda.synchronize()
+    assert k.dtype == torch.int32
+    assert torch.equal(k, ref) and torch.equal(k, again)
+    assert torch.equal(k.cpu(), cuda_hist.hist_tile_plain(
+        binsT, leaf, stats, chan, p, b, leaves, idx))
+    h = cuda_hist.hist_tile
+    assert (h.launches_q8, h.launches_plane_q8) == (2, 1)
+    assert h.gather_launches_q8 == (2 if gather else 0)
+    assert (h.launches, h.gather_launches, h.launches_plane) == (0, 0, 0)
+
+
+@pytest.mark.parametrize("p,f,b", [(42, 28, 255), (6, 5, 16), (1, 1, 3)])
+def test_split_epilogue_q8_matches_plain(dev, p, f, b):
+    tile, parent, der, la, fm = _epilogue_inputs(p, f, b, p * f + b + 1)
+    qtile = torch.round(tile * 37).to(torch.int32)
+    q_scale = torch.tensor([0.0173, 0.00291, 1.0])
+    pvec = torch.tensor([0, 1, 0, 0, 20, 1e-3, 0, 0], dtype=torch.float32)
+    args = [t.to(dev) for t in (qtile, parent, der, la, fm, pvec)]
+    cuda_hist.reset_launch_counts()
+    kf, kc = cuda_hist.split_epilogue(*args, q_scale.to(dev))
+    pf, pc = cuda_hist.split_epilogue_plain(*args, q_scale.to(dev))
+    torch.cuda.synchronize()
+    assert cuda_hist.split_epilogue.launches_q8 == 1
+    assert cuda_hist.split_epilogue.launches == 0
+    assert torch.equal(kc.view(torch.int32), pc.view(torch.int32))
+    assert torch.equal(kf.view(torch.int32), pf.view(torch.int32))
+    cf, cc = cuda_hist.split_epilogue_plain(qtile, parent, der, la, fm, pvec,
+                                            q_scale)
+    assert torch.equal(pc.cpu().view(torch.int32), cc.view(torch.int32))
+
+
+@pytest.mark.parametrize("n,f,b,fg,blk", [
+    (65_536, 28, 255, 2, 2048), (65_536, 28, 255, 7, 1024),
+    (4_096, 5, 31, 4, 1024), (1_024, 1, 2, 3, 64)])
+def test_hist_onehot_matches_plain(dev, n, f, b, fg, blk):
+    g = torch.Generator().manual_seed(n + f)
+    binsT = torch.randint(0, b, (f, n), generator=g).to(torch.uint8).to(dev)
+    rhs = torch.randn((n, 256), generator=g).to(torch.bfloat16).to(dev)
+    cuda_hist.reset_launch_counts()
+    k = cuda_hist.hist_onehot(binsT, rhs, b, fg, blk)
+    again = cuda_hist.hist_onehot(binsT, rhs, b, fg, blk)
+    ref = cuda_hist.hist_onehot_plain(binsT, rhs, b)
+    mag = cuda_hist.hist_onehot_plain(binsT, rhs.abs(), b)
+    torch.cuda.synchronize()
+    assert cuda_hist.hist_onehot.launches == 2
+    assert torch.equal(k.view(torch.int32), again.view(torch.int32))
+    assert bool(((k - ref).abs() <= 1e-5 * mag).all())
+
+
+@pytest.mark.parametrize("path", ["fused", "categorical", "sparse"])
+def test_q8_training_on_card_equals_cpu(dev, path):
+    """q8: the int8 quantization is the same torch arithmetic on both
+    devices and the int32 sums are exact, so the card's model text is the
+    CPU's, bit for bit."""
+    import lightgbm_tpu_torch as lgb
+    rng = np.random.RandomState(1)
+    X = rng.randn(20_000, 10).astype(np.float32)
+    kw = {}
+    if path == "categorical":
+        X[:, 3] = rng.randint(0, 30, 20_000)
+        kw = {"categorical_feature": [3]}
+    elif path == "sparse":
+        X[rng.rand(20_000) < 0.95, 4] = 0.0
+    y = (X[:, 0] + X[:, 1] * X[:, 2] + np.sin(X[:, 3])
+         + 0.5 * rng.randn(20_000) > 0)
+    texts = {}
+    for d in ("cuda", "cpu"):
+        p = {"objective": "binary", "num_leaves": 31, "verbosity": -1,
+             "quantized_grad": True, "device_type": d}
+        texts[d] = lgb.train(p, lgb.Dataset(X, label=y.astype(float),
+                                            params=p, **kw),
+                             3).model_to_string()
+    assert texts["cuda"] == texts["cpu"]

@@ -222,3 +222,169 @@ def test_classic_grow_tree_matches_jax(case, monkeypatch):
     np.testing.assert_array_equal(tleaf.numpy(), np.asarray(jleaf))
     assert streamed == float(jaux.rows_streamed)
     assert any(forms) and not all(forms)       # full AND rung passes
+
+
+# ------------------------------------------------------------------ q8 mode
+def _tree_equal(jtree, ttree):
+    for name in ttree._fields:
+        a = np.asarray(getattr(jtree, name))
+        b = getattr(ttree, name).numpy()
+        if a.dtype == np.float32:
+            np.testing.assert_array_equal(b.view(np.uint32),
+                                          a.view(np.uint32), err_msg=name)
+        else:
+            np.testing.assert_array_equal(b, a, err_msg=name)
+
+
+def test_q8_quantization_matches_jax_at_300k_rows():
+    """The quantized-gradient mode's int8 stats, scales and root sums at
+    300,000 rows, where the hessian channel's int8 sum (~2.0e7) passes
+    2^24 and a float32 sum's order decides its bits (XLA's tree order
+    matches; the exact sum cast once does not): the scales and the
+    int8 stats against the JAX grower's own arithmetic compiled by XLA
+    (which turns ``/ 127.0`` into a multiply by its reciprocal), the root
+    sums and output against a 2-leaf JAX ``grow_tree``'s root node."""
+    from lightgbm_tpu_torch.utils import random as trandom
+    n = 300_000
+    rng = np.random.RandomState(21)
+    X = rng.randn(n, 2).astype(np.float32)
+    g = (rng.randn(n) * 0.7 + 0.01).astype(np.float32)
+    h = (rng.rand(n) * 0.9 + 0.05).astype(np.float32)
+    jkey = jax.random.fold_in(jax.random.PRNGKey(6), 2)
+    tkey = trandom.fold_in(trandom.prng_key(6), 2)
+
+    @jax.jit
+    def jquant(g, h, key):
+        stats = jnp.stack([g, h, jnp.ones_like(g)], axis=1)
+        sg = jnp.maximum(jnp.max(jnp.abs(stats[:, 0])), 1e-12)
+        sh = jnp.maximum(jnp.max(jnp.abs(stats[:, 1])), 1e-12)
+        q_scale = jnp.stack([sg / 127.0, sh / 127.0,
+                             jnp.float32(1.0)]).astype(jnp.float32)
+        u = jax.random.uniform(jax.random.fold_in(key, 0x5138), stats.shape)
+        q = jnp.clip(jnp.floor(stats / q_scale[None, :] + u), -127,
+                     127).astype(jnp.int8)
+        return q, q_scale
+
+    jq, jscale = jax.device_get(jquant(jnp.asarray(g), jnp.asarray(h), jkey))
+    params = {"max_bin": 15, "verbosity": -1, "min_data_in_leaf": 20}
+    tds = lt.Dataset(X, params=dict(params, device_type="cpu")).construct()
+    gr = tgrower.Grower(
+        tds.binsT, torch.from_numpy(g), torch.from_numpy(h),
+        tds.feature_meta, TSplitParams.from_config(lt.Config.from_params(
+            dict(params, device_type="cpu"))), tds.missing_bin,
+        max_leaves=2, num_bins=tds.max_num_bins, hist_method="plain_q8",
+        rng_key=tkey)
+    np.testing.assert_array_equal(gr.stats.numpy(), jq)
+    np.testing.assert_array_equal(gr.q_scale.numpy().view(np.uint32),
+                                  jscale.view(np.uint32))
+    assert (jq[:, 2] == 1).all()
+    assert int(jq[:, 1].astype(np.int64).sum()) > 2 ** 24
+
+    jds = lj.Dataset(X, params=dict(params)).construct()
+    jtree, _, _ = j_grow(
+        jds.bins, jnp.asarray(g), jnp.asarray(h), jnp.ones(n, jnp.float32),
+        jds.feature_meta,
+        JSplitParams.from_config(lj.Config.from_params(dict(params))),
+        jnp.ones(jds.bins.shape[1], jnp.float32), jds.missing_bin,
+        max_leaves=2, num_bins=jds.max_num_bins, hist_method="onehot_q8",
+        rng_key=jkey)
+    jtree = jax.device_get(jtree)
+    ttree, _, _ = tgrower.grow_tree(
+        tds.binsT, torch.from_numpy(g), torch.from_numpy(h),
+        tds.feature_meta, TSplitParams.from_config(lt.Config.from_params(
+            dict(params, device_type="cpu"))), tds.missing_bin,
+        max_leaves=2, num_bins=tds.max_num_bins, hist_method="plain_q8",
+        rng_key=tkey)
+    assert int(jtree.num_leaves) == 2
+    for name in ("node_value", "node_weight", "node_count"):
+        a = np.asarray(getattr(jtree, name))[0]
+        b = getattr(ttree, name).numpy()[0]
+        assert np.float32(b).view(np.uint32) == np.float32(a).view(
+            np.uint32), name
+    np.testing.assert_array_equal(
+        gr.root.numpy()[1:].view(np.uint32),
+        np.array([jtree.node_weight[0], jtree.node_count[0]],
+                 np.float32).view(np.uint32))
+    # the order matters here: the exact int64 sum, cast to float32 once,
+    # is not the JAX package's root hessian on this data
+    exact = np.float32(jq[:, 1].astype(np.int64).sum()) * jscale[1]
+    assert np.float32(exact) != np.float32(jtree.node_weight[0])
+    _tree_equal(jtree, ttree)
+
+
+Q8_CASES = {
+    "fused": dict(kind=None, split_fusion=True, max_leaves=31,
+                  params={}),
+    "fused_exact": dict(kind=None, split_fusion=True, max_leaves=15,
+                        params={"lambda_l2": 1.0}, exact=True),
+    "classic_categorical": dict(kind="categorical", split_fusion=False,
+                                max_leaves=31,
+                                params={"min_data_per_group": 20}),
+    "classic_sparse": dict(kind="sparse", split_fusion=False, max_leaves=31,
+                           params={}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(Q8_CASES))
+def test_q8_grow_tree_matches_jax(case):
+    """One q8 tree (int8 gradients from the tree's key, exact int32 sums)
+    against the JAX grow_tree in its onehot_q8 mode, on the fused path and
+    on the classic path (categorical features; concentrated columns as
+    sparse streams); and the same tree with the compaction ladder off,
+    which the exact sums make bitwise equal."""
+    from lightgbm_tpu_torch.utils import random as trandom
+    c = Q8_CASES[case]
+    if c["kind"] is None:
+        X, g, h = _data(seed=4)
+        cats = []
+    else:
+        X, cats = _classic_data(c["kind"], seed=5)
+        g = (np.random.RandomState(6).randn(N) + np.nan_to_num(X[:, 0])
+             ).astype(np.float32)
+        h = (np.random.RandomState(7).rand(N) + 0.5).astype(np.float32)
+    params = dict(c["params"], max_bin=63, verbosity=-1)
+    jds = lj.Dataset(X, params=dict(params), categorical_feature=cats
+                     ).construct()
+    tds = lt.Dataset(X, params=dict(params, device_type="cpu"),
+                     categorical_feature=cats).construct()
+    sp_kw, sp = {}, None
+    if tds.has_sparse_cols:
+        sp_kw = dict(sp_cols=tuple(int(v) for v in jds.sp_cols),
+                     sp_rows=jds.sp_rows, sp_bins=jds.sp_bins,
+                     sp_default=jds.sp_default)
+        sp = (tds.sp_cols, tds.sp_rows, tds.sp_bins, tds.sp_default)
+    assert tds.has_sparse_cols == (c["kind"] == "sparse")
+    kw = dict(max_leaves=c["max_leaves"], num_bins=jds.max_num_bins,
+              exact=c.get("exact", False), split_fusion=c["split_fusion"],
+              with_categorical=bool(cats))
+    jkey = jax.random.fold_in(jax.random.PRNGKey(9), 3)
+    tkey = trandom.fold_in(trandom.prng_key(9), 3)
+    f = len(jds.used_features)
+    jtree, jleaf, _ = j_grow(
+        jds.bins, jnp.asarray(g), jnp.asarray(h), jnp.ones(N, jnp.float32),
+        jds.feature_meta,
+        JSplitParams.from_config(lj.Config.from_params(dict(params))),
+        jnp.ones(f, jnp.float32), jds.missing_bin, hist_method="onehot_q8",
+        binsT=jds.bins_T, rng_key=jkey, compaction_ladder=_ladder(),
+        **sp_kw, **kw)
+    jtree = jax.device_get(jtree)
+    tparams = TSplitParams.from_config(lt.Config.from_params(
+        dict(params, device_type="cpu")))
+    trees = {}
+    for ladder in (_ladder(), ()):
+        trees[ladder] = tgrower.grow_tree(
+            tds.binsT, torch.from_numpy(g), torch.from_numpy(h),
+            tds.feature_meta, tparams, tds.missing_bin, sp=sp,
+            hist_method="plain_q8", rng_key=tkey, compaction_ladder=ladder,
+            **kw)
+    ttree, tleaf, streamed = trees[_ladder()]
+    assert int(ttree.num_leaves) > c["max_leaves"] // 2
+    if cats:
+        assert ttree.node_cat.any()
+    _tree_equal(jtree, ttree)
+    np.testing.assert_array_equal(tleaf.numpy(), np.asarray(jleaf))
+    # ladder on = off, and the ladder really took rung passes
+    off_tree, off_leaf, off_streamed = trees[()]
+    _tree_equal(ttree, off_tree)
+    np.testing.assert_array_equal(tleaf.numpy(), off_leaf.numpy())
+    assert streamed < off_streamed

@@ -12,8 +12,13 @@ kernel, and the CPU path of the ``hist_tile`` wrapper) is held to:
   flat scatter-add in row order on both sides);
 
 plus the argument-layout tables the kernels take, which must equal the JAX
-package's one to one. The kernel itself needs the card: it is held to its
-plain version by tests/test_torch_cuda.py and by ``chip_smoke.py``.
+package's one to one. In the quantized-gradient (q8) mode the int32 planes
+of int8 stats are held bitwise to the interpreted Pallas kernel in
+``mode="q8"`` and to its XLA twin ``onehot_q8``, the dequantizing
+``derive_and_scan`` and the whole fused q8 pass to the JAX package's, and
+the classic tile pass's int32 ``combine_sparse`` to the JAX grower's. The
+kernel itself needs the card: it is held to its plain version by
+tests/test_torch_cuda.py and by ``chip_smoke.py``.
 """
 
 import numpy as np
@@ -157,10 +162,22 @@ def test_resolve_method(method, device, want):
     assert resolve_method(method, torch.device(device)) == want
 
 
-@pytest.mark.parametrize("method", ["scatter", "onehot", "pallas_q8"])
+@pytest.mark.parametrize("method,device,quantized,want", [
+    ("auto", "cpu", True, "plain_q8"), ("pallas", "cuda", True, "cuda_q8"),
+    ("pallas_hilo", "cpu", True, "plain_q8"),
+    ("pallas_q8", "cpu", False, "plain_q8"),
+    ("pallas_q8", "cuda", False, "cuda_q8"),
+    ("pallas_q8", "cuda", True, "cuda_q8")])
+def test_resolve_method_q8(method, device, quantized, want):
+    assert resolve_method(method, torch.device(device), quantized) == want
+
+
+@pytest.mark.parametrize("method", ["scatter", "onehot", "onehot_q8"])
 def test_resolve_method_rejects_unported(method):
     with pytest.raises(NotImplementedError, match=method):
         resolve_method(method, torch.device("cpu"))
+    with pytest.raises(NotImplementedError, match=method):
+        resolve_method(method, torch.device("cpu"), True)
 
 
 # -------------------------------------------------- the kernel's arithmetic
@@ -258,3 +275,216 @@ def test_classic_tile_pass_with_sparse_columns_matches_jax():
     gr.tile_pass(pst)
     _bits_equal(pst.hist.numpy(), jhist_)
     assert pst.hist_valid[:5].all() and not pst.hist_valid[5:].any()
+
+
+# ------------------------------------------------------------------ q8 mode
+def _mk_q8(n, f, b, n_leaves=12, seed=0):
+    rng = np.random.RandomState(seed)
+    binsT = rng.randint(0, b, size=(f, n)).astype(np.uint8)
+    stats = rng.randint(-127, 128, size=(n, 3)).astype(np.int8)
+    stats[:, 2] = 1
+    leaf = rng.randint(0, n_leaves, n).astype(np.int32)
+    return binsT, stats, leaf
+
+
+@pytest.mark.parametrize("gather", [False, True])
+@pytest.mark.parametrize("n,f,b", [(1500, 3, 63), (900, 4, 16)])
+def test_q8_tiles_match_pallas_q8_and_onehot_q8(n, f, b, gather):
+    """int8 stats -> exact int32 planes: bitwise the interpreted Pallas
+    kernel in q8 mode and the XLA twin onehot_q8, full-row and gather."""
+    from lightgbm_tpu.ops.histogram import histogram_tiles as j_tiles
+    binsT, stats, leaf = _mk_q8(n, f, b, seed=n)
+    idx = None
+    if gather:
+        keep = np.random.RandomState(3).rand(n) < 0.4
+        idx = np.asarray(j_compact(jnp.asarray(keep), int(keep.sum()) + 13))
+    jidx = None if idx is None else jnp.asarray(idx)
+    ref = np.asarray(jph.histogram_tiles_pallas_mode(
+        jnp.asarray(binsT), jnp.asarray(stats), jnp.asarray(leaf),
+        jnp.asarray(SEL), b, block=256, mode="q8", idx=jidx,
+        interpret=True))
+    twin = np.asarray(j_tiles(
+        jnp.asarray(np.ascontiguousarray(binsT.T)), jnp.asarray(stats),
+        jnp.asarray(leaf), jnp.asarray(SEL), b, method="onehot_q8",
+        binsT=jnp.asarray(binsT), gather_idx=jidx))
+    out = _port_tile(binsT, stats, leaf, SEL, b, 12, idx)
+    assert out.dtype == np.int32 and ref.dtype == np.int32
+    np.testing.assert_array_equal(out, ref)
+    np.testing.assert_array_equal(out, twin)
+    # the kernel-sums switch changes nothing in q8: the sums are exact
+    with cuda_hist.kernel_sums_on_cpu():
+        np.testing.assert_array_equal(
+            _port_tile(binsT, stats, leaf, SEL, b, 12, idx), out)
+
+
+def test_q8_row_limit():
+    """int32 holds 127 * rows up to (2^31 - 1) // 127 rows, the JAX
+    package's own limit; hist_tile refuses more."""
+    assert cuda_hist.Q8_MAX_ROWS == (2 ** 31 - 1) // 127
+    n = cuda_hist.Q8_MAX_ROWS + 1
+    binsT = torch.zeros((1, 1), dtype=torch.uint8).expand(1, n)
+    with pytest.raises(ValueError, match="overflow int32"):
+        cuda_hist.hist_tile(binsT,
+                            torch.zeros(1, dtype=torch.int32).expand(n),
+                            torch.zeros((1, 3), dtype=torch.int8).expand(n,
+                                                                         3),
+                            cuda_hist.chan_leaf_table(torch.from_numpy(SEL)),
+                            len(SEL), 4, 12)
+
+
+def _q8_epilogue_inputs(seed):
+    """int32 tiles of SEL's computed slots (derived slots zero), float
+    parents for the derived ones, their leaf aggregates, and the tables."""
+    from lightgbm_tpu.ops.histogram import histogram_tiles as j_tiles
+    rng = np.random.RandomState(seed)
+    n, f, b = 2000, 4, 16
+    binsT, stats, leaf = _mk_q8(n, f, b, n_leaves=12, seed=seed)
+    derive = np.array([0, 1, 0, 1, 0, 0, 0, 0], bool)
+    q_scale = np.array([0.0137, 0.00291, 1.0], np.float32)
+    sel_c = np.where(derive, -1, SEL).astype(np.int32)
+    tile = np.asarray(j_tiles(
+        jnp.asarray(np.ascontiguousarray(binsT.T)), jnp.asarray(stats),
+        jnp.asarray(leaf), jnp.asarray(sel_c), b, method="onehot_q8"))
+    full_sib = np.asarray(j_tiles(
+        jnp.asarray(np.ascontiguousarray(binsT.T)), jnp.asarray(stats),
+        jnp.asarray(leaf), jnp.asarray(SEL), b, method="onehot_q8"))
+    parent = np.zeros(tile.shape, np.float32)
+    for i in np.nonzero(derive)[0]:
+        parent[i] = ((full_sib[i] + full_sib[i - 1]).astype(np.float32)
+                     * q_scale)
+    sums = (full_sib[:, 0].sum(1).astype(np.float32) * q_scale)
+    out = sums[:, 0] * np.float32(-0.1) / (sums[:, 1] + 1)
+    la = np.asarray(jph.pack_leaf_aux(*map(jnp.asarray, (
+        sums[:, 0], sums[:, 1], sums[:, 2], out.astype(np.float32)))))
+    meta = [np.array([16, 10, 12, 2], np.int32),
+            np.array([0, 2, 1, 0], np.int32),
+            np.array([0, 0, 4, 0], np.int32), np.zeros(4, np.int32)]
+    fm = np.asarray(jph.pack_feature_meta(*map(jnp.asarray, meta)))
+    pv = np.array([0.0, 1.0, 0.0, 0.0, 5.0, 1e-3, 0.0, 0.0], np.float32)
+    del rng
+    return (binsT, stats, leaf, derive, q_scale, tile, parent, la, fm, pv,
+            b)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_q8_derive_and_scan_matches_jax(seed):
+    """Dequantize (each int32 cell times its stat's scale, one rounding),
+    derive, scan: bitwise the JAX package's derive_and_scan(q8=True), and
+    the epilogue's plain version with q_scale."""
+    from lightgbm_tpu.ops.histogram import derive_and_scan as j_das
+    from lightgbm_tpu_torch.ops.histogram import derive_and_scan as t_das
+    (_, _, _, derive, q_scale, tile, parent, la, fm, pv,
+     _) = _q8_epilogue_inputs(seed)
+    jfull, jcand = j_das(jnp.asarray(tile), jnp.asarray(derive),
+                         jnp.asarray(parent), jnp.asarray(la),
+                         jnp.asarray(fm), jnp.asarray(pv[:7]), q8=True,
+                         q_scale=jnp.asarray(q_scale))
+    tfull, tcand = t_das(torch.from_numpy(tile), torch.from_numpy(derive),
+                         torch.from_numpy(parent), torch.from_numpy(la),
+                         torch.from_numpy(fm), torch.from_numpy(pv), q8=True,
+                         q_scale=torch.from_numpy(q_scale))
+    _bits_equal(tfull.numpy(), jfull)
+    _bits_equal(tcand.numpy(), jcand)
+    assert np.isfinite(np.asarray(jcand)[..., 0]).any()
+    der = cuda_hist._epilogue_lanes(torch.from_numpy(SEL),
+                                    torch.from_numpy(derive))
+    cuda_hist.reset_launch_counts()
+    pfull, pcand = cuda_hist.split_epilogue(
+        torch.from_numpy(tile), torch.from_numpy(parent), der,
+        torch.from_numpy(la), torch.from_numpy(fm), torch.from_numpy(pv),
+        torch.from_numpy(q_scale))
+    _bits_equal(pfull.numpy(), jfull)
+    _bits_equal(pcand.numpy(), jcand)
+    assert cuda_hist.split_epilogue.launches_q8 == 0
+
+
+@pytest.mark.parametrize("gather", [False, True])
+def test_q8_fused_pass_matches_pallas_q8_epilogue(gather):
+    """The whole fused q8 pass: JAX's Pallas epilogue kernel in q8 mode
+    (interpreted) vs the port's hist_tile + split_epilogue plain versions
+    on int8 stats."""
+    (binsT, stats, leaf, derive, q_scale, _, parent, la, fm, pv,
+     b) = _q8_epilogue_inputs(2)
+    idx = None
+    if gather:
+        keep = np.isin(leaf, SEL[(SEL >= 0) & ~derive])
+        idx = np.asarray(j_compact(jnp.asarray(keep), int(keep.sum()) + 5))
+    jt, jc = jph.histogram_tiles_pallas_epilogue(
+        jnp.asarray(binsT), jnp.asarray(stats), jnp.asarray(leaf),
+        jnp.asarray(SEL), jnp.asarray(derive), jnp.asarray(parent),
+        jnp.asarray(la), jnp.asarray(fm), jnp.asarray(pv[:7]), b,
+        block=512, mode="q8", idx=None if idx is None else jnp.asarray(idx),
+        interpret=True, q_scale=jnp.asarray(q_scale))
+    from lightgbm_tpu_torch.ops.histogram import \
+        histogram_tiles_with_candidates
+    tt, tc = histogram_tiles_with_candidates(
+        torch.from_numpy(binsT), torch.from_numpy(stats),
+        torch.from_numpy(leaf), torch.from_numpy(SEL),
+        torch.from_numpy(derive), torch.from_numpy(parent),
+        torch.from_numpy(la), torch.from_numpy(fm), torch.from_numpy(pv),
+        b, 12, None if idx is None else torch.from_numpy(idx),
+        torch.from_numpy(q_scale))
+    _bits_equal(tt.numpy(), jt)
+    _bits_equal(tc.numpy(), jc)
+
+
+@pytest.mark.parametrize("all_sparse", [False, True])
+def test_q8_classic_tile_pass_with_sparse_columns_matches_jax(all_sparse):
+    """The classic tile pass in q8: dense planes in int32, the sparse
+    columns' planes by combine_sparse in int32 (stream scatter + the
+    default bin rebuilt from per-slot totals, taken from a dense plane or,
+    with no dense column, from the stats by slot), one dequantization of
+    the whole tile: bitwise the JAX grower's onehot_q8 pass, int8 stats
+    and scales included."""
+    import lightgbm_tpu as lj
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu.models.grower import _grower_fns
+    from lightgbm_tpu.ops.split import SplitParams as JSP
+    from lightgbm_tpu_torch.models import grower as tgrower
+    from lightgbm_tpu_torch.ops.split import SplitParams as TSP
+    from lightgbm_tpu_torch.utils import random as trandom
+    import jax
+    n = 2500
+    rng = np.random.RandomState(12)
+    X = rng.randn(n, 5).astype(np.float32)
+    X[rng.rand(n) < 0.94, 1] = 0.0
+    X[rng.rand(n) < 0.92, 3] = -1.0
+    if all_sparse:
+        X = X[:, [1, 3]]
+    params = {"max_bin": 31, "verbosity": -1}
+    jds = lj.Dataset(X, params=dict(params)).construct()
+    tds = lt.Dataset(X, params=dict(params, device_type="cpu")).construct()
+    want = [0, 1] if all_sparse else [1, 3]
+    assert tds.sp_cols.tolist() == want == list(jds.sp_cols)
+    assert tds.binsT.shape[0] == (0 if all_sparse else 3)
+    g = rng.randn(n).astype(np.float32)
+    h = (rng.rand(n) + 0.3).astype(np.float32)
+    leaf = rng.randint(0, 5, n).astype(np.int32)
+    f = len(jds.used_features)
+    jkey = jax.random.fold_in(jax.random.PRNGKey(6), 4)
+    fns = _grower_fns(
+        jds.bins, jnp.asarray(g), jnp.asarray(h), jnp.ones(n, jnp.float32),
+        jds.feature_meta, JSP.from_config(lj.Config.from_params(
+            dict(params))), jnp.ones(f, jnp.float32), jds.missing_bin,
+        max_leaves=8, num_bins=jds.max_num_bins, hist_method="onehot_q8",
+        binsT=jds.bins_T, sp_cols=tuple(int(c) for c in jds.sp_cols),
+        sp_rows=jds.sp_rows, sp_bins=jds.sp_bins, sp_default=jds.sp_default,
+        rng_key=jkey)
+    st = fns["init_state"]()._replace(leaf_id=jnp.asarray(leaf),
+                                      num_leaves=jnp.int32(5))
+    jhist_ = np.asarray(fns["hist_phase"](st).hist)
+    gr = tgrower.Grower(
+        tds.binsT, torch.from_numpy(g), torch.from_numpy(h),
+        tds.feature_meta, TSP.from_config(lt.Config.from_params(
+            dict(params, device_type="cpu"))), tds.missing_bin,
+        max_leaves=8, num_bins=tds.max_num_bins, split_fusion=False,
+        sp=(tds.sp_cols, tds.sp_rows, tds.sp_bins, tds.sp_default),
+        hist_method="plain_q8",
+        rng_key=trandom.fold_in(trandom.prng_key(6), 4))
+    assert gr.stats.dtype == torch.int8
+    pst = gr.init_state()
+    pst.leaf_id = torch.from_numpy(leaf)
+    pst.num_leaves = 5
+    gr.tile_pass(pst)
+    _bits_equal(pst.hist.numpy(), jhist_)
+    assert np.abs(jhist_).max() > 0

@@ -79,10 +79,10 @@ def test_default_device_without_cuda_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("key,value", [
-    ("histogram_method", "pallas_q8"),
+    ("histogram_method", "onehot_q8"),
     ("histogram_method", "scatter"),
     ("cegb_tradeoff", 0.5),
-    ("quantized_grad", True),
+    ("gpu_use_dp", True),
     ("forcedsplits_filename", "forced.json"),
     ("bagging_fraction", 0.5),
     ("boosting", "dart"),

@@ -15,6 +15,13 @@ against ``lightgbm_tpu.train`` at the same parameters, on the CPU.
   accumulation in tree order).
 - The port's model text (category bitsets included) loads back into a port
   Booster that predicts the same and dumps the same text.
+- Quantized-gradient training (``quantized_grad``, or
+  ``histogram_method=pallas_q8``): L2 and binary, on the fused path and on
+  the classic one (categorical features beside concentrated columns); the
+  model text bitwise equal after 10 rounds to the JAX package's, both in
+  its XLA twin ``onehot_q8`` (its CPU default) and with its Pallas q8
+  kernels run through the interpreter, which must agree with each other
+  bit for bit (the int32 sums are exact).
 Objectives and metrics are checked against the JAX package on the same
 scores as well.
 """
@@ -345,3 +352,88 @@ def test_metrics_match(name, objective, rtol):
         tm.init(label, weight)
         np.testing.assert_allclose(tm.eval(score, to), jm.eval(score, jo),
                                    rtol=rtol)
+
+
+# ------------------------------------------------------- quantized gradients
+def _jax_q8_text(params, X, y, kw, interpret, monkeypatch):
+    """JAX model text of a q8 training; ``interpret`` runs its Pallas q8
+    kernels through the Pallas interpreter (its pallas_q8 method off the
+    TPU) without changing the parameters the model text echoes."""
+    from lightgbm_tpu.models import gbdt as jgbdt
+    with monkeypatch.context() as m:
+        if interpret:
+            m.setattr(jgbdt.GBDT, "_hist_interpret", lambda self: True)
+        bj = lj.train(dict(params), lj.Dataset(X, label=y, **kw), ROUNDS)
+        # pallas_q8 with the interpreter on: the grower runs the Pallas
+        # kernels (ops/histogram.py epilogue_supported and histogram_tiles
+        # take the kernel path only then)
+        assert bj._boosting._hist_method() == (
+            "pallas_q8" if interpret else "onehot_q8")
+        assert bj._boosting._hist_interpret() == interpret
+    return bj
+
+
+@pytest.mark.parametrize("objective", ["regression", "binary"])
+@pytest.mark.parametrize("path", ["fused", "classic"])
+def test_q8_model_text_bitwise(objective, path, monkeypatch):
+    if path == "fused":
+        X, y = _data(seed=11)
+        Xv, _ = _data(seed=12, n=500)
+        kw, sparse = {}, False
+    else:
+        X, y = _cat_data(seed=11)
+        Xv, _ = _cat_data(seed=12, n=500)
+        kw, sparse = {"categorical_feature": CAT}, True
+    if objective == "binary":
+        y = (y > 0).astype(np.float64)
+    params = {"objective": objective, "num_leaves": 31, "max_bin": 63,
+              "quantized_grad": True, "verbosity": -1,
+              "is_enable_sparse": sparse}
+    bt = lt.train(dict(params, device_type="cpu"),
+                  lt.Dataset(X, label=y, **kw), ROUNDS)
+    gb = bt._boosting
+    assert gb._hist_method == "plain_q8"
+    assert gb._split_fusion_on() == (path == "fused")
+    assert gb.train_set.has_sparse_cols == sparse
+    text = bt.model_to_string()
+    assert "[quantized_grad: True]" in text
+    for interpret in (False, True):
+        bj = _jax_q8_text(params, X, y, kw, interpret, monkeypatch)
+        assert text == bj.model_to_string(), f"interpret={interpret}"
+    np.testing.assert_allclose(bt.predict(Xv, raw_score=True),
+                               bj.predict(Xv, raw_score=True), rtol=0,
+                               atol=1e-12)
+    np.testing.assert_allclose(bt.predict(Xv), bj.predict(Xv), rtol=0,
+                               atol=1e-12)
+    loaded = lt.Booster(model_str=text, params={"device_type": "cpu"})
+    assert loaded.model_to_string() == text
+    np.testing.assert_allclose(loaded.predict(Xv, raw_score=True),
+                               bt.predict(Xv, raw_score=True), rtol=0,
+                               atol=1e-12)
+
+
+def test_pallas_q8_method_model_text_bitwise():
+    """``histogram_method=pallas_q8`` alone selects the q8 mode too (the
+    JAX package falls back to onehot_q8 off the TPU)."""
+    X, y = _data(seed=13)
+    params = {"objective": "regression", "num_leaves": 15, "max_bin": 31,
+              "histogram_method": "pallas_q8", "verbosity": -1,
+              "is_enable_sparse": False}
+    bt = lt.train(dict(params, device_type="cpu"), lt.Dataset(X, label=y),
+                  ROUNDS)
+    assert bt._boosting._hist_method == "plain_q8"
+    bj = lj.train(dict(params), lj.Dataset(X, label=y), ROUNDS)
+    assert bt.model_to_string() == bj.model_to_string()
+    q = lt.train(dict(params, histogram_method="auto", quantized_grad=True,
+                      device_type="cpu"), lt.Dataset(X, label=y), ROUNDS)
+    assert _structure(q.model_to_string()) == _structure(
+        bt.model_to_string())
+
+
+def test_q8_with_unported_histogram_method_raises():
+    X, y = _data(seed=14, n=300)
+    for method in ("onehot_q8", "scatter"):
+        with pytest.raises(NotImplementedError, match="one histogram path"):
+            lt.train({"objective": "regression", "quantized_grad": True,
+                      "histogram_method": method, "device_type": "cpu",
+                      "verbosity": -1}, lt.Dataset(X, label=y), 1)
