@@ -2,7 +2,7 @@
 hand-written kernel against its plain PyTorch version.
 
     python3 chip_smoke.py [--seed 0] [--rows 2000000] [--valid-rows 200000]
-                          [--rounds 5]
+                          [--rounds 5] [--parent DIR]
 
 Phases, in order, each printing one JSON line (any failure raises and the
 script exits non-zero; nothing is caught):
@@ -18,12 +18,20 @@ script exits non-zero; nothing is caught):
                   stats (deterministic); kernel / plain / index_add_ times
                   and the bound
   hist_tile_gather the gather form over the trainer's two compaction rungs
-                  (N/2 and N/8 rounded up to 64 rows)
+                  (N/2 and N/8 rounded up to 64 rows), 9/10 of each rung
+                  real rows; the f32 phases pass the stats' max|stat| as
+                  the grower does (``ms``) and also time the launch that
+                  computes it (``ms_computing_amax``)
+  hist_tile_stress the gather form at the N/2 rung on three stress inputs,
+                  f32 and q8: a rung of 1% real rows, one slot with 90% of
+                  the tile's rows, 80% of the bins 0; checks and times as
+                  hist_tile
   split_epilogue  P=42, F=28, B=255 with derived slots: bitwise vs plain
   train           lightgbm_tpu_torch.train, binary, 255 leaves, max_bin 255,
                   lr 0.1, on Higgs-shaped data made from --seed (2M train,
                   200k valid rows, 5 rounds; the fused split path):
-                  sec/iter, valid AUC (> 0.6), rows read per tree and each
+                  sec/iter, valid AUC (> 0.6), rows read per tree (and
+                  of them the tile's rows, rows_real_per_tree) and each
                   kernel's launches on this run (both hist_tile forms and
                   split_epilogue must launch, at the shapes the kernel
                   phases checked)
@@ -80,7 +88,16 @@ and kernel 5, the experiment script's one-hot histogram:
                   (the function's least bytes and f32 adds) and, apart,
                   the one-hot form's tensor-core floor
 
-then a ``kernels`` line, nvidia-smi's ``name, power.limit`` line, and last
+Each hist_tile form is timed twice: ``ms``, CUDA events around the call
+(host gaps between its launches included), and ``device_ms``, the summed
+device time of what it launched (torch.profiler). With ``--parent DIR``
+(another checkout, e.g. the parent commit unpacked by ``git archive``) a
+subprocess runs this script's hist_tile phases on DIR's package, same
+inputs and checks, before the first phase and after the last
+(``parent_times``); the ``kernels`` line carries those times as
+``parent_ms``: two designs timed in one run.
+
+Then a ``kernels`` line, nvidia-smi's ``name, power.limit`` line, and last
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 1 and
 prints no result. Times come from CUDA events (median of >= 10 launches
 after warm-up, the L2 cache flushed before each); bounds use the H100 SXM
@@ -159,6 +176,42 @@ def time_ms(fn, reps: int = 10, warm: int = 2) -> float:
     return statistics.median(times)
 
 
+def _device_us(ev) -> float:
+    return getattr(ev, "self_device_time_total",
+                   getattr(ev, "self_cuda_time_total", 0))
+
+
+def _short(name: str) -> str:
+    """A kernel's name without its namespace and signature."""
+    name = name.replace("(anonymous namespace)::", "").replace("void ", "")
+    return name.split("(")[0][:60]
+
+
+def device_ms(fn, reps: int = 5):
+    """Median device time of ``fn`` over ``reps`` calls, each alone on a
+    cold L2: the summed durations of the kernels, copies and fills it puts
+    on the card (torch.profiler, CUDA activity), without the host's time
+    between its launches that time_ms's events also hold. Returns (ms,
+    {kernel: ms} of the median call)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    runs = []
+    for _ in range(reps):
+        flush_l2()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        split = {}
+        for ev in prof.key_averages():
+            if _device_us(ev) > 0:
+                key = _short(ev.key)
+                split[key] = split.get(key, 0.0) + _device_us(ev) / 1e3
+        runs.append((sum(split.values()), split))
+    runs.sort(key=lambda r: r[0])
+    return runs[len(runs) // 2]
+
+
 def float_err(kernel: torch.Tensor, plain: torch.Tensor,
               magnitude: torch.Tensor, rtol: float = 1e-5) -> float:
     """Max |kernel - plain|; fails unless every cell is within ``rtol`` of
@@ -193,18 +246,23 @@ def tile_selection(plane=False):
     return sel
 
 
-def hist_inputs(n, f, seed, integer, tile_leaves, share):
+def hist_inputs(n, f, seed, integer, tile_leaves, share, hot=0.0, skew=0.0):
     """Random rows over LEAVES leaves, ``share`` of them in the tile's
-    computed leaves."""
+    computed leaves; ``hot`` of the tile's rows in its first leaf, and
+    ``skew`` of all bins 0 (the rest uniform)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     binsT = torch.randint(0, B, (f, n), generator=g, device="cuda",
                           dtype=torch.int32).to(torch.uint8)
+    if skew:
+        binsT[torch.rand((f, n), generator=g, device="cuda") < skew] = 0
     others = torch.ones(LEAVES, dtype=torch.bool)
     others[tile_leaves.long()] = False
     others = torch.nonzero(others).reshape(-1).to(torch.int32).cuda()
     in_tile = torch.rand(n, generator=g, device="cuda") < share
     pick_t = torch.randint(0, tile_leaves.shape[0], (n,), generator=g,
                            device="cuda")
+    if hot:
+        pick_t[torch.rand(n, generator=g, device="cuda") < hot] = 0
     pick_o = torch.randint(0, others.shape[0], (n,), generator=g,
                            device="cuda")
     leaf = torch.where(in_tile, tile_leaves.cuda()[pick_t],
@@ -222,23 +280,30 @@ def hist_inputs(n, f, seed, integer, tile_leaves, share):
     return binsT, leaf, stats.contiguous()
 
 
-def hist_phase(cuda_hist, n, m=None, seed=0, f=F, plane=False):
+def hist_phase(cuda_hist, n, m=None, seed=0, f=F, plane=False, real=0.9,
+               hot=0.0, skew=0.0):
     """Kernel vs plain on integer-valued and float stats at the shapes of
     one main-path pass: the full form (``m`` None; 3/4 of the rows in the
     tile, as when a full pass is taken) or the gather form over a rung of
-    ``m`` rows holding the tile's rows (9/10 of the rung) in row order,
-    padded with N, as the grower builds it. ``plane``: the classic path's
-    plane-only launch (all slots computed). Two launches on float stats
-    must give the same bits."""
+    ``m`` rows holding the tile's rows (``real`` of the rung) in row order,
+    padded with N, as the grower builds it; ``hot`` and ``skew`` as
+    hist_inputs. ``plane``: the classic path's plane-only launch (all
+    slots computed). The kernel takes the stats' max|stat| from its caller,
+    as the grower passes it once a tree; a launch that computes it itself
+    and a second launch must give the same bits. ``ms_computing_amax``
+    times the launch without it. The kernel gets the slot table on the
+    host, as the grower hands it over; the plain versions on the card."""
     from lightgbm_tpu_torch.ops.histogram import compact_indices
     sel = tile_selection(plane)
     tile_leaves = sel[sel >= 0]
-    chan = cuda_hist.chan_leaf_table(sel).cuda()
-    share = 0.75 if m is None else 0.9 * m / n
+    chan_h = cuda_hist.chan_leaf_table(sel)
+    chan = chan_h.cuda()
+    share = 0.75 if m is None else real * m / n
     out = {}
     for integer in (True, False):
         binsT, leaf, stats = hist_inputs(n, f, seed, integer, tile_leaves,
-                                         share)
+                                         share, hot, skew)
+        amax = stats.abs().amax(0)
         in_tile = torch.isin(leaf, tile_leaves.cuda())
         n_tile = int(in_tile.sum())
         idx = None
@@ -248,7 +313,8 @@ def hist_phase(cuda_hist, n, m=None, seed=0, f=F, plane=False):
                                      f"{m}-row rung")
             idx = compact_indices(in_tile, m)
         args = (binsT, leaf, stats, chan, P, B, LEAVES, idx)
-        k = cuda_hist.hist_tile(*args, plane=plane)
+        kargs = (binsT, leaf, stats, chan_h, P, B, LEAVES, idx)
+        k = cuda_hist.hist_tile(*kargs, plane=plane, amax=amax)
         p = cuda_hist.hist_tile_plain(*args)
         torch.cuda.synchronize()
         if integer:
@@ -257,7 +323,7 @@ def hist_phase(cuda_hist, n, m=None, seed=0, f=F, plane=False):
                                      "plain version on integer-valued stats")
             out["int_max_abs_err"] = float((k - p).abs().max())
             continue
-        again = cuda_hist.hist_tile(*args, plane=plane)
+        again = cuda_hist.hist_tile(*kargs, plane=plane)
         exact = cuda_hist.hist_tile_exact(*args)
         torch.cuda.synchronize()
         if not torch.equal(k.view(torch.int32), again.view(torch.int32)):
@@ -272,7 +338,12 @@ def hist_phase(cuda_hist, n, m=None, seed=0, f=F, plane=False):
         mag = cuda_hist.hist_tile_plain(binsT, leaf, stats.abs(), chan, P, B,
                                         LEAVES, idx)
         out["max_abs_err"] = float_err(k, p, mag)
-        out["ms"] = time_ms(lambda: cuda_hist.hist_tile(*args, plane=plane))
+        out["ms"] = time_ms(lambda: cuda_hist.hist_tile(*kargs, plane=plane,
+                                                        amax=amax))
+        out["device_ms"], out["device_split"] = device_ms(
+            lambda: cuda_hist.hist_tile(*kargs, plane=plane, amax=amax))
+        out["ms_computing_amax"] = time_ms(
+            lambda: cuda_hist.hist_tile(*kargs, plane=plane))
         out["plain_ms"] = time_ms(lambda: cuda_hist.hist_tile_plain(*args),
                                   reps=10, warm=1)
         # one PyTorch call computing the same function: index_add_ over the
@@ -297,6 +368,100 @@ def hist_phase(cuda_hist, n, m=None, seed=0, f=F, plane=False):
         out["bound_ms"], out["bound_by"] = bound(nbytes, 3 * n_tile * f)
         out["rows"], out["tile_rows"] = (n if m is None else m), n_tile
     return out
+
+
+# the gather form's stress inputs at the main path's larger rung: 1% of the
+# rung real rows (late passes walk big rungs for few rows), one slot with
+# 90% of the tile's rows, and 80% of all bins in bin 0 (shared-memory
+# atomic contention, as on real sparse-ish columns)
+STRESS = {"sparse_rung": {"real": 0.01}, "hot_slot": {"hot": 0.9},
+          "skew_bins": {"skew": 0.8}}
+
+
+def stress_phase(cuda_hist, n):
+    """Each stress input, f32 and q8, through hist_phase / hist_q8_phase
+    at the 1,000,000-row rung of N rows: bitwise checks and times."""
+    m = ladder_rungs(n)[1]
+    return {"m": m,
+            "f32": {k: hist_phase(cuda_hist, n, m=m, seed=31 + i, **kw)
+                    for i, (k, kw) in enumerate(STRESS.items())},
+            "q8": {k: hist_q8_phase(cuda_hist, n, m=m, seed=41 + i, **kw)
+                   for i, (k, kw) in enumerate(STRESS.items())}}
+
+
+def kernel_phases(cuda_hist, n):
+    """Every hist_tile phase of this script at N rows: the main path's
+    full form and rungs and the stress inputs, the classic path's
+    plane-only forms, and the q8 forms of both."""
+    rungs = ladder_rungs(n)
+    return {
+        "full": hist_phase(cuda_hist, n),
+        "rungs": {str(m): hist_phase(cuda_hist, n, m=m, seed=3)
+                  for m in rungs},
+        "stress": stress_phase(cuda_hist, n),
+        "plane_full": hist_phase(cuda_hist, n, f=F_CAT, plane=True, seed=5),
+        "plane_rungs": {str(m): hist_phase(cuda_hist, n, m=m, seed=6,
+                                           f=F_CAT, plane=True)
+                        for m in rungs},
+        "q8_full": hist_q8_phase(cuda_hist, n, seed=21),
+        "q8_rungs": {str(m): hist_q8_phase(cuda_hist, n, m=m, seed=22)
+                     for m in rungs},
+        "q8_plane": hist_q8_phase(cuda_hist, n, f=F_CAT, plane=True,
+                                  seed=23),
+        "q8_plane_rungs": {str(m): hist_q8_phase(cuda_hist, n, m=m, seed=24,
+                                                 f=F_CAT, plane=True)
+                           for m in rungs}}
+
+
+def _times(phases):
+    """Each form's (event ms, device ms) from kernel_phases' results."""
+    pick = lambda r: [r["ms"], r["device_ms"]]
+    out = {}
+    for key, val in phases.items():
+        if key == "stress":
+            for mode in ("f32", "q8"):
+                out.update({f"stress_{mode}/{k}": pick(v)
+                            for k, v in val[mode].items()})
+        elif "ms" in val:
+            out[key] = pick(val)
+        else:
+            out.update({f"{key}/{m}": pick(v) for m, v in val.items()})
+    return out
+
+
+# Run in a subprocess (--parent): this script's kernel_phases drive the
+# other checkout's lightgbm_tpu_torch (first on sys.path) on the same
+# inputs, with the same checks and clocks, so two designs compare in one
+# run. A kernel that takes no amax computes it itself.
+PARENT_PROBE = r"""
+import importlib.util, inspect, json, sys
+sys.path.insert(0, sys.argv[1])
+spec = importlib.util.spec_from_file_location("smoke", sys.argv[2])
+cs = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(cs)
+from lightgbm_tpu_torch.ops import cuda_hist
+if "amax" not in inspect.signature(cuda_hist.hist_tile).parameters:
+    def hist_tile(*a, amax=None, _take=cuda_hist.hist_tile, **k):
+        return _take(*a, **k)
+    hist_tile.__dict__.update(cuda_hist.hist_tile.__dict__)  # its counters
+    cuda_hist.hist_tile = hist_tile
+cuda_hist.build_kernels(("hist_tile",))
+print(json.dumps(cs._times(cs.kernel_phases(cuda_hist, int(sys.argv[3])))))
+"""
+
+
+def parent_times(parent_dir: str, n: int):
+    """The other checkout's hist_tile forms timed by this script's phases:
+    per form, [event ms, device ms]."""
+    res = subprocess.run([sys.executable, "-c", PARENT_PROBE,
+                          os.path.abspath(parent_dir),
+                          os.path.abspath(__file__), str(n)],
+                         cwd=parent_dir, capture_output=True, text=True,
+                         timeout=900)
+    if res.returncode != 0:
+        raise RuntimeError(f"the probe of {parent_dir} failed:\n"
+                           f"{res.stderr[-6000:]}")
+    return json.loads(res.stdout.strip().splitlines()[-1])
 
 
 def epilogue_phase(cuda_hist, seed=0):
@@ -366,16 +531,19 @@ def q8_stats(n: int, seed: int) -> torch.Tensor:
         1).to(torch.int8).contiguous()
 
 
-def hist_q8_phase(cuda_hist, n, m=None, seed=0, f=F, plane=False):
+def hist_q8_phase(cuda_hist, n, m=None, seed=0, f=F, plane=False, real=0.9,
+                  hot=0.0, skew=0.0):
     """The q8 form (int8 stats, exact int32 planes) at the shapes of one
     main-path or classic-path pass, as hist_phase: bitwise vs the plain
     version and vs a second launch."""
     from lightgbm_tpu_torch.ops.histogram import compact_indices
     sel = tile_selection(plane)
     tile_leaves = sel[sel >= 0]
-    chan = cuda_hist.chan_leaf_table(sel).cuda()
-    share = 0.75 if m is None else 0.9 * m / n
-    binsT, leaf, _ = hist_inputs(n, f, seed, True, tile_leaves, share)
+    chan_h = cuda_hist.chan_leaf_table(sel)
+    chan = chan_h.cuda()
+    share = 0.75 if m is None else real * m / n
+    binsT, leaf, _ = hist_inputs(n, f, seed, True, tile_leaves, share, hot,
+                                 skew)
     stats = q8_stats(n, seed)
     in_tile = torch.isin(leaf, tile_leaves.cuda())
     n_tile = int(in_tile.sum())
@@ -386,8 +554,9 @@ def hist_q8_phase(cuda_hist, n, m=None, seed=0, f=F, plane=False):
                                  f"rung")
         idx = compact_indices(in_tile, m)
     args = (binsT, leaf, stats, chan, P, B, LEAVES, idx)
-    k = cuda_hist.hist_tile(*args, plane=plane)
-    again = cuda_hist.hist_tile(*args, plane=plane)
+    kargs = (binsT, leaf, stats, chan_h, P, B, LEAVES, idx)
+    k = cuda_hist.hist_tile(*kargs, plane=plane)
+    again = cuda_hist.hist_tile(*kargs, plane=plane)
     p = cuda_hist.hist_tile_plain(*args)
     torch.cuda.synchronize()
     if k.dtype != torch.int32 or not torch.equal(k, p):
@@ -397,7 +566,9 @@ def hist_q8_phase(cuda_hist, n, m=None, seed=0, f=F, plane=False):
         raise AssertionError("two q8 hist_tile launches differ")
     out = {"bitwise_vs_plain": True, "deterministic": True,
            "max_abs_err": float((k - p).abs().max())}
-    out["ms"] = time_ms(lambda: cuda_hist.hist_tile(*args, plane=plane))
+    out["ms"] = time_ms(lambda: cuda_hist.hist_tile(*kargs, plane=plane))
+    out["device_ms"], out["device_split"] = device_ms(
+        lambda: cuda_hist.hist_tile(*kargs, plane=plane))
     out["plain_ms"] = time_ms(lambda: cuda_hist.hist_tile_plain(*args),
                               reps=10, warm=1)
     # one PyTorch call computing the same function: an int32 index_add_
@@ -574,6 +745,7 @@ def train_phase(lgb, cuda_hist, args, q8_ref_auc=None):
            "data_s": t_data, "construct_s": t_construct,
            "valid_auc": valid_auc, "valid_auc_from_predict": check_auc,
            "rows_streamed_per_tree": booster.rows_streamed_per_tree,
+           "rows_real_per_tree": booster.rows_real_per_tree,
            "full_passes_per_tree": (launches["hist_tile.launches" + sfx]
                                     - launches["hist_tile.gather_launches"
                                                + sfx])
@@ -627,15 +799,14 @@ def profile_iteration(booster, sec_per_iter: float):
         torch.cuda.synchronize()
     rows = []
     for ev in prof.key_averages():
-        dev_us = getattr(ev, "self_device_time_total",
-                         getattr(ev, "self_cuda_time_total", 0))
+        dev_us = _device_us(ev)
         if dev_us > 0:
             rows.append((dev_us, ev.key, ev.count))
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows) / 1e3
     out = {"device_busy_ms": busy_ms if busy_ms > 0 else "not measured",
            "top_device": [{"name": k[:60], "ms": us / 1e3, "calls": c}
-                          for us, k, c in rows[:8]]}
+                          for us, k, c in rows[:12]]}
     if busy_ms > 0:
         out["device_idle_share"] = max(0.0, 1 - busy_ms
                                        / (sec_per_iter * 1e3))
@@ -738,6 +909,7 @@ def train_cat_phase(lgb, cuda_hist, args, q8_ref_auc=None):
            "construct_s": t_construct, "valid_auc": valid_auc,
            "categorical_nodes": cat_nodes,
            "rows_streamed_per_tree": booster.rows_streamed_per_tree,
+           "rows_real_per_tree": booster.rows_real_per_tree,
            "launches": launches, "kernel_shapes": shapes,
            "leaves_last_tree": gb.host_trees[-1].num_leaves}
     if shapes != {"features": F_CAT, "num_bins": B, "num_leaves": LEAVES,
@@ -945,6 +1117,11 @@ def main() -> int:
     ap.add_argument("--rows", type=int, default=2_000_000)
     ap.add_argument("--valid-rows", type=int, default=200_000)
     ap.add_argument("--rounds", type=int, default=5)
+    ap.add_argument("--parent", default=None,
+                    help="another checkout of this repository (e.g. the "
+                         "parent commit from git archive): its hist_tile "
+                         "forms are timed on the same inputs before and "
+                         "after this run's phases")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -968,12 +1145,23 @@ def main() -> int:
     emit("build", seconds=time.time() - t0, ptxas=ptxas)
 
     n = args.rows
-    full = hist_phase(cuda_hist, n)
+    parent = []
+    if args.parent:
+        parent.append(parent_times(args.parent, n))
+        emit("parent_times", dir=args.parent, ms=parent[-1])
+    kp = kernel_phases(cuda_hist, n)
+    full, rungs, stress = kp["full"], kp["rungs"], kp["stress"]
     emit("hist_tile", n=n, f=F, b=B, p=P, leaves=LEAVES, **full)
-    rungs = {}
-    for m in ladder_rungs(n):
-        rungs[str(m)] = hist_phase(cuda_hist, n, m=m, seed=3)
     emit("hist_tile_gather", n=n, f=F, b=B, p=P, leaves=LEAVES, rungs=rungs)
+    emit("hist_tile_stress", n=n, f=F, b=B, p=P, leaves=LEAVES, **stress)
+    plane_full, plane_rungs = kp["plane_full"], kp["plane_rungs"]
+    emit("hist_plane", n=n, f=F_CAT, b=B, p=P, leaves=LEAVES, **plane_full,
+         rungs=plane_rungs)
+    q8_full, q8_rungs = kp["q8_full"], kp["q8_rungs"]
+    q8_plane, q8_plane_rungs = kp["q8_plane"], kp["q8_plane_rungs"]
+    emit("hist_tile_q8", n=n, b=B, p=P, leaves=LEAVES,
+         full={"f": F, **q8_full}, rungs=q8_rungs,
+         plane={"f": F_CAT, **q8_plane}, plane_rungs=q8_plane_rungs)
     epi = epilogue_phase(cuda_hist)
     emit("split_epilogue", p=P, f=F, b=B, **epi)
 
@@ -981,27 +1169,11 @@ def main() -> int:
     emit("train", **tr)
     emit("parity", **parity_phase(lgb, args.seed))
 
-    plane_full = hist_phase(cuda_hist, n, f=F_CAT, plane=True, seed=5)
-    plane_rungs = {str(m): hist_phase(cuda_hist, n, m=m, seed=6, f=F_CAT,
-                                      plane=True)
-                   for m in ladder_rungs(n)}
-    emit("hist_plane", n=n, f=F_CAT, b=B, p=P, leaves=LEAVES, **plane_full,
-         rungs=plane_rungs)
     tc, cat_launches = train_cat_phase(lgb, cuda_hist, args)
     emit("train_cat", **tc)
     emit("parity_cat", **parity_cat_phase(lgb, args.seed))
     emit("parity_sparse", **parity_sparse_phase(lgb, args.seed))
 
-    q8_full = hist_q8_phase(cuda_hist, n, seed=21)
-    q8_rungs = {str(m): hist_q8_phase(cuda_hist, n, m=m, seed=22)
-                for m in ladder_rungs(n)}
-    q8_plane = hist_q8_phase(cuda_hist, n, f=F_CAT, plane=True, seed=23)
-    q8_plane_rungs = {str(m): hist_q8_phase(cuda_hist, n, m=m, seed=24,
-                                            f=F_CAT, plane=True)
-                      for m in ladder_rungs(n)}
-    emit("hist_tile_q8", n=n, b=B, p=P, leaves=LEAVES,
-         full={"f": F, **q8_full}, rungs=q8_rungs,
-         plane={"f": F_CAT, **q8_plane}, plane_rungs=q8_plane_rungs)
     epi_q8 = epilogue_q8_phase(cuda_hist)
     emit("split_epilogue_q8", p=P, f=F, b=B, **epi_q8)
     tq, q8_launches = train_phase(lgb, cuda_hist, args,
@@ -1015,9 +1187,13 @@ def main() -> int:
 
     hv = hist_variants_phase(cuda_hist)
     emit("hist_variants", **hv)
+    if args.parent:
+        parent.append(parent_times(args.parent, n))
+        emit("parent_times", dir=args.parent, ms=parent[-1])
 
     hist_err = max([full["max_abs_err"]]
-                   + [r["max_abs_err"] for r in rungs.values()])
+                   + [r["max_abs_err"] for r in rungs.values()]
+                   + [r["max_abs_err"] for r in stress["f32"].values()])
     plane_err = max([plane_full["max_abs_err"]]
                     + [r["max_abs_err"] for r in plane_rungs.values()])
     kernels = [
@@ -1031,7 +1207,13 @@ def main() -> int:
          "library_ms": full["library_ms"],
          "gather_launches": launches["hist_tile.gather_launches"],
          "gather_ms": {k: v["ms"] for k, v in rungs.items()},
-         "gather_bound_ms": {k: v["bound_ms"] for k, v in rungs.items()}},
+         "gather_ms_computing_amax": {k: v["ms_computing_amax"]
+                                      for k, v in rungs.items()},
+         "gather_bound_ms": {k: v["bound_ms"] for k, v in rungs.items()},
+         "gather_library_ms": {k: v["library_ms"] for k, v in rungs.items()},
+         "stress_ms": {k: v["ms"] for k, v in stress["f32"].items()},
+         "stress_library_ms": {k: v["library_ms"]
+                               for k, v in stress["f32"].items()}},
         {"name": "hist_tile (plane-only)", "route": "cuda",
          "source": "lightgbm_tpu_torch/csrc/hist_tile.cu",
          "replaces": "lightgbm_tpu/ops/pallas_hist.py:154 _fused_kernel "
@@ -1045,8 +1227,12 @@ def main() -> int:
          "library_ms": plane_full["library_ms"],
          "gather_launches": cat_launches["hist_tile.gather_launches"],
          "gather_ms": {k: v["ms"] for k, v in plane_rungs.items()},
+         "gather_ms_computing_amax": {k: v["ms_computing_amax"]
+                                      for k, v in plane_rungs.items()},
          "gather_bound_ms": {k: v["bound_ms"]
-                             for k, v in plane_rungs.items()}},
+                             for k, v in plane_rungs.items()},
+         "gather_library_ms": {k: v["library_ms"]
+                               for k, v in plane_rungs.items()}},
         {"name": "split_epilogue", "route": "cuda",
          "source": "lightgbm_tpu_torch/csrc/split_epilogue.cu",
          "replaces": "lightgbm_tpu/ops/pallas_hist.py:465 _epilogue_compute "
@@ -1062,13 +1248,20 @@ def main() -> int:
                      "(pallas_call :663), mode q8 (accumulation)",
          "launches": q8_launches["hist_tile.launches_q8"],
          "max_abs_err": max([q8_full["max_abs_err"]]
-                            + [r["max_abs_err"] for r in q8_rungs.values()]),
+                            + [r["max_abs_err"] for r in q8_rungs.values()]
+                            + [r["max_abs_err"]
+                               for r in stress["q8"].values()]),
          "ms": q8_full["ms"], "plain_ms": q8_full["plain_ms"],
          "bound_ms": q8_full["bound_ms"], "bound_by": q8_full["bound_by"],
          "library_ms": q8_full["library_ms"],
          "gather_launches": q8_launches["hist_tile.gather_launches_q8"],
          "gather_ms": {k: v["ms"] for k, v in q8_rungs.items()},
-         "gather_bound_ms": {k: v["bound_ms"] for k, v in q8_rungs.items()}},
+         "gather_bound_ms": {k: v["bound_ms"] for k, v in q8_rungs.items()},
+         "gather_library_ms": {k: v["library_ms"]
+                               for k, v in q8_rungs.items()},
+         "stress_ms": {k: v["ms"] for k, v in stress["q8"].items()},
+         "stress_library_ms": {k: v["library_ms"]
+                               for k, v in stress["q8"].items()}},
         {"name": "hist_tile (plane-only, q8)", "route": "cuda",
          "source": "lightgbm_tpu_torch/csrc/hist_tile.cu",
          "replaces": "lightgbm_tpu/ops/pallas_hist.py:154 _fused_kernel "
@@ -1084,7 +1277,9 @@ def main() -> int:
          "gather_launches": q8_cat_launches["hist_tile.gather_launches_q8"],
          "gather_ms": {k: v["ms"] for k, v in q8_plane_rungs.items()},
          "gather_bound_ms": {k: v["bound_ms"]
-                             for k, v in q8_plane_rungs.items()}},
+                             for k, v in q8_plane_rungs.items()},
+         "gather_library_ms": {k: v["library_ms"]
+                               for k, v in q8_plane_rungs.items()}},
         {"name": "split_epilogue (q8)", "route": "cuda",
          "source": "lightgbm_tpu_torch/csrc/split_epilogue.cu",
          "replaces": "lightgbm_tpu/ops/pallas_hist.py:465 _epilogue_compute "
@@ -1105,6 +1300,23 @@ def main() -> int:
          "bound_by": hv["bound_by"], "library_ms": hv["library_ms"],
          "onehot_floor_ms": hv["onehot_floor_ms"]},
     ]
+    # device time (torch.profiler) beside the events' time of each form;
+    # with --parent, the other design's [event ms, device ms] from the
+    # probes before and after this run's phases, as a list per form
+    times = _times(kp)
+    for entry, full_key, rung_key, stress_key in (
+            (kernels[0], "full", "rungs", "stress_f32"),
+            (kernels[1], "plane_full", "plane_rungs", None),
+            (kernels[3], "q8_full", "q8_rungs", "stress_q8"),
+            (kernels[4], "q8_plane", "q8_plane_rungs", None)):
+        keys = {"full": full_key}
+        keys.update({m: f"{rung_key}/{m}" for m in entry["gather_ms"]})
+        if stress_key:
+            keys.update({k: f"{stress_key}/{k}" for k in STRESS})
+        entry["device_ms"] = {k: times[v][1] for k, v in keys.items()}
+        if parent:
+            entry["parent_ms"] = {k: [pt[v] for pt in parent]
+                                  for k, v in keys.items()}
     print(json.dumps({"kernels": kernels,
                       "total_seconds": time.time() - t_start}), flush=True)
     print(smi, flush=True)

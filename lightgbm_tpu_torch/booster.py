@@ -64,6 +64,12 @@ class Booster:
         effect; the full pass reads N rows)."""
         return self._boosting.rows_streamed_per_tree
 
+    @property
+    def rows_real_per_tree(self) -> float:
+        """Of those, the rows whose leaf the pass computed (the rest is the
+        compaction rungs' padding)."""
+        return self._boosting.rows_real_per_tree
+
     # ---------------------------------------------------------------- eval
     def eval_set(self):
         return self._boosting.eval_set()

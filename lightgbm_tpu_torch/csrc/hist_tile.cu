@@ -1,8 +1,9 @@
 // hist_tile.cu -- the histogram tile pass, deterministic, f32 and q8.
 //
 // Replaces lightgbm_tpu/ops/pallas_hist.py:
-//   _fused_kernel       plane-only full-row form   (idx == nullptr)
-//   _gather_kernel      plane-only gather form     (idx[m]; entries >= n
+//   _fused_kernel       plane-only full-row form   (hist_tile_launch)
+//   _gather_kernel      plane-only gather form     (hist_gather_launch;
+//                                                   idx[m], entries >= n
 //                                                   are padding)
 // and the accumulation half of
 //   _fused_epi_kernel   full-row form of the fused split epilogue
@@ -18,44 +19,72 @@
 // chan_leaf_table) and whose bin of feature f is b. Slots whose lane holds
 // no leaf (derived or inactive) come out zero.
 //
-// What bounds it on an H100: memory. One pass must read the bin matrix once
-// (n*F bytes), the leaf ids and stats once (16*n bytes f32, 7*n bytes q8)
-// and write the tile (P*F*B*3*4 bytes); the additions are 3*n*F, far below
-// any rate. This design re-reads leaf ids and stats once per feature (and
-// once per slot part, below), mostly from L2, so it runs well above that
-// bound (PERF.md has the measured times).
-//
-// Design: the Pallas kernel keeps a [F*B, 128] accumulator resident in VMEM
-// across a sequential grid; GPU blocks run in parallel and in no order, and
-// 3.7 MB does not fit in shared memory. So the grid is (feature, row chunk,
-// slot part): each block privatises ONE feature's plane for a part of the
-// tile's computed slots in shared memory, maps leaf -> slot through a table
-// in shared memory, and writes its plane to a per-chunk partial buffer; a
-// second launch sums the chunk partials.
+// What bounds it on an H100: memory for the full form, whose pass must
+// read the bin matrix once (n*F bytes), the leaf ids and stats once (16*n
+// bytes f32, 7*n bytes q8) and write the tile (P*F*B*3*4 bytes). The
+// gather form reads only the rung's rows, so its bytes are few, and its
+// floor is the 3*F shared-memory atomics a kept row costs (PERF.md has the
+// measured times).
 //
 // Determinism, f32 mode: the sums are the same bits from run to run. Each
 // stat is added as a 64-bit fixed-point integer, value * 2^k rounded to the
 // nearest integer, where k (one per stat channel and launch) is the largest
 // that keeps any sum of the pass below 2^61: k = 61 - e with max|stat| *
-// rows < 2^e (stat_absmax finds max|stat| first; a max is order-free).
-// Integer addition is associative, so neither the shared-memory atomics'
-// order nor the chunk split changes a bit, and the one conversion back to
-// float32 at the end rounds once. Integer-valued stats (and any stat that
-// is a multiple of 2^-k) are summed exactly, so they come out bitwise equal
-// to the plain version; float stats come out within 2^-k-ish of the exact
+// rows < 2^e (max|stat| over all n rows: the caller's `amax`, or
+// stat_absmax when it passes none; a max is order-free). Integer addition
+// is associative, so neither the atomics' order nor how the rows are split
+// among blocks changes a bit, and the one conversion back to float32 at
+// the end rounds once. Integer-valued stats (and any stat that is a
+// multiple of 2^-k) are summed exactly, so they come out bitwise equal to
+// the plain version; float stats come out within 2^-k-ish of the exact
 // sum, closer than a float32 sum. A non-finite stat makes its channel NaN.
-// The int64 plane is twice a float plane: a slot part holds as many slots
-// as fit in the 227 KB a block can have (37 at 255 bins), so a tile of 42
-// computed slots runs as two parts.
 //
 // q8 mode: the stats are int8 already (the grower's stochastic rounding),
-// so each is added as it is with 32-bit shared-memory atomics, and the
-// chunk partials and the planes are int32. No scale and no stat_absmax
-// pass; |sum| <= 127 * rows, which int32 holds up to (2^31 - 1) / 127
-// rows (the wrapper checks). The sums are exact, so every launch, every
-// chunk split and the plain version give the same planes. The int32 plane
-// is half the f32 mode's int64 one: 42 slots at 255 bins take 128.5 KB,
-// one slot part.
+// so each is added as it is with 32-bit atomics into int32 sums. No scale;
+// |sum| <= 127 * rows, which int32 holds up to (2^31 - 1) / 127 rows (the
+// wrapper checks). The sums are exact, so every launch, every split of the
+// rows and the plain version give the same planes.
+//
+// Full-row form (idx absent). The Pallas kernel keeps a [F*B, 128]
+// accumulator resident in VMEM across a sequential grid; GPU blocks run in
+// parallel and in no order, and 3.7 MB does not fit in shared memory. So
+// the grid is (feature, row chunk, slot part): each block privatises ONE
+// feature's plane for a part of the tile's computed slots in shared
+// memory, maps leaf -> slot through a table in shared memory, and writes
+// its plane to a per-chunk partial buffer; hist_tile_reduce sums the chunk
+// partials. The int64 plane holds 37 slots at 255 bins, so a tile of 42
+// computed slots runs as two parts in f32 mode and one in q8.
+//
+// Gather form (rows idx[0:m], in row order, padded with n). The rung's
+// rows are few and scattered, so the cost is per row, not per byte: each
+// kept row's leaf and stats are read once, and its bins once, from a
+// row-major copy of the bin matrix (`rows`, n * width bytes, one 32-byte
+// sector a row at Higgs width; the wrapper builds it once per bin matrix),
+// where the feature-major binsT would cost a sector per (row, feature) at
+// a rung's density. Three passes and a convert, after the reference's GPU
+// learner (rows grouped by leaf, DataPartition; per-block shared-memory
+// sub-histograms over a group of features, histogram_16_64_256.cu):
+//   1. gather_count: walk idx once; per computed slot (compact index c),
+//      the number of kept rows -- padding, leaves outside [0, l) and
+//      leaves of no computed slot are dropped.
+//   2. gather_scatter: walk idx again in tiles of blockDim entries; each
+//      tile ranks its rows by slot in shared memory, stages each kept row's
+//      payload there -- its row id and its stats, converted once to the
+//      launch's fixed-point int64 (f32) or packed as three int8 in one word
+//      (q8) -- reserves one run per slot in the slot's region of `payload`
+//      with one atomic, and copies the runs out. Rows within a slot are in
+//      no fixed order; the sums are integers, so that changes no bit.
+//   3. gather_accumulate: one wave of blocks over the payload's R kept
+//      rows, each block a contiguous range (at least kMinRows rows) of them
+//      for a group of features whose planes fit its shared memory (all 28
+//      Higgs features in f32). Thread (row, feature) adds the row's stats to
+//      the feature's plane (f32: two 32-bit atomics a stat, add_split); a
+//      block flushes at each slot boundary of its range, adding each
+//      nonzero cell to the [active, F, B, 3] integer sums in global memory
+//      (order-free integer atomics). No host sync: every block reads the
+//      slot offsets from the device counts.
+//   4. hist_tile_reduce (nchunk = 1): converts the sums to the output
+//      planes and zeroes the slots that are not computed.
 //
 // Numerics on Hopper: `pallas` and `pallas_hilo` are the same here. The
 // TPU's `hilo` bf16 hi/lo split is an MXU device; this kernel needs none.
@@ -69,19 +98,28 @@ namespace {
 constexpr int kStats = 3;
 constexpr int kThreads = 1024;
 constexpr int kMaxExp = 1000;
+constexpr int kMaxSlots = 42;     // 128 lanes / 3 stats
+constexpr int kMinRows = 512;     // fewest payload rows an accumulate block
+                                  // takes: its flush is F*B*3 cells
+constexpr int kNonFinite = -2147483647 - 1;
 
 // Exponent k of the fixed-point scale 2^k for a channel whose largest
-// |stat| has float bits `amax_bits`, over `rows` rows; INT_MIN when the
+// |stat| has float bits `amax_bits`, over `rows` rows; kNonFinite when the
 // channel holds a non-finite value.
 __device__ int fixed_exponent(unsigned amax_bits, long long rows) {
   const float amax = __uint_as_float(amax_bits);
-  if (!isfinite(amax)) return -2147483647 - 1;
+  if (!isfinite(amax)) return kNonFinite;
   const double bound = (double)amax * (double)rows;
   if (bound == 0.0) return 61;
   int e;
   frexp(bound, &e);                       // bound < 2^e
   const int k = 61 - e;
   return k > kMaxExp ? kMaxExp : (k < -kMaxExp ? -kMaxExp : k);
+}
+
+__device__ double fixed_scale(unsigned amax_bits, long long rows) {
+  const int k = fixed_exponent(amax_bits, rows);
+  return ldexp(1.0, k == kNonFinite ? 0 : k);
 }
 
 // amax_bits[s] = float bits of max |stats[r, s]| over all rows (NaN bits
@@ -103,8 +141,8 @@ __global__ void stat_absmax(const float* __restrict__ stats,
   }
 }
 
-// The two accumulation modes: the stat type, the shared-memory
-// accumulator, the chunk-partial type and the output type.
+// The two accumulation modes: the stat type, the accumulator, the
+// chunk-partial type and the output type.
 template <bool kQ8> struct Mode;
 template <> struct Mode<false> {
   using Stat = float;
@@ -119,6 +157,7 @@ template <> struct Mode<true> {
   using Out = int;
 };
 
+// ------------------------------------------------------------ full form
 // Block (feat, chunk, part): slots of compact index [part*S, part*S + S).
 // comp[p] is slot p's compact index among the computed slots (-1: none).
 template <bool kQ8>
@@ -126,11 +165,10 @@ __global__ void hist_tile_accumulate(
     const uint8_t* __restrict__ binsT, const int32_t* __restrict__ leaf,
     const typename Mode<kQ8>::Stat* __restrict__ stats,
     const int32_t* __restrict__ chan, const int32_t* __restrict__ comp,
-    const int32_t* __restrict__ idx, const unsigned* __restrict__ amax_bits,
-    typename Mode<kQ8>::Part* __restrict__ partial, int n, int f, int m,
-    int p, int b, int l, int nchunk, int active, int per_part) {
+    const unsigned* __restrict__ amax_bits,
+    typename Mode<kQ8>::Part* __restrict__ partial, int n, int f, int p,
+    int b, int l, int nchunk, int active, int per_part) {
   using Acc = typename Mode<kQ8>::Acc;
-  using Part = typename Mode<kQ8>::Part;
   extern __shared__ __align__(16) unsigned char hist_smem[];
   Acc* plane = reinterpret_cast<Acc*>(hist_smem);          // [S][b][3]
   int* slot_of_leaf = reinterpret_cast<int*>(plane +
@@ -145,10 +183,8 @@ __global__ void hist_tile_accumulate(
 
   for (int i = threadIdx.x; i < cells; i += blockDim.x) plane[i] = 0;
   for (int i = threadIdx.x; i < l; i += blockDim.x) slot_of_leaf[i] = -1;
-  if (!kQ8 && threadIdx.x < kStats) {
-    const int k = fixed_exponent(amax_bits[threadIdx.x], m);
-    scale[threadIdx.x] = ldexp(1.0, k == -2147483647 - 1 ? 0 : k);
-  }
+  if (!kQ8 && threadIdx.x < kStats)
+    scale[threadIdx.x] = fixed_scale(amax_bits[threadIdx.x], n);
   __syncthreads();
   if (threadIdx.x < p) {
     const int lf = chan[threadIdx.x * kStats];
@@ -157,13 +193,11 @@ __global__ void hist_tile_accumulate(
   }
   __syncthreads();
 
-  const long long per = ((long long)m + nchunk - 1) / nchunk;
+  const long long per = ((long long)n + nchunk - 1) / nchunk;
   const long long r0 = (long long)chunk * per;
-  const long long r1 = min((long long)m, r0 + per);
+  const long long r1 = min((long long)n, r0 + per);
   const uint8_t* col = binsT + (size_t)feat * n;
-  for (long long i = r0 + threadIdx.x; i < r1; i += blockDim.x) {
-    const int r = idx ? idx[i] : (int)i;
-    if (r < 0 || r >= n) continue;                      // gather padding
+  for (long long r = r0 + threadIdx.x; r < r1; r += blockDim.x) {
     const int lf = leaf[r];
     if (lf < 0 || lf >= l) continue;
     const int s = slot_of_leaf[lf];
@@ -189,13 +223,13 @@ __global__ void hist_tile_accumulate(
     const int s = i / row;
     const int rem = i - s * row;
     partial[(((size_t)chunk * active + c0 + s) * f + feat) * row + rem] =
-        (Part)plane[i];
+        (typename Mode<kQ8>::Part)plane[i];
   }
 }
 
 // out[p][f][b][s] = the chunk partials of slot p's compact index, summed
 // as integers; in f32 mode converted to float32 once (0 for a slot with
-// none).
+// none). `m` is the row count the fixed-point exponent was taken over.
 template <bool kQ8>
 __global__ void hist_tile_reduce(
     const typename Mode<kQ8>::Part* __restrict__ partial,
@@ -220,20 +254,38 @@ __global__ void hist_tile_reduce(
       out[e] = acc;
     } else {
       const int k = fixed_exponent(amax_bits[rest % kStats], m);
-      out[e] = k == -2147483647 - 1
+      out[e] = k == kNonFinite
                    ? __int_as_float(0x7fffffff)
                    : (float)((double)acc * ldexp(1.0, -k));
     }
   }
 }
 
-// The accumulate + reduce launches of one mode; returns cudaGetLastError().
+int launch_reduce(bool q8, const void* partial, const int32_t* comp,
+                    const unsigned* amax_bits, void* out, int p, int f,
+                    int b, int m, int nchunk, int active, cudaStream_t st) {
+  const long long cells = (long long)p * f * b * kStats;
+  const long long want = (cells + 255) / 256;
+  const int blocks = (int)(want < 65535 ? (want > 0 ? want : 1) : 65535);
+  if (q8)
+    hist_tile_reduce<true><<<blocks, 256, 0, st>>>(
+        static_cast<const int*>(partial), comp, amax_bits,
+        static_cast<int*>(out), p, f, b, m, nchunk, active);
+  else
+    hist_tile_reduce<false><<<blocks, 256, 0, st>>>(
+        static_cast<const long long*>(partial), comp, amax_bits,
+        static_cast<float*>(out), p, f, b, m, nchunk, active);
+  return (int)cudaGetLastError();
+}
+
+// The full form's accumulate + reduce launches of one mode; returns
+// cudaGetLastError().
 template <bool kQ8>
-int launch_passes(const void* binsT, const void* leaf, const void* stats,
-                  const void* chan, const void* comp, const void* idx,
-                  const unsigned* amax_bits, void* partial, void* out, int n,
-                  int f, int m, int p, int b, int l, int nchunk, int active,
-                  int per_part, int nparts, cudaStream_t st) {
+int launch_full(const void* binsT, const void* leaf, const void* stats,
+                const void* chan, const void* comp,
+                const unsigned* amax_bits, void* partial, void* out, int n,
+                int f, int p, int b, int l, int nchunk, int active,
+                int per_part, int nparts, cudaStream_t st) {
   using M = Mode<kQ8>;
   const size_t smem = (size_t)per_part * b * kStats * sizeof(typename M::Acc)
                       + (size_t)l * sizeof(int);
@@ -246,58 +298,430 @@ int launch_passes(const void* binsT, const void* leaf, const void* stats,
       static_cast<const uint8_t*>(binsT), static_cast<const int32_t*>(leaf),
       static_cast<const typename M::Stat*>(stats),
       static_cast<const int32_t*>(chan), static_cast<const int32_t*>(comp),
-      static_cast<const int32_t*>(idx), amax_bits,
-      static_cast<typename M::Part*>(partial), n, f, m, p, b, l, nchunk,
-      active, per_part);
+      amax_bits, static_cast<typename M::Part*>(partial), n, f, p, b, l,
+      nchunk, active, per_part);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const long long cells = (long long)p * f * b * kStats;
-  const long long want = (cells + 255) / 256;
-  const int blocks = (int)(want < 65535 ? want : 65535);
-  hist_tile_reduce<kQ8><<<blocks, 256, 0, st>>>(
-      static_cast<const typename M::Part*>(partial),
-      static_cast<const int32_t*>(comp), amax_bits,
-      static_cast<typename M::Out*>(out), p, f, b, m, nchunk, active);
-  return (int)cudaGetLastError();
+  return launch_reduce(kQ8, partial, static_cast<const int32_t*>(comp),
+                         amax_bits, out, p, f, b, n, nchunk, active, st);
 }
 
-}  // namespace
+// ----------------------------------------------------------- gather form
+constexpr int kUnroll = 4;        // entries / rows a thread loads at once
 
-// Returns cudaGetLastError() (0 = launched). f32 mode: `stats` n * 3
-// floats, `amax_bits` 3 zeroed words, `partial` nchunk * active * f * b * 3
-// int64, `out` p * f * b * 3 floats; `comp` p int32 compact slot indices;
-// grid (f, nchunk, nparts) with `per_part` slots a part.
-extern "C" int hist_tile_launch(const void* binsT, const void* leaf,
-                                const void* stats, const void* chan,
-                                const void* comp, const void* idx,
-                                void* amax_bits, void* partial, void* out,
-                                int n, int f, int m, int p, int b, int l,
-                                int nchunk, int active, int per_part,
-                                int nparts, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+// Compact slot of the row r of a rung entry (-1: padding, or a leaf in no
+// computed slot).
+__device__ __forceinline__ int row_slot(const int32_t* __restrict__ leaf,
+                                        const int32_t* __restrict__ slot_of,
+                                        int r, int n, int l) {
+  if (r < 0 || r >= n) return -1;                       // rung padding
+  const int lf = leaf[r];
+  return (lf < 0 || lf >= l) ? -1 : slot_of[lf];
+}
+
+// Adds each lane's one row to counter[s] (the lanes of one slot share one
+// shared-memory atomic) and returns the lane's rank among the rows added
+// to counter[s]; -1 for s < 0. Every lane of the warp must call it.
+__device__ __forceinline__ int warp_slot_add(int* counter, int s) {
+  const unsigned peers = __match_any_sync(0xffffffffu, s);
+  if (s < 0) return -1;
+  const int lane = threadIdx.x & 31;
+  const int leader = __ffs(peers) - 1;
+  int base = 0;
+  if (lane == leader) base = atomicAdd(counter + s, __popc(peers));
+  base = __shfl_sync(peers, base, leader);
+  return base + __popc(peers & ((1u << lane) - 1u));
+}
+
+// Exclusive scan of in[0, k) (k <= 64 slots) into out[0, k], out[k] the
+// total, by the block's first warp (each lane two slots); the caller syncs
+// before reading out.
+__device__ __forceinline__ void warp_scan_slots(const int* in, int* out,
+                                                int k) {
+  if (threadIdx.x >= 32) return;
+  const int lane = threadIdx.x;
+  const int a = 2 * lane < k ? in[2 * lane] : 0;
+  const int b = 2 * lane + 1 < k ? in[2 * lane + 1] : 0;
+  int s = a + b;
+  for (int d = 1; d < 32; d <<= 1) {
+    const int t = __shfl_up_sync(0xffffffffu, s, d);
+    if (lane >= d) s += t;
+  }
+  if (2 * lane < k) out[2 * lane] = s - a - b;
+  if (2 * lane + 1 < k) out[2 * lane + 1] = s - b;
+  if (lane == 31) out[k] = s;
+}
+
+// counts[c] += the rung rows of compact slot c. Each thread loads kUnroll
+// entries' row, leaf and slot before it counts them.
+__global__ void gather_count(const int32_t* __restrict__ idx,
+                             const int32_t* __restrict__ leaf,
+                             const int32_t* __restrict__ slot_of,
+                             int* __restrict__ counts, int n, int m, int l,
+                             int active) {
+  __shared__ int local[kMaxSlots];
+  for (int s = threadIdx.x; s < active; s += blockDim.x) local[s] = 0;
+  __syncthreads();
+  const long long step = (long long)blockDim.x * kUnroll;
+  for (long long base = blockIdx.x * step; base < m;
+       base += gridDim.x * step) {
+    int r[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const long long i = base + u * blockDim.x + threadIdx.x;
+      r[u] = i < m ? idx[i] : -1;
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u)
+      warp_slot_add(local, row_slot(leaf, slot_of, r[u], n, l));
+  }
+  __syncthreads();
+  for (int s = threadIdx.x; s < active; s += blockDim.x)
+    if (local[s]) atomicAdd(counts + s, local[s]);
+}
+
+// Payload row j: word 0 the row id, then its stats -- word 1 three int8
+// (q8), or words 2..7 three int64 fixed-point values (f32; 8-byte
+// aligned). counts[0, active) are the slot counts, counts[active,
+// 2*active) the slots' fill cursors (zeroed by the caller). A tile is
+// blockDim.x rung entries, one a thread.
+template <bool kQ8> struct Payload {
+  static constexpr int kWords = kQ8 ? 2 : 8;    // words a row
+  static constexpr int kStat = kQ8 ? 1 : 2;     // first stats word
+};
+
+template <bool kQ8>
+__global__ void gather_scatter(
+    const int32_t* __restrict__ leaf,
+    const typename Mode<kQ8>::Stat* __restrict__ stats,
+    const int32_t* __restrict__ slot_of, const int32_t* __restrict__ idx,
+    const unsigned* __restrict__ amax_bits, int* __restrict__ counts,
+    uint32_t* __restrict__ payload, int n, int m, int l, int active) {
+  using PL = Payload<kQ8>;
+  extern __shared__ __align__(16) unsigned char scat_smem[];
+  const int T = blockDim.x;
+  uint32_t* stage = reinterpret_cast<uint32_t*>(scat_smem);  // [T][words]
+  int* stage_slot = reinterpret_cast<int*>(stage + (size_t)T * PL::kWords);
+  __shared__ int g_off[kMaxSlots + 1];  // slot's first payload row
+  __shared__ int t_cnt[kMaxSlots];      // this tile's rows of the slot
+  __shared__ int t_off[kMaxSlots + 1];  // their first staging row; total
+  __shared__ int g_base[kMaxSlots];     // their first payload row
+  __shared__ double scale[kStats];
+  warp_scan_slots(counts, g_off, active);
+  if (!kQ8 && threadIdx.x < kStats)
+    scale[threadIdx.x] = fixed_scale(amax_bits[threadIdx.x], m);
+  int* cursor = counts + active;
+
+  for (long long base = (long long)blockIdx.x * T; base < m;
+       base += (long long)gridDim.x * T) {
+    for (int s = threadIdx.x; s < active; s += T) t_cnt[s] = 0;
+    __syncthreads();
+    const long long i = base + threadIdx.x;
+    const int r = i < m ? idx[i] : -1;
+    const int s = row_slot(leaf, slot_of, r, n, l);
+    const int rank = warp_slot_add(t_cnt, s);
+    __syncthreads();
+    warp_scan_slots(t_cnt, t_off, active);
+    for (int c = threadIdx.x; c < active; c += T)
+      if (t_cnt[c]) g_base[c] = g_off[c] + atomicAdd(cursor + c, t_cnt[c]);
+    __syncthreads();
+    if (s >= 0) {
+      const int j = t_off[s] + rank;
+      stage_slot[j] = s;
+      uint32_t* dst = stage + (size_t)j * PL::kWords;
+      dst[0] = (uint32_t)r;
+      const typename Mode<kQ8>::Stat* st = stats + (size_t)r * kStats;
+      if constexpr (kQ8) {
+        dst[PL::kStat] = (uint32_t)(uint8_t)st[0]
+                         | ((uint32_t)(uint8_t)st[1] << 8)
+                         | ((uint32_t)(uint8_t)st[2] << 16);
+      } else {
+        long long* v = reinterpret_cast<long long*>(dst + PL::kStat);
+        for (int c = 0; c < kStats; ++c)
+          v[c] = __double2ll_rn((double)st[c] * scale[c]);
+      }
+    }
+    __syncthreads();
+    // the staged rows go out as one run per slot
+    const int words = t_off[active] * PL::kWords;
+    for (int e = threadIdx.x; e < words; e += T) {
+      const int j = e / PL::kWords;
+      const int c = stage_slot[j];
+      payload[(size_t)(g_base[c] + j - t_off[c]) * PL::kWords
+              + (e - j * PL::kWords)] = stage[e];
+    }
+    __syncthreads();
+  }
+}
+
+// f32 mode's shared-memory cell: a 64-bit fixed-point sum kept as two
+// 32-bit words, low (unsigned) and high (signed), so that an add is one or
+// two native 32-bit shared-memory atomics instead of a 64-bit
+// compare-and-swap loop (ATOMS.CAST.SPIN.64, which the full form's int64
+// cells compile to). The low word's carry goes into the high word: the
+// pair holds the exact sum modulo 2^64, as an int64 accumulator would
+// (|high| stays below 2^31: the scale keeps |sum of v| < 2^61 over the
+// pass, and the carries are at most one a row).
+__device__ __forceinline__ void add_split(unsigned* cell, long long v) {
+  const unsigned lo = (unsigned)v;
+  int hi = (int)(v >> 32);
+  if (lo) {
+    const unsigned old = atomicAdd(cell, lo);
+    hi += (old + lo < old) ? 1 : 0;
+  }
+  if (hi) atomicAdd(reinterpret_cast<int*>(cell) + 1, hi);
+}
+
+// Block (x, y): payload rows [x*per, x*per + per) (per >= kMinRows, the
+// rows split evenly over gridDim.x), features [y*group, y*group + group).
+// accum [active][f][b][3] integer sums, zeroed by the caller. A plane cell
+// is the add_split pair in f32 mode (8 bytes), an int32 sum in q8 (4).
+// Thread (jj, fi) takes feature fi of every rows_per_iter-th row, loading
+// kUnroll rows before it adds them.
+template <bool kQ8>
+__global__ void gather_accumulate(const uint32_t* __restrict__ payload,
+                                  const uint8_t* __restrict__ rows,
+                                  const int* __restrict__ counts,
+                                  typename Mode<kQ8>::Acc* __restrict__ accum,
+                                  int f, int b, int active, int width,
+                                  int group) {
+  using PL = Payload<kQ8>;
+  extern __shared__ __align__(16) unsigned char acc_smem[];
+  unsigned* plane = reinterpret_cast<unsigned*>(acc_smem);  // [group][b][3]
+  __shared__ int g_off[kMaxSlots + 1];
+  const int g0 = blockIdx.y * group;
+  const int gn = min(group, f - g0);
+  const int row_cells = b * kStats;
+  const int cells = gn * row_cells;
+  constexpr int kWords = kQ8 ? 1 : 2;                      // words a cell
+  warp_scan_slots(counts, g_off, active);
+  for (int i = threadIdx.x; i < cells * kWords; i += blockDim.x) plane[i] = 0;
+  __syncthreads();
+  const long long total = g_off[active];
+  long long per = (total + gridDim.x - 1) / gridDim.x;
+  per = per > kMinRows ? per : kMinRows;
+  const long long j0 = (long long)blockIdx.x * per;
+  const long long j1 = min(total, j0 + per);
+  if (j0 >= j1) return;
+  const int rows_per_iter = blockDim.x / gn;
+  const int jj = threadIdx.x / gn;
+  const int fi = threadIdx.x - jj * gn;
+  for (int c = 0; c < active; ++c) {
+    const long long a = max(j0, (long long)g_off[c]);
+    const long long z = min(j1, (long long)g_off[c + 1]);
+    if (a >= z) continue;
+    if (jj < rows_per_iter) {
+      for (long long j = a + jj; j < z;
+           j += (long long)kUnroll * rows_per_iter) {
+        int bin[kUnroll];
+        uint32_t w[kUnroll];
+        long long v[kUnroll][kStats];
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          const long long jr = j + (long long)u * rows_per_iter;
+          bin[u] = b;
+          if (jr < z) {
+            const uint32_t* pr = payload + (size_t)jr * PL::kWords;
+            bin[u] = rows[(size_t)pr[0] * width + g0 + fi];
+            if constexpr (kQ8) {
+              w[u] = pr[PL::kStat];
+            } else {
+              const long long* sv =
+                  reinterpret_cast<const long long*>(pr + PL::kStat);
+              for (int k = 0; k < kStats; ++k) v[u][k] = sv[k];
+            }
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          if (bin[u] >= b) continue;
+          unsigned* cell = plane + ((size_t)fi * row_cells + bin[u] * kStats)
+                                   * kWords;
+          if constexpr (kQ8) {
+            for (int k = 0; k < kStats; ++k)
+              atomicAdd(reinterpret_cast<int*>(cell) + k,
+                        (int)(int8_t)(uint8_t)(w[u] >> (8 * k)));
+          } else {
+            for (int k = 0; k < kStats; ++k) add_split(cell + 2 * k, v[u][k]);
+          }
+        }
+      }
+    }
+    __syncthreads();
+    typename Mode<kQ8>::Acc* dst = accum + ((size_t)c * f + g0) * row_cells;
+    for (int i = threadIdx.x; i < cells; i += blockDim.x) {
+      if constexpr (kQ8) {
+        const int v = (int)plane[i];
+        if (v != 0) {
+          plane[i] = 0;
+          atomicAdd(dst + i, v);
+        }
+      } else {
+        const unsigned long long v =
+            ((unsigned long long)plane[2 * i + 1] << 32) + plane[2 * i];
+        if (v != 0) {
+          plane[2 * i] = 0;
+          plane[2 * i + 1] = 0;
+          atomicAdd(dst + i, v);
+        }
+      }
+    }
+    __syncthreads();
+  }
+}
+
+int device_sms() {
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return sms > 0 ? sms : 1;
+}
+
+// The gather form's four launches (count, scatter, accumulate, convert) of
+// one mode, after the scratch memset; returns cudaGetLastError().
+template <bool kQ8>
+int launch_gather(const uint8_t* rows, const void* leaf, const void* stats,
+                  const int32_t* slotmap, const void* idx,
+                  const unsigned* amax_bits, int* counts, uint32_t* payload,
+                  void* accum, void* out, int n, int f, int m, int p, int b,
+                  int l, int active, int group, int width, int tile,
+                  cudaStream_t st) {
+  using M = Mode<kQ8>;
+  const int sms = device_sms();
+  const int32_t* slot_of = slotmap;
+  const int32_t* comp = slotmap + l;
+  const int32_t* ix = static_cast<const int32_t*>(idx);
+  const int32_t* lf = static_cast<const int32_t*>(leaf);
+
+  const long long cblocks = ((long long)m + kThreads * kUnroll - 1)
+                            / (kThreads * kUnroll);
+  gather_count<<<(int)(cblocks < 2 * sms ? cblocks : 2 * sms), kThreads, 0,
+                 st>>>(ix, lf, slot_of, counts, n, m, l, active);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  const size_t ssmem = (size_t)tile * (Payload<kQ8>::kWords + 1) * 4;
+  err = cudaFuncSetAttribute(gather_scatter<kQ8>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)ssmem);
+  if (err != cudaSuccess) return (int)err;
+  int occ = 1;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, gather_scatter<kQ8>,
+                                                tile, ssmem);
+  const long long sblocks = ((long long)m + tile - 1) / tile;
+  const long long swave = (long long)sms * (occ > 0 ? occ : 1);
+  gather_scatter<kQ8><<<(int)(sblocks < swave ? sblocks : swave), tile,
+                        ssmem, st>>>(
+      lf, static_cast<const typename M::Stat*>(stats), slot_of, ix,
+      amax_bits, counts, payload, n, m, l, active);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  const size_t asmem = (size_t)group * b * kStats * (kQ8 ? 4 : 8);
+  err = cudaFuncSetAttribute(gather_accumulate<kQ8>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)asmem);
+  if (err != cudaSuccess) return (int)err;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, gather_accumulate<kQ8>,
+                                                kThreads, asmem);
+  const int ngroups = (f + group - 1) / group;
+  const long long awave = (long long)sms * (occ > 0 ? occ : 1);
+  const int ablocks = (int)((awave + ngroups - 1) / ngroups);
+  gather_accumulate<kQ8><<<dim3(ablocks, ngroups), kThreads, asmem, st>>>(
+      payload, rows, counts, static_cast<typename M::Acc*>(accum), f, b,
+      active, width, group);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return launch_reduce(kQ8, accum, comp, amax_bits, out, p, f, b, m, 1,
+                         active, st);
+}
+
+void launch_absmax(const void* stats, void* amax_bits, int n,
+                   cudaStream_t st) {
   const int ablocks = (int)(((long long)n + 255) / 256 < 1024
                                 ? ((long long)n + 255) / 256 : 1024);
   stat_absmax<<<ablocks > 0 ? ablocks : 1, 256, 0, st>>>(
       static_cast<const float*>(stats), static_cast<unsigned*>(amax_bits), n);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  return launch_passes<false>(binsT, leaf, stats, chan, comp, idx,
-                              static_cast<const unsigned*>(amax_bits),
-                              partial, out, n, f, m, p, b, l, nchunk, active,
-                              per_part, nparts, st);
 }
 
-// q8 mode: `stats` n * 3 int8, `partial` nchunk * active * f * b * 3 int32,
-// `out` p * f * b * 3 int32; the rest as hist_tile_launch.
+}  // namespace
+
+// Full-row form, f32 mode. Returns cudaGetLastError() (0 = launched).
+// `stats` n * 3 floats; `amax_bits` 3 words: the float32 max|stat| of each
+// channel, or (`compute_amax` != 0) 3 zeroed words that stat_absmax fills;
+// `partial` nchunk * active * f * b * 3 int64, `out` p * f * b * 3 floats;
+// `comp` p int32 compact slot indices; grid (f, nchunk, nparts) with
+// `per_part` slots a part.
+extern "C" int hist_tile_launch(const void* binsT, const void* leaf,
+                                const void* stats, const void* chan,
+                                const void* comp, void* amax_bits,
+                                int compute_amax, void* partial, void* out,
+                                int n, int f, int p, int b, int l,
+                                int nchunk, int active, int per_part,
+                                int nparts, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (compute_amax) {
+    launch_absmax(stats, amax_bits, n, st);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return launch_full<false>(binsT, leaf, stats, chan, comp,
+                            static_cast<const unsigned*>(amax_bits), partial,
+                            out, n, f, p, b, l, nchunk, active, per_part,
+                            nparts, st);
+}
+
+// Full-row form, q8 mode: `stats` n * 3 int8, `partial` nchunk * active *
+// f * b * 3 int32, `out` p * f * b * 3 int32; the rest as hist_tile_launch.
 extern "C" int hist_tile_q8_launch(const void* binsT, const void* leaf,
                                    const void* stats, const void* chan,
-                                   const void* comp, const void* idx,
-                                   void* partial, void* out, int n, int f,
-                                   int m, int p, int b, int l, int nchunk,
-                                   int active, int per_part, int nparts,
-                                   void* stream) {
-  return launch_passes<true>(binsT, leaf, stats, chan, comp, idx, nullptr,
-                             partial, out, n, f, m, p, b, l, nchunk, active,
-                             per_part, nparts,
-                             static_cast<cudaStream_t>(stream));
+                                   const void* comp, void* partial,
+                                   void* out, int n, int f, int p, int b,
+                                   int l, int nchunk, int active,
+                                   int per_part, int nparts, void* stream) {
+  return launch_full<true>(binsT, leaf, stats, chan, comp, nullptr, partial,
+                           out, n, f, p, b, l, nchunk, active, per_part,
+                           nparts, static_cast<cudaStream_t>(stream));
+}
+
+// Gather form over idx[m] (entries outside [0, n) are padding), `q8` != 0
+// for the q8 mode. `rows` the bins row-major, n * `width` bytes (feature f
+// of row r at r * width + f); `slotmap` l + p int32: each leaf's compact
+// slot (-1: not computed), then each slot's compact index (-1: none);
+// `amax_bits` as hist_tile_launch (f32 mode only); `scratch`
+// `scratch_bytes` bytes, zeroed here, holding `counts` (2 * active int32),
+// `accum` (active * f * b * 3 int64 in f32 mode, int32 in q8) and, with
+// `compute_amax`, `amax_bits`; `payload` m * 8 (f32) or m * 2 (q8) words;
+// `out` p * f * b * 3 float32 (f32) or int32 (q8). `group` features share
+// an accumulate block; the scatter stages `tile` rung entries a block (a
+// multiple of 32).
+extern "C" int hist_gather_launch(const void* rows, const void* leaf,
+                                  const void* stats, const void* slotmap,
+                                  const void* idx, void* amax_bits,
+                                  int compute_amax, void* scratch,
+                                  long long scratch_bytes, void* counts,
+                                  void* payload, void* accum, void* out,
+                                  int q8, int n, int f, int m, int p, int b,
+                                  int l, int active, int group, int width,
+                                  int tile, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaMemsetAsync(scratch, 0, (size_t)scratch_bytes, st);
+  if (err != cudaSuccess) return (int)err;
+  const uint8_t* rw = static_cast<const uint8_t*>(rows);
+  const int32_t* sm = static_cast<const int32_t*>(slotmap);
+  int* cn = static_cast<int*>(counts);
+  uint32_t* pl = static_cast<uint32_t*>(payload);
+  if (q8)
+    return launch_gather<true>(rw, leaf, stats, sm, idx, nullptr, cn, pl,
+                               accum, out, n, f, m, p, b, l, active, group,
+                               width, tile, st);
+  if (compute_amax) {
+    launch_absmax(stats, amax_bits, n, st);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return launch_gather<false>(rw, leaf, stats, sm, idx,
+                              static_cast<const unsigned*>(amax_bits), cn,
+                              pl, accum, out, n, f, m, p, b, l, active, group,
+                              width, tile, st);
 }

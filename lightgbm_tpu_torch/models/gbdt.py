@@ -69,6 +69,7 @@ class GBDT:
         self.metric_names: List[str] = []
         self._metric_cache: Dict[Tuple[str, int], Metric] = {}
         self._rows_streamed = 0.0
+        self._hist_counters: Dict[str, float] = {}
         if train_set is not None:
             self._init_train(train_set)
 
@@ -104,6 +105,7 @@ class GBDT:
                                  default_metric_for_objective(cfg.objective))
         self._metric_cache = {}
         self._rows_streamed = 0.0
+        self._hist_counters: Dict[str, float] = {}
 
     def _compaction_ladder(self) -> tuple:
         """Row-buffer sizes of the compaction ladder: each
@@ -152,7 +154,8 @@ class GBDT:
             compaction_ladder=self._compaction_ladder(),
             split_fusion=self._split_fusion_on(),
             with_categorical=ts.has_categorical, sp=sp,
-            hist_method=self._hist_method, rng_key=iter_key)
+            hist_method=self._hist_method, rng_key=iter_key,
+            counters=self._hist_counters)
 
     def _split_fusion_on(self) -> bool:
         """Resolve ``split_fusion`` as the JAX package does: "auto" fuses
@@ -247,6 +250,13 @@ class GBDT:
     @property
     def rows_streamed_per_tree(self) -> float:
         return self.rows_streamed_total / max(len(self.trees), 1)
+
+    @property
+    def rows_real_per_tree(self) -> float:
+        """Rows the histogram passes added per tree: the rows streamed less
+        the compaction rungs' padding."""
+        return (self._hist_counters.get("rows_real", 0.0)
+                / max(len(self.trees), 1))
 
     # ---------------------------------------------------------- eval
     def eval_set(self) -> List[Tuple[str, str, float, bool]]:

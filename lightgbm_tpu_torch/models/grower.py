@@ -58,7 +58,7 @@ are (the CPU plain path is; q8 sums are exact everywhere).
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -97,6 +97,7 @@ class GrowState:
     rounds: int = 0
     done: bool = False
     rows_streamed: float = 0.0
+    rows_real: float = 0.0        # of them, rows of the computed leaves
     # the current split phase's splits: (leaf, new_leaf, feature,
     # threshold_bin, default_left, is_cat, bitset), routed together at the
     # phase's end
@@ -160,12 +161,16 @@ class Grower:
             f"histogram method {hist_method!r} on device {self.dev}"
         self.quant8 = hist_method.endswith("_q8")
         self.q_scale = None
+        # f32 mode: the stats' max|stat| per channel, which sets the
+        # histogram kernel's fixed-point scale, taken once per tree
+        self.amax = None
         if self.quant8:
             self.stats, self.q_scale, self.root = self._quantize(
                 stats, prng_key(0) if rng_key is None else rng_key)
         else:
             self.stats = stats
             self.root = tree_sum(stats, 0).cpu()
+            self.amax = stats.abs().amax(0)
         self.iota = np.arange(self.L, dtype=np.int32)
         self.two_min_data = np.float32(2.0) * np.float32(
             self.params.min_data_in_leaf)
@@ -298,9 +303,10 @@ class Grower:
     def _rung(self, st: GrowState, sel_compute: np.ndarray):
         """The compaction ladder's choice for a tile computing the leaves
         ``sel_compute`` (-1 = none): (row-index buffer or None, rows the
-        pass reads)."""
+        pass reads, rows it adds: the tile's rows in a gather pass, all N
+        in a full one)."""
         if not self.ladder or self.f_dense == 0:
-            return None, float(self.n)
+            return None, float(self.n), float(self.n)
         p2 = sel_compute.shape[0]
         slot_map = np.full((self.L + 1,), p2, dtype=np.int32)
         ok = sel_compute >= 0
@@ -310,8 +316,8 @@ class Grower:
         n_pend = int(in_tile.sum())
         for m in self.ladder:             # smallest rung that fits
             if n_pend <= m:
-                return compact_indices(in_tile, m), float(m)
-        return None, float(self.n)
+                return compact_indices(in_tile, m), float(m), float(n_pend)
+        return None, float(self.n), float(self.n)
 
     def _select_pairs(self, st: GrowState):
         """The fused tile's slots: (sel [P2] int32, derive [P2] bool,
@@ -347,11 +353,13 @@ class Grower:
         aggs = [torch.from_numpy(a[selc]) for a in
                 (st.leaf_sum_g, st.leaf_sum_h, st.leaf_cnt, st.leaf_output)]
         la = cuda_hist.pack_leaf_aux(*aggs).to(dev)
-        gather_idx, streamed = self._rung(st, np.where(derive, -1, sel))
+        gather_idx, streamed, real = self._rung(st, np.where(derive, -1,
+                                                             sel))
         tile, cand = histogram_tiles_with_candidates(
             self.binsT, self.stats, st.leaf_id, torch.from_numpy(sel),
             torch.from_numpy(derive), parent_planes, la, self.fm_pack,
-            self.pvec, self.B, self.L, gather_idx, q_scale=self.q_scale)
+            self.pvec, self.B, self.L, gather_idx, q_scale=self.q_scale,
+            amax=self.amax)
 
         slots = sel[ok]
         st.hist[torch.as_tensor(slots.astype(np.int64)).to(dev)] = tile[
@@ -366,6 +374,7 @@ class Grower:
         st.parent_hist[slots] = False
         st.rounds += 1
         st.rows_streamed += streamed
+        st.rows_real += real
 
     def combine_sparse(self, tile: torch.Tensor, sel: np.ndarray,
                        leaf_id: torch.Tensor) -> torch.Tensor:
@@ -427,11 +436,11 @@ class Grower:
         chosen, chosen_ok = self._first(cand, self.P)
         sel = np.where(chosen_ok, chosen, -1).astype(np.int32)
         dev = self.dev
-        gather_idx, streamed = self._rung(st, sel)
+        gather_idx, streamed, real = self._rung(st, sel)
         if self.f_dense > 0:
             tile = histogram_tiles(self.binsT, self.stats, st.leaf_id,
                                    torch.from_numpy(sel), self.B, self.L,
-                                   gather_idx)
+                                   gather_idx, amax=self.amax)
         else:
             tile = torch.zeros((sel.shape[0], 0, self.B, 3),
                                dtype=torch.int32 if self.quant8
@@ -469,6 +478,7 @@ class Grower:
         st.parent_hist &= ~resolved
         st.rounds += 1
         st.rows_streamed += streamed
+        st.rows_real += real
 
     # ------------------------------------------------------- split phase
     def split_search(self, st: GrowState) -> None:
@@ -641,14 +651,17 @@ def grow_tree(binsT: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
               hist_subtraction: bool = True, compaction_ladder: tuple = (),
               split_fusion: bool = True, with_categorical: bool = False,
               sp: Optional[tuple] = None, hist_method: str = "",
-              rng_key: Optional[torch.Tensor] = None
+              rng_key: Optional[torch.Tensor] = None,
+              counters: Optional[Dict[str, float]] = None
               ) -> Tuple[TreeArrays, torch.Tensor, float]:
     """Grow one tree from per-row gradients/hessians. ``hist_method`` is
     ``ops/histogram.resolve_method``'s answer (empty: the f32 mode of the
     device's path); a ``*_q8`` method quantizes with ``rng_key`` (the
     JAX package's ``PRNGKey(0)`` when None). Returns (tree arrays on the
     host, per-row leaf index on the device, rows read by the histogram
-    passes)."""
+    passes); ``counters``, when given, gains the tree's ``rows_real``: the
+    rows those passes added (a gather pass's tile rows, a full pass's N),
+    beside which the rows read show the rungs' padding."""
     g = Grower(binsT, grad, hess, meta, params, missing_bin,
                max_leaves=max_leaves, num_bins=num_bins, max_depth=max_depth,
                exact=exact, tile_leaves=tile_leaves,
@@ -663,4 +676,6 @@ def grow_tree(binsT: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
             g.hist_phase(st)
         else:
             g.split_phase(st)
+    if counters is not None:
+        counters["rows_real"] = counters.get("rows_real", 0.0) + st.rows_real
     return g.finalize(st)

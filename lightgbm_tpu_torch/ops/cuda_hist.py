@@ -8,11 +8,16 @@ step for the fused path (``_fused_epi_kernel``, ``_gather_epi_kernel``). On
 Hopper that is two hand-written CUDA kernels (``csrc/``):
 
 - ``hist_tile`` (``csrc/hist_tile.cu``): the ``[P, F, B, 3]`` planes of the
-  tile's computed slots, in the full-row form (``idx=None``) or the gather
-  form (rows ``idx[M]``, entries >= N are padding); deterministic, so two
-  launches give the same bits. Two modes, chosen by the stats' dtype: f32
-  (float stats, 64-bit fixed-point sums, float32 planes) and q8 (the
-  quantized-gradient mode: int8 stats, exact int32 sums, int32 planes).
+  tile's computed slots, in the full-row form (``idx=None``; grid over
+  (feature, row chunk, slot part)) or the gather form (rows ``idx[M]``,
+  entries >= N are padding), which partitions the rung's rows once into
+  slot-grouped runs of (row id, stats) and accumulates each run over all
+  features at once, reading the rows' bins from a row-major copy of the
+  bin matrix (``bins_by_row``; plain versions ``gather_partition_plain``
+  and ``gather_accumulate_plain``); deterministic, so two launches give
+  the same bits. Two modes, chosen by the stats' dtype: f32 (float stats,
+  64-bit fixed-point sums, float32 planes) and q8 (the quantized-gradient
+  mode: int8 stats, exact int32 sums, int32 planes).
   ``plane=True`` marks a launch of the classic path (the plane-only
   kernels 3-4). Each mode counts its own launches: ``launches``,
   ``gather_launches`` and ``launches_plane`` for f32, ``launches_q8``,
@@ -72,6 +77,9 @@ _STATS = 3                  # (grad, hess, count) per row
 MAX_BINS = 256              # split_epilogue: one thread per bin
 Q8_MAX_ROWS = (2 ** 31 - 1) // 127   # q8: |sum| <= 127 * rows fits int32
 SMEM_PER_BLOCK = 232_448    # Hopper: dynamic shared memory a block can use
+_STATIC_SMEM = 1024         # room left for a gather kernel's static arrays
+_GATHER_THREADS = 1024      # threads of a gather accumulate block
+_SCATTER_TILE = 256         # rung entries (threads) of a gather scatter block
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD = Path(__file__).resolve().parent.parent / "_build"
 _SOURCES = ("hist_tile", "split_epilogue", "hist_onehot")
@@ -207,10 +215,15 @@ def build_kernels(names: Tuple[str, ...] = _SOURCES) -> float:
 def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     if name == "hist_tile":
-        lib.hist_tile_launch.argtypes = [vp] * 9 + [ci] * 10 + [vp]
+        lib.hist_tile_launch.argtypes = ([vp] * 6 + [ci] + [vp] * 2
+                                         + [ci] * 9 + [vp])
         lib.hist_tile_launch.restype = ci
-        lib.hist_tile_q8_launch.argtypes = [vp] * 8 + [ci] * 10 + [vp]
+        lib.hist_tile_q8_launch.argtypes = [vp] * 7 + [ci] * 9 + [vp]
         lib.hist_tile_q8_launch.restype = ci
+        lib.hist_gather_launch.argtypes = ([vp] * 6 + [ci, vp,
+                                                       ctypes.c_longlong]
+                                           + [vp] * 4 + [ci] * 11 + [vp])
+        lib.hist_gather_launch.restype = ci
     elif name == "split_epilogue":
         lib.split_epilogue_launch.argtypes = [vp] * 9 + [ci] * 3 + [vp]
         lib.split_epilogue_launch.restype = ci
@@ -243,6 +256,16 @@ def _raise_on(err: int, name: str) -> None:
 
 
 # ------------------------------------------------------------------ hist_tile
+def _slot_table(chan: torch.Tensor, num_slots: int, num_leaves: int):
+    """The tile's computed slots, read on the host: (each slot's lane leaf
+    [P] int32, each slot's compact index among the computed slots [P] int32,
+    -1 for a slot that computes nothing)."""
+    lanes = chan.reshape(-1)[0:num_slots * _STATS:_STATS].cpu().numpy()
+    computed = (lanes >= 0) & (lanes < num_leaves)
+    comp = np.where(computed, np.cumsum(computed) - 1, -1).astype(np.int32)
+    return lanes.astype(np.int32), comp
+
+
 def _tile_cells(binsT, leaf_ids, chan, num_slots, num_bins, num_leaves, idx):
     """The rows a tile pass adds (in row order) and each one's flattened
     (slot, feature, bin) cell per feature: (rows [R], cells [R, F])."""
@@ -298,33 +321,128 @@ def _fixed_exponent(amax: torch.Tensor, rows: int) -> torch.Tensor:
     return k.clamp(-1000, 1000).to(torch.int64)
 
 
+def _to_fixed(stats_rows: torch.Tensor, amax: torch.Tensor, rows: int):
+    """The kernel's fixed-point form of float stats [R, 3] over a pass of
+    ``rows`` rows whose max|stat| per channel is ``amax`` [3]: (int64
+    [R, 3], exponent k [3], which channels are finite [3])."""
+    finite = torch.isfinite(amax)
+    k = torch.where(finite, _fixed_exponent(amax, rows), 0)
+    one = torch.ones((_STATS,), dtype=torch.float64, device=stats_rows.device)
+    fixed = torch.round(stats_rows.to(torch.float64)
+                        * torch.ldexp(one, k)).to(torch.int64)
+    return fixed, k, finite
+
+
+def _from_fixed(acc: torch.Tensor, k: torch.Tensor,
+                finite: torch.Tensor) -> torch.Tensor:
+    """int64 fixed-point sums [..., 3] -> float32, one rounding; a channel
+    with a non-finite stat is NaN."""
+    one = torch.ones((_STATS,), dtype=torch.float64, device=acc.device)
+    out = (acc.to(torch.float64) * torch.ldexp(one, -k)).to(torch.float32)
+    return torch.where(finite, out, torch.full_like(out, float("nan")))
+
+
+def _absmax(stats: torch.Tensor) -> torch.Tensor:
+    """[3] float32 max|stat| of each channel over all rows (NaN wins)."""
+    return stats.to(torch.float32).abs().amax(0)
+
+
 def hist_tile_exact(binsT: torch.Tensor, leaf_ids: torch.Tensor,
                     stats: torch.Tensor, chan: torch.Tensor, num_slots: int,
                     num_bins: int, num_leaves: int,
-                    idx: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    idx: Optional[torch.Tensor] = None,
+                    amax: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``hist_tile``'s own arithmetic in plain PyTorch: each stat scaled by
     2^k and rounded to a 64-bit integer, integer sums (order-free), one
     conversion back to float32 -- bitwise the kernel's planes on any stats
-    (a non-finite stat makes its channel NaN). Returns [P, F, B, 3] f32."""
+    (a non-finite stat makes its channel NaN). ``amax`` as ``hist_tile``'s.
+    Returns [P, F, B, 3] f32."""
     f, n = binsT.shape
     m = n if idx is None else idx.shape[0]
-    dev = binsT.device
     rows, cells = _tile_cells(binsT, leaf_ids, chan, num_slots, num_bins,
                               num_leaves, idx)
-    amax = stats.to(torch.float32).abs().amax(0)
-    finite = torch.isfinite(amax)
-    k = torch.where(finite, _fixed_exponent(amax, m), 0)
-    one = torch.ones((_STATS,), dtype=torch.float64, device=dev)
-    fixed = torch.round(stats[rows].to(torch.float64)
-                        * torch.ldexp(one, k)).to(torch.int64)
+    fixed, k, finite = _to_fixed(stats[rows], _absmax(stats) if amax is None
+                                 else amax, m)
     contrib = fixed[:, None, :].expand(rows.shape[0], f, _STATS).reshape(
         -1, _STATS)
     acc = torch.zeros((num_slots * f * num_bins, _STATS), dtype=torch.int64,
-                      device=dev)
+                      device=binsT.device)
     acc.index_add_(0, cells.reshape(-1), contrib)
-    out = (acc.to(torch.float64) * torch.ldexp(one, -k)).to(torch.float32)
-    out = torch.where(finite, out, torch.full_like(out, float("nan")))
-    return out.reshape(num_slots, f, num_bins, _STATS)
+    return _from_fixed(acc, k, finite).reshape(num_slots, f, num_bins,
+                                               _STATS)
+
+
+def gather_partition_plain(leaf_ids: torch.Tensor, chan: torch.Tensor,
+                           num_slots: int, num_leaves: int,
+                           idx: torch.Tensor
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the gather form's partition pass
+    (``csrc/hist_tile.cu`` ``gather_count`` + ``gather_scatter``): the
+    rung's kept rows grouped by computed slot. An entry is kept when it is
+    no padding (0 <= idx < N) and its row's leaf is the leaf of a computed
+    slot; compact slot c is the c-th slot of the tile that computes a
+    leaf. Returns (offsets [A + 1] int64, rows [R] int64): compact slot
+    c's rows are ``rows[offsets[c]:offsets[c + 1]]``, in rung order (the
+    kernel's order within a slot is free: its sums are integers)."""
+    n = leaf_ids.shape[0]
+    dev = leaf_ids.device
+    lanes, comp = _slot_table(chan, num_slots, num_leaves)
+    slot_of = np.full((num_leaves,), -1, dtype=np.int64)
+    slot_of[lanes[comp >= 0]] = comp[comp >= 0]
+    rows = idx.to(torch.int64)
+    rows = rows[(rows >= 0) & (rows < n)]
+    lid = leaf_ids[rows].to(torch.int64)
+    ok = (lid >= 0) & (lid < num_leaves)
+    rows, lid = rows[ok], lid[ok]
+    slot = torch.as_tensor(slot_of, device=dev)[lid]
+    rows, slot = rows[slot >= 0], slot[slot >= 0]
+    order = torch.sort(slot, stable=True).indices
+    counts = torch.bincount(slot, minlength=int((comp >= 0).sum()))
+    offsets = torch.cat([counts.new_zeros(1), counts.cumsum(0)])
+    return offsets, rows[order]
+
+
+def gather_accumulate_plain(binsT: torch.Tensor, stats: torch.Tensor,
+                            offsets: torch.Tensor, rows: torch.Tensor,
+                            chan: torch.Tensor, num_slots: int,
+                            num_bins: int, num_leaves: int, m: int,
+                            amax: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
+    """Plain version of the gather form's accumulation
+    (``gather_accumulate`` + the convert) over a partition
+    (``gather_partition_plain``'s offsets and slot-grouped rows) of a rung
+    of ``m`` entries. f32 mode: the kernel's fixed-point sums (scale 2^k
+    from ``amax``, by default max|stat| over all N rows, and m), bitwise
+    ``hist_tile_exact``; q8 mode (int8 stats): exact int32 sums. Slots
+    that compute nothing come out zero. Returns [P, F, B, 3] f32, or int32
+    in q8 mode."""
+    f = binsT.shape[0]
+    dev = binsT.device
+    q8 = stats.dtype == torch.int8
+    _, comp = _slot_table(chan, num_slots, num_leaves)
+    active = offsets.shape[0] - 1
+    slot = torch.repeat_interleave(torch.arange(active, device=dev),
+                                   offsets[1:] - offsets[:-1])
+    cells = ((slot[:, None] * f + torch.arange(f, device=dev)[None, :])
+             * num_bins + binsT[:, rows].T.to(torch.int64))
+    if q8:
+        contrib = stats[rows].to(torch.int32)
+    else:
+        contrib, k, finite = _to_fixed(stats[rows], _absmax(stats)
+                                       if amax is None else amax, m)
+    acc = torch.zeros((active * f * num_bins, _STATS), dtype=contrib.dtype,
+                      device=dev)
+    acc.index_add_(0, cells.reshape(-1), contrib[:, None, :].expand(
+        rows.shape[0], f, _STATS).reshape(-1, _STATS))
+    planes = acc.reshape(active, f, num_bins, _STATS)
+    if not q8:
+        planes = _from_fixed(planes, k, finite)
+    out = torch.zeros((num_slots, f, num_bins, _STATS), dtype=planes.dtype,
+                      device=dev)
+    on = torch.as_tensor(comp >= 0, device=dev)
+    out[on] = planes[torch.as_tensor(comp[comp >= 0], dtype=torch.int64,
+                                     device=dev)]
+    return out
 
 
 _cpu_sums = {"kernel": False}
@@ -344,9 +462,9 @@ def kernel_sums_on_cpu():
 
 
 def _hist_chunks(blocks_per_chunk: int, m: int, dev: torch.device) -> int:
-    """Row chunks: one wave of blocks over the card's SMs (one block per
-    SM fits at the main path's shared-memory size), no chunk under 1024
-    rows."""
+    """Row chunks of the full form: one wave of blocks over the card's SMs
+    (one block per SM fits at the main path's shared-memory size), no chunk
+    under 1024 rows."""
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     return int(max(1, min(max(1, sms // max(blocks_per_chunk, 1)),
                           -(-m // 1024))))
@@ -354,9 +472,10 @@ def _hist_chunks(blocks_per_chunk: int, m: int, dev: torch.device) -> int:
 
 def hist_slot_parts(active: int, num_bins: int, num_leaves: int,
                     cell_bytes: int = 8) -> Tuple[int, int]:
-    """(parts, slots per part): the planes of ``active`` computed slots
-    (``cell_bytes`` a cell: 8 for the f32 mode's int64 sums, 4 for q8's
-    int32) split into parts that each fit a block's shared memory."""
+    """(parts, slots per part) of the full form: the planes of ``active``
+    computed slots (``cell_bytes`` a cell: 8 for the f32 mode's int64
+    sums, 4 for q8's int32) split into parts that each fit a block's
+    shared memory."""
     fit = (SMEM_PER_BLOCK - num_leaves * 4) // (num_bins * _STATS
                                                  * cell_bytes)
     _check(fit >= 1, f"hist_tile: {num_bins} bins + {num_leaves} leaves "
@@ -366,25 +485,71 @@ def hist_slot_parts(active: int, num_bins: int, num_leaves: int,
     return parts, -(-active // parts)
 
 
+def gather_layout(num_features: int, num_bins: int,
+                  q8: bool) -> Tuple[int, int, int]:
+    """The gather form's launch shape: (features a block accumulates, bytes
+    of a row of the row-major bin copy, rung entries a scatter block
+    stages). A block's planes ([group, B, 3] cells of 8 bytes in f32 mode,
+    4 in q8) fill at most its shared memory: 37 features at 255 bins in
+    f32, so the 28 Higgs features take one group. A bin row is padded to a
+    power of two up to 32 bytes (then to a multiple of 32), so that no row
+    straddles a 32-byte sector."""
+    cell = 4 if q8 else 8
+    fit = min(_GATHER_THREADS, (SMEM_PER_BLOCK - _STATIC_SMEM)
+              // (num_bins * _STATS * cell))
+    ngroups = -(-num_features // fit)
+    group = -(-num_features // ngroups)
+    width = 4
+    while width < min(num_features, 32):
+        width *= 2
+    if num_features > 32:
+        width = -(-num_features // 32) * 32
+    return group, width, _SCATTER_TILE
+
+
+def bins_by_row(binsT: torch.Tensor, width: int) -> torch.Tensor:
+    """[N, width] uint8 row-major copy of the bin matrix (zero-padded past
+    F), which the gather form reads rows of. Kept on the ``binsT`` tensor
+    itself and made again only after an in-place write to it (its version
+    counter) or for another width, so a trainer makes it once per
+    Dataset."""
+    kept = getattr(binsT, "_bins_by_row", None)
+    if kept is not None and kept[0] == binsT._version \
+            and kept[1].shape[1] == width:
+        return kept[1]
+    f, n = binsT.shape
+    rows = torch.zeros((n, width), dtype=torch.uint8, device=binsT.device)
+    rows[:, :f] = binsT.T
+    binsT._bins_by_row = (binsT._version, rows)
+    return rows
+
+
 def hist_tile(binsT: torch.Tensor, leaf_ids: torch.Tensor,
               stats: torch.Tensor, chan: torch.Tensor, num_slots: int,
               num_bins: int, num_leaves: int,
               idx: Optional[torch.Tensor] = None,
-              plane: bool = False) -> torch.Tensor:
+              plane: bool = False,
+              amax: Optional[torch.Tensor] = None) -> torch.Tensor:
     """[P, F, B, 3] histogram planes of the computed slots (see the module
     docstring). ``binsT`` [F, N] uint8, ``leaf_ids`` [N] int32, ``stats``
     [N, 3] f32 (f32 mode; float32 planes) or int8 (q8 mode; int32 planes),
     ``chan`` [1, 128] int32 (chan_leaf_table of the computed selection;
     read on the host to size the launch), ``idx`` [M] int32 or None;
-    ``plane`` marks a classic-path launch."""
+    ``plane`` marks a classic-path launch. ``amax`` (f32 mode only): [3]
+    float32 max|stat| of each channel over all N rows, which sets the
+    fixed-point scale; a caller that keeps the stats for several passes
+    computes it once, and without it every launch computes it."""
     q8 = stats.dtype == torch.int8
     _check(not q8 or binsT.shape[1] <= Q8_MAX_ROWS, f"hist_tile: q8 sums "
            f"overflow int32 beyond {Q8_MAX_ROWS} rows (got {binsT.shape[1]})")
+    _check(amax is None or not q8, "hist_tile: amax sets the f32 mode's "
+           "fixed-point scale; the q8 mode has none")
     if binsT.device.type == "cpu":
-        exact = _cpu_sums["kernel"] and not q8
-        plain = hist_tile_exact if exact else hist_tile_plain
-        return plain(binsT, leaf_ids, stats, chan, num_slots, num_bins,
-                     num_leaves, idx)
+        if _cpu_sums["kernel"] and not q8:
+            return hist_tile_exact(binsT, leaf_ids, stats, chan, num_slots,
+                                   num_bins, num_leaves, idx, amax)
+        return hist_tile_plain(binsT, leaf_ids, stats, chan, num_slots,
+                               num_bins, num_leaves, idx)
     _check(binsT.device.type == "cuda", f"hist_tile: no kernel for device "
            f"{binsT.device}")
     f, n = binsT.shape
@@ -393,7 +558,8 @@ def hist_tile(binsT: torch.Tensor, leaf_ids: torch.Tensor,
                         ("leaf_ids", leaf_ids, torch.int32),
                         ("stats", stats, torch.int8 if q8 else torch.float32),
                         ("chan", chan, torch.int32)) + (
-            (("idx", idx, torch.int32),) if idx is not None else ()):
+            (("idx", idx, torch.int32),) if idx is not None else ()) + (
+            (("amax", amax, torch.float32),) if amax is not None else ()):
         _check(t.device == dev or name == "chan", f"hist_tile: {name} on "
                f"{t.device}, binsT on {dev}")
         _check(t.dtype == dt, f"hist_tile: {name} must be {dt}, got {t.dtype}")
@@ -402,47 +568,31 @@ def hist_tile(binsT: torch.Tensor, leaf_ids: torch.Tensor,
            f" != ({n},)")
     _check(stats.shape == (n, _STATS), f"hist_tile: stats "
            f"{tuple(stats.shape)} != ({n}, 3)")
+    _check(amax is None or amax.shape == (_STATS,), "hist_tile: amax must "
+           "hold 3 channels")
     _check(chan.numel() == _PAD, "hist_tile: chan must hold 128 lanes")
     _check(1 <= num_slots and num_slots * _STATS <= _PAD,
            f"hist_tile: {num_slots} slots exceed the 128-lane tables")
     _check(1 <= num_bins <= MAX_BINS, f"hist_tile: num_bins {num_bins} "
            f"outside [1, {MAX_BINS}]")
     _check(n < 2 ** 31, "hist_tile: more than 2^31 rows")
-    # the computed slots, in slot order, get compact plane indices
-    lanes = chan.reshape(-1)[0:num_slots * _STATS:_STATS].cpu().numpy()
-    computed = (lanes >= 0) & (lanes < num_leaves)
-    comp_np = np.where(computed, np.cumsum(computed) - 1, -1).astype(np.int32)
-    active = int(computed.sum())
+    lanes, comp_np = _slot_table(chan, num_slots, num_leaves)
+    active = int((comp_np >= 0).sum())
     m = n if idx is None else idx.shape[0]
     out = torch.empty((num_slots, f, num_bins, _STATS),
                       dtype=torch.int32 if q8 else torch.float32, device=dev)
     if m == 0 or f == 0:
         return out.zero_()
-    # a tile with no computed slot still launches (its blocks return at
-    # once and the reduce writes zeros)
-    parts, per_part = hist_slot_parts(max(active, 1), num_bins, num_leaves,
-                                      4 if q8 else 8)
-    nchunk = _hist_chunks(f * parts, m, dev)
-    comp = torch.as_tensor(comp_np).to(dev)
-    chan_d = chan.to(dev).contiguous()
-    partial = torch.empty((nchunk, active, f, num_bins, _STATS),
-                          dtype=torch.int32 if q8 else torch.int64,
-                          device=dev)
     lib = _lib("hist_tile")
     stream = torch.cuda.current_stream(dev).cuda_stream
-    if q8:
-        err = lib.hist_tile_q8_launch(
-            _ptr(binsT), _ptr(leaf_ids), _ptr(stats), _ptr(chan_d),
-            _ptr(comp), _ptr(idx), _ptr(partial), _ptr(out), n, f, m,
-            num_slots, num_bins, num_leaves, nchunk, active, per_part, parts,
-            stream)
+    if idx is None:
+        err = _launch_full(lib, binsT, leaf_ids, stats, chan, comp_np, amax,
+                           out, q8, n, f, num_slots, num_bins, num_leaves,
+                           active, stream)
     else:
-        amax = torch.zeros((_STATS,), dtype=torch.int32, device=dev)
-        err = lib.hist_tile_launch(
-            _ptr(binsT), _ptr(leaf_ids), _ptr(stats), _ptr(chan_d),
-            _ptr(comp), _ptr(idx), _ptr(amax), _ptr(partial), _ptr(out), n,
-            f, m, num_slots, num_bins, num_leaves, nchunk, active, per_part,
-            parts, stream)
+        err = _launch_gather(lib, binsT, leaf_ids, stats, lanes, comp_np,
+                             idx, amax, out, q8, n, f, m, num_slots,
+                             num_bins, num_leaves, active, stream)
     sfx = "_q8" if q8 else ""
     _count(hist_tile, "launches" + sfx)
     if idx is not None:
@@ -451,6 +601,66 @@ def hist_tile(binsT: torch.Tensor, leaf_ids: torch.Tensor,
         _count(hist_tile, "launches_plane" + sfx)
     _raise_on(err, "hist_tile")
     return out
+
+
+def _launch_full(lib, binsT, leaf_ids, stats, chan, comp_np, amax, out, q8,
+                 n, f, p, b, l, active, stream) -> int:
+    """The full-row form: grid (feature, row chunk, slot part), chunk
+    partials, reduce. Returns the launcher's cudaError."""
+    dev = binsT.device
+    # a tile with no computed slot still launches (its blocks return at
+    # once and the reduce writes zeros)
+    parts, per_part = hist_slot_parts(max(active, 1), b, l, 4 if q8 else 8)
+    nchunk = _hist_chunks(f * parts, n, dev)
+    comp = torch.as_tensor(comp_np).to(dev)
+    chan_d = chan.to(dev).contiguous()
+    partial = torch.empty((nchunk, active, f, b, _STATS),
+                          dtype=torch.int32 if q8 else torch.int64,
+                          device=dev)
+    if q8:
+        return lib.hist_tile_q8_launch(
+            _ptr(binsT), _ptr(leaf_ids), _ptr(stats), _ptr(chan_d),
+            _ptr(comp), _ptr(partial), _ptr(out), n, f, p, b, l, nchunk,
+            active, per_part, parts, stream)
+    amax_d = torch.zeros((_STATS,), dtype=torch.int32, device=dev) \
+        if amax is None else amax
+    return lib.hist_tile_launch(
+        _ptr(binsT), _ptr(leaf_ids), _ptr(stats), _ptr(chan_d), _ptr(comp),
+        _ptr(amax_d), int(amax is None), _ptr(partial), _ptr(out), n, f, p,
+        b, l, nchunk, active, per_part, parts, stream)
+
+
+def _launch_gather(lib, binsT, leaf_ids, stats, lanes, comp_np, idx, amax,
+                   out, q8, n, f, m, p, b, l, active, stream) -> int:
+    """The gather form: partition the rung's rows into slot-grouped runs of
+    (row, stats), accumulate them over the row-major bins, convert
+    (csrc/hist_tile.cu). One host-to-device copy (the leaf -> compact slot
+    table and the slots' compact indices; from pageable memory without
+    waiting for the stream) and one scratch buffer, zeroed by the launcher
+    (the integer sums, the slot counts and cursors, and stat_absmax's words
+    when ``amax`` is None); no host sync. Returns the launcher's
+    cudaError."""
+    dev = binsT.device
+    group, width, tile = gather_layout(f, b, q8)
+    rows = bins_by_row(binsT, width)
+    table = np.full((l + p,), -1, dtype=np.int32)
+    table[lanes[comp_np >= 0]] = comp_np[comp_np >= 0]
+    table[l:] = comp_np
+    slotmap = torch.from_numpy(table).to(dev, non_blocking=True)
+    acc_bytes = active * f * b * _STATS * (4 if q8 else 8)
+    cnt_off = -(-acc_bytes // 8) * 8
+    amax_off = cnt_off + -(-8 * active // 8) * 8
+    scratch = torch.empty((amax_off // 8 + 2,), dtype=torch.int64,
+                          device=dev)
+    base = scratch.data_ptr()
+    payload = torch.empty((m * (2 if q8 else 8),), dtype=torch.int32,
+                          device=dev)
+    return lib.hist_gather_launch(
+        _ptr(rows), _ptr(leaf_ids), _ptr(stats), _ptr(slotmap), _ptr(idx),
+        None if q8 else (base + amax_off if amax is None else _ptr(amax)),
+        int(amax is None and not q8), base, scratch.numel() * 8,
+        base + cnt_off, _ptr(payload), base, _ptr(out), int(q8), n, f, m, p,
+        b, l, active, group, width, tile, stream)
 
 
 _COUNTERS = {"hist_tile": ("launches", "gather_launches", "launches_plane",

@@ -70,16 +70,19 @@ def histogram_tiles(binsT: torch.Tensor, stats: torch.Tensor,
                     leaf_ids: torch.Tensor, sel: torch.Tensor, num_bins: int,
                     num_leaves: int,
                     gather_idx: Optional[torch.Tensor] = None,
-                    plane: bool = True) -> torch.Tensor:
+                    plane: bool = True,
+                    amax: Optional[torch.Tensor] = None) -> torch.Tensor:
     """[P, F, B, 3] planes: slot p accumulates the rows whose leaf is
     ``sel[p]`` (< 0 = inactive slot, zero output); ``gather_idx`` restricts
     the pass to those rows (entries >= N are padding). Every slot is
     computed; no epilogue runs. ``sel`` may live on the host (its lane
     table is read there to size the launch). Float32 planes of float32
-    stats; exact int32 planes of int8 stats (q8)."""
+    stats; exact int32 planes of int8 stats (q8). ``amax``: the float
+    stats' max|stat| per channel, when the caller has it (``hist_tile``)."""
     chan = cuda_hist.chan_leaf_table(sel)
     return cuda_hist.hist_tile(binsT, leaf_ids, stats, chan, sel.shape[0],
-                               num_bins, num_leaves, gather_idx, plane=plane)
+                               num_bins, num_leaves, gather_idx, plane=plane,
+                               amax=amax)
 
 
 def epilogue_supported(p: int, s: int) -> bool:
@@ -121,16 +124,18 @@ def derive_and_scan(tile, derive, parent_planes, leaf_aux, fmeta, pvec, *,
 def histogram_tiles_with_candidates(binsT, stats, leaf_ids, sel, derive,
                                     parent_planes, leaf_aux, fmeta, pvec,
                                     num_bins: int, num_leaves: int,
-                                    gather_idx=None, q_scale=None):
+                                    gather_idx=None, q_scale=None,
+                                    amax=None):
     """Histogram tile pass + split epilogue: the computed (even) slots are
     histogrammed, the derived (odd) slots come from parent - sibling, and
     every (leaf, feature) reduces to its best candidate. In q8 mode
     (int8 ``stats``) the epilogue dequantizes the int32 tile by
-    ``q_scale`` first. Returns (float32 tile [P, F, B, 3] with the derived
-    planes filled in, cand [P, F, 12])."""
+    ``q_scale`` first; ``amax`` as ``histogram_tiles``'. Returns (float32
+    tile [P, F, B, 3] with the derived planes filled in, cand [P, F,
+    12])."""
     sel_compute = torch.where(derive, torch.full_like(sel, -1), sel)
     tile = histogram_tiles(binsT, stats, leaf_ids, sel_compute, num_bins,
-                           num_leaves, gather_idx, plane=False)
+                           num_leaves, gather_idx, plane=False, amax=amax)
     der = cuda_hist._epilogue_lanes(sel, derive).to(tile.device)
     return cuda_hist.split_epilogue(tile, parent_planes.contiguous(), der,
                                     leaf_aux.contiguous(), fmeta.contiguous(),

@@ -17,6 +17,10 @@ path's structure, on the fused and on the classic path. The q8 mode
 (quantized gradients): ``hist_tile`` on int8 stats and the dequantizing
 ``split_epilogue`` bitwise equal to their plain versions (exact int32
 sums), and a q8 training's model text on the card bitwise the CPU's.
+The gather form's edge cases (an empty computed slot, one slot with 90%
+of the rows, a rung of 1% real rows, 42 computed slots, one feature of
+two bins): bitwise the plain versions in both modes, with or without the
+caller's amax, and two launches equal.
 The experiment script's ``hist_onehot`` (bf16 tensor cores) within 1e-5
 of each cell's summed magnitudes of its plain version.
 """
@@ -292,3 +296,97 @@ def test_q8_training_on_card_equals_cpu(dev, path):
                                             params=p, **kw),
                              3).model_to_string()
     assert texts["cuda"] == texts["cpu"]
+
+
+GATHER_CASES = ["empty_slot", "hot_slot", "sparse_rung", "slots42", "f1_b2",
+                "f40"]
+
+
+def _gather_case(case, seed):
+    """A gather edge case at card scale: (binsT, leaf, sel, n_leaves, b,
+    idx) on the CPU. The rung holds the tile's rows in row order, a tenth
+    of the other rows and padding (N). ``empty_slot``: a computed leaf
+    with no rows; ``hot_slot``: 90% of the rows in one slot;
+    ``sparse_rung``: 1% of the rung is real rows; ``slots42``: 42 computed
+    slots (the plane path); ``f1_b2``: one feature of two bins; ``f40``:
+    40 features, wider than a 32-byte bin row."""
+    g = torch.Generator().manual_seed(seed)
+    n, f, b, n_leaves = 60_000, 28, 255, 255
+    sel = torch.full((42,), -1, dtype=torch.int32)
+    sel[0::2] = torch.arange(21, dtype=torch.int32) * 12
+    if case == "f1_b2":
+        f, b = 1, 2
+    if case == "f40":
+        f = 40
+    if case == "slots42":
+        f = 8
+        sel = torch.arange(42, dtype=torch.int32) * 6
+    binsT = torch.randint(0, b, (f, n), generator=g).to(torch.uint8)
+    leaf = torch.randint(0, n_leaves, (n,), generator=g, dtype=torch.int32)
+    if case == "empty_slot":
+        leaf[leaf == sel[2]] = 1                    # leaf 1 is in no slot
+    if case == "hot_slot":
+        leaf = torch.where(torch.rand(n, generator=g) < 0.9, sel[0], leaf)
+    keep = torch.isin(leaf, sel[sel >= 0]) | (torch.rand(n, generator=g)
+                                               < 0.1)
+    if case == "sparse_rung":
+        keep &= torch.rand(n, generator=g) < 0.02
+    size = 100 * int(keep.sum()) if case == "sparse_rung" \
+        else int(keep.sum()) + 37
+    rows = torch.nonzero(keep).reshape(-1).to(torch.int32)
+    idx = torch.cat([rows, torch.full((size - rows.shape[0],), n,
+                                      dtype=torch.int32)])
+    return binsT, leaf.contiguous(), sel, n_leaves, b, idx
+
+
+@pytest.mark.parametrize("case", GATHER_CASES)
+def test_hist_tile_gather_cases_match_plain(dev, case):
+    """The gather form on its edge cases: bitwise the plain version on
+    integer-valued stats, hist_tile_exact and the partition + accumulation
+    plain versions on float stats (with the grower's amax or without),
+    exact int32 sums in q8; two launches equal in each mode."""
+    binsT, leaf, sel, n_leaves, b, idx = _gather_case(case, 7)
+    n = leaf.shape[0]
+    p = sel.shape[0]
+    chan = cuda_hist.chan_leaf_table(sel)
+    g = torch.Generator().manual_seed(8)
+    ints = torch.stack([torch.randint(-3, 4, (n,), generator=g),
+                        torch.randint(0, 4, (n,), generator=g),
+                        torch.ones(n)], 1).float()
+    floats = torch.stack([torch.randn(n, generator=g),
+                          torch.rand(n, generator=g), torch.ones(n)], 1)
+    q8 = torch.randint(-127, 128, (n, 3), generator=g).to(torch.int8)
+    q8[:, 2] = 1
+    bd, ld, cd, id_ = (t.to(dev) for t in (binsT, leaf, chan, idx))
+    cuda_hist.reset_launch_counts()
+    for stats in (ints, floats, q8):
+        sd = stats.contiguous().to(dev)
+        k = cuda_hist.hist_tile(bd, ld, sd, cd, p, b, n_leaves, id_)
+        again = cuda_hist.hist_tile(bd, ld, sd, cd, p, b, n_leaves, id_,
+                                    plane=True)
+        if stats is ints:
+            ref = cuda_hist.hist_tile_plain(bd, ld, sd, cd, p, b, n_leaves,
+                                            id_)
+        elif stats is floats:
+            amax = sd.abs().amax(0)
+            ref = cuda_hist.hist_tile_exact(bd, ld, sd, cd, p, b, n_leaves,
+                                            id_)
+            given = cuda_hist.hist_tile(bd, ld, sd, cd, p, b, n_leaves, id_,
+                                        amax=amax)
+            off, rows = cuda_hist.gather_partition_plain(ld, cd, p, n_leaves,
+                                                         id_)
+            two = cuda_hist.gather_accumulate_plain(
+                bd, sd, off, rows, cd, p, b, n_leaves, idx.shape[0])
+            torch.cuda.synchronize()
+            assert torch.equal(given.view(torch.int32), k.view(torch.int32))
+            assert torch.equal(two.view(torch.int32), ref.view(torch.int32))
+        else:
+            ref = cuda_hist.hist_tile_plain(bd, ld, sd, cd, p, b, n_leaves,
+                                            id_)
+        torch.cuda.synchronize()
+        assert k.dtype == ref.dtype
+        assert torch.equal(k.view(torch.int32), ref.view(torch.int32))
+        assert torch.equal(k.view(torch.int32), again.view(torch.int32))
+    h = cuda_hist.hist_tile
+    assert (h.gather_launches, h.gather_launches_q8) == (5, 2)
+    assert (h.launches_plane, h.launches_plane_q8) == (2, 1)

@@ -488,3 +488,188 @@ def test_q8_classic_tile_pass_with_sparse_columns_matches_jax(all_sparse):
     gr.tile_pass(pst)
     _bits_equal(pst.hist.numpy(), jhist_)
     assert np.abs(jhist_).max() > 0
+
+
+# ------------------------------------------- the gather form's two passes
+GATHER_CASES = ["empty_slot", "hot_slot", "sparse_rung", "slots42", "f1_b2"]
+
+
+def _gather_case(case, seed=20):
+    """Inputs of one gather edge case: (binsT, leaf, sel, derive, n_leaves,
+    b, idx). The rung holds the rows of the tile's leaves in row order,
+    a tenth of the other rows (dropped by the pass) and padding (N).
+    ``empty_slot``: a computed leaf with no rows; ``hot_slot``: 90% of the
+    rows in one slot; ``sparse_rung``: 1% of the rung is real rows;
+    ``slots42``: 42 slots (all computed on the plane path, 21 computed and
+    21 derived on the fused one); ``f1_b2``: one feature of two bins."""
+    rng = np.random.RandomState(seed)
+    n, f, b, n_leaves = 1200, 3, 16, 12
+    sel = SEL.copy()
+    derive = np.array([0, 1, 0, 1, 0, 0, 0, 0], bool)
+    if case == "f1_b2":
+        f, b = 1, 2
+    if case == "slots42":
+        n_leaves = 48
+        sel = np.arange(42, dtype=np.int32)
+        derive = np.arange(42) % 2 == 1
+    binsT = rng.randint(0, b, size=(f, n)).astype(np.uint8)
+    leaf = rng.randint(0, n_leaves, n).astype(np.int32)
+    if case == "empty_slot":
+        leaf[leaf == sel[2]] = 4                    # leaf 4 is in no slot
+    if case == "hot_slot":
+        leaf = np.where(rng.rand(n) < 0.9, sel[0], leaf).astype(np.int32)
+    keep = np.isin(leaf, sel[sel >= 0]) | (rng.rand(n) < 0.1)
+    if case == "sparse_rung":
+        keep &= rng.rand(n) < 0.02
+    size = 100 * int(keep.sum()) if case == "sparse_rung" \
+        else int(keep.sum()) + 37
+    idx = compact_indices(torch.from_numpy(keep), size).numpy()
+    return binsT, leaf, sel, derive, n_leaves, b, idx
+
+
+def _gather_plain(binsT, leaf, stats, sel, n_leaves, b, idx, amax=None):
+    """The gather form's plain pipeline: partition, then accumulate."""
+    chan = cuda_hist.chan_leaf_table(torch.from_numpy(sel))
+    offsets, rows = cuda_hist.gather_partition_plain(
+        torch.from_numpy(leaf), chan, len(sel), n_leaves,
+        torch.from_numpy(idx))
+    return cuda_hist.gather_accumulate_plain(
+        torch.from_numpy(binsT), torch.from_numpy(stats), offsets, rows,
+        chan, len(sel), b, n_leaves, len(idx), amax)
+
+
+@pytest.mark.parametrize("case", GATHER_CASES)
+def test_gather_partition_matches_definition(case):
+    """Each computed slot's run holds the rung's rows whose leaf is that
+    slot's, in rung order; padding and other leaves are dropped."""
+    binsT, leaf, sel, _, n_leaves, _, idx = _gather_case(case)
+    n = leaf.shape[0]
+    offsets, rows = cuda_hist.gather_partition_plain(
+        torch.from_numpy(leaf), cuda_hist.chan_leaf_table(
+            torch.from_numpy(sel)), len(sel), n_leaves,
+        torch.from_numpy(idx))
+    real = idx[idx < n]
+    want = [real[leaf[real] == lf] for lf in sel if 0 <= lf < n_leaves]
+    assert offsets.tolist() == np.cumsum([0] + [len(w) for w in want]
+                                         ).tolist()
+    np.testing.assert_array_equal(rows.numpy(), np.concatenate(want))
+    if case == "empty_slot":
+        assert int(offsets[3] - offsets[2]) == 0
+    if case == "hot_slot":
+        assert int(offsets[1]) >= 0.85 * len(rows)
+    if case == "sparse_rung":
+        assert len(rows) <= 0.01 * len(idx)
+
+
+@pytest.mark.parametrize("case", GATHER_CASES)
+def test_gather_accumulate_matches_exact_and_pallas_gather_kernel(case):
+    """Partition + accumulation (plain): bitwise hist_tile_exact on float
+    stats (with and without a given amax), the interpreted Pallas
+    _gather_kernel in mode "highest" on integer-valued stats and in mode
+    "q8" on int8 stats."""
+    binsT, leaf, sel, _, n_leaves, b, idx = _gather_case(case)
+    n = leaf.shape[0]
+    rng = np.random.RandomState(21)
+    chan = cuda_hist.chan_leaf_table(torch.from_numpy(sel))
+    floats = rng.randn(n, 3).astype(np.float32)
+    exact = cuda_hist.hist_tile_exact(
+        torch.from_numpy(binsT), torch.from_numpy(leaf),
+        torch.from_numpy(floats), chan, len(sel), b, n_leaves,
+        torch.from_numpy(idx))
+    _bits_equal(_gather_plain(binsT, leaf, floats, sel, n_leaves, b,
+                              idx).numpy(), exact.numpy())
+    amax = torch.from_numpy(np.abs(floats).max(0))
+    _bits_equal(_gather_plain(binsT, leaf, floats, sel, n_leaves, b, idx,
+                              amax).numpy(), exact.numpy())
+    for mode, stats in (
+            ("highest", (rng.randint(-1023, 1024, (n, 3)) / 1024.0
+                         ).astype(np.float32)),
+            ("q8", rng.randint(-127, 128, (n, 3)).astype(np.int8))):
+        ref = jph.histogram_tiles_pallas_mode(
+            jnp.asarray(binsT), jnp.asarray(stats), jnp.asarray(leaf),
+            jnp.asarray(sel), b, block=256, mode=mode, idx=jnp.asarray(idx),
+            interpret=True)
+        out = _gather_plain(binsT, leaf, stats, sel, n_leaves, b, idx)
+        assert out.dtype == (torch.int32 if mode == "q8" else torch.float32)
+        _bits_equal(out.numpy(), ref)
+
+
+@pytest.mark.parametrize("mode", ["highest", "q8"])
+@pytest.mark.parametrize("case", GATHER_CASES)
+def test_gather_accumulate_matches_pallas_gather_epi_kernel(case, mode):
+    """The fused gather pass: the interpreted Pallas _gather_epi_kernel
+    against partition + accumulation (plain) of the computed slots
+    followed by split_epilogue_plain, tile and candidates bitwise, on
+    integer-valued f32 stats and on int8 stats (q8, dequantized by
+    q_scale in the epilogue)."""
+    binsT, leaf, sel, derive, n_leaves, b, idx = _gather_case(case)
+    n, f = leaf.shape[0], binsT.shape[0]
+    p = len(sel)
+    rng = np.random.RandomState(22)
+    q8 = mode == "q8"
+    if q8:
+        stats = rng.randint(-127, 128, (n, 3)).astype(np.int8)
+        q_scale = np.array([0.0137, 0.00291, 1.0], np.float32)
+    else:
+        stats = (rng.randint(-1023, 1024, (n, 3)) / 1024.0).astype(np.float32)
+        q_scale = None
+    stats[:, 2] = 1
+    # every slot's full plane (exact: integer sums), the derived slots'
+    # parents and the leaf aggregates
+    full = cuda_hist.hist_tile_plain(
+        torch.from_numpy(binsT), torch.from_numpy(leaf),
+        torch.from_numpy(stats), cuda_hist.chan_leaf_table(
+            torch.from_numpy(sel)), p, b, n_leaves).numpy()
+    full = full.astype(np.float32) * (1.0 if q_scale is None else q_scale)
+    parent = np.zeros_like(full)
+    for i in np.nonzero(derive)[0]:
+        parent[i] = full[i] + full[i - 1]
+    sums = full[:, 0].sum(1)
+    out = sums[:, 0] * np.float32(-0.1) / (sums[:, 1] + 1)
+    la = cuda_hist.pack_leaf_aux(*(torch.from_numpy(np.ascontiguousarray(c))
+                                   for c in (sums[:, 0], sums[:, 1],
+                                             sums[:, 2], out)))
+    nb = np.full(f, b, np.int32)
+    fm = cuda_hist.pack_feature_meta(*(torch.from_numpy(c) for c in (
+        nb, np.zeros(f, np.int32), np.zeros(f, np.int32),
+        np.zeros(f, np.int32))))
+    pv = np.array([0.0, 1.0, 0.0, 0.0, 2.0, 1e-3, 0.0, 0.0], np.float32)
+    jt, jc = jph.histogram_tiles_pallas_epilogue(
+        jnp.asarray(binsT), jnp.asarray(stats), jnp.asarray(leaf),
+        jnp.asarray(sel), jnp.asarray(derive), jnp.asarray(parent),
+        jnp.asarray(la.numpy()), jnp.asarray(fm.numpy()),
+        jnp.asarray(pv[:7]), b, block=256, mode=mode, idx=jnp.asarray(idx),
+        interpret=True,
+        q_scale=None if q_scale is None else jnp.asarray(q_scale))
+    sel_compute = np.where(derive, -1, sel).astype(np.int32)
+    tile = _gather_plain(binsT, leaf, stats, sel_compute, n_leaves, b, idx)
+    tt, tc = cuda_hist.split_epilogue_plain(
+        tile, torch.from_numpy(parent), cuda_hist._epilogue_lanes(
+            torch.from_numpy(sel), torch.from_numpy(derive)), la, fm,
+        torch.from_numpy(pv),
+        None if q_scale is None else torch.from_numpy(q_scale))
+    _bits_equal(tt.numpy(), jt)
+    _bits_equal(tc.numpy(), jc)
+    assert np.isfinite(np.asarray(jc)[..., 0]).any() or case == "f1_b2"
+
+
+def test_gather_layout_and_row_major_bins():
+    """The gather form's launch shape and its row-major bin copy: rows
+    padded to a power of two up to 32 bytes, then to multiples of 32; all
+    28 Higgs features in one f32 block; the copy zero-padded, built once
+    per bin matrix and again after an in-place write."""
+    assert [cuda_hist.gather_layout(f, 255, False)[1]
+            for f in (1, 4, 5, 8, 17, 28, 33, 65)] == [4, 4, 8, 8, 32, 32,
+                                                       64, 96]
+    assert cuda_hist.gather_layout(28, 255, False)[0] == 28
+    assert cuda_hist.gather_layout(28, 255, True)[0] == 28
+    assert cuda_hist.gather_layout(80, 255, False)[0] == 27  # 3 groups
+    binsT = torch.from_numpy(np.random.RandomState(13).randint(
+        0, 7, (5, 40)).astype(np.uint8))
+    rows = cuda_hist.bins_by_row(binsT, 8)
+    assert rows.shape == (40, 8) and torch.equal(rows[:, :5], binsT.T)
+    assert not rows[:, 5:].any()
+    assert cuda_hist.bins_by_row(binsT, 8) is rows
+    binsT[2, 3] = 6
+    again = cuda_hist.bins_by_row(binsT, 8)
+    assert again is not rows and int(again[3, 2]) == 6
