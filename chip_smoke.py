@@ -9,9 +9,17 @@ script exits non-zero; nothing is caught):
 
   device          nvidia-smi's name and power limit, torch's device name
   build           nvcc of every kernel source in lightgbm_tpu_torch/csrc/
-  hist_tile       full-row form at the train phase's shapes (N=--rows,
-                  F=28, B=255, 255 leaves, a 42-slot tile of 21 computed
-                  leaves): bitwise vs the plain version on integer-valued
+  hist_tile_root  the root pass, the one full pass a tree takes (a 42-slot
+                  tile whose slot 0 computes leaf 0, every row in it) of
+                  both paths and modes: F=28 (fused) and F=8 (plane-only),
+                  f32 and q8, each on uniform random bins and on the train
+                  phases' own bins (the Higgs- and Expo-shaped rows binned
+                  by the package's Dataset); checks and times as hist_tile
+                  and hist_tile_q8
+  hist_tile       full-row form of several computed slots at the train
+                  phase's shapes (N=--rows, F=28, B=255, 255 leaves, a
+                  42-slot tile of 21 computed leaves holding 3/4 of the
+                  rows): bitwise vs the plain version on integer-valued
                   stats, within 1e-5 of the summed magnitudes on float stats,
                   bitwise equal to hist_tile_exact (its own fixed-point
                   arithmetic in plain torch) and to a second launch on float
@@ -96,6 +104,12 @@ subprocess runs this script's hist_tile phases on DIR's package, same
 inputs and checks, before the first phase and after the last
 (``parent_times``); the ``kernels`` line carries those times as
 ``parent_ms``: two designs timed in one run.
+
+The ``kernels`` line gives each hist_tile entry the root pass on the train
+phase's own bins as its ``ms`` / ``plain_ms`` / ``bound_ms`` /
+``library_ms`` (the full pass the main path launches), with the root on
+uniform bins (``root_uniform``) and the several-slot probe
+(``multi_slot``) beside it.
 
 Then a ``kernels`` line, nvidia-smi's ``name, power.limit`` line, and last
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 1 and
@@ -192,7 +206,9 @@ def device_ms(fn, reps: int = 5):
     cold L2: the summed durations of the kernels, copies and fills it puts
     on the card (torch.profiler, CUDA activity), without the host's time
     between its launches that time_ms's events also hold. Returns (ms,
-    {kernel: ms} of the median call)."""
+    {kernel: ms} of the median call) over the calls whose trace holds
+    device time, or ("not measured", {}) when none does (the profiler
+    dropped the device activity)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     runs = []
@@ -207,17 +223,26 @@ def device_ms(fn, reps: int = 5):
             if _device_us(ev) > 0:
                 key = _short(ev.key)
                 split[key] = split.get(key, 0.0) + _device_us(ev) / 1e3
-        runs.append((sum(split.values()), split))
+        if split:
+            runs.append((sum(split.values()), split))
+    if not runs:
+        return "not measured", {}
     runs.sort(key=lambda r: r[0])
     return runs[len(runs) // 2]
 
 
 def float_err(kernel: torch.Tensor, plain: torch.Tensor,
-              magnitude: torch.Tensor, rtol: float = 1e-5) -> float:
+              magnitude: torch.Tensor, rtol: float = 1e-5,
+              rows: torch.Tensor = None) -> float:
     """Max |kernel - plain|; fails unless every cell is within ``rtol`` of
     the sum of the magnitudes that cell accumulated (a float32 sum's error
-    is bounded by the magnitudes, not by the possibly cancelling result)."""
+    is bounded by the magnitudes, not by the possibly cancelling result).
+    With ``rows`` (the rows each cell added) a cell's bound is the larger
+    of ``rtol`` and the float32 plain sum's own error bound over that many
+    terms, rows * 2^-24 (the root pass's cells add up to all N rows)."""
     diff = (kernel - plain).abs()
+    if rows is not None:
+        rtol = torch.clamp(rows * 2.0 ** -24, min=rtol)
     bad = diff > rtol * magnitude + 1e-30
     if bool(bad.any()):
         raise AssertionError(f"kernel disagrees with its plain version at "
@@ -234,11 +259,16 @@ def ladder_rungs(n: int):
     return [-(-max(int(round(n * fr)), 1) // 64) * 64 for fr in (0.125, 0.5)]
 
 
-def tile_selection(plane=False):
+def tile_selection(plane=False, root=False):
     """A tile as the grower hands it to hist_tile. Fused path: P slots, the
     computed smaller sibling of each pair in the even slot, the odd
     (derived) slot -1 -- 21 computed leaves out of LEAVES. Classic path
-    (``plane``): all P slots computed."""
+    (``plane``): all P slots computed. The root pass (``root``, both
+    paths): slot 0 computes leaf 0, the other slots nothing."""
+    if root:
+        sel = torch.full((P,), -1, dtype=torch.int32)
+        sel[0] = 0
+        return sel
     if plane:
         return torch.arange(P, dtype=torch.int32) * (LEAVES // P)
     sel = torch.full((P,), -1, dtype=torch.int32)
@@ -281,28 +311,32 @@ def hist_inputs(n, f, seed, integer, tile_leaves, share, hot=0.0, skew=0.0):
 
 
 def hist_phase(cuda_hist, n, m=None, seed=0, f=F, plane=False, real=0.9,
-               hot=0.0, skew=0.0):
+               hot=0.0, skew=0.0, root=False, bins=None):
     """Kernel vs plain on integer-valued and float stats at the shapes of
     one main-path pass: the full form (``m`` None; 3/4 of the rows in the
-    tile, as when a full pass is taken) or the gather form over a rung of
-    ``m`` rows holding the tile's rows (``real`` of the rung) in row order,
-    padded with N, as the grower builds it; ``hot`` and ``skew`` as
-    hist_inputs. ``plane``: the classic path's plane-only launch (all
-    slots computed). The kernel takes the stats' max|stat| from its caller,
-    as the grower passes it once a tree; a launch that computes it itself
-    and a second launch must give the same bits. ``ms_computing_amax``
-    times the launch without it. The kernel gets the slot table on the
-    host, as the grower hands it over; the plain versions on the card."""
+    tile's computed slots) or the gather form over a rung of ``m`` rows
+    holding the tile's rows (``real`` of the rung) in row order, padded
+    with N, as the grower builds it; ``hot`` and ``skew`` as hist_inputs.
+    ``root``: the root pass, the full pass the trainer takes (one computed
+    slot, every row in it); ``bins``: [f, n] bins on the card to use for
+    the random ones (the train phases' own data, real_bins). ``plane``:
+    the classic path's plane-only launch (all slots computed). The kernel
+    takes the stats' max|stat| from its caller, as the grower passes it
+    once a tree; a launch that computes it itself and a second launch
+    must give the same bits. ``ms_computing_amax`` times the launch
+    without it. The kernel gets the slot table on the host, as the grower
+    hands it over; the plain versions on the card."""
     from lightgbm_tpu_torch.ops.histogram import compact_indices
-    sel = tile_selection(plane)
+    sel = tile_selection(plane, root)
     tile_leaves = sel[sel >= 0]
     chan_h = cuda_hist.chan_leaf_table(sel)
     chan = chan_h.cuda()
-    share = 0.75 if m is None else real * m / n
+    share = 1.0 if root else 0.75 if m is None else real * m / n
     out = {}
     for integer in (True, False):
         binsT, leaf, stats = hist_inputs(n, f, seed, integer, tile_leaves,
                                          share, hot, skew)
+        binsT = binsT if bins is None else bins
         amax = stats.abs().amax(0)
         in_tile = torch.isin(leaf, tile_leaves.cuda())
         n_tile = int(in_tile.sum())
@@ -337,7 +371,10 @@ def hist_phase(cuda_hist, n, m=None, seed=0, f=F, plane=False, real=0.9,
         out["bitwise_vs_exact"] = True
         mag = cuda_hist.hist_tile_plain(binsT, leaf, stats.abs(), chan, P, B,
                                         LEAVES, idx)
-        out["max_abs_err"] = float_err(k, p, mag)
+        # a cell's rows: its count channel (1 a row); the root's cells add
+        # up to N rows, where the float32 plain sum's error passes 1e-5
+        out["max_abs_err"] = float_err(k, p, mag,
+                                       rows=mag[..., 2:] if root else None)
         out["ms"] = time_ms(lambda: cuda_hist.hist_tile(*kargs, plane=plane,
                                                         amax=amax))
         out["device_ms"], out["device_split"] = device_ms(
@@ -389,12 +426,56 @@ def stress_phase(cuda_hist, n):
                    for i, (k, kw) in enumerate(STRESS.items())}}
 
 
-def kernel_phases(cuda_hist, n):
-    """Every hist_tile phase of this script at N rows: the main path's
-    full form and rungs and the stress inputs, the classic path's
-    plane-only forms, and the q8 forms of both."""
-    rungs = ladder_rungs(n)
+def real_bins(n: int, valid_rows: int, seed: int):
+    """The bins of the train phases' own data on the card: the first n of
+    the Higgs-shaped rows of train_phase and of the Expo-shaped rows of
+    train_cat_phase, binned by the package's Dataset as those phases bin
+    them. Returns {"higgs": [28, n] uint8, "expo": [8, n] uint8}."""
+    import lightgbm_tpu_torch as lgb
+    params = dict(PARAMS, device_type="cuda")
+    X, y = higgs_like(n + valid_rows, seed)
+    higgs = lgb.Dataset(X[:n], label=y[:n], params=params).construct()
+    X, y = expo_like(n + valid_rows, seed + 11)
+    expo = lgb.Dataset(X[:n], label=y[:n], params=params,
+                       categorical_feature=CAT_COLUMNS).construct()
+    return {"higgs": higgs.binsT, "expo": expo.binsT}
+
+
+def root_phases(cuda_hist, n, bins):
+    """The root pass, the one full pass a tree takes (one computed slot,
+    all N rows), of both paths and modes, each on uniform random bins and
+    on the train phases' own bins (``bins``, real_bins)."""
     return {
+        "full_root": {
+            "uniform": hist_phase(cuda_hist, n, root=True, seed=51),
+            "higgs": hist_phase(cuda_hist, n, root=True, seed=52,
+                                bins=bins["higgs"])},
+        "plane_root": {
+            "uniform": hist_phase(cuda_hist, n, f=F_CAT, plane=True,
+                                  root=True, seed=53),
+            "expo": hist_phase(cuda_hist, n, f=F_CAT, plane=True, root=True,
+                               seed=54, bins=bins["expo"])},
+        "q8_full_root": {
+            "uniform": hist_q8_phase(cuda_hist, n, root=True, seed=55),
+            "higgs": hist_q8_phase(cuda_hist, n, root=True, seed=56,
+                                   bins=bins["higgs"])},
+        "q8_plane_root": {
+            "uniform": hist_q8_phase(cuda_hist, n, f=F_CAT, plane=True,
+                                     root=True, seed=57),
+            "expo": hist_q8_phase(cuda_hist, n, f=F_CAT, plane=True,
+                                  root=True, seed=58, bins=bins["expo"])}}
+
+
+def kernel_phases(cuda_hist, n, valid_rows, seed):
+    """Every hist_tile phase of this script at N rows: the root passes of
+    both paths and modes, the main path's full form of several slots and
+    its rungs and the stress inputs, the classic path's plane-only forms,
+    and the q8 forms of both (the train phases' data for the real bins
+    made from ``seed`` with ``valid_rows`` more rows, as they make it)."""
+    rungs = ladder_rungs(n)
+    bins = real_bins(n, valid_rows, seed)
+    return {
+        **root_phases(cuda_hist, n, bins),
         "full": hist_phase(cuda_hist, n),
         "rungs": {str(m): hist_phase(cuda_hist, n, m=m, seed=3)
                   for m in rungs},
@@ -446,16 +527,18 @@ if "amax" not in inspect.signature(cuda_hist.hist_tile).parameters:
     hist_tile.__dict__.update(cuda_hist.hist_tile.__dict__)  # its counters
     cuda_hist.hist_tile = hist_tile
 cuda_hist.build_kernels(("hist_tile",))
-print(json.dumps(cs._times(cs.kernel_phases(cuda_hist, int(sys.argv[3])))))
+print(json.dumps(cs._times(cs.kernel_phases(
+    cuda_hist, int(sys.argv[3]), int(sys.argv[4]), int(sys.argv[5])))))
 """
 
 
-def parent_times(parent_dir: str, n: int):
+def parent_times(parent_dir: str, n: int, valid_rows: int, seed: int):
     """The other checkout's hist_tile forms timed by this script's phases:
     per form, [event ms, device ms]."""
     res = subprocess.run([sys.executable, "-c", PARENT_PROBE,
                           os.path.abspath(parent_dir),
-                          os.path.abspath(__file__), str(n)],
+                          os.path.abspath(__file__), str(n),
+                          str(valid_rows), str(seed)],
                          cwd=parent_dir, capture_output=True, text=True,
                          timeout=900)
     if res.returncode != 0:
@@ -515,6 +598,7 @@ def epilogue_phase(cuda_hist, seed=0):
     return {"max_abs_err": float((kc - pc).nan_to_num(0.0).abs().max()),
             "valid_candidates": valid,
             "ms": time_ms(lambda: cuda_hist.split_epilogue(*args)),
+            "device_ms": device_ms(lambda: cuda_hist.split_epilogue(*args))[0],
             "plain_ms": time_ms(lambda: cuda_hist.split_epilogue_plain(*args),
                                 reps=10, warm=1),
             "library_ms": None, "bound_ms": bms, "bound_by": by}
@@ -532,18 +616,19 @@ def q8_stats(n: int, seed: int) -> torch.Tensor:
 
 
 def hist_q8_phase(cuda_hist, n, m=None, seed=0, f=F, plane=False, real=0.9,
-                  hot=0.0, skew=0.0):
+                  hot=0.0, skew=0.0, root=False, bins=None):
     """The q8 form (int8 stats, exact int32 planes) at the shapes of one
     main-path or classic-path pass, as hist_phase: bitwise vs the plain
     version and vs a second launch."""
     from lightgbm_tpu_torch.ops.histogram import compact_indices
-    sel = tile_selection(plane)
+    sel = tile_selection(plane, root)
     tile_leaves = sel[sel >= 0]
     chan_h = cuda_hist.chan_leaf_table(sel)
     chan = chan_h.cuda()
-    share = 0.75 if m is None else real * m / n
+    share = 1.0 if root else 0.75 if m is None else real * m / n
     binsT, leaf, _ = hist_inputs(n, f, seed, True, tile_leaves, share, hot,
                                  skew)
+    binsT = binsT if bins is None else bins
     stats = q8_stats(n, seed)
     in_tile = torch.isin(leaf, tile_leaves.cuda())
     n_tile = int(in_tile.sum())
@@ -664,6 +749,7 @@ def epilogue_q8_phase(cuda_hist, seed=0):
     return {"max_abs_err": float((kc - pc).nan_to_num(0.0).abs().max()),
             "valid_candidates": valid, "q_scale": q_scale.tolist(),
             "ms": statistics.median(turns["q8"]),
+            "device_ms": device_ms(lambda: cuda_hist.split_epilogue(*args))[0],
             "turns_ms": turns,
             "plain_ms": time_ms(lambda: cuda_hist.split_epilogue_plain(*args),
                                 reps=10, warm=1),
@@ -785,11 +871,19 @@ def train_phase(lgb, cuda_hist, args, q8_ref_auc=None):
     return out, launches
 
 
+# the port's own kernels (csrc/), each reported in a train phase's profile
+# whether or not it is among the iteration's top device times
+OWN_KERNELS = ("full_accumulate", "gather_count", "gather_scatter",
+               "gather_accumulate", "hist_tile_reduce", "stat_absmax",
+               "split_epilogue")
+
+
 def profile_iteration(booster, sec_per_iter: float):
     """Where one more boosting iteration's time goes: device time by kernel
     (torch.profiler, CUDA activity only) against the unprofiled sec/iter,
-    and the host's hottest Python functions (cProfile over a further
-    iteration; its own overhead inflates the host times)."""
+    the top 12 and every kernel of the port's own, and the host's hottest
+    Python functions (cProfile over a further iteration; its own overhead
+    inflates the host times)."""
     import cProfile
     import pstats
     from torch.profiler import ProfilerActivity, profile
@@ -806,7 +900,10 @@ def profile_iteration(booster, sec_per_iter: float):
     busy_ms = sum(r[0] for r in rows) / 1e3
     out = {"device_busy_ms": busy_ms if busy_ms > 0 else "not measured",
            "top_device": [{"name": k[:60], "ms": us / 1e3, "calls": c}
-                          for us, k, c in rows[:12]]}
+                          for us, k, c in rows[:12]],
+           "own_kernels": {_short(k): {"ms": us / 1e3, "calls": c}
+                           for us, k, c in rows
+                           if any(o in k for o in OWN_KERNELS)}}
     if busy_ms > 0:
         out["device_idle_share"] = max(0.0, 1 - busy_ms
                                        / (sec_per_iter * 1e3))
@@ -1111,6 +1208,18 @@ def hist_variants_phase(cuda_hist):
             "onehot_floor_ms": onehot_floor_ms}
 
 
+def _full_numbers(root, real, multi):
+    """A kernel entry's full-form numbers: its own keys from the root pass
+    on the train phase's bins (``root[real]``), the shape the main path
+    launches; beside them the root on uniform bins and the full form of
+    several computed slots."""
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    return {**{k: root[real][k] for k in keys},
+            "root_bins": real,
+            "root_uniform": {k: root["uniform"][k] for k in keys},
+            "multi_slot": {k: multi[k] for k in keys}}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1147,9 +1256,13 @@ def main() -> int:
     n = args.rows
     parent = []
     if args.parent:
-        parent.append(parent_times(args.parent, n))
+        parent.append(parent_times(args.parent, n, args.valid_rows,
+                                   args.seed))
         emit("parent_times", dir=args.parent, ms=parent[-1])
-    kp = kernel_phases(cuda_hist, n)
+    kp = kernel_phases(cuda_hist, n, args.valid_rows, args.seed)
+    emit("hist_tile_root", n=n, b=B, p=P, leaves=LEAVES,
+         **{k: kp[k] for k in ("full_root", "plane_root", "q8_full_root",
+                               "q8_plane_root")})
     full, rungs, stress = kp["full"], kp["rungs"], kp["stress"]
     emit("hist_tile", n=n, f=F, b=B, p=P, leaves=LEAVES, **full)
     emit("hist_tile_gather", n=n, f=F, b=B, p=P, leaves=LEAVES, rungs=rungs)
@@ -1188,23 +1301,24 @@ def main() -> int:
     hv = hist_variants_phase(cuda_hist)
     emit("hist_variants", **hv)
     if args.parent:
-        parent.append(parent_times(args.parent, n))
+        parent.append(parent_times(args.parent, n, args.valid_rows,
+                                   args.seed))
         emit("parent_times", dir=args.parent, ms=parent[-1])
 
     hist_err = max([full["max_abs_err"]]
                    + [r["max_abs_err"] for r in rungs.values()]
-                   + [r["max_abs_err"] for r in stress["f32"].values()])
+                   + [r["max_abs_err"] for r in stress["f32"].values()]
+                   + [r["max_abs_err"] for r in kp["full_root"].values()])
     plane_err = max([plane_full["max_abs_err"]]
-                    + [r["max_abs_err"] for r in plane_rungs.values()])
+                    + [r["max_abs_err"] for r in plane_rungs.values()]
+                    + [r["max_abs_err"] for r in kp["plane_root"].values()])
     kernels = [
         {"name": "hist_tile", "route": "cuda",
          "source": "lightgbm_tpu_torch/csrc/hist_tile.cu",
          "replaces": "lightgbm_tpu/ops/pallas_hist.py:497 _fused_epi_kernel "
                      "+ :527 _gather_epi_kernel (accumulation)",
          "launches": launches["hist_tile.launches"], "max_abs_err": hist_err,
-         "ms": full["ms"], "plain_ms": full["plain_ms"],
-         "bound_ms": full["bound_ms"], "bound_by": full["bound_by"],
-         "library_ms": full["library_ms"],
+         **_full_numbers(kp["full_root"], "higgs", full),
          "gather_launches": launches["hist_tile.gather_launches"],
          "gather_ms": {k: v["ms"] for k, v in rungs.items()},
          "gather_ms_computing_amax": {k: v["ms_computing_amax"]
@@ -1220,11 +1334,8 @@ def main() -> int:
                      "(pallas_call :270) + :205 _gather_kernel "
                      "(pallas_call :324)",
          "launches": cat_launches["hist_tile.launches_plane"],
-         "max_abs_err": plane_err, "ms": plane_full["ms"],
-         "plain_ms": plane_full["plain_ms"],
-         "bound_ms": plane_full["bound_ms"],
-         "bound_by": plane_full["bound_by"],
-         "library_ms": plane_full["library_ms"],
+         "max_abs_err": plane_err,
+         **_full_numbers(kp["plane_root"], "expo", plane_full),
          "gather_launches": cat_launches["hist_tile.gather_launches"],
          "gather_ms": {k: v["ms"] for k, v in plane_rungs.items()},
          "gather_ms_computing_amax": {k: v["ms_computing_amax"]
@@ -1239,6 +1350,7 @@ def main() -> int:
                      "(epilogue of :497 and :527)",
          "launches": launches["split_epilogue.launches"],
          "max_abs_err": epi["max_abs_err"], "ms": epi["ms"],
+         "device_ms": epi["device_ms"],
          "plain_ms": epi["plain_ms"], "bound_ms": epi["bound_ms"],
          "bound_by": epi["bound_by"], "library_ms": None},
         {"name": "hist_tile (q8)", "route": "cuda",
@@ -1250,10 +1362,10 @@ def main() -> int:
          "max_abs_err": max([q8_full["max_abs_err"]]
                             + [r["max_abs_err"] for r in q8_rungs.values()]
                             + [r["max_abs_err"]
-                               for r in stress["q8"].values()]),
-         "ms": q8_full["ms"], "plain_ms": q8_full["plain_ms"],
-         "bound_ms": q8_full["bound_ms"], "bound_by": q8_full["bound_by"],
-         "library_ms": q8_full["library_ms"],
+                               for r in stress["q8"].values()]
+                            + [r["max_abs_err"]
+                               for r in kp["q8_full_root"].values()]),
+         **_full_numbers(kp["q8_full_root"], "higgs", q8_full),
          "gather_launches": q8_launches["hist_tile.gather_launches_q8"],
          "gather_ms": {k: v["ms"] for k, v in q8_rungs.items()},
          "gather_bound_ms": {k: v["bound_ms"] for k, v in q8_rungs.items()},
@@ -1270,10 +1382,10 @@ def main() -> int:
          "launches": q8_cat_launches["hist_tile.launches_plane_q8"],
          "max_abs_err": max([q8_plane["max_abs_err"]]
                             + [r["max_abs_err"]
-                               for r in q8_plane_rungs.values()]),
-         "ms": q8_plane["ms"], "plain_ms": q8_plane["plain_ms"],
-         "bound_ms": q8_plane["bound_ms"], "bound_by": q8_plane["bound_by"],
-         "library_ms": q8_plane["library_ms"],
+                               for r in q8_plane_rungs.values()]
+                            + [r["max_abs_err"]
+                               for r in kp["q8_plane_root"].values()]),
+         **_full_numbers(kp["q8_plane_root"], "expo", q8_plane),
          "gather_launches": q8_cat_launches["hist_tile.gather_launches_q8"],
          "gather_ms": {k: v["ms"] for k, v in q8_plane_rungs.items()},
          "gather_bound_ms": {k: v["bound_ms"]
@@ -1286,6 +1398,7 @@ def main() -> int:
                      "mode q8 (dequant + epilogue of :497 and :527)",
          "launches": q8_launches["split_epilogue.launches_q8"],
          "max_abs_err": epi_q8["max_abs_err"], "ms": epi_q8["ms"],
+         "device_ms": epi_q8["device_ms"],
          "plain_ms": epi_q8["plain_ms"], "bound_ms": epi_q8["bound_ms"],
          "bound_by": epi_q8["bound_by"], "library_ms": None},
         {"name": "hist_onehot", "route": "cuda",
@@ -1300,16 +1413,19 @@ def main() -> int:
          "bound_by": hv["bound_by"], "library_ms": hv["library_ms"],
          "onehot_floor_ms": hv["onehot_floor_ms"]},
     ]
-    # device time (torch.profiler) beside the events' time of each form;
+    # device time (torch.profiler) beside the events' time of each form
+    # ("root/<bins>": the root pass, "full": the several-slot full form);
     # with --parent, the other design's [event ms, device ms] from the
     # probes before and after this run's phases, as a list per form
     times = _times(kp)
-    for entry, full_key, rung_key, stress_key in (
-            (kernels[0], "full", "rungs", "stress_f32"),
-            (kernels[1], "plane_full", "plane_rungs", None),
-            (kernels[3], "q8_full", "q8_rungs", "stress_q8"),
-            (kernels[4], "q8_plane", "q8_plane_rungs", None)):
-        keys = {"full": full_key}
+    for entry, root_key, full_key, rung_key, stress_key in (
+            (kernels[0], "full_root", "full", "rungs", "stress_f32"),
+            (kernels[1], "plane_root", "plane_full", "plane_rungs", None),
+            (kernels[3], "q8_full_root", "q8_full", "q8_rungs", "stress_q8"),
+            (kernels[4], "q8_plane_root", "q8_plane", "q8_plane_rungs",
+             None)):
+        keys = {f"root/{k}": f"{root_key}/{k}" for k in kp[root_key]}
+        keys["full"] = full_key
         keys.update({m: f"{rung_key}/{m}" for m in entry["gather_ms"]})
         if stress_key:
             keys.update({k: f"{stress_key}/{k}" for k in STRESS})

@@ -1,7 +1,7 @@
 // hist_tile.cu -- the histogram tile pass, deterministic, f32 and q8.
 //
 // Replaces lightgbm_tpu/ops/pallas_hist.py:
-//   _fused_kernel       plane-only full-row form   (hist_tile_launch)
+//   _fused_kernel       plane-only full-row form   (hist_full_launch)
 //   _gather_kernel      plane-only gather form     (hist_gather_launch;
 //                                                   idx[m], entries >= n
 //                                                   are padding)
@@ -19,12 +19,13 @@
 // chan_leaf_table) and whose bin of feature f is b. Slots whose lane holds
 // no leaf (derived or inactive) come out zero.
 //
-// What bounds it on an H100: memory for the full form, whose pass must
-// read the bin matrix once (n*F bytes), the leaf ids and stats once (16*n
-// bytes f32, 7*n bytes q8) and write the tile (P*F*B*3*4 bytes). The
-// gather form reads only the rung's rows, so its bytes are few, and its
-// floor is the 3*F shared-memory atomics a kept row costs (PERF.md has the
-// measured times).
+// What bounds it on an H100: by bytes, the full form's pass must read the
+// bin matrix once (n*F bytes), the leaf ids and stats once (16*n bytes f32,
+// 7*n bytes q8) and write the tile (P*F*B*3*4 bytes); the gather form reads
+// only the rung's rows. In practice both sit on the 3*F shared-memory
+// atomics a kept row costs (PERF.md has the measured times), so both read
+// each row once for all the features of a block and keep the atomics
+// 32-bit.
 //
 // Determinism, f32 mode: the sums are the same bits from run to run. Each
 // stat is added as a 64-bit fixed-point integer, value * 2^k rounded to the
@@ -47,13 +48,24 @@
 //
 // Full-row form (idx absent). The Pallas kernel keeps a [F*B, 128]
 // accumulator resident in VMEM across a sequential grid; GPU blocks run in
-// parallel and in no order, and 3.7 MB does not fit in shared memory. So
-// the grid is (feature, row chunk, slot part): each block privatises ONE
-// feature's plane for a part of the tile's computed slots in shared
-// memory, maps leaf -> slot through a table in shared memory, and writes
-// its plane to a per-chunk partial buffer; hist_tile_reduce sums the chunk
-// partials. The int64 plane holds 37 slots at 255 bins, so a tile of 42
-// computed slots runs as two parts in f32 mode and one in q8.
+// parallel and in no order, and 3.7 MB does not fit in shared memory. With
+// hist_subtraction a tile's computed slot is the smaller sibling of a pair,
+// so after the root every pass fits a compaction rung: the full form the
+// trainer launches is the root pass, one computed slot holding every row.
+// That pass (any tile of one computed slot) is full_accumulate + the
+// convert: one wave of blocks over contiguous row ranges, each block the
+// planes of a feature group (all 28 Higgs features in f32). A warp reads
+// 32 rows at a time -- leaf id and stats once, the stats converted once to
+// the launch's fixed point -- stages the rows of the slot's leaf in shared
+// memory and then takes their (row, feature) pairs lane by lane, the bins
+// from the row-major copy, so the lanes of a warp add to different
+// features and skewed bins rarely meet in one cell (on the Zipf-skewed
+// Expo bins the pass takes the uniform bins' time, so the block keeps one
+// copy of its planes: PERF.md). f32 cells are two 32-bit words
+// (add_split), not int64 compare-and-swap loops. The flush adds each
+// nonzero cell to [F, B, 3] integer sums in global memory. A tile of
+// several computed slots runs the gather form below over the implicit
+// rung 0..n-1 (no idx buffer).
 //
 // Gather form (rows idx[0:m], in row order, padded with n). The rung's
 // rows are few and scattered, so the cost is per row, not per byte: each
@@ -83,8 +95,8 @@
 //      nonzero cell to the [active, F, B, 3] integer sums in global memory
 //      (order-free integer atomics). No host sync: every block reads the
 //      slot offsets from the device counts.
-//   4. hist_tile_reduce (nchunk = 1): converts the sums to the output
-//      planes and zeroes the slots that are not computed.
+//   4. hist_tile_reduce: converts the sums to the output planes and zeroes
+//      the slots that are not computed (also the full form's convert).
 //
 // Numerics on Hopper: `pallas` and `pallas_hilo` are the same here. The
 // TPU's `hilo` bf16 hi/lo split is an MXU device; this kernel needs none.
@@ -102,6 +114,8 @@ constexpr int kMaxSlots = 42;     // 128 lanes / 3 stats
 constexpr int kMinRows = 512;     // fewest payload rows an accumulate block
                                   // takes: its flush is F*B*3 cells
 constexpr int kNonFinite = -2147483647 - 1;
+constexpr int kUnroll = 4;        // entries, rows or pairs a thread loads
+                                  // at once
 
 // Exponent k of the fixed-point scale 2^k for a channel whose largest
 // |stat| has float bits `amax_bits`, over `rows` rows; kNonFinite when the
@@ -141,8 +155,9 @@ __global__ void stat_absmax(const float* __restrict__ stats,
   }
 }
 
-// The two accumulation modes: the stat type, the accumulator, the
-// chunk-partial type and the output type.
+// The two accumulation modes: the stat type, the global sums' type as the
+// atomics add them (Acc) and as the convert reads them (Part), and the
+// output type.
 template <bool kQ8> struct Mode;
 template <> struct Mode<false> {
   using Stat = float;
@@ -157,99 +172,171 @@ template <> struct Mode<true> {
   using Out = int;
 };
 
-// ------------------------------------------------------------ full form
-// Block (feat, chunk, part): slots of compact index [part*S, part*S + S).
-// comp[p] is slot p's compact index among the computed slots (-1: none).
-template <bool kQ8>
-__global__ void hist_tile_accumulate(
-    const uint8_t* __restrict__ binsT, const int32_t* __restrict__ leaf,
-    const typename Mode<kQ8>::Stat* __restrict__ stats,
-    const int32_t* __restrict__ chan, const int32_t* __restrict__ comp,
-    const unsigned* __restrict__ amax_bits,
-    typename Mode<kQ8>::Part* __restrict__ partial, int n, int f, int p,
-    int b, int l, int nchunk, int active, int per_part) {
-  using Acc = typename Mode<kQ8>::Acc;
-  extern __shared__ __align__(16) unsigned char hist_smem[];
-  Acc* plane = reinterpret_cast<Acc*>(hist_smem);          // [S][b][3]
-  int* slot_of_leaf = reinterpret_cast<int*>(plane +
-                                             (size_t)per_part * b * kStats);
-  __shared__ double scale[kStats];
-  const int feat = blockIdx.x;
-  const int chunk = blockIdx.y;
-  const int c0 = blockIdx.z * per_part;
-  const int here = min(per_part, active - c0);
-  if (here <= 0) return;
-  const int cells = here * b * kStats;
+// f32 mode's shared-memory cell: a 64-bit fixed-point sum kept as two
+// 32-bit words, low (unsigned) and high (signed), so that an add is one or
+// two native 32-bit shared-memory atomics instead of a 64-bit
+// compare-and-swap loop (ATOMS.CAST.SPIN.64, which int64 shared-memory
+// cells compile to). The low word's carry goes into the high word: the
+// pair holds the exact sum modulo 2^64, as an int64 accumulator would
+// (|high| stays below 2^31: the scale keeps |sum of v| < 2^61 over the
+// pass, and the carries are at most one a row).
+__device__ __forceinline__ void add_split(unsigned* cell, long long v) {
+  const unsigned lo = (unsigned)v;
+  int hi = (int)(v >> 32);
+  if (lo) {
+    const unsigned old = atomicAdd(cell, lo);
+    hi += (old + lo < old) ? 1 : 0;
+  }
+  if (hi) atomicAdd(reinterpret_cast<int*>(cell) + 1, hi);
+}
 
-  for (int i = threadIdx.x; i < cells; i += blockDim.x) plane[i] = 0;
-  for (int i = threadIdx.x; i < l; i += blockDim.x) slot_of_leaf[i] = -1;
+// ------------------------------------------------------------ full form
+// Words of a staged row's stats: three int64 fixed-point values (f32), or
+// three int8 packed in one word (q8).
+template <bool kQ8> struct Staged {
+  static constexpr int kWords = kQ8 ? 1 : 2 * kStats;
+};
+
+// Block (x, y): rows [x*per, x*per + per) of the n rows (per a multiple of
+// 32, the rows split evenly over gridDim.x), features [y*group, y*group +
+// group); only the rows of leaf `target` are added. Shared memory: the
+// planes ([group][b][3] cells: the add_split pair in f32 mode, 8 bytes; an
+// int32 sum in q8, 4), then each warp's 32 staged rows (their stats, then
+// their row ids). accum [f][b][3] integer sums, zeroed by the caller. Pair
+// q of a warp's staged rows is (row q / gn, feature q % gn).
+template <bool kQ8>
+__global__ void full_accumulate(
+    const uint8_t* __restrict__ rows, const int32_t* __restrict__ leaf,
+    const typename Mode<kQ8>::Stat* __restrict__ stats,
+    const unsigned* __restrict__ amax_bits,
+    typename Mode<kQ8>::Acc* __restrict__ accum, int n, int f, int b,
+    int target, int width, int group) {
+  using SG = Staged<kQ8>;
+  constexpr int kWords = kQ8 ? 1 : 2;                      // words a cell
+  extern __shared__ __align__(16) unsigned char full_smem[];
+  __shared__ double scale[kStats];
+  const int g0 = blockIdx.y * group;
+  const int gn = min(group, f - g0);
+  const int row_cells = b * kStats;
+  const int cells = gn * row_cells;
+  const int warps = blockDim.x >> 5;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  unsigned* plane = reinterpret_cast<unsigned*>(full_smem);
+  uint32_t* val = plane + (size_t)cells * kWords;         // 8-byte aligned
+  int* srow = reinterpret_cast<int*>(val + (size_t)warps * 32 * SG::kWords)
+              + warp * 32;
+  val += (size_t)warp * 32 * SG::kWords;
+  for (int i = threadIdx.x; i < cells * kWords; i += blockDim.x) plane[i] = 0;
   if (!kQ8 && threadIdx.x < kStats)
     scale[threadIdx.x] = fixed_scale(amax_bits[threadIdx.x], n);
   __syncthreads();
-  if (threadIdx.x < p) {
-    const int lf = chan[threadIdx.x * kStats];
-    const int c = comp[threadIdx.x] - c0;
-    if (lf >= 0 && lf < l && c >= 0 && c < here) slot_of_leaf[lf] = c;
-  }
-  __syncthreads();
 
-  const long long per = ((long long)n + nchunk - 1) / nchunk;
-  const long long r0 = (long long)chunk * per;
+  long long per = ((long long)n + gridDim.x - 1) / gridDim.x;
+  per = (per + 31) / 32 * 32;
+  const long long r0 = (long long)blockIdx.x * per;
   const long long r1 = min((long long)n, r0 + per);
-  const uint8_t* col = binsT + (size_t)feat * n;
-  for (long long r = r0 + threadIdx.x; r < r1; r += blockDim.x) {
-    const int lf = leaf[r];
-    if (lf < 0 || lf >= l) continue;
-    const int s = slot_of_leaf[lf];
-    if (s < 0) continue;
-    const int bin = col[r];
-    if (bin >= b) continue;
-    Acc* cell = plane + ((size_t)s * b + bin) * kStats;
-    const typename Mode<kQ8>::Stat* st = stats + (size_t)r * kStats;
-    for (int c = 0; c < kStats; ++c) {
+  const int step_j = 32 / gn, step_f = 32 % gn;    // a lane's step: 32 pairs
+  for (long long base = r0 + (long long)warp * 32; base < r1;
+       base += (long long)warps * 32) {
+    // stage the chunk's rows of the slot: lane i reads row base + i
+    const long long r = base + lane;
+    int lf = -1;
+    typename Mode<kQ8>::Stat st[kStats];
+    if (r < r1) {
+      lf = leaf[r];
+      for (int c = 0; c < kStats; ++c) st[c] = stats[r * kStats + c];
+    }
+    const bool keep = lf == target;
+    const unsigned mask = __ballot_sync(0xffffffffu, keep);
+    if (keep) {
+      const int j = __popc(mask & ((1u << lane) - 1u));
+      srow[j] = (int)r;
       if constexpr (kQ8) {
-        atomicAdd(cell + c, (int)st[c]);
+        val[j] = (uint32_t)(uint8_t)st[0] | ((uint32_t)(uint8_t)st[1] << 8)
+                 | ((uint32_t)(uint8_t)st[2] << 16);
       } else {
-        const long long v = __double2ll_rn((double)st[c] * scale[c]);
-        atomicAdd(cell + c, (unsigned long long)v);
+        long long* v = reinterpret_cast<long long*>(val + j * SG::kWords);
+        for (int c = 0; c < kStats; ++c)
+          v[c] = __double2ll_rn((double)st[c] * scale[c]);
       }
     }
+    __syncwarp();
+    // add the staged rows' (row, feature) pairs, kUnroll bins loaded at once
+    const int total = __popc(mask) * gn;
+    int j = lane / gn;
+    int fi = lane - j * gn;
+    for (int q = lane; q < total; q += 32 * kUnroll) {
+      int bin[kUnroll], jr[kUnroll], fr[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        jr[u] = j;
+        fr[u] = fi;
+        bin[u] = q + 32 * u < total
+                     ? rows[(size_t)srow[j] * width + g0 + fi] : b;
+        j += step_j;
+        fi += step_f;
+        if (fi >= gn) {
+          fi -= gn;
+          ++j;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        if (bin[u] >= b) continue;
+        unsigned* cell =
+            plane + ((size_t)fr[u] * row_cells + bin[u] * kStats) * kWords;
+        if constexpr (kQ8) {
+          const uint32_t w = val[jr[u]];
+          for (int k = 0; k < kStats; ++k)
+            atomicAdd(reinterpret_cast<int*>(cell) + k,
+                      (int)(int8_t)(uint8_t)(w >> (8 * k)));
+        } else {
+          const long long* v =
+              reinterpret_cast<const long long*>(val + jr[u] * SG::kWords);
+          for (int k = 0; k < kStats; ++k) add_split(cell + 2 * k, v[k]);
+        }
+      }
+    }
+    __syncwarp();
   }
   __syncthreads();
-
-  // partial layout [chunk][active][f][b][3]
-  const int row = b * kStats;
+  // flush: each nonzero cell added to the global sums
+  typename Mode<kQ8>::Acc* dst = accum + (size_t)g0 * row_cells;
   for (int i = threadIdx.x; i < cells; i += blockDim.x) {
-    const int s = i / row;
-    const int rem = i - s * row;
-    partial[(((size_t)chunk * active + c0 + s) * f + feat) * row + rem] =
-        (typename Mode<kQ8>::Part)plane[i];
+    if constexpr (kQ8) {
+      const int v = (int)plane[i];
+      if (v != 0) atomicAdd(dst + i, v);
+    } else {
+      const unsigned long long v =
+          ((unsigned long long)plane[2 * i + 1] << 32) + plane[2 * i];
+      if (v != 0) atomicAdd(dst + i, v);
+    }
   }
 }
 
-// out[p][f][b][s] = the chunk partials of slot p's compact index, summed
-// as integers; in f32 mode converted to float32 once (0 for a slot with
-// none). `m` is the row count the fixed-point exponent was taken over.
+// out[p][f][b][s] = the integer sums of slot p's compact index c (comp[p],
+// or with comp null: 0 for slot `only`, none for the others), in f32 mode
+// converted to float32 once; 0 for a slot with none. `m` is the row count
+// the fixed-point exponent was taken over.
 template <bool kQ8>
 __global__ void hist_tile_reduce(
-    const typename Mode<kQ8>::Part* __restrict__ partial,
-    const int32_t* __restrict__ comp, const unsigned* __restrict__ amax_bits,
-    typename Mode<kQ8>::Out* __restrict__ out, int p, int f, int b, int m,
-    int nchunk, int active) {
+    const typename Mode<kQ8>::Part* __restrict__ accum,
+    const int32_t* __restrict__ comp, int only,
+    const unsigned* __restrict__ amax_bits,
+    typename Mode<kQ8>::Out* __restrict__ out, int p, int f, int b, int m) {
   const long long per_slot = (long long)f * b * kStats;
   const long long cells = (long long)p * per_slot;
   for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
        e < cells; e += (long long)gridDim.x * blockDim.x) {
     const int slot = (int)(e / per_slot);
     const long long rest = e - slot * per_slot;
-    const int c = comp[slot];
+    const int c = comp != nullptr ? comp[slot] : (slot == only ? 0 : -1);
     if (c < 0) {
       out[e] = 0;
       continue;
     }
-    typename Mode<kQ8>::Part acc = 0;
-    for (int ch = 0; ch < nchunk; ++ch)
-      acc += partial[((long long)ch * active + c) * per_slot + rest];
+    const typename Mode<kQ8>::Part acc = accum[c * per_slot + rest];
     if constexpr (kQ8) {
       out[e] = acc;
     } else {
@@ -261,54 +348,68 @@ __global__ void hist_tile_reduce(
   }
 }
 
-int launch_reduce(bool q8, const void* partial, const int32_t* comp,
-                    const unsigned* amax_bits, void* out, int p, int f,
-                    int b, int m, int nchunk, int active, cudaStream_t st) {
+int launch_reduce(bool q8, const void* accum, const int32_t* comp, int only,
+                  const unsigned* amax_bits, void* out, int p, int f, int b,
+                  int m, cudaStream_t st) {
   const long long cells = (long long)p * f * b * kStats;
   const long long want = (cells + 255) / 256;
   const int blocks = (int)(want < 65535 ? (want > 0 ? want : 1) : 65535);
   if (q8)
     hist_tile_reduce<true><<<blocks, 256, 0, st>>>(
-        static_cast<const int*>(partial), comp, amax_bits,
-        static_cast<int*>(out), p, f, b, m, nchunk, active);
+        static_cast<const int*>(accum), comp, only, amax_bits,
+        static_cast<int*>(out), p, f, b, m);
   else
     hist_tile_reduce<false><<<blocks, 256, 0, st>>>(
-        static_cast<const long long*>(partial), comp, amax_bits,
-        static_cast<float*>(out), p, f, b, m, nchunk, active);
+        static_cast<const long long*>(accum), comp, only, amax_bits,
+        static_cast<float*>(out), p, f, b, m);
   return (int)cudaGetLastError();
 }
 
-// The full form's accumulate + reduce launches of one mode; returns
-// cudaGetLastError().
+int device_sms() {
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return sms > 0 ? sms : 1;
+}
+
+// The full form's accumulate + convert launches of one mode (one computed
+// slot, `slot`, whose leaf is `target`; slot -1: none computed, the convert
+// alone writes zeros); returns cudaGetLastError().
 template <bool kQ8>
-int launch_full(const void* binsT, const void* leaf, const void* stats,
-                const void* chan, const void* comp,
-                const unsigned* amax_bits, void* partial, void* out, int n,
-                int f, int p, int b, int l, int nchunk, int active,
-                int per_part, int nparts, cudaStream_t st) {
+int launch_full(const uint8_t* rows, const void* leaf, const void* stats,
+                const unsigned* amax_bits, void* accum, void* out, int n,
+                int f, int p, int b, int slot, int target, int group,
+                int width, cudaStream_t st) {
   using M = Mode<kQ8>;
-  const size_t smem = (size_t)per_part * b * kStats * sizeof(typename M::Acc)
-                      + (size_t)l * sizeof(int);
+  if (slot < 0)
+    return launch_reduce(kQ8, accum, nullptr, -1, amax_bits, out, p, f, b,
+                         n, st);
+  const size_t smem = (size_t)group * b * kStats * (kQ8 ? 4 : 8)
+                      + (size_t)kThreads * (Staged<kQ8>::kWords + 1) * 4;
   cudaError_t err = cudaFuncSetAttribute(
-      hist_tile_accumulate<kQ8>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      full_accumulate<kQ8>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(f, nchunk, nparts);
-  hist_tile_accumulate<kQ8><<<grid, kThreads, smem, st>>>(
-      static_cast<const uint8_t*>(binsT), static_cast<const int32_t*>(leaf),
-      static_cast<const typename M::Stat*>(stats),
-      static_cast<const int32_t*>(chan), static_cast<const int32_t*>(comp),
-      amax_bits, static_cast<typename M::Part*>(partial), n, f, p, b, l,
-      nchunk, active, per_part);
+  int occ = 1;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, full_accumulate<kQ8>,
+                                                kThreads, smem);
+  const int ngroups = (f + group - 1) / group;
+  const long long wave = (long long)device_sms() * (occ > 0 ? occ : 1);
+  long long blocks = (wave + ngroups - 1) / ngroups;
+  const long long most = ((long long)n + kMinRows - 1) / kMinRows;
+  blocks = blocks < most ? blocks : most;
+  full_accumulate<kQ8><<<dim3((int)(blocks > 0 ? blocks : 1), ngroups),
+                         kThreads, smem, st>>>(
+      rows, static_cast<const int32_t*>(leaf),
+      static_cast<const typename M::Stat*>(stats), amax_bits,
+      static_cast<typename M::Acc*>(accum), n, f, b, target, width, group);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  return launch_reduce(kQ8, partial, static_cast<const int32_t*>(comp),
-                         amax_bits, out, p, f, b, n, nchunk, active, st);
+  return launch_reduce(kQ8, accum, nullptr, slot, amax_bits, out, p, f, b,
+                       n, st);
 }
 
 // ----------------------------------------------------------- gather form
-constexpr int kUnroll = 4;        // entries / rows a thread loads at once
-
 // Compact slot of the row r of a rung entry (-1: padding, or a leaf in no
 // computed slot).
 __device__ __forceinline__ int row_slot(const int32_t* __restrict__ leaf,
@@ -353,7 +454,8 @@ __device__ __forceinline__ void warp_scan_slots(const int* in, int* out,
 }
 
 // counts[c] += the rung rows of compact slot c. Each thread loads kUnroll
-// entries' row, leaf and slot before it counts them.
+// entries' row, leaf and slot before it counts them. A null idx is the
+// implicit rung 0..m-1 (the full form's several-slot pass).
 __global__ void gather_count(const int32_t* __restrict__ idx,
                              const int32_t* __restrict__ leaf,
                              const int32_t* __restrict__ slot_of,
@@ -369,7 +471,7 @@ __global__ void gather_count(const int32_t* __restrict__ idx,
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const long long i = base + u * blockDim.x + threadIdx.x;
-      r[u] = i < m ? idx[i] : -1;
+      r[u] = i < m ? (idx != nullptr ? idx[i] : (int)i) : -1;
     }
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u)
@@ -384,7 +486,7 @@ __global__ void gather_count(const int32_t* __restrict__ idx,
 // (q8), or words 2..7 three int64 fixed-point values (f32; 8-byte
 // aligned). counts[0, active) are the slot counts, counts[active,
 // 2*active) the slots' fill cursors (zeroed by the caller). A tile is
-// blockDim.x rung entries, one a thread.
+// blockDim.x rung entries, one a thread; a null idx as in gather_count.
 template <bool kQ8> struct Payload {
   static constexpr int kWords = kQ8 ? 2 : 8;    // words a row
   static constexpr int kStat = kQ8 ? 1 : 2;     // first stats word
@@ -417,7 +519,7 @@ __global__ void gather_scatter(
     for (int s = threadIdx.x; s < active; s += T) t_cnt[s] = 0;
     __syncthreads();
     const long long i = base + threadIdx.x;
-    const int r = i < m ? idx[i] : -1;
+    const int r = i < m ? (idx != nullptr ? idx[i] : (int)i) : -1;
     const int s = row_slot(leaf, slot_of, r, n, l);
     const int rank = warp_slot_add(t_cnt, s);
     __syncthreads();
@@ -452,24 +554,6 @@ __global__ void gather_scatter(
     }
     __syncthreads();
   }
-}
-
-// f32 mode's shared-memory cell: a 64-bit fixed-point sum kept as two
-// 32-bit words, low (unsigned) and high (signed), so that an add is one or
-// two native 32-bit shared-memory atomics instead of a 64-bit
-// compare-and-swap loop (ATOMS.CAST.SPIN.64, which the full form's int64
-// cells compile to). The low word's carry goes into the high word: the
-// pair holds the exact sum modulo 2^64, as an int64 accumulator would
-// (|high| stays below 2^31: the scale keeps |sum of v| < 2^61 over the
-// pass, and the carries are at most one a row).
-__device__ __forceinline__ void add_split(unsigned* cell, long long v) {
-  const unsigned lo = (unsigned)v;
-  int hi = (int)(v >> 32);
-  if (lo) {
-    const unsigned old = atomicAdd(cell, lo);
-    hi += (old + lo < old) ? 1 : 0;
-  }
-  if (hi) atomicAdd(reinterpret_cast<int*>(cell) + 1, hi);
 }
 
 // Block (x, y): payload rows [x*per, x*per + per) (per >= kMinRows, the
@@ -570,13 +654,6 @@ __global__ void gather_accumulate(const uint32_t* __restrict__ payload,
   }
 }
 
-int device_sms() {
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  return sms > 0 ? sms : 1;
-}
-
 // The gather form's four launches (count, scatter, accumulate, convert) of
 // one mode, after the scratch memset; returns cudaGetLastError().
 template <bool kQ8>
@@ -632,8 +709,7 @@ int launch_gather(const uint8_t* rows, const void* leaf, const void* stats,
       active, width, group);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  return launch_reduce(kQ8, accum, comp, amax_bits, out, p, f, b, m, 1,
-                         active, st);
+  return launch_reduce(kQ8, accum, comp, 0, amax_bits, out, p, f, b, m, st);
 }
 
 void launch_absmax(const void* stats, void* amax_bits, int n,
@@ -646,50 +722,48 @@ void launch_absmax(const void* stats, void* amax_bits, int n,
 
 }  // namespace
 
-// Full-row form, f32 mode. Returns cudaGetLastError() (0 = launched).
-// `stats` n * 3 floats; `amax_bits` 3 words: the float32 max|stat| of each
-// channel, or (`compute_amax` != 0) 3 zeroed words that stat_absmax fills;
-// `partial` nchunk * active * f * b * 3 int64, `out` p * f * b * 3 floats;
-// `comp` p int32 compact slot indices; grid (f, nchunk, nparts) with
-// `per_part` slots a part.
-extern "C" int hist_tile_launch(const void* binsT, const void* leaf,
-                                const void* stats, const void* chan,
-                                const void* comp, void* amax_bits,
-                                int compute_amax, void* partial, void* out,
-                                int n, int f, int p, int b, int l,
-                                int nchunk, int active, int per_part,
-                                int nparts, void* stream) {
+// Full-row form of a tile with one computed slot, `slot` (leaf `target`),
+// `q8` != 0 for the q8 mode. Returns cudaGetLastError() (0 = launched).
+// `rows` the bins row-major, n * `width` bytes (feature f of row r at
+// r * width + f); `stats` n * 3 floats (f32) or int8 (q8); `amax_bits` 3
+// words, the float32 max|stat| of each channel, or (`compute_amax` != 0)
+// 3 words of the scratch that stat_absmax fills (f32 mode only);
+// `scratch` `scratch_bytes` bytes, zeroed here, holding `accum` (f * b * 3
+// int64 in f32 mode, int32 in q8) and stat_absmax's words; `out` p * f * b
+// * 3 float32 (f32) or int32 (q8). `group` features share a block.
+extern "C" int hist_full_launch(const void* rows, const void* leaf,
+                                const void* stats, void* amax_bits,
+                                int compute_amax, void* scratch,
+                                long long scratch_bytes, void* accum,
+                                void* out, int q8, int n, int f, int p,
+                                int b, int slot, int target, int group,
+                                int width, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaMemsetAsync(scratch, 0, (size_t)scratch_bytes, st);
+  if (err != cudaSuccess) return (int)err;
+  const uint8_t* rw = static_cast<const uint8_t*>(rows);
+  if (q8)
+    return launch_full<true>(rw, leaf, stats, nullptr, accum, out, n, f, p,
+                             b, slot, target, group, width, st);
   if (compute_amax) {
     launch_absmax(stats, amax_bits, n, st);
-    const cudaError_t err = cudaGetLastError();
+    err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
-  return launch_full<false>(binsT, leaf, stats, chan, comp,
-                            static_cast<const unsigned*>(amax_bits), partial,
-                            out, n, f, p, b, l, nchunk, active, per_part,
-                            nparts, st);
+  return launch_full<false>(rw, leaf, stats,
+                            static_cast<const unsigned*>(amax_bits), accum,
+                            out, n, f, p, b, slot, target, group, width,
+                            st);
 }
 
-// Full-row form, q8 mode: `stats` n * 3 int8, `partial` nchunk * active *
-// f * b * 3 int32, `out` p * f * b * 3 int32; the rest as hist_tile_launch.
-extern "C" int hist_tile_q8_launch(const void* binsT, const void* leaf,
-                                   const void* stats, const void* chan,
-                                   const void* comp, void* partial,
-                                   void* out, int n, int f, int p, int b,
-                                   int l, int nchunk, int active,
-                                   int per_part, int nparts, void* stream) {
-  return launch_full<true>(binsT, leaf, stats, chan, comp, nullptr, partial,
-                           out, n, f, p, b, l, nchunk, active, per_part,
-                           nparts, static_cast<cudaStream_t>(stream));
-}
-
-// Gather form over idx[m] (entries outside [0, n) are padding), `q8` != 0
-// for the q8 mode. `rows` the bins row-major, n * `width` bytes (feature f
-// of row r at r * width + f); `slotmap` l + p int32: each leaf's compact
-// slot (-1: not computed), then each slot's compact index (-1: none);
-// `amax_bits` as hist_tile_launch (f32 mode only); `scratch`
-// `scratch_bytes` bytes, zeroed here, holding `counts` (2 * active int32),
+// Gather form over idx[m] (entries outside [0, n) are padding; a null idx
+// is the implicit rung 0..m-1, the full form of a tile with several
+// computed slots), `q8` != 0 for the q8 mode. `rows` the bins row-major,
+// n * `width` bytes (feature f of row r at r * width + f); `slotmap`
+// l + p int32: each leaf's compact slot (-1: not computed), then each
+// slot's compact index (-1: none); `amax_bits` as hist_full_launch (f32
+// mode only); `scratch` `scratch_bytes` bytes, zeroed here, holding
+// `counts` (2 * active int32),
 // `accum` (active * f * b * 3 int64 in f32 mode, int32 in q8) and, with
 // `compute_amax`, `amax_bits`; `payload` m * 8 (f32) or m * 2 (q8) words;
 // `out` p * f * b * 3 float32 (f32) or int32 (q8). `group` features share

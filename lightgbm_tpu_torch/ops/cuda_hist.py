@@ -8,16 +8,21 @@ step for the fused path (``_fused_epi_kernel``, ``_gather_epi_kernel``). On
 Hopper that is two hand-written CUDA kernels (``csrc/``):
 
 - ``hist_tile`` (``csrc/hist_tile.cu``): the ``[P, F, B, 3]`` planes of the
-  tile's computed slots, in the full-row form (``idx=None``; grid over
-  (feature, row chunk, slot part)) or the gather form (rows ``idx[M]``,
-  entries >= N are padding), which partitions the rung's rows once into
-  slot-grouped runs of (row id, stats) and accumulates each run over all
-  features at once, reading the rows' bins from a row-major copy of the
-  bin matrix (``bins_by_row``; plain versions ``gather_partition_plain``
-  and ``gather_accumulate_plain``); deterministic, so two launches give
-  the same bits. Two modes, chosen by the stats' dtype: f32 (float stats,
-  64-bit fixed-point sums, float32 planes) and q8 (the quantized-gradient
-  mode: int8 stats, exact int32 sums, int32 planes).
+  tile's computed slots, in the full-row form (``idx=None``) or the gather
+  form (rows ``idx[M]``, entries >= N are padding). The gather form
+  partitions the rung's rows once into slot-grouped runs of (row id,
+  stats) and accumulates each run over all features at once (plain
+  versions ``gather_partition_plain`` and ``gather_accumulate_plain``).
+  The full form of a tile with one computed slot -- the root pass, the one
+  full pass a tree takes with ``hist_subtraction`` -- reads every row once
+  for all features of a block, with no partition (``full_accumulate``;
+  plain version ``full_accumulate_plain``); a tile of several computed
+  slots runs the gather form over all N rows. Both read the rows' bins
+  from one row-major copy of the bin matrix (``bins_by_row``). Both are
+  deterministic, so two launches give the same bits. Two modes, chosen by
+  the stats' dtype: f32 (float stats, 64-bit fixed-point sums, float32
+  planes) and q8 (the quantized-gradient mode: int8 stats, exact int32
+  sums, int32 planes).
   ``plane=True`` marks a launch of the classic path (the plane-only
   kernels 3-4). Each mode counts its own launches: ``launches``,
   ``gather_launches`` and ``launches_plane`` for f32, ``launches_q8``,
@@ -79,6 +84,7 @@ Q8_MAX_ROWS = (2 ** 31 - 1) // 127   # q8: |sum| <= 127 * rows fits int32
 SMEM_PER_BLOCK = 232_448    # Hopper: dynamic shared memory a block can use
 _STATIC_SMEM = 1024         # room left for a gather kernel's static arrays
 _GATHER_THREADS = 1024      # threads of a gather accumulate block
+_FULL_THREADS = 1024        # threads of a full_accumulate block (32 warps)
 _SCATTER_TILE = 256         # rung entries (threads) of a gather scatter block
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD = Path(__file__).resolve().parent.parent / "_build"
@@ -215,11 +221,10 @@ def build_kernels(names: Tuple[str, ...] = _SOURCES) -> float:
 def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     if name == "hist_tile":
-        lib.hist_tile_launch.argtypes = ([vp] * 6 + [ci] + [vp] * 2
-                                         + [ci] * 9 + [vp])
-        lib.hist_tile_launch.restype = ci
-        lib.hist_tile_q8_launch.argtypes = [vp] * 7 + [ci] * 9 + [vp]
-        lib.hist_tile_q8_launch.restype = ci
+        lib.hist_full_launch.argtypes = ([vp] * 4 + [ci, vp,
+                                                     ctypes.c_longlong]
+                                         + [vp] * 2 + [ci] * 9 + [vp])
+        lib.hist_full_launch.restype = ci
         lib.hist_gather_launch.argtypes = ([vp] * 6 + [ci, vp,
                                                        ctypes.c_longlong]
                                            + [vp] * 4 + [ci] * 11 + [vp])
@@ -374,22 +379,25 @@ def hist_tile_exact(binsT: torch.Tensor, leaf_ids: torch.Tensor,
 
 def gather_partition_plain(leaf_ids: torch.Tensor, chan: torch.Tensor,
                            num_slots: int, num_leaves: int,
-                           idx: torch.Tensor
+                           idx: Optional[torch.Tensor] = None
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of the gather form's partition pass
     (``csrc/hist_tile.cu`` ``gather_count`` + ``gather_scatter``): the
     rung's kept rows grouped by computed slot. An entry is kept when it is
     no padding (0 <= idx < N) and its row's leaf is the leaf of a computed
     slot; compact slot c is the c-th slot of the tile that computes a
-    leaf. Returns (offsets [A + 1] int64, rows [R] int64): compact slot
-    c's rows are ``rows[offsets[c]:offsets[c + 1]]``, in rung order (the
-    kernel's order within a slot is free: its sums are integers)."""
+    leaf; ``idx`` None is the implicit rung of all N rows (the full form of
+    a tile with several computed slots). Returns (offsets [A + 1] int64,
+    rows [R] int64): compact slot c's rows are
+    ``rows[offsets[c]:offsets[c + 1]]``, in rung order (the kernel's order
+    within a slot is free: its sums are integers)."""
     n = leaf_ids.shape[0]
     dev = leaf_ids.device
     lanes, comp = _slot_table(chan, num_slots, num_leaves)
     slot_of = np.full((num_leaves,), -1, dtype=np.int64)
     slot_of[lanes[comp >= 0]] = comp[comp >= 0]
-    rows = idx.to(torch.int64)
+    rows = (torch.arange(n, device=dev) if idx is None
+            else idx.to(torch.int64))
     rows = rows[(rows >= 0) & (rows < n)]
     lid = leaf_ids[rows].to(torch.int64)
     ok = (lid >= 0) & (lid < num_leaves)
@@ -445,6 +453,85 @@ def gather_accumulate_plain(binsT: torch.Tensor, stats: torch.Tensor,
     return out
 
 
+def _block_cells(vals: torch.Tensor, bins: torch.Tensor,
+                 num_bins: int) -> torch.Tensor:
+    """[gf * B, 3] sums of ``vals`` [R, 3] over a block's rows at their
+    ``bins`` [R, gf] of a feature group (bins >= B are dropped, as the
+    kernel drops them), in the dtype of ``vals``."""
+    r, gf = bins.shape
+    ok = (bins < num_bins).reshape(-1, 1)
+    cells = (torch.arange(gf, device=bins.device)[None, :] * num_bins
+             + bins.clamp(max=num_bins - 1)).reshape(-1)
+    contrib = vals[:, None, :].expand(r, gf, _STATS).reshape(-1, _STATS)
+    acc = torch.zeros((gf * num_bins, _STATS), dtype=vals.dtype,
+                      device=bins.device)
+    return acc.index_add_(0, cells, torch.where(ok, contrib, 0))
+
+
+def full_accumulate_plain(binsT: torch.Tensor, leaf_ids: torch.Tensor,
+                          stats: torch.Tensor, chan: torch.Tensor,
+                          num_slots: int, num_bins: int, num_leaves: int,
+                          amax: Optional[torch.Tensor] = None,
+                          blocks: int = 3) -> torch.Tensor:
+    """Plain version of ``hist_tile``'s full form (``idx=None``). One
+    computed slot (the root pass): ``full_accumulate``'s decomposition --
+    ``blocks`` row ranges of a multiple of 32 rows, each block's rows of the
+    slot's leaf summed per feature group of ``full_layout`` into cells of
+    its own; in f32 mode each cell is the two 32-bit words ``add_split``
+    keeps (the low word's carries added to the high word, both modulo 2^32)
+    of the fixed-point values of ``hist_tile_exact`` (scale 2^k from
+    ``amax``, by default max|stat| over all N rows, and N); the blocks'
+    cells added as int64 (the flush), one conversion (the convert):
+    bitwise ``hist_tile_exact``. Several computed slots: the gather form's
+    plain pipeline over all N rows. q8 mode (int8 stats): exact int32
+    sums. Slots that compute nothing come out zero. Returns [P, F, B, 3]
+    f32, or int32 in q8 mode."""
+    f, n = binsT.shape
+    dev = binsT.device
+    q8 = stats.dtype == torch.int8
+    lanes, comp = _slot_table(chan, num_slots, num_leaves)
+    if int((comp >= 0).sum()) > 1:
+        offsets, rows = gather_partition_plain(leaf_ids, chan, num_slots,
+                                               num_leaves)
+        return gather_accumulate_plain(binsT, stats, offsets, rows, chan,
+                                       num_slots, num_bins, num_leaves, n,
+                                       amax)
+    out = torch.zeros((num_slots, f, num_bins, _STATS),
+                      dtype=torch.int32 if q8 else torch.float32, device=dev)
+    on = np.flatnonzero(comp == 0)
+    if not on.size or n == 0 or f == 0:
+        return out
+    slot = int(on[0])
+    group = full_layout(f, num_bins, q8)[0]
+    if q8:
+        vals = stats.to(torch.int32)
+    else:
+        vals, k, finite = _to_fixed(stats, _absmax(stats) if amax is None
+                                    else amax, n)
+        lo, hi = vals & 0xFFFFFFFF, vals >> 32     # the two words of a value
+    sums = torch.zeros((f * num_bins, _STATS), dtype=vals.dtype, device=dev)
+    kept = leaf_ids == int(lanes[slot])
+    per = -(-n // blocks)
+    per = -(-per // 32) * 32
+    for r0 in range(0, n, per):
+        r = r0 + torch.nonzero(kept[r0:r0 + per]).reshape(-1)
+        for g0 in range(0, f, group):
+            gf = min(group, f - g0)
+            bins = binsT[g0:g0 + gf, r].T.to(torch.int64)       # [R, gf]
+            if q8:
+                cell = _block_cells(vals[r], bins, num_bins)
+            else:
+                lo_sum = _block_cells(lo[r], bins, num_bins)
+                hi_word = (_block_cells(hi[r], bins, num_bins)
+                           + (lo_sum >> 32))
+                hi_word = ((hi_word + 2 ** 31) & 0xFFFFFFFF) - 2 ** 31
+                cell = hi_word * 2 ** 32 + (lo_sum & 0xFFFFFFFF)
+            sums[g0 * num_bins:(g0 + gf) * num_bins] += cell
+    planes = sums.reshape(f, num_bins, _STATS)
+    out[slot] = planes if q8 else _from_fixed(planes, k, finite)
+    return out
+
+
 _cpu_sums = {"kernel": False}
 
 
@@ -461,50 +548,47 @@ def kernel_sums_on_cpu():
         _cpu_sums["kernel"] = old
 
 
-def _hist_chunks(blocks_per_chunk: int, m: int, dev: torch.device) -> int:
-    """Row chunks of the full form: one wave of blocks over the card's SMs
-    (one block per SM fits at the main path's shared-memory size), no chunk
-    under 1024 rows."""
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    return int(max(1, min(max(1, sms // max(blocks_per_chunk, 1)),
-                          -(-m // 1024))))
-
-
-def hist_slot_parts(active: int, num_bins: int, num_leaves: int,
-                    cell_bytes: int = 8) -> Tuple[int, int]:
-    """(parts, slots per part) of the full form: the planes of ``active``
-    computed slots (``cell_bytes`` a cell: 8 for the f32 mode's int64
-    sums, 4 for q8's int32) split into parts that each fit a block's
-    shared memory."""
-    fit = (SMEM_PER_BLOCK - num_leaves * 4) // (num_bins * _STATS
-                                                 * cell_bytes)
-    _check(fit >= 1, f"hist_tile: {num_bins} bins + {num_leaves} leaves "
-           f"leave no room for one slot in {SMEM_PER_BLOCK} bytes of shared "
-           f"memory")
-    parts = -(-active // fit)
-    return parts, -(-active // parts)
-
-
 def gather_layout(num_features: int, num_bins: int,
                   q8: bool) -> Tuple[int, int, int]:
     """The gather form's launch shape: (features a block accumulates, bytes
     of a row of the row-major bin copy, rung entries a scatter block
     stages). A block's planes ([group, B, 3] cells of 8 bytes in f32 mode,
     4 in q8) fill at most its shared memory: 37 features at 255 bins in
-    f32, so the 28 Higgs features take one group. A bin row is padded to a
-    power of two up to 32 bytes (then to a multiple of 32), so that no row
-    straddles a 32-byte sector."""
+    f32, so the 28 Higgs features take one group."""
     cell = 4 if q8 else 8
     fit = min(_GATHER_THREADS, (SMEM_PER_BLOCK - _STATIC_SMEM)
               // (num_bins * _STATS * cell))
     ngroups = -(-num_features // fit)
     group = -(-num_features // ngroups)
+    return group, _row_width(num_features), _SCATTER_TILE
+
+
+def _row_width(num_features: int) -> int:
+    """Bytes of a row of the row-major bin copy: F padded to a power of two
+    up to 32 (then to a multiple of 32), so no row straddles a 32-byte
+    sector."""
     width = 4
     while width < min(num_features, 32):
         width *= 2
     if num_features > 32:
         width = -(-num_features // 32) * 32
-    return group, width, _SCATTER_TILE
+    return width
+
+
+def full_layout(num_features: int, num_bins: int,
+                q8: bool) -> Tuple[int, int]:
+    """The launch shape of ``full_accumulate`` (the full form of a tile
+    with one computed slot): (features a block accumulates, bytes of a row
+    of the row-major bin copy -- ``gather_layout``'s, so both forms share
+    one copy). A block's shared memory holds its 32 warps' staged rows (32
+    a warp: row id and stats, 28 bytes a row in f32 mode, 8 in q8) and its
+    planes ([group, B, 3] cells of 8 bytes in f32 mode, 4 in q8): 33
+    features fit at 255 bins in f32, so the 28 Higgs features take one
+    group."""
+    room = SMEM_PER_BLOCK - _STATIC_SMEM - _FULL_THREADS * (8 if q8 else 28)
+    fit = room // (num_bins * _STATS * (4 if q8 else 8))
+    ngroups = -(-num_features // fit)
+    return -(-num_features // ngroups), _row_width(num_features)
 
 
 def bins_by_row(binsT: torch.Tensor, width: int) -> torch.Tensor:
@@ -546,6 +630,10 @@ def hist_tile(binsT: torch.Tensor, leaf_ids: torch.Tensor,
            "fixed-point scale; the q8 mode has none")
     if binsT.device.type == "cpu":
         if _cpu_sums["kernel"] and not q8:
+            if idx is None:
+                return full_accumulate_plain(binsT, leaf_ids, stats, chan,
+                                             num_slots, num_bins,
+                                             num_leaves, amax)
             return hist_tile_exact(binsT, leaf_ids, stats, chan, num_slots,
                                    num_bins, num_leaves, idx, amax)
         return hist_tile_plain(binsT, leaf_ids, stats, chan, num_slots,
@@ -585,10 +673,9 @@ def hist_tile(binsT: torch.Tensor, leaf_ids: torch.Tensor,
         return out.zero_()
     lib = _lib("hist_tile")
     stream = torch.cuda.current_stream(dev).cuda_stream
-    if idx is None:
-        err = _launch_full(lib, binsT, leaf_ids, stats, chan, comp_np, amax,
-                           out, q8, n, f, num_slots, num_bins, num_leaves,
-                           active, stream)
+    if idx is None and active <= 1:
+        err = _launch_full(lib, binsT, leaf_ids, stats, lanes, comp_np, amax,
+                           out, q8, n, f, num_slots, num_bins, stream)
     else:
         err = _launch_gather(lib, binsT, leaf_ids, stats, lanes, comp_np,
                              idx, amax, out, q8, n, f, m, num_slots,
@@ -603,43 +690,40 @@ def hist_tile(binsT: torch.Tensor, leaf_ids: torch.Tensor,
     return out
 
 
-def _launch_full(lib, binsT, leaf_ids, stats, chan, comp_np, amax, out, q8,
-                 n, f, p, b, l, active, stream) -> int:
-    """The full-row form: grid (feature, row chunk, slot part), chunk
-    partials, reduce. Returns the launcher's cudaError."""
-    dev = binsT.device
-    # a tile with no computed slot still launches (its blocks return at
-    # once and the reduce writes zeros)
-    parts, per_part = hist_slot_parts(max(active, 1), b, l, 4 if q8 else 8)
-    nchunk = _hist_chunks(f * parts, n, dev)
-    comp = torch.as_tensor(comp_np).to(dev)
-    chan_d = chan.to(dev).contiguous()
-    partial = torch.empty((nchunk, active, f, b, _STATS),
-                          dtype=torch.int32 if q8 else torch.int64,
-                          device=dev)
-    if q8:
-        return lib.hist_tile_q8_launch(
-            _ptr(binsT), _ptr(leaf_ids), _ptr(stats), _ptr(chan_d),
-            _ptr(comp), _ptr(partial), _ptr(out), n, f, p, b, l, nchunk,
-            active, per_part, parts, stream)
-    amax_d = torch.zeros((_STATS,), dtype=torch.int32, device=dev) \
-        if amax is None else amax
-    return lib.hist_tile_launch(
-        _ptr(binsT), _ptr(leaf_ids), _ptr(stats), _ptr(chan_d), _ptr(comp),
-        _ptr(amax_d), int(amax is None), _ptr(partial), _ptr(out), n, f, p,
-        b, l, nchunk, active, per_part, parts, stream)
+def _launch_full(lib, binsT, leaf_ids, stats, lanes, comp_np, amax, out,
+                 q8, n, f, p, b, stream) -> int:
+    """The full-row form of a tile with one computed slot: full_accumulate
+    over the row-major bins, convert (csrc/hist_tile.cu); a tile with none
+    launches the convert alone, which writes zeros. No slot table on the
+    device (the slot and its leaf go as arguments) and one scratch buffer,
+    zeroed by the launcher (the integer sums and stat_absmax's words when
+    ``amax`` is None); no host sync. Returns the launcher's cudaError."""
+    group, width = full_layout(f, b, q8)
+    rows = bins_by_row(binsT, width)
+    on = np.flatnonzero(comp_np == 0)
+    slot, target = (int(on[0]), int(lanes[on[0]])) if on.size else (-1, -1)
+    amax_off = -(-f * b * _STATS * (4 if q8 else 8) // 8) * 8
+    scratch = torch.empty((amax_off // 8 + 2,), dtype=torch.int64,
+                          device=binsT.device)
+    base = scratch.data_ptr()
+    return lib.hist_full_launch(
+        _ptr(rows), _ptr(leaf_ids), _ptr(stats),
+        None if q8 else (base + amax_off if amax is None else _ptr(amax)),
+        int(amax is None and not q8), base, scratch.numel() * 8, base,
+        _ptr(out), int(q8), n, f, p, b, slot, target, group, width, stream)
 
 
 def _launch_gather(lib, binsT, leaf_ids, stats, lanes, comp_np, idx, amax,
                    out, q8, n, f, m, p, b, l, active, stream) -> int:
     """The gather form: partition the rung's rows into slot-grouped runs of
     (row, stats), accumulate them over the row-major bins, convert
-    (csrc/hist_tile.cu). One host-to-device copy (the leaf -> compact slot
-    table and the slots' compact indices; from pageable memory without
-    waiting for the stream) and one scratch buffer, zeroed by the launcher
-    (the integer sums, the slot counts and cursors, and stat_absmax's words
-    when ``amax`` is None); no host sync. Returns the launcher's
-    cudaError."""
+    (csrc/hist_tile.cu); ``idx`` None is the full form of a tile with
+    several computed slots, over the implicit rung of all N rows. One
+    host-to-device copy (the leaf -> compact slot table and the slots'
+    compact indices; from pageable memory without waiting for the stream)
+    and one scratch buffer, zeroed by the launcher (the integer sums, the
+    slot counts and cursors, and stat_absmax's words when ``amax`` is
+    None); no host sync. Returns the launcher's cudaError."""
     dev = binsT.device
     group, width, tile = gather_layout(f, b, q8)
     rows = bins_by_row(binsT, width)

@@ -20,7 +20,10 @@ sums), and a q8 training's model text on the card bitwise the CPU's.
 The gather form's edge cases (an empty computed slot, one slot with 90%
 of the rows, a rung of 1% real rows, 42 computed slots, one feature of
 two bins): bitwise the plain versions in both modes, with or without the
-caller's amax, and two launches equal.
+caller's amax, and two launches equal. The same for the full form of a
+one-slot tile (the root pass) at the Higgs and Expo widths, on skewed
+bins (80% in one bin, Zipf columns), at 40 features (two feature groups)
+and with most rows outside the slot.
 The experiment script's ``hist_onehot`` (bf16 tensor cores) within 1e-5
 of each cell's summed magnitudes of its plain version.
 """
@@ -60,7 +63,9 @@ def _hist_inputs(n, f, b, leaves, seed, integer):
     (5_000, 3, 16, 7, True), (777, 1, 2, 1, False)])
 @pytest.mark.parametrize("integer", [True, False])
 def test_hist_tile_matches_plain(dev, n, f, b, p, gather, integer):
-    """42 computed slots at 255 bins take two slot parts; fewer, one."""
+    """Full form: 42 or 7 computed slots run the gather form over all N
+    rows, one slot (p=1 has none, whose launch writes zeros) the one-slot
+    kernel."""
     leaves = p + 5
     binsT, leaf, stats = _hist_inputs(n, f, b, leaves, n + f, integer)
     sel = torch.arange(p, dtype=torch.int32)
@@ -158,9 +163,13 @@ def test_wrapper_raises_instead_of_falling_back(dev):
     with pytest.raises(ValueError, match="num_bins"):
         cuda_hist.hist_tile(binsT.to(dev), leaf.to(dev), stats.to(dev),
                             chan.to(dev), 2, 300, 4)
-    with pytest.raises(ValueError, match="shared memory"):
-        cuda_hist.hist_tile(binsT.to(dev), leaf.to(dev), stats.to(dev),
-                            chan.to(dev), 2, 8, 60_000)
+    # no form keeps a per-leaf table in shared memory any more, so a tile
+    # over 60,000 leaves runs; one wider than the 128-lane tables raises
+    args = (binsT.to(dev), leaf.to(dev), stats.to(dev), chan.to(dev))
+    wide = cuda_hist.hist_tile(*args, 2, 8, 60_000)
+    assert torch.equal(wide, cuda_hist.hist_tile_plain(*args, 2, 8, 60_000))
+    with pytest.raises(ValueError, match="slots exceed"):
+        cuda_hist.hist_tile(*args, 43, 8, 4)
 
 
 @pytest.mark.parametrize("path", ["fused", "categorical", "sparse"])
@@ -204,7 +213,7 @@ def test_training_on_card_matches_cpu_structure(dev, path):
 def test_hist_tile_q8_matches_plain(dev, n, f, b, p, gather):
     """int8 stats -> int32 planes, exact: bitwise the plain version (on
     the card and on the CPU) and a second launch; counted as q8 launches
-    only. 42 computed slots at 255 bins fit one slot part."""
+    only."""
     leaves = p + 5
     binsT, leaf, _ = _hist_inputs(n, f, b, leaves, n + f + 1, True)
     g = torch.Generator().manual_seed(n)
@@ -389,4 +398,85 @@ def test_hist_tile_gather_cases_match_plain(dev, case):
         assert torch.equal(k.view(torch.int32), again.view(torch.int32))
     h = cuda_hist.hist_tile
     assert (h.gather_launches, h.gather_launches_q8) == (5, 2)
+    assert (h.launches_plane, h.launches_plane_q8) == (2, 1)
+
+
+FULL_CASES = ["root28", "root8", "skew80", "zipf", "f40", "one_slot"]
+
+
+def _full_case(case, seed):
+    """A full-form pass at card scale: (binsT, leaf, sel, n_leaves) on the
+    CPU, 255 bins. ``root28`` / ``root8``: the root pass (one computed slot,
+    every row in it) at the Higgs and the Expo width; ``skew80``: the root
+    at F=28 with 80% of all bins 0; ``zipf``: the root at F=8 with two
+    Zipf-skewed columns (the Expo airports, p ~ (rank + 8)^-2) and a
+    seven-bin one; ``f40``: the root at 40 features (two feature groups in
+    f32); ``one_slot``: one computed slot whose leaf holds a tenth of the
+    rows, the others dropped."""
+    g = torch.Generator().manual_seed(seed)
+    n, b, n_leaves = 300_007, 255, 255
+    f = {"root8": 8, "zipf": 8, "f40": 40}.get(case, 28)
+    binsT = torch.randint(0, b, (f, n), generator=g).to(torch.uint8)
+    if case == "skew80":
+        binsT[torch.rand((f, n), generator=g) < 0.8] = 0
+    if case == "zipf":
+        p = 1.0 / (torch.arange(1, b + 1, dtype=torch.float64) + 8.0) ** 2
+        for c in (5, 6):
+            binsT[c] = torch.multinomial(p, n, replacement=True,
+                                         generator=g).to(torch.uint8)
+        binsT[2] = torch.randint(0, 7, (n,), generator=g).to(torch.uint8)
+    sel = torch.full((42,), -1, dtype=torch.int32)
+    sel[0] = 0
+    leaf = torch.zeros((n,), dtype=torch.int32)
+    if case == "one_slot":
+        sel[0] = 7
+        leaf = torch.randint(0, 10, (n,), generator=g, dtype=torch.int32)
+    return binsT, leaf, sel, n_leaves
+
+
+@pytest.mark.parametrize("case", FULL_CASES)
+def test_hist_tile_full_cases_match_plain(dev, case):
+    """The full form of a one-slot tile (full_accumulate): bitwise the
+    plain version on integer-valued stats, hist_tile_exact and
+    full_accumulate_plain on float stats (with the grower's amax or
+    without), exact int32 sums in q8; two launches equal in each mode;
+    counted as full launches, no gather launch."""
+    binsT, leaf, sel, n_leaves = _full_case(case, 11)
+    n, b, p = leaf.shape[0], 255, sel.shape[0]
+    chan = cuda_hist.chan_leaf_table(sel)
+    g = torch.Generator().manual_seed(12)
+    ints = torch.stack([torch.randint(-3, 4, (n,), generator=g),
+                        torch.randint(0, 4, (n,), generator=g),
+                        torch.ones(n)], 1).float()
+    floats = torch.stack([torch.randn(n, generator=g),
+                          torch.rand(n, generator=g), torch.ones(n)], 1)
+    q8 = torch.randint(-127, 128, (n, 3), generator=g).to(torch.int8)
+    q8[:, 2] = 1
+    bd, ld, cd = (t.to(dev) for t in (binsT, leaf, chan))
+    cuda_hist.reset_launch_counts()
+    for stats in (ints, floats, q8):
+        sd = stats.contiguous().to(dev)
+        k = cuda_hist.hist_tile(bd, ld, sd, cd, p, b, n_leaves)
+        again = cuda_hist.hist_tile(bd, ld, sd, cd, p, b, n_leaves,
+                                    plane=True)
+        if stats is floats:
+            ref = cuda_hist.hist_tile_exact(bd, ld, sd, cd, p, b, n_leaves)
+            given = cuda_hist.hist_tile(bd, ld, sd, cd, p, b, n_leaves,
+                                        amax=sd.abs().amax(0))
+            plain = cuda_hist.full_accumulate_plain(bd, ld, sd, cd, p, b,
+                                                    n_leaves, blocks=5)
+            torch.cuda.synchronize()
+            assert torch.equal(given.view(torch.int32), k.view(torch.int32))
+            assert torch.equal(plain.view(torch.int32),
+                               ref.view(torch.int32))
+        else:
+            ref = cuda_hist.hist_tile_plain(bd, ld, sd, cd, p, b, n_leaves)
+        torch.cuda.synchronize()
+        assert k.dtype == ref.dtype
+        assert torch.equal(k.view(torch.int32), ref.view(torch.int32))
+        assert torch.equal(k.view(torch.int32), again.view(torch.int32))
+        assert bool(k[0].ne(0).any()) and not bool(k[1:].ne(0).any())
+    h = cuda_hist.hist_tile
+    assert (h.launches, h.launches_q8) == (5, 2)
+    assert (h.gather_launches, h.gather_launches_q8) == (0, 0)
     assert (h.launches_plane, h.launches_plane_q8) == (2, 1)
