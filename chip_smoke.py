@@ -35,6 +35,11 @@ script exits non-zero; nothing is caught):
                   the tile's rows, 80% of the bins 0; checks and times as
                   hist_tile
   split_epilogue  P=42, F=28, B=255 with derived slots: bitwise vs plain
+                  and vs a second launch; device ms a launch over 50
+                  launches in one profile, each after an L2 flush (one
+                  alone can leave no device activity in the profiler's
+                  trace); the bound counts the planes the kernel must
+                  read (computed slots' tiles, derived slots' parents)
   train           lightgbm_tpu_torch.train, binary, 255 leaves, max_bin 255,
                   lr 0.1, on Higgs-shaped data made from --seed (2M train,
                   200k valid rows, 5 rounds; the fused split path):
@@ -74,6 +79,7 @@ The quantized-gradient (q8) mode, kernels 1-4 on int8 gradients:
                   and the bound
   split_epilogue_q8 the dequantizing epilogue on an int32 tile with a
                   non-trivial q_scale, P=42, F=28, B=255: bitwise vs plain
+                  and vs a second launch, device ms as split_epilogue
   train_q8        train's run with quantized_grad=True: sec/iter, valid AUC
                   (> 0.6 and >= train's - 0.01, the JAX package's q8
                   quality bar), q8 launches of every fused-path form and
@@ -89,9 +95,11 @@ and kernel 5, the experiment script's one-hot histogram:
 
   hist_variants   python -m lightgbm_tpu_torch.scripts.exp_hist_variants at
                   its defaults (2M rows, 28 features, 255 bins, variants
-                  2x2048, 4x2048, 4x1024, 7x1024): each variant within
-                  1e-5 of each cell's summed magnitudes of
-                  hist_onehot_plain; kernel / plain / materialized one-hot
+                  2x2048, 4x2048, 4x1024, 7x1024; a failed variant fails
+                  the entry point): each variant within 1e-5 of each
+                  cell's summed magnitudes of hist_onehot_plain and
+                  bitwise equal to a second launch; kernel (events and
+                  device ms) / plain / materialized one-hot
                   cuBLAS matmul (the library stand-in) times, the bound
                   (the function's least bytes and f32 adds) and, apart,
                   the one-hot form's tensor-core floor
@@ -100,10 +108,16 @@ Each hist_tile form is timed twice: ``ms``, CUDA events around the call
 (host gaps between its launches included), and ``device_ms``, the summed
 device time of what it launched (torch.profiler). With ``--parent DIR``
 (another checkout, e.g. the parent commit unpacked by ``git archive``) a
-subprocess runs this script's hist_tile phases on DIR's package, same
+subprocess runs this script's hist_tile phases, and the split epilogue's
+and kernel 5's probes (``redesign_probes``), on DIR's package, same
 inputs and checks, before the first phase and after the last
 (``parent_times``); the ``kernels`` line carries those times as
-``parent_ms``: two designs timed in one run.
+``parent_ms``: two designs timed in one run; the probe also trains the
+parity phases' models once on the card with DIR's package, and each of
+parity, parity_sparse, parity_q8 and parity_q8_cat must give the same
+model text (sha256). The epilogue entries also
+carry their device ms a launch in the train phases' own profiles
+(``train_device_ms_per_launch``).
 
 The ``kernels`` line gives each hist_tile entry the root pass on the train
 phase's own bins as its ``ms`` / ``plain_ms`` / ``bound_ms`` /
@@ -123,6 +137,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import hashlib
 import json
 import os
 import statistics
@@ -201,14 +216,23 @@ def _short(name: str) -> str:
     return name.split("(")[0][:60]
 
 
-def device_ms(fn, reps: int = 5):
+def device_ms(fn, reps: int = 5, per_profile: int = 1, need: str = None,
+              cold_each: bool = False):
     """Median device time of ``fn`` over ``reps`` calls, each alone on a
     cold L2: the summed durations of the kernels, copies and fills it puts
     on the card (torch.profiler, CUDA activity), without the host's time
     between its launches that time_ms's events also hold. Returns (ms,
     {kernel: ms} of the median call) over the calls whose trace holds
     device time, or ("not measured", {}) when none does (the profiler
-    dropped the device activity)."""
+    dropped the device activity). ``per_profile`` > 1 (for a call of a
+    few microseconds, whose lone activity the profiler can drop): each of
+    the ``reps`` profiles holds that many calls back to back after one L2
+    flush, and its device time is divided by the launches of ``need``
+    the trace recorded (by the calls made without ``need``). ``need``: a
+    profile counts only if it holds a kernel of that name (the profiler
+    can drop one kernel's activity and keep another's). ``cold_each``
+    (with ``need``): an L2 flush precedes each of the ``per_profile`` calls,
+    and only the kernels of ``need`` are summed, the flushes left out."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     runs = []
@@ -216,14 +240,27 @@ def device_ms(fn, reps: int = 5):
         flush_l2()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
+            # the trace can miss the window's first kernel: a marker kernel
+            # goes first, and is left out of the sums
+            torch.cuda._sleep(1000)
+            for _ in range(per_profile):
+                if cold_each:
+                    flush_l2()
+                fn()
             torch.cuda.synchronize()
-        split = {}
+        split, calls = {}, 0
         for ev in prof.key_averages():
-            if _device_us(ev) > 0:
+            if _device_us(ev) > 0 and "spin_kernel" not in ev.key and not (
+                    cold_each and need not in ev.key):
                 key = _short(ev.key)
                 split[key] = split.get(key, 0.0) + _device_us(ev) / 1e3
-        if split:
+                if need and need in ev.key:
+                    calls = max(calls, ev.count)
+        if split and (need is None or calls):
+            # a call's share: over the recorded launches of ``need`` (one a
+            # call), else over the calls made
+            per = calls if need and per_profile > 1 else per_profile
+            split = {k: v / per for k, v in split.items()}
             runs.append((sum(split.values()), split))
     if not runs:
         return "not measured", {}
@@ -526,15 +563,51 @@ if "amax" not in inspect.signature(cuda_hist.hist_tile).parameters:
         return _take(*a, **k)
     hist_tile.__dict__.update(cuda_hist.hist_tile.__dict__)  # its counters
     cuda_hist.hist_tile = hist_tile
-cuda_hist.build_kernels(("hist_tile",))
-print(json.dumps(cs._times(cs.kernel_phases(
-    cuda_hist, int(sys.argv[3]), int(sys.argv[4]), int(sys.argv[5])))))
+cuda_hist.build_kernels()
+times = cs._times(cs.kernel_phases(
+    cuda_hist, int(sys.argv[3]), int(sys.argv[4]), int(sys.argv[5])))
+times.update(cs.redesign_probes(cuda_hist, int(sys.argv[5])))
+import lightgbm_tpu_torch as lgb
+times["parity_sha256"] = cs.parity_text_hashes(lgb, int(sys.argv[5]))
+print(json.dumps(times))
 """
 
 
+VARIANTS = ("2x2048", "4x2048", "4x1024", "7x1024")   # the script's default
+
+
+def redesign_probes(cuda_hist, seed: int = 0):
+    """The two kernels that this script's split_epilogue* and
+    hist_variants phases check, timed on any checkout's package at the
+    main path's shapes: per form [event ms, device ms] --
+    ``split_epilogue`` and ``split_epilogue_q8`` (P=42, F=28, B=255, device
+    ms a launch over EPI_LAUNCHES, each on a cold L2) and
+    ``hist_onehot/<variant>`` at the experiment script's defaults (2M rows,
+    28 features, 255 bins, its data)."""
+    from lightgbm_tpu_torch.scripts import exp_hist_variants as ev
+    out = {}
+    for q8 in (False, True):
+        args = epilogue_inputs(cuda_hist, seed, q8)
+        out["split_epilogue" + ("_q8" if q8 else "")] = [
+            time_ms(lambda: cuda_hist.split_epilogue(*args)),
+            epilogue_device_ms(cuda_hist, args)]
+    binsT, rhs = ev.make_data(2_000_000, F, B, torch.device("cuda"))
+    for spec in VARIANTS:
+        fg, blk = (int(x) for x in spec.split("x"))
+        bp, rp = ev.pad_rows(binsT, rhs, blk)
+        call = lambda: cuda_hist.hist_onehot(bp, rp, B, fg, blk)
+        out[f"hist_onehot/{spec}"] = [
+            time_ms(call, reps=5, warm=1),
+            device_ms(call, reps=5, need="hist_onehot_kernel")[0]]
+        del bp, rp
+    del binsT, rhs
+    torch.cuda.empty_cache()
+    return out
+
+
 def parent_times(parent_dir: str, n: int, valid_rows: int, seed: int):
-    """The other checkout's hist_tile forms timed by this script's phases:
-    per form, [event ms, device ms]."""
+    """The other checkout's hist_tile forms, split epilogue and kernel 5
+    timed by this script's phases: per form, [event ms, device ms]."""
     res = subprocess.run([sys.executable, "-c", PARENT_PROBE,
                           os.path.abspath(parent_dir),
                           os.path.abspath(__file__), str(n),
@@ -547,15 +620,39 @@ def parent_times(parent_dir: str, n: int, valid_rows: int, seed: int):
     return json.loads(res.stdout.strip().splitlines()[-1])
 
 
-def epilogue_phase(cuda_hist, seed=0):
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    tile = torch.zeros((P, F, B, 3), device="cuda")
-    parent = torch.zeros_like(tile)
+EPI_LAUNCHES = 50    # epilogue launches in one profile, each on a cold L2
+
+
+def epilogue_inputs(cuda_hist, seed=0, q8=False):
+    """The epilogue's arguments at the main path's P=42, F=28, B=255: the
+    derived odd slots, random planes (f32: grad N(0,1), hess U(0,1), count
+    1 per row; q8: the int32 sums of int8 stats, a non-trivial q_scale,
+    the derived slots' parents dequantized as resident), features with
+    fewer bins and the NaN and Zero missing types. Returns (tile, parent,
+    der, la, fm, pv), with q_scale last in q8 mode."""
+    if q8:
+        g = torch.Generator(device="cuda").manual_seed(seed + 7)
+        q_scale = torch.tensor([0.0173, 0.00291, 1.0], device="cuda")
+        tile = torch.zeros((P, F, B, 3), dtype=torch.int32, device="cuda")
+    else:
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        tile = torch.zeros((P, F, B, 3), device="cuda")
+    parent = torch.zeros((P, F, B, 3), device="cuda")
     derive = torch.zeros(P, dtype=torch.bool)
     derive[1::2] = True
-    # planes of random rows: grad N(0,1), hess U(0,1), count 1 per row
     for p in range(P):
         cnt = torch.randint(0, 40, (F, B), generator=g, device="cuda")
+        if q8:
+            plane = torch.stack([
+                torch.randint(-127, 128, (F, B), generator=g,
+                              device="cuda") * cnt,
+                torch.randint(0, 128, (F, B), generator=g, device="cuda")
+                * cnt, cnt], -1).to(torch.int32)
+            if derive[p]:
+                parent[p] = (plane + tile[p - 1]).to(torch.float32) * q_scale
+            else:
+                tile[p] = plane
+            continue
         cnt = cnt.to(torch.float32)
         gsum = torch.randn((F, B), generator=g, device="cuda") * cnt.sqrt()
         hsum = torch.rand((F, B), generator=g, device="cuda") * cnt
@@ -564,8 +661,9 @@ def epilogue_phase(cuda_hist, seed=0):
             parent[p] = plane + tile[p - 1]
         else:
             tile[p] = plane
+    deq = tile.to(torch.float32) * q_scale if q8 else tile
     full = torch.where(derive.cuda()[:, None, None, None],
-                       parent - torch.cat([tile[:1] * 0, tile[:-1]]), tile)
+                       parent - torch.cat([deq[:1] * 0, deq[:-1]]), deq)
     s = full[:, 0].sum(1)                                   # [P, 3]
     la = cuda_hist.pack_leaf_aux(s[:, 0], s[:, 1], s[:, 2],
                                  -0.1 * s[:, 0] / (s[:, 1] + 1)).cuda()
@@ -582,23 +680,51 @@ def epilogue_phase(cuda_hist, seed=0):
     der = cuda_hist._epilogue_lanes(torch.arange(P, dtype=torch.int32),
                                     derive).cuda()
     args = (tile, parent, der, la, fm, pv)
+    return args + (q_scale,) if q8 else args
+
+
+def epilogue_device_ms(cuda_hist, args):
+    """The epilogue's device ms a launch: EPI_LAUNCHES launches in each
+    profile (one alone can leave no device activity in the trace), each
+    after an L2 flush, as the HBM bound assumes."""
+    return device_ms(lambda: cuda_hist.split_epilogue(*args),
+                     per_profile=EPI_LAUNCHES, need="split_epilogue",
+                     cold_each=True)[0]
+
+
+def epilogue_bound(der, q8: bool):
+    """The epilogue's bound at P, F, B on derive lanes ``der`` (slot p at
+    lane 3p): the bytes it must move are the tile planes it reads (each
+    computed slot's, also the sibling of a derived slot), the derived
+    slots' parent planes, every full plane written once, and the small
+    tables; 60 float operations a bin (61 in q8, the dequant)."""
+    derive = (der[0, 0:3 * P:3] != 0).tolist()
+    tiles = {p - 1 if d else p for p, d in enumerate(derive)} - {-1}
+    planes = len(tiles) + sum(derive) + P
+    nbytes = planes * F * B * 3 * 4 + P * F * 12 * 4 + P * 8 * 4 \
+        + F * 8 * 4 + 8 * 4 + (12 if q8 else 0)
+    return bound(nbytes, (61 if q8 else 60) * P * F * B)
+
+
+def epilogue_phase(cuda_hist, seed=0):
+    args = epilogue_inputs(cuda_hist, seed)
     kf, kc = cuda_hist.split_epilogue(*args)
+    kf2, kc2 = cuda_hist.split_epilogue(*args)
     pf, pc = cuda_hist.split_epilogue_plain(*args)
     torch.cuda.synchronize()
-    if not (torch.equal(kc.view(torch.int32), pc.view(torch.int32))
-            and torch.equal(kf.view(torch.int32), pf.view(torch.int32))):
-        raise AssertionError("split_epilogue is not bitwise equal to its "
-                             "plain version")
+    for a, b in ((kc, pc), (kf, pf), (kc, kc2), (kf, kf2)):
+        if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+            raise AssertionError("split_epilogue is not bitwise equal to "
+                                 "its plain version and to a second launch")
     valid = int(torch.isfinite(kc[..., 0]).sum())
     if valid == 0:
         raise AssertionError("split_epilogue found no valid candidate")
-    plane_bytes = P * F * B * 3 * 4
-    nbytes = 3 * plane_bytes + P * F * 12 * 4 + P * 8 * 4 + F * 8 * 4
-    bms, by = bound(nbytes, 60 * P * F * B)
+    bms, by = epilogue_bound(args[2], q8=False)
     return {"max_abs_err": float((kc - pc).nan_to_num(0.0).abs().max()),
-            "valid_candidates": valid,
+            "valid_candidates": valid, "deterministic": True,
             "ms": time_ms(lambda: cuda_hist.split_epilogue(*args)),
-            "device_ms": device_ms(lambda: cuda_hist.split_epilogue(*args))[0],
+            "device_ms": epilogue_device_ms(cuda_hist, args),
+            "device_ms_launches": EPI_LAUNCHES,
             "plain_ms": time_ms(lambda: cuda_hist.split_epilogue_plain(*args),
                                 reps=10, warm=1),
             "library_ms": None, "bound_ms": bms, "bound_by": by}
@@ -684,41 +810,8 @@ def epilogue_q8_phase(cuda_hist, seed=0):
     """The dequantizing epilogue: an int32 tile of exact sums (derived
     slots zero), float32 parents (dequantized sums, as resident), a
     non-trivial q_scale."""
-    g = torch.Generator(device="cuda").manual_seed(seed + 7)
-    q_scale = torch.tensor([0.0173, 0.00291, 1.0], device="cuda")
-    tile = torch.zeros((P, F, B, 3), dtype=torch.int32, device="cuda")
-    parent = torch.zeros((P, F, B, 3), device="cuda")
-    derive = torch.zeros(P, dtype=torch.bool)
-    derive[1::2] = True
-    for p in range(P):
-        cnt = torch.randint(0, 40, (F, B), generator=g, device="cuda")
-        plane = torch.stack([
-            torch.randint(-127, 128, (F, B), generator=g, device="cuda") * cnt,
-            torch.randint(0, 128, (F, B), generator=g, device="cuda") * cnt,
-            cnt], -1).to(torch.int32)
-        if derive[p]:
-            parent[p] = (plane + tile[p - 1]).to(torch.float32) * q_scale
-        else:
-            tile[p] = plane
-    deq = tile.to(torch.float32) * q_scale
-    full = torch.where(derive.cuda()[:, None, None, None],
-                       parent - torch.cat([deq[:1] * 0, deq[:-1]]), deq)
-    s = full[:, 0].sum(1)
-    la = cuda_hist.pack_leaf_aux(s[:, 0], s[:, 1], s[:, 2],
-                                 -0.1 * s[:, 0] / (s[:, 1] + 1)).cuda()
-    nb = torch.full((F,), B, dtype=torch.int32)
-    nb[3], nb[7] = 64, 2
-    mt = torch.zeros(F, dtype=torch.int32)
-    mt[5], mt[6] = 2, 1
-    db = torch.zeros(F, dtype=torch.int32)
-    db[6] = 17
-    fm = cuda_hist.pack_feature_meta(nb, mt, db,
-                                     torch.zeros(F, dtype=torch.int32)).cuda()
-    pv = torch.tensor([0.0, 1.0, 0.0, 0.0, 20.0, 1e-3, 0.0, 0.0],
-                      device="cuda")
-    der = cuda_hist._epilogue_lanes(torch.arange(P, dtype=torch.int32),
-                                    derive).cuda()
-    args = (tile, parent, der, la, fm, pv, q_scale)
+    args = epilogue_inputs(cuda_hist, seed, q8=True)
+    tile, q_scale = args[0], args[6]
     kf, kc = cuda_hist.split_epilogue(*args)
     kf2, kc2 = cuda_hist.split_epilogue(*args)
     pf, pc = cuda_hist.split_epilogue_plain(*args)
@@ -730,9 +823,7 @@ def epilogue_q8_phase(cuda_hist, seed=0):
     valid = int(torch.isfinite(kc[..., 0]).sum())
     if valid == 0:
         raise AssertionError("q8 split_epilogue found no valid candidate")
-    plane_bytes = P * F * B * 3 * 4
-    nbytes = 3 * plane_bytes + P * F * 12 * 4 + P * 8 * 4 + F * 8 * 4 + 12
-    bms, by = bound(nbytes, 61 * P * F * B)
+    bms, by = epilogue_bound(args[2], q8=True)
     # the f32 form on the dequantized tile, timed in turns with the q8 form
     # (f32, q8, q8, f32): the two modes' cost on the same data and clocks
     f32_args = (tile.to(torch.float32) * q_scale,) + args[1:6]
@@ -747,9 +838,11 @@ def epilogue_q8_phase(cuda_hist, seed=0):
         a = f32_args if mode == "f32" else args
         turns[mode].append(time_ms(lambda: cuda_hist.split_epilogue(*a)))
     return {"max_abs_err": float((kc - pc).nan_to_num(0.0).abs().max()),
-            "valid_candidates": valid, "q_scale": q_scale.tolist(),
+            "valid_candidates": valid, "deterministic": True,
+            "q_scale": q_scale.tolist(),
             "ms": statistics.median(turns["q8"]),
-            "device_ms": device_ms(lambda: cuda_hist.split_epilogue(*args))[0],
+            "device_ms": epilogue_device_ms(cuda_hist, args),
+            "device_ms_launches": EPI_LAUNCHES,
             "turns_ms": turns,
             "plain_ms": time_ms(lambda: cuda_hist.split_epilogue_plain(*args),
                                 reps=10, warm=1),
@@ -1032,6 +1125,62 @@ def train_cat_phase(lgb, cuda_hist, args, q8_ref_auc=None):
     return out, launches
 
 
+def _sha(text: str) -> str:
+    return hashlib.sha256(text.encode()).hexdigest()
+
+
+# the parity phases' runs, one definition for the phases and for the
+# parent's probe (parity_text_hashes): name -> (data, seed offset,
+# categorical columns, q8); each trains PARITY_ROUNDS rounds on
+# PARITY_ROWS rows with 63 leaves
+PARITY_RUNS = {"parity": (higgs_like, 7, None, False),
+               "parity_cat": (expo_like, 13, CAT_COLUMNS, False),
+               "parity_sparse": (sparse_higgs_like, 17, None, False),
+               "parity_q8": (higgs_like, 7, None, True),
+               "parity_q8_cat": (expo_like, 13, CAT_COLUMNS, True)}
+PARITY_ROWS, PARITY_ROUNDS = 50_000, 3
+# the phases whose card text is held bitwise (and to the parent's)
+PARITY_HELD = ("parity", "parity_sparse", "parity_q8", "parity_q8_cat")
+
+
+def parity_setup(name: str, seed: int):
+    """A parity phase's (X, y, params, Dataset keywords)."""
+    data, offset, cat, q8 = PARITY_RUNS[name]
+    X, y = data(PARITY_ROWS, seed + offset)
+    params = dict(PARAMS, num_leaves=63)
+    if q8:
+        params["quantized_grad"] = True
+    return X, y, params, ({} if cat is None else {"categorical_feature": cat})
+
+
+def parity_text(lgb, setup, device: str) -> str:
+    """The model text of one training of a parity phase on ``device``."""
+    X, y, params, kw = setup
+    p = dict(params, device_type=device)
+    return lgb.train(p, lgb.Dataset(X, label=y, params=p, **kw),
+                     PARITY_ROUNDS).model_to_string()
+
+
+def parity_text_hashes(lgb, seed: int):
+    """The card's model text of the PARITY_HELD phases, one card run each,
+    as sha256: a checkout's package run by --parent's probe gives the text
+    its phases would."""
+    return {name: _sha(parity_text(lgb, parity_setup(name, seed), "cuda"))
+            for name in PARITY_HELD}
+
+
+def same_as_parent(out, name, parent):
+    """With --parent: the phase's card model text must be the text the
+    other checkout's package gives (its probe's parity_text_hashes)."""
+    if parent:
+        same = out["card_text_sha256"] == parent[0]["parity_sha256"][name]
+        out["card_text_equals_parent"] = same
+        if not same:
+            raise AssertionError(f"{name}: the card's model text differs "
+                                 f"from the parent checkout's")
+    return out
+
+
 def _structure(text):
     from lightgbm_tpu_torch.io.model_text import load_model
     return [(t.split_feature.tolist(), t.threshold.tolist(),
@@ -1040,25 +1189,23 @@ def _structure(text):
             for t in load_model(text).trees]
 
 
-def _parity(lgb, X, y, params, categorical=None, strict=False):
-    """One training (3 rounds) on the card twice and on the CPU twice: with
-    the CPU path's float32 sums (the JAX package's order) and with the
-    kernel's fixed-point sums (``kernel_sums_on_cpu``). The two card runs
-    and the kernel-sums CPU run must give the same model text, bit for bit.
+def _parity(lgb, name, seed, strict=False):
+    """One training on the card twice and on the CPU twice: with the CPU
+    path's float32 sums (the JAX package's order) and with the kernel's
+    fixed-point sums (``kernel_sums_on_cpu``). The two card runs and the
+    kernel-sums CPU run must give the same model text, bit for bit.
     Against the float32-sum run: the first tree whose structure (split
     features, thresholds, category bitsets, children) differs, and the
     largest leaf difference of the trees before it; ``strict`` requires
     the same structure throughout and leaves within 1e-4."""
     from lightgbm_tpu_torch.io.model_text import load_model
     from lightgbm_tpu_torch.ops import cuda_hist
+    setup = parity_setup(name, seed)
     texts = {}
-    kw = {} if categorical is None else {"categorical_feature": categorical}
     for run in ("cuda", "cuda_again", "cpu", "cpu_kernel_sums"):
-        p = dict(params, device_type=run.split("_")[0])
         with (cuda_hist.kernel_sums_on_cpu() if run == "cpu_kernel_sums"
               else contextlib.nullcontext()):
-            b = lgb.train(p, lgb.Dataset(X, label=y, params=p, **kw), 3)
-        texts[run] = b.model_to_string()
+            texts[run] = parity_text(lgb, setup, run.split("_")[0])
     sc, sp = _structure(texts["cuda"]), _structure(texts["cpu"])
     diverge = next((i for i, (a, b) in enumerate(zip(sc, sp)) if a != b),
                    None if len(sc) == len(sp) else min(len(sc), len(sp)))
@@ -1066,14 +1213,16 @@ def _parity(lgb, X, y, params, categorical=None, strict=False):
     upto = len(tc) if diverge is None else diverge
     leaf_err = max([float(np.abs(a.leaf_value - b.leaf_value).max())
                     for a, b in zip(tc[:upto], tp[:upto])] or [0.0])
-    out = {"rows": len(X), "num_leaves": params["num_leaves"], "rounds": 3,
+    out = {"rows": PARITY_ROWS, "num_leaves": setup[2]["num_leaves"],
+           "rounds": PARITY_ROUNDS,
            "card_runs_identical_text": texts["cuda"] == texts["cuda_again"],
            "card_equals_cpu_kernel_sums": texts["cuda"]
            == texts["cpu_kernel_sums"],
            "same_structure_as_cpu": diverge is None,
            "first_divergent_tree_vs_cpu": diverge,
            "max_leaf_abs_err_before_divergence": leaf_err,
-           "categorical_nodes": int(sum(t.num_cat for t in tc))}
+           "categorical_nodes": int(sum(t.num_cat for t in tc)),
+           "card_text_sha256": _sha(texts["cuda"])}
     if not (out["card_runs_identical_text"]
             and out["card_equals_cpu_kernel_sums"]) or (
             strict and (diverge is not None or leaf_err > 1e-4)):
@@ -1082,60 +1231,55 @@ def _parity(lgb, X, y, params, categorical=None, strict=False):
 
 
 def parity_phase(lgb, seed):
-    X, y = higgs_like(50_000, seed + 7)
-    return _parity(lgb, X, y, dict(PARAMS, num_leaves=63), strict=True)
+    return _parity(lgb, "parity", seed, strict=True)
 
 
 def parity_cat_phase(lgb, seed):
-    X, y = expo_like(50_000, seed + 13)
-    out = _parity(lgb, X, y, dict(PARAMS, num_leaves=63), CAT_COLUMNS)
+    out = _parity(lgb, "parity_cat", seed)
     if out["categorical_nodes"] <= 0:
         raise AssertionError(f"no categorical node: {out}")
     return out
 
 
 def parity_sparse_phase(lgb, seed):
-    X, y = sparse_higgs_like(50_000, seed + 17)
+    X, y = parity_setup("parity_sparse", seed)[:2]
     ds = lgb.Dataset(X, label=y, params=dict(PARAMS, device_type="cpu"))
     ds.construct()
     if not ds.has_sparse_cols or len(ds.sp_cols) != 4:
         raise AssertionError(f"expected 4 sparse device columns, got "
                              f"{ds.sp_cols}")
-    out = _parity(lgb, X, y, dict(PARAMS, num_leaves=63))
+    out = _parity(lgb, "parity_sparse", seed)
     out["sparse_columns"] = ds.sp_cols.tolist()
     return out
 
 
-def _parity_q8(lgb, X, y, params, categorical=None):
-    """q8 training, 3 rounds, on the card twice and on the CPU plain path:
-    the int8 quantization is the same torch arithmetic on both devices and
-    the int32 sums are exact (127 * 50,000 < 2^24 keeps the root's float32
+def _parity_q8(lgb, name, seed):
+    """q8 training on the card twice and on the CPU plain path: the int8
+    quantization is the same torch arithmetic on both devices and the
+    int32 sums are exact (127 * 50,000 < 2^24 keeps the root's float32
     sums exact too), so all three model texts must be equal bit for bit."""
     from lightgbm_tpu_torch.io.model_text import load_model
-    texts = {}
-    kw = {} if categorical is None else {"categorical_feature": categorical}
-    for run in ("cuda", "cuda_again", "cpu"):
-        p = dict(params, quantized_grad=True, device_type=run.split("_")[0])
-        b = lgb.train(p, lgb.Dataset(X, label=y, params=p, **kw), 3)
-        texts[run] = b.model_to_string()
-    out = {"rows": len(X), "num_leaves": params["num_leaves"], "rounds": 3,
+    setup = parity_setup(name, seed)
+    texts = {run: parity_text(lgb, setup, run.split("_")[0])
+             for run in ("cuda", "cuda_again", "cpu")}
+    out = {"rows": PARITY_ROWS, "num_leaves": setup[2]["num_leaves"],
+           "rounds": PARITY_ROUNDS,
            "card_runs_identical_text": texts["cuda"] == texts["cuda_again"],
            "card_equals_cpu_text": texts["cuda"] == texts["cpu"],
            "categorical_nodes": int(sum(
-               t.num_cat for t in load_model(texts["cuda"]).trees))}
+               t.num_cat for t in load_model(texts["cuda"]).trees)),
+           "card_text_sha256": _sha(texts["cuda"])}
     if not (out["card_runs_identical_text"] and out["card_equals_cpu_text"]):
         raise AssertionError(f"q8 card vs CPU disagree: {out}")
     return out
 
 
 def parity_q8_phase(lgb, seed):
-    X, y = higgs_like(50_000, seed + 7)
-    return _parity_q8(lgb, X, y, dict(PARAMS, num_leaves=63))
+    return _parity_q8(lgb, "parity_q8", seed)
 
 
 def parity_q8_cat_phase(lgb, seed):
-    X, y = expo_like(50_000, seed + 13)
-    out = _parity_q8(lgb, X, y, dict(PARAMS, num_leaves=63), CAT_COLUMNS)
+    out = _parity_q8(lgb, "parity_q8_cat", seed)
     if out["categorical_nodes"] <= 0:
         raise AssertionError(f"no categorical node: {out}")
     return out
@@ -1150,11 +1294,11 @@ def hist_variants_phase(cuda_hist):
     the same data, and the kernel, plain and library times."""
     from lightgbm_tpu_torch.scripts import exp_hist_variants as ev
     cuda_hist.reset_launch_counts()
+    # a variant that fails makes main raise (VariantsFailed) after its loop
     results, (binsT, rhs) = ev.main(["--reps", "5"])
     launches = cuda_hist.hist_onehot.launches
-    failed = [r for r in results if "error" in r]
-    if failed or launches <= 0:
-        raise AssertionError(f"hist_variants: {failed}, {launches} launches")
+    if launches <= 0:
+        raise AssertionError(f"hist_variants: {launches} launches")
     f, n = binsT.shape
     b = 255
     plain = cuda_hist.hist_onehot_plain(binsT, rhs, b)
@@ -1162,7 +1306,8 @@ def hist_variants_phase(cuda_hist):
     torch.cuda.synchronize()
     variants = {}
     for r in results:
-        diff = (r.pop("out") - plain).abs()
+        out = r.pop("out")
+        diff = (out - plain).abs()
         bad = diff > VARIANT_RTOL * mag
         if bool(bad.any()):
             raise AssertionError(f"hist_onehot fg={r['fg']} blk={r['blk']} "
@@ -1170,12 +1315,22 @@ def hist_variants_phase(cuda_hist):
                                  f"{int(bad.sum())} cells")
         rel = float((diff / mag.clamp_min(1e-30)).max())
         binsT_p, rhs_p = ev.pad_rows(binsT, rhs, r["blk"])
-        ms = time_ms(lambda: cuda_hist.hist_onehot(
-            binsT_p, rhs_p, b, r["fg"], r["blk"]), reps=5, warm=1)
+        call = lambda: cuda_hist.hist_onehot(binsT_p, rhs_p, b, r["fg"],
+                                             r["blk"])
+        again = call()
+        torch.cuda.synchronize()
+        if not torch.equal(again.view(torch.int32), out.view(torch.int32)):
+            raise AssertionError(f"two hist_onehot launches of fg={r['fg']} "
+                                 f"blk={r['blk']} differ")
         variants[f"{r['fg']}x{r['blk']}"] = {
-            "ms": ms, "script_ms_per_pass": r["ms_per_pass"],
-            "max_abs_err": float(diff.max()), "max_rel_err": rel}
-        del binsT_p, rhs_p
+            "ms": time_ms(call, reps=5, warm=1),
+            "device_ms": device_ms(call, reps=5,
+                                   need="hist_onehot_kernel")[0],
+            "script_ms_per_pass": r["ms_per_pass"],
+            "max_abs_err": float(diff.max()), "max_rel_err": rel,
+            "deterministic": True}
+        del binsT_p, rhs_p, again, out
+    best = min(variants, key=lambda k: variants[k]["ms"])
     plain_ms = time_ms(lambda: cuda_hist.hist_onehot_plain(binsT, rhs, b),
                        reps=3, warm=1)
     # the library stand-in: one cuBLAS bf16 matmul of the materialized
@@ -1195,7 +1350,6 @@ def hist_variants_phase(cuda_hist):
     nbytes = f * n + n * 256 * 2 + f * b * 128 * 4
     bms, by = bound(nbytes, 1.0 * n * 128 * (f + 1))
     onehot_floor_ms = 2.0 * n * f * b * 256 / BF16_FLOP_PER_S * 1e3
-    best = min(variants, key=lambda k: variants[k]["ms"])
     return {"rows": n, "features": f, "bins": b, "launches": launches,
             "variants": variants, "best": best, "ms": variants[best]["ms"],
             "max_abs_err": max(v["max_abs_err"] for v in variants.values()),
@@ -1206,6 +1360,15 @@ def hist_variants_phase(cuda_hist):
                        "(cuBLAS), halves not folded",
             "bound_ms": bms, "bound_by": by,
             "onehot_floor_ms": onehot_floor_ms}
+
+
+def per_launch(profile, name):
+    """A kernel's device ms a launch in a train phase's profile
+    (``own_kernels``)."""
+    for key, val in profile["own_kernels"].items():
+        if name in key and val["calls"]:
+            return val["ms"] / val["calls"]
+    return "not measured"
 
 
 def _full_numbers(root, real, multi):
@@ -1280,12 +1443,14 @@ def main() -> int:
 
     tr, launches = train_phase(lgb, cuda_hist, args)
     emit("train", **tr)
-    emit("parity", **parity_phase(lgb, args.seed))
+    emit("parity", **same_as_parent(parity_phase(lgb, args.seed), "parity",
+                                    parent))
 
     tc, cat_launches = train_cat_phase(lgb, cuda_hist, args)
     emit("train_cat", **tc)
     emit("parity_cat", **parity_cat_phase(lgb, args.seed))
-    emit("parity_sparse", **parity_sparse_phase(lgb, args.seed))
+    emit("parity_sparse", **same_as_parent(
+        parity_sparse_phase(lgb, args.seed), "parity_sparse", parent))
 
     epi_q8 = epilogue_q8_phase(cuda_hist)
     emit("split_epilogue_q8", p=P, f=F, b=B, **epi_q8)
@@ -1295,8 +1460,10 @@ def main() -> int:
     tqc, q8_cat_launches = train_cat_phase(lgb, cuda_hist, args,
                                            q8_ref_auc=tc["valid_auc"])
     emit("train_q8_cat", **tqc)
-    emit("parity_q8", **parity_q8_phase(lgb, args.seed))
-    emit("parity_q8_cat", **parity_q8_cat_phase(lgb, args.seed))
+    emit("parity_q8", **same_as_parent(parity_q8_phase(lgb, args.seed),
+                                       "parity_q8", parent))
+    emit("parity_q8_cat", **same_as_parent(
+        parity_q8_cat_phase(lgb, args.seed), "parity_q8_cat", parent))
 
     hv = hist_variants_phase(cuda_hist)
     emit("hist_variants", **hv)
@@ -1351,6 +1518,8 @@ def main() -> int:
          "launches": launches["split_epilogue.launches"],
          "max_abs_err": epi["max_abs_err"], "ms": epi["ms"],
          "device_ms": epi["device_ms"],
+         "train_device_ms_per_launch": per_launch(tr["profile"],
+                                                  "split_epilogue"),
          "plain_ms": epi["plain_ms"], "bound_ms": epi["bound_ms"],
          "bound_by": epi["bound_by"], "library_ms": None},
         {"name": "hist_tile (q8)", "route": "cuda",
@@ -1399,6 +1568,8 @@ def main() -> int:
          "launches": q8_launches["split_epilogue.launches_q8"],
          "max_abs_err": epi_q8["max_abs_err"], "ms": epi_q8["ms"],
          "device_ms": epi_q8["device_ms"],
+         "train_device_ms_per_launch": per_launch(tq["profile"],
+                                                  "split_epilogue"),
          "plain_ms": epi_q8["plain_ms"], "bound_ms": epi_q8["bound_ms"],
          "bound_by": epi_q8["bound_by"], "library_ms": None},
         {"name": "hist_onehot", "route": "cuda",
@@ -1407,8 +1578,11 @@ def main() -> int:
                      "(pallas_call :44)",
          "launches": hv["launches"], "max_abs_err": hv["max_abs_err"],
          "max_rel_err": hv["max_rel_err"], "ms": hv["ms"],
+         "device_ms": hv["variants"][hv["best"]]["device_ms"],
          "variant": hv["best"],
          "variant_ms": {k: v["ms"] for k, v in hv["variants"].items()},
+         "variant_device_ms": {k: v["device_ms"]
+                               for k, v in hv["variants"].items()},
          "plain_ms": hv["plain_ms"], "bound_ms": hv["bound_ms"],
          "bound_by": hv["bound_by"], "library_ms": hv["library_ms"],
          "onehot_floor_ms": hv["onehot_floor_ms"]},
@@ -1433,6 +1607,11 @@ def main() -> int:
         if parent:
             entry["parent_ms"] = {k: [pt[v] for pt in parent]
                                   for k, v in keys.items()}
+    if parent:
+        kernels[2]["parent_ms"] = [pt["split_epilogue"] for pt in parent]
+        kernels[5]["parent_ms"] = [pt["split_epilogue_q8"] for pt in parent]
+        kernels[6]["parent_ms"] = {v: [pt[f"hist_onehot/{v}"]
+                                       for pt in parent] for v in VARIANTS}
     print(json.dumps({"kernels": kernels,
                       "total_seconds": time.time() - t_start}), flush=True)
     print(smi, flush=True)

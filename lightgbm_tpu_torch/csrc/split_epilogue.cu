@@ -8,15 +8,15 @@
 // odd (derived) slot's plane as parent - computed sibling, then
 // ops/split.py numerical_candidates.
 //
-// One block per (slot, feature); one thread per bin (B <= 256):
+// Per (slot, feature):
 //   1. full plane: derived slots read parent - tile[slot - 1], the others
 //      the tile itself (the TPU kernel's static lane shift); a q8 tile is
 //      read as __fmul_rn((float)acc, qscale[stat]);
 //   2. the excluded bins of missing types NaN and Zero are zeroed;
 //   3. the bin-axis cumulative sum in the plain version's order
 //      (utils/ordered.py blocked_cumsum: a left-to-right prefix inside each
-//      16-bin block from +0, a left-to-right prefix of the block totals,
-//      one add of the two);
+//      16-bin block from +0, a left-to-right prefix of the block totals
+//      from +0, one add of the two; B <= 16 is one prefix);
 //   4. both directional scans (the accumulated side's hessian starts at
 //      kEpsilon), leaf outputs with l1 / l2 / max_delta_step / path_smooth,
 //      gains, the min_data / min_hessian masks and the strict
@@ -32,13 +32,35 @@
 // order, each rounded on its own: the library is built with --fmad=false
 // (nvcc would otherwise contract a multiply feeding an add into an FMA).
 //
-// What bounds it on an H100: the work is P*F blocks of B threads, a few
-// dozen flops per thread and ~3 plane reads/writes per cell -- about 3 us
-// of bytes at the main path's shapes (P=42, F=28, B=255), so one launch
-// (a few microseconds) is the floor. The design keeps it one launch per
-// tile pass with every intermediate in shared memory; what it leaves on
-// the table is latency: one thread per block runs the block-total scan and
-// the 2*B-entry argmax serially (PERF.md has the measured time).
+// What bounds it on an H100: the work is small (P*F planes of B bins, a
+// few dozen flops a bin; each computed slot's tile plane and each derived
+// slot's parent plane read once, every full plane written once: ~2.2 us
+// of bytes at the main path's P=42, F=28, B=255 with half the slots
+// derived), so the floor is one launch and the cost is latency: a chain
+// of dependent steps per plane. The design keeps every step in registers and warp shuffles:
+//   - one warp owns one (slot, feature); 4 warps a block, so the main
+//     path's 1,176 planes are 294 blocks, one wave on 132 SMs;
+//   - the warp reads its plane's contiguous B*3 floats coalesced (and the
+//     parent and the sibling's plane for a derived slot), writes the full
+//     plane back the same way, and stages it in shared memory once, by
+//     stat and with one pad word every 32 bins so the next read is free
+//     of bank conflicts;
+//   - lane l holds bins 8l..8l+7, so lanes 2k and 2k+1 hold the 16-bin
+//     block k. The prefix keeps the plain version's sequential order: a
+//     lane adds its 8 bins left to right; the odd lane of a block starts
+//     from the even lane's running total (one shuffle); every lane then
+//     chains the block totals (shuffled from the odd lanes) left to right
+//     up to its own block. No tree-shaped scan: that would round
+//     differently;
+//   - the argmax is a shuffle reduction over (key, position), position
+//     ordering the candidates as the plain version does (reverse threshold
+//     t at B-1-t, forward threshold t at B+t): the greatest key wins, the
+//     smallest position among equal keys. Keys are -inf, finite or +inf
+//     (a NaN gain is masked before its key), so the reduction is exact in
+//     any order; with every key -inf the winner is reverse threshold B-1,
+//     as in the plain version. Each lane keeps the six sums of its own
+//     best candidate, and the winning lane writes the table row.
+// PERF.md has the measured time against the bound.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -47,9 +69,13 @@
 namespace {
 
 constexpr int kMaxBins = 256;
+constexpr int kBinsPerLane = kMaxBins / 32;   // 8
 constexpr int kBlock = 16;        // the plain version's scan block
 constexpr int kCand = 12;
+constexpr int kWarps = 4;         // (slot, feature) planes per block
+constexpr int kStride = kMaxBins + kMaxBins / 32;   // one pad word / 32 bins
 constexpr int kMissingNone = 0, kMissingZero = 1, kMissingNan = 2;
+constexpr unsigned kFull = 0xffffffffu;
 
 struct Params {
   float l1, l2, max_delta_step, path_smooth, min_data, min_hess, min_gain;
@@ -91,36 +117,48 @@ __device__ __forceinline__ float gain_given_output(float g, float h,
   return -((2.f * sg) * out + ((h + p.l2) * out) * out);
 }
 
-// Cell `at` (stat c) of the tile: the f32 value, or in q8 mode (qscale
-// set) the int32 sum dequantized by one rounded multiply.
+__device__ __forceinline__ float split_gain(float g, float h, float c,
+                                            float parent_out,
+                                            const Params& p) {
+  return gain_given_output(g, h, leaf_output(g, h, c, parent_out, p), p);
+}
+
+// Cell `at` (stat c) of the tile: the f32 value, or in q8 mode the int32
+// sum dequantized by one rounded multiply.
+template <bool kQ8>
 __device__ __forceinline__ float tile_cell(const float* __restrict__ tile,
                                            const int32_t* __restrict__ qtile,
                                            const float* __restrict__ qscale,
                                            size_t at, int c) {
-  if (qscale) return __fmul_rn(__int2float_rn(qtile[at]), qscale[c]);
+  if (kQ8) return __fmul_rn(__int2float_rn(qtile[at]), qscale[c]);
   return tile[at];
 }
 
-__global__ void split_epilogue_kernel(const float* __restrict__ tile,
-                                      const int32_t* __restrict__ qtile,
-                                      const float* __restrict__ qscale,
-                                      const float* __restrict__ parent,
-                                      const int32_t* __restrict__ der,
-                                      const float* __restrict__ la,
-                                      const float* __restrict__ fm,
-                                      const float* __restrict__ pv,
-                                      float* __restrict__ full,
-                                      float* __restrict__ cand,
-                                      int f, int b) {
-  __shared__ float hx[3][kMaxBins];      // excluded-zeroed plane
-  __shared__ float within[3][kMaxBins];  // per-block prefix
-  __shared__ float tot[3][kMaxBins / kBlock];
-  __shared__ float key_rev[kMaxBins], key_fwd[kMaxBins];
-  __shared__ float sums[12][kMaxBins];
+// (key, pos) a beats (key, pos) b: greater key, then smaller position
+__device__ __forceinline__ bool beats(float ka, int pa, float kb, int pb) {
+  return ka > kb || (ka == kb && pa < pb);
+}
 
-  const int slot = blockIdx.x;
-  const int feat = blockIdx.y;
-  const int t = threadIdx.x;
+template <bool kQ8>
+__global__ void __launch_bounds__(32 * kWarps)
+split_epilogue_kernel(const float* __restrict__ tile,
+                      const int32_t* __restrict__ qtile,
+                      const float* __restrict__ qscale,
+                      const float* __restrict__ parent,
+                      const int32_t* __restrict__ der,
+                      const float* __restrict__ la,
+                      const float* __restrict__ fm,
+                      const float* __restrict__ pv,
+                      float* __restrict__ full,
+                      float* __restrict__ cand,
+                      int p, int f, int b) {
+  __shared__ float staged[kWarps][3][kStride];
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int pair = blockIdx.x * kWarps + warp;
+  if (pair >= p * f) return;      // whole warps leave; no block barrier
+  const int slot = pair / f;
+  const int feat = pair % f;
   const Params prm{pv[0], pv[1], pv[2], pv[3], pv[4], pv[5], pv[6]};
   const int nb = static_cast<int>(fm[feat * 8 + 0]);
   const int mt = static_cast<int>(fm[feat * 8 + 1]);
@@ -133,134 +171,179 @@ __global__ void split_epilogue_kernel(const float* __restrict__ tile,
   const size_t plane = (size_t)b * 3;
   const size_t base = ((size_t)slot * f + feat) * plane;
   const size_t sib = slot > 0 ? ((size_t)(slot - 1) * f + feat) * plane : 0;
+  float (*st)[kStride] = staged[warp];
 
-  // 1-2. full plane (written out) and its excluded-zeroed copy
-  if (t < b) {
+  // 1. full plane, coalesced over its B*3 contiguous cells: every load of
+  //    the lane issued before the first use (one memory latency, not 24),
+  //    then written out and staged by stat
+  constexpr int kCells = 3 * kMaxBins / 32;     // cells a lane, at most
+  float v[kCells];
+  if (derived) {
+#pragma unroll
+    for (int k = 0; k < kCells; ++k) {
+      const int i = lane + 32 * k;
+      const float s = i < 3 * b && slot > 0
+          ? tile_cell<kQ8>(tile, qtile, qscale, sib + i, i % 3) : 0.f;
+      v[k] = i < 3 * b ? parent[base + i] - s : 0.f;
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < kCells; ++k) {
+      const int i = lane + 32 * k;
+      v[k] = i < 3 * b ? tile_cell<kQ8>(tile, qtile, qscale, base + i, i % 3)
+                       : 0.f;
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kCells; ++k) {
+    const int i = lane + 32 * k;
+    if (i < 3 * b) {
+      const int c = i % 3, t = i / 3;
+      full[base + i] = v[k];
+      st[c][t + t / 32] = v[k];
+    }
+  }
+  __syncwarp();
+
+  // 2. this lane's 8 bins, the excluded ones zeroed; bins >= B are the
+  //    plain version's +0 padding
+  const int t0 = lane * kBinsPerLane;
+  float x[3][kBinsPerLane];
+#pragma unroll
+  for (int j = 0; j < kBinsPerLane; ++j) {
+    const int t = t0 + j;
     const bool excl = (mode_a && is_nan && t == nb - 1)
                       || (mode_a && is_zero && t == dbin);
-    for (int c = 0; c < 3; ++c) {
-      const size_t at = base + (size_t)t * 3 + c;
-      float v = tile_cell(tile, qtile, qscale, at, c);
-      if (derived) {
-        const float s = slot > 0
-            ? tile_cell(tile, qtile, qscale, sib + (size_t)t * 3 + c, c)
-            : 0.f;
-        v = parent[at] - s;
-      }
-      full[at] = v;
-      hx[c][t] = excl ? 0.f : v;
-    }
-  }
-  __syncthreads();
-
-  // 3. blocked cumulative sum (utils/ordered.py order)
-  const int nblk = (b + kBlock - 1) / kBlock;
-  if (t < nblk) {
-    for (int c = 0; c < 3; ++c) {
-      float acc = 0.f;
-      for (int j = 0; j < kBlock; ++j) {
-        const int i = t * kBlock + j;
-        acc = acc + (i < b ? hx[c][i] : 0.f);
-        within[c][i] = acc;
-      }
-    }
-  }
-  __syncthreads();
-  if (t == 0 && b > kBlock) {
-    for (int c = 0; c < 3; ++c) {
-      float acc = 0.f;
-      for (int k = 0; k < nblk; ++k) {
-        acc = acc + within[c][k * kBlock + kBlock - 1];
-        tot[c][k] = acc;
-      }
-    }
-  }
-  __syncthreads();
-  float cs[3];
-  if (t < b) {
-    const int blk = t / kBlock;
+#pragma unroll
     for (int c = 0; c < 3; ++c)
-      cs[c] = b > kBlock ? within[c][t] + (blk == 0 ? 0.f : tot[c][blk - 1])
-                         : within[c][t];
+      x[c][j] = (t < b && !excl) ? st[c][t + t / 32] : 0.f;
   }
-  // every thread needs the last bin's csum (the excluded total)
-  __syncthreads();
-  if (t == b - 1) {
-    for (int c = 0; c < 3; ++c) hx[c][0] = cs[c];
-  }
-  __syncthreads();
 
-  // 4. candidates at threshold t, both directions
+  // 3. blocked cumulative sum. The even lane of a 16-bin block starts
+  //    from +0, the odd lane from the even lane's total; then the
+  //    exclusive prefix of the block totals, chained left to right.
+  float run[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    float acc = 0.f;
+#pragma unroll
+    for (int j = 0; j < kBinsPerLane; ++j) acc = acc + x[c][j];
+    const float even_total = __shfl_sync(kFull, acc, lane & ~1);
+    run[c] = (lane & 1) ? even_total : 0.f;
+  }
+  float cs[3][kBinsPerLane];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    float acc = run[c];
+#pragma unroll
+    for (int j = 0; j < kBinsPerLane; ++j) {
+      acc = acc + x[c][j];
+      cs[c][j] = acc;
+    }
+  }
+  if (b > kBlock) {
+    const int nblk = (b + kBlock - 1) / kBlock;
+    const int blk = lane / 2;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      // the block totals: the odd lanes' last within-block values
+      const float last = cs[c][kBinsPerLane - 1];
+      float acc = 0.f;
+#pragma unroll
+      for (int k = 0; k < kMaxBins / kBlock; ++k) {
+        const float tot_k = __shfl_sync(kFull, last, 2 * k + 1);
+        if (k < blk && k < nblk) acc = acc + tot_k;
+      }
+      const float excl = blk == 0 ? 0.f : acc;
+#pragma unroll
+      for (int j = 0; j < kBinsPerLane; ++j) cs[c][j] = cs[c][j] + excl;
+    }
+  }
+  // the last bin's csum (the excluded total), from the lane holding it
+  float total[3];
+  {
+    const int jl = (b - 1) % kBinsPerLane;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      float mine = 0.f;
+#pragma unroll
+      for (int j = 0; j < kBinsPerLane; ++j)
+        if (j == jl) mine = cs[c][j];
+      total[c] = __shfl_sync(kFull, mine, (b - 1) / kBinsPerLane);
+    }
+  }
+
+  // 4. candidates at each of this lane's thresholds, both directions;
+  //    the lane's best (key, position) and the six sums it carries
   const float* aux = la + (size_t)slot * 8;
   const float leaf_g = aux[0], leaf_h = aux[1], leaf_c = aux[2];
   const float leaf_out = aux[3];
-  if (t < b) {
-    const float eps = static_cast<float>(1e-15);
-    const float fl_g = cs[0], fl_h = cs[1] + eps, fl_c = cs[2];
-    const float rr_g = hx[0][0] - cs[0];
-    const float rr_h = (hx[1][0] - cs[1]) + eps;
-    const float rr_c = hx[2][0] - cs[2];
-    const float fr_g = leaf_g - fl_g, fr_h = leaf_h - fl_h,
-                fr_c = leaf_c - fl_c;
-    const float rl_g = leaf_g - rr_g, rl_h = leaf_h - rr_h,
-                rl_c = leaf_c - rr_c;
-
-    const float gain_fwd =
-        gain_given_output(fl_g, fl_h,
-                          leaf_output(fl_g, fl_h, fl_c, leaf_out, prm), prm)
-        + gain_given_output(fr_g, fr_h,
-                            leaf_output(fr_g, fr_h, fr_c, leaf_out, prm),
-                            prm);
-    const float gain_rev =
-        gain_given_output(rl_g, rl_h,
-                          leaf_output(rl_g, rl_h, rl_c, leaf_out, prm), prm)
-        + gain_given_output(rr_g, rr_h,
-                            leaf_output(rr_g, rr_h, rr_c, leaf_out, prm),
-                            prm);
-    const float min_gain_shift =
-        gain_given_output(leaf_g, leaf_h,
-                          leaf_output(leaf_g, leaf_h, leaf_c, leaf_out, prm),
-                          prm)
-        + prm.min_gain;
-
-    const bool cm_fwd = fl_c >= prm.min_data && fr_c >= prm.min_data
-                        && fl_h >= prm.min_hess && fr_h >= prm.min_hess;
-    const bool cm_rev = rl_c >= prm.min_data && rr_c >= prm.min_data
-                        && rl_h >= prm.min_hess && rr_h >= prm.min_hess;
-    const bool zero_skip = mode_a && is_zero && t == dbin;
-    const bool fwd_ok = mode_a && t <= nb - 2 && !zero_skip;
-    const int rev_upper = nb - 2 - ((mode_a && is_nan) ? 1 : 0);
-    const bool rev_ok = t <= rev_upper && !zero_skip;
-    const bool v_fwd = cm_fwd && fwd_ok && gain_fwd > min_gain_shift
-                       && !(gain_fwd != gain_fwd);
-    const bool v_rev = cm_rev && rev_ok && gain_rev > min_gain_shift
-                       && !(gain_rev != gain_rev);
-    key_fwd[t] = v_fwd ? gain_fwd - min_gain_shift : -CUDART_INF_F;
-    key_rev[t] = v_rev ? gain_rev - min_gain_shift : -CUDART_INF_F;
-    sums[0][t] = rl_g; sums[1][t] = rl_h; sums[2][t] = rl_c;
-    sums[3][t] = rr_g; sums[4][t] = rr_h; sums[5][t] = rr_c;
-    sums[6][t] = fl_g; sums[7][t] = fl_h; sums[8][t] = fl_c;
-    sums[9][t] = fr_g; sums[10][t] = fr_h; sums[11][t] = fr_c;
+  const float min_gain_shift =
+      split_gain(leaf_g, leaf_h, leaf_c, leaf_out, prm) + prm.min_gain;
+  const int rev_upper = nb - 2 - ((mode_a && is_nan) ? 1 : 0);
+  const float eps = static_cast<float>(1e-15);
+  float best_key = -CUDART_INF_F;
+  int best_pos = 0x7fffffff;
+  float bs[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < kBinsPerLane; ++j) {
+    const int t = t0 + j;
+    if (t < b) {
+      const float fl_g = cs[0][j], fl_h = cs[1][j] + eps, fl_c = cs[2][j];
+      const float rr_g = total[0] - cs[0][j];
+      const float rr_h = (total[1] - cs[1][j]) + eps;
+      const float rr_c = total[2] - cs[2][j];
+      const float fr_g = leaf_g - fl_g, fr_h = leaf_h - fl_h,
+                  fr_c = leaf_c - fl_c;
+      const float rl_g = leaf_g - rr_g, rl_h = leaf_h - rr_h,
+                  rl_c = leaf_c - rr_c;
+      const float gain_fwd = split_gain(fl_g, fl_h, fl_c, leaf_out, prm)
+                             + split_gain(fr_g, fr_h, fr_c, leaf_out, prm);
+      const float gain_rev = split_gain(rl_g, rl_h, rl_c, leaf_out, prm)
+                             + split_gain(rr_g, rr_h, rr_c, leaf_out, prm);
+      const bool cm_fwd = fl_c >= prm.min_data && fr_c >= prm.min_data
+                          && fl_h >= prm.min_hess && fr_h >= prm.min_hess;
+      const bool cm_rev = rl_c >= prm.min_data && rr_c >= prm.min_data
+                          && rl_h >= prm.min_hess && rr_h >= prm.min_hess;
+      const bool zero_skip = mode_a && is_zero && t == dbin;
+      const bool fwd_ok = mode_a && t <= nb - 2 && !zero_skip;
+      const bool rev_ok = t <= rev_upper && !zero_skip;
+      const bool v_fwd = cm_fwd && fwd_ok && gain_fwd > min_gain_shift
+                         && !(gain_fwd != gain_fwd);
+      const bool v_rev = cm_rev && rev_ok && gain_rev > min_gain_shift
+                         && !(gain_rev != gain_rev);
+      const float key_rev = v_rev ? gain_rev - min_gain_shift : -CUDART_INF_F;
+      const float key_fwd = v_fwd ? gain_fwd - min_gain_shift : -CUDART_INF_F;
+      if (beats(key_rev, b - 1 - t, best_key, best_pos)) {
+        best_key = key_rev; best_pos = b - 1 - t;
+        bs[0] = rl_g; bs[1] = rl_h; bs[2] = rl_c;
+        bs[3] = rr_g; bs[4] = rr_h; bs[5] = rr_c;
+      }
+      if (beats(key_fwd, b + t, best_key, best_pos)) {
+        best_key = key_fwd; best_pos = b + t;
+        bs[0] = fl_g; bs[1] = fl_h; bs[2] = fl_c;
+        bs[3] = fr_g; bs[4] = fr_h; bs[5] = fr_c;
+      }
+    }
   }
-  __syncthreads();
 
-  // 5. the within-feature lexicographic argmax over [rev(0..B-1), fwd(...)]
-  if (t == 0) {
-    float best = -CUDART_INF_F;
-    for (int i = 0; i < b; ++i) best = key_rev[i] > best ? key_rev[i] : best;
-    for (int i = 0; i < b; ++i) best = key_fwd[i] > best ? key_fwd[i] : best;
-    int bdir = 1, bt = 0;
-    bool found = false;
-    for (int i = b - 1; i >= 0 && !found; --i)
-      if (key_rev[i] == best) { bdir = 0; bt = i; found = true; }
-    for (int i = 0; i < b && !found; ++i)
-      if (key_fwd[i] == best) { bdir = 1; bt = i; found = true; }
+  // 5. the warp's best (key, position); its owner writes the table row
+  float key = best_key;
+  int pos = best_pos;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const float ok = __shfl_xor_sync(kFull, key, off);
+    const int op = __shfl_xor_sync(kFull, pos, off);
+    if (beats(ok, op, key, pos)) { key = ok; pos = op; }
+  }
+  if (best_pos == pos) {
+    const bool rev = pos < b;
     float* out = cand + ((size_t)slot * f + feat) * kCand;
-    out[0] = best;
-    out[1] = static_cast<float>(bt);
-    out[2] = bdir == 0 ? 1.f : 0.f;
-    const int o = bdir == 0 ? 0 : 6;
-    for (int k = 0; k < 6; ++k) out[3 + k] = sums[o + k][bt];
+    out[0] = key;
+    out[1] = static_cast<float>(rev ? b - 1 - pos : pos - b);
+    out[2] = rev ? 1.f : 0.f;
+#pragma unroll
+    for (int k = 0; k < 6; ++k) out[3 + k] = bs[k];
     out[9] = 0.f; out[10] = 0.f; out[11] = 0.f;
   }
 }
@@ -275,15 +358,23 @@ extern "C" int split_epilogue_launch(const void* tile, const void* qscale,
                                      const void* pv, void* full, void* cand,
                                      int p, int f, int b, void* stream) {
   if (b > kMaxBins || b < 1) return (int)cudaErrorInvalidValue;
-  dim3 grid(p, f);
+  const int pairs = p * f;
+  if (pairs <= 0) return (int)cudaSuccess;
   const float* qs = static_cast<const float*>(qscale);
-  split_epilogue_kernel<<<grid, kMaxBins, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      qs ? nullptr : static_cast<const float*>(tile),
-      qs ? static_cast<const int32_t*>(tile) : nullptr, qs,
-      static_cast<const float*>(parent),
-      static_cast<const int32_t*>(der), static_cast<const float*>(la),
-      static_cast<const float*>(fm), static_cast<const float*>(pv),
-      static_cast<float*>(full), static_cast<float*>(cand), f, b);
+  const int blocks = (pairs + kWarps - 1) / kWarps;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* par = static_cast<const float*>(parent);
+  const int32_t* dr = static_cast<const int32_t*>(der);
+  const float* lap = static_cast<const float*>(la);
+  const float* fmp = static_cast<const float*>(fm);
+  const float* pvp = static_cast<const float*>(pv);
+  if (qs)
+    split_epilogue_kernel<true><<<blocks, 32 * kWarps, 0, st>>>(
+        nullptr, static_cast<const int32_t*>(tile), qs, par, dr, lap, fmp,
+        pvp, static_cast<float*>(full), static_cast<float*>(cand), p, f, b);
+  else
+    split_epilogue_kernel<false><<<blocks, 32 * kWarps, 0, st>>>(
+        static_cast<const float*>(tile), nullptr, nullptr, par, dr, lap, fmp,
+        pvp, static_cast<float*>(full), static_cast<float*>(cand), p, f, b);
   return (int)cudaGetLastError();
 }

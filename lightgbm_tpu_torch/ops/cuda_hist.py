@@ -79,7 +79,7 @@ import torch
 
 _PAD = 128                  # lane width of the TPU layout tables
 _STATS = 3                  # (grad, hess, count) per row
-MAX_BINS = 256              # split_epilogue: one thread per bin
+MAX_BINS = 256              # split_epilogue: 8 bins a lane of a warp
 Q8_MAX_ROWS = (2 ** 31 - 1) // 127   # q8: |sum| <= 127 * rows fits int32
 SMEM_PER_BLOCK = 232_448    # Hopper: dynamic shared memory a block can use
 _STATIC_SMEM = 1024         # room left for a gather kernel's static arrays
@@ -235,7 +235,7 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
     else:
         ll = ctypes.c_longlong
         lib.hist_onehot_launch.argtypes = ([vp] * 4 + [ci, ll] + [ci] * 5
-                                           + [ll, vp])
+                                           + [ll, ci, vp])
         lib.hist_onehot_launch.restype = ci
     return lib
 
@@ -823,7 +823,8 @@ def split_epilogue(tile: torch.Tensor, parent: torch.Tensor,
 # ---------------------------------------------------------------- hist_onehot
 _ONEHOT_LANES = 128         # folded output lanes
 _ONEHOT_RHS = 2 * _ONEHOT_LANES   # rhs lanes: the hi and lo halves
-_ONEHOT_TILE = 128          # output rows of one block's tile
+_ONEHOT_TILE = 256          # output rows of one block's tile
+_ONEHOT_STAGE = 64          # data rows of one stage (chunks are whole stages)
 
 
 def hist_onehot_plain(binsT: torch.Tensor, rhs: torch.Tensor,
@@ -844,10 +845,21 @@ def hist_onehot_plain(binsT: torch.Tensor, rhs: torch.Tensor,
     return out
 
 
-def _onehot_chunks(blocks: int, nblk: int, dev: torch.device) -> int:
-    """Row chunks (whole blk-row blocks each): about two blocks per SM."""
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    return int(max(1, min(nblk, -(-2 * sms // max(blocks, 1)))))
+def onehot_layout(f: int, n: int, num_bins: int, fg: int, sms: int):
+    """The launch's geometry: (tiles per group, tiles, features a tile's
+    bins box holds, chunks, rows a chunk).
+    The chunk count makes the blocks (one per SM) fill whole waves where it
+    can, with chunks of at least 16 stages."""
+    ngroups = -(-f // fg)
+    tpg = -(-fg * num_bins // _ONEHOT_TILE)
+    ntiles = ngroups * tpg
+    nf_box = min(fg, (_ONEHOT_TILE + num_bins - 2) // num_bins + 1)
+    most = max(1, min(128, n // (16 * _ONEHOT_STAGE)))
+    nchunk = max(range(1, most + 1), key=lambda c: (
+        ntiles * c / (-(-ntiles * c // sms) * sms), -c))
+    per_chunk = -(-(-(-n // nchunk)) // _ONEHOT_STAGE) * _ONEHOT_STAGE
+    nchunk = max(1, -(-n // per_chunk))
+    return tpg, ntiles, nf_box, nchunk, per_chunk
 
 
 def hist_onehot(binsT: torch.Tensor, rhs: torch.Tensor, num_bins: int,
@@ -855,8 +867,10 @@ def hist_onehot(binsT: torch.Tensor, rhs: torch.Tensor, num_bins: int,
     """out [F * B, 128] f32: out[f*B + b, q] = sum over rows r with
     binsT[f, r] == b of rhs[r, q] + rhs[r, q + 128], accumulated in f32.
     ``binsT`` [F, N] uint8, ``rhs`` [N, 256] bf16, N a multiple of ``blk``;
-    ``fg`` features per group, ``blk`` rows per block (on this design they
-    set only the tiles' padding and the chunks' edges)."""
+    ``fg`` features per group (on this design it sets the padding of a
+    group's one-hot rows to whole 256-row tiles), ``blk`` rows per block
+    (it sets nothing in the kernel, whose chunks are whole 64-row stages).
+    On the card N must be a multiple of 16 (the bins' TMA row stride)."""
     f, n = binsT.shape
     _check(rhs.shape == (n, _ONEHOT_RHS), f"hist_onehot: rhs "
            f"{tuple(rhs.shape)} != ({n}, {_ONEHOT_RHS})")
@@ -875,21 +889,22 @@ def hist_onehot(binsT: torch.Tensor, rhs: torch.Tensor, num_bins: int,
                f"on {dev}")
         _check(t.dtype == dt, f"hist_onehot: {name} must be {dt}")
         _check(t.is_contiguous(), f"hist_onehot: {name} must be contiguous")
-    ngroups = -(-f // fg)
-    tiles = -(-fg * num_bins // _ONEHOT_TILE)
-    nblk = n // blk
-    nchunk = _onehot_chunks(ngroups * tiles, nblk, dev) if nblk else 1
-    per_chunk = -(-nblk // nchunk) * blk
-    nchunk = max(1, -(-n // per_chunk)) if n else 1
+        _check(t.data_ptr() % 16 == 0, f"hist_onehot: {name} must be "
+               f"16-byte aligned (TMA)")
+    _check(n % 16 == 0, f"hist_onehot: {n} rows are no multiple of 16 (the "
+           f"bins' row stride for TMA)")
     out = torch.empty((f * num_bins, _ONEHOT_LANES), dtype=torch.float32,
                       device=dev)
     if n == 0 or f == 0:
         return out.zero_()
-    partial = torch.empty((nchunk, ngroups, tiles * _ONEHOT_TILE,
-                           _ONEHOT_LANES), dtype=torch.float32, device=dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    tpg, ntiles, nf_box, nchunk, per_chunk = onehot_layout(
+        f, n, num_bins, fg, sms)
+    partial = torch.empty((nchunk, ntiles, _ONEHOT_TILE, _ONEHOT_LANES),
+                          dtype=torch.float32, device=dev)
     err = _lib("hist_onehot").hist_onehot_launch(
         _ptr(binsT), _ptr(rhs), _ptr(partial), _ptr(out), f, n, num_bins, fg,
-        tiles, ngroups, nchunk, per_chunk,
+        tpg, ntiles, nchunk, per_chunk, nf_box,
         torch.cuda.current_stream(dev).cuda_stream)
     _count(hist_onehot, "launches")
     _raise_on(err, "hist_onehot")

@@ -12,8 +12,10 @@ zero-padded to a multiple of the block):
         [--rows 2000000] [--features 28] [--bins 255] [--reps 5] \\
         [--variants 2x2048,4x2048,4x1024,7x1024]
 
-The kernel and its plain version are ``ops/cuda_hist.py``'s ``hist_onehot``
-and ``hist_onehot_plain``. Not part of the library: the results feed the
+A variant that fails prints a FAILED line and the others still run; the
+run then exits non-zero (``VariantsFailed``). The kernel and its plain
+version are ``ops/cuda_hist.py``'s ``hist_onehot`` and
+``hist_onehot_plain``. Not part of the library: the results feed the
 histogram kernels' design.
 """
 
@@ -29,6 +31,18 @@ import torch
 from ..ops.cuda_hist import hist_onehot
 
 _RHS = 256          # rhs lanes: the hi and lo halves of 128
+
+
+class VariantsFailed(RuntimeError):
+    """Raised by ``main`` after its loop when a variant failed; carries every
+    variant's result (``results``) and the data (``data``), as ``main``
+    returns them."""
+
+    def __init__(self, results: List[Dict], data):
+        failed = [f"{r['fg']}x{r['blk']}" for r in results if "error" in r]
+        super().__init__(f"{len(failed)} variant(s) failed: "
+                         f"{', '.join(failed)}")
+        self.results, self.data = results, data
 
 
 def make_variant(fg: int, blk: int) -> Callable:
@@ -70,8 +84,11 @@ def _sync(dev: torch.device) -> None:
 def main(argv: Optional[List[str]] = None, device: str = "cuda"
          ) -> Tuple[List[Dict], Tuple[torch.Tensor, torch.Tensor]]:
     """Run the variants; returns each variant's result (its ``out`` and
-    ``ms_per_pass``, or its ``error``) and the unpadded data they ran on.
-    ``device="cpu"`` (for a test; no flag) runs the plain version."""
+    ``ms_per_pass``) and the unpadded data they ran on. A variant that fails
+    prints its FAILED line, as the JAX script does, and the others still
+    run; then ``VariantsFailed`` is raised (its ``error`` in the variant's
+    result), so the entry point exits non-zero. ``device="cpu"`` (for a
+    test; no flag) runs the plain version."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rows", type=int, default=2_000_000)
     ap.add_argument("--features", type=int, default=28)
@@ -107,6 +124,8 @@ def main(argv: Optional[List[str]] = None, device: str = "cuda"
             print(f"fg={fg} blk={blk}: FAILED {type(e).__name__}: "
                   f"{str(e)[:200]}", flush=True)
             results.append({"fg": fg, "blk": blk, "error": repr(e)})
+    if any("error" in r for r in results):
+        raise VariantsFailed(results, (binsT, rhs))
     return results, (binsT, rhs)
 
 

@@ -11,7 +11,11 @@ Bars: ``hist_tile`` bitwise equal to ``hist_tile_plain`` on integer-valued
 stats (sums exact in any order), within 1e-5 of the summed magnitudes on
 float stats, and two launches bitwise equal on float stats (its 64-bit
 fixed-point sums are deterministic); ``split_epilogue`` bitwise equal to
-``split_epilogue_plain`` on identical planes (built with ``--fmad=false``);
+``split_epilogue_plain`` on identical planes (built with ``--fmad=false``)
+and to a second launch, in f32 and q8, also on the edge cases of
+``tests/torch_epilogue_cases.py`` (exact gain ties within and across the
+two scans, all keys -inf, NaN cells, derived slot 0, nb < B with NaN and
+Zero missing types, B in {1, 8, 16, 17, 255, 256});
 training on the card gives the same model text twice, and the CPU plain
 path's structure, on the fused and on the classic path. The q8 mode
 (quantized gradients): ``hist_tile`` on int8 stats and the dequantizing
@@ -25,7 +29,8 @@ one-slot tile (the root pass) at the Higgs and Expo widths, on skewed
 bins (80% in one bin, Zipf columns), at 40 features (two feature groups)
 and with most rows outside the slot.
 The experiment script's ``hist_onehot`` (bf16 tensor cores) within 1e-5
-of each cell's summed magnitudes of its plain version.
+of each cell's summed magnitudes of its plain version, and two launches
+bitwise equal.
 """
 
 import numpy as np
@@ -33,6 +38,8 @@ import pytest
 import torch
 
 from lightgbm_tpu_torch.ops import cuda_hist
+from torch_epilogue_cases import (EDGE_BINS, EDGE_CASES, PV_DEFAULT,
+                                  PV_REGULARISED, epilogue_case)
 
 pytestmark = pytest.mark.cuda
 
@@ -133,25 +140,50 @@ def _epilogue_inputs(p, f, b, seed):
     return tile, parent, der, la, fm
 
 
-@pytest.mark.parametrize("p,f,b", [(42, 28, 255), (6, 5, 16), (3, 2, 256),
-                                   (1, 1, 3)])
-@pytest.mark.parametrize("pv", [[0, 1, 0, 0, 20, 1e-3, 0],
-                                [0.5, 2, 0.7, 3, 5, 1, 0.01]],
+# the epilogue's edge cases (tests/torch_epilogue_cases.py): exact ties
+# within and across the scans, all keys -inf, NaN cells, derived slot 0,
+# nb < B with NaN / Zero missing types, at B on the edges of the kernel's
+# 8 bins a lane and 16-bin scan blocks
+EPI_EDGES = [(6, 6, b, case) for case in EDGE_CASES for b in EDGE_BINS]
+
+
+def _cpu_bits(t, case):
+    """The float32 bits of ``t``; in the ``nan`` case with every NaN one
+    NaN: the CPU and the card make NaNs of other signs and payloads from
+    NaN cells. Every other case compares raw bits."""
+    if case == "nan":
+        t = torch.where(torch.isnan(t), torch.full_like(t, float("nan")), t)
+    return t.view(torch.int32)
+
+
+def _epilogue_case(p, f, b, case, q8):
+    if case is None:
+        return _epilogue_inputs(p, f, b, p * f + b + (1 if q8 else 0))
+    return epilogue_case(case, b, q8, p, f)[:5]
+
+
+@pytest.mark.parametrize("p,f,b,case", [(42, 28, 255, None),
+                                        (6, 5, 16, None), (3, 2, 256, None),
+                                        (1, 1, 3, None)] + EPI_EDGES)
+@pytest.mark.parametrize("pv", [PV_DEFAULT[:7], PV_REGULARISED[:7]],
                          ids=["default", "regularised"])
-def test_split_epilogue_matches_plain(dev, p, f, b, pv):
-    tile, parent, der, la, fm = _epilogue_inputs(p, f, b, p * f + b)
+def test_split_epilogue_matches_plain(dev, p, f, b, case, pv):
+    tile, parent, der, la, fm = _epilogue_case(p, f, b, case, False)
     pvec = torch.tensor(pv + [0.0], dtype=torch.float32)
     args = [t.to(dev) for t in (tile, parent, der, la, fm, pvec)]
     before = cuda_hist.split_epilogue.launches
     kf, kc = cuda_hist.split_epilogue(*args)
     assert cuda_hist.split_epilogue.launches == before + 1
+    kf2, kc2 = cuda_hist.split_epilogue(*args)
     pf, pc = cuda_hist.split_epilogue_plain(*args)
     torch.cuda.synchronize()
     assert torch.equal(kc.view(torch.int32), pc.view(torch.int32))
     assert torch.equal(kf.view(torch.int32), pf.view(torch.int32))
+    assert torch.equal(kc.view(torch.int32), kc2.view(torch.int32))
+    assert torch.equal(kf.view(torch.int32), kf2.view(torch.int32))
     # the plain version on the card equals it on the CPU
     cf, cc = cuda_hist.split_epilogue_plain(tile, parent, der, la, fm, pvec)
-    assert torch.equal(pc.cpu().view(torch.int32), cc.view(torch.int32))
+    assert torch.equal(_cpu_bits(pc.cpu(), case), _cpu_bits(cc, case))
 
 
 def test_wrapper_raises_instead_of_falling_back(dev):
@@ -243,29 +275,43 @@ def test_hist_tile_q8_matches_plain(dev, n, f, b, p, gather):
     assert (h.launches, h.gather_launches, h.launches_plane) == (0, 0, 0)
 
 
-@pytest.mark.parametrize("p,f,b", [(42, 28, 255), (6, 5, 16), (1, 1, 3)])
-def test_split_epilogue_q8_matches_plain(dev, p, f, b):
-    tile, parent, der, la, fm = _epilogue_inputs(p, f, b, p * f + b + 1)
-    qtile = torch.round(tile * 37).to(torch.int32)
-    q_scale = torch.tensor([0.0173, 0.00291, 1.0])
-    pvec = torch.tensor([0, 1, 0, 0, 20, 1e-3, 0, 0], dtype=torch.float32)
+@pytest.mark.parametrize("p,f,b,case", [(42, 28, 255, None),
+                                        (6, 5, 16, None), (1, 1, 3, None)]
+                         + EPI_EDGES)
+def test_split_epilogue_q8_matches_plain(dev, p, f, b, case):
+    if case is None:
+        tile, parent, der, la, fm = _epilogue_case(p, f, b, None, True)
+        qtile = torch.round(tile * 37).to(torch.int32)
+        q_scale = torch.tensor([0.0173, 0.00291, 1.0])
+    else:
+        qtile, parent, der, la, fm, q_scale, _ = epilogue_case(case, b, True,
+                                                               p, f)
+    pvec = torch.tensor(PV_DEFAULT, dtype=torch.float32)
     args = [t.to(dev) for t in (qtile, parent, der, la, fm, pvec)]
     cuda_hist.reset_launch_counts()
     kf, kc = cuda_hist.split_epilogue(*args, q_scale.to(dev))
+    kf2, kc2 = cuda_hist.split_epilogue(*args, q_scale.to(dev))
     pf, pc = cuda_hist.split_epilogue_plain(*args, q_scale.to(dev))
     torch.cuda.synchronize()
-    assert cuda_hist.split_epilogue.launches_q8 == 1
+    assert cuda_hist.split_epilogue.launches_q8 == 2
     assert cuda_hist.split_epilogue.launches == 0
     assert torch.equal(kc.view(torch.int32), pc.view(torch.int32))
     assert torch.equal(kf.view(torch.int32), pf.view(torch.int32))
+    assert torch.equal(kc.view(torch.int32), kc2.view(torch.int32))
+    assert torch.equal(kf.view(torch.int32), kf2.view(torch.int32))
     cf, cc = cuda_hist.split_epilogue_plain(qtile, parent, der, la, fm, pvec,
                                             q_scale)
-    assert torch.equal(pc.cpu().view(torch.int32), cc.view(torch.int32))
+    assert torch.equal(_cpu_bits(pc.cpu(), case), _cpu_bits(cc, case))
 
 
 @pytest.mark.parametrize("n,f,b,fg,blk", [
     (65_536, 28, 255, 2, 2048), (65_536, 28, 255, 7, 1024),
-    (4_096, 5, 31, 4, 1024), (1_024, 1, 2, 3, 64)])
+    (4_096, 5, 31, 4, 1024), (1_024, 1, 2, 3, 64),
+    # edges: a last stage of 16 rows (TMA fills the rest with zeros), B=1,
+    # B=256, two feature groups, a bins box of 256 features (its cap)
+    (1_040, 3, 31, 2, 16), (4_096, 3, 1, 1, 1024),
+    (8_192, 40, 256, 28, 1024), (8_192, 40, 255, 7, 1024),
+    (4_096, 300, 1, 256, 1024)])
 def test_hist_onehot_matches_plain(dev, n, f, b, fg, blk):
     g = torch.Generator().manual_seed(n + f)
     binsT = torch.randint(0, b, (f, n), generator=g).to(torch.uint8).to(dev)

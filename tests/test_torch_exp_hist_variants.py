@@ -97,10 +97,13 @@ def test_plain_is_the_folded_histogram():
 def test_entry_point_on_cpu(capsys):
     """``python -m lightgbm_tpu_torch.scripts.exp_hist_variants``'s main at
     a small size: one line per variant, rows padded to the block (the
-    padding adds nothing), a bad variant reported as FAILED."""
-    res, (binsT0, _) = tv.main(["--rows", "1000", "--features", "3",
-                                "--bins", "15", "--reps", "1", "--variants",
-                                "2x256,3x64,0x64"], device="cpu")
+    padding adds nothing), a bad variant reported as FAILED after which
+    the other variants still run and the run fails."""
+    with pytest.raises(tv.VariantsFailed, match="0x64") as failed:
+        tv.main(["--rows", "1000", "--features", "3", "--bins", "15",
+                 "--reps", "1", "--variants", "2x256,3x64,0x64"],
+                device="cpu")
+    res, (binsT0, _) = failed.value.results, failed.value.data
     lines = capsys.readouterr().out.strip().splitlines()
     assert [ln.split(":")[0] for ln in lines] == [
         "fg=2 blk=256", "fg=3 blk=64", "fg=0 blk=64"]
@@ -110,6 +113,49 @@ def test_entry_point_on_cpu(capsys):
     want = cuda_hist.hist_onehot_plain(binsT, rhs, 15)
     for r in res[:2]:
         np.testing.assert_array_equal(r["out"].numpy(), want.numpy())
+
+
+def test_entry_point_fails_on_a_failed_variant(monkeypatch, capsys):
+    """A variant whose call raises (here ``blk`` that does not divide the
+    rows, through a ``pad_rows`` that pads nothing) is printed as FAILED,
+    the variants after it still run, and the run ends in an error: the
+    entry point does not exit 0 on a failed variant."""
+    monkeypatch.setattr(tv, "pad_rows", lambda binsT, rhs, blk: (binsT, rhs))
+    with pytest.raises(tv.VariantsFailed, match="1x96") as failed:
+        tv.main(["--rows", "1024", "--features", "2", "--bins", "7",
+                 "--reps", "1", "--variants", "1x96,2x64"], device="cpu")
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert lines[0].startswith("fg=1 blk=96: FAILED ValueError")
+    assert lines[1].startswith("fg=2 blk=64:") and "ms/pass" in lines[1]
+    res = failed.value.results
+    assert "multiple of blk" in res[0]["error"] and "out" in res[1]
+    # without the failing variant the same run returns
+    out, _ = tv.main(["--rows", "1024", "--features", "2", "--bins", "7",
+                      "--reps", "1", "--variants", "2x64"], device="cpu")
+    np.testing.assert_array_equal(out[0]["out"].numpy(),
+                                  res[1]["out"].numpy())
+
+
+@pytest.mark.parametrize("f,n,b,fg", [
+    (28, 2_001_920, 255, 2), (28, 2_000_896, 255, 7), (5, 4096, 31, 4),
+    (1, 1024, 2, 3), (3, 4096, 1, 1), (40, 8192, 256, 28)])
+def test_onehot_layout_covers_rows_and_features(f, n, b, fg):
+    """The kernel's launch geometry (``onehot_layout``, 132 SMs): chunks of
+    whole 64-row stages that cover the N rows, tiles of 256 one-hot rows
+    per feature group, and a bins box that holds every feature a tile's
+    rows meet."""
+    tpg, ntiles, nf_box, nchunk, per = cuda_hist.onehot_layout(
+        f, n, b, fg, 132)
+    assert per % 64 == 0 and (nchunk - 1) * per < n <= nchunk * per
+    assert ntiles == -(-f // fg) * tpg
+    assert tpg * 256 >= fg * b > (tpg - 1) * 256
+    assert 1 <= nf_box <= min(fg, 256)
+    for t in range(tpg):
+        first, last = t * 256, min(fg * b, t * 256 + 256) - 1
+        assert last // b - first // b + 1 <= nf_box
+    if n > 2_000_000:
+        # the script's defaults: 28 tiles, whole waves of one block per SM
+        assert ntiles * nchunk % 132 == 0
 
 
 def test_wrapper_checks_and_counts_no_cpu_launch():

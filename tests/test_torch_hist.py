@@ -33,6 +33,8 @@ from lightgbm_tpu.ops.histogram import histogram_scatter
 from lightgbm_tpu_torch.ops import cuda_hist
 from lightgbm_tpu_torch.ops.histogram import (compact_indices,
                                               histogram_tiles, resolve_method)
+from torch_epilogue_cases import (EDGE_BINS, EDGE_CASES, PV_DEFAULT,
+                                  epilogue_case)
 
 # one intra-op thread: the suite runs in worker processes that share the cores
 torch.set_num_threads(1)
@@ -396,6 +398,37 @@ def test_q8_derive_and_scan_matches_jax(seed):
     _bits_equal(pfull.numpy(), jfull)
     _bits_equal(pcand.numpy(), jcand)
     assert cuda_hist.split_epilogue.launches_q8 == 0
+
+
+@pytest.mark.parametrize("q8", [False, True], ids=["f32", "q8"])
+@pytest.mark.parametrize("b", EDGE_BINS)
+@pytest.mark.parametrize("case", EDGE_CASES)
+def test_epilogue_edge_cases_match_jax(case, b, q8):
+    """The split epilogue's plain version (the wrapper on CPU tensors) on
+    planes built to break a parallel scan or argmax (exact gain ties within
+    and across the two scans, all keys -inf, NaN cells, derived slot 0,
+    nb < B with NaN and Zero missing types; B at the edges of 8 bins a lane
+    and 16-bin scan blocks): bitwise the JAX package's derive_and_scan, in
+    f32 and in q8."""
+    from lightgbm_tpu.ops.histogram import derive_and_scan as j_das
+    tile, parent, der, la, fm, q_scale, derive = epilogue_case(case, b, q8)
+    pv = torch.tensor(PV_DEFAULT, dtype=torch.float32)
+    jfull, jcand = j_das(
+        jnp.asarray(tile.numpy()), jnp.asarray(derive.numpy()),
+        jnp.asarray(parent.numpy()), jnp.asarray(la.numpy()),
+        jnp.asarray(fm.numpy()), jnp.asarray(pv.numpy()[:7]), q8=q8,
+        q_scale=None if q_scale is None else jnp.asarray(q_scale.numpy()))
+    cuda_hist.reset_launch_counts()
+    pfull, pcand = cuda_hist.split_epilogue(tile, parent, der, la, fm, pv,
+                                            q_scale)
+    assert sum(cuda_hist.launch_counts().values()) == 0
+    _bits_equal(pfull.numpy(), jfull)
+    _bits_equal(pcand.numpy(), jcand)
+    if case == "all_inf":
+        # the empty feature: every key -inf, the reverse threshold B-1 wins
+        c = pcand.numpy()[:, 0]
+        assert np.all(c[:, 0] == -np.inf) and np.all(c[:, 1] == b - 1)
+        assert np.all(c[:, 2] == 1.0)
 
 
 @pytest.mark.parametrize("gather", [False, True])
