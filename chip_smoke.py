@@ -91,6 +91,28 @@ The quantized-gradient (q8) mode, kernels 1-4 on int8 gradients:
                   int32 sums, the same quantization arithmetic), and two
                   card runs identical
 
+The boosting modes, on the kernels above (counted from 0 around each run):
+
+  train_multiclass, multiclass on Covertype-shaped data (its 581,012 rows
+  train_q8_multiclass  to train on, 54 columns, 40 of them
+                  >= 90%-zero one-hot columns stored as sparse streams, so
+                  the classic path; 7 classes, 5 rounds = 35 trees), f32
+                  and q8: sec/iter, valid multi_logloss and multi_error
+                  (below the majority class's 0.512; q8 within 0.01 of
+                  f32), the split path, plane-only launches only
+  parity_multiclass  multiclass f32 and q8 at 50,000 rows, 3 rounds: two
+                  card runs and the CPU run (kernel sums in f32) identical
+  train_sampling  on train's rows, one Dataset, 5 rounds each: bagging
+                  mask (0.8), subset (0.5; at most 0.55x the plain train
+                  run's rows a tree, rungs of its k rows), pos/neg
+                  fractions, feature_fraction 0.8, GOSS at lr 0.5 (samples
+                  in >= 3 iterations), DART (drops trees in >= 1
+                  iteration), RF: sec/iter, valid AUC
+                  (> 0.6), rows a tree, the fused path's f32 launches
+  parity_sampling six of those modes (GOSS also in q8; DART at drop_rate
+                  0.3, so that a tree drops) at 50,000 rows, 3 rounds:
+                  card twice and CPU, identical model text
+
 and kernel 5, the experiment script's one-hot histogram:
 
   hist_variants   python -m lightgbm_tpu_torch.scripts.exp_hist_variants at
@@ -125,7 +147,10 @@ phase's own bins as its ``ms`` / ``plain_ms`` / ``bound_ms`` /
 uniform bins (``root_uniform``) and the several-slot probe
 (``multi_slot``) beside it.
 
-Then a ``kernels`` line, nvidia-smi's ``name, power.limit`` line, and last
+Then a ``kernels`` line (each kernel's ``launches`` on its main path's
+run, and ``launches_by_path``: its launches in every train phase and
+sampling run that launched it), nvidia-smi's ``name, power.limit`` line,
+and last
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 1 and
 prints no result. Times come from CUDA events (median of >= 10 launches
 after warm-up, the L2 cache flushed before each); bounds use the H100 SXM
@@ -1125,6 +1150,213 @@ def train_cat_phase(lgb, cuda_hist, args, q8_ref_auc=None):
     return out, launches
 
 
+# UCI Covertype (581,012 rows): the rows of each of its 7 classes (cover
+# types 1-7 as 0-6) and the shares of its 4 wilderness areas
+COVER_ROWS = 581_012
+COVER_CLASS_ROWS = (211840, 283301, 35754, 2747, 9493, 17367, 20510)
+COVER_WILDERNESS = (0.449, 0.051, 0.436, 0.064)
+
+
+def covertype_like(n: int, seed: int):
+    """Covertype-shaped data: its 54 columns in its order (10 integer
+    numerical -- elevation, aspect, slope, the distances to water, roads
+    and fire points, three hillshades -- then 4 wilderness and 40 soil
+    one-hot binaries, exactly one of each set a row; soil shares Zipf-like,
+    so most one-hot columns are >= 90% zeros and stored as sparse streams)
+    and a 7-class label from a noisy elevation-led score, cut at the
+    dataset's class shares with the classes in the dataset's elevation
+    order."""
+    rng = np.random.RandomState(seed)
+    X = np.zeros((n, 54), np.float32)
+    X[:, 0] = np.round(np.clip(rng.normal(2959, 280, n), 1859, 3858))
+    X[:, 1] = rng.randint(0, 361, n)
+    X[:, 2] = np.round(np.clip(rng.gamma(4.0, 3.5, n), 0, 66))
+    X[:, 3] = np.round(np.clip(rng.exponential(270, n), 0, 1397))
+    X[:, 4] = np.round(np.clip(rng.normal(46, 58, n), -173, 601))
+    X[:, 5] = np.round(np.clip(rng.exponential(2350, n), 0, 7117))
+    X[:, 6] = np.round(np.clip(rng.normal(212, 27, n), 0, 254))
+    X[:, 7] = np.round(np.clip(rng.normal(223, 20, n), 0, 254))
+    X[:, 8] = np.round(np.clip(rng.normal(143, 38, n), 0, 254))
+    X[:, 9] = np.round(np.clip(rng.exponential(1980, n), 0, 7173))
+    wild = rng.choice(4, n, p=COVER_WILDERNESS)
+    X[np.arange(n), 10 + wild] = 1.0
+    soil_p = 1.0 / (np.arange(40) + 2.5) ** 1.1
+    soil = rng.choice(40, n, p=rng.permutation(soil_p / soil_p.sum()))
+    X[np.arange(n), 14 + soil] = 1.0
+    eff = np.random.RandomState(seed + 1).randn(44)
+    z = ((X[:, 0] - 2959) / 280 + 0.25 * np.sin(np.radians(X[:, 1]))
+         - 0.01 * X[:, 2] - 0.0004 * X[:, 5] + 0.3 * eff[wild]
+         + 0.3 * eff[4 + soil] + 0.4 * rng.randn(n))
+    order = (3, 2, 5, 1, 4, 0, 6)     # Cottonwood/Willow lowest ... Krummholz
+    shares = np.array([COVER_CLASS_ROWS[c] for c in order], np.float64)
+    cuts = np.quantile(z, np.cumsum(shares)[:-1] / shares.sum())
+    y = np.asarray(order)[np.searchsorted(cuts, z)].astype(np.float64)
+    return X, y
+
+
+MULTICLASS = {"objective": "multiclass", "num_class": 7,
+              "metric": ["multi_logloss", "multi_error"]}
+
+
+def train_multiclass_phase(lgb, cuda_hist, args, q8_ref_error=None):
+    """Multiclass on Covertype-shaped data (COVER_ROWS train rows, a
+    tenth of that more for validation, PARAMS otherwise, 5 rounds: 35
+    trees); its one-hot columns are sparse streams, so the classic path:
+    plane-only hist_tile launches only. With ``q8_ref_error`` (the f32
+    run's valid multi_error) the q8 mode, whose multi_error must be within
+    0.01 of it."""
+    q8 = q8_ref_error is not None
+    t0 = time.time()
+    nv = COVER_ROWS // 10
+    X, y = covertype_like(COVER_ROWS + nv, args.seed + 3)
+    Xv, yv = X[COVER_ROWS:], y[COVER_ROWS:]
+    X, y = X[:COVER_ROWS], y[:COVER_ROWS]
+    t_data = time.time() - t0
+    params = dict(PARAMS, **MULTICLASS, device_type="cuda",
+                  quantized_grad=q8)
+    train = lgb.Dataset(X, label=y, params=params)
+    valid = lgb.Dataset(Xv, label=yv, reference=train)
+    t0 = time.time()
+    train.construct()
+    valid.construct()
+    torch.cuda.synchronize()
+    t_construct = time.time() - t0
+    evals = {}
+    cuda_hist.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    booster = lgb.train(params, train, args.rounds, valid_sets=[valid],
+                        valid_names=["valid"], evals_result=evals)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = cuda_hist.launch_counts()
+    gb = booster._boosting
+    prob = booster.predict(Xv)
+    sfx, other = ("_q8", "") if q8 else ("", "_q8")
+    merr = evals["valid"]["multi_error"][-1]
+    out = {"rows": COVER_ROWS, "valid_rows": nv, "features": 54,
+           "classes": 7, "rounds": args.rounds, "quantized_grad": q8,
+           "sec_per_iter": wall / args.rounds, "train_wall_s": wall,
+           "data_s": t_data, "construct_s": t_construct,
+           "valid_multi_logloss": evals["valid"]["multi_logloss"][-1],
+           "valid_multi_error": merr,
+           "valid_multi_error_from_predict": float(np.mean(
+               prob.argmax(1) != yv)),
+           "split_path": "fused" if gb._split_fusion_on() else "classic",
+           "sparse_columns": len(train.sp_cols) if train.has_sparse_cols
+           else 0,
+           "rows_streamed_per_tree": booster.rows_streamed_per_tree,
+           "rows_real_per_tree": booster.rows_real_per_tree,
+           "launches": launches, "trees": booster.num_trees()}
+    plane = launches["hist_tile.launches_plane" + sfx]
+    if out["split_path"] != "classic" or plane <= 0 \
+            or launches["hist_tile.gather_launches" + sfx] <= 0 \
+            or plane != launches["hist_tile.launches" + sfx] \
+            or launches["split_epilogue.launches"] \
+            or launches["split_epilogue.launches_q8"] \
+            or launches["hist_tile.launches" + other]:
+        raise AssertionError(f"the multiclass run left the classic path or "
+                             f"missed its kernels: {out}")
+    # the majority class holds 48.8% of the rows
+    baseline = 1.0 - max(COVER_CLASS_ROWS) / sum(COVER_CLASS_ROWS)
+    if out["trees"] != 7 * args.rounds or prob.shape != (nv, 7) \
+            or not np.all(np.isfinite(prob)) \
+            or not np.allclose(prob.sum(1), 1.0, atol=1e-5) \
+            or not np.isfinite(out["valid_multi_logloss"]) \
+            or not merr < baseline \
+            or abs(merr - out["valid_multi_error_from_predict"]) > 1e-3:
+        raise AssertionError(f"multiclass output: {out}")
+    if q8 and not abs(merr - q8_ref_error) <= 0.01:
+        raise AssertionError(f"q8 multi_error {merr} not within 0.01 of the "
+                             f"f32 run's {q8_ref_error}")
+    out["profile"] = profile_iteration(booster, wall / args.rounds)
+    return out, launches
+
+
+# the sampling runs: the boosting modes users tune, on train's data
+SAMPLING = {
+    "bagging_mask": {"bagging_fraction": 0.8, "bagging_freq": 1},
+    "bagging_subset": {"bagging_fraction": 0.5, "bagging_freq": 1},
+    "bagging_posneg": {"pos_bagging_fraction": 0.8,
+                       "neg_bagging_fraction": 0.5, "bagging_freq": 1},
+    "feature_fraction": {"feature_fraction": 0.8},
+    "goss": {"boosting": "goss", "top_rate": 0.2, "other_rate": 0.1,
+             "learning_rate": 0.5},
+    "dart": {"boosting": "dart"},
+    "rf": {"boosting": "rf", "bagging_fraction": 0.632, "bagging_freq": 1,
+           "feature_fraction": 0.8},
+}
+
+
+def train_sampling_phase(lgb, cuda_hist, args, plain_rows_per_tree):
+    """Each SAMPLING run on train's Higgs-shaped data (one Dataset,
+    constructed once), 5 rounds: sec/iter, valid AUC (> 0.6), rows read
+    per tree, launches (the fused path's kernels, f32). The subset run
+    reads at most 0.55x the rows a tree of ``plain_rows_per_tree`` (the
+    plain train run's), with rungs of its k rows; GOSS samples from
+    iteration int(1 / 0.5) = 2 on, 3 of the 5; DART at its defaults
+    (drop_seed 4) drops trees in at least one iteration (the fourth)."""
+    X, y = higgs_like(args.rows + args.valid_rows, args.seed)
+    Xv, yv = X[args.rows:], y[args.rows:]
+    X, y = X[:args.rows], y[:args.rows]
+    base = dict(PARAMS, device_type="cuda")
+    train = lgb.Dataset(X, label=y, params=base)
+    valid = lgb.Dataset(Xv, label=yv, reference=train)
+    train.construct()
+    valid.construct()
+    runs = {}
+    for name, extra in SAMPLING.items():
+        params = dict(base, **extra)
+        evals = {}
+        cuda_hist.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        booster = lgb.train(params, train, args.rounds, valid_sets=[valid],
+                            valid_names=["valid"], evals_result=evals)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = cuda_hist.launch_counts()
+        gb = booster._boosting
+        r = {"params": extra, "sec_per_iter": wall / args.rounds,
+             "valid_auc": evals["valid"]["auc"][-1],
+             "valid_auc_from_predict": auc(
+                 booster.predict(Xv, raw_score=True), yv),
+             "rows_streamed_per_tree": booster.rows_streamed_per_tree,
+             "rows_real_per_tree": booster.rows_real_per_tree,
+             "bagging_mode": gb._bagging_mode(),
+             "rungs": list(gb._compaction_ladder()),
+             "trees": booster.num_trees(), "launches": launches}
+        if name == "goss":
+            r["sampled_iterations"] = list(gb.sampled_iterations)
+        if name == "dart":
+            r["drop_sets"] = list(gb.drop_sets)
+        runs[name] = r
+        fused = (launches["hist_tile.launches"]
+                 - launches["hist_tile.launches_plane"])
+        if not (r["valid_auc"] > 0.6
+                and abs(r["valid_auc"] - r["valid_auc_from_predict"]) < 1e-3
+                and r["trees"] == args.rounds and fused > 0
+                and launches["hist_tile.gather_launches"] > 0
+                and launches["split_epilogue.launches"] > 0
+                and not launches["hist_tile.launches_plane"]
+                and not launches["hist_tile.launches_q8"]):
+            raise AssertionError(f"sampling run {name}: {r}")
+    sub = runs["bagging_subset"]
+    k = int(round(args.rows * 0.5))
+    if not (sub["bagging_mode"] == "subset"
+            and sub["rows_streamed_per_tree"] <= 0.55 * plain_rows_per_tree
+            and sub["rungs"] == ladder_rungs(k)):
+        raise AssertionError(f"the subset run: {sub} (plain train "
+                             f"{plain_rows_per_tree} rows a tree)")
+    if runs["bagging_mask"]["bagging_mode"] != "mask" or \
+            len(runs["goss"]["sampled_iterations"]) < 3 or \
+            not any(runs["dart"]["drop_sets"]):
+        raise AssertionError(f"bagging mask / GOSS / DART: {runs}")
+    return {"rows": args.rows, "valid_rows": args.valid_rows,
+            "rounds": args.rounds, "plain_rows_streamed_per_tree":
+            plain_rows_per_tree, "runs": runs}
+
+
 def _sha(text: str) -> str:
     return hashlib.sha256(text.encode()).hexdigest()
 
@@ -1283,6 +1515,71 @@ def parity_q8_cat_phase(lgb, seed):
     if out["categorical_nodes"] <= 0:
         raise AssertionError(f"no categorical node: {out}")
     return out
+
+
+# the slice's parity runs: name -> (data, seed offset, parameters over
+# PARAMS at 63 leaves); each trains PARITY_ROUNDS rounds on PARITY_ROWS rows
+PARITY_MODES = {
+    "multiclass": (covertype_like, 19, dict(MULTICLASS)),
+    "multiclass_q8": (covertype_like, 19, dict(MULTICLASS,
+                                               quantized_grad=True)),
+    "bagging_subset_ff": (higgs_like, 23, {"bagging_fraction": 0.5,
+                                           "bagging_freq": 1,
+                                           "feature_fraction": 0.8}),
+    "bagging_posneg": (higgs_like, 23, SAMPLING["bagging_posneg"]),
+    "goss": (higgs_like, 23, SAMPLING["goss"]),
+    "goss_q8": (higgs_like, 23, dict(SAMPLING["goss"],
+                                     quantized_grad=True)),
+    # at drop_rate 0.1 (the default) no tree drops in PARITY_ROUNDS rounds;
+    # at 0.3 the third iteration drops the second's tree
+    "dart": (higgs_like, 23, dict(SAMPLING["dart"], drop_rate=0.3)),
+    "rf": (higgs_like, 23, SAMPLING["rf"]),
+}
+
+
+def _parity_mode(lgb, name, seed):
+    """One PARITY_MODES training twice on the card and once on the CPU
+    (f32: with the kernel's fixed-point sums, kernel_sums_on_cpu; q8: the
+    plain path, whose int32 sums are exact): the three model texts must be
+    equal bit for bit."""
+    from lightgbm_tpu_torch.ops import cuda_hist
+    data, offset, extra = PARITY_MODES[name]
+    X, y = data(PARITY_ROWS, seed + offset)
+    setup = (X, y, dict(PARAMS, num_leaves=63, **extra), {})
+    q8 = bool(extra.get("quantized_grad"))
+    texts = {run: parity_text(lgb, setup, "cuda")
+             for run in ("cuda", "cuda_again")}
+    with (contextlib.nullcontext() if q8
+          else cuda_hist.kernel_sums_on_cpu()):
+        texts["cpu"] = parity_text(lgb, setup, "cpu")
+    out = {"params": extra, "trees": texts["cuda"].count("Tree="),
+           "card_runs_identical_text": texts["cuda"] == texts["cuda_again"],
+           "card_equals_cpu_text": texts["cuda"] == texts["cpu"],
+           "cpu_sums": "plain (exact int32)" if q8 else "kernel_sums_on_cpu",
+           "card_text_sha256": _sha(texts["cuda"])}
+    if not (out["card_runs_identical_text"] and out["card_equals_cpu_text"]):
+        raise AssertionError(f"{name}: card vs CPU disagree: {out}")
+    if extra.get("boosting") == "dart":
+        # a dropped tree and the trees trained beside drops shrink below
+        # the learning rate
+        out["tree_shrinkages"] = sorted(set(
+            float(line.split("=")[1]) for line in texts["cuda"].splitlines()
+            if line.startswith("shrinkage=")))
+        if len(out["tree_shrinkages"]) < 2:
+            raise AssertionError(f"{name}: no tree was dropped: {out}")
+    return out
+
+
+def parity_multiclass_phase(lgb, seed):
+    return {"rows": PARITY_ROWS, "num_leaves": 63, "rounds": PARITY_ROUNDS,
+            **{m: _parity_mode(lgb, m, seed)
+               for m in ("multiclass", "multiclass_q8")}}
+
+
+def parity_sampling_phase(lgb, seed):
+    return {"rows": PARITY_ROWS, "num_leaves": 63, "rounds": PARITY_ROUNDS,
+            **{m: _parity_mode(lgb, m, seed) for m in PARITY_MODES
+               if not m.startswith("multiclass")}}
 
 
 VARIANT_RTOL = 1e-5     # of each cell's summed magnitudes (products exact)
@@ -1465,6 +1762,17 @@ def main() -> int:
     emit("parity_q8_cat", **same_as_parent(
         parity_q8_cat_phase(lgb, args.seed), "parity_q8_cat", parent))
 
+    tm, mc_launches = train_multiclass_phase(lgb, cuda_hist, args)
+    emit("train_multiclass", **tm)
+    tmq, mcq_launches = train_multiclass_phase(
+        lgb, cuda_hist, args, q8_ref_error=tm["valid_multi_error"])
+    emit("train_q8_multiclass", **tmq)
+    emit("parity_multiclass", **parity_multiclass_phase(lgb, args.seed))
+    ts = train_sampling_phase(lgb, cuda_hist, args,
+                              tr["rows_streamed_per_tree"])
+    emit("train_sampling", **ts)
+    emit("parity_sampling", **parity_sampling_phase(lgb, args.seed))
+
     hv = hist_variants_phase(cuda_hist)
     emit("hist_variants", **hv)
     if args.parent:
@@ -1587,6 +1895,25 @@ def main() -> int:
          "bound_by": hv["bound_by"], "library_ms": hv["library_ms"],
          "onehot_floor_ms": hv["onehot_floor_ms"]},
     ]
+    # each kernel's launches on every path that launched it, each path's
+    # counts read from 0 around its own run
+    paths = {"train": launches, "train_cat": cat_launches,
+             "train_q8": q8_launches, "train_q8_cat": q8_cat_launches,
+             "train_multiclass": mc_launches,
+             "train_q8_multiclass": mcq_launches,
+             **{f"train_sampling/{k}": v["launches"]
+                for k, v in ts["runs"].items()}}
+    for entry, count in zip(kernels[:6], (
+            lambda c: c["hist_tile.launches"] - c["hist_tile.launches_plane"],
+            lambda c: c["hist_tile.launches_plane"],
+            lambda c: c["split_epilogue.launches"],
+            lambda c: c["hist_tile.launches_q8"]
+            - c["hist_tile.launches_plane_q8"],
+            lambda c: c["hist_tile.launches_plane_q8"],
+            lambda c: c["split_epilogue.launches_q8"])):
+        entry["launches_by_path"] = {k: count(c) for k, c in paths.items()
+                                     if count(c) > 0}
+    kernels[6]["launches_by_path"] = {"hist_variants": hv["launches"]}
     # device time (torch.profiler) beside the events' time of each form
     # ("root/<bins>": the root pass, "full": the several-slot full form);
     # with --parent, the other design's [event ms, device ms] from the

@@ -1,8 +1,10 @@
 """lightgbm_tpu_torch: the PyTorch/CUDA port of lightgbm_tpu.
 
-Trains binary and L2 GBDT on dense numerical and categorical data through
-hand-written Hopper kernels (``csrc/``) on a CUDA device, or through their
-plain PyTorch versions with ``device_type="cpu"``. ``device_type`` defaults to
+Trains gradient-boosted trees (gbdt, goss, dart, rf; bagging and
+feature_fraction) for every objective but ranking, multiclass included, on
+dense numerical and categorical data through hand-written Hopper kernels
+(``csrc/``) on a CUDA device, or through their plain PyTorch versions with
+``device_type="cpu"``. ``device_type`` defaults to
 ``"cuda"``; without a CUDA device that is an error, never a fall-back.
 The package imports torch and numpy only.
 

@@ -184,9 +184,13 @@ class Dataset:
         >= 90% of the rows (and N >= 512) leaves the dense matrix and is
         kept as its non-default (row, bin) entries in row order, padded to
         the longest stream with row N. Training sets only: validation sets
-        (``reference=``) stay dense. Returns the dense columns' ``binsT``."""
+        (``reference=``) and dart and rf runs stay dense. Returns the dense
+        columns' ``binsT``."""
         threshold, min_rows = 0.90, 512
-        if not config.is_enable_sparse or self.reference is not None:
+        # dart (the dropped trees' scores) and rf re-traverse the train
+        # bins over every column, which the streams no longer hold
+        if (not config.is_enable_sparse or self.reference is not None
+                or config.boosting in ("dart", "rf")):
             return binsT
         fc, n = binsT.shape
         if n < min_rows or fc == 0 or not len(self.used_features):

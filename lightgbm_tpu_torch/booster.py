@@ -2,8 +2,11 @@
 
 The port of lightgbm_tpu's ``booster.py`` for the slice: training updates,
 evaluation, prediction (raw and converted) and model text. A Booster is
-built from a training Dataset, from a model file or string, or from trees
-carried across as numpy arrays (``convert.booster_from_numpy``).
+built from a training Dataset (boosted by the booster ``boosting`` names),
+from a model file or string, or from trees carried across as numpy arrays
+(``convert.booster_from_numpy``). Predictions of a K-class model are
+[N, K]: raw scores, or the softmax (``multiclass``) or per-class sigmoid
+(``multiclassova``) of them.
 """
 
 from __future__ import annotations
@@ -14,7 +17,7 @@ import numpy as np
 
 from .basic import Dataset
 from .config import Config
-from .models.gbdt import GBDT
+from .models.boosting import create_boosting
 
 
 class Booster:
@@ -38,7 +41,7 @@ class Booster:
             merged = dict(train_set.params or {})
             merged.update(self.params)
             train_set.params = merged
-            self._boosting = GBDT(self.config, train_set)
+            self._boosting = create_boosting(self.config, train_set)
         else:
             raise ValueError("need at least one of train_set, model_file or "
                              "model_str")

@@ -21,8 +21,9 @@ the same ``parameters:`` block into model text), with three port rules:
   same bits whether it is set or not (and on Hopper there is no hi/lo
   split for it to turn off).
 - Every parameter outside the port's implemented slice (dense numerical
-  and categorical data with sparse device columns, serial learner, gbdt
-  boosting, regression/binary objectives, the fused split epilogue, the
+  and categorical data with sparse device columns, serial learner; gbdt,
+  goss, dart and rf boosting with bagging and by-tree feature_fraction;
+  every objective and metric but ranking; the fused split epilogue, the
   classic split path, f32 and quantized-gradient histograms) raises
   NotImplementedError when set to a non-default value, naming the ROADMAP
   item that brings it (``_check_slice``). Nothing is silently ignored.
@@ -722,6 +723,12 @@ _SLICE_PARAMS = frozenset({
     "split_fusion", "hist_subtraction", "hist_compaction",
     "hist_compaction_ladder", "tile_leaves", "fused_iteration",
     "tree_growth_mode", "deterministic", "quantized_grad",
+    # boosting modes, row and column sampling, objective parameters
+    "bagging_fraction", "pos_bagging_fraction", "neg_bagging_fraction",
+    "bagging_freq", "feature_fraction", "top_rate", "other_rate",
+    "drop_rate", "max_drop", "skip_drop", "xgboost_dart_mode",
+    "uniform_drop", "reg_sqrt", "alpha", "fair_c", "poisson_max_delta_step",
+    "tweedie_variance_power", "multi_error_top_k", "auc_mu_weights",
     # categorical features (the classic split path)
     "categorical_feature", "max_cat_threshold", "cat_l2", "cat_smooth",
     "max_cat_to_onehot", "min_data_per_group",
@@ -736,18 +743,13 @@ for _names, _item in (
           "monotone_penalty", "feature_contri", "forcedsplits_filename",
           "cegb_tradeoff", "cegb_penalty_split", "cegb_penalty_feature_lazy",
           "cegb_penalty_feature_coupled", "interaction_constraints",
-          "extra_trees", "feature_fraction", "feature_fraction_bynode",
+          "extra_trees", "feature_fraction_bynode",
           "forcedbins_filename", "max_bin_by_feature",
           "histogram_pool_size", "force_col_wise", "force_row_wise"),
          "Queue 1 item 9 (the classic path's remaining features)"),
-        (("bagging_fraction", "pos_bagging_fraction", "neg_bagging_fraction",
-          "bagging_freq", "top_rate", "other_rate", "drop_rate", "max_drop",
-          "skip_drop", "xgboost_dart_mode", "uniform_drop", "reg_sqrt",
-          "alpha", "fair_c", "poisson_max_delta_step",
-          "tweedie_variance_power", "lambdarank_truncation_level",
-          "lambdarank_norm", "label_gain", "eval_at", "multi_error_top_k",
-          "auc_mu_weights", "objective", "boosting", "num_class", "metric"),
-         "Queue 1 item 10 (boosting modes and objectives)"),
+        (("lambdarank_truncation_level", "lambdarank_norm", "label_gain",
+          "eval_at", "objective", "metric"),
+         "Queue 1 item 10 (ranking)"),
         (("gpu_use_dp", "linear_tree", "linear_lambda"),
          "Queue 1 item 11 (precision modes)"),
         (("hist_block", "hist_autotune"),
@@ -791,8 +793,12 @@ for _names, _item in (
     for _n in _names:
         _ROADMAP_ITEM[_n] = _item
 
-_SLICE_OBJECTIVES = ("regression", "binary")
-_SLICE_METRICS = ("l2", "rmse", "binary_logloss", "auc")
+_SLICE_OBJECTIVES = (
+    "regression", "regression_l1", "huber", "fair", "poisson", "quantile",
+    "mape", "gamma", "tweedie", "binary", "multiclass", "multiclassova",
+    "cross_entropy", "cross_entropy_lambda")
+_RANKING_OBJECTIVES = ("lambdarank", "rank_xendcg")
+_RANKING_METRICS = ("ndcg", "map")
 HIST_METHODS = ("auto", "pallas", "pallas_hilo", "pallas_q8")
 
 
@@ -813,19 +819,19 @@ def _check_slice(cfg: Config) -> None:
                    is not dataclasses.MISSING else f.default)
         if v != default:
             _not_in_slice(f.name, v)
+    if cfg.objective in _RANKING_OBJECTIVES:
+        _not_in_slice("objective", cfg.objective)
     if cfg.objective not in _SLICE_OBJECTIVES:
-        _not_in_slice("objective", cfg.objective,
-                      f" (the port has {', '.join(_SLICE_OBJECTIVES)})")
-    if cfg.boosting != "gbdt":
-        _not_in_slice("boosting", cfg.boosting)
+        raise NotImplementedError(
+            f"objective={cfg.objective!r} is not ported to lightgbm_tpu_torch "
+            f"(the port has {', '.join(_SLICE_OBJECTIVES)}; custom objectives "
+            f"arrive with ROADMAP.md Queue 1 item 12 (API surface), ranking "
+            f"with Queue 1 item 10 (ranking))")
     if cfg.tree_learner != "serial":
         _not_in_slice("tree_learner", cfg.tree_learner)
-    if cfg.num_class != 1:
-        _not_in_slice("num_class", cfg.num_class)
     for m in cfg.metric:
-        if m not in _SLICE_METRICS:
-            _not_in_slice("metric", m,
-                          f" (the port has {', '.join(_SLICE_METRICS)})")
+        if m in _RANKING_METRICS:
+            _not_in_slice("metric", m)
     if cfg.histogram_method not in HIST_METHODS:
         raise NotImplementedError(
             f"parameter histogram_method={cfg.histogram_method!r} has no "

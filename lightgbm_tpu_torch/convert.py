@@ -9,8 +9,11 @@ numpy: one dict per tree with the fields of ``HostTree`` (``num_leaves``,
 ``leaf_parent``, ``shrinkage``, the per-node ``missing_type``, and for
 categorical nodes ``is_cat`` and the bin bitset ``cat_bitset`` [nodes,
 words]), plus the bin mappers (categorical ones with their
-``bin_2_categorical``) and the objective. The port never sees a foreign object:
-the caller converts to numpy first.
+``bin_2_categorical``) and the objective. A model of K trees an iteration
+(``multiclass``/``multiclassova`` with ``num_class`` K) lists its trees
+iteration by iteration, class by class; an RF model's
+``average_output`` averages its iterations. The port never sees a foreign
+object: the caller converts to numpy first.
 
     booster = booster_from_numpy(trees, {
         "mappers": mappers_from_numpy(bounds, missing_types),
@@ -77,13 +80,15 @@ def booster_from_numpy(trees: Sequence[Dict[str, Any]],
     """A port Booster over carried-across trees (see the module docstring).
     ``meta``: ``mappers`` (BinMapper list over all columns),
     ``used_features`` (column of each used-feature index; default: the
-    non-trivial mappers), ``objective`` ("regression" or "binary"),
-    optional ``sigmoid``, ``feature_names``, ``device_type`` and
-    ``params``."""
+    non-trivial mappers), ``objective`` (any objective the port has),
+    optional ``num_class``, ``sigmoid``, ``average_output``,
+    ``feature_names``, ``device_type`` and ``params`` (the objective's
+    own, e.g. ``alpha``)."""
     params = dict(meta.get("params") or {})
     params["objective"] = meta["objective"]
-    if "sigmoid" in meta:
-        params["sigmoid"] = meta["sigmoid"]
+    for key in ("sigmoid", "num_class"):
+        if key in meta:
+            params[key] = meta[key]
     if "device_type" in meta:
         params["device_type"] = meta["device_type"]
     config = Config.from_params(params)
@@ -98,6 +103,8 @@ def booster_from_numpy(trees: Sequence[Dict[str, Any]],
     gbdt.device = ds.device
     from .objectives import create_objective
     gbdt.objective = create_objective(config)
+    gbdt.num_tree_per_iteration = gbdt.objective.num_model_per_iteration
+    gbdt.average_output = bool(meta.get("average_output", False))
     for fields in trees:
         arrays = tree_from_host_fields(fields)
         n = int(fields["num_leaves"]) - 1

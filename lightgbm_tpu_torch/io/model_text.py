@@ -11,7 +11,9 @@ the mappers' ``bin_2_categorical``), feature importances and the echoed
 parameters block. The dump is character for character the JAX package's
 for the same trees. A loaded model predicts by traversing real thresholds
 and category bitsets over raw features, with no bin mappers, like the
-reference. Linear leaves wait for ROADMAP.md Queue 1 item 11.
+reference. Multiclass models hold K trees an iteration (tree i is class
+i % K) and an RF model (``average_output``) averages its iterations.
+Linear leaves wait for ROADMAP.md Queue 1 item 11.
 """
 
 from __future__ import annotations
@@ -245,9 +247,37 @@ class ModelTree:
 
 # ===================================================================== dump
 def _objective_string(config: Config) -> Optional[str]:
-    if config.objective == "binary":
-        return f"binary sigmoid:{config.sigmoid:g}"
-    return config.objective or None
+    """The model text's ``objective=`` line (the JAX package's)."""
+    obj = config.objective
+    if obj in ("none", "", None):
+        return None
+    args = {"binary": f"sigmoid:{config.sigmoid:g}",
+            "multiclass": f"num_class:{config.num_class}",
+            "multiclassova": f"num_class:{config.num_class} "
+                             f"sigmoid:{config.sigmoid:g}",
+            "quantile": f"alpha:{config.alpha:g}",
+            "huber": f"alpha:{config.alpha:g}",
+            "fair": f"c:{config.fair_c:g}",
+            "tweedie": f"tweedie_variance_power:"
+                       f"{config.tweedie_variance_power:g}"}.get(obj)
+    return obj if args is None else f"{obj} {args}"
+
+
+def _parse_objective(obj_str: str, config: Config) -> None:
+    """Apply a model's ``objective=`` line to the config (the inverse of
+    ``_objective_string``)."""
+    from ..config import _OBJECTIVE_ALIASES
+    toks = obj_str.split()
+    if not toks:
+        return
+    config.objective = _OBJECTIVE_ALIASES.get(toks[0], toks[0])
+    for tok in toks[1:]:
+        key, _, val = tok.partition(":")
+        key = {"c": "fair_c"}.get(key, key)     # fair's dump writes `c:`
+        if key == "num_class":
+            config.num_class = int(val)
+        elif key in ("sigmoid", "alpha", "fair_c", "tweedie_variance_power"):
+            setattr(config, key, float(val))
 
 
 def _feature_infos(mappers) -> List[str]:
@@ -277,20 +307,24 @@ def _collect(boosting, num_iteration: int = -1, start_iteration: int = 0
         cfg = boosting.config
         ds = boosting.train_set
         meta = {
-            "num_class": 1, "num_tree_per_iteration": 1, "label_index": 0,
+            "num_class": boosting.num_class,
+            "num_tree_per_iteration": boosting.num_tree_per_iteration,
+            "label_index": 0,
             "max_feature_idx": ds.num_total_features - 1,
             "objective": _objective_string(cfg),
+            "average_output": boosting.average_output,
             "feature_names": ds.get_feature_names(),
             "feature_infos": _feature_infos(ds.mappers),
             "parameters": cfg.to_params(),
         }
         all_trees = [ModelTree.from_host(ht, ds.mappers)
                      for ht in boosting.host_trees]
-    total = len(all_trees)
+    k = max(meta["num_tree_per_iteration"], 1)
+    total = len(all_trees) // k
     start = min(max(start_iteration, 0), total)
     end = (min(start + num_iteration, total)
            if num_iteration is not None and num_iteration > 0 else total)
-    return meta, all_trees[start:end]
+    return meta, all_trees[start * k:end * k]
 
 
 def dump_model_text(boosting, num_iteration: int = -1,
@@ -304,6 +338,8 @@ def dump_model_text(boosting, num_iteration: int = -1,
            f"max_feature_idx={meta['max_feature_idx']}"]
     if meta.get("objective"):
         out.append(f"objective={meta['objective']}")
+    if meta.get("average_output"):
+        out.append("average_output")
     out.append("feature_names=" + " ".join(meta["feature_names"]))
     out.append("feature_infos=" + " ".join(meta["feature_infos"]))
     tree_strs = [f"Tree={i}\n" + t.to_string() + "\n"
@@ -345,19 +381,22 @@ class LoadedGBDT:
         self.meta = meta
         self.trees = trees
         self.config = config
-        self.num_tree_per_iteration = 1
+        self.num_class = meta["num_class"]
+        self.num_tree_per_iteration = max(meta["num_tree_per_iteration"], 1)
+        self.average_output = bool(meta.get("average_output"))
         self.feature_names = meta["feature_names"]
         self.max_feature_idx = meta["max_feature_idx"]
-        self.objective = (create_objective(config)
-                          if config.objective in ("regression", "binary")
-                          else None)
+        try:
+            self.objective = create_objective(config)
+        except NotImplementedError:
+            self.objective = None
 
     @property
     def num_trees(self) -> int:
         return len(self.trees)
 
     def current_iteration(self) -> int:
-        return len(self.trees)
+        return len(self.trees) // self.num_tree_per_iteration
 
     def predict_raw(self, X, num_iteration: Optional[int] = None,
                     start_iteration: int = 0) -> np.ndarray:
@@ -368,14 +407,17 @@ class LoadedGBDT:
             log.fatal(f"The number of features in data ({X.shape[1]}) is not "
                       f"the same as it was in training data "
                       f"({self.max_feature_idx + 1}).")
-        total = len(self.trees)
+        k = self.num_tree_per_iteration
+        total = len(self.trees) // k
         start = min(max(start_iteration, 0), total)
         end = (min(start + num_iteration, total)
                if num_iteration is not None and num_iteration > 0 else total)
-        out = np.zeros(X.shape[0], np.float64)
-        for t in self.trees[start:end]:
-            out += t.predict(X)
-        return out
+        out = np.zeros((X.shape[0], k), np.float64)
+        for i, t in enumerate(self.trees[start * k:end * k]):
+            out[:, i % k] += t.predict(X)
+        if self.average_output:
+            out /= max(end - start, 1)
+        return out if k > 1 else out[:, 0]
 
     def predict(self, X, raw_score: bool = False,
                 num_iteration: Optional[int] = None,
@@ -400,6 +442,8 @@ def load_model(model_str: str, config: Optional[Config] = None) -> LoadedGBDT:
         if line and "=" in line:
             key, val = line.split("=", 1)
             kv[key] = val
+        elif line == "average_output":
+            kv["average_output"] = "1"
         i += 1
     trees: List[ModelTree] = []
     saw_end = False
@@ -441,14 +485,11 @@ def load_model(model_str: str, config: Optional[Config] = None) -> LoadedGBDT:
         elif in_params and line.startswith("[") and ":" in line:
             key, val = line[1:-1].split(":", 1)
             params[key.strip()] = val.strip()
-    obj = kv.get("objective", "").split()
-    if obj:
-        config.objective = obj[0]
-        for tok in obj[1:]:
-            key, _, val = tok.partition(":")
-            if key == "sigmoid":
-                config.sigmoid = float(val)
     try:
+        if "objective" in kv:
+            _parse_objective(kv["objective"], config)
+        if "num_class" in kv:
+            config.num_class = int(kv["num_class"])
         meta = {
             "num_class": int(kv.get("num_class", "1")),
             "num_tree_per_iteration": int(kv.get("num_tree_per_iteration",
@@ -456,15 +497,11 @@ def load_model(model_str: str, config: Optional[Config] = None) -> LoadedGBDT:
             "label_index": int(kv.get("label_index", "0")),
             "max_feature_idx": int(kv.get("max_feature_idx", "0")),
             "objective": kv.get("objective"),
+            "average_output": "average_output" in kv,
             "feature_names": kv.get("feature_names", "").split(),
             "feature_infos": kv.get("feature_infos", "").split(),
             "parameters": params,
         }
     except ValueError as e:
         log.fatal(f"corrupt or truncated model file: header: {e}")
-    if meta["num_tree_per_iteration"] != 1:
-        raise NotImplementedError(
-            "multi-tree-per-iteration models are not ported to "
-            "lightgbm_tpu_torch yet; they arrive with ROADMAP.md Queue 1 "
-            "item 10")
     return LoadedGBDT(meta, trees, config)

@@ -41,6 +41,16 @@ its splits' rows in one device pass at its end (a phase splits each leaf
 at most once, so the order of the routings does not matter), through the
 index tables sent once per phase.
 
+Row sampling enters as the JAX package's does: a 0/1 ``sample_mask``
+(bagging's mask mode, GOSS's support) makes the stats ``[g*m, h*m, m]``,
+so the count channel counts the kept rows only; bagging's subset mode
+hands the grower the in-bag rows' indices and their bin columns, and the
+histogram passes and root sums read those ``k`` rows alone (a second leaf
+id vector over them, routed beside the one over all N rows, which the
+score update reads). By-tree ``feature_fraction`` is a feature mask on
+every split search (the fused path's candidate pick and the classic
+``find_best_splits``).
+
 In the quantized-gradient mode (a ``*_q8`` histogram method) the
 gradients and hessians become int8 before growth, with per-tree scales and
 stochastic rounding drawn from the tree's key (``utils/random.py``, the
@@ -81,6 +91,7 @@ class GrowState:
     """One tree's growth state: device tensors (``leaf_id``, ``hist``) and
     numpy arrays for everything per-leaf."""
     leaf_id: torch.Tensor        # [N] int32, device
+    leaf_id_sub: Optional[torch.Tensor]  # [k] int32 (bagging subset) or None
     hist: torch.Tensor           # [L, F, B, 3] f32, device
     hist_valid: np.ndarray       # [L] bool
     leaf_dead: np.ndarray        # [L] bool (guard-failed)
@@ -115,7 +126,11 @@ class Grower:
     ``binsT`` holds the dense device columns; with ``sp`` = (sp_cols,
     sp_rows, sp_bins, sp_default) the columns ``sp_cols`` live as (row,
     bin) streams instead (``Dataset._maybe_extract_sparse``), and feature
-    indices, ``meta`` and ``missing_bin`` span all columns."""
+    indices, ``meta`` and ``missing_bin`` span all columns.
+    ``sample_mask`` [N] f32 (0/1) keeps rows out of the sums;
+    ``subset`` = (sub_idx [k], sub_binsT [F, k]) histograms the in-bag rows
+    alone (dense columns only); ``feature_mask`` [F] bool, the columns the
+    searches may split on."""
 
     def __init__(self, binsT: torch.Tensor, grad: torch.Tensor,
                  hess: torch.Tensor, meta: FeatureMeta, params: SplitParams,
@@ -125,15 +140,24 @@ class Grower:
                  compaction_ladder: tuple = (), split_fusion: bool = True,
                  with_categorical: bool = False, sp: Optional[tuple] = None,
                  hist_method: str = "",
-                 rng_key: Optional[torch.Tensor] = None):
+                 rng_key: Optional[torch.Tensor] = None,
+                 sample_mask: Optional[torch.Tensor] = None,
+                 subset: Optional[tuple] = None,
+                 feature_mask: Optional[np.ndarray] = None):
         assert tuple(sorted(compaction_ladder)) == tuple(compaction_ladder), \
             "compaction_ladder must be ascending"
         assert not (split_fusion and (with_categorical or sp is not None)), \
             ("split_fusion covers the numerical dense search only: "
              "categorical features and sparse columns take the classic path")
+        assert subset is None or (sp is None and sample_mask is None), \
+            "the bagging subset copy holds dense columns and no mask"
         self.binsT = binsT
         self.dev = binsT.device
-        self.f_dense, self.n = binsT.shape
+        self.f_dense, self.n_all = binsT.shape
+        self.subset = subset
+        # the histogram passes' rows: all N, or the subset's k
+        self.hist_binsT = binsT if subset is None else subset[1]
+        self.n = self.hist_binsT.shape[1]
         self.sp = sp
         self.f_sp = 0 if sp is None else len(sp[0])
         self.f = self.f_dense + self.f_sp
@@ -153,7 +177,16 @@ class Grower:
         self.params = params.to("cpu")
         self.params_dev = params.to(self.dev)
         self.missing_bin_dev = missing_bin.to(self.dev).to(torch.int32)
-        stats = torch.stack([grad, hess, torch.ones_like(grad)],
+        self.fmask = (np.ones((self.f,), bool) if feature_mask is None
+                      else np.asarray(feature_mask, bool))
+        if subset is not None:
+            grad, hess = grad[subset[0]], hess[subset[0]]
+        if sample_mask is not None:
+            grad, hess, cnt = grad * sample_mask, hess * sample_mask, \
+                sample_mask
+        else:
+            cnt = torch.ones_like(grad)
+        stats = torch.stack([grad, hess, cnt],
                             dim=1).to(torch.float32).contiguous()
         base = "cuda" if self.dev.type == "cuda" else "plain"
         hist_method = hist_method or base
@@ -246,7 +279,10 @@ class Grower:
         for s, v in zip(sums, (root[0], root[1], root[2], root_out)):
             s[0] = v.numpy()
         return GrowState(
-            leaf_id=torch.zeros((self.n,), dtype=torch.int32, device=self.dev),
+            leaf_id=torch.zeros((self.n_all,), dtype=torch.int32,
+                                device=self.dev),
+            leaf_id_sub=(None if self.subset is None else torch.zeros(
+                (self.n,), dtype=torch.int32, device=self.dev)),
             hist=torch.zeros((L, self.f, self.B, 3), dtype=torch.float32,
                              device=self.dev),
             hist_valid=np.zeros((L,), bool), leaf_dead=np.zeros((L,), bool),
@@ -255,6 +291,10 @@ class Grower:
             sib=np.full((L,), -1, np.int32),
             parent_hist=np.zeros((L,), bool),
             best=best, tree=empty_tree(L, W).numpy())
+
+    def hist_leaf_id(self, st: GrowState) -> torch.Tensor:
+        """The leaf ids of the histogram passes' rows."""
+        return st.leaf_id if st.leaf_id_sub is None else st.leaf_id_sub
 
     def active_mask(self, st: GrowState) -> np.ndarray:
         return self.iota < st.num_leaves
@@ -312,7 +352,7 @@ class Grower:
         ok = sel_compute >= 0
         slot_map[sel_compute[ok]] = np.nonzero(ok)[0]
         in_tile = torch.as_tensor(slot_map).to(self.dev)[
-            st.leaf_id.long()] < p2
+            self.hist_leaf_id(st).long()] < p2
         n_pend = int(in_tile.sum())
         for m in self.ladder:             # smallest rung that fits
             if n_pend <= m:
@@ -356,7 +396,8 @@ class Grower:
         gather_idx, streamed, real = self._rung(st, np.where(derive, -1,
                                                              sel))
         tile, cand = histogram_tiles_with_candidates(
-            self.binsT, self.stats, st.leaf_id, torch.from_numpy(sel),
+            self.hist_binsT, self.stats, self.hist_leaf_id(st),
+            torch.from_numpy(sel),
             torch.from_numpy(derive), parent_planes, la, self.fm_pack,
             self.pvec, self.B, self.L, gather_idx, q_scale=self.q_scale,
             amax=self.amax)
@@ -366,7 +407,8 @@ class Grower:
             torch.as_tensor(np.nonzero(ok)[0]).to(dev)]
         info = candidates_to_splitinfo(
             cand.cpu(), *aggs, torch.from_numpy(st.leaf_depth[selc]),
-            self.meta, self.params, torch.ones((p2, self.f), dtype=bool),
+            self.meta, self.params,
+            torch.from_numpy(np.broadcast_to(self.fmask, (p2, self.f)).copy()),
             self.max_depth, self.cat_words)
         for cur, new in zip(st.best, info):
             cur[slots] = _np(new)[ok]
@@ -438,7 +480,8 @@ class Grower:
         dev = self.dev
         gather_idx, streamed, real = self._rung(st, sel)
         if self.f_dense > 0:
-            tile = histogram_tiles(self.binsT, self.stats, st.leaf_id,
+            tile = histogram_tiles(self.hist_binsT, self.stats,
+                                   self.hist_leaf_id(st),
                                    torch.from_numpy(sel), self.B, self.L,
                                    gather_idx, amax=self.amax)
         else:
@@ -490,7 +533,7 @@ class Grower:
                  st.leaf_depth)]
         best = find_best_splits(
             st.hist, *aggs, self.meta_dev, self.params_dev,
-            torch.ones((self.f,), dtype=torch.bool, device=dev),
+            torch.from_numpy(self.fmask).to(dev),
             self.max_depth, with_categorical=self.with_categorical,
             cat_words=self.cat_words)
         st.best = SplitInfo(*(_np(v) for v in best))
@@ -548,26 +591,28 @@ class Grower:
         gain_eff[l] = NEG_INF
         gain_eff[new_leaf] = NEG_INF
 
-    def _split_column(self, feat_r: torch.Tensor, feats: set) -> torch.Tensor:
+    def _split_column(self, binsT: torch.Tensor, feat_r: torch.Tensor,
+                      feats: set) -> torch.Tensor:
         """Each row's bin of its leaf's split feature (``feat_r`` [N], -1
-        for rows of unsplit leaves): a gather from the dense columns, and
-        the sparse columns among ``feats`` rebuilt from their streams (the
-        analog of SparseBin::Split's stream walk)."""
+        for rows of unsplit leaves): a gather from the dense columns
+        ``binsT``, and the sparse columns among ``feats`` rebuilt from
+        their streams (the analog of SparseBin::Split's stream walk)."""
         fr = feat_r.clamp(min=0)
         if self.sp is None:
-            return self.binsT.gather(0, fr[None, :])[0].to(torch.int32)
+            return binsT.gather(0, fr[None, :])[0].to(torch.int32)
         if self.f_dense > 0:
-            col = self.binsT.gather(0, self.col2dense_dev[fr][None, :])[0]
+            col = binsT.gather(0, self.col2dense_dev[fr][None, :])[0]
             col = col.to(torch.int32)
         else:
-            col = torch.zeros((self.n,), dtype=torch.int32, device=self.dev)
+            col = torch.zeros((self.n_all,), dtype=torch.int32,
+                              device=self.dev)
         _, sp_rows, sp_bins, sp_default = self.sp
         for f in sorted(feats):
             if f not in set(self.sp_cols.tolist()):
                 continue
             i = int(self.col2sp[f])
-            ok = sp_rows[i] < self.n
-            colv = torch.full((self.n,), 0, dtype=torch.int32,
+            ok = sp_rows[i] < self.n_all
+            colv = torch.full((self.n_all,), 0, dtype=torch.int32,
                               device=self.dev) + sp_default[i]
             colv[sp_rows[i][ok].long()] = sp_bins[i][ok].to(torch.int32)
             col = torch.where(feat_r == f, colv, col)
@@ -575,7 +620,8 @@ class Grower:
 
     def _route(self, st: GrowState) -> None:
         """Move the rows of every leaf split in this phase to its children
-        in one device pass (_apply_split's routing, batched)."""
+        in one device pass (_apply_split's routing, batched); in the
+        bagging subset mode the subset's rows too, over their own bins."""
         if not st.pending_routes:
             return
         L, W = self.L, self.cat_words
@@ -592,22 +638,33 @@ class Grower:
         st.pending_routes = []
         dev = self.dev
 
-        def d(a):
-            return torch.as_tensor(a).to(dev)
+        tables = [torch.as_tensor(a).to(dev)
+                  for a in (feat_t, thr_t, dl_t, new_t, cat_t, bits_t)]
+        st.leaf_id = self._route_rows(self.binsT, st.leaf_id, tables, feats,
+                                      bool(cat_t.any()))
+        if st.leaf_id_sub is not None:
+            st.leaf_id_sub = self._route_rows(self.hist_binsT,
+                                              st.leaf_id_sub, tables, feats,
+                                              bool(cat_t.any()))
 
-        lid = st.leaf_id.long()
-        feat_r = d(feat_t)[lid]
+    def _route_rows(self, binsT, leaf_id, tables, feats, any_cat):
+        """New leaf ids of the rows of ``binsT`` under one phase's split
+        tables (by leaf: feature or -1, threshold, default left, new leaf,
+        categorical, bitset)."""
+        feat_t, thr_t, dl_t, new_t, cat_t, bits_t = tables
+        W = self.cat_words
+        lid = leaf_id.long()
+        feat_r = feat_t[lid]
         split_rows = feat_r >= 0
-        col = self._split_column(feat_r, feats)
+        col = self._split_column(binsT, feat_r, feats)
         mb = self.missing_bin_dev[feat_r.clamp(min=0)]
-        go_left = torch.where((col == mb) & (mb >= 0), d(dl_t)[lid],
-                              col <= d(thr_t)[lid])
-        if cat_t.any():
-            word = d(bits_t).reshape(-1)[lid * W + (col >> 5).long()]
+        go_left = torch.where((col == mb) & (mb >= 0), dl_t[lid],
+                              col <= thr_t[lid])
+        if any_cat:
+            word = bits_t.reshape(-1)[lid * W + (col >> 5).long()]
             cat_left = ((word >> (col & 31).long()) & 1) == 1
-            go_left = torch.where(d(cat_t)[lid], cat_left, go_left)
-        st.leaf_id = torch.where(split_rows & ~go_left, d(new_t)[lid],
-                                 st.leaf_id)
+            go_left = torch.where(cat_t[lid], cat_left, go_left)
+        return torch.where(split_rows & ~go_left, new_t[lid], leaf_id)
 
     def split_apply(self, st: GrowState) -> None:
         """Apply every available split from st.best in gain order (one in
@@ -652,7 +709,10 @@ def grow_tree(binsT: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
               split_fusion: bool = True, with_categorical: bool = False,
               sp: Optional[tuple] = None, hist_method: str = "",
               rng_key: Optional[torch.Tensor] = None,
-              counters: Optional[Dict[str, float]] = None
+              counters: Optional[Dict[str, float]] = None,
+              sample_mask: Optional[torch.Tensor] = None,
+              subset: Optional[tuple] = None,
+              feature_mask: Optional[np.ndarray] = None
               ) -> Tuple[TreeArrays, torch.Tensor, float]:
     """Grow one tree from per-row gradients/hessians. ``hist_method`` is
     ``ops/histogram.resolve_method``'s answer (empty: the f32 mode of the
@@ -661,14 +721,18 @@ def grow_tree(binsT: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
     host, per-row leaf index on the device, rows read by the histogram
     passes); ``counters``, when given, gains the tree's ``rows_real``: the
     rows those passes added (a gather pass's tile rows, a full pass's N),
-    beside which the rows read show the rungs' padding."""
+    beside which the rows read show the rungs' padding. ``sample_mask``,
+    ``subset`` and ``feature_mask`` as ``Grower``'s; the leaf ids cover
+    all N rows either way."""
     g = Grower(binsT, grad, hess, meta, params, missing_bin,
                max_leaves=max_leaves, num_bins=num_bins, max_depth=max_depth,
                exact=exact, tile_leaves=tile_leaves,
                hist_subtraction=hist_subtraction,
                compaction_ladder=compaction_ladder, split_fusion=split_fusion,
                with_categorical=with_categorical, sp=sp,
-               hist_method=hist_method, rng_key=rng_key)
+               hist_method=hist_method, rng_key=rng_key,
+               sample_mask=sample_mask, subset=subset,
+               feature_mask=feature_mask)
     st = g.init_state()
     while g.outer_cond(st):
         g.dead_guard(st)

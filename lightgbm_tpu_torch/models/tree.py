@@ -13,6 +13,7 @@ words held as int64). EFB segments wait for ROADMAP Queue 1 item 9.
 
 from __future__ import annotations
 
+import copy
 from typing import NamedTuple
 
 import numpy as np
@@ -120,6 +121,13 @@ def predict_leaf_bins(tree: TreeArrays, binsT: torch.Tensor,
     return leaf
 
 
+def predict_value_bins(tree: TreeArrays, binsT: torch.Tensor,
+                       missing_bin: torch.Tensor) -> torch.Tensor:
+    """The tree's output per row (leaf values include the shrinkage)."""
+    leaf = predict_leaf_bins(tree, binsT, missing_bin)
+    return tree.leaf_value.to(binsT.device)[leaf]
+
+
 class HostTree:
     """Host-side (numpy) view of a trained tree for model text and the
     carrying of weights across: the fields of the JAX package's HostTree."""
@@ -152,6 +160,15 @@ class HostTree:
         self.missing_type = (np.asarray(missing_types[:n]).astype(np.int8)
                              if missing_types is not None
                              else np.zeros(n, dtype=np.int8))
+
+    def scaled(self, factor: float) -> "HostTree":
+        """A copy with its outputs scaled (reference: Tree::Shrinkage,
+        tree.h:187; DART's normalization)."""
+        out = copy.copy(self)
+        out.leaf_value = self.leaf_value * factor
+        out.internal_value = self.internal_value * factor
+        out.shrinkage = self.shrinkage * factor
+        return out
 
 
 def tree_from_host_fields(fields: dict, max_leaves: int | None = None

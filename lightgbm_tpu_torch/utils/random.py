@@ -3,7 +3,7 @@
 The quantized-gradient mode rounds each gradient stochastically with
 ``u = jax.random.uniform(fold_in(key, 0x5138), [N, 3])``; a q8 tree can
 match the JAX package's only if the port draws the same ``u``. This module
-reproduces the three ``jax.random`` calls the port needs under JAX's
+reproduces the ``jax.random`` calls the port needs under JAX's
 defaults (the ``threefry2x32`` generator with
 ``jax_threefry_partitionable=True``, 32-bit integers):
 
@@ -13,7 +13,14 @@ defaults (the ``threefry2x32`` generator with
 - ``uniform(key, shape)``: float32 in [0, 1). Element i of the flattened
   shape hashes the counter pair ``(i >> 32, i mod 2^32)``; its 32 random
   bits are the XOR of the two output words, the top 23 become the
-  mantissa of a float in [1, 2), and 1 is subtracted.
+  mantissa of a float in [1, 2), and 1 is subtracted;
+- ``bits(key, shape)``: ``jax.random.bits(key, shape, uint32)``, the same
+  32 random bits of each element, whole (the bagging subset's and GOSS's
+  draws).
+
+``stable_argsort`` is ``jnp.argsort``'s stable sort of such values (torch
+sorts them as int64) and ``stable_ranks`` its inverse permutation, each
+element's position in that sort.
 
 A key is an int64 tensor of two entries, each a uint32 value. The hash
 runs on int64 tensors with 32-bit masks (torch's uint32 arithmetic is
@@ -68,14 +75,44 @@ def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
     return torch.cat([y1, y2])
 
 
-def uniform(key: torch.Tensor, shape: Sequence[int],
-            device: Device = None) -> torch.Tensor:
-    """``jax.random.uniform(key, shape)``: float32 in [0, 1), on
-    ``device`` (default: the key's)."""
+def _counter_bits(key: torch.Tensor, shape: Sequence[int],
+                  device: Device) -> torch.Tensor:
+    """The 32 random bits of each element of ``shape`` (int64 of uint32
+    values, flattened): the XOR of the two words threefry2x32 gives for
+    the element's counter pair."""
     k1, k2 = (int(v) for v in key.tolist())
     count = torch.arange(int(torch.Size(shape).numel()), dtype=torch.int64,
                          device=key.device if device is None else device)
     y1, y2 = threefry2x32(k1, k2, count >> 32, count & _M32)
-    bits = ((y1 ^ y2) >> 9) | 0x3F800000
-    return bits.to(torch.int32).view(torch.float32).reshape(tuple(shape)) \
+    return y1 ^ y2
+
+
+def uniform(key: torch.Tensor, shape: Sequence[int],
+            device: Device = None) -> torch.Tensor:
+    """``jax.random.uniform(key, shape)``: float32 in [0, 1), on
+    ``device`` (default: the key's)."""
+    bits_ = (_counter_bits(key, shape, device) >> 9) | 0x3F800000
+    return bits_.to(torch.int32).view(torch.float32).reshape(tuple(shape)) \
         - 1.0
+
+
+def bits(key: torch.Tensor, shape: Sequence[int],
+         device: Device = None) -> torch.Tensor:
+    """``jax.random.bits(key, shape, uint32)`` as int64 values in
+    [0, 2^32), on ``device`` (default: the key's)."""
+    return _counter_bits(key, shape, device).reshape(tuple(shape))
+
+
+def stable_argsort(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.argsort`` of a 1-D integer tensor: ascending, equal values in
+    index order (int64 indices)."""
+    return torch.argsort(x.to(torch.int64), stable=True)
+
+
+def stable_ranks(x: torch.Tensor) -> torch.Tensor:
+    """``argsort(argsort(x))``: each element's position in the stable
+    ascending sort of ``x`` (int64)."""
+    order = stable_argsort(x)
+    ranks = torch.empty_like(order)
+    ranks[order] = torch.arange(order.shape[0], device=order.device)
+    return ranks

@@ -64,8 +64,7 @@ def _sample_params(rng):
     return p
 
 
-OUTSIDE = ("feature_fraction", "bagging_fraction", "bagging_freq",
-           "extra_trees", "monotone_constraints")
+OUTSIDE = ("extra_trees", "monotone_constraints")
 
 
 @pytest.mark.parametrize("seed", range(8))

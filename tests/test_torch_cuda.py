@@ -30,7 +30,10 @@ bins (80% in one bin, Zipf columns), at 40 features (two feature groups)
 and with most rows outside the slot.
 The experiment script's ``hist_onehot`` (bf16 tensor cores) within 1e-5
 of each cell's summed magnitudes of its plain version, and two launches
-bitwise equal.
+bitwise equal. The boosting modes (multiclass, bagging's subset and mask,
+feature_fraction, GOSS, DART, RF, a weighted objective): a card training's
+model text twice the same and equal to the CPU's with the kernel's sums
+(f32) or the plain path (q8).
 """
 
 import numpy as np
@@ -526,3 +529,65 @@ def test_hist_tile_full_cases_match_plain(dev, case):
     assert (h.launches, h.launches_q8) == (5, 2)
     assert (h.gather_launches, h.gather_launches_q8) == (0, 0)
     assert (h.launches_plane, h.launches_plane_q8) == (2, 1)
+
+
+# the boosting modes of the slice on the card: name -> (parameters, a
+# >= 90%-zero column, i.e. the classic path)
+BOOSTING_MODES = {
+    "multiclass": ({"objective": "multiclass", "num_class": 3}, False),
+    "multiclass_q8_classic": ({"objective": "multiclassova", "num_class": 3,
+                               "quantized_grad": True}, True),
+    "bagging_subset": ({"bagging_fraction": 0.5, "bagging_freq": 1}, False),
+    "bagging_posneg_classic": ({"pos_bagging_fraction": 0.7,
+                                "neg_bagging_fraction": 0.4,
+                                "bagging_freq": 1}, True),
+    "feature_fraction": ({"feature_fraction": 0.6}, False),
+    "goss": ({"boosting": "goss", "learning_rate": 0.5}, False),
+    "goss_q8": ({"boosting": "goss", "learning_rate": 0.5,
+                 "quantized_grad": True}, False),
+    "dart": ({"boosting": "dart"}, False),
+    "rf": ({"boosting": "rf", "bagging_fraction": 0.632, "bagging_freq": 1,
+            "feature_fraction": 0.8}, False),
+    "xentlambda_weighted": ({"objective": "cross_entropy_lambda"}, False),
+}
+
+
+@pytest.mark.parametrize("name", sorted(BOOSTING_MODES))
+def test_boosting_modes_on_card_equal_cpu(dev, name):
+    """Multiclass, bagging (subset and mask), feature_fraction, GOSS, DART,
+    RF and a weighted objective: two card trainings give the same model
+    text, and the CPU gives it too -- with the kernel's fixed-point sums
+    (``kernel_sums_on_cpu``) in f32, on its plain path in q8. Every other
+    operation (the threefry draws, the stable sorts, softmax, XLA's exp
+    and log1p written out) is the same IEEE arithmetic on both devices."""
+    import contextlib
+
+    import lightgbm_tpu_torch as lgb
+    extra, classic = BOOSTING_MODES[name]
+    rng = np.random.RandomState(2)
+    n = 20_000
+    X = rng.randn(n, 10).astype(np.float32)
+    if classic:
+        X[rng.rand(n) < 0.95, 4] = 0.0
+    z = X[:, 0] + X[:, 1] * X[:, 2] + np.sin(X[:, 3]) + 0.5 * rng.randn(n)
+    obj = extra.get("objective", "binary")
+    if obj.startswith("multiclass"):
+        y = np.digitize(z, np.quantile(z, [1 / 3, 2 / 3])).astype(float)
+    elif obj == "cross_entropy_lambda":
+        y = 1 / (1 + np.exp(-z))
+    else:
+        y = (z > 0).astype(float)
+    w = rng.rand(n) + 0.5 if obj == "cross_entropy_lambda" else None
+    q8 = extra.get("quantized_grad", False)
+    texts = {}
+    for d in ("cuda", "cuda_again", "cpu"):
+        p = dict({"objective": "binary", "num_leaves": 31, "verbosity": -1,
+                  "device_type": d.split("_")[0]}, **extra)
+        with (cuda_hist.kernel_sums_on_cpu() if d == "cpu" and not q8
+              else contextlib.nullcontext()):
+            b = lgb.train(p, lgb.Dataset(X, label=y, weight=w, params=p), 4)
+            texts[d] = b.model_to_string()
+        if d == "cuda":
+            assert b._boosting._split_fusion_on() == (not classic)
+    assert texts["cuda"] == texts["cuda_again"]
+    assert texts["cuda"] == texts["cpu"]

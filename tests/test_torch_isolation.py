@@ -84,13 +84,13 @@ def test_default_device_without_cuda_raises(monkeypatch):
     ("cegb_tradeoff", 0.5),
     ("gpu_use_dp", True),
     ("forcedsplits_filename", "forced.json"),
-    ("bagging_fraction", 0.5),
-    ("boosting", "dart"),
-    ("objective", "multiclass"),
+    ("label_gain", "0,1,3"),
+    ("eval_at", "1,3"),
+    ("objective", "lambdarank"),
     ("linear_tree", True),
     ("tree_learner", "data"),
     ("monotone_constraints", "1,0,0"),
-    ("feature_fraction", 0.5),
+    ("extra_trees", True),
     ("metric", "ndcg"),
     ("early_stopping_round", 5),
     ("hist_pallas_interpret", True),
