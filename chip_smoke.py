@@ -113,6 +113,42 @@ The boosting modes, on the kernels above (counted from 0 around each run):
                   0.3, so that a tree drops) at 50,000 rows, 3 rounds:
                   card twice and CPU, identical model text
 
+Learning to rank, at MS LTR width (MSLR-WEB30K Fold 1's 2,270,296
+training documents in 18,919 queries, the longest 1,251, 136 dense
+features, labels 0-4 at its shares, made from --seed; valid: 6,000 more
+queries):
+
+  lambdarank_grads the pairwise lambda kernel (csrc/lambdarank.cu) at
+                  train_rank's query layout and labels (scores N(0, 1)) and
+                  at edge layouts (1-document queries, a query longer than
+                  a block's threads, all-tied scores, labels all 0,
+                  truncation 3 and above n, no normalisation with sigmoid
+                  2): bitwise its plain version in the kernel's order
+                  (lambdarank_grads_exact) and a second launch; within
+                  1e-5 of the largest magnitude of the JAX-order plain
+                  version (lambdarank_grads_plain, chunked on the card);
+                  ms, device ms, plain ms and the bound (the admitted
+                  pairs' operations, the documents' bytes)
+  hist_tile_rank  hist_tile's root pass (train_rank's own bins and uniform
+                  ones) and N/2 rung, f32 and q8, and split_epilogue f32
+                  and q8, at F = 136, the widest a training path gives them
+  train_rank      lambdarank, 255 leaves, max_bin 255, lr 0.1, eval_at 1, 3,
+                  5, 10, --rounds rounds (the fused path): sec/iter, valid
+                  NDCG@k (NDCG@10 above the random scores'), the kernels'
+                  launches (lambdarank_grads once an iteration), peak device
+                  memory against one [Q, M, M] tensor's bytes, the host ms of
+                  the objective and of the NDCG evaluation, one profiled
+                  iteration
+  train_rank_xendcg the same with rank_xendcg (no kernel of its own; its
+                  host gamma draw timed)
+  parity_rank     lambdarank f32, q8, rank_xendcg, and lambdarank with
+                  weights, an init_score and a custom label_gain, at 50,000
+                  documents, 63 leaves, 3 rounds: two card runs and the CPU
+                  run in the kernels' orders (kernel_sums_on_cpu) give the
+                  same model text; against the CPU's JAX-order run, equal
+                  text or the first differing tree and the leaf error
+                  before it
+
 and kernel 5, the experiment script's one-hot histogram:
 
   hist_variants   python -m lightgbm_tpu_torch.scripts.exp_hist_variants at
@@ -648,30 +684,31 @@ def parent_times(parent_dir: str, n: int, valid_rows: int, seed: int):
 EPI_LAUNCHES = 50    # epilogue launches in one profile, each on a cold L2
 
 
-def epilogue_inputs(cuda_hist, seed=0, q8=False):
-    """The epilogue's arguments at the main path's P=42, F=28, B=255: the
-    derived odd slots, random planes (f32: grad N(0,1), hess U(0,1), count
-    1 per row; q8: the int32 sums of int8 stats, a non-trivial q_scale,
-    the derived slots' parents dequantized as resident), features with
-    fewer bins and the NaN and Zero missing types. Returns (tile, parent,
-    der, la, fm, pv), with q_scale last in q8 mode."""
+def epilogue_inputs(cuda_hist, seed=0, q8=False, f=F):
+    """The epilogue's arguments at the main path's P=42, F=28 (or ``f``),
+    B=255: the derived odd slots, random planes (f32: grad N(0,1), hess
+    U(0,1), count 1 per row; q8: the int32 sums of int8 stats, a
+    non-trivial q_scale, the derived slots' parents dequantized as
+    resident), features with fewer bins and the NaN and Zero missing
+    types. Returns (tile, parent, der, la, fm, pv), with q_scale last in
+    q8 mode."""
     if q8:
         g = torch.Generator(device="cuda").manual_seed(seed + 7)
         q_scale = torch.tensor([0.0173, 0.00291, 1.0], device="cuda")
-        tile = torch.zeros((P, F, B, 3), dtype=torch.int32, device="cuda")
+        tile = torch.zeros((P, f, B, 3), dtype=torch.int32, device="cuda")
     else:
         g = torch.Generator(device="cuda").manual_seed(seed)
-        tile = torch.zeros((P, F, B, 3), device="cuda")
-    parent = torch.zeros((P, F, B, 3), device="cuda")
+        tile = torch.zeros((P, f, B, 3), device="cuda")
+    parent = torch.zeros((P, f, B, 3), device="cuda")
     derive = torch.zeros(P, dtype=torch.bool)
     derive[1::2] = True
     for p in range(P):
-        cnt = torch.randint(0, 40, (F, B), generator=g, device="cuda")
+        cnt = torch.randint(0, 40, (f, B), generator=g, device="cuda")
         if q8:
             plane = torch.stack([
-                torch.randint(-127, 128, (F, B), generator=g,
+                torch.randint(-127, 128, (f, B), generator=g,
                               device="cuda") * cnt,
-                torch.randint(0, 128, (F, B), generator=g, device="cuda")
+                torch.randint(0, 128, (f, B), generator=g, device="cuda")
                 * cnt, cnt], -1).to(torch.int32)
             if derive[p]:
                 parent[p] = (plane + tile[p - 1]).to(torch.float32) * q_scale
@@ -679,8 +716,8 @@ def epilogue_inputs(cuda_hist, seed=0, q8=False):
                 tile[p] = plane
             continue
         cnt = cnt.to(torch.float32)
-        gsum = torch.randn((F, B), generator=g, device="cuda") * cnt.sqrt()
-        hsum = torch.rand((F, B), generator=g, device="cuda") * cnt
+        gsum = torch.randn((f, B), generator=g, device="cuda") * cnt.sqrt()
+        hsum = torch.rand((f, B), generator=g, device="cuda") * cnt
         plane = torch.stack([gsum, hsum, cnt], -1)
         if derive[p]:
             parent[p] = plane + tile[p - 1]
@@ -692,14 +729,14 @@ def epilogue_inputs(cuda_hist, seed=0, q8=False):
     s = full[:, 0].sum(1)                                   # [P, 3]
     la = cuda_hist.pack_leaf_aux(s[:, 0], s[:, 1], s[:, 2],
                                  -0.1 * s[:, 0] / (s[:, 1] + 1)).cuda()
-    nb = torch.full((F,), B, dtype=torch.int32)
+    nb = torch.full((f,), B, dtype=torch.int32)
     nb[3], nb[7] = 64, 2
-    mt = torch.zeros(F, dtype=torch.int32)
+    mt = torch.zeros(f, dtype=torch.int32)
     mt[5], mt[6] = 2, 1                                     # NaN, Zero
-    db = torch.zeros(F, dtype=torch.int32)
+    db = torch.zeros(f, dtype=torch.int32)
     db[6] = 17
     fm = cuda_hist.pack_feature_meta(nb, mt, db,
-                                     torch.zeros(F, dtype=torch.int32)).cuda()
+                                     torch.zeros(f, dtype=torch.int32)).cuda()
     pv = torch.tensor([0.0, 1.0, 0.0, 0.0, 20.0, 1e-3, 0.0, 0.0],
                       device="cuda")
     der = cuda_hist._epilogue_lanes(torch.arange(P, dtype=torch.int32),
@@ -717,7 +754,7 @@ def epilogue_device_ms(cuda_hist, args):
                      cold_each=True)[0]
 
 
-def epilogue_bound(der, q8: bool):
+def epilogue_bound(der, q8: bool, f: int = F):
     """The epilogue's bound at P, F, B on derive lanes ``der`` (slot p at
     lane 3p): the bytes it must move are the tile planes it reads (each
     computed slot's, also the sibling of a derived slot), the derived
@@ -726,9 +763,9 @@ def epilogue_bound(der, q8: bool):
     derive = (der[0, 0:3 * P:3] != 0).tolist()
     tiles = {p - 1 if d else p for p, d in enumerate(derive)} - {-1}
     planes = len(tiles) + sum(derive) + P
-    nbytes = planes * F * B * 3 * 4 + P * F * 12 * 4 + P * 8 * 4 \
-        + F * 8 * 4 + 8 * 4 + (12 if q8 else 0)
-    return bound(nbytes, (61 if q8 else 60) * P * F * B)
+    nbytes = planes * f * B * 3 * 4 + P * f * 12 * 4 + P * 8 * 4 \
+        + f * 8 * 4 + 8 * 4 + (12 if q8 else 0)
+    return bound(nbytes, (61 if q8 else 60) * P * f * B)
 
 
 def epilogue_phase(cuda_hist, seed=0):
@@ -993,7 +1030,7 @@ def train_phase(lgb, cuda_hist, args, q8_ref_auc=None):
 # whether or not it is among the iteration's top device times
 OWN_KERNELS = ("full_accumulate", "gather_count", "gather_scatter",
                "gather_accumulate", "hist_tile_reduce", "stat_absmax",
-               "split_epilogue")
+               "split_epilogue", "lambdarank_kernel")
 
 
 def profile_iteration(booster, sec_per_iter: float):
@@ -1582,6 +1619,403 @@ def parity_sampling_phase(lgb, seed):
                if not m.startswith("multiclass")}}
 
 
+# ------------------------------------------------------- learning to rank
+# MSLR-WEB30K Fold 1's training set (the reference's "MS LTR" experiment,
+# docs/Experiments.rst): its query and document counts, its longest query,
+# its 136 features and its relevance labels' shares; valid: more queries
+# from the same generator
+MSLR_QUERIES, MSLR_DOCS, MSLR_LONGEST = 18_919, 2_270_296, 1_251
+MSLR_FEATURES = 136
+MSLR_VALID_QUERIES = 6_000
+MSLR_LABEL_SHARES = (0.51, 0.33, 0.13, 0.02, 0.01)
+RANK_PARAMS = {"objective": "lambdarank", "num_leaves": 255, "max_bin": 255,
+               "learning_rate": 0.1, "metric": "ndcg",
+               "eval_at": [1, 3, 5, 10], "verbosity": -1}
+# float operations of one admitted pair in lambdarank_grads (csrc/
+# lambdarank.cu pair_terms: the score, gain and discount differences, the
+# delta-NDCG product and its normalisation, the sigmoid with its exp's
+# eight multiply-adds, the lambda and hessian products, two sums)
+RANK_PAIR_OPS = 45
+RANK_TOL = 1e-5     # kernel vs the JAX-order plain version: of the largest
+                    # magnitude (the same float32 terms summed in another
+                    # order)
+
+
+def mslr_sizes(rng, n_queries: int, n_docs: int, longest: int):
+    """Query lengths: gamma(2)-distributed around n_docs / n_queries, cut
+    to [1, longest], the first query ``longest``, summing to n_docs."""
+    sizes = np.clip(np.round(rng.gamma(2.0, n_docs / n_queries / 2.0,
+                                       n_queries)), 1, longest - 1)
+    sizes = sizes.astype(np.int64)
+    sizes[0] = longest
+    while (d := n_docs - int(sizes.sum())) != 0:
+        i = rng.integers(1, n_queries, abs(d))
+        np.add.at(sizes, i, np.sign(d))
+        sizes[1:] = np.clip(sizes[1:], 1, longest - 1)
+    return sizes
+
+
+def mslr_like(n_queries: int, n_docs: int, seed: int):
+    """MS LTR-shaped data: query lengths as mslr_sizes (the longest
+    MSLR_LONGEST), MSLR_FEATURES dense float32 features, and labels 0-4 at
+    MSLR_LABEL_SHARES cut from a noisy function of five features. Returns
+    (X, y, group)."""
+    rng = np.random.default_rng(seed)
+    sizes = mslr_sizes(rng, n_queries, n_docs, MSLR_LONGEST)
+    X = rng.standard_normal((n_docs, MSLR_FEATURES), dtype=np.float32)
+    z = (0.9 * X[:, 0] + 0.7 * X[:, 1] * X[:, 2] - 0.5 * X[:, 3] ** 2
+         + 0.6 * np.sin(2.0 * X[:, 4]) + rng.standard_normal(n_docs))
+    cuts = np.quantile(z, np.cumsum(MSLR_LABEL_SHARES)[:-1])
+    y = np.searchsorted(cuts, z, side="right").astype(np.float64)
+    return X, y, sizes
+
+
+_rank_cache = {}
+
+
+def rank_datasets(lgb, seed: int):
+    """train_rank's data on the card, made once: the MS LTR-shaped train
+    set (MSLR_DOCS documents in MSLR_QUERIES queries) and the valid set
+    (MSLR_VALID_QUERIES more queries), binned by the package's Dataset.
+    Returns (train, valid, Xv, seconds to make, seconds to construct)."""
+    if seed not in _rank_cache:
+        t0 = time.time()
+        X, y, g = mslr_like(MSLR_QUERIES, MSLR_DOCS, seed + 37)
+        nv = MSLR_VALID_QUERIES * (MSLR_DOCS // MSLR_QUERIES)
+        Xv, yv, gv = mslr_like(MSLR_VALID_QUERIES, nv, seed + 41)
+        t_data = time.time() - t0
+        params = dict(RANK_PARAMS, device_type="cuda")
+        train = lgb.Dataset(X, label=y, group=g, params=params)
+        valid = lgb.Dataset(Xv, label=yv, group=gv, reference=train)
+        t0 = time.time()
+        train.construct()
+        valid.construct()
+        torch.cuda.synchronize()
+        zero_share = float((X == 0).mean(axis=0).max())
+        _rank_cache[seed] = (train, valid, Xv, t_data, time.time() - t0,
+                             zero_share)
+    return _rank_cache[seed]
+
+
+# the kernel's edge layouts: query sizes, what the labels and scores hold,
+# and the parameters
+RANK_LAYOUTS = {
+    "mixed": ([1, 7, 12, 1, 5, 9, 3, 20, 300, 1251], "random", {}),
+    "trunc3": ([1, 7, 12, 1, 5, 9, 3, 20, 300], "random",
+               {"lambdarank_truncation_level": 3}),
+    "trunc_above_n": ([4, 30, 129, 2], "random",
+                      {"lambdarank_truncation_level": 5000}),
+    "all_tied": ([1, 7, 12, 200], "tied", {}),
+    "labels_all_0": ([3, 7, 40], "zero_labels", {}),
+    "no_norm_sigmoid2": ([5, 64, 130], "random",
+                         {"lambdarank_norm": False, "sigmoid": 2.0}),
+}
+
+
+def admitted_pairs(obj, score) -> int:
+    """The pairs the truncation admits on this score: pairs of a query with
+    one document at least ranked above the truncation level and unequal
+    labels (each counted once)."""
+    from lightgbm_tpu_torch.ops import rank
+    lay = obj.layout
+    r, _ = rank.doc_ranks(score, lay)
+    top = (r < obj.truncation_level).to(torch.int64)
+    lab = obj.label.to(torch.int64).clamp(0, 31)
+    q = lay.num_queries
+    cnt = torch.zeros((2, q, 32), dtype=torch.int64, device=score.device)
+    cnt.index_put_((top, lay.qid, lab), torch.ones_like(lab),
+                   accumulate=True)
+    rest, tops = cnt[0], cnt[1]
+    t, n = tops.sum(1), tops.sum(1) + rest.sum(1)
+    pairs = t * (t - 1) // 2 + t * (n - t) \
+        - (tops * (tops - 1) // 2).sum(1) - (tops * rest).sum(1)
+    return int(pairs.sum())
+
+
+def rank_kernel_case(cuda_hist, obj, score, timed=False):
+    """lambdarank_grads on one layout: the kernel bitwise its plain version
+    in the kernel's order (lambdarank_grads_exact) on the card, two
+    launches equal, the JAX-order plain version (chunked on the card)
+    within RANK_TOL of the largest magnitude; with ``timed``, the times
+    and the bound."""
+    from lightgbm_tpu_torch.ops import rank
+    args = (score, obj.label, obj.gain, obj.inv_max_dcg, obj.layout,
+            obj.sigmoid, obj.truncation_level, obj.norm)
+    k = rank.lambdarank_grads(*args)
+    k2 = rank.lambdarank_grads(*args)
+    e = rank.lambdarank_grads_exact(*args)
+    p = rank.lambdarank_grads_plain(*args)
+    torch.cuda.synchronize()
+    for a, b, what in ((k, k2, "a second launch"), (k, e, "its plain "
+                       "version in the kernel's order")):
+        for x, y in zip(a, b):
+            if not torch.equal(x.view(torch.int32), y.view(torch.int32)):
+                raise AssertionError(f"lambdarank_grads is not bitwise "
+                                     f"equal to {what}")
+    err = max(float((x - y).abs().max()) for x, y in zip(k, p))
+    scale = max(float(y.abs().max()) for y in p)
+    if err > RANK_TOL * scale:
+        raise AssertionError(f"lambdarank_grads differs from the JAX-order "
+                             f"plain version by {err} (scale {scale})")
+    out = {"queries": obj.layout.num_queries, "docs": obj.layout.num_data,
+           "longest": int(np.diff(obj.layout.bounds_np).max()),
+           "bitwise_vs_exact": True, "deterministic": True,
+           "max_abs_err_vs_plain": err, "plain_scale": scale,
+           "tolerance": RANK_TOL}
+    if timed:
+        out["ms"] = time_ms(lambda: rank.lambdarank_grads(*args))
+        out["device_ms"], out["device_split"] = device_ms(
+            lambda: rank.lambdarank_grads(*args))
+        out["plain_ms"] = time_ms(lambda: rank.lambdarank_grads_plain(*args),
+                                  reps=3, warm=1)
+        out["exact_ms"] = time_ms(lambda: rank.lambdarank_grads_exact(*args),
+                                  reps=3, warm=1)
+        pairs = admitted_pairs(obj, score)
+        n, q = obj.layout.num_data, obj.layout.num_queries
+        # least traffic: score, label, gain in, lambda and hessian out, the
+        # inverse max DCG and the query boundaries
+        out["pairs_admitted"] = pairs
+        out["bound_ms"], out["bound_by"] = bound(20 * n + 8 * q + 4,
+                                                 RANK_PAIR_OPS * pairs)
+        out["library_ms"] = None
+    return out
+
+
+def rank_kernel_phase(lgb, cuda_hist, args):
+    """lambdarank_grads at train_rank's query layout and labels (scores
+    N(0, 1)), timed, and at the edge layouts."""
+    from lightgbm_tpu_torch import ranking
+    from lightgbm_tpu_torch.config import Config
+    train = rank_datasets(lgb, args.seed)[0]
+    cfg = Config.from_params(dict(RANK_PARAMS, device_type="cuda"))
+    obj = ranking.create_ranking_objective(cfg)
+    obj.init(train.get_label(), None, train.get_group(), device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(args.seed + 43)
+    score = torch.randn(train.num_data, generator=g, device="cuda")
+    out = {"train_rank_layout": rank_kernel_case(cuda_hist, obj, score,
+                                                 timed=True)}
+    for name, (groups, kind, extra) in RANK_LAYOUTS.items():
+        rng = np.random.RandomState(len(out))
+        n = int(np.sum(groups))
+        label = rng.randint(0, 5, size=n).astype(np.float64)
+        sc = rng.normal(size=n).astype(np.float32)
+        if kind == "tied":
+            sc[:] = 0.25
+        if kind == "zero_labels":
+            label[:] = 0.0
+        cfg = Config.from_params(dict(RANK_PARAMS, device_type="cuda",
+                                      **extra))
+        o = ranking.create_ranking_objective(cfg)
+        o.init(label, None, groups, device="cuda")
+        out[name] = rank_kernel_case(cuda_hist, o,
+                                     torch.from_numpy(sc).cuda())
+    return out
+
+
+def hist_rank_phase(lgb, cuda_hist, args):
+    """hist_tile and split_epilogue at train_rank's width, F = 136, the
+    widest a training path gives them (feature groups, the row-major bin
+    copy's width and the epilogue's grid change there): the root pass on
+    train_rank's own bins and on uniform ones, the gather form at the
+    N/2 rung, f32 and q8; the epilogue at P=42, F=136, B=255, f32 and q8,
+    bitwise its plain version and a second launch."""
+    train = rank_datasets(lgb, args.seed)[0]
+    n, f = train.num_data, train.binsT.shape[0]
+    if f != MSLR_FEATURES:
+        raise AssertionError(f"train_rank's bins have {f} features")
+    m = ladder_rungs(n)[1]
+    out = {"n": n, "f": f,
+           "root": {"mslr": hist_phase(cuda_hist, n, f=f, root=True,
+                                       seed=61, bins=train.binsT),
+                    "uniform": hist_phase(cuda_hist, n, f=f, root=True,
+                                          seed=62)},
+           "rung": {str(m): hist_phase(cuda_hist, n, m=m, f=f, seed=63)},
+           "q8_root": {"mslr": hist_q8_phase(cuda_hist, n, f=f, root=True,
+                                             seed=64, bins=train.binsT)},
+           "q8_rung": {str(m): hist_q8_phase(cuda_hist, n, m=m, f=f,
+                                             seed=65)}}
+    for q8 in (False, True):
+        a = epilogue_inputs(cuda_hist, seed=66, q8=q8, f=f)
+        kf, kc = cuda_hist.split_epilogue(*a)
+        kf2, kc2 = cuda_hist.split_epilogue(*a)
+        pf, pc = cuda_hist.split_epilogue_plain(*a)
+        torch.cuda.synchronize()
+        for x, y in ((kc, pc), (kf, pf), (kc, kc2), (kf, kf2)):
+            if not torch.equal(x.view(torch.int32), y.view(torch.int32)):
+                raise AssertionError(f"split_epilogue at F={f} (q8 {q8}) is "
+                                     f"not bitwise its plain version and a "
+                                     f"second launch")
+        bms, by = epilogue_bound(a[2], q8=q8, f=f)
+        out["epilogue_q8" if q8 else "epilogue"] = {
+            "bitwise_vs_plain": True, "deterministic": True,
+            "valid_candidates": int(torch.isfinite(kc[..., 0]).sum()),
+            "ms": time_ms(lambda: cuda_hist.split_epilogue(*a)),
+            "plain_ms": time_ms(lambda: cuda_hist.split_epilogue_plain(*a),
+                                reps=3, warm=1),
+            "bound_ms": bms, "bound_by": by}
+    return out
+
+
+def train_rank_phase(lgb, cuda_hist, args, objective="lambdarank"):
+    """Learning to rank at MS LTR width (rank_datasets; 255 leaves, max_bin
+    255, lr 0.1, eval_at 1, 3, 5, 10, --rounds rounds; the fused path):
+    sec/iter, valid NDCG@k against NDCG@10 of random scores on the same
+    set, the kernels' launches (lambdarank_grads once an iteration for
+    lambdarank, never for rank_xendcg), peak device memory, the host time
+    of the objective and of the NDCG evaluation, and one profiled
+    iteration."""
+    from lightgbm_tpu_torch.ops import rank
+    from lightgbm_tpu_torch.ranking import NDCGMetric
+    train, valid, Xv, t_data, t_construct, zero_share = \
+        rank_datasets(lgb, args.seed)
+    params = dict(RANK_PARAMS, objective=objective, device_type="cuda",
+                  seed=args.seed)
+    evals = {}
+    cuda_hist.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    booster = lgb.train(params, train, args.rounds, valid_sets=[valid],
+                        valid_names=["valid"], evals_result=evals)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = cuda_hist.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    gb = booster._boosting
+    ndcg = {k: v[-1] for k, v in evals["valid"].items()}
+    rnd = NDCGMetric(gb.config)
+    rnd.init(valid.get_label(), None, valid.get_group())
+    random_ndcg = rnd.eval(np.random.default_rng(args.seed + 47)
+                           .standard_normal(valid.num_data))
+    pred = booster.predict(Xv)
+
+    def host_ms(fn, reps=3):
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t = time.time()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.time() - t) * 1e3)
+        return statistics.median(times)
+
+    out = {"objective": objective, "docs": train.num_data,
+           "queries": len(train.get_group()),
+           "longest_query": int(train.get_group().max()),
+           "valid_docs": valid.num_data,
+           "valid_queries": len(valid.get_group()),
+           "features": MSLR_FEATURES, "rounds": args.rounds,
+           "sec_per_iter": wall / args.rounds, "train_wall_s": wall,
+           "data_s": t_data, "construct_s": t_construct,
+           "column_zero_share_max": zero_share,
+           "sparse_columns": len(train.sp_cols) if train.has_sparse_cols
+           else 0,
+           "valid_ndcg": ndcg, "random_score_valid_ndcg@10": random_ndcg[-1],
+           "max_memory_allocated_bytes": peak,
+           "pair_tensor_bytes_jax_layout": 4 * len(train.get_group())
+           * gb.objective.padding.m ** 2,
+           "objective_host_ms": host_ms(
+               lambda: gb.objective.get_grad_hess(gb.train_score)),
+           "ndcg_eval_host_ms": host_ms(booster.eval_valid),
+           "launches": launches, "trees": booster.num_trees(),
+           "split_path": "fused" if gb._split_fusion_on() else "classic"}
+    # one-time host work: the objective's padding plan and per-query
+    # inverse max DCG, the NDCG metric's per-query inverse max DCG@k
+    from lightgbm_tpu_torch.objectives import create_objective
+    t = time.time()
+    create_objective(gb.config).init(train.get_label(), None,
+                                     train.get_group(), device="cuda")
+    torch.cuda.synchronize()
+    out["objective_init_host_ms"] = (time.time() - t) * 1e3
+    t = time.time()
+    NDCGMetric(gb.config).init(valid.get_label(), None, valid.get_group())
+    out["ndcg_init_host_ms"] = (time.time() - t) * 1e3
+    if objective == "rank_xendcg":
+        shape = tuple(gb.objective.q_mask.shape)
+        out["gamma_draw_host_ms"] = host_ms(
+            lambda: np.random.RandomState(0).uniform(size=shape)
+            .astype(np.float32))
+    expect = args.rounds if objective == "lambdarank" else 0
+    gather = launches["hist_tile.gather_launches"]
+    if launches["lambdarank_grads.launches"] != expect or gather <= 0 \
+            or launches["hist_tile.launches"] - gather <= 0 \
+            or launches["split_epilogue.launches"] <= 0 \
+            or launches["hist_tile.launches_plane"] \
+            or out["split_path"] != "fused":
+        raise AssertionError(f"{objective}: the run missed a kernel or left "
+                             f"the fused path: {launches}")
+    if not (ndcg["ndcg@10"] > random_ndcg[-1]
+            and np.all(np.isfinite(pred)) and pred.shape == (valid.num_data,)
+            and peak < out["pair_tensor_bytes_jax_layout"] / 10):
+        raise AssertionError(f"{objective}: output {out}")
+    out["profile"] = profile_iteration(booster, wall / args.rounds)
+    return out, launches
+
+
+# parity_rank's runs: name -> parameters over RANK_PARAMS at 63 leaves,
+# and whether the documents carry weights and an init_score; each trains
+# PARITY_ROUNDS rounds on PARITY_ROWS documents of MS LTR-shaped queries
+PARITY_RANK = {
+    "lambdarank": ({}, False),
+    "lambdarank_q8": ({"quantized_grad": True}, False),
+    "rank_xendcg": ({"objective": "rank_xendcg"}, False),
+    "lambdarank_weighted": ({"label_gain": [0, 1, 3, 7, 15]}, True),
+}
+
+
+def _parity_rank(lgb, name, seed):
+    """One PARITY_RANK training twice on the card and twice on the CPU:
+    with the kernels' orders (kernel_sums_on_cpu: hist_tile's fixed-point
+    sums in f32, lambdarank_grads' partner order) and with the JAX
+    package's (float32 index_add_ sums, the JAX-order pair sums). The two
+    card runs and the kernel-order CPU run must give the same model text;
+    against the JAX-order run, equal text or the first tree whose
+    structure differs and the leaf error before it."""
+    from lightgbm_tpu_torch.io.model_text import load_model
+    from lightgbm_tpu_torch.ops import cuda_hist
+    extra, weighted = PARITY_RANK[name]
+    n_queries = PARITY_ROWS // (MSLR_DOCS // MSLR_QUERIES)
+    X, y, g = mslr_like(n_queries, PARITY_ROWS, seed + 53)
+    kw = {"group": g}
+    if weighted:
+        rng = np.random.default_rng(seed + 59)
+        kw.update(weight=rng.uniform(0.5, 2.0, PARITY_ROWS),
+                  init_score=rng.standard_normal(PARITY_ROWS) * 0.1)
+    params = dict(RANK_PARAMS, num_leaves=63, seed=seed, **extra)
+    setup = (X, y, params, kw)
+    texts = {}
+    for run in ("cuda", "cuda_again", "cpu_kernel_order", "cpu"):
+        with (cuda_hist.kernel_sums_on_cpu() if run == "cpu_kernel_order"
+              else contextlib.nullcontext()):
+            texts[run] = parity_text(lgb, setup, run.split("_")[0])
+    sc, sp = _structure(texts["cuda"]), _structure(texts["cpu"])
+    diverge = next((i for i, (a, b) in enumerate(zip(sc, sp)) if a != b),
+                   None if len(sc) == len(sp) else min(len(sc), len(sp)))
+    tc, tp = load_model(texts["cuda"]).trees, load_model(texts["cpu"]).trees
+    upto = len(tc) if diverge is None else diverge
+    leaf_err = max([float(np.abs(a.leaf_value - b.leaf_value).max())
+                    for a, b in zip(tc[:upto], tp[:upto])] or [0.0])
+    out = {"params": extra, "weight_and_init_score": weighted,
+           "queries": len(g), "longest": int(g.max()),
+           "trees": len(tc),
+           "card_runs_identical_text": texts["cuda"] == texts["cuda_again"],
+           "card_equals_cpu_kernel_order": texts["cuda"]
+           == texts["cpu_kernel_order"],
+           "card_equals_cpu_jax_order": texts["cuda"] == texts["cpu"],
+           "first_divergent_tree_vs_jax_order": diverge,
+           "max_leaf_abs_err_before_divergence": leaf_err,
+           "card_text_sha256": _sha(texts["cuda"])}
+    if not (out["card_runs_identical_text"]
+            and out["card_equals_cpu_kernel_order"]):
+        raise AssertionError(f"{name}: card vs CPU disagree: {out}")
+    return out
+
+
+def parity_rank_phase(lgb, seed):
+    return {"docs": PARITY_ROWS, "num_leaves": 63, "rounds": PARITY_ROUNDS,
+            **{m: _parity_rank(lgb, m, seed) for m in PARITY_RANK}}
+
+
 VARIANT_RTOL = 1e-5     # of each cell's summed magnitudes (products exact)
 
 
@@ -1698,7 +2132,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import lightgbm_tpu_torch as lgb
-    from lightgbm_tpu_torch.ops import cuda_hist
+    from lightgbm_tpu_torch.ops import cuda_hist, rank  # noqa: F401 (counts)
     t_start = time.time()
 
     smi = nvidia_smi()
@@ -1772,6 +2206,15 @@ def main() -> int:
                               tr["rows_streamed_per_tree"])
     emit("train_sampling", **ts)
     emit("parity_sampling", **parity_sampling_phase(lgb, args.seed))
+
+    rk = rank_kernel_phase(lgb, cuda_hist, args)
+    emit("lambdarank_grads", **rk)
+    emit("hist_tile_rank", **hist_rank_phase(lgb, cuda_hist, args))
+    trk, rank_launches = train_rank_phase(lgb, cuda_hist, args)
+    emit("train_rank", **trk)
+    trx, xe_launches = train_rank_phase(lgb, cuda_hist, args, "rank_xendcg")
+    emit("train_rank_xendcg", **trx)
+    emit("parity_rank", **parity_rank_phase(lgb, args.seed))
 
     hv = hist_variants_phase(cuda_hist)
     emit("hist_variants", **hv)
@@ -1894,6 +2337,24 @@ def main() -> int:
          "plain_ms": hv["plain_ms"], "bound_ms": hv["bound_ms"],
          "bound_by": hv["bound_by"], "library_ms": hv["library_ms"],
          "onehot_floor_ms": hv["onehot_floor_ms"]},
+        {"name": "lambdarank_grads", "route": "cuda",
+         "source": "lightgbm_tpu_torch/csrc/lambdarank.cu",
+         "replaces": "none, a port-only kernel: lightgbm_tpu/ranking.py:158 "
+                     "LambdarankNDCG._padded_grads + :111 _scatter_grads "
+                     "are plain jnp (no pallas_call)",
+         "launches": rank_launches["lambdarank_grads.launches"],
+         "max_abs_err": max(v["max_abs_err_vs_plain"] for v in rk.values()),
+         "tolerance_of_plain_scale": RANK_TOL,
+         "ms": rk["train_rank_layout"]["ms"],
+         "device_ms": rk["train_rank_layout"]["device_ms"],
+         "kernel_device_ms": rk["train_rank_layout"]["device_split"].get(
+             "lambdarank_kernel", "not measured"),
+         "plain_ms": rk["train_rank_layout"]["plain_ms"],
+         "exact_ms": rk["train_rank_layout"]["exact_ms"],
+         "bound_ms": rk["train_rank_layout"]["bound_ms"],
+         "bound_by": rk["train_rank_layout"]["bound_by"],
+         "pairs_admitted": rk["train_rank_layout"]["pairs_admitted"],
+         "library_ms": None},
     ]
     # each kernel's launches on every path that launched it, each path's
     # counts read from 0 around its own run
@@ -1901,6 +2362,7 @@ def main() -> int:
              "train_q8": q8_launches, "train_q8_cat": q8_cat_launches,
              "train_multiclass": mc_launches,
              "train_q8_multiclass": mcq_launches,
+             "train_rank": rank_launches, "train_rank_xendcg": xe_launches,
              **{f"train_sampling/{k}": v["launches"]
                 for k, v in ts["runs"].items()}}
     for entry, count in zip(kernels[:6], (
@@ -1914,6 +2376,9 @@ def main() -> int:
         entry["launches_by_path"] = {k: count(c) for k, c in paths.items()
                                      if count(c) > 0}
     kernels[6]["launches_by_path"] = {"hist_variants": hv["launches"]}
+    kernels[7]["launches_by_path"] = {
+        k: c["lambdarank_grads.launches"] for k, c in paths.items()
+        if c["lambdarank_grads.launches"] > 0}
     # device time (torch.profiler) beside the events' time of each form
     # ("root/<bins>": the root pass, "full": the several-slot full form);
     # with --parent, the other design's [event ms, device ms] from the

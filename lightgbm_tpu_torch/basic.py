@@ -13,8 +13,11 @@ streams of its non-default entries (``_maybe_extract_sparse``, the JAX
 package's sparse device storage, on every device): ``binsT`` keeps the
 dense columns, ``sp_cols``/``sp_rows``/``sp_bins``/``sp_default`` the rest.
 A validation set built with ``reference=`` shares the training set's
-mappers and stays dense. Sparse input, pandas categoricals, EFB bundles
-and streaming construction wait for ROADMAP Queue 1 items 2 and 9.
+mappers and stays dense. The metadata fields label, weight, group (query
+sizes, for learning to rank) and init_score go with the rows
+(``set_field``/``get_field``). Sparse input, pandas categoricals, EFB
+bundles, streaming construction and a group column read from a file wait
+for ROADMAP Queue 1 items 2, 9 and 12.
 """
 
 from __future__ import annotations
@@ -51,13 +54,16 @@ class Dataset:
     """Training/validation data container (reference: basic.py Dataset)."""
 
     def __init__(self, data, label=None, reference: Optional["Dataset"] = None,
-                 weight=None, feature_name="auto", categorical_feature="auto",
+                 weight=None, group=None, init_score=None,
+                 feature_name="auto", categorical_feature="auto",
                  params: Optional[Dict[str, Any]] = None,
                  free_raw_data: bool = True):
         self.data = data
         self.label = label
         self.reference = reference
         self.weight = weight
+        self.group = group                  # query sizes (learning to rank)
+        self.init_score = init_score
         self.feature_name = feature_name
         self.categorical_feature = categorical_feature
         self.params = dict(params or {})
@@ -103,6 +109,25 @@ class Dataset:
         """Row-major ``[N, F_used]`` view of the bin matrix."""
         return None if self.binsT is None else self.binsT.t()
 
+    # ------------------------------------------------------------ fields
+    def set_group(self, group) -> "Dataset":
+        self.group = group
+        return self
+
+    def set_init_score(self, init_score) -> "Dataset":
+        self.init_score = init_score
+        return self
+
+    def set_field(self, name: str, data) -> "Dataset":
+        if name not in ("label", "weight", "group", "init_score"):
+            log.fatal(f"Unknown field: {name}")
+        setattr(self, name, data)
+        return self
+
+    def get_field(self, name: str):
+        return {"label": self.get_label(), "weight": self.get_weight(),
+                "group": self.group, "init_score": self.init_score}[name]
+
     def get_label(self) -> Optional[np.ndarray]:
         return None if self.label is None else np.asarray(
             self.label, dtype=np.float64).reshape(-1)
@@ -110,6 +135,21 @@ class Dataset:
     def get_weight(self) -> Optional[np.ndarray]:
         return None if self.weight is None else np.asarray(
             self.weight, dtype=np.float64).reshape(-1)
+
+    def get_group(self) -> Optional[np.ndarray]:
+        """Query sizes (int64), or None."""
+        return None if self.group is None else np.asarray(
+            self.group, dtype=np.int64).reshape(-1)
+
+    def get_init_score(self) -> Optional[np.ndarray]:
+        return None if self.init_score is None else np.asarray(
+            self.init_score, dtype=np.float64)
+
+    def create_valid(self, data, label=None, weight=None, group=None,
+                     init_score=None, params=None) -> "Dataset":
+        """A validation set binned with this set's mappers."""
+        return Dataset(data, label=label, reference=self, weight=weight,
+                       group=group, init_score=init_score, params=params)
 
     def get_feature_names(self) -> List[str]:
         self.construct()

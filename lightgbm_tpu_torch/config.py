@@ -23,8 +23,9 @@ the same ``parameters:`` block into model text), with three port rules:
 - Every parameter outside the port's implemented slice (dense numerical
   and categorical data with sparse device columns, serial learner; gbdt,
   goss, dart and rf boosting with bagging and by-tree feature_fraction;
-  every objective and metric but ranking; the fused split epilogue, the
-  classic split path, f32 and quantized-gradient histograms) raises
+  every objective and metric, ranking's included; the fused split
+  epilogue, the classic split path, f32 and quantized-gradient histograms)
+  raises
   NotImplementedError when set to a non-default value, naming the ROADMAP
   item that brings it (``_check_slice``). Nothing is silently ignored.
 """
@@ -729,6 +730,9 @@ _SLICE_PARAMS = frozenset({
     "drop_rate", "max_drop", "skip_drop", "xgboost_dart_mode",
     "uniform_drop", "reg_sqrt", "alpha", "fair_c", "poisson_max_delta_step",
     "tweedie_variance_power", "multi_error_top_k", "auc_mu_weights",
+    # learning to rank
+    "lambdarank_truncation_level", "lambdarank_norm", "label_gain",
+    "eval_at",
     # categorical features (the classic split path)
     "categorical_feature", "max_cat_threshold", "cat_l2", "cat_smooth",
     "max_cat_to_onehot", "min_data_per_group",
@@ -747,9 +751,6 @@ for _names, _item in (
           "forcedbins_filename", "max_bin_by_feature",
           "histogram_pool_size", "force_col_wise", "force_row_wise"),
          "Queue 1 item 9 (the classic path's remaining features)"),
-        (("lambdarank_truncation_level", "lambdarank_norm", "label_gain",
-          "eval_at", "objective", "metric"),
-         "Queue 1 item 10 (ranking)"),
         (("gpu_use_dp", "linear_tree", "linear_lambda"),
          "Queue 1 item 11 (precision modes)"),
         (("hist_block", "hist_autotune"),
@@ -796,9 +797,7 @@ for _names, _item in (
 _SLICE_OBJECTIVES = (
     "regression", "regression_l1", "huber", "fair", "poisson", "quantile",
     "mape", "gamma", "tweedie", "binary", "multiclass", "multiclassova",
-    "cross_entropy", "cross_entropy_lambda")
-_RANKING_OBJECTIVES = ("lambdarank", "rank_xendcg")
-_RANKING_METRICS = ("ndcg", "map")
+    "cross_entropy", "cross_entropy_lambda", "lambdarank", "rank_xendcg")
 HIST_METHODS = ("auto", "pallas", "pallas_hilo", "pallas_q8")
 
 
@@ -819,19 +818,13 @@ def _check_slice(cfg: Config) -> None:
                    is not dataclasses.MISSING else f.default)
         if v != default:
             _not_in_slice(f.name, v)
-    if cfg.objective in _RANKING_OBJECTIVES:
-        _not_in_slice("objective", cfg.objective)
     if cfg.objective not in _SLICE_OBJECTIVES:
         raise NotImplementedError(
             f"objective={cfg.objective!r} is not ported to lightgbm_tpu_torch "
             f"(the port has {', '.join(_SLICE_OBJECTIVES)}; custom objectives "
-            f"arrive with ROADMAP.md Queue 1 item 12 (API surface), ranking "
-            f"with Queue 1 item 10 (ranking))")
+            f"arrive with ROADMAP.md Queue 1 item 12 (API surface))")
     if cfg.tree_learner != "serial":
         _not_in_slice("tree_learner", cfg.tree_learner)
-    for m in cfg.metric:
-        if m in _RANKING_METRICS:
-            _not_in_slice("metric", m)
     if cfg.histogram_method not in HIST_METHODS:
         raise NotImplementedError(
             f"parameter histogram_method={cfg.histogram_method!r} has no "

@@ -1,10 +1,12 @@
 """Training entry point: ``train()``.
 
 The port of lightgbm_tpu's ``engine.train`` for the slice: parameter
-munging, validation sets and the evaluation record; the Booster takes the
-boosting type ``boosting`` names (``models/boosting.create_boosting``). Callbacks, early
-stopping, ``init_model``, custom objectives and ``cv`` wait for ROADMAP.md
-Queue 1 item 12.
+munging, validation sets (with their query groups and init scores) and the
+evaluation record (``ndcg@k`` / ``map@k`` one entry a position); the
+Booster takes the boosting type ``boosting`` names
+(``models/boosting.create_boosting``). Callbacks, early stopping,
+``init_model``, custom objectives and ``cv`` wait for ROADMAP.md Queue 1
+item 12.
 """
 
 from __future__ import annotations

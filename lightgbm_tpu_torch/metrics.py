@@ -1,12 +1,12 @@
 """Evaluation metrics, on the host in float64.
 
-The port of lightgbm_tpu's ``metrics.py``: every metric but ranking's
-(reference: src/metric/regression_metric.hpp, binary_metric.hpp,
-multiclass_metric.hpp, xentropy_metric.hpp). Metrics take RAW scores and
-apply the objective's output conversion where the reference does (which,
-as the JAX package's, works on the scores cast to float32); everything
-else runs in numpy float64, the JAX package's formulas in its order.
-Multiclass scores are ``[N, K]``.
+The port of lightgbm_tpu's ``metrics.py`` (reference:
+src/metric/regression_metric.hpp, binary_metric.hpp, multiclass_metric.hpp,
+xentropy_metric.hpp; ranking's ndcg and map live in ``ranking.py``).
+Metrics take RAW scores and apply the objective's output conversion where
+the reference does (which, as the JAX package's, works on the scores cast
+to float32); everything else runs in numpy float64, the JAX package's
+formulas in its order. Multiclass scores are ``[N, K]``.
 """
 
 from __future__ import annotations
@@ -25,7 +25,8 @@ class Metric:
     def __init__(self, config):
         self.config = config
 
-    def init(self, label: np.ndarray, weight: Optional[np.ndarray]) -> None:
+    def init(self, label: np.ndarray, weight: Optional[np.ndarray],
+             groups: Optional[np.ndarray] = None) -> None:
         self.label = np.asarray(label, dtype=np.float64)
         self.weight = (np.asarray(weight, dtype=np.float64)
                        if weight is not None else None)
@@ -367,12 +368,10 @@ for _cls in [L2Metric, RMSEMetric, L1Metric, QuantileMetric, HuberMetric,
 def create_metric(name: str, config) -> Optional[Metric]:
     """reference: src/metric/metric.cpp Metric::CreateMetric. An unknown
     name is skipped with a warning, as the JAX package does; ranking's
-    metrics (ndcg, map) arrive with ROADMAP.md Queue 1 item 10 (ranking),
-    and Config rejects them."""
+    metrics (ndcg, map) live in ``ranking.py``."""
     if name in ("ndcg", "map"):
-        raise NotImplementedError(
-            f"metric {name!r} is not ported to lightgbm_tpu_torch yet; it "
-            f"arrives with ROADMAP.md Queue 1 item 10 (ranking)")
+        from .ranking import create_ranking_metric
+        return create_ranking_metric(name, config)
     if name in _REGISTRY:
         return _REGISTRY[name](config)
     log.warning(f"Unknown metric: {name}")
@@ -389,5 +388,6 @@ def default_metric_for_objective(objective: str) -> List[str]:
         "multiclass": ["multi_logloss"], "multiclassova": ["multi_logloss"],
         "cross_entropy": ["cross_entropy"],
         "cross_entropy_lambda": ["cross_entropy_lambda"],
+        "lambdarank": ["ndcg"], "rank_xendcg": ["ndcg"],
     }
     return mapping.get(objective, [])

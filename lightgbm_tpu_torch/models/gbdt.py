@@ -9,6 +9,11 @@ float64 accumulation in tree order. A multiclass objective grows
 [N, K], tree c keyed ``fold_in(PRNGKey(extra_seed), iter * K + c)`` (the
 q8 mode's rounding draw) as in the JAX package.
 
+Learning to rank: the objective takes the train set's query sizes
+(``Dataset.group``) and each metric its dataset's. A Dataset's
+``init_score`` starts its score cache (train and valid) and, on the train
+set, turns off the boost-from-average bias fold, as in the JAX package.
+
 Row sampling, as the JAX package does it:
 
 - bagging (``bagging_fraction``/``bagging_freq``, or the pos/neg
@@ -101,18 +106,20 @@ class GBDT:
         if self.objective is None:
             self.objective = create_objective(cfg)
         self.objective.init(train_set.get_label(), train_set.get_weight(),
-                            self.device)
+                            train_set.get_group(), device=self.device)
         self.num_tree_per_iteration = k = \
             self.objective.num_model_per_iteration
         n = train_set.num_data
         # boost_from_average init scores (gbdt.cpp:333-367), folded as a
         # bias into the first tree of each class (gbdt.cpp:414-416 AddBias)
+        # unless the train set has an init score (gbdt.cpp:348)
         self.init_scores = [0.0] * k
         if cfg.boost_from_average:
             self.init_scores = [float(self.objective.boost_from_score(c))
                                 for c in range(k)]
-        self._fold_init_bias = bool(cfg.boost_from_average)
-        self.train_score = self._score_cache(n)
+        self._fold_init_bias = (train_set.init_score is None
+                                and bool(cfg.boost_from_average))
+        self.train_score = self._score_cache(n, train_set.init_score)
         self.shrinkage_rate = cfg.learning_rate
         self.split_params = SplitParams.from_config(cfg)
         self._extra_rng_key = prng_key(cfg.extra_seed)
@@ -139,10 +146,15 @@ class GBDT:
             or cfg.pos_bagging_fraction < 1.0
             or cfg.neg_bagging_fraction < 1.0)
 
-    def _score_cache(self, n: int) -> torch.Tensor:
-        """A score cache of ``n`` rows at the init scores: [n], or [n, K]
-        with K trees an iteration."""
+    def _score_cache(self, n: int, init_score=None) -> torch.Tensor:
+        """A score cache of ``n`` rows at the init scores, or at a Dataset's
+        ``init_score`` (as float32): [n], or [n, K] with K trees an
+        iteration."""
         k = self.num_tree_per_iteration
+        if init_score is not None:
+            return torch.as_tensor(np.ascontiguousarray(
+                np.asarray(init_score, np.float32).reshape(
+                    (n, k) if k > 1 else (n,))), device=self.device)
         base = torch.tensor(np.asarray(self.init_scores, np.float32),
                             device=self.device)
         return (base.expand(n, k).contiguous() if k > 1
@@ -170,8 +182,8 @@ class GBDT:
         valid_set.construct()
         self.valid_sets.append(valid_set)
         self.valid_names.append(name)
-        self._valid_scores.append(
-            self._score_cache(valid_set.num_data).to(valid_set.device))
+        self._valid_scores.append(self._score_cache(
+            valid_set.num_data, valid_set.init_score).to(valid_set.device))
 
     # ---------------------------------------------------------- sampling
     def _bagging_mode(self) -> str:
@@ -450,13 +462,19 @@ class GBDT:
                 if key not in self._metric_cache:
                     mm = create_metric(name, self.config)
                     if mm is not None:
-                        mm.init(ds.get_label(), ds.get_weight())
+                        mm.init(ds.get_label(), ds.get_weight(),
+                                ds.get_group())
                     self._metric_cache[key] = mm
                 mm = self._metric_cache[key]
-                if mm is not None:
-                    out.append((ds_name, mm.name,
-                                mm.eval(score_np, self.objective),
-                                mm.bigger_is_better))
+                if mm is None:
+                    continue
+                val = mm.eval(score_np, self.objective)
+                if isinstance(val, (list, tuple)):
+                    # ndcg@k / map@k: one entry a position
+                    out.extend((ds_name, nm, float(v), mm.bigger_is_better)
+                               for nm, v in zip(mm.name, val))
+                else:
+                    out.append((ds_name, mm.name, val, mm.bigger_is_better))
         return out
 
     # ------------------------------------------------------- predict

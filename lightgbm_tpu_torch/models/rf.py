@@ -40,6 +40,8 @@ class RF(GBDT):
         super().__init__(config, train_set, objective)
 
     def _init_train(self, train_set) -> None:
+        if train_set.init_score is not None:
+            log.fatal("Cannot use init_score in RF mode")
         super()._init_train(train_set)
         self.shrinkage_rate = 1.0
         # the caches start at zero: the init score lives in the trees

@@ -1,8 +1,9 @@
 """Objective functions: per-row gradients/hessians on the device.
 
-The port of lightgbm_tpu's ``objectives.py``: every objective but ranking
-(reference: src/objective/regression_objective.hpp, binary_objective.hpp,
-multiclass_objective.hpp, xentropy_objective.hpp). Gradients are float32
+The port of lightgbm_tpu's ``objectives.py`` (reference:
+src/objective/regression_objective.hpp, binary_objective.hpp,
+multiclass_objective.hpp, xentropy_objective.hpp; ranking's lambdarank and
+rank_xendcg live in ``ranking.py``). Gradients are float32
 tensors on the run's device, each operation the JAX package's in its
 order (a scalar parameter enters as a float32 constant, as JAX's weak
 types do); ``boost_from_score`` and the L1-family leaf renewal
@@ -211,7 +212,7 @@ class ObjectiveFunction:
         self.config = config
 
     def init(self, label: np.ndarray, weight: Optional[np.ndarray],
-             device="cpu") -> None:
+             groups: Optional[np.ndarray] = None, device="cpu") -> None:
         self.label_np = np.asarray(label, dtype=np.float64)
         self.weight_np = (np.asarray(weight, dtype=np.float64)
                           if weight is not None else None)
@@ -251,10 +252,10 @@ class RegressionL2(ObjectiveFunction):
     """reference: regression_objective.hpp:93-201 (RegressionL2loss)."""
     name = "regression"
 
-    def init(self, label, weight, device="cpu"):
+    def init(self, label, weight, groups=None, device="cpu"):
         if self.config.reg_sqrt:
             label = np.sign(label) * np.sqrt(np.abs(label))
-        super().init(label, weight, device)
+        super().init(label, weight, groups, device)
 
     def get_grad_hess(self, score):
         return self._apply_weight(score - self.label, torch.ones_like(score))
@@ -342,10 +343,10 @@ class RegressionPoisson(RegressionL2):
     poisson_max_delta_step)."""
     name = "poisson"
 
-    def init(self, label, weight, device="cpu"):
+    def init(self, label, weight, groups=None, device="cpu"):
         if np.any(np.asarray(label) < 0):
             log.fatal("[poisson]: at least one target label is negative")
-        super().init(label, weight, device)
+        super().init(label, weight, groups, device)
 
     def get_grad_hess(self, score):
         g = exp_f32(score) - self.label
@@ -388,8 +389,8 @@ class RegressionMAPE(RegressionL1):
     """reference: regression_objective.hpp:576-672 (RegressionMAPELOSS)."""
     name = "mape"
 
-    def init(self, label, weight, device="cpu"):
-        super().init(label, weight, device)
+    def init(self, label, weight, groups=None, device="cpu"):
+        super().init(label, weight, groups, device)
         lw = 1.0 / np.maximum(1.0, np.abs(self.label_np))
         if self.weight_np is not None:
             lw = lw * self.weight_np
@@ -460,8 +461,8 @@ class BinaryLogloss(ObjectiveFunction):
                       f"than zero")
         self._is_pos = is_pos if is_pos is not None else (lambda y: y > 0)
 
-    def init(self, label, weight, device="cpu"):
-        super().init(label, weight, device)
+    def init(self, label, weight, groups=None, device="cpu"):
+        super().init(label, weight, groups, device)
         is_pos = self._is_pos(self.label_np)
         cnt_pos = int(np.sum(is_pos))
         cnt_neg = self.num_data - cnt_pos
@@ -541,8 +542,8 @@ class MulticlassSoftmax(ObjectiveFunction):
         self.num_model_per_iteration = self.num_class
         self.factor = self.num_class / (self.num_class - 1.0)
 
-    def init(self, label, weight, device="cpu"):
-        super().init(label, weight, device)
+    def init(self, label, weight, groups=None, device="cpu"):
+        super().init(label, weight, groups, device)
         li = self.label_np.astype(np.int32)
         if np.any((li < 0) | (li >= self.num_class)):
             log.fatal("Label must be in [0, num_class)")
@@ -588,10 +589,10 @@ class MulticlassOVA(ObjectiveFunction):
                           is_pos=(lambda y, k=k: y.astype(np.int32) == k))
             for k in range(self.num_class)]
 
-    def init(self, label, weight, device="cpu"):
-        super().init(label, weight, device)
+    def init(self, label, weight, groups=None, device="cpu"):
+        super().init(label, weight, groups, device)
         for b in self.binaries:
-            b.init(label, weight, device)
+            b.init(label, weight, device=device)
 
     def get_grad_hess(self, score):
         gs, hs = zip(*(b.get_grad_hess(score[:, k].contiguous())
@@ -611,10 +612,10 @@ class CrossEntropy(ObjectiveFunction):
     [0, 1])."""
     name = "cross_entropy"
 
-    def init(self, label, weight, device="cpu"):
+    def init(self, label, weight, groups=None, device="cpu"):
         if np.any((np.asarray(label) < 0) | (np.asarray(label) > 1)):
             log.fatal("[cross_entropy]: labels must be in [0, 1]")
-        super().init(label, weight, device)
+        super().init(label, weight, groups, device)
 
     def get_grad_hess(self, score):
         z = _ftz(1.0 / (1.0 + exp_f32(-score)))
@@ -679,11 +680,14 @@ _REGISTRY = {c.name: c for c in (
 
 def create_objective(config) -> ObjectiveFunction:
     """reference: src/objective/objective_function.cpp
-    CreateObjectiveFunction (every objective but ranking, which Config
-    rejects naming ROADMAP.md Queue 1 item 10 (ranking))."""
+    CreateObjectiveFunction (custom objectives, which Config rejects,
+    arrive with ROADMAP.md Queue 1 item 12)."""
+    if config.objective in ("lambdarank", "rank_xendcg"):
+        from .ranking import create_ranking_objective
+        return create_ranking_objective(config)
     if config.objective not in _REGISTRY:
         raise NotImplementedError(
             f"objective={config.objective!r} is not ported to "
-            f"lightgbm_tpu_torch yet; ranking arrives with ROADMAP.md Queue "
-            f"1 item 10 (ranking), custom objectives with Queue 1 item 12")
+            f"lightgbm_tpu_torch; custom objectives arrive with ROADMAP.md "
+            f"Queue 1 item 12 (API surface)")
     return _REGISTRY[config.objective](config)

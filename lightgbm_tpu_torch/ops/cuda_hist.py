@@ -43,6 +43,11 @@ plain version is exact already);
 ``kernel_sums_on_cpu`` makes the CPU path use it, for a CPU run that gives a
 card run's bits.
 
+Learning to rank's pairwise lambda kernel (``csrc/lambdarank.cu``, no TPU
+counterpart) has its wrapper and plain versions in ``ops/rank.py``; it is
+built and bound here with the others and counted with them
+(``register_counters``).
+
 Off the training path, ``hist_onehot`` (``csrc/hist_onehot.cu``) is the
 experiment script's one-hot histogram on the bf16 tensor cores
 (``scripts/exp_hist_variants.py``), with its plain version
@@ -88,7 +93,7 @@ _FULL_THREADS = 1024        # threads of a full_accumulate block (32 warps)
 _SCATTER_TILE = 256         # rung entries (threads) of a gather scatter block
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD = Path(__file__).resolve().parent.parent / "_build"
-_SOURCES = ("hist_tile", "split_epilogue", "hist_onehot")
+_SOURCES = ("hist_tile", "split_epilogue", "hist_onehot", "lambdarank")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "--fmad=false", "-std=c++17", "-shared", "-Xcompiler",
               "-fPIC", "-Xptxas", "-v")
@@ -232,6 +237,11 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
     elif name == "split_epilogue":
         lib.split_epilogue_launch.argtypes = [vp] * 9 + [ci] * 3 + [vp]
         lib.split_epilogue_launch.restype = ci
+    elif name == "lambdarank":
+        lib.lambdarank_launch.argtypes = ([vp] * 10 + [ci] * 3
+                                          + [ctypes.c_float, ci]
+                                          + [vp] * 4 + [ci, vp])
+        lib.lambdarank_launch.restype = ci
     else:
         ll = ctypes.c_longlong
         lib.hist_onehot_launch.argtypes = ([vp] * 4 + [ci, ll] + [ci] * 5
@@ -539,7 +549,9 @@ _cpu_sums = {"kernel": False}
 def kernel_sums_on_cpu():
     """Within the block, ``hist_tile`` on a CPU tensor sums as the kernel
     does (``hist_tile_exact``) instead of in the JAX package's float32
-    order: a CPU run that reproduces a card run's bits."""
+    order, and ``ops/rank.lambdarank_grads`` adds in the kernel's partner
+    order (``lambdarank_grads_exact``): a CPU run that reproduces a card
+    run's bits."""
     old = _cpu_sums["kernel"]
     _cpu_sums["kernel"] = True
     try:
@@ -747,11 +759,18 @@ def _launch_gather(lib, binsT, leaf_ids, stats, lanes, comp_np, idx, amax,
         b, l, active, group, width, tile, stream)
 
 
-_COUNTERS = {"hist_tile": ("launches", "gather_launches", "launches_plane",
-                           "launches_q8", "gather_launches_q8",
-                           "launches_plane_q8"),
-             "split_epilogue": ("launches", "launches_q8"),
-             "hist_onehot": ("launches",)}
+_COUNTERS: Dict[str, Tuple[str, ...]] = {}   # wrapper name -> counters
+_COUNTED = {}                                # wrapper name -> wrapper
+
+
+def register_counters(fn, names: Tuple[str, ...]) -> None:
+    """Count the kernel wrapper ``fn`` (this module's or another's) with
+    the counters ``names``, set to 0 here; ``reset_launch_counts`` and
+    ``launch_counts`` cover every registered wrapper."""
+    _COUNTERS[fn.__name__] = tuple(names)
+    _COUNTED[fn.__name__] = fn
+    for c in names:
+        setattr(fn, c, 0)
 
 
 def _count(fn, name: str) -> None:
@@ -915,13 +934,17 @@ def reset_launch_counts() -> None:
     """Set every kernel's launch counters to 0."""
     for name, counters in _COUNTERS.items():
         for c in counters:
-            setattr(globals()[name], c, 0)
+            setattr(_COUNTED[name], c, 0)
 
 
 def launch_counts() -> Dict[str, int]:
     """Every launch counter, as ``kernel.counter``."""
-    return {f"{name}.{c}": getattr(globals()[name], c)
+    return {f"{name}.{c}": getattr(_COUNTED[name], c)
             for name, counters in _COUNTERS.items() for c in counters}
 
 
-reset_launch_counts()
+register_counters(hist_tile, ("launches", "gather_launches",
+                              "launches_plane", "launches_q8",
+                              "gather_launches_q8", "launches_plane_q8"))
+register_counters(split_epilogue, ("launches", "launches_q8"))
+register_counters(hist_onehot, ("launches",))

@@ -33,7 +33,13 @@ of each cell's summed magnitudes of its plain version, and two launches
 bitwise equal. The boosting modes (multiclass, bagging's subset and mask,
 feature_fraction, GOSS, DART, RF, a weighted objective): a card training's
 model text twice the same and equal to the CPU's with the kernel's sums
-(f32) or the plain path (q8).
+(f32) or the plain path (q8). Learning to rank: the pairwise lambda
+kernel (``lambdarank_grads``) bitwise its plain version in the kernel's
+order on the card and on the CPU at edge layouts (1-document queries, a
+query longer than a block's threads, MS LTR's longest, all-tied scores,
+labels all 0, truncation levels 3 and above n), two launches equal; a
+lambdarank, q8 lambdarank and rank_xendcg training gives the same text
+twice and the CPU's in the kernels' orders.
 """
 
 import numpy as np
@@ -589,5 +595,103 @@ def test_boosting_modes_on_card_equal_cpu(dev, name):
             texts[d] = b.model_to_string()
         if d == "cuda":
             assert b._boosting._split_fusion_on() == (not classic)
+    assert texts["cuda"] == texts["cuda_again"]
+    assert texts["cuda"] == texts["cpu"]
+
+
+# lambdarank_grads layouts: query sizes (a 1-document query, a query longer
+# than a block's 128 threads, MS LTR's longest), what the labels and scores
+# hold, and the parameters
+RANK_LAYOUTS = {
+    "mixed": ([1, 7, 12, 1, 5, 9, 3, 20, 300, 1251], "random", {}),
+    "trunc3": ([1, 7, 12, 1, 5, 9, 3, 20, 300], "random",
+               {"lambdarank_truncation_level": 3}),
+    "trunc_above_n": ([4, 30, 129, 2], "random",
+                      {"lambdarank_truncation_level": 5000}),
+    "all_tied": ([1, 7, 12, 200], "tied", {}),
+    "labels_all_0": ([3, 7, 40], "zero_labels", {}),
+    "no_norm_sigmoid2": ([5, 64, 130], "random",
+                         {"lambdarank_norm": False, "sigmoid": 2.0}),
+}
+
+
+@pytest.mark.parametrize("name", sorted(RANK_LAYOUTS))
+def test_lambdarank_grads_matches_exact(dev, name):
+    """The pairwise lambda kernel bitwise equal to its plain version in the
+    kernel's order (``lambdarank_grads_exact``) on the card and on the CPU
+    (``kernel_sums_on_cpu``), two launches bitwise equal, one counted
+    launch a call."""
+    from lightgbm_tpu_torch import ranking
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.ops import rank
+    groups, kind, extra = RANK_LAYOUTS[name]
+    rng = np.random.RandomState(4)
+    n = int(np.sum(groups))
+    label = rng.randint(0, 5, size=n).astype(np.float64)
+    score = rng.normal(size=n).astype(np.float32)
+    if kind == "tied":
+        score[:] = 0.25
+    if kind == "zero_labels":
+        label[:] = 0.0
+    out = {}
+    for d in ("cuda", "cpu"):
+        cfg = Config.from_params(dict({"objective": "lambdarank",
+                                       "device_type": d}, **extra))
+        obj = ranking.create_ranking_objective(cfg)
+        obj.init(label, None, groups, device=d)
+        s = torch.from_numpy(score).to(d)
+        if d == "cpu":
+            with cuda_hist.kernel_sums_on_cpu():
+                out[d] = obj.get_grad_hess(s)
+            continue
+        rank.lambdarank_grads.launches = 0
+        g1, h1 = obj.get_grad_hess(s)
+        g2, h2 = obj.get_grad_hess(s)
+        torch.cuda.synchronize()
+        assert rank.lambdarank_grads.launches == 2
+        assert torch.equal(g1.view(torch.int32), g2.view(torch.int32))
+        assert torch.equal(h1.view(torch.int32), h2.view(torch.int32))
+        ge, he = rank.lambdarank_grads_exact(
+            s, obj.label, obj.gain, obj.inv_max_dcg, obj.layout, obj.sigmoid,
+            obj.truncation_level, obj.norm)
+        assert torch.equal(g1.view(torch.int32), ge.view(torch.int32))
+        assert torch.equal(h1.view(torch.int32), he.view(torch.int32))
+        out[d] = (g1.cpu(), h1.cpu())
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    if kind == "zero_labels":
+        assert not bool(out["cuda"][0].ne(0).any())
+
+
+@pytest.mark.parametrize("params", [
+    {"objective": "lambdarank"},
+    {"objective": "lambdarank", "quantized_grad": True},
+    {"objective": "rank_xendcg", "seed": 3}], ids=["lambdarank",
+                                                  "lambdarank_q8",
+                                                  "rank_xendcg"])
+def test_ranking_training_on_card_equals_cpu(dev, params):
+    """Learning to rank on the card: two trainings give the same model
+    text, and the CPU with the kernels' orders (``kernel_sums_on_cpu``:
+    hist_tile's fixed-point sums, lambdarank_grads' partner order) gives
+    it too; lambdarank launches its kernel once an iteration."""
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch.ops import rank
+    rng = np.random.RandomState(3)
+    groups = rng.randint(1, 150, size=200)
+    n = int(groups.sum())
+    X = rng.randn(n, 12).astype(np.float32)
+    y = np.clip(np.floor(X[:, 0] + 0.5 * X[:, 1] + rng.randn(n) + 1.5), 0, 4)
+    texts = {}
+    for d in ("cuda", "cuda_again", "cpu"):
+        p = dict({"num_leaves": 31, "verbosity": -1,
+                  "device_type": d.split("_")[0]}, **params)
+        rank.lambdarank_grads.launches = 0
+        with cuda_hist.kernel_sums_on_cpu():
+            b = lgb.train(p, lgb.Dataset(X, label=y, group=groups, params=p),
+                          4)
+        texts[d] = b.model_to_string()
+        if d == "cuda":
+            assert rank.lambdarank_grads.launches == (
+                4 if params["objective"] == "lambdarank" else 0)
     assert texts["cuda"] == texts["cuda_again"]
     assert texts["cuda"] == texts["cpu"]

@@ -84,20 +84,28 @@ def test_default_device_without_cuda_raises(monkeypatch):
     ("cegb_tradeoff", 0.5),
     ("gpu_use_dp", True),
     ("forcedsplits_filename", "forced.json"),
-    ("label_gain", "0,1,3"),
-    ("eval_at", "1,3"),
-    ("objective", "lambdarank"),
+    ("interaction_constraints", "[0,1],[2]"),
+    ("feature_fraction_bynode", 0.5),
+    ("linear_lambda", 0.1),
     ("linear_tree", True),
     ("tree_learner", "data"),
     ("monotone_constraints", "1,0,0"),
     ("extra_trees", True),
-    ("metric", "ndcg"),
+    ("checkpoint_path", "ckpt"),
+    ("group_column", "0"),
     ("early_stopping_round", 5),
     ("hist_pallas_interpret", True),
 ])
 def test_unported_parameter_raises(key, value):
     with pytest.raises(NotImplementedError, match=key):
         lt.Config.from_params({key: value, "device_type": "cpu"})
+
+
+def test_group_column_raises_naming_item_12():
+    """Query groups are ported from the Dataset's ``group``; reading them
+    from a column of a data file comes with the file-loading API."""
+    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
+        lt.Config.from_params({"group_column": "0", "device_type": "cpu"})
 
 
 def test_sparse_input_raises():
