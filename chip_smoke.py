@@ -143,11 +143,47 @@ queries):
                   host gamma draw timed)
   parity_rank     lambdarank f32, q8, rank_xendcg, and lambdarank with
                   weights, an init_score and a custom label_gain, at 50,000
-                  documents, 63 leaves, 3 rounds: two card runs and the CPU
+                  documents, 63 leaves, 2 rounds: two card runs and the CPU
                   run in the kernels' orders (kernel_sums_on_cpu) give the
                   same model text; against the CPU's JAX-order run, equal
                   text or the first differing tree and the leaf error
                   before it
+
+The split constraints (monotone, interaction, feature_contri,
+extra_trees, by-node sampling), on train's 2M Higgs-shaped rows:
+
+  epilogue_mono   split_epilogue's monotone mode at P=42, B=255, F = 28
+                  (tiles of train's own bins) and F = 136 (train_rank's),
+                  f32 and q8: bitwise its plain version and a second
+                  launch; bounds tight enough to change winners, one slot
+                  with leaf_min == leaf_max, one plane whose every
+                  candidate breaks its direction, directions +1, -1 and
+                  0; ms and device ms beside the unconstrained mode's on
+                  the same inputs (in turns), the plain ms and the bound
+  train_mono,     basic monotone constraints (+1 on three features, -1 on
+  train_mono_q8   three), 255 leaves, --rounds rounds, the fused path:
+                  sec/iter, valid AUC beside train's, the monotone
+                  epilogue's launches (> 0) and the unconstrained one's
+                  (0), one profiled iteration, and a monotonicity sweep
+                  (1,000 valid rows x 60 points over each constrained
+                  feature: 0 violations)
+  train_mono_modes the intermediate and advanced modes (3 rounds, one
+                  split a phase, the classic path): sec/iter, searches a
+                  tree, AUC, the sweep, the host ms a phase of
+                  intermediate_bounds and advanced_child_bounds, and
+                  device busy against wall time over a 16-phase window
+                  of one more iteration
+  train_constraints interaction constraints of three groups (fused; no
+                  tree path across groups), feature_contri with a 0 (the
+                  feature never split on), extra_trees,
+                  feature_fraction_bynode 0.5; 3 rounds each
+  parity_constraints basic f32 and q8, intermediate, advanced,
+                  monotone_penalty 2, interactions, feature_contri
+                  (positive, and with a 0), extra_trees, bynode at 50,000
+                  rows, 63 leaves, 3 rounds: two card runs and the CPU run
+                  in the kernels' orders give the same text; against the
+                  CPU's plain run, equal text or the first differing tree
+                  and the leaf error before it
 
 and kernel 5, the experiment script's one-hot histogram:
 
@@ -199,6 +235,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import hashlib
+import itertools
 import json
 import os
 import statistics
@@ -221,8 +258,13 @@ F, B, LEAVES, P = 28, 255, 255, 42
 F_CAT = 8
 
 
+_T0 = time.time()
+
+
 def emit(phase: str, **kw) -> None:
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    """One phase's JSON line; ``at_s``: the script's seconds so far."""
+    print(json.dumps({"phase": phase, **kw, "at_s": time.time() - _T0}),
+          flush=True)
 
 
 def nvidia_smi() -> str:
@@ -524,11 +566,17 @@ def stress_phase(cuda_hist, n):
                    for i, (k, kw) in enumerate(STRESS.items())}}
 
 
+_bins_cache = {}
+
+
 def real_bins(n: int, valid_rows: int, seed: int):
     """The bins of the train phases' own data on the card: the first n of
     the Higgs-shaped rows of train_phase and of the Expo-shaped rows of
     train_cat_phase, binned by the package's Dataset as those phases bin
-    them. Returns {"higgs": [28, n] uint8, "expo": [8, n] uint8}."""
+    them, made once a run. Returns {"higgs": [28, n] uint8, "expo": [8, n]
+    uint8}."""
+    if (n, valid_rows, seed) in _bins_cache:
+        return _bins_cache[(n, valid_rows, seed)]
     import lightgbm_tpu_torch as lgb
     params = dict(PARAMS, device_type="cuda")
     X, y = higgs_like(n + valid_rows, seed)
@@ -536,7 +584,9 @@ def real_bins(n: int, valid_rows: int, seed: int):
     X, y = expo_like(n + valid_rows, seed + 11)
     expo = lgb.Dataset(X[:n], label=y[:n], params=params,
                        categorical_feature=CAT_COLUMNS).construct()
-    return {"higgs": higgs.binsT, "expo": expo.binsT}
+    _bins_cache[(n, valid_rows, seed)] = {"higgs": higgs.binsT,
+                                          "expo": expo.binsT}
+    return _bins_cache[(n, valid_rows, seed)]
 
 
 def root_phases(cuda_hist, n, bins):
@@ -754,18 +804,20 @@ def epilogue_device_ms(cuda_hist, args):
                      cold_each=True)[0]
 
 
-def epilogue_bound(der, q8: bool, f: int = F):
+def epilogue_bound(der, q8: bool, f: int = F, mono: bool = False):
     """The epilogue's bound at P, F, B on derive lanes ``der`` (slot p at
     lane 3p): the bytes it must move are the tile planes it reads (each
     computed slot's, also the sibling of a derived slot), the derived
     slots' parent planes, every full plane written once, and the small
-    tables; 60 float operations a bin (61 in q8, the dequant)."""
+    tables; 60 float operations a bin (61 in q8, the dequant; MONO_OPS
+    more in the monotone mode)."""
     derive = (der[0, 0:3 * P:3] != 0).tolist()
     tiles = {p - 1 if d else p for p, d in enumerate(derive)} - {-1}
     planes = len(tiles) + sum(derive) + P
     nbytes = planes * f * B * 3 * 4 + P * f * 12 * 4 + P * 8 * 4 \
         + f * 8 * 4 + 8 * 4 + (12 if q8 else 0)
-    return bound(nbytes, (61 if q8 else 60) * P * f * B)
+    return bound(nbytes, ((61 if q8 else 60) + (MONO_OPS if mono else 0))
+                 * P * f * B)
 
 
 def epilogue_phase(cuda_hist, seed=0):
@@ -1422,12 +1474,12 @@ def parity_setup(name: str, seed: int):
     return X, y, params, ({} if cat is None else {"categorical_feature": cat})
 
 
-def parity_text(lgb, setup, device: str) -> str:
+def parity_text(lgb, setup, device: str, rounds: int = PARITY_ROUNDS) -> str:
     """The model text of one training of a parity phase on ``device``."""
     X, y, params, kw = setup
     p = dict(params, device_type=device)
     return lgb.train(p, lgb.Dataset(X, label=y, params=p, **kw),
-                     PARITY_ROUNDS).model_to_string()
+                     rounds).model_to_string()
 
 
 def parity_text_hashes(lgb, seed: int):
@@ -1955,6 +2007,10 @@ def train_rank_phase(lgb, cuda_hist, args, objective="lambdarank"):
 # parity_rank's runs: name -> parameters over RANK_PARAMS at 63 leaves,
 # and whether the documents carry weights and an init_score; each trains
 # PARITY_ROUNDS rounds on PARITY_ROWS documents of MS LTR-shaped queries
+# rounds of the ranking parity runs: 2, cut from PARITY_ROUNDS to keep the
+# whole script inside half its time limit (their CPU runs are the costly
+# part; the second tree already starts from a ranked score)
+PARITY_RANK_ROUNDS = 2
 PARITY_RANK = {
     "lambdarank": ({}, False),
     "lambdarank_q8": ({"quantized_grad": True}, False),
@@ -1987,7 +2043,8 @@ def _parity_rank(lgb, name, seed):
     for run in ("cuda", "cuda_again", "cpu_kernel_order", "cpu"):
         with (cuda_hist.kernel_sums_on_cpu() if run == "cpu_kernel_order"
               else contextlib.nullcontext()):
-            texts[run] = parity_text(lgb, setup, run.split("_")[0])
+            texts[run] = parity_text(lgb, setup, run.split("_")[0],
+                                     PARITY_RANK_ROUNDS)
     sc, sp = _structure(texts["cuda"]), _structure(texts["cpu"])
     diverge = next((i for i, (a, b) in enumerate(zip(sc, sp)) if a != b),
                    None if len(sc) == len(sp) else min(len(sc), len(sp)))
@@ -2091,6 +2148,462 @@ def hist_variants_phase(cuda_hist):
                        "(cuBLAS), halves not folded",
             "bound_ms": bms, "bound_by": by,
             "onehot_floor_ms": onehot_floor_ms}
+
+
+# ------------------------------------------------------- split constraints
+# the monotone directions of train_mono: +1 on three Higgs-shaped
+# features, -1 on three (higgs_like's label rises with 21 and 9, falls
+# with 24 and 26)
+MONO = {21: 1, 9: 1, 23: 1, 24: -1, 26: -1, 27: -1}
+MONO_LIST = [MONO.get(j, 0) for j in range(28)]
+MONO_OPS = 24          # the monotone mode's further operations a bin: two
+                       # clips a side and the direction test, both scans
+SWEEP_ROWS, SWEEP_POINTS = 1_000, 60
+CONSTRAINED_ROUNDS = 3   # train_mono_modes' and train_constraints' rounds
+                         # (the exact modes grow one split a phase)
+
+
+def epilogue_mono_inputs(cuda_hist, binsT, q8: bool, seed: int):
+    """The monotone mode's arguments at P=42, B=255 on tiles of real bins:
+    the first 400,000 rows of ``binsT`` (F = its features), random stats
+    (f32: grad N(0,1), hess U(0,1); q8: int8 with a non-trivial q_scale),
+    leaf p at slot p, the odd slots derived (parent = both siblings'
+    planes). Slot 2's rows have a constant hessian and the first monotone
+    feature (+1) binned by their gradient, so that every candidate of that
+    plane breaks the direction; slot 0 has leaf_min == leaf_max; the other
+    slots a window around their output a quarter as wide as their
+    children's spread (open, unconstrained bounds on slots 1 and 3). The
+    directions are MONO's on the Higgs width (F = 28) and the same pattern
+    repeated at F = 136. Returns (args without q_scale, q_scale or None,
+    the violating feature)."""
+    f = binsT.shape[0]
+    n = min(400_000, binsT.shape[1])
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    bins = binsT[:, :n].clone()
+    leaf = torch.randint(0, P, (n,), generator=g, device="cuda",
+                         dtype=torch.int32)
+    if q8:
+        stats = torch.stack([
+            torch.randint(-127, 128, (n,), generator=g, device="cuda"),
+            torch.randint(1, 128, (n,), generator=g, device="cuda"),
+            torch.ones(n, device="cuda")], 1).to(torch.int8)
+        q_scale = torch.tensor([0.0173, 0.00291, 1.0], device="cuda")
+    else:
+        stats = torch.stack([
+            torch.randn(n, generator=g, device="cuda"),
+            torch.rand(n, generator=g, device="cuda"),
+            torch.ones(n, device="cuda")], 1)
+        q_scale = None
+    mono = torch.tensor([MONO_LIST[j % 28] for j in range(f)],
+                        dtype=torch.int32)
+    vf = int(torch.nonzero(mono > 0)[0])
+    rows = torch.nonzero(leaf == 2)[:, 0]
+    stats[rows, 1] = 64 if q8 else 0.5
+    order = torch.argsort(stats[rows, 0].to(torch.float32), stable=True)
+    nb = int(bins[vf].max()) + 1
+    bins[vf, rows[order]] = (torch.arange(len(rows), device="cuda") * nb
+                             // len(rows)).to(torch.uint8)
+    sel = torch.arange(P, dtype=torch.int32)
+    planes = cuda_hist.hist_tile(bins, leaf, stats.contiguous(),
+                                 cuda_hist.chan_leaf_table(sel.cuda()), P, B,
+                                 P)
+    full = planes.to(torch.float32) * (q_scale if q8 else 1.0)
+    derive = torch.zeros(P, dtype=torch.bool)
+    derive[1::2] = True
+    dcu = derive.cuda()[:, None, None, None]
+    tile = torch.where(dcu, torch.zeros_like(planes), planes).contiguous()
+    parent = torch.where(dcu, full + torch.cat([full[:1] * 0, full[:-1]]),
+                         torch.zeros_like(full)).contiguous()
+    s = full[:, 0].sum(1)
+    out = -s[:, 0] / (s[:, 1] + 1.0)
+    csum = full[:, 1].cumsum(1)
+    child = -csum[..., 0] / (csum[..., 1] + 1.0)
+    w = 0.125 * (child - out[:, None]).abs().median(1).values
+    big = float(np.finfo(np.float32).max)
+    lmin, lmax = out - w, out + w
+    lmin[0] = lmax[0] = out[0]
+    lmin[[1, 3]], lmax[[1, 3]] = -big, big
+    la = cuda_hist.pack_leaf_aux(s[:, 0], s[:, 1], s[:, 2], out, lmin,
+                                 lmax).cuda()
+    mt = torch.zeros(f, dtype=torch.int32)
+    fm = cuda_hist.pack_feature_meta(
+        torch.full((f,), B, dtype=torch.int32), mt, mt, mono).cuda()
+    pv = torch.tensor([0.0, 1.0, 0.0, 0.0, 20.0, 1e-3, 0.0, 0.0],
+                      device="cuda")
+    der = cuda_hist._epilogue_lanes(sel, derive).cuda()
+    return (tile, parent, der, la, fm, pv), q_scale, vf
+
+
+def epilogue_mono_case(cuda_hist, binsT, q8: bool, seed: int):
+    """One width and mode of the monotone epilogue: bitwise its plain
+    version and a second launch; clipping changes some (slot, feature)'s
+    winner and the violating plane has no candidate; ms and device ms
+    beside the unconstrained mode's on the same inputs (timed in turns:
+    free, mono, mono, free), the plain version's ms and the bound."""
+    args, q_scale, vf = epilogue_mono_inputs(cuda_hist, binsT, q8, seed)
+    a = args + (q_scale,)
+    kf, kc = cuda_hist.split_epilogue(*a, with_monotone=True)
+    kf2, kc2 = cuda_hist.split_epilogue(*a, with_monotone=True)
+    pf, pc = cuda_hist.split_epilogue_plain(*a, with_monotone=True)
+    _, free = cuda_hist.split_epilogue(*a)
+    torch.cuda.synchronize()
+    for x, y in ((kc, pc), (kf, pf), (kc, kc2), (kf, kf2)):
+        if not torch.equal(x.view(torch.int32), y.view(torch.int32)):
+            raise AssertionError(
+                f"split_epilogue's monotone mode (F={binsT.shape[0]}, q8 "
+                f"{q8}) is not bitwise its plain version and a second "
+                f"launch")
+    changed = int((free[..., 1:3] != kc[..., 1:3]).any(-1).sum())
+    if changed == 0 or torch.isfinite(kc[2, vf, 0]) or \
+            not torch.isfinite(free[2, vf, 0]):
+        raise AssertionError(f"the bounds changed no winner ({changed}) or "
+                             f"the violating plane kept a candidate")
+    turns = {"free": [], "mono": []}
+    for mode in ("free", "mono", "mono", "free"):
+        turns[mode].append(time_ms(lambda: cuda_hist.split_epilogue(
+            *a, with_monotone=mode == "mono")))
+    dev = {m: device_ms(lambda: cuda_hist.split_epilogue(
+        *a, with_monotone=m == "mono"), per_profile=EPI_LAUNCHES,
+        need="split_epilogue", cold_each=True)[0] for m in ("free", "mono")}
+    bms, by = epilogue_bound(args[2], q8=q8, f=binsT.shape[0], mono=True)
+    return {"max_abs_err": float((kc - pc).nan_to_num(0.0).abs().max()),
+            "deterministic": True, "winners_changed": changed,
+            "valid_candidates": int(torch.isfinite(kc[..., 0]).sum()),
+            "ms": statistics.median(turns["mono"]),
+            "free_ms": statistics.median(turns["free"]), "turns_ms": turns,
+            "device_ms": dev["mono"], "free_device_ms": dev["free"],
+            "device_ms_launches": EPI_LAUNCHES,
+            "plain_ms": time_ms(lambda: cuda_hist.split_epilogue_plain(
+                *a, with_monotone=True), reps=5, warm=1),
+            "library_ms": None, "bound_ms": bms, "bound_by": by}
+
+
+def epilogue_mono_phase(lgb, cuda_hist, args, higgs_bins):
+    """split_epilogue's monotone mode at F = 28 (the Higgs-shaped train
+    bins) and F = 136 (train_rank's MS LTR-shaped bins), f32 and q8."""
+    mslr = rank_datasets(lgb, args.seed)[0].binsT
+    return {f"f{b.shape[0]}{'_q8' if q8 else ''}":
+            epilogue_mono_case(cuda_hist, b, q8, 70 + i)
+            for i, (b, q8) in enumerate(itertools.product(
+                (higgs_bins, mslr), (False, True)))}
+
+
+_higgs_cache = {}
+
+
+def higgs_rows(args):
+    """train's Higgs-shaped rows (train, valid), made once a run."""
+    key = (args.rows, args.valid_rows, args.seed)
+    if key not in _higgs_cache:
+        X, y = higgs_like(args.rows + args.valid_rows, args.seed)
+        _higgs_cache.clear()
+        _higgs_cache[key] = (X[:args.rows], y[:args.rows], X[args.rows:],
+                             y[args.rows:])
+    return _higgs_cache[key]
+
+
+def sweep_violations(booster, Xv, directions, seed):
+    """The monotonicity sweep (the JAX package's tests/test_constraints.py
+    sweep, at scale): SWEEP_ROWS valid rows, each constrained feature set
+    to SWEEP_POINTS values across its range in turn; the count of steps
+    that go against the direction. Float64 sums of float32 leaf values in
+    tree order keep a monotone model exactly monotone, so the bar is 0."""
+    rng = np.random.RandomState(seed)
+    base = Xv[rng.choice(len(Xv), SWEEP_ROWS, replace=False)]
+    bad = 0
+    for j, d in directions.items():
+        grid = np.linspace(Xv[:, j].min(), Xv[:, j].max(), SWEEP_POINTS,
+                           dtype=np.float32)
+        Xs = np.repeat(base, SWEEP_POINTS, axis=0)
+        Xs[:, j] = np.tile(grid, SWEEP_ROWS)
+        pred = booster.predict(Xs, raw_score=True).reshape(SWEEP_ROWS,
+                                                           SWEEP_POINTS)
+        bad += int((np.diff(pred, axis=1) * d < 0).sum())
+    return bad
+
+
+def constrained_train(lgb, cuda_hist, args, extra, rounds, profile=False):
+    """One training on train's rows with ``extra`` parameters, the launch
+    counts read from 0 around it: (booster, summary, launches);
+    ``profile``: one more iteration profiled (profile_iteration)."""
+    X, y, Xv, yv = higgs_rows(args)
+    params = dict(PARAMS, device_type="cuda", **extra)
+    train = lgb.Dataset(X, label=y, params=params)
+    valid = lgb.Dataset(Xv, label=yv, reference=train)
+    t0 = time.time()
+    train.construct()
+    valid.construct()
+    torch.cuda.synchronize()
+    t_construct = time.time() - t0
+    evals = {}
+    cuda_hist.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    booster = lgb.train(params, train, rounds, valid_sets=[valid],
+                        valid_names=["valid"], evals_result=evals)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = cuda_hist.launch_counts()
+    out = {"params": extra, "rows": args.rows, "rounds": rounds,
+           "sec_per_iter": wall / rounds, "construct_s": t_construct,
+           "valid_auc": evals["valid"]["auc"][-1],
+           "split_fusion": booster._boosting._split_fusion_on(),
+           "trees": booster.num_trees(),
+           "leaves_last_tree": booster._boosting.host_trees[-1].num_leaves,
+           "launches": {k: v for k, v in launches.items() if v}}
+    if not out["valid_auc"] > 0.6:
+        raise AssertionError(f"valid AUC {out['valid_auc']}: {out}")
+    if profile:
+        out["profile"] = profile_iteration(booster, wall / rounds)
+    return booster, out, launches
+
+
+def train_mono_phase(lgb, cuda_hist, args, ref_auc, q8=False):
+    """Basic monotone constraints on train's 2M Higgs-shaped rows (255
+    leaves, --rounds rounds, the fused path): sec/iter, valid AUC beside
+    the unconstrained train run's, the monotone epilogue's launches (> 0)
+    and the unconstrained mode's (0), one profiled iteration, and the
+    monotonicity sweep (0 violations)."""
+    extra = {"monotone_constraints": MONO_LIST, "quantized_grad": q8}
+    booster, out, launches = constrained_train(lgb, cuda_hist, args, extra,
+                                               args.rounds, profile=True)
+    sfx = "_q8" if q8 else ""
+    out["unconstrained_valid_auc"] = ref_auc
+    out["split_epilogue_mono_launches"] = \
+        launches["split_epilogue.launches_mono" + sfx]
+    out["split_epilogue_free_launches"] = \
+        launches["split_epilogue.launches" + sfx]
+    out["sweep_violations"] = sweep_violations(
+        booster, higgs_rows(args)[2], MONO, args.seed + 5)
+    if not (out["split_fusion"] and out["split_epilogue_mono_launches"] > 0
+            and out["split_epilogue_free_launches"] == 0
+            and launches["hist_tile.launches" + sfx] > 0
+            and out["sweep_violations"] == 0):
+        raise AssertionError(f"train_mono{sfx}: {out}")
+    return out, launches
+
+
+def _timed(module, name, acc):
+    """Wrap ``module.name`` so that each call's wall time (to the device's
+    end) adds to ``acc[name]``; returns the original."""
+    fn = getattr(module, name)
+
+    def wrapped(*a, **k):
+        t0 = time.time()
+        res = fn(*a, **k)
+        torch.cuda.synchronize()
+        acc.setdefault(name, []).append(time.time() - t0)
+        return res
+    setattr(module, name, wrapped)
+    return fn
+
+
+MODES_WINDOW = 16     # phases of train_mono_modes' profiled window
+
+
+def window_profile(booster, grower, phases: int = MODES_WINDOW):
+    """Device busy against wall time over ``phases`` consecutive phases
+    (from one split search to the one ``phases`` later) of one more
+    iteration: torch.profiler over the window only, since a whole
+    iteration of exact growth (~100,000 launches) takes the profiler
+    minutes."""
+    from torch.profiler import ProfilerActivity, profile
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    search = grower.Grower.split_search
+    state = {"n": 0}
+
+    def hooked(self, st):
+        if state["n"] == 0:
+            torch.cuda.synchronize()
+            prof.start()
+            state["t0"] = time.time()
+        res = search(self, st)
+        state["n"] += 1
+        if state["n"] == phases + 1:
+            torch.cuda.synchronize()
+            state["wall"] = time.time() - state["t0"]
+            prof.stop()
+        return res
+    grower.Grower.split_search = hooked
+    try:
+        booster.update()
+    finally:
+        grower.Grower.split_search = search
+    if "wall" not in state:            # a tree of fewer phases than asked
+        torch.cuda.synchronize()
+        state["wall"] = time.time() - state["t0"]
+        prof.stop()
+        phases = state["n"]
+    busy = sum(_device_us(ev) for ev in prof.key_averages()) / 1e3
+    wall_ms = state["wall"] * 1e3
+    return {"phases": phases, "wall_ms_per_phase": wall_ms / phases,
+            "device_busy_ms_per_phase": (busy / phases if busy > 0
+                                         else "not measured"),
+            "device_idle_share": (max(0.0, 1 - busy / wall_ms) if busy > 0
+                                  else "not measured")}
+
+
+def train_mono_modes_phase(lgb, cuda_hist, args, rounds):
+    """The intermediate and advanced monotone modes on train's rows (255
+    leaves, ``rounds`` rounds; the classic path with one split a phase):
+    sec/iter, split searches a tree, valid AUC, the sweep's violations
+    (0), the host time a phase of intermediate_bounds and
+    advanced_child_bounds (to the device's end), and the device's busy
+    share over a window of MODES_WINDOW phases of one more iteration."""
+    from lightgbm_tpu_torch.models import grower
+    out = {}
+    for mode in ("intermediate", "advanced"):
+        acc = {}
+        saved = {n: _timed(grower, n, acc) for n in
+                 ("intermediate_bounds", "advanced_child_bounds")}
+        search = grower.Grower.split_search
+        calls = []
+
+        def counted(self, st, _s=search):
+            calls.append(1)
+            return _s(self, st)
+        grower.Grower.split_search = counted
+        try:
+            booster, res, _ = constrained_train(
+                lgb, cuda_hist, args, {
+                    "monotone_constraints": MONO_LIST,
+                    "monotone_constraints_method": mode}, rounds)
+        finally:
+            grower.Grower.split_search = search
+            for n, fn in saved.items():
+                setattr(grower, n, fn)
+        res["searches_per_tree"] = len(calls) / rounds
+        res["window"] = window_profile(booster, grower)
+        res["bounds_ms_per_phase"] = {
+            n: 1e3 * statistics.mean(v) for n, v in acc.items()}
+        res["sweep_violations"] = sweep_violations(
+            booster, higgs_rows(args)[2], MONO, args.seed + 6)
+        if res["split_fusion"] or res["sweep_violations"] or \
+                res["launches"].get("split_epilogue.launches_mono"):
+            raise AssertionError(f"train_mono_modes/{mode}: {res}")
+        out[mode] = res
+    return out
+
+
+# three groups of the Higgs-shaped features for the interaction run
+GROUPS = [list(range(0, 9)) + [21, 22], list(range(9, 18)) + [23, 24],
+          list(range(18, 21)) + [25, 26, 27]]
+CONTRI_ZERO = 21          # the feature feature_contri turns off
+
+
+def _path_features(tree):
+    """Each leaf's set of split features on its path, of a loaded tree."""
+    out = []
+
+    def walk(node, feats):
+        if node < 0:
+            out.append(feats)
+            return
+        f = int(tree.split_feature[node])
+        walk(int(tree.left_child[node]), feats | {f})
+        walk(int(tree.right_child[node]), feats | {f})
+    if tree.num_leaves > 1:
+        walk(0, frozenset())
+    else:
+        out.append(frozenset())
+    return out
+
+
+def train_constraints_phase(lgb, cuda_hist, args, rounds):
+    """On train's rows, ``rounds`` rounds each: interaction constraints of
+    three groups (the fused path; no tree path may use features of two
+    groups), feature_contri with a 0 (the classic path; the feature is
+    never split on), extra_trees and feature_fraction_bynode 0.5:
+    sec/iter and valid AUC."""
+    from lightgbm_tpu_torch.io.model_text import load_model
+    contri = [1.0] * 28
+    contri[CONTRI_ZERO] = 0.0
+    runs = {"interactions": {"interaction_constraints": GROUPS},
+            "contri_zero": {"feature_contri": contri},
+            "extra_trees": {"extra_trees": True},
+            "bynode": {"feature_fraction_bynode": 0.5}}
+    out = {}
+    for name, extra in runs.items():
+        booster, res, _ = constrained_train(lgb, cuda_hist, args, extra,
+                                            rounds)
+        trees = load_model(booster.model_to_string()).trees
+        if name == "interactions":
+            res["paths_across_groups"] = sum(
+                not any(p <= set(g) for g in GROUPS)
+                for t in trees for p in _path_features(t))
+            ok = res["split_fusion"] and res["paths_across_groups"] == 0
+        elif name == "contri_zero":
+            res["splits_on_zero_feature"] = int(sum(
+                (t.split_feature[:t.num_leaves - 1] == CONTRI_ZERO).sum()
+                for t in trees))
+            ok = (not res["split_fusion"]
+                  and res["splits_on_zero_feature"] == 0)
+        else:
+            ok = not res["split_fusion"]
+        if not ok:
+            raise AssertionError(f"train_constraints/{name}: {res}")
+        out[name] = res
+    return out
+
+
+PARITY_CONSTRAINTS = {
+    "basic": {"monotone_constraints": MONO_LIST},
+    "basic_q8": {"monotone_constraints": MONO_LIST, "quantized_grad": True},
+    "intermediate": {"monotone_constraints": MONO_LIST,
+                     "monotone_constraints_method": "intermediate"},
+    "advanced": {"monotone_constraints": MONO_LIST,
+                 "monotone_constraints_method": "advanced"},
+    "penalty": {"monotone_constraints": MONO_LIST, "monotone_penalty": 2.0},
+    "interactions": {"interaction_constraints": GROUPS},
+    "contri": {"feature_contri": [0.5 + (j % 4) * 0.25 for j in range(28)]},
+    "contri_zero": {"feature_contri": [0.0 if j == CONTRI_ZERO else 1.0
+                                       for j in range(28)]},
+    "extra_trees": {"extra_trees": True},
+    "bynode": {"feature_fraction_bynode": 0.5},
+}
+
+
+def parity_constraints_phase(lgb, seed):
+    """Each constrained run at 50,000 Higgs-shaped rows, 63 leaves, 3
+    rounds, twice on the card and on the CPU in the kernels' orders
+    (kernel_sums_on_cpu; q8: the plain path, whose int32 sums are exact):
+    the three texts equal. Against the CPU's plain run (float32 sums in
+    the JAX package's order): equal text, or the first tree whose
+    structure differs and the leaf error before it."""
+    from lightgbm_tpu_torch.io.model_text import load_model
+    from lightgbm_tpu_torch.ops import cuda_hist
+    X, y = higgs_like(PARITY_ROWS, seed + 29)
+    out = {"rows": PARITY_ROWS, "num_leaves": 63, "rounds": PARITY_ROUNDS}
+    for name, extra in PARITY_CONSTRAINTS.items():
+        setup = (X, y, dict(PARAMS, num_leaves=63, **extra), {})
+        q8 = bool(extra.get("quantized_grad"))
+        texts = {run: parity_text(lgb, setup, "cuda")
+                 for run in ("cuda", "cuda_again")}
+        with (contextlib.nullcontext() if q8
+              else cuda_hist.kernel_sums_on_cpu()):
+            texts["cpu_kernel_order"] = parity_text(lgb, setup, "cpu")
+        texts["cpu"] = (texts["cpu_kernel_order"] if q8
+                        else parity_text(lgb, setup, "cpu"))
+        sc, sp = _structure(texts["cuda"]), _structure(texts["cpu"])
+        diverge = next((i for i, (a, b) in enumerate(zip(sc, sp)) if a != b),
+                       None)
+        tc, tp = (load_model(texts[k]).trees for k in ("cuda", "cpu"))
+        upto = len(tc) if diverge is None else diverge
+        res = {"card_runs_identical_text":
+               texts["cuda"] == texts["cuda_again"],
+               "card_equals_cpu_kernel_order":
+               texts["cuda"] == texts["cpu_kernel_order"],
+               "card_equals_cpu_plain": texts["cuda"] == texts["cpu"],
+               "first_divergent_tree_vs_cpu_plain": diverge,
+               "max_leaf_abs_err_before_divergence": max(
+                   [float(np.abs(a.leaf_value - b.leaf_value).max())
+                    for a, b in zip(tc[:upto], tp[:upto])] or [0.0]),
+               "card_text_sha256": _sha(texts["cuda"])}
+        if not (res["card_runs_identical_text"]
+                and res["card_equals_cpu_kernel_order"]):
+            raise AssertionError(f"parity_constraints/{name}: {res}")
+        out[name] = res
+    return out
 
 
 def per_launch(profile, name):
@@ -2215,6 +2728,21 @@ def main() -> int:
     trx, xe_launches = train_rank_phase(lgb, cuda_hist, args, "rank_xendcg")
     emit("train_rank_xendcg", **trx)
     emit("parity_rank", **parity_rank_phase(lgb, args.seed))
+
+    epm = epilogue_mono_phase(lgb, cuda_hist, args, real_bins(
+        n, args.valid_rows, args.seed)["higgs"])
+    emit("epilogue_mono", p=P, b=B, **epm)
+    tmn, mono_launches = train_mono_phase(lgb, cuda_hist, args,
+                                          tr["valid_auc"])
+    emit("train_mono", **tmn)
+    tmq, monoq_launches = train_mono_phase(lgb, cuda_hist, args,
+                                           tq["valid_auc"], q8=True)
+    emit("train_mono_q8", **tmq)
+    emit("train_mono_modes", **train_mono_modes_phase(lgb, cuda_hist, args,
+                                                      CONSTRAINED_ROUNDS))
+    emit("train_constraints", **train_constraints_phase(
+        lgb, cuda_hist, args, CONSTRAINED_ROUNDS))
+    emit("parity_constraints", **parity_constraints_phase(lgb, args.seed))
 
     hv = hist_variants_phase(cuda_hist)
     emit("hist_variants", **hv)
@@ -2356,6 +2884,33 @@ def main() -> int:
          "pairs_admitted": rk["train_rank_layout"]["pairs_admitted"],
          "library_ms": None},
     ]
+    # the epilogue's monotone mode: the kernels line's own numbers at the
+    # main path's width (F = 28), F = 136 beside them
+    for q8, launched in ((False, mono_launches), (True, monoq_launches)):
+        sfx = "_q8" if q8 else ""
+        main_f, wide = epm[f"f{F}{sfx}"], epm[f"f{MSLR_FEATURES}{sfx}"]
+        kernels.append({
+            "name": "split_epilogue_mono" + (" (q8)" if q8 else ""),
+            "route": "cuda",
+            "source": "lightgbm_tpu_torch/csrc/split_epilogue.cu",
+            "replaces": "lightgbm_tpu/ops/pallas_hist.py:465 "
+                        "_epilogue_compute with_monotone=True"
+                        + (", mode q8" if q8 else "")
+                        + " (epilogue of :497 and :527)",
+            "launches": launched["split_epilogue.launches_mono" + sfx],
+            "max_abs_err": max(main_f["max_abs_err"], wide["max_abs_err"]),
+            **{k: main_f[k] for k in ("ms", "device_ms", "free_ms",
+                                      "free_device_ms", "plain_ms",
+                                      "bound_ms", "bound_by",
+                                      "library_ms")},
+            "train_device_ms_per_launch": per_launch(
+                (tmq if q8 else tmn)["profile"], "split_epilogue"),
+            "f136": {k: wide[k] for k in ("ms", "device_ms", "free_ms",
+                                          "free_device_ms", "plain_ms",
+                                          "bound_ms")},
+            "launches_by_path": {("train_mono_q8" if q8 else "train_mono"):
+                                 launched["split_epilogue.launches_mono"
+                                          + sfx]}})
     # each kernel's launches on every path that launched it, each path's
     # counts read from 0 around its own run
     paths = {"train": launches, "train_cat": cat_launches,
@@ -2363,6 +2918,7 @@ def main() -> int:
              "train_multiclass": mc_launches,
              "train_q8_multiclass": mcq_launches,
              "train_rank": rank_launches, "train_rank_xendcg": xe_launches,
+             "train_mono": mono_launches, "train_mono_q8": monoq_launches,
              **{f"train_sampling/{k}": v["launches"]
                 for k, v in ts["runs"].items()}}
     for entry, count in zip(kernels[:6], (

@@ -15,7 +15,9 @@ dense columns, ``sp_cols``/``sp_rows``/``sp_bins``/``sp_default`` the rest.
 A validation set built with ``reference=`` shares the training set's
 mappers and stays dense. The metadata fields label, weight, group (query
 sizes, for learning to rank) and init_score go with the rows
-(``set_field``/``get_field``). Sparse input, pandas categoricals, EFB
+(``set_field``/``get_field``). The feature metadata carries the
+parameters' ``monotone_constraints`` and ``feature_contri``, mapped from
+original into used-feature space. Sparse input, pandas categoricals, EFB
 bundles, streaming construction and a group column read from a file wait
 for ROADMAP Queue 1 items 2, 9 and 12.
 """
@@ -96,7 +98,7 @@ class Dataset:
         ds._feature_names = (list(feature_names) if feature_names is not None
                              else [f"Column_{i}"
                                    for i in range(ds.num_total_features)])
-        ds._build_feature_meta()
+        ds._build_feature_meta(config)
         ds._constructed = True
         return ds
 
@@ -185,7 +187,7 @@ class Dataset:
             if len(self.used_features) == 0:
                 log.warning("There are no meaningful features, as all feature "
                             "values are constant.")
-        self._build_feature_meta()
+        self._build_feature_meta(config)
         self.binsT = self._maybe_extract_sparse(self.bin_new_data(X), config)
         self._constructed = True
         if self.free_raw_data:
@@ -264,7 +266,7 @@ class Dataset:
         return binsT[torch.as_tensor(dense, dtype=torch.long,
                                      device=dev)].contiguous()
 
-    def _build_feature_meta(self) -> None:
+    def _build_feature_meta(self, config: Config) -> None:
         used = [self.mappers[j] for j in self.used_features]
         self.max_num_bins = max((m.num_bin for m in used), default=2)
         if self.max_num_bins > 256:
@@ -272,7 +274,25 @@ class Dataset:
                 f"max_bin > 256 ({self.max_num_bins} bins) is not ported to "
                 f"lightgbm_tpu_torch yet: the kernels take uint8 bins; it "
                 f"arrives with ROADMAP.md Queue 2")
-        self.feature_meta: FeatureMeta = feature_meta_from_mappers(used)
+        # the monotone directions and feature_contri multipliers, from
+        # original feature indices into used-feature space (reference:
+        # feature_histogram.hpp:1170-1177 FeatureMetainfo init)
+        f = max(len(used), 1)
+        per_used = {}
+        for key, dtype, fill in (("monotone_constraints", np.int8, 0),
+                                 ("feature_contri", np.float32, 1)):
+            vals = list(getattr(config, key) or [])
+            if vals and len(vals) != self.num_total_features:
+                log.fatal(f"{key} should be the same size as feature number "
+                          f"({self.num_total_features}), got {len(vals)}")
+            arr = np.full((f,), fill, dtype)
+            for i, j in enumerate(self.used_features):
+                if j < len(vals):
+                    arr[i] = dtype(vals[j])
+            per_used[key] = arr
+        self.feature_meta: FeatureMeta = feature_meta_from_mappers(
+            used, monotone=per_used["monotone_constraints"],
+            penalty=per_used["feature_contri"])
         self.has_categorical = bool(self.feature_meta.is_categorical.any())
         self.missing_bin = torch.as_tensor(missing_bin_of(self.feature_meta))
 

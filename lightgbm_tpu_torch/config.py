@@ -736,6 +736,10 @@ _SLICE_PARAMS = frozenset({
     # categorical features (the classic split path)
     "categorical_feature", "max_cat_threshold", "cat_l2", "cat_smooth",
     "max_cat_to_onehot", "min_data_per_group",
+    # split constraints and the randomised search
+    "monotone_constraints", "monotone_constraints_method",
+    "monotone_penalty", "interaction_constraints", "feature_contri",
+    "extra_trees", "feature_fraction_bynode",
     # sub-seeds derived from ``seed`` in __post_init__
     "bagging_seed", "drop_seed", "feature_fraction_seed", "extra_seed",
 })
@@ -743,11 +747,9 @@ _SLICE_PARAMS = frozenset({
 # ROADMAP.md "Queue 1" item that brings each group of parameters
 _ROADMAP_ITEM = {}
 for _names, _item in (
-        (("monotone_constraints", "monotone_constraints_method",
-          "monotone_penalty", "feature_contri", "forcedsplits_filename",
+        (("forcedsplits_filename",
           "cegb_tradeoff", "cegb_penalty_split", "cegb_penalty_feature_lazy",
-          "cegb_penalty_feature_coupled", "interaction_constraints",
-          "extra_trees", "feature_fraction_bynode",
+          "cegb_penalty_feature_coupled",
           "forcedbins_filename", "max_bin_by_feature",
           "histogram_pool_size", "force_col_wise", "force_row_wise"),
          "Queue 1 item 9 (the classic path's remaining features)"),

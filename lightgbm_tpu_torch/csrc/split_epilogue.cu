@@ -1,12 +1,14 @@
 // split_epilogue.cu -- the split-finding epilogue of a histogram tile pass.
 //
 // Replaces the epilogue half of lightgbm_tpu/ops/pallas_hist.py
-// _fused_epi_kernel / _gather_epi_kernel, i.e. _epilogue_compute in both
+// _fused_epi_kernel / _gather_epi_kernel, i.e. _epilogue_compute in all
 // of its modes: in q8 mode dequantize the int32 tile (each cell
 // acc * qscale[stat], rounded on its own before anything else touches it,
-// as the JAX package's _round_fence does), then in both modes derive each
+// as the JAX package's _round_fence does), then in every mode derive each
 // odd (derived) slot's plane as parent - computed sibling, then
-// ops/split.py numerical_candidates.
+// ops/split.py numerical_candidates, in the monotone mode
+// (with_monotone, the basic monotone constraints) under each slot's
+// output bounds.
 //
 // Per (slot, feature):
 //   1. full plane: derived slots read parent - tile[slot - 1], the others
@@ -20,7 +22,14 @@
 //   4. both directional scans (the accumulated side's hessian starts at
 //      kEpsilon), leaf outputs with l1 / l2 / max_delta_step / path_smooth,
 //      gains, the min_data / min_hessian masks and the strict
-//      gain > min_gain_shift;
+//      gain > min_gain_shift. The monotone mode clips each candidate's
+//      left and right outputs to the slot's [la[p, 4], la[p, 5]] before
+//      its gain (jnp.clip's arithmetic: maximum(lo, x), then minimum(hi,
+//      .), NaN propagated and +0 over -0 as XLA's max / min give them,
+//      not fmaxf / fminf), and sets the gain to 0 where the clipped
+//      outputs break the feature's direction fm[f, 3] (mono > 0 and
+//      left > right, or mono < 0 and left < right), before the
+//      gain > min_gain_shift mask;
 //   5. the reference's within-feature tie order: the reverse scan first,
 //      keeping its highest-threshold maximum; the forward scan replaces
 //      only on a strictly greater gain, lowest threshold first.
@@ -60,6 +69,9 @@
 //     any order; with every key -inf the winner is reverse threshold B-1,
 //     as in the plain version. Each lane keeps the six sums of its own
 //     best candidate, and the winning lane writes the table row.
+// The mode is a template parameter, so the unconstrained instantiation
+// is the code it was; the monotone one adds two clips a side, the two
+// compares and a select a candidate.
 // PERF.md has the measured time against the bound.
 
 #include <cuda_runtime.h>
@@ -123,6 +135,47 @@ __device__ __forceinline__ float split_gain(float g, float h, float c,
   return gain_given_output(g, h, leaf_output(g, h, c, parent_out, p), p);
 }
 
+// XLA's float maximum / minimum (jnp.maximum / jnp.minimum): NaN when
+// either is NaN; of two equal zeros +0 (max) or -0 (min)
+__device__ __forceinline__ float ieee_max(float a, float b) {
+  if (a != a || b != b) return __int_as_float(0x7fc00000);
+  if (a > b) return a;
+  if (b > a) return b;
+  return a == 0.f ? a + b : a;
+}
+
+__device__ __forceinline__ float ieee_min(float a, float b) {
+  if (a != a || b != b) return __int_as_float(0x7fc00000);
+  if (a < b) return a;
+  if (b < a) return b;
+  return a == 0.f ? -((-a) + (-b)) : a;
+}
+
+// jnp.clip(x, lo, hi) as XLA lowers it: minimum(hi, maximum(lo, x))
+__device__ __forceinline__ float clip(float x, float lo, float hi) {
+  return ieee_min(hi, ieee_max(lo, x));
+}
+
+// One directional candidate's gain: the plain split_gain of each side, or
+// in the monotone mode the sides' clipped outputs, the gain from them and
+// 0 where they break the direction `mono`.
+template <bool kMono>
+__device__ __forceinline__ float candidate_gain(
+    float lg, float lh, float lc, float rg, float rh, float rc,
+    float parent_out, const Params& p, float lmin, float lmax, int mono) {
+  if constexpr (!kMono) {
+    return split_gain(lg, lh, lc, parent_out, p)
+           + split_gain(rg, rh, rc, parent_out, p);
+  } else {
+    const float lo = clip(leaf_output(lg, lh, lc, parent_out, p), lmin, lmax);
+    const float ro = clip(leaf_output(rg, rh, rc, parent_out, p), lmin, lmax);
+    const float gain = gain_given_output(lg, lh, lo, p)
+                       + gain_given_output(rg, rh, ro, p);
+    const bool viol = (mono > 0 && lo > ro) || (mono < 0 && lo < ro);
+    return viol ? 0.f : gain;
+  }
+}
+
 // Cell `at` (stat c) of the tile: the f32 value, or in q8 mode the int32
 // sum dequantized by one rounded multiply.
 template <bool kQ8>
@@ -139,7 +192,7 @@ __device__ __forceinline__ bool beats(float ka, int pa, float kb, int pb) {
   return ka > kb || (ka == kb && pa < pb);
 }
 
-template <bool kQ8>
+template <bool kQ8, bool kMono>
 __global__ void __launch_bounds__(32 * kWarps)
 split_epilogue_kernel(const float* __restrict__ tile,
                       const int32_t* __restrict__ qtile,
@@ -163,6 +216,7 @@ split_epilogue_kernel(const float* __restrict__ tile,
   const int nb = static_cast<int>(fm[feat * 8 + 0]);
   const int mt = static_cast<int>(fm[feat * 8 + 1]);
   const int dbin = static_cast<int>(fm[feat * 8 + 2]);
+  const int mono = static_cast<int>(fm[feat * 8 + 3]);
   const bool mode_a = nb > 2 && mt != kMissingNone;
   const bool is_nan = mt == kMissingNan;
   const bool is_zero = mt == kMissingZero;
@@ -278,6 +332,7 @@ split_epilogue_kernel(const float* __restrict__ tile,
   const float* aux = la + (size_t)slot * 8;
   const float leaf_g = aux[0], leaf_h = aux[1], leaf_c = aux[2];
   const float leaf_out = aux[3];
+  const float lmin = aux[4], lmax = aux[5];
   const float min_gain_shift =
       split_gain(leaf_g, leaf_h, leaf_c, leaf_out, prm) + prm.min_gain;
   const int rev_upper = nb - 2 - ((mode_a && is_nan) ? 1 : 0);
@@ -297,10 +352,10 @@ split_epilogue_kernel(const float* __restrict__ tile,
                   fr_c = leaf_c - fl_c;
       const float rl_g = leaf_g - rr_g, rl_h = leaf_h - rr_h,
                   rl_c = leaf_c - rr_c;
-      const float gain_fwd = split_gain(fl_g, fl_h, fl_c, leaf_out, prm)
-                             + split_gain(fr_g, fr_h, fr_c, leaf_out, prm);
-      const float gain_rev = split_gain(rl_g, rl_h, rl_c, leaf_out, prm)
-                             + split_gain(rr_g, rr_h, rr_c, leaf_out, prm);
+      const float gain_fwd = candidate_gain<kMono>(
+          fl_g, fl_h, fl_c, fr_g, fr_h, fr_c, leaf_out, prm, lmin, lmax, mono);
+      const float gain_rev = candidate_gain<kMono>(
+          rl_g, rl_h, rl_c, rr_g, rr_h, rr_c, leaf_out, prm, lmin, lmax, mono);
       const bool cm_fwd = fl_c >= prm.min_data && fr_c >= prm.min_data
                           && fl_h >= prm.min_hess && fr_h >= prm.min_hess;
       const bool cm_rev = rl_c >= prm.min_data && rr_c >= prm.min_data
@@ -348,15 +403,29 @@ split_epilogue_kernel(const float* __restrict__ tile,
   }
 }
 
+template <bool kQ8, bool kMono>
+void launch(const void* tile, const float* qs, const float* par,
+            const int32_t* dr, const float* lap, const float* fmp,
+            const float* pvp, void* full, void* cand, int p, int f, int b,
+            int blocks, cudaStream_t st) {
+  split_epilogue_kernel<kQ8, kMono><<<blocks, 32 * kWarps, 0, st>>>(
+      kQ8 ? nullptr : static_cast<const float*>(tile),
+      kQ8 ? static_cast<const int32_t*>(tile) : nullptr, qs, par, dr, lap,
+      fmp, pvp, static_cast<float*>(full), static_cast<float*>(cand), p, f,
+      b);
+}
+
 }  // namespace
 
 // Returns cudaGetLastError() (0 = launched). `qscale` null: `tile` is
 // p * f * b * 3 floats; else int32 sums dequantized by qscale[3].
+// `with_monotone` nonzero selects the monotone mode.
 extern "C" int split_epilogue_launch(const void* tile, const void* qscale,
                                      const void* parent, const void* der,
                                      const void* la, const void* fm,
                                      const void* pv, void* full, void* cand,
-                                     int p, int f, int b, void* stream) {
+                                     int p, int f, int b, int with_monotone,
+                                     void* stream) {
   if (b > kMaxBins || b < 1) return (int)cudaErrorInvalidValue;
   const int pairs = p * f;
   if (pairs <= 0) return (int)cudaSuccess;
@@ -368,13 +437,17 @@ extern "C" int split_epilogue_launch(const void* tile, const void* qscale,
   const float* lap = static_cast<const float*>(la);
   const float* fmp = static_cast<const float*>(fm);
   const float* pvp = static_cast<const float*>(pv);
-  if (qs)
-    split_epilogue_kernel<true><<<blocks, 32 * kWarps, 0, st>>>(
-        nullptr, static_cast<const int32_t*>(tile), qs, par, dr, lap, fmp,
-        pvp, static_cast<float*>(full), static_cast<float*>(cand), p, f, b);
+  if (qs && with_monotone)
+    launch<true, true>(tile, qs, par, dr, lap, fmp, pvp, full, cand, p, f,
+                       b, blocks, st);
+  else if (qs)
+    launch<true, false>(tile, qs, par, dr, lap, fmp, pvp, full, cand, p, f,
+                        b, blocks, st);
+  else if (with_monotone)
+    launch<false, true>(tile, qs, par, dr, lap, fmp, pvp, full, cand, p, f,
+                        b, blocks, st);
   else
-    split_epilogue_kernel<false><<<blocks, 32 * kWarps, 0, st>>>(
-        static_cast<const float*>(tile), nullptr, nullptr, par, dr, lap, fmp,
-        pvp, static_cast<float*>(full), static_cast<float*>(cand), p, f, b);
+    launch<false, false>(tile, qs, par, dr, lap, fmp, pvp, full, cand, p, f,
+                         b, blocks, st);
   return (int)cudaGetLastError();
 }

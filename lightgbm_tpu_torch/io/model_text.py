@@ -314,6 +314,7 @@ def _collect(boosting, num_iteration: int = -1, start_iteration: int = 0
             "objective": _objective_string(cfg),
             "average_output": boosting.average_output,
             "feature_names": ds.get_feature_names(),
+            "monotone_constraints": list(cfg.monotone_constraints),
             "feature_infos": _feature_infos(ds.mappers),
             "parameters": cfg.to_params(),
         }
@@ -341,6 +342,9 @@ def dump_model_text(boosting, num_iteration: int = -1,
     if meta.get("average_output"):
         out.append("average_output")
     out.append("feature_names=" + " ".join(meta["feature_names"]))
+    if meta.get("monotone_constraints"):
+        out.append("monotone_constraints=" + " ".join(
+            str(m) for m in meta["monotone_constraints"]))
     out.append("feature_infos=" + " ".join(meta["feature_infos"]))
     tree_strs = [f"Tree={i}\n" + t.to_string() + "\n"
                  for i, t in enumerate(trees)]
@@ -499,6 +503,8 @@ def load_model(model_str: str, config: Optional[Config] = None) -> LoadedGBDT:
             "objective": kv.get("objective"),
             "average_output": "average_output" in kv,
             "feature_names": kv.get("feature_names", "").split(),
+            "monotone_constraints": [int(x) for x in kv.get(
+                "monotone_constraints", "").split()],
             "feature_infos": kv.get("feature_infos", "").split(),
             "parameters": params,
         }

@@ -29,9 +29,14 @@ Row sampling, as the JAX package does it:
 - by-tree ``feature_fraction``: ``round(F * fraction)`` features a tree
   from ``np.random.RandomState(feature_fraction_seed)``.
 
+The split constraints (``_setup_learner_features``): monotone
+constraints in the basic, intermediate or advanced mode, interaction
+constraints, feature_contri, extra_trees and by-node feature sampling.
 The grower takes the fused split path unless ``_split_fusion_on`` finds a
-reason not to (categorical features, sparse device columns,
-``split_fusion=off``), as the JAX package resolves it. ``quantized_grad``
+reason not to (categorical features, extra_trees, by-node sampling,
+intermediate or advanced monotone constraints, a non-positive
+feature_contri, sparse device columns, ``split_fusion=off``), as the JAX
+package resolves it. ``quantized_grad``
 (or ``histogram_method=pallas_q8``) grows every tree in the q8 mode. The
 JAX package's fused one-program iteration, K-block dispatch, compile
 cache, sentinels, flight recorder and OOM ladder wait for later ROADMAP
@@ -57,6 +62,7 @@ from ..metrics import Metric, create_metric, default_metric_for_objective
 from ..objectives import ObjectiveFunction, create_objective
 from ..ops.histogram import resolve_method
 from ..ops.split import SplitParams
+from ..utils import log
 from ..utils.random import bits, fold_in, prng_key, stable_argsort, uniform
 from .grower import grow_tree
 from .tree import HostTree, TreeArrays, empty_tree, predict_leaf_bins
@@ -145,6 +151,42 @@ class GBDT:
             (cfg.bagging_freq > 0 and cfg.bagging_fraction < 1.0)
             or cfg.pos_bagging_fraction < 1.0
             or cfg.neg_bagging_fraction < 1.0)
+        self._setup_learner_features(train_set)
+
+    def _setup_learner_features(self, train_set: Dataset) -> None:
+        """The split constraints and the randomised search (the JAX
+        package's ``_setup_learner_features``, CEGB left out): the monotone
+        mode, the interaction groups in used-feature space and by-node
+        sampling. Intermediate and advanced monotone constraints grow one
+        split per phase."""
+        cfg = self.config
+        self._with_monotone = any(int(m) != 0
+                                  for m in (cfg.monotone_constraints or []))
+        self._mono_mode = "basic"
+        if self._with_monotone:
+            method = cfg.monotone_constraints_method
+            if method in ("intermediate", "advanced"):
+                self._mono_mode = method
+                log.warning(
+                    f"monotone_constraints_method={method} forces strict "
+                    "one-split-per-phase growth: one histogram round per "
+                    "split, ~num_leaves/log2(num_leaves) x the batched "
+                    "mode's data passes (use 'basic' for speed)")
+            elif method != "basic":
+                log.warning(f"monotone_constraints_method={method} is not "
+                            f"implemented; falling back to basic")
+        self._interaction_groups = None
+        if cfg.interaction_constraints:
+            used = {int(j): i for i, j in
+                    enumerate(train_set.used_features)}
+            groups = np.zeros((len(cfg.interaction_constraints),
+                               len(used)), bool)
+            for gi, grp in enumerate(cfg.interaction_constraints):
+                for j in grp:
+                    if int(j) in used:
+                        groups[gi, used[int(j)]] = True
+            self._interaction_groups = groups
+        self._use_bynode = cfg.feature_fraction_bynode < 1.0
 
     def _score_cache(self, n: int, init_score=None) -> torch.Tensor:
         """A score cache of ``n`` rows at the init scores, or at a Dataset's
@@ -286,21 +328,41 @@ class GBDT:
             with_categorical=ts.has_categorical, sp=sp,
             hist_method=self._hist_method, rng_key=iter_key,
             counters=self._hist_counters, sample_mask=mask,
-            subset=self._bag_sub, feature_mask=fmask)
+            subset=self._bag_sub, feature_mask=fmask,
+            mono_mode=self._mono_mode if self._with_monotone else "",
+            interaction_groups=self._interaction_groups,
+            extra_trees=cfg.extra_trees,
+            bynode_fraction=(cfg.feature_fraction_bynode
+                             if self._use_bynode else None))
 
     def _split_fusion_on(self) -> bool:
         """Resolve ``split_fusion`` as the JAX package does: "auto" fuses
         the split search into the tile passes unless the classic search
-        has to run -- categorical features or sparse device columns (the
-        reasons the port has); "on" raises with either; "off" never
-        fuses."""
-        mode = self.config.split_fusion
+        has to run -- categorical features, extra_trees, by-node sampling,
+        intermediate or advanced monotone constraints, a non-positive
+        feature_contri or sparse device columns (the reasons the port
+        has, in the JAX package's order); "on" raises with any; "off"
+        never fuses. Basic monotone constraints, interaction constraints
+        and a positive feature_contri stay fused."""
+        cfg = self.config
+        mode = cfg.split_fusion
         if mode == "off" or self.train_set is None:
             return False
         ts = self.train_set
         reasons = []
         if ts.has_categorical:
             reasons.append("categorical features")
+        if cfg.extra_trees:
+            reasons.append("extra_trees")
+        if self._use_bynode:
+            reasons.append("feature_fraction_bynode")
+        if self._with_monotone and self._mono_mode != "basic":
+            reasons.append(f"{self._mono_mode} monotone constraints")
+        if cfg.feature_contri and min(cfg.feature_contri) <= 0:
+            # the fused path applies the multiplier after the scan's
+            # within-feature pick, which commutes with it only when it is
+            # positive
+            reasons.append("non-positive feature_contri")
         if ts.has_sparse_cols:
             reasons.append("sparse device columns")
         if mode == "on" and reasons:

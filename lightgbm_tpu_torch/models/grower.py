@@ -51,6 +51,18 @@ score update reads). By-tree ``feature_fraction`` is a feature mask on
 every split search (the fused path's candidate pick and the classic
 ``find_best_splits``).
 
+The split constraints enter as the JAX package threads them: monotone
+constraints as per-leaf output bounds ``leaf_min``/``leaf_max`` -- in the
+basic mode the children's mid-point tightens them at each split on a
+monotone feature, and the fused path's epilogue runs its monotone mode;
+the intermediate and advanced modes recompute them before every search
+from all leaves' outputs and bin boxes (``intermediate_bounds``,
+``advanced_child_bounds``), one split a phase -- interaction
+constraints and by-node sampling as per-leaf feature masks
+(``leaf_feature_mask``), and extra_trees as one random threshold per
+(leaf, feature) a search (``rand_bins``), the draws keyed on the tree's
+key and the growth round.
+
 In the quantized-gradient mode (a ``*_q8`` histogram method) the
 gradients and hessians become int8 before growth, with per-tree scales and
 stochastic rounding drawn from the tree's key (``utils/random.py``, the
@@ -84,6 +96,189 @@ from ..utils.random import fold_in, prng_key, uniform
 from .tree import TreeArrays, empty_tree
 
 NEG_INF = float("-inf")
+F32_MAX = float(np.finfo(np.float32).max)
+
+
+def _key(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> int32 keys in the floats' order, -0 below +0: the max
+    and min of keys are XLA's float max and min (+0 over -0) for every
+    non-NaN value, exact in any order (``scatter_reduce``'s included).
+    Its own inverse."""
+    i = x.to(torch.float32).view(torch.int32)
+    return torch.where(i < 0, i ^ 0x7FFFFFFF, i)
+
+
+def _unkey(k: torch.Tensor) -> torch.Tensor:
+    return torch.where(k < 0, k ^ 0x7FFFFFFF, k).view(torch.float32)
+
+
+def _pair_overlap(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    """[L, L', F] bool: the boxes of leaves l and l' overlap in feature
+    f."""
+    return ((lo[:, None, :] <= hi[None, :, :])
+            & (lo[None, :, :] <= hi[:, None, :]))
+
+
+def intermediate_bounds(lo: torch.Tensor, hi: torch.Tensor,
+                        out: torch.Tensor, act: torch.Tensor,
+                        monotone: torch.Tensor, mono_features: tuple):
+    """The intermediate monotone mode's per-leaf output bounds from all
+    current leaf outputs ``out`` [L] and the leaves' bin boxes ``lo``,
+    ``hi`` [L, F] (the JAX package's ``intermediate_bounds``, the
+    vectorised form of monotone_constraints.hpp:514-698
+    IntermediateLeafConstraints). Leaf l' bounds l when their boxes
+    overlap in every feature but one monotone feature, in which l' lies
+    strictly on one side: below l in an increasing feature (or above in a
+    decreasing one) it is a lower bound, else an upper one. Returns
+    (lb, ub) [L] float32; a leaf with no such partner keeps -FLT_MAX /
+    FLT_MAX."""
+    f = lo.shape[1]
+    outk = _key(out)
+    cnt = _pair_overlap(lo, hi).sum(2, dtype=torch.int32)       # [L, L']
+    mf = torch.as_tensor(list(mono_features), dtype=torch.long,
+                         device=lo.device)
+    lo_m, hi_m = lo[:, mf], hi[:, mf]                           # [L, Fm]
+    ovl_m = _pair_overlap(lo_m, hi_m)
+    except_f = (cnt[:, :, None] - ovl_m.to(torch.int32)) == (f - 1)
+    below = hi_m[None, :, :] < lo_m[:, None, :]                 # l' below l
+    above = lo_m[None, :, :] > hi_m[:, None, :]
+    mono = monotone[mf].to(torch.int32)
+    up, dn = (mono > 0)[None, None, :], (mono < 0)[None, None, :]
+    pair_ok = act[:, None, None] & act[None, :, None] & except_f
+    lb_mask = (pair_ok & ((up & below) | (dn & above))).any(2)
+    ub_mask = (pair_ok & ((up & above) | (dn & below))).any(2)
+    lb = torch.where(lb_mask, outk[None, :],
+                     _key(torch.tensor(-F32_MAX))).amax(1)
+    ub = torch.where(ub_mask, outk[None, :],
+                     _key(torch.tensor(F32_MAX))).amin(1)
+    return _unkey(lb), _unkey(ub)
+
+
+def advanced_child_bounds(lo: torch.Tensor, hi: torch.Tensor,
+                          out: torch.Tensor, act: torch.Tensor,
+                          monotone: torch.Tensor, num_bins: int,
+                          mono_features: tuple):
+    """Per-threshold child output bounds of the advanced monotone mode
+    (the JAX package's ``advanced_child_bounds``, a vectorised
+    re-derivation of monotone_constraints.hpp:856-1171
+    AdvancedLeafConstraints). For a split of leaf l on feature g at
+    threshold bin t, the left child holds ``[lo[l, g], t]`` of l's box
+    and the right child ``[t + 1, hi[l, g]]``; a leaf l' bounds a child
+    whose region it overlaps in every feature but exactly one monotone
+    feature, in which it lies strictly on one side. Every contribution
+    starts or stops at one breakpoint bin, so the bounds are extrema
+    scattered at the breakpoints, then prefix and suffix extrema over the
+    bin axis. The extrema run on ``_key``s: max and min are exact in any
+    order, and -0 / +0 resolve as XLA's scatter and cumulative max and
+    min resolve them.
+
+    lo, hi [L, F] int32 (inclusive boxes); out [L]; act [L] bool;
+    monotone [F]. Returns (lmin, lmax, rmin, rmax) [L, F, B] float32."""
+    L, F = lo.shape
+    B = num_bins
+    dev = lo.device
+    size = L * F * B
+    neg = int(_key(torch.tensor(-F32_MAX)))
+    pos = int(_key(torch.tensor(F32_MAX)))
+    outk = _key(out.to(dev))
+    li = torch.arange(L, device=dev)
+    lo, hi = lo.long(), hi.long()
+    ovl = _pair_overlap(lo, hi)                                 # [L, L', F]
+    cnt = ovl.sum(2, dtype=torch.int32)
+    pair = (act[:, None] & act[None, :]
+            & ~torch.eye(L, dtype=torch.bool, device=dev))
+
+    # scatter planes: pre_* act for t >= the breakpoint (prefix extremum),
+    # suf_* for t <= it (suffix extremum); an index of ``size`` is a
+    # dropped write, left out before the scatter (on the card, atomics on
+    # one spare cell would serialise)
+    def plane(fill):
+        return torch.full((size,), fill, dtype=torch.int32, device=dev)
+
+    pre_lmin, suf_lmin, pre_rmin, suf_rmin = (plane(neg) for _ in range(4))
+    pre_lmax, suf_lmax, pre_rmax, suf_rmax = (plane(pos) for _ in range(4))
+
+    def put(dst, idx, val, how):
+        keep = idx < size
+        dst.scatter_reduce_(0, idx[keep], val.expand(idx.shape)[keep], how)
+
+    val2 = outk[None, :].expand(L, L)
+    # case A: the separating monotone feature is the split feature g; l'
+    # overlaps l in every other feature, and its place beside the child's
+    # slice of g decides the bound and the breakpoint
+    for m in mono_features:
+        case_a = pair & (cnt - ovl[:, :, m].to(torch.int32) == F - 1)
+        mpos = bool(monotone[m] > 0)
+        base = ((li * F + m) * B)[:, None]
+        # left child, l' strictly above the slice (lo_g(l') > t): t <=
+        # lo_g(l') - 1
+        tau = (lo[None, :, m] - 1).expand(L, L)
+        idx = torch.where(case_a & (tau >= 0), base + tau, size)
+        put(suf_lmax if mpos else suf_lmin, idx, val2,
+            "amin" if mpos else "amax")
+        # left child, l' below the slice (= below the box): every t
+        idx0 = torch.where(case_a & (hi[None, :, m] < lo[:, None, m]),
+                           base, size).expand(L, L)
+        put(pre_lmin if mpos else pre_lmax, idx0, val2,
+            "amax" if mpos else "amin")
+        # right child, l' strictly below the slice (hi_g(l') <= t): t >=
+        # hi_g(l')
+        idxr = torch.where(case_a, base + hi[None, :, m], size)
+        put(pre_rmin if mpos else pre_rmax, idxr, val2,
+            "amax" if mpos else "amin")
+        # right child, l' above the slice (= above the box): every t
+        idx0r = torch.where(case_a & (lo[None, :, m] > hi[:, None, m]),
+                            base, size).expand(L, L)
+        put(pre_rmax if mpos else pre_rmin, idx0r, val2,
+            "amin" if mpos else "amax")
+
+    # case B: the separator is a monotone feature m* other than g; t
+    # enters through l' overlapping the child's slice of g
+    bmin = torch.zeros((L, L, F), dtype=torch.bool, device=dev)
+    bmax = torch.zeros((L, L, F), dtype=torch.bool, device=dev)
+    ovl_i = ovl.to(torch.int32)
+    for m in mono_features:
+        above = lo[None, :, m] > hi[:, None, m]
+        below = hi[None, :, m] < lo[:, None, m]
+        ok = (cnt[:, :, None] - ovl_i - ovl_i[:, :, m][:, :, None]) == F - 2
+        ok = ok & (pair & (above | below))[:, :, None]
+        ok[:, :, m] = False                  # m* == g is case A
+        is_min = (below if bool(monotone[m] > 0) else above)[:, :, None]
+        bmin |= ok & is_min
+        bmax |= ok & ~is_min
+    base3 = ((li[:, None, None] * F
+              + torch.arange(F, device=dev)[None, None, :]) * B)
+    val3 = outk[None, :, None].expand(L, L, F)
+    # left child: needs hi_g(l') >= lo_g(l); from t >= lo_g(l')
+    ok_l = hi[None, :, :] >= lo[:, None, :]
+    tau_l = lo[None, :, :].clamp(0, B - 1)
+    put(pre_lmin, torch.where(bmin & ok_l, base3 + tau_l, size), val3,
+        "amax")
+    put(pre_lmax, torch.where(bmax & ok_l, base3 + tau_l, size), val3,
+        "amin")
+    # right child: needs lo_g(l') <= hi_g(l); up to t <= hi_g(l') - 1
+    tau_r = hi[None, :, :] - 1
+    ok_r = (lo[None, :, :] <= hi[:, None, :]) & (tau_r >= 0)
+    put(suf_rmin, torch.where(bmin & ok_r, base3 + tau_r, size), val3,
+        "amax")
+    put(suf_rmax, torch.where(bmax & ok_r, base3 + tau_r, size), val3,
+        "amin")
+
+    def cum(x, fn, reverse=False):
+        x = x.reshape(L, F, B)
+        if reverse:
+            return fn(x.flip(2), 2).values.flip(2)
+        return fn(x, 2).values
+
+    lmin = torch.maximum(cum(pre_lmin, torch.cummax),
+                         cum(suf_lmin, torch.cummax, True))
+    lmax = torch.minimum(cum(pre_lmax, torch.cummin),
+                         cum(suf_lmax, torch.cummin, True))
+    rmin = torch.maximum(cum(pre_rmin, torch.cummax),
+                         cum(suf_rmin, torch.cummax, True))
+    rmax = torch.minimum(cum(pre_rmax, torch.cummin),
+                         cum(suf_rmax, torch.cummin, True))
+    return tuple(_unkey(k) for k in (lmin, lmax, rmin, rmax))
 
 
 @dataclass
@@ -100,6 +295,12 @@ class GrowState:
     leaf_cnt: np.ndarray
     leaf_output: np.ndarray
     leaf_depth: np.ndarray       # [L] int32
+    leaf_min: np.ndarray         # [L] f32 monotone output lower bound
+    leaf_max: np.ndarray         # [L] f32 monotone output upper bound
+    leaf_lo: Optional[np.ndarray]  # [L, F] int32 bin box (intermediate,
+    leaf_hi: Optional[np.ndarray]  # advanced monotone), inclusive
+    used_path: Optional[np.ndarray]  # [L, F] bool: features on the path
+    #                                  (interaction constraints)
     sib: np.ndarray              # [L] int32 sibling slot (-1 = none)
     parent_hist: np.ndarray      # [L] bool: slot holds the PARENT's planes
     best: SplitInfo              # [L] per-leaf best split, numpy fields
@@ -119,6 +320,26 @@ def _np(x: torch.Tensor) -> np.ndarray:
     return x.detach().cpu().numpy()
 
 
+def _fmax(a: np.float32, b: np.float32) -> np.float32:
+    """XLA's maximum of two float32 scalars (NaN propagates, +0 over
+    -0)."""
+    if a != a or b != b:
+        return np.float32(np.nan)
+    if a == b:
+        return np.float32(a + b) if a == 0 else a
+    return a if a > b else b
+
+
+def _fmin(a: np.float32, b: np.float32) -> np.float32:
+    """XLA's minimum of two float32 scalars (NaN propagates, -0 over
+    +0)."""
+    if a != a or b != b:
+        return np.float32(np.nan)
+    if a == b:
+        return np.float32(-((-a) + (-b))) if a == 0 else a
+    return a if a < b else b
+
+
 class Grower:
     """The static configuration and data of one tree's growth (the JAX
     ``_grower_fns`` closure).
@@ -130,7 +351,17 @@ class Grower:
     ``sample_mask`` [N] f32 (0/1) keeps rows out of the sums;
     ``subset`` = (sub_idx [k], sub_binsT [F, k]) histograms the in-bag rows
     alone (dense columns only); ``feature_mask`` [F] bool, the columns the
-    searches may split on."""
+    searches may split on.
+
+    The split constraints and the randomised search, as the JAX package
+    threads them through its grower: ``mono_mode`` ("" = no monotone
+    constraint, else "basic", "intermediate" or "advanced") with the
+    directions ``meta.monotone``; ``interaction_groups`` [G, F] bool;
+    ``extra_trees`` (one random threshold per (leaf, feature) a search);
+    ``bynode_fraction`` (a random feature subset per leaf a search). The
+    draws come from ``rng_key`` (the tree's key) folded with the growth
+    round, as the JAX package draws them. Intermediate and advanced
+    monotone constraints force one split per phase (``exact``)."""
 
     def __init__(self, binsT: torch.Tensor, grad: torch.Tensor,
                  hess: torch.Tensor, meta: FeatureMeta, params: SplitParams,
@@ -143,12 +374,22 @@ class Grower:
                  rng_key: Optional[torch.Tensor] = None,
                  sample_mask: Optional[torch.Tensor] = None,
                  subset: Optional[tuple] = None,
-                 feature_mask: Optional[np.ndarray] = None):
+                 feature_mask: Optional[np.ndarray] = None,
+                 mono_mode: str = "",
+                 interaction_groups: Optional[np.ndarray] = None,
+                 extra_trees: bool = False,
+                 bynode_fraction: Optional[float] = None):
         assert tuple(sorted(compaction_ladder)) == tuple(compaction_ladder), \
             "compaction_ladder must be ascending"
         assert not (split_fusion and (with_categorical or sp is not None)), \
             ("split_fusion covers the numerical dense search only: "
              "categorical features and sparse columns take the classic path")
+        assert not (split_fusion and (extra_trees or bynode_fraction
+                                      is not None
+                                      or mono_mode not in ("", "basic"))), \
+            ("split_fusion covers basic monotone constraints only: "
+             "extra_trees, by-node sampling and the intermediate and "
+             "advanced monotone modes take the classic path")
         assert subset is None or (sp is None and sample_mask is None), \
             "the bagging subset copy holds dense columns and no mask"
         self.binsT = binsT
@@ -165,7 +406,22 @@ class Grower:
         self.B = num_bins
         self.cat_words = cat_words_for(num_bins)
         self.max_depth = max_depth
-        self.exact = exact
+        self.with_monotone = bool(mono_mode)
+        self.mono_intermediate = mono_mode in ("intermediate", "advanced")
+        self.mono_advanced = mono_mode == "advanced"
+        self.mono_features = tuple(
+            int(i) for i in np.nonzero(meta.monotone.cpu().numpy())[0])
+        # the intermediate and advanced bounds come from all leaves'
+        # current outputs, so each split is searched after the last
+        self.exact = exact or self.mono_intermediate
+        self.igroups = (None if interaction_groups is None
+                        else np.asarray(interaction_groups, bool))
+        self.extra_trees = extra_trees
+        # by-node sampling keeps ceil(frac * F) features, computed in
+        # float32 as the JAX package computes it
+        self.bynode_k = None if bynode_fraction is None else max(int(
+            np.ceil(np.float32(bynode_fraction) * np.float32(self.f))), 1)
+        self.rng_key = prng_key(0) if rng_key is None else rng_key
         self.split_fusion = split_fusion
         self.with_categorical = with_categorical
         self.P = min(tile_leaves or cuda_hist.structural_tile_leaves(),
@@ -199,7 +455,7 @@ class Grower:
         self.amax = None
         if self.quant8:
             self.stats, self.q_scale, self.root = self._quantize(
-                stats, prng_key(0) if rng_key is None else rng_key)
+                stats, self.rng_key)
         else:
             self.stats = stats
             self.root = tree_sum(stats, 0).cpu()
@@ -278,6 +534,11 @@ class Grower:
         sums = [zf() for _ in range(4)]
         for s, v in zip(sums, (root[0], root[1], root[2], root_out)):
             s[0] = v.numpy()
+        boxes = None, None
+        if self.mono_intermediate:
+            nb = self.meta.num_bins.numpy().astype(np.int32)
+            boxes = (np.zeros((L, self.f), np.int32),
+                     np.broadcast_to(nb - 1, (L, self.f)).copy())
         return GrowState(
             leaf_id=torch.zeros((self.n_all,), dtype=torch.int32,
                                 device=self.dev),
@@ -288,6 +549,11 @@ class Grower:
             hist_valid=np.zeros((L,), bool), leaf_dead=np.zeros((L,), bool),
             leaf_sum_g=sums[0], leaf_sum_h=sums[1], leaf_cnt=sums[2],
             leaf_output=sums[3], leaf_depth=zi.copy(),
+            leaf_min=np.full((L,), -F32_MAX, np.float32),
+            leaf_max=np.full((L,), F32_MAX, np.float32),
+            leaf_lo=boxes[0], leaf_hi=boxes[1],
+            used_path=(None if self.igroups is None
+                       else np.zeros((L, self.f), bool)),
             sib=np.full((L,), -1, np.int32),
             parent_hist=np.zeros((L,), bool),
             best=best, tree=empty_tree(L, W).numpy())
@@ -305,6 +571,41 @@ class Grower:
     def outer_cond(self, st: GrowState) -> bool:
         more = bool(self.pending_mask(st).any()) or not st.done
         return st.num_leaves < self.L and more and st.rounds < self.max_rounds
+
+    def leaf_feature_mask(self, st: GrowState) -> np.ndarray:
+        """[L, F] bool: the features each leaf's search may split on --
+        by-tree column sampling, interaction constraints and by-node
+        sampling (the JAX package's ``leaf_feature_mask``; its draw keyed
+        on this growth round)."""
+        out = np.broadcast_to(self.fmask, (self.L, self.f))
+        if self.igroups is not None:
+            # a leaf may use the union of the groups that hold every
+            # feature on its path. The JAX package counts with two float32
+            # matmuls; the counts are small exact integers, so this
+            # boolean form gives the same mask
+            grp = self.igroups                                   # [G, F]
+            viol = (st.used_path[:, None, :] & ~grp[None]).any(2)  # [L, G]
+            out = out & ((~viol)[:, :, None] & grp[None]).any(1)
+        if self.bynode_k is not None:
+            # the ceil(frac * F) lowest ranks of a uniform draw per leaf
+            u = uniform(fold_in(self._round_key(st), 1),
+                        (self.L, self.f)).numpy()
+            rank = np.argsort(np.argsort(u, axis=1, kind="stable"), axis=1,
+                              kind="stable")
+            out = out & (rank < self.bynode_k)
+        return out
+
+    def _round_key(self, st: GrowState) -> torch.Tensor:
+        """The key of this growth round's draws."""
+        return fold_in(self.rng_key, st.rounds)
+
+    def rand_bins(self, st: GrowState) -> torch.Tensor:
+        """extra_trees' random threshold [L, F] int32 per (leaf, feature):
+        ``u * max(num_bins - 2, 1)`` truncated, as the JAX package draws
+        it (feature_histogram.hpp USE_RAND)."""
+        nbm = torch.clamp(self.meta.num_bins - 2, min=1).to(torch.float32)
+        u = uniform(fold_in(self._round_key(st), 2), (self.L, self.f))
+        return (u * nbm[None, :]).to(torch.int32)
 
     def dead_guard(self, st: GrowState) -> None:
         """BeforeFindBestSplit guards (serial_tree_learner.cpp:282-322)."""
@@ -392,7 +693,10 @@ class Grower:
                                     st.hist[pp], 0.0).contiguous()
         aggs = [torch.from_numpy(a[selc]) for a in
                 (st.leaf_sum_g, st.leaf_sum_h, st.leaf_cnt, st.leaf_output)]
-        la = cuda_hist.pack_leaf_aux(*aggs).to(dev)
+        bounds = ((torch.from_numpy(st.leaf_min[selc]),
+                   torch.from_numpy(st.leaf_max[selc]))
+                  if self.with_monotone else (None, None))
+        la = cuda_hist.pack_leaf_aux(*aggs, *bounds).to(dev)
         gather_idx, streamed, real = self._rung(st, np.where(derive, -1,
                                                              sel))
         tile, cand = histogram_tiles_with_candidates(
@@ -400,7 +704,7 @@ class Grower:
             torch.from_numpy(sel),
             torch.from_numpy(derive), parent_planes, la, self.fm_pack,
             self.pvec, self.B, self.L, gather_idx, q_scale=self.q_scale,
-            amax=self.amax)
+            amax=self.amax, with_monotone=self.with_monotone)
 
         slots = sel[ok]
         st.hist[torch.as_tensor(slots.astype(np.int64)).to(dev)] = tile[
@@ -408,8 +712,10 @@ class Grower:
         info = candidates_to_splitinfo(
             cand.cpu(), *aggs, torch.from_numpy(st.leaf_depth[selc]),
             self.meta, self.params,
-            torch.from_numpy(np.broadcast_to(self.fmask, (p2, self.f)).copy()),
-            self.max_depth, self.cat_words)
+            torch.from_numpy(self.leaf_feature_mask(st)[selc].copy()),
+            self.max_depth, self.cat_words,
+            with_monotone=self.with_monotone, leaf_min=bounds[0],
+            leaf_max=bounds[1])
         for cur, new in zip(st.best, info):
             cur[slots] = _np(new)[ok]
         st.hist_valid[slots] = True
@@ -526,16 +832,39 @@ class Grower:
     # ------------------------------------------------------- split phase
     def split_search(self, st: GrowState) -> None:
         """The classic search: every leaf's best split over the resident
-        planes, numerical and categorical (find_best_splits)."""
+        planes, numerical and categorical (find_best_splits), under the
+        leaves' monotone bounds -- in the intermediate and advanced modes
+        recomputed first from all current leaves -- the feature masks and
+        extra_trees' random thresholds."""
         dev = self.dev
+        adv = None
+        if self.mono_intermediate:
+            act = torch.from_numpy(self.active_mask(st))
+            boxes = torch.from_numpy(st.leaf_lo), torch.from_numpy(st.leaf_hi)
+            out = torch.from_numpy(st.leaf_output)
+            lb, ub = intermediate_bounds(*boxes, out, act, self.meta.monotone,
+                                         self.mono_features)
+            st.leaf_min, st.leaf_max = lb.numpy(), ub.numpy()
+            if self.mono_advanced:
+                adv = advanced_child_bounds(
+                    *(t.to(dev) for t in boxes), out.to(dev), act.to(dev),
+                    self.meta.monotone, self.B, self.mono_features)
         aggs = [torch.from_numpy(a).to(dev) for a in
                 (st.leaf_sum_g, st.leaf_sum_h, st.leaf_cnt, st.leaf_output,
                  st.leaf_depth)]
+        bounds = ([torch.from_numpy(a).to(dev)
+                   for a in (st.leaf_min, st.leaf_max)]
+                  if self.with_monotone else (None, None))
+        fmask = (self.fmask if self.igroups is None and self.bynode_k is None
+                 else self.leaf_feature_mask(st))
         best = find_best_splits(
             st.hist, *aggs, self.meta_dev, self.params_dev,
-            torch.from_numpy(self.fmask).to(dev),
+            torch.from_numpy(np.ascontiguousarray(fmask)).to(dev),
             self.max_depth, with_categorical=self.with_categorical,
-            cat_words=self.cat_words)
+            cat_words=self.cat_words, leaf_min=bounds[0],
+            leaf_max=bounds[1], adv_bounds=adv,
+            rand_bin=(self.rand_bins(st).to(dev) if self.extra_trees
+                      else None))
         st.best = SplitInfo(*(_np(v) for v in best))
         st.rounds += 1
 
@@ -585,11 +914,40 @@ class Grower:
                 (st.sib, new_leaf, l), (st.parent_hist, True, False)):
             arr[l] = a
             arr[new_leaf] = b
+        if self.with_monotone:
+            self._update_bounds(st, l, new_leaf, feat, is_cat, lo, ro)
+        if self.mono_intermediate:
+            # the children take the parent's bin box; a numerical split
+            # cuts the feature's interval, a categorical one nothing
+            st.leaf_lo[new_leaf] = st.leaf_lo[l]
+            st.leaf_hi[new_leaf] = st.leaf_hi[l]
+            if not is_cat:
+                st.leaf_lo[new_leaf, feat] = max(st.leaf_lo[l, feat],
+                                                 thr + 1)
+                st.leaf_hi[l, feat] = min(st.leaf_hi[l, feat], thr)
+        if self.igroups is not None:
+            st.used_path[l, feat] = True
+            st.used_path[new_leaf] = st.used_path[l]
         st.pending_routes.append((l, new_leaf, feat, thr, dleft, is_cat,
                                   bits))
         st.num_leaves += 1
         gain_eff[l] = NEG_INF
         gain_eff[new_leaf] = NEG_INF
+
+    def _update_bounds(self, st: GrowState, l: int, new_leaf: int, feat: int,
+                       is_cat: bool, lo, ro) -> None:
+        """The basic mode's bounds (monotone_constraints.hpp:485-501): the
+        children inherit the parent's [min, max]; a split on a monotone
+        feature tightens them at the children's mid-point, the left child
+        keeping slot ``l``. The arithmetic is float32 with XLA's max and
+        min."""
+        mono = 0 if is_cat else int(self.meta.monotone[feat])
+        mid = (np.float32(lo) + np.float32(ro)) / np.float32(2.0)
+        pmin, pmax = st.leaf_min[l], st.leaf_max[l]
+        st.leaf_min[l] = _fmax(pmin, mid) if mono < 0 else pmin
+        st.leaf_max[l] = _fmin(pmax, mid) if mono > 0 else pmax
+        st.leaf_min[new_leaf] = _fmax(pmin, mid) if mono > 0 else pmin
+        st.leaf_max[new_leaf] = _fmin(pmax, mid) if mono < 0 else pmax
 
     def _split_column(self, binsT: torch.Tensor, feat_r: torch.Tensor,
                       feats: set) -> torch.Tensor:
@@ -712,7 +1070,11 @@ def grow_tree(binsT: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
               counters: Optional[Dict[str, float]] = None,
               sample_mask: Optional[torch.Tensor] = None,
               subset: Optional[tuple] = None,
-              feature_mask: Optional[np.ndarray] = None
+              feature_mask: Optional[np.ndarray] = None,
+              mono_mode: str = "",
+              interaction_groups: Optional[np.ndarray] = None,
+              extra_trees: bool = False,
+              bynode_fraction: Optional[float] = None
               ) -> Tuple[TreeArrays, torch.Tensor, float]:
     """Grow one tree from per-row gradients/hessians. ``hist_method`` is
     ``ops/histogram.resolve_method``'s answer (empty: the f32 mode of the
@@ -722,8 +1084,8 @@ def grow_tree(binsT: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
     passes); ``counters``, when given, gains the tree's ``rows_real``: the
     rows those passes added (a gather pass's tile rows, a full pass's N),
     beside which the rows read show the rungs' padding. ``sample_mask``,
-    ``subset`` and ``feature_mask`` as ``Grower``'s; the leaf ids cover
-    all N rows either way."""
+    ``subset``, ``feature_mask`` and the constraint options as
+    ``Grower``'s; the leaf ids cover all N rows either way."""
     g = Grower(binsT, grad, hess, meta, params, missing_bin,
                max_leaves=max_leaves, num_bins=num_bins, max_depth=max_depth,
                exact=exact, tile_leaves=tile_leaves,
@@ -732,7 +1094,9 @@ def grow_tree(binsT: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
                with_categorical=with_categorical, sp=sp,
                hist_method=hist_method, rng_key=rng_key,
                sample_mask=sample_mask, subset=subset,
-               feature_mask=feature_mask)
+               feature_mask=feature_mask, mono_mode=mono_mode,
+               interaction_groups=interaction_groups,
+               extra_trees=extra_trees, bynode_fraction=bynode_fraction)
     st = g.init_state()
     while g.outer_cond(st):
         g.dead_guard(st)

@@ -77,6 +77,12 @@ def exp_f32(x: torch.Tensor) -> torch.Tensor:
     return torch.where(torch.isnan(x), x, out)
 
 
+def exp2_f32(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.exp2`` of float32, as XLA:CPU computes it: ``exp(x * ln 2)``
+    with ``ln 2`` a float32 constant."""
+    return exp_f32(x * _c32(np.log(2.0)))
+
+
 # XLA:CPU's float32 log (Cephes, as Eigen's plog): the mantissa brought
 # into [sqrt(1/2), sqrt(2)), a degree-8 polynomial in fused multiply-adds,
 # the exponent added back through the hi/lo split of ln 2

@@ -30,7 +30,10 @@ Hopper that is two hand-written CUDA kernels (``csrc/``):
 - ``split_epilogue`` (``csrc/split_epilogue.cu``): in q8 mode the int32
   tile dequantized by ``q_scale`` first, then the derived slots' planes as
   parent - computed sibling, then the numerical split scan (``ops/split.py
-  numerical_candidates``) -> the ``[P, F, 12]`` table.
+  numerical_candidates``) -> the ``[P, F, 12]`` table; in its monotone
+  mode (``with_monotone``, basic monotone constraints) the scan clips each
+  candidate's outputs to its slot's bounds and zeroes the gain of those
+  that break the feature's direction.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs, launches on the current stream, raises if the launch failed, and
@@ -135,14 +138,19 @@ def _epilogue_lanes(sel: torch.Tensor, derive: torch.Tensor,
     return dl.to(torch.int32)[None, :].contiguous()
 
 
-def pack_leaf_aux(sum_g, sum_h, cnt, output) -> torch.Tensor:
+def pack_leaf_aux(sum_g, sum_h, cnt, output, leaf_min=None,
+                  leaf_max=None) -> torch.Tensor:
     """[P, 8] f32 per-slot leaf aggregates (columns: sum_g, sum_h, cnt,
-    output, min, max, 0, 0; min/max are the unconstrained bounds)."""
+    output, min, max, 0, 0): min/max are the slots' monotone output
+    bounds, -FLT_MAX / FLT_MAX (unconstrained) where not given."""
     p = sum_g.shape[0]
     big = float(np.finfo(np.float32).max)
     dev = sum_g.device
-    cols = [sum_g, sum_h, cnt, output,
-            torch.full((p,), -big, device=dev), torch.full((p,), big, device=dev),
+    lmin = torch.full((p,), -big, device=dev) if leaf_min is None \
+        else leaf_min
+    lmax = torch.full((p,), big, device=dev) if leaf_max is None \
+        else leaf_max
+    cols = [sum_g, sum_h, cnt, output, lmin, lmax,
             torch.zeros((p,), device=dev), torch.zeros((p,), device=dev)]
     return torch.stack([c.to(torch.float32) for c in cols], dim=1).contiguous()
 
@@ -235,7 +243,7 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
                                            + [vp] * 4 + [ci] * 11 + [vp])
         lib.hist_gather_launch.restype = ci
     elif name == "split_epilogue":
-        lib.split_epilogue_launch.argtypes = [vp] * 9 + [ci] * 3 + [vp]
+        lib.split_epilogue_launch.argtypes = [vp] * 9 + [ci] * 4 + [vp]
         lib.split_epilogue_launch.restype = ci
     elif name == "lambdarank":
         lib.lambdarank_launch.argtypes = ([vp] * 10 + [ci] * 3
@@ -781,31 +789,40 @@ def _count(fn, name: str) -> None:
 def split_epilogue_plain(tile: torch.Tensor, parent: torch.Tensor,
                          der: torch.Tensor, la: torch.Tensor, fm: torch.Tensor,
                          pv: torch.Tensor,
-                         q_scale: Optional[torch.Tensor] = None
+                         q_scale: Optional[torch.Tensor] = None,
+                         with_monotone: bool = False
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of ``split_epilogue``: ops/histogram.py
     ``derive_and_scan`` with the derived slots read from the lane table
-    (q8 mode with ``q_scale``). Returns (full planes [P, F, B, 3], cand
-    [P, F, 12])."""
+    (q8 mode with ``q_scale``; the monotone mode with ``with_monotone``).
+    Returns (full planes [P, F, B, 3], cand [P, F, 12])."""
     from .histogram import derive_and_scan
     p = tile.shape[0]
     derive = der.reshape(-1)[0:p * _STATS:_STATS] != 0
     return derive_and_scan(tile, derive, parent, la, fm, pv,
-                           q8=q_scale is not None, q_scale=q_scale)
+                           q8=q_scale is not None, q_scale=q_scale,
+                           with_monotone=with_monotone)
 
 
 def split_epilogue(tile: torch.Tensor, parent: torch.Tensor,
                    der: torch.Tensor, la: torch.Tensor, fm: torch.Tensor,
-                   pv: torch.Tensor, q_scale: Optional[torch.Tensor] = None
+                   pv: torch.Tensor, q_scale: Optional[torch.Tensor] = None,
+                   with_monotone: bool = False
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Derive + numerical split scan of one tile (see the module
     docstring). ``tile`` [P, F, B, 3] f32, or int32 in q8 mode with
     ``q_scale`` [3] f32; ``parent`` [P, F, B, 3] f32, ``der`` [1, 128]
     int32 (_epilogue_lanes), ``la`` [P, 8], ``fm`` [F, 8], ``pv`` [8] f32.
-    Returns (full planes [P, F, B, 3] f32, cand [P, F, 12])."""
+    ``with_monotone``: the basic monotone mode, each slot's candidates
+    clipped to its bounds ``la[:, 4:6]`` and those breaking their
+    feature's direction ``fm[:, 3]`` at gain 0. Returns (full planes
+    [P, F, B, 3] f32, cand [P, F, 12]). Each of the four modes counts its
+    own launches (``launches``, ``launches_q8``, ``launches_mono``,
+    ``launches_mono_q8``)."""
     q8 = q_scale is not None
     if tile.device.type == "cpu":
-        return split_epilogue_plain(tile, parent, der, la, fm, pv, q_scale)
+        return split_epilogue_plain(tile, parent, der, la, fm, pv, q_scale,
+                                    with_monotone)
     _check(tile.device.type == "cuda", f"split_epilogue: no kernel for "
            f"device {tile.device}")
     dev = tile.device
@@ -833,8 +850,9 @@ def split_epilogue(tile: torch.Tensor, parent: torch.Tensor,
     err = _lib("split_epilogue").split_epilogue_launch(
         _ptr(tile), _ptr(q_scale), _ptr(parent), _ptr(der), _ptr(la),
         _ptr(fm), _ptr(pv), _ptr(full), _ptr(cand), p, f, b,
-        torch.cuda.current_stream(dev).cuda_stream)
-    _count(split_epilogue, "launches_q8" if q8 else "launches")
+        int(with_monotone), torch.cuda.current_stream(dev).cuda_stream)
+    _count(split_epilogue, ("launches_mono" if with_monotone else "launches")
+           + ("_q8" if q8 else ""))
     _raise_on(err, "split_epilogue")
     return full, cand
 
@@ -946,5 +964,6 @@ def launch_counts() -> Dict[str, int]:
 register_counters(hist_tile, ("launches", "gather_launches",
                               "launches_plane", "launches_q8",
                               "gather_launches_q8", "launches_plane_q8"))
-register_counters(split_epilogue, ("launches", "launches_q8"))
+register_counters(split_epilogue, ("launches", "launches_q8",
+                                   "launches_mono", "launches_mono_q8"))
 register_counters(hist_onehot, ("launches",))

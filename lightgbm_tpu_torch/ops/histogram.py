@@ -94,13 +94,16 @@ def epilogue_supported(p: int, s: int) -> bool:
 
 
 def derive_and_scan(tile, derive, parent_planes, leaf_aux, fmeta, pvec, *,
-                    q8: bool = False, q_scale: Optional[torch.Tensor] = None
+                    q8: bool = False, q_scale: Optional[torch.Tensor] = None,
+                    with_monotone: bool = False
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The split epilogue at plane level: dequantize an int32 tile (``q8``,
     each cell times ``q_scale`` [3] of its stat), derive the odd slots'
     planes as parent - computed sibling (a one-slot roll, the TPU kernel's
     static lane shift), then scan every slot to its per-feature best
-    candidate. Returns (full planes, cand [P, F, 12])."""
+    candidate (``with_monotone``: under the slots' output bounds
+    ``leaf_aux[:, 4:6]`` and the features' directions ``fmeta[:, 3]``).
+    Returns (full planes, cand [P, F, 12])."""
     params = SplitParams.from_packed(pvec.to(torch.float32))
     if q8:
         # the JAX package fences this product (_round_fence) so XLA cannot
@@ -117,7 +120,8 @@ def derive_and_scan(tile, derive, parent_planes, leaf_aux, fmeta, pvec, *,
     cand = numerical_candidates(
         full, la[:, 0], la[:, 1], la[:, 2], la[:, 3],
         fm[:, 0].to(torch.int32), fm[:, 1].to(torch.int32),
-        fm[:, 2].to(torch.int32), params)
+        fm[:, 2].to(torch.int32), params, monotone_f=fm[:, 3].to(torch.int32),
+        with_monotone=with_monotone, leaf_min=la[:, 4], leaf_max=la[:, 5])
     return full, cand
 
 
@@ -125,18 +129,20 @@ def histogram_tiles_with_candidates(binsT, stats, leaf_ids, sel, derive,
                                     parent_planes, leaf_aux, fmeta, pvec,
                                     num_bins: int, num_leaves: int,
                                     gather_idx=None, q_scale=None,
-                                    amax=None):
+                                    amax=None, with_monotone: bool = False):
     """Histogram tile pass + split epilogue: the computed (even) slots are
     histogrammed, the derived (odd) slots come from parent - sibling, and
     every (leaf, feature) reduces to its best candidate. In q8 mode
     (int8 ``stats``) the epilogue dequantizes the int32 tile by
-    ``q_scale`` first; ``amax`` as ``histogram_tiles``'. Returns (float32
-    tile [P, F, B, 3] with the derived planes filled in, cand [P, F,
-    12])."""
+    ``q_scale`` first; ``amax`` as ``histogram_tiles``';
+    ``with_monotone``: the epilogue's monotone mode (bounds in
+    ``leaf_aux``, directions in ``fmeta``). Returns (float32 tile
+    [P, F, B, 3] with the derived planes filled in, cand [P, F, 12])."""
     sel_compute = torch.where(derive, torch.full_like(sel, -1), sel)
     tile = histogram_tiles(binsT, stats, leaf_ids, sel_compute, num_bins,
                            num_leaves, gather_idx, plane=False, amax=amax)
     der = cuda_hist._epilogue_lanes(sel, derive).to(tile.device)
     return cuda_hist.split_epilogue(tile, parent_planes.contiguous(), der,
                                     leaf_aux.contiguous(), fmeta.contiguous(),
-                                    pvec.contiguous(), q_scale)
+                                    pvec.contiguous(), q_scale,
+                                    with_monotone)

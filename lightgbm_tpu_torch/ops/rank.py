@@ -57,12 +57,6 @@ def log2_f32(x: torch.Tensor) -> torch.Tensor:
     return _ftz(log_f32(x) * _INV_LN2)
 
 
-def exp2_f32(x: torch.Tensor) -> torch.Tensor:
-    """``jnp.exp2`` of float32, as XLA:CPU computes it: ``exp(x * ln 2)``
-    with ``ln 2`` a float32 constant."""
-    return exp_f32(x * _c32(np.log(2.0)))
-
-
 def sigmoid_f32(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.sigmoid`` of float32 on XLA:CPU: ``1 / (1 + exp(-x))``,
     flushed to zero below the smallest normal float."""

@@ -24,8 +24,15 @@ details make that hold:
 - The categorical sort by ``g / (h + cat_smooth)`` is stable, as
   ``jnp.argsort`` is, so ties keep bin order and give the same bitset.
 
+The split constraints live here too: monotone bounds (a clip of each
+candidate's outputs with XLA's max and min, ``clip``, and gain 0 for a
+candidate that breaks its feature's direction), the monotone depth
+penalty and feature_contri on the keyed gains, and extra_trees' one
+random threshold per (leaf, feature).
+
 The CUDA split epilogue (``csrc/split_epilogue.cu``) computes
-``numerical_candidates`` with the same operation order.
+``numerical_candidates`` with the same operation order, its monotone
+mode included.
 """
 
 from __future__ import annotations
@@ -37,6 +44,7 @@ import torch
 
 from ..binning import (BIN_TYPE_CATEGORICAL, MISSING_NAN, MISSING_NONE,
                        MISSING_ZERO)
+from ..objectives import exp2_f32
 from ..utils.ordered import blocked_cumsum
 
 K_EPSILON = 1e-15          # reference: include/LightGBM/meta.h kEpsilon
@@ -49,8 +57,8 @@ class FeatureMeta(NamedTuple):
     missing_type: torch.Tensor    # int32, MISSING_{NONE,ZERO,NAN}
     default_bin: torch.Tensor     # int32, bin of value 0.0
     is_categorical: torch.Tensor  # bool
-    monotone: torch.Tensor        # int8 (all 0 in this slice)
-    penalty: torch.Tensor         # float32 feature_contri (all 1.0)
+    monotone: torch.Tensor        # int8, -1/0/+1 (0 = unconstrained)
+    penalty: torch.Tensor         # float32 feature_contri gain multiplier
 
     def to(self, device) -> "FeatureMeta":
         return FeatureMeta(*(t.to(device) for t in self))
@@ -63,7 +71,9 @@ _INT_FIELDS = ("max_cat_threshold", "max_cat_to_onehot")
 
 class SplitParams(NamedTuple):
     """The split hyperparameters as scalar tensors: float32, but int32 for
-    the two categorical counts (as the JAX package holds them)."""
+    the two categorical counts (as the JAX package holds them). The scan
+    reads the first seven; ``monotone_penalty`` enters the keyed gains
+    after it."""
     lambda_l1: torch.Tensor
     lambda_l2: torch.Tensor
     max_delta_step: torch.Tensor
@@ -76,6 +86,7 @@ class SplitParams(NamedTuple):
     max_cat_threshold: torch.Tensor
     min_data_per_group: torch.Tensor
     max_cat_to_onehot: torch.Tensor
+    monotone_penalty: torch.Tensor
 
     @classmethod
     def from_config(cls, config, device="cpu") -> "SplitParams":
@@ -89,7 +100,7 @@ class SplitParams(NamedTuple):
     @classmethod
     def from_packed(cls, pv: torch.Tensor) -> "SplitParams":
         """Inverse of ``ops.cuda_hist.pack_scan_params`` (the numerical
-        fields; the categorical ones, which the scan never reads, are 0)."""
+        fields; the others, which the scan never reads, are 0)."""
         zero = torch.zeros((), dtype=torch.float32, device=pv.device)
         return cls(*(pv[i] for i in range(_NUM_FIELDS)),
                    *(zero.to(torch.int32) if n in _INT_FIELDS else zero
@@ -137,6 +148,31 @@ def _sign(x: torch.Tensor) -> torch.Tensor:
     """XLA's sign: ±1, ±0 for ±0, NaN for NaN."""
     keep = (x == 0) | torch.isnan(x)
     return torch.where(keep, x, torch.copysign(torch.ones_like(x), x))
+
+
+def ieee_max(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """XLA's float maximum (``jnp.maximum``): NaN when either is NaN, and
+    +0 of two zeros of either sign, where ``torch.maximum`` returns its
+    first argument of two equal zeros."""
+    out = torch.where(a > b, a, b)
+    out = torch.where((a == b) & (a == 0), a + b, out)
+    return torch.where(torch.isnan(a) | torch.isnan(b),
+                       torch.full_like(out, float("nan")), out)
+
+
+def ieee_min(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """XLA's float minimum (``jnp.minimum``): NaN when either is NaN, and
+    -0 of two zeros of either sign."""
+    out = torch.where(a < b, a, b)
+    out = torch.where((a == b) & (a == 0), -((-a) + (-b)), out)
+    return torch.where(torch.isnan(a) | torch.isnan(b),
+                       torch.full_like(out, float("nan")), out)
+
+
+def clip(x: torch.Tensor, lo, hi) -> torch.Tensor:
+    """``jnp.clip(x, lo, hi)`` as XLA lowers it: ``minimum(hi,
+    maximum(lo, x))`` (``torch.clamp`` differs on signed zeros)."""
+    return ieee_min(hi, ieee_max(lo, x))
 
 
 def threshold_l1(s: torch.Tensor, l1: torch.Tensor) -> torch.Tensor:
@@ -232,12 +268,21 @@ CAND_RG, CAND_RH, CAND_RC = 6, 7, 8
 
 def _numerical_scan(hist, leaf_sum_g, leaf_sum_h, leaf_cnt, leaf_output,
                     num_bins_f, missing_type_f, default_bin_f,
-                    p: SplitParams):
+                    p: SplitParams, monotone_f=None, bounds=None,
+                    rand_bin=None):
     """Every (leaf, feature, direction, threshold) numerical candidate:
     the directional sums and the SHIFTED gains (gain - min_gain_shift,
     K_MIN_SCORE where invalid) of the reverse and forward scans, each
     [P, F, B]. The shared core of ``numerical_candidates`` (the fused
-    epilogue) and ``find_best_splits`` (the classic search)."""
+    epilogue) and ``find_best_splits`` (the classic search).
+
+    ``bounds`` (monotone constraints): (left min, left max, right min,
+    right max), each broadcastable to [P, F, B]; every candidate's child
+    outputs are clipped to them before its gain, and a candidate whose
+    clipped outputs break its feature's direction ``monotone_f`` [F]
+    gets gain 0 (GetSplitGains' USE_MC, feature_histogram.hpp:766-824).
+    ``rand_bin`` [P, F] (extra_trees): the one threshold each (leaf,
+    feature) may split at."""
     P, F, B, _ = hist.shape
     dev = hist.device
     nb = num_bins_f.to(torch.int32)[None, :, None]
@@ -261,8 +306,16 @@ def _numerical_scan(hist, leaf_sum_g, leaf_sum_h, leaf_cnt, leaf_output,
                       s[f"{prefix}_right_c"])
         lo = calculate_leaf_output(lg, lh, p, lc, parent_out)
         ro = calculate_leaf_output(rg, rh, p, rc, parent_out)
-        return (leaf_gain_given_output(lg, lh, lo, p)
+        if bounds is not None:
+            lo = clip(lo, bounds[0], bounds[1])
+            ro = clip(ro, bounds[2], bounds[3])
+        gain = (leaf_gain_given_output(lg, lh, lo, p)
                 + leaf_gain_given_output(rg, rh, ro, p))
+        if bounds is not None:
+            mono = monotone_f.to(torch.int32)[None, :, None]
+            viol = ((mono > 0) & (lo > ro)) | ((mono < 0) & (lo < ro))
+            gain = torch.where(viol, torch.zeros_like(gain), gain)
+        return gain
 
     gain_fwd = split_gain_dir("fwd")
     gain_rev = split_gain_dir("rev")
@@ -284,6 +337,10 @@ def _numerical_scan(hist, leaf_sum_g, leaf_sum_h, leaf_cnt, leaf_output,
     zero_thr_skip = (mode_a & is_zero)[None, :, None] & (bins == dbin)
     fwd_ok = fwd_ok & ~zero_thr_skip
     rev_ok = rev_ok & ~zero_thr_skip
+    if rand_bin is not None:
+        rb = rand_bin.to(torch.int32)[:, :, None]
+        fwd_ok = fwd_ok & (bins == rb)
+        rev_ok = rev_ok & (bins == rb)
 
     valid_fwd = (constraint_mask("fwd") & fwd_ok
                  & (gain_fwd > min_gain_shift) & ~torch.isnan(gain_fwd))
@@ -297,16 +354,25 @@ def _numerical_scan(hist, leaf_sum_g, leaf_sum_h, leaf_cnt, leaf_output,
 
 def numerical_candidates(hist, leaf_sum_g, leaf_sum_h, leaf_cnt, leaf_output,
                          num_bins_f, missing_type_f, default_bin_f,
-                         p: SplitParams) -> torch.Tensor:
+                         p: SplitParams, *, monotone_f=None,
+                         with_monotone: bool = False, leaf_min=None,
+                         leaf_max=None) -> torch.Tensor:
     """Per-(leaf, feature) best numerical split candidate.
 
     hist: [P, F, B, 3] float32 planes (excluded bins zeroed here); leaf
-    aggregates [P]; per-feature int tensors [F]. Returns [P, F, 12]."""
+    aggregates [P]; per-feature int tensors [F]. ``with_monotone`` (the
+    basic monotone mode): each slot's candidates clipped to its
+    [``leaf_min``, ``leaf_max``] [P], and those breaking ``monotone_f``
+    [F] at gain 0. Returns [P, F, 12]."""
     P, F, B, _ = hist.shape
     dev = hist.device
+    bounds = None
+    if with_monotone:
+        lm, lx = leaf_min[:, None, None], leaf_max[:, None, None]
+        bounds = (lm, lx, lm, lx)
     s, key_rev, key_fwd = _numerical_scan(
         hist, leaf_sum_g, leaf_sum_h, leaf_cnt, leaf_output, num_bins_f,
-        missing_type_f, default_bin_f, p)
+        missing_type_f, default_bin_f, p, monotone_f, bounds)
 
     # within-feature lexicographic reduction: reverse scan first keeps its
     # highest-threshold maximum, forward replaces only on strictly greater
@@ -345,16 +411,24 @@ def candidates_to_splitinfo(cand, leaf_sum_g, leaf_sum_h, leaf_cnt,
                             leaf_output, leaf_depth, meta: FeatureMeta,
                             p: SplitParams, feature_mask,
                             max_depth: int = -1,
-                            cat_words: int = CAT_BITSET_WORDS) -> SplitInfo:
+                            cat_words: int = CAT_BITSET_WORDS,
+                            with_monotone: bool = False,
+                            leaf_min=None, leaf_max=None) -> SplitInfo:
     """Cross-feature argmax over a candidate table -> per-leaf SplitInfo:
-    the feature_contri multiplier and feature/depth masks, then the
+    the feature_contri multiplier, the monotone depth penalty and the
+    feature/depth masks, in ``find_best_splits``' order, then the
     lowest-index-wins argmax (the reference's in-order feature loop with a
-    strict operator>). ``cand``: [P, F, 12]; ``feature_mask``: [P, F]."""
+    strict operator>). ``cand``: [P, F, 12]; ``feature_mask``: [P, F].
+    Both transforms commute with the scan's within-feature pick only for
+    a positive multiplier, so a non-positive feature_contri keeps the
+    classic search (``GBDT._split_fusion_on``). ``with_monotone``: the
+    chosen children's outputs are clipped to [``leaf_min``,
+    ``leaf_max``] [P]."""
     P, F, _ = cand.shape
     dev = cand.device
     raw = cand[:, :, CAND_GAIN]
     valid = torch.isfinite(raw)
-    key = raw * meta.penalty[None, :]
+    key = _mono_penalized(raw * meta.penalty[None, :], leaf_depth, meta, p)
     fmask = feature_mask.to(torch.bool) & ~meta.is_categorical[None, :]
     depth_ok = (torch.ones((P,), dtype=torch.bool, device=dev)
                 if max_depth <= 0 else (leaf_depth < max_depth))
@@ -374,6 +448,9 @@ def candidates_to_splitinfo(cand, leaf_sum_g, leaf_sum_h, leaf_cnt,
     left_out = calculate_leaf_output(left_g, left_h, p, left_c, leaf_output)
     right_out = calculate_leaf_output(right_g, right_h, p, right_c,
                                       leaf_output)
+    if with_monotone:
+        left_out = clip(left_out, leaf_min, leaf_max)
+        right_out = clip(right_out, leaf_min, leaf_max)
     mode_a = (meta.num_bins > 2) & (meta.missing_type != MISSING_NONE)
     nan_single = ((meta.missing_type == MISSING_NAN) & ~mode_a)[bf]
     return SplitInfo(
@@ -385,6 +462,32 @@ def candidates_to_splitinfo(cand, leaf_sum_g, leaf_sum_h, leaf_cnt,
         is_cat=torch.zeros((P,), dtype=torch.bool, device=dev),
         cat_bitset=torch.zeros((P, cat_words), dtype=torch.int64,
                                device=dev))
+
+
+def monotone_split_penalty(leaf_depth, p: SplitParams) -> torch.Tensor:
+    """Depth-decaying gain multiplier [L] for splits on monotone features
+    (reference: monotone_constraints.hpp:355-364), with ``jnp.exp2`` as
+    XLA:CPU computes it."""
+    d = leaf_depth.to(torch.float32)
+    pen = p.monotone_penalty.to(torch.float32)
+    eps = _f32(K_EPSILON, d)
+    small = (1.0 - pen / exp2_f32(d)) + eps
+    large = (1.0 - exp2_f32(pen - 1.0 - d)) + eps
+    out = torch.where(pen <= 1.0, small, large)
+    out = torch.where(pen >= d + 1.0, eps, out)
+    return torch.where(pen > 0.0, out, torch.ones_like(out))
+
+
+def _mono_penalized(key, leaf_depth, meta: FeatureMeta, p: SplitParams):
+    """``key`` [L, F, ...] times the monotone depth penalty where the
+    feature is monotone (the JAX package's ``where(is_mono, key * pen,
+    key)``; with no monotone feature that is the identity)."""
+    if not bool(meta.monotone.any()):
+        return key
+    pen = monotone_split_penalty(leaf_depth, p)
+    pen = pen.reshape((-1,) + (1,) * (key.dim() - 1))
+    is_mono = (meta.monotone != 0).reshape((1, -1) + (1,) * (key.dim() - 2))
+    return torch.where(is_mono, key * pen, key)
 
 
 def find_best_cat_splits(hist, leaf_sum_g, leaf_sum_h, leaf_cnt, leaf_output,
@@ -590,21 +693,28 @@ def find_best_splits(hist, leaf_sum_g, leaf_sum_h, leaf_cnt, leaf_output,
                      feature_mask, max_depth: int = -1,
                      with_categorical: bool = False,
                      cat_words: int = CAT_BITSET_WORDS,
-                     leaf_min=None, leaf_max=None, gain_adjust=None,
-                     rand_bin=None, bundle=None) -> SplitInfo:
+                     leaf_min=None, leaf_max=None, adv_bounds=None,
+                     gain_adjust=None, rand_bin=None,
+                     bundle=None) -> SplitInfo:
     """Best split per leaf over the resident planes (the classic search).
 
     hist: [L, F, B, 3] (grad, hess, count); leaf aggregates [L];
-    feature_mask [F] or [L, F]; max_depth: leaves at max_depth get gain
+    feature_mask [F] or [L, F] (column sampling, by-node sampling,
+    interaction constraints); max_depth: leaves at max_depth get gain
     -inf. Numerical candidates from the shared scan go through one
     lexicographic argmax over (feature, direction, threshold); with
     ``with_categorical`` the categorical best competes per leaf, ties to
-    the lower feature index. Monotone bounds, ``gain_adjust`` (CEGB),
-    ``rand_bin`` (extra_trees) and ``bundle`` (EFB) are not ported and
-    raise when given."""
-    for name, v in (("leaf_min/leaf_max", leaf_min if leaf_min is not None
-                     else leaf_max), ("gain_adjust", gain_adjust),
-                    ("rand_bin", rand_bin), ("bundle", bundle)):
+    the lower feature index. The keyed gains carry feature_contri
+    (``meta.penalty``) and the monotone depth penalty.
+
+    Monotone constraints: ``leaf_min``/``leaf_max`` [L] clip every
+    candidate's child outputs and reject (gain 0) those that break the
+    feature's direction; ``adv_bounds`` (the advanced mode's per-threshold
+    child bounds, (lmin, lmax, rmin, rmax) [L, F, B]) replace that clip in
+    the numerical search. ``rand_bin`` [L, F] (extra_trees): the one
+    threshold a (leaf, feature) may take. ``gain_adjust`` (CEGB) and
+    ``bundle`` (EFB) are not ported and raise when given."""
+    for name, v in (("gain_adjust", gain_adjust), ("bundle", bundle)):
         if v is not None:
             raise NotImplementedError(
                 f"find_best_splits: {name} is not ported to "
@@ -612,9 +722,15 @@ def find_best_splits(hist, leaf_sum_g, leaf_sum_h, leaf_cnt, leaf_output,
                 f"item 9")
     L, F, B, _ = hist.shape
     dev = hist.device
+    use_mc = leaf_min is not None or adv_bounds is not None
+    bounds = adv_bounds
+    if bounds is None and leaf_min is not None:
+        lm, lx = leaf_min[:, None, None], leaf_max[:, None, None]
+        bounds = (lm, lx, lm, lx)
     s, key_rev, key_fwd = _numerical_scan(
         hist, leaf_sum_g, leaf_sum_h, leaf_cnt, leaf_output, meta.num_bins,
-        meta.missing_type, meta.default_bin, p)
+        meta.missing_type, meta.default_bin, p, meta.monotone, bounds,
+        rand_bin)
     fmask = feature_mask
     if fmask.dim() == 1:
         fmask = fmask[None, :]
@@ -624,8 +740,12 @@ def find_best_splits(hist, leaf_sum_g, leaf_sum_h, leaf_cnt, leaf_output,
     base_ok = fmask & depth_ok[:, None, None]
     contri = meta.penalty[None, :, None]
     neg = _f32(K_MIN_SCORE, hist)
-    key_fwd = torch.where(base_ok & (key_fwd > neg), key_fwd * contri, neg)
-    key_rev = torch.where(base_ok & (key_rev > neg), key_rev * contri, neg)
+    key_fwd = torch.where(base_ok & (key_fwd > neg),
+                          _mono_penalized(key_fwd * contri, leaf_depth,
+                                          meta, p), neg)
+    key_rev = torch.where(base_ok & (key_rev > neg),
+                          _mono_penalized(key_rev * contri, leaf_depth,
+                                          meta, p), neg)
 
     # reverse scan first keeps its highest-threshold maximum, forward
     # replaces only on strictly greater gain; lowest feature index wins
@@ -660,6 +780,13 @@ def find_best_splits(hist, leaf_sum_g, leaf_sum_h, leaf_cnt, leaf_output,
     left_out = calculate_leaf_output(left_g, left_h, p, left_c, leaf_output)
     right_out = calculate_leaf_output(right_g, right_h, p, right_c,
                                       leaf_output)
+    if adv_bounds is not None:
+        lmin_a, lmax_a, rmin_a, rmax_a = adv_bounds
+        left_out = clip(left_out, lmin_a[li, bf, bt], lmax_a[li, bf, bt])
+        right_out = clip(right_out, rmin_a[li, bf, bt], rmax_a[li, bf, bt])
+    elif use_mc:
+        left_out = clip(left_out, leaf_min, leaf_max)
+        right_out = clip(right_out, leaf_min, leaf_max)
     mode_a = (meta.num_bins > 2) & (meta.missing_type != MISSING_NONE)
     nan_single = ((meta.missing_type == MISSING_NAN) & ~mode_a)[bf]
     num = SplitInfo(
@@ -681,6 +808,9 @@ def find_best_splits(hist, leaf_sum_g, leaf_sum_h, leaf_cnt, leaf_output,
     crg, crh, crc = leaf_sum_g - clg, leaf_sum_h - clh, leaf_cnt - clc
     clo = calculate_leaf_output(clg, clh, p, clc, leaf_output, cl2)
     cro = calculate_leaf_output(crg, crh, p, crc, leaf_output, cl2)
+    if use_mc:
+        clo = clip(clo, leaf_min, leaf_max)
+        cro = clip(cro, leaf_min, leaf_max)
     take_cat = (cgain > num.gain) | ((cgain == num.gain)
                                      & torch.isfinite(cgain)
                                      & (cfeat < num.feature))
@@ -716,14 +846,20 @@ def per_feature_best_gain_key(gains_rev, gains_fwd) -> torch.Tensor:
                          gains_fwd.max(dim=2).values)
 
 
-def feature_meta_from_mappers(used_mappers, device="cpu") -> FeatureMeta:
+def feature_meta_from_mappers(used_mappers, device="cpu", monotone=None,
+                              penalty=None) -> FeatureMeta:
     """FeatureMeta for the used (non-trivial) features, as the JAX
-    package's Dataset._build_feature_meta builds it (categorical flags
-    included; no monotone constraints or feature_contri)."""
+    package's Dataset._build_feature_meta builds it: categorical flags,
+    and ``monotone`` (int8 directions) and ``penalty`` (float32
+    feature_contri) in used-feature space, 0 and 1 where not given."""
     nb = np.array([m.num_bin for m in used_mappers] or [2], np.int32)
     mt = np.array([m.missing_type for m in used_mappers] or [0], np.int32)
     db = np.array([m.default_bin for m in used_mappers] or [0], np.int32)
     f = len(nb)
+    monotone = (np.zeros((f,), np.int8) if monotone is None
+                else np.asarray(monotone, np.int8))
+    penalty = (np.ones((f,), np.float32) if penalty is None
+               else np.asarray(penalty, np.float32))
     return FeatureMeta(
         num_bins=torch.as_tensor(nb, device=device),
         missing_type=torch.as_tensor(mt, device=device),
@@ -731,8 +867,8 @@ def feature_meta_from_mappers(used_mappers, device="cpu") -> FeatureMeta:
         is_categorical=torch.as_tensor(
             np.array([m.bin_type == BIN_TYPE_CATEGORICAL
                       for m in used_mappers] or [False]), device=device),
-        monotone=torch.zeros((f,), dtype=torch.int8, device=device),
-        penalty=torch.ones((f,), dtype=torch.float32, device=device))
+        monotone=torch.as_tensor(monotone, device=device),
+        penalty=torch.as_tensor(penalty, device=device))
 
 
 def missing_bin_of(meta: FeatureMeta) -> np.ndarray:

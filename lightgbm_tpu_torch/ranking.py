@@ -31,9 +31,10 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from .objectives import ObjectiveFunction, _c32, _fma, _ftz, exp_f32
-from .ops.rank import (K_EPSILON, PAD_SCORE, RankLayout, exp2_f32,
-                       lambdarank_grads, xla_sum)
+from .objectives import (ObjectiveFunction, _c32, _fma, _ftz, exp2_f32,
+                         exp_f32)
+from .ops.rank import (K_EPSILON, PAD_SCORE, RankLayout, lambdarank_grads,
+                       xla_sum)
 from .utils import log
 
 

@@ -39,7 +39,14 @@ order on the card and on the CPU at edge layouts (1-document queries, a
 query longer than a block's threads, MS LTR's longest, all-tied scores,
 labels all 0, truncation levels 3 and above n), two launches equal; a
 lambdarank, q8 lambdarank and rank_xendcg training gives the same text
-twice and the CPU's in the kernels' orders.
+twice and the CPU's in the kernels' orders. The split constraints:
+``split_epilogue``'s monotone mode bitwise its plain version and a second
+launch at F = 28 and F = 136, f32 and q8, with open, tight and equal
+bounds and a feature whose every candidate breaks its direction
+(``tests/torch_monotone_cases.py``); basic, intermediate and advanced
+monotone, interaction constraints, feature_contri, extra_trees and
+by-node trainings give the same text twice and the CPU's with the
+kernel's sums.
 """
 
 import numpy as np
@@ -49,6 +56,7 @@ import torch
 from lightgbm_tpu_torch.ops import cuda_hist
 from torch_epilogue_cases import (EDGE_BINS, EDGE_CASES, PV_DEFAULT,
                                   PV_REGULARISED, epilogue_case)
+from torch_monotone_cases import KINDS, epilogue_args, monotone_case
 
 pytestmark = pytest.mark.cuda
 
@@ -693,5 +701,83 @@ def test_ranking_training_on_card_equals_cpu(dev, params):
         if d == "cuda":
             assert rank.lambdarank_grads.launches == (
                 4 if params["objective"] == "lambdarank" else 0)
+    assert texts["cuda"] == texts["cuda_again"]
+    assert texts["cuda"] == texts["cpu"]
+
+
+@pytest.mark.parametrize("q8", [False, True], ids=["f32", "q8"])
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("f", [28, 136])
+def test_split_epilogue_monotone_matches_plain(dev, f, kind, q8):
+    """The monotone mode at the main path's P = 42, B = 255: bitwise its
+    plain version (planes and table) and a second launch, counted as
+    ``launches_mono`` (``launches_mono_q8``) and nowhere else."""
+    case = monotone_case(kind, q8, p=42, f=f, b=255, n=40_000)
+    args = epilogue_args(case, dev)
+    name = "launches_mono_q8" if q8 else "launches_mono"
+    before = cuda_hist.launch_counts()
+    kf, kc = cuda_hist.split_epilogue(*args, with_monotone=True)
+    after = cuda_hist.launch_counts()
+    assert {k: after[k] - before[k] for k in after if after[k] != before[k]
+            } == {f"split_epilogue.{name}": 1}
+    kf2, kc2 = cuda_hist.split_epilogue(*args, with_monotone=True)
+    pf, pc = cuda_hist.split_epilogue_plain(*args, with_monotone=True)
+    torch.cuda.synchronize()
+    for a, b in ((kc, pc), (kf, pf), (kc, kc2), (kf, kf2)):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    # the plain version on the card equals it on the CPU
+    _, cc = cuda_hist.split_epilogue_plain(*epilogue_args(case),
+                                           with_monotone=True)
+    assert torch.equal(pc.cpu().view(torch.int32), cc.view(torch.int32))
+    if kind == "violate":
+        assert not torch.isfinite(kc[:, 0, 0]).any()
+
+
+CONSTRAINED = {
+    "basic": {"monotone_constraints": [1, -1, 0, 0, 1, 0, 0, 0, -1, 0]},
+    "basic_q8": {"monotone_constraints": [1, -1, 0, 0, 1, 0, 0, 0, -1, 0],
+                 "quantized_grad": True},
+    "intermediate": {"monotone_constraints": [1, -1, 0, 0, 1, 0, 0, 0, -1,
+                                              0],
+                     "monotone_constraints_method": "intermediate"},
+    "advanced": {"monotone_constraints": [1, -1, 0, 0, 1, 0, 0, 0, -1, 0],
+                 "monotone_constraints_method": "advanced"},
+    "interactions": {"interaction_constraints": [[0, 1, 2], [3, 4, 5],
+                                                 [6, 7, 8, 9]]},
+    "contri_zero": {"feature_contri": [1, 0, 1, 1, 0.5, 1, 2, 1, 1, 1]},
+    "extra_trees": {"extra_trees": True},
+    "bynode": {"feature_fraction_bynode": 0.5},
+}
+
+
+@pytest.mark.parametrize("name", sorted(CONSTRAINED))
+def test_constrained_training_on_card_equals_cpu(dev, name):
+    """A constrained training on the card gives the same model text twice
+    and the CPU's with the kernel's sums (f32) or on its plain path (q8);
+    basic monotone runs the epilogue's monotone mode."""
+    import contextlib
+
+    import lightgbm_tpu_torch as lgb
+    extra = CONSTRAINED[name]
+    rng = np.random.RandomState(5)
+    n = 20_000
+    X = rng.randn(n, 10).astype(np.float32)
+    y = (X[:, 0] - X[:, 1] + X[:, 2] * X[:, 3] + np.sin(X[:, 4])
+         - 0.5 * X[:, 8] + 0.5 * rng.randn(n) > 0).astype(float)
+    q8 = extra.get("quantized_grad", False)
+    texts = {}
+    for d in ("cuda", "cuda_again", "cpu"):
+        p = dict({"objective": "binary", "num_leaves": 31, "verbosity": -1,
+                  "device_type": d.split("_")[0]}, **extra)
+        cuda_hist.reset_launch_counts()
+        with (cuda_hist.kernel_sums_on_cpu() if d == "cpu" and not q8
+              else contextlib.nullcontext()):
+            texts[d] = lgb.train(p, lgb.Dataset(X, label=y, params=p),
+                                 4).model_to_string()
+        if d == "cuda" and name.startswith("basic"):
+            counts = cuda_hist.launch_counts()
+            sfx = "_q8" if q8 else ""
+            assert counts["split_epilogue.launches_mono" + sfx] > 0
+            assert counts["split_epilogue.launches" + sfx] == 0
     assert texts["cuda"] == texts["cuda_again"]
     assert texts["cuda"] == texts["cpu"]

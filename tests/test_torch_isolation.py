@@ -84,13 +84,13 @@ def test_default_device_without_cuda_raises(monkeypatch):
     ("cegb_tradeoff", 0.5),
     ("gpu_use_dp", True),
     ("forcedsplits_filename", "forced.json"),
-    ("interaction_constraints", "[0,1],[2]"),
-    ("feature_fraction_bynode", 0.5),
+    ("cegb_penalty_split", 0.5),
+    ("forcedbins_filename", "bins.json"),
     ("linear_lambda", 0.1),
     ("linear_tree", True),
     ("tree_learner", "data"),
-    ("monotone_constraints", "1,0,0"),
-    ("extra_trees", True),
+    ("max_bin_by_feature", "15,31"),
+    ("cegb_penalty_feature_lazy", "1,0,2"),
     ("checkpoint_path", "ckpt"),
     ("group_column", "0"),
     ("early_stopping_round", 5),
@@ -99,6 +99,21 @@ def test_default_device_without_cuda_raises(monkeypatch):
 def test_unported_parameter_raises(key, value):
     with pytest.raises(NotImplementedError, match=key):
         lt.Config.from_params({key: value, "device_type": "cpu"})
+
+
+def test_gain_adjust_raises_naming_item_9():
+    """CEGB's per-(leaf, feature) gain adjustment is not ported: the
+    classic search refuses it, naming the item that brings it."""
+    from lightgbm_tpu_torch.ops import split
+    meta = split.feature_meta_from_mappers([])
+    params = split.SplitParams.from_config(
+        lt.Config.from_params({"device_type": "cpu"}))
+    one = torch.zeros((1,))
+    with pytest.raises(NotImplementedError, match="gain_adjust.*item 9"):
+        split.find_best_splits(torch.zeros((1, 1, 2, 3)), one, one, one, one,
+                               torch.zeros((1,), dtype=torch.int32), meta,
+                               params, torch.ones((1,), dtype=torch.bool),
+                               gain_adjust=torch.zeros((1, 1)))
 
 
 def test_group_column_raises_naming_item_12():
