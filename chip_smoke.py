@@ -167,7 +167,7 @@ extra_trees, by-node sampling), on train's 2M Higgs-shaped rows:
                   (0), one profiled iteration, and a monotonicity sweep
                   (1,000 valid rows x 60 points over each constrained
                   feature: 0 violations)
-  train_mono_modes the intermediate and advanced modes (3 rounds, one
+  train_mono_modes the intermediate and advanced modes (2 rounds, one
                   split a phase, the classic path): sec/iter, searches a
                   tree, AUC, the sweep, the host ms a phase of
                   intermediate_bounds and advanced_child_bounds, and
@@ -176,14 +176,56 @@ extra_trees, by-node sampling), on train's 2M Higgs-shaped rows:
   train_constraints interaction constraints of three groups (fused; no
                   tree path across groups), feature_contri with a 0 (the
                   feature never split on), extra_trees,
-                  feature_fraction_bynode 0.5; 3 rounds each
+                  feature_fraction_bynode 0.5; 2 rounds each
   parity_constraints basic f32 and q8, intermediate, advanced,
                   monotone_penalty 2, interactions, feature_contri
                   (positive, and with a 0), extra_trees, bynode at 50,000
-                  rows, 63 leaves, 3 rounds: two card runs and the CPU run
+                  rows, 63 leaves, 2 rounds: two card runs and the CPU run
                   in the kernels' orders give the same text; against the
                   CPU's plain run, equal text or the first differing tree
-                  and the leaf error before it
+                  (and its first differing node) and the leaf error
+                  before it
+
+The data layer (max_bin above 255 in the kernels' wide mode, int16 bins;
+scipy-sparse input with EFB, forced bins, max_bin_by_feature, forced
+splits, CEGB):
+
+  hist_wide       hist_tile's wide mode at N=--rows, F=28, B=1023: the
+                  root pass, the several-slot full form and both rungs
+                  (fused path), the plane-only full form and the larger
+                  rung (classic path), f32 and q8, with hist_phase's and
+                  hist_q8_phase's checks and times; the root and the
+                  larger rung at B=4095 (the cap's edge); the uint8 mode
+                  at B=255 on rows drawn the same way; no uint8 launch
+                  in the wide checks
+  epilogue_wide   split_epilogue at P=42, F=28, B=255, 1023 and 4095, f32
+                  and q8, unconstrained and monotone: bitwise its plain
+                  version and a second launch, each mode's own counter;
+                  ms, device ms a launch, plain ms, the bound
+  train_wide,     train's rows at max_bin 1023, the fused path, --rounds
+  train_wide_q8   rounds: sec/iter, device busy and idle share, valid AUC
+                  within 0.01 of train's (q8: of train_wide's), launches of
+                  the wide modes only
+  train_wide_classic the same with split_fusion=off, f32 and q8, 3 rounds:
+                  the plane-only wide forms
+  train_efb       Allstate-shaped CSR (docs/Experiments.rst; 4,228 one-hot
+                  and numerical columns, 30 nonzeros a row), rows cut from
+                  13,184,290 to 2,000,000 for the host's construct time:
+                  construct seconds, device columns after EFB (at most
+                  200), the bins' device bytes against the unbundled
+                  [4228, N] uint8, peak device memory, sec/iter, valid AUC
+                  (> 0.6), and predict on a 20,000-row valid slice from the
+                  raw sparse rows equal to the valid score cache
+  train_forced_cegb train's rows, 3 rounds each: a forced-splits JSON three
+                  levels deep (every tree starts with it), CEGB split +
+                  coupled and CEGB lazy (features used against an
+                  unpenalised run), max_bin_by_feature with a forced-bins
+                  JSON (the JSON files written to a temporary directory)
+  parity_data     wide fused f32, q8, classic, monotone f32 and q8, a
+                  400-category feature at max_bin 511, EFB on CSR, CSR
+                  unbundled, forced bins, max_bin_by_feature, forced
+                  splits, CEGB split, coupled and lazy, at 50,000 rows, 63
+                  leaves, 3 rounds: as parity_constraints
 
 and kernel 5, the experiment script's one-hot histogram:
 
@@ -416,13 +458,16 @@ def tile_selection(plane=False, root=False):
     return sel
 
 
-def hist_inputs(n, f, seed, integer, tile_leaves, share, hot=0.0, skew=0.0):
+def hist_inputs(n, f, seed, integer, tile_leaves, share, hot=0.0, skew=0.0,
+                b=B):
     """Random rows over LEAVES leaves, ``share`` of them in the tile's
     computed leaves; ``hot`` of the tile's rows in its first leaf, and
-    ``skew`` of all bins 0 (the rest uniform)."""
+    ``skew`` of all bins 0 (the rest uniform over ``b`` bins: uint8, or
+    int16 past 256 bins, the wide mode)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
-    binsT = torch.randint(0, B, (f, n), generator=g, device="cuda",
-                          dtype=torch.int32).to(torch.uint8)
+    binsT = torch.randint(0, b, (f, n), generator=g, device="cuda",
+                          dtype=torch.int32).to(
+        torch.uint8 if b <= 256 else torch.int16)
     if skew:
         binsT[torch.rand((f, n), generator=g, device="cuda") < skew] = 0
     others = torch.ones(LEAVES, dtype=torch.bool)
@@ -451,7 +496,7 @@ def hist_inputs(n, f, seed, integer, tile_leaves, share, hot=0.0, skew=0.0):
 
 
 def hist_phase(cuda_hist, n, m=None, seed=0, f=F, plane=False, real=0.9,
-               hot=0.0, skew=0.0, root=False, bins=None):
+               hot=0.0, skew=0.0, root=False, bins=None, b=B):
     """Kernel vs plain on integer-valued and float stats at the shapes of
     one main-path pass: the full form (``m`` None; 3/4 of the rows in the
     tile's computed slots) or the gather form over a rung of ``m`` rows
@@ -475,7 +520,7 @@ def hist_phase(cuda_hist, n, m=None, seed=0, f=F, plane=False, real=0.9,
     out = {}
     for integer in (True, False):
         binsT, leaf, stats = hist_inputs(n, f, seed, integer, tile_leaves,
-                                         share, hot, skew)
+                                         share, hot, skew, b)
         binsT = binsT if bins is None else bins
         amax = stats.abs().amax(0)
         in_tile = torch.isin(leaf, tile_leaves.cuda())
@@ -486,8 +531,8 @@ def hist_phase(cuda_hist, n, m=None, seed=0, f=F, plane=False, real=0.9,
                 raise AssertionError(f"{n_tile} tile rows overflow the "
                                      f"{m}-row rung")
             idx = compact_indices(in_tile, m)
-        args = (binsT, leaf, stats, chan, P, B, LEAVES, idx)
-        kargs = (binsT, leaf, stats, chan_h, P, B, LEAVES, idx)
+        args = (binsT, leaf, stats, chan, P, b, LEAVES, idx)
+        kargs = (binsT, leaf, stats, chan_h, P, b, LEAVES, idx)
         k = cuda_hist.hist_tile(*kargs, plane=plane, amax=amax)
         p = cuda_hist.hist_tile_plain(*args)
         torch.cuda.synchronize()
@@ -509,7 +554,7 @@ def hist_phase(cuda_hist, n, m=None, seed=0, f=F, plane=False, real=0.9,
                                  "plain PyTorch) on float stats")
         out["deterministic"] = True
         out["bitwise_vs_exact"] = True
-        mag = cuda_hist.hist_tile_plain(binsT, leaf, stats.abs(), chan, P, B,
+        mag = cuda_hist.hist_tile_plain(binsT, leaf, stats.abs(), chan, P, b,
                                         LEAVES, idx)
         # a cell's rows: its count channel (1 a row); the root's cells add
         # up to N rows, where the float32 plain sum's error passes 1e-5
@@ -531,17 +576,17 @@ def hist_phase(cuda_hist, n, m=None, seed=0, f=F, plane=False, real=0.9,
         slot_of_leaf[tile_leaves.long().cuda()] = \
             torch.nonzero(sel >= 0).reshape(-1).cuda()
         s = slot_of_leaf[leaf[r].long()]
-        flat = ((s[:, None] * f + torch.arange(f, device="cuda")[None, :]) * B
+        flat = ((s[:, None] * f + torch.arange(f, device="cuda")[None, :]) * b
                 + binsT[:, r].T.long()).reshape(-1)
         contrib = stats[r][:, None, :].expand(r.shape[0], f, 3).reshape(-1, 3)
-        acc = torch.zeros((P * f * B, 3), device="cuda")
+        acc = torch.zeros((P * f * b, 3), device="cuda")
         out["library_ms"] = time_ms(lambda: acc.index_add_(0, flat, contrib))
         # least traffic: the row-index buffer (gather form), the leaf id of
         # every row it names, the bins and stats of the tile's rows, the
         # planes written once; one add per (tile row, feature, stat)
         scanned = n if idx is None else n_tile
         nbytes = (0 if idx is None else 4 * m) + 4 * scanned \
-            + n_tile * (f + 12) + P * f * B * 3 * 4
+            + n_tile * (f * binsT.element_size() + 12) + P * f * b * 3 * 4
         out["bound_ms"], out["bound_by"] = bound(nbytes, 3 * n_tile * f)
         out["rows"], out["tile_rows"] = (n if m is None else m), n_tile
     return out
@@ -734,9 +779,9 @@ def parent_times(parent_dir: str, n: int, valid_rows: int, seed: int):
 EPI_LAUNCHES = 50    # epilogue launches in one profile, each on a cold L2
 
 
-def epilogue_inputs(cuda_hist, seed=0, q8=False, f=F):
+def epilogue_inputs(cuda_hist, seed=0, q8=False, f=F, b=B):
     """The epilogue's arguments at the main path's P=42, F=28 (or ``f``),
-    B=255: the derived odd slots, random planes (f32: grad N(0,1), hess
+    B=255 (or ``b`` bins): the derived odd slots, random planes (f32: grad N(0,1), hess
     U(0,1), count 1 per row; q8: the int32 sums of int8 stats, a
     non-trivial q_scale, the derived slots' parents dequantized as
     resident), features with fewer bins and the NaN and Zero missing
@@ -745,20 +790,20 @@ def epilogue_inputs(cuda_hist, seed=0, q8=False, f=F):
     if q8:
         g = torch.Generator(device="cuda").manual_seed(seed + 7)
         q_scale = torch.tensor([0.0173, 0.00291, 1.0], device="cuda")
-        tile = torch.zeros((P, f, B, 3), dtype=torch.int32, device="cuda")
+        tile = torch.zeros((P, f, b, 3), dtype=torch.int32, device="cuda")
     else:
         g = torch.Generator(device="cuda").manual_seed(seed)
-        tile = torch.zeros((P, f, B, 3), device="cuda")
-    parent = torch.zeros((P, f, B, 3), device="cuda")
+        tile = torch.zeros((P, f, b, 3), device="cuda")
+    parent = torch.zeros((P, f, b, 3), device="cuda")
     derive = torch.zeros(P, dtype=torch.bool)
     derive[1::2] = True
     for p in range(P):
-        cnt = torch.randint(0, 40, (f, B), generator=g, device="cuda")
+        cnt = torch.randint(0, 40, (f, b), generator=g, device="cuda")
         if q8:
             plane = torch.stack([
-                torch.randint(-127, 128, (f, B), generator=g,
+                torch.randint(-127, 128, (f, b), generator=g,
                               device="cuda") * cnt,
-                torch.randint(0, 128, (f, B), generator=g, device="cuda")
+                torch.randint(0, 128, (f, b), generator=g, device="cuda")
                 * cnt, cnt], -1).to(torch.int32)
             if derive[p]:
                 parent[p] = (plane + tile[p - 1]).to(torch.float32) * q_scale
@@ -766,8 +811,8 @@ def epilogue_inputs(cuda_hist, seed=0, q8=False, f=F):
                 tile[p] = plane
             continue
         cnt = cnt.to(torch.float32)
-        gsum = torch.randn((f, B), generator=g, device="cuda") * cnt.sqrt()
-        hsum = torch.rand((f, B), generator=g, device="cuda") * cnt
+        gsum = torch.randn((f, b), generator=g, device="cuda") * cnt.sqrt()
+        hsum = torch.rand((f, b), generator=g, device="cuda") * cnt
         plane = torch.stack([gsum, hsum, cnt], -1)
         if derive[p]:
             parent[p] = plane + tile[p - 1]
@@ -779,7 +824,7 @@ def epilogue_inputs(cuda_hist, seed=0, q8=False, f=F):
     s = full[:, 0].sum(1)                                   # [P, 3]
     la = cuda_hist.pack_leaf_aux(s[:, 0], s[:, 1], s[:, 2],
                                  -0.1 * s[:, 0] / (s[:, 1] + 1)).cuda()
-    nb = torch.full((f,), B, dtype=torch.int32)
+    nb = torch.full((f,), b, dtype=torch.int32)
     nb[3], nb[7] = 64, 2
     mt = torch.zeros(f, dtype=torch.int32)
     mt[5], mt[6] = 2, 1                                     # NaN, Zero
@@ -804,9 +849,10 @@ def epilogue_device_ms(cuda_hist, args):
                      cold_each=True)[0]
 
 
-def epilogue_bound(der, q8: bool, f: int = F, mono: bool = False):
-    """The epilogue's bound at P, F, B on derive lanes ``der`` (slot p at
-    lane 3p): the bytes it must move are the tile planes it reads (each
+def epilogue_bound(der, q8: bool, f: int = F, mono: bool = False,
+                   b: int = B):
+    """The epilogue's bound at P, F, B (or ``f``, ``b``) on derive lanes
+    ``der`` (slot p at lane 3p): the bytes it must move are the tile planes it reads (each
     computed slot's, also the sibling of a derived slot), the derived
     slots' parent planes, every full plane written once, and the small
     tables; 60 float operations a bin (61 in q8, the dequant; MONO_OPS
@@ -814,10 +860,10 @@ def epilogue_bound(der, q8: bool, f: int = F, mono: bool = False):
     derive = (der[0, 0:3 * P:3] != 0).tolist()
     tiles = {p - 1 if d else p for p, d in enumerate(derive)} - {-1}
     planes = len(tiles) + sum(derive) + P
-    nbytes = planes * f * B * 3 * 4 + P * f * 12 * 4 + P * 8 * 4 \
+    nbytes = planes * f * b * 3 * 4 + P * f * 12 * 4 + P * 8 * 4 \
         + f * 8 * 4 + 8 * 4 + (12 if q8 else 0)
     return bound(nbytes, ((61 if q8 else 60) + (MONO_OPS if mono else 0))
-                 * P * f * B)
+                 * P * f * b)
 
 
 def epilogue_phase(cuda_hist, seed=0):
@@ -856,7 +902,7 @@ def q8_stats(n: int, seed: int) -> torch.Tensor:
 
 
 def hist_q8_phase(cuda_hist, n, m=None, seed=0, f=F, plane=False, real=0.9,
-                  hot=0.0, skew=0.0, root=False, bins=None):
+                  hot=0.0, skew=0.0, root=False, bins=None, b=B):
     """The q8 form (int8 stats, exact int32 planes) at the shapes of one
     main-path or classic-path pass, as hist_phase: bitwise vs the plain
     version and vs a second launch."""
@@ -867,7 +913,7 @@ def hist_q8_phase(cuda_hist, n, m=None, seed=0, f=F, plane=False, real=0.9,
     chan = chan_h.cuda()
     share = 1.0 if root else 0.75 if m is None else real * m / n
     binsT, leaf, _ = hist_inputs(n, f, seed, True, tile_leaves, share, hot,
-                                 skew)
+                                 skew, b)
     binsT = binsT if bins is None else bins
     stats = q8_stats(n, seed)
     in_tile = torch.isin(leaf, tile_leaves.cuda())
@@ -878,8 +924,8 @@ def hist_q8_phase(cuda_hist, n, m=None, seed=0, f=F, plane=False, real=0.9,
             raise AssertionError(f"{n_tile} tile rows overflow the {m}-row "
                                  f"rung")
         idx = compact_indices(in_tile, m)
-    args = (binsT, leaf, stats, chan, P, B, LEAVES, idx)
-    kargs = (binsT, leaf, stats, chan_h, P, B, LEAVES, idx)
+    args = (binsT, leaf, stats, chan, P, b, LEAVES, idx)
+    kargs = (binsT, leaf, stats, chan_h, P, b, LEAVES, idx)
     k = cuda_hist.hist_tile(*kargs, plane=plane)
     again = cuda_hist.hist_tile(*kargs, plane=plane)
     p = cuda_hist.hist_tile_plain(*args)
@@ -903,18 +949,18 @@ def hist_q8_phase(cuda_hist, n, m=None, seed=0, f=F, plane=False, real=0.9,
     slot_of_leaf[tile_leaves.long().cuda()] = \
         torch.nonzero(sel >= 0).reshape(-1).cuda()
     s = slot_of_leaf[leaf[r].long()]
-    flat = ((s[:, None] * f + torch.arange(f, device="cuda")[None, :]) * B
+    flat = ((s[:, None] * f + torch.arange(f, device="cuda")[None, :]) * b
             + binsT[:, r].T.long()).reshape(-1)
     contrib = stats[r].to(torch.int32)[:, None, :].expand(
         r.shape[0], f, 3).reshape(-1, 3)
-    acc = torch.zeros((P * f * B, 3), dtype=torch.int32, device="cuda")
+    acc = torch.zeros((P * f * b, 3), dtype=torch.int32, device="cuda")
     out["library_ms"] = time_ms(lambda: acc.index_add_(0, flat, contrib))
     # least traffic: the row-index buffer (gather form), the leaf id of
     # every row it names, the bins and 3 int8 stats of the tile's rows,
     # the int32 planes written once; one add per (tile row, feature, stat)
     scanned = n if idx is None else n_tile
     nbytes = (0 if idx is None else 4 * m) + 4 * scanned \
-        + n_tile * (f + 3) + P * f * B * 3 * 4
+        + n_tile * (f * binsT.element_size() + 3) + P * f * b * 3 * 4
     out["bound_ms"], out["bound_by"] = bound(nbytes, 3 * n_tile * f)
     out["rows"], out["tile_rows"] = (n if m is None else m), n_tile
     return out
@@ -2159,7 +2205,10 @@ MONO_LIST = [MONO.get(j, 0) for j in range(28)]
 MONO_OPS = 24          # the monotone mode's further operations a bin: two
                        # clips a side and the direction test, both scans
 SWEEP_ROWS, SWEEP_POINTS = 1_000, 60
-CONSTRAINED_ROUNDS = 3   # train_mono_modes' and train_constraints' rounds
+# train_mono_modes' and train_constraints' rounds: 2, cut from 3 when the
+# data layer's phases came in, to keep the whole script near its earlier
+# length (the exact modes' 254 searches a tree are the costly part)
+CONSTRAINED_ROUNDS = 2
                          # (the exact modes grow one split a phase)
 
 
@@ -2563,46 +2612,515 @@ PARITY_CONSTRAINTS = {
 }
 
 
-def parity_constraints_phase(lgb, seed):
-    """Each constrained run at 50,000 Higgs-shaped rows, 63 leaves, 3
-    rounds, twice on the card and on the CPU in the kernels' orders
-    (kernel_sums_on_cpu; q8: the plain path, whose int32 sums are exact):
-    the three texts equal. Against the CPU's plain run (float32 sums in
-    the JAX package's order): equal text, or the first tree whose
-    structure differs and the leaf error before it."""
+def parity_texts(lgb, name, setup, q8, rounds: int = PARITY_ROUNDS):
+    """One parity run, twice on the card and on the CPU in the kernels'
+    orders (kernel_sums_on_cpu; q8: the plain path, whose int32 sums are
+    exact): the three texts must be equal. Against the CPU's plain run
+    (float32 sums in the JAX package's order): equal text, or the first
+    tree whose structure differs and the leaf error before it. Also the
+    first card run's launch counts (the nonzero ones)."""
     from lightgbm_tpu_torch.io.model_text import load_model
     from lightgbm_tpu_torch.ops import cuda_hist
+    cuda_hist.reset_launch_counts()
+    texts = {"cuda": parity_text(lgb, setup, "cuda", rounds)}
+    launches = {k: v for k, v in cuda_hist.launch_counts().items() if v}
+    texts["cuda_again"] = parity_text(lgb, setup, "cuda", rounds)
+    with (contextlib.nullcontext() if q8
+          else cuda_hist.kernel_sums_on_cpu()):
+        texts["cpu_kernel_order"] = parity_text(lgb, setup, "cpu", rounds)
+    texts["cpu"] = (texts["cpu_kernel_order"] if q8
+                    else parity_text(lgb, setup, "cpu", rounds))
+    sc, sp = _structure(texts["cuda"]), _structure(texts["cpu"])
+    diverge = next((i for i, (a, b) in enumerate(zip(sc, sp)) if a != b),
+                   None)
+    tc, tp = (load_model(texts[k]).trees for k in ("cuda", "cpu"))
+    tc, tp = list(tc), list(tp)
+    upto = len(tc) if diverge is None else diverge
+    node = None
+    if diverge is not None and diverge < min(len(tc), len(tp)):
+        a, b = tc[diverge], tp[diverge]
+        k = next((i for i in range(min(len(a.split_feature),
+                                       len(b.split_feature)))
+                  if (a.split_feature[i], a.threshold[i],
+                      a.decision_type[i]) != (b.split_feature[i],
+                                              b.threshold[i],
+                                              b.decision_type[i])), None)
+        if k is not None:
+            node = {"node": k, "card": [int(a.split_feature[k]),
+                                        float(a.threshold[k]),
+                                        bool(a.decision_type[k] & 1)],
+                    "cpu": [int(b.split_feature[k]), float(b.threshold[k]),
+                            bool(b.decision_type[k] & 1)],
+                    "card_gain": float(a.split_gain[k]),
+                    "cpu_gain": float(b.split_gain[k])}
+    res = {"card_runs_identical_text": texts["cuda"] == texts["cuda_again"],
+           "card_equals_cpu_kernel_order":
+           texts["cuda"] == texts["cpu_kernel_order"],
+           "card_equals_cpu_plain": texts["cuda"] == texts["cpu"],
+           "first_divergent_tree_vs_cpu_plain": diverge,
+           "first_divergent_node": node,
+           "max_leaf_abs_err_before_divergence": max(
+               [float(np.abs(a.leaf_value - b.leaf_value).max())
+                for a, b in zip(tc[:upto], tp[:upto])] or [0.0]),
+           "card_text_sha256": _sha(texts["cuda"]), "launches": launches}
+    if not (res["card_runs_identical_text"]
+            and res["card_equals_cpu_kernel_order"]):
+        raise AssertionError(f"{name}: {res}")
+    if q8 and not res["card_equals_cpu_plain"]:
+        raise AssertionError(f"{name}: the q8 card text differs from the "
+                             f"CPU's plain run: {res}")
+    return res
+
+
+# parity_constraints' rounds: 2, cut from PARITY_ROUNDS when the data
+# layer's phases came in (the exact modes' CPU runs are the costly part)
+PARITY_CONSTRAINTS_ROUNDS = 2
+
+
+def parity_constraints_phase(lgb, seed):
+    """Each constrained run at 50,000 Higgs-shaped rows, 63 leaves,
+    PARITY_CONSTRAINTS_ROUNDS rounds (parity_texts)."""
     X, y = higgs_like(PARITY_ROWS, seed + 29)
-    out = {"rows": PARITY_ROWS, "num_leaves": 63, "rounds": PARITY_ROUNDS}
+    out = {"rows": PARITY_ROWS, "num_leaves": 63,
+           "rounds": PARITY_CONSTRAINTS_ROUNDS}
     for name, extra in PARITY_CONSTRAINTS.items():
         setup = (X, y, dict(PARAMS, num_leaves=63, **extra), {})
-        q8 = bool(extra.get("quantized_grad"))
-        texts = {run: parity_text(lgb, setup, "cuda")
-                 for run in ("cuda", "cuda_again")}
-        with (contextlib.nullcontext() if q8
-              else cuda_hist.kernel_sums_on_cpu()):
-            texts["cpu_kernel_order"] = parity_text(lgb, setup, "cpu")
-        texts["cpu"] = (texts["cpu_kernel_order"] if q8
-                        else parity_text(lgb, setup, "cpu"))
-        sc, sp = _structure(texts["cuda"]), _structure(texts["cpu"])
-        diverge = next((i for i, (a, b) in enumerate(zip(sc, sp)) if a != b),
-                       None)
-        tc, tp = (load_model(texts[k]).trees for k in ("cuda", "cpu"))
-        upto = len(tc) if diverge is None else diverge
-        res = {"card_runs_identical_text":
-               texts["cuda"] == texts["cuda_again"],
-               "card_equals_cpu_kernel_order":
-               texts["cuda"] == texts["cpu_kernel_order"],
-               "card_equals_cpu_plain": texts["cuda"] == texts["cpu"],
-               "first_divergent_tree_vs_cpu_plain": diverge,
-               "max_leaf_abs_err_before_divergence": max(
-                   [float(np.abs(a.leaf_value - b.leaf_value).max())
-                    for a, b in zip(tc[:upto], tp[:upto])] or [0.0]),
-               "card_text_sha256": _sha(texts["cuda"])}
-        if not (res["card_runs_identical_text"]
-                and res["card_equals_cpu_kernel_order"]):
-            raise AssertionError(f"parity_constraints/{name}: {res}")
+        res = parity_texts(lgb, f"parity_constraints/{name}", setup,
+                           bool(extra.get("quantized_grad")),
+                           PARITY_CONSTRAINTS_ROUNDS)
+        res.pop("launches")
         out[name] = res
+    return out
+
+
+# ------------------------------------------------------------- data layer
+WIDE_B = 1023            # max_bin 1023: the wide mode's main-path bins
+WIDE_STRESS_B = 4095     # one f32 plane of 98 KB a feature: the cap's edge
+WIDE_ROUNDS = 3          # train_wide_classic's, train_forced_cegb's rounds
+MONO_DIRS = torch.tensor([1.0, -1.0, 0.0])
+
+
+def hist_wide_phase(cuda_hist, n, seed):
+    """hist_tile's wide mode (int16 bins) at N=n, F=28, B=1023: the root
+    pass, the several-slot full form and both rungs of the fused path,
+    the plane-only full form (42 slots) and larger rung of the classic
+    path, f32 and q8 (hist_phase / hist_q8_phase: bitwise its own
+    arithmetic or exact sums, two launches equal, times, bound and one
+    index_add_); the root and the larger rung at B = 4095 (the stress
+    input: one feature's f32 plane of 98 KB); and the uint8 mode at B = 255
+    on rows drawn the same way (root and rungs), to show it did not move.
+    The launches are counted from 0 around the phase: the wide checks
+    must launch only wide modes."""
+    rungs = ladder_rungs(n)
+    out = {}
+    cuda_hist.reset_launch_counts()
+    for mode, fn in (("f32", hist_phase), ("q8", hist_q8_phase)):
+        res = {"b1023": {"root": fn(cuda_hist, n, seed=seed, root=True,
+                                    b=WIDE_B),
+                         "full": fn(cuda_hist, n, seed=seed, b=WIDE_B),
+                         **{f"rung_{m}": fn(cuda_hist, n, m, seed=seed,
+                                            b=WIDE_B) for m in rungs}},
+               "plane_b1023": {"full": fn(cuda_hist, n, seed=seed, f=F,
+                                          plane=True, b=WIDE_B),
+                               f"rung_{rungs[-1]}": fn(
+                                   cuda_hist, n, rungs[-1], seed=seed,
+                                   plane=True, b=WIDE_B)},
+               "b4095": {"root": fn(cuda_hist, n, seed=seed, root=True,
+                                    b=WIDE_STRESS_B),
+                         f"rung_{rungs[-1]}": fn(cuda_hist, n, rungs[-1],
+                                                 seed=seed,
+                                                 b=WIDE_STRESS_B)}}
+        counts = cuda_hist.launch_counts()
+        narrow = sum(v for k, v in counts.items()
+                     if k.startswith("hist_tile.") and "_wide" not in k)
+        if narrow or not counts["hist_tile.launches_wide"
+                                + ("_q8" if mode == "q8" else "")]:
+            raise AssertionError(f"the wide checks launched a uint8 form or "
+                                 f"no wide one: {counts}")
+        res["b255"] = {"root": fn(cuda_hist, n, seed=seed, root=True),
+                       **{f"rung_{m}": fn(cuda_hist, n, m, seed=seed)
+                          for m in rungs}}
+        cuda_hist.reset_launch_counts()
+        out[mode] = res
+    return out
+
+
+def epilogue_wide_phase(cuda_hist, seed=0):
+    """split_epilogue's wide mode at P=42, F=28, B = 1023 and 4095, f32 and
+    q8, unconstrained and monotone (each slot's bounds +-0.02, directions
+    +1, -1, 0 over the features), with the B = 255 mode beside it on
+    inputs made the same way: bitwise its plain version and a second
+    launch, each launch counted in its own mode's counter; ms, device ms
+    a launch (50 a profile, each on a cold L2), plain ms, the bound."""
+    out = {}
+    for b in (B, WIDE_B, WIDE_STRESS_B):
+        for q8 in (False, True):
+            base = epilogue_inputs(cuda_hist, seed, q8=q8, b=b)
+            for mono in (False, True):
+                args = list(base[:6])
+                if mono:
+                    args[3] = args[3].clone()
+                    args[3][:, 4], args[3][:, 5] = -0.02, 0.02
+                    args[4] = args[4].clone()
+                    args[4][:, 3] = MONO_DIRS.repeat(F // 3 + 1)[:F].cuda()
+                qs = base[6] if q8 else None
+
+                def call(a=args, qs=qs, mono=mono):
+                    return cuda_hist.split_epilogue(*a, qs,
+                                                    with_monotone=mono)
+
+                cuda_hist.reset_launch_counts()
+                kf, kc = call()
+                kf2, kc2 = call()
+                name = ("split_epilogue.launches"
+                        + ("_wide" if b > 256 else "")
+                        + ("_mono" if mono else "") + ("_q8" if q8 else ""))
+                counts = cuda_hist.launch_counts()
+                pf, pc = cuda_hist.split_epilogue_plain(*args, qs,
+                                                        with_monotone=mono)
+                torch.cuda.synchronize()
+                for x, y in ((kc, pc), (kf, pf), (kc, kc2), (kf, kf2)):
+                    if not torch.equal(x.view(torch.int32),
+                                       y.view(torch.int32)):
+                        raise AssertionError(
+                            f"split_epilogue at B={b} (q8 {q8}, monotone "
+                            f"{mono}) is not bitwise its plain version and "
+                            f"a second launch")
+                if counts[name] != 2 or sum(counts.values()) != 2:
+                    raise AssertionError(f"{name}: {counts}")
+                valid = int(torch.isfinite(kc[..., 0]).sum())
+                if valid == 0:
+                    raise AssertionError(f"no valid candidate at B={b}")
+                bms, by = epilogue_bound(args[2], q8, mono=mono, b=b)
+                out[f"b{b}" + ("_q8" if q8 else "")
+                    + ("_mono" if mono else "")] = {
+                    "bitwise_vs_plain": True, "deterministic": True,
+                    "max_abs_err": float((kc - pc).nan_to_num(0.0).abs()
+                                         .max()),
+                    "valid_candidates": valid, "ms": time_ms(call),
+                    "device_ms": device_ms(
+                        call, per_profile=EPI_LAUNCHES,
+                        need="split_epilogue", cold_each=True)[0],
+                    "plain_ms": time_ms(
+                        lambda: cuda_hist.split_epilogue_plain(
+                            *args, qs, with_monotone=mono),
+                        reps=3 if b > WIDE_B else 10, warm=1),
+                    "library_ms": None, "bound_ms": bms, "bound_by": by}
+    return out
+
+
+def _launch_sums(launches):
+    """(launches of the wide modes, launches of the uint8 modes) of
+    hist_tile and split_epilogue."""
+    wide = sum(v for k, v in launches.items() if "_wide" in k)
+    narrow = sum(v for k, v in launches.items()
+                 if k.startswith(("hist_tile.", "split_epilogue."))
+                 and "_wide" not in k)
+    return wide, narrow
+
+
+def train_wide_phase(lgb, cuda_hist, args, ref_auc, q8=False,
+                     classic=False):
+    """train's rows at max_bin 1023 (the wide mode, int16 bins): the fused
+    path in --rounds rounds, or with ``classic`` (split_fusion=off)
+    WIDE_ROUNDS; sec/iter, device busy and idle share (one profiled
+    iteration), valid AUC (within 0.01 of ``ref_auc``: train's run for
+    the f32 fused path, train_wide's for q8), launches by mode: the wide
+    modes only, never a uint8 one."""
+    extra = {"max_bin": WIDE_B}
+    if q8:
+        extra["quantized_grad"] = True
+    if classic:
+        extra["split_fusion"] = "off"
+    rounds = WIDE_ROUNDS if classic else args.rounds
+    booster, out, launches = constrained_train(
+        lgb, cuda_hist, args, extra, rounds, profile=not classic)
+    sfx = "_wide" + ("_q8" if q8 else "")
+    wide, narrow = _launch_sums(launches)
+    ts = booster._boosting.train_set
+    out.update(num_bins=ts.max_num_bins, bins_dtype=str(ts.binsT.dtype),
+               wide_launches=wide, uint8_launches=narrow)
+    need = (["hist_tile.launches_plane" + sfx, "hist_tile.gather_launches"
+             + sfx] if classic else
+            ["hist_tile.launches" + sfx, "hist_tile.gather_launches" + sfx,
+             "split_epilogue.launches" + sfx])
+    if narrow or any(launches[k] <= 0 for k in need) or \
+            out["split_fusion"] == classic or ts.max_num_bins <= 256:
+        raise AssertionError(f"the wide run left its path or mode: {out}")
+    if not classic and abs(out["valid_auc"] - ref_auc) > 0.01:
+        raise AssertionError(f"wide valid AUC {out['valid_auc']} not within "
+                             f"0.01 of {ref_auc}")
+    return out, launches
+
+
+# Allstate-shaped rows (docs/Experiments.rst: Allstate Claim Prediction,
+# 13,184,290 rows x 4,228 one-hot columns): 25 categorical source fields
+# one-hot encoded into 4,223 columns, plus 5 dense numerical columns; 30
+# nonzeros a row
+ALLSTATE_CARD = (2, 3, 3, 4, 5, 7, 8, 10, 12, 15, 20, 25, 32, 40, 50, 64,
+                 80, 100, 128, 160, 200, 300, 450, 900, 1605)
+ALLSTATE_NUM = 5
+ALLSTATE_COLS = sum(ALLSTATE_CARD) + ALLSTATE_NUM       # 4,228
+EFB_MAX_COLUMNS = 200    # the JAX package's bar (tests/test_efb.py:183-200)
+
+
+def allstate_like(n: int, seed: int, cards=ALLSTATE_CARD):
+    """CSR rows of Allstate's shape: each row one category of each of the
+    ``cards`` fields (Zipf-skewed, exponent 1.1) and ALLSTATE_NUM normal
+    columns, float32; a binary label from per-category effects and the
+    numerical columns plus logistic noise."""
+    import scipy.sparse as sps
+    rng = np.random.RandomState(seed)
+    fields = len(cards)
+    width = fields + ALLSTATE_NUM
+    idx = np.empty((n, width), np.int32)
+    z = np.zeros(n)
+    off = 0
+    for k, card in enumerate(cards):
+        p = 1.0 / np.arange(1, card + 1) ** 1.1
+        cat = rng.choice(card, n, p=p / p.sum())
+        z += np.random.RandomState(seed * 7919 + k).normal(0, 0.5, card)[cat]
+        idx[:, k] = off + cat
+        off += card
+    num = rng.standard_normal((n, ALLSTATE_NUM)).astype(np.float32)
+    idx[:, fields:] = off + np.arange(ALLSTATE_NUM)
+    data = np.ones((n, width), np.float32)
+    data[:, fields:] = num
+    z += num @ np.linspace(0.8, -0.4, ALLSTATE_NUM)
+    z += rng.logistic(0.0, 1.0, n) * 0.7
+    X = sps.csr_matrix((data.reshape(-1), idx.reshape(-1),
+                        np.arange(0, n * width + 1, width, dtype=np.int64)),
+                       shape=(n, off + ALLSTATE_NUM))
+    return X, (z > np.median(z)).astype(np.float64)
+
+
+def device_bytes(ds) -> int:
+    """Bytes of a Dataset's bin matrix on the device: the dense columns
+    and the sparse columns' streams."""
+    out = ds.binsT.numel() * ds.binsT.element_size()
+    if ds.has_sparse_cols:
+        out += sum(t.numel() * t.element_size()
+                   for t in (ds.sp_rows, ds.sp_bins, ds.sp_default))
+    return int(out)
+
+
+def train_efb_phase(lgb, cuda_hist, args, rows: int = 2_000_000,
+                    predict_rows: int = 20_000):
+    """EFB on Allstate-shaped CSR rows (4,228 columns; rows cut from
+    13,184,290 to ``rows`` for the host's construct time), binary, 255
+    leaves, --rounds rounds: construct seconds (the scipy input never
+    densified), the device columns after bundling (at most 200), the bin
+    matrix's device bytes against the unbundled [4228, N] uint8, peak
+    device memory, sec/iter, valid AUC (> 0.6) on 200,000 more rows built
+    on the bundled reference, and predict on a 20,000-row valid slice
+    from the raw sparse rows (model trees, in row chunks), equal to the
+    valid scores' cache within 1e-4."""
+    t0 = time.time()
+    X, y = allstate_like(rows + args.valid_rows, args.seed + 41)
+    Xv, yv = X[rows:], y[rows:]
+    X, y = X[:rows], y[:rows]
+    t_data = time.time() - t0
+    params = dict(PARAMS, device_type="cuda")
+    train = lgb.Dataset(X, label=y, params=params)
+    valid = lgb.Dataset(Xv, label=yv, reference=train)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    train.construct()
+    torch.cuda.synchronize()
+    t_construct = time.time() - t0
+    valid.construct()
+    cols = train.num_used_features()
+    evals = {}
+    cuda_hist.reset_launch_counts()
+    t0 = time.time()
+    booster = lgb.train(params, train, args.rounds, valid_sets=[valid],
+                        valid_names=["valid"], evals_result=evals)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = cuda_hist.launch_counts()
+    gb = booster._boosting
+    t0 = time.time()
+    pred = booster.predict(Xv[:predict_rows], raw_score=True)
+    t_pred = time.time() - t0
+    cache = gb._valid_scores[0][:predict_rows].cpu().numpy()
+    out = {"rows": rows, "rows_cut_from": 13_184_290,
+           "valid_rows": args.valid_rows, "columns": ALLSTATE_COLS,
+           "nnz_per_row": len(ALLSTATE_CARD) + ALLSTATE_NUM,
+           "rounds": args.rounds, "data_s": t_data,
+           "construct_s": t_construct, "used_features":
+           len(train.used_features), "device_columns": cols,
+           "bundles": sum(len(b.members) > 1 for b in train.bundles),
+           "sparse_stream_columns": int(len(train.sp_cols))
+           if train.has_sparse_cols else 0,
+           "bins_device_bytes": device_bytes(train),
+           "unbundled_uint8_bytes": ALLSTATE_COLS * rows,
+           "peak_device_bytes": torch.cuda.max_memory_allocated(),
+           "sec_per_iter": wall / args.rounds,
+           "valid_auc": evals["valid"]["auc"][-1],
+           "split_fusion": gb._split_fusion_on(),
+           "predict_rows": predict_rows, "predict_s": t_pred,
+           "predict_vs_valid_cache_max_abs": float(np.abs(pred - cache).max()),
+           "launches": {k: v for k, v in launches.items() if v},
+           "leaves_last_tree": gb.host_trees[-1].num_leaves}
+    if not (cols <= EFB_MAX_COLUMNS and out["valid_auc"] > 0.6
+            and out["predict_vs_valid_cache_max_abs"] <= 1e-4
+            and not out["split_fusion"]
+            and launches["hist_tile.launches_plane"] > 0):
+        raise AssertionError(f"train_efb: {out}")
+    return out
+
+
+def forced_tree(X):
+    """A forced-splits JSON three levels deep (seven nodes) on train's
+    columns, each at its column's median: (the JSON object, the preorder
+    features)."""
+    feats = [21, 24, 0, 26, 2, 9, 5]
+
+    def node(k):
+        j = feats[k]
+        out = {"feature": j, "threshold": float(np.median(X[:20000, j]))}
+        if 2 * k + 1 < len(feats):
+            out["left"] = node(2 * k + 1)
+            out["right"] = node(2 * k + 2)
+        return out
+
+    order = []
+
+    def pre(k):
+        if k < len(feats):
+            order.append(feats[k])
+            pre(2 * k + 1)
+            pre(2 * k + 2)
+
+    pre(0)
+    return node(0), order
+
+
+def _features_used(booster):
+    return sorted({int(f) for ht in booster._boosting.host_trees
+                   for f in ht.feature_indices[ht.split_feature]})
+
+
+def train_forced_cegb_phase(lgb, cuda_hist, args):
+    """On train's rows, WIDE_ROUNDS rounds each (the classic path): a
+    forced-splits JSON three levels deep, written by the script to a
+    temporary directory (every tree must start with those seven splits in
+    preorder); CEGB with split and coupled penalties, and CEGB lazy
+    (``row_used`` [2M, 28] bool on the device), each with the distinct
+    features used against an unpenalised run; max_bin_by_feature with a
+    forced-bins JSON. sec/iter of each."""
+    import tempfile
+    X, y, _, _ = higgs_rows(args)
+    tree, order = forced_tree(X)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        fs = os.path.join(tmp, "forced_splits.json")
+        fb = os.path.join(tmp, "forced_bins.json")
+        with open(fs, "w") as fh:
+            json.dump(tree, fh)
+        with open(fb, "w") as fh:
+            json.dump([{"feature": 21, "bin_upper_bound":
+                        [float(v) for v in np.quantile(X[:20000, 21],
+                                                       [0.1, 0.5, 0.9])]},
+                       {"feature": 0, "bin_upper_bound": [0.5, 1.0, 2.0]}],
+                      fh)
+        runs = {
+            "unpenalised": {},
+            "forced_splits": {"forcedsplits_filename": fs},
+            "cegb": {"cegb_penalty_split": 1e-6,
+                     "cegb_penalty_feature_coupled": [
+                         0.0 if j in (21, 24, 26) else 2e4
+                         for j in range(F)]},
+            "cegb_lazy": {"cegb_penalty_feature_lazy": [
+                0.0 if j in (21, 24, 26) else 1e-3 for j in range(F)]},
+            "bins": {"max_bin_by_feature": [63 if j % 2 else 255
+                                            for j in range(F)],
+                     "forcedbins_filename": fb}}
+        for name, extra in runs.items():
+            booster, res, _ = constrained_train(lgb, cuda_hist, args, extra,
+                                                WIDE_ROUNDS)
+            res["features_used"] = len(_features_used(booster))
+            res.pop("params")
+            if name == "forced_splits":
+                tops = [list(ht.feature_indices[ht.split_feature[:7]])
+                        for ht in booster._boosting.host_trees]
+                res["forced_at_top"] = all(t == order for t in tops)
+                if not res["forced_at_top"]:
+                    raise AssertionError(f"forced splits not at the top: "
+                                         f"{tops[:3]} vs {order}")
+            if name.startswith("cegb"):
+                res["features_used_unpenalised"] = \
+                    out["unpenalised"]["features_used"]
+                state = booster._boosting._cegb.state
+                if state["row_used"] is not None:
+                    res["row_used_bytes"] = state["row_used"].numel()
+            out[name] = res
+    return out
+
+
+PARITY_DATA_ROWS = PARITY_ROWS
+
+
+def parity_data_setups(seed: int, tmp: str):
+    """The data layer's parity runs at PARITY_DATA_ROWS rows, 63 leaves:
+    name -> (X, y, params, Dataset keywords)."""
+    X, y = higgs_like(PARITY_DATA_ROWS, seed + 43)
+    base = dict(PARAMS, num_leaves=63)
+    Xc = X.copy()
+    rng = np.random.RandomState(seed + 47)
+    Xc[:, 3] = rng.randint(0, 400, PARITY_DATA_ROWS)
+    yc = ((y + (Xc[:, 3] % 5 == 0)) > 0.5).astype(np.float64)
+    # the first 14 fields (241 columns): the unbundled run's [63, F, B, 3]
+    # planes stay small on the CPU
+    Xs, ys = allstate_like(PARITY_DATA_ROWS, seed + 53, ALLSTATE_CARD[:14])
+    tree, _ = forced_tree(X)
+    fs, fb = os.path.join(tmp, "forced.json"), os.path.join(tmp, "bins.json")
+    with open(fs, "w") as fh:
+        json.dump(tree, fh)
+    with open(fb, "w") as fh:
+        json.dump([{"feature": 0, "bin_upper_bound": [0.5, 1.0, 2.0]}], fh)
+    wide = dict(base, max_bin=WIDE_B)
+    return {
+        "wide": (X, y, wide, {}),
+        "wide_q8": (X, y, dict(wide, quantized_grad=True), {}),
+        "wide_classic": (X, y, dict(wide, split_fusion="off"), {}),
+        "wide_mono": (X, y, dict(wide, monotone_constraints=MONO_LIST), {}),
+        "wide_mono_q8": (X, y, dict(wide, monotone_constraints=MONO_LIST,
+                                    quantized_grad=True), {}),
+        "cat400": (Xc, yc, dict(base, max_bin=511, cat_smooth=1.0,
+                                min_data_per_group=20),
+                   {"categorical_feature": [3]}),
+        "efb_csr": (Xs, ys, base, {}),
+        "csr_unbundled": (Xs, ys, dict(base, enable_bundle=False), {}),
+        "forced_bins": (X, y, dict(base, forcedbins_filename=fb), {}),
+        "max_bin_by_feature": (X, y, dict(base, max_bin_by_feature=[
+            15 + 40 * (j % 7) for j in range(F)]), {}),
+        "forced_splits": (X, y, dict(base, forcedsplits_filename=fs), {}),
+        "cegb_split": (X, y, dict(base, cegb_penalty_split=1e-4), {}),
+        "cegb_coupled": (X, y, dict(base, cegb_penalty_feature_coupled=[
+            5.0 * (j % 3) for j in range(F)]), {}),
+        "cegb_lazy": (X, y, dict(base, cegb_penalty_feature_lazy=[
+            0.01 * (j % 4) for j in range(F)]), {}),
+    }
+
+
+def parity_data_phase(lgb, seed):
+    """Each data-layer run at 50,000 rows, 63 leaves, PARITY_ROUNDS rounds
+    (parity_texts: two card runs and the CPU run in the kernels' orders
+    equal; q8 also the CPU's plain run; f32 against it equal or the first
+    divergent tree named), with the first card run's launches."""
+    import tempfile
+    out = {"rows": PARITY_DATA_ROWS, "num_leaves": 63,
+           "rounds": PARITY_ROUNDS}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, setup in parity_data_setups(seed, tmp).items():
+            out[name] = parity_texts(lgb, f"parity_data/{name}", setup,
+                                     bool(setup[2].get("quantized_grad")))
+    if not all(out[k]["launches"].get("split_epilogue.launches_wide_mono"
+                                      + s, 0) > 0
+               for k, s in (("wide_mono", ""), ("wide_mono_q8", "_q8"))):
+        raise AssertionError("the wide monotone runs missed the epilogue's "
+                             "wide monotone mode")
     return out
 
 
@@ -2743,6 +3261,27 @@ def main() -> int:
     emit("train_constraints", **train_constraints_phase(
         lgb, cuda_hist, args, CONSTRAINED_ROUNDS))
     emit("parity_constraints", **parity_constraints_phase(lgb, args.seed))
+
+    hw = hist_wide_phase(cuda_hist, n, args.seed)
+    emit("hist_wide", n=n, f=F, p=P, leaves=LEAVES, **hw)
+    ew = epilogue_wide_phase(cuda_hist, args.seed)
+    emit("epilogue_wide", p=P, f=F, **ew)
+    twd, wide_launches = train_wide_phase(lgb, cuda_hist, args,
+                                          tr["valid_auc"])
+    emit("train_wide", **twd)
+    twq, wideq_launches = train_wide_phase(lgb, cuda_hist, args,
+                                           twd["valid_auc"], q8=True)
+    emit("train_wide_q8", **twq)
+    twc, widec_launches = train_wide_phase(lgb, cuda_hist, args, None,
+                                           classic=True)
+    twcq, widecq_launches = train_wide_phase(lgb, cuda_hist, args, None,
+                                             q8=True, classic=True)
+    emit("train_wide_classic", f32=twc, q8=twcq)
+    emit("train_efb", **train_efb_phase(lgb, cuda_hist, args))
+    emit("train_forced_cegb", **train_forced_cegb_phase(lgb, cuda_hist,
+                                                        args))
+    pdata = parity_data_phase(lgb, args.seed)
+    emit("parity_data", **pdata)
 
     hv = hist_variants_phase(cuda_hist)
     emit("hist_variants", **hv)
@@ -2911,6 +3450,96 @@ def main() -> int:
             "launches_by_path": {("train_mono_q8" if q8 else "train_mono"):
                                  launched["split_epilogue.launches_mono"
                                           + sfx]}})
+    # the wide modes (max_bin above 255): each entry's own numbers at
+    # B = 1023 (hist_tile: the root pass; the epilogue: P=42, F=28), B =
+    # 4095 and the uint8 mode on rows drawn the same way beside them
+    keys = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+
+    def nums(res):
+        return {k: res[k] for k in keys}
+
+    for q8, fused, classic, prof in (
+            (False, wide_launches, widec_launches, twd["profile"]),
+            (True, wideq_launches, widecq_launches, twq["profile"])):
+        mode, tag = ("q8", ", q8") if q8 else ("f32", "")
+        sfx = "_wide" + ("_q8" if q8 else "")
+        h = hw[mode]
+        rung = f"rung_{ladder_rungs(n)[-1]}"
+        kernels.append({
+            "name": f"hist_tile (wide{tag})", "route": "cuda",
+            "source": "lightgbm_tpu_torch/csrc/hist_tile.cu",
+            "replaces": "lightgbm_tpu/ops/pallas_hist.py:497 "
+                        "_fused_epi_kernel + :527 _gather_epi_kernel at "
+                        "num_bins > 256, bins cast at :143 (accumulation)"
+                        + (", mode q8" if q8 else ""),
+            "launches": fused["hist_tile.launches" + sfx],
+            "max_abs_err": max(r["max_abs_err"] for g in ("b1023", "b4095")
+                               for r in h[g].values()),
+            **nums(h["b1023"]["root"]),
+            "multi_slot": nums(h["b1023"]["full"]),
+            "gather_launches": fused["hist_tile.gather_launches" + sfx],
+            "gather": {k: nums(v) for k, v in h["b1023"].items()
+                       if k.startswith("rung_")},
+            "b4095": {k: nums(v) for k, v in h["b4095"].items()},
+            "uint8_same_rows": {k: nums(v) for k, v in h["b255"].items()},
+            "launches_by_path": {("train_wide_q8" if q8 else "train_wide"):
+                                 fused["hist_tile.launches" + sfx]}})
+        kernels.append({
+            "name": f"hist_tile (plane-only, wide{tag})", "route": "cuda",
+            "source": "lightgbm_tpu_torch/csrc/hist_tile.cu",
+            "replaces": "lightgbm_tpu/ops/pallas_hist.py:154 _fused_kernel "
+                        "(pallas_call :270) + :205 _gather_kernel "
+                        "(pallas_call :324) at num_bins > 256"
+                        + (", mode q8" if q8 else ""),
+            "launches": classic["hist_tile.launches_plane" + sfx],
+            "max_abs_err": max(r["max_abs_err"]
+                               for r in h["plane_b1023"].values()),
+            **nums(h["plane_b1023"]["full"]),
+            "gather_launches": classic["hist_tile.gather_launches" + sfx],
+            "gather": {rung: nums(h["plane_b1023"][rung])},
+            "launches_by_path": {("train_wide_classic/q8" if q8 else
+                                  "train_wide_classic/f32"):
+                                 classic["hist_tile.launches_plane" + sfx]}})
+        e = f"b{WIDE_B}" + ("_q8" if q8 else "")
+        kernels.append({
+            "name": f"split_epilogue (wide{tag})", "route": "cuda",
+            "source": "lightgbm_tpu_torch/csrc/split_epilogue.cu",
+            "replaces": "lightgbm_tpu/ops/pallas_hist.py:465 "
+                        "_epilogue_compute at num_bins > 256"
+                        + (", mode q8" if q8 else "")
+                        + " (epilogue of :497 and :527)",
+            "launches": fused["split_epilogue.launches" + sfx],
+            "max_abs_err": max(ew[e]["max_abs_err"],
+                               ew[e.replace(str(WIDE_B),
+                                            str(WIDE_STRESS_B))]
+                               ["max_abs_err"]),
+            **nums(ew[e]),
+            "b4095": nums(ew[e.replace(str(WIDE_B), str(WIDE_STRESS_B))]),
+            "b255": nums(ew[e.replace(str(WIDE_B), str(B))]),
+            "train_device_ms_per_launch": per_launch(prof,
+                                                     "split_epilogue_wide"),
+            "launches_by_path": {("train_wide_q8" if q8 else "train_wide"):
+                                 fused["split_epilogue.launches" + sfx]}})
+        pl = pdata["wide_mono_q8" if q8 else "wide_mono"]["launches"]
+        name = "split_epilogue.launches_wide_mono" + ("_q8" if q8 else "")
+        kernels.append({
+            "name": f"split_epilogue_mono (wide{tag})", "route": "cuda",
+            "source": "lightgbm_tpu_torch/csrc/split_epilogue.cu",
+            "replaces": "lightgbm_tpu/ops/pallas_hist.py:465 "
+                        "_epilogue_compute with_monotone=True at num_bins "
+                        "> 256" + (", mode q8" if q8 else "")
+                        + " (epilogue of :497 and :527)",
+            "launches": pl[name],
+            "max_abs_err": max(ew[e + "_mono"]["max_abs_err"],
+                               ew[e.replace(str(WIDE_B), str(WIDE_STRESS_B))
+                                  + "_mono"]["max_abs_err"]),
+            **nums(ew[e + "_mono"]),
+            "b4095": nums(ew[e.replace(str(WIDE_B), str(WIDE_STRESS_B))
+                             + "_mono"]),
+            "b255": nums(ew[e.replace(str(WIDE_B), str(B)) + "_mono"]),
+            "launches_by_path": {("parity_data/wide_mono_q8" if q8 else
+                                  "parity_data/wide_mono"): pl[name]}})
     # each kernel's launches on every path that launched it, each path's
     # counts read from 0 around its own run
     paths = {"train": launches, "train_cat": cat_launches,

@@ -740,6 +740,12 @@ _SLICE_PARAMS = frozenset({
     "monotone_constraints", "monotone_constraints_method",
     "monotone_penalty", "interaction_constraints", "feature_contri",
     "extra_trees", "feature_fraction_bynode",
+    # the data layer: forced bins and splits, per-feature bin counts, CEGB;
+    # force_col_wise / force_row_wise are accepted and have no effect (the
+    # JAX package reads them nowhere either)
+    "forcedbins_filename", "max_bin_by_feature", "forcedsplits_filename",
+    "cegb_tradeoff", "cegb_penalty_split", "cegb_penalty_feature_lazy",
+    "cegb_penalty_feature_coupled", "force_col_wise", "force_row_wise",
     # sub-seeds derived from ``seed`` in __post_init__
     "bagging_seed", "drop_seed", "feature_fraction_seed", "extra_seed",
 })
@@ -747,12 +753,8 @@ _SLICE_PARAMS = frozenset({
 # ROADMAP.md "Queue 1" item that brings each group of parameters
 _ROADMAP_ITEM = {}
 for _names, _item in (
-        (("forcedsplits_filename",
-          "cegb_tradeoff", "cegb_penalty_split", "cegb_penalty_feature_lazy",
-          "cegb_penalty_feature_coupled",
-          "forcedbins_filename", "max_bin_by_feature",
-          "histogram_pool_size", "force_col_wise", "force_row_wise"),
-         "Queue 1 item 9 (the classic path's remaining features)"),
+        (("histogram_pool_size",),
+         "Queue 1 item 6 (the feature-blocked pass)"),
         (("gpu_use_dp", "linear_tree", "linear_lambda"),
          "Queue 1 item 11 (precision modes)"),
         (("hist_block", "hist_autotune"),

@@ -100,6 +100,19 @@
 //
 // Numerics on Hopper: `pallas` and `pallas_hilo` are the same here. The
 // TPU's `hilo` bf16 hi/lo split is an MXU device; this kernel needs none.
+//
+// Wide bins (`wide` != 0; the Pallas kernels at num_bins > 256, which cast
+// each bin to int32, pallas_hist.py:143): the bin type is a template
+// parameter, uint8_t or uint16_t (the port's int16 bins, every one below
+// the cap of 4,096), so the uint8 instantiations keep their code. Only the
+// row-major copy's element and the planes' size change: a block's planes
+// are [group, B, 3] cells, so `group` shrinks as B grows (at B = 1,023 in
+// f32, 8 features fit a full-form block: the 28 Higgs features take 4
+// groups of 7 and the rows are read 4 times; at B = 4,095 one feature a
+// block, 98 KB of planes). The payload of the gather form carries no bins,
+// so it is unchanged. At wide B a block fills most of an SM's shared
+// memory, so one block runs per SM, and the atomics spread over more
+// banks.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -204,9 +217,9 @@ template <bool kQ8> struct Staged {
 // int32 sum in q8, 4), then each warp's 32 staged rows (their stats, then
 // their row ids). accum [f][b][3] integer sums, zeroed by the caller. Pair
 // q of a warp's staged rows is (row q / gn, feature q % gn).
-template <bool kQ8>
+template <bool kQ8, typename Bin>
 __global__ void full_accumulate(
-    const uint8_t* __restrict__ rows, const int32_t* __restrict__ leaf,
+    const Bin* __restrict__ rows, const int32_t* __restrict__ leaf,
     const typename Mode<kQ8>::Stat* __restrict__ stats,
     const unsigned* __restrict__ amax_bits,
     typename Mode<kQ8>::Acc* __restrict__ accum, int n, int f, int b,
@@ -273,7 +286,7 @@ __global__ void full_accumulate(
         jr[u] = j;
         fr[u] = fi;
         bin[u] = q + 32 * u < total
-                     ? rows[(size_t)srow[j] * width + g0 + fi] : b;
+                     ? (int)rows[(size_t)srow[j] * width + g0 + fi] : b;
         j += step_j;
         fi += step_f;
         if (fi >= gn) {
@@ -375,8 +388,8 @@ int device_sms() {
 // The full form's accumulate + convert launches of one mode (one computed
 // slot, `slot`, whose leaf is `target`; slot -1: none computed, the convert
 // alone writes zeros); returns cudaGetLastError().
-template <bool kQ8>
-int launch_full(const uint8_t* rows, const void* leaf, const void* stats,
+template <bool kQ8, typename Bin>
+int launch_full(const Bin* rows, const void* leaf, const void* stats,
                 const unsigned* amax_bits, void* accum, void* out, int n,
                 int f, int p, int b, int slot, int target, int group,
                 int width, cudaStream_t st) {
@@ -387,19 +400,19 @@ int launch_full(const uint8_t* rows, const void* leaf, const void* stats,
   const size_t smem = (size_t)group * b * kStats * (kQ8 ? 4 : 8)
                       + (size_t)kThreads * (Staged<kQ8>::kWords + 1) * 4;
   cudaError_t err = cudaFuncSetAttribute(
-      full_accumulate<kQ8>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      full_accumulate<kQ8, Bin>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   int occ = 1;
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, full_accumulate<kQ8>,
-                                                kThreads, smem);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &occ, full_accumulate<kQ8, Bin>, kThreads, smem);
   const int ngroups = (f + group - 1) / group;
   const long long wave = (long long)device_sms() * (occ > 0 ? occ : 1);
   long long blocks = (wave + ngroups - 1) / ngroups;
   const long long most = ((long long)n + kMinRows - 1) / kMinRows;
   blocks = blocks < most ? blocks : most;
-  full_accumulate<kQ8><<<dim3((int)(blocks > 0 ? blocks : 1), ngroups),
-                         kThreads, smem, st>>>(
+  full_accumulate<kQ8, Bin><<<dim3((int)(blocks > 0 ? blocks : 1),
+                                   ngroups), kThreads, smem, st>>>(
       rows, static_cast<const int32_t*>(leaf),
       static_cast<const typename M::Stat*>(stats), amax_bits,
       static_cast<typename M::Acc*>(accum), n, f, b, target, width, group);
@@ -562,9 +575,9 @@ __global__ void gather_scatter(
 // is the add_split pair in f32 mode (8 bytes), an int32 sum in q8 (4).
 // Thread (jj, fi) takes feature fi of every rows_per_iter-th row, loading
 // kUnroll rows before it adds them.
-template <bool kQ8>
+template <bool kQ8, typename Bin>
 __global__ void gather_accumulate(const uint32_t* __restrict__ payload,
-                                  const uint8_t* __restrict__ rows,
+                                  const Bin* __restrict__ rows,
                                   const int* __restrict__ counts,
                                   typename Mode<kQ8>::Acc* __restrict__ accum,
                                   int f, int b, int active, int width,
@@ -606,7 +619,7 @@ __global__ void gather_accumulate(const uint32_t* __restrict__ payload,
           bin[u] = b;
           if (jr < z) {
             const uint32_t* pr = payload + (size_t)jr * PL::kWords;
-            bin[u] = rows[(size_t)pr[0] * width + g0 + fi];
+            bin[u] = (int)rows[(size_t)pr[0] * width + g0 + fi];
             if constexpr (kQ8) {
               w[u] = pr[PL::kStat];
             } else {
@@ -656,8 +669,8 @@ __global__ void gather_accumulate(const uint32_t* __restrict__ payload,
 
 // The gather form's four launches (count, scatter, accumulate, convert) of
 // one mode, after the scratch memset; returns cudaGetLastError().
-template <bool kQ8>
-int launch_gather(const uint8_t* rows, const void* leaf, const void* stats,
+template <bool kQ8, typename Bin>
+int launch_gather(const Bin* rows, const void* leaf, const void* stats,
                   const int32_t* slotmap, const void* idx,
                   const unsigned* amax_bits, int* counts, uint32_t* payload,
                   void* accum, void* out, int n, int f, int m, int p, int b,
@@ -695,16 +708,17 @@ int launch_gather(const uint8_t* rows, const void* leaf, const void* stats,
   if (err != cudaSuccess) return (int)err;
 
   const size_t asmem = (size_t)group * b * kStats * (kQ8 ? 4 : 8);
-  err = cudaFuncSetAttribute(gather_accumulate<kQ8>,
+  err = cudaFuncSetAttribute(gather_accumulate<kQ8, Bin>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)asmem);
   if (err != cudaSuccess) return (int)err;
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, gather_accumulate<kQ8>,
-                                                kThreads, asmem);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &occ, gather_accumulate<kQ8, Bin>, kThreads, asmem);
   const int ngroups = (f + group - 1) / group;
   const long long awave = (long long)sms * (occ > 0 ? occ : 1);
   const int ablocks = (int)((awave + ngroups - 1) / ngroups);
-  gather_accumulate<kQ8><<<dim3(ablocks, ngroups), kThreads, asmem, st>>>(
+  gather_accumulate<kQ8, Bin><<<dim3(ablocks, ngroups), kThreads, asmem,
+                                st>>>(
       payload, rows, counts, static_cast<typename M::Acc*>(accum), f, b,
       active, width, group);
   err = cudaGetLastError();
@@ -720,13 +734,61 @@ void launch_absmax(const void* stats, void* amax_bits, int n,
       static_cast<const float*>(stats), static_cast<unsigned*>(amax_bits), n);
 }
 
+// The full form of one mode and bin type, after the scratch memset and
+// stat_absmax.
+template <typename Bin>
+int full_mode(bool q8, const void* rows, const void* leaf, const void* stats,
+              void* amax_bits, int compute_amax, void* accum, void* out,
+              int n, int f, int p, int b, int slot, int target, int group,
+              int width, cudaStream_t st) {
+  const Bin* rw = static_cast<const Bin*>(rows);
+  if (q8)
+    return launch_full<true, Bin>(rw, leaf, stats, nullptr, accum, out, n,
+                                  f, p, b, slot, target, group, width, st);
+  if (compute_amax) {
+    launch_absmax(stats, amax_bits, n, st);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return launch_full<false, Bin>(rw, leaf, stats,
+                                 static_cast<const unsigned*>(amax_bits),
+                                 accum, out, n, f, p, b, slot, target, group,
+                                 width, st);
+}
+
+// The gather form of one mode and bin type, after the scratch memset and
+// stat_absmax.
+template <typename Bin>
+int gather_mode(bool q8, const void* rows, const void* leaf,
+                const void* stats, const int32_t* sm, const void* idx,
+                void* amax_bits, int compute_amax, int* cn, uint32_t* pl,
+                void* accum, void* out, int n, int f, int m, int p, int b,
+                int l, int active, int group, int width, int tile,
+                cudaStream_t st) {
+  const Bin* rw = static_cast<const Bin*>(rows);
+  if (q8)
+    return launch_gather<true, Bin>(rw, leaf, stats, sm, idx, nullptr, cn,
+                                    pl, accum, out, n, f, m, p, b, l, active,
+                                    group, width, tile, st);
+  if (compute_amax) {
+    launch_absmax(stats, amax_bits, n, st);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return launch_gather<false, Bin>(rw, leaf, stats, sm, idx,
+                                   static_cast<const unsigned*>(amax_bits),
+                                   cn, pl, accum, out, n, f, m, p, b, l,
+                                   active, group, width, tile, st);
+}
+
 }  // namespace
 
 // Full-row form of a tile with one computed slot, `slot` (leaf `target`),
-// `q8` != 0 for the q8 mode. Returns cudaGetLastError() (0 = launched).
-// `rows` the bins row-major, n * `width` bytes (feature f of row r at
-// r * width + f); `stats` n * 3 floats (f32) or int8 (q8); `amax_bits` 3
-// words, the float32 max|stat| of each channel, or (`compute_amax` != 0)
+// `q8` != 0 for the q8 mode, `wide` != 0 for 16-bit bins. Returns
+// cudaGetLastError() (0 = launched). `rows` the bins row-major, n *
+// `width` elements of the bin type (feature f of row r at r * width + f);
+// `stats` n * 3 floats (f32) or int8 (q8); `amax_bits` 3 words, the
+// float32 max|stat| of each channel, or (`compute_amax` != 0)
 // 3 words of the scratch that stat_absmax fills (f32 mode only);
 // `scratch` `scratch_bytes` bytes, zeroed here, holding `accum` (f * b * 3
 // int64 in f32 mode, int32 in q8) and stat_absmax's words; `out` p * f * b
@@ -735,31 +797,26 @@ extern "C" int hist_full_launch(const void* rows, const void* leaf,
                                 const void* stats, void* amax_bits,
                                 int compute_amax, void* scratch,
                                 long long scratch_bytes, void* accum,
-                                void* out, int q8, int n, int f, int p,
-                                int b, int slot, int target, int group,
+                                void* out, int q8, int wide, int n, int f,
+                                int p, int b, int slot, int target, int group,
                                 int width, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaMemsetAsync(scratch, 0, (size_t)scratch_bytes, st);
   if (err != cudaSuccess) return (int)err;
-  const uint8_t* rw = static_cast<const uint8_t*>(rows);
-  if (q8)
-    return launch_full<true>(rw, leaf, stats, nullptr, accum, out, n, f, p,
-                             b, slot, target, group, width, st);
-  if (compute_amax) {
-    launch_absmax(stats, amax_bits, n, st);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  return launch_full<false>(rw, leaf, stats,
-                            static_cast<const unsigned*>(amax_bits), accum,
-                            out, n, f, p, b, slot, target, group, width,
-                            st);
+  if (wide)
+    return full_mode<uint16_t>(q8 != 0, rows, leaf, stats, amax_bits,
+                               compute_amax, accum, out, n, f, p, b, slot,
+                               target, group, width, st);
+  return full_mode<uint8_t>(q8 != 0, rows, leaf, stats, amax_bits,
+                            compute_amax, accum, out, n, f, p, b, slot,
+                            target, group, width, st);
 }
 
 // Gather form over idx[m] (entries outside [0, n) are padding; a null idx
 // is the implicit rung 0..m-1, the full form of a tile with several
-// computed slots), `q8` != 0 for the q8 mode. `rows` the bins row-major,
-// n * `width` bytes (feature f of row r at r * width + f); `slotmap`
+// computed slots), `q8` != 0 for the q8 mode, `wide` != 0 for 16-bit bins.
+// `rows` the bins row-major, n * `width` elements of the bin type (feature
+// f of row r at r * width + f); `slotmap`
 // l + p int32: each leaf's compact slot (-1: not computed), then each
 // slot's compact index (-1: none); `amax_bits` as hist_full_launch (f32
 // mode only); `scratch` `scratch_bytes` bytes, zeroed here, holding
@@ -775,27 +832,21 @@ extern "C" int hist_gather_launch(const void* rows, const void* leaf,
                                   int compute_amax, void* scratch,
                                   long long scratch_bytes, void* counts,
                                   void* payload, void* accum, void* out,
-                                  int q8, int n, int f, int m, int p, int b,
-                                  int l, int active, int group, int width,
-                                  int tile, void* stream) {
+                                  int q8, int wide, int n, int f, int m,
+                                  int p, int b, int l, int active, int group,
+                                  int width, int tile, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaMemsetAsync(scratch, 0, (size_t)scratch_bytes, st);
   if (err != cudaSuccess) return (int)err;
-  const uint8_t* rw = static_cast<const uint8_t*>(rows);
   const int32_t* sm = static_cast<const int32_t*>(slotmap);
   int* cn = static_cast<int*>(counts);
   uint32_t* pl = static_cast<uint32_t*>(payload);
-  if (q8)
-    return launch_gather<true>(rw, leaf, stats, sm, idx, nullptr, cn, pl,
-                               accum, out, n, f, m, p, b, l, active, group,
-                               width, tile, st);
-  if (compute_amax) {
-    launch_absmax(stats, amax_bits, n, st);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  return launch_gather<false>(rw, leaf, stats, sm, idx,
-                              static_cast<const unsigned*>(amax_bits), cn,
-                              pl, accum, out, n, f, m, p, b, l, active, group,
-                              width, tile, st);
+  if (wide)
+    return gather_mode<uint16_t>(q8 != 0, rows, leaf, stats, sm, idx,
+                                 amax_bits, compute_amax, cn, pl, accum, out,
+                                 n, f, m, p, b, l, active, group, width, tile,
+                                 st);
+  return gather_mode<uint8_t>(q8 != 0, rows, leaf, stats, sm, idx, amax_bits,
+                              compute_amax, cn, pl, accum, out, n, f, m, p, b,
+                              l, active, group, width, tile, st);
 }

@@ -72,6 +72,27 @@
 // The mode is a template parameter, so the unconstrained instantiation
 // is the code it was; the monotone one adds two clips a side, the two
 // compares and a select a candidate.
+//
+// Wide mode (B > 256, up to kMaxBinsWide; split_epilogue_wide): the same
+// warp per (slot, feature), the same arithmetic per candidate, but the
+// plane no longer fits 8 bins a lane, so the warp walks it in chunks of
+// 256 bins (8 a lane) and the scan follows XLA's order past 16 blocks,
+// which is three levels, not a running sum (blocked_cumsum's recursion):
+//   A. per chunk, each 16-bin block's within-block prefix as above; the
+//      prefixes go back to shared memory and the odd lanes write the
+//      block totals T[k] (the totals include the +0 padding past B);
+//   B. lane s (< 16) scans super-block s of T left to right from +0 (its
+//      16 totals, zeros past the last block): W2[k], and its total S[s];
+//   C. the exclusive prefix of the S from +0 (lane s chains S[0..s-1];
+//      0 for s = 0), added to every W2[k] of super-block s: tot[k]
+//      (the add of +0 included, as the plain version adds it);
+//   D. per chunk, each bin's cumulative sum = its within-block prefix +
+//      (block 0 ? +0 : tot[block - 1]), then the candidates as above.
+// A warp's shared memory is its staged plane (3 x (B + B / 32) floats)
+// and two 3 x 256 arrays (T / tot, and W2): 56,832 bytes at B = 4,096, so
+// the launcher fits 4 warps a block up to the cap and fewer where they do
+// not fit (dynamic shared memory). Each of its four instantiations (q8 x
+// monotone) counts its launches apart in the wrapper.
 // PERF.md has the measured time against the bound.
 
 #include <cuda_runtime.h>
@@ -403,6 +424,268 @@ split_epilogue_kernel(const float* __restrict__ tile,
   }
 }
 
+// ---------------------------------------------------------------- wide mode
+constexpr int kMaxBinsWide = 4096;
+constexpr int kChunk = 256;                      // bins a warp scans at once
+constexpr int kMaxTotals = kMaxBinsWide / kBlock;   // 256 block totals
+constexpr int kSmemPerBlock = 232448;
+
+__host__ __device__ __forceinline__ int wide_stride(int b) {
+  const int b32 = (b + 31) / 32 * 32;
+  return b32 + b32 / 32;                         // one pad word / 32 bins
+}
+
+__host__ __device__ __forceinline__ int wide_warp_floats(int b) {
+  return 3 * wide_stride(b) + 2 * 3 * kMaxTotals;
+}
+
+template <bool kQ8, bool kMono>
+__global__ void split_epilogue_wide(const float* __restrict__ tile,
+                                    const int32_t* __restrict__ qtile,
+                                    const float* __restrict__ qscale,
+                                    const float* __restrict__ parent,
+                                    const int32_t* __restrict__ der,
+                                    const float* __restrict__ la,
+                                    const float* __restrict__ fm,
+                                    const float* __restrict__ pv,
+                                    float* __restrict__ full,
+                                    float* __restrict__ cand,
+                                    int p, int f, int b) {
+  extern __shared__ float wide_smem[];
+  const int warps = blockDim.x / 32;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int pair = blockIdx.x * warps + warp;
+  if (pair >= p * f) return;      // whole warps leave; no block barrier
+  const int slot = pair / f;
+  const int feat = pair % f;
+  const Params prm{pv[0], pv[1], pv[2], pv[3], pv[4], pv[5], pv[6]};
+  const int nb = static_cast<int>(fm[feat * 8 + 0]);
+  const int mt = static_cast<int>(fm[feat * 8 + 1]);
+  const int dbin = static_cast<int>(fm[feat * 8 + 2]);
+  const int mono = static_cast<int>(fm[feat * 8 + 3]);
+  const bool mode_a = nb > 2 && mt != kMissingNone;
+  const bool is_nan = mt == kMissingNan;
+  const bool is_zero = mt == kMissingZero;
+  const bool derived = der[slot * 3] != 0;
+
+  const int stride = wide_stride(b);
+  float* st = wide_smem + (size_t)warp * wide_warp_floats(b);  // [3][stride]
+  float* tot = st + 3 * stride;                  // [3][kMaxTotals]: T, tot
+  float* w2 = tot + 3 * kMaxTotals;              // [3][kMaxTotals]
+  const size_t plane = (size_t)b * 3;
+  const size_t base = ((size_t)slot * f + feat) * plane;
+  const size_t sib = slot > 0 ? ((size_t)(slot - 1) * f + feat) * plane : 0;
+  const int nbk = (b + kBlock - 1) / kBlock;     // level-1 blocks
+  const int nch = (b + kChunk - 1) / kChunk;
+
+  // 1. full plane, coalesced over its B*3 contiguous cells, written out
+  //    and staged by stat
+  for (int i = lane; i < 3 * b; i += 32) {
+    float v;
+    if (derived) {
+      const float s = slot > 0
+          ? tile_cell<kQ8>(tile, qtile, qscale, sib + i, i % 3) : 0.f;
+      v = parent[base + i] - s;
+    } else {
+      v = tile_cell<kQ8>(tile, qtile, qscale, base + i, i % 3);
+    }
+    const int c = i % 3, t = i / 3;
+    full[base + i] = v;
+    st[c * stride + t + t / 32] = v;
+  }
+  __syncwarp();
+
+  // A. per chunk: within-block prefixes (back into the staged plane) and
+  //    the block totals
+  for (int ch = 0; ch < nch; ++ch) {
+    const int t0 = ch * kChunk + lane * kBinsPerLane;
+    float x[3][kBinsPerLane];
+#pragma unroll
+    for (int j = 0; j < kBinsPerLane; ++j) {
+      const int t = t0 + j;
+      const bool excl = (mode_a && is_nan && t == nb - 1)
+                        || (mode_a && is_zero && t == dbin);
+#pragma unroll
+      for (int c = 0; c < 3; ++c)
+        x[c][j] = (t < b && !excl) ? st[c * stride + t + t / 32] : 0.f;
+    }
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      float acc = 0.f;
+#pragma unroll
+      for (int j = 0; j < kBinsPerLane; ++j) acc = acc + x[c][j];
+      const float even_total = __shfl_sync(kFull, acc, lane & ~1);
+      acc = (lane & 1) ? even_total : 0.f;
+#pragma unroll
+      for (int j = 0; j < kBinsPerLane; ++j) {
+        acc = acc + x[c][j];
+        const int t = t0 + j;
+        if (t < b) st[c * stride + t + t / 32] = acc;
+      }
+      const int blk = ch * (kChunk / kBlock) + lane / 2;
+      if ((lane & 1) && blk < nbk) tot[c * kMaxTotals + blk] = acc;
+    }
+    __syncwarp();
+  }
+
+  // B. level 2: lane s scans super-block s of the block totals
+  float sup[3] = {0.f, 0.f, 0.f};
+  if (lane < kBlock) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      float acc = 0.f;
+      for (int k = 0; k < kBlock; ++k) {
+        const int blk = lane * kBlock + k;
+        acc = acc + (blk < nbk ? tot[c * kMaxTotals + blk] : 0.f);
+        if (blk < nbk) w2[c * kMaxTotals + blk] = acc;
+      }
+      sup[c] = acc;
+    }
+  }
+  __syncwarp();
+
+  // C. level 3: the exclusive prefix of the super-block totals, added to
+  //    each W2; tot[k] is then the inclusive scan of the block totals
+  float ex2[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    float acc = 0.f;
+#pragma unroll
+    for (int i = 0; i < kBlock; ++i) {
+      const float si = __shfl_sync(kFull, sup[c], i);
+      if (i < lane) acc = acc + si;
+    }
+    ex2[c] = lane == 0 ? 0.f : acc;
+  }
+  for (int blk = lane; blk < kMaxTotals; blk += 32) {
+    // the lane holding super-block blk / 16's prefix shuffles it over
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      const float e = __shfl_sync(kFull, ex2[c], (blk / kBlock) & 31);
+      if (blk < nbk) tot[c * kMaxTotals + blk] = w2[c * kMaxTotals + blk] + e;
+    }
+  }
+  __syncwarp();
+
+  // the last bin's csum (the excluded total)
+  float total[3];
+  {
+    const int t = b - 1, blk = t / kBlock;
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+      total[c] = st[c * stride + t + t / 32]
+                 + (blk == 0 ? 0.f : tot[c * kMaxTotals + blk - 1]);
+  }
+
+  // D. candidates, chunk by chunk; the lane's best (key, position) and
+  //    the six sums it carries
+  const float* aux = la + (size_t)slot * 8;
+  const float leaf_g = aux[0], leaf_h = aux[1], leaf_c = aux[2];
+  const float leaf_out = aux[3];
+  const float lmin = aux[4], lmax = aux[5];
+  const float min_gain_shift =
+      split_gain(leaf_g, leaf_h, leaf_c, leaf_out, prm) + prm.min_gain;
+  const int rev_upper = nb - 2 - ((mode_a && is_nan) ? 1 : 0);
+  const float eps = static_cast<float>(1e-15);
+  float best_key = -CUDART_INF_F;
+  int best_pos = 0x7fffffff;
+  float bs[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  for (int ch = 0; ch < nch; ++ch) {
+    const int t0 = ch * kChunk + lane * kBinsPerLane;
+#pragma unroll
+    for (int j = 0; j < kBinsPerLane; ++j) {
+      const int t = t0 + j;
+      if (t >= b) continue;
+      const int blk = t / kBlock;
+      float cs[3];
+#pragma unroll
+      for (int c = 0; c < 3; ++c)
+        cs[c] = st[c * stride + t + t / 32]
+                + (blk == 0 ? 0.f : tot[c * kMaxTotals + blk - 1]);
+      const float fl_g = cs[0], fl_h = cs[1] + eps, fl_c = cs[2];
+      const float rr_g = total[0] - cs[0];
+      const float rr_h = (total[1] - cs[1]) + eps;
+      const float rr_c = total[2] - cs[2];
+      const float fr_g = leaf_g - fl_g, fr_h = leaf_h - fl_h,
+                  fr_c = leaf_c - fl_c;
+      const float rl_g = leaf_g - rr_g, rl_h = leaf_h - rr_h,
+                  rl_c = leaf_c - rr_c;
+      const float gain_fwd = candidate_gain<kMono>(
+          fl_g, fl_h, fl_c, fr_g, fr_h, fr_c, leaf_out, prm, lmin, lmax, mono);
+      const float gain_rev = candidate_gain<kMono>(
+          rl_g, rl_h, rl_c, rr_g, rr_h, rr_c, leaf_out, prm, lmin, lmax, mono);
+      const bool cm_fwd = fl_c >= prm.min_data && fr_c >= prm.min_data
+                          && fl_h >= prm.min_hess && fr_h >= prm.min_hess;
+      const bool cm_rev = rl_c >= prm.min_data && rr_c >= prm.min_data
+                          && rl_h >= prm.min_hess && rr_h >= prm.min_hess;
+      const bool zero_skip = mode_a && is_zero && t == dbin;
+      const bool fwd_ok = mode_a && t <= nb - 2 && !zero_skip;
+      const bool rev_ok = t <= rev_upper && !zero_skip;
+      const bool v_fwd = cm_fwd && fwd_ok && gain_fwd > min_gain_shift
+                         && !(gain_fwd != gain_fwd);
+      const bool v_rev = cm_rev && rev_ok && gain_rev > min_gain_shift
+                         && !(gain_rev != gain_rev);
+      const float key_rev = v_rev ? gain_rev - min_gain_shift : -CUDART_INF_F;
+      const float key_fwd = v_fwd ? gain_fwd - min_gain_shift : -CUDART_INF_F;
+      if (beats(key_rev, b - 1 - t, best_key, best_pos)) {
+        best_key = key_rev; best_pos = b - 1 - t;
+        bs[0] = rl_g; bs[1] = rl_h; bs[2] = rl_c;
+        bs[3] = rr_g; bs[4] = rr_h; bs[5] = rr_c;
+      }
+      if (beats(key_fwd, b + t, best_key, best_pos)) {
+        best_key = key_fwd; best_pos = b + t;
+        bs[0] = fl_g; bs[1] = fl_h; bs[2] = fl_c;
+        bs[3] = fr_g; bs[4] = fr_h; bs[5] = fr_c;
+      }
+    }
+  }
+
+  // the warp's best (key, position); its owner writes the table row
+  float key = best_key;
+  int pos = best_pos;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const float ok = __shfl_xor_sync(kFull, key, off);
+    const int op = __shfl_xor_sync(kFull, pos, off);
+    if (beats(ok, op, key, pos)) { key = ok; pos = op; }
+  }
+  if (best_pos == pos) {
+    const bool rev = pos < b;
+    float* out = cand + ((size_t)slot * f + feat) * kCand;
+    out[0] = key;
+    out[1] = static_cast<float>(rev ? b - 1 - pos : pos - b);
+    out[2] = rev ? 1.f : 0.f;
+#pragma unroll
+    for (int k = 0; k < 6; ++k) out[3 + k] = bs[k];
+    out[9] = 0.f; out[10] = 0.f; out[11] = 0.f;
+  }
+}
+
+template <bool kQ8, bool kMono>
+int launch_wide(const void* tile, const float* qs, const float* par,
+                const int32_t* dr, const float* lap, const float* fmp,
+                const float* pvp, void* full, void* cand, int p, int f,
+                int b, cudaStream_t st) {
+  const size_t per_warp = (size_t)wide_warp_floats(b) * sizeof(float);
+  int warps = (int)(kSmemPerBlock / per_warp);
+  warps = warps < kWarps ? warps : kWarps;
+  if (warps < 1) return (int)cudaErrorInvalidValue;
+  const size_t smem = per_warp * warps;
+  cudaError_t err = cudaFuncSetAttribute(
+      split_epilogue_wide<kQ8, kMono>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int pairs = p * f;
+  const int blocks = (pairs + warps - 1) / warps;
+  split_epilogue_wide<kQ8, kMono><<<blocks, 32 * warps, smem, st>>>(
+      kQ8 ? nullptr : static_cast<const float*>(tile),
+      kQ8 ? static_cast<const int32_t*>(tile) : nullptr, qs, par, dr, lap,
+      fmp, pvp, static_cast<float*>(full), static_cast<float*>(cand), p, f,
+      b);
+  return (int)cudaGetLastError();
+}
+
 template <bool kQ8, bool kMono>
 void launch(const void* tile, const float* qs, const float* par,
             const int32_t* dr, const float* lap, const float* fmp,
@@ -419,14 +702,15 @@ void launch(const void* tile, const float* qs, const float* par,
 
 // Returns cudaGetLastError() (0 = launched). `qscale` null: `tile` is
 // p * f * b * 3 floats; else int32 sums dequantized by qscale[3].
-// `with_monotone` nonzero selects the monotone mode.
+// `with_monotone` nonzero selects the monotone mode; b > 256 the wide
+// mode.
 extern "C" int split_epilogue_launch(const void* tile, const void* qscale,
                                      const void* parent, const void* der,
                                      const void* la, const void* fm,
                                      const void* pv, void* full, void* cand,
                                      int p, int f, int b, int with_monotone,
                                      void* stream) {
-  if (b > kMaxBins || b < 1) return (int)cudaErrorInvalidValue;
+  if (b > kMaxBinsWide || b < 1) return (int)cudaErrorInvalidValue;
   const int pairs = p * f;
   if (pairs <= 0) return (int)cudaSuccess;
   const float* qs = static_cast<const float*>(qscale);
@@ -437,6 +721,19 @@ extern "C" int split_epilogue_launch(const void* tile, const void* qscale,
   const float* lap = static_cast<const float*>(la);
   const float* fmp = static_cast<const float*>(fm);
   const float* pvp = static_cast<const float*>(pv);
+  if (b > kMaxBins) {
+    if (qs && with_monotone)
+      return launch_wide<true, true>(tile, qs, par, dr, lap, fmp, pvp, full,
+                                     cand, p, f, b, st);
+    if (qs)
+      return launch_wide<true, false>(tile, qs, par, dr, lap, fmp, pvp, full,
+                                      cand, p, f, b, st);
+    if (with_monotone)
+      return launch_wide<false, true>(tile, qs, par, dr, lap, fmp, pvp, full,
+                                      cand, p, f, b, st);
+    return launch_wide<false, false>(tile, qs, par, dr, lap, fmp, pvp, full,
+                                     cand, p, f, b, st);
+  }
   if (qs && with_monotone)
     launch<true, true>(tile, qs, par, dr, lap, fmp, pvp, full, cand, p, f,
                        b, blocks, st);

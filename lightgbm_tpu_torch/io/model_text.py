@@ -12,8 +12,13 @@ parameters block. The dump is character for character the JAX package's
 for the same trees. A loaded model predicts by traversing real thresholds
 and category bitsets over raw features, with no bin mappers, like the
 reference. Multiclass models hold K trees an iteration (tree i is class
-i % K) and an RF model (``average_output``) averages its iterations.
-Linear leaves wait for ROADMAP.md Queue 1 item 11.
+i % K) and an RF model (``average_output``) averages its iterations. A
+categorical node's bitset has as many words as its largest category
+needs; a model trained on a DataFrame with ``category`` columns ends with
+the ``pandas_categorical:`` line (the category lists as JSON, the
+reference python package's last line), which a loaded model reads back to
+code a DataFrame's categories as training did. Linear leaves wait for
+ROADMAP.md Queue 1 item 11.
 """
 
 from __future__ import annotations
@@ -317,6 +322,8 @@ def _collect(boosting, num_iteration: int = -1, start_iteration: int = 0
             "monotone_constraints": list(cfg.monotone_constraints),
             "feature_infos": _feature_infos(ds.mappers),
             "parameters": cfg.to_params(),
+            "pandas_categorical": {int(k): list(v) for k, v in
+                                   ds.pandas_categorical.items()},
         }
         all_trees = [ModelTree.from_host(ht, ds.mappers)
                      for ht in boosting.host_trees]
@@ -372,6 +379,11 @@ def dump_model_text(boosting, num_iteration: int = -1,
                 val = ",".join(str(v) for v in val)
             body += f"[{key}: {val}]\n"
         body += "end of parameters\n"
+    pc = meta.get("pandas_categorical")
+    if pc:
+        import json
+        body += "\npandas_categorical:" + json.dumps(
+            {str(k): v for k, v in pc.items()}) + "\n"
     return body
 
 
@@ -402,8 +414,29 @@ class LoadedGBDT:
     def current_iteration(self) -> int:
         return len(self.trees) // self.num_tree_per_iteration
 
+    def _codes(self, X):
+        """A DataFrame's category columns as the training codes (the
+        model's ``pandas_categorical`` lists; an unseen category is
+        NaN)."""
+        pc = self.meta.get("pandas_categorical") or {}
+        if not (hasattr(X, "dtypes") and pc):
+            return X
+        import pandas as pd
+        X = X.copy()
+        for ci, col in enumerate(X.columns):
+            cats = pc.get(ci)
+            if cats is not None and str(X[col].dtype) == "category":
+                codes = np.asarray(pd.Categorical(X[col],
+                                                  categories=cats).codes)
+                X[col] = np.where(codes >= 0, codes.astype(np.float64),
+                                  np.nan)
+        return X
+
     def predict_raw(self, X, num_iteration: Optional[int] = None,
                     start_iteration: int = 0) -> np.ndarray:
+        X = self._codes(X)
+        if hasattr(X, "toarray"):
+            X = X.toarray()
         X = np.asarray(X.values if hasattr(X, "values") else X, np.float64)
         if X.ndim == 1:
             X = X.reshape(1, -1)
@@ -479,6 +512,7 @@ def load_model(model_str: str, config: Optional[Config] = None) -> LoadedGBDT:
         log.fatal(f"corrupt or truncated model file: missing the 'end of "
                   f"trees' sentinel after {len(trees)} complete tree blocks")
     params: Dict[str, str] = {}
+    pandas_categorical: Dict[int, list] = {}
     in_params = False
     for line in lines[i:]:
         line = line.strip()
@@ -489,6 +523,14 @@ def load_model(model_str: str, config: Optional[Config] = None) -> LoadedGBDT:
         elif in_params and line.startswith("[") and ":" in line:
             key, val = line[1:-1].split(":", 1)
             params[key.strip()] = val.strip()
+        elif line.startswith("pandas_categorical:"):
+            import json
+            try:
+                parsed = json.loads(line[len("pandas_categorical:"):])
+            except ValueError:
+                parsed = None
+            if isinstance(parsed, dict):
+                pandas_categorical = {int(k): v for k, v in parsed.items()}
     try:
         if "objective" in kv:
             _parse_objective(kv["objective"], config)
@@ -507,6 +549,7 @@ def load_model(model_str: str, config: Optional[Config] = None) -> LoadedGBDT:
                 "monotone_constraints", "").split()],
             "feature_infos": kv.get("feature_infos", "").split(),
             "parameters": params,
+            "pandas_categorical": pandas_categorical,
         }
     except ValueError as e:
         log.fatal(f"corrupt or truncated model file: header: {e}")

@@ -31,12 +31,17 @@ Row sampling, as the JAX package does it:
 
 The split constraints (``_setup_learner_features``): monotone
 constraints in the basic, intermediate or advanced mode, interaction
-constraints, feature_contri, extra_trees and by-node feature sampling.
-The grower takes the fused split path unless ``_split_fusion_on`` finds a
-reason not to (categorical features, extra_trees, by-node sampling,
-intermediate or advanced monotone constraints, a non-positive
-feature_contri, sparse device columns, ``split_fusion=off``), as the JAX
-package resolves it. ``quantized_grad``
+constraints, feature_contri, extra_trees and by-node feature sampling;
+and the data layer's: CEGB (its used-feature state carried across trees)
+and forced splits (``_load_forced_splits``). A train set with EFB bundles
+hands the grower its segment tables; its model trees map each (bundle
+column, bin) back to the original feature and threshold
+(``_make_host_tree``), and such a model predicts from raw features
+through them, in row chunks. The grower takes the fused split path unless
+``_split_fusion_on`` finds a reason not to (categorical features, EFB
+bundles, forced splits, CEGB, extra_trees, by-node sampling, intermediate
+or advanced monotone constraints, a non-positive feature_contri, sparse
+device columns, ``split_fusion=off``), as the JAX package resolves it. ``quantized_grad``
 (or ``histogram_method=pallas_q8``) grows every tree in the q8 mode. The
 JAX package's fused one-program iteration, K-block dispatch, compile
 cache, sentinels, flight recorder and OOM ladder wait for later ROADMAP
@@ -64,8 +69,11 @@ from ..ops.histogram import resolve_method
 from ..ops.split import SplitParams
 from ..utils import log
 from ..utils.random import bits, fold_in, prng_key, stable_argsort, uniform
-from .grower import grow_tree
+from .grower import CegbSpec, grow_tree
 from .tree import HostTree, TreeArrays, empty_tree, predict_leaf_bins
+
+
+_RAW_CHUNK = 65536      # rows a bundled model's raw predict densifies at once
 
 
 def _shrink_tree(tree: TreeArrays, lr: float) -> TreeArrays:
@@ -155,10 +163,10 @@ class GBDT:
 
     def _setup_learner_features(self, train_set: Dataset) -> None:
         """The split constraints and the randomised search (the JAX
-        package's ``_setup_learner_features``, CEGB left out): the monotone
-        mode, the interaction groups in used-feature space and by-node
-        sampling. Intermediate and advanced monotone constraints grow one
-        split per phase."""
+        package's ``_setup_learner_features``): the monotone mode, the
+        interaction groups in used-feature space, CEGB, by-node sampling
+        and the forced splits. Intermediate and advanced monotone
+        constraints grow one split per phase."""
         cfg = self.config
         self._with_monotone = any(int(m) != 0
                                   for m in (cfg.monotone_constraints or []))
@@ -187,6 +195,95 @@ class GBDT:
                         groups[gi, used[int(j)]] = True
             self._interaction_groups = groups
         self._use_bynode = cfg.feature_fraction_bynode < 1.0
+        self._setup_cegb(train_set)
+        self._forced_splits = self._load_forced_splits(train_set)
+
+    def _setup_cegb(self, train_set: Dataset) -> None:
+        """CEGB's penalties in used-feature space (reference:
+        cost_effective_gradient_boosting.hpp:26-33 enables it); the
+        used-feature state lasts across trees and iterations."""
+        cfg = self.config
+        self._cegb = None
+        if not (cfg.cegb_tradeoff < 1.0 or cfg.cegb_penalty_split > 0.0
+                or cfg.cegb_penalty_feature_coupled
+                or cfg.cegb_penalty_feature_lazy):
+            return
+        f = train_set.num_used_features()
+        pen = {}
+        for name in ("cegb_penalty_feature_coupled",
+                     "cegb_penalty_feature_lazy"):
+            lst = getattr(cfg, name)
+            if lst and len(lst) != train_set.num_total_features:
+                log.fatal(f"{name} should be the same size as feature "
+                          f"number ({train_set.num_total_features})")
+            pen[name] = None
+            if lst:
+                arr = np.zeros((f,), np.float32)
+                for i, j in enumerate(train_set.used_features[:f]):
+                    if j < len(lst):
+                        arr[i] = lst[j]
+                pen[name] = arr
+        lazy = pen["cegb_penalty_feature_lazy"]
+        state = {"used_split": np.zeros((f,), bool),
+                 "row_used": (torch.zeros((train_set.num_data, f),
+                                          dtype=torch.bool,
+                                          device=self.device)
+                              if lazy is not None else None)}
+        self._cegb = CegbSpec(cfg.cegb_tradeoff, cfg.cegb_penalty_split,
+                              pen["cegb_penalty_feature_coupled"], lazy,
+                              state)
+
+    def _load_forced_splits(self, ts: Dataset) -> Optional[tuple]:
+        """``forcedsplits_filename``'s JSON tree ({"feature": i,
+        "threshold": v, "left": {...}, "right": {...}}) as preorder arrays
+        (device column, threshold bin, left node, right node) for the
+        grower's forced phase (reference: serial_tree_learner.cpp:450
+        ForceSplits). A node on an unused, bundled or categorical feature
+        is left out with a warning, its subtree with it."""
+        fn = self.config.forcedsplits_filename
+        if not fn:
+            return None
+        import json
+        from .. import binning
+        try:
+            with open(fn) as fh:
+                data = json.load(fh)
+        except OSError:
+            log.warning(f"Could not open forced splits file {fn}. "
+                        f"Will ignore.")
+            return None
+        if not data:
+            return None
+        if ts.bundles is not None:
+            col_of = {int(ts.used_features[bd.members[0]]): gi
+                      for gi, bd in enumerate(ts.bundles)
+                      if len(bd.members) == 1}
+        else:
+            col_of = {int(j): i for i, j in enumerate(ts.used_features)}
+        nodes: List[List[int]] = []
+
+        def rec(node) -> int:
+            orig = int(node["feature"])
+            col = col_of.get(orig)
+            m = ts.mappers[orig] if orig < len(ts.mappers) else None
+            if (col is None or m is None
+                    or m.bin_type != binning.BIN_TYPE_NUMERICAL):
+                log.warning(f"forced split on feature {orig} ignored "
+                            f"(unused, bundled or categorical)")
+                return -1
+            idx = len(nodes)
+            nodes.append([col, m.value_to_bin(float(node["threshold"])),
+                          -1, -1])
+            if node.get("left"):
+                nodes[idx][2] = rec(node["left"])
+            if node.get("right"):
+                nodes[idx][3] = rec(node["right"])
+            return idx
+
+        if rec(data) != 0 or not nodes:
+            return None
+        arr = np.asarray(nodes, np.int64)
+        return arr[:, 0], arr[:, 1], arr[:, 2], arr[:, 3]
 
     def _score_cache(self, n: int, init_score=None) -> torch.Tensor:
         """A score cache of ``n`` rows at the init scores, or at a Dataset's
@@ -286,7 +383,7 @@ class GBDT:
     def _feature_mask(self) -> Optional[np.ndarray]:
         """By-tree column sampling (reference: col_sampler.hpp:20-50):
         [F] bool, or None when every feature is in."""
-        f = len(self.train_set.used_features)
+        f = self.train_set.num_used_features()
         frac = self.config.feature_fraction
         if frac >= 1.0:
             return None
@@ -333,16 +430,18 @@ class GBDT:
             interaction_groups=self._interaction_groups,
             extra_trees=cfg.extra_trees,
             bynode_fraction=(cfg.feature_fraction_bynode
-                             if self._use_bynode else None))
+                             if self._use_bynode else None),
+            bundle=ts.bundle_meta, cegb=self._cegb,
+            forced=self._forced_splits)
 
     def _split_fusion_on(self) -> bool:
         """Resolve ``split_fusion`` as the JAX package does: "auto" fuses
         the split search into the tile passes unless the classic search
-        has to run -- categorical features, extra_trees, by-node sampling,
-        intermediate or advanced monotone constraints, a non-positive
-        feature_contri or sparse device columns (the reasons the port
-        has, in the JAX package's order); "on" raises with any; "off"
-        never fuses. Basic monotone constraints, interaction constraints
+        has to run -- categorical features, EFB bundles, forced splits,
+        CEGB, extra_trees, by-node sampling, intermediate or advanced
+        monotone constraints, a non-positive feature_contri or sparse
+        device columns (the reasons the port has, in the JAX package's
+        order); "on" raises with any; "off" never fuses. Basic monotone constraints, interaction constraints
         and a positive feature_contri stay fused."""
         cfg = self.config
         mode = cfg.split_fusion
@@ -352,6 +451,12 @@ class GBDT:
         reasons = []
         if ts.has_categorical:
             reasons.append("categorical features")
+        if ts.bundle_meta is not None:
+            reasons.append("EFB bundles")
+        if self._forced_splits is not None:
+            reasons.append("forced splits")
+        if self._cegb is not None:
+            reasons.append("CEGB")
         if cfg.extra_trees:
             reasons.append("extra_trees")
         if self._use_bynode:
@@ -447,7 +552,7 @@ class GBDT:
         self.trees.append(tree)
         self.host_trees.append(self._make_host_tree(tree))
         for i, vs in enumerate(self.valid_sets):
-            leaf = predict_leaf_bins(tree, vs.binsT,
+            leaf = predict_leaf_bins(tree, vs.traversal_binsT(),
                                      vs.missing_bin.to(vs.device))
             self._valid_scores[i] = self._class_add(
                 self._valid_scores[i], class_idx,
@@ -476,13 +581,35 @@ class GBDT:
         self.tree_bias.append(bias)
 
     def _make_host_tree(self, tree: TreeArrays) -> HostTree:
-        """Host view with real thresholds from the bin mappers."""
+        """Host view with real thresholds from the bin mappers. On a
+        bundled train set each node's (bundle column, bin) maps back to its
+        original feature and that feature's own bin (the direction decides
+        which: ``_thr_rev`` or ``_thr_fwd``), so model trees reference
+        original features, as the reference's do."""
         ds = self.train_set
         n_nodes = max(int(tree.num_leaves) - 1, 0)
         feats = tree.node_feature[:n_nodes].numpy()
         bins_thr = tree.node_threshold_bin[:n_nodes].numpy()
         real_thr = np.zeros(tree.node_threshold_bin.shape[0], np.float64)
         missing = np.zeros(n_nodes, np.int8)
+        if ds.bundles is not None:
+            seg_lo = tree.node_seg_lo[:n_nodes].numpy()
+            dleft = tree.node_default_left[:n_nodes].numpy()
+            orig = np.zeros(n_nodes, np.int32)
+            for i in range(n_nodes):
+                g, t = int(feats[i]), int(bins_thr[i])
+                orig[i] = int(ds._owner_orig[g, t])
+                mapper = ds.mappers[orig[i]]
+                missing[i] = mapper.missing_type
+                if seg_lo[i] >= 0:
+                    thr = ds._thr_rev if dleft[i] else ds._thr_fwd
+                    t = int(thr[g, t])
+                real_thr[i] = mapper.bin_to_value(t)
+            ht = HostTree(tree, real_thr,
+                          np.arange(ds.num_total_features, dtype=np.int32),
+                          missing)
+            ht.split_feature = orig
+            return ht
         used = ds.used_features
         for i in range(n_nodes):
             mapper = ds.mappers[used[feats[i]]]
@@ -553,22 +680,95 @@ class GBDT:
         the device, traverse each tree over the bins, accumulate the float32
         tree outputs in float64 in tree order (the boost-from-average score
         lives in the first trees' leaves); [N], or [N, K] with K classes.
-        An averaged model (RF) divides by the iterations used."""
+        An averaged model (RF) divides by the iterations used. A model
+        trained on EFB bundles predicts from the raw features through its
+        model trees (new rows need not keep the training rows'
+        exclusivity, and the reference predicts from real thresholds too),
+        in chunks of ``_RAW_CHUNK`` rows, densifying one chunk at a time."""
         ts = self.train_set
-        binsT = ts.bin_new_data(X)
-        mb = ts.missing_bin.to(binsT.device)
         k = self.num_tree_per_iteration
         start, end = self._iter_range(num_iteration, start_iteration)
-        out = torch.zeros((binsT.shape[1], k), dtype=torch.float64,
-                          device=binsT.device)
-        for i, tree in enumerate(self.trees[start * k:end * k]):
-            leaf = predict_leaf_bins(tree, binsT, mb)
-            out[:, i % k] += tree.leaf_value.to(binsT.device)[leaf].to(
-                torch.float64)
+        if ts.bundles is not None:
+            out = self._predict_model_trees(X, start, end)
+        else:
+            out = self._traverse(ts.bin_new_data(X), start, end)
         if self.average_output:
             out /= max(end - start, 1)
-        out = out.cpu().numpy()
         return out if k > 1 else out[:, 0]
+
+    def _traverse(self, binsT: torch.Tensor, start: int, end: int,
+                  base: Optional[np.ndarray] = None,
+                  use_bias: bool = False) -> np.ndarray:
+        """[N, K] float64 sums over a train-aligned bin matrix of the trees
+        of iterations [start, end), in tree order from ``base`` (zeros by
+        default); ``use_bias`` takes each tree's folded boost-from-average
+        bias off its value first, as the JAX package's predict engine
+        does."""
+        k = self.num_tree_per_iteration
+        dev = binsT.device
+        mb = self.train_set.missing_bin.to(dev)
+        out = (torch.zeros((binsT.shape[1], k), dtype=torch.float64,
+                           device=dev) if base is None
+               else torch.as_tensor(base, dtype=torch.float64, device=dev))
+        for i, tree in enumerate(self.trees[start * k:end * k]):
+            leaf = predict_leaf_bins(tree, binsT, mb)
+            v = tree.leaf_value.to(dev)[leaf].to(torch.float64)
+            if use_bias:
+                v = v - self.tree_bias[start * k + i]
+            out[:, i % k] += v
+        return out.cpu().numpy()
+
+    def _predict_model_trees(self, X, start: int, end: int) -> np.ndarray:
+        """[N, K] float64 sums of the model trees (real thresholds, original
+        features) over raw rows, chunk by chunk."""
+        from ..basic import _is_scipy_sparse, _to_2d_float
+        from ..io.model_text import ModelTree
+        ts = self.train_set
+        k = self.num_tree_per_iteration
+        if _is_scipy_sparse(X):
+            X = X.tocsr()
+        else:
+            X = _to_2d_float(ts._pandas_to_codes(X))
+        if X.shape[1] != ts.num_total_features:
+            log.fatal(f"The number of features in data ({X.shape[1]}) is not "
+                      f"the same as it was in training data "
+                      f"({ts.num_total_features}).")
+        mts = [ModelTree.from_host(ht, ts.mappers)
+               for ht in self.host_trees[start * k:end * k]]
+        out = np.zeros((X.shape[0], k), np.float64)
+        for r0 in range(0, X.shape[0], _RAW_CHUNK):
+            xc = X[r0:r0 + _RAW_CHUNK]
+            xc = (np.asarray(xc.toarray(), np.float64)
+                  if _is_scipy_sparse(xc) else xc)
+            for i, mt in enumerate(mts):
+                out[r0:r0 + xc.shape[0], i % k] += mt.predict(xc)
+        return out
+
+    def score_dataset(self, ds: Dataset) -> np.ndarray:
+        """Raw scores of a train-aligned Dataset from its bin matrix (the
+        JAX package's ``score_dataset``, which ``Booster.eval`` uses): the
+        init scores (or the set's ``init_score``) plus every tree, traversed
+        over the full-width bins (``Dataset.traversal_binsT``: a
+        sparse-stored set's stream columns rebuilt; a bundled set's bundle
+        columns, which the trees' segments read)."""
+        ds.construct()
+        ts = self.train_set
+        if ds is not ts and ds.reference is not ts \
+                and ds.mappers is not ts.mappers:
+            log.fatal("eval dataset was not binned against the training "
+                      "set; construct it with reference=<train Dataset>")
+        k = self.num_tree_per_iteration
+        n = ds.num_data
+        base = np.broadcast_to(np.asarray(self.init_scores, np.float64),
+                               (n, k)).copy()
+        if ds.init_score is not None:
+            base = np.asarray(ds.init_score, np.float64).reshape(n, k).copy()
+        if self.trees:
+            # the first trees carry the folded init score, which the base
+            # holds already: each tree's bias comes off its value
+            base = self._traverse(ds.traversal_binsT(), 0,
+                                  len(self.trees) // k, base, use_bias=True)
+        return base if k > 1 else base[:, 0]
 
     def predict(self, X, raw_score: bool = False,
                 num_iteration: Optional[int] = None,

@@ -63,6 +63,17 @@ constraints and by-node sampling as per-leaf feature masks
 (leaf, feature) a search (``rand_bins``), the draws keyed on the tree's
 key and the growth round.
 
+The data layer's options, on the classic path: EFB bundles (``bundle``,
+the segment-relative search; a bundle column's split routes the rows
+outside its member's segment by the default direction), CEGB
+(``cegb``: each search's per-(leaf, feature) cost, with the
+used-feature state ``used_split`` [F] and, in the lazy mode, ``row_used``
+[N, F] carried across trees) and forced splits (``forced``: each forced
+node in preorder runs the regular search restricted to its feature and
+bin with the min_gain, min_data and min_hessian screens off, before any
+unforced split; a node its constraints reject is skipped with its
+subtree).
+
 In the quantized-gradient mode (a ``*_q8`` histogram method) the
 gradients and hessians become int8 before growth, with per-tree scales and
 stochastic rounding drawn from the tree's key (``utils/random.py``, the
@@ -88,7 +99,7 @@ import torch
 from ..ops import cuda_hist
 from ..ops.histogram import (compact_indices, epilogue_supported,
                              histogram_tiles, histogram_tiles_with_candidates)
-from ..ops.split import (FeatureMeta, SplitInfo, SplitParams,
+from ..ops.split import (BundleMeta, FeatureMeta, SplitInfo, SplitParams,
                          calculate_leaf_output, candidates_to_splitinfo,
                          cat_words_for, find_best_splits)
 from ..utils.ordered import tree_sum
@@ -281,6 +292,29 @@ def advanced_child_bounds(lo: torch.Tensor, hi: torch.Tensor,
     return tuple(_unkey(k) for k in (lmin, lmax, rmin, rmax))
 
 
+def fma_f32(a: torch.Tensor, b: torch.Tensor,
+            c: torch.Tensor) -> torch.Tensor:
+    """float32 ``a * b + c`` rounded once, as XLA:CPU contracts a multiply
+    feeding an add into one FMA (the product of two float32 values is
+    exact in float64)."""
+    return (a.to(torch.float64) * b.to(torch.float64)
+            + c.to(torch.float64)).to(torch.float32)
+
+
+@dataclass
+class CegbSpec:
+    """CEGB's settings in used-feature space (``GBDT`` builds it): the
+    tradeoff, the split penalty, the coupled and lazy per-feature
+    penalties (float32 [F] or None), and ``state``, the cross-tree record
+    (``used_split`` [F] bool on the host; ``row_used`` [N, F] bool on the
+    device in the lazy mode), which the grower updates in place."""
+    tradeoff: float
+    penalty_split: float
+    coupled: Optional[np.ndarray]
+    lazy: Optional[np.ndarray]
+    state: dict
+
+
 @dataclass
 class GrowState:
     """One tree's growth state: device tensors (``leaf_id``, ``hist``) and
@@ -311,9 +345,11 @@ class GrowState:
     rows_streamed: float = 0.0
     rows_real: float = 0.0        # of them, rows of the computed leaves
     # the current split phase's splits: (leaf, new_leaf, feature,
-    # threshold_bin, default_left, is_cat, bitset), routed together at the
-    # phase's end
+    # threshold_bin, default_left, is_cat, bitset, seg_lo, seg_hi), routed
+    # together at the phase's end
     pending_routes: List[tuple] = field(default_factory=list)
+    forced_idx: int = 0           # next forced-split node
+    forced_slot: Optional[np.ndarray] = None  # [K] leaf per forced node
 
 
 def _np(x: torch.Tensor) -> np.ndarray:
@@ -361,7 +397,11 @@ class Grower:
     ``bynode_fraction`` (a random feature subset per leaf a search). The
     draws come from ``rng_key`` (the tree's key) folded with the growth
     round, as the JAX package draws them. Intermediate and advanced
-    monotone constraints force one split per phase (``exact``)."""
+    monotone constraints force one split per phase (``exact``).
+
+    The data layer: ``bundle`` (``BundleMeta``, EFB), ``cegb`` (a
+    ``CegbSpec``) and ``forced`` ((feature, threshold bin, left node,
+    right node) int arrays [K], the forced splits in preorder)."""
 
     def __init__(self, binsT: torch.Tensor, grad: torch.Tensor,
                  hess: torch.Tensor, meta: FeatureMeta, params: SplitParams,
@@ -378,7 +418,10 @@ class Grower:
                  mono_mode: str = "",
                  interaction_groups: Optional[np.ndarray] = None,
                  extra_trees: bool = False,
-                 bynode_fraction: Optional[float] = None):
+                 bynode_fraction: Optional[float] = None,
+                 bundle: Optional[BundleMeta] = None,
+                 cegb: Optional["CegbSpec"] = None,
+                 forced: Optional[tuple] = None):
         assert tuple(sorted(compaction_ladder)) == tuple(compaction_ladder), \
             "compaction_ladder must be ascending"
         assert not (split_fusion and (with_categorical or sp is not None)), \
@@ -390,6 +433,10 @@ class Grower:
             ("split_fusion covers basic monotone constraints only: "
              "extra_trees, by-node sampling and the intermediate and "
              "advanced monotone modes take the classic path")
+        assert not (split_fusion and (bundle is not None or cegb is not None
+                                      or forced is not None)), \
+            ("split_fusion covers the unbundled search only: EFB bundles, "
+             "CEGB and forced splits take the classic path")
         assert subset is None or (sp is None and sample_mask is None), \
             "the bagging subset copy holds dense columns and no mask"
         self.binsT = binsT
@@ -481,7 +528,13 @@ class Grower:
             self.col2sp = np.zeros((self.f,), dtype=np.int64)
             self.col2sp[sp_cols] = np.arange(self.f_sp)
             self.col2dense_dev = torch.as_tensor(col2dense).to(self.dev)
-        self.max_rounds = 3 * self.L + 8
+        self.bundle = None if bundle is None else bundle.to(self.dev)
+        self.cegb = cegb
+        self.forced = (None if forced is None
+                       else tuple(np.asarray(a, np.int64) for a in forced))
+        # each forced node takes a round even when its subtree is dead
+        k_forced = 0 if forced is None else len(self.forced[0])
+        self.max_rounds = 3 * self.L + 8 + k_forced
 
     def _quantize(self, stats: torch.Tensor, rng_key: torch.Tensor):
         """The quantized-gradient mode's int8 stats (JAX ``grow_tree``'s
@@ -530,7 +583,9 @@ class Grower:
             right_sum_g=zf(), right_sum_h=zf(), right_count=zf(),
             left_output=zf(), right_output=zf(),
             is_cat=np.zeros((L,), bool),
-            cat_bitset=np.zeros((L, W), np.int64))
+            cat_bitset=np.zeros((L, W), np.int64),
+            seg_lo=np.full((L,), -1, np.int32),
+            seg_hi=np.full((L,), -1, np.int32))
         sums = [zf() for _ in range(4)]
         for s, v in zip(sums, (root[0], root[1], root[2], root_out)):
             s[0] = v.numpy()
@@ -556,7 +611,10 @@ class Grower:
                        else np.zeros((L, self.f), bool)),
             sib=np.full((L,), -1, np.int32),
             parent_hist=np.zeros((L,), bool),
-            best=best, tree=empty_tree(L, W).numpy())
+            best=best, tree=empty_tree(L, W).numpy(),
+            forced_slot=(None if self.forced is None else np.concatenate(
+                [[0], np.full((len(self.forced[0]) - 1,), -1)]).astype(
+                    np.int64)))
 
     def hist_leaf_id(self, st: GrowState) -> torch.Tensor:
         """The leaf ids of the histogram passes' rows."""
@@ -864,9 +922,37 @@ class Grower:
             cat_words=self.cat_words, leaf_min=bounds[0],
             leaf_max=bounds[1], adv_bounds=adv,
             rand_bin=(self.rand_bins(st).to(dev) if self.extra_trees
-                      else None))
+                      else None),
+            gain_adjust=self.cegb_adjust(st), bundle=self.bundle)
         st.best = SplitInfo(*(_np(v) for v in best))
         st.rounds += 1
+
+    def cegb_adjust(self, st: GrowState) -> Optional[torch.Tensor]:
+        """CEGB's cost per (leaf, feature), taken off the keyed gains
+        (cost_effective_gradient_boosting.hpp:66-84 DeltaGain), as the JAX
+        package computes it in float32: tradeoff * penalty_split * the
+        leaf's count, plus tradeoff * coupled penalty of each feature no
+        split has used yet, plus (lazy) tradeoff * lazy penalty * the
+        leaf's rows that have not used the feature yet. Those row counts
+        are exact integers, counted with an integer ``index_add_``."""
+        c = self.cegb
+        if c is None:
+            return None
+        L, dev = self.L, self.dev
+        t = np.float32(c.tradeoff)
+        delta = (t * np.float32(c.penalty_split)) * st.leaf_cnt     # [L]
+        delta = np.broadcast_to(delta[:, None], (L, self.f))
+        if c.coupled is not None:
+            delta = delta + np.where(c.state["used_split"][None, :],
+                                     np.float32(0.0), t * c.coupled[None, :])
+        delta = torch.from_numpy(np.ascontiguousarray(delta)).to(dev)
+        if c.lazy is not None:
+            unused = (~c.state["row_used"]).to(torch.int32)           # [N, F]
+            cnt = torch.zeros((L, self.f), dtype=torch.int32, device=dev)
+            cnt.index_add_(0, st.leaf_id.long(), unused)
+            tl = torch.from_numpy(t * c.lazy).to(dev)
+            delta = fma_f32(tl[None, :], cnt.to(torch.float32), delta)
+        return delta
 
     def _apply_split(self, st: GrowState, gain_eff: np.ndarray) -> None:
         """Split the best leaf (SerialTreeLearner::Split + Tree::Split):
@@ -881,6 +967,7 @@ class Grower:
         dleft = bool(best.default_left[l])
         is_cat = bool(best.is_cat[l])
         bits = best.cat_bitset[l].copy()
+        seg_lo, seg_hi = int(best.seg_lo[l]), int(best.seg_hi[l])
 
         parent = int(t.leaf_parent[l])
         if parent >= 0:
@@ -896,7 +983,8 @@ class Grower:
                        (t.node_value, st.leaf_output[l]),
                        (t.node_weight, st.leaf_sum_h[l]),
                        (t.node_count, st.leaf_cnt[l]),
-                       (t.node_cat, is_cat), (t.node_cat_bitset, bits)):
+                       (t.node_cat, is_cat), (t.node_cat_bitset, bits),
+                       (t.node_seg_lo, seg_lo), (t.node_seg_hi, seg_hi)):
             arr[node] = v
         depth = st.leaf_depth[l] + 1
         lo, ro = best.left_output[l], best.right_output[l]
@@ -928,8 +1016,10 @@ class Grower:
         if self.igroups is not None:
             st.used_path[l, feat] = True
             st.used_path[new_leaf] = st.used_path[l]
+        if self.cegb is not None:
+            self.cegb.state["used_split"][feat] = True
         st.pending_routes.append((l, new_leaf, feat, thr, dleft, is_cat,
-                                  bits))
+                                  bits, seg_lo, seg_hi))
         st.num_leaves += 1
         gain_eff[l] = NEG_INF
         gain_eff[new_leaf] = NEG_INF
@@ -989,15 +1079,24 @@ class Grower:
         new_t = np.zeros((L,), dtype=np.int32)
         cat_t = np.zeros((L,), dtype=bool)
         bits_t = np.zeros((L, W), dtype=np.int64)
-        for l, nl, feat, thr, dleft, is_cat, bits in st.pending_routes:
+        seg_t = np.full((2, L), -1, dtype=np.int32)
+        for (l, nl, feat, thr, dleft, is_cat, bits, slo,
+             shi) in st.pending_routes:
             feat_t[l], thr_t[l], dl_t[l], new_t[l] = feat, thr, dleft, nl
             cat_t[l], bits_t[l] = is_cat, bits
+            seg_t[:, l] = slo, shi
         feats = {r[2] for r in st.pending_routes}
         st.pending_routes = []
         dev = self.dev
 
         tables = [torch.as_tensor(a).to(dev)
-                  for a in (feat_t, thr_t, dl_t, new_t, cat_t, bits_t)]
+                  for a in (feat_t, thr_t, dl_t, new_t, cat_t, bits_t,
+                            seg_t)]
+        if self.cegb is not None and self.cegb.lazy is not None:
+            # the rows of each split leaf have now used its feature
+            fr = tables[0][st.leaf_id.long()]
+            rows = torch.nonzero(fr >= 0).reshape(-1)
+            self.cegb.state["row_used"][rows, fr[rows]] = True
         st.leaf_id = self._route_rows(self.binsT, st.leaf_id, tables, feats,
                                       bool(cat_t.any()))
         if st.leaf_id_sub is not None:
@@ -1009,7 +1108,7 @@ class Grower:
         """New leaf ids of the rows of ``binsT`` under one phase's split
         tables (by leaf: feature or -1, threshold, default left, new leaf,
         categorical, bitset)."""
-        feat_t, thr_t, dl_t, new_t, cat_t, bits_t = tables
+        feat_t, thr_t, dl_t, new_t, cat_t, bits_t, seg_t = tables
         W = self.cat_words
         lid = leaf_id.long()
         feat_r = feat_t[lid]
@@ -1018,6 +1117,13 @@ class Grower:
         mb = self.missing_bin_dev[feat_r.clamp(min=0)]
         go_left = torch.where((col == mb) & (mb >= 0), dl_t[lid],
                               col <= thr_t[lid])
+        if self.bundle is not None:
+            # a bundle split: rows outside the member's segment hold its
+            # default mass and take the default direction
+            slo, shi = seg_t[0][lid], seg_t[1][lid]
+            in_seg = (col >= slo) & (col <= shi)
+            go_left = torch.where(slo >= 0, torch.where(
+                in_seg, col <= thr_t[lid], dl_t[lid]), go_left)
         if any_cat:
             word = bits_t.reshape(-1)[lid * W + (col >> 5).long()]
             cat_left = ((word >> (col & 31).long()) & 1) == 1
@@ -1045,6 +1151,72 @@ class Grower:
         else:
             self.split_search(st)
         self.split_apply(st)
+
+    def forced_phase(self, st: GrowState) -> None:
+        """Apply the next forced split (reference:
+        SerialTreeLearner::ForceSplits, serial_tree_learner.cpp:450-562):
+        the regular search with the candidates restricted to the forced
+        feature and bin and the min_gain, min_data and min_hessian screens
+        off, so the sums and the missing-value direction are the search's
+        own; a forced split its constraints reject (no finite candidate) is
+        skipped with its whole subtree."""
+        dev = self.dev
+        adv = None
+        if self.mono_intermediate:
+            act = torch.from_numpy(self.active_mask(st))
+            boxes = torch.from_numpy(st.leaf_lo), torch.from_numpy(st.leaf_hi)
+            out = torch.from_numpy(st.leaf_output)
+            lb, ub = intermediate_bounds(*boxes, out, act, self.meta.monotone,
+                                         self.mono_features)
+            st.leaf_min, st.leaf_max = lb.numpy(), ub.numpy()
+            if self.mono_advanced:
+                adv = advanced_child_bounds(
+                    *(t.to(dev) for t in boxes), out.to(dev), act.to(dev),
+                    self.meta.monotone, self.B, self.mono_features)
+        ff, ft, fl, fr = self.forced
+        k = st.forced_idx
+        l = int(st.forced_slot[k])
+        lsafe = max(l, 0)
+        pf = self.params_dev
+
+        def f32(v):
+            return torch.tensor(v, dtype=torch.float32, device=dev)
+
+        params = pf._replace(min_gain_to_split=f32(-1e30),
+                             min_data_in_leaf=f32(0.0),
+                             min_sum_hessian_in_leaf=f32(0.0))
+        aggs = [torch.from_numpy(a).to(dev) for a in
+                (st.leaf_sum_g, st.leaf_sum_h, st.leaf_cnt, st.leaf_output,
+                 st.leaf_depth)]
+        bounds = ([torch.from_numpy(a).to(dev)
+                   for a in (st.leaf_min, st.leaf_max)]
+                  if self.with_monotone else (None, None))
+        best = find_best_splits(
+            st.hist, *aggs, self.meta_dev, params,
+            torch.arange(self.f, device=dev) == int(ff[k]), self.max_depth,
+            with_categorical=False, cat_words=self.cat_words,
+            leaf_min=bounds[0], leaf_max=bounds[1], adv_bounds=adv,
+            rand_bin=torch.full((self.L, self.f), int(ft[k]),
+                                dtype=torch.int32, device=dev),
+            bundle=self.bundle)
+        st.best = SplitInfo(*(_np(v) for v in best))
+        st.rounds += 1
+        ok = (l >= 0 and st.num_leaves < self.L and bool(st.hist_valid[lsafe])
+              and not bool(st.leaf_dead[lsafe])
+              and bool(np.isfinite(st.best.gain[lsafe])))
+        new_leaf = st.num_leaves
+        if ok:
+            gain_eff = np.full((self.L,), NEG_INF, np.float32)
+            gain_eff[lsafe] = 1.0
+            self._apply_split(st, gain_eff)
+            self._route(st)
+        # the children inherit slots (the left keeps the split leaf's, the
+        # right takes the new one); a skipped node kills its subtree
+        for child, leaf in ((fl[k], lsafe), (fr[k], new_leaf)):
+            if child >= 0:
+                st.forced_slot[child] = leaf if ok else -1
+        st.forced_idx = k + 1
+        st.done = False
 
     def hist_phase(self, st: GrowState) -> None:
         if self.split_fusion:
@@ -1074,7 +1246,10 @@ def grow_tree(binsT: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
               mono_mode: str = "",
               interaction_groups: Optional[np.ndarray] = None,
               extra_trees: bool = False,
-              bynode_fraction: Optional[float] = None
+              bynode_fraction: Optional[float] = None,
+              bundle: Optional[BundleMeta] = None,
+              cegb: Optional["CegbSpec"] = None,
+              forced: Optional[tuple] = None
               ) -> Tuple[TreeArrays, torch.Tensor, float]:
     """Grow one tree from per-row gradients/hessians. ``hist_method`` is
     ``ops/histogram.resolve_method``'s answer (empty: the f32 mode of the
@@ -1084,8 +1259,9 @@ def grow_tree(binsT: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
     passes); ``counters``, when given, gains the tree's ``rows_real``: the
     rows those passes added (a gather pass's tile rows, a full pass's N),
     beside which the rows read show the rungs' padding. ``sample_mask``,
-    ``subset``, ``feature_mask`` and the constraint options as
-    ``Grower``'s; the leaf ids cover all N rows either way."""
+    ``subset``, ``feature_mask``, the constraint options and the data
+    layer's (``bundle``, ``cegb``, ``forced``) as ``Grower``'s; the leaf
+    ids cover all N rows either way."""
     g = Grower(binsT, grad, hess, meta, params, missing_bin,
                max_leaves=max_leaves, num_bins=num_bins, max_depth=max_depth,
                exact=exact, tile_leaves=tile_leaves,
@@ -1096,12 +1272,16 @@ def grow_tree(binsT: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
                sample_mask=sample_mask, subset=subset,
                feature_mask=feature_mask, mono_mode=mono_mode,
                interaction_groups=interaction_groups,
-               extra_trees=extra_trees, bynode_fraction=bynode_fraction)
+               extra_trees=extra_trees, bynode_fraction=bynode_fraction,
+               bundle=bundle, cegb=cegb, forced=forced)
     st = g.init_state()
+    k_forced = 0 if g.forced is None else len(g.forced[0])
     while g.outer_cond(st):
         g.dead_guard(st)
         if bool(g.pending_mask(st).any()):
             g.hist_phase(st)
+        elif st.forced_idx < k_forced:
+            g.forced_phase(st)
         else:
             g.split_phase(st)
     if counters is not None:

@@ -22,18 +22,23 @@ Hopper that is two hand-written CUDA kernels (``csrc/``):
   deterministic, so two launches give the same bits. Two modes, chosen by
   the stats' dtype: f32 (float stats, 64-bit fixed-point sums, float32
   planes) and q8 (the quantized-gradient mode: int8 stats, exact int32
-  sums, int32 planes).
-  ``plane=True`` marks a launch of the classic path (the plane-only
-  kernels 3-4). Each mode counts its own launches: ``launches``,
-  ``gather_launches`` and ``launches_plane`` for f32, ``launches_q8``,
-  ``gather_launches_q8`` and ``launches_plane_q8`` for q8;
+  sums, int32 planes); and two bin widths, chosen by the bins' dtype:
+  uint8 (up to 256 bins) and the wide mode (int16 bins, up to
+  ``MAX_BINS_WIDE`` bins: the kernels hold one feature's [B, 3] plane in
+  a block's shared memory). ``plane=True`` marks a launch of the classic
+  path (the plane-only kernels 3-4). Each mode counts its own launches:
+  ``launches``, ``gather_launches`` and ``launches_plane`` for f32 at
+  uint8 bins, each with ``_q8`` for q8 and with ``_wide`` (before
+  ``_q8``) for the wide mode;
 - ``split_epilogue`` (``csrc/split_epilogue.cu``): in q8 mode the int32
   tile dequantized by ``q_scale`` first, then the derived slots' planes as
   parent - computed sibling, then the numerical split scan (``ops/split.py
   numerical_candidates``) -> the ``[P, F, 12]`` table; in its monotone
   mode (``with_monotone``, basic monotone constraints) the scan clips each
   candidate's outputs to its slot's bounds and zeroes the gain of those
-  that break the feature's direction.
+  that break the feature's direction. Above 256 bins its wide mode walks
+  a plane in chunks of 256 bins and carries the scan in XLA's three-level
+  block order.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs, launches on the current stream, raises if the launch failed, and
@@ -87,7 +92,10 @@ import torch
 
 _PAD = 128                  # lane width of the TPU layout tables
 _STATS = 3                  # (grad, hess, count) per row
-MAX_BINS = 256              # split_epilogue: 8 bins a lane of a warp
+MAX_BINS = 256              # uint8 bins; split_epilogue: 8 bins a lane
+MAX_BINS_WIDE = 4096        # the wide mode's cap: one f32 [B, 3] plane of
+                            # 24 bytes a bin fits a block (ROADMAP Queue 2
+                            # item 3 splits a feature's bins beyond it)
 Q8_MAX_ROWS = (2 ** 31 - 1) // 127   # q8: |sum| <= 127 * rows fits int32
 SMEM_PER_BLOCK = 232_448    # Hopper: dynamic shared memory a block can use
 _STATIC_SMEM = 1024         # room left for a gather kernel's static arrays
@@ -236,11 +244,11 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
     if name == "hist_tile":
         lib.hist_full_launch.argtypes = ([vp] * 4 + [ci, vp,
                                                      ctypes.c_longlong]
-                                         + [vp] * 2 + [ci] * 9 + [vp])
+                                         + [vp] * 2 + [ci] * 10 + [vp])
         lib.hist_full_launch.restype = ci
         lib.hist_gather_launch.argtypes = ([vp] * 6 + [ci, vp,
                                                        ctypes.c_longlong]
-                                           + [vp] * 4 + [ci] * 11 + [vp])
+                                           + [vp] * 4 + [ci] * 12 + [vp])
         lib.hist_gather_launch.restype = ci
     elif name == "split_epilogue":
         lib.split_epilogue_launch.argtypes = [vp] * 9 + [ci] * 4 + [vp]
@@ -575,6 +583,7 @@ def gather_layout(num_features: int, num_bins: int,
     stages). A block's planes ([group, B, 3] cells of 8 bytes in f32 mode,
     4 in q8) fill at most its shared memory: 37 features at 255 bins in
     f32, so the 28 Higgs features take one group."""
+    check_bins_cap(num_bins)
     cell = 4 if q8 else 8
     fit = min(_GATHER_THREADS, (SMEM_PER_BLOCK - _STATIC_SMEM)
               // (num_bins * _STATS * cell))
@@ -583,10 +592,23 @@ def gather_layout(num_features: int, num_bins: int,
     return group, _row_width(num_features), _SCATTER_TILE
 
 
+def check_bins_cap(num_bins: int) -> None:
+    """Raise for more bins a device column than the kernels hold: one
+    feature's [B, 3] plane in one block's shared memory (every layout fits
+    up to ``MAX_BINS_WIDE``)."""
+    if num_bins > MAX_BINS_WIDE:
+        raise NotImplementedError(
+            f"{num_bins} bins in a device column exceed the kernels' cap of "
+            f"{MAX_BINS_WIDE} (one feature's plane in one block's shared "
+            f"memory); splitting a feature's bins across blocks arrives "
+            f"with ROADMAP.md Queue 2 item 3")
+
+
 def _row_width(num_features: int) -> int:
-    """Bytes of a row of the row-major bin copy: F padded to a power of two
-    up to 32 (then to a multiple of 32), so no row straddles a 32-byte
-    sector."""
+    """Elements of a row of the row-major bin copy: F padded to a power of
+    two up to 32 (then to a multiple of 32), so no uint8 row straddles a
+    32-byte sector (a 16-bit row of up to 32 features fills whole
+    sectors)."""
     width = 4
     while width < min(num_features, 32):
         width *= 2
@@ -604,7 +626,9 @@ def full_layout(num_features: int, num_bins: int,
     a warp: row id and stats, 28 bytes a row in f32 mode, 8 in q8) and its
     planes ([group, B, 3] cells of 8 bytes in f32 mode, 4 in q8): 33
     features fit at 255 bins in f32, so the 28 Higgs features take one
-    group."""
+    group; 8 fit at 1,023 bins, so they take 4 groups of 7, and the rows
+    are read 4 times."""
+    check_bins_cap(num_bins)
     room = SMEM_PER_BLOCK - _STATIC_SMEM - _FULL_THREADS * (8 if q8 else 28)
     fit = room // (num_bins * _STATS * (4 if q8 else 8))
     ngroups = -(-num_features // fit)
@@ -612,8 +636,9 @@ def full_layout(num_features: int, num_bins: int,
 
 
 def bins_by_row(binsT: torch.Tensor, width: int) -> torch.Tensor:
-    """[N, width] uint8 row-major copy of the bin matrix (zero-padded past
-    F), which the gather form reads rows of. Kept on the ``binsT`` tensor
+    """[N, width] row-major copy of the bin matrix in its dtype (uint8, or
+    int16 in the wide mode; zero-padded past F), which the kernels read
+    rows of. Kept on the ``binsT`` tensor
     itself and made again only after an in-place write to it (its version
     counter) or for another width, so a trainer makes it once per
     Dataset."""
@@ -622,7 +647,7 @@ def bins_by_row(binsT: torch.Tensor, width: int) -> torch.Tensor:
             and kept[1].shape[1] == width:
         return kept[1]
     f, n = binsT.shape
-    rows = torch.zeros((n, width), dtype=torch.uint8, device=binsT.device)
+    rows = torch.zeros((n, width), dtype=binsT.dtype, device=binsT.device)
     rows[:, :f] = binsT.T
     binsT._bins_by_row = (binsT._version, rows)
     return rows
@@ -642,8 +667,10 @@ def hist_tile(binsT: torch.Tensor, leaf_ids: torch.Tensor,
     ``plane`` marks a classic-path launch. ``amax`` (f32 mode only): [3]
     float32 max|stat| of each channel over all N rows, which sets the
     fixed-point scale; a caller that keeps the stats for several passes
-    computes it once, and without it every launch computes it."""
+    computes it once, and without it every launch computes it. int16
+    ``binsT`` selects the wide mode (up to ``MAX_BINS_WIDE`` bins)."""
     q8 = stats.dtype == torch.int8
+    wide = binsT.dtype == torch.int16
     _check(not q8 or binsT.shape[1] <= Q8_MAX_ROWS, f"hist_tile: q8 sums "
            f"overflow int32 beyond {Q8_MAX_ROWS} rows (got {binsT.shape[1]})")
     _check(amax is None or not q8, "hist_tile: amax sets the f32 mode's "
@@ -662,7 +689,8 @@ def hist_tile(binsT: torch.Tensor, leaf_ids: torch.Tensor,
            f"{binsT.device}")
     f, n = binsT.shape
     dev = binsT.device
-    for name, t, dt in (("binsT", binsT, torch.uint8),
+    for name, t, dt in (("binsT", binsT, torch.int16 if wide
+                         else torch.uint8),
                         ("leaf_ids", leaf_ids, torch.int32),
                         ("stats", stats, torch.int8 if q8 else torch.float32),
                         ("chan", chan, torch.int32)) + (
@@ -681,8 +709,11 @@ def hist_tile(binsT: torch.Tensor, leaf_ids: torch.Tensor,
     _check(chan.numel() == _PAD, "hist_tile: chan must hold 128 lanes")
     _check(1 <= num_slots and num_slots * _STATS <= _PAD,
            f"hist_tile: {num_slots} slots exceed the 128-lane tables")
-    _check(1 <= num_bins <= MAX_BINS, f"hist_tile: num_bins {num_bins} "
-           f"outside [1, {MAX_BINS}]")
+    cap = MAX_BINS_WIDE if wide else MAX_BINS
+    if wide:
+        check_bins_cap(num_bins)
+    _check(1 <= num_bins <= cap, f"hist_tile: num_bins {num_bins} outside "
+           f"[1, {cap}] for {binsT.dtype} bins")
     _check(n < 2 ** 31, "hist_tile: more than 2^31 rows")
     lanes, comp_np = _slot_table(chan, num_slots, num_leaves)
     active = int((comp_np >= 0).sum())
@@ -700,7 +731,7 @@ def hist_tile(binsT: torch.Tensor, leaf_ids: torch.Tensor,
         err = _launch_gather(lib, binsT, leaf_ids, stats, lanes, comp_np,
                              idx, amax, out, q8, n, f, m, num_slots,
                              num_bins, num_leaves, active, stream)
-    sfx = "_q8" if q8 else ""
+    sfx = ("_wide" if wide else "") + ("_q8" if q8 else "")
     _count(hist_tile, "launches" + sfx)
     if idx is not None:
         _count(hist_tile, "gather_launches" + sfx)
@@ -730,7 +761,8 @@ def _launch_full(lib, binsT, leaf_ids, stats, lanes, comp_np, amax, out,
         _ptr(rows), _ptr(leaf_ids), _ptr(stats),
         None if q8 else (base + amax_off if amax is None else _ptr(amax)),
         int(amax is None and not q8), base, scratch.numel() * 8, base,
-        _ptr(out), int(q8), n, f, p, b, slot, target, group, width, stream)
+        _ptr(out), int(q8), int(rows.dtype == torch.int16), n, f, p, b,
+        slot, target, group, width, stream)
 
 
 def _launch_gather(lib, binsT, leaf_ids, stats, lanes, comp_np, idx, amax,
@@ -763,8 +795,9 @@ def _launch_gather(lib, binsT, leaf_ids, stats, lanes, comp_np, idx, amax,
         _ptr(rows), _ptr(leaf_ids), _ptr(stats), _ptr(slotmap), _ptr(idx),
         None if q8 else (base + amax_off if amax is None else _ptr(amax)),
         int(amax is None and not q8), base, scratch.numel() * 8,
-        base + cnt_off, _ptr(payload), base, _ptr(out), int(q8), n, f, m, p,
-        b, l, active, group, width, tile, stream)
+        base + cnt_off, _ptr(payload), base, _ptr(out), int(q8),
+        int(rows.dtype == torch.int16), n, f, m, p, b, l, active, group,
+        width, tile, stream)
 
 
 _COUNTERS: Dict[str, Tuple[str, ...]] = {}   # wrapper name -> counters
@@ -818,7 +851,10 @@ def split_epilogue(tile: torch.Tensor, parent: torch.Tensor,
     feature's direction ``fm[:, 3]`` at gain 0. Returns (full planes
     [P, F, B, 3] f32, cand [P, F, 12]). Each of the four modes counts its
     own launches (``launches``, ``launches_q8``, ``launches_mono``,
-    ``launches_mono_q8``)."""
+    ``launches_mono_q8``), and each of them above 256 bins (the wide
+    mode, up to ``MAX_BINS_WIDE``) its own again (``launches_wide``,
+    ``launches_wide_q8``, ``launches_wide_mono``,
+    ``launches_wide_mono_q8``)."""
     q8 = q_scale is not None
     if tile.device.type == "cpu":
         return split_epilogue_plain(tile, parent, der, la, fm, pv, q_scale,
@@ -842,7 +878,8 @@ def split_epilogue(tile: torch.Tensor, parent: torch.Tensor,
         _check(tuple(t.shape) == shape, f"split_epilogue: {name} "
                f"{tuple(t.shape)} != {shape}")
         _check(t.is_contiguous(), f"split_epilogue: {name} not contiguous")
-    _check(s == _STATS and p * _STATS <= _PAD and 1 <= b <= MAX_BINS,
+    check_bins_cap(b)
+    _check(s == _STATS and p * _STATS <= _PAD and 1 <= b <= MAX_BINS_WIDE,
            f"split_epilogue: tile shape {tuple(tile.shape)} unsupported")
     from .split import CAND_CHANNELS
     full = torch.empty_like(parent)
@@ -851,8 +888,8 @@ def split_epilogue(tile: torch.Tensor, parent: torch.Tensor,
         _ptr(tile), _ptr(q_scale), _ptr(parent), _ptr(der), _ptr(la),
         _ptr(fm), _ptr(pv), _ptr(full), _ptr(cand), p, f, b,
         int(with_monotone), torch.cuda.current_stream(dev).cuda_stream)
-    _count(split_epilogue, ("launches_mono" if with_monotone else "launches")
-           + ("_q8" if q8 else ""))
+    _count(split_epilogue, "launches" + ("_wide" if b > MAX_BINS else "")
+           + ("_mono" if with_monotone else "") + ("_q8" if q8 else ""))
     _raise_on(err, "split_epilogue")
     return full, cand
 
@@ -961,9 +998,10 @@ def launch_counts() -> Dict[str, int]:
             for name, counters in _COUNTERS.items() for c in counters}
 
 
-register_counters(hist_tile, ("launches", "gather_launches",
-                              "launches_plane", "launches_q8",
-                              "gather_launches_q8", "launches_plane_q8"))
-register_counters(split_epilogue, ("launches", "launches_q8",
-                                   "launches_mono", "launches_mono_q8"))
+register_counters(hist_tile, tuple(
+    c + w + q for w in ("", "_wide") for q in ("", "_q8")
+    for c in ("launches", "gather_launches", "launches_plane")))
+register_counters(split_epilogue, tuple(
+    "launches" + w + m + q for w in ("", "_wide") for m in ("", "_mono")
+    for q in ("", "_q8")))
 register_counters(hist_onehot, ("launches",))

@@ -24,6 +24,11 @@ details make that hold:
 - The categorical sort by ``g / (h + cat_smooth)`` is stable, as
   ``jnp.argsort`` is, so ties keep bin order and give the same bitset.
 
+EFB bundles (``BundleMeta``) make the scan segment-relative on a bundle
+column, with per-bin direction masks and tie-break tables that reproduce
+each member feature's unbundled scan; CEGB's per-(leaf, feature) cost
+(``gain_adjust``) comes off the keyed gains of both searches.
+
 The split constraints live here too: monotone bounds (a clip of each
 candidate's outputs with XLA's max and min, ``clip``, and gain 0 for a
 candidate that breaks its feature's direction), the monotone depth
@@ -37,7 +42,7 @@ mode included.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -110,6 +115,29 @@ class SplitParams(NamedTuple):
         return SplitParams(*(t.to(device) for t in self))
 
 
+class BundleMeta(NamedTuple):
+    """Per-(column, bin) EFB segment structure (``bundling.py`` layout),
+    built on the host by ``Dataset._build_feature_meta_bundled``. For a
+    bundle column, bin ``b`` inside member ``f``'s range has
+    ``seg_lo``/``seg_hi`` = that range's first/last bin; bundle bin 0 has
+    lo = hi = 0. Regular columns: lo = 0, hi = num_bin - 1, which makes the
+    segment-relative sums the plain ones. ``fwd_ok``/``rev_ok`` restrict a
+    bundle column's threshold candidates per scan direction to the member
+    feature's unbundled candidate set; ``pref_fwd``/``pref_rev`` are the
+    tie-break keys (higher wins among equal keys), ordered by the
+    candidate's original feature, then by its own scan order."""
+    seg_lo: torch.Tensor     # int32 [F, B]
+    seg_hi: torch.Tensor     # int32 [F, B]
+    is_bundle: torch.Tensor  # bool [F]
+    fwd_ok: torch.Tensor     # bool [F, B]
+    rev_ok: torch.Tensor     # bool [F, B]
+    pref_fwd: torch.Tensor   # int64 [F, B]
+    pref_rev: torch.Tensor   # int64 [F, B]
+
+    def to(self, device) -> "BundleMeta":
+        return BundleMeta(*(t.to(device) for t in self))
+
+
 class SplitInfo(NamedTuple):
     """Per-leaf best split, struct-of-arrays of shape [L] (reference:
     src/treelearner/split_info.hpp:22-90). The fields are tensors, or
@@ -127,11 +155,15 @@ class SplitInfo(NamedTuple):
     left_output: torch.Tensor
     right_output: torch.Tensor
     is_cat: torch.Tensor        # bool, categorical (bitset) split
-    cat_bitset: torch.Tensor    # int64 [L, CAT_WORDS] 32-bit words of the
+    cat_bitset: torch.Tensor    # int64 [L, cat_words] 32-bit words of the
     #                             left side's bins (0 when numerical)
+    seg_lo: torch.Tensor        # int32 EFB bundle segment start (-1 regular)
+    seg_hi: torch.Tensor        # int32 EFB bundle segment end (inclusive)
 
 
-# bitset words per categorical split: 256 bins (widened past 256 bins)
+# the bitset width a candidate table's SplitInfo gets when its caller
+# names none (the JAX package's default: 256 bins); the searches over
+# planes take theirs from the planes' B (``cat_words_for``)
 CAT_BITSET_WORDS = 8
 
 
@@ -231,14 +263,31 @@ def _leaf_gain_nosmooth(sum_g, sum_h, p: SplitParams, lambda_l2):
              + _round_fence((sum_h + lambda_l2) * out * out, p))
 
 
-def _directional_sums(hist_excl, leaf_sum_g, leaf_sum_h, leaf_cnt):
+def _directional_sums(hist_excl, leaf_sum_g, leaf_sum_h, leaf_cnt,
+                      bundle: "BundleMeta | None" = None):
     """Cumulative left/right sums for every threshold, both directions.
     Threshold t means: left = bins <= t, right = bins > t; the accumulated
-    side's hessian starts at kEpsilon (feature_histogram.hpp:882)."""
+    side's hessian starts at kEpsilon (feature_histogram.hpp:882). With
+    ``bundle`` the accumulated side is segment-relative: inside member f's
+    range of a bundle column the left mass at t is csum[t] -
+    csum[seg_lo - 1] and the reverse scan's right mass csum[seg_hi] -
+    csum[t]; the complement side comes from the leaf totals, which puts
+    every row outside the segment on the scan's default side (the
+    reference's FixHistogram)."""
     csum = blocked_cumsum(hist_excl, 2)                     # [L, F, B, 3]
-    total_excl = csum[:, :, -1:, :]
-    fwd_left = csum
-    rev_right = total_excl - csum
+    if bundle is None:
+        fwd_left = csum
+        rev_right = csum[:, :, -1:, :] - csum
+    else:
+        lo = bundle.seg_lo.long()[None, :, :, None]          # [1, F, B, 1]
+        hi = bundle.seg_hi.long()[None, :, :, None]
+        lo_b = (lo - 1).clamp(min=0).expand(csum.shape)
+        csum_lo = torch.where(lo > 0, torch.gather(csum, 2, lo_b),
+                              torch.zeros((), dtype=csum.dtype,
+                                          device=csum.device))
+        csum_hi = torch.gather(csum, 2, hi.expand(csum.shape))
+        fwd_left = csum - csum_lo
+        rev_right = csum_hi - csum
     eps = _f32(K_EPSILON, csum)
     lt = dict(
         fwd_left_g=fwd_left[..., 0], fwd_left_h=fwd_left[..., 1] + eps,
@@ -269,7 +318,7 @@ CAND_RG, CAND_RH, CAND_RC = 6, 7, 8
 def _numerical_scan(hist, leaf_sum_g, leaf_sum_h, leaf_cnt, leaf_output,
                     num_bins_f, missing_type_f, default_bin_f,
                     p: SplitParams, monotone_f=None, bounds=None,
-                    rand_bin=None):
+                    rand_bin=None, bundle=None):
     """Every (leaf, feature, direction, threshold) numerical candidate:
     the directional sums and the SHIFTED gains (gain - min_gain_shift,
     K_MIN_SCORE where invalid) of the reverse and forward scans, each
@@ -282,7 +331,8 @@ def _numerical_scan(hist, leaf_sum_g, leaf_sum_h, leaf_cnt, leaf_output,
     clipped outputs break its feature's direction ``monotone_f`` [F]
     gets gain 0 (GetSplitGains' USE_MC, feature_histogram.hpp:766-824).
     ``rand_bin`` [P, F] (extra_trees): the one threshold each (leaf,
-    feature) may split at."""
+    feature) may split at. ``bundle`` (EFB): segment-relative sums and
+    the bundle columns' direction masks."""
     P, F, B, _ = hist.shape
     dev = hist.device
     nb = num_bins_f.to(torch.int32)[None, :, None]
@@ -296,7 +346,8 @@ def _numerical_scan(hist, leaf_sum_g, leaf_sum_h, leaf_cnt, leaf_output,
             | ((mode_a & is_zero)[None, :, None] & (bins == dbin)))
     hist_excl = torch.where(excl[..., None], torch.zeros_like(hist), hist)
 
-    s = _directional_sums(hist_excl, leaf_sum_g, leaf_sum_h, leaf_cnt)
+    s = _directional_sums(hist_excl, leaf_sum_g, leaf_sum_h, leaf_cnt,
+                          bundle)
     parent_out = leaf_output[:, None, None]
 
     def split_gain_dir(prefix):
@@ -337,6 +388,10 @@ def _numerical_scan(hist, leaf_sum_g, leaf_sum_h, leaf_cnt, leaf_output,
     zero_thr_skip = (mode_a & is_zero)[None, :, None] & (bins == dbin)
     fwd_ok = fwd_ok & ~zero_thr_skip
     rev_ok = rev_ok & ~zero_thr_skip
+    if bundle is not None:
+        isb = bundle.is_bundle[None, :, None]
+        fwd_ok = torch.where(isb, bundle.fwd_ok[None], fwd_ok)
+        rev_ok = torch.where(isb, bundle.rev_ok[None], rev_ok)
     if rand_bin is not None:
         rb = rand_bin.to(torch.int32)[:, :, None]
         fwd_ok = fwd_ok & (bins == rb)
@@ -461,7 +516,9 @@ def candidates_to_splitinfo(cand, leaf_sum_g, leaf_sum_h, leaf_cnt,
         left_output=left_out, right_output=right_out,
         is_cat=torch.zeros((P,), dtype=torch.bool, device=dev),
         cat_bitset=torch.zeros((P, cat_words), dtype=torch.int64,
-                               device=dev))
+                               device=dev),
+        seg_lo=torch.full((P,), -1, dtype=torch.int32, device=dev),
+        seg_hi=torch.full((P,), -1, dtype=torch.int32, device=dev))
 
 
 def monotone_split_penalty(leaf_depth, p: SplitParams) -> torch.Tensor:
@@ -493,7 +550,7 @@ def _mono_penalized(key, leaf_depth, meta: FeatureMeta, p: SplitParams):
 def find_best_cat_splits(hist, leaf_sum_g, leaf_sum_h, leaf_cnt, leaf_output,
                          leaf_depth, meta: FeatureMeta, p: SplitParams,
                          feature_mask, max_depth: int = -1,
-                         cat_words: int = CAT_BITSET_WORDS):
+                         cat_words: Optional[int] = None, gain_adjust=None):
     """Best categorical split per leaf over all categorical features
     (reference: feature_histogram.hpp:277-515
     FindBestThresholdCategoricalInner). Per feature, one of two modes:
@@ -512,6 +569,7 @@ def find_best_cat_splits(hist, leaf_sum_g, leaf_sum_h, leaf_cnt, leaf_output,
     [L, cat_words] int64 words, the l2 of the chosen mode [L])."""
     L, F, B, _ = hist.shape
     dev = hist.device
+    cat_words = cat_words_for(B) if cat_words is None else cat_words
     g, h, c = hist[..., 0], hist[..., 1], hist[..., 2]
     nb = meta.num_bins.to(torch.int32)[None, :]                    # [1, F]
     bins = torch.arange(B, dtype=torch.int32, device=dev)[None, None, :]
@@ -629,7 +687,10 @@ def find_best_cat_splits(hist, leaf_sum_g, leaf_sum_h, leaf_cnt, leaf_output,
     contri = meta.penalty[None, :, None]
 
     def keyed(gain, ok):
-        return torch.where(ok, (gain - min_gain_shift) * contri, neg_inf)
+        key = (gain - min_gain_shift) * contri
+        if gain_adjust is not None:
+            key = key - gain_adjust[:, :, None]
+        return torch.where(ok, key, neg_inf)
 
     gains = torch.stack([
         keyed(oh_gain, oh_val & (oh_gain > min_gain_shift)),
@@ -692,10 +753,10 @@ def find_best_splits(hist, leaf_sum_g, leaf_sum_h, leaf_cnt, leaf_output,
                      leaf_depth, meta: FeatureMeta, p: SplitParams,
                      feature_mask, max_depth: int = -1,
                      with_categorical: bool = False,
-                     cat_words: int = CAT_BITSET_WORDS,
+                     cat_words: Optional[int] = None,
                      leaf_min=None, leaf_max=None, adv_bounds=None,
                      gain_adjust=None, rand_bin=None,
-                     bundle=None) -> SplitInfo:
+                     bundle: Optional[BundleMeta] = None) -> SplitInfo:
     """Best split per leaf over the resident planes (the classic search).
 
     hist: [L, F, B, 3] (grad, hess, count); leaf aggregates [L];
@@ -712,16 +773,16 @@ def find_best_splits(hist, leaf_sum_g, leaf_sum_h, leaf_cnt, leaf_output,
     feature's direction; ``adv_bounds`` (the advanced mode's per-threshold
     child bounds, (lmin, lmax, rmin, rmax) [L, F, B]) replace that clip in
     the numerical search. ``rand_bin`` [L, F] (extra_trees): the one
-    threshold a (leaf, feature) may take. ``gain_adjust`` (CEGB) and
-    ``bundle`` (EFB) are not ported and raise when given."""
-    for name, v in (("gain_adjust", gain_adjust), ("bundle", bundle)):
-        if v is not None:
-            raise NotImplementedError(
-                f"find_best_splits: {name} is not ported to "
-                f"lightgbm_tpu_torch yet; it arrives with ROADMAP.md Queue 1 "
-                f"item 9")
+    threshold a (leaf, feature) may take. ``gain_adjust`` [L, F] (CEGB's
+    cost, cost_effective_gradient_boosting.hpp DeltaGain) comes off the
+    keyed gains after feature_contri and before the monotone penalty.
+    ``bundle`` (EFB): the segment-relative scan of the bundle columns, and
+    their tie-break tables, so ties resolve as the unbundled run's; the
+    chosen bundle split's segment is ``seg_lo``/``seg_hi``. ``cat_words``:
+    the bitset's words, by default ``cat_words_for(B)``."""
     L, F, B, _ = hist.shape
     dev = hist.device
+    cat_words = cat_words_for(B) if cat_words is None else cat_words
     use_mc = leaf_min is not None or adv_bounds is not None
     bounds = adv_bounds
     if bounds is None and leaf_min is not None:
@@ -730,7 +791,7 @@ def find_best_splits(hist, leaf_sum_g, leaf_sum_h, leaf_cnt, leaf_output,
     s, key_rev, key_fwd = _numerical_scan(
         hist, leaf_sum_g, leaf_sum_h, leaf_cnt, leaf_output, meta.num_bins,
         meta.missing_type, meta.default_bin, p, meta.monotone, bounds,
-        rand_bin)
+        rand_bin, bundle)
     fmask = feature_mask
     if fmask.dim() == 1:
         fmask = fmask[None, :]
@@ -740,21 +801,30 @@ def find_best_splits(hist, leaf_sum_g, leaf_sum_h, leaf_cnt, leaf_output,
     base_ok = fmask & depth_ok[:, None, None]
     contri = meta.penalty[None, :, None]
     neg = _f32(K_MIN_SCORE, hist)
-    key_fwd = torch.where(base_ok & (key_fwd > neg),
-                          _mono_penalized(key_fwd * contri, leaf_depth,
-                                          meta, p), neg)
-    key_rev = torch.where(base_ok & (key_rev > neg),
-                          _mono_penalized(key_rev * contri, leaf_depth,
-                                          meta, p), neg)
+
+    def keyed(key):
+        adj = key * contri
+        if gain_adjust is not None:
+            adj = adj - gain_adjust[:, :, None]
+        return torch.where(base_ok & (key > neg),
+                           _mono_penalized(adj, leaf_depth, meta, p), neg)
+
+    key_fwd, key_rev = keyed(key_fwd), keyed(key_rev)
 
     # reverse scan first keeps its highest-threshold maximum, forward
     # replaces only on strictly greater gain; lowest feature index wins
     gains = torch.stack([key_rev, key_fwd], dim=2)          # [L, F, 2, B]
-    bvec = torch.arange(B, dtype=torch.int64, device=dev)
-    tpref = torch.stack([2 * B + bvec, (B - 1) - bvec], 0)  # [2, B]
-    farange = torch.arange(F, dtype=torch.int64, device=dev)
-    pref = (((F - 1) - farange)[:, None, None] * (4 * B)
-            + tpref[None])                                  # [F, 2, B]
+    if bundle is not None:
+        # ordered by each candidate's original feature and its unbundled
+        # scan order (BundleMeta)
+        pref = torch.stack([bundle.pref_rev, bundle.pref_fwd],
+                           1).long()                        # [F, 2, B]
+    else:
+        bvec = torch.arange(B, dtype=torch.int64, device=dev)
+        tpref = torch.stack([2 * B + bvec, (B - 1) - bvec], 0)  # [2, B]
+        farange = torch.arange(F, dtype=torch.int64, device=dev)
+        pref = (((F - 1) - farange)[:, None, None] * (4 * B)
+                + tpref[None])                              # [F, 2, B]
     flat = gains.reshape(L, -1)
     best_gain = flat.max(dim=1).values
     is_best = flat == best_gain[:, None]
@@ -789,6 +859,15 @@ def find_best_splits(hist, leaf_sum_g, leaf_sum_h, leaf_cnt, leaf_output,
         right_out = clip(right_out, leaf_min, leaf_max)
     mode_a = (meta.num_bins > 2) & (meta.missing_type != MISSING_NONE)
     nan_single = ((meta.missing_type == MISSING_NAN) & ~mode_a)[bf]
+    none = torch.full((L,), -1, dtype=torch.int32, device=dev)
+    if bundle is not None:
+        chose = bundle.is_bundle[bf]
+        seg_lo = torch.where(chose, bundle.seg_lo[bf, bt].to(torch.int32),
+                             none)
+        seg_hi = torch.where(chose, bundle.seg_hi[bf, bt].to(torch.int32),
+                             none)
+    else:
+        seg_lo, seg_hi = none, none
     num = SplitInfo(
         gain=best_gain, feature=bf.to(torch.int32), threshold=bt.to(
             torch.int32),
@@ -798,13 +877,14 @@ def find_best_splits(hist, leaf_sum_g, leaf_sum_h, leaf_cnt, leaf_output,
         left_output=left_out, right_output=right_out,
         is_cat=torch.zeros((L,), dtype=torch.bool, device=dev),
         cat_bitset=torch.zeros((L, cat_words), dtype=torch.int64,
-                               device=dev))
+                               device=dev),
+        seg_lo=seg_lo, seg_hi=seg_hi)
     if not with_categorical:
         return num
 
     cgain, cfeat, clg, clh, clc, cbits, cl2 = find_best_cat_splits(
         hist, leaf_sum_g, leaf_sum_h, leaf_cnt, leaf_output, leaf_depth,
-        meta, p, feature_mask, max_depth, cat_words)
+        meta, p, feature_mask, max_depth, cat_words, gain_adjust)
     crg, crh, crc = leaf_sum_g - clg, leaf_sum_h - clh, leaf_cnt - clc
     clo = calculate_leaf_output(clg, clh, p, clc, leaf_output, cl2)
     cro = calculate_leaf_output(crg, crh, p, crc, leaf_output, cl2)
@@ -835,7 +915,8 @@ def find_best_splits(hist, leaf_sum_g, leaf_sum_h, leaf_cnt, leaf_output,
         right_count=sel(crc, num.right_count),
         left_output=sel(clo, num.left_output),
         right_output=sel(cro, num.right_output),
-        is_cat=take_cat, cat_bitset=sel(cbits, num.cat_bitset))
+        is_cat=take_cat, cat_bitset=sel(cbits, num.cat_bitset),
+        seg_lo=sel(none, num.seg_lo), seg_hi=sel(none, num.seg_hi))
 
 
 def per_feature_best_gain_key(gains_rev, gains_fwd) -> torch.Tensor:

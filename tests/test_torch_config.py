@@ -97,3 +97,25 @@ def test_sampled_l2_training_bitwise(seed, is_enable_sparse):
     bj = lj.train(dict(params), lj.Dataset(X, label=y), 6)
     bt = lt.train(dict(params, device_type="cpu"), lt.Dataset(X, label=y), 6)
     assert bt.model_to_string() == bj.model_to_string(), params
+
+
+@pytest.mark.parametrize("params", [
+    {"forcedsplits_filename": "forced.json", "forcedbins_filename": "b.json"},
+    {"max_bin_by_feature": "15,511,31", "max_bin": 1023},
+    {"cegb_tradeoff": 0.5, "cegb_penalty_split": 0.1,
+     "cegb_penalty_feature_coupled": "1,0,2.5"},
+    {"cegb_penalty_feature_lazy": [0.01, 0.0, 0.5]},
+    {"force_col_wise": True, "force_row_wise": "false"},
+    {"fs": "forced.json", "enable_bundle": False},
+])
+def test_data_layer_parameters_configure_alike(params):
+    """The data layer's parameters (forced files, per-feature bins, CEGB,
+    the accepted no-op layout switches), aliases included, parse as the
+    JAX package parses them and echo the same parameters block."""
+    jc = lj.Config.from_params(dict(params))
+    tc = lt.Config.from_params(dict(params, device_type="cpu"))
+    for name, _ in _fields(lj.Config):
+        if name != "device_type":
+            assert getattr(tc, name) == getattr(jc, name), name
+    assert tc.to_params() == {k: v for k, v in jc.to_params().items()
+                              if k != "device_type"}

@@ -46,7 +46,16 @@ bounds and a feature whose every candidate breaks its direction
 (``tests/torch_monotone_cases.py``); basic, intermediate and advanced
 monotone, interaction constraints, feature_contri, extra_trees and
 by-node trainings give the same text twice and the CPU's with the
-kernel's sums.
+kernel's sums. Wide bins: ``hist_tile``'s wide mode (int16 bins) at
+B = 511, 1,023 and 4,095, the root pass, 42 slots and the gather form,
+bitwise ``hist_tile_exact`` (f32) or the exact plain sums (q8), two
+launches equal and counted apart from the uint8 mode; the epilogue's wide
+mode at B = 257 to 4,096, f32 and q8, unconstrained and monotone, on
+random planes and the edge cases, bitwise its plain version and a second
+launch. The data layer (wide bins fused, q8 and classic, a 400-category
+feature, CSR with and without EFB, forced bins, max_bin_by_feature, forced
+splits, CEGB split, coupled and lazy): a card training's text twice the
+same and equal to the CPU's.
 """
 
 import numpy as np
@@ -779,5 +788,194 @@ def test_constrained_training_on_card_equals_cpu(dev, name):
             sfx = "_q8" if q8 else ""
             assert counts["split_epilogue.launches_mono" + sfx] > 0
             assert counts["split_epilogue.launches" + sfx] == 0
+    assert texts["cuda"] == texts["cuda_again"]
+    assert texts["cuda"] == texts["cpu"]
+
+
+# ------------------------------------------------------------ wide bins
+def _wide_inputs(n, f, b, leaves, seed, q8):
+    """int16 bins skewed toward the low bins (the high bins of a wide
+    feature are sparse), integer-valued f32 or int8 stats."""
+    g = torch.Generator().manual_seed(seed)
+    binsT = torch.minimum(
+        (torch.rand((f, n), generator=g) ** 3 * b).to(torch.int64),
+        torch.tensor(b - 1)).to(torch.int16)
+    leaf = torch.randint(0, leaves, (n,), generator=g, dtype=torch.int32)
+    if q8:
+        stats = torch.randint(-127, 128, (n, 3), generator=g).to(torch.int8)
+        stats[:, 2] = 1
+    else:
+        stats = torch.stack([torch.randn(n, generator=g),
+                             torch.rand(n, generator=g), torch.ones(n)], 1)
+    return binsT, leaf, stats.contiguous()
+
+
+@pytest.mark.parametrize("q8", [False, True], ids=["f32", "q8"])
+@pytest.mark.parametrize("form", ["root", "slots", "gather"])
+@pytest.mark.parametrize("b", [511, 1023, 4095])
+def test_hist_tile_wide_matches_plain(dev, b, form, q8):
+    """The wide mode (int16 bins): bitwise the kernel's own arithmetic in
+    plain torch (f32; float stats) or the exact plain sums (q8), two
+    launches equal, counted as wide launches and not as uint8 ones."""
+    n, f = 200_003, 28
+    p = 1 if form == "root" else 42
+    leaves = p + 5
+    binsT, leaf, stats = _wide_inputs(n, f, b, leaves, b + n, q8)
+    sel = torch.arange(p, dtype=torch.int32)
+    chan = cuda_hist.chan_leaf_table(sel)
+    idx = None
+    if form == "gather":
+        keep = torch.nonzero(leaf < 9).reshape(-1)
+        idx = torch.cat([keep, torch.full((13,), n)]).to(torch.int32)
+    args = [t.to(dev) for t in (binsT, leaf, stats, chan)]
+    gidx = None if idx is None else idx.to(dev)
+    cuda_hist.reset_launch_counts()
+    k = cuda_hist.hist_tile(*args, p, b, leaves, gidx)
+    again = cuda_hist.hist_tile(*args, p, b, leaves, gidx, plane=True)
+    counts = cuda_hist.launch_counts()
+    sfx = "_wide" + ("_q8" if q8 else "")
+    assert counts["hist_tile.launches" + sfx] == 2
+    assert counts["hist_tile.launches_plane" + sfx] == 1
+    assert counts["hist_tile.gather_launches" + sfx] == (
+        2 if form == "gather" else 0)
+    assert sum(v for c, v in counts.items()
+               if c.startswith("hist_tile.") and "_wide" not in c) == 0
+    ref = (cuda_hist.hist_tile_plain(*args, p, b, leaves, gidx) if q8
+           else cuda_hist.hist_tile_exact(*args, p, b, leaves, gidx))
+    torch.cuda.synchronize()
+    assert torch.equal(k.view(torch.int32), ref.view(torch.int32))
+    assert torch.equal(k.view(torch.int32), again.view(torch.int32))
+
+
+@pytest.mark.parametrize("mono", [False, True], ids=["free", "monotone"])
+@pytest.mark.parametrize("q8", [False, True], ids=["f32", "q8"])
+@pytest.mark.parametrize("b,case", [(257, None), (1023, None),
+                                    (4095, None), (4096, None)]
+                         + [(b, c) for c in EDGE_CASES
+                            for b in (272, 1023, 4095)])
+def test_split_epilogue_wide_matches_plain(dev, b, case, q8, mono):
+    """The epilogue's wide mode (B > 256, XLA's three-level scan): bitwise
+    its plain version and a second launch, in each of its four modes,
+    each counted apart."""
+    if case is None:
+        p, f = 42, 28
+        tile, parent, der, la, fm = _epilogue_inputs(p, f, b, b)
+        qs = None
+        if q8:
+            qs = torch.tensor([0.0137, 0.00291, 1.0])
+            tile = (tile * 64).round().to(torch.int32)
+    else:
+        tile, parent, der, la, fm, qs, _ = epilogue_case(case, b, q8)
+    if mono:
+        p = tile.shape[0]
+        la = la.clone()
+        la[:, 4], la[:, 5] = -0.05, 0.05
+        fm = fm.clone()
+        fm[:, 3] = torch.tensor([1.0, -1.0, 0.0] * (fm.shape[0] // 3 + 1)
+                                )[:fm.shape[0]]
+    pvec = torch.tensor(PV_DEFAULT, dtype=torch.float32)
+    args = [t.to(dev) for t in (tile, parent, der, la, fm, pvec)]
+    q = None if qs is None else qs.to(dev)
+    cuda_hist.reset_launch_counts()
+    kf, kc = cuda_hist.split_epilogue(*args, q, with_monotone=mono)
+    kf2, kc2 = cuda_hist.split_epilogue(*args, q, with_monotone=mono)
+    name = ("split_epilogue.launches_wide" + ("_mono" if mono else "")
+            + ("_q8" if q8 else ""))
+    counts = cuda_hist.launch_counts()
+    assert counts[name] == 2 and sum(
+        v for c, v in counts.items() if c.startswith("split_epilogue")) == 2
+    pf, pc = cuda_hist.split_epilogue_plain(*args, q, with_monotone=mono)
+    torch.cuda.synchronize()
+    assert torch.equal(kc.view(torch.int32), pc.view(torch.int32))
+    assert torch.equal(kf.view(torch.int32), pf.view(torch.int32))
+    assert torch.equal(kc.view(torch.int32), kc2.view(torch.int32))
+    assert torch.equal(kf.view(torch.int32), kf2.view(torch.int32))
+
+
+def _data_layer_run(name, tmp):
+    """(params, X, y, Dataset keyword arguments) of a data-layer training:
+    wide bins fused, q8 and classic, a 400-category feature, CSR with and
+    without bundles, forced bins, max_bin_by_feature, forced splits and
+    the three CEGB modes."""
+    import json
+
+    import scipy.sparse as sps
+    rng = np.random.RandomState(6)
+    n = 20_000
+    X = rng.randn(n, 10).astype(np.float32)
+    y = (X[:, 0] - X[:, 1] + X[:, 2] * X[:, 3] + np.sin(X[:, 4])
+         + 0.5 * rng.randn(n) > 0).astype(float)
+    p = {"objective": "binary", "num_leaves": 31, "verbosity": -1}
+    kw = {}
+    if name.startswith("wide"):
+        p["max_bin"] = 1023
+        p.update({"wide_q8": {"quantized_grad": True},
+                  "wide_classic": {"split_fusion": "off"}}.get(name, {}))
+    elif name == "cat400":
+        X[:, 5] = rng.randint(0, 400, n)
+        y = (y + (X[:, 5] % 7 == 0) > 0.5).astype(float)
+        p.update(max_bin=511, cat_smooth=1.0, min_data_per_group=5)
+        kw = {"categorical_feature": [5]}
+    elif name.startswith("csr"):
+        Xs = sps.random(n, 300, density=0.02, random_state=rng,
+                        format="csr", data_rvs=lambda k: rng.uniform(
+                            0.5, 2.0, k))
+        X = sps.hstack([Xs, sps.csr_matrix(X[:, :3])]).tocsr()
+        y = (np.asarray(Xs[:, :50].sum(1)).ravel() + X[:, 300].toarray()
+             .ravel() > 0.6).astype(float)
+        if name == "csr_unbundled":
+            p["enable_bundle"] = False
+    elif name == "forced_bins":
+        path = tmp / "bins.json"
+        path.write_text(json.dumps([{"feature": 0, "bin_upper_bound":
+                                     [-1.0, 0.0, 0.5, 1.5]}]))
+        p["forcedbins_filename"] = str(path)
+    elif name == "max_bin_by_feature":
+        p["max_bin_by_feature"] = [15, 511, 31, 7, 63, 255, 1023, 2, 100, 9]
+    elif name == "forced_splits":
+        path = tmp / "forced.json"
+        path.write_text(json.dumps({
+            "feature": 0, "threshold": 0.0,
+            "left": {"feature": 1, "threshold": 0.5},
+            "right": {"feature": 2, "threshold": -0.5}}))
+        p["forcedsplits_filename"] = str(path)
+    elif name == "cegb_split":
+        p["cegb_penalty_split"] = 0.1
+    elif name == "cegb_coupled":
+        p["cegb_penalty_feature_coupled"] = [1.0] * 10
+    elif name == "cegb_lazy":
+        p["cegb_penalty_feature_lazy"] = [0.01] * 10
+    return p, X, y, kw
+
+
+DATA_LAYER = ("wide", "wide_q8", "wide_classic", "cat400", "csr",
+              "csr_unbundled", "forced_bins", "max_bin_by_feature",
+              "forced_splits", "cegb_split", "cegb_coupled", "cegb_lazy")
+
+
+@pytest.mark.parametrize("name", DATA_LAYER)
+def test_data_layer_training_on_card_equals_cpu(dev, name, tmp_path):
+    """A data-layer training on the card gives the same model text twice
+    and the CPU's with the kernel's sums (f32) or on its plain path (q8);
+    the wide runs launch only the wide modes."""
+    import contextlib
+
+    import lightgbm_tpu_torch as lgb
+    params, X, y, kw = _data_layer_run(name, tmp_path)
+    q8 = params.get("quantized_grad", False)
+    texts = {}
+    for d in ("cuda", "cuda_again", "cpu"):
+        p = dict(params, device_type=d.split("_")[0])
+        cuda_hist.reset_launch_counts()
+        with (cuda_hist.kernel_sums_on_cpu() if d == "cpu" and not q8
+              else contextlib.nullcontext()):
+            texts[d] = lgb.train(p, lgb.Dataset(X, label=y, params=p, **kw),
+                                 4).model_to_string()
+        if d == "cuda" and name.startswith("wide"):
+            counts = cuda_hist.launch_counts()
+            assert sum(v for c, v in counts.items() if "_wide" in c) > 0
+            assert sum(v for c, v in counts.items()
+                       if c.startswith(("hist_tile.", "split_epilogue."))
+                       and "_wide" not in c) == 0
     assert texts["cuda"] == texts["cuda_again"]
     assert texts["cuda"] == texts["cpu"]

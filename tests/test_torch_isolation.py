@@ -5,7 +5,9 @@
 - with the default ``device_type`` ("cuda") and no CUDA device, training
   raises a RuntimeError naming the device; it never continues on the CPU;
 - a parameter outside the ported slice raises NotImplementedError naming
-  it, instead of being silently ignored.
+  it, instead of being silently ignored;
+- pandas is imported only on the path that receives a DataFrame (the GPU
+  host has no pandas).
 """
 
 import ast
@@ -81,16 +83,16 @@ def test_default_device_without_cuda_raises(monkeypatch):
 @pytest.mark.parametrize("key,value", [
     ("histogram_method", "onehot_q8"),
     ("histogram_method", "scatter"),
-    ("cegb_tradeoff", 0.5),
+    ("histogram_pool_size", 1024.0),
     ("gpu_use_dp", True),
-    ("forcedsplits_filename", "forced.json"),
-    ("cegb_penalty_split", 0.5),
-    ("forcedbins_filename", "bins.json"),
+    ("construct_streaming", True),
+    ("snapshot_freq", 5),
+    ("num_machines", 2),
     ("linear_lambda", 0.1),
     ("linear_tree", True),
     ("tree_learner", "data"),
-    ("max_bin_by_feature", "15,31"),
-    ("cegb_penalty_feature_lazy", "1,0,2"),
+    ("predict_chunk_rows", 100),
+    ("boost_rounds_per_dispatch", 4),
     ("checkpoint_path", "ckpt"),
     ("group_column", "0"),
     ("early_stopping_round", 5),
@@ -102,18 +104,70 @@ def test_unported_parameter_raises(key, value):
 
 
 def test_gain_adjust_raises_naming_item_9():
-    """CEGB's per-(leaf, feature) gain adjustment is not ported: the
-    classic search refuses it, naming the item that brings it."""
+    """CEGB's per-(leaf, feature) gain adjustment, which the classic search
+    refused naming Queue 1 item 9, is ported with that item: it no longer
+    raises, and it comes off the keyed gains (a cost above every gain
+    leaves no split). The parameter that still waits raises naming its
+    item, Queue 1 item 6."""
     from lightgbm_tpu_torch.ops import split
     meta = split.feature_meta_from_mappers([])
     params = split.SplitParams.from_config(
-        lt.Config.from_params({"device_type": "cpu"}))
-    one = torch.zeros((1,))
-    with pytest.raises(NotImplementedError, match="gain_adjust.*item 9"):
-        split.find_best_splits(torch.zeros((1, 1, 2, 3)), one, one, one, one,
-                               torch.zeros((1,), dtype=torch.int32), meta,
-                               params, torch.ones((1,), dtype=torch.bool),
-                               gain_adjust=torch.zeros((1, 1)))
+        lt.Config.from_params({"device_type": "cpu", "min_data_in_leaf": 1,
+                               "min_sum_hessian_in_leaf": 0.0}))
+    hist = torch.zeros((1, 1, 2, 3))
+    hist[0, 0, 0] = torch.tensor([-5.0, 1.0, 1.0])
+    hist[0, 0, 1] = torch.tensor([5.0, 1.0, 1.0])
+    g, h, c, o = (torch.tensor([v]) for v in (0.0, 2.0, 2.0, 0.0))
+    args = (hist, g, h, c, o, torch.zeros((1,), dtype=torch.int32), meta,
+            params, torch.ones((1,), dtype=torch.bool))
+    free = split.find_best_splits(*args, gain_adjust=torch.zeros((1, 1)))
+    assert torch.isfinite(free.gain).all()
+    blocked = split.find_best_splits(
+        *args, gain_adjust=free.gain[:, None] + 1.0)
+    assert not bool((blocked.gain > 0).any())
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+        lt.Config.from_params({"histogram_pool_size": 64.0,
+                               "device_type": "cpu"})
+
+
+@pytest.mark.parametrize("key,value", [
+    ("forcedsplits_filename", "forced.json"),
+    ("forcedbins_filename", "bins.json"),
+    ("max_bin_by_feature", "15,31"),
+    ("cegb_tradeoff", 0.5),
+    ("cegb_penalty_split", 0.5),
+    ("cegb_penalty_feature_lazy", "1,0,2"),
+    ("cegb_penalty_feature_coupled", "1,0,2"),
+    ("force_col_wise", True),
+    ("force_row_wise", True),
+])
+def test_data_layer_parameters_are_accepted(key, value):
+    """The data layer's parameters configure the port."""
+    cfg = lt.Config.from_params({key: value, "device_type": "cpu"})
+    assert getattr(cfg, key) != getattr(lt.Config(), key)
+
+
+def test_pandas_is_imported_only_for_a_dataframe():
+    code = textwrap.dedent("""
+        import sys
+        import numpy as np
+        import scipy.sparse as sp
+        import lightgbm_tpu_torch as lgb
+        rng = np.random.RandomState(0)
+        X = rng.randn(300, 4)
+        y = X[:, 0] + 0.1 * rng.randn(300)
+        p = {"objective": "regression", "device_type": "cpu",
+             "verbosity": -1}
+        for data in (X, sp.csr_matrix(X)):
+            b = lgb.train(p, lgb.Dataset(data, label=y), 1)
+            b.predict(data)
+        print("PANDAS", "pandas" in sys.modules)
+        sys.exit(1 if "pandas" in sys.modules else 0)
+    """)
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    res = subprocess.run([sys.executable, "-c", code], cwd=str(REPO),
+                         env=env, capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
 
 
 def test_group_column_raises_naming_item_12():
