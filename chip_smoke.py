@@ -2,7 +2,7 @@
 hand-written kernel against its plain PyTorch version.
 
     python3 chip_smoke.py [--seed 0] [--rows 2000000] [--valid-rows 200000]
-                          [--rounds 5] [--parent DIR]
+                          [--rounds 5] [--parent DIR] [--only precision]
 
 Phases, in order, each printing one JSON line (any failure raises and the
 script exits non-zero; nothing is caught):
@@ -100,7 +100,7 @@ The boosting modes, on the kernels above (counted from 0 around each run):
                   and q8: sec/iter, valid multi_logloss and multi_error
                   (below the majority class's 0.512; q8 within 0.01 of
                   f32), the split path, plane-only launches only
-  parity_multiclass  multiclass f32 and q8 at 50,000 rows, 3 rounds: two
+  parity_multiclass  multiclass f32 and q8 at 50,000 rows, 2 rounds: two
                   card runs and the CPU run (kernel sums in f32) identical
   train_sampling  on train's rows, one Dataset, 5 rounds each: bagging
                   mask (0.8), subset (0.5; at most 0.55x the plain train
@@ -167,7 +167,7 @@ extra_trees, by-node sampling), on train's 2M Higgs-shaped rows:
                   (0), one profiled iteration, and a monotonicity sweep
                   (1,000 valid rows x 60 points over each constrained
                   feature: 0 violations)
-  train_mono_modes the intermediate and advanced modes (2 rounds, one
+  train_mono_modes the intermediate and advanced modes (1 round, one
                   split a phase, the classic path): sec/iter, searches a
                   tree, AUC, the sweep, the host ms a phase of
                   intermediate_bounds and advanced_child_bounds, and
@@ -176,11 +176,11 @@ extra_trees, by-node sampling), on train's 2M Higgs-shaped rows:
   train_constraints interaction constraints of three groups (fused; no
                   tree path across groups), feature_contri with a 0 (the
                   feature never split on), extra_trees,
-                  feature_fraction_bynode 0.5; 2 rounds each
+                  feature_fraction_bynode 0.5; 1 round each
   parity_constraints basic f32 and q8, intermediate, advanced,
                   monotone_penalty 2, interactions, feature_contri
                   (positive, and with a 0), extra_trees, bynode at 50,000
-                  rows, 63 leaves, 2 rounds: two card runs and the CPU run
+                  rows, 63 leaves, 1 round: two card runs and the CPU run
                   in the kernels' orders give the same text; against the
                   CPU's plain run, equal text or the first differing tree
                   (and its first differing node) and the leaf error
@@ -225,7 +225,40 @@ splits, CEGB):
                   400-category feature at max_bin 511, EFB on CSR, CSR
                   unbundled, forced bins, max_bin_by_feature, forced
                   splits, CEGB split, coupled and lazy, at 50,000 rows, 63
-                  leaves, 3 rounds: as parity_constraints
+                  leaves, 1 round: as parity_constraints
+
+The precision modes (gpu_use_dp: the plane-only forms' f64 mode;
+linear_tree):
+
+  hist_plane_dp   the f64 mode at N=--rows: F=8 (train_cat's shapes, all
+                  42 slots computed: the root pass, the several-slot full
+                  form, both rungs), F=28 (the root pass on train's own
+                  bins, the full form, both rungs) and the root pass at
+                  B=1023: bitwise hist_tile_exact at float64 and a second
+                  launch, rounded to float32 bitwise the f32 mode on the
+                  same inputs, within 1e-11 of the summed magnitudes of a
+                  torch float64 sum; ms and device ms beside the f32
+                  mode's (in turns; at most 1.15x), plain ms, a float64
+                  index_add_ as the library time, the bound (f64 planes)
+  train_dp        gpu_use_dp on train's rows (binary, 255 leaves, --rounds
+                  rounds; the classic path): sec/iter, one profiled
+                  iteration, valid AUC within 0.01 of train's, f64
+                  plane-only launches only
+  train_linear    linear_tree (linear_lambda 0.01) on 2M + 200k regression
+                  rows, train's 28 features with 3% NaNs in features 0-2, a
+                  piecewise-linear target (--rounds rounds, 255 leaves; the
+                  fused path): sec/iter with the host's leaf fits split
+                  out, valid l2 below a plain run's on the same rows and
+                  rounds, kernels 1, 2 and the epilogue launched, the
+                  model text loaded back predicting 20,000 valid rows
+                  bitwise as Booster.predict
+  parity_dp,      gpu_use_dp on numerical, Expo-shaped categorical and
+  parity_linear   sparse-column data; linear_tree as regression with NaNs
+                  and as binary; 50,000 rows, 63 leaves, 3 rounds: as
+                  parity_data
+
+With ``--only precision`` the script runs device, build, train and these
+phases alone (the full run runs them after parity_data).
 
 and kernel 5, the experiment script's one-hot histogram:
 
@@ -369,7 +402,8 @@ def device_ms(fn, reps: int = 5, per_profile: int = 1, need: str = None,
     between its launches that time_ms's events also hold. Returns (ms,
     {kernel: ms} of the median call) over the calls whose trace holds
     device time, or ("not measured", {}) when none does (the profiler
-    dropped the device activity). ``per_profile`` > 1 (for a call of a
+    dropped the device activity; when no call of the first ``reps`` holds
+    any, ``reps`` more are profiled). ``per_profile`` > 1 (for a call of a
     few microseconds, whose lone activity the profiler can drop): each of
     the ``reps`` profiles holds that many calls back to back after one L2
     flush, and its device time is divided by the launches of ``need``
@@ -381,7 +415,9 @@ def device_ms(fn, reps: int = 5, per_profile: int = 1, need: str = None,
     from torch.profiler import ProfilerActivity, profile
     fn()
     runs = []
-    for _ in range(reps):
+    for attempt in range(2 * reps):
+        if attempt == reps and runs:
+            break
         flush_l2()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -495,6 +531,24 @@ def hist_inputs(n, f, seed, integer, tile_leaves, share, hot=0.0, skew=0.0,
     return binsT, leaf, stats.contiguous()
 
 
+def library_ms(binsT, leaf, stats, sel, in_tile, f, b, acc_dtype):
+    """The time of one PyTorch call computing a tile pass's function: an
+    ``index_add_`` in ``acc_dtype`` over the tile rows' flattened (slot,
+    feature, bin) cells."""
+    tile_leaves = sel[sel >= 0]
+    r = torch.nonzero(in_tile).reshape(-1)
+    slot_of_leaf = torch.full((LEAVES,), -1, dtype=torch.long, device="cuda")
+    slot_of_leaf[tile_leaves.long().cuda()] = \
+        torch.nonzero(sel >= 0).reshape(-1).cuda()
+    s = slot_of_leaf[leaf[r].long()]
+    flat = ((s[:, None] * f + torch.arange(f, device="cuda")[None, :]) * b
+            + binsT[:, r].T.long()).reshape(-1)
+    contrib = stats[r].to(acc_dtype)[:, None, :].expand(
+        r.shape[0], f, 3).reshape(-1, 3)
+    acc = torch.zeros((P * f * b, 3), dtype=acc_dtype, device="cuda")
+    return time_ms(lambda: acc.index_add_(0, flat, contrib))
+
+
 def hist_phase(cuda_hist, n, m=None, seed=0, f=F, plane=False, real=0.9,
                hot=0.0, skew=0.0, root=False, bins=None, b=B):
     """Kernel vs plain on integer-valued and float stats at the shapes of
@@ -568,19 +622,8 @@ def hist_phase(cuda_hist, n, m=None, seed=0, f=F, plane=False, real=0.9,
             lambda: cuda_hist.hist_tile(*kargs, plane=plane))
         out["plain_ms"] = time_ms(lambda: cuda_hist.hist_tile_plain(*args),
                                   reps=10, warm=1)
-        # one PyTorch call computing the same function: index_add_ over the
-        # tile rows' flattened (slot, feature, bin) cells
-        r = torch.nonzero(in_tile).reshape(-1)
-        slot_of_leaf = torch.full((LEAVES,), -1, dtype=torch.long,
-                                  device="cuda")
-        slot_of_leaf[tile_leaves.long().cuda()] = \
-            torch.nonzero(sel >= 0).reshape(-1).cuda()
-        s = slot_of_leaf[leaf[r].long()]
-        flat = ((s[:, None] * f + torch.arange(f, device="cuda")[None, :]) * b
-                + binsT[:, r].T.long()).reshape(-1)
-        contrib = stats[r][:, None, :].expand(r.shape[0], f, 3).reshape(-1, 3)
-        acc = torch.zeros((P * f * b, 3), device="cuda")
-        out["library_ms"] = time_ms(lambda: acc.index_add_(0, flat, contrib))
+        out["library_ms"] = library_ms(binsT, leaf, stats, sel, in_tile, f,
+                                       b, torch.float32)
         # least traffic: the row-index buffer (gather form), the leaf id of
         # every row it names, the bins and stats of the tile's rows, the
         # planes written once; one add per (tile row, feature, stat)
@@ -942,19 +985,8 @@ def hist_q8_phase(cuda_hist, n, m=None, seed=0, f=F, plane=False, real=0.9,
         lambda: cuda_hist.hist_tile(*kargs, plane=plane))
     out["plain_ms"] = time_ms(lambda: cuda_hist.hist_tile_plain(*args),
                               reps=10, warm=1)
-    # one PyTorch call computing the same function: an int32 index_add_
-    # over the tile rows' flattened (slot, feature, bin) cells
-    r = torch.nonzero(in_tile).reshape(-1)
-    slot_of_leaf = torch.full((LEAVES,), -1, dtype=torch.long, device="cuda")
-    slot_of_leaf[tile_leaves.long().cuda()] = \
-        torch.nonzero(sel >= 0).reshape(-1).cuda()
-    s = slot_of_leaf[leaf[r].long()]
-    flat = ((s[:, None] * f + torch.arange(f, device="cuda")[None, :]) * b
-            + binsT[:, r].T.long()).reshape(-1)
-    contrib = stats[r].to(torch.int32)[:, None, :].expand(
-        r.shape[0], f, 3).reshape(-1, 3)
-    acc = torch.zeros((P * f * b, 3), dtype=torch.int32, device="cuda")
-    out["library_ms"] = time_ms(lambda: acc.index_add_(0, flat, contrib))
+    out["library_ms"] = library_ms(binsT, leaf, stats, sel, in_tile, f, b,
+                                   torch.int32)
     # least traffic: the row-index buffer (gather form), the leaf id of
     # every row it names, the bins and 3 int8 stats of the tile's rows,
     # the int32 planes written once; one add per (tile row, feature, stat)
@@ -1672,21 +1704,21 @@ PARITY_MODES = {
 }
 
 
-def _parity_mode(lgb, name, seed):
-    """One PARITY_MODES training twice on the card and once on the CPU
-    (f32: with the kernel's fixed-point sums, kernel_sums_on_cpu; q8: the
-    plain path, whose int32 sums are exact): the three model texts must be
-    equal bit for bit."""
+def _parity_mode(lgb, name, seed, rounds: int = PARITY_ROUNDS):
+    """One PARITY_MODES training of ``rounds`` rounds twice on the card and
+    once on the CPU (f32: with the kernel's fixed-point sums,
+    kernel_sums_on_cpu; q8: the plain path, whose int32 sums are exact):
+    the three model texts must be equal bit for bit."""
     from lightgbm_tpu_torch.ops import cuda_hist
     data, offset, extra = PARITY_MODES[name]
     X, y = data(PARITY_ROWS, seed + offset)
     setup = (X, y, dict(PARAMS, num_leaves=63, **extra), {})
     q8 = bool(extra.get("quantized_grad"))
-    texts = {run: parity_text(lgb, setup, "cuda")
+    texts = {run: parity_text(lgb, setup, "cuda", rounds)
              for run in ("cuda", "cuda_again")}
     with (contextlib.nullcontext() if q8
           else cuda_hist.kernel_sums_on_cpu()):
-        texts["cpu"] = parity_text(lgb, setup, "cpu")
+        texts["cpu"] = parity_text(lgb, setup, "cpu", rounds)
     out = {"params": extra, "trees": texts["cuda"].count("Tree="),
            "card_runs_identical_text": texts["cuda"] == texts["cuda_again"],
            "card_equals_cpu_text": texts["cuda"] == texts["cpu"],
@@ -1705,9 +1737,15 @@ def _parity_mode(lgb, name, seed):
     return out
 
 
+# parity_multiclass' rounds: 2, cut from PARITY_ROUNDS when the precision
+# modes' phases came in (7 trees a round on the CPU)
+PARITY_MULTICLASS_ROUNDS = 2
+
+
 def parity_multiclass_phase(lgb, seed):
-    return {"rows": PARITY_ROWS, "num_leaves": 63, "rounds": PARITY_ROUNDS,
-            **{m: _parity_mode(lgb, m, seed)
+    return {"rows": PARITY_ROWS, "num_leaves": 63,
+            "rounds": PARITY_MULTICLASS_ROUNDS,
+            **{m: _parity_mode(lgb, m, seed, PARITY_MULTICLASS_ROUNDS)
                for m in ("multiclass", "multiclass_q8")}}
 
 
@@ -2205,10 +2243,11 @@ MONO_LIST = [MONO.get(j, 0) for j in range(28)]
 MONO_OPS = 24          # the monotone mode's further operations a bin: two
                        # clips a side and the direction test, both scans
 SWEEP_ROWS, SWEEP_POINTS = 1_000, 60
-# train_mono_modes' and train_constraints' rounds: 2, cut from 3 when the
-# data layer's phases came in, to keep the whole script near its earlier
-# length (the exact modes' 254 searches a tree are the costly part)
-CONSTRAINED_ROUNDS = 2
+# train_mono_modes' and train_constraints' rounds: 1, cut from 3 to 2 when
+# the data layer's phases came in and to 1 with the precision modes', to
+# keep the whole script near its earlier length (the exact modes' 254
+# searches a tree are the costly part)
+CONSTRAINED_ROUNDS = 1
                          # (the exact modes grow one split a phase)
 
 
@@ -2672,9 +2711,10 @@ def parity_texts(lgb, name, setup, q8, rounds: int = PARITY_ROUNDS):
     return res
 
 
-# parity_constraints' rounds: 2, cut from PARITY_ROUNDS when the data
-# layer's phases came in (the exact modes' CPU runs are the costly part)
-PARITY_CONSTRAINTS_ROUNDS = 2
+# parity_constraints' rounds: 1, cut from PARITY_ROUNDS to 2 when the data
+# layer's phases came in and to 1 with the precision modes' (the exact
+# modes' CPU runs are the costly part)
+PARITY_CONSTRAINTS_ROUNDS = 1
 
 
 def parity_constraints_phase(lgb, seed):
@@ -3059,6 +3099,9 @@ def train_forced_cegb_phase(lgb, cuda_hist, args):
 
 
 PARITY_DATA_ROWS = PARITY_ROWS
+# parity_data's rounds: 1, cut from PARITY_ROUNDS when the precision modes'
+# phases came in (its CPU runs are the costly part)
+PARITY_DATA_ROUNDS = 1
 
 
 def parity_data_setups(seed: int, tmp: str):
@@ -3105,23 +3148,388 @@ def parity_data_setups(seed: int, tmp: str):
 
 
 def parity_data_phase(lgb, seed):
-    """Each data-layer run at 50,000 rows, 63 leaves, PARITY_ROUNDS rounds
-    (parity_texts: two card runs and the CPU run in the kernels' orders
-    equal; q8 also the CPU's plain run; f32 against it equal or the first
-    divergent tree named), with the first card run's launches."""
+    """Each data-layer run at 50,000 rows, 63 leaves, PARITY_DATA_ROUNDS
+    rounds (parity_texts: two card runs and the CPU run in the kernels'
+    orders equal; q8 also the CPU's plain run; f32 against it equal or the
+    first divergent tree named), with the first card run's launches."""
     import tempfile
     out = {"rows": PARITY_DATA_ROWS, "num_leaves": 63,
-           "rounds": PARITY_ROUNDS}
+           "rounds": PARITY_DATA_ROUNDS}
     with tempfile.TemporaryDirectory() as tmp:
         for name, setup in parity_data_setups(seed, tmp).items():
             out[name] = parity_texts(lgb, f"parity_data/{name}", setup,
-                                     bool(setup[2].get("quantized_grad")))
+                                     bool(setup[2].get("quantized_grad")),
+                                     PARITY_DATA_ROUNDS)
     if not all(out[k]["launches"].get("split_epilogue.launches_wide_mono"
                                       + s, 0) > 0
                for k, s in (("wide_mono", ""), ("wide_mono_q8", "_q8"))):
         raise AssertionError("the wide monotone runs missed the epilogue's "
                              "wide monotone mode")
     return out
+
+
+# -------------------------------------------------------- precision modes
+DP_TOL = 1e-11          # f64 mode vs a torch float64 sum: of each cell's
+                        # summed magnitudes (each stat rounds to the pass's
+                        # 2^-k once: amax * N / 2^61 a row at most)
+DP_DEVICE_SLACK = 1.15  # the f64 mode's device ms against the f32 mode's
+
+
+def hist_dp_case(cuda_hist, n, f, m=None, root=False, seed=0, bins=None,
+                 b=B):
+    """The f64 mode (gpu_use_dp) of a plane-only launch at one shape: the
+    full form (``m`` None; ``root``: the root pass, one computed slot
+    holding every row; else all 42 slots computed, 3/4 of the rows in
+    them) or the gather form over a rung of ``m`` rows (9/10 of it the
+    tile's rows); ``bins``: [f, n] bins on the card for the random ones.
+    Float stats only (the mode is the float one). Bitwise
+    ``hist_tile_exact(dtype=float64)`` and a second launch (which
+    computes the stats' amax itself), the f64 planes rounded to float32
+    bitwise the f32 mode's planes on the same inputs, within DP_TOL of the
+    summed magnitudes of a torch float64 sum (hist_tile_plain at float64);
+    the launches counted as the f64 mode's and the f32 launch as the f32
+    mode's. ms and device ms of both modes, taken in turns (f64, f32, f32,
+    f64), the plain version's ms, a float64 ``index_add_`` over the same
+    cells as the library time, and the bound (the f64 planes' bytes)."""
+    from lightgbm_tpu_torch.ops.histogram import compact_indices
+    f64 = torch.float64
+    sel = tile_selection(plane=True, root=root)
+    tile_leaves = sel[sel >= 0]
+    chan_h = cuda_hist.chan_leaf_table(sel)
+    chan = chan_h.cuda()
+    share = 1.0 if root else 0.75 if m is None else 0.9 * m / n
+    binsT, leaf, stats = hist_inputs(n, f, seed, False, tile_leaves, share,
+                                     b=b)
+    binsT = binsT if bins is None else bins
+    amax = stats.abs().amax(0)
+    in_tile = torch.isin(leaf, tile_leaves.cuda())
+    n_tile = int(in_tile.sum())
+    idx = None if m is None else compact_indices(in_tile, m)
+    args = (binsT, leaf, stats, chan, P, b, LEAVES, idx)
+    kargs = (binsT, leaf, stats, chan_h, P, b, LEAVES, idx)
+
+    def k64():
+        return cuda_hist.hist_tile(*kargs, plane=True, amax=amax, dtype=f64)
+
+    def k32():
+        return cuda_hist.hist_tile(*kargs, plane=True, amax=amax)
+
+    cuda_hist.reset_launch_counts()
+    k = k64()
+    again = cuda_hist.hist_tile(*kargs, plane=True, dtype=f64)
+    k_f32 = k32()
+    counts = cuda_hist.launch_counts()
+    exact = cuda_hist.hist_tile_exact(*args, dtype=f64)
+    plain = cuda_hist.hist_tile_plain(*args, dtype=f64)
+    mag = cuda_hist.hist_tile_plain(binsT, leaf, stats.abs(), chan, P, b,
+                                    LEAVES, idx, dtype=f64)
+    torch.cuda.synchronize()
+    w = "_wide" if b > 256 else ""
+    want = {f"hist_tile.launches{w}_dp": 2,
+            f"hist_tile.launches_plane{w}_dp": 2,
+            f"hist_tile.gather_launches{w}_dp": 0 if m is None else 2,
+            f"hist_tile.launches{w}": 1, f"hist_tile.launches_plane{w}": 1,
+            f"hist_tile.gather_launches{w}": 0 if m is None else 1}
+    got = {c: v for c, v in counts.items() if v}
+    if got != {c: v for c, v in want.items() if v}:
+        raise AssertionError(f"the f64 checks launched other forms or "
+                             f"modes: {got}")
+    for name, other in (("hist_tile_exact(dtype=float64)", exact),
+                        ("a second launch", again)):
+        if not torch.equal(k.view(torch.int64), other.view(torch.int64)):
+            raise AssertionError(f"the f64 mode is not bitwise equal to "
+                                 f"{name}")
+    if not torch.equal(k.to(torch.float32).view(torch.int32),
+                       k_f32.view(torch.int32)):
+        raise AssertionError("the f64 planes rounded to float32 differ from "
+                             "the f32 mode's planes on the same inputs")
+    out = {"rows": n if m is None else m, "tile_rows": n_tile, "f": f,
+           "b": b, "bitwise_vs_exact": True, "deterministic": True,
+           "rounds_to_f32_mode": True,
+           "max_abs_err": float_err(k, plain, mag, rtol=DP_TOL),
+           "max_rel_err_of_magnitudes": float(
+               ((k - plain).abs() / mag.clamp(min=1e-300)).max()),
+           "tolerance_of_magnitudes": DP_TOL, "launches_checked": got}
+    out["ms"] = time_ms(k64)
+    out["f32_ms"] = time_ms(k32)
+    d64a, split = device_ms(k64)
+    d32a, _ = device_ms(k32)
+    d32b, _ = device_ms(k32)
+    d64b, _ = device_ms(k64)
+    if "not measured" in (d64a, d64b, d32a, d32b):
+        out["device_ms"] = out["f32_device_ms"] = "not measured"
+    else:
+        out["device_ms"] = (d64a + d64b) / 2
+        out["f32_device_ms"] = (d32a + d32b) / 2
+        out["device_ms_ratio_to_f32"] = out["device_ms"] / out["f32_device_ms"]
+    out["device_split"] = split
+    out["plain_ms"] = time_ms(
+        lambda: cuda_hist.hist_tile_plain(*args, dtype=f64), reps=10, warm=1)
+    out["library_ms"] = library_ms(binsT, leaf, stats, sel, in_tile, f, b,
+                                   f64)
+    # least traffic: hist_phase's, the planes written as float64
+    scanned = n if idx is None else n_tile
+    nbytes = (0 if idx is None else 4 * m) + 4 * scanned \
+        + n_tile * (f * binsT.element_size() + 12) + P * f * b * 3 * 8
+    out["bound_ms"], out["bound_by"] = bound(nbytes, 3 * n_tile * f)
+    return out
+
+
+def hist_plane_dp_phase(cuda_hist, args):
+    """The f64 mode at train_cat's shapes (F = 8, all 42 slots computed:
+    the root pass, the several-slot full form and both rungs) and at Higgs
+    width (F = 28: the root pass on train_dp's own bins, the full form and
+    both rungs), and one root pass at B = 1023 (int16 bins). Fails if a
+    case's device ms passes DP_DEVICE_SLACK times the f32 mode's."""
+    n = args.rows
+    rungs = ladder_rungs(n)
+    higgs = real_bins(n, args.valid_rows, args.seed)["higgs"]
+    out = {"expo_f8": {
+        "root": hist_dp_case(cuda_hist, n, F_CAT, root=True, seed=61),
+        "full": hist_dp_case(cuda_hist, n, F_CAT, seed=62),
+        **{f"rung_{m}": hist_dp_case(cuda_hist, n, F_CAT, m=m, seed=63)
+           for m in rungs}},
+        "higgs_f28": {
+        "root": hist_dp_case(cuda_hist, n, F, root=True, seed=64,
+                             bins=higgs),
+        "full": hist_dp_case(cuda_hist, n, F, seed=65),
+        **{f"rung_{m}": hist_dp_case(cuda_hist, n, F, m=m, seed=66)
+           for m in rungs}},
+        "wide_b1023": {"root": hist_dp_case(cuda_hist, n, F, root=True,
+                                            seed=67, b=WIDE_B)}}
+    slow = {f"{g}/{c}": r["device_ms_ratio_to_f32"]
+            for g, cases in out.items() for c, r in cases.items()
+            if r.get("device_ms_ratio_to_f32", 0) > DP_DEVICE_SLACK}
+    out["device_slack"] = DP_DEVICE_SLACK
+    out["slower_than_slack"] = slow
+    if slow:
+        raise AssertionError(f"the f64 mode's device ms exceeds "
+                             f"{DP_DEVICE_SLACK}x the f32 mode's: {slow}")
+    return out
+
+
+def train_dp_phase(lgb, cuda_hist, args, ref_auc):
+    """gpu_use_dp on train's 2M Higgs-shaped rows (binary, 255 leaves, lr
+    0.1, --rounds rounds): the classic path with f64 planes. sec/iter,
+    device busy and idle share from one profiled iteration, valid AUC
+    within 0.01 of train's (the JAX package's f64-vs-f32 bar,
+    tests/test_precision.py:61), and launches of the f64 plane-only forms
+    alone: no f32 launch of any form, no split_epilogue."""
+    _, out, launches = constrained_train(
+        lgb, cuda_hist, args, {"gpu_use_dp": True}, args.rounds,
+        profile=True)
+    out["f32_valid_auc"] = ref_auc
+    dp = {k: v for k, v in launches.items()
+          if k.startswith("hist_tile.") and k.endswith("_dp")}
+    others = {k: v for k, v in launches.items()
+              if k.startswith(("hist_tile.", "split_epilogue."))
+              and k not in dp and v}
+    out["f64_launches"] = dp
+    if out["split_fusion"] or others \
+            or dp["hist_tile.launches_plane_dp"] <= 0 \
+            or dp["hist_tile.gather_launches_dp"] <= 0 \
+            or dp["hist_tile.launches_dp"] != dp["hist_tile.launches_plane_dp"]:
+        raise AssertionError(f"train_dp left the f64 plane-only forms: "
+                             f"{launches}")
+    if abs(out["valid_auc"] - ref_auc) > 0.01:
+        raise AssertionError(f"f64 valid AUC {out['valid_auc']} not within "
+                             f"0.01 of the f32 run's {ref_auc}")
+    return out, launches
+
+
+def linear_like(n: int, seed: int):
+    """Regression rows for linear leaves: train's 28 Higgs-shaped features,
+    features 0-2 with 3% NaNs, and a target piecewise-linear in features
+    0-2 (the pieces split on feature 1's sign and feature 2 above 0.5) plus
+    Gaussian noise; a NaN counts as 0 in the target."""
+    X, _ = higgs_like(n, seed)
+    rng = np.random.RandomState(seed + 1)
+    x0, x1, x2 = (X[:, j].astype(np.float64) for j in range(3))
+    y = np.where(x1 > 0, 2.0 * x0 - 1.5 * x2, -x0 + 0.5 * x2) \
+        + np.where(x2 > 0.5, 3.0 * x2, 0.0) + 0.3 * rng.standard_normal(n)
+    for j in range(3):
+        X[rng.rand(n) < 0.03, j] = np.nan
+    return X, y
+
+
+LINEAR_PARAMS = {"objective": "regression", "num_leaves": 255,
+                 "max_bin": 255, "learning_rate": 0.1, "metric": "l2",
+                 "verbosity": -1}
+LINEAR_PREDICT_ROWS = 20_000
+
+
+def train_linear_phase(lgb, cuda_hist, args):
+    """linear_tree on 2M + 200k regression rows (linear_like; 28 features,
+    255 leaves, linear_lambda 0.01, --rounds rounds; the fused path, whose
+    kernels 1, 2 and the epilogue must launch): sec/iter with the host's
+    leaf fits split out, valid l2 below a plain run's on the same rows and
+    rounds, and the card's model text loaded back with load_model
+    predicting LINEAR_PREDICT_ROWS valid rows bitwise as Booster.predict
+    does."""
+    from lightgbm_tpu_torch.io.model_text import load_model
+    from lightgbm_tpu_torch.models import gbdt as gbdt_mod
+    X, y = linear_like(args.rows + args.valid_rows, args.seed + 71)
+    Xv, yv = X[args.rows:], y[args.rows:]
+    X, y = X[:args.rows], y[:args.rows]
+    out = {"rows": args.rows, "valid_rows": args.valid_rows, "features": F,
+           "rounds": args.rounds, "nan_share_features_0_2": 0.03}
+    for linear in (True, False):
+        params = dict(LINEAR_PARAMS, device_type="cuda",
+                      linear_tree=linear, linear_lambda=0.01 if linear
+                      else 0.0)
+        train = lgb.Dataset(X, label=y, params=params)
+        valid = lgb.Dataset(Xv, label=yv, reference=train)
+        train.construct()
+        valid.construct()
+        evals, fits = {}, {}
+        cuda_hist.reset_launch_counts()
+        orig = _timed(gbdt_mod.GBDT, "_fit_linear_leaves", fits)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        try:
+            booster = lgb.train(params, train, args.rounds,
+                                valid_sets=[valid], valid_names=["valid"],
+                                evals_result=evals)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+        finally:
+            gbdt_mod.GBDT._fit_linear_leaves = orig
+        launches = cuda_hist.launch_counts()
+        if not linear:
+            out["plain_sec_per_iter"] = wall / args.rounds
+            out["plain_valid_l2"] = evals["valid"]["l2"][-1]
+            continue
+        fit_s = sum(fits.get("_fit_linear_leaves", []))
+        gb = booster._boosting
+        out.update(
+            sec_per_iter=wall / args.rounds,
+            leaf_fit_host_ms_per_iter=fit_s * 1e3 / args.rounds,
+            rest_ms_per_iter=(wall - fit_s) * 1e3 / args.rounds,
+            valid_l2=evals["valid"]["l2"][-1],
+            split_fusion=gb._split_fusion_on(),
+            linear_leaves_last_tree=int(sum(
+                1 for c in gb.host_trees[-1].leaf_coeff if c)),
+            leaves_last_tree=gb.host_trees[-1].num_leaves,
+            launches={k: v for k, v in launches.items() if v})
+        lin_launches = launches
+        text = booster.model_to_string()
+        rows = Xv[:LINEAR_PREDICT_ROWS]
+        t0 = time.time()
+        pred = booster.predict(rows)
+        out["predict_s"] = time.time() - t0
+        loaded = load_model(text).predict(rows)
+        out["loaded_text_predicts_bitwise"] = bool(np.array_equal(
+            pred.view(np.uint64), loaded.view(np.uint64)))
+        out["predict_rows"] = LINEAR_PREDICT_ROWS
+    if not (out["split_fusion"] and out["linear_leaves_last_tree"] > 0
+            and lin_launches["hist_tile.launches"]
+            - lin_launches["hist_tile.launches_plane"] > 0
+            and lin_launches["hist_tile.gather_launches"] > 0
+            and lin_launches["split_epilogue.launches"] > 0):
+        raise AssertionError(f"train_linear missed a kernel of the fused "
+                             f"path or fitted no leaf: {out}")
+    if not out["valid_l2"] < out["plain_valid_l2"]:
+        raise AssertionError(f"linear valid l2 {out['valid_l2']} not below "
+                             f"the plain run's {out['plain_valid_l2']}")
+    if not out["loaded_text_predicts_bitwise"]:
+        raise AssertionError("the loaded linear model text predicts other "
+                             "values than Booster.predict")
+    return out, lin_launches
+
+
+def parity_precision_setups(seed: int):
+    """The precision modes' parity runs at PARITY_ROWS rows, 63 leaves:
+    gpu_use_dp on numerical, Expo-shaped categorical and sparse-column
+    data; linear_tree as regression with NaNs and as binary. name -> (X,
+    y, params, Dataset keywords)."""
+    base = dict(PARAMS, num_leaves=63)
+    dp = dict(base, gpu_use_dp=True)
+    Xh, yh = higgs_like(PARITY_ROWS, seed + 7)
+    Xc, yc = expo_like(PARITY_ROWS, seed + 13)
+    Xs, ys = sparse_higgs_like(PARITY_ROWS, seed + 17)
+    Xl, yl = linear_like(PARITY_ROWS, seed + 73)
+    lin = {"linear_tree": True, "linear_lambda": 0.01}
+    return {
+        "dp": (Xh, yh, dp, {}),
+        "dp_cat": (Xc, yc, dp, {"categorical_feature": CAT_COLUMNS}),
+        "dp_sparse": (Xs, ys, dp, {}),
+        "linear_regression": (Xl, yl, dict(LINEAR_PARAMS, num_leaves=63,
+                                           **lin), {}),
+        "linear_binary": (Xh, yh, dict(base, **lin), {}),
+    }
+
+
+def parity_precision_phase(lgb, seed, prefix: str):
+    """The ``prefix`` ("dp" or "linear") runs of parity_precision_setups,
+    3 rounds each (parity_texts: two card runs and the CPU run in the
+    kernels' orders equal; against the CPU's plain run equal text or the
+    first divergent tree named), each with the first card run's launches:
+    the f64 plane-only forms alone for dp, kernels 1, 2 and the epilogue
+    for linear."""
+    out = {"rows": PARITY_ROWS, "num_leaves": 63, "rounds": PARITY_ROUNDS}
+    for name, setup in parity_precision_setups(seed).items():
+        if not name.startswith(prefix):
+            continue
+        res = parity_texts(lgb, f"parity_{prefix}/{name}", setup, False)
+        got = res["launches"]
+        if prefix == "dp":
+            ok = got.get("hist_tile.launches_plane_dp", 0) > 0 and all(
+                k.endswith("_dp") for k in got
+                if k.startswith(("hist_tile.", "split_epilogue.")))
+        else:
+            ok = all(got.get(k, 0) > 0 for k in (
+                "hist_tile.launches", "hist_tile.gather_launches",
+                "split_epilogue.launches"))
+        if not ok:
+            raise AssertionError(f"parity_{prefix}/{name} ran other kernels "
+                                 f"than its mode's: {got}")
+        out[name] = res
+    return out
+
+
+def precision_phases(lgb, cuda_hist, args, ref_auc):
+    """The precision modes' phases, each emitted; returns their results
+    for the kernels line."""
+    hd = hist_plane_dp_phase(cuda_hist, args)
+    emit("hist_plane_dp", n=args.rows, p=P, leaves=LEAVES, **hd)
+    tdp, dp_launches = train_dp_phase(lgb, cuda_hist, args, ref_auc)
+    emit("train_dp", **tdp)
+    tl, lin_launches = train_linear_phase(lgb, cuda_hist, args)
+    emit("train_linear", **tl)
+    pdp = parity_precision_phase(lgb, args.seed, "dp")
+    emit("parity_dp", **pdp)
+    plin = parity_precision_phase(lgb, args.seed, "linear")
+    emit("parity_linear", **plin)
+    return {"hist": hd, "dp_launches": dp_launches,
+            "linear_launches": lin_launches}
+
+
+def dp_kernel_entry(prec):
+    """The kernels line's entry of the f64 mode: the root pass on train_dp's
+    own bins (the full pass its main path launches) as its numbers, the
+    other shapes beside them."""
+    keys = ("ms", "device_ms", "f32_ms", "f32_device_ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms")
+    hd = prec["hist"]
+    launched = prec["dp_launches"]
+    cases = {f"{g}/{c}": r for g in ("expo_f8", "higgs_f28", "wide_b1023")
+             for c, r in hd[g].items()}
+    return {
+        "name": "hist_tile (plane-only, f64)", "route": "cuda",
+        "source": "lightgbm_tpu_torch/csrc/hist_tile.cu",
+        "replaces": "lightgbm_tpu/ops/pallas_hist.py:154 _fused_kernel "
+                    "(pallas_call :270) + :205 _gather_kernel (pallas_call "
+                    ":324), f64 planes: the JAX package's XLA scatter at "
+                    "float64 (lightgbm_tpu/ops/histogram.py:220-223)",
+        "launches": launched["hist_tile.launches_plane_dp"],
+        "max_abs_err": max(r["max_abs_err"] for r in cases.values()),
+        "max_rel_err_of_magnitudes": max(r["max_rel_err_of_magnitudes"]
+                                         for r in cases.values()),
+        **{k: hd["higgs_f28"]["root"][k] for k in keys},
+        "shapes": {k: {kk: r[kk] for kk in keys} for k, r in cases.items()},
+        "gather_launches": launched["hist_tile.gather_launches_dp"],
+        "launches_by_path": {"train_dp": launched[
+            "hist_tile.launches_plane_dp"]}}
 
 
 def per_launch(profile, name):
@@ -3156,6 +3564,10 @@ def main() -> int:
                          "parent commit from git archive): its hist_tile "
                          "forms are timed on the same inputs before and "
                          "after this run's phases")
+    ap.add_argument("--only", choices=("precision",), default=None,
+                    help="run the device, build and train phases and this "
+                         "group's phases alone (a quicker check of one "
+                         "group; without it every phase runs)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3179,6 +3591,18 @@ def main() -> int:
     emit("build", seconds=time.time() - t0, ptxas=ptxas)
 
     n = args.rows
+    if args.only == "precision":
+        tr, launches = train_phase(lgb, cuda_hist, args)
+        emit("train", **tr)
+        prec = precision_phases(lgb, cuda_hist, args, tr["valid_auc"])
+        print(json.dumps({"kernels": [dp_kernel_entry(prec)],
+                          "total_seconds": time.time() - t_start}),
+              flush=True)
+        print(smi, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     parent = []
     if args.parent:
         parent.append(parent_times(args.parent, n, args.valid_rows,
@@ -3282,6 +3706,7 @@ def main() -> int:
                                                         args))
     pdata = parity_data_phase(lgb, args.seed)
     emit("parity_data", **pdata)
+    prec = precision_phases(lgb, cuda_hist, args, tr["valid_auc"])
 
     hv = hist_variants_phase(cuda_hist)
     emit("hist_variants", **hv)
@@ -3540,6 +3965,8 @@ def main() -> int:
             "b255": nums(ew[e.replace(str(WIDE_B), str(B)) + "_mono"]),
             "launches_by_path": {("parity_data/wide_mono_q8" if q8 else
                                   "parity_data/wide_mono"): pl[name]}})
+    # the f64 mode of the plane-only forms (gpu_use_dp)
+    kernels.append(dp_kernel_entry(prec))
     # each kernel's launches on every path that launched it, each path's
     # counts read from 0 around its own run
     paths = {"train": launches, "train_cat": cat_launches,
@@ -3548,6 +3975,7 @@ def main() -> int:
              "train_q8_multiclass": mcq_launches,
              "train_rank": rank_launches, "train_rank_xendcg": xe_launches,
              "train_mono": mono_launches, "train_mono_q8": monoq_launches,
+             "train_linear": prec["linear_launches"],
              **{f"train_sampling/{k}": v["launches"]
                 for k, v in ts["runs"].items()}}
     for entry, count in zip(kernels[:6], (

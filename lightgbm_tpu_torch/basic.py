@@ -33,8 +33,10 @@ set built with ``reference=`` shares the training set's mappers, bundles
 and pandas category lists and stays dense. The metadata fields label,
 weight, group (query sizes, for learning to rank) and init_score go with
 the rows. The feature metadata carries ``monotone_constraints`` and
-``feature_contri``, mapped from original into device-column space.
-Streaming construction and a group column read from a file wait for
+``feature_contri``, mapped from original into device-column space. A
+dense construct keeps the raw features as float32 (``raw_data_np``) when
+``linear_tree`` is in its params or its reference keeps them, for linear
+leaves; sparse input with ``linear_tree`` raises. Streaming construction and a group column read from a file wait for
 ROADMAP Queue 1 items 15 and 12.
 """
 
@@ -149,6 +151,9 @@ class Dataset:
         self.num_data = 0
         self.num_total_features = 0
         self.device = None
+        # the raw features as float32, kept for linear leaves (reference:
+        # dataset.h:720 raw_data_), else None
+        self.raw_data_np: Optional[np.ndarray] = None
 
     @classmethod
     def from_mappers(cls, mappers, used_features, feature_names=None,
@@ -259,6 +264,11 @@ class Dataset:
                             "values are constant.")
         self._build_feature_meta(config)
         self.binsT = self._maybe_extract_sparse(self.bin_new_data(X), config)
+        # raw features for linear trees: kept with linear_tree, or when the
+        # reference keeps them (a valid set's linear scores read them)
+        keep_raw = config.linear_tree or (ref is not None
+                                          and ref.raw_data_np is not None)
+        self.raw_data_np = X.astype(np.float32) if keep_raw else None
         self._finish_construct()
         return self
 
@@ -434,6 +444,8 @@ class Dataset:
         sparse_bin.hpp storage + dataset.cpp:239 FastFeatureBundling: the
         sparse features bundle into shared dense device columns, a
         ``[G, N]`` bin matrix with G ~ bundles, not features)."""
+        if config.linear_tree:
+            log.fatal("linear_tree is not supported with sparse input")
         sparse = _is_scipy_sparse(self.data)
         X = (self.data.tocsc() if sparse
              else _to_2d_float(self._pandas_to_codes(self.data)))

@@ -100,6 +100,14 @@ class Booster:
                                       num_iteration=num_iteration,
                                       start_iteration=start_iteration)
 
+    def refit(self, data, label, decay_rate: float = 0.9, **kwargs):
+        """Not ported yet: refitting leaf values (linear leaves' const and
+        coefficients included) comes with the rest of the Booster surface."""
+        raise NotImplementedError(
+            "Booster.refit is not ported to lightgbm_tpu_torch yet (linear "
+            "leaves included); it arrives with ROADMAP.md Queue 1 item 12a "
+            "(training control)")
+
     # ------------------------------------------------------------ model IO
     def model_to_string(self, num_iteration: Optional[int] = None,
                         start_iteration: int = 0) -> str:

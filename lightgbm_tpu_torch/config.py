@@ -16,6 +16,9 @@ the same ``parameters:`` block into model text), with three port rules:
   (int8 gradients, exact int32 sums). Any other value raises: the XLA
   methods (``scatter``, ``binloop``, ``onehot*``) have no counterpart in
   the port, which has one histogram path.
+- ``gpu_use_dp`` always means the JAX package's float64 mode as it runs
+  with x64 on (f64 histograms on the classic split path): the port has no
+  x64 switch, so it has no float32 fallback either.
 - ``deterministic`` is accepted and changes nothing: the port's kernels
   add their float sums in a fixed order, so two runs on the card give the
   same bits whether it is set or not (and on Hopper there is no hi/lo
@@ -24,7 +27,8 @@ the same ``parameters:`` block into model text), with three port rules:
   and categorical data with sparse device columns, serial learner; gbdt,
   goss, dart and rf boosting with bagging and by-tree feature_fraction;
   every objective and metric, ranking's included; the fused split
-  epilogue, the classic split path, f32 and quantized-gradient histograms)
+  epilogue, the classic split path, f32, f64 (``gpu_use_dp``) and
+  quantized-gradient histograms, linear leaves)
   raises
   NotImplementedError when set to a non-default value, naming the ROADMAP
   item that brings it (``_check_slice``). Nothing is silently ignored.
@@ -724,6 +728,8 @@ _SLICE_PARAMS = frozenset({
     "split_fusion", "hist_subtraction", "hist_compaction",
     "hist_compaction_ladder", "tile_leaves", "fused_iteration",
     "tree_growth_mode", "deterministic", "quantized_grad",
+    # the precision modes: f64 histograms on the classic path, linear leaves
+    "gpu_use_dp", "linear_tree", "linear_lambda",
     # boosting modes, row and column sampling, objective parameters
     "bagging_fraction", "pos_bagging_fraction", "neg_bagging_fraction",
     "bagging_freq", "feature_fraction", "top_rate", "other_rate",
@@ -755,8 +761,6 @@ _ROADMAP_ITEM = {}
 for _names, _item in (
         (("histogram_pool_size",),
          "Queue 1 item 6 (the feature-blocked pass)"),
-        (("gpu_use_dp", "linear_tree", "linear_lambda"),
-         "Queue 1 item 11 (precision modes)"),
         (("hist_block", "hist_autotune"),
          "Queue 2 (autotune_hist becomes a Hopper sweep over rows per "
          "block)"),

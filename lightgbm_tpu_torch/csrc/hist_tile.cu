@@ -1,4 +1,4 @@
-// hist_tile.cu -- the histogram tile pass, deterministic, f32 and q8.
+// hist_tile.cu -- the histogram tile pass, deterministic, f32, f64 and q8.
 //
 // Replaces lightgbm_tpu/ops/pallas_hist.py:
 //   _fused_kernel       plane-only full-row form   (hist_full_launch)
@@ -100,6 +100,16 @@
 //
 // Numerics on Hopper: `pallas` and `pallas_hilo` are the same here. The
 // TPU's `hilo` bf16 hi/lo split is an MXU device; this kernel needs none.
+//
+// f64 mode (`dp` != 0; gpu_use_dp, the classic path's plane-only forms
+// only): the JAX package accumulates float64 planes there through XLA's
+// scatter, not a Pallas kernel (ops/histogram.py:220-223). Here it is the
+// f32 mode's accumulation unchanged -- the f32 stats read as they are (an
+// f32 value is exact in f64), the same 64-bit fixed-point sums -- and a
+// convert that writes double: the integer sum rounded once to 53 bits,
+// where the f32 mode rounds it again to 24. The output type is a template
+// parameter of the convert alone, so the f32, q8 and wide instantiations
+// keep their code; no float atomics either way.
 //
 // Wide bins (`wide` != 0; the Pallas kernels at num_bins > 256, which cast
 // each bin to int32, pallas_hist.py:143): the bin type is a template
@@ -330,14 +340,14 @@ __global__ void full_accumulate(
 
 // out[p][f][b][s] = the integer sums of slot p's compact index c (comp[p],
 // or with comp null: 0 for slot `only`, none for the others), in f32 mode
-// converted to float32 once; 0 for a slot with none. `m` is the row count
-// the fixed-point exponent was taken over.
-template <bool kQ8>
+// converted once to Out (float32, or double in the f64 mode); 0 for a slot
+// with none. `m` is the row count the fixed-point exponent was taken over.
+template <bool kQ8, typename Out>
 __global__ void hist_tile_reduce(
     const typename Mode<kQ8>::Part* __restrict__ accum,
     const int32_t* __restrict__ comp, int only,
-    const unsigned* __restrict__ amax_bits,
-    typename Mode<kQ8>::Out* __restrict__ out, int p, int f, int b, int m) {
+    const unsigned* __restrict__ amax_bits, Out* __restrict__ out, int p,
+    int f, int b, int m) {
   const long long per_slot = (long long)f * b * kStats;
   const long long cells = (long long)p * per_slot;
   for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -354,25 +364,36 @@ __global__ void hist_tile_reduce(
       out[e] = acc;
     } else {
       const int k = fixed_exponent(amax_bits[rest % kStats], m);
-      out[e] = k == kNonFinite
-                   ? __int_as_float(0x7fffffff)
-                   : (float)((double)acc * ldexp(1.0, -k));
+      if constexpr (sizeof(Out) == 8)
+        out[e] = k == kNonFinite
+                     ? __longlong_as_double(0x7ff8000000000000LL)
+                     : (double)acc * ldexp(1.0, -k);
+      else
+        out[e] = k == kNonFinite
+                     ? __int_as_float(0x7fffffff)
+                     : (float)((double)acc * ldexp(1.0, -k));
     }
   }
 }
 
-int launch_reduce(bool q8, const void* accum, const int32_t* comp, int only,
-                  const unsigned* amax_bits, void* out, int p, int f, int b,
-                  int m, cudaStream_t st) {
+// The convert of one mode: q8 (int32 out), f32 (float) or, with `dp`, the
+// f64 mode (double).
+int launch_reduce(bool q8, bool dp, const void* accum, const int32_t* comp,
+                  int only, const unsigned* amax_bits, void* out, int p,
+                  int f, int b, int m, cudaStream_t st) {
   const long long cells = (long long)p * f * b * kStats;
   const long long want = (cells + 255) / 256;
   const int blocks = (int)(want < 65535 ? (want > 0 ? want : 1) : 65535);
   if (q8)
-    hist_tile_reduce<true><<<blocks, 256, 0, st>>>(
+    hist_tile_reduce<true, int><<<blocks, 256, 0, st>>>(
         static_cast<const int*>(accum), comp, only, amax_bits,
         static_cast<int*>(out), p, f, b, m);
+  else if (dp)
+    hist_tile_reduce<false, double><<<blocks, 256, 0, st>>>(
+        static_cast<const long long*>(accum), comp, only, amax_bits,
+        static_cast<double*>(out), p, f, b, m);
   else
-    hist_tile_reduce<false><<<blocks, 256, 0, st>>>(
+    hist_tile_reduce<false, float><<<blocks, 256, 0, st>>>(
         static_cast<const long long*>(accum), comp, only, amax_bits,
         static_cast<float*>(out), p, f, b, m);
   return (int)cudaGetLastError();
@@ -387,16 +408,16 @@ int device_sms() {
 
 // The full form's accumulate + convert launches of one mode (one computed
 // slot, `slot`, whose leaf is `target`; slot -1: none computed, the convert
-// alone writes zeros); returns cudaGetLastError().
+// alone writes zeros; `dp`: the f64 convert); returns cudaGetLastError().
 template <bool kQ8, typename Bin>
 int launch_full(const Bin* rows, const void* leaf, const void* stats,
                 const unsigned* amax_bits, void* accum, void* out, int n,
                 int f, int p, int b, int slot, int target, int group,
-                int width, cudaStream_t st) {
+                int width, bool dp, cudaStream_t st) {
   using M = Mode<kQ8>;
   if (slot < 0)
-    return launch_reduce(kQ8, accum, nullptr, -1, amax_bits, out, p, f, b,
-                         n, st);
+    return launch_reduce(kQ8, dp, accum, nullptr, -1, amax_bits, out, p, f,
+                         b, n, st);
   const size_t smem = (size_t)group * b * kStats * (kQ8 ? 4 : 8)
                       + (size_t)kThreads * (Staged<kQ8>::kWords + 1) * 4;
   cudaError_t err = cudaFuncSetAttribute(
@@ -418,8 +439,8 @@ int launch_full(const Bin* rows, const void* leaf, const void* stats,
       static_cast<typename M::Acc*>(accum), n, f, b, target, width, group);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  return launch_reduce(kQ8, accum, nullptr, slot, amax_bits, out, p, f, b,
-                       n, st);
+  return launch_reduce(kQ8, dp, accum, nullptr, slot, amax_bits, out, p, f,
+                       b, n, st);
 }
 
 // ----------------------------------------------------------- gather form
@@ -668,13 +689,14 @@ __global__ void gather_accumulate(const uint32_t* __restrict__ payload,
 }
 
 // The gather form's four launches (count, scatter, accumulate, convert) of
-// one mode, after the scratch memset; returns cudaGetLastError().
+// one mode (`dp`: the f64 convert), after the scratch memset; returns
+// cudaGetLastError().
 template <bool kQ8, typename Bin>
 int launch_gather(const Bin* rows, const void* leaf, const void* stats,
                   const int32_t* slotmap, const void* idx,
                   const unsigned* amax_bits, int* counts, uint32_t* payload,
                   void* accum, void* out, int n, int f, int m, int p, int b,
-                  int l, int active, int group, int width, int tile,
+                  int l, int active, int group, int width, int tile, bool dp,
                   cudaStream_t st) {
   using M = Mode<kQ8>;
   const int sms = device_sms();
@@ -723,7 +745,8 @@ int launch_gather(const Bin* rows, const void* leaf, const void* stats,
       active, width, group);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  return launch_reduce(kQ8, accum, comp, 0, amax_bits, out, p, f, b, m, st);
+  return launch_reduce(kQ8, dp, accum, comp, 0, amax_bits, out, p, f, b, m,
+                       st);
 }
 
 void launch_absmax(const void* stats, void* amax_bits, int n,
@@ -737,14 +760,15 @@ void launch_absmax(const void* stats, void* amax_bits, int n,
 // The full form of one mode and bin type, after the scratch memset and
 // stat_absmax.
 template <typename Bin>
-int full_mode(bool q8, const void* rows, const void* leaf, const void* stats,
-              void* amax_bits, int compute_amax, void* accum, void* out,
-              int n, int f, int p, int b, int slot, int target, int group,
-              int width, cudaStream_t st) {
+int full_mode(bool q8, bool dp, const void* rows, const void* leaf,
+              const void* stats, void* amax_bits, int compute_amax,
+              void* accum, void* out, int n, int f, int p, int b, int slot,
+              int target, int group, int width, cudaStream_t st) {
   const Bin* rw = static_cast<const Bin*>(rows);
   if (q8)
     return launch_full<true, Bin>(rw, leaf, stats, nullptr, accum, out, n,
-                                  f, p, b, slot, target, group, width, st);
+                                  f, p, b, slot, target, group, width, false,
+                                  st);
   if (compute_amax) {
     launch_absmax(stats, amax_bits, n, st);
     const cudaError_t err = cudaGetLastError();
@@ -753,13 +777,13 @@ int full_mode(bool q8, const void* rows, const void* leaf, const void* stats,
   return launch_full<false, Bin>(rw, leaf, stats,
                                  static_cast<const unsigned*>(amax_bits),
                                  accum, out, n, f, p, b, slot, target, group,
-                                 width, st);
+                                 width, dp, st);
 }
 
 // The gather form of one mode and bin type, after the scratch memset and
 // stat_absmax.
 template <typename Bin>
-int gather_mode(bool q8, const void* rows, const void* leaf,
+int gather_mode(bool q8, bool dp, const void* rows, const void* leaf,
                 const void* stats, const int32_t* sm, const void* idx,
                 void* amax_bits, int compute_amax, int* cn, uint32_t* pl,
                 void* accum, void* out, int n, int f, int m, int p, int b,
@@ -769,7 +793,7 @@ int gather_mode(bool q8, const void* rows, const void* leaf,
   if (q8)
     return launch_gather<true, Bin>(rw, leaf, stats, sm, idx, nullptr, cn,
                                     pl, accum, out, n, f, m, p, b, l, active,
-                                    group, width, tile, st);
+                                    group, width, tile, false, st);
   if (compute_amax) {
     launch_absmax(stats, amax_bits, n, st);
     const cudaError_t err = cudaGetLastError();
@@ -778,13 +802,14 @@ int gather_mode(bool q8, const void* rows, const void* leaf,
   return launch_gather<false, Bin>(rw, leaf, stats, sm, idx,
                                    static_cast<const unsigned*>(amax_bits),
                                    cn, pl, accum, out, n, f, m, p, b, l,
-                                   active, group, width, tile, st);
+                                   active, group, width, tile, dp, st);
 }
 
 }  // namespace
 
 // Full-row form of a tile with one computed slot, `slot` (leaf `target`),
-// `q8` != 0 for the q8 mode, `wide` != 0 for 16-bit bins. Returns
+// `q8` != 0 for the q8 mode, `wide` != 0 for 16-bit bins, `dp` != 0 for
+// the f64 mode (float stats, double `out`; not with q8). Returns
 // cudaGetLastError() (0 = launched). `rows` the bins row-major, n *
 // `width` elements of the bin type (feature f of row r at r * width + f);
 // `stats` n * 3 floats (f32) or int8 (q8); `amax_bits` 3 words, the
@@ -792,30 +817,31 @@ int gather_mode(bool q8, const void* rows, const void* leaf,
 // 3 words of the scratch that stat_absmax fills (f32 mode only);
 // `scratch` `scratch_bytes` bytes, zeroed here, holding `accum` (f * b * 3
 // int64 in f32 mode, int32 in q8) and stat_absmax's words; `out` p * f * b
-// * 3 float32 (f32) or int32 (q8). `group` features share a block.
+// * 3 float32 (f32), double (f64) or int32 (q8). `group` features share a
+// block.
 extern "C" int hist_full_launch(const void* rows, const void* leaf,
                                 const void* stats, void* amax_bits,
                                 int compute_amax, void* scratch,
                                 long long scratch_bytes, void* accum,
-                                void* out, int q8, int wide, int n, int f,
-                                int p, int b, int slot, int target, int group,
-                                int width, void* stream) {
+                                void* out, int q8, int wide, int dp, int n,
+                                int f, int p, int b, int slot, int target,
+                                int group, int width, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaMemsetAsync(scratch, 0, (size_t)scratch_bytes, st);
   if (err != cudaSuccess) return (int)err;
   if (wide)
-    return full_mode<uint16_t>(q8 != 0, rows, leaf, stats, amax_bits,
-                               compute_amax, accum, out, n, f, p, b, slot,
-                               target, group, width, st);
-  return full_mode<uint8_t>(q8 != 0, rows, leaf, stats, amax_bits,
+    return full_mode<uint16_t>(q8 != 0, dp != 0, rows, leaf, stats,
+                               amax_bits, compute_amax, accum, out, n, f, p,
+                               b, slot, target, group, width, st);
+  return full_mode<uint8_t>(q8 != 0, dp != 0, rows, leaf, stats, amax_bits,
                             compute_amax, accum, out, n, f, p, b, slot,
                             target, group, width, st);
 }
 
 // Gather form over idx[m] (entries outside [0, n) are padding; a null idx
 // is the implicit rung 0..m-1, the full form of a tile with several
-// computed slots), `q8` != 0 for the q8 mode, `wide` != 0 for 16-bit bins.
-// `rows` the bins row-major, n * `width` elements of the bin type (feature
+// computed slots), `q8` != 0 for the q8 mode, `wide` != 0 for 16-bit bins,
+// `dp` != 0 for the f64 mode. `rows` the bins row-major, n * `width` elements of the bin type (feature
 // f of row r at r * width + f); `slotmap`
 // l + p int32: each leaf's compact slot (-1: not computed), then each
 // slot's compact index (-1: none); `amax_bits` as hist_full_launch (f32
@@ -823,18 +849,19 @@ extern "C" int hist_full_launch(const void* rows, const void* leaf,
 // `counts` (2 * active int32),
 // `accum` (active * f * b * 3 int64 in f32 mode, int32 in q8) and, with
 // `compute_amax`, `amax_bits`; `payload` m * 8 (f32) or m * 2 (q8) words;
-// `out` p * f * b * 3 float32 (f32) or int32 (q8). `group` features share
-// an accumulate block; the scatter stages `tile` rung entries a block (a
-// multiple of 32).
+// `out` p * f * b * 3 float32 (f32), double (f64) or int32 (q8). `group`
+// features share an accumulate block; the scatter stages `tile` rung
+// entries a block (a multiple of 32).
 extern "C" int hist_gather_launch(const void* rows, const void* leaf,
                                   const void* stats, const void* slotmap,
                                   const void* idx, void* amax_bits,
                                   int compute_amax, void* scratch,
                                   long long scratch_bytes, void* counts,
                                   void* payload, void* accum, void* out,
-                                  int q8, int wide, int n, int f, int m,
-                                  int p, int b, int l, int active, int group,
-                                  int width, int tile, void* stream) {
+                                  int q8, int wide, int dp, int n, int f,
+                                  int m, int p, int b, int l, int active,
+                                  int group, int width, int tile,
+                                  void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaMemsetAsync(scratch, 0, (size_t)scratch_bytes, st);
   if (err != cudaSuccess) return (int)err;
@@ -842,11 +869,11 @@ extern "C" int hist_gather_launch(const void* rows, const void* leaf,
   int* cn = static_cast<int*>(counts);
   uint32_t* pl = static_cast<uint32_t*>(payload);
   if (wide)
-    return gather_mode<uint16_t>(q8 != 0, rows, leaf, stats, sm, idx,
-                                 amax_bits, compute_amax, cn, pl, accum, out,
-                                 n, f, m, p, b, l, active, group, width, tile,
-                                 st);
-  return gather_mode<uint8_t>(q8 != 0, rows, leaf, stats, sm, idx, amax_bits,
-                              compute_amax, cn, pl, accum, out, n, f, m, p, b,
-                              l, active, group, width, tile, st);
+    return gather_mode<uint16_t>(q8 != 0, dp != 0, rows, leaf, stats, sm,
+                                 idx, amax_bits, compute_amax, cn, pl, accum,
+                                 out, n, f, m, p, b, l, active, group, width,
+                                 tile, st);
+  return gather_mode<uint8_t>(q8 != 0, dp != 0, rows, leaf, stats, sm, idx,
+                              amax_bits, compute_amax, cn, pl, accum, out, n,
+                              f, m, p, b, l, active, group, width, tile, st);
 }

@@ -17,8 +17,12 @@ categorical node's bitset has as many words as its largest category
 needs; a model trained on a DataFrame with ``category`` columns ends with
 the ``pandas_categorical:`` line (the category lists as JSON, the
 reference python package's last line), which a loaded model reads back to
-code a DataFrame's categories as training did. Linear leaves wait for
-ROADMAP.md Queue 1 item 11.
+code a DataFrame's categories as training did. A linear tree
+(``is_linear=1``) carries each leaf's const, its original feature indices
+and coefficients (``leaf_const``, ``num_features``, ``leaf_features``,
+``leaf_coeff``, with the JAX package's spacing) and predicts const +
+coeff . x, a row with NaN or inf in one of its leaf's features taking the
+plain leaf value.
 """
 
 from __future__ import annotations
@@ -67,6 +71,10 @@ class ModelTree:
         self.internal_count = np.zeros(0, np.int64)
         self.cat_boundaries = np.zeros(1, np.int32)   # [num_cat + 1]
         self.cat_threshold = np.zeros(0, np.uint32)
+        self.is_linear = False
+        self.leaf_const = np.zeros(0, np.float64)
+        self.leaf_features: List[List[int]] = []
+        self.leaf_coeff: List[List[float]] = []
         self.shrinkage = 1.0
 
     @classmethod
@@ -115,6 +123,12 @@ class ModelTree:
         t.decision_type = dt
         t.cat_boundaries = np.asarray(cat_boundaries, np.int32)
         t.cat_threshold = np.asarray(cat_words, np.uint32)
+        if ht.is_linear:
+            t.is_linear = True
+            t.leaf_const = np.asarray(ht.leaf_const, np.float64)
+            t.leaf_coeff = [list(map(float, c)) for c in ht.leaf_coeff]
+            t.leaf_features = [list(map(int, fs))
+                               for fs in ht.leaf_features_raw]
         return t
 
     def to_string(self) -> str:
@@ -139,7 +153,18 @@ class ModelTree:
         if self.num_cat > 0:
             lines.append("cat_boundaries=" + _join(self.cat_boundaries))
             lines.append("cat_threshold=" + _join(self.cat_threshold))
-        lines += ["is_linear=0", f"shrinkage={_d2s(self.shrinkage)}"]
+        lines.append(f"is_linear={int(self.is_linear)}")
+        if self.is_linear:
+            lines.append("leaf_const=" + _join(self.leaf_const, _d2s))
+            lines.append("num_features=" + _join(
+                [len(f) for f in self.leaf_features]))
+            lines.append("leaf_features=" + " ".join(
+                (_join(f) + " ") if f else ""
+                for f in self.leaf_features).rstrip() + " ")
+            lines.append("leaf_coeff=" + " ".join(
+                (_join(c, _d2s) + " ") if c else ""
+                for c in self.leaf_coeff).rstrip() + " ")
+        lines.append(f"shrinkage={_d2s(self.shrinkage)}")
         return "\n".join(lines) + "\n\n"
 
     @classmethod
@@ -152,10 +177,6 @@ class ModelTree:
         t.num_leaves = int(kv["num_leaves"])
         if t.num_leaves < 1:
             raise ValueError(f"invalid num_leaves={t.num_leaves}")
-        if int(kv.get("is_linear", "0")):
-            raise NotImplementedError(
-                "linear-leaf trees are not ported to lightgbm_tpu_torch yet; "
-                "they arrive with ROADMAP.md Queue 1 item 11")
         t.num_cat = int(kv.get("num_cat", "0"))
         n = t.num_leaves - 1
 
@@ -190,6 +211,22 @@ class ModelTree:
                 raise ValueError("missing 'cat_threshold' section")
             t.cat_threshold = np.asarray(kv["cat_threshold"].split(),
                                          dtype=np.uint64).astype(np.uint32)
+        t.is_linear = bool(int(kv.get("is_linear", "0")))
+        if t.is_linear:
+            t.leaf_const = arr("leaf_const", np.float64, t.num_leaves)
+            nf = arr("num_features", np.int32, t.num_leaves)
+            feats = kv.get("leaf_features", "").split()
+            coefs = kv.get("leaf_coeff", "").split()
+            total = int(np.sum(nf))
+            if len(feats) < total or len(coefs) < total:
+                raise ValueError(
+                    f"'leaf_features'/'leaf_coeff' sections hold "
+                    f"{len(feats)}/{len(coefs)} values, expected {total}")
+            pos = 0
+            for c in nf:
+                t.leaf_features.append([int(x) for x in feats[pos:pos + c]])
+                t.leaf_coeff.append([float(x) for x in coefs[pos:pos + c]])
+                pos += c
         t.shrinkage = float(kv.get("shrinkage", "1"))
         return t
 
@@ -247,7 +284,26 @@ class ModelTree:
         return out
 
     def predict(self, X: np.ndarray) -> np.ndarray:
-        return self.leaf_value[self.leaf_index(X)]
+        leaf = self.leaf_index(X)
+        out = self.leaf_value[leaf]
+        if not self.is_linear:
+            return out
+        # linear leaves: const + sum(coeff * feature); a row with NaN or inf
+        # in one of its leaf's features takes the plain leaf value
+        # (linear_tree_learner.cpp:19-41)
+        lin = np.asarray(self.leaf_const)[leaf].copy()
+        ok = np.ones(len(leaf), dtype=bool)
+        for li in range(self.num_leaves):
+            rows = leaf == li
+            if not rows.any() or not self.leaf_features[li]:
+                continue
+            feats = np.asarray(self.leaf_features[li], np.int64)
+            coefs = np.asarray(self.leaf_coeff[li], np.float64)
+            vals = X[np.ix_(rows, feats)]
+            bad = np.isnan(vals).any(axis=1) | np.isinf(vals).any(axis=1)
+            lin[rows] += np.where(bad, 0.0, vals @ coefs)
+            ok[rows] &= ~bad
+        return np.where(ok, lin, out)
 
 
 # ===================================================================== dump

@@ -41,14 +41,27 @@ through them, in row chunks. The grower takes the fused split path unless
 ``_split_fusion_on`` finds a reason not to (categorical features, EFB
 bundles, forced splits, CEGB, extra_trees, by-node sampling, intermediate
 or advanced monotone constraints, a non-positive feature_contri, sparse
-device columns, ``split_fusion=off``), as the JAX package resolves it. ``quantized_grad``
-(or ``histogram_method=pallas_q8``) grows every tree in the q8 mode. The
+device columns, ``split_fusion=off``, f64 histograms), as the JAX package
+resolves it. ``quantized_grad`` (or ``histogram_method=pallas_q8``) grows
+every tree in the q8 mode; ``gpu_use_dp`` grows every tree on the classic
+path with float64 histograms and leaf state (always: the JAX package's
+x64 mode, which the port has no switch to leave). The
 JAX package's fused one-program iteration, K-block dispatch, compile
 cache, sentinels, flight recorder and OOM ladder wait for later ROADMAP
 items; its fused and unfused iterations give the same trees (its fused
 tweedie and gamma gradients excepted: XLA contracts their multiply-adds
 there), so the port runs the unfused one whatever ``fused_iteration``
 says.
+
+Linear leaves (``linear_tree``, ``linear_lambda``): after each tree grows,
+``_fit_linear_leaves`` fits every leaf's ridge model on the raw values of
+the numerical features on its branch, on the host in numpy as the JAX
+package does; the train score adds the per-row linear outputs, the valid
+scores take them from the raw features on the device
+(``_linear_valid_delta``), and prediction walks the model trees over raw
+features. Linear trees take the bagging mask, never the subset copy, and
+are refused with DART, RF, leaf-renewal objectives and a Dataset that did
+not keep its raw features.
 
 Per-row state (scores, gradients, leaf ids) lives on the run's device; the
 trees come back to the host once per tree (the grower keeps them there),
@@ -62,18 +75,39 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..basic import Dataset
+from ..basic import Dataset, _to_2d_float
+from ..binning import BIN_TYPE_NUMERICAL, K_ZERO_THRESHOLD
 from ..metrics import Metric, create_metric, default_metric_for_objective
 from ..objectives import ObjectiveFunction, create_objective
 from ..ops.histogram import resolve_method
 from ..ops.split import SplitParams
 from ..utils import log
+from ..utils.ordered import linear_row_sum
 from ..utils.random import bits, fold_in, prng_key, stable_argsort, uniform
 from .grower import CegbSpec, grow_tree
 from .tree import HostTree, TreeArrays, empty_tree, predict_leaf_bins
 
 
 _RAW_CHUNK = 65536      # rows a bundled model's raw predict densifies at once
+
+
+def _linear_valid_delta(leaf: torch.Tensor, leaf_value: torch.Tensor,
+                        const: torch.Tensor, W: torch.Tensor,
+                        used: torch.Tensor, raw: torch.Tensor) -> torch.Tensor:
+    """Linear-leaf tree output of valid rows on their device (the JAX
+    package's ``_linear_valid_delta``, ModelTree.predict's linear branch):
+    const + coeff . x in float32, a row with NaN/inf in any of its leaf's
+    linear features keeping the plain leaf value
+    (linear_tree_learner.cpp:19-41). The JAX package's one-hot ``HIGHEST``
+    products select a row of ``W`` and ``used`` exactly, so they are
+    gathers here; const + the row sum adds in XLA:CPU's order
+    (``linear_row_sum``)."""
+    finite = torch.isfinite(raw)
+    raw0 = torch.where(finite, raw, torch.zeros((), dtype=raw.dtype,
+                                                device=raw.device))
+    bad = ((used[leaf] > 0) & ~finite).any(1)
+    return torch.where(bad, leaf_value[leaf],
+                       linear_row_sum(const[leaf], W[leaf], raw0))
 
 
 def _shrink_tree(tree: TreeArrays, lr: float) -> TreeArrays:
@@ -109,6 +143,7 @@ class GBDT:
         self._metric_cache: Dict[Tuple[str, int], Optional[Metric]] = {}
         self._rows_streamed = 0.0
         self._hist_counters: Dict[str, float] = {}
+        self._valid_raw_cache: Dict[int, torch.Tensor] = {}
         if train_set is not None:
             self._init_train(train_set)
 
@@ -117,10 +152,19 @@ class GBDT:
         train_set.construct()
         cfg = self.config
         self.device = train_set.device
+        if cfg.linear_tree and self.name in ("dart", "rf"):
+            log.fatal(f"linear_tree is not supported with boosting={self.name}")
+        if cfg.linear_tree and train_set.raw_data_np is None:
+            log.fatal("linear_tree requires the Dataset's raw data: construct "
+                      "the Dataset with linear_tree in its params (a Dataset "
+                      "constructed without it did not retain raw features)")
         if self.objective is None:
             self.objective = create_objective(cfg)
         self.objective.init(train_set.get_label(), train_set.get_weight(),
                             train_set.get_group(), device=self.device)
+        if cfg.linear_tree and self.objective.need_renew_tree_output:
+            log.fatal(f"objective {cfg.objective} is not supported with "
+                      f"linear_tree")
         self.num_tree_per_iteration = k = \
             self.objective.num_model_per_iteration
         n = train_set.num_data
@@ -329,13 +373,14 @@ class GBDT:
         """"off", "mask" or "subset" (gbdt.cpp:810-818's compact-copy rule
         as the JAX package words it: a plain fraction <= 0.5 copies the
         in-bag rows, unless sparse device columns hold rows by their
-        original ids)."""
+        original ids or linear leaves fit on all rows)."""
         cfg = self.config
         if not self._need_bagging or cfg.bagging_freq <= 0:
             return "off"
         use_subset = (cfg.bagging_fraction <= 0.5
                       and cfg.pos_bagging_fraction >= 1.0
                       and cfg.neg_bagging_fraction >= 1.0
+                      and not cfg.linear_tree
                       and not self.train_set.has_sparse_cols)
         return "subset" if use_subset else "mask"
 
@@ -377,7 +422,9 @@ class GBDT:
             self._bag_sub = (sub_idx, ts.binsT[:, sub_idx].contiguous())
             self._bag_mask = None
             return
-        u = uniform(key, (n,), device=self.device)
+        # gpu_use_dp is the JAX package's x64 mode, whose draws are float64
+        u = uniform(key, (n,), device=self.device,
+                    dtype=torch.float64 if cfg.gpu_use_dp else torch.float32)
         self._bag_mask = (u < self._bagging_fraction()).to(torch.float32)
 
     def _feature_mask(self) -> Optional[np.ndarray]:
@@ -432,16 +479,17 @@ class GBDT:
             bynode_fraction=(cfg.feature_fraction_bynode
                              if self._use_bynode else None),
             bundle=ts.bundle_meta, cegb=self._cegb,
-            forced=self._forced_splits)
+            forced=self._forced_splits, hist_dp=cfg.gpu_use_dp)
 
     def _split_fusion_on(self) -> bool:
         """Resolve ``split_fusion`` as the JAX package does: "auto" fuses
         the split search into the tile passes unless the classic search
         has to run -- categorical features, EFB bundles, forced splits,
         CEGB, extra_trees, by-node sampling, intermediate or advanced
-        monotone constraints, a non-positive feature_contri or sparse
-        device columns (the reasons the port has, in the JAX package's
-        order); "on" raises with any; "off" never fuses. Basic monotone constraints, interaction constraints
+        monotone constraints, a non-positive feature_contri, f64 histograms
+        (``gpu_use_dp``) or sparse device columns (the reasons the port
+        has, in the JAX package's order); "on" raises with any; "off" never
+        fuses. Basic monotone constraints, interaction constraints
         and a positive feature_contri stay fused."""
         cfg = self.config
         mode = cfg.split_fusion
@@ -468,6 +516,8 @@ class GBDT:
             # within-feature pick, which commutes with it only when it is
             # positive
             reasons.append("non-positive feature_contri")
+        if cfg.gpu_use_dp:
+            reasons.append("f64 histograms")
         if ts.has_sparse_cols:
             reasons.append("sparse device columns")
         if mode == "on" and reasons:
@@ -500,9 +550,13 @@ class GBDT:
             tree, leaf_id, streamed = self._grow_one(gc, hc, mask, fmask,
                                                      iter_key)
             self._rows_streamed += streamed
+            lin = None
+            if self.config.linear_tree:
+                lin = self._fit_linear_leaves(tree, leaf_id, gc, hc, mask,
+                                              len(self.trees) < k)
             tree, had_split = self._finalize_tree(tree, leaf_id, c)
             no_split = no_split and not had_split
-            self._add_tree(tree, leaf_id, c)
+            self._add_tree(tree, leaf_id, c, lin)
             self._bias_after_score(c, had_split)
         self.iter += 1
         return no_split
@@ -543,20 +597,163 @@ class GBDT:
         return score
 
     def _add_tree(self, tree: TreeArrays, leaf_id: torch.Tensor,
-                  class_idx: int) -> None:
+                  class_idx: int, linear: Optional[dict] = None) -> None:
         """Score updates: train through the grower's leaf ids, valid sets
-        through a traversal of their bin matrices."""
-        lv = tree.leaf_value.to(self.device)
-        self.train_score = self._class_add(self.train_score, class_idx,
-                                           lv[leaf_id.long()])
+        through a traversal of their bin matrices. ``linear``
+        (``_fit_linear_leaves``): the train delta is its per-row linear
+        output times the learning rate (numpy float32, as the JAX package
+        scales it), the host tree takes the const and coeff tables times
+        the learning rate, and the valid sets add their linear outputs
+        (reference: Tree::AddPredictionToScore's linear branch)."""
+        lr = self.shrinkage_rate
+        if linear is not None:
+            delta = torch.from_numpy(linear["train_delta"] * lr).to(
+                self.device)
+        else:
+            delta = tree.leaf_value.to(self.device)[leaf_id.long()]
+        self.train_score = self._class_add(self.train_score, class_idx, delta)
         self.trees.append(tree)
         self.host_trees.append(self._make_host_tree(tree))
+        lin_tables = None
+        if linear is not None:
+            ht = self.host_trees[-1]
+            ht.is_linear = True
+            ht.leaf_const = linear["const"] * lr
+            ht.leaf_coeff = [[c * lr for c in cs] for cs in linear["coeff"]]
+            ht.leaf_features_raw = linear["features"]
+            if self.valid_sets:
+                lin_tables = self._linear_tables(ht)
         for i, vs in enumerate(self.valid_sets):
             leaf = predict_leaf_bins(tree, vs.traversal_binsT(),
                                      vs.missing_bin.to(vs.device))
+            if lin_tables is None:
+                vdelta = tree.leaf_value.to(vs.device)[leaf]
+            else:
+                raw = self._valid_raw_cache.get(i)
+                if raw is None:
+                    raw = torch.from_numpy(vs.raw_data_np).to(vs.device)
+                    self._valid_raw_cache[i] = raw
+                vdelta = _linear_valid_delta(
+                    leaf, *(t.to(vs.device) for t in lin_tables), raw)
             self._valid_scores[i] = self._class_add(
-                self._valid_scores[i], class_idx,
-                tree.leaf_value.to(vs.device)[leaf])
+                self._valid_scores[i], class_idx, vdelta)
+
+    def _linear_tables(self, ht: HostTree) -> Tuple[torch.Tensor, ...]:
+        """The device tables of a linear tree's valid scoring, padded to
+        ``num_leaves`` leaves: leaf values, consts [L] and the dense
+        coefficients and used-feature mask [L, F_total], float32."""
+        if any(vs.raw_data_np is None for vs in self.valid_sets):
+            log.fatal("linear_tree scores a valid set from its raw features: "
+                      "construct it with reference=<train Dataset>")
+        L = self.config.num_leaves
+        nl = len(ht.leaf_value)
+        ftot = self.train_set.num_total_features
+        W = np.zeros((L, ftot), np.float32)
+        used = np.zeros((L, ftot), np.float32)
+        for li, (feats, coefs) in enumerate(zip(ht.leaf_features_raw,
+                                                ht.leaf_coeff)):
+            for fj, cj in zip(feats, coefs):
+                W[li, int(fj)] = np.float32(cj)
+                used[li, int(fj)] = 1.0
+        lv = np.zeros((L,), np.float32)
+        lv[:nl] = np.asarray(ht.leaf_value, np.float32)
+        lc = np.zeros((L,), np.float32)
+        lc[:nl] = np.asarray(ht.leaf_const, np.float32)
+        return tuple(torch.from_numpy(a) for a in (lv, lc, W, used))
+
+    def _fit_linear_leaves(self, tree: TreeArrays, leaf_id: torch.Tensor,
+                           grad: torch.Tensor, hess: torch.Tensor,
+                           mask: Optional[torch.Tensor],
+                           first_tree: bool) -> dict:
+        """Fit a linear model per leaf on the raw values of its branch's
+        numerical features, on the host (the JAX package's
+        ``_fit_linear_leaves``; reference: linear_tree_learner.cpp:173-380
+        CalculateLinear): coefficients -(X^T H X + lambda)^-1 X^T g (Eq. 3
+        of arXiv:1802.05640) over the leaf's in-bag rows with no NaN or inf
+        in those features, ``np.linalg.solve`` or, for a singular system,
+        ``pinv``; coefficients with |c| <= kZeroThreshold dropped. A leaf
+        with fewer such rows than features + 1 keeps its plain output, and
+        the first tree of a model keeps every leaf plain. Returns the
+        pre-shrinkage const and coeff tables, each leaf's original feature
+        indices and the per-row train deltas (float32)."""
+        ts = self.train_set
+        raw = ts.raw_data_np
+        ht = self._make_host_tree(tree)
+        L = ht.num_leaves
+        leaf_np = leaf_id.cpu().numpy()
+        g = grad.cpu().numpy().astype(np.float64)
+        h = hess.cpu().numpy().astype(np.float64)
+        m = (np.ones(leaf_np.shape, bool) if mask is None
+             else mask.cpu().numpy() > 0)
+        lam = self.config.linear_lambda
+
+        # the branch features of each leaf: the sorted distinct numerical
+        # original features on its path (linear_tree_learner.cpp:195-225)
+        leaf_feats: List[List[int]] = [[] for _ in range(L)]
+        if L > 1:
+            stack = [(0, [])]
+            while stack:
+                node, path = stack.pop()
+                orig = int(ht.feature_indices[int(ht.split_feature[node])])
+                is_num = ts.mappers[orig].bin_type == BIN_TYPE_NUMERICAL
+                npath = path + ([orig] if is_num else [])
+                for child in (int(ht.left_child[node]),
+                              int(ht.right_child[node])):
+                    if child >= 0:
+                        stack.append((child, npath))
+                    else:
+                        leaf_feats[~child] = sorted(set(npath))
+
+        leaf_value = np.asarray(ht.leaf_value[:L], np.float64)
+        consts = leaf_value.copy()
+        coeffs: List[List[float]] = [[] for _ in range(L)]
+        features: List[List[int]] = [[] for _ in range(L)]
+        train_delta = leaf_value[leaf_np]
+        if not first_tree:
+            # each leaf's rows in row order, as the JAX package's boolean
+            # masks give them (a stable sort by leaf), so every array the
+            # fit reads holds the same values in the same order; one sort
+            # instead of a mask over all N rows a leaf
+            order = np.argsort(leaf_np, kind="stable")
+            bounds = np.searchsorted(leaf_np[order], np.arange(L + 1))
+            for leaf in range(L):
+                feats = leaf_feats[leaf]
+                if not feats:
+                    continue
+                all_rows = order[bounds[leaf]:bounds[leaf + 1]]
+                rows = all_rows[m[all_rows]]
+                Xl = raw[rows][:, feats].astype(np.float64)
+                okr = ~np.isnan(Xl).any(axis=1) & ~np.isinf(Xl).any(axis=1)
+                if okr.sum() < len(feats) + 1:
+                    continue            # the plain leaf output stays const
+                Xl = Xl[okr]
+                gl = g[rows][okr]
+                hl = h[rows][okr]
+                X1 = np.concatenate([Xl, np.ones((len(Xl), 1))], axis=1)
+                A = X1.T @ (X1 * hl[:, None])
+                A[np.arange(len(feats)), np.arange(len(feats))] += lam
+                b = X1.T @ gl
+                try:
+                    sol = -np.linalg.solve(A, b)
+                except np.linalg.LinAlgError:
+                    sol = -(np.linalg.pinv(A) @ b)
+                keep = [i for i in range(len(feats))
+                        if abs(sol[i]) > K_ZERO_THRESHOLD]
+                features[leaf] = [feats[i] for i in keep]
+                coeffs[leaf] = [float(sol[i]) for i in keep]
+                consts[leaf] = float(sol[-1])
+                # every row of the leaf, bagged out or not; a row with NaN
+                # or inf in a kept feature keeps the plain leaf output
+                if features[leaf]:
+                    Xa = raw[all_rows][:, features[leaf]].astype(np.float64)
+                    bad = np.isnan(Xa).any(axis=1) | np.isinf(Xa).any(axis=1)
+                    pred = consts[leaf] + Xa @ np.asarray(coeffs[leaf])
+                else:
+                    bad = np.zeros(len(all_rows), bool)
+                    pred = consts[leaf]
+                train_delta[all_rows] = np.where(bad, leaf_value[leaf], pred)
+        return {"const": consts, "coeff": coeffs, "features": features,
+                "train_delta": train_delta.astype(np.float32)}
 
     def _bias_after_score(self, class_idx: int, had_split: bool) -> None:
         """Fold the boost-from-average init score into the class's first
@@ -577,7 +774,15 @@ class GBDT:
             lv[0] = bias
             tree = tree._replace(leaf_value=lv)
         self.trees[-1] = tree
-        self.host_trees[-1] = self._make_host_tree(tree)
+        old_ht = self.host_trees[-1]
+        new_ht = self._make_host_tree(tree)
+        if old_ht.is_linear:
+            # AddBias reaches leaf_const too (tree.h:212-231)
+            new_ht.is_linear = True
+            new_ht.leaf_const = old_ht.leaf_const + bias
+            new_ht.leaf_coeff = old_ht.leaf_coeff
+            new_ht.leaf_features_raw = old_ht.leaf_features_raw
+        self.host_trees[-1] = new_ht
         self.tree_bias.append(bias)
 
     def _make_host_tree(self, tree: TreeArrays) -> HostTree:
@@ -684,11 +889,14 @@ class GBDT:
         trained on EFB bundles predicts from the raw features through its
         model trees (new rows need not keep the training rows'
         exclusivity, and the reference predicts from real thresholds too),
-        in chunks of ``_RAW_CHUNK`` rows, densifying one chunk at a time."""
+        in chunks of ``_RAW_CHUNK`` rows, densifying one chunk at a time. A linear model (``linear_tree``)
+        predicts through its model trees too: its leaves read raw
+        features, and a NaN in a leaf's linear feature takes the plain
+        leaf output."""
         ts = self.train_set
         k = self.num_tree_per_iteration
         start, end = self._iter_range(num_iteration, start_iteration)
-        if ts.bundles is not None:
+        if ts.bundles is not None or self.config.linear_tree:
             out = self._predict_model_trees(X, start, end)
         else:
             out = self._traverse(ts.bin_new_data(X), start, end)
@@ -750,13 +958,23 @@ class GBDT:
         init scores (or the set's ``init_score``) plus every tree, traversed
         over the full-width bins (``Dataset.traversal_binsT``: a
         sparse-stored set's stream columns rebuilt; a bundled set's bundle
-        columns, which the trees' segments read)."""
+        columns, which the trees' segments read). A linear model predicts
+        from the set's raw features."""
         ds.construct()
         ts = self.train_set
         if ds is not ts and ds.reference is not ts \
                 and ds.mappers is not ts.mappers:
             log.fatal("eval dataset was not binned against the training "
                       "set; construct it with reference=<train Dataset>")
+        if self.config.linear_tree:
+            # linear leaves need raw features
+            raw = ds.raw_data_np
+            if raw is None and ds.data is not None:
+                raw = _to_2d_float(ds._pandas_to_codes(ds.data))
+            if raw is None:
+                log.fatal("eval with linear trees needs raw features "
+                          "(construct the Dataset with free_raw_data=False)")
+            return self.predict_raw(raw)
         k = self.num_tree_per_iteration
         n = ds.num_data
         base = np.broadcast_to(np.asarray(self.init_scores, np.float64),

@@ -82,6 +82,16 @@ and dequantize once per pass (in the epilogue on the fused path, after
 ``combine_sparse`` on the classic one), so the resident planes stay
 float32.
 
+``hist_dp`` (``gpu_use_dp``, the classic path only) makes the grower's
+one dtype attribute float64, as the JAX package's ``hist_dtype`` under
+x64: the stats go to the histogram passes as float32 and come back as
+float64 planes (the kernels' f64 mode), and the root sums, the resident
+planes, the leaf sums, counts and outputs and the monotone bounds are
+float64, host state included; the split search computes its gains in
+float64 and keeps them as float32, and the tree under growth stays
+float32. The random draws of by-node sampling and extra_trees are float64
+then too, as JAX's ``uniform`` is under x64.
+
 Equivalence to the reference's leaf-wise order, the dead-leaf guard
 (BeforeFindBestSplit) and the tie rules are the JAX package's; trees are
 bitwise equal to its ``grow_tree`` on the same inputs where the histograms
@@ -102,7 +112,7 @@ from ..ops.histogram import (compact_indices, epilogue_supported,
 from ..ops.split import (BundleMeta, FeatureMeta, SplitInfo, SplitParams,
                          calculate_leaf_output, candidates_to_splitinfo,
                          cat_words_for, find_best_splits)
-from ..utils.ordered import tree_sum
+from ..utils.ordered import fma_f32, tree_sum
 from ..utils.random import fold_in, prng_key, uniform
 from .tree import TreeArrays, empty_tree
 
@@ -292,15 +302,6 @@ def advanced_child_bounds(lo: torch.Tensor, hi: torch.Tensor,
     return tuple(_unkey(k) for k in (lmin, lmax, rmin, rmax))
 
 
-def fma_f32(a: torch.Tensor, b: torch.Tensor,
-            c: torch.Tensor) -> torch.Tensor:
-    """float32 ``a * b + c`` rounded once, as XLA:CPU contracts a multiply
-    feeding an add into one FMA (the product of two float32 values is
-    exact in float64)."""
-    return (a.to(torch.float64) * b.to(torch.float64)
-            + c.to(torch.float64)).to(torch.float32)
-
-
 @dataclass
 class CegbSpec:
     """CEGB's settings in used-feature space (``GBDT`` builds it): the
@@ -356,23 +357,23 @@ def _np(x: torch.Tensor) -> np.ndarray:
     return x.detach().cpu().numpy()
 
 
-def _fmax(a: np.float32, b: np.float32) -> np.float32:
-    """XLA's maximum of two float32 scalars (NaN propagates, +0 over
-    -0)."""
+def _fmax(a, b):
+    """XLA's maximum of two numpy float scalars of one dtype (NaN
+    propagates, +0 over -0)."""
     if a != a or b != b:
-        return np.float32(np.nan)
+        return type(a)(np.nan)
     if a == b:
-        return np.float32(a + b) if a == 0 else a
+        return type(a)(a + b) if a == 0 else a
     return a if a > b else b
 
 
-def _fmin(a: np.float32, b: np.float32) -> np.float32:
-    """XLA's minimum of two float32 scalars (NaN propagates, -0 over
-    +0)."""
+def _fmin(a, b):
+    """XLA's minimum of two numpy float scalars of one dtype (NaN
+    propagates, -0 over +0)."""
     if a != a or b != b:
-        return np.float32(np.nan)
+        return type(a)(np.nan)
     if a == b:
-        return np.float32(-((-a) + (-b))) if a == 0 else a
+        return type(a)(-((-a) + (-b))) if a == 0 else a
     return a if a < b else b
 
 
@@ -421,7 +422,8 @@ class Grower:
                  bynode_fraction: Optional[float] = None,
                  bundle: Optional[BundleMeta] = None,
                  cegb: Optional["CegbSpec"] = None,
-                 forced: Optional[tuple] = None):
+                 forced: Optional[tuple] = None,
+                 hist_dp: bool = False):
         assert tuple(sorted(compaction_ladder)) == tuple(compaction_ladder), \
             "compaction_ladder must be ascending"
         assert not (split_fusion and (with_categorical or sp is not None)), \
@@ -439,6 +441,11 @@ class Grower:
              "CEGB and forced splits take the classic path")
         assert subset is None or (sp is None and sample_mask is None), \
             "the bagging subset copy holds dense columns and no mask"
+        assert not (hist_dp and split_fusion), \
+            "f64 histograms take the classic path (the epilogue is float32)"
+        # the per-leaf state's dtype: float64 planes and sums with hist_dp
+        self.dtype = torch.float64 if hist_dp else torch.float32
+        self.np_dtype = np.float64 if hist_dp else np.float32
         self.binsT = binsT
         self.dev = binsT.device
         self.f_dense, self.n_all = binsT.shape
@@ -465,9 +472,11 @@ class Grower:
                         else np.asarray(interaction_groups, bool))
         self.extra_trees = extra_trees
         # by-node sampling keeps ceil(frac * F) features, computed in
-        # float32 as the JAX package computes it
+        # float32 as the JAX package computes it (in float64 under x64,
+        # which hist_dp stands for)
+        ft = self.np_dtype
         self.bynode_k = None if bynode_fraction is None else max(int(
-            np.ceil(np.float32(bynode_fraction) * np.float32(self.f))), 1)
+            np.ceil(ft(bynode_fraction) * ft(self.f))), 1)
         self.rng_key = prng_key(0) if rng_key is None else rng_key
         self.split_fusion = split_fusion
         self.with_categorical = with_categorical
@@ -496,6 +505,8 @@ class Grower:
         assert hist_method in (base, base + "_q8"), \
             f"histogram method {hist_method!r} on device {self.dev}"
         self.quant8 = hist_method.endswith("_q8")
+        assert not (self.quant8 and hist_dp), \
+            "q8 and f64 histograms are exclusive"
         self.q_scale = None
         # f32 mode: the stats' max|stat| per channel, which sets the
         # histogram kernel's fixed-point scale, taken once per tree
@@ -505,7 +516,7 @@ class Grower:
                 stats, self.rng_key)
         else:
             self.stats = stats
-            self.root = tree_sum(stats, 0).cpu()
+            self.root = tree_sum(stats.to(self.dtype), 0).cpu()
             self.amax = stats.abs().amax(0)
         self.iota = np.arange(self.L, dtype=np.int32)
         self.two_min_data = np.float32(2.0) * np.float32(
@@ -573,7 +584,7 @@ class Grower:
                                          root[2], torch.tensor(0.0))
 
         def zf():
-            return np.zeros((L,), dtype=np.float32)
+            return np.zeros((L,), dtype=self.np_dtype)
 
         zi = np.zeros((L,), dtype=np.int32)
         best = SplitInfo(
@@ -599,13 +610,13 @@ class Grower:
                                 device=self.dev),
             leaf_id_sub=(None if self.subset is None else torch.zeros(
                 (self.n,), dtype=torch.int32, device=self.dev)),
-            hist=torch.zeros((L, self.f, self.B, 3), dtype=torch.float32,
+            hist=torch.zeros((L, self.f, self.B, 3), dtype=self.dtype,
                              device=self.dev),
             hist_valid=np.zeros((L,), bool), leaf_dead=np.zeros((L,), bool),
             leaf_sum_g=sums[0], leaf_sum_h=sums[1], leaf_cnt=sums[2],
             leaf_output=sums[3], leaf_depth=zi.copy(),
-            leaf_min=np.full((L,), -F32_MAX, np.float32),
-            leaf_max=np.full((L,), F32_MAX, np.float32),
+            leaf_min=np.full((L,), -F32_MAX, self.np_dtype),
+            leaf_max=np.full((L,), F32_MAX, self.np_dtype),
             leaf_lo=boxes[0], leaf_hi=boxes[1],
             used_path=(None if self.igroups is None
                        else np.zeros((L, self.f), bool)),
@@ -646,8 +657,8 @@ class Grower:
             out = out & ((~viol)[:, :, None] & grp[None]).any(1)
         if self.bynode_k is not None:
             # the ceil(frac * F) lowest ranks of a uniform draw per leaf
-            u = uniform(fold_in(self._round_key(st), 1),
-                        (self.L, self.f)).numpy()
+            u = uniform(fold_in(self._round_key(st), 1), (self.L, self.f),
+                        dtype=self.dtype).numpy()
             rank = np.argsort(np.argsort(u, axis=1, kind="stable"), axis=1,
                               kind="stable")
             out = out & (rank < self.bynode_k)
@@ -662,7 +673,8 @@ class Grower:
         ``u * max(num_bins - 2, 1)`` truncated, as the JAX package draws
         it (feature_histogram.hpp USE_RAND)."""
         nbm = torch.clamp(self.meta.num_bins - 2, min=1).to(torch.float32)
-        u = uniform(fold_in(self._round_key(st), 2), (self.L, self.f))
+        u = uniform(fold_in(self._round_key(st), 2), (self.L, self.f),
+                    dtype=self.dtype)
         return (u * nbm[None, :]).to(torch.int32)
 
     def dead_guard(self, st: GrowState) -> None:
@@ -789,8 +801,8 @@ class Grower:
         rebuilt from per-slot totals -- the reference's most_freq elision
         + FixHistogram (sparse_bin.hpp ConstructHistogram; dataset.h:506).
         Returns the full [P, F, B, 3] tile with the dense planes at their
-        column ids: float32, or in q8 mode exact int32 sums of the int8
-        stats."""
+        column ids: in the grower's dtype, or in q8 mode exact int32 sums of
+        the int8 stats."""
         sp_cols, sp_rows, sp_bins, sp_default = self.sp
         n, B, f_sp = self.n, self.B, self.f_sp
         p = sel.shape[0]
@@ -801,7 +813,7 @@ class Grower:
         ok = sel >= 0
         slot_map[sel[ok]] = np.nonzero(ok)[0]
         slot = torch.as_tensor(slot_map).to(dev)[leaf_id[rclip].long()]
-        acc = torch.int32 if self.quant8 else torch.float32
+        acc = torch.int32 if self.quant8 else self.dtype
         st = torch.where(valid[..., None], self.stats[rclip].to(acc),
                          torch.zeros((), dtype=acc, device=dev))
         col = torch.arange(f_sp, device=dev)[:, None]
@@ -823,7 +835,7 @@ class Grower:
             totals = totals.index_add_(0, slot_all, self.stats.to(acc))[:p]
         else:
             eq = (leaf_id[:, None] == torch.as_tensor(sel).to(dev)[None, :])
-            totals = eq.to(torch.float32).T @ self.stats
+            totals = eq.to(acc).T @ self.stats.to(acc)
         others = tree_sum(sp_t, 2)                           # [P, F_sp, 3]
         defm = (torch.arange(B, device=dev)[None, :]
                 == sp_default.long()[:, None])               # [F_sp, B]
@@ -847,11 +859,12 @@ class Grower:
             tile = histogram_tiles(self.hist_binsT, self.stats,
                                    self.hist_leaf_id(st),
                                    torch.from_numpy(sel), self.B, self.L,
-                                   gather_idx, amax=self.amax)
+                                   gather_idx, amax=self.amax,
+                                   dtype=self.dtype)
         else:
             tile = torch.zeros((sel.shape[0], 0, self.B, 3),
                                dtype=torch.int32 if self.quant8
-                               else torch.float32, device=dev)
+                               else self.dtype, device=dev)
         if self.f_sp:
             tile = self.combine_sparse(tile, sel, st.leaf_id)
         if self.quant8:
@@ -902,7 +915,8 @@ class Grower:
             out = torch.from_numpy(st.leaf_output)
             lb, ub = intermediate_bounds(*boxes, out, act, self.meta.monotone,
                                          self.mono_features)
-            st.leaf_min, st.leaf_max = lb.numpy(), ub.numpy()
+            st.leaf_min = lb.numpy().astype(self.np_dtype)
+            st.leaf_max = ub.numpy().astype(self.np_dtype)
             if self.mono_advanced:
                 adv = advanced_child_bounds(
                     *(t.to(dev) for t in boxes), out.to(dev), act.to(dev),
@@ -951,7 +965,13 @@ class Grower:
             cnt = torch.zeros((L, self.f), dtype=torch.int32, device=dev)
             cnt.index_add_(0, st.leaf_id.long(), unused)
             tl = torch.from_numpy(t * c.lazy).to(dev)
-            delta = fma_f32(tl[None, :], cnt.to(torch.float32), delta)
+            if delta.dtype == torch.float64:
+                # f64 leaf counts: the float32 product is converted before
+                # the add, so nothing contracts
+                delta = delta + (tl[None, :] * cnt.to(torch.float32)).to(
+                    torch.float64)
+            else:
+                delta = fma_f32(tl[None, :], cnt.to(torch.float32), delta)
         return delta
 
     def _apply_split(self, st: GrowState, gain_eff: np.ndarray) -> None:
@@ -1029,10 +1049,11 @@ class Grower:
         """The basic mode's bounds (monotone_constraints.hpp:485-501): the
         children inherit the parent's [min, max]; a split on a monotone
         feature tightens them at the children's mid-point, the left child
-        keeping slot ``l``. The arithmetic is float32 with XLA's max and
-        min."""
+        keeping slot ``l``. The arithmetic is the grower's dtype with XLA's
+        max and min."""
         mono = 0 if is_cat else int(self.meta.monotone[feat])
-        mid = (np.float32(lo) + np.float32(ro)) / np.float32(2.0)
+        t = self.np_dtype
+        mid = (t(lo) + t(ro)) / t(2.0)
         pmin, pmax = st.leaf_min[l], st.leaf_max[l]
         st.leaf_min[l] = _fmax(pmin, mid) if mono < 0 else pmin
         st.leaf_max[l] = _fmin(pmax, mid) if mono > 0 else pmax
@@ -1168,7 +1189,8 @@ class Grower:
             out = torch.from_numpy(st.leaf_output)
             lb, ub = intermediate_bounds(*boxes, out, act, self.meta.monotone,
                                          self.mono_features)
-            st.leaf_min, st.leaf_max = lb.numpy(), ub.numpy()
+            st.leaf_min = lb.numpy().astype(self.np_dtype)
+            st.leaf_max = ub.numpy().astype(self.np_dtype)
             if self.mono_advanced:
                 adv = advanced_child_bounds(
                     *(t.to(dev) for t in boxes), out.to(dev), act.to(dev),
@@ -1249,7 +1271,8 @@ def grow_tree(binsT: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
               bynode_fraction: Optional[float] = None,
               bundle: Optional[BundleMeta] = None,
               cegb: Optional["CegbSpec"] = None,
-              forced: Optional[tuple] = None
+              forced: Optional[tuple] = None,
+              hist_dp: bool = False
               ) -> Tuple[TreeArrays, torch.Tensor, float]:
     """Grow one tree from per-row gradients/hessians. ``hist_method`` is
     ``ops/histogram.resolve_method``'s answer (empty: the f32 mode of the
@@ -1259,9 +1282,10 @@ def grow_tree(binsT: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
     passes); ``counters``, when given, gains the tree's ``rows_real``: the
     rows those passes added (a gather pass's tile rows, a full pass's N),
     beside which the rows read show the rungs' padding. ``sample_mask``,
-    ``subset``, ``feature_mask``, the constraint options and the data
-    layer's (``bundle``, ``cegb``, ``forced``) as ``Grower``'s; the leaf
-    ids cover all N rows either way."""
+    ``subset``, ``feature_mask``, the constraint options, the data
+    layer's (``bundle``, ``cegb``, ``forced``) and ``hist_dp`` (float64
+    histograms and per-leaf state) as ``Grower``'s; the leaf ids cover all
+    N rows either way."""
     g = Grower(binsT, grad, hess, meta, params, missing_bin,
                max_leaves=max_leaves, num_bins=num_bins, max_depth=max_depth,
                exact=exact, tile_leaves=tile_leaves,
@@ -1273,7 +1297,7 @@ def grow_tree(binsT: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
                feature_mask=feature_mask, mono_mode=mono_mode,
                interaction_groups=interaction_groups,
                extra_trees=extra_trees, bynode_fraction=bynode_fraction,
-               bundle=bundle, cegb=cegb, forced=forced)
+               bundle=bundle, cegb=cegb, forced=forced, hist_dp=hist_dp)
     st = g.init_state()
     k_forced = 0 if g.forced is None else len(g.forced[0])
     while g.outer_cond(st):

@@ -101,8 +101,10 @@ class RF(GBDT):
         score[:, class_idx] = (score[:, class_idx] * m + delta) / (m + 1.0)
         return score
 
-    def _add_tree(self, tree: TreeArrays, leaf_id, class_idx: int) -> None:
-        """Running-mean score update (rf.hpp:139-141)."""
+    def _add_tree(self, tree: TreeArrays, leaf_id, class_idx: int,
+                  linear=None) -> None:
+        """Running-mean score update (rf.hpp:139-141); ``linear`` is always
+        None (RF refuses linear trees)."""
         m = float(self.iter)
         delta = tree.leaf_value.to(self.device)[leaf_id.long()]
         self.train_score = self._mean_add(self.train_score, class_idx,

@@ -172,6 +172,12 @@ class HostTree:
         self.missing_type = (np.asarray(missing_types[:n]).astype(np.int8)
                              if missing_types is not None
                              else np.zeros(n, dtype=np.int8))
+        # linear leaves (GBDT._add_tree sets them): consts [L] float64,
+        # per-leaf coefficients and original feature indices
+        self.is_linear = False
+        self.leaf_const = None
+        self.leaf_coeff = None
+        self.leaf_features_raw = None
 
     def scaled(self, factor: float) -> "HostTree":
         """A copy with its outputs scaled (reference: Tree::Shrinkage,

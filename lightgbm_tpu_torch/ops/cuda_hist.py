@@ -22,14 +22,17 @@ Hopper that is two hand-written CUDA kernels (``csrc/``):
   deterministic, so two launches give the same bits. Two modes, chosen by
   the stats' dtype: f32 (float stats, 64-bit fixed-point sums, float32
   planes) and q8 (the quantized-gradient mode: int8 stats, exact int32
-  sums, int32 planes); and two bin widths, chosen by the bins' dtype:
+  sums, int32 planes); the f32 mode of the plane-only forms also writes
+  float64 planes (``dtype=torch.float64``, the f64 mode of ``gpu_use_dp``:
+  the same sums, rounded once to double); and two bin widths, chosen by
+  the bins' dtype:
   uint8 (up to 256 bins) and the wide mode (int16 bins, up to
   ``MAX_BINS_WIDE`` bins: the kernels hold one feature's [B, 3] plane in
   a block's shared memory). ``plane=True`` marks a launch of the classic
   path (the plane-only kernels 3-4). Each mode counts its own launches:
   ``launches``, ``gather_launches`` and ``launches_plane`` for f32 at
-  uint8 bins, each with ``_q8`` for q8 and with ``_wide`` (before
-  ``_q8``) for the wide mode;
+  uint8 bins, each with ``_q8`` for q8, ``_dp`` for the f64 mode and with
+  ``_wide`` (before ``_q8`` / ``_dp``) for the wide mode;
 - ``split_epilogue`` (``csrc/split_epilogue.cu``): in q8 mode the int32
   tile dequantized by ``q_scale`` first, then the derived slots' planes as
   parent - computed sibling, then the numerical split scan (``ops/split.py
@@ -244,11 +247,11 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
     if name == "hist_tile":
         lib.hist_full_launch.argtypes = ([vp] * 4 + [ci, vp,
                                                      ctypes.c_longlong]
-                                         + [vp] * 2 + [ci] * 10 + [vp])
+                                         + [vp] * 2 + [ci] * 11 + [vp])
         lib.hist_full_launch.restype = ci
         lib.hist_gather_launch.argtypes = ([vp] * 6 + [ci, vp,
                                                        ctypes.c_longlong]
-                                           + [vp] * 4 + [ci] * 12 + [vp])
+                                           + [vp] * 4 + [ci] * 13 + [vp])
         lib.hist_gather_launch.restype = ci
     elif name == "split_epilogue":
         lib.split_epilogue_launch.argtypes = [vp] * 9 + [ci] * 4 + [vp]
@@ -324,14 +327,16 @@ def _tile_cells(binsT, leaf_ids, chan, num_slots, num_bins, num_leaves, idx):
 def hist_tile_plain(binsT: torch.Tensor, leaf_ids: torch.Tensor,
                     stats: torch.Tensor, chan: torch.Tensor, num_slots: int,
                     num_bins: int, num_leaves: int,
-                    idx: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    idx: Optional[torch.Tensor] = None,
+                    dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Plain version of ``hist_tile``: one flat ``index_add_`` over the kept
-    rows in row order. f32 mode: float32 sums, on the CPU bitwise equal to
-    the JAX package's ``histogram_scatter`` / scatter-method tile, and the
-    CPU path's histogram; q8 mode (int8 ``stats``): int32 sums, exact and
-    order-free. Returns [P, F, B, 3] f32, or int32 in q8 mode."""
+    rows in row order. f32 mode: sums in ``dtype`` (float32, or float64 in
+    the f64 mode), on the CPU bitwise equal to the JAX package's
+    ``histogram_scatter`` / scatter-method tile at that dtype, and the CPU
+    path's histogram; q8 mode (int8 ``stats``): int32 sums, exact and
+    order-free. Returns [P, F, B, 3] in ``dtype``, or int32 in q8 mode."""
     f = binsT.shape[0]
-    acc = torch.int32 if stats.dtype == torch.int8 else torch.float32
+    acc = torch.int32 if stats.dtype == torch.int8 else dtype
     rows, cells = _tile_cells(binsT, leaf_ids, chan, num_slots, num_bins,
                               num_leaves, idx)
     contrib = stats[rows].to(acc)[:, None, :].expand(
@@ -364,12 +369,13 @@ def _to_fixed(stats_rows: torch.Tensor, amax: torch.Tensor, rows: int):
     return fixed, k, finite
 
 
-def _from_fixed(acc: torch.Tensor, k: torch.Tensor,
-                finite: torch.Tensor) -> torch.Tensor:
-    """int64 fixed-point sums [..., 3] -> float32, one rounding; a channel
-    with a non-finite stat is NaN."""
+def _from_fixed(acc: torch.Tensor, k: torch.Tensor, finite: torch.Tensor,
+                dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """int64 fixed-point sums [..., 3] -> ``dtype``: float32 (the integer
+    rounded to double, then to float32, as the kernel's convert), or
+    float64 (one rounding); a channel with a non-finite stat is NaN."""
     one = torch.ones((_STATS,), dtype=torch.float64, device=acc.device)
-    out = (acc.to(torch.float64) * torch.ldexp(one, -k)).to(torch.float32)
+    out = (acc.to(torch.float64) * torch.ldexp(one, -k)).to(dtype)
     return torch.where(finite, out, torch.full_like(out, float("nan")))
 
 
@@ -382,12 +388,14 @@ def hist_tile_exact(binsT: torch.Tensor, leaf_ids: torch.Tensor,
                     stats: torch.Tensor, chan: torch.Tensor, num_slots: int,
                     num_bins: int, num_leaves: int,
                     idx: Optional[torch.Tensor] = None,
-                    amax: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    amax: Optional[torch.Tensor] = None,
+                    dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """``hist_tile``'s own arithmetic in plain PyTorch: each stat scaled by
     2^k and rounded to a 64-bit integer, integer sums (order-free), one
-    conversion back to float32 -- bitwise the kernel's planes on any stats
-    (a non-finite stat makes its channel NaN). ``amax`` as ``hist_tile``'s.
-    Returns [P, F, B, 3] f32."""
+    conversion back to ``dtype`` (float32, or float64 in the f64 mode) --
+    bitwise the kernel's planes on any stats (a non-finite stat makes its
+    channel NaN). ``amax`` as ``hist_tile``'s. Returns [P, F, B, 3] in
+    ``dtype``."""
     f, n = binsT.shape
     m = n if idx is None else idx.shape[0]
     rows, cells = _tile_cells(binsT, leaf_ids, chan, num_slots, num_bins,
@@ -399,8 +407,8 @@ def hist_tile_exact(binsT: torch.Tensor, leaf_ids: torch.Tensor,
     acc = torch.zeros((num_slots * f * num_bins, _STATS), dtype=torch.int64,
                       device=binsT.device)
     acc.index_add_(0, cells.reshape(-1), contrib)
-    return _from_fixed(acc, k, finite).reshape(num_slots, f, num_bins,
-                                               _STATS)
+    return _from_fixed(acc, k, finite, dtype).reshape(num_slots, f,
+                                                      num_bins, _STATS)
 
 
 def gather_partition_plain(leaf_ids: torch.Tensor, chan: torch.Tensor,
@@ -440,16 +448,17 @@ def gather_accumulate_plain(binsT: torch.Tensor, stats: torch.Tensor,
                             offsets: torch.Tensor, rows: torch.Tensor,
                             chan: torch.Tensor, num_slots: int,
                             num_bins: int, num_leaves: int, m: int,
-                            amax: Optional[torch.Tensor] = None
+                            amax: Optional[torch.Tensor] = None,
+                            dtype: torch.dtype = torch.float32
                             ) -> torch.Tensor:
     """Plain version of the gather form's accumulation
     (``gather_accumulate`` + the convert) over a partition
     (``gather_partition_plain``'s offsets and slot-grouped rows) of a rung
     of ``m`` entries. f32 mode: the kernel's fixed-point sums (scale 2^k
-    from ``amax``, by default max|stat| over all N rows, and m), bitwise
-    ``hist_tile_exact``; q8 mode (int8 stats): exact int32 sums. Slots
-    that compute nothing come out zero. Returns [P, F, B, 3] f32, or int32
-    in q8 mode."""
+    from ``amax``, by default max|stat| over all N rows, and m, converted
+    to ``dtype``), bitwise ``hist_tile_exact``; q8 mode (int8 stats):
+    exact int32 sums. Slots that compute nothing come out zero. Returns
+    [P, F, B, 3] in ``dtype``, or int32 in q8 mode."""
     f = binsT.shape[0]
     dev = binsT.device
     q8 = stats.dtype == torch.int8
@@ -470,7 +479,7 @@ def gather_accumulate_plain(binsT: torch.Tensor, stats: torch.Tensor,
         rows.shape[0], f, _STATS).reshape(-1, _STATS))
     planes = acc.reshape(active, f, num_bins, _STATS)
     if not q8:
-        planes = _from_fixed(planes, k, finite)
+        planes = _from_fixed(planes, k, finite, dtype)
     out = torch.zeros((num_slots, f, num_bins, _STATS), dtype=planes.dtype,
                       device=dev)
     on = torch.as_tensor(comp >= 0, device=dev)
@@ -498,7 +507,8 @@ def full_accumulate_plain(binsT: torch.Tensor, leaf_ids: torch.Tensor,
                           stats: torch.Tensor, chan: torch.Tensor,
                           num_slots: int, num_bins: int, num_leaves: int,
                           amax: Optional[torch.Tensor] = None,
-                          blocks: int = 3) -> torch.Tensor:
+                          blocks: int = 3,
+                          dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Plain version of ``hist_tile``'s full form (``idx=None``). One
     computed slot (the root pass): ``full_accumulate``'s decomposition --
     ``blocks`` row ranges of a multiple of 32 rows, each block's rows of the
@@ -507,11 +517,11 @@ def full_accumulate_plain(binsT: torch.Tensor, leaf_ids: torch.Tensor,
     keeps (the low word's carries added to the high word, both modulo 2^32)
     of the fixed-point values of ``hist_tile_exact`` (scale 2^k from
     ``amax``, by default max|stat| over all N rows, and N); the blocks'
-    cells added as int64 (the flush), one conversion (the convert):
-    bitwise ``hist_tile_exact``. Several computed slots: the gather form's
-    plain pipeline over all N rows. q8 mode (int8 stats): exact int32
-    sums. Slots that compute nothing come out zero. Returns [P, F, B, 3]
-    f32, or int32 in q8 mode."""
+    cells added as int64 (the flush), one conversion to ``dtype`` (the
+    convert): bitwise ``hist_tile_exact``. Several computed slots: the
+    gather form's plain pipeline over all N rows. q8 mode (int8 stats):
+    exact int32 sums. Slots that compute nothing come out zero. Returns
+    [P, F, B, 3] in ``dtype``, or int32 in q8 mode."""
     f, n = binsT.shape
     dev = binsT.device
     q8 = stats.dtype == torch.int8
@@ -521,9 +531,9 @@ def full_accumulate_plain(binsT: torch.Tensor, leaf_ids: torch.Tensor,
                                                num_leaves)
         return gather_accumulate_plain(binsT, stats, offsets, rows, chan,
                                        num_slots, num_bins, num_leaves, n,
-                                       amax)
+                                       amax, dtype)
     out = torch.zeros((num_slots, f, num_bins, _STATS),
-                      dtype=torch.int32 if q8 else torch.float32, device=dev)
+                      dtype=torch.int32 if q8 else dtype, device=dev)
     on = np.flatnonzero(comp == 0)
     if not on.size or n == 0 or f == 0:
         return out
@@ -554,7 +564,7 @@ def full_accumulate_plain(binsT: torch.Tensor, leaf_ids: torch.Tensor,
                 cell = hi_word * 2 ** 32 + (lo_sum & 0xFFFFFFFF)
             sums[g0 * num_bins:(g0 + gf) * num_bins] += cell
     planes = sums.reshape(f, num_bins, _STATS)
-    out[slot] = planes if q8 else _from_fixed(planes, k, finite)
+    out[slot] = planes if q8 else _from_fixed(planes, k, finite, dtype)
     return out
 
 
@@ -564,8 +574,8 @@ _cpu_sums = {"kernel": False}
 @contextlib.contextmanager
 def kernel_sums_on_cpu():
     """Within the block, ``hist_tile`` on a CPU tensor sums as the kernel
-    does (``hist_tile_exact``) instead of in the JAX package's float32
-    order, and ``ops/rank.lambdarank_grads`` adds in the kernel's partner
+    does (``hist_tile_exact``, in the f32 and the f64 mode) instead of in
+    the JAX package's float order, and ``ops/rank.lambdarank_grads`` adds in the kernel's partner
     order (``lambdarank_grads_exact``): a CPU run that reproduces a card
     run's bits."""
     old = _cpu_sums["kernel"]
@@ -658,7 +668,8 @@ def hist_tile(binsT: torch.Tensor, leaf_ids: torch.Tensor,
               num_bins: int, num_leaves: int,
               idx: Optional[torch.Tensor] = None,
               plane: bool = False,
-              amax: Optional[torch.Tensor] = None) -> torch.Tensor:
+              amax: Optional[torch.Tensor] = None,
+              dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """[P, F, B, 3] histogram planes of the computed slots (see the module
     docstring). ``binsT`` [F, N] uint8, ``leaf_ids`` [N] int32, ``stats``
     [N, 3] f32 (f32 mode; float32 planes) or int8 (q8 mode; int32 planes),
@@ -668,9 +679,17 @@ def hist_tile(binsT: torch.Tensor, leaf_ids: torch.Tensor,
     float32 max|stat| of each channel over all N rows, which sets the
     fixed-point scale; a caller that keeps the stats for several passes
     computes it once, and without it every launch computes it. int16
-    ``binsT`` selects the wide mode (up to ``MAX_BINS_WIDE`` bins)."""
+    ``binsT`` selects the wide mode (up to ``MAX_BINS_WIDE`` bins).
+    ``dtype`` torch.float64 selects the f64 mode (``gpu_use_dp``): float
+    stats, the same fixed-point sums converted once to float64 planes; a
+    plane-only launch only (the fused path's epilogue takes float32)."""
     q8 = stats.dtype == torch.int8
     wide = binsT.dtype == torch.int16
+    dp = dtype == torch.float64
+    _check(dtype in (torch.float32, torch.float64), f"hist_tile: planes are "
+           f"float32 or float64, not {dtype}")
+    _check(not dp or (plane and not q8), "hist_tile: the f64 mode is the "
+           "plane-only forms' (classic path) and takes float stats")
     _check(not q8 or binsT.shape[1] <= Q8_MAX_ROWS, f"hist_tile: q8 sums "
            f"overflow int32 beyond {Q8_MAX_ROWS} rows (got {binsT.shape[1]})")
     _check(amax is None or not q8, "hist_tile: amax sets the f32 mode's "
@@ -680,11 +699,11 @@ def hist_tile(binsT: torch.Tensor, leaf_ids: torch.Tensor,
             if idx is None:
                 return full_accumulate_plain(binsT, leaf_ids, stats, chan,
                                              num_slots, num_bins,
-                                             num_leaves, amax)
+                                             num_leaves, amax, dtype=dtype)
             return hist_tile_exact(binsT, leaf_ids, stats, chan, num_slots,
-                                   num_bins, num_leaves, idx, amax)
+                                   num_bins, num_leaves, idx, amax, dtype)
         return hist_tile_plain(binsT, leaf_ids, stats, chan, num_slots,
-                               num_bins, num_leaves, idx)
+                               num_bins, num_leaves, idx, dtype)
     _check(binsT.device.type == "cuda", f"hist_tile: no kernel for device "
            f"{binsT.device}")
     f, n = binsT.shape
@@ -719,19 +738,19 @@ def hist_tile(binsT: torch.Tensor, leaf_ids: torch.Tensor,
     active = int((comp_np >= 0).sum())
     m = n if idx is None else idx.shape[0]
     out = torch.empty((num_slots, f, num_bins, _STATS),
-                      dtype=torch.int32 if q8 else torch.float32, device=dev)
+                      dtype=torch.int32 if q8 else dtype, device=dev)
     if m == 0 or f == 0:
         return out.zero_()
     lib = _lib("hist_tile")
     stream = torch.cuda.current_stream(dev).cuda_stream
     if idx is None and active <= 1:
         err = _launch_full(lib, binsT, leaf_ids, stats, lanes, comp_np, amax,
-                           out, q8, n, f, num_slots, num_bins, stream)
+                           out, q8, dp, n, f, num_slots, num_bins, stream)
     else:
         err = _launch_gather(lib, binsT, leaf_ids, stats, lanes, comp_np,
-                             idx, amax, out, q8, n, f, m, num_slots,
+                             idx, amax, out, q8, dp, n, f, m, num_slots,
                              num_bins, num_leaves, active, stream)
-    sfx = ("_wide" if wide else "") + ("_q8" if q8 else "")
+    sfx = ("_wide" if wide else "") + ("_q8" if q8 else "_dp" if dp else "")
     _count(hist_tile, "launches" + sfx)
     if idx is not None:
         _count(hist_tile, "gather_launches" + sfx)
@@ -742,7 +761,7 @@ def hist_tile(binsT: torch.Tensor, leaf_ids: torch.Tensor,
 
 
 def _launch_full(lib, binsT, leaf_ids, stats, lanes, comp_np, amax, out,
-                 q8, n, f, p, b, stream) -> int:
+                 q8, dp, n, f, p, b, stream) -> int:
     """The full-row form of a tile with one computed slot: full_accumulate
     over the row-major bins, convert (csrc/hist_tile.cu); a tile with none
     launches the convert alone, which writes zeros. No slot table on the
@@ -761,12 +780,12 @@ def _launch_full(lib, binsT, leaf_ids, stats, lanes, comp_np, amax, out,
         _ptr(rows), _ptr(leaf_ids), _ptr(stats),
         None if q8 else (base + amax_off if amax is None else _ptr(amax)),
         int(amax is None and not q8), base, scratch.numel() * 8, base,
-        _ptr(out), int(q8), int(rows.dtype == torch.int16), n, f, p, b,
-        slot, target, group, width, stream)
+        _ptr(out), int(q8), int(rows.dtype == torch.int16), int(dp), n, f,
+        p, b, slot, target, group, width, stream)
 
 
 def _launch_gather(lib, binsT, leaf_ids, stats, lanes, comp_np, idx, amax,
-                   out, q8, n, f, m, p, b, l, active, stream) -> int:
+                   out, q8, dp, n, f, m, p, b, l, active, stream) -> int:
     """The gather form: partition the rung's rows into slot-grouped runs of
     (row, stats), accumulate them over the row-major bins, convert
     (csrc/hist_tile.cu); ``idx`` None is the full form of a tile with
@@ -796,8 +815,8 @@ def _launch_gather(lib, binsT, leaf_ids, stats, lanes, comp_np, idx, amax,
         None if q8 else (base + amax_off if amax is None else _ptr(amax)),
         int(amax is None and not q8), base, scratch.numel() * 8,
         base + cnt_off, _ptr(payload), base, _ptr(out), int(q8),
-        int(rows.dtype == torch.int16), n, f, m, p, b, l, active, group,
-        width, tile, stream)
+        int(rows.dtype == torch.int16), int(dp), n, f, m, p, b, l, active,
+        group, width, tile, stream)
 
 
 _COUNTERS: Dict[str, Tuple[str, ...]] = {}   # wrapper name -> counters
@@ -999,7 +1018,7 @@ def launch_counts() -> Dict[str, int]:
 
 
 register_counters(hist_tile, tuple(
-    c + w + q for w in ("", "_wide") for q in ("", "_q8")
+    c + w + q for w in ("", "_wide") for q in ("", "_q8", "_dp")
     for c in ("launches", "gather_launches", "launches_plane")))
 register_counters(split_epilogue, tuple(
     "launches" + w + m + q for w in ("", "_wide") for m in ("", "_mono")

@@ -5,7 +5,8 @@ The port of lightgbm_tpu's ``ops/histogram.py``. A tile pass builds the
 one data pass. Two entries:
 
 - ``histogram_tiles``: the planes alone (the classic split path, the JAX
-  package's plane-only Pallas kernels 3-4);
+  package's plane-only Pallas kernels 3-4), float32 or, for
+  ``gpu_use_dp``, float64;
 - ``histogram_tiles_with_candidates``: the planes, the derived siblings'
   planes and each (leaf, feature)'s best numerical candidate (the fused
   split path, kernels 1-2).
@@ -71,18 +72,22 @@ def histogram_tiles(binsT: torch.Tensor, stats: torch.Tensor,
                     num_leaves: int,
                     gather_idx: Optional[torch.Tensor] = None,
                     plane: bool = True,
-                    amax: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    amax: Optional[torch.Tensor] = None,
+                    dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """[P, F, B, 3] planes: slot p accumulates the rows whose leaf is
     ``sel[p]`` (< 0 = inactive slot, zero output); ``gather_idx`` restricts
     the pass to those rows (entries >= N are padding). Every slot is
     computed; no epilogue runs. ``sel`` may live on the host (its lane
     table is read there to size the launch). Float32 planes of float32
-    stats; exact int32 planes of int8 stats (q8). ``amax``: the float
-    stats' max|stat| per channel, when the caller has it (``hist_tile``)."""
+    stats, or with ``dtype=torch.float64`` float64 planes of them (the f64
+    mode of ``gpu_use_dp``: the kernel's f64 mode on CUDA, the float64
+    ``index_add_`` of the JAX package's f64 scatter on the CPU); exact
+    int32 planes of int8 stats (q8). ``amax``: the float stats' max|stat|
+    per channel, when the caller has it (``hist_tile``)."""
     chan = cuda_hist.chan_leaf_table(sel)
     return cuda_hist.hist_tile(binsT, leaf_ids, stats, chan, sel.shape[0],
                                num_bins, num_leaves, gather_idx, plane=plane,
-                               amax=amax)
+                               amax=amax, dtype=dtype)
 
 
 def epilogue_supported(p: int, s: int) -> bool:

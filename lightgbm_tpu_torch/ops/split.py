@@ -9,9 +9,11 @@ lexicographic argmax reproduces the reference's first-better-wins order
 ``numerical_candidates`` (the fused split epilogue's per-feature table) and
 ``find_best_splits`` (the classic search over the resident ``[L, F, B, 3]``
 planes, numerical and categorical). The arithmetic is the JAX package's,
-operation for operation, in float32, so candidate tables, ``SplitInfo``
-and categorical bitsets come out bit-identical on identical planes. Four
-details make that hold:
+operation for operation, in float32 -- or in float64 on the f64 planes of
+``gpu_use_dp``, where the JAX package's Python constants are float64
+(``_weak``) and only the gain is cast to float32 -- so candidate tables,
+``SplitInfo`` and categorical bitsets come out bit-identical on identical
+planes. Four details make that hold:
 
 - ``_round_fence`` is the identity here. The JAX package fences products
   before an add because XLA contracts a multiply feeding an add into one
@@ -172,8 +174,12 @@ def cat_words_for(num_bins: int) -> int:
     return max(1, -(-num_bins // 32))
 
 
-def _f32(v, like: torch.Tensor) -> torch.Tensor:
-    return torch.tensor(v, dtype=torch.float32, device=like.device)
+def _weak(v, like: torch.Tensor) -> torch.Tensor:
+    """The Python constant ``v`` as JAX's weakly typed scalar meets
+    ``like``: float64 beside float64 (the f64 planes of ``gpu_use_dp``),
+    else float32."""
+    dt = torch.float64 if like.dtype == torch.float64 else torch.float32
+    return torch.tensor(v, dtype=dt, device=like.device)
 
 
 def _sign(x: torch.Tensor) -> torch.Tensor:
@@ -228,8 +234,8 @@ def calculate_leaf_output(sum_g, sum_h, p: SplitParams, num_data,
     ret = torch.where((p.max_delta_step > 0)
                       & (torch.abs(ret) > p.max_delta_step),
                       _sign(ret) * p.max_delta_step, ret)
-    use_smooth = p.path_smooth > _f32(K_EPSILON, ret)
-    one = _f32(1.0, ret)
+    use_smooth = p.path_smooth > _weak(K_EPSILON, p.path_smooth)
+    one = _weak(1.0, ret)
     n_over_s = num_data / torch.where(use_smooth, p.path_smooth, one)
     smoothed = (_round_fence(ret * (n_over_s / (n_over_s + one)), p)
                 + parent_output / (n_over_s + one))
@@ -241,7 +247,7 @@ def leaf_gain_given_output(sum_g, sum_h, output, p: SplitParams,
     """reference: feature_histogram.hpp:846-856 GetLeafGainGivenOutput."""
     l2 = p.lambda_l2 if lambda_l2 is None else lambda_l2
     sg = threshold_l1(sum_g, p.lambda_l1)
-    return -(_round_fence(_f32(2.0, sg) * sg * output, p)
+    return -(_round_fence(_weak(2.0, sg) * sg * output, p)
              + _round_fence((sum_h + l2) * output * output, p))
 
 
@@ -259,7 +265,7 @@ def _leaf_gain_nosmooth(sum_g, sum_h, p: SplitParams, lambda_l2):
     out = torch.where((p.max_delta_step > 0)
                       & (torch.abs(out) > p.max_delta_step),
                       _sign(out) * p.max_delta_step, out)
-    return -(_round_fence(_f32(2.0, sg) * sg * out, p)
+    return -(_round_fence(_weak(2.0, sg) * sg * out, p)
              + _round_fence((sum_h + lambda_l2) * out * out, p))
 
 
@@ -288,7 +294,7 @@ def _directional_sums(hist_excl, leaf_sum_g, leaf_sum_h, leaf_cnt,
         csum_hi = torch.gather(csum, 2, hi.expand(csum.shape))
         fwd_left = csum - csum_lo
         rev_right = csum_hi - csum
-    eps = _f32(K_EPSILON, csum)
+    eps = _weak(K_EPSILON, csum)
     lt = dict(
         fwd_left_g=fwd_left[..., 0], fwd_left_h=fwd_left[..., 1] + eps,
         fwd_left_c=fwd_left[..., 2],
@@ -527,7 +533,7 @@ def monotone_split_penalty(leaf_depth, p: SplitParams) -> torch.Tensor:
     XLA:CPU computes it."""
     d = leaf_depth.to(torch.float32)
     pen = p.monotone_penalty.to(torch.float32)
-    eps = _f32(K_EPSILON, d)
+    eps = _weak(K_EPSILON, d)
     small = (1.0 - pen / exp2_f32(d)) + eps
     large = (1.0 - exp2_f32(pen - 1.0 - d)) + eps
     out = torch.where(pen <= 1.0, small, large)
@@ -576,9 +582,9 @@ def find_best_cat_splits(hist, leaf_sum_g, leaf_sum_h, leaf_cnt, leaf_output,
     in_range = (bins >= 1) & (bins < nb[:, :, None])
     G, H, C = leaf_sum_g[:, None], leaf_sum_h[:, None], leaf_cnt[:, None]
     parent_out = leaf_output[:, None, None]
-    eps = _f32(K_EPSILON, hist)
-    neg_inf = _f32(K_MIN_SCORE, hist)
-    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    eps = _weak(K_EPSILON, hist)
+    neg_inf = _weak(K_MIN_SCORE, hist)
+    zero = torch.zeros((), dtype=hist.dtype, device=dev)
 
     use_onehot = (meta.num_bins.to(torch.int32)
                   <= p.max_cat_to_onehot)[None, :]                 # [1, F]
@@ -655,7 +661,7 @@ def find_best_cat_splits(hist, leaf_sum_g, leaf_sum_h, leaf_cnt, leaf_output,
     scan_len = min(B, max(int(p.max_cat_threshold), 0))
 
     def group_scan(per_bin_cnt, eligible):
-        acc = torch.zeros(per_bin_cnt.shape[:2], dtype=torch.float32,
+        acc = torch.zeros(per_bin_cnt.shape[:2], dtype=hist.dtype,
                           device=dev)
         emits = torch.zeros_like(eligible)
         for i in range(scan_len):
@@ -745,8 +751,8 @@ def find_best_cat_splits(hist, leaf_sum_g, leaf_sum_h, leaf_cnt, leaf_output,
     shifts = torch.arange(32, dtype=torch.int64, device=dev)
     words = (mw.reshape(L, cat_words, 32) << shifts).sum(dim=2)
     l2_out = torch.where(use_onehot[0, bf], p.lambda_l2, l2_sorted)
-    return best_gain, bf.to(torch.int32), left_g, left_h, left_c, words, \
-        l2_out
+    return best_gain.to(torch.float32), bf.to(torch.int32), left_g, left_h, \
+        left_c, words, l2_out
 
 
 def find_best_splits(hist, leaf_sum_g, leaf_sum_h, leaf_cnt, leaf_output,
@@ -800,7 +806,7 @@ def find_best_splits(hist, leaf_sum_g, leaf_sum_h, leaf_cnt, leaf_output,
                 if max_depth <= 0 else (leaf_depth < max_depth))
     base_ok = fmask & depth_ok[:, None, None]
     contri = meta.penalty[None, :, None]
-    neg = _f32(K_MIN_SCORE, hist)
+    neg = _weak(K_MIN_SCORE, hist)
 
     def keyed(key):
         adj = key * contri
@@ -869,8 +875,8 @@ def find_best_splits(hist, leaf_sum_g, leaf_sum_h, leaf_cnt, leaf_output,
     else:
         seg_lo, seg_hi = none, none
     num = SplitInfo(
-        gain=best_gain, feature=bf.to(torch.int32), threshold=bt.to(
-            torch.int32),
+        gain=best_gain.to(torch.float32), feature=bf.to(torch.int32),
+        threshold=bt.to(torch.int32),
         default_left=(bdir == 0) & ~nan_single,
         left_sum_g=left_g, left_sum_h=left_h, left_count=left_c,
         right_sum_g=right_g, right_sum_h=right_h, right_count=right_c,

@@ -1,4 +1,4 @@
-"""Float32 reductions in the JAX package's summation order.
+"""Float reductions in the JAX package's summation order.
 
 A float sum depends on the order its terms are added in. The JAX package,
 run on the CPU (the reference the port is held to bit for bit), lets XLA
@@ -18,7 +18,10 @@ candidates come out with the same bits:
   (``jnp.cumsum`` over the bin axis in the split scan). The CUDA split
   epilogue scans in the same order.
 
-Both run as a handful of vectorised torch ops; the sequential parts loop
+A third, ``linear_row_sum``, is the row sum of products in the
+linear-leaf valid scores, where XLA contracts the products into the sum.
+
+They run as a handful of vectorised torch ops; the sequential parts loop
 over at most 32 (resp. 16) positions in Python.
 """
 
@@ -81,3 +84,34 @@ def _blocked_scan_last(x: torch.Tensor) -> torch.Tensor:
 def blocked_cumsum(x: torch.Tensor, dim: int) -> torch.Tensor:
     """Inclusive cumulative sum over ``dim`` in XLA's CPU scan order."""
     return _blocked_scan_last(x.movedim(dim, -1)).movedim(-1, dim)
+
+
+def fma_f32(a: torch.Tensor, b: torch.Tensor,
+            c: torch.Tensor) -> torch.Tensor:
+    """float32 ``a * b + c`` rounded once, as XLA:CPU contracts a multiply
+    feeding an add into one FMA (the product of two float32 values is
+    exact in float64)."""
+    return (a.to(torch.float64) * b.to(torch.float64)
+            + c.to(torch.float64)).to(torch.float32)
+
+
+def linear_row_sum(base: torch.Tensor, w: torch.Tensor,
+                   x: torch.Tensor) -> torch.Tensor:
+    """float32 ``base + sum(w * x, axis=1)`` over [N, F] rows as XLA:CPU
+    computes it inside one jitted program (the JAX package's linear-leaf
+    valid scores, jax 0.9.0): one column, one multiply-add contracted into
+    ``base``; 2 to 29 columns, each product contracted into a running sum
+    (one rounding a step) left to right from +0, then the add; past 32
+    columns, the products rounded on their own and ``tree_sum``'s order.
+    At 30 to 32 columns XLA's vectorised loop adds in an order not written
+    out here: those widths come within float32 rounding of it, not
+    bitwise (ROADMAP.md Queue 3)."""
+    f = w.shape[1]
+    if f == 1:
+        return fma_f32(w[:, 0], x[:, 0], base)
+    if f > _SUM_WINDOW:
+        return base + tree_sum(w * x, 1)
+    acc = torch.zeros(w.shape[:1], dtype=torch.float32, device=w.device)
+    for j in range(f):
+        acc = fma_f32(w[:, j], x[:, j], acc)
+    return base + acc

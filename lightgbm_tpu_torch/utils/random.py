@@ -13,7 +13,10 @@ defaults (the ``threefry2x32`` generator with
 - ``uniform(key, shape)``: float32 in [0, 1). Element i of the flattened
   shape hashes the counter pair ``(i >> 32, i mod 2^32)``; its 32 random
   bits are the XOR of the two output words, the top 23 become the
-  mantissa of a float in [1, 2), and 1 is subtracted;
+  mantissa of a float in [1, 2), and 1 is subtracted. With
+  ``dtype=torch.float64`` it is the draw JAX makes with x64 on (the
+  ``gpu_use_dp`` runs): 64 random bits, the first output word high and
+  the second low, whose top 52 become a double's mantissa;
 - ``bits(key, shape)``: ``jax.random.bits(key, shape, uint32)``, the same
   32 random bits of each element, whole (the bagging subset's and GOSS's
   draws).
@@ -75,22 +78,35 @@ def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
     return torch.cat([y1, y2])
 
 
-def _counter_bits(key: torch.Tensor, shape: Sequence[int],
-                  device: Device) -> torch.Tensor:
-    """The 32 random bits of each element of ``shape`` (int64 of uint32
-    values, flattened): the XOR of the two words threefry2x32 gives for
-    the element's counter pair."""
+def _counter_words(key: torch.Tensor, shape: Sequence[int],
+                   device: Device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The two words threefry2x32 gives for each element's counter pair
+    (int64 of uint32 values, flattened)."""
     k1, k2 = (int(v) for v in key.tolist())
     count = torch.arange(int(torch.Size(shape).numel()), dtype=torch.int64,
                          device=key.device if device is None else device)
-    y1, y2 = threefry2x32(k1, k2, count >> 32, count & _M32)
+    return threefry2x32(k1, k2, count >> 32, count & _M32)
+
+
+def _counter_bits(key: torch.Tensor, shape: Sequence[int],
+                  device: Device) -> torch.Tensor:
+    """The 32 random bits of each element of ``shape`` (int64 of uint32
+    values, flattened): the XOR of the two words."""
+    y1, y2 = _counter_words(key, shape, device)
     return y1 ^ y2
 
 
 def uniform(key: torch.Tensor, shape: Sequence[int],
-            device: Device = None) -> torch.Tensor:
+            device: Device = None,
+            dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """``jax.random.uniform(key, shape)``: float32 in [0, 1), on
-    ``device`` (default: the key's)."""
+    ``device`` (default: the key's); ``dtype=torch.float64``: the float64
+    draw of JAX with x64 on."""
+    if dtype == torch.float64:
+        y1, y2 = _counter_words(key, shape, device)
+        mant = (y1 << 20) | (y2 >> 12)          # the top 52 of 64 bits
+        return (mant | 0x3FF0000000000000).view(torch.float64).reshape(
+            tuple(shape)) - 1.0
     bits_ = (_counter_bits(key, shape, device) >> 9) | 0x3F800000
     return bits_.to(torch.int32).view(torch.float32).reshape(tuple(shape)) \
         - 1.0

@@ -55,8 +55,16 @@ random planes and the edge cases, bitwise its plain version and a second
 launch. The data layer (wide bins fused, q8 and classic, a 400-category
 feature, CSR with and without EFB, forced bins, max_bin_by_feature, forced
 splits, CEGB split, coupled and lazy): a card training's text twice the
-same and equal to the CPU's.
+same and equal to the CPU's. The precision modes: ``hist_tile``'s f64 mode
+(gpu_use_dp) at B = 255 and 1,023, the root pass, 42 slots and the gather
+form, bitwise ``hist_tile_exact`` at float64 and a second launch, rounded
+to float32 bitwise the f32 mode, within 1e-11 of a float64 sum's summed
+magnitudes; gpu_use_dp (numerical, categorical, sparse columns, bagging)
+and linear_tree (regression with NaNs, binary) trainings give the same
+text twice and the CPU's with the kernel's sums.
 """
+
+import contextlib
 
 import numpy as np
 import pytest
@@ -979,3 +987,110 @@ def test_data_layer_training_on_card_equals_cpu(dev, name, tmp_path):
                        and "_wide" not in c) == 0
     assert texts["cuda"] == texts["cuda_again"]
     assert texts["cuda"] == texts["cpu"]
+
+
+# ------------------------------------------------------ precision modes
+@pytest.mark.parametrize("b", [255, 1023])
+@pytest.mark.parametrize("form", ["root", "slots", "gather"])
+def test_hist_tile_dp_matches_exact(dev, form, b):
+    """The f64 mode of the plane-only forms (gpu_use_dp): bitwise
+    ``hist_tile_exact`` at float64 and a second launch, its planes rounded
+    to float32 bitwise the f32 mode's on the same inputs, within 1e-11 of
+    the summed magnitudes of a float64 sum, and counted as f64 launches."""
+    n, f = 200_003, 28
+    p = 1 if form == "root" else 42
+    leaves = p + 5
+    binsT, leaf, stats = (_hist_inputs(n, f, b, leaves, n + b, False)
+                          if b <= 256 else
+                          _wide_inputs(n, f, b, leaves, n + b, False))
+    sel = torch.arange(p, dtype=torch.int32)
+    chan = cuda_hist.chan_leaf_table(sel)
+    idx = None
+    if form == "gather":
+        keep = torch.nonzero(leaf < 9).reshape(-1)
+        idx = torch.cat([keep, torch.full((13,), n)]).to(torch.int32)
+    args = [t.to(dev) for t in (binsT, leaf, stats, chan)]
+    gidx = None if idx is None else idx.to(dev)
+    f64 = torch.float64
+    cuda_hist.reset_launch_counts()
+    k = cuda_hist.hist_tile(*args, p, b, leaves, gidx, plane=True, dtype=f64)
+    again = cuda_hist.hist_tile(*args, p, b, leaves, gidx, plane=True,
+                                dtype=f64)
+    k32 = cuda_hist.hist_tile(*args, p, b, leaves, gidx, plane=True)
+    counts = cuda_hist.launch_counts()
+    w = "_wide" if b > 256 else ""
+    assert counts[f"hist_tile.launches_plane{w}_dp"] == 2
+    assert counts[f"hist_tile.gather_launches{w}_dp"] == (
+        2 if form == "gather" else 0)
+    assert counts[f"hist_tile.launches_plane{w}"] == 1
+    exact = cuda_hist.hist_tile_exact(*args, p, b, leaves, gidx, dtype=f64)
+    plain = cuda_hist.hist_tile_plain(*args, p, b, leaves, gidx, dtype=f64)
+    mag = cuda_hist.hist_tile_plain(args[0], args[1], args[2].abs(), args[3],
+                                    p, b, leaves, gidx, dtype=f64)
+    torch.cuda.synchronize()
+    assert k.dtype == f64
+    assert torch.equal(k.view(torch.int64), exact.view(torch.int64))
+    assert torch.equal(k.view(torch.int64), again.view(torch.int64))
+    assert torch.equal(k.to(torch.float32).view(torch.int32),
+                       k32.view(torch.int32))
+    assert bool(((k - plain).abs() <= 1e-11 * mag + 1e-300).all())
+
+
+PRECISION = {
+    "dp_numerical": ({"gpu_use_dp": True}, False),
+    "dp_categorical": ({"gpu_use_dp": True}, "cat"),
+    "dp_sparse": ({"gpu_use_dp": True}, "sparse"),
+    "dp_bagging": ({"gpu_use_dp": True, "bagging_fraction": 0.7,
+                    "bagging_freq": 1}, False),
+    "linear_regression": ({"linear_tree": True, "linear_lambda": 0.01,
+                           "objective": "regression"}, "nan"),
+    "linear_binary": ({"linear_tree": True}, False),
+}
+
+
+@pytest.mark.parametrize("name", sorted(PRECISION))
+def test_precision_training_on_card_equals_cpu(dev, name):
+    """A gpu_use_dp or linear_tree training on the card gives the same
+    model text twice and the CPU's with the kernel's sums; gpu_use_dp
+    launches the f64 plane-only forms alone, linear_tree the fused path's
+    f32 kernels."""
+    import lightgbm_tpu_torch as lgb
+    extra, data = PRECISION[name]
+    rng = np.random.RandomState(11)
+    n = 20_000
+    X = rng.randn(n, 10).astype(np.float32)
+    kw = {}
+    if data == "cat":
+        X[:, 5] = rng.randint(0, 30, n)
+        kw = {"categorical_feature": [5]}
+    elif data == "sparse":
+        X[rng.rand(n) < 0.93, 4] = 0.0
+    y = (X[:, 0] - X[:, 1] + X[:, 2] * X[:, 3] + (X[:, 5] > 1)
+         + 0.5 * rng.randn(n) > 0).astype(float)
+    if data == "nan":
+        y = np.where(X[:, 1] > 0, 2 * X[:, 0], -X[:, 2]) + 0.3 * rng.randn(n)
+        X[rng.rand(n) < 0.05, 0] = np.nan
+    params = dict({"objective": "binary", "num_leaves": 31,
+                   "verbosity": -1}, **extra)
+    texts = {}
+    for d in ("cuda", "cuda_again", "cpu"):
+        p = dict(params, device_type=d.split("_")[0])
+        cuda_hist.reset_launch_counts()
+        with (cuda_hist.kernel_sums_on_cpu() if d == "cpu"
+              else contextlib.nullcontext()):
+            texts[d] = lgb.train(p, lgb.Dataset(X, label=y, params=p, **kw),
+                                 3).model_to_string()
+        if d == "cuda":
+            got = {c: v for c, v in cuda_hist.launch_counts().items() if v}
+            if name.startswith("dp"):
+                assert got.get("hist_tile.launches_plane_dp", 0) > 0
+                assert all(c.endswith("_dp") for c in got
+                           if c.startswith(("hist_tile.",
+                                            "split_epilogue.")))
+            else:
+                assert got.get("hist_tile.launches", 0) > 0
+                assert got.get("split_epilogue.launches", 0) > 0
+    assert texts["cuda"] == texts["cuda_again"]
+    assert texts["cuda"] == texts["cpu"]
+    if name.startswith("linear"):
+        assert "is_linear=1" in texts["cuda"]

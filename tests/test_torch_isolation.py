@@ -84,12 +84,12 @@ def test_default_device_without_cuda_raises(monkeypatch):
     ("histogram_method", "onehot_q8"),
     ("histogram_method", "scatter"),
     ("histogram_pool_size", 1024.0),
-    ("gpu_use_dp", True),
+    ("refit_decay_rate", 0.5),
     ("construct_streaming", True),
     ("snapshot_freq", 5),
     ("num_machines", 2),
-    ("linear_lambda", 0.1),
-    ("linear_tree", True),
+    ("pred_early_stop", True),
+    ("serve_flush_ms", 5.0),
     ("tree_learner", "data"),
     ("predict_chunk_rows", 100),
     ("boost_rounds_per_dispatch", 4),
@@ -143,6 +143,17 @@ def test_gain_adjust_raises_naming_item_9():
 ])
 def test_data_layer_parameters_are_accepted(key, value):
     """The data layer's parameters configure the port."""
+    cfg = lt.Config.from_params({key: value, "device_type": "cpu"})
+    assert getattr(cfg, key) != getattr(lt.Config(), key)
+
+
+@pytest.mark.parametrize("key,value", [
+    ("gpu_use_dp", True),
+    ("linear_tree", True),
+    ("linear_lambda", 0.1),
+])
+def test_precision_parameters_are_accepted(key, value):
+    """The precision modes' parameters configure the port."""
     cfg = lt.Config.from_params({key: value, "device_type": "cpu"})
     assert getattr(cfg, key) != getattr(lt.Config(), key)
 
