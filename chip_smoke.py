@@ -2,7 +2,8 @@
 hand-written kernel against its plain PyTorch version.
 
     python3 chip_smoke.py [--seed 0] [--rows 2000000] [--valid-rows 200000]
-                          [--rounds 5] [--parent DIR] [--only precision]
+                          [--rounds 5] [--parent DIR]
+                          [--only precision|control]
 
 Phases, in order, each printing one JSON line (any failure raises and the
 script exits non-zero; nothing is caught):
@@ -143,7 +144,7 @@ queries):
                   host gamma draw timed)
   parity_rank     lambdarank f32, q8, rank_xendcg, and lambdarank with
                   weights, an init_score and a custom label_gain, at 50,000
-                  documents, 63 leaves, 2 rounds: two card runs and the CPU
+                  documents, 63 leaves, 1 round: two card runs and the CPU
                   run in the kernels' orders (kernel_sums_on_cpu) give the
                   same model text; against the CPU's JAX-order run, equal
                   text or the first differing tree and the leaf error
@@ -259,6 +260,45 @@ linear_tree):
 
 With ``--only precision`` the script runs device, build, train and these
 phases alone (the full run runs them after parity_data).
+
+Training control (callbacks, early stopping, custom objectives and
+metrics, init_model, rollback, refit, free_dataset, cv), on the fused
+path's kernels; each run's launches of kernels 1, 2 and the epilogue are
+counted from 0 around it and must be above 0:
+
+  train_control   on train's 2M + 200k Higgs-shaped rows (binary, 255
+                  leaves, max_bin 255): early stopping (binary_logloss,
+                  early_stopping_rounds 2, record_evaluation) under
+                  learning_rates 0.1 for 3 rounds and then 3.0, 8 rounds
+                  at most: it must stop early, and the first
+                  best_iteration trees equal a plain run's of that many
+                  rounds block by block; fobj (numpy binary-logloss
+                  gradients, --rounds rounds): valid AUC within 0.01 of
+                  train's, the host ms an iteration of the score's trip
+                  to the host, the numpy gradients and their trip back,
+                  one profiled iteration; init_model (3 rounds, then 2
+                  more from that Booster): the first 3 tree blocks
+                  byte-identical, predictions within rtol 1e-5, atol 1e-7
+                  of a 5-round run; rollback after 3 rounds and one
+                  update(): tree counts 3, 2, 3, the rolled-back model
+                  predicting as a 2-round run and its valid scores within
+                  1e-5 of that run's; refit of the 3-round model on the
+                  valid rows: its seconds, its text equal to a CPU
+                  refit's; free_dataset: device memory back >= the bin
+                  matrix's bytes, predict unchanged; cv (3 stratified
+                  folds, 3 rounds, early stopping): each fold's seconds
+                  with the host's row subset and the fold sets' construct
+                  apart, the result keys, each fold's launches
+  parity_control  early stopping under a rate schedule, fobj with feval,
+                  init_model continued, 3 rounds -> rollback -> 1,
+                  reset_parameter of lambda_l2 and bagging_fraction
+                  mid-run, cv fold 0's booster; 50,000 rows, 63 leaves, at
+                  most 3 rounds: two card runs and the CPU run in the
+                  kernels' orders give the same text
+
+With ``--only control`` the script runs device, build, train and these
+phases alone, and prints their launches by path in place of the kernels
+line (the full run runs them after parity_linear).
 
 and kernel 5, the experiment script's one-hot histogram:
 
@@ -1163,18 +1203,19 @@ OWN_KERNELS = ("full_accumulate", "gather_count", "gather_scatter",
                "split_epilogue", "lambdarank_kernel")
 
 
-def profile_iteration(booster, sec_per_iter: float):
+def profile_iteration(booster, sec_per_iter: float, fobj=None):
     """Where one more boosting iteration's time goes: device time by kernel
     (torch.profiler, CUDA activity only) against the unprofiled sec/iter,
     the top 12 and every kernel of the port's own, and the host's hottest
     Python functions (cProfile over a further iteration; its own overhead
-    inflates the host times)."""
+    inflates the host times). ``fobj``: the run's custom objective, which
+    each of those iterations takes too."""
     import cProfile
     import pstats
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        booster.update()
+        booster.update(fobj=fobj)
         torch.cuda.synchronize()
     rows = []
     for ev in prof.key_averages():
@@ -1195,7 +1236,7 @@ def profile_iteration(booster, sec_per_iter: float):
     prof_host = cProfile.Profile()
     t0 = time.time()
     prof_host.enable()
-    booster.update()
+    booster.update(fobj=fobj)
     torch.cuda.synchronize()
     prof_host.disable()
     out["cprofile_iteration_ms"] = (time.time() - t0) * 1e3
@@ -2091,10 +2132,11 @@ def train_rank_phase(lgb, cuda_hist, args, objective="lambdarank"):
 # parity_rank's runs: name -> parameters over RANK_PARAMS at 63 leaves,
 # and whether the documents carry weights and an init_score; each trains
 # PARITY_ROUNDS rounds on PARITY_ROWS documents of MS LTR-shaped queries
-# rounds of the ranking parity runs: 2, cut from PARITY_ROUNDS to keep the
-# whole script inside half its time limit (their CPU runs are the costly
-# part; the second tree already starts from a ranked score)
-PARITY_RANK_ROUNDS = 2
+# rounds of the ranking parity runs: 1, cut from PARITY_ROUNDS to 2 and,
+# when the training-control phases came in, to 1, to keep the whole script
+# near 800 s (their CPU runs are the costly part; the weighted run's
+# init_score still starts its tree from a ranked score)
+PARITY_RANK_ROUNDS = 1
 PARITY_RANK = {
     "lambdarank": ({}, False),
     "lambdarank_q8": ({"quantized_grad": True}, False),
@@ -2153,7 +2195,8 @@ def _parity_rank(lgb, name, seed):
 
 
 def parity_rank_phase(lgb, seed):
-    return {"docs": PARITY_ROWS, "num_leaves": 63, "rounds": PARITY_ROUNDS,
+    return {"docs": PARITY_ROWS, "num_leaves": 63,
+            "rounds": PARITY_RANK_ROUNDS,
             **{m: _parity_rank(lgb, m, seed) for m in PARITY_RANK}}
 
 
@@ -3532,6 +3575,414 @@ def dp_kernel_entry(prec):
             "hist_tile.launches_plane_dp"]}}
 
 
+# training control (callbacks, early stopping, custom objectives and
+# metrics, init_model, rollback, refit, free_dataset, cv) on the main path
+CONTROL_ROUNDS = 8                        # the early-stopping run's at most
+CONTROL_RATES = [0.1] * 3 + [3.0] * 5     # a jump the valid loss cannot take
+CONTROL_STOP = 2                          # early_stopping_rounds
+CONTROL_INIT_ROUNDS, CONTROL_MORE_ROUNDS = 3, 2
+CONTROL_CV_FOLDS, CONTROL_CV_ROUNDS = 3, 3
+CONTROL_PREDICT_RTOL, CONTROL_PREDICT_ATOL = 1e-5, 1e-7   # the JAX
+# package's bar for a continued model (tests/test_fault_tolerance.py:305)
+CONTROL_SCORE_ATOL = 1e-5    # rolled-back valid scores vs a shorter run's
+
+
+def fused_launches(c):
+    """The fused path's kernels in launch counts ``c``: kernel 1 (the full
+    form of hist_tile), kernel 2 (its gather form), the epilogue."""
+    return {"hist_tile_full": c["hist_tile.launches"]
+            - c["hist_tile.gather_launches"] - c["hist_tile.launches_plane"],
+            "hist_tile_gather": c["hist_tile.gather_launches"],
+            "split_epilogue": c["split_epilogue.launches"]}
+
+
+def _counted(cuda_hist, fn):
+    """``fn()`` with the launch counts set to 0 just before and read just
+    after: (result, seconds, counts)."""
+    cuda_hist.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, time.time() - t0, cuda_hist.launch_counts()
+
+
+def _fused_check(name, counts):
+    """A control run's launches of kernels 1, 2 and the epilogue, each of
+    which must be above 0, on the fused path (no plane-only launch)."""
+    got = fused_launches(counts)
+    if min(got.values()) <= 0 or counts["hist_tile.launches_plane"]:
+        raise AssertionError(f"{name} missed a kernel of the fused path: "
+                             f"{ {k: v for k, v in counts.items() if v} }")
+    return got
+
+
+def _blocks(text):
+    """The tree blocks of a model text, each from its Tree= line."""
+    return ["Tree=" + b for b in
+            text.split("end of trees")[0].split("Tree=")[1:]]
+
+
+def _binary_fobj(host):
+    """Binary logloss gradients in numpy (a user's custom objective); the
+    seconds of each call go to ``host``."""
+    def fobj(score, ds):
+        t0 = time.time()
+        prob = 1.0 / (1.0 + np.exp(-score))
+        grad, hess = prob - ds.get_label(), prob * (1.0 - prob)
+        host.append(time.time() - t0)
+        return grad, hess
+    return fobj
+
+
+def _control_early_stopping(lgb, cuda_hist, params, train, valid):
+    """Early stopping with a learning-rate schedule: CONTROL_RATES over at
+    most CONTROL_ROUNDS rounds, early_stopping_rounds CONTROL_STOP, the
+    evaluations in record_evaluation; the first best_iteration trees must
+    be a plain run's of that many rounds, block by block."""
+    evals = {}
+    b, wall, counts = _counted(cuda_hist, lambda: lgb.train(
+        params, train, CONTROL_ROUNDS, valid_sets=[valid],
+        valid_names=["valid"], early_stopping_rounds=CONTROL_STOP,
+        learning_rates=CONTROL_RATES,
+        callbacks=[lgb.record_evaluation(evals)]))
+    done = len(evals["valid"]["binary_logloss"])
+    plain = lgb.train(params, train, b.best_iteration)
+    out = {"rounds_run": done, "best_iteration": b.best_iteration,
+           "best_score": b.best_score,
+           "evals_result_lengths": {d: {m: len(v) for m, v in ms.items()}
+                                    for d, ms in evals.items()},
+           # a probability that rounds to 0 or 1 in float32 makes the
+           # loss inf or nan (either counts as no improvement)
+           "valid_binary_logloss": [v if np.isfinite(v) else str(v) for v
+                                    in evals["valid"]["binary_logloss"]],
+           "sec_per_iter": wall / done, "fired": done < CONTROL_ROUNDS,
+           "best_trees_equal_plain_run": _blocks(b.model_to_string())
+           == _blocks(plain.model_to_string()),
+           "launches_by_kernel": _fused_check("early_stopping", counts)}
+    if not (out["fired"] and 0 < b.best_iteration < done
+            and out["best_trees_equal_plain_run"]):
+        raise AssertionError(f"early stopping: {out}")
+    return out, counts
+
+
+def _control_fobj(lgb, cuda_hist, args, params, train, Xv, yv, ref_auc):
+    """--rounds rounds of numpy binary-logloss gradients (objective none):
+    valid AUC within 0.01 of train's, the host ms an iteration of the
+    score's trip to the host, the gradients in numpy and their trip back
+    split out, and one profiled iteration."""
+    from lightgbm_tpu_torch.models import gbdt as gbdt_mod
+    from lightgbm_tpu_torch import booster as booster_mod
+    host, acc = [], {}
+    fobj = _binary_fobj(host)
+    origs = [(gbdt_mod.GBDT, "_custom_gradients",
+              _timed(gbdt_mod.GBDT, "_custom_gradients", acc)),
+             (gbdt_mod.GBDT, "train_one_iter",
+              _timed(gbdt_mod.GBDT, "train_one_iter", acc)),
+             (booster_mod.Booster, "update",
+              _timed(booster_mod.Booster, "update", acc))]
+    try:
+        b, wall, counts = _counted(cuda_hist, lambda: lgb.train(
+            dict(params, metric="None"), train, args.rounds, fobj=fobj))
+    finally:
+        for owner, name, fn in origs:
+            setattr(owner, name, fn)
+    r = args.rounds
+    fobj_s, h2d_s = sum(host), sum(acc["_custom_gradients"])
+    d2h_s = sum(acc["update"]) - sum(acc["train_one_iter"]) - fobj_s
+    valid_auc = auc(b.predict(Xv, raw_score=True), yv)
+    out = {"rounds": r, "sec_per_iter": wall / r, "valid_auc": valid_auc,
+           "train_valid_auc": ref_auc,
+           "host_ms_per_iter": {"score_to_host": d2h_s * 1e3 / r,
+                                "fobj_numpy": fobj_s * 1e3 / r,
+                                "gradients_to_device": h2d_s * 1e3 / r,
+                                "round_trip": (d2h_s + fobj_s + h2d_s)
+                                * 1e3 / r},
+           "launches_by_kernel": _fused_check("fobj", counts)}
+    if not abs(valid_auc - ref_auc) <= 0.01:
+        raise AssertionError(f"fobj valid AUC {valid_auc} not within 0.01 "
+                             f"of train's {ref_auc}")
+    out["profile"] = profile_iteration(b, wall / r, fobj=fobj)
+    return out, counts
+
+
+def _control_init_model(lgb, cuda_hist, params, train, valid, X, y, Xv, yv):
+    """CONTROL_INIT_ROUNDS rounds, then CONTROL_MORE_ROUNDS more from that
+    Booster (datasets that keep their raw rows): the first tree blocks
+    byte-identical to the init model's, predictions within the JAX
+    package's bar of a run of all the rounds at once."""
+    from lightgbm_tpu_torch import engine as engine_mod
+    total = CONTROL_INIT_ROUNDS + CONTROL_MORE_ROUNDS
+    first = lgb.train(params, train, CONTROL_INIT_ROUNDS)
+    tr = lgb.Dataset(X, label=y, params=params, free_raw_data=False)
+    va = lgb.Dataset(Xv, label=yv, reference=tr, free_raw_data=False)
+    tr.construct()
+    va.construct()
+    acc = {}
+    orig = _timed(engine_mod, "_load_init_model", acc)
+    try:
+        cont, wall, counts = _counted(cuda_hist, lambda: lgb.train(
+            params, tr, CONTROL_MORE_ROUNDS, valid_sets=[va],
+            init_model=first))
+    finally:
+        engine_mod._load_init_model = orig
+    full = lgb.train(params, train, total)
+    pc, pf = cont.predict(Xv), full.predict(Xv)
+    out = {"rounds": [CONTROL_INIT_ROUNDS, CONTROL_MORE_ROUNDS],
+           "trees": cont.num_trees(), "wall_s": wall,
+           "init_scores_host_s": sum(acc["_load_init_model"]),
+           "sec_per_iter_after_init_scores":
+           (wall - sum(acc["_load_init_model"])) / CONTROL_MORE_ROUNDS,
+           "init_blocks_identical": _blocks(cont.model_to_string())
+           [:CONTROL_INIT_ROUNDS] == _blocks(first.model_to_string()),
+           "max_abs_diff_vs_full_run": float(np.abs(pc - pf).max()),
+           "within_rtol_atol": bool(np.allclose(
+               pc, pf, rtol=CONTROL_PREDICT_RTOL,
+               atol=CONTROL_PREDICT_ATOL)),
+           "launches_by_kernel": _fused_check("init_model", counts)}
+    if not (out["init_blocks_identical"] and out["trees"] == total
+            and out["within_rtol_atol"]):
+        raise AssertionError(f"init_model: {out}")
+    return out, counts, tr, first
+
+
+def _control_rollback(lgb, cuda_hist, params, train, valid, Xv):
+    """3 rounds, rollback_one_iter, one update(): the tree count follows,
+    and the rolled-back model predicts as a 2-round run, its valid scores
+    within float32 rounding of that run's."""
+    seen = {}
+
+    def run():
+        b = lgb.train(params, train, 3, valid_sets=[valid])
+        seen["trees"] = [b.num_trees()]
+        b.rollback_one_iter()
+        seen["trees"].append(b.num_trees())
+        seen["pred"] = b.predict(Xv, raw_score=True)
+        seen["valid_score"] = b._boosting._valid_scores[0].cpu().numpy()
+        b.update()
+        seen["trees"].append(b.num_trees())
+        return b
+    b, wall, counts = _counted(cuda_hist, run)
+    two = lgb.train(params, train, 2, valid_sets=[valid])
+    score_diff = float(np.abs(seen["valid_score"] - two._boosting
+                              ._valid_scores[0].cpu().numpy()).max())
+    out = {"trees_3_rolled_back_updated": seen["trees"], "wall_s": wall,
+           "predict_equals_2_rounds": bool(np.array_equal(
+               seen["pred"], two.predict(Xv, raw_score=True))),
+           "valid_score_max_abs_diff_vs_2_rounds": score_diff,
+           "launches_by_kernel": _fused_check("rollback", counts)}
+    if not (seen["trees"] == [3, 2, 3] and out["predict_equals_2_rounds"]
+            and score_diff <= CONTROL_SCORE_ATOL):
+        raise AssertionError(f"rollback: {out}")
+    return out, counts, b
+
+
+def _control_cv(lgb, cuda_hist, params, full):
+    """cv with CONTROL_CV_FOLDS stratified folds, CONTROL_CV_ROUNDS rounds
+    and early stopping on the train rows: each fold's seconds, the host's
+    row subset apart from the fold sets' construct (binning on the card)
+    and from its training, and each fold's launches."""
+    from lightgbm_tpu_torch import basic as basic_mod
+    from lightgbm_tpu_torch import booster as booster_mod
+    per = {}
+    o_subset = basic_mod.Dataset.subset
+    o_construct = basic_mod.Dataset.construct
+    o_update = booster_mod.Booster.update
+
+    def timed(key, fn):
+        def wrapped(self, *a, **k):
+            t0 = time.time()
+            c0 = cuda_hist.launch_counts()
+            res = fn(self, *a, **k)
+            torch.cuda.synchronize()
+            ident = id(res) if key == "subset_s" else id(self)
+            d = per.setdefault(ident, {"launches": {}})
+            d[key] = d.get(key, 0.0) + time.time() - t0
+            if key == "train_s":
+                c1 = cuda_hist.launch_counts()
+                for c in c1:
+                    d["launches"][c] = d["launches"].get(c, 0) \
+                        + c1[c] - c0[c]
+            return res
+        return wrapped
+    basic_mod.Dataset.subset = timed("subset_s", o_subset)
+    basic_mod.Dataset.construct = timed("construct_s", o_construct)
+    booster_mod.Booster.update = timed("train_s", o_update)
+    try:
+        res, wall, counts = _counted(cuda_hist, lambda: lgb.cv(
+            params, full, CONTROL_CV_ROUNDS, nfold=CONTROL_CV_FOLDS,
+            stratified=True, early_stopping_rounds=CONTROL_STOP,
+            return_cvbooster=True))
+    finally:
+        basic_mod.Dataset.subset = o_subset
+        basic_mod.Dataset.construct = o_construct
+        booster_mod.Booster.update = o_update
+    folds, fold_counts = [], []
+    for b in res["cvbooster"].boosters:
+        tr, te = b._train_set, b._boosting.valid_sets[0]
+        f = {"train_rows": tr.num_data, "test_rows": te.num_data}
+        for key in ("subset_s", "construct_s"):
+            f[key] = sum(per.get(id(d), {}).get(key, 0.0) for d in (tr, te))
+        f["train_s"] = per[id(b)]["train_s"]
+        fold_counts.append(per[id(b)]["launches"])
+        f["launches_by_kernel"] = _fused_check(f"cv fold {len(folds)}",
+                                               fold_counts[-1])
+        folds.append(f)
+    host = sum(f["subset_s"] for f in folds)
+    out = {"folds": folds, "wall_s": wall, "host_subset_share": host / wall,
+           "construct_share": sum(f["construct_s"] for f in folds) / wall,
+           "best_iteration": res["cvbooster"].best_iteration,
+           "result_keys": sorted(k for k in res if k != "cvbooster"),
+           "valid_binary_logloss_mean":
+           res["valid binary_logloss-mean"][-1]}
+    return out, counts, fold_counts
+
+
+def train_control_phase(lgb, cuda_hist, args, ref):
+    """Training control on train's 2M + 200k Higgs-shaped rows (binary,
+    255 leaves, max_bin 255; the fused path), each run's launches of
+    kernels 1, 2 and the epilogue above 0: early stopping with a
+    learning-rate schedule, fobj, init_model, rollback, refit of the
+    3-round model on the valid rows (its text equal to a CPU refit),
+    free_dataset (device memory back >= the bin matrix's bytes, predict
+    unchanged) and cv. ``ref``: train's result (sec/iter, AUC)."""
+    X, y, Xv, yv = higgs_rows(args)
+    params = dict(PARAMS, device_type="cuda", metric="binary_logloss")
+    t0 = time.time()
+    train = lgb.Dataset(X, label=y, params=params)
+    valid = lgb.Dataset(Xv, label=yv, reference=train)
+    train.construct()
+    valid.construct()
+    torch.cuda.synchronize()
+    out = {"rows": args.rows, "valid_rows": args.valid_rows, "features": F,
+           "num_leaves": LEAVES, "construct_s": time.time() - t0,
+           "train_sec_per_iter": ref["sec_per_iter"]}
+    paths = {}
+    out["early_stopping"], paths["early_stopping"] = _control_early_stopping(
+        lgb, cuda_hist, params, train, valid)
+    out["fobj"], paths["fobj"] = _control_fobj(
+        lgb, cuda_hist, args, params, train, Xv, yv, ref["valid_auc"])
+    (out["init_model"], paths["init_model"], full,
+     first) = _control_init_model(lgb, cuda_hist, params, train, valid,
+                                  X, y, Xv, yv)
+    out["rollback"], paths["rollback"], rolled = _control_rollback(
+        lgb, cuda_hist, params, train, valid, Xv)
+
+    t0 = time.time()
+    refit = first.refit(Xv, yv)
+    refit_s = time.time() - t0
+    cpu = lgb.Booster(params=dict(params, device_type="cpu"),
+                      model_str=first.model_to_string()).refit(Xv, yv)
+    out["refit"] = {"rows": args.valid_rows, "seconds": refit_s,
+                    "text_equals_cpu_refit":
+                    refit.model_to_string() == cpu.model_to_string()}
+    if not out["refit"]["text_equals_cpu_refit"]:
+        raise AssertionError(f"refit: {out['refit']}")
+
+    pred = rolled.predict(Xv[:LINEAR_PREDICT_ROWS])
+    bins_bytes = train.binsT.numel() * train.binsT.element_size()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    rolled.free_dataset()
+    torch.cuda.synchronize()
+    released = before - torch.cuda.memory_allocated()
+    out["free_dataset"] = {
+        "released_bytes": released, "bin_matrix_bytes": bins_bytes,
+        "predict_unchanged": bool(np.array_equal(
+            rolled.predict(Xv[:LINEAR_PREDICT_ROWS]), pred))}
+    if not (released >= bins_bytes and out["free_dataset"]
+            ["predict_unchanged"]):
+        raise AssertionError(f"free_dataset: {out['free_dataset']}")
+
+    out["cv"], paths["cv"], folds = _control_cv(lgb, cuda_hist, params, full)
+    paths.update({f"cv_fold{i}": c for i, c in enumerate(folds)})
+    return out, paths
+
+
+def control_text(lgb, name, setup, device: str) -> str:
+    """One parity_control run on ``device`` (its model text): early
+    stopping with a rate schedule, fobj with feval, init_model continued,
+    3 rounds -> rollback -> 1, reset_parameter of lambda_l2 and the
+    bagging fraction mid-run, cv fold 0's booster; at most 3 rounds."""
+    X, y, params = setup
+    p = dict(params, device_type=device)
+    cut = len(X) * 4 // 5
+
+    def sets():
+        tr = lgb.Dataset(X[:cut], label=y[:cut], params=dict(p),
+                         free_raw_data=False)
+        return tr, lgb.Dataset(X[cut:], label=y[cut:], reference=tr,
+                               free_raw_data=False)
+    tr, va = sets()
+    if name == "early_stopping":
+        b = lgb.train(p, tr, 3, valid_sets=[va], early_stopping_rounds=1,
+                      learning_rates=[0.1, 3.0, 3.0])
+    elif name == "fobj":
+        b = lgb.train(dict(p, metric="None"), tr, 3, valid_sets=[va],
+                      fobj=_binary_fobj([]),
+                      feval=lambda s, d: ("mean", float(s.mean()), True))
+    elif name == "init_model":
+        first = lgb.train(p, tr, 2)
+        tr, va = sets()
+        b = lgb.train(p, tr, 1, valid_sets=[va], init_model=first)
+    elif name == "rollback":
+        b = lgb.train(p, tr, 3, valid_sets=[va])
+        b.rollback_one_iter()
+        b.update()
+    elif name == "reset_parameter":
+        b = lgb.train(dict(p, bagging_fraction=0.8, bagging_freq=1), tr, 3,
+                      valid_sets=[va], callbacks=[lgb.reset_parameter(
+                          lambda_l2=lambda i: 0.0 if i < 1 else 4.0,
+                          bagging_fraction=lambda i: 0.8 if i < 2 else 0.4)])
+    else:
+        b = lgb.cv(p, tr, 3, nfold=3,
+                   return_cvbooster=True)["cvbooster"].boosters[0]
+    return b.model_to_string()
+
+
+CONTROL_RUNS = ("early_stopping", "fobj", "init_model", "rollback",
+                "reset_parameter", "cv_fold0")
+
+
+def parity_control_phase(lgb, seed):
+    """Each CONTROL_RUNS run at PARITY_ROWS Higgs-shaped rows, 63 leaves:
+    two card runs and the CPU run in the kernels' orders give the same
+    model text; the first card run's fused-path launches above 0."""
+    from lightgbm_tpu_torch.ops import cuda_hist
+    X, y = higgs_like(PARITY_ROWS, seed + 79)
+    setup = (X, y, dict(PARAMS, num_leaves=63, metric="binary_logloss"))
+    out = {"rows": PARITY_ROWS, "num_leaves": 63, "rounds_at_most": 3}
+    for name in CONTROL_RUNS:
+        text, _, counts = _counted(cuda_hist, lambda: control_text(
+            lgb, name, setup, "cuda"))
+        again = control_text(lgb, name, setup, "cuda")
+        with cuda_hist.kernel_sums_on_cpu():
+            cpu = control_text(lgb, name, setup, "cpu")
+        res = {"card_runs_identical_text": text == again,
+               "card_equals_cpu_kernel_order": text == cpu,
+               "trees": text.count("Tree="),
+               "card_text_sha256": _sha(text),
+               "launches_by_kernel": _fused_check(f"parity_control/{name}",
+                                                  counts)}
+        if not (res["card_runs_identical_text"]
+                and res["card_equals_cpu_kernel_order"]):
+            raise AssertionError(f"parity_control/{name}: {res}")
+        out[name] = res
+    return out
+
+
+def control_phases(lgb, cuda_hist, args, ref):
+    """The control group's phases, each emitted; returns each train_control
+    run's launch counts by path for the kernels line."""
+    t0 = time.time()
+    tc, paths = train_control_phase(lgb, cuda_hist, args, ref)
+    emit("train_control", seconds=time.time() - t0, **tc)
+    t0 = time.time()
+    pc = parity_control_phase(lgb, args.seed)
+    emit("parity_control", seconds=time.time() - t0, **pc)
+    return {f"train_control/{k}": v for k, v in paths.items()}
+
+
 def per_launch(profile, name):
     """A kernel's device ms a launch in a train phase's profile
     (``own_kernels``)."""
@@ -3564,7 +4015,7 @@ def main() -> int:
                          "parent commit from git archive): its hist_tile "
                          "forms are timed on the same inputs before and "
                          "after this run's phases")
-    ap.add_argument("--only", choices=("precision",), default=None,
+    ap.add_argument("--only", choices=("precision", "control"), default=None,
                     help="run the device, build and train phases and this "
                          "group's phases alone (a quicker check of one "
                          "group; without it every phase runs)")
@@ -3598,6 +4049,18 @@ def main() -> int:
         print(json.dumps({"kernels": [dp_kernel_entry(prec)],
                           "total_seconds": time.time() - t_start}),
               flush=True)
+        print(smi, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
+    if args.only == "control":
+        tr, launches = train_phase(lgb, cuda_hist, args)
+        emit("train", **tr)
+        control = control_phases(lgb, cuda_hist, args, tr)
+        print(json.dumps({"launches_by_path": {
+            k: fused_launches(c) for k, c in control.items()},
+            "total_seconds": time.time() - t_start}), flush=True)
         print(smi, flush=True)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": kind,
@@ -3707,6 +4170,7 @@ def main() -> int:
     pdata = parity_data_phase(lgb, args.seed)
     emit("parity_data", **pdata)
     prec = precision_phases(lgb, cuda_hist, args, tr["valid_auc"])
+    control = control_phases(lgb, cuda_hist, args, tr)
 
     hv = hist_variants_phase(cuda_hist)
     emit("hist_variants", **hv)
@@ -3977,7 +4441,8 @@ def main() -> int:
              "train_mono": mono_launches, "train_mono_q8": monoq_launches,
              "train_linear": prec["linear_launches"],
              **{f"train_sampling/{k}": v["launches"]
-                for k, v in ts["runs"].items()}}
+                for k, v in ts["runs"].items()},
+             **control}
     for entry, count in zip(kernels[:6], (
             lambda c: c["hist_tile.launches"] - c["hist_tile.launches_plane"],
             lambda c: c["hist_tile.launches_plane"],

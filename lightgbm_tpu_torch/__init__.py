@@ -1,12 +1,15 @@
 """lightgbm_tpu_torch: the PyTorch/CUDA port of lightgbm_tpu.
 
 Trains gradient-boosted trees (gbdt, goss, dart, rf; bagging and
-feature_fraction) for every objective but ranking, multiclass included, on
-dense numerical and categorical data through hand-written Hopper kernels
-(``csrc/``) on a CUDA device, or through their plain PyTorch versions with
-``device_type="cpu"``. ``device_type`` defaults to
-``"cuda"``; without a CUDA device that is an error, never a fall-back.
-The package imports torch and numpy only.
+feature_fraction) for every objective, ranking and multiclass included, or
+for a custom one (``fobj``), on dense, sparse and categorical data through
+hand-written Hopper kernels (``csrc/``) on a CUDA device, or through their
+plain PyTorch versions with ``device_type="cpu"``. ``device_type``
+defaults to ``"cuda"``; without a CUDA device that is an error, never a
+fall-back. Training control is the JAX package's: callbacks, early
+stopping, ``learning_rates``, custom metrics (``feval``), continued
+training (``init_model``) and ``cv``. The package imports torch and numpy
+only.
 
     import lightgbm_tpu_torch as lgb
     train = lgb.Dataset(X, label=y)
@@ -16,9 +19,15 @@ The package imports torch and numpy only.
 
 from .basic import Dataset
 from .booster import Booster
+from .callback import (EarlyStopException, early_stopping, log_evaluation,
+                       print_evaluation, record_evaluation, reset_parameter)
+from .callback import checkpoint as checkpoint_callback
 from .config import Config
 from .convert import booster_from_numpy, mappers_from_numpy
-from .engine import train
+from .engine import CVBooster, cv, train
 
-__all__ = ["Booster", "Config", "Dataset", "booster_from_numpy",
-           "mappers_from_numpy", "train"]
+__all__ = ["Booster", "CVBooster", "Config", "Dataset", "EarlyStopException",
+           "booster_from_numpy", "checkpoint_callback", "cv",
+           "early_stopping", "log_evaluation", "mappers_from_numpy",
+           "print_evaluation", "record_evaluation", "reset_parameter",
+           "train"]

@@ -36,8 +36,10 @@ the rows. The feature metadata carries ``monotone_constraints`` and
 ``feature_contri``, mapped from original into device-column space. A
 dense construct keeps the raw features as float32 (``raw_data_np``) when
 ``linear_tree`` is in its params or its reference keeps them, for linear
-leaves; sparse input with ``linear_tree`` raises. Streaming construction and a group column read from a file wait for
-ROADMAP Queue 1 items 15 and 12.
+leaves; sparse input with ``linear_tree`` raises. ``subset`` re-bins a
+row subset with the set's mappers (``cv``'s folds; the raw data must be
+kept, ``free_raw_data=False``). Streaming construction and a group column
+read from a file wait for ROADMAP Queue 1 items 15 and 12b.
 """
 
 from __future__ import annotations
@@ -223,6 +225,28 @@ class Dataset:
         """A validation set binned with this set's mappers."""
         return Dataset(data, label=label, reference=self, weight=weight,
                        group=group, init_score=init_score, params=params)
+
+    def subset(self, used_indices: Sequence[int], params=None) -> "Dataset":
+        """The rows ``used_indices``, binned with this set's mappers
+        (reference: basic.py Dataset.subset / CopySubrow, dataset.h:416),
+        with their labels and weights; the raw rows are needed (a
+        scipy-sparse matrix's rows are densified, as in the JAX
+        package)."""
+        if self.data is None:
+            log.fatal("Cannot subset a Dataset whose raw data was freed")
+        idx = np.asarray(used_indices)
+        if hasattr(self.data, "iloc"):
+            data = self.data.iloc[idx]
+        elif _is_scipy_sparse(self.data):
+            data = np.asarray(self.data.tocsr()[idx].toarray(), np.float64)
+        else:
+            data = _to_2d_float(self.data)[idx]
+        lbl = self.get_label()
+        w = self.get_weight()
+        return Dataset(data, label=None if lbl is None else lbl[idx],
+                       reference=self,
+                       weight=None if w is None else w[idx],
+                       params=params or self.params)
 
     def get_feature_names(self) -> List[str]:
         self.construct()

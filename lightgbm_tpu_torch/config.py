@@ -28,7 +28,8 @@ the same ``parameters:`` block into model text), with three port rules:
   goss, dart and rf boosting with bagging and by-tree feature_fraction;
   every objective and metric, ranking's included; the fused split
   epilogue, the classic split path, f32, f64 (``gpu_use_dp``) and
-  quantized-gradient histograms, linear leaves)
+  quantized-gradient histograms, linear leaves; training control:
+  callbacks, early stopping, custom objectives with objective ``none``)
   raises
   NotImplementedError when set to a non-default value, naming the ROADMAP
   item that brings it (``_check_slice``). Nothing is silently ignored.
@@ -752,6 +753,10 @@ _SLICE_PARAMS = frozenset({
     "forcedbins_filename", "max_bin_by_feature", "forcedsplits_filename",
     "cegb_tradeoff", "cegb_penalty_split", "cegb_penalty_feature_lazy",
     "cegb_penalty_feature_coupled", "force_col_wise", "force_row_wise",
+    # training control: first_metric_only reaches early stopping through
+    # train's params; refit_decay_rate and early_stopping_round are read by
+    # no training entry point (the JAX package's CLI alone reads them)
+    "first_metric_only", "refit_decay_rate", "early_stopping_round",
     # sub-seeds derived from ``seed`` in __post_init__
     "bagging_seed", "drop_seed", "feature_fraction_seed", "extra_seed",
 })
@@ -764,9 +769,7 @@ for _names, _item in (
         (("hist_block", "hist_autotune"),
          "Queue 2 (autotune_hist becomes a Hopper sweep over rows per "
          "block)"),
-        (("early_stopping_round", "first_metric_only", "refit_decay_rate",
-          "snapshot_freq", "data", "valid", "header", "label_column",
-          "weight_column", "group_column", "ignore_column", "two_round",
+        (("data", "valid", "header", "label_column", "weight_column", "group_column", "ignore_column", "two_round",
           "save_binary", "precise_float_parser", "start_iteration_predict",
           "num_iteration_predict", "predict_raw_score", "predict_leaf_index",
           "predict_contrib", "predict_disable_shape_check",
@@ -774,12 +777,12 @@ for _names, _item in (
           "pred_early_stop_margin", "output_result",
           "convert_model_language", "convert_model", "input_model",
           "output_model"),
-         "Queue 1 item 12 (API surface)"),
+         "Queue 1 item 12b (the data-file, predict and convert API)"),
         (("boost_rounds_per_dispatch", "compile_cache_dir",
           "compile_warmup"),
          "Queue 1 item 13 (dispatch)"),
-        (("checkpoint_path", "checkpoint_keep", "checkpoint_shards",
-          "integrity_check_period", "hist_oom_fallback", "check_numerics"),
+        (("snapshot_freq", "checkpoint_path", "checkpoint_keep",
+          "checkpoint_shards", "integrity_check_period", "hist_oom_fallback", "check_numerics"),
          "Queue 1 item 14 (fault tolerance)"),
         (("num_machines", "local_listen_port", "time_out",
           "machine_list_filename", "machines", "mesh_shape", "num_gpu",
@@ -805,7 +808,9 @@ for _names, _item in (
 _SLICE_OBJECTIVES = (
     "regression", "regression_l1", "huber", "fair", "poisson", "quantile",
     "mape", "gamma", "tweedie", "binary", "multiclass", "multiclassova",
-    "cross_entropy", "cross_entropy_lambda", "lambdarank", "rank_xendcg")
+    "cross_entropy", "cross_entropy_lambda", "lambdarank", "rank_xendcg",
+    # no built-in objective: the gradients come from ``fobj``
+    "none", "null", "custom", "na")
 HIST_METHODS = ("auto", "pallas", "pallas_hilo", "pallas_q8")
 
 
@@ -829,8 +834,8 @@ def _check_slice(cfg: Config) -> None:
     if cfg.objective not in _SLICE_OBJECTIVES:
         raise NotImplementedError(
             f"objective={cfg.objective!r} is not ported to lightgbm_tpu_torch "
-            f"(the port has {', '.join(_SLICE_OBJECTIVES)}; custom objectives "
-            f"arrive with ROADMAP.md Queue 1 item 12 (API surface))")
+            f"(the port has {', '.join(_SLICE_OBJECTIVES)}; a custom "
+            f"objective is passed to train() as fobj with objective none)")
     if cfg.tree_learner != "serial":
         _not_in_slice("tree_learner", cfg.tree_learner)
     if cfg.histogram_method not in HIST_METHODS:

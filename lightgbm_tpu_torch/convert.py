@@ -103,7 +103,9 @@ def booster_from_numpy(trees: Sequence[Dict[str, Any]],
     gbdt.device = ds.device
     from .objectives import create_objective
     gbdt.objective = create_objective(config)
-    gbdt.num_tree_per_iteration = gbdt.objective.num_model_per_iteration
+    gbdt.num_tree_per_iteration = (
+        gbdt.objective.num_model_per_iteration
+        if gbdt.objective is not None else max(config.num_class, 1))
     gbdt.average_output = bool(meta.get("average_output", False))
     for fields in trees:
         arrays = tree_from_host_fields(fields)
@@ -114,10 +116,4 @@ def booster_from_numpy(trees: Sequence[Dict[str, Any]],
         gbdt.host_trees.append(HostTree(
             arrays, thr, np.asarray(used, np.int32),
             np.asarray(fields.get("missing_type", np.zeros(n)), np.int8)))
-    booster = Booster.__new__(Booster)
-    booster.params = params
-    booster.config = config
-    booster.best_iteration = -1
-    booster._train_set = None
-    booster._boosting = gbdt
-    return booster
+    return Booster._wrap(params, config, gbdt)

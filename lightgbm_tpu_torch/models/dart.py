@@ -40,6 +40,13 @@ class DART(GBDT):
         self.sum_weight = 0.0
         self.drop_sets: List[List[int]] = []    # each iteration's drop set
 
+    def reset_config(self, config) -> None:
+        """GBDT's, then a drop generator started again from ``drop_seed``
+        and the weight sum recomputed, as the JAX package does."""
+        super().reset_config(config)
+        self._drop_rng = np.random.RandomState(config.drop_seed)
+        self.sum_weight = sum(self.tree_weight)
+
     def _select_drop_iters(self) -> List[int]:
         """reference: dart.hpp:97-134 DroppingTrees (the selection)."""
         cfg = self.config
@@ -92,7 +99,7 @@ class DART(GBDT):
             shrinkage=tree.shrinkage * factor)
         self.host_trees[idx] = self.host_trees[idx].scaled(factor)
 
-    def train_one_iter(self) -> bool:
+    def train_one_iter(self, grad=None, hess=None) -> bool:
         cfg = self.config
         k_cls = self.num_tree_per_iteration
         drop = self._select_drop_iters()
@@ -111,7 +118,7 @@ class DART(GBDT):
         else:
             self.shrinkage_rate = cfg.learning_rate if not drop else \
                 cfg.learning_rate / (cfg.learning_rate + k)
-        if super().train_one_iter():
+        if super().train_one_iter(grad, hess):
             # no split: put the dropped outputs back; the splitless trees
             # are stored and the weights kept in step with them
             for it in drop:

@@ -43,12 +43,18 @@ class RF(GBDT):
         if train_set.init_score is not None:
             log.fatal("Cannot use init_score in RF mode")
         super()._init_train(train_set)
+        if self.objective is None:
+            log.fatal("RF mode does not support custom objective functions")
         self.shrinkage_rate = 1.0
         # the caches start at zero: the init score lives in the trees
         self.train_score = torch.zeros_like(self.train_score)
         self._const_score = self._score_cache(train_set.num_data)
         self._fixed_grad, self._fixed_hess = \
             self.objective.get_grad_hess(self._const_score)
+
+    def reset_config(self, config) -> None:
+        super().reset_config(config)
+        self.shrinkage_rate = 1.0
 
     def add_valid(self, valid_set, name: str) -> None:
         """A valid set's cache: the mean of the trees so far (rf.hpp
@@ -116,3 +122,41 @@ class RF(GBDT):
                                                    class_idx, vdelta, m)
         self.trees.append(tree)
         self.host_trees.append(self._make_host_tree(tree))
+
+    def rollback_one_iter(self) -> None:
+        """The running mean without the last iteration's trees (reference:
+        rf.hpp:168-184 RollbackOneIter): ``(score * m - tree) / (m - 1)``,
+        zero when m == 1."""
+        if self.iter <= 0:
+            return
+        m = float(self.iter)
+        k = self.num_tree_per_iteration
+        ts = self.train_set
+        for c in range(k):
+            tree = self.trees.pop()
+            self.host_trees.pop()
+            if self.tree_bias:
+                self.tree_bias.pop()
+            class_idx = k - 1 - c
+            self.train_score = self._mean_drop(
+                self.train_score, class_idx,
+                predict_value_bins(tree, ts.binsT,
+                                   ts.missing_bin.to(self.device)), m)
+            for i, vs in enumerate(self.valid_sets):
+                self._valid_scores[i] = self._mean_drop(
+                    self._valid_scores[i], class_idx,
+                    predict_value_bins(tree, vs.binsT,
+                                       vs.missing_bin.to(vs.device)), m)
+        self.iter -= 1
+
+    def _mean_drop(self, score: torch.Tensor, class_idx: int,
+                   delta: torch.Tensor, m: float) -> torch.Tensor:
+        """``(score * m - delta) / (m - 1)`` in class ``class_idx``'s
+        column; all of the score zero when m == 1."""
+        if m <= 1:
+            return torch.zeros_like(score)
+        if self.num_tree_per_iteration == 1:
+            return (score * m - delta) / (m - 1.0)
+        score = score.clone()
+        score[:, class_idx] = (score[:, class_idx] * m - delta) / (m - 1.0)
+        return score

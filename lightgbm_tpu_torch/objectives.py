@@ -684,16 +684,19 @@ _REGISTRY = {c.name: c for c in (
     CrossEntropy, CrossEntropyLambda)}
 
 
-def create_objective(config) -> ObjectiveFunction:
+def create_objective(config) -> Optional[ObjectiveFunction]:
     """reference: src/objective/objective_function.cpp
-    CreateObjectiveFunction (custom objectives, which Config rejects,
-    arrive with ROADMAP.md Queue 1 item 12)."""
+    CreateObjectiveFunction. ``none``, ``null``, ``custom`` and ``na``
+    name no built-in objective: None, the gradients then come from the
+    caller (``train(..., fobj=...)``)."""
+    if config.objective in ("none", "null", "custom", "na"):
+        return None
     if config.objective in ("lambdarank", "rank_xendcg"):
         from .ranking import create_ranking_objective
         return create_ranking_objective(config)
     if config.objective not in _REGISTRY:
         raise NotImplementedError(
             f"objective={config.objective!r} is not ported to "
-            f"lightgbm_tpu_torch; custom objectives arrive with ROADMAP.md "
-            f"Queue 1 item 12 (API surface)")
+            f"lightgbm_tpu_torch; a custom objective is passed to train() "
+            f"as fobj")
     return _REGISTRY[config.objective](config)

@@ -61,7 +61,11 @@ form, bitwise ``hist_tile_exact`` at float64 and a second launch, rounded
 to float32 bitwise the f32 mode, within 1e-11 of a float64 sum's summed
 magnitudes; gpu_use_dp (numerical, categorical, sparse columns, bagging)
 and linear_tree (regression with NaNs, binary) trainings give the same
-text twice and the CPU's with the kernel's sums.
+text twice and the CPU's with the kernel's sums. Training control (early
+stopping with a rate schedule, fobj with feval, init_model, rollback,
+reset_parameter mid-run, a cv fold's booster): the same text twice and the
+CPU's with the kernel's sums, through the fused path's kernels; and
+free_dataset gives back at least the bin matrix's device bytes.
 """
 
 import contextlib
@@ -1094,3 +1098,89 @@ def test_precision_training_on_card_equals_cpu(dev, name):
     assert texts["cuda"] == texts["cpu"]
     if name.startswith("linear"):
         assert "is_linear=1" in texts["cuda"]
+
+
+def _control_text(name, device):
+    """One training-control run (early stopping with a rate schedule, fobj
+    with feval, init_model, rollback, reset_parameter, a cv fold) on
+    ``device``: its model text."""
+    import lightgbm_tpu_torch as lgb
+    rng = np.random.RandomState(13)
+    n = 20_000
+    X = rng.randn(n, 10).astype(np.float32)
+    y = (X[:, 0] - X[:, 1] + X[:, 2] * X[:, 3] + rng.randn(n) > 0
+         ).astype(float)
+    p = {"objective": "binary", "num_leaves": 31, "verbosity": -1,
+         "metric": "binary_logloss", "device_type": device}
+    cut = 16_000
+
+    def sets():
+        ds = lgb.Dataset(X[:cut], label=y[:cut], params=dict(p),
+                         free_raw_data=False)
+        vs = lgb.Dataset(X[cut:], label=y[cut:], reference=ds,
+                         free_raw_data=False)
+        return ds, vs
+
+    ds, vs = sets()
+    if name == "early_stopping":
+        b = lgb.train(p, ds, 8, valid_sets=[vs], early_stopping_rounds=1,
+                      learning_rates=[0.1] * 3 + [1.2] * 5)
+    elif name == "fobj":
+        def fobj(score, d):
+            pr = 1.0 / (1.0 + np.exp(-score))
+            return pr - d.get_label(), pr * (1.0 - pr)
+        b = lgb.train(dict(p, metric="None"), ds, 3, valid_sets=[vs],
+                      fobj=fobj, feval=lambda s, d: ("mean", s.mean(), True))
+    elif name == "init_model":
+        first = lgb.train(p, ds, 2)
+        ds, vs = sets()
+        b = lgb.train(p, ds, 2, valid_sets=[vs], init_model=first)
+    elif name == "rollback":
+        b = lgb.train(p, ds, 3, valid_sets=[vs])
+        b.rollback_one_iter()
+        b.update()
+    elif name == "reset_parameter":
+        b = lgb.train(dict(p, bagging_fraction=0.8, bagging_freq=1), ds, 3,
+                      valid_sets=[vs], callbacks=[lgb.reset_parameter(
+                          lambda_l2=lambda i: 0.0 if i < 1 else 4.0,
+                          bagging_fraction=lambda i: 0.8 if i < 2 else 0.4)])
+    else:
+        res = lgb.cv(p, ds, 3, nfold=3, return_cvbooster=True)
+        b = res["cvbooster"].boosters[0]
+    return b.model_to_string()
+
+
+@pytest.mark.parametrize("name", ["early_stopping", "fobj", "init_model",
+                                  "rollback", "reset_parameter", "cv"])
+def test_training_control_on_card_equals_cpu(dev, name):
+    """Each training-control run gives the same model text twice on the
+    card and the CPU's with the kernel's sums, and launches the fused
+    path's kernels."""
+    cuda_hist.reset_launch_counts()
+    card = _control_text(name, "cuda")
+    got = cuda_hist.launch_counts()
+    assert got["hist_tile.launches"] - got["hist_tile.launches_plane"] > 0
+    assert got["split_epilogue.launches"] > 0
+    assert _control_text(name, "cuda") == card
+    with cuda_hist.kernel_sums_on_cpu():
+        assert _control_text(name, "cpu") == card
+
+
+def test_free_dataset_releases_device_memory(dev):
+    """free_dataset gives back at least the bin matrix's bytes of device
+    memory, and the booster still predicts the same."""
+    import lightgbm_tpu_torch as lgb
+    rng = np.random.RandomState(14)
+    X = rng.randn(200_000, 28).astype(np.float32)
+    y = (X[:, 0] + X[:, 1] > 0).astype(float)
+    p = {"objective": "binary", "verbosity": -1, "device_type": "cuda"}
+    ds = lgb.Dataset(X, label=y, params=p)
+    b = lgb.train(p, ds, 2)
+    bins_bytes = ds.binsT.numel() * ds.binsT.element_size()
+    pred = b.predict(X[:1000])
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    b.free_dataset()
+    torch.cuda.synchronize()
+    assert before - torch.cuda.memory_allocated() >= bins_bytes
+    np.testing.assert_array_equal(b.predict(X[:1000]), pred)

@@ -3,7 +3,8 @@
 - ``lightgbm_tpu_torch`` imports neither ``jax`` nor the JAX package
   ``lightgbm_tpu`` (it runs on a GPU host that has no JAX);
 - with the default ``device_type`` ("cuda") and no CUDA device, training
-  raises a RuntimeError naming the device; it never continues on the CPU;
+  (with a custom objective too) raises a RuntimeError naming the device;
+  it never continues on the CPU;
 - a parameter outside the ported slice raises NotImplementedError naming
   it, instead of being silently ignored;
 - pandas is imported only on the path that receives a DataFrame (the GPU
@@ -78,13 +79,18 @@ def test_default_device_without_cuda_raises(monkeypatch):
                  lt.Dataset(X, label=(X[:, 0] > 0).astype(float)), 1)
     with pytest.raises(RuntimeError, match="CUDA device"):
         lt.Config.from_params({}).torch_device()
+    # a custom objective does not take the run to the CPU either
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        lt.train({"verbosity": -1},
+                 lt.Dataset(X, label=(X[:, 0] > 0).astype(float)), 1,
+                 fobj=lambda score, ds: (score, np.ones_like(score)))
 
 
 @pytest.mark.parametrize("key,value", [
     ("histogram_method", "onehot_q8"),
     ("histogram_method", "scatter"),
     ("histogram_pool_size", 1024.0),
-    ("refit_decay_rate", 0.5),
+    ("pred_early_stop_freq", 20),
     ("construct_streaming", True),
     ("snapshot_freq", 5),
     ("num_machines", 2),
@@ -95,12 +101,37 @@ def test_default_device_without_cuda_raises(monkeypatch):
     ("boost_rounds_per_dispatch", 4),
     ("checkpoint_path", "ckpt"),
     ("group_column", "0"),
-    ("early_stopping_round", 5),
+    ("input_model", "model.txt"),
     ("hist_pallas_interpret", True),
 ])
 def test_unported_parameter_raises(key, value):
     with pytest.raises(NotImplementedError, match=key):
         lt.Config.from_params({key: value, "device_type": "cpu"})
+
+
+@pytest.mark.parametrize("key,value,item", [
+    ("pred_early_stop_freq", 20, "Queue 1 item 12b"),
+    ("input_model", "model.txt", "Queue 1 item 12b"),
+    ("snapshot_freq", 5, "Queue 1 item 14"),
+])
+def test_unported_parameter_names_its_item(key, value, item):
+    with pytest.raises(NotImplementedError, match=item):
+        lt.Config.from_params({key: value, "device_type": "cpu"})
+
+
+@pytest.mark.parametrize("key,value", [
+    ("first_metric_only", True),
+    ("refit_decay_rate", 0.5),
+    ("early_stopping_round", 5),
+    ("objective", "none"),
+    ("objective", "custom"),
+])
+def test_training_control_parameters_are_accepted(key, value):
+    """Training control's parameters configure the port (the JAX
+    package's train reads early_stopping_round and refit_decay_rate
+    nowhere, and neither does the port's)."""
+    cfg = lt.Config.from_params({key: value, "device_type": "cpu"})
+    assert getattr(cfg, key) != getattr(lt.Config(), key)
 
 
 def test_gain_adjust_raises_naming_item_9():

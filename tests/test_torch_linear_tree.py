@@ -10,7 +10,8 @@ linear_row_sum`` writes that order out; checked here at 1 to 29 and past
 32 columns). Model text round-trips both ways: a JAX-written linear model
 loads in the port and predicts what the JAX ``Booster.predict`` does, and
 the port's loads in the JAX package. Each refusal of linear_tree raises
-with the JAX package's message.
+with the JAX package's message. A linear model's refit is the JAX
+package's, bitwise.
 """
 
 import numpy as np
@@ -182,9 +183,18 @@ def test_refusals_carry_the_jax_message(params, data):
 
 
 def test_refit_of_a_linear_model_raises_naming_item_12a():
+    """Linear-leaf refit, once refused naming Queue 1 item 12a, is ported
+    with that item: the refitted model (leaf values, consts and
+    coefficients blended with a fresh ridge fit on the new rows) is the
+    JAX package's, model text and predictions bitwise."""
     X, yr, _ = _data(3)
-    p = {"objective": "regression", "linear_tree": True, "verbosity": -1,
-         "device_type": "cpu"}
-    bt = lt.train(p, lt.Dataset(X[:N], label=yr[:N], params=p), 2)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12a"):
-        bt.refit(X[N:], yr[N:])
+    p = {"objective": "regression", "linear_tree": True, "verbosity": -1}
+    out = []
+    for lib in (lj, lt):
+        pl = dict(p, device_type="cpu") if lib is lt else dict(p)
+        b = lib.train(pl, lib.Dataset(X[:N], label=yr[:N], params=pl), 2)
+        r = b.refit(X[N:], yr[N:], decay_rate=0.7)
+        out.append((r.model_to_string(), r.predict(X[N:])))
+    assert "is_linear=1" in out[1][0]
+    assert out[1][0] == out[0][0]
+    np.testing.assert_array_equal(out[1][1], out[0][1])
