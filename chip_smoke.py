@@ -3,7 +3,7 @@ hand-written kernel against its plain PyTorch version.
 
     python3 chip_smoke.py [--seed 0] [--rows 2000000] [--valid-rows 200000]
                           [--rounds 5] [--parent DIR]
-                          [--only precision|control]
+                          [--only precision|control|predict]
 
 Phases, in order, each printing one JSON line (any failure raises and the
 script exits non-zero; nothing is caught):
@@ -101,7 +101,7 @@ The boosting modes, on the kernels above (counted from 0 around each run):
                   and q8: sec/iter, valid multi_logloss and multi_error
                   (below the majority class's 0.512; q8 within 0.01 of
                   f32), the split path, plane-only launches only
-  parity_multiclass  multiclass f32 and q8 at 50,000 rows, 2 rounds: two
+  parity_multiclass  multiclass f32 and q8 at 50,000 rows, 1 round: two
                   card runs and the CPU run (kernel sums in f32) identical
   train_sampling  on train's rows, one Dataset, 5 rounds each: bagging
                   mask (0.8), subset (0.5; at most 0.55x the plain train
@@ -255,7 +255,7 @@ linear_tree):
                   bitwise as Booster.predict
   parity_dp,      gpu_use_dp on numerical, Expo-shaped categorical and
   parity_linear   sparse-column data; linear_tree as regression with NaNs
-                  and as binary; 50,000 rows, 63 leaves, 3 rounds: as
+                  and as binary; 50,000 rows, 63 leaves, 2 rounds: as
                   parity_data
 
 With ``--only precision`` the script runs device, build, train and these
@@ -299,6 +299,51 @@ counted from 0 around it and must be above 0:
 With ``--only control`` the script runs device, build, train and these
 phases alone, and prints their launches by path in place of the kernels
 line (the full run runs them after parity_linear).
+
+and prediction and the user surface (after parity_control):
+
+  predict_ensemble the ensemble traversal kernel alone: a 100-round,
+                  255-leaf model trained on 500,000 of train's rows, over
+                  the bins of the 2M train and 200k valid rows, in each
+                  accumulation mode (float64, compensated, float32)
+                  without and with per-tree biases and with an active mask
+                  of half the rows, and in leaves mode: bitwise the plain
+                  version on the same card tensors and a second launch;
+                  ms (events), device ms, plain ms, bound (the bins, the
+                  tables and the result over 3.35 TB/s, against the node
+                  visits of this run's leaves x OPS_PER_VISIT over 67
+                  T/s); then int16 bins (max_bin 1,023, 3 rounds) and a
+                  categorical Expo-shaped model (50,000 rows)
+  predict         Booster.predict of that model on the 2M and the 200k raw
+                  rows: seconds, split into the host's input checks,
+                  binning on the card, the kernel, the conversion and the
+                  fetch, and the kernel's launches a call; raw and
+                  converted scores (20,000 rows), pred_leaf,
+                  pred_early_stop (freq 10, margin 1.5) and a
+                  start_iteration / num_iteration window (20,000 rows)
+                  bitwise the same trees carried to a CPU booster
+                  (convert.booster_to_numpy -> booster_from_numpy); a
+                  K = 7 Covertype-shaped model (50,000 rows, 3 rounds)
+                  the same; score_dataset of 20,000 valid rows, with the
+                  trees' biases, bitwise the plain version on the CPU
+  predict_contrib TreeSHAP of that model over 20,000 valid rows on the
+                  card: seconds (host decisions, device DP), peak device
+                  memory; within rtol 1e-9 / atol 1e-11 of the CPU's on
+                  200 rows, each row summing to its raw score within
+                  1e-6 / 1e-8, two runs on 2,000 rows the same bits
+  cli             python -m lightgbm_tpu_torch task=train / predict /
+                  convert_model on a 50,000-row CSV (header, a named label
+                  column, a .weight side file): the model text equals
+                  train on the same parsed arrays, the predictions file
+                  Booster.predict, the C++ the CPU's text; the native
+                  parser bitwise the plain parser on the file
+  sklearn         LGBMRegressor fit and predict on the same rows: bitwise
+                  train with the parameters it maps (and whether
+                  scikit-learn was importable: without it the stand-ins
+                  run)
+
+With ``--only predict`` the script runs device, build, train and these
+phases alone, and prints a kernels line of predict_ensemble alone.
 
 and kernel 5, the experiment script's one-hot histogram:
 
@@ -1778,9 +1823,10 @@ def _parity_mode(lgb, name, seed, rounds: int = PARITY_ROUNDS):
     return out
 
 
-# parity_multiclass' rounds: 2, cut from PARITY_ROUNDS when the precision
-# modes' phases came in (7 trees a round on the CPU)
-PARITY_MULTICLASS_ROUNDS = 2
+# parity_multiclass' rounds: 1, cut from PARITY_ROUNDS to 2 when the
+# precision modes' phases came in (7 trees a round on the CPU) and to 1
+# when the predict group came in
+PARITY_MULTICLASS_ROUNDS = 1
 
 
 def parity_multiclass_phase(lgb, seed):
@@ -3502,18 +3548,26 @@ def parity_precision_setups(seed: int):
     }
 
 
+# the precision parity runs' rounds: 2, cut from PARITY_ROUNDS when the
+# predict group came in (a linear model's leaves are fitted from its
+# second tree on)
+PARITY_PRECISION_ROUNDS = 2
+
+
 def parity_precision_phase(lgb, seed, prefix: str):
     """The ``prefix`` ("dp" or "linear") runs of parity_precision_setups,
-    3 rounds each (parity_texts: two card runs and the CPU run in the
+    2 rounds each (parity_texts: two card runs and the CPU run in the
     kernels' orders equal; against the CPU's plain run equal text or the
     first divergent tree named), each with the first card run's launches:
     the f64 plane-only forms alone for dp, kernels 1, 2 and the epilogue
     for linear."""
-    out = {"rows": PARITY_ROWS, "num_leaves": 63, "rounds": PARITY_ROUNDS}
+    out = {"rows": PARITY_ROWS, "num_leaves": 63,
+           "rounds": PARITY_PRECISION_ROUNDS}
     for name, setup in parity_precision_setups(seed).items():
         if not name.startswith(prefix):
             continue
-        res = parity_texts(lgb, f"parity_{prefix}/{name}", setup, False)
+        res = parity_texts(lgb, f"parity_{prefix}/{name}", setup, False,
+                           PARITY_PRECISION_ROUNDS)
         got = res["launches"]
         if prefix == "dp":
             ok = got.get("hist_tile.launches_plane_dp", 0) > 0 and all(
@@ -3983,6 +4037,501 @@ def control_phases(lgb, cuda_hist, args, ref):
     return {f"train_control/{k}": v for k, v in paths.items()}
 
 
+# prediction and the user surface: the ensemble traversal kernel, Booster
+# .predict in every mode, TreeSHAP, the CLI and the sklearn estimator
+PREDICT_ROUNDS = 100          # the group's model: 100 rounds of 255 leaves
+PREDICT_TRAIN_ROWS = 500_000  # of train's Higgs-shaped rows
+PREDICT_CPU_ROWS = 20_000     # rows the CPU twin predicts raw (plain torch)
+PREDICT_MODE_ROWS = 20_000    # rows of the pred_leaf / early-stop / window checks
+PREDICT_WIDE_ROUNDS = 3       # max_bin 1,023 (int16 bins)
+PREDICT_CAT_ROWS = 50_000     # the Expo-shaped categorical model's rows
+PREDICT_MC_ROWS = 50_000      # the Covertype-shaped K = 7 model's rows
+PREDICT_MC_ROUNDS = 3
+CONTRIB_ROWS = 20_000         # TreeSHAP rows on the card
+CONTRIB_CPU_ROWS = 200        # of them, also run on the CPU (float64 DP)
+CONTRIB_AGAIN_ROWS = 2_000    # of them, run twice on the card (same bits)
+CLI_ROWS = 50_000             # the CLI's and the sklearn estimator's rows
+CLI_ROUNDS = 3
+# the kernel's operations a node visit: the node record's two 16-byte
+# loads, the bin's address and load, the categorical / segment / missing
+# tests and the child select, ~20 integer operations (the bound counts
+# them at the guide's 67 T/s)
+OPS_PER_VISIT = 20
+SHAP_RTOL, SHAP_ATOL = 1e-9, 1e-11        # tests/test_shap_fast.py:25
+SUM_RTOL, SUM_ATOL = 1e-6, 1e-8           # tests/test_shap_fast.py:96
+
+
+def _flat(carry):
+    return torch.cat(carry, 1) if isinstance(carry, tuple) else carry
+
+
+def _cpu_tables(P, tables):
+    """The kernel's tables copied to the CPU (the plain version's run on
+    the same trees)."""
+    st = type(tables.stacked)(*(x.cpu() for x in tables.stacked))
+    return P.EnsembleTables(st, tables.nodes.cpu(), tables.bits.cpu(),
+                            tables.depth)
+
+
+def ensemble_case(P, tables, binsT, mb, k, seed, timed=False):
+    """``predict_ensemble`` on one bin matrix against its plain version on
+    the same card tensors, in each accumulation mode without and with the
+    biases and with an active mask of half the rows, and in leaves mode:
+    bitwise, and a second launch equal. ``timed``: the float64 mode's ms
+    (events), device ms (profiler), plain ms and bound."""
+    dev = binsT.device
+    n = binsT.shape[1]
+    t = int(tables.nodes.shape[0])
+    rng = np.random.RandomState(seed)
+    bias = torch.as_tensor(rng.randn(t) * 0.01, dtype=torch.float64,
+                           device=dev)
+    act = torch.as_tensor(rng.rand(n) < 0.5, device=dev)
+    cases = 0
+    for accum in ("float64", "compensated", "float32"):
+        for kw in ({}, {"bias": bias}, {"bias": bias, "active": act}):
+            one = _flat(P.predict_ensemble(tables, binsT, mb, (0, t), k,
+                                           accum=accum, **kw))
+            two = _flat(P.predict_ensemble(tables, binsT, mb, (0, t), k,
+                                           accum=accum, **kw))
+            ref = _flat(P.predict_ensemble_plain(
+                tables, binsT, mb, (0, t), k, kw.get("bias"),
+                kw.get("active"), P.new_carry(n, k, accum, dev), accum))
+            if not (torch.equal(one, ref) and torch.equal(one, two)):
+                raise AssertionError(
+                    f"predict_ensemble {accum} {sorted(kw)} at {n} rows: "
+                    f"max |kernel - plain| "
+                    f"{float((one - ref).abs().max())}")
+            cases += 1
+    leaves = P.predict_ensemble(tables, binsT, mb, (0, t), k, leaves=True)
+    again = P.predict_ensemble(tables, binsT, mb, (0, t), k, leaves=True)
+    ref = P.predict_ensemble_plain(tables, binsT, mb, (0, t), k, leaves=True)
+    if not (torch.equal(leaves, ref) and torch.equal(leaves, again)):
+        raise AssertionError(f"predict_ensemble leaves at {n} rows differ "
+                             f"from the plain version")
+    visits = P.node_visits(tables, leaves, (0, t))
+    out = {"rows": n, "trees": t, "k": k, "bins": str(binsT.dtype),
+           "depth": tables.depth, "cases_bitwise": cases + 1,
+           "node_visits": visits}
+    if timed:
+        def run():
+            P.predict_ensemble(tables, binsT, mb, (0, t), k)
+        out["ms"] = time_ms(run)
+        out["device_ms"] = device_ms(run, need="predict_ensemble")[0]
+        out["leaves_ms"] = time_ms(lambda: P.predict_ensemble(
+            tables, binsT, mb, (0, t), k, leaves=True))
+        out["plain_ms"] = time_ms(lambda: P.predict_ensemble_plain(
+            tables, binsT, mb, (0, t), k, None, None,
+            P.new_carry(n, k, "float64", dev), "float64"), reps=3, warm=0)
+        st = tables.stacked
+        nbytes = (binsT.numel() * binsT.element_size() + n * k * 8
+                  + tables.nodes.numel() * 4 + tables.bits.numel() * 4
+                  + st.leaf_value.numel() * 4 + mb.numel() * 4)
+        out["bound_ms"], out["bound_by"] = bound(nbytes,
+                                                 visits * OPS_PER_VISIT)
+        out["library_ms"] = None
+    return out
+
+
+def predict_model(lgb, args, X, y, rounds=PREDICT_ROUNDS, **extra):
+    params = dict(PARAMS, device_type="cuda", **extra)
+    t0 = time.time()
+    booster = lgb.train(params, lgb.Dataset(X, label=y, params=dict(params)),
+                        rounds)
+    torch.cuda.synchronize()
+    return booster, time.time() - t0
+
+
+def predict_ensemble_phase(lgb, P, args, model):
+    """The kernel alone at the main path's shapes: the 100-round model over
+    the bins of the 2M train and 200k valid rows; then int16 bins
+    (max_bin 1,023) and categorical bitsets (Expo-shaped)."""
+    b, X, Xv = model
+    g = b._boosting
+    eng = g._predict_engine()
+    mb = g.train_set.missing_bin.cuda()
+    out = {}
+    for name, rows, timed in (("2M", X, True), ("200k", Xv, True)):
+        binsT = g.train_set.bin_new_data(rows)
+        out[name] = ensemble_case(P, eng.tables, binsT, mb, 1, args.seed,
+                                  timed=timed)
+        del binsT
+    _, y = higgs_rows(args)[:2]
+    wb, _ = predict_model(lgb, args, X[:PREDICT_TRAIN_ROWS],
+                          y[:PREDICT_TRAIN_ROWS], PREDICT_WIDE_ROUNDS,
+                          max_bin=1023)
+    wg = wb._boosting
+    wbins = wg.train_set.bin_new_data(Xv)
+    if wbins.dtype != torch.int16:
+        raise AssertionError(f"max_bin 1023 binned to {wbins.dtype}")
+    out["wide_200k"] = ensemble_case(P, wg._predict_engine().tables, wbins,
+                                     wg.train_set.missing_bin.cuda(), 1,
+                                     args.seed + 1, timed=True)
+    Xc, yc = expo_like(PREDICT_CAT_ROWS, args.seed)
+    cb = lgb.train(dict(PARAMS, device_type="cuda",
+                        categorical_feature=CAT_COLUMNS),
+                   lgb.Dataset(Xc, label=yc, categorical_feature=CAT_COLUMNS,
+                               params={"device_type": "cuda"}), 5)
+    cg = cb._boosting
+    ctab = cg._predict_engine().tables
+    if not bool(ctab.stacked.node_cat.any()):
+        raise AssertionError("the Expo-shaped model made no categorical "
+                             "split")
+    out["categorical_50k"] = ensemble_case(
+        P, ctab, cg.train_set.bin_new_data(Xc),
+        cg.train_set.missing_bin.cuda(), 1, args.seed + 2)
+    out["categorical_50k"]["words"] = int(ctab.bits.shape[2])
+    return out
+
+
+def _twin(lgb, booster):
+    """The booster's own trees carried to a ``device_type="cpu"`` booster
+    (``convert.booster_to_numpy`` -> ``booster_from_numpy``): the CPU's
+    plain versions over the same trees."""
+    return lgb.booster_from_numpy(*lgb.booster_to_numpy(booster, "cpu"))
+
+
+def _equal(name, got, want):
+    got, want = np.asarray(got), np.asarray(want)
+    if got.shape != want.shape or not np.array_equal(got, want):
+        diff = (np.max(np.abs(got.astype(np.float64)
+                              - want.astype(np.float64)))
+                if got.shape == want.shape else f"{got.shape}/{want.shape}")
+        raise AssertionError(f"{name}: card and CPU differ ({diff})")
+
+
+def _median_s(fn, reps: int = 5) -> float:
+    """Median host seconds of ``fn`` (each call ends in a fetch)."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        fn()
+        times.append(time.time() - t0)
+    return statistics.median(times)
+
+
+def _predict_launches(cuda_hist, P):
+    c = cuda_hist.launch_counts()
+    return sum(v for k, v in c.items() if k.startswith("predict_ensemble."))
+
+
+def predict_e2e_phase(lgb, cuda_hist, P, args, model):
+    """Booster.predict end to end on the card, its time split, and its
+    outputs against the same trees on the CPU."""
+    b, X, Xv = model
+    g = b._boosting
+    twin = _twin(lgb, b)
+    out, paths = {}, {}
+    for name, rows in (("2M", X), ("200k", Xv)):
+        b.predict(rows[:1000])                 # warm
+        torch.cuda.synchronize()
+        cuda_hist.reset_launch_counts()
+        t0 = time.time()
+        pred = b.predict(rows)
+        torch.cuda.synchronize()
+        total = time.time() - t0
+        launched = _predict_launches(cuda_hist, P)
+        paths[f"predict/{name}"] = launched
+        if launched < 1:
+            raise AssertionError(f"Booster.predict on {name} rows launched "
+                                 f"no predict_ensemble")
+        # the same call in its parts
+        t0 = time.time()
+        Xp = g._prep_predict_X(rows)
+        t_check = time.time() - t0
+        t0 = time.time()
+        binsT = g.train_set.bin_new_data(Xp)
+        torch.cuda.synchronize()
+        t_bin = time.time() - t0
+        eng = g._predict_engine()
+        t0 = time.time()
+        carry = eng.accumulate(binsT, g.train_set.missing_bin, use_bias=False)
+        torch.cuda.synchronize()
+        t_kernel = time.time() - t0
+        # the conversion ends in the fetch of its float32 result: the
+        # fetch of a float32 [N] alone is timed apart (medians of 5)
+        conv = g._convert_on_device(carry[:, 0])
+        _equal(f"predict/{name} parts", conv, pred)
+        s32 = carry[:, 0].to(torch.float32)
+        t_convert_fetch = _median_s(lambda: g._convert_on_device(
+            carry[:, 0]))
+        t_fetch = _median_s(lambda: s32.cpu())
+        out[name] = {"rows": len(rows), "seconds": total,
+                     "launches_per_call": launched,
+                     "split_s": {"input_checks_host": t_check,
+                                 "binning_on_card": t_bin,
+                                 "kernel": t_kernel,
+                                 "conversion": t_convert_fetch - t_fetch,
+                                 "fetch": t_fetch},
+                     "rows_per_s": len(rows) / total}
+        del binsT, carry
+    # the same trees on the CPU
+    Xc = Xv[:PREDICT_CPU_ROWS]
+    t0 = time.time()
+    raw_cpu = twin.predict(Xc, raw_score=True)
+    cpu_s = time.time() - t0
+    _equal("raw", b.predict(Xc, raw_score=True), raw_cpu)
+    _equal("converted", b.predict(Xc),
+           twin._boosting._convert_on_device(torch.as_tensor(raw_cpu)))
+    Xm = Xv[:PREDICT_MODE_ROWS]
+    checks = {"raw_rows": len(Xc), "cpu_raw_s": cpu_s}
+    for name, kw in (("pred_leaf", {"pred_leaf": True}),
+                     ("pred_early_stop", {"pred_early_stop": True,
+                                          "pred_early_stop_freq": 10,
+                                          "pred_early_stop_margin": 1.5}),
+                     ("window", {"start_iteration": 20,
+                                 "num_iteration": 30, "raw_score": True})):
+        cuda_hist.reset_launch_counts()
+        got = b.predict(Xm, **kw)
+        paths[f"predict/{name}"] = _predict_launches(cuda_hist, P)
+        _equal(name, got, twin.predict(Xm, **kw))
+        checks[name] = {"rows": len(Xm),
+                        "launches": paths[f"predict/{name}"]}
+    es_raw = b.predict(Xm, raw_score=True, pred_early_stop=True,
+                       pred_early_stop_freq=10, pred_early_stop_margin=1.5)
+    full = b.predict(Xm, raw_score=True)
+    checks["pred_early_stop"]["rows_stopped_early"] = int(
+        np.sum(es_raw != full))
+    out["bitwise_cpu"] = checks
+    # K = 7
+    Xk, yk = covertype_like(PREDICT_MC_ROWS, args.seed)
+    kb = lgb.train(dict(PARAMS, device_type="cuda", **MULTICLASS),
+                   lgb.Dataset(Xk, label=yk, params={"device_type": "cuda"}),
+                   PREDICT_MC_ROUNDS)
+    ktwin = _twin(lgb, kb)
+    cuda_hist.reset_launch_counts()
+    kraw = kb.predict(Xk, raw_score=True)
+    paths["predict/multiclass"] = _predict_launches(cuda_hist, P)
+    _equal("multiclass raw", kraw, ktwin.predict(Xk, raw_score=True))
+    _equal("multiclass converted", kb.predict(Xk), ktwin.predict(Xk))
+    _equal("multiclass pred_leaf", kb.predict(Xk, pred_leaf=True),
+           ktwin.predict(Xk, pred_leaf=True))
+    out["multiclass"] = {"rows": len(Xk), "k": 7, "trees": kb.num_trees(),
+                         "bitwise_cpu": True}
+    # score_dataset with the per-tree biases vs the plain version on the CPU
+    nv = PREDICT_MODE_ROWS
+    _, _, _, yv = higgs_rows(args)
+    vs = lgb.Dataset(Xv[:nv], label=yv[:nv], reference=g.train_set)
+    cuda_hist.reset_launch_counts()
+    score = g.score_dataset(vs)
+    paths["score_dataset"] = _predict_launches(cuda_hist, P)
+    eng = g._predict_engine()
+    if eng.biases is None:
+        raise AssertionError("the model's trees carry no bias")
+    base = torch.full((nv, 1), float(g.init_scores[0]), dtype=torch.float64)
+    ref = P.predict_ensemble_plain(
+        _cpu_tables(P, eng.tables), vs.traversal_binsT().cpu(),
+        vs.missing_bin.cpu(), (0, eng.T), 1, eng.biases.cpu(), None, base)
+    _equal("score_dataset", score, ref[:, 0].numpy())
+    out["score_dataset"] = {"rows": nv, "bitwise_plain_cpu": True,
+                            "bias_tree0": float(eng.biases[0])}
+    return out, paths
+
+
+def predict_contrib_phase(lgb, cuda_hist, args, model):
+    """TreeSHAP of the 100-round model on the card: seconds (the host's
+    decisions apart), peak device memory, the CPU's values on a subset,
+    and the sums-to-raw contract on every row."""
+    from lightgbm_tpu_torch.io import shap as S
+    b, X, Xv = model
+    g = b._boosting
+    rows = Xv[:CONTRIB_ROWS]
+    b.predict(rows[:64], pred_contrib=True)     # the stacks, once
+    torch.cuda.synchronize()
+    base_mem = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    contrib = b.predict(rows, pred_contrib=True)
+    torch.cuda.synchronize()
+    total = time.time() - t0
+    peak = torch.cuda.max_memory_allocated() - base_mem
+    split = dict(S.last_split)
+    trees = [g._host_tree(it, 0) for it in range(b.num_trees())]
+    stack = S._class_stack_cached(trees, rows.shape[1])
+    raw = b.predict(rows, raw_score=True)
+    sums = contrib.sum(axis=1)
+    if not np.allclose(sums, raw, rtol=SUM_RTOL, atol=SUM_ATOL):
+        raise AssertionError(f"contributions do not sum to the raw score: "
+                             f"{np.max(np.abs(sums - raw))}")
+    # the same call twice (another row count can take another product
+    # algorithm, so rows are compared between calls of one shape)
+    twice = [b.predict(rows[:CONTRIB_AGAIN_ROWS], pred_contrib=True)
+             for _ in range(2)]
+    if not np.array_equal(*twice):
+        raise AssertionError("two card runs of TreeSHAP differ")
+    # the CPU's DP (float64) on the same model trees and their stacks
+    sub = np.asarray(rows[:CONTRIB_CPU_ROWS], np.float64)
+    t0 = time.time()
+    cpu = S.predict_contrib_trees_fast(trees, sub, rows.shape[1], 1,
+                                       device="cpu")
+    cpu_s = time.time() - t0
+    if not np.allclose(contrib[:len(sub)], cpu, rtol=SHAP_RTOL,
+                       atol=SHAP_ATOL):
+        raise AssertionError(f"card SHAP vs CPU: "
+                             f"{np.max(np.abs(contrib[:len(sub)] - cpu))}")
+    return {"rows": len(rows), "trees": b.num_trees(), "predict_s": total,
+            "split_s": {"decisions_host": split["decisions_s"],
+                        "dp_device": split["dp_s"]},
+            "peak_device_bytes": int(peak),
+            "max_abs_vs_cpu": float(np.max(np.abs(contrib[:len(sub)] - cpu))),
+            "cpu_rows": len(sub), "cpu_s": cpu_s,
+            "max_abs_sum_vs_raw": float(np.max(np.abs(sums - raw))),
+            "depth_buckets": [int(bk.Db) for bk in stack.buckets]}
+
+
+def cli_phase(lgb, args):
+    """``python -m lightgbm_tpu_torch`` on a 50,000-row CSV with a header,
+    a named label column and a ``.weight`` side file: train, predict and
+    convert_model, each a fresh interpreter on the card."""
+    import tempfile
+    from lightgbm_tpu_torch import cli, native
+    from lightgbm_tpu_torch.io.codegen import model_to_if_else
+    X, y = higgs_rows(args)[:2]
+    X, y = X[:CLI_ROWS], y[:CLI_ROWS]
+    w = np.random.RandomState(args.seed).uniform(0.5, 1.5, CLI_ROWS)
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=repo)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        csv = os.path.join(tmp, "train.csv")
+        cols = [f"f{j}" for j in range(X.shape[1])]
+        with open(csv, "w") as fh:
+            fh.write(",".join(cols[:3] + ["label"] + cols[3:]) + "\n")
+            body = np.column_stack([X[:, :3], y, X[:, 3:]])
+            np.savetxt(fh, body, delimiter=",", fmt="%.9g")
+        np.savetxt(csv + ".weight", w, fmt="%.6f")
+        t0 = time.time()
+        mat, fmt = native.parse_text_file(csv, has_header=True)
+        t_native = time.time() - t0
+        t0 = time.time()
+        ref, _ = native._parse_text_file_py(csv, True)
+        t_plain = time.time() - t0
+        if not np.array_equal(mat, ref, equal_nan=True):
+            raise AssertionError("the native parser differs from the plain "
+                                 "parser")
+        args_train = ["task=train", "objective=binary", "data=train.csv",
+                      "header=true", "label_column=name:label",
+                      f"num_iterations={CLI_ROUNDS}", "num_leaves=255",
+                      "output_model=model.txt", "verbosity=-1",
+                      "device_type=cuda"]
+        steps = {}
+        for step, a in (("train", args_train),
+                        ("predict", ["task=predict", "data=train.csv",
+                                     "header=true", "label_column=name:label",
+                                     "input_model=model.txt",
+                                     "output_result=preds.txt",
+                                     "verbosity=-1", "device_type=cuda"]),
+                        ("convert_model", ["task=convert_model",
+                                           "input_model=model.txt",
+                                           "convert_model=model.cpp",
+                                           "verbosity=-1",
+                                           "device_type=cuda"])):
+            t0 = time.time()
+            res = subprocess.run([sys.executable, "-m", "lightgbm_tpu_torch",
+                                  *a], cwd=tmp, env=env, capture_output=True,
+                                 text=True, timeout=300)
+            steps[step] = time.time() - t0
+            if res.returncode != 0:
+                raise AssertionError(f"CLI task={step} failed:\n"
+                                     f"{res.stderr[-3000:]}")
+        params = dict(x.split("=", 1) for x in args_train)
+        Xf, yf, wf, gf, inf = cli.load_data_file(
+            csv, lgb.Config.from_params(dict(params)))
+        if wf is None or not np.array_equal(wf, np.loadtxt(csv + ".weight")):
+            raise AssertionError("the .weight side file was not read")
+        ds = lgb.Dataset(Xf, label=yf, weight=wf, params=dict(params),
+                         free_raw_data=False)
+        booster = lgb.train(dict(params), ds, CLI_ROUNDS)
+        text = open(os.path.join(tmp, "model.txt")).read()
+        if booster.model_to_string() != text:
+            raise AssertionError("the CLI's model text differs from train "
+                                 "on the same parsed arrays")
+        preds = np.loadtxt(os.path.join(tmp, "preds.txt"))
+        want = np.array([float(f"{v:.10g}") for v in booster.predict(Xf)])
+        if not np.array_equal(preds, want):
+            raise AssertionError("the CLI's predictions differ from "
+                                 "Booster.predict")
+        cpu_cpp = model_to_if_else(lgb.Booster(
+            params={"device_type": "cpu"},
+            model_file=os.path.join(tmp, "model.txt"))._boosting)
+        if open(os.path.join(tmp, "model.cpp")).read() != cpu_cpp:
+            raise AssertionError("convert_model's C++ differs from the "
+                                 "CPU's")
+        out = {"rows": CLI_ROWS, "columns": int(mat.shape[1]),
+               "format": fmt, "native_parse_s": t_native,
+               "plain_parse_s": t_plain, "task_s": steps,
+               "model_text_equal_train": True,
+               "predictions_equal_booster": True,
+               "cpp_equal_cpu_bytes": len(cpu_cpp)}
+    return out
+
+
+def sklearn_phase(lgb, args):
+    """LGBMRegressor fit and predict on the card: bitwise ``train`` with
+    the parameters it maps."""
+    from lightgbm_tpu_torch import sklearn as sk
+    X, y = higgs_rows(args)[:2]
+    X, y = X[:CLI_ROWS], y[:CLI_ROWS]
+    est = lgb.LGBMRegressor(n_estimators=CLI_ROUNDS, num_leaves=255,
+                            device_type="cuda")
+    t0 = time.time()
+    est.fit(X, y)
+    pred = est.predict(X)
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    params = est._booster_params()
+    b = lgb.train(dict(params), lgb.Dataset(X, label=y, params=dict(params),
+                                            free_raw_data=False), CLI_ROUNDS)
+    if b.model_to_string() != est.booster_.model_to_string():
+        raise AssertionError("LGBMRegressor's model differs from train's")
+    _equal("LGBMRegressor.predict", pred, b.predict(X))
+    return {"rows": CLI_ROWS, "seconds": secs, "sklearn_importable":
+            sk._SKLEARN, "model_text_equal_train": True,
+            "predict_equal_train": True}
+
+
+def predict_phases(lgb, cuda_hist, args):
+    """The predict group's phases, each emitted; returns the kernels line's
+    entry of predict_ensemble."""
+    from lightgbm_tpu_torch.ops import predict as P
+    X, y, Xv, yv = higgs_rows(args)
+    t0 = time.time()
+    b, train_s = predict_model(lgb, args, X[:PREDICT_TRAIN_ROWS],
+                               y[:PREDICT_TRAIN_ROWS])
+    model = (b, X, Xv)
+    pe = predict_ensemble_phase(lgb, P, args, model)
+    emit("predict_ensemble", seconds=time.time() - t0,
+         model={"rows": PREDICT_TRAIN_ROWS, "rounds": PREDICT_ROUNDS,
+                "leaves": LEAVES, "train_s": train_s}, **pe)
+    t0 = time.time()
+    pr, paths = predict_e2e_phase(lgb, cuda_hist, P, args, model)
+    emit("predict", seconds=time.time() - t0, **pr)
+    t0 = time.time()
+    pc = predict_contrib_phase(lgb, cuda_hist, args, model)
+    emit("predict_contrib", seconds=time.time() - t0, **pc)
+    t0 = time.time()
+    cl = cli_phase(lgb, args)
+    emit("cli", seconds=time.time() - t0, **cl)
+    emit("sklearn", **sklearn_phase(lgb, args))
+    main_case = pe["2M"]
+    return {
+        "name": "predict_ensemble", "route": "cuda",
+        "source": "lightgbm_tpu_torch/csrc/predict_ensemble.cu",
+        "replaces": "none, a port-only kernel: lightgbm_tpu/models/"
+                    "predict_engine.py:123 _accum_core + :182 _leaves_core "
+                    "are plain jnp scans (no pallas_call)",
+        "launches": paths["predict/2M"], "max_abs_err": 0.0,
+        **{k: main_case[k] for k in ("ms", "device_ms", "plain_ms",
+                                     "bound_ms", "bound_by", "library_ms",
+                                     "node_visits", "rows", "trees")},
+        "leaves_ms": main_case["leaves_ms"],
+        "shapes": {k: {kk: v[kk] for kk in ("ms", "device_ms", "plain_ms",
+                                            "bound_ms", "bound_by")}
+                   for k, v in pe.items() if "ms" in v},
+        "cases_bitwise": sum(v["cases_bitwise"] for v in pe.values()),
+        "launches_by_path": {k: v for k, v in paths.items() if v > 0}}
+
+
 def per_launch(profile, name):
     """A kernel's device ms a launch in a train phase's profile
     (``own_kernels``)."""
@@ -4015,7 +4564,8 @@ def main() -> int:
                          "parent commit from git archive): its hist_tile "
                          "forms are timed on the same inputs before and "
                          "after this run's phases")
-    ap.add_argument("--only", choices=("precision", "control"), default=None,
+    ap.add_argument("--only", choices=("precision", "control", "predict"),
+                    default=None,
                     help="run the device, build and train phases and this "
                          "group's phases alone (a quicker check of one "
                          "group; without it every phase runs)")
@@ -4061,6 +4611,18 @@ def main() -> int:
         print(json.dumps({"launches_by_path": {
             k: fused_launches(c) for k, c in control.items()},
             "total_seconds": time.time() - t_start}), flush=True)
+        print(smi, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
+    if args.only == "predict":
+        tr, launches = train_phase(lgb, cuda_hist, args)
+        emit("train", **tr)
+        entry = predict_phases(lgb, cuda_hist, args)
+        print(json.dumps({"kernels": [entry],
+                          "total_seconds": time.time() - t_start}),
+              flush=True)
         print(smi, flush=True)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": kind,
@@ -4171,6 +4733,7 @@ def main() -> int:
     emit("parity_data", **pdata)
     prec = precision_phases(lgb, cuda_hist, args, tr["valid_auc"])
     control = control_phases(lgb, cuda_hist, args, tr)
+    predict_entry = predict_phases(lgb, cuda_hist, args)
 
     hv = hist_variants_phase(cuda_hist)
     emit("hist_variants", **hv)
@@ -4482,6 +5045,7 @@ def main() -> int:
         kernels[5]["parent_ms"] = [pt["split_epilogue_q8"] for pt in parent]
         kernels[6]["parent_ms"] = {v: [pt[f"hist_onehot/{v}"]
                                        for pt in parent] for v in VARIANTS}
+    kernels.append(predict_entry)
     print(json.dumps({"kernels": kernels,
                       "total_seconds": time.time() - t_start}), flush=True)
     print(smi, flush=True)

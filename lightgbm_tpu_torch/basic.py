@@ -248,6 +248,24 @@ class Dataset:
                        weight=None if w is None else w[idx],
                        params=params or self.params)
 
+    def save_binary(self, filename: str) -> "Dataset":
+        """Serialize to the .bin snapshot format the CLI's save_binary task
+        writes (reference: Dataset.save_binary -> SaveBinaryFile; the CLI
+        loads it with data=<file>.bin)."""
+        if self.data is None:
+            log.fatal("save_binary needs the raw data (free_raw_data=False)")
+        if _is_scipy_sparse(self.data):
+            # the .bin format stores dense float arrays, loaded without
+            # pickles
+            log.fatal("save_binary does not support scipy-sparse data")
+        if self.label is None:
+            log.fatal("save_binary needs a label")
+        from .cli import _save_binary
+        X = _to_2d_float(self._pandas_to_codes(self.data))
+        _save_binary(filename, X, self.get_label(), self.get_weight(),
+                     self.get_group(), self.get_init_score())
+        return self
+
     def get_feature_names(self) -> List[str]:
         self.construct()
         return self._feature_names

@@ -152,14 +152,34 @@ class Booster:
 
     # ------------------------------------------------------------- predict
     def predict(self, data, start_iteration: int = 0,
-                num_iteration: Optional[int] = None,
-                raw_score: bool = False) -> np.ndarray:
+                num_iteration: Optional[int] = None, raw_score: bool = False,
+                pred_leaf: bool = False, pred_contrib: bool = False,
+                pred_early_stop: bool = False,
+                pred_early_stop_freq: int = 10,
+                pred_early_stop_margin: float = 10.0,
+                **kwargs) -> np.ndarray:
+        """Predict on new data (reference: basic.py Booster.predict):
+        converted or raw scores, per-tree leaf indices (``pred_leaf``;
+        like the JAX package, from the first iteration), SHAP
+        contributions (``pred_contrib``), with margin-based early stop.
+        A trained model predicts through the device engine
+        (``models/predict_engine.py``: one kernel launch a row chunk, the
+        ``[N, K]`` result the only transfer), tuned by
+        ``predict_chunk_rows`` and ``predict_accum``; a model loaded from
+        text predicts on the host."""
         if num_iteration is None:
             num_iteration = self.best_iteration if self.best_iteration > 0 \
                 else -1
-        return self._boosting.predict(data, raw_score=raw_score,
-                                      num_iteration=num_iteration,
-                                      start_iteration=start_iteration)
+        if pred_leaf:
+            return self._boosting.predict_leaf(data, num_iteration)
+        if pred_contrib:
+            return self._boosting.predict_contrib(data, num_iteration)
+        return self._boosting.predict(
+            data, raw_score=raw_score, num_iteration=num_iteration,
+            start_iteration=start_iteration,
+            pred_early_stop=pred_early_stop,
+            pred_early_stop_freq=pred_early_stop_freq,
+            pred_early_stop_margin=pred_early_stop_margin)
 
     # ------------------------------------------------------------ model IO
     def model_to_string(self, num_iteration: Optional[int] = None,
@@ -333,8 +353,8 @@ class Booster:
         idx = list(range(start_iteration, end))
         perm = idx[:]
         b._shuffle_rand.shuffle(perm)
-        # the port keeps no cache that holds tree order: the trees, their
-        # host views and their biases are the whole of it
+        # the trees, their host views and their biases hold the order; the
+        # prediction caches check each position's tree object and rebuild
         for attr in ("trees", "host_trees", "tree_bias"):
             arr = getattr(b, attr)
             orig = list(arr)

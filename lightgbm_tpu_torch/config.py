@@ -759,6 +759,19 @@ _SLICE_PARAMS = frozenset({
     "first_metric_only", "refit_decay_rate", "early_stopping_round",
     # sub-seeds derived from ``seed`` in __post_init__
     "bagging_seed", "drop_seed", "feature_fraction_seed", "extra_seed",
+    # prediction and the user surface: the CLI's data files (the parser is
+    # always exact, so precise_float_parser has no effect, as in the JAX
+    # package), the predict and convert tasks, and the engine's parameters
+    # (predict_bucket_min_rows has no effect: the port pads no rows)
+    "data", "valid", "header", "label_column", "weight_column",
+    "group_column", "ignore_column", "two_round", "save_binary",
+    "precise_float_parser", "start_iteration_predict",
+    "num_iteration_predict", "predict_raw_score", "predict_leaf_index",
+    "predict_contrib", "predict_disable_shape_check", "pred_early_stop",
+    "pred_early_stop_freq", "pred_early_stop_margin", "output_result",
+    "convert_model_language", "convert_model", "input_model",
+    "output_model", "predict_bucket_min_rows", "predict_chunk_rows",
+    "predict_accum",
 })
 
 # ROADMAP.md "Queue 1" item that brings each group of parameters
@@ -769,15 +782,6 @@ for _names, _item in (
         (("hist_block", "hist_autotune"),
          "Queue 2 (autotune_hist becomes a Hopper sweep over rows per "
          "block)"),
-        (("data", "valid", "header", "label_column", "weight_column", "group_column", "ignore_column", "two_round",
-          "save_binary", "precise_float_parser", "start_iteration_predict",
-          "num_iteration_predict", "predict_raw_score", "predict_leaf_index",
-          "predict_contrib", "predict_disable_shape_check",
-          "pred_early_stop", "pred_early_stop_freq",
-          "pred_early_stop_margin", "output_result",
-          "convert_model_language", "convert_model", "input_model",
-          "output_model"),
-         "Queue 1 item 12b (the data-file, predict and convert API)"),
         (("boost_rounds_per_dispatch", "compile_cache_dir",
           "compile_warmup"),
          "Queue 1 item 13 (dispatch)"),
@@ -790,10 +794,9 @@ for _names, _item in (
           "top_k", "pre_partition", "heartbeat_interval",
           "collective_deadline", "max_restarts", "rank_restart_budget",
           "min_world_size", "construct_chunk_rows", "construct_streaming",
-          "sketch_max_size"),
+          "sketch_max_size", "predict_sharded"),
          "Queue 1 item 15 (distributed)"),
-        (("predict_bucket_min_rows", "predict_chunk_rows", "predict_sharded",
-          "predict_accum", "serve_flush_ms", "serve_max_batch_rows",
+        (("serve_flush_ms", "serve_max_batch_rows",
           "serve_max_queue_rows", "serve_deadline_ms", "serve_metrics",
           "serve_metrics_port", "serve_metrics_host",
           "telemetry_flight_recorder", "telemetry_ring_size",
@@ -893,3 +896,17 @@ def _coerce(cfg: Config, key: str, value: Any) -> Any:
     if isinstance(current, float):
         return float(value)
     return value
+
+
+def parse_config_file(path: str) -> Dict[str, str]:
+    """Parse a CLI ``key = value`` config file (reference:
+    application.cpp:52-85, Config::KV2Map). Text after '#' is a comment."""
+    params: Dict[str, str] = {}
+    with open(path) as fh:
+        for line in fh:
+            line = line.split("#", 1)[0].strip()
+            if not line or "=" not in line:
+                continue
+            key, value = line.split("=", 1)
+            params[key.strip()] = value.strip()
+    return params

@@ -23,6 +23,10 @@ object: the caller converts to numpy first.
 
 Prediction bins ``X`` with the carried mappers and traverses the carried
 bin thresholds, accumulating in float64 in tree order.
+
+``booster_to_numpy`` is the inverse for a booster the port trained on
+unbundled data: its trees and mappers as the same numpy fields, e.g. to
+carry a card booster's trees to a ``device_type="cpu"`` twin.
 """
 
 from __future__ import annotations
@@ -117,3 +121,39 @@ def booster_from_numpy(trees: Sequence[Dict[str, Any]],
             arrays, thr, np.asarray(used, np.int32),
             np.asarray(fields.get("missing_type", np.zeros(n)), np.int8)))
     return Booster._wrap(params, config, gbdt)
+
+
+_TREE_FIELDS = ("split_feature", "threshold_bin", "threshold", "default_left",
+                "left_child", "right_child", "leaf_value", "leaf_weight",
+                "leaf_count", "split_gain", "internal_value",
+                "internal_weight", "internal_count", "leaf_depth",
+                "leaf_parent", "missing_type", "is_cat", "cat_bitset")
+
+
+def booster_to_numpy(booster: Booster, device_type: Optional[str] = None
+                     ) -> tuple:
+    """(trees, meta) of a booster the port trained, for
+    ``booster_from_numpy``: each tree's HostTree fields as numpy, the bin
+    mappers, used features, objective and parameters (``device_type``:
+    where the carried booster runs; default the same device). A model of
+    EFB bundles or linear leaves has no such form."""
+    g = booster._boosting
+    ds = g.train_set
+    if ds.bundles is not None or g.config.linear_tree or g.loaded is not None:
+        raise ValueError("booster_to_numpy carries plain trees only (no EFB "
+                         "bundles, linear leaves or init model)")
+    trees = []
+    for ht in g.host_trees:
+        fields = {k: np.array(getattr(ht, k)) for k in _TREE_FIELDS}
+        fields["num_leaves"] = int(ht.num_leaves)
+        fields["shrinkage"] = float(ht.shrinkage)
+        trees.append(fields)
+    cfg = g.config
+    meta = {"mappers": list(ds.mappers),
+            "used_features": np.asarray(ds.used_features, np.int32),
+            "objective": cfg.objective, "num_class": cfg.num_class,
+            "sigmoid": cfg.sigmoid, "average_output": g.average_output,
+            "feature_names": ds.get_feature_names(),
+            "params": cfg.to_params(),
+            "device_type": device_type or cfg.device_type}
+    return trees, meta

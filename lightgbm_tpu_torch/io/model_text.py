@@ -576,21 +576,35 @@ class LoadedGBDT:
         return start, end
 
     def predict_raw(self, X, num_iteration: Optional[int] = None,
-                    start_iteration: int = 0) -> np.ndarray:
+                    start_iteration: int = 0,
+                    pred_early_stop: bool = False,
+                    pred_early_stop_freq: int = 10,
+                    pred_early_stop_margin: float = 10.0) -> np.ndarray:
+        """Raw scores over raw rows on the host, tree by tree in float64,
+        with margin-based early stop (none for an averaged model)."""
+        from ..models.gbdt import _accumulate_active, _early_stop_mask
         X = self._check_features(X)
         k = self.num_tree_per_iteration
         start, end = self._window(num_iteration, start_iteration)
         out = np.zeros((X.shape[0], k), np.float64)
-        for i, t in enumerate(self.trees[start * k:end * k]):
-            out[:, i % k] += t.predict(X)
+        active = np.ones(X.shape[0], dtype=bool)
+        es = pred_early_stop and not self.average_output
+        for it in range(start, end):
+            for c in range(k):
+                _accumulate_active(out, c, self.trees[it * k + c].predict(X),
+                                   active, es)
+            if es and (it - start + 1) % pred_early_stop_freq == 0:
+                active &= ~_early_stop_mask(out, k, pred_early_stop_margin)
+                if not active.any():
+                    break
         if self.average_output:
             out /= max(end - start, 1)
         return out if k > 1 else out[:, 0]
 
     def predict(self, X, raw_score: bool = False,
                 num_iteration: Optional[int] = None,
-                start_iteration: int = 0) -> np.ndarray:
-        raw = self.predict_raw(X, num_iteration, start_iteration)
+                start_iteration: int = 0, **kwargs) -> np.ndarray:
+        raw = self.predict_raw(X, num_iteration, start_iteration, **kwargs)
         if raw_score or self.objective is None:
             return raw
         return self.objective.convert_output(raw.astype(np.float32))
@@ -604,6 +618,19 @@ class LoadedGBDT:
         cols = [t.leaf_index(X) for t in self.trees[start * k:end * k]]
         return (np.stack(cols, axis=1) if cols
                 else np.zeros((X.shape[0], 0), np.int32))
+
+    def predict_contrib(self, X, num_iteration: Optional[int] = None,
+                        start_iteration: int = 0) -> np.ndarray:
+        """SHAP contributions [N, (F + 1) * K] of the window's trees, the
+        DP in float64 on the CPU (a file-loaded model lives on the
+        host)."""
+        from .shap import predict_contrib_trees
+        X = self._check_features(X)
+        k = self.num_tree_per_iteration
+        start, end = self._window(num_iteration, start_iteration)
+        return predict_contrib_trees(self.trees[start * k:end * k], X,
+                                     self.max_feature_idx + 1, k,
+                                     average=self.average_output)
 
     def feature_importance(self, importance_type: str = "split") -> np.ndarray:
         imp = np.zeros(self.max_feature_idx + 1, np.float64)

@@ -3,8 +3,10 @@
 The port of lightgbm_tpu's ``models/gbdt.py``: the unfused iteration
 (``train_one_iter``: gradients, row sampling, one tree per class, leaf
 renewal, shrinkage, the train and valid score updates, the
-boost-from-average bias fold), evaluation, and raw prediction as a
-float64 accumulation in tree order. A multiclass objective grows
+boost-from-average bias fold), evaluation, and prediction: raw,
+converted, leaves, early-stopped and SHAP, through the device engine
+(``models/predict_engine.py``) with its float64 accumulation in tree
+order, the input checks and an init model's host prefix first. A multiclass objective grows
 ``num_tree_per_iteration`` = K trees an iteration over scores of shape
 [N, K], tree c keyed ``fold_in(PRNGKey(extra_seed), iter * K + c)`` (the
 q8 mode's rounding draw) as in the JAX package.
@@ -79,6 +81,7 @@ so the model text needs no further transfer.
 
 from __future__ import annotations
 
+import threading
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -94,8 +97,9 @@ from ..utils import log
 from ..utils.ordered import linear_row_sum
 from ..utils.random import bits, fold_in, prng_key, stable_argsort, uniform
 from .grower import CegbSpec, grow_tree
+from .predict_engine import PredictEngine, host_tree_depth
 from .tree import (HostTree, TreeArrays, empty_tree, predict_leaf_bins,
-                   predict_value_bins)
+                   predict_value_bins, stack_trees)
 
 
 _RAW_CHUNK = 65536      # rows a bundled model's raw predict densifies at once
@@ -158,6 +162,13 @@ class GBDT:
         # booster's own (reference: gbdt.h num_init_iteration_)
         self.loaded = None
         self.loaded_iters = 0
+        # prediction: the stacked trees, the engines over them and the
+        # model trees of the host paths and pred_contrib (each checked
+        # against the tree objects it was built from)
+        self._stacked_cache = None
+        self._engine_cache: Dict[tuple, tuple] = {}
+        self._engine_lock = threading.Lock()
+        self._mt_cache: Dict[int, tuple] = {}
         if train_set is not None:
             self._init_train(train_set)
 
@@ -988,122 +999,387 @@ class GBDT:
 
     # ------------------------------------------------------- predict
     def _iter_range(self, num_iteration, start_iteration) -> Tuple[int, int]:
-        """[start, end) over every iteration, an init model's first."""
+        """[start, end) over every iteration, an init model's first;
+        ``num_iteration`` counts from ``start_iteration`` (reference: c_api
+        predict semantics, gbdt.h num_iteration_for_pred_)."""
         total = self.loaded_iters + len(self.trees) // \
             self.num_tree_per_iteration
-        start = min(max(start_iteration, 0), total)
         if num_iteration is None or num_iteration <= 0:
-            return start, total
-        return start, min(start + num_iteration, total)
+            return start_iteration, total
+        return start_iteration, min(start_iteration + num_iteration, total)
 
-    def _raw_matrix(self, X) -> np.ndarray:
-        """Raw rows as a dense matrix of the training width (pandas
-        categories as the training codes; scipy-sparse rows densified)."""
+    def _prep_predict_X(self, X):
+        """The predict-time feature matrix: pandas category columns mapped
+        through the training category lists first; scipy-sparse input
+        passes through (binned column by column, not densified). A wrong
+        feature count, a non-numeric column, or a non-finite value the
+        trained bin mappers cannot route (NaN in a feature trained without
+        missing values; +-Inf in a feature whose range never saw it) raises
+        a ValueError naming the column and row; NaN in a feature trained
+        with missing values, and in a categorical feature, stays valid.
+        ``predict_disable_shape_check`` turns every check off."""
         from ..basic import _is_scipy_sparse
-        ts = self.train_set
-        X = (np.asarray(X.toarray(), np.float64) if _is_scipy_sparse(X)
-             else _to_2d_float(ts._pandas_to_codes(X)))
-        if X.shape[1] != ts.num_total_features:
-            log.fatal(f"The number of features in data ({X.shape[1]}) is not "
-                      f"the same as it was in training data "
-                      f"({ts.num_total_features}).")
+        validate = not self.config.predict_disable_shape_check
+        if _is_scipy_sparse(X):
+            if validate:
+                self._validate_predict_matrix(X, sparse=True)
+            return X
+        raw = X
+        X = self.train_set._pandas_to_codes(X)
+        try:
+            X = _to_2d_float(X)
+        except (ValueError, TypeError) as e:
+            self._raise_bad_dtype(raw, e)
+        if X.ndim == 1:
+            X = X.reshape(1, -1)
+        if validate:
+            self._validate_predict_matrix(X, sparse=False)
         return X
 
+    def _raise_bad_dtype(self, raw, cause) -> None:
+        """Name the first non-numeric column of a failed conversion."""
+        cols = None
+        if hasattr(raw, "dtypes"):
+            for ci, dt in enumerate(raw.dtypes):
+                if dt == object or str(dt).startswith(("datetime", "str")):
+                    cols = ci
+                    break
+        elif getattr(raw, "ndim", 0) == 2:
+            for ci in range(raw.shape[1]):
+                try:
+                    np.asarray(raw[:, ci], dtype=np.float64)
+                except (ValueError, TypeError):
+                    cols = ci
+                    break
+        where = f"feature column {cols}" if cols is not None \
+            else "the input"
+        raise ValueError(
+            f"predict input has non-numeric data in {where}: {cause}. "
+            f"Convert categoricals to codes (or pandas category dtype) "
+            f"before predicting.") from cause
+
+    def _validate_predict_matrix(self, X, sparse: bool) -> None:
+        """Shape and finiteness checks against the trained mappers."""
+        expected = self.train_set.num_total_features
+        if X.shape[1] != expected:
+            raise ValueError(
+                f"predict input has {X.shape[1]} feature columns but the "
+                f"model was trained with {expected} (set "
+                f"predict_disable_shape_check=true to bypass)")
+        mappers = self.train_set.mappers
+        if sparse:
+            data = getattr(X, "data", None)
+            flat = (data is not None and hasattr(data, "dtype")
+                    and data.dtype.kind in "fiu")
+            if flat and (data.size == 0 or bool(np.isfinite(data).all())):
+                return
+            coo = X.tocoo()
+            vals = np.asarray(coo.data, dtype=np.float64) \
+                if coo.nnz else np.zeros(0)
+            bad = ~np.isfinite(vals)
+            for r, c, v in zip(coo.row[bad], coo.col[bad], vals[bad]):
+                self._check_nonfinite(float(v), int(r), int(c), mappers)
+            return
+        # one reduction finds any NaN/Inf; only then walk the columns, one
+        # representative row per kind (NaN, +inf, -inf route differently)
+        with np.errstate(over="ignore", invalid="ignore"):
+            total = float(np.sum(X, dtype=np.float64))
+        if np.isfinite(total):
+            return
+        for c in range(X.shape[1]):
+            col = X[:, c]
+            if np.isfinite(col).all():
+                continue
+            nan_rows = np.flatnonzero(np.isnan(col))
+            if nan_rows.size:
+                self._check_nonfinite(np.nan, int(nan_rows[0]), c, mappers)
+            for sign in (np.inf, -np.inf):
+                rows = np.flatnonzero(col == sign)
+                if rows.size:
+                    self._check_nonfinite(sign, int(rows[0]), c, mappers)
+
+    def _check_nonfinite(self, v: float, row: int, col: int,
+                         mappers) -> None:
+        """Raise unless the trained mapper can route this non-finite value
+        (NaN: the missing bin, a categorical's other bin, a linear leaf's
+        fallback; Inf: only if the training data held it)."""
+        from ..binning import BIN_TYPE_CATEGORICAL, MISSING_NONE
+        m = mappers[col] if mappers and col < len(mappers) else None
+        if m is None or m.bin_type == BIN_TYPE_CATEGORICAL:
+            return
+        if np.isnan(v):
+            if self.config.linear_tree:
+                return
+            if m.missing_type == MISSING_NONE and not m.is_trivial:
+                raise ValueError(
+                    f"predict input has NaN at row {row}, feature column "
+                    f"{col}, but the model was trained without missing "
+                    f"values in that feature — there is no bin to route "
+                    f"it to (set predict_disable_shape_check=true to "
+                    f"bin it arbitrarily)")
+            return
+        if m.is_trivial:
+            return
+        seen = m.max_val if v > 0 else m.min_val
+        if not np.isinf(seen):
+            raise ValueError(
+                f"predict input has {v:+g} at row {row}, feature column "
+                f"{col}; the training data for that feature was bounded "
+                f"([{m.min_val:g}, {m.max_val:g}]) — an infinite value "
+                f"would bin to an arbitrary edge bin (set "
+                f"predict_disable_shape_check=true to allow)")
+
+    # ------------------------------------------------- inference engine
+    def _stacked(self, n_trees: int) -> Optional[TreeArrays]:
+        """The first ``n_trees`` trees stacked, kept while the tree list
+        holds the same tree objects (new trees, DART's rescaling, rollback
+        and shuffles each replace or drop some)."""
+        if n_trees == 0:
+            return None
+        trees = self.trees[:n_trees]
+        hit = self._stacked_cache
+        if hit is not None and len(hit[0]) == n_trees and all(
+                a is b for a, b in zip(hit[0], trees)):
+            return hit[1]
+        stacked = stack_trees(trees)
+        self._stacked_cache = (list(trees), stacked)
+        return stacked
+
+    def _ensemble_depth(self, n_trees: int) -> int:
+        """True max leaf depth over the first n_trees trees: the
+        depth-bounded traversal's trip count, measured once an engine."""
+        d = 0
+        for ht in self.host_trees[:n_trees]:
+            d = max(d, host_tree_depth(ht.left_child, ht.right_child,
+                                       ht.num_leaves))
+        return d
+
+    def _predict_engine(self, num_iteration: Optional[int] = None
+                        ) -> Optional[PredictEngine]:
+        """The engine over the own trees of the first ``num_iteration``
+        iterations (all by default), kept while the stacked trees, their
+        biases and the predict parameters stay the same; two engines at
+        most. The lock makes concurrent first calls build one engine."""
+        with self._engine_lock:
+            k = self.num_tree_per_iteration
+            total = len(self.trees) // k
+            use = total if num_iteration is None or num_iteration <= 0 \
+                else min(num_iteration, total)
+            nt = use * k
+            stacked = self._stacked(nt)
+            if stacked is None:
+                return None
+            cfg = self.config
+            b = np.asarray(self.tree_bias[:nt], np.float64)
+            biases = b if (len(b) == nt and b.size and np.any(b)) else None
+            key = (nt, cfg.predict_accum, cfg.predict_chunk_rows,
+                   None if biases is None else biases.tobytes())
+            hit = self._engine_cache.get(key)
+            if hit is not None and hit[0] is stacked:
+                return hit[1]
+            eng = PredictEngine(
+                stacked, k, nt, self._ensemble_depth(nt), biases=biases,
+                accum=cfg.predict_accum, chunk_rows=cfg.predict_chunk_rows,
+                device=self.device)
+            if len(self._engine_cache) >= 2:
+                self._engine_cache.pop(next(iter(self._engine_cache)))
+            self._engine_cache[key] = (stacked, eng)
+            return eng
+
+    def _convert_on_device(self, s: torch.Tensor) -> np.ndarray:
+        """The objective's output conversion of raw scores cast to float32
+        (the JAX package's conversion input), run where ``s`` lies; the
+        result comes to the host."""
+        out = self.objective.convert_output(s.to(torch.float32))
+        return out.cpu().numpy() if isinstance(out, torch.Tensor) \
+            else np.asarray(out)
+
+    def _host_tree(self, it: int, c: int):
+        """The model tree (real thresholds, original features) of class
+        ``c`` at iteration ``it``: an init model's own, or the booster's,
+        converted once."""
+        from ..io.model_text import ModelTree
+        k = self.num_tree_per_iteration
+        if it < self.loaded_iters:
+            return self.loaded.trees[it * k + c]
+        idx = (it - self.loaded_iters) * k + c
+        mt = self._mt_cache.get(idx)
+        if mt is None or mt[0] is not self.host_trees[idx]:
+            mt = (self.host_trees[idx],
+                  ModelTree.from_host(self.host_trees[idx],
+                                      self.train_set.mappers))
+            self._mt_cache[idx] = mt
+        return mt[1]
+
     def predict_raw(self, X, num_iteration: Optional[int] = None,
-                    start_iteration: int = 0) -> np.ndarray:
-        """Raw scores for raw-feature rows: bin with the train mappers on
-        the device, traverse each tree over the bins, accumulate the float32
-        tree outputs in float64 in tree order (the boost-from-average score
-        lives in the first trees' leaves); [N], or [N, K] with K classes.
-        An init model's iterations come first, its trees walked over the
-        raw rows (their thresholds are real values). An averaged model
-        (RF) divides by the iterations used. A model trained on EFB
-        bundles predicts from the raw features through its model trees
-        (new rows need not keep the training rows' exclusivity, and the
-        reference predicts from real thresholds too), in chunks of
-        ``_RAW_CHUNK`` rows, densifying one chunk at a time. A linear model
-        (``linear_tree``) predicts through its model trees too: its leaves
-        read raw features, and a NaN in a leaf's linear feature takes the
-        plain leaf output."""
-        ts = self.train_set
+                    start_iteration: int = 0,
+                    pred_early_stop: bool = False,
+                    pred_early_stop_freq: int = 10,
+                    pred_early_stop_margin: float = 10.0,
+                    _postprocess=None) -> np.ndarray:
+        """Raw scores for raw-feature rows (the analog of
+        GBDT::PredictRaw, gbdt_prediction.cpp:13-53): binned with the train
+        mappers on the device, then the engine over the own trees (one
+        kernel launch a row chunk; the boost-from-average score lives in
+        the first trees' leaves), accumulated in tree order; [N], or [N, K]
+        with K classes. An init model's iterations come first, its trees
+        walked over the raw rows on the host (their thresholds are real
+        values), and the engine continues from that float64 sum.
+        ``pred_early_stop``: rows whose margin exceeds the threshold at a
+        check round (every ``pred_early_stop_freq`` iterations from
+        ``start_iteration``) stop taking trees (reference:
+        prediction_early_stop.cpp:25-75). A model trained on EFB bundles
+        and a linear model predict from the raw features through their
+        model trees on the host, in chunks of ``_RAW_CHUNK`` rows (new rows
+        need not keep the bundles' exclusivity; linear leaves read raw
+        features). An averaged model (RF) divides by the iterations used,
+        and takes no early stop."""
+        X = self._prep_predict_X(X)
         k = self.num_tree_per_iteration
         start, end = self._iter_range(num_iteration, start_iteration)
-        lo = self.loaded_iters
-        base = None
-        if start < min(end, lo):
-            Xd = self._raw_matrix(X)
-            base = np.zeros((Xd.shape[0], k), np.float64)
-            for it in range(start, min(end, lo)):
-                for c in range(k):
-                    base[:, c] += self.loaded.trees[it * k + c].predict(Xd)
-        own = (max(start - lo, 0), max(end - lo, 0))
-        if ts.bundles is not None or self.config.linear_tree:
-            out = self._predict_model_trees(X, *own, base)
+        es = pred_early_stop and not self.average_output
+        if self.config.linear_tree or self.train_set.bundles is not None:
+            out = self._predict_model_trees(X, start, end, es,
+                                            pred_early_stop_freq,
+                                            pred_early_stop_margin)
         else:
-            out = self._traverse(ts.bin_new_data(X), *own, base)
+            out = self._predict_bins(X, start, end, es,
+                                     pred_early_stop_freq,
+                                     pred_early_stop_margin, _postprocess)
+            if _postprocess is not None:
+                return out
         if self.average_output:
             out /= max(end - start, 1)
         return out if k > 1 else out[:, 0]
 
-    def _traverse(self, binsT: torch.Tensor, start: int, end: int,
-                  base: Optional[np.ndarray] = None,
-                  use_bias: bool = False) -> np.ndarray:
-        """[N, K] float64 sums over a train-aligned bin matrix of the trees
-        of iterations [start, end), in tree order from ``base`` (zeros by
-        default); ``use_bias`` takes each tree's folded boost-from-average
-        bias off its value first, as the JAX package's predict engine
-        does."""
+    def _predict_bins(self, X, start: int, end: int, es: bool, freq: int,
+                      margin: float, postprocess) -> np.ndarray:
+        """[N, K] float64 raw scores of iterations [start, end) over the
+        device bins of ``X``: the init model's prefix on the host, then the
+        engine (``postprocess``: the converted [N] or [N, K] result)."""
+        from ..basic import _is_scipy_sparse
+        binsT = self.train_set.bin_new_data(X)
         k = self.num_tree_per_iteration
-        dev = binsT.device
-        mb = self.train_set.missing_bin.to(dev)
-        out = (torch.zeros((binsT.shape[1], k), dtype=torch.float64,
-                           device=dev) if base is None
-               else torch.as_tensor(base, dtype=torch.float64, device=dev))
-        for i, tree in enumerate(self.trees[start * k:end * k]):
-            leaf = predict_leaf_bins(tree, binsT, mb)
-            v = tree.leaf_value.to(dev)[leaf].to(torch.float64)
-            if use_bias:
-                v = v - self.tree_bias[start * k + i]
-            out[:, i % k] += v
-        return out.cpu().numpy()
+        n = binsT.shape[1]
+        out = np.zeros((n, k), dtype=np.float64)
+        mb = self.train_set.missing_bin
+        active = np.ones(n, dtype=bool)
+        lo = self.loaded_iters
+        if start < min(end, lo) and _is_scipy_sparse(X):
+            X = np.asarray(X.todense())
+        it = start
+        while it < min(end, lo):
+            for c in range(k):
+                _accumulate_active(out, c, self._host_tree(it, c).predict(X),
+                                   active, es)
+            it += 1
+            if es and (it - start) % freq == 0:
+                active &= ~_early_stop_mask(out, k, margin)
+                if not active.any():
+                    return out
+        if it < end:
+            own_end = end - lo
+            eng = self._predict_engine(own_end)
+            rng = ((it - lo) * k, own_end * k)
+            base = out if out.any() else None   # an init model's prefix
+            if not es:
+                res = eng.predict(binsT, mb, base=base, use_bias=False,
+                                  tree_range=rng, postprocess=postprocess)
+                return res if postprocess is not None \
+                    else np.asarray(res, np.float64).reshape(n, k)
+            out = self._predict_early_stop(eng, binsT, mb, out, active, base,
+                                           it, end, start, freq, margin)
+        if postprocess is not None:
+            return postprocess(torch.as_tensor(out if k > 1 else out[:, 0]))
+        return out
 
-    def _predict_model_trees(self, X, start: int, end: int,
-                             base: Optional[np.ndarray] = None) -> np.ndarray:
-        """[N, K] float64 sums of the model trees (real thresholds, original
-        features) over raw rows, chunk by chunk, from ``base`` (zeros by
-        default)."""
-        from ..basic import _is_scipy_sparse, _to_2d_float
-        from ..io.model_text import ModelTree
-        ts = self.train_set
+    def _predict_early_stop(self, eng: PredictEngine, binsT, mb, out, active,
+                            base, it, end_iter, start_iteration, freq,
+                            margin) -> np.ndarray:
+        """Margin-based prediction early stop on the engine: the carry
+        stays on the device across the check chunks (one launch each; the
+        accumulation order is the host loop's), inactive rows keep their
+        carry through a device mask, and the host sees the [n, K] scores
+        only at the check points. Row chunks beyond ``predict_chunk_rows``
+        run one after another (early stop is per row, so chunking is
+        exact)."""
+        k = self.num_tree_per_iteration
+        n = binsT.shape[1]
+        chunk = eng._chunk_rows(n)
+        if n > chunk:
+            return np.concatenate([self._predict_early_stop(
+                eng, binsT[:, a0:min(n, a0 + chunk)], mb,
+                out[a0:a0 + chunk], active[a0:a0 + chunk],
+                None if base is None else base[a0:a0 + chunk], it, end_iter,
+                start_iteration, freq, margin)
+                for a0 in range(0, n, chunk)], axis=0)
+        carry = eng.make_carry(base, n)
+        lo = self.loaded_iters
+        active_dev = torch.as_tensor(active, device=eng.device)
+        while it < end_iter:
+            nxt = start_iteration + ((it - start_iteration) // freq
+                                     + 1) * freq
+            ce = min(end_iter, nxt)
+            carry = eng.accumulate(binsT, mb, carry, active_dev,
+                                   tree_range=((it - lo) * k, (ce - lo) * k),
+                                   use_bias=False)
+            it = ce
+            if (it - start_iteration) % freq == 0 and it < end_iter:
+                out = eng.fetch(carry, n).reshape(n, k)
+                active &= ~_early_stop_mask(out, k, margin)
+                if not active.any():
+                    return out
+                active_dev = torch.as_tensor(active, device=eng.device)
+        return eng.fetch(carry, n).reshape(n, k)
+
+    def _predict_model_trees(self, X, start: int, end: int, es: bool = False,
+                             freq: int = 10, margin: float = 10.0
+                             ) -> np.ndarray:
+        """[N, K] float64 sums of the model trees (real thresholds,
+        original features) of iterations [start, end) over raw rows, an
+        init model's first, chunk by chunk (early stop is per row, so
+        chunking is exact)."""
+        from ..basic import _is_scipy_sparse
         k = self.num_tree_per_iteration
         if _is_scipy_sparse(X):
             X = X.tocsr()
-        else:
-            X = _to_2d_float(ts._pandas_to_codes(X))
-        if X.shape[1] != ts.num_total_features:
-            log.fatal(f"The number of features in data ({X.shape[1]}) is not "
-                      f"the same as it was in training data "
-                      f"({ts.num_total_features}).")
-        mts = [ModelTree.from_host(ht, ts.mappers)
-               for ht in self.host_trees[start * k:end * k]]
-        out = (np.zeros((X.shape[0], k), np.float64) if base is None
-               else base)
+        out = np.zeros((X.shape[0], k), np.float64)
         for r0 in range(0, X.shape[0], _RAW_CHUNK):
             xc = X[r0:r0 + _RAW_CHUNK]
             xc = (np.asarray(xc.toarray(), np.float64)
                   if _is_scipy_sparse(xc) else xc)
-            for i, mt in enumerate(mts):
-                out[r0:r0 + xc.shape[0], i % k] += mt.predict(xc)
+            oc = out[r0:r0 + xc.shape[0]]
+            active = np.ones(xc.shape[0], dtype=bool)
+            for it in range(start, end):
+                for c in range(k):
+                    _accumulate_active(oc, c, self._host_tree(it, c).predict(
+                        xc), active, es)
+                if es and (it - start + 1) % freq == 0:
+                    active &= ~_early_stop_mask(oc, k, margin)
+                    if not active.any():
+                        break
         return out
+
+    def _engine_predict_ok(self) -> bool:
+        """Whether predict converts on the device before the one fetch: the
+        whole ensemble through the engine, with no host prefix (RF's
+        average divides on the host after the sum)."""
+        return (not self.config.linear_tree
+                and self.train_set.bundles is None
+                and self.loaded_iters == 0
+                and not self.average_output
+                and len(self.trees) > 0)
 
     def score_dataset(self, ds: Dataset) -> np.ndarray:
         """Raw scores of a train-aligned Dataset from its bin matrix (the
         JAX package's ``score_dataset``, which ``Booster.eval`` uses): the
-        init scores (or the set's ``init_score``) plus every tree, traversed
-        over the full-width bins (``Dataset.traversal_binsT``: a
-        sparse-stored set's stream columns rebuilt; a bundled set's bundle
-        columns, which the trees' segments read). A linear model predicts
-        from the set's raw features."""
+        init scores (or the set's ``init_score``) plus every tree through
+        the engine, each tree's folded boost-from-average bias taken off
+        its value first, over the full-width bins
+        (``Dataset.traversal_binsT``: a sparse-stored set's stream columns
+        rebuilt; a bundled set's bundle columns, which the trees' segments
+        read). A linear model and an init model's trees read the set's raw
+        features."""
         ds.construct()
         ts = self.train_set
         if ds is not ts and ds.reference is not ts \
@@ -1111,7 +1387,6 @@ class GBDT:
             log.fatal("eval dataset was not binned against the training "
                       "set; construct it with reference=<train Dataset>")
         if self.loaded_iters > 0 or self.config.linear_tree:
-            # an init model's trees and linear leaves read raw features
             from ..basic import _is_scipy_sparse
             raw = ds.raw_data_np
             if raw is None and ds.data is not None:
@@ -1128,22 +1403,85 @@ class GBDT:
                                (n, k)).copy()
         if ds.init_score is not None:
             base = np.asarray(ds.init_score, np.float64).reshape(n, k).copy()
-        if self.trees:
-            # the first trees carry the folded init score, which the base
-            # holds already: each tree's bias comes off its value
-            base = self._traverse(ds.traversal_binsT(), 0,
-                                  len(self.trees) // k, base, use_bias=True)
+        eng = self._predict_engine()
+        if eng is not None:
+            return eng.predict(ds.traversal_binsT(), ds.missing_bin,
+                               base=base if k > 1 else base[:, 0])
         return base if k > 1 else base[:, 0]
 
     def predict(self, X, raw_score: bool = False,
                 num_iteration: Optional[int] = None,
-                start_iteration: int = 0) -> np.ndarray:
-        """Raw scores (float64), or the objective's output computed from
-        the raw scores cast to float32, as the JAX package converts."""
-        raw = self.predict_raw(X, num_iteration, start_iteration)
+                start_iteration: int = 0,
+                pred_early_stop: bool = False,
+                pred_early_stop_freq: int = 10,
+                pred_early_stop_margin: float = 10.0) -> np.ndarray:
+        """Raw scores (float64), or the objective's output of the raw
+        scores cast to float32, as the JAX package converts; where the
+        whole ensemble runs on the engine the conversion runs on the
+        device before the one fetch."""
+        if not (raw_score or self.objective is None) \
+                and not pred_early_stop and self._engine_predict_ok():
+            return self.predict_raw(X, num_iteration, start_iteration,
+                                    _postprocess=self._convert_on_device)
+        raw = self.predict_raw(X, num_iteration, start_iteration,
+                               pred_early_stop=pred_early_stop,
+                               pred_early_stop_freq=pred_early_stop_freq,
+                               pred_early_stop_margin=pred_early_stop_margin)
         if raw_score or self.objective is None:
             return raw
-        return self.objective.convert_output(raw.astype(np.float32))
+        return self._convert_on_device(torch.as_tensor(raw))
+
+    def predict_leaf(self, X, num_iteration: Optional[int] = None,
+                     start_iteration: int = 0) -> np.ndarray:
+        """Per-tree leaf indices [N, trees] (reference: the
+        predict_leaf_index path): an init model's trees over the raw rows,
+        then the engine's leaves over tree-range chunks that keep the
+        [t, N] host buffer under ~256 MB; a bundled model walks its model
+        trees over the raw rows."""
+        from ..basic import _is_scipy_sparse
+        X = self._prep_predict_X(X)
+        bundled = self.train_set.bundles is not None
+        binsT = None if bundled else self.train_set.bin_new_data(X)
+        k = self.num_tree_per_iteration
+        start, end = self._iter_range(num_iteration, start_iteration)
+        if (bundled or start < min(end, self.loaded_iters)) \
+                and _is_scipy_sparse(X):
+            X = np.asarray(X.todense())
+        cols = []
+        it = start
+        while it < min(end, self.loaded_iters) or (bundled and it < end):
+            cols.extend(self._host_tree(it, c).leaf_index(X)
+                        for c in range(k))
+            it += 1
+        if not bundled and it < end:
+            own_end = end - self.loaded_iters
+            eng = self._predict_engine(own_end)
+            n = binsT.shape[1]
+            mb = self.train_set.missing_bin
+            for a, b in _chunked_tree_ranges(it - self.loaded_iters, own_end,
+                                             k, n, itemsize=4):
+                cols.extend(list(eng.leaves(binsT, mb, tree_range=(a, b))))
+        return (np.stack(cols, axis=1) if cols
+                else np.zeros((X.shape[0], 0), np.int32))
+
+    def predict_contrib(self, X, num_iteration: Optional[int] = None,
+                        start_iteration: int = 0) -> np.ndarray:
+        """SHAP feature contributions [N, (F + 1) * K] (reference:
+        GBDT::PredictContrib via Tree::PredictContrib, tree.h:139): the
+        host's per-node decisions, then the batched TreeSHAP DP on the
+        run's device in float64 (``io/shap.py``)."""
+        from ..io.shap import predict_contrib_trees
+        X = self._prep_predict_X(X)
+        k = self.num_tree_per_iteration
+        start, end = self._iter_range(num_iteration, start_iteration)
+        # the model trees are kept (``_host_tree``), so the SHAP stacks
+        # built on them are too
+        trees = [self._host_tree(it, c) for it in range(start, end)
+                 for c in range(k)]
+        return predict_contrib_trees(trees, X,
+                                     self.train_set.num_total_features, k,
+                                     average=self.average_output,
+                                     device=self.device)
 
     def feature_importance(self, importance_type: str = "split") -> np.ndarray:
         imp = np.zeros(self.train_set.num_total_features, np.float64)
@@ -1164,6 +1502,47 @@ class GBDT:
     def current_iteration(self) -> int:
         return len(self.trees) // self.num_tree_per_iteration \
             + self.loaded_iters
+
+
+def _chunk_iters_cap(n: int, k: int, itemsize: int) -> int:
+    """Iterations a stacked-predict launch covers so that the [t, n, k]
+    host buffer stays under ~256 MB."""
+    return max(1, (256 << 20) // itemsize // max(n * k, 1))
+
+
+def _chunked_tree_ranges(start_it: int, end_it: int, k: int, n: int,
+                         itemsize: int):
+    """(a, b) tree ranges covering iterations [start_it, end_it) in
+    buffer-capped chunks."""
+    cap = _chunk_iters_cap(n, k, itemsize)
+    it = start_it
+    while it < end_it:
+        ce = min(end_it, it + cap)
+        yield it * k, ce * k
+        it = ce
+
+
+def _accumulate_active(out: np.ndarray, c: int, delta: np.ndarray,
+                       active: np.ndarray, early_stop: bool) -> None:
+    """Add a tree's outputs to the active rows (a plain add when
+    prediction early stop is off)."""
+    if not early_stop or active.all():
+        out[:, c] += delta
+    else:
+        out[active, c] += delta[active]
+
+
+def _early_stop_mask(out: np.ndarray, k: int,
+                     margin_threshold: float) -> np.ndarray:
+    """Rows whose prediction margin already exceeds the early-stop
+    threshold (reference: prediction_early_stop.cpp: binary margin
+    2|pred| (:58-66), multiclass top1 - top2 (:29-49))."""
+    if k == 1:
+        margin = 2.0 * np.abs(out[:, 0])
+    else:
+        srt = np.sort(out, axis=1)
+        margin = srt[:, -1] - srt[:, -2]
+    return margin > margin_threshold
 
 
 def _call_feval(feval, score_np, ds, ds_name="valid"):

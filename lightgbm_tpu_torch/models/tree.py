@@ -98,22 +98,16 @@ def _decide_left_bins(bin_val, threshold_bin, default_left, missing_bin,
     return torch.where(is_cat, cat_left, num_left)
 
 
-def predict_leaf_bins(tree: TreeArrays, binsT: torch.Tensor,
-                      missing_bin: torch.Tensor) -> torch.Tensor:
-    """Leaf index per row by traversing the feature-major bin matrix
-    ``binsT`` [F, N] level by level (every active row descends one edge per
-    step; the loop ends when no row is at an internal node). [N] int64."""
-    n = binsT.shape[1]
-    dev = binsT.device
-    leaf = torch.zeros((n,), dtype=torch.int64, device=dev)
-    if int(tree.num_leaves) <= 1 or binsT.shape[0] == 0:
-        return leaf
-    t = tree.to(dev)
-    cols = torch.arange(n, device=dev)
-    cur = torch.zeros((n,), dtype=torch.int64, device=dev)
+def _traversal_step(t: TreeArrays, binsT: torch.Tensor,
+                    missing_bin: torch.Tensor, cols: torch.Tensor):
+    """The step of the level-by-level traversal: every row still at an
+    internal node (``cur`` >= 0) descends one edge; a row that reaches a
+    leaf records it. Shared by the data-dependent and the depth-bounded
+    loops."""
     words = t.node_cat_bitset.shape[1]
     bits = t.node_cat_bitset.reshape(-1)
-    for _ in range(int(tree.num_leaves) - 1):   # depth <= num_leaves - 1
+
+    def step(cur, leaf):
         node = cur.clamp(min=0)
         feat = t.node_feature[node].to(torch.int64)
         b = binsT[feat, cols].to(torch.int32)
@@ -127,10 +121,117 @@ def predict_leaf_bins(tree: TreeArrays, binsT: torch.Tensor,
         active = cur >= 0
         nxt = torch.where(active, nxt, cur)
         leaf = torch.where(active & (nxt < 0), ~nxt, leaf)
-        cur = nxt
+        return nxt, leaf
+    return step
+
+
+def predict_leaf_bins(tree: TreeArrays, binsT: torch.Tensor,
+                      missing_bin: torch.Tensor) -> torch.Tensor:
+    """Leaf index per row by traversing the feature-major bin matrix
+    ``binsT`` [F, N] level by level (every active row descends one edge per
+    step; the loop ends when no row is at an internal node). [N] int64."""
+    n = binsT.shape[1]
+    dev = binsT.device
+    leaf = torch.zeros((n,), dtype=torch.int64, device=dev)
+    if int(tree.num_leaves) <= 1 or binsT.shape[0] == 0:
+        return leaf
+    step = _traversal_step(tree.to(dev), binsT, missing_bin,
+                           torch.arange(n, device=dev))
+    cur = torch.zeros((n,), dtype=torch.int64, device=dev)
+    for _ in range(int(tree.num_leaves) - 1):   # depth <= num_leaves - 1
+        cur, leaf = step(cur, leaf)
         if not bool((cur >= 0).any()):
             break
     return leaf
+
+
+def predict_leaf_bins_depth(tree: TreeArrays, binsT: torch.Tensor,
+                            missing_bin: torch.Tensor,
+                            depth: int) -> torch.Tensor:
+    """Depth-bounded traversal: ``depth`` steps, a fixed trip count with no
+    host sync, instead of the loop above that stops when every row is at a
+    leaf. ``depth`` must be at least the deepest leaf's edge count; rows at
+    a leaf already stay put, so the leaves are identical to
+    ``predict_leaf_bins``'s. The tree's tensors must lie on ``binsT``'s
+    device. [N] int64."""
+    n = binsT.shape[1]
+    dev = binsT.device
+    leaf = torch.zeros((n,), dtype=torch.int64, device=dev)
+    if binsT.shape[0] == 0:
+        return leaf
+    step = _traversal_step(tree, binsT, missing_bin,
+                           torch.arange(n, device=dev))
+    # a single-leaf tree has no node to walk: every row starts at leaf 0
+    cur = torch.where(tree.num_leaves <= 1, -1, 0).to(torch.int64).expand(
+        n).clone()
+    for _ in range(depth):
+        cur, leaf = step(cur, leaf)
+    return leaf
+
+
+def stack_trees(trees) -> TreeArrays:
+    """The trees' arrays stacked on a leading T axis (the batched form of
+    GBDT::PredictRaw's per-tree loop, gbdt_prediction.cpp:13-53). Trees of
+    a smaller leaf capacity or fewer bitset words are padded: padding is
+    never reached by a traversal."""
+    cap = max(int(t.leaf_value.shape[0]) for t in trees)
+    words = max(int(t.node_cat_bitset.shape[1]) for t in trees)
+    fields = []
+    for name, pad_val in (("num_leaves", None), ("node_feature", 0),
+                          ("node_threshold_bin", 0),
+                          ("node_default_left", False), ("node_left", -1),
+                          ("node_right", -1), ("node_gain", 0.0),
+                          ("node_value", 0.0), ("node_weight", 0.0),
+                          ("node_count", 0.0), ("node_cat", False),
+                          ("node_cat_bitset", 0), ("node_seg_lo", -1),
+                          ("node_seg_hi", -1), ("leaf_value", 0.0),
+                          ("leaf_weight", 0.0), ("leaf_count", 0.0),
+                          ("leaf_depth", 0), ("leaf_parent", -1),
+                          ("shrinkage", None)):
+        xs = [getattr(t, name) for t in trees]
+        if pad_val is not None:
+            size = cap if name.startswith("leaf_") else max(cap - 1, 0)
+            out = []
+            for x in xs:
+                shape = (size,) + ((words,) if name == "node_cat_bitset"
+                                   else ())
+                if tuple(x.shape) != shape:
+                    y = torch.full(shape, pad_val, dtype=x.dtype,
+                                   device=x.device)
+                    y[tuple(slice(0, s) for s in x.shape)] = x
+                    x = y
+                out.append(x)
+            xs = out
+        fields.append(torch.stack(xs, dim=0))
+    return TreeArrays(*fields)
+
+
+def tree_at(stacked: TreeArrays, t: int) -> TreeArrays:
+    """Tree ``t`` of a stacked ensemble (views, no copy)."""
+    return TreeArrays(*(x[t] for x in stacked))
+
+
+def predict_leaves_stacked(stacked: TreeArrays, binsT: torch.Tensor,
+                           missing_bin: torch.Tensor,
+                           depth: int) -> torch.Tensor:
+    """Per-tree leaf indices over a stacked ensemble (on ``binsT``'s
+    device), each tree by the depth-bounded traversal: [T, N] int64."""
+    n = binsT.shape[1]
+    t_count = int(stacked.leaf_value.shape[0])
+    out = torch.zeros((t_count, n), dtype=torch.int64, device=binsT.device)
+    for t in range(t_count):
+        out[t] = predict_leaf_bins_depth(tree_at(stacked, t), binsT,
+                                         missing_bin, depth)
+    return out
+
+
+def predict_values_stacked(stacked: TreeArrays, binsT: torch.Tensor,
+                           missing_bin: torch.Tensor,
+                           depth: int) -> torch.Tensor:
+    """Per-tree outputs over a stacked ensemble: [T, N] float32 (summed by
+    the caller in float64, in tree order)."""
+    leaves = predict_leaves_stacked(stacked, binsT, missing_bin, depth)
+    return torch.gather(stacked.leaf_value, 1, leaves)
 
 
 def predict_value_bins(tree: TreeArrays, binsT: torch.Tensor,

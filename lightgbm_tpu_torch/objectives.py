@@ -197,14 +197,17 @@ def _f32(v: float, like: torch.Tensor) -> torch.Tensor:
 
 def _as_f32(raw) -> torch.Tensor:
     """Raw scores for an output conversion: float32, as the JAX package
-    converts them."""
+    converts them; a tensor stays on its device (a predict converts on the
+    card before its one fetch)."""
+    if isinstance(raw, torch.Tensor):
+        return raw.to(torch.float32)
     return torch.as_tensor(np.asarray(raw)).to(torch.float32)
 
 
 def _sigmoid(raw, scale: float) -> np.ndarray:
     """``1 / (1 + exp(-scale * raw))`` on float32 raw scores."""
     r = _as_f32(raw)
-    return _ftz(1.0 / (1.0 + exp_f32(_f32(-scale, r) * r))).numpy()
+    return _ftz(1.0 / (1.0 + exp_f32(_f32(-scale, r) * r))).cpu().numpy()
 
 
 class ObjectiveFunction:
@@ -276,7 +279,7 @@ class RegressionL2(ObjectiveFunction):
     def convert_output(self, raw):
         if self.config.reg_sqrt:
             r = _as_f32(raw)
-            return (torch.sign(r) * r * r).numpy()
+            return (torch.sign(r) * r * r).cpu().numpy()
         return raw
 
 
@@ -364,7 +367,7 @@ class RegressionPoisson(RegressionL2):
         return float(np.log(max(mean, 1e-300)))
 
     def convert_output(self, raw):
-        return exp_f32(_as_f32(raw)).numpy()
+        return exp_f32(_as_f32(raw)).cpu().numpy()
 
 
 class RegressionQuantile(RegressionL2):
@@ -578,7 +581,7 @@ class MulticlassSoftmax(ObjectiveFunction):
         return float(np.log(max(K_EPSILON, self.class_init_probs[class_id])))
 
     def convert_output(self, raw):
-        return softmax_f32(_as_f32(raw)).numpy()
+        return softmax_f32(_as_f32(raw)).cpu().numpy()
 
 
 class MulticlassOVA(ObjectiveFunction):
@@ -674,7 +677,7 @@ class CrossEntropyLambda(CrossEntropy):
                 else float(np.log(K_EPSILON)))
 
     def convert_output(self, raw):
-        return log1p_f32(exp_f32(_as_f32(raw))).numpy()
+        return log1p_f32(exp_f32(_as_f32(raw))).cpu().numpy()
 
 
 _REGISTRY = {c.name: c for c in (

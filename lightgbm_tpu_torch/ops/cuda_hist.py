@@ -55,9 +55,10 @@ plain version is exact already);
 card run's bits.
 
 Learning to rank's pairwise lambda kernel (``csrc/lambdarank.cu``, no TPU
-counterpart) has its wrapper and plain versions in ``ops/rank.py``; it is
-built and bound here with the others and counted with them
-(``register_counters``).
+counterpart) has its wrapper and plain versions in ``ops/rank.py``, and
+the ensemble traversal of a predict (``csrc/predict_ensemble.cu``, no TPU
+counterpart either) in ``ops/predict.py``; both are built and bound here
+with the others and counted with them (``register_counters``).
 
 Off the training path, ``hist_onehot`` (``csrc/hist_onehot.cu``) is the
 experiment script's one-hot histogram on the bf16 tensor cores
@@ -107,7 +108,8 @@ _FULL_THREADS = 1024        # threads of a full_accumulate block (32 warps)
 _SCATTER_TILE = 256         # rung entries (threads) of a gather scatter block
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD = Path(__file__).resolve().parent.parent / "_build"
-_SOURCES = ("hist_tile", "split_epilogue", "hist_onehot", "lambdarank")
+_SOURCES = ("hist_tile", "split_epilogue", "hist_onehot", "lambdarank",
+            "predict_ensemble")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "--fmad=false", "-std=c++17", "-shared", "-Xcompiler",
               "-fPIC", "-Xptxas", "-v")
@@ -261,6 +263,12 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
                                           + [ctypes.c_float, ci]
                                           + [vp] * 4 + [ci, vp])
         lib.lambdarank_launch.restype = ci
+    elif name == "predict_ensemble":
+        lib.predict_ensemble_launch.argtypes = ([vp, ci, ctypes.c_longlong,
+                                                 ci] + [vp] * 3 + [ci] * 2
+                                                + [vp, ci, vp] + [ci] * 3
+                                                + [vp] * 5 + [ci] * 2 + [vp])
+        lib.predict_ensemble_launch.restype = ci
     else:
         ll = ctypes.c_longlong
         lib.hist_onehot_launch.argtypes = ([vp] * 4 + [ci, ll] + [ci] * 5

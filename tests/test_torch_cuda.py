@@ -66,6 +66,12 @@ stopping with a rate schedule, fobj with feval, init_model, rollback,
 reset_parameter mid-run, a cv fold's booster): the same text twice and the
 CPU's with the kernel's sums, through the fused path's kernels; and
 free_dataset gives back at least the bin matrix's device bytes.
+Prediction: the ensemble traversal kernel (``predict_ensemble``) bitwise
+its plain version and a second launch in every accumulation mode, with
+biases and an active mask, in leaves mode, on uint8 and int16 bins,
+categorical bitsets and 3 classes; a card booster's predictions bitwise
+those of its trees carried to a CPU booster, its SHAP values within
+1e-9 / 1e-11.
 """
 
 import contextlib
@@ -1184,3 +1190,94 @@ def test_free_dataset_releases_device_memory(dev):
     torch.cuda.synchronize()
     assert before - torch.cuda.memory_allocated() >= bins_bytes
     np.testing.assert_array_equal(b.predict(X[:1000]), pred)
+
+
+def _predict_model(kind, device):
+    """A small model trained on ``device``: uint8 bins (``u8``), int16
+    bins (``wide``, max_bin 1,023), a 300-category feature (``cat``), 3
+    classes (``multi``) or a >= 90%-zero column stored sparse
+    (``sparse``)."""
+    import lightgbm_tpu_torch as lgb
+    rng = np.random.RandomState(21)
+    n = 20_000
+    X = rng.randn(n, 10)
+    X[rng.rand(n) < 0.05, 2] = np.nan
+    y = (X[:, 0] + X[:, 1] * np.nan_to_num(X[:, 2]) > 0).astype(float)
+    p = {"objective": "binary", "num_leaves": 31, "verbosity": -1,
+         "device_type": device}
+    kw = {}
+    if kind == "wide":
+        p["max_bin"] = 1023
+    if kind == "cat":
+        X[:, 5] = rng.randint(0, 300, n)
+        kw["categorical_feature"] = [5]
+    if kind == "multi":
+        p.update(objective="multiclass", num_class=3)
+        y = np.digitize(X[:, 0] + 0.5 * X[:, 3], [-0.5, 0.5]).astype(float)
+    if kind == "sparse":
+        X[:, 7] = np.where(rng.rand(n) < 0.95, 0.0, rng.rand(n))
+    b = lgb.train(p, lgb.Dataset(X, label=y, params=dict(p), **kw), 6)
+    return b, X
+
+
+@pytest.mark.parametrize("kind", ["u8", "wide", "cat", "multi"])
+def test_predict_ensemble_matches_plain(dev, kind):
+    """The ensemble traversal kernel is bitwise its plain version (run on
+    the card's tensors) and a second launch, in every accumulation mode,
+    with and without biases and an active mask, and in leaves mode."""
+    from lightgbm_tpu_torch.ops import predict as P
+    b, X = _predict_model(kind, "cuda")
+    g = b._boosting
+    eng = g._predict_engine()
+    tb, k, t = eng.tables, eng.k, eng.T
+    binsT = g.train_set.bin_new_data(X[:5000])
+    assert binsT.dtype == (torch.int16 if kind in ("wide", "cat")
+                           else torch.uint8)
+    mb = g.train_set.missing_bin.to(dev)
+    n = binsT.shape[1]
+    bias = torch.as_tensor(np.random.RandomState(3).randn(t) * 0.01,
+                           dtype=torch.float64, device=dev)
+    act = torch.as_tensor(np.random.RandomState(4).rand(n) < 0.5,
+                          device=dev)
+    for accum in ("float64", "compensated", "float32"):
+        for kw in ({}, {"bias": bias}, {"active": act},
+                   {"bias": bias, "active": act}):
+            outs = [P.predict_ensemble(tb, binsT, mb, (1, t), k,
+                                       accum=accum, **kw) for _ in range(2)]
+            ref = P.predict_ensemble_plain(
+                tb, binsT, mb, (1, t), k, kw.get("bias"), kw.get("active"),
+                P.new_carry(n, k, accum, dev), accum)
+            for o in outs:
+                for a, r in zip(*(x if accum == "compensated" else (x,)
+                                  for x in (o, ref))):
+                    assert torch.equal(a, r), (accum, list(kw))
+    lv = [P.predict_ensemble(tb, binsT, mb, (0, t), k, leaves=True)
+          for _ in range(2)]
+    ref = P.predict_ensemble_plain(tb, binsT, mb, (0, t), k, leaves=True)
+    assert torch.equal(lv[0], ref) and torch.equal(lv[1], ref)
+
+
+@pytest.mark.parametrize("kind", ["u8", "multi", "sparse"])
+def test_predict_on_card_equals_cpu(dev, kind):
+    """A card booster's predictions (raw, converted, leaves, early stop,
+    a window) are bitwise those of its trees carried to a CPU booster,
+    its contributions within 1e-9 / 1e-11, and every predict launches the
+    kernel."""
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch.ops import predict as P
+    b, X = _predict_model(kind, "cuda")
+    twin = lgb.booster_from_numpy(*lgb.booster_to_numpy(b, "cpu"))
+    Xs = X[:3000]
+    for kw in ({}, {"raw_score": True}, {"pred_leaf": True},
+               {"raw_score": True, "pred_early_stop": True,
+                "pred_early_stop_freq": 2, "pred_early_stop_margin": 1.0},
+               {"start_iteration": 1, "num_iteration": 3}):
+        cuda_hist.reset_launch_counts()
+        got = b.predict(Xs, **kw)
+        launched = sum(getattr(P.predict_ensemble, c) for c in
+                       cuda_hist._COUNTERS["predict_ensemble"])
+        assert launched >= 1, kw
+        np.testing.assert_array_equal(got, twin.predict(Xs, **kw))
+    np.testing.assert_allclose(b.predict(Xs[:500], pred_contrib=True),
+                               twin.predict(Xs[:500], pred_contrib=True),
+                               rtol=1e-9, atol=1e-11)

@@ -8,7 +8,9 @@
 - a parameter outside the ported slice raises NotImplementedError naming
   it, instead of being silently ignored;
 - pandas is imported only on the path that receives a DataFrame (the GPU
-  host has no pandas).
+  host has no pandas), and scikit-learn, matplotlib and graphviz only when
+  an estimator or a plotting helper is named;
+- the native parser builds into ``lightgbm_tpu_torch/_build/``.
 """
 
 import ast
@@ -90,18 +92,18 @@ def test_default_device_without_cuda_raises(monkeypatch):
     ("histogram_method", "onehot_q8"),
     ("histogram_method", "scatter"),
     ("histogram_pool_size", 1024.0),
-    ("pred_early_stop_freq", 20),
+    ("serve_max_batch_rows", 512),
     ("construct_streaming", True),
     ("snapshot_freq", 5),
     ("num_machines", 2),
-    ("pred_early_stop", True),
+    ("predict_sharded", True),
     ("serve_flush_ms", 5.0),
     ("tree_learner", "data"),
-    ("predict_chunk_rows", 100),
+    ("checkpoint_keep", 5),
     ("boost_rounds_per_dispatch", 4),
     ("checkpoint_path", "ckpt"),
-    ("group_column", "0"),
-    ("input_model", "model.txt"),
+    ("tree_learner", "voting"),
+    ("serve_deadline_ms", 50.0),
     ("hist_pallas_interpret", True),
 ])
 def test_unported_parameter_raises(key, value):
@@ -110,8 +112,8 @@ def test_unported_parameter_raises(key, value):
 
 
 @pytest.mark.parametrize("key,value,item", [
-    ("pred_early_stop_freq", 20, "Queue 1 item 12b"),
-    ("input_model", "model.txt", "Queue 1 item 12b"),
+    ("predict_sharded", True, "Queue 1 item 15"),
+    ("serve_max_batch_rows", 512, "Queue 1 item 16"),
     ("snapshot_freq", 5, "Queue 1 item 14"),
 ])
 def test_unported_parameter_names_its_item(key, value, item):
@@ -213,10 +215,76 @@ def test_pandas_is_imported_only_for_a_dataframe():
 
 
 def test_group_column_raises_naming_item_12():
-    """Query groups are ported from the Dataset's ``group``; reading them
-    from a column of a data file comes with the file-loading API."""
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        lt.Config.from_params({"group_column": "0", "device_type": "cpu"})
+    """Query groups from a column of a data file came with the
+    file-loading API (ROADMAP Queue 1 item 12b): ``group_column`` no
+    longer raises, and the CLI's loader turns the column's runs of query
+    ids into group sizes."""
+    cfg = lt.Config.from_params({"group_column": "1", "device_type": "cpu"})
+    assert cfg.group_column == "1"
+    from lightgbm_tpu_torch.cli import _qid_to_group
+    np.testing.assert_array_equal(_qid_to_group(np.array([4, 4, 1, 4])),
+                                  [2, 1, 1])
+
+
+@pytest.mark.parametrize("key,value", [
+    ("task", "predict"), ("data", "train.csv"), ("valid", "a.csv,b.csv"),
+    ("header", True), ("label_column", "name:y"), ("weight_column", "2"),
+    ("ignore_column", "3,4"), ("two_round", True), ("save_binary", True),
+    ("precise_float_parser", True), ("start_iteration_predict", 2),
+    ("num_iteration_predict", 5), ("predict_raw_score", True),
+    ("predict_leaf_index", True), ("predict_contrib", True),
+    ("predict_disable_shape_check", True), ("pred_early_stop", True),
+    ("pred_early_stop_freq", 20), ("pred_early_stop_margin", 1.5),
+    ("output_result", "out.txt"), ("convert_model_language", "cpp"),
+    ("convert_model", "m.cpp"), ("input_model", "model.txt"),
+    ("output_model", "m.txt"), ("predict_chunk_rows", 100),
+    ("predict_accum", "compensated"), ("predict_bucket_min_rows", 64),
+])
+def test_prediction_parameters_are_accepted(key, value):
+    """Prediction's, the data files' and the CLI's parameters configure
+    the port (ROADMAP Queue 1 item 12b)."""
+    cfg = lt.Config.from_params({key: value, "device_type": "cpu"})
+    assert getattr(cfg, key) != getattr(lt.Config(), key)
+
+
+def test_import_loads_no_sklearn_matplotlib_or_graphviz():
+    """The estimators and plotting helpers are exported lazily: importing
+    the package, training and predicting load none of scikit-learn,
+    matplotlib or graphviz; naming an estimator loads scikit-learn."""
+    code = textwrap.dedent("""
+        import sys
+        import numpy as np
+        import lightgbm_tpu_torch as lgb
+        X = np.random.RandomState(0).randn(200, 3)
+        b = lgb.train({"objective": "regression", "device_type": "cpu",
+                       "verbosity": -1}, lgb.Dataset(X, label=X[:, 0]), 1)
+        b.predict(X, pred_leaf=True)
+        loaded = [m for m in ("sklearn", "matplotlib", "graphviz")
+                  if m in sys.modules]
+        print("LOADED", loaded)
+        assert not loaded, loaded
+        assert lgb.LGBMRegressor.__module__ == "lightgbm_tpu_torch.sklearn"
+        assert callable(lgb.plot_importance)
+        assert "matplotlib" not in sys.modules
+    """)
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    res = subprocess.run([sys.executable, "-c", code], cwd=str(REPO),
+                         env=env, capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_native_loader_builds_into_the_package_build_dir():
+    """The native text parser is built with g++ on first use into
+    ``lightgbm_tpu_torch/_build/`` (which .gitignore lists), not next to
+    its source."""
+    from lightgbm_tpu_torch import native
+    lib = native.load()
+    path = native.lib_path()
+    assert path.parent == PKG / "_build" and path.exists()
+    assert lib is native.load()
+    ignored = (REPO / ".gitignore").read_text().splitlines()
+    assert "lightgbm_tpu_torch/_build/" in ignored
+    assert not list((PKG / "native").glob("*.so"))
 
 
 def test_sparse_input_raises():
