@@ -3,7 +3,7 @@ hand-written kernel against its plain PyTorch version.
 
     python3 chip_smoke.py [--seed 0] [--rows 2000000] [--valid-rows 200000]
                           [--rounds 5] [--parent DIR]
-                          [--only precision|control|predict]
+                          [--only precision|control|predict|faults]
 
 Phases, in order, each printing one JSON line (any failure raises and the
 script exits non-zero; nothing is caught):
@@ -344,6 +344,58 @@ and prediction and the user surface (after parity_control):
 
 With ``--only predict`` the script runs device, build, train and these
 phases alone, and prints a kernels line of predict_ensemble alone.
+
+then the faults group (fault tolerance; no new kernel: its runs launch
+kernels 1-4 and predict_ensemble, counted by path):
+
+  train_resume    train's rows (2M + 200k valid, 28 features, 255 leaves),
+                  5 rounds with bagging_fraction 0.8 / bagging_freq 2 /
+                  feature_fraction 0.8 and a checkpoint every round: the
+                  checkpoint saves' host seconds and bytes (state.pkl,
+                  model.txt); a child process killed by
+                  LGBM_TPU_FAULT_KILL_AT_ITER=3 (exit 137) and a second
+                  child resumed from its checkpoints give the uninterrupted
+                  run's model text and valid predictions bit for bit (the
+                  resume's validate / load / restore seconds); in-process, a
+                  writer killed inside the write of checkpoint 3
+                  (fault_kill_in_ckpt_write, its hard exit replaced by an
+                  exception) leaves ckpt_00000003.tmp, resume takes
+                  checkpoint 2 and the next write removes the stale stage;
+                  checkpoints corrupted as written (fault_corrupt_checkpoint)
+                  fall back to the last clean one; each resumed to the same
+                  text
+  train_blocked   an Epsilon-shaped table (docs/GPU-Performance.rst: dense
+                  binary, 2,000 float features; 400,000 + 100,000 valid rows
+                  made from --seed), 255 leaves, 3 rounds: the blocked pass
+                  under histogram_pool_size=256 (569 columns a block, 4
+                  blocks), twice, against the resident run on the classic
+                  path (split_fusion off) with hist_subtraction=False,
+                  which launches kernels 3-4: the trees bit for bit, kernel 3
+                  launched once a block a pass; sec/iter, peak device memory
+                  (max_memory_allocated), the resident state's bytes, rows
+                  streamed a tree and valid AUC of each; at 2,000 of the rows
+                  (15 leaves, 2 rounds, 311 columns a block) the card's text
+                  against the CPU's in the kernels' orders
+  oom_ladder      at that parity size (15 leaves), fault_oom_at_iter=1 with
+                  fault_oom_count=3 walks rungs 1, 2, 3 (the blocked pass at
+                  a quarter of the resident state's bytes, at 16 columns, the
+                  predict chunk) and the run completes; each rung's run
+                  (degraded from iteration 0, one round) gives the trees of a
+                  fresh run at its setting; then a child process capped
+                  (torch.cuda.set_per_process_memory_fraction) below the
+                  resident state of 50,000 Epsilon-shaped rows hits a real
+                  torch.cuda.OutOfMemoryError, rung 1 engages and the run
+                  ends with the trees of a fresh run at that width
+  numerics        check_numerics with fault_nan_grad_at_iter=2 and with
+                  fault_nan_hist_at_iter=2 on the parity rows: the JAX
+                  package's message, naming iteration 2
+  predict_oom     fault_oom_at_predict=2 at predict_chunk_rows 65,536 over
+                  train_resume's 200k valid rows: the chunk halves twice, the
+                  predictions stay bitwise the unchunked ones and
+                  predict_ensemble launches once a chunk
+
+With ``--only faults`` the script runs device, build, train and this group
+alone, and prints its launches by path.
 
 and kernel 5, the experiment script's one-hot histogram:
 
@@ -1623,7 +1675,10 @@ PARITY_RUNS = {"parity": (higgs_like, 7, None, False),
                "parity_sparse": (sparse_higgs_like, 17, None, False),
                "parity_q8": (higgs_like, 7, None, True),
                "parity_q8_cat": (expo_like, 13, CAT_COLUMNS, True)}
-PARITY_ROWS, PARITY_ROUNDS = 50_000, 3
+# the five parity phases' rounds: 2, cut from 3 when the faults group
+# came in; the boosting modes' parity runs keep 3 (DART drops a tree at the
+# third iteration)
+PARITY_ROWS, PARITY_ROUNDS, PARITY_MODES_ROUNDS = 50_000, 2, 3
 # the phases whose card text is held bitwise (and to the parent's)
 PARITY_HELD = ("parity", "parity_sparse", "parity_q8", "parity_q8_cat")
 
@@ -1771,7 +1826,8 @@ def parity_q8_cat_phase(lgb, seed):
 
 
 # the slice's parity runs: name -> (data, seed offset, parameters over
-# PARAMS at 63 leaves); each trains PARITY_ROUNDS rounds on PARITY_ROWS rows
+# PARAMS at 63 leaves); each trains PARITY_MODES_ROUNDS rounds on
+# PARITY_ROWS rows
 PARITY_MODES = {
     "multiclass": (covertype_like, 19, dict(MULTICLASS)),
     "multiclass_q8": (covertype_like, 19, dict(MULTICLASS,
@@ -1783,14 +1839,15 @@ PARITY_MODES = {
     "goss": (higgs_like, 23, SAMPLING["goss"]),
     "goss_q8": (higgs_like, 23, dict(SAMPLING["goss"],
                                      quantized_grad=True)),
-    # at drop_rate 0.1 (the default) no tree drops in PARITY_ROUNDS rounds;
+    # at drop_rate 0.1 (the default) no tree drops in PARITY_MODES_ROUNDS
+    # rounds;
     # at 0.3 the third iteration drops the second's tree
     "dart": (higgs_like, 23, dict(SAMPLING["dart"], drop_rate=0.3)),
     "rf": (higgs_like, 23, SAMPLING["rf"]),
 }
 
 
-def _parity_mode(lgb, name, seed, rounds: int = PARITY_ROUNDS):
+def _parity_mode(lgb, name, seed, rounds: int = PARITY_MODES_ROUNDS):
     """One PARITY_MODES training of ``rounds`` rounds twice on the card and
     once on the CPU (f32: with the kernel's fixed-point sums,
     kernel_sums_on_cpu; q8: the plain path, whose int32 sums are exact):
@@ -1837,7 +1894,8 @@ def parity_multiclass_phase(lgb, seed):
 
 
 def parity_sampling_phase(lgb, seed):
-    return {"rows": PARITY_ROWS, "num_leaves": 63, "rounds": PARITY_ROUNDS,
+    return {"rows": PARITY_ROWS, "num_leaves": 63,
+            "rounds": PARITY_MODES_ROUNDS,
             **{m: _parity_mode(lgb, m, seed) for m in PARITY_MODES
                if not m.startswith("multiclass")}}
 
@@ -4532,6 +4590,617 @@ def predict_phases(lgb, cuda_hist, args):
         "launches_by_path": {k: v for k, v in paths.items() if v > 0}}
 
 
+# ------------------------------------------------------------------ faults
+# The faults group (fault tolerance): checkpoints and bit-identical resume
+# across a killed child process, the feature-blocked pass under
+# histogram_pool_size on an Epsilon-shaped table, the OOM ladder (simulated
+# and one real torch.cuda.OutOfMemoryError in a child under a memory cap),
+# check_numerics, and the predict rung.
+RESUME = {"bagging_fraction": 0.8, "bagging_freq": 2,
+          "feature_fraction": 0.8}
+RESUME_KILL_AT = 3
+EPS_FEATURES = 2000            # Epsilon (docs/GPU-Performance.rst)
+EPS_ROWS, EPS_VALID = 400_000, 100_000
+EPS_ROUNDS = 3
+EPS_POOL_MB = 256              # ~569 columns a block, 4 blocks
+EPS_PARITY_ROWS, EPS_PARITY_LEAVES, EPS_PARITY_ROUNDS = 2_000, 15, 2
+EPS_PARITY_POOL_MB = 50        # 311 columns a block at 15 leaves (7 blocks)
+LADDER_LEAVES = 15             # the ladder's runs: rung 1 at 136 columns
+OOM_CHILD_ROWS = 50_000
+PREDICT_OOM_CHUNK = 65_536
+
+
+def epsilon_like(n: int, seed: int):
+    """Epsilon-shaped rows (the PASCAL challenge's dense binary set of
+    upstream LightGBM's GPU benchmark): 2,000 float features, each row
+    scaled to unit norm as in the published set, and a binary label from a
+    sparse linear function of them plus noise; drawn on the card from a
+    seeded generator (the host's generator took 20 s for 500,000 rows)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    X = torch.randn((n, EPS_FEATURES), generator=g, device="cuda")
+    X /= torch.linalg.vector_norm(X, dim=1, keepdim=True)
+    w = torch.randn((40,), generator=g, device="cuda")
+    noise = (torch.rand((n,), generator=g, device="cuda") - 0.5) * 0.04
+    y = ((X[:, :40] @ w + noise) > 0).to(torch.float64)
+    return X.cpu().numpy(), y.cpu().numpy()
+
+
+class _Mappers:
+    """A constructed reference Dataset's binning (its bin mappers), so a
+    Dataset built with ``reference=`` bins new rows on ``device`` without
+    fitting the 2,000 columns' mappers again."""
+
+    def __init__(self, ds, device):
+        self.mappers = ds.mappers
+        self.used_features = ds.used_features
+        self.num_total_features = ds.num_total_features
+        self.bundles = None
+        self.pandas_categorical = {}
+        self.raw_data_np = None
+        self.device = torch.device(device)
+
+    def construct(self):
+        return self
+
+
+@contextlib.contextmanager
+def _blocked_probe():
+    """Counts the grower's blocked passes and its histogram launches by
+    column width (``{(F, gather): count}``) within the block."""
+    from lightgbm_tpu_torch.models import grower
+    real_pass, real_hist = grower.Grower.blocked_pass, grower.histogram_tiles
+    seen = {"passes": 0, "launches": {}}
+
+    def blocked_pass(self, st):
+        seen["passes"] += 1
+        return real_pass(self, st)
+
+    def histogram_tiles(binsT, *a, **k):
+        key = (int(binsT.shape[0]), a[5] is not None if len(a) > 5
+               else k.get("gather_idx") is not None)
+        seen["launches"][key] = seen["launches"].get(key, 0) + 1
+        return real_hist(binsT, *a, **k)
+
+    grower.Grower.blocked_pass = blocked_pass
+    grower.histogram_tiles = histogram_tiles
+    try:
+        yield seen
+    finally:
+        grower.Grower.blocked_pass = real_pass
+        grower.histogram_tiles = real_hist
+
+
+def _run_child(mode: str, workdir: str, env_extra: dict, *extra) -> tuple:
+    """``chip_smoke.py --child mode`` in a fresh interpreter: (exit code,
+    its last JSON line or None, seconds)."""
+    t0 = time.time()
+    env = dict(os.environ, **env_extra)
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--child", mode,
+         "--workdir", workdir, *extra], env=env, capture_output=True,
+        text=True, timeout=300)
+    last = None
+    for line in proc.stdout.splitlines():
+        if line.startswith("{"):
+            last = json.loads(line)
+    if proc.returncode not in (0, 137):
+        raise AssertionError(f"child {mode} exited {proc.returncode}: "
+                             f"{proc.stderr[-3000:]}")
+    return proc.returncode, last, time.time() - t0
+
+
+def _resume_params():
+    return dict(PARAMS, device_type="cuda", **RESUME)
+
+
+def child_main(args) -> int:
+    """The faults group's child processes: ``resume`` trains the
+    train_resume run from the rows the parent saved (killed by
+    LGBM_TPU_FAULT_KILL_AT_ITER, or resumed with --resume); ``oom`` trains
+    the Epsilon-shaped rows under a memory cap below the resident
+    histogram state."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import pickle
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch import checkpoint
+    from lightgbm_tpu_torch.ops import cuda_hist, predict, rank  # noqa: F401
+    wd = args.workdir
+    if args.child == "resume":
+        X, y = np.load(f"{wd}/X.npy"), np.load(f"{wd}/y.npy")
+        Xv = np.load(f"{wd}/Xv.npy")
+        params = _resume_params()
+        train = lgb.Dataset(X, label=y, params=params).construct()
+        timing = {"validate_s": 0.0, "restore_s": 0.0}
+        real_validate = checkpoint.CheckpointManager.validate
+        real_restore = checkpoint.restore_booster
+
+        def validate(self, path):
+            t0 = time.time()
+            try:
+                return real_validate(self, path)
+            finally:
+                timing["validate_s"] += time.time() - t0
+
+        def restore(booster, ckpt):
+            t0 = time.time()
+            try:
+                return real_restore(booster, ckpt)
+            finally:
+                torch.cuda.synchronize()
+                timing["restore_s"] += time.time() - t0
+        checkpoint.CheckpointManager.validate = validate
+        checkpoint.restore_booster = restore
+        t_load = [0.0]
+        real_load = checkpoint.CheckpointManager.load_latest_valid
+
+        def load_latest_valid(self):
+            t0 = time.time()
+            try:
+                return real_load(self)
+            finally:
+                t_load[0] += time.time() - t0
+        checkpoint.CheckpointManager.load_latest_valid = load_latest_valid
+        cuda_hist.reset_launch_counts()
+        t0 = time.time()
+        b = lgb.train(params, train, args.rounds,
+                      callbacks=[lgb.checkpoint_callback(f"{wd}/ckpt",
+                                                         period=1)],
+                      resume_from=f"{wd}/ckpt" if args.resume else None)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        counts = cuda_hist.launch_counts()
+        with open(f"{wd}/resumed.txt", "w") as fh:
+            fh.write(b.model_to_string())
+        np.save(f"{wd}/resumed_pred.npy", b.predict(Xv))
+        print(json.dumps({
+            "resume_seconds": {"validate": timing["validate_s"],
+                               "load": t_load[0] - timing["validate_s"],
+                               "restore": timing["restore_s"]},
+            "train_wall_s": wall, "launches": counts}), flush=True)
+        return 0
+    # oom: the rung-1 check under a real allocation failure
+    with open(f"{wd}/mappers.pkl", "rb") as fh:
+        ref = pickle.load(fh)
+    X, y = np.load(f"{wd}/X_oom.npy"), np.load(f"{wd}/y_oom.npy")
+    params = dict(PARAMS, device_type="cuda")
+    dev = torch.device("cuda", 0)
+    train = lgb.Dataset(X, label=y, params=params,
+                        reference=_Mappers(ref, dev)).construct()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
+    resident = LEAVES * EPS_FEATURES * train.max_num_bins * 3 * 4
+    cap = base + resident - (16 << 20)
+    total = torch.cuda.get_device_properties(dev).total_memory
+    torch.cuda.set_per_process_memory_fraction(cap / total, dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    from lightgbm_tpu_torch import distributed
+    cuda_hist.reset_launch_counts()
+    t0 = time.time()
+    b = lgb.train(params, train, EPS_ROUNDS)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    with open(f"{wd}/oom.txt", "w") as fh:
+        fh.write(b.model_to_string())
+    print(json.dumps({
+        "rows": len(y), "cap_bytes": cap, "base_bytes": base,
+        "resident_state_bytes": resident,
+        "max_allocated_bytes": torch.cuda.max_memory_allocated(dev),
+        "events": [{k: e[k] for k in ("kind", "iteration", "level",
+                                      "action", "error")}
+                   for e in distributed.degradations()],
+        "oom_level": b._boosting._oom_level,
+        "feature_block": b._boosting._feature_block(),
+        "train_wall_s": wall, "launches": cuda_hist.launch_counts()}),
+        flush=True)
+    return 0
+
+
+def train_resume_phase(lgb, cuda_hist, args, workdir):
+    """train's rows, 5 rounds with a checkpoint every round: a child killed
+    at iteration 3 (exit 137) and a second child resumed from its
+    checkpoints give the uninterrupted run's text and predictions bit for
+    bit; in-process, a writer killed inside the write of checkpoint 3
+    (the hard exit replaced by an exception) and checkpoints corrupted on
+    disk, each resumed to the same text."""
+    from lightgbm_tpu_torch import checkpoint
+    from lightgbm_tpu_torch.utils import faults
+    X, y, Xv, yv = higgs_rows(args)
+    for name, arr in (("X", X), ("y", y), ("Xv", Xv)):
+        np.save(f"{workdir}/{name}.npy", arr)
+    params = _resume_params()
+    train = lgb.Dataset(X, label=y, params=params)
+    t0 = time.time()
+    train.construct()
+    torch.cuda.synchronize()
+    construct_s = time.time() - t0
+    saves = []
+    cb = lgb.checkpoint_callback(f"{workdir}/full", period=1)
+
+    def record(env):
+        saves.append(dict(cb.manager.last_save))
+    record.order = 41
+    b, wall, counts = _counted(cuda_hist, lambda: lgb.train(
+        params, train, args.rounds, callbacks=[cb, record]))
+    full_text = b.model_to_string()
+    full_pred = b.predict(Xv)
+    mgr = checkpoint.CheckpointManager(f"{workdir}/full")
+    kill_rc, _, kill_s = _run_child(
+        "resume", workdir, {"LGBM_TPU_FAULT_KILL_AT_ITER":
+                            str(RESUME_KILL_AT)}, "--rounds",
+        str(args.rounds))
+    left = [it for it, _ in checkpoint.CheckpointManager(
+        f"{workdir}/ckpt").checkpoints()]
+    res_rc, res, res_s = _run_child("resume", workdir, {}, "--rounds",
+                                    str(args.rounds), "--resume")
+    with open(f"{workdir}/resumed.txt") as fh:
+        resumed_text = fh.read()
+    resumed_pred = np.load(f"{workdir}/resumed_pred.npy")
+    out = {"rows": args.rows, "valid_rows": args.valid_rows,
+           "rounds": args.rounds, "leaves": LEAVES, **RESUME,
+           "construct_s": construct_s, "sec_per_iter": wall / args.rounds,
+           "checkpoint_save": saves,
+           "checkpoint_save_s_median": statistics.median(
+               s["seconds"] for s in saves),
+           "checkpoints_kept": [it for it, _ in mgr.checkpoints()],
+           "killed_child": {"exit": kill_rc, "kill_at_iter": RESUME_KILL_AT,
+                            "checkpoints_left": left, "seconds": kill_s},
+           "resumed_child": {"exit": res_rc, "seconds": res_s,
+                             **{k: res[k] for k in ("resume_seconds",
+                                                    "train_wall_s")}},
+           "resumed_text_equal": resumed_text == full_text,
+           "resumed_predictions_bitwise": bool(np.array_equal(
+               resumed_pred, full_pred))}
+    if not (kill_rc == 137 and left == [RESUME_KILL_AT - 1, RESUME_KILL_AT]
+            and res_rc == 0 and out["resumed_text_equal"]
+            and out["resumed_predictions_bitwise"]):
+        raise AssertionError(f"train_resume: {out}")
+
+    # the writer killed inside the write of checkpoint 3, in-process
+    class Killed(BaseException):
+        pass
+
+    def die(context):
+        raise Killed(context)
+    real_exit = faults._hard_exit
+    faults._hard_exit = die
+    d = f"{workdir}/kill_in_write"
+    try:
+        try:
+            lgb.train(dict(params, fault_kill_in_ckpt_write=RESUME_KILL_AT),
+                      train, args.rounds,
+                      callbacks=[lgb.checkpoint_callback(d, period=1)])
+            raise AssertionError("fault_kill_in_ckpt_write did not fire")
+        except Killed:
+            pass
+    finally:
+        faults._hard_exit = real_exit
+    names = sorted(os.listdir(d))
+    latest = checkpoint.CheckpointManager(d).load_latest_valid().iteration
+    again = lgb.train(params, train, args.rounds, resume_from=d,
+                      callbacks=[lgb.checkpoint_callback(d, period=1)])
+    out["kill_in_ckpt_write"] = {
+        "dir_after_kill": names, "resumed_from": latest,
+        "stale_tmp_removed": not any(e.endswith(".tmp")
+                                     for e in os.listdir(d)),
+        "text_equal": again.model_to_string() == full_text}
+    kw = out["kill_in_ckpt_write"]
+    if not (f"ckpt_{RESUME_KILL_AT:08d}.tmp" in names
+            and latest == RESUME_KILL_AT - 1 and kw["stale_tmp_removed"]
+            and kw["text_equal"]):
+        raise AssertionError(f"kill_in_ckpt_write: {kw}")
+    # checkpoints corrupted on disk as they are written: resume falls back
+    # past them to the last clean one
+    d = f"{workdir}/corrupt"
+    lgb.train(params, train, 2,
+              callbacks=[lgb.checkpoint_callback(d, period=1, keep=5)])
+    lgb.train(dict(params, fault_corrupt_checkpoint=True), train, 4,
+              resume_from=d,
+              callbacks=[lgb.checkpoint_callback(d, period=1, keep=5)])
+    latest = checkpoint.CheckpointManager(d).load_latest_valid().iteration
+    again = lgb.train(params, train, args.rounds, resume_from=d)
+    out["corrupt_checkpoint"] = {
+        "checkpoints": [it for it, _ in
+                        checkpoint.CheckpointManager(d).checkpoints()],
+        "fell_back_to": latest,
+        "text_equal": again.model_to_string() == full_text}
+    if not (latest == 2 and out["corrupt_checkpoint"]["text_equal"]):
+        raise AssertionError(f"corrupt_checkpoint: {out['corrupt_checkpoint']}")
+    return out, counts, {"resume_child": res["launches"]}, (b, Xv, full_pred)
+
+
+def _eps_run(lgb, cuda_hist, train, valid, yv, extra, rounds):
+    """One Epsilon-shaped training: (result, launch counts, text)."""
+    params = dict(PARAMS, device_type="cuda", **extra)
+    evals = {}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    copies = cuda_hist.bins_by_row.copies
+    with _blocked_probe() as seen:
+        b, wall, counts = _counted(cuda_hist, lambda: lgb.train(
+            params, train, rounds, valid_sets=[valid],
+            valid_names=["valid"], evals_result=evals))
+    g = b._boosting
+    fb = g._feature_block()
+    res = {"sec_per_iter": wall / rounds,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "peak_above_data": torch.cuda.max_memory_allocated() - base,
+           "resident_state_bytes": g._resident_hist_bytes(),
+           "feature_block": fb, "blocked_passes": seen["passes"],
+           "row_major_copies": cuda_hist.bins_by_row.copies - copies,
+           "hist_launches_by_width": {f"F={f}" + ("/gather" if ga else ""): c
+                                      for (f, ga), c in
+                                      sorted(seen["launches"].items())},
+           "rows_streamed_per_tree": b.rows_streamed_per_tree,
+           "valid_auc": evals["valid"]["auc"][-1]}
+    return b, res, counts, b.model_to_string()
+
+
+def train_blocked_phase(lgb, cuda_hist, args, workdir):
+    """An Epsilon-shaped table at 255 leaves: the blocked pass under
+    histogram_pool_size=256 (twice) against the resident run on the
+    classic path with hist_subtraction=False (split_fusion off), bit for
+    bit; at the parity size the card's blocked text against the CPU's in
+    the kernels' orders. The first blocked run's peak includes the column
+    blocks' row-major bin copies, which the second reuses."""
+    import pickle
+    t0 = time.time()
+    X, y = epsilon_like(EPS_ROWS + EPS_VALID, args.seed)
+    Xv, yv = X[EPS_ROWS:], y[EPS_ROWS:]
+    X, y = X[:EPS_ROWS], y[:EPS_ROWS]
+    data_s = time.time() - t0
+    params = dict(PARAMS, device_type="cuda")
+    train = lgb.Dataset(X, label=y, params=params)
+    valid = lgb.Dataset(Xv, label=yv, reference=train)
+    t0 = time.time()
+    train.construct()
+    valid.construct()
+    torch.cuda.synchronize()
+    construct_s = time.time() - t0
+    with open(f"{workdir}/mappers.pkl", "wb") as fh:
+        pickle.dump(_Mappers(train, "cpu"), fh)
+    runs, counts, texts = {}, {}, {}
+    for name, extra in (("blocked", {"histogram_pool_size": EPS_POOL_MB}),
+                        ("blocked_again",
+                         {"histogram_pool_size": EPS_POOL_MB}),
+                        ("resident", {"hist_subtraction": False,
+                                      "split_fusion": "off"})):
+        b, runs[name], counts[name], texts[name] = _eps_run(
+            lgb, cuda_hist, train, valid, yv, extra, EPS_ROUNDS)
+        del b
+    blk = runs["blocked"]
+    fb = blk["feature_block"]
+    widths = [min(fb, EPS_FEATURES - s) for s in range(0, EPS_FEATURES, fb)]
+    want = {}
+    for w in widths:
+        want[f"F={w}"] = want.get(f"F={w}", 0) + blk["blocked_passes"]
+    out = {"rows": EPS_ROWS, "valid_rows": EPS_VALID,
+           "features": EPS_FEATURES, "leaves": LEAVES,
+           "rounds": EPS_ROUNDS, "pool_mb": EPS_POOL_MB,
+           "data_s": data_s, "construct_s": construct_s,
+           "blocks": widths, **runs,
+           # the parameters blocks differ (histogram_pool_size against
+           # hist_subtraction); the trees must not
+           "text_equals_resident": texts["blocked"].split("\nparameters:")[0]
+           == texts["resident"].split("\nparameters:")[0],
+           "text_equals_second_blocked": texts["blocked"]
+           == texts["blocked_again"],
+           "kernel3_once_per_block_per_pass":
+           blk["hist_launches_by_width"] == want
+           and counts["blocked"]["hist_tile.launches_plane"]
+           == blk["blocked_passes"] * len(widths)}
+    if not (out["text_equals_resident"] and out["text_equals_second_blocked"]
+            and out["kernel3_once_per_block_per_pass"] and len(widths) >= 2
+            and counts["blocked"]["split_epilogue.launches"] == 0
+            and runs["resident"]["feature_block"] == 0
+            # one row-major copy a column block, made once (the second
+            # run reuses the views'), never one a launch
+            and blk["row_major_copies"] == len(widths)
+            and runs["blocked_again"]["row_major_copies"] == 0
+            and counts["resident"]["hist_tile.gather_launches"] > 0
+            and counts["resident"]["split_epilogue.launches"] == 0
+            and blk["valid_auc"] > 0.6):
+        raise AssertionError(f"train_blocked: {out}")
+    # parity size: the first rows, binned with the same mappers on the card
+    # and on the CPU
+    Xp, yp = X[:EPS_PARITY_ROWS], y[:EPS_PARITY_ROWS]
+    ptexts = {}
+    for run in ("cuda", "cpu_kernel_sums"):
+        dev = run.split("_")[0]
+        p = dict(PARAMS, device_type=dev, num_leaves=EPS_PARITY_LEAVES,
+                 histogram_pool_size=EPS_PARITY_POOL_MB)
+        ds = lgb.Dataset(Xp, label=yp, params=p,
+                         reference=_Mappers(train, "cuda" if dev == "cuda"
+                                            else "cpu"))
+        with (cuda_hist.kernel_sums_on_cpu() if dev == "cpu"
+              else contextlib.nullcontext()):
+            bp = lgb.train(p, ds, EPS_PARITY_ROUNDS)
+        ptexts[run] = bp.model_to_string()
+        if dev == "cuda":
+            pfb = bp._boosting._feature_block()
+    out["parity"] = {"rows": EPS_PARITY_ROWS, "leaves": EPS_PARITY_LEAVES,
+                     "rounds": EPS_PARITY_ROUNDS,
+                     "pool_mb": EPS_PARITY_POOL_MB, "feature_block": pfb,
+                     "card_equals_cpu_kernel_sums":
+                     ptexts["cuda"] == ptexts["cpu_kernel_sums"]}
+    if not (out["parity"]["card_equals_cpu_kernel_sums"] and pfb > 0):
+        raise AssertionError(f"train_blocked parity: {out['parity']}")
+    return out, counts, (train, X, y)
+
+
+def oom_ladder_phase(lgb, cuda_hist, args, workdir, eps):
+    """At the parity size (15 leaves): fault_oom_at_iter=1 with
+    fault_oom_count=3 walks rungs 1, 2, 3; each rung's run (degraded from
+    iteration 0, one round) gives the trees of a fresh run configured at its
+    setting. Then a real
+    torch.cuda.OutOfMemoryError in a child capped below the resident
+    state: rung 1 engages and the run ends with a fresh run's text at that
+    width."""
+    from lightgbm_tpu_torch import distributed
+    train, X, y = eps
+    Xp, yp = X[:EPS_PARITY_ROWS], y[:EPS_PARITY_ROWS]
+    dev = torch.device("cuda", 0)
+
+    def run(extra, rounds=EPS_PARITY_ROUNDS, rows=(Xp, yp),
+            leaves=LADDER_LEAVES):
+        p = dict(PARAMS, device_type="cuda", num_leaves=leaves, **extra)
+        ds = lgb.Dataset(rows[0], label=rows[1], params=p,
+                         reference=_Mappers(train, dev))
+        return _counted(cuda_hist, lambda: lgb.train(p, ds, rounds))
+
+    def trees(text):
+        return text.split("\nparameters:")[0]
+    walk, walk_s, walk_counts = run({"fault_oom_at_iter": 1,
+                                     "fault_oom_count": 3})
+    events = distributed.degradations()
+    out = {"rows": EPS_PARITY_ROWS, "leaves": LADDER_LEAVES,
+           "rounds": EPS_PARITY_ROUNDS, "walk_seconds": walk_s,
+           "walk_events": [{k: e[k] for k in ("level", "iteration",
+                                              "action")} for e in events],
+           "walk_trees": walk.num_trees()}
+    if not ([e["level"] for e in events] == [1, 2, 3]
+            and walk.num_trees() == EPS_PARITY_ROUNDS):
+        raise AssertionError(f"oom_ladder walk: {out}")
+    state_mb = walk._boosting._resident_hist_bytes() / 2 ** 20
+    out["rungs"] = {}
+    # one round each: degraded from iteration 0, every tree grows at the
+    # rung's setting
+    for count, pool in ((1, state_mb / 4), (2, 0.01)):
+        deg, _, _ = run({"fault_oom_at_iter": 0, "fault_oom_count": count},
+                        rounds=1)
+        fresh, _, _ = run({"histogram_pool_size": pool}, rounds=1)
+        same = (trees(deg.model_to_string())
+                == trees(fresh.model_to_string()))
+        out["rungs"][f"rung_{count}"] = {
+            "feature_block": deg._boosting._feature_block(),
+            "fresh_feature_block": fresh._boosting._feature_block(),
+            "trees_equal_fresh_run": same}
+        if not same or deg._boosting._feature_block() \
+                != fresh._boosting._feature_block():
+            raise AssertionError(f"oom_ladder rung {count}: {out['rungs']}")
+    # a real allocation failure in a child under a memory cap
+    Xo, yo = X[:OOM_CHILD_ROWS], y[:OOM_CHILD_ROWS]
+    np.save(f"{workdir}/X_oom.npy", Xo)
+    np.save(f"{workdir}/y_oom.npy", yo)
+    rc, child, child_s = _run_child("oom", workdir, {}, "--seed",
+                                    str(args.seed))
+    fresh, _, _ = run({"histogram_pool_size":
+                       child["resident_state_bytes"] / 2 ** 22},
+                      rounds=EPS_ROUNDS, rows=(Xo, yo), leaves=LEAVES)
+    with open(f"{workdir}/oom.txt") as fh:
+        child_text = fh.read()
+    out["real_oom"] = {
+        **{k: child[k] for k in ("rows", "cap_bytes", "base_bytes",
+                                 "resident_state_bytes",
+                                 "max_allocated_bytes", "events",
+                                 "oom_level", "feature_block",
+                                 "train_wall_s")},
+        "exit": rc, "seconds": child_s,
+        "fresh_feature_block": fresh._boosting._feature_block(),
+        "trees_equal_fresh_run": trees(child_text)
+        == trees(fresh.model_to_string())}
+    ro = out["real_oom"]
+    if not (rc == 0 and ro["oom_level"] == 1
+            and [e["level"] for e in ro["events"]] == [1]
+            and "out of memory" in ro["events"][0]["error"].lower()):
+        raise AssertionError(f"oom_ladder real OOM: {ro}")
+    if not (ro["trees_equal_fresh_run"]
+            and ro["feature_block"] == ro["fresh_feature_block"]):
+        raise AssertionError(f"oom_ladder real OOM: {ro}")
+    return out, {"oom_ladder_walk": walk_counts,
+                 "oom_child": child["launches"]}
+
+
+def numerics_phase(lgb, args):
+    """check_numerics with a NaN injected at iteration 2 (both injection
+    points): the JAX package's message, naming the iteration."""
+    from lightgbm_tpu_torch.utils.log import LightGBMError
+    X, y, params, kw = parity_setup("parity", args.seed)
+    out = {}
+    for fault, bad in (("fault_nan_grad_at_iter", 8),
+                       ("fault_nan_hist_at_iter", 1)):
+        p = dict(params, device_type="cuda", check_numerics=True,
+                 **{fault: 2})
+        try:
+            lgb.train(p, lgb.Dataset(X, label=y, params=p), 4)
+            raise AssertionError(f"check_numerics missed {fault}")
+        except LightGBMError as e:
+            msg = str(e)
+        want = (f"check_numerics: iteration 2: {bad} non-finite gradient and "
+                f"0 non-finite hessian values out of {len(y)} — failing fast "
+                f"before they poison the histograms (check the objective / "
+                f"custom fobj, learning_rate, and input features)")
+        out[fault] = {"message": msg, "as_expected": msg == want}
+        if msg != want:
+            raise AssertionError(f"numerics: {msg!r} != {want!r}")
+    return out
+
+
+def predict_oom_phase(lgb, cuda_hist, model):
+    """fault_oom_at_predict=2 on train_resume's model over the 200k valid
+    rows at predict_chunk_rows 65,536: the chunk halves twice (to 16,384),
+    the predictions stay bitwise the unchunked ones, and predict_ensemble
+    launches once a chunk."""
+    from lightgbm_tpu_torch import distributed
+    from lightgbm_tpu_torch.utils import faults
+    b, Xv, want = model
+    b.reset_parameter({"predict_chunk_rows": PREDICT_OOM_CHUNK})
+    faults.reset_predict_oom()
+    os.environ["LGBM_TPU_FAULT_OOM_AT_PREDICT"] = "2"
+    try:
+        got, secs, counts = _counted(cuda_hist, lambda: b.predict(Xv))
+    finally:
+        del os.environ["LGBM_TPU_FAULT_OOM_AT_PREDICT"]
+        faults.reset_predict_oom()
+    chunk = b._boosting._oom_predict_chunk
+    launches = sum(v for k, v in counts.items()
+                   if k.startswith("predict_ensemble."))
+    out = {"rows": len(Xv), "chunk_rows": PREDICT_OOM_CHUNK,
+           "chunk_after": chunk, "predict_s": secs,
+           "events": [e["action"] for e in distributed.degradations()
+                      if e["kind"] == "oom_predict"],
+           "predict_ensemble_launches": launches,
+           "chunks": -(-len(Xv) // chunk),
+           "bitwise_unchunked": bool(np.array_equal(got, want))}
+    if not (chunk == PREDICT_OOM_CHUNK // 4 and out["bitwise_unchunked"]
+            and launches == out["chunks"]):
+        raise AssertionError(f"predict_oom: {out}")
+    return out, launches
+
+
+def faults_phases(lgb, cuda_hist, args):
+    """The faults group's phases, each emitted; returns the launch counts
+    of its runs by path, and predict_oom's predict_ensemble launches."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as workdir:
+        t0 = time.time()
+        tr, resume_counts, child_counts, model = train_resume_phase(
+            lgb, cuda_hist, args, workdir)
+        emit("train_resume", seconds=time.time() - t0, **tr)
+        t0 = time.time()
+        tb, blocked_counts, eps = train_blocked_phase(lgb, cuda_hist, args,
+                                                      workdir)
+        emit("train_blocked", seconds=time.time() - t0, **tb)
+        t0 = time.time()
+        ol, ladder_counts = oom_ladder_phase(lgb, cuda_hist, args, workdir,
+                                             eps)
+        emit("oom_ladder", seconds=time.time() - t0, **ol)
+        del eps
+    t0 = time.time()
+    nm = numerics_phase(lgb, args)
+    emit("numerics", seconds=time.time() - t0, **nm)
+    t0 = time.time()
+    po, po_launches = predict_oom_phase(lgb, cuda_hist, model)
+    emit("predict_oom", seconds=time.time() - t0, **po)
+    paths = {"faults/train_resume": resume_counts,
+             **{f"faults/{k}": v for k, v in child_counts.items()},
+             **{f"faults/train_{k}": v for k, v in blocked_counts.items()},
+             **{f"faults/{k}": v for k, v in ladder_counts.items()}}
+    return paths, po_launches
+
+
 def per_launch(profile, name):
     """A kernel's device ms a launch in a train phase's profile
     (``own_kernels``)."""
@@ -4564,16 +5233,24 @@ def main() -> int:
                          "parent commit from git archive): its hist_tile "
                          "forms are timed on the same inputs before and "
                          "after this run's phases")
-    ap.add_argument("--only", choices=("precision", "control", "predict"),
+    ap.add_argument("--only", choices=("precision", "control", "predict",
+                                       "faults"),
                     default=None,
                     help="run the device, build and train phases and this "
                          "group's phases alone (a quicker check of one "
                          "group; without it every phase runs)")
+    # the faults group's child processes (see child_main)
+    ap.add_argument("--child", choices=("resume", "oom"), default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--workdir", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--resume", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False); nothing was run", file=sys.stderr)
         return 1
+    if args.child:
+        return child_main(args)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import lightgbm_tpu_torch as lgb
     from lightgbm_tpu_torch.ops import cuda_hist, rank  # noqa: F401 (counts)
@@ -4610,6 +5287,19 @@ def main() -> int:
         control = control_phases(lgb, cuda_hist, args, tr)
         print(json.dumps({"launches_by_path": {
             k: fused_launches(c) for k, c in control.items()},
+            "total_seconds": time.time() - t_start}), flush=True)
+        print(smi, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
+    if args.only == "faults":
+        tr, launches = train_phase(lgb, cuda_hist, args)
+        emit("train", **tr)
+        fpaths, po_launches = faults_phases(lgb, cuda_hist, args)
+        print(json.dumps({"launches_by_path": {
+            k: {n: v for n, v in c.items() if v} for k, c in fpaths.items()},
+            "predict_oom_predict_ensemble_launches": po_launches,
             "total_seconds": time.time() - t_start}), flush=True)
         print(smi, flush=True)
         print(json.dumps({"ok": True, "device": {
@@ -4734,6 +5424,8 @@ def main() -> int:
     prec = precision_phases(lgb, cuda_hist, args, tr["valid_auc"])
     control = control_phases(lgb, cuda_hist, args, tr)
     predict_entry = predict_phases(lgb, cuda_hist, args)
+    fpaths, po_launches = faults_phases(lgb, cuda_hist, args)
+    predict_entry["launches_by_path"]["faults/predict_oom"] = po_launches
 
     hv = hist_variants_phase(cuda_hist)
     emit("hist_variants", **hv)
@@ -5005,7 +5697,7 @@ def main() -> int:
              "train_linear": prec["linear_launches"],
              **{f"train_sampling/{k}": v["launches"]
                 for k, v in ts["runs"].items()},
-             **control}
+             **control, **fpaths}
     for entry, count in zip(kernels[:6], (
             lambda c: c["hist_tile.launches"] - c["hist_tile.launches_plane"],
             lambda c: c["hist_tile.launches_plane"],

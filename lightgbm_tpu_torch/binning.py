@@ -119,23 +119,43 @@ def greedy_find_bin(distinct_values: np.ndarray, counts: np.ndarray,
     lower_bounds = [math.inf] * max_bin
     bin_cnt = 0
     lower_bounds[0] = float(distinct_values[0])
-    cur_cnt_inbin = 0
-    for i in range(num_distinct - 1):
-        if not is_big_count_value[i]:
-            rest_sample_cnt -= counts[i]
-        cur_cnt_inbin += counts[i]
-        if (is_big_count_value[i] or cur_cnt_inbin >= mean_bin_size or
-                (is_big_count_value[i + 1]
-                 and cur_cnt_inbin >= max(1.0, mean_bin_size * 0.5))):
-            upper_bounds[bin_cnt] = float(distinct_values[i])
-            bin_cnt += 1
-            lower_bounds[bin_cnt] = float(distinct_values[i + 1])
-            if bin_cnt >= max_bin - 1:
-                break
-            cur_cnt_inbin = 0
-            if not is_big_count_value[i]:
-                rest_bin_cnt -= 1
-                mean_bin_size = rest_sample_cnt / max(rest_bin_cnt, 1)
+    # the reference's walk over the distinct values, a bin at a time: its
+    # cut conditions are a running count reaching a threshold (monotone,
+    # a search on the prefix sums) or a big-count value here or next, so
+    # each bin's end is found without visiting the values between (a
+    # Python step a distinct value made this most of a wide table's
+    # construct time); the same integers and doubles, the same bounds
+    cnt = np.asarray(counts, np.int64)
+    big = np.asarray(is_big_count_value, bool)
+    csum = np.cumsum(cnt)
+    small_csum = np.cumsum(np.where(big, 0, cnt))
+    # next_big[k]: the first big-count index >= k (num_distinct: none)
+    idx = np.where(big, np.arange(num_distinct), num_distinct)
+    next_big = np.append(np.minimum.accumulate(idx[::-1])[::-1],
+                         [num_distinct, num_distinct])
+    last = num_distinct - 2              # the walk's last index
+    i0 = 0
+    while i0 <= last:
+        base = int(csum[i0 - 1]) if i0 > 0 else 0
+        j = int(next_big[i0])                                   # big here
+        jb = int(np.searchsorted(csum, base + math.ceil(mean_bin_size)))
+        j = min(j, max(jb, i0))                                 # full bin
+        jc = int(np.searchsorted(
+            csum, base + math.ceil(max(1.0, mean_bin_size * 0.5))))
+        j = min(j, int(next_big[max(jc, i0) + 1]) - 1)          # big next
+        if j > last:
+            break
+        rest_sample_cnt -= int(small_csum[j]) - (
+            int(small_csum[i0 - 1]) if i0 > 0 else 0)
+        upper_bounds[bin_cnt] = float(distinct_values[j])
+        bin_cnt += 1
+        lower_bounds[bin_cnt] = float(distinct_values[j + 1])
+        if bin_cnt >= max_bin - 1:
+            break
+        if not big[j]:
+            rest_bin_cnt -= 1
+            mean_bin_size = rest_sample_cnt / max(rest_bin_cnt, 1)
+        i0 = j + 1
     bin_cnt += 1
     for i in range(bin_cnt - 1):
         val = _get_double_upper_bound(

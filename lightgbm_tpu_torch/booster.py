@@ -51,6 +51,11 @@ class Booster:
             merged.update(self.params)
             train_set.params = merged
             self._boosting = create_boosting(self.config, train_set)
+            # the params' identity before any mid-training
+            # reset_parameter: the checkpointing and the resuming run both
+            # hash their construction-time config (checkpoint.py)
+            from .checkpoint import params_hash
+            self._initial_params_hash = params_hash(self.config)
         else:
             raise ValueError("need at least one of train_set, model_file or "
                              "model_str")
@@ -192,9 +197,11 @@ class Booster:
 
     def save_model(self, filename: str, num_iteration: Optional[int] = None,
                    start_iteration: int = 0) -> "Booster":
-        text = self.model_to_string(num_iteration, start_iteration)
-        with open(filename, "w") as fh:
-            fh.write(text)
+        # atomic (tmp + fsync + rename): a crash mid-write leaves the
+        # previous file, never a truncated model that parses shorter
+        from .utils.atomic_write import atomic_write_text
+        atomic_write_text(filename,
+                          self.model_to_string(num_iteration, start_iteration))
         return self
 
     def dump_model(self, num_iteration: Optional[int] = None,

@@ -5,8 +5,8 @@ The port of lightgbm_tpu's ``callback.py``: each callback receives a
 in ``order``; ``early_stopping`` raises ``EarlyStopException``
 (reference: callback.py:146-241, engine.py:244-272). The stateful
 callbacks keep ``ckpt_key`` and ``get_state``/``set_state``, the hooks a
-checkpoint captures them through. The checkpoint callback itself waits
-for ROADMAP.md Queue 1 item 14.
+checkpoint captures them through; ``checkpoint`` writes atomic training
+checkpoints (``checkpoint.py``) that ``train(resume_from=...)`` resumes.
 """
 
 from __future__ import annotations
@@ -213,7 +213,37 @@ def early_stopping(stopping_rounds: int, first_metric_only: bool = False,
 
 
 def checkpoint(directory: str, period: int = 1, keep: int = 2) -> Callable:
-    """Training checkpoints: not ported yet."""
-    raise NotImplementedError(
-        "callback.checkpoint is not ported to lightgbm_tpu_torch yet; it "
-        "arrives with ROADMAP.md Queue 1 item 14 (fault tolerance)")
+    """Atomic training checkpoints every ``period`` iterations (see
+    ``checkpoint.py`` for the layout and the guarantees). Resume with
+    ``train(..., resume_from=directory)``: a run killed at k and resumed
+    reproduces the uninterrupted run bit-identically. ``keep`` >= 2 keeps
+    a fallback when the newest checkpoint is later found truncated or
+    corrupt.
+
+    Runs at order 40, after ``record_evaluation`` (20) and
+    ``early_stopping`` (30), so the callback states it captures are
+    current through the checkpointed iteration. ``_callback.manager`` is
+    the CheckpointManager once the first checkpoint is written."""
+    from .checkpoint import CheckpointManager
+    state = {"warned": False}
+
+    def _callback(env: CallbackEnv) -> None:
+        model = env.model
+        boosting = getattr(model, "_boosting", None)
+        if boosting is None or not hasattr(boosting, "get_trainer_state"):
+            if not state["warned"]:
+                state["warned"] = True
+                log.warning("checkpoint callback: model does not support "
+                            "trainer-state capture (cv / loaded boosters "
+                            "are not checkpointable); skipping")
+            return
+        if period <= 0 or (env.iteration + 1) % period != 0:
+            return
+        if _callback.manager is None:
+            _callback.manager = CheckpointManager(directory, keep=keep,
+                                                  config=model.config)
+        _callback.manager.save(model, env.iteration + 1)
+    _callback.order = 40
+    _callback.ckpt_period = period
+    _callback.manager = None
+    return _callback

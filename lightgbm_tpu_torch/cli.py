@@ -7,8 +7,12 @@ predict / convert_model / refit / save_binary, on the card unless
 ``device_type=cpu``. Data files are parsed by the native C++ loader
 (native/text_parser.cpp); side files ``<data>.weight`` / ``<data>.query``
 / ``<data>.init`` supply metadata the way the reference's Metadata loader
-does (reference: src/io/metadata.cpp). ``snapshot_freq`` (checkpoints)
-arrives with ROADMAP Queue 1 item 14."""
+does (reference: src/io/metadata.cpp). ``snapshot_freq`` writes atomic
+training checkpoints under ``checkpoint_path`` (default
+``<output_model>.ckpt``), keeping ``checkpoint_keep``, and a second
+``task=train`` with the same command resumes from the newest valid one.
+Every output file (model, converted C++, the ``.bin`` dataset) is written
+atomically (``utils/atomic_write``)."""
 
 from __future__ import annotations
 
@@ -146,16 +150,13 @@ def _save_binary(path: str, X, y, weight, group, init_score) -> None:
     JAX package's format), written to a temporary file and renamed (a
     killed save must not leave a truncated .bin a later run would trip
     over)."""
-    tmp = f"{path}.tmp{os.getpid()}"
-    with open(tmp, "wb") as fh:   # file object: np.savez won't append .npz
+    from .utils.atomic_write import atomic_open
+    with atomic_open(path) as fh:   # file object: np.savez won't append .npz
         np.savez_compressed(fh, version=1, X=X, y=y,
                             weight=weight if weight is not None else np.zeros(0),
                             group=group if group is not None else np.zeros(0),
                             init_score=(init_score if init_score is not None
                                         else np.zeros(0)))
-        fh.flush()
-        os.fsync(fh.fileno())
-    os.replace(tmp, path)
 
 
 def _load_binary(path: str):
@@ -406,6 +407,25 @@ def run_train(config: Config, params: Dict[str, str]) -> None:
         valid_sets.append(_make_dataset(vf, config, params, reference=train_set))
         valid_names.append(os.path.basename(vf))
 
+    callbacks = []
+    resume_from = None
+    if config.snapshot_freq > 0:
+        # snapshot_freq rides the atomic checkpoints (in place of the
+        # reference's non-atomic model.txt.snapshot_iter_N dumps,
+        # gbdt.cpp:277-281): the full trainer state, manifest-validated
+        # files, and automatic resume -- a killed run started again with
+        # the same command continues bit-identically from the newest
+        # valid checkpoint
+        from . import callback as callback_mod
+        ckpt_dir = config.checkpoint_path or (config.output_model + ".ckpt")
+        callbacks.append(callback_mod.checkpoint(
+            ckpt_dir, period=config.snapshot_freq,
+            keep=config.checkpoint_keep))
+        if os.path.isdir(ckpt_dir):
+            resume_from = ckpt_dir
+            log.info(f"checkpoint directory {ckpt_dir} exists; resuming "
+                     f"from the newest valid checkpoint")
+
     booster = engine_train(
         dict(params), train_set, num_boost_round=config.num_iterations,
         valid_sets=valid_sets, valid_names=valid_names,
@@ -413,7 +433,8 @@ def run_train(config: Config, params: Dict[str, str]) -> None:
         early_stopping_rounds=config.early_stopping_round or None,
         verbose_eval=config.metric_freq if (valid_sets or
                                             config.is_provide_training_metric)
-        else False)
+        else False,
+        callbacks=callbacks, resume_from=resume_from)
     booster.save_model(config.output_model)
     log.info(f"Finished training, model saved to {config.output_model}")
 
@@ -446,8 +467,9 @@ def run_convert_model(config: Config, params: Dict[str, str]) -> None:
         log.fatal("No model file: set input_model=<file>")
     booster = Booster(model_file=config.input_model)
     from .io.codegen import model_to_if_else
-    with open(config.convert_model, "w") as fh:
-        fh.write(model_to_if_else(booster._boosting))
+    from .utils.atomic_write import atomic_write_text
+    atomic_write_text(config.convert_model,
+                      model_to_if_else(booster._boosting))
     log.info(f"Converted model saved to {config.convert_model}")
 
 

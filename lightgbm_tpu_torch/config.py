@@ -29,7 +29,9 @@ the same ``parameters:`` block into model text), with three port rules:
   every objective and metric, ranking's included; the fused split
   epilogue, the classic split path, f32, f64 (``gpu_use_dp``) and
   quantized-gradient histograms, linear leaves; training control:
-  callbacks, early stopping, custom objectives with objective ``none``)
+  callbacks, early stopping, custom objectives with objective ``none``;
+  prediction and the CLI; fault tolerance: checkpoints, ``check_numerics``,
+  ``histogram_pool_size``, the OOM ladder and the single-process faults)
   raises
   NotImplementedError when set to a non-default value, naming the ROADMAP
   item that brings it (``_check_slice``). Nothing is silently ignored.
@@ -772,35 +774,47 @@ _SLICE_PARAMS = frozenset({
     "convert_model_language", "convert_model", "input_model",
     "output_model", "predict_bucket_min_rows", "predict_chunk_rows",
     "predict_accum",
+    # fault tolerance: checkpoints (snapshot_freq in the CLI), the numerics
+    # guard, the memory-bounded pass under histogram_pool_size, the OOM
+    # ladder's gate, and the single-process fault hooks (utils/faults.py)
+    "snapshot_freq", "checkpoint_path", "checkpoint_keep", "check_numerics",
+    "histogram_pool_size", "hist_oom_fallback",
+    "fault_kill_at_iter", "fault_kill_in_ckpt_write",
+    "fault_nan_grad_at_iter", "fault_nan_hist_at_iter",
+    "fault_corrupt_checkpoint", "fault_oom_at_iter", "fault_oom_count",
+    "fault_oom_at_predict",
 })
 
 # ROADMAP.md "Queue 1" item that brings each group of parameters
 _ROADMAP_ITEM = {}
 for _names, _item in (
-        (("histogram_pool_size",),
-         "Queue 1 item 6 (the feature-blocked pass)"),
         (("hist_block", "hist_autotune"),
          "Queue 2 (autotune_hist becomes a Hopper sweep over rows per "
          "block)"),
         (("boost_rounds_per_dispatch", "compile_cache_dir",
           "compile_warmup"),
          "Queue 1 item 13 (dispatch)"),
-        (("snapshot_freq", "checkpoint_path", "checkpoint_keep",
-          "checkpoint_shards", "integrity_check_period", "hist_oom_fallback", "check_numerics"),
-         "Queue 1 item 14 (fault tolerance)"),
         (("num_machines", "local_listen_port", "time_out",
           "machine_list_filename", "machines", "mesh_shape", "num_gpu",
           "tree_learner",
           "top_k", "pre_partition", "heartbeat_interval",
           "collective_deadline", "max_restarts", "rank_restart_budget",
           "min_world_size", "construct_chunk_rows", "construct_streaming",
-          "sketch_max_size", "predict_sharded"),
+          "sketch_max_size", "predict_sharded",
+          # sharded checkpoints, the integrity vote (a no-op in one
+          # process), the multi-process faults and the hang a watchdog
+          # answers
+          "checkpoint_shards", "integrity_check_period",
+          "fault_kill_rank_at_iter", "fault_hang_rank_at_iter",
+          "fault_kill_in_shard_write", "fault_corrupt_shard",
+          "fault_flip_score_rank", "fault_hang_at_iter"),
          "Queue 1 item 15 (distributed)"),
         (("serve_flush_ms", "serve_max_batch_rows",
           "serve_max_queue_rows", "serve_deadline_ms", "serve_metrics",
           "serve_metrics_port", "serve_metrics_host",
           "telemetry_flight_recorder", "telemetry_ring_size",
-          "telemetry_memory", "telemetry_dir", "telemetry_flush_period"),
+          "telemetry_memory", "telemetry_dir", "telemetry_flush_period",
+          "fault_slow_predict_ms"),
          "Queue 1 item 16 (ops layer)"),
         (("hist_pallas_interpret",),
          "Queue 2 (the port runs no Pallas interpreter; its CPU path is the "

@@ -9,9 +9,13 @@ callbacks in ``order``), early stopping through ``EarlyStopException``,
 (``fobj``, objective ``none``) and metrics (``feval``), continued training
 from ``init_model``, and cross-validation with stratified, shuffled or
 caller-given (group-aware) folds. The Booster takes the boosting type
-``boosting`` names (``models/boosting.create_boosting``). The JAX
-package's resume from a checkpoint waits for ROADMAP.md Queue 1 item 14;
-its distributed, fault and K-block dispatch parts for items 13-15.
+``boosting`` names (``models/boosting.create_boosting``), and
+``resume_from`` continues from the newest valid checkpoint of a
+``callback.checkpoint`` directory bit-identically (``checkpoint.py``),
+with the fault hooks of ``utils/faults.py`` (``fault_kill_at_iter``) at
+every iteration's start. The JAX package's K-block dispatch and
+``compile_warmup`` wait for ROADMAP.md Queue 1 item 13, its distributed
+supervision (heartbeats, watchdog, the integrity vote) for item 15.
 """
 
 from __future__ import annotations
@@ -102,12 +106,15 @@ def train(params: Dict[str, Any], train_set: Dataset,
     -> rate) sets the rate before each iteration; ``verbose_eval`` (True
     or a period) logs the evaluations. ``keep_training_booster`` changes
     nothing (the booster always stays trainable), as in the JAX package.
-    ``resume_from`` waits for ROADMAP.md Queue 1 item 14."""
-    if resume_from is not None:
-        raise NotImplementedError(
-            "train(resume_from=...) is not ported to lightgbm_tpu_torch yet; "
-            "checkpoints and resume arrive with ROADMAP.md Queue 1 item 14 "
-            "(fault tolerance)")
+
+    ``resume_from``: a checkpoint directory written by the
+    ``callback.checkpoint`` callback. Training restores the full trainer
+    state (trees, score caches, generator and drop state, eval history,
+    early-stopping counters) from the newest valid checkpoint and
+    continues at the saved iteration, reproducing the uninterrupted run
+    bit-identically; a directory with no valid checkpoint trains from
+    scratch with a warning. Pass the same params, datasets and callbacks
+    as the original run (a params or dataset mismatch is refused)."""
     params = copy.deepcopy(params)
     num_boost_round = _resolve_num_boost_round(params, num_boost_round)
     if fobj is not None:
@@ -160,9 +167,32 @@ def train(params: Dict[str, Any], train_set: Dataset,
     cbs_after = sorted((c for c in cbs
                         if not getattr(c, "before_iteration", False)),
                        key=lambda c: getattr(c, "order", 0))
+    # the checkpoint callback captures the stateful callbacks' state
+    # through the booster (checkpoint.capture_state)
     booster._callbacks = cbs_before + cbs_after
 
-    for i in range(num_boost_round):
+    start_iter = 0
+    if resume_from is not None:
+        from . import checkpoint as checkpoint_mod
+        ckpt = checkpoint_mod.CheckpointManager(
+            resume_from).load_latest_valid()
+        if ckpt is None:
+            log.warning(f"resume_from={resume_from!r}: no valid checkpoint "
+                        f"found; training from scratch")
+        else:
+            cb_states = checkpoint_mod.restore_booster(booster, ckpt)
+            start_iter = int(ckpt.state["boosting"]["iter"])
+            for cb in booster._callbacks:
+                key = getattr(cb, "ckpt_key", None)
+                if key in cb_states and hasattr(cb, "set_state"):
+                    cb.set_state(cb_states[key])
+            log.info(f"resumed from checkpoint {ckpt.path} at iteration "
+                     f"{start_iter}")
+
+    from .utils import faults
+    fault_plan = faults.plan_from(booster.config)
+    for i in range(start_iter, num_boost_round):
+        faults.maybe_kill(fault_plan, i)
         for cb in cbs_before:
             cb(CallbackEnv(model=booster, params=params, iteration=i,
                            begin_iteration=0, end_iteration=num_boost_round,

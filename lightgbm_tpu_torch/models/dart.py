@@ -47,6 +47,26 @@ class DART(GBDT):
         self._drop_rng = np.random.RandomState(config.drop_seed)
         self.sum_weight = sum(self.tree_weight)
 
+    # ------------------------------------------------- checkpoint/resume
+    def get_trainer_state(self) -> dict:
+        """GBDT's, plus the drop generator's full numpy state, the
+        per-iteration tree weights (dart.hpp:201) and the drop sets:
+        without them a resume would draw another drop set."""
+        state = super().get_trainer_state()
+        state["dart"] = {"drop_rng_state": self._drop_rng.get_state(),
+                         "tree_weight": list(self.tree_weight),
+                         "sum_weight": float(self.sum_weight),
+                         "drop_sets": [list(d) for d in self.drop_sets]}
+        return state
+
+    def set_trainer_state(self, state: dict) -> None:
+        super().set_trainer_state(state)
+        d = state["dart"]
+        self._drop_rng.set_state(d["drop_rng_state"])
+        self.tree_weight = list(d["tree_weight"])
+        self.sum_weight = float(d["sum_weight"])
+        self.drop_sets = [list(x) for x in d.get("drop_sets", [])]
+
     def _select_drop_iters(self) -> List[int]:
         """reference: dart.hpp:97-134 DroppingTrees (the selection)."""
         cfg = self.config

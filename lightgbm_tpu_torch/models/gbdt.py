@@ -91,6 +91,7 @@ from ..basic import Dataset, _to_2d_float
 from ..binning import BIN_TYPE_NUMERICAL, K_ZERO_THRESHOLD
 from ..metrics import Metric, create_metric, default_metric_for_objective
 from ..objectives import ObjectiveFunction, create_objective
+from ..ops import cuda_hist
 from ..ops.histogram import resolve_method
 from ..ops.split import SplitParams
 from ..utils import log
@@ -103,6 +104,16 @@ from .tree import (HostTree, TreeArrays, empty_tree, predict_leaf_bins,
 
 
 _RAW_CHUNK = 65536      # rows a bundled model's raw predict densifies at once
+
+# bit -> source name of the numerics sentinel flag word (the JAX package's
+# table; the port's grower raises bit 2, the histogram sums)
+_SENTINEL_SOURCES = (
+    (0, "gradients"),
+    (1, "hessians"),
+    (2, "histogram sums (in-program, Pallas/XLA histogram path)"),
+    (3, "leaf outputs"),
+    (4, "score delta"),
+)
 
 
 def _linear_valid_delta(leaf: torch.Tensor, leaf_value: torch.Tensor,
@@ -169,13 +180,31 @@ class GBDT:
         self._engine_cache: Dict[tuple, tuple] = {}
         self._engine_lock = threading.Lock()
         self._mt_cache: Dict[int, tuple] = {}
+        # the OOM ladder's position (_maybe_degrade_oom): rungs 1-2 set the
+        # feature-blocked pass's column width, rung 3 (and the predict
+        # rung) the predict chunk. It rides the trainer state, so a resumed
+        # run trains with the same degraded configuration
+        self._oom_level = 0
+        self._oom_block = 0
+        self._oom_predict_chunk = 0
+        self._warned_pool = False
         if train_set is not None:
             self._init_train(train_set)
 
     # ------------------------------------------------------------ setup
+    _fault_plan = None           # set per training run (utils/faults)
+    _bag_stale = False           # a restore marks the bag for re-derivation
+
     def _init_train(self, train_set: Dataset) -> None:
+        from .. import distributed
+        from ..utils import faults
         train_set.construct()
         cfg = self.config
+        self._fault_plan = faults.plan_from(cfg)
+        # a fresh training run starts with a clean degradation log: its
+        # health snapshots and checkpoint manifests must not inherit an
+        # earlier booster's OOM events
+        distributed.reset_degradations()
         self.device = train_set.device
         if cfg.linear_tree and self.name in ("dart", "rf"):
             log.fatal(f"linear_tree is not supported with boosting={self.name}")
@@ -466,11 +495,16 @@ class GBDT:
 
     def _update_bagging(self) -> None:
         """Draw the period's bag (reference: gbdt.cpp:228-262 Bagging),
-        keyed on the period's first iteration."""
+        keyed on the period's first iteration, at a period start or after
+        a restore (``_bag_stale``, the JAX package's rule)."""
         cfg = self.config
         mode = self._bagging_mode()
-        if mode == "off" or self.iter % cfg.bagging_freq != 0:
+        if mode == "off" or (self.iter % cfg.bagging_freq != 0
+                             and not self._bag_stale):
             return
+        # keyed on the period's first iteration: a restored run re-derives
+        # the exact mid-period bag (_restore_bagging)
+        self._bag_stale = False
         period_start = (self.iter // cfg.bagging_freq) * cfg.bagging_freq
         key = fold_in(prng_key(cfg.bagging_seed), period_start)
         ts = self.train_set
@@ -520,15 +554,16 @@ class GBDT:
                                 device=self.device), 0.0)
         sp = ((ts.sp_cols, ts.sp_rows, ts.sp_bins, ts.sp_default)
               if ts.has_sparse_cols else None)
+        fb = self._feature_block()
         return grow_tree(
             ts.binsT, g, h, ts.feature_meta, self.split_params,
             ts.missing_bin, max_leaves=cfg.num_leaves,
             num_bins=ts.max_num_bins, max_depth=cfg.max_depth,
             exact=cfg.tree_growth_mode == "exact",
             tile_leaves=cfg.tile_leaves,
-            hist_subtraction=cfg.hist_subtraction,
-            compaction_ladder=self._compaction_ladder(),
-            split_fusion=self._split_fusion_on(),
+            hist_subtraction=cfg.hist_subtraction and fb == 0,
+            compaction_ladder=() if fb else self._compaction_ladder(),
+            split_fusion=self._split_fusion_on(fb),
             with_categorical=ts.has_categorical, sp=sp,
             hist_method=self._hist_method, rng_key=iter_key,
             counters=self._hist_counters, sample_mask=mask,
@@ -539,18 +574,103 @@ class GBDT:
             bynode_fraction=(cfg.feature_fraction_bynode
                              if self._use_bynode else None),
             bundle=ts.bundle_meta, cegb=self._cegb,
-            forced=self._forced_splits, hist_dp=cfg.gpu_use_dp)
+            forced=self._forced_splits, hist_dp=cfg.gpu_use_dp,
+            feature_block=fb, numerics_sentinels=cfg.check_numerics)
 
-    def _split_fusion_on(self) -> bool:
+    # ------------------------------------------------ memory-bounded growth
+    def _resident_hist_bytes(self) -> int:
+        """Bytes of the resident [L, F, B, 3] float32 histogram state."""
+        ts = self.train_set
+        return (self.config.num_leaves * ts.num_used_features()
+                * ts.max_num_bins * 3 * 4)
+
+    def _blocked_refusal(self) -> Optional[str]:
+        """Why the feature-blocked pass cannot run this configuration (the
+        JAX package's list: CEGB, forced splits, intermediate and advanced
+        monotone constraints, the bagging subset copy, f64 and q8
+        histograms, sparse device columns), or None."""
+        cfg = self.config
+        subset_possible = (cfg.bagging_freq > 0
+                           and cfg.bagging_fraction <= 0.5
+                           and cfg.pos_bagging_fraction >= 1.0
+                           and cfg.neg_bagging_fraction >= 1.0
+                           and self._cegb is None
+                           and not cfg.linear_tree)
+        for cond, why in (
+                (self._cegb is not None, "CEGB"),
+                (self._forced_splits is not None, "forced splits"),
+                (self._with_monotone and self._mono_mode != "basic",
+                 f"{self._mono_mode} monotone constraints"),
+                (subset_possible, "the bagging subset copy"),
+                (cfg.gpu_use_dp, "f64 histograms"),
+                (self._hist_method.endswith("_q8"), "q8 histograms"),
+                (self.train_set.has_sparse_cols, "sparse device columns")):
+            if cond:
+                return why
+        return None
+
+    def _block_width(self, cap: int) -> int:
+        """Columns a blocked pass takes under a cap of ``cap`` bytes (the
+        JAX package's formula, P the tile's slots): each column's
+        transient is the [P, B, 3] tile plus ~8 search-sized temporaries,
+        at least 16 columns a block."""
+        cfg = self.config
+        ts = self.train_set
+        f_cols = ts.num_used_features()
+        P = min(cfg.tile_leaves or cuda_hist.structural_tile_leaves(),
+                cfg.num_leaves)
+        per_f = P * ts.max_num_bins * 4 * (3 + 8)
+        return max(16, min(f_cols, cap // per_f))
+
+    def _feature_block(self) -> int:
+        """Column-block width of the grower's memory-bounded mode, or 0 to
+        keep the resident [L, F, B, 3] histogram state (the JAX package's
+        ``_feature_block``). Engages when that state would exceed
+        ``histogram_pool_size`` (MB; <= 0 means a 2 GiB cap, not
+        unlimited), the analog of the reference's HistogramPool
+        (feature_histogram.hpp:1095-1290): over-cap leaves pay
+        recomputation instead of residency. The OOM ladder's rungs 1-2
+        (``_oom_block``) narrow it further, or engage it below the cap."""
+        cfg = self.config
+        hist_bytes = self._resident_hist_bytes()
+        pool = cfg.histogram_pool_size
+        cap = int(pool * 1024 * 1024) if pool and pool > 0 else 2 << 30
+        fb = 0
+        if hist_bytes > cap:
+            if self._blocked_refusal() is not None:
+                if not self._warned_pool:
+                    self._warned_pool = True
+                    log.warning(
+                        f"histogram state ({hist_bytes / 2**20:.0f} MB) "
+                        f"exceeds the pool cap ({cap / 2**20:.0f} MB) but "
+                        "the memory-bounded mode does not support "
+                        "CEGB/forced-splits/box-monotone/subset-bagging/"
+                        "f64/q8 here; keeping the resident state (may OOM)")
+            else:
+                fb = self._block_width(cap)
+                if not self._warned_pool:
+                    self._warned_pool = True
+                    log.warning(
+                        f"histogram state ({hist_bytes / 2**20:.0f} MB) "
+                        f"exceeds the pool cap ({cap / 2**20:.0f} MB): "
+                        f"memory-bounded growth engaged ({fb} feature "
+                        "columns per pass, no histogram subtraction — ~2x "
+                        "the histogram passes)")
+        if self._oom_block:
+            fb = min(fb, self._oom_block) if fb else self._oom_block
+        return fb
+
+    def _split_fusion_on(self, fb: int = 0) -> bool:
         """Resolve ``split_fusion`` as the JAX package does: "auto" fuses
         the split search into the tile passes unless the classic search
         has to run -- categorical features, EFB bundles, forced splits,
         CEGB, extra_trees, by-node sampling, intermediate or advanced
         monotone constraints, a non-positive feature_contri, f64 histograms
-        (``gpu_use_dp``) or sparse device columns (the reasons the port
-        has, in the JAX package's order); "on" raises with any; "off" never
-        fuses. Basic monotone constraints, interaction constraints
-        and a positive feature_contri stay fused."""
+        (``gpu_use_dp``), sparse device columns or the feature-blocked
+        pass (``fb`` > 0; the reasons the port has, in the JAX package's
+        order); "on" raises with any; "off" never fuses. Basic monotone
+        constraints, interaction constraints and a positive feature_contri
+        stay fused."""
         cfg = self.config
         mode = cfg.split_fusion
         if mode == "off" or self.train_set is None:
@@ -580,6 +700,8 @@ class GBDT:
             reasons.append("f64 histograms")
         if ts.has_sparse_cols:
             reasons.append("sparse device columns")
+        if fb:
+            reasons.append("memory-bounded (feature-blocked) growth")
         if mode == "on" and reasons:
             raise ValueError(
                 "split_fusion=on is unsupported with " + ", ".join(reasons)
@@ -601,14 +723,46 @@ class GBDT:
         """One boosting iteration (gbdt.cpp:369-452): K trees with K
         classes, from the objective's gradients or from ``grad`` and
         ``hess`` (a custom objective). Returns True when no tree of the
-        iteration has a split."""
+        iteration has a split.
+
+        It hosts the OOM ladder, as the JAX package's does: a device
+        allocation failure (``faults.is_resource_exhausted``) takes the
+        booster one rung down (``_maybe_degrade_oom``) and retries the
+        iteration, which is safe while the failed attempt added no tree."""
+        from .. import distributed
+        it = self.iter
+        distributed.notify_step_begin(it)
+        try:
+            while True:
+                ntrees_before = len(self.trees)
+                try:
+                    stop = self._train_one_iter_impl(grad, hess)
+                    break
+                except Exception as e:
+                    if not self._maybe_degrade_oom(e, ntrees_before):
+                        raise
+        finally:
+            distributed.notify_step_end(it if self.iter > it else it - 1)
+        return stop
+
+    def _train_one_iter_impl(self, grad=None, hess=None) -> bool:
+        from ..utils import faults
+        cfg = self.config
         k = self.num_tree_per_iteration
+        # the simulated OOM raises before any state changes, so the retry
+        # in train_one_iter is safe
+        faults.maybe_oom(self._fault_plan, self.iter)
         self._update_bagging()
         mask = self._bag_mask
         if grad is None:
             g, h = self._gradients()
         else:
             g, h = self._custom_gradients(grad, hess)
+        if self._fault_plan is not None:
+            g, h = faults.maybe_nan_grad(self._fault_plan, self.iter, g, h)
+            g, h = faults.maybe_nan_hist(self._fault_plan, self.iter, g, h)
+        if cfg.check_numerics:
+            self._check_numerics_grad(g, h)
         w = self._sample_weights(g, h)
         if w is not None:
             # GOSS: gradients amplified, the 0/1 support keeps the count
@@ -624,9 +778,11 @@ class GBDT:
             iter_key = fold_in(self._extra_rng_key, self.iter * k + c)
             tree, leaf_id, streamed = self._grow_one(gc, hc, mask, fmask,
                                                      iter_key)
+            if cfg.check_numerics and self._hist_counters.pop("sentinel", 0):
+                self._check_sentinel_flags(1 << 2)
             self._rows_streamed += streamed
             lin = None
-            if self.config.linear_tree:
+            if cfg.linear_tree:
                 # the first tree counts an init model's trees too
                 # (reference: models_.size() < num_tree_per_iteration_)
                 lin = self._fit_linear_leaves(
@@ -638,6 +794,51 @@ class GBDT:
             self._bias_after_score(c, had_split)
         self.iter += 1
         return no_split
+
+    # ---------------------------------------------------- numerics guard
+    def _check_numerics_grad(self, g: torch.Tensor, h: torch.Tensor) -> None:
+        """check_numerics fail-fast: NaN/Inf gradients or hessians poison
+        every histogram they touch and surface much later as garbage
+        splits, so name the iteration and the count now."""
+        bad_g = int((~torch.isfinite(g)).sum())
+        bad_h = int((~torch.isfinite(h)).sum())
+        if bad_g or bad_h:
+            log.fatal(
+                f"check_numerics: iteration {self.iter}: {bad_g} non-finite "
+                f"gradient and {bad_h} non-finite hessian values out of "
+                f"{int(np.prod(tuple(g.shape)))} — failing fast before they "
+                f"poison the histograms (check the objective / custom fobj, "
+                f"learning_rate, and input features)")
+
+    def _check_numerics_leaves(self, tree: TreeArrays,
+                               num_leaves: int) -> None:
+        """check_numerics on a finalized tree's leaf outputs."""
+        lv = tree.leaf_value[:max(num_leaves, 1)].detach().cpu().numpy()
+        bad = int(np.sum(~np.isfinite(lv)))
+        if bad:
+            log.fatal(
+                f"check_numerics: iteration {self.iter}: {bad} of "
+                f"{max(num_leaves, 1)} leaf outputs in the new tree are "
+                f"non-finite — failing fast before the score caches are "
+                f"poisoned")
+
+    def _check_sentinel_flags(self, flags: int,
+                              iteration: Optional[int] = None) -> None:
+        """Judge a sentinel flag word: nonzero bits name which sources
+        carried NaN/Inf (``_SENTINEL_SOURCES``); the grower raises bit 2
+        when its final state's leaf sums, outputs or resident planes hold
+        one."""
+        if not flags:
+            return
+        it = self.iter if iteration is None else iteration
+        sources = [name for bit, name in _SENTINEL_SOURCES
+                   if flags & (1 << bit)]
+        log.fatal(
+            f"check_numerics: iteration {it}: in-program sentinels "
+            f"flagged non-finite values in {', '.join(sources)} "
+            f"(flag word 0b{flags:05b}) — failing fast before they poison "
+            f"the model on disk (check the objective / custom fobj, "
+            f"learning_rate, and input features)")
 
     def _finalize_tree(self, tree: TreeArrays, leaf_id: torch.Tensor,
                        class_idx: int) -> Tuple[TreeArrays, bool]:
@@ -656,7 +857,10 @@ class GBDT:
                 lv[:num_leaves] = torch.as_tensor(
                     np.asarray(new_values, np.float32))
                 tree = tree._replace(leaf_value=lv)
-        return _shrink_tree(tree, self.shrinkage_rate), had_split
+        tree = _shrink_tree(tree, self.shrinkage_rate)
+        if self.config.check_numerics:
+            self._check_numerics_leaves(tree, num_leaves)
+        return tree, had_split
 
     def _renew_score(self, class_idx: int) -> np.ndarray:
         """The scores leaf renewal measures residuals from (RF: the
@@ -933,6 +1137,221 @@ class GBDT:
                     self._valid_scores[i], class_idx, -vdelta)
         self.iter -= 1
 
+    # ------------------------------------------------ OOM degradation
+    def _maybe_degrade_oom(self, exc: BaseException,
+                           ntrees_before: int) -> bool:
+        """Take the booster ONE rung down the OOM ladder and say whether
+        the failed iteration may be retried. The JAX package's rungs are
+        TPU rungs (a smaller VMEM row block, then the XLA scatter); on the
+        card each rung frees device memory instead:
+
+          1. the feature-blocked pass (no [L, F, B, 3] state; the column
+             blocks histogrammed and searched one at a time), at the width
+             ``_feature_block`` gives for a cap of a quarter of the
+             resident state's bytes;
+          2. the same pass at the 16-column floor;
+          3. a quarter of the predict chunk (the eval and predict
+             engines hold fewer rows).
+
+        Every rung is recorded (``distributed.record_degradation``, so
+        ``health_snapshot()`` and every later checkpoint manifest) and
+        logged as a WARNING, and the degraded configuration rides the
+        trainer state. False (the error re-raises) when the gate
+        ``hist_oom_fallback`` is off, the error is not an allocation
+        failure, the failed attempt already added a tree, the ladder is
+        spent, or the configuration refuses the blocked pass (rungs 1-2:
+        the warning says why)."""
+        from .. import distributed
+        from ..utils import faults
+        if not self.config.hist_oom_fallback \
+                or not faults.is_resource_exhausted(exc):
+            return False
+        if len(self.trees) != ntrees_before:
+            return False
+        if self._oom_level >= 3:
+            return False
+        if self._oom_level < 2:
+            why = self._blocked_refusal()
+            if why is not None:
+                log.warning(
+                    f"out of device memory in boosting iteration "
+                    f"{self.iter}: OOM ladder rung {self._oom_level + 1} is "
+                    f"the feature-blocked pass, which this configuration "
+                    f"refuses ({why}); re-raising")
+                return False
+        self._oom_level += 1
+        if self._oom_level == 1:
+            self._oom_block = self._block_width(
+                self._resident_hist_bytes() // 4)
+            action = f"feature_block -> {self._oom_block}"
+        elif self._oom_level == 2:
+            self._oom_block = 16
+            action = f"feature_block -> {self._oom_block} (floor)"
+        else:
+            base = self.config.predict_chunk_rows or (1 << 22)
+            self._oom_predict_chunk = max(1 << 14, base // 4)
+            action = f"predict_chunk_rows -> {self._oom_predict_chunk}"
+        with self._engine_lock:
+            self._engine_cache.clear()
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
+        distributed.record_degradation({
+            "kind": "oom", "iteration": int(self.iter),
+            "level": int(self._oom_level), "action": action,
+            "error": str(exc)[:200], **self._oom_memory_evidence()})
+        log.warning(
+            f"RESOURCE_EXHAUSTED in boosting iteration {self.iter}: "
+            f"degrading ({action}; ladder rung {self._oom_level}/3) and "
+            f"retrying — the job continues DEGRADED (recorded in "
+            f"health_snapshot() and checkpoint manifests)")
+        return True
+
+    def _oom_memory_evidence(self) -> dict:
+        """The device allocator's view at the failure (null on the CPU)."""
+        if self.device.type != "cuda":
+            return {"memory": None}
+        return {"memory": {
+            "allocated": int(torch.cuda.memory_allocated(self.device)),
+            "reserved": int(torch.cuda.memory_reserved(self.device)),
+            "max_allocated": int(torch.cuda.max_memory_allocated(
+                self.device))}}
+
+    def _maybe_degrade_predict_oom(self, exc: BaseException) -> bool:
+        """The predict path's entry to rung 3: halve the effective predict
+        chunk (again and again, floor 16k rows) and retry. It leaves
+        ``_oom_level`` alone: chunking is exact, and a predict OOM must not
+        spend the rungs a later training OOM may need."""
+        from .. import distributed
+        from ..utils import faults
+        nxt = faults.next_predict_chunk(
+            exc, self._oom_predict_chunk or self.config.predict_chunk_rows,
+            self.config.hist_oom_fallback)
+        if nxt is None:
+            return False
+        with self._engine_lock:
+            self._oom_predict_chunk = nxt
+            self._engine_cache.clear()
+        action = f"predict_chunk_rows -> {self._oom_predict_chunk}"
+        distributed.record_degradation({
+            "kind": "oom_predict", "iteration": int(self.iter),
+            "level": int(self._oom_level), "action": action,
+            "error": str(exc)[:200], **self._oom_memory_evidence()})
+        log.warning(f"RESOURCE_EXHAUSTED in predict: degrading ({action}) "
+                    f"and retrying")
+        return True
+
+    def _predict_chunk_rows(self) -> int:
+        """``predict_chunk_rows`` under the predict rung's override."""
+        chunk = self.config.predict_chunk_rows
+        if self._oom_predict_chunk:
+            chunk = (self._oom_predict_chunk if not chunk
+                     else min(chunk, self._oom_predict_chunk))
+        return chunk
+
+    # ------------------------------------------------ checkpoint/resume
+    def get_trainer_state(self) -> dict:
+        """Complete trainer state for a checkpoint (``checkpoint.py``):
+        everything a resume needs to continue bit-identically, as numpy
+        arrays and plain Python -- the exact float32 score caches (one
+        ``.cpu()`` each), the trees, the model trees, the biases and init
+        scores, the feature-fraction generator, the rows streamed, an
+        init model's text and the OOM ladder's position. The bagging and
+        GOSS draws are keyed on the iteration and need no state."""
+        cegb = None
+        if self._cegb is not None:
+            ru = self._cegb.state["row_used"]
+            cegb = {"used_split": np.array(self._cegb.state["used_split"]),
+                    "row_used": None if ru is None else ru.cpu().numpy()}
+        state = {
+            "name": self.name,
+            "iter": int(self.iter),
+            "trees": [t.numpy() for t in self.trees],
+            "host_trees": list(self.host_trees),
+            "tree_bias": list(self.tree_bias),
+            "init_scores": list(self.init_scores),
+            "train_score": (self.train_score.detach().cpu().numpy()
+                            if self.train_score is not None else None),
+            "valid_scores": [s.detach().cpu().numpy()
+                             for s in self._valid_scores],
+            "feat_rng_state": self._feat_rng.get_state(),
+            "rows_streamed": float(self._rows_streamed),
+            "hist_counters": dict(self._hist_counters),
+            # no counterpart in the port: the measured histogram method and
+            # the autotuned kernel shape (one histogram path, no autotune)
+            # and the collective bytes (one process)
+            "measured_hm": None,
+            "hist_tuned": None,
+            "coll_bytes": None,
+            "oom_degrade": ({"level": self._oom_level,
+                             "block": self._oom_block,
+                             "predict_chunk": self._oom_predict_chunk}
+                            if (self._oom_level or self._oom_predict_chunk)
+                            else None),
+            "cegb_state": cegb,
+            "loaded_iters": self.loaded_iters,
+            "loaded_model_text": None,
+        }
+        if self.loaded is not None:
+            from ..io.model_text import dump_model_text
+            state["loaded_model_text"] = dump_model_text(self.loaded)
+        return state
+
+    def set_trainer_state(self, state: dict) -> None:
+        """Inverse of :meth:`get_trainer_state`, applied to a freshly
+        constructed booster over the same dataset and params."""
+        if state.get("name") != self.name:
+            log.fatal(f"checkpoint was written by "
+                      f"boosting={state.get('name')!r}; this booster is "
+                      f"boosting={self.name!r}")
+        if len(state["valid_scores"]) != len(self._valid_scores):
+            log.fatal(f"checkpoint was written with "
+                      f"{len(state['valid_scores'])} validation sets; this "
+                      f"run has {len(self._valid_scores)} — pass the same "
+                      f"valid_sets in the same order")
+        self.iter = int(state["iter"])
+        self.trees = [TreeArrays(*(torch.as_tensor(np.asarray(a))
+                                   for a in t)) for t in state["trees"]]
+        self.host_trees = list(state["host_trees"])
+        self.tree_bias = list(state["tree_bias"])
+        self.init_scores = list(state["init_scores"])
+        if state["train_score"] is not None:
+            self.train_score = torch.from_numpy(
+                np.ascontiguousarray(state["train_score"])).to(self.device)
+        self._valid_scores = [
+            torch.from_numpy(np.ascontiguousarray(s)).to(vs.device)
+            for s, vs in zip(state["valid_scores"], self.valid_sets)]
+        self._feat_rng.set_state(state["feat_rng_state"])
+        self._rows_streamed = float(state["rows_streamed"])
+        self._hist_counters = dict(state.get("hist_counters", {}))
+        od = state.get("oom_degrade")
+        if od:
+            self._oom_level = int(od.get("level", 0))
+            self._oom_block = int(od.get("block", 0))
+            self._oom_predict_chunk = int(od.get("predict_chunk", 0))
+        cs = state.get("cegb_state")
+        if cs is not None and self._cegb is not None:
+            self._cegb.state["used_split"] = np.array(cs["used_split"])
+            if cs["row_used"] is not None:
+                self._cegb.state["row_used"] = torch.from_numpy(
+                    cs["row_used"]).to(self.device)
+        if state.get("loaded_model_text"):
+            from ..io.model_text import load_model
+            self.loaded = load_model(state["loaded_model_text"], self.config)
+            self.loaded_iters = int(state["loaded_iters"])
+        self._stacked_cache = None
+        with self._engine_lock:
+            self._engine_cache.clear()
+        self._mt_cache.clear()
+        self._bag_frac = None
+        self._restore_bagging()
+
+    def _restore_bagging(self) -> None:
+        """Recreate the bag active at the restored iteration: the draw is
+        keyed on the period's first iteration (``_update_bagging``), so
+        marking it stale makes the next iteration re-derive the exact
+        mid-period mask or subset; no generator state to keep."""
+        self._bag_stale = True
+
     # ----------------------------------------------------- telemetry
     @property
     def rows_streamed_total(self) -> float:
@@ -1172,14 +1591,15 @@ class GBDT:
             cfg = self.config
             b = np.asarray(self.tree_bias[:nt], np.float64)
             biases = b if (len(b) == nt and b.size and np.any(b)) else None
-            key = (nt, cfg.predict_accum, cfg.predict_chunk_rows,
+            chunk = self._predict_chunk_rows()
+            key = (nt, cfg.predict_accum, chunk,
                    None if biases is None else biases.tobytes())
             hit = self._engine_cache.get(key)
             if hit is not None and hit[0] is stacked:
                 return hit[1]
             eng = PredictEngine(
                 stacked, k, nt, self._ensemble_depth(nt), biases=biases,
-                accum=cfg.predict_accum, chunk_rows=cfg.predict_chunk_rows,
+                accum=cfg.predict_accum, chunk_rows=chunk,
                 device=self.device)
             if len(self._engine_cache) >= 2:
                 self._engine_cache.pop(next(iter(self._engine_cache)))
@@ -1217,6 +1637,25 @@ class GBDT:
                     pred_early_stop_freq: int = 10,
                     pred_early_stop_margin: float = 10.0,
                     _postprocess=None) -> np.ndarray:
+        """``_predict_raw_impl`` under the OOM ladder's predict rung: a
+        device allocation failure halves the chunk (recorded in
+        ``health_snapshot()``) and retries instead of failing the call."""
+        while True:
+            try:
+                return self._predict_raw_impl(
+                    X, num_iteration, start_iteration, pred_early_stop,
+                    pred_early_stop_freq, pred_early_stop_margin,
+                    _postprocess)
+            except Exception as e:
+                if not self._maybe_degrade_predict_oom(e):
+                    raise
+
+    def _predict_raw_impl(self, X, num_iteration: Optional[int] = None,
+                          start_iteration: int = 0,
+                          pred_early_stop: bool = False,
+                          pred_early_stop_freq: int = 10,
+                          pred_early_stop_margin: float = 10.0,
+                          _postprocess=None) -> np.ndarray:
         """Raw scores for raw-feature rows (the analog of
         GBDT::PredictRaw, gbdt_prediction.cpp:13-53): binned with the train
         mappers on the device, then the engine over the own trees (one
@@ -1233,7 +1672,10 @@ class GBDT:
         model trees on the host, in chunks of ``_RAW_CHUNK`` rows (new rows
         need not keep the bundles' exclusivity; linear leaves read raw
         features). An averaged model (RF) divides by the iterations used,
-        and takes no early stop."""
+        and takes no early stop. ``fault_oom_at_predict`` raises here
+        first (``utils/faults``)."""
+        from ..utils import faults
+        faults.maybe_oom_predict(faults.serve_faults(self.config))
         X = self._prep_predict_X(X)
         k = self.num_tree_per_iteration
         start, end = self._iter_range(num_iteration, start_iteration)

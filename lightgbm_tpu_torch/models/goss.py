@@ -67,6 +67,25 @@ class GOSS(GBDT):
         super().__init__(config, train_set, objective)
         self.sampled_iterations: List[int] = []   # iterations that sampled
 
+    # ------------------------------------------------- checkpoint/resume
+    def get_trainer_state(self) -> dict:
+        """GOSS adds nothing stateful: its key is ``fold_in(PRNGKey(
+        bagging_seed), iter)`` and its warm-up depends on ``iter`` alone.
+        The seed is recorded so a tampered sidecar cannot resample."""
+        state = super().get_trainer_state()
+        state["goss"] = {"bagging_seed": int(self.config.bagging_seed),
+                         "sampled_iterations": list(self.sampled_iterations)}
+        return state
+
+    def set_trainer_state(self, state: dict) -> None:
+        super().set_trainer_state(state)
+        g = state.get("goss", {})
+        seed = g.get("bagging_seed")
+        if seed is not None and int(seed) != int(self.config.bagging_seed):
+            log.fatal(f"checkpoint GOSS bagging_seed {seed} does not match "
+                      f"this run's {self.config.bagging_seed}")
+        self.sampled_iterations = list(g.get("sampled_iterations", []))
+
     def _sample_weights(self, g, h) -> Optional[torch.Tensor]:
         """reference: goss.hpp:105-150 BaggingHelper."""
         cfg = self.config

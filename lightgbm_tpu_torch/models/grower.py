@@ -92,6 +92,24 @@ float64 and keeps them as float32, and the tree under growth stays
 float32. The random draws of by-node sampling and extra_trees are float64
 then too, as JAX's ``uniform`` is under x64.
 
+The memory-bounded mode (``feature_block`` > 0, the JAX package's
+blocked mode, which ``histogram_pool_size`` and the OOM ladder's rungs 1-2
+engage) keeps no ``[L, F, B, 3]`` state: each ``blocked_pass``
+histograms the pending tile one column block at a time (``histogram_tiles``
+on a persistent ``binsT[s:e]`` view, into a transient ``[P, Fb, B, 3]``),
+searches it with ``find_best_splits`` and merges the blocks' bests with
+the JAX package's tie order (``merge_best``: the earlier block, the lower
+feature, keeps a tie); only the ``SplitInfo`` survives, and
+``split_phase_blocked`` applies splits from those stored bests. It runs
+the classic search with no subtraction and no compaction ladder, and
+reads all N rows once a block; every block's pass takes the tree's one
+``amax``, so on the card its planes are the resident pass's bit for bit.
+
+``numerics_sentinels`` (``check_numerics``) judges the final state: a
+non-finite leaf sum or output, or a non-finite resident plane, sets the
+histogram-sums bit of the flag word the trainer reads (``counters``'
+``sentinel``).
+
 Equivalence to the reference's leaf-wise order, the dead-leaf guard
 (BeforeFindBestSplit) and the tie rules are the JAX package's; trees are
 bitwise equal to its ``grow_tree`` on the same inputs where the histograms
@@ -322,7 +340,7 @@ class GrowState:
     numpy arrays for everything per-leaf."""
     leaf_id: torch.Tensor        # [N] int32, device
     leaf_id_sub: Optional[torch.Tensor]  # [k] int32 (bagging subset) or None
-    hist: torch.Tensor           # [L, F, B, 3] f32, device
+    hist: Optional[torch.Tensor]  # [L, F, B, 3] f32, device (None: blocked)
     hist_valid: np.ndarray       # [L] bool
     leaf_dead: np.ndarray        # [L] bool (guard-failed)
     leaf_sum_g: np.ndarray       # [L] f32
@@ -377,6 +395,37 @@ def _fmin(a, b):
     return a if a < b else b
 
 
+def merge_best(a: SplitInfo, b: SplitInfo) -> SplitInfo:
+    """Cross-block best merge (the JAX package's): a strictly greater gain
+    replaces, a tie keeps the earlier block, i.e. the lower feature index
+    (the reference's cross-feature tie rule,
+    serial_tree_learner.cpp:374-448)."""
+    take = b.gain > a.gain
+
+    def w(x, y):
+        m = take if x.dim() == 1 else take[:, None]
+        return torch.where(m, y, x)
+
+    return SplitInfo(*(w(x, y) for x, y in zip(a, b)))
+
+
+def column_blocks(binsT: torch.Tensor, width: int) -> List[tuple]:
+    """(start, end, view) of ``binsT``'s column blocks of ``width``
+    device columns. The views are kept on ``binsT`` (remade after an
+    in-place write or for another width), so each keeps the row-major copy
+    the kernels read (``cuda_hist.bins_by_row``, cached on the view) for
+    as long as the bin matrix lives: a fresh ``binsT[s:e]`` on every pass
+    would rebuild an N x Fb copy on every launch."""
+    kept = getattr(binsT, "_column_blocks", None)
+    if kept is not None and kept[0] == binsT._version and kept[1] == width:
+        return kept[2]
+    f = binsT.shape[0]
+    blocks = [(s, min(s + width, f), binsT[s:min(s + width, f)])
+              for s in range(0, f, width)]
+    binsT._column_blocks = (binsT._version, width, blocks)
+    return blocks
+
+
 class Grower:
     """The static configuration and data of one tree's growth (the JAX
     ``_grower_fns`` closure).
@@ -423,7 +472,7 @@ class Grower:
                  bundle: Optional[BundleMeta] = None,
                  cegb: Optional["CegbSpec"] = None,
                  forced: Optional[tuple] = None,
-                 hist_dp: bool = False):
+                 hist_dp: bool = False, feature_block: int = 0):
         assert tuple(sorted(compaction_ladder)) == tuple(compaction_ladder), \
             "compaction_ladder must be ascending"
         assert not (split_fusion and (with_categorical or sp is not None)), \
@@ -443,6 +492,17 @@ class Grower:
             "the bagging subset copy holds dense columns and no mask"
         assert not (hist_dp and split_fusion), \
             "f64 histograms take the classic path (the epilogue is float32)"
+        self.fb = int(feature_block)
+        if self.fb:
+            assert not split_fusion and sp is None and subset is None \
+                and cegb is None and forced is None and not hist_dp \
+                and mono_mode in ("", "basic") and not hist_method.endswith(
+                    "_q8"), ("the feature-blocked mode is the classic "
+                             "search on dense columns without CEGB, forced "
+                             "splits, box monotone constraints, the subset "
+                             "copy, f64 or q8 histograms")
+            hist_subtraction = False    # no resident parent planes
+            compaction_ladder = ()
         # the per-leaf state's dtype: float64 planes and sums with hist_dp
         self.dtype = torch.float64 if hist_dp else torch.float32
         self.np_dtype = np.float64 if hist_dp else np.float32
@@ -610,8 +670,8 @@ class Grower:
                                 device=self.dev),
             leaf_id_sub=(None if self.subset is None else torch.zeros(
                 (self.n,), dtype=torch.int32, device=self.dev)),
-            hist=torch.zeros((L, self.f, self.B, 3), dtype=self.dtype,
-                             device=self.dev),
+            hist=(None if self.fb else torch.zeros(
+                (L, self.f, self.B, 3), dtype=self.dtype, device=self.dev)),
             hist_valid=np.zeros((L,), bool), leaf_dead=np.zeros((L,), bool),
             leaf_sum_g=sums[0], leaf_sum_h=sums[1], leaf_cnt=sums[2],
             leaf_output=sums[3], leaf_depth=zi.copy(),
@@ -900,6 +960,62 @@ class Grower:
         st.rows_streamed += streamed
         st.rows_real += real
 
+    # ----------------------------------------------------- blocked mode
+    def blocked_pass(self, st: GrowState) -> None:
+        """Histogram + search for a tile of pending leaves, one column
+        block at a time (the JAX package's ``blocked_pass``): the block's
+        planes live only through its search, and the blocks' bests merge
+        as ``merge_best`` does; only the SplitInfo is kept."""
+        pending = self.pending_mask(st)
+        chosen, chosen_ok = self._first(pending, self.P)
+        sel = np.where(chosen_ok, chosen, -1).astype(np.int32)
+        dev = self.dev
+        cidx = torch.as_tensor(chosen.astype(np.int64))
+        fmask = torch.from_numpy(np.ascontiguousarray(
+            self.leaf_feature_mask(st)[chosen])).to(dev)
+        rand = (self.rand_bins(st)[cidx].to(dev) if self.extra_trees
+                else None)
+        aggs = [torch.from_numpy(a[chosen]).to(dev) for a in
+                (st.leaf_sum_g, st.leaf_sum_h, st.leaf_cnt, st.leaf_output,
+                 st.leaf_depth)]
+        bounds = ([torch.from_numpy(a[chosen]).to(dev)
+                   for a in (st.leaf_min, st.leaf_max)]
+                  if self.with_monotone else (None, None))
+        sel_t = torch.from_numpy(sel)
+        best = None
+        blocks = column_blocks(self.binsT, self.fb)
+        for s_, e_, bins_b in blocks:
+            tile = histogram_tiles(bins_b, self.stats, st.leaf_id, sel_t,
+                                   self.B, self.L, amax=self.amax,
+                                   dtype=self.dtype)
+            meta_b = FeatureMeta(*(a[s_:e_] for a in self.meta_dev))
+            bundle_b = (None if self.bundle is None else type(self.bundle)(
+                *(a[s_:e_] for a in self.bundle)))
+            bb = find_best_splits(
+                tile, *aggs, meta_b, self.params_dev, fmask[:, s_:e_],
+                self.max_depth, with_categorical=self.with_categorical,
+                cat_words=self.cat_words, leaf_min=bounds[0],
+                leaf_max=bounds[1],
+                rand_bin=None if rand is None else rand[:, s_:e_],
+                bundle=bundle_b)
+            bb = bb._replace(feature=bb.feature + s_)
+            best = bb if best is None else merge_best(best, bb)
+        slots = chosen[chosen_ok]
+        for cur, new in zip(st.best, best):
+            cur[slots] = _np(new)[chosen_ok]
+        st.hist_valid[chosen] |= chosen_ok
+        st.rounds += 1
+        st.rows_streamed += float(self.n * len(blocks))
+        st.rows_real += float(self.n * len(blocks))
+
+    def split_phase_blocked(self, st: GrowState) -> None:
+        """Apply splits from the stored per-leaf bests (no re-search: the
+        planes are gone). A leaf's best holds until it is split: basic
+        monotone bounds and interaction masks change only for the split
+        leaf's children, which are searched afresh."""
+        st.rounds += 1
+        self.split_apply(st)
+
     # ------------------------------------------------------- split phase
     def split_search(self, st: GrowState) -> None:
         """The classic search: every leaf's best split over the resident
@@ -1166,6 +1282,9 @@ class Grower:
         st.done = st.num_leaves == before
 
     def split_phase(self, st: GrowState) -> None:
+        if self.fb:
+            self.split_phase_blocked(st)
+            return
         if self.split_fusion:
             # the search already ran in the tile passes' epilogues
             st.rounds += 1
@@ -1241,10 +1360,24 @@ class Grower:
         st.done = False
 
     def hist_phase(self, st: GrowState) -> None:
-        if self.split_fusion:
+        if self.fb:
+            self.blocked_pass(st)
+        elif self.split_fusion:
             self.tile_pass_fused(st)
         else:
             self.tile_pass(st)
+
+    def sentinel(self, st: GrowState) -> bool:
+        """The histogram-plane numerics sentinel on the final state (the
+        JAX package's): the leaf sums and outputs integrate every
+        histogram the tree used, and the resident planes are checked
+        directly where they exist (not in the blocked mode)."""
+        bad = not (np.isfinite(st.leaf_sum_g).all()
+                   and np.isfinite(st.leaf_sum_h).all()
+                   and np.isfinite(st.leaf_output).all())
+        if not bad and st.hist is not None:
+            bad = bool((~torch.isfinite(st.hist)).any())
+        return bad
 
     def finalize(self, st: GrowState):
         tree = TreeArrays(*(torch.as_tensor(np.asarray(a)) for a in st.tree))
@@ -1272,7 +1405,8 @@ def grow_tree(binsT: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
               bundle: Optional[BundleMeta] = None,
               cegb: Optional["CegbSpec"] = None,
               forced: Optional[tuple] = None,
-              hist_dp: bool = False
+              hist_dp: bool = False, feature_block: int = 0,
+              numerics_sentinels: bool = False
               ) -> Tuple[TreeArrays, torch.Tensor, float]:
     """Grow one tree from per-row gradients/hessians. ``hist_method`` is
     ``ops/histogram.resolve_method``'s answer (empty: the f32 mode of the
@@ -1283,9 +1417,11 @@ def grow_tree(binsT: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
     rows those passes added (a gather pass's tile rows, a full pass's N),
     beside which the rows read show the rungs' padding. ``sample_mask``,
     ``subset``, ``feature_mask``, the constraint options, the data
-    layer's (``bundle``, ``cegb``, ``forced``) and ``hist_dp`` (float64
-    histograms and per-leaf state) as ``Grower``'s; the leaf ids cover all
-    N rows either way."""
+    layer's (``bundle``, ``cegb``, ``forced``), ``hist_dp`` (float64
+    histograms and per-leaf state) and ``feature_block`` (the blocked
+    mode's column width, 0 = the resident state) as ``Grower``'s; the leaf
+    ids cover all N rows either way. ``numerics_sentinels`` judges the
+    final state (``Grower.sentinel``) into ``counters["sentinel"]``."""
     g = Grower(binsT, grad, hess, meta, params, missing_bin,
                max_leaves=max_leaves, num_bins=num_bins, max_depth=max_depth,
                exact=exact, tile_leaves=tile_leaves,
@@ -1297,7 +1433,8 @@ def grow_tree(binsT: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
                feature_mask=feature_mask, mono_mode=mono_mode,
                interaction_groups=interaction_groups,
                extra_trees=extra_trees, bynode_fraction=bynode_fraction,
-               bundle=bundle, cegb=cegb, forced=forced, hist_dp=hist_dp)
+               bundle=bundle, cegb=cegb, forced=forced, hist_dp=hist_dp,
+               feature_block=feature_block)
     st = g.init_state()
     k_forced = 0 if g.forced is None else len(g.forced[0])
     while g.outer_cond(st):
@@ -1310,4 +1447,6 @@ def grow_tree(binsT: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
             g.split_phase(st)
     if counters is not None:
         counters["rows_real"] = counters.get("rows_real", 0.0) + st.rows_real
+        if numerics_sentinels:
+            counters["sentinel"] = int(g.sentinel(st))
     return g.finalize(st)

@@ -659,7 +659,9 @@ def bins_by_row(binsT: torch.Tensor, width: int) -> torch.Tensor:
     rows of. Kept on the ``binsT`` tensor
     itself and made again only after an in-place write to it (its version
     counter) or for another width, so a trainer makes it once per
-    Dataset."""
+    Dataset (the blocked pass once per column block:
+    ``models/grower.column_blocks``); ``bins_by_row.copies`` counts the
+    copies made."""
     kept = getattr(binsT, "_bins_by_row", None)
     if kept is not None and kept[0] == binsT._version \
             and kept[1].shape[1] == width:
@@ -668,7 +670,11 @@ def bins_by_row(binsT: torch.Tensor, width: int) -> torch.Tensor:
     rows = torch.zeros((n, width), dtype=binsT.dtype, device=binsT.device)
     rows[:, :f] = binsT.T
     binsT._bins_by_row = (binsT._version, rows)
+    bins_by_row.copies += 1
     return rows
+
+
+bins_by_row.copies = 0      # row-major copies made (not a launch count)
 
 
 def hist_tile(binsT: torch.Tensor, leaf_ids: torch.Tensor,

@@ -11,11 +11,12 @@ and ``best_score`` and the ``evals_result`` values agree within the
 tolerance ``tests/test_torch_train.py::test_metrics_match`` states for
 those metrics (1e-12), with the same keys and lengths. The refusals and
 warnings carry the JAX package's messages, the stateful callbacks keep the
-checkpoint hooks, and the checkpoint callback raises naming the ROADMAP
-item that brings it.
+checkpoint hooks, and the checkpoint callback writes the JAX package's
+checkpoint layout, which a ``learning_rates`` run resumes from bitwise.
 """
 
 import logging
+import os
 
 import numpy as np
 import pytest
@@ -235,12 +236,31 @@ def test_early_stopping_state_round_trips():
     assert state["best_iter"][0] + 1 == b.best_iteration
 
 
-def test_checkpoint_callback_raises_naming_item_14():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
-        lt.checkpoint_callback("ckpt_dir")
+def test_checkpoint_callback_writes_resumable_checkpoints(tmp_path):
+    """The checkpoint callback (order 40, ``ckpt_period``) writes the JAX
+    package's layout every ``period`` rounds, and a run under a
+    ``learning_rates`` schedule resumed from it ends with the JAX
+    package's uninterrupted text and evaluations."""
     from lightgbm_tpu_torch import callback
-    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
-        callback.checkpoint("ckpt_dir", period=2)
+    cb = callback.checkpoint(str(tmp_path / "x"), period=3)
+    assert cb.order == 40 and cb.ckpt_period == 3
+    assert lt.checkpoint_callback is callback.checkpoint
+    rates = [0.1 + 0.02 * i for i in range(ROUNDS)]
+    bj, ej = _train(lj, {}, learning_rates=rates)
+    ckdir = str(tmp_path / "ck")
+    _train(lt, {}, rounds=ROUNDS, learning_rates=rates,
+           callbacks=[lt.checkpoint_callback(ckdir, period=2, keep=3)])
+    assert sorted(os.listdir(ckdir)) == ["ckpt_00000004", "ckpt_00000006",
+                                         "ckpt_00000008"]
+    assert sorted(os.listdir(os.path.join(ckdir, "ckpt_00000008"))) == [
+        "MANIFEST.json", "model.txt", "state.pkl"]
+    # resume from round 6 (the newest two removed) to the end
+    import shutil
+    shutil.rmtree(os.path.join(ckdir, "ckpt_00000008"))
+    bt, et = _train(lt, {}, learning_rates=rates, resume_from=ckdir)
+    assert bt.model_to_string() == bj.model_to_string()
+    # the evaluation history came back with the checkpoint
+    _same_evals(et, ej)
 
 
 def test_print_evaluation_logs_as_the_jax_package():

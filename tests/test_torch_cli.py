@@ -268,8 +268,10 @@ def test_convert_model_compiles_and_matches(files, tmp_path):
 
 def test_python_m_entry_point_and_snapshot(files):
     """``python -m lightgbm_tpu_torch`` runs the CLI in a fresh
-    interpreter; ``snapshot_freq`` (checkpoints) raises naming ROADMAP
-    Queue 1 item 14."""
+    interpreter; ``snapshot_freq`` writes checkpoints under
+    ``<output_model>.ckpt``: a run killed at iteration 3 (exit 137) and
+    the same command again end with the JAX CLI's uninterrupted text."""
+    import shutil
     env = dict(os.environ, PYTHONPATH=REPO)
     args = ["task=train", "objective=binary", "data=train.tsv",
             "num_trees=2", "num_leaves=7", "output_model=pm.txt",
@@ -282,9 +284,25 @@ def test_python_m_entry_point_and_snapshot(files):
     os.replace("pm.txt", "m_pm.txt")
     _both(args)
     assert _text("m_pm.txt") == _text("t_pm.txt") == _text("j_pm.txt")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
-        tcli.main(["task=train", "data=train.tsv", "snapshot_freq=2",
-                   "device_type=cpu"])
+    snap = ["task=train", "objective=binary", "data=train.tsv",
+            "num_trees=5", "num_leaves=7", "output_model=snap.txt",
+            "verbosity=-1", "snapshot_freq=2", "bagging_fraction=0.7",
+            "bagging_freq=3"]
+    jmain(list(snap))
+    os.replace("snap.txt", "j_snap.txt")
+    shutil.rmtree("snap.txt.ckpt")
+    res = subprocess.run(
+        [sys.executable, "-m", "lightgbm_tpu_torch", *snap,
+         "device_type=cpu"], capture_output=True, text=True,
+        env=dict(env, LGBM_TPU_FAULT_KILL_AT_ITER="3"), cwd=files,
+        timeout=300)
+    assert res.returncode == 137, res.stderr[-2000:]
+    assert not os.path.exists("snap.txt")
+    assert sorted(os.listdir("snap.txt.ckpt")) == ["ckpt_00000002"]
+    tcli.main(snap + ["device_type=cpu"])
+    assert _text("snap.txt") == _text("j_snap.txt")
+    assert sorted(os.listdir("snap.txt.ckpt")) == ["ckpt_00000002",
+                                                   "ckpt_00000004"]
 
 
 def test_qid_group_column_run_order():

@@ -71,7 +71,12 @@ its plain version and a second launch in every accumulation mode, with
 biases and an active mask, in leaves mode, on uint8 and int16 bins,
 categorical bitsets and 3 classes; a card booster's predictions bitwise
 those of its trees carried to a CPU booster, its SHAP values within
-1e-9 / 1e-11.
+1e-9 / 1e-11. Fault tolerance: the feature-blocked pass
+(``histogram_pool_size``) gives the resident run's trees (no
+subtraction) and the CPU's with the kernel's sums, kernel 3 once a block a
+pass; a run resumed from a checkpoint gives the uninterrupted text; a real
+``torch.cuda.OutOfMemoryError`` is what the OOM ladder matches; the
+predict rung's chunks keep the predictions bitwise, one launch a chunk.
 """
 
 import contextlib
@@ -1281,3 +1286,79 @@ def test_predict_on_card_equals_cpu(dev, kind):
     np.testing.assert_allclose(b.predict(Xs[:500], pred_contrib=True),
                                twin.predict(Xs[:500], pred_contrib=True),
                                rtol=1e-9, atol=1e-11)
+
+
+# ------------------------------------------------------------ fault tolerance
+def _fault_data(n=20_000, f=120, seed=31):
+    rng = np.random.RandomState(seed)
+    X = rng.randn(n, f).astype(np.float32)
+    y = (X[:, 0] + 0.7 * X[:, 3] - 0.5 * X[:, 40] + 0.3 * rng.randn(n)
+         > 0).astype(float)
+    return X, y
+
+
+def _fault_text(device, extra, rounds=3, **kw):
+    import lightgbm_tpu_torch as lgb
+    X, y = _fault_data()
+    p = {"objective": "binary", "num_leaves": 31, "verbosity": -1,
+         "device_type": device, **extra}
+    b = lgb.train(p, lgb.Dataset(X, label=y, params=dict(p)), rounds, **kw)
+    return b, b.model_to_string()
+
+
+def test_blocked_pass_on_card_equals_resident_and_cpu(dev):
+    """histogram_pool_size 7 MB: 21 columns a block (6 blocks); the trees
+    equal the resident run's with hist_subtraction=False and the CPU's in
+    the kernels' orders, and kernel 3 launches once a block a pass."""
+    cuda_hist.reset_launch_counts()
+    b, blocked = _fault_text("cuda", {"histogram_pool_size": 7.0})
+    got = cuda_hist.launch_counts()
+    assert b._boosting._feature_block() == 21
+    assert got["split_epilogue.launches"] == 0
+    assert got["hist_tile.launches_plane"] > 0
+    assert got["hist_tile.launches_plane"] % 6 == 0
+    assert got["hist_tile.gather_launches"] == 0
+    _, resident = _fault_text("cuda", {"hist_subtraction": False})
+    trees = lambda t: t.split("\nparameters:")[0]
+    assert trees(blocked) == trees(resident)
+    assert _fault_text("cuda", {"histogram_pool_size": 7.0})[1] == blocked
+    with cuda_hist.kernel_sums_on_cpu():
+        assert _fault_text("cpu", {"histogram_pool_size": 7.0})[1] == blocked
+
+
+def test_resume_on_card_is_bitwise(dev, tmp_path):
+    import lightgbm_tpu_torch as lgb
+    extra = {"bagging_fraction": 0.7, "bagging_freq": 2,
+             "feature_fraction": 0.8}
+    _, full = _fault_text("cuda", extra, rounds=6)
+    ck = str(tmp_path / "ck")
+    _fault_text("cuda", extra, rounds=3,
+                callbacks=[lgb.checkpoint_callback(ck, period=1)])
+    _, resumed = _fault_text("cuda", extra, rounds=6, resume_from=ck)
+    assert resumed == full
+
+
+def test_real_out_of_memory_is_resource_exhausted(dev):
+    from lightgbm_tpu_torch.utils import faults
+    total = torch.cuda.get_device_properties(dev).total_memory
+    with pytest.raises(torch.cuda.OutOfMemoryError) as e:
+        torch.empty((2 * total,), dtype=torch.uint8, device=dev)
+    assert faults.is_resource_exhausted(e.value)
+
+
+def test_predict_rung_on_card_keeps_the_bits(dev, monkeypatch):
+    from lightgbm_tpu_torch.utils import faults
+    b, _ = _fault_text("cuda", {})
+    X, _ = _fault_data(n=100_000, seed=5)
+    want = b.predict(X)
+    b.reset_parameter({"predict_chunk_rows": 65_536})
+    faults.reset_predict_oom()
+    monkeypatch.setenv("LGBM_TPU_FAULT_OOM_AT_PREDICT", "2")
+    cuda_hist.reset_launch_counts()
+    got = b.predict(X)
+    faults.reset_predict_oom()
+    assert b._boosting._oom_predict_chunk == 16_384
+    np.testing.assert_array_equal(got, want)
+    c = cuda_hist.launch_counts()
+    assert sum(v for k, v in c.items()
+               if k.startswith("predict_ensemble.")) == -(-100_000 // 16_384)

@@ -16,7 +16,8 @@ On the same data and parameters (at most 3,000 rows, 15 leaves, 6 rounds):
   text bitwise, the mean/stdv curves within 1e-12 (early stopping,
   ``eval_train_metric``, ``fpreproc``, a custom objective, CSR input);
 - ``train`` and ``cv`` take every keyword the JAX package's take, and
-  ``resume_from`` raises naming its ROADMAP item.
+  ``resume_from`` resumes a checkpoint written by a ``fobj`` run to the
+  JAX package's uninterrupted text.
 """
 
 import inspect
@@ -273,11 +274,28 @@ def test_entry_points_take_every_jax_keyword(name):
         assert tsig[key].default == par.default or key == "verbose_eval", key
 
 
-def test_resume_from_raises_naming_item_14(tmp_path):
+def test_resume_from_continues_a_custom_objective_run(tmp_path):
+    """``resume_from`` with ``fobj`` and ``feval``: a run checkpointed at
+    round 3 and resumed to 6 ends with the JAX package's uninterrupted
+    text."""
     X, y = _data(8)
-    ds, _ = _sets(lt, X, y)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
-        lt.train(_params(lt), ds, 2, resume_from=str(tmp_path))
+
+    def fobj(score, ds):
+        p = 1.0 / (1.0 + np.exp(-score))
+        lab = np.asarray(ds.get_label())
+        return p - lab, p * (1.0 - p)
+
+    def run(lib, rounds, **kw):
+        ds, vs = _sets(lib, X, y)
+        return lib.train(_params(lib), ds, rounds, valid_sets=[vs],
+                         fobj=fobj, **kw)
+
+    full = run(lj, 6).model_to_string()
+    ckdir = str(tmp_path / "ck")
+    run(lt, 3, callbacks=[lt.checkpoint_callback(ckdir, period=3)])
+    resumed = run(lt, 6, resume_from=ckdir)
+    assert resumed.model_to_string() == full
+    assert resumed.current_iteration() == 6
 
 
 def test_exports_follow_the_jax_package():

@@ -91,17 +91,17 @@ def test_default_device_without_cuda_raises(monkeypatch):
 @pytest.mark.parametrize("key,value", [
     ("histogram_method", "onehot_q8"),
     ("histogram_method", "scatter"),
-    ("histogram_pool_size", 1024.0),
+    ("checkpoint_shards", False),
     ("serve_max_batch_rows", 512),
     ("construct_streaming", True),
-    ("snapshot_freq", 5),
+    ("fault_kill_rank_at_iter", "0:3"),
     ("num_machines", 2),
     ("predict_sharded", True),
     ("serve_flush_ms", 5.0),
     ("tree_learner", "data"),
-    ("checkpoint_keep", 5),
+    ("telemetry_dir", "telemetry"),
     ("boost_rounds_per_dispatch", 4),
-    ("checkpoint_path", "ckpt"),
+    ("fault_slow_predict_ms", 50.0),
     ("tree_learner", "voting"),
     ("serve_deadline_ms", 50.0),
     ("hist_pallas_interpret", True),
@@ -114,7 +114,7 @@ def test_unported_parameter_raises(key, value):
 @pytest.mark.parametrize("key,value,item", [
     ("predict_sharded", True, "Queue 1 item 15"),
     ("serve_max_batch_rows", 512, "Queue 1 item 16"),
-    ("snapshot_freq", 5, "Queue 1 item 14"),
+    ("fault_corrupt_shard", 0, "Queue 1 item 15"),
 ])
 def test_unported_parameter_names_its_item(key, value, item):
     with pytest.raises(NotImplementedError, match=item):
@@ -140,8 +140,7 @@ def test_gain_adjust_raises_naming_item_9():
     """CEGB's per-(leaf, feature) gain adjustment, which the classic search
     refused naming Queue 1 item 9, is ported with that item: it no longer
     raises, and it comes off the keyed gains (a cost above every gain
-    leaves no split). The parameter that still waits raises naming its
-    item, Queue 1 item 6."""
+    leaves no split)."""
     from lightgbm_tpu_torch.ops import split
     meta = split.feature_meta_from_mappers([])
     params = split.SplitParams.from_config(
@@ -158,9 +157,6 @@ def test_gain_adjust_raises_naming_item_9():
     blocked = split.find_best_splits(
         *args, gain_adjust=free.gain[:, None] + 1.0)
     assert not bool((blocked.gain > 0).any())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        lt.Config.from_params({"histogram_pool_size": 64.0,
-                               "device_type": "cpu"})
 
 
 @pytest.mark.parametrize("key,value", [
