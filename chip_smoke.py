@@ -3,7 +3,8 @@ hand-written kernel against its plain PyTorch version.
 
     python3 chip_smoke.py [--seed 0] [--rows 2000000] [--valid-rows 200000]
                           [--rounds 5] [--parent DIR]
-                          [--only precision|control|predict|faults]
+                          [--only precision|control|predict|faults|
+                                  distributed]
 
 Phases, in order, each printing one JSON line (any failure raises and the
 script exits non-zero; nothing is caught):
@@ -49,7 +50,7 @@ script exits non-zero; nothing is caught):
                   kernel's launches on this run (both hist_tile forms and
                   split_epilogue must launch, at the shapes the kernel
                   phases checked)
-  parity          the same training at 50,000 x 28, 63 leaves, 3 rounds on
+  parity          the same training at 50,000 x 28, 63 leaves, 1 round on
                   the card and on the CPU plain path: same split features
                   and thresholds, leaf values within 1e-4; two card runs,
                   and a CPU run with the kernel's fixed-point sums
@@ -62,7 +63,7 @@ script exits non-zero; nothing is caught):
                   categorical columns (2M train, 200k valid rows, 5 rounds):
                   sec/iter, valid AUC (> 0.6), categorical nodes (> 0), the
                   plane-only launches (> 0) and no split_epilogue launch
-  parity_cat,     the classic path at 50,000 rows, 3 rounds, card vs CPU:
+  parity_cat,     the classic path at 50,000 rows, 1 round, card vs CPU:
   parity_sparse   Expo-shaped at 63 leaves, and 28 Higgs-shaped columns of
                   which 4 are >= 90% zeros (sparse device columns): two
                   card runs and the kernel-sums CPU run identical; against
@@ -87,7 +88,7 @@ The quantized-gradient (q8) mode, kernels 1-4 on int8 gradients:
                   none of the f32 forms
   train_q8_cat    train_cat's run with quantized_grad=True: AUC as above
                   against train_cat, plane-only q8 launches only
-  parity_q8,      50,000 rows, 3 rounds, numerical and Expo-shaped, card
+  parity_q8,      50,000 rows, 1 round, numerical and Expo-shaped, card
   parity_q8_cat   vs CPU plain path: the model text bitwise equal (exact
                   int32 sums, the same quantization arithmetic), and two
                   card runs identical
@@ -396,6 +397,42 @@ kernels 1-4 and predict_ensemble, counted by path):
 
 With ``--only faults`` the script runs device, build, train and this group
 alone, and prints its launches by path.
+
+The distributed group (after the faults group), the learners of
+``tree_learner`` data, feature and voting in a gang of 2 ranks (each a
+``--child dist`` process; on one card both ranks share it and the gang's
+collectives go through host memory over gloo):
+
+  hist_int_planes the integer-planes mode of kernels 3-4 at one rank's
+                  rows of train's (N / 2, F = 28, B = 255, the exponent over
+                  N), the root pass and a 42-slot tile: int64 planes bitwise
+                  hist_tile_exact's integers and a second launch, the two
+                  row halves' planes adding to the pass's, hist_convert
+                  bitwise its plain version and one pass's float planes;
+                  ms, device ms, plain ms, the bound (bytes) and one
+                  index_add_ of int64 (the library call)
+  train_serial_classic  train's rows on the classic path (split_fusion
+                  off), 3 rounds: the AUC reference
+  train_data_parallel, train_feature_parallel, train_voting_parallel
+                  each learner on train's 2M + 200k Higgs-shaped rows at
+                  255 leaves, 3 rounds, twice, every rank holding all rows:
+                  the backend, sec/iter, device busy an iteration (one
+                  profiled iteration per rank), the collectives' seconds,
+                  bytes and calls an iteration, valid AUC within 0.01 of
+                  the serial classic run's; the two runs' texts equal, the
+                  ranks' equal, every rank launched kernels 3-4 (the data
+                  learner their integer-planes mode and hist_convert), and
+                  whether the trees equal the serial classic run's (else
+                  the first line that differs)
+  parity_distributed  each learner at 50,000 rows and 63 leaves, 2 rounds:
+                  the card gang's text equals the same gang's CPU run inside
+                  kernel_sums_on_cpu()
+  train_data_parallel_nccl  with two or more cards, the data learner on a
+                  gang of 2 over NCCL, a card a rank: its text the gloo
+                  gang's; with one card, the reason it did not run
+
+With ``--only distributed`` the script runs device, build and this group
+alone, and prints its kernel entries and launches by path.
 
 and kernel 5, the experiment script's one-hot histogram:
 
@@ -1675,10 +1712,10 @@ PARITY_RUNS = {"parity": (higgs_like, 7, None, False),
                "parity_sparse": (sparse_higgs_like, 17, None, False),
                "parity_q8": (higgs_like, 7, None, True),
                "parity_q8_cat": (expo_like, 13, CAT_COLUMNS, True)}
-# the five parity phases' rounds: 2, cut from 3 when the faults group
-# came in; the boosting modes' parity runs keep 3 (DART drops a tree at the
-# third iteration)
-PARITY_ROWS, PARITY_ROUNDS, PARITY_MODES_ROUNDS = 50_000, 2, 3
+# the five parity phases' rounds: 1, cut from 3 to 2 when the faults group
+# came in and to 1 when the distributed group did; the boosting modes'
+# parity runs keep 3 (DART drops a tree at the third iteration)
+PARITY_ROWS, PARITY_ROUNDS, PARITY_MODES_ROUNDS = 50_000, 1, 3
 # the phases whose card text is held bitwise (and to the parent's)
 PARITY_HELD = ("parity", "parity_sparse", "parity_q8", "parity_q8_cat")
 
@@ -5201,6 +5238,394 @@ def faults_phases(lgb, cuda_hist, args):
     return paths, po_launches
 
 
+# ------------------------------------------------------- distributed group
+DIST_WORLD = 2               # ranks of the gang (one card: they share it)
+DIST_ROUNDS = 3              # each learner's full-width rounds, run twice
+DIST_LEARNERS = ("data", "feature", "voting")
+DIST_TOP_K = 20              # voting's top_k (the JAX package's default)
+DIST_PARITY_ROWS = 50_000
+DIST_PARITY_LEAVES = 63
+DIST_PARITY_ROUNDS = 2
+DIST_CHILD_TIMEOUT = 600
+
+
+def _int_planes_case(cuda_hist, binsT, leaf, stats, sel, gang_rows):
+    """One tile of the data learner's pass on one rank's rows in the
+    integer-planes mode (the exponent from the gang's ``amax`` and
+    ``gang_rows``): bitwise ``hist_tile_exact``'s integers and a second
+    launch; the two row halves' planes (two ranks) add to the pass's;
+    ``hist_convert`` of the sum bitwise its plain version and the one-pass
+    planes; times of both launches, their plain versions and bounds."""
+    n = binsT.shape[1]
+    f = binsT.shape[0]
+    chan = cuda_hist.chan_leaf_table(sel).cuda()
+    amax = cuda_hist._absmax(stats)
+    args = (binsT, leaf, stats, chan, P, B, LEAVES)
+
+    def run():
+        return cuda_hist.hist_tile(*args, plane=True, amax=amax,
+                                   rows=gang_rows, raw=True)
+
+    cuda_hist.reset_launch_counts()
+    a, again = run(), run()
+    launched = cuda_hist.launch_counts()["hist_tile.launches_plane_raw"]
+    exact = cuda_hist.hist_tile_exact(*args, amax=amax, rows=gang_rows,
+                                      raw=True)
+    h = n // 2
+    lo = cuda_hist.hist_tile(binsT[:, :h].contiguous(), leaf[:h].contiguous(),
+                             stats[:h].contiguous(), chan, P, B, LEAVES,
+                             plane=True, amax=amax, rows=gang_rows, raw=True)
+    hi = cuda_hist.hist_tile(binsT[:, h:].contiguous(), leaf[h:].contiguous(),
+                             stats[h:].contiguous(), chan, P, B, LEAVES,
+                             plane=True, amax=amax, rows=gang_rows, raw=True)
+    conv = cuda_hist.hist_convert(a, amax, gang_rows)
+    conv_plain = cuda_hist.hist_convert_plain(a, amax, gang_rows)
+    one_pass = cuda_hist.hist_tile_exact(*args, amax=amax, rows=gang_rows)
+    torch.cuda.synchronize()
+    checks = {"bitwise_exact": bool(torch.equal(a, exact)),
+              "two_launches_equal": bool(torch.equal(a, again)),
+              "rank_sum_equals_one_pass": bool(torch.equal(lo + hi, a)),
+              "convert_bitwise_plain": bool(torch.equal(conv, conv_plain)),
+              "convert_equals_one_pass": bool(torch.equal(conv, one_pass)),
+              "launches_counted": launched == 2}
+    if not all(checks.values()):
+        raise AssertionError(f"hist_int_planes: {checks}")
+    in_tile = torch.zeros(LEAVES, dtype=torch.bool, device="cuda")
+    in_tile[sel[sel >= 0].long().cuda()] = True
+    in_tile = in_tile[leaf.long()]
+    fixed, _, _ = cuda_hist._to_fixed(stats, amax, gang_rows)
+    cells = P * f * B * 3
+    pass_bound = bound(f * n + 16 * n + cells * 8, float(in_tile.sum()) * f
+                       * 3)
+    conv_bound = bound(cells * (8 + 4), cells)
+    pass_dev = device_ms(run)
+    conv_dev = device_ms(lambda: cuda_hist.hist_convert(a, amax, gang_rows),
+                         per_profile=10, need="hist_convert")
+    return {**checks,
+            "pass": {"ms": time_ms(run), "device_ms": pass_dev[0],
+                     "device_split": pass_dev[1],
+                     "plain_ms": time_ms(lambda: cuda_hist.hist_tile_exact(
+                         *args, amax=amax, rows=gang_rows, raw=True),
+                         reps=3, warm=1),
+                     "bound_ms": pass_bound[0], "bound_by": pass_bound[1],
+                     "library_ms": library_ms(binsT, leaf, fixed, sel,
+                                              in_tile, f, B, torch.int64)},
+            "convert": {"ms": time_ms(lambda: cuda_hist.hist_convert(
+                a, amax, gang_rows)), "device_ms": conv_dev[0],
+                "plain_ms": time_ms(lambda: cuda_hist.hist_convert_plain(
+                    a, amax, gang_rows)),
+                "bound_ms": conv_bound[0], "bound_by": conv_bound[1],
+                "library_ms": None}}
+
+
+def hist_int_planes_phase(cuda_hist, args):
+    """hist_tile's integer-planes mode at the data learner's shapes: one
+    rank's rows of a gang of DIST_WORLD over train's rows (N / 2 rows, F =
+    28, B = 255, 255 leaves, the exponent over N), the root pass (one
+    computed slot) and the classic tile (42 computed slots, the gather
+    form over all the rank's rows)."""
+    n_loc = args.rows // DIST_WORLD
+    out = {"rows_per_rank": n_loc, "gang_rows": n_loc * DIST_WORLD}
+    for name, sel, share in (("root", tile_selection(root=True), 1.0),
+                             ("slots", tile_selection(plane=True), 0.75)):
+        binsT, leaf, stats = hist_inputs(n_loc, F, args.seed + 31, False,
+                                         sel[sel >= 0], share)
+        out[name] = _int_planes_case(cuda_hist, binsT, leaf, stats, sel,
+                                     n_loc * DIST_WORLD)
+    return out
+
+
+def _first_diff(a: str, b: str):
+    """The first line at which two model texts' trees differ (the text
+    before ``parameters:``): its number, its key and both values, cut."""
+    ta = a.split("\nparameters:")[0].splitlines()
+    tb = b.split("\nparameters:")[0].splitlines()
+    tree = None
+    for i, (x, y) in enumerate(zip(ta, tb)):
+        if x.startswith("Tree="):
+            tree = x
+        # tree_sizes follows from the trees' own lines
+        if x != y and not x.startswith("tree_sizes="):
+            return {"line": i, "tree": tree, "key": x.split("=")[0],
+                    "a": x[:160], "b": y[:160]}
+    return None if len(ta) == len(tb) else {"line": min(len(ta), len(tb)),
+                                             "key": "length"}
+
+
+def _launched_nonzero(counts):
+    return {k: v for k, v in counts.items() if v}
+
+
+def dist_child_main(args) -> int:
+    """One rank of the distributed group's gang (``--child dist``): joins
+    the gang (rank ``--rank`` of ``--world`` on the localhost port
+    ``--port``; with ``--nccl`` card ``--rank`` and NCCL, else card 0,
+    shared, through gloo), then trains train's Higgs-shaped rows with each
+    learner twice at full width, replicated (every rank holds all rows),
+    and (``--parity``) the 50,000-row parity runs on the card and, over
+    the same gang, on the CPU inside ``kernel_sums_on_cpu()``. Prints one
+    JSON line."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch import distributed, network
+    from lightgbm_tpu_torch.ops import cuda_hist
+    t_start = time.time()
+    machines = ",".join(f"127.0.0.1:{args.port}" for _ in range(args.world))
+    dev = f"cuda:{args.rank}" if args.nccl else "cuda:0"
+    net = distributed.init(machines=machines, num_machines=args.world,
+                           rank=args.rank, device=dev,
+                           backend="nccl" if args.nccl else None,
+                           params={"device_type": "cuda", "time_out": 10})
+    out = {"rank": net.rank, "world": net.world, "device": str(net.device),
+           "backend": net.backend, "reason": net.reason,
+           "join_s": time.time() - t_start, "learners": {}}
+    X, y = higgs_like(args.rows + args.valid_rows, args.seed)
+    Xv, yv = X[args.rows:], y[args.rows:]
+    X, y = X[:args.rows], y[:args.rows]
+    base = dict(PARAMS, device_type="cuda", top_k=DIST_TOP_K)
+    t0 = time.time()
+    train = lgb.Dataset(X, label=y, params=dict(base, tree_learner="data"))
+    valid = lgb.Dataset(Xv, label=yv, reference=train)
+    train.construct()
+    valid.construct()
+    torch.cuda.synchronize()
+    out["construct_s"] = time.time() - t0
+    learners = DIST_LEARNERS if not args.nccl else ("data",)
+    for learner in learners:
+        p = dict(base, tree_learner=learner)
+        runs = []
+        for _ in range(2):
+            evals = {}
+            cuda_hist.reset_launch_counts()
+            net.reset_counters()
+            torch.cuda.synchronize()
+            t0 = time.time()
+            b = lgb.train(p, train, args.rounds, valid_sets=[valid],
+                          valid_names=["valid"], evals_result=evals)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            coll = {k: dict(v) for k, v in net.counters.items()
+                    if v["calls"]}
+            runs.append({"sec_per_iter": wall / args.rounds,
+                         "valid_auc": evals["valid"]["auc"][-1],
+                         "text": b.model_to_string(),
+                         "launches": _launched_nonzero(
+                             cuda_hist.launch_counts()),
+                         "collectives": coll, "totals": net.totals()})
+        prof = profile_iteration(b, runs[-1]["sec_per_iter"])
+        tot = runs[-1]["totals"]
+        out["learners"][learner] = {
+            "sec_per_iter": [r["sec_per_iter"] for r in runs],
+            "valid_auc": runs[-1]["valid_auc"],
+            "texts_equal": runs[0]["text"] == runs[1]["text"],
+            "text_sha": _sha(runs[-1]["text"]),
+            "trees_sha": _sha(runs[-1]["text"].split("\nparameters:")[0]),
+            "device_busy_ms": prof["device_busy_ms"],
+            "device_idle_share": prof.get("device_idle_share",
+                                          "not measured"),
+            "own_kernels": prof["own_kernels"],
+            "collective_s_per_iter": tot["seconds"] / args.rounds,
+            "collective_bytes_per_iter": tot["bytes"] / args.rounds,
+            "collective_calls_per_iter": tot["calls"] / args.rounds,
+            "collectives": runs[-1]["collectives"],
+            "launches": runs[-1]["launches"],
+            "rows_streamed_per_tree": b.rows_streamed_per_tree}
+        if args.rank == 0:
+            out["learners"][learner]["text"] = runs[-1]["text"]
+    if args.parity:
+        out["parity"] = _dist_parity(lgb, cuda_hist, network, net, args)
+    print(json.dumps(out), flush=True)
+    distributed.shutdown()
+    return 0
+
+
+def _dist_parity(lgb, cuda_hist, network, net, args):
+    """Each learner at DIST_PARITY_ROWS rows and DIST_PARITY_LEAVES leaves:
+    the card gang's text against the same gang's CPU run inside
+    ``kernel_sums_on_cpu()`` (a CPU network over the same gloo group)."""
+    X, y = higgs_like(DIST_PARITY_ROWS, args.seed + 5)
+    cpu_net = network.Network(net.group, net.rank, net.world, "cpu",
+                              net.backend, net.store, "the CPU twin")
+    out = {}
+    for learner in DIST_LEARNERS:
+        p = dict(PARAMS, num_leaves=DIST_PARITY_LEAVES, tree_learner=learner,
+                 top_k=DIST_TOP_K)
+        texts = {}
+        for device in ("cuda", "cpu"):
+            pd = dict(p, device_type=device)
+            ctx = (cuda_hist.kernel_sums_on_cpu() if device == "cpu"
+                   else contextlib.nullcontext())
+            with ctx, network.bind(cpu_net if device == "cpu" else net):
+                cuda_hist.reset_launch_counts()
+                ds = lgb.Dataset(X, label=y, params=pd)
+                texts[device] = lgb.train(pd, ds, DIST_PARITY_ROUNDS
+                                          ).model_to_string()
+                if device == "cuda":
+                    launches = _launched_nonzero(cuda_hist.launch_counts())
+        out[learner] = {"equal": texts["cuda"] == texts["cpu"],
+                        "sha": _sha(texts["cuda"]), "launches": launches,
+                        "first_diff": _first_diff(texts["cuda"],
+                                                  texts["cpu"])}
+    return out
+
+
+def _run_gang(args, world, nccl=False, parity=True):
+    """The distributed group's gang: ``world`` ranks as ``--child dist``
+    processes started together; fails if a rank fails (its exit code and
+    the tail of its error output). Returns every rank's JSON, rank order."""
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    cmd = [sys.executable, os.path.abspath(__file__), "--child", "dist",
+           "--world", str(world), "--port", str(port), "--seed",
+           str(args.seed), "--rows", str(args.rows), "--valid-rows",
+           str(args.valid_rows), "--rounds", str(DIST_ROUNDS)]
+    cmd += (["--nccl"] if nccl else []) + (["--parity"] if parity else [])
+    procs = [subprocess.Popen(cmd + ["--rank", str(r)],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for r in range(world)]
+    results = []
+    try:
+        for r, proc in enumerate(procs):
+            so, se = proc.communicate(timeout=DIST_CHILD_TIMEOUT)
+            if proc.returncode != 0:
+                raise AssertionError(f"distributed rank {r} exited "
+                                     f"{proc.returncode}: {se[-3000:]}")
+            results.append(json.loads([ln for ln in so.splitlines()
+                                       if ln.startswith("{")][-1]))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return results
+
+
+def distributed_phases(lgb, cuda_hist, args):
+    """The distributed group's phases, each emitted: ``hist_int_planes``,
+    the serial classic reference on train's rows, the gang's full-width
+    runs of each learner (``train_data_parallel``,
+    ``train_feature_parallel``, ``train_voting_parallel``),
+    ``parity_distributed`` and the NCCL gang (with two or more cards).
+    Returns (hist_int_planes's numbers, every rank's launches by path)."""
+    t0 = time.time()
+    hp = hist_int_planes_phase(cuda_hist, args)
+    emit("hist_int_planes", seconds=time.time() - t0, **hp)
+    # the serial classic run: the AUC reference, and the text the gangs'
+    # trees are compared with
+    t0 = time.time()
+    X, y = higgs_like(args.rows + args.valid_rows, args.seed)
+    params = dict(PARAMS, device_type="cuda", split_fusion="off")
+    train = lgb.Dataset(X[:args.rows], label=y[:args.rows], params=params)
+    valid = lgb.Dataset(X[args.rows:], label=y[args.rows:], reference=train)
+    evals = {}
+    torch.cuda.synchronize()
+    t1 = time.time()
+    serial = lgb.train(params, train, DIST_ROUNDS, valid_sets=[valid],
+                       valid_names=["valid"], evals_result=evals)
+    torch.cuda.synchronize()
+    ref = {"sec_per_iter": (time.time() - t1) / DIST_ROUNDS,
+           "valid_auc": evals["valid"]["auc"][-1], "rounds": DIST_ROUNDS}
+    serial_text = serial.model_to_string()
+    del train, valid, serial, X, y
+    torch.cuda.empty_cache()
+    emit("train_serial_classic", seconds=time.time() - t0, **ref)
+    t0 = time.time()
+    ranks = _run_gang(args, DIST_WORLD)
+    gang_s = time.time() - t0
+    paths = {}
+    for learner in DIST_LEARNERS:
+        per_rank = [r["learners"][learner] for r in ranks]
+        text = per_rank[0].pop("text")
+        lead = per_rank[0]
+        ok = {"texts_equal_twice": all(r["texts_equal"] for r in per_rank),
+              "ranks_equal": len({r["text_sha"] for r in per_rank}) == 1,
+              "auc_within_0.01": abs(lead["valid_auc"] - ref["valid_auc"])
+              <= 0.01,
+              "every_rank_launched_kernels_3_4": all(
+                  r["launches"].get("hist_tile.launches_plane", 0)
+                  + r["launches"].get("hist_tile.launches_plane_raw", 0) > 0
+                  for r in per_rank)}
+        if learner == "data":
+            ok["every_rank_integer_planes"] = all(
+                r["launches"].get("hist_tile.launches_plane_raw", 0) > 0
+                and r["launches"].get("hist_convert.launches", 0) > 0
+                for r in per_rank)
+        emit(f"train_{learner}_parallel", world=DIST_WORLD,
+             backend=ranks[0]["backend"], reason=ranks[0]["reason"],
+             rounds=DIST_ROUNDS, serial_classic=ref,
+             trees_equal_serial_classic=(
+                 text.split("\nparameters:")[0]
+                 == serial_text.split("\nparameters:")[0]),
+             first_diff_vs_serial=_first_diff(text, serial_text),
+             ranks=per_rank, checks=ok, gang_seconds=gang_s)
+        if not all(ok.values()):
+            raise AssertionError(f"train_{learner}_parallel: {ok}")
+        for rank, r in zip(ranks, per_rank):
+            paths[f"distributed/{learner}/rank{rank['rank']}"] = \
+                r["launches"]
+    par = {learner: [r["parity"][learner] for r in ranks]
+           for learner in DIST_LEARNERS}
+    emit("parity_distributed", rows=DIST_PARITY_ROWS,
+         leaves=DIST_PARITY_LEAVES, rounds=DIST_PARITY_ROUNDS, runs=par)
+    if not all(x["equal"] for v in par.values() for x in v):
+        raise AssertionError(f"parity_distributed: {par}")
+    if torch.cuda.device_count() >= 2:
+        # a card a rank: the same gang over NCCL must train the gloo
+        # gang's text (integer planes and rank-order folds either way)
+        t0 = time.time()
+        nccl = _run_gang(args, 2, nccl=True, parity=False)
+        lead = nccl[0]["learners"]["data"]
+        lead.pop("text", None)
+        same = lead["text_sha"] == ranks[0]["learners"]["data"]["text_sha"]
+        if not (nccl[0]["backend"] == "nccl" and lead["texts_equal"]
+                and same):
+            raise AssertionError(f"train_data_parallel_nccl: {nccl[0]}")
+        emit("train_data_parallel_nccl", seconds=time.time() - t0,
+             ranks=[r["learners"]["data"] for r in nccl],
+             backend=nccl[0]["backend"], equals_the_gloo_gang=same)
+    else:
+        emit("train_data_parallel_nccl", run=False,
+             why=f"{torch.cuda.device_count()} card: NCCL needs a card per "
+                 f"rank (two ranks on one card are refused), so the gang "
+                 f"above reduced through host memory over gloo")
+    return hp, paths
+
+
+def dist_kernel_entries(hp, paths):
+    """The kernels line's entries of the distributed group: hist_tile's
+    integer-planes mode and its convert launch."""
+    data = {k: v for k, v in paths.items() if "/data/" in k}
+    lead = data[min(data)]
+    keys = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    return [
+        {"name": "hist_tile (plane-only, integer planes)", "route": "cuda",
+         "source": "lightgbm_tpu_torch/csrc/hist_tile.cu",
+         "replaces": "lightgbm_tpu/ops/pallas_hist.py:154 _fused_kernel "
+                     "(pallas_call :270) + :205 _gather_kernel (pallas_call "
+                     ":324), each rank's planes before the psum_scatter of "
+                     "lightgbm_tpu/models/grower.py:1110",
+         "launches": lead.get("hist_tile.launches_plane_raw", 0),
+         "max_abs_err": 0.0,
+         **{k: hp["root"]["pass"][k] for k in keys},
+         "slots": {k: hp["slots"]["pass"][k] for k in keys},
+         "launches_by_path": {k: v.get("hist_tile.launches_plane_raw", 0)
+                              for k, v in data.items()}},
+        {"name": "hist_convert", "route": "cuda",
+         "source": "lightgbm_tpu_torch/csrc/hist_tile.cu",
+         "replaces": "the convert of lightgbm_tpu/ops/pallas_hist.py:154 "
+                     "_fused_kernel + :205 _gather_kernel, run after the "
+                     "cross-rank sum (lightgbm_tpu/models/grower.py:1110)",
+         "launches": lead.get("hist_convert.launches", 0),
+         "max_abs_err": 0.0,
+         **{k: hp["slots"]["convert"][k] for k in keys},
+         "launches_by_path": {k: v.get("hist_convert.launches", 0)
+                              for k, v in data.items()}}]
+
+
 def per_launch(profile, name):
     """A kernel's device ms a launch in a train phase's profile
     (``own_kernels``)."""
@@ -5234,14 +5659,19 @@ def main() -> int:
                          "forms are timed on the same inputs before and "
                          "after this run's phases")
     ap.add_argument("--only", choices=("precision", "control", "predict",
-                                       "faults"),
+                                       "faults", "distributed"),
                     default=None,
                     help="run the device, build and train phases and this "
                          "group's phases alone (a quicker check of one "
                          "group; without it every phase runs)")
     # the faults group's child processes (see child_main)
-    ap.add_argument("--child", choices=("resume", "oom"), default=None,
-                    help=argparse.SUPPRESS)
+    ap.add_argument("--child", choices=("resume", "oom", "dist"),
+                    default=None, help=argparse.SUPPRESS)
+    # the distributed group's ranks (see dist_child_main)
+    for flag, kind in (("--rank", int), ("--world", int), ("--port", int)):
+        ap.add_argument(flag, type=kind, default=0, help=argparse.SUPPRESS)
+    ap.add_argument("--nccl", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--parity", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--workdir", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--resume", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -5249,6 +5679,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False); nothing was run", file=sys.stderr)
         return 1
+    if args.child == "dist":
+        return dist_child_main(args)
     if args.child:
         return child_main(args)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -5301,6 +5733,17 @@ def main() -> int:
             k: {n: v for n, v in c.items() if v} for k, c in fpaths.items()},
             "predict_oom_predict_ensemble_launches": po_launches,
             "total_seconds": time.time() - t_start}), flush=True)
+        print(smi, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
+    if args.only == "distributed":
+        hp, dpaths = distributed_phases(lgb, cuda_hist, args)
+        print(json.dumps({"kernels": dist_kernel_entries(hp, dpaths),
+                          "launches_by_path": dpaths,
+                          "total_seconds": time.time() - t_start}),
+              flush=True)
         print(smi, flush=True)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": kind,
@@ -5426,6 +5869,8 @@ def main() -> int:
     predict_entry = predict_phases(lgb, cuda_hist, args)
     fpaths, po_launches = faults_phases(lgb, cuda_hist, args)
     predict_entry["launches_by_path"]["faults/predict_oom"] = po_launches
+    torch.cuda.empty_cache()
+    dist_hp, dpaths = distributed_phases(lgb, cuda_hist, args)
 
     hv = hist_variants_phase(cuda_hist)
     emit("hist_variants", **hv)
@@ -5738,6 +6183,7 @@ def main() -> int:
         kernels[6]["parent_ms"] = {v: [pt[f"hist_onehot/{v}"]
                                        for pt in parent] for v in VARIANTS}
     kernels.append(predict_entry)
+    kernels.extend(dist_kernel_entries(dist_hp, dpaths))
     print(json.dumps({"kernels": kernels,
                       "total_seconds": time.time() - t_start}), flush=True)
     print(smi, flush=True)

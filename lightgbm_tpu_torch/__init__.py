@@ -12,9 +12,11 @@ training (``init_model``) and ``cv``. Prediction runs on the card
 through a hand-written ensemble-traversal kernel (raw, converted,
 ``pred_leaf``, ``pred_contrib``, ``pred_early_stop``), beside the
 scikit-learn estimators, the plotting helpers and the CLI (``python -m
-lightgbm_tpu_torch``). The package imports torch and numpy only;
-scikit-learn, matplotlib and graphviz are imported when their names are
-first used.
+lightgbm_tpu_torch``). ``tree_learner`` data, feature or voting trains
+over a gang of processes (``distributed``: ``init``, ``spawn``,
+``train_distributed``, ``load_partitioned``; or torchrun). The package
+imports torch and numpy only; scikit-learn, matplotlib and graphviz are
+imported when their names are first used.
 
     import lightgbm_tpu_torch as lgb
     train = lgb.Dataset(X, label=y)
@@ -22,6 +24,7 @@ first used.
     booster.predict(X_test)
 """
 
+from . import distributed
 from .basic import Dataset
 from .booster import Booster
 from .callback import (EarlyStopException, early_stopping, log_evaluation,
@@ -32,6 +35,7 @@ from .convert import booster_from_numpy, booster_to_numpy, mappers_from_numpy
 from .engine import CVBooster, cv, train
 
 __all__ = ["Booster", "CVBooster", "Config", "Dataset", "EarlyStopException",
+           "distributed",
            "booster_from_numpy", "booster_to_numpy", "checkpoint_callback",
            "cv",
            "early_stopping", "log_evaluation", "mappers_from_numpy",

@@ -153,6 +153,12 @@ class Dataset:
         self.num_data = 0
         self.num_total_features = 0
         self.device = None
+        # pre-partitioned (distributed.load_partitioned): num_data is the
+        # gang's rows, num_local_data this rank's, the first at
+        # local_row_start
+        self.is_pre_partitioned = False
+        self.num_local_data = 0
+        self.local_row_start = 0
         # the raw features as float32, kept for linear leaves (reference:
         # dataset.h:720 raw_data_), else None
         self.raw_data_np: Optional[np.ndarray] = None
@@ -174,6 +180,15 @@ class Dataset:
         ds._build_feature_meta(config)
         ds._constructed = True
         return ds
+
+    @classmethod
+    def from_chunks(cls, chunks, *args, **kwargs) -> "Dataset":
+        """Not ported yet: the streaming construct (the JAX package's
+        ``Dataset.from_chunks``)."""
+        raise NotImplementedError(
+            "Dataset.from_chunks (streaming construct) is not ported to "
+            "lightgbm_tpu_torch yet; it arrives with ROADMAP.md Queue 1 "
+            "item 15 (distributed)")
 
     @property
     def has_sparse_cols(self) -> bool:
@@ -397,7 +412,9 @@ class Dataset:
         # dart (the dropped trees' scores) and rf re-traverse the train
         # bins over every column, which the streams no longer hold
         if (not config.is_enable_sparse or self.reference is not None
-                or config.boosting in ("dart", "rf")):
+                or config.boosting in ("dart", "rf")
+                # the distributed learners shard dense columns
+                or str(config.tree_learner or "serial") != "serial"):
             return binsT
         fc, n = binsT.shape
         if n < min_rows or fc == 0 or not len(self.used_features):

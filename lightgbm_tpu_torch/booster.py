@@ -47,6 +47,8 @@ class Booster:
         elif train_set is not None:
             if not isinstance(train_set, Dataset):
                 raise TypeError("Training data should be Dataset instance")
+            from . import distributed
+            distributed.maybe_init_from_config(self.config)
             merged = dict(train_set.params or {})
             merged.update(self.params)
             train_set.params = merged
@@ -402,18 +404,32 @@ class Booster:
         return self
 
     def free_network(self) -> "Booster":
-        """Not ported yet: the distributed learners' network."""
-        raise NotImplementedError(
-            "Booster.free_network is not ported to lightgbm_tpu_torch yet; "
-            "it arrives with ROADMAP.md Queue 1 item 15 (distributed)")
+        """Leave the gang this process joined (``distributed.shutdown``);
+        later trainings run alone (reference: basic.py free_network)."""
+        from . import distributed
+        distributed.shutdown()
+        return self
 
     def set_network(self, machines, local_listen_port: int = 12400,
                     listen_time_out: int = 120,
                     num_machines: int = 1) -> "Booster":
-        """Not ported yet: the distributed learners' network."""
-        raise NotImplementedError(
-            "Booster.set_network is not ported to lightgbm_tpu_torch yet; "
-            "it arrives with ROADMAP.md Queue 1 item 15 (distributed)")
+        """Join this process to the gang of ``machines`` (comma-separated
+        host:port, or a list; the first entry hosts the gang's store) with
+        ``num_machines`` ranks, this one found by local-IP match and
+        ``local_listen_port``, ``listen_time_out`` minutes the collectives'
+        timeout (reference: basic.py set_network -> LGBM_NetworkInit). A
+        world of 1 trains alone. The device is the booster's
+        ``device_type``'s."""
+        from . import distributed
+        if isinstance(machines, (list, tuple, set)):
+            machines = ",".join(str(m) for m in machines)
+        if int(num_machines) > 1:
+            distributed.init(machines=machines,
+                             num_machines=int(num_machines),
+                             local_listen_port=int(local_listen_port),
+                             time_out=float(listen_time_out),
+                             params=self.config)
+        return self
 
     # ---------------------------------------------------------------- refit
     def refit(self, data, label=None, weight=None, group=None,

@@ -177,7 +177,12 @@ class CheckpointManager:
     # ------------------------------------------------------------- write
     def save(self, booster, iteration: int) -> Optional[str]:
         """Checkpoint ``booster`` after ``iteration`` completed boosting
-        iterations, then pass the barrier (a no-op in one process)."""
+        iterations, then pass the barrier (a no-op in one process). A
+        multi-rank run's checkpoint is the sharded layout, which is not
+        ported yet."""
+        from . import network
+        if network.current().world > 1:
+            _sharded("a checkpoint of a multi-rank run")
         path = self._write(booster, iteration)
         distributed.barrier(f"lgbm_tpu_checkpoint_{iteration}")
         return path

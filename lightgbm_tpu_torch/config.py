@@ -783,6 +783,10 @@ _SLICE_PARAMS = frozenset({
     "fault_nan_grad_at_iter", "fault_nan_hist_at_iter",
     "fault_corrupt_checkpoint", "fault_oom_at_iter", "fault_oom_count",
     "fault_oom_at_predict",
+    # the distributed learners and their network (distributed.py,
+    # network.py, parallel/)
+    "top_k", "num_machines", "machines", "local_listen_port", "time_out",
+    "machine_list_filename", "pre_partition",
 })
 
 # ROADMAP.md "Queue 1" item that brings each group of parameters
@@ -794,10 +798,7 @@ for _names, _item in (
         (("boost_rounds_per_dispatch", "compile_cache_dir",
           "compile_warmup"),
          "Queue 1 item 13 (dispatch)"),
-        (("num_machines", "local_listen_port", "time_out",
-          "machine_list_filename", "machines", "mesh_shape", "num_gpu",
-          "tree_learner",
-          "top_k", "pre_partition", "heartbeat_interval",
+        (("mesh_shape", "num_gpu", "heartbeat_interval",
           "collective_deadline", "max_restarts", "rank_restart_budget",
           "min_world_size", "construct_chunk_rows", "construct_streaming",
           "sketch_max_size", "predict_sharded",
@@ -853,8 +854,8 @@ def _check_slice(cfg: Config) -> None:
             f"objective={cfg.objective!r} is not ported to lightgbm_tpu_torch "
             f"(the port has {', '.join(_SLICE_OBJECTIVES)}; a custom "
             f"objective is passed to train() as fobj with objective none)")
-    if cfg.tree_learner != "serial":
-        _not_in_slice("tree_learner", cfg.tree_learner)
+    if cfg.tree_learner not in ("serial", "data", "feature", "voting"):
+        log.fatal(f"Unknown tree learner type {cfg.tree_learner}")
     if cfg.histogram_method not in HIST_METHODS:
         raise NotImplementedError(
             f"parameter histogram_method={cfg.histogram_method!r} has no "

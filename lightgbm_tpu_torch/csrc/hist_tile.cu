@@ -128,6 +128,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int kStats = 3;
@@ -233,7 +235,7 @@ __global__ void full_accumulate(
     const typename Mode<kQ8>::Stat* __restrict__ stats,
     const unsigned* __restrict__ amax_bits,
     typename Mode<kQ8>::Acc* __restrict__ accum, int n, int f, int b,
-    int target, int width, int group) {
+    int target, int width, int group, long long exp_rows) {
   using SG = Staged<kQ8>;
   constexpr int kWords = kQ8 ? 1 : 2;                      // words a cell
   extern __shared__ __align__(16) unsigned char full_smem[];
@@ -252,7 +254,7 @@ __global__ void full_accumulate(
   val += (size_t)warp * 32 * SG::kWords;
   for (int i = threadIdx.x; i < cells * kWords; i += blockDim.x) plane[i] = 0;
   if (!kQ8 && threadIdx.x < kStats)
-    scale[threadIdx.x] = fixed_scale(amax_bits[threadIdx.x], n);
+    scale[threadIdx.x] = fixed_scale(amax_bits[threadIdx.x], exp_rows);
   __syncthreads();
 
   long long per = ((long long)n + gridDim.x - 1) / gridDim.x;
@@ -338,16 +340,30 @@ __global__ void full_accumulate(
   }
 }
 
+// One fixed-point sum of a channel whose exponent is k, converted once:
+// to double (one rounding), or to float32 through double (the integer
+// rounded to double, then to float32); NaN for a non-finite channel.
+template <typename Out>
+__device__ __forceinline__ Out convert_cell(long long acc, int k) {
+  if constexpr (sizeof(Out) == 8)
+    return k == kNonFinite ? __longlong_as_double(0x7ff8000000000000LL)
+                           : (double)acc * ldexp(1.0, -k);
+  else
+    return k == kNonFinite ? __int_as_float(0x7fffffff)
+                           : (float)((double)acc * ldexp(1.0, -k));
+}
+
 // out[p][f][b][s] = the integer sums of slot p's compact index c (comp[p],
 // or with comp null: 0 for slot `only`, none for the others), in f32 mode
-// converted once to Out (float32, or double in the f64 mode); 0 for a slot
-// with none. `m` is the row count the fixed-point exponent was taken over.
+// converted once to Out (float32, or double in the f64 mode), or with Out
+// long long (the integer-planes mode) left as integers; 0 for a slot with
+// none. `m` is the row count the fixed-point exponent was taken over.
 template <bool kQ8, typename Out>
 __global__ void hist_tile_reduce(
     const typename Mode<kQ8>::Part* __restrict__ accum,
     const int32_t* __restrict__ comp, int only,
     const unsigned* __restrict__ amax_bits, Out* __restrict__ out, int p,
-    int f, int b, int m) {
+    int f, int b, long long m) {
   const long long per_slot = (long long)f * b * kStats;
   const long long cells = (long long)p * per_slot;
   for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -360,27 +376,39 @@ __global__ void hist_tile_reduce(
       continue;
     }
     const typename Mode<kQ8>::Part acc = accum[c * per_slot + rest];
-    if constexpr (kQ8) {
+    if constexpr (kQ8 || std::is_same<Out, long long>::value)
       out[e] = acc;
-    } else {
-      const int k = fixed_exponent(amax_bits[rest % kStats], m);
-      if constexpr (sizeof(Out) == 8)
-        out[e] = k == kNonFinite
-                     ? __longlong_as_double(0x7ff8000000000000LL)
-                     : (double)acc * ldexp(1.0, -k);
-      else
-        out[e] = k == kNonFinite
-                     ? __int_as_float(0x7fffffff)
-                     : (float)((double)acc * ldexp(1.0, -k));
-    }
+    else
+      out[e] = convert_cell<Out>(
+          acc, fixed_exponent(amax_bits[rest % kStats], m));
   }
 }
 
+// The integer-planes mode's convert, a launch of its own: out[e] = the
+// int64 sums acc[e] of `cells` * 3 planes cells (one rank's raw planes or
+// the gang's sum of them), each channel's exponent from amax_bits and
+// `rows`, converted as hist_tile_reduce converts.
+template <typename Out>
+__global__ void hist_convert(const long long* __restrict__ acc,
+                             const unsigned* __restrict__ amax_bits,
+                             Out* __restrict__ out, long long cells,
+                             long long rows) {
+  __shared__ int k[kStats];
+  if (threadIdx.x < kStats)
+    k[threadIdx.x] = fixed_exponent(amax_bits[threadIdx.x], rows);
+  __syncthreads();
+  const long long total = cells * kStats;
+  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       e < total; e += (long long)gridDim.x * blockDim.x)
+    out[e] = convert_cell<Out>(acc[e], k[e % kStats]);
+}
+
 // The convert of one mode: q8 (int32 out), f32 (float) or, with `dp`, the
-// f64 mode (double).
-int launch_reduce(bool q8, bool dp, const void* accum, const int32_t* comp,
-                  int only, const unsigned* amax_bits, void* out, int p,
-                  int f, int b, int m, cudaStream_t st) {
+// f64 mode (double), or with `raw` the f32 mode's int64 sums unconverted.
+int launch_reduce(bool q8, bool dp, bool raw, const void* accum,
+                  const int32_t* comp, int only, const unsigned* amax_bits,
+                  void* out, int p, int f, int b, long long m,
+                  cudaStream_t st) {
   const long long cells = (long long)p * f * b * kStats;
   const long long want = (cells + 255) / 256;
   const int blocks = (int)(want < 65535 ? (want > 0 ? want : 1) : 65535);
@@ -388,6 +416,10 @@ int launch_reduce(bool q8, bool dp, const void* accum, const int32_t* comp,
     hist_tile_reduce<true, int><<<blocks, 256, 0, st>>>(
         static_cast<const int*>(accum), comp, only, amax_bits,
         static_cast<int*>(out), p, f, b, m);
+  else if (raw)
+    hist_tile_reduce<false, long long><<<blocks, 256, 0, st>>>(
+        static_cast<const long long*>(accum), comp, only, amax_bits,
+        static_cast<long long*>(out), p, f, b, m);
   else if (dp)
     hist_tile_reduce<false, double><<<blocks, 256, 0, st>>>(
         static_cast<const long long*>(accum), comp, only, amax_bits,
@@ -413,11 +445,12 @@ template <bool kQ8, typename Bin>
 int launch_full(const Bin* rows, const void* leaf, const void* stats,
                 const unsigned* amax_bits, void* accum, void* out, int n,
                 int f, int p, int b, int slot, int target, int group,
-                int width, bool dp, cudaStream_t st) {
+                int width, bool dp, long long exp_rows, bool raw,
+                cudaStream_t st) {
   using M = Mode<kQ8>;
   if (slot < 0)
-    return launch_reduce(kQ8, dp, accum, nullptr, -1, amax_bits, out, p, f,
-                         b, n, st);
+    return launch_reduce(kQ8, dp, raw, accum, nullptr, -1, amax_bits, out,
+                         p, f, b, exp_rows, st);
   const size_t smem = (size_t)group * b * kStats * (kQ8 ? 4 : 8)
                       + (size_t)kThreads * (Staged<kQ8>::kWords + 1) * 4;
   cudaError_t err = cudaFuncSetAttribute(
@@ -436,11 +469,12 @@ int launch_full(const Bin* rows, const void* leaf, const void* stats,
                                    ngroups), kThreads, smem, st>>>(
       rows, static_cast<const int32_t*>(leaf),
       static_cast<const typename M::Stat*>(stats), amax_bits,
-      static_cast<typename M::Acc*>(accum), n, f, b, target, width, group);
+      static_cast<typename M::Acc*>(accum), n, f, b, target, width, group,
+      exp_rows);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  return launch_reduce(kQ8, dp, accum, nullptr, slot, amax_bits, out, p, f,
-                       b, n, st);
+  return launch_reduce(kQ8, dp, raw, accum, nullptr, slot, amax_bits, out,
+                       p, f, b, exp_rows, st);
 }
 
 // ----------------------------------------------------------- gather form
@@ -532,7 +566,8 @@ __global__ void gather_scatter(
     const typename Mode<kQ8>::Stat* __restrict__ stats,
     const int32_t* __restrict__ slot_of, const int32_t* __restrict__ idx,
     const unsigned* __restrict__ amax_bits, int* __restrict__ counts,
-    uint32_t* __restrict__ payload, int n, int m, int l, int active) {
+    uint32_t* __restrict__ payload, int n, int m, int l, int active,
+    long long exp_rows) {
   using PL = Payload<kQ8>;
   extern __shared__ __align__(16) unsigned char scat_smem[];
   const int T = blockDim.x;
@@ -545,7 +580,7 @@ __global__ void gather_scatter(
   __shared__ double scale[kStats];
   warp_scan_slots(counts, g_off, active);
   if (!kQ8 && threadIdx.x < kStats)
-    scale[threadIdx.x] = fixed_scale(amax_bits[threadIdx.x], m);
+    scale[threadIdx.x] = fixed_scale(amax_bits[threadIdx.x], exp_rows);
   int* cursor = counts + active;
 
   for (long long base = (long long)blockIdx.x * T; base < m;
@@ -697,7 +732,7 @@ int launch_gather(const Bin* rows, const void* leaf, const void* stats,
                   const unsigned* amax_bits, int* counts, uint32_t* payload,
                   void* accum, void* out, int n, int f, int m, int p, int b,
                   int l, int active, int group, int width, int tile, bool dp,
-                  cudaStream_t st) {
+                  long long exp_rows, bool raw, cudaStream_t st) {
   using M = Mode<kQ8>;
   const int sms = device_sms();
   const int32_t* slot_of = slotmap;
@@ -725,7 +760,7 @@ int launch_gather(const Bin* rows, const void* leaf, const void* stats,
   gather_scatter<kQ8><<<(int)(sblocks < swave ? sblocks : swave), tile,
                         ssmem, st>>>(
       lf, static_cast<const typename M::Stat*>(stats), slot_of, ix,
-      amax_bits, counts, payload, n, m, l, active);
+      amax_bits, counts, payload, n, m, l, active, exp_rows);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
@@ -745,8 +780,8 @@ int launch_gather(const Bin* rows, const void* leaf, const void* stats,
       active, width, group);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  return launch_reduce(kQ8, dp, accum, comp, 0, amax_bits, out, p, f, b, m,
-                       st);
+  return launch_reduce(kQ8, dp, raw, accum, comp, 0, amax_bits, out, p, f, b,
+                       exp_rows, st);
 }
 
 void launch_absmax(const void* stats, void* amax_bits, int n,
@@ -763,12 +798,13 @@ template <typename Bin>
 int full_mode(bool q8, bool dp, const void* rows, const void* leaf,
               const void* stats, void* amax_bits, int compute_amax,
               void* accum, void* out, int n, int f, int p, int b, int slot,
-              int target, int group, int width, cudaStream_t st) {
+              int target, int group, int width, long long exp_rows, bool raw,
+              cudaStream_t st) {
   const Bin* rw = static_cast<const Bin*>(rows);
   if (q8)
     return launch_full<true, Bin>(rw, leaf, stats, nullptr, accum, out, n,
                                   f, p, b, slot, target, group, width, false,
-                                  st);
+                                  exp_rows, false, st);
   if (compute_amax) {
     launch_absmax(stats, amax_bits, n, st);
     const cudaError_t err = cudaGetLastError();
@@ -777,7 +813,7 @@ int full_mode(bool q8, bool dp, const void* rows, const void* leaf,
   return launch_full<false, Bin>(rw, leaf, stats,
                                  static_cast<const unsigned*>(amax_bits),
                                  accum, out, n, f, p, b, slot, target, group,
-                                 width, dp, st);
+                                 width, dp, exp_rows, raw, st);
 }
 
 // The gather form of one mode and bin type, after the scratch memset and
@@ -788,12 +824,13 @@ int gather_mode(bool q8, bool dp, const void* rows, const void* leaf,
                 void* amax_bits, int compute_amax, int* cn, uint32_t* pl,
                 void* accum, void* out, int n, int f, int m, int p, int b,
                 int l, int active, int group, int width, int tile,
-                cudaStream_t st) {
+                long long exp_rows, bool raw, cudaStream_t st) {
   const Bin* rw = static_cast<const Bin*>(rows);
   if (q8)
     return launch_gather<true, Bin>(rw, leaf, stats, sm, idx, nullptr, cn,
                                     pl, accum, out, n, f, m, p, b, l, active,
-                                    group, width, tile, false, st);
+                                    group, width, tile, false, exp_rows,
+                                    false, st);
   if (compute_amax) {
     launch_absmax(stats, amax_bits, n, st);
     const cudaError_t err = cudaGetLastError();
@@ -802,7 +839,8 @@ int gather_mode(bool q8, bool dp, const void* rows, const void* leaf,
   return launch_gather<false, Bin>(rw, leaf, stats, sm, idx,
                                    static_cast<const unsigned*>(amax_bits),
                                    cn, pl, accum, out, n, f, m, p, b, l,
-                                   active, group, width, tile, dp, st);
+                                   active, group, width, tile, dp, exp_rows,
+                                   raw, st);
 }
 
 }  // namespace
@@ -817,25 +855,30 @@ int gather_mode(bool q8, bool dp, const void* rows, const void* leaf,
 // 3 words of the scratch that stat_absmax fills (f32 mode only);
 // `scratch` `scratch_bytes` bytes, zeroed here, holding `accum` (f * b * 3
 // int64 in f32 mode, int32 in q8) and stat_absmax's words; `out` p * f * b
-// * 3 float32 (f32), double (f64) or int32 (q8). `group` features share a
-// block.
+// * 3 float32 (f32), double (f64), int32 (q8) or, with `raw` != 0 (the
+// integer-planes mode of the f32 mode), int64 sums left unconverted.
+// `group` features share a block. `exp_rows` is the row count the
+// fixed-point exponent is taken over (n for a pass of its own; the gang's
+// rows when several ranks' planes are to be added).
 extern "C" int hist_full_launch(const void* rows, const void* leaf,
                                 const void* stats, void* amax_bits,
                                 int compute_amax, void* scratch,
                                 long long scratch_bytes, void* accum,
                                 void* out, int q8, int wide, int dp, int n,
                                 int f, int p, int b, int slot, int target,
-                                int group, int width, void* stream) {
+                                int group, int width, long long exp_rows,
+                                int raw, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaMemsetAsync(scratch, 0, (size_t)scratch_bytes, st);
   if (err != cudaSuccess) return (int)err;
   if (wide)
     return full_mode<uint16_t>(q8 != 0, dp != 0, rows, leaf, stats,
                                amax_bits, compute_amax, accum, out, n, f, p,
-                               b, slot, target, group, width, st);
+                               b, slot, target, group, width, exp_rows,
+                               raw != 0, st);
   return full_mode<uint8_t>(q8 != 0, dp != 0, rows, leaf, stats, amax_bits,
                             compute_amax, accum, out, n, f, p, b, slot,
-                            target, group, width, st);
+                            target, group, width, exp_rows, raw != 0, st);
 }
 
 // Gather form over idx[m] (entries outside [0, n) are padding; a null idx
@@ -849,9 +892,10 @@ extern "C" int hist_full_launch(const void* rows, const void* leaf,
 // `counts` (2 * active int32),
 // `accum` (active * f * b * 3 int64 in f32 mode, int32 in q8) and, with
 // `compute_amax`, `amax_bits`; `payload` m * 8 (f32) or m * 2 (q8) words;
-// `out` p * f * b * 3 float32 (f32), double (f64) or int32 (q8). `group`
-// features share an accumulate block; the scatter stages `tile` rung
-// entries a block (a multiple of 32).
+// `out` p * f * b * 3 float32 (f32), double (f64), int32 (q8) or int64
+// (`raw`, as hist_full_launch). `group` features share an accumulate block;
+// the scatter stages `tile` rung entries a block (a multiple of 32).
+// `exp_rows` as hist_full_launch (m for a pass of its own).
 extern "C" int hist_gather_launch(const void* rows, const void* leaf,
                                   const void* stats, const void* slotmap,
                                   const void* idx, void* amax_bits,
@@ -861,6 +905,7 @@ extern "C" int hist_gather_launch(const void* rows, const void* leaf,
                                   int q8, int wide, int dp, int n, int f,
                                   int m, int p, int b, int l, int active,
                                   int group, int width, int tile,
+                                  long long exp_rows, int raw,
                                   void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaMemsetAsync(scratch, 0, (size_t)scratch_bytes, st);
@@ -872,8 +917,30 @@ extern "C" int hist_gather_launch(const void* rows, const void* leaf,
     return gather_mode<uint16_t>(q8 != 0, dp != 0, rows, leaf, stats, sm,
                                  idx, amax_bits, compute_amax, cn, pl, accum,
                                  out, n, f, m, p, b, l, active, group, width,
-                                 tile, st);
+                                 tile, exp_rows, raw != 0, st);
   return gather_mode<uint8_t>(q8 != 0, dp != 0, rows, leaf, stats, sm, idx,
                               amax_bits, compute_amax, cn, pl, accum, out, n,
-                              f, m, p, b, l, active, group, width, tile, st);
+                              f, m, p, b, l, active, group, width, tile,
+                              exp_rows, raw != 0, st);
+}
+
+// The integer-planes mode's convert: `acc` `cells` * 3 int64 fixed-point
+// sums (planes of [P, F, B, 3]), their exponent from `amax_bits` (3 float
+// words) and `rows`, to `out` float32 or (`dp` != 0) double. Returns
+// cudaGetLastError().
+extern "C" int hist_convert_launch(const void* acc, const void* amax_bits,
+                                   void* out, long long cells,
+                                   long long rows, int dp, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long want = (cells * kStats + 255) / 256;
+  const int blocks = (int)(want < 65535 ? (want > 0 ? want : 1) : 65535);
+  const long long* a = static_cast<const long long*>(acc);
+  const unsigned* k = static_cast<const unsigned*>(amax_bits);
+  if (dp)
+    hist_convert<double><<<blocks, 256, 0, st>>>(
+        a, k, static_cast<double*>(out), cells, rows);
+  else
+    hist_convert<float><<<blocks, 256, 0, st>>>(
+        a, k, static_cast<float*>(out), cells, rows);
+  return (int)cudaGetLastError();
 }

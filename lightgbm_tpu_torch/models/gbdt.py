@@ -194,6 +194,8 @@ class GBDT:
     # ------------------------------------------------------------ setup
     _fault_plan = None           # set per training run (utils/faults)
     _bag_stale = False           # a restore marks the bag for re-derivation
+    _parallel = None             # the distributed learner (tree_learner)
+    _pre_part = False            # a pre-partitioned train set
 
     def _init_train(self, train_set: Dataset) -> None:
         from .. import distributed
@@ -225,7 +227,15 @@ class GBDT:
         self.num_tree_per_iteration = k = (
             obj.num_model_per_iteration if obj is not None
             else max(cfg.num_class, 1))
-        n = train_set.num_data
+        # pre-partitioned (distributed.load_partitioned): the scores,
+        # gradients and metrics cover this rank's rows only (the
+        # reference's per-machine score partition, score_updater.hpp)
+        self._pre_part = bool(getattr(train_set, "is_pre_partitioned", False))
+        if self._pre_part and cfg.tree_learner not in ("data", "voting"):
+            log.fatal("pre-partitioned Datasets shard rows: set "
+                      "tree_learner=data or voting")
+        n = train_set.num_local_data if self._pre_part else train_set.num_data
+        self._n_score_rows = n
         # boost_from_average init scores (gbdt.cpp:333-367), folded as a
         # bias into the first tree of each class (gbdt.cpp:414-416 AddBias)
         # unless the train set has an init score (gbdt.cpp:348)
@@ -233,6 +243,12 @@ class GBDT:
         if obj is not None and cfg.boost_from_average:
             self.init_scores = [float(obj.boost_from_score(c))
                                 for c in range(k)]
+            if self._pre_part:
+                # the mean of the ranks' local init scores, in float64
+                # (GlobalSyncUpByMean, gbdt.cpp:338-341)
+                from ..distributed import allgather_f64
+                self.init_scores = [float(v) for v in allgather_f64(
+                    np.asarray(self.init_scores)).mean(axis=0)]
         self._fold_init_bias = (train_set.init_score is None
                                 and bool(cfg.boost_from_average)
                                 and obj is not None)
@@ -328,6 +344,54 @@ class GBDT:
         self._use_bynode = cfg.feature_fraction_bynode < 1.0
         self._setup_cegb(train_set)
         self._forced_splits = self._load_forced_splits(train_set)
+        self._setup_tree_learner()
+
+    def _setup_tree_learner(self) -> None:
+        """tree_learner dispatch (reference: TreeLearner factory,
+        tree_learner.h:104; the JAX package's ``_setup_tree_learner`` and
+        its refusals): a distributed learner runs ``ParallelGrower`` over
+        the calling thread's or process's network
+        (``network.current()``)."""
+        from .. import network
+        cfg = self.config
+        mode = cfg.tree_learner
+        if mode in ("serial", None, ""):
+            self._parallel = None
+            return
+        from ..parallel.learners import PARALLEL_MODES, ParallelGrower
+        if mode not in PARALLEL_MODES:
+            log.fatal(f"Unknown tree learner type {mode}")
+        unsupported = []
+        if self.train_set.has_sparse_cols:
+            unsupported.append("sparse device storage (construct the "
+                               "Dataset with enable_sparse=false)")
+        if self._cegb is not None:
+            unsupported.append("CEGB")
+        if self._interaction_groups is not None:
+            unsupported.append("interaction_constraints")
+        if self._use_bynode:
+            unsupported.append("feature_fraction_bynode")
+        if cfg.linear_tree:
+            unsupported.append("linear_tree")
+        if mode == "voting" and self._forced_splits is not None:
+            # voting keeps histograms local; a forced threshold's sums
+            # would come from one rank only
+            unsupported.append("forced splits (voting)")
+        if unsupported:
+            log.fatal(f"tree_learner={mode} does not support: "
+                      f"{', '.join(unsupported)}")
+        net = network.current()
+        existing = getattr(self, "_parallel", None)
+        if existing is not None and existing.mode == mode \
+                and existing.net is net:
+            return
+        if net.world == 1:
+            log.info(f"tree_learner={mode} with a single rank: running the "
+                     f"distributed learner on a gang of 1")
+        if net.device.type != self.device.type:
+            log.fatal(f"tree_learner={mode}: the network's ranks hold "
+                      f"{net.device} but the Dataset lives on {self.device}")
+        self._parallel = ParallelGrower(mode, net)
 
     def _setup_cegb(self, train_set: Dataset) -> None:
         """CEGB's penalties in used-feature space (reference:
@@ -439,6 +503,8 @@ class GBDT:
         cfg = self.config
         if not cfg.hist_compaction or self.train_set is None:
             return ()
+        if self._parallel is not None:
+            return ()       # serial-only (the JAX package's rule)
         base = (self._subset_rows() if self._bagging_mode() == "subset"
                 else self.train_set.num_data)
         rungs = set()
@@ -467,6 +533,7 @@ class GBDT:
         use_subset = (cfg.bagging_fraction <= 0.5
                       and cfg.pos_bagging_fraction >= 1.0
                       and cfg.neg_bagging_fraction >= 1.0
+                      and self._parallel is None
                       and not cfg.linear_tree
                       and not self.train_set.has_sparse_cols)
         return "subset" if use_subset else "mask"
@@ -518,6 +585,11 @@ class GBDT:
         # gpu_use_dp is the JAX package's x64 mode, whose draws are float64
         u = uniform(key, (n,), device=self.device,
                     dtype=torch.float64 if cfg.gpu_use_dp else torch.float32)
+        if self._pre_part:
+            # one draw over the gang's rows, this rank's block of it: the
+            # bag does not depend on how the rows are partitioned
+            start = ts.local_row_start
+            u = u[start:start + self._n_score_rows]
         self._bag_sub = None
         self._bag_mask = (u < self._bagging_fraction()).to(torch.float32)
 
@@ -550,8 +622,24 @@ class GBDT:
         if len(ts.used_features) == 0:
             # every feature trivial: a splitless constant tree
             return (empty_tree(cfg.num_leaves),
-                    torch.zeros((ts.num_data,), dtype=torch.int32,
+                    torch.zeros((self._n_score_rows,), dtype=torch.int32,
                                 device=self.device), 0.0)
+        if self._parallel is not None:
+            return self._parallel(
+                ts.binsT, g, h, mask, ts.feature_meta, self.split_params,
+                fmask, ts.missing_bin, pre_part=self._pre_part,
+                bundle=ts.bundle_meta, forced=self._forced_splits,
+                counters=self._hist_counters, max_leaves=cfg.num_leaves,
+                num_bins=ts.max_num_bins, max_depth=cfg.max_depth,
+                exact=cfg.tree_growth_mode == "exact",
+                tile_leaves=cfg.tile_leaves,
+                hist_subtraction=cfg.hist_subtraction,
+                with_categorical=ts.has_categorical,
+                hist_method=self._hist_method, rng_key=iter_key,
+                mono_mode=self._mono_mode if self._with_monotone else "",
+                extra_trees=cfg.extra_trees, hist_dp=cfg.gpu_use_dp,
+                numerics_sentinels=cfg.check_numerics,
+                vote_top_k=cfg.top_k)
         sp = ((ts.sp_cols, ts.sp_rows, ts.sp_bins, ts.sp_default)
               if ts.has_sparse_cols else None)
         fb = self._feature_block()
@@ -632,6 +720,8 @@ class GBDT:
         recomputation instead of residency. The OOM ladder's rungs 1-2
         (``_oom_block``) narrow it further, or engage it below the cap."""
         cfg = self.config
+        if self._parallel is not None:
+            return 0        # the learners keep resident planes (JAX's rule)
         hist_bytes = self._resident_hist_bytes()
         pool = cfg.histogram_pool_size
         cap = int(pool * 1024 * 1024) if pool and pool > 0 else 2 << 30
@@ -677,6 +767,8 @@ class GBDT:
             return False
         ts = self.train_set
         reasons = []
+        if self._parallel is not None:
+            reasons.append("parallel learner")
         if ts.has_categorical:
             reasons.append("categorical features")
         if ts.bundle_meta is not None:
@@ -1113,6 +1205,9 @@ class GBDT:
         float32, class K-1 first, as the JAX package does."""
         if self.iter <= 0:
             return
+        if self._pre_part:
+            log.fatal("rollback_one_iter is not supported with "
+                      "pre-partitioned Datasets")
         if self.train_set.has_sparse_cols:
             # the traversal needs the full-width bin matrix, which sparse
             # storage no longer holds

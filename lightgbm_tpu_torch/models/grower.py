@@ -110,6 +110,34 @@ non-finite leaf sum or output, or a non-finite resident plane, sets the
 histogram-sums bit of the flag word the trainer reads (``counters``'
 ``sentinel``).
 
+The distributed learners (``learner`` "data", "feature" or "voting", each
+rank a ``Grower`` over its rows with a ``network.Network``; the JAX
+package's ``_grower_fns`` under its ``shard_map``, ``parallel/learners.py``
+pads and slices the inputs) hook the collectives in where the JAX grower
+calls ``jax.lax``'s, on the classic path with no compaction ladder:
+
+- rows sharded (``data``, ``voting``): the gang's max|stat| (q8's scales,
+  ``pmax``), the root sums (``psum``: a rank-order fold), the rows the
+  passes read and the numerics sentinel at the end;
+- ``data``: each tile pass's planes reduce-scattered over feature
+  ownership (rank r owns the r-th of W equal feature slices; ``psum_scatter``),
+  the owner's search over its slice, the best splits synchronised
+  (``sync_best_splits``);
+- ``feature``: rows replicated, each rank histograms and searches only its
+  slice (a persistent ``column_blocks`` view), then the sync;
+- ``voting``: local planes; each rank's local best gain per feature (local
+  leaf sums, ``min_data`` / ``min_hess`` over W) votes its top ``top_k``
+  features, the tally elects the top 2k per leaf, and only the elected
+  columns are summed over ranks before the search.
+
+On the CPU the float planes are summed by the fold (``fold_sum_scatter``),
+bitwise the JAX learners. On the card, and on the CPU inside
+``kernel_sums_on_cpu()``, the data learner's passes run ``hist_tile``'s
+integer-planes mode (the gang's max|stat| and row count set one exponent):
+the int64 planes are reduce-scattered exactly, then converted
+(``hist_convert``), so the planes are those of one pass over all the
+gang's rows, whatever W. q8 planes are integers in every mode.
+
 Equivalence to the reference's leaf-wise order, the dead-leaf guard
 (BeforeFindBestSplit) and the tie rules are the JAX package's; trees are
 bitwise equal to its ``grow_tree`` on the same inputs where the histograms
@@ -129,7 +157,7 @@ from ..ops.histogram import (compact_indices, epilogue_supported,
                              histogram_tiles, histogram_tiles_with_candidates)
 from ..ops.split import (BundleMeta, FeatureMeta, SplitInfo, SplitParams,
                          calculate_leaf_output, candidates_to_splitinfo,
-                         cat_words_for, find_best_splits)
+                         cat_words_for, find_best_splits, sync_best_splits)
 from ..utils.ordered import fma_f32, tree_sum
 from ..utils.random import fold_in, prng_key, uniform
 from .tree import TreeArrays, empty_tree
@@ -472,7 +500,9 @@ class Grower:
                  bundle: Optional[BundleMeta] = None,
                  cegb: Optional["CegbSpec"] = None,
                  forced: Optional[tuple] = None,
-                 hist_dp: bool = False, feature_block: int = 0):
+                 hist_dp: bool = False, feature_block: int = 0,
+                 net=None, learner: str = "serial", vote_top_k: int = 20,
+                 gang_rows: Optional[int] = None):
         assert tuple(sorted(compaction_ladder)) == tuple(compaction_ladder), \
             "compaction_ladder must be ascending"
         assert not (split_fusion and (with_categorical or sp is not None)), \
@@ -492,6 +522,24 @@ class Grower:
             "the bagging subset copy holds dense columns and no mask"
         assert not (hist_dp and split_fusion), \
             "f64 histograms take the classic path (the epilogue is float32)"
+        assert learner in ("serial", "data", "feature", "voting"), learner
+        self.learner = learner
+        self.net = net
+        self.world = 1 if net is None else net.world
+        self.rank = 0 if net is None else net.rank
+        # rows sharded over the gang (root sums, scales and counts summed)
+        self.rows_sharded = learner in ("data", "voting") and self.world > 1
+        if learner != "serial":
+            assert not split_fusion and not compaction_ladder and sp is None \
+                and subset is None and not feature_block and cegb is None \
+                and interaction_groups is None and bynode_fraction is None, (
+                    "the distributed learners take the classic search over "
+                    "dense columns without compaction, the bagging subset "
+                    "copy, blocking, CEGB, interaction constraints or "
+                    "by-node sampling")
+            assert not (learner == "voting" and forced is not None), \
+                "voting keeps planes local: no forced splits"
+        self.vote_top_k = int(vote_top_k)
         self.fb = int(feature_block)
         if self.fb:
             assert not split_fusion and sp is None and subset is None \
@@ -516,6 +564,15 @@ class Grower:
         self.sp = sp
         self.f_sp = 0 if sp is None else len(sp[0])
         self.f = self.f_dense + self.f_sp
+        # feature ownership (data: the owner search after the
+        # reduce-scatter; feature: each rank's slice), padded to W slices
+        self.sliced = learner in ("data", "feature")
+        if self.sliced:
+            assert self.f % self.world == 0, (
+                f"features {self.f} not divisible into {self.world} slices "
+                f"(pad in the caller)")
+        self.f_loc = self.f // self.world if self.sliced else self.f
+        self.off = self.rank * self.f_loc if self.sliced else 0
         self.L = max_leaves
         self.B = num_bins
         self.cat_words = cat_words_for(num_bins)
@@ -546,6 +603,13 @@ class Grower:
         self.ladder = tuple(compaction_ladder)
         self.meta = meta.to("cpu")
         self.meta_dev = meta.to(self.dev)
+        # the slice this rank searches (all features but for data/feature)
+        self.meta_s = FeatureMeta(*(a[self.off:self.off + self.f_loc]
+                                    for a in self.meta_dev))
+        if learner == "feature":
+            # the replicated rows' columns of this rank's slice, a view
+            # kept on binsT (its row-major copy is made once)
+            self.hist_binsT = column_blocks(binsT, self.f_loc)[self.rank][2]
         self.params = params.to("cpu")
         self.params_dev = params.to(self.dev)
         self.missing_bin_dev = missing_bin.to(self.dev).to(torch.int32)
@@ -567,6 +631,17 @@ class Grower:
         self.quant8 = hist_method.endswith("_q8")
         assert not (self.quant8 and hist_dp), \
             "q8 and f64 histograms are exclusive"
+        # the gang's rows: the fixed-point exponent's row count of the
+        # sharded passes, so every rank's planes share one scale
+        assert gang_rows is not None or not self.rows_sharded, \
+            "a rows-sharded learner needs the gang's row count"
+        self.exp_rows = int(gang_rows) if self.rows_sharded else None
+        # the data learner's passes in the integer-planes mode: on the card
+        # and in the CPU's kernel order (q8 planes are integers anyway)
+        self.int_planes = (learner == "data" and self.world > 1
+                           and not self.quant8
+                           and (self.dev.type == "cuda"
+                                or cuda_hist.kernel_sums_active()))
         self.q_scale = None
         # f32 mode: the stats' max|stat| per channel, which sets the
         # histogram kernel's fixed-point scale, taken once per tree
@@ -576,8 +651,12 @@ class Grower:
                 stats, self.rng_key)
         else:
             self.stats = stats
-            self.root = tree_sum(stats.to(self.dtype), 0).cpu()
+            root = tree_sum(stats.to(self.dtype), 0)
             self.amax = stats.abs().amax(0)
+            if self.rows_sharded:
+                root = self.net.fold_sum(root)
+                self.amax = self.net.allreduce_max(self.amax)
+            self.root = root.cpu()
         self.iota = np.arange(self.L, dtype=np.int32)
         self.two_min_data = np.float32(2.0) * np.float32(
             self.params.min_data_in_leaf)
@@ -624,6 +703,8 @@ class Grower:
                 f"pallas_hilo method at this scale")
         floor = torch.tensor(1e-12, dtype=torch.float32, device=self.dev)
         amax = torch.maximum(stats[:, :2].abs().amax(0), floor)
+        if self.rows_sharded:
+            amax = self.net.allreduce_max(amax)
         # XLA compiles the JAX package's ``amax / 127.0`` into a multiply
         # by the float32 reciprocal of its constant divisor; the stochastic
         # rounding's ``stats / q_scale`` (a divisor known at run time only)
@@ -634,6 +715,8 @@ class Grower:
         q = torch.clamp(torch.floor(stats / q_scale[None, :] + u), -127,
                         127).to(torch.int8).contiguous()
         root = tree_sum(q.to(torch.float32), 0) * q_scale
+        if self.rows_sharded:
+            root = self.net.fold_sum(root)
         return q, q_scale, root.cpu()
 
     # ------------------------------------------------------------- state
@@ -671,7 +754,8 @@ class Grower:
             leaf_id_sub=(None if self.subset is None else torch.zeros(
                 (self.n,), dtype=torch.int32, device=self.dev)),
             hist=(None if self.fb else torch.zeros(
-                (L, self.f, self.B, 3), dtype=self.dtype, device=self.dev)),
+                (L, self.f_loc, self.B, 3), dtype=self.dtype,
+                device=self.dev)),
             hist_valid=np.zeros((L,), bool), leaf_dead=np.zeros((L,), bool),
             leaf_sum_g=sums[0], leaf_sum_h=sums[1], leaf_cnt=sums[2],
             leaf_output=sums[3], leaf_depth=zi.copy(),
@@ -916,11 +1000,7 @@ class Grower:
         dev = self.dev
         gather_idx, streamed, real = self._rung(st, sel)
         if self.f_dense > 0:
-            tile = histogram_tiles(self.hist_binsT, self.stats,
-                                   self.hist_leaf_id(st),
-                                   torch.from_numpy(sel), self.B, self.L,
-                                   gather_idx, amax=self.amax,
-                                   dtype=self.dtype)
+            tile = self._planes(st, sel, gather_idx)
         else:
             tile = torch.zeros((sel.shape[0], 0, self.B, 3),
                                dtype=torch.int32 if self.quant8
@@ -959,6 +1039,32 @@ class Grower:
         st.rounds += 1
         st.rows_streamed += streamed
         st.rows_real += real
+
+    def _planes(self, st: GrowState, sel: np.ndarray,
+                gather_idx: Optional[torch.Tensor]) -> torch.Tensor:
+        """The tile's planes this rank keeps: all columns (serial, voting),
+        its slice's (feature), or for the data learner its owned slice of
+        the gang's sum -- exact integer planes reduce-scattered (q8, or the
+        integer-planes mode, then converted), else float planes folded in
+        rank order (XLA:CPU's ``psum_scatter``)."""
+        args = (self.hist_binsT, self.stats, self.hist_leaf_id(st),
+                torch.from_numpy(sel), self.B, self.L, gather_idx)
+        if self.learner != "data" or self.world == 1:
+            return histogram_tiles(*args, amax=self.amax, dtype=self.dtype,
+                                   rows=self.exp_rows)
+        if self.int_planes:
+            raw = histogram_tiles(*args, amax=self.amax, rows=self.exp_rows,
+                                  raw=True)
+            return cuda_hist.hist_convert(
+                self.net.reduce_scatter_int(raw, 1), self.amax,
+                self.exp_rows, self.dtype)
+        tile = histogram_tiles(*args, amax=self.amax, dtype=self.dtype)
+        if self.quant8:
+            # int32 sums of the gang's rows overflow past Q8_MAX_ROWS
+            if self.exp_rows > cuda_hist.Q8_MAX_ROWS:
+                tile = tile.to(torch.int64)
+            return self.net.reduce_scatter_int(tile, 1)
+        return self.net.fold_sum_scatter(tile, 1)
 
     # ----------------------------------------------------- blocked mode
     def blocked_pass(self, st: GrowState) -> None:
@@ -1045,17 +1151,90 @@ class Grower:
                   if self.with_monotone else (None, None))
         fmask = (self.fmask if self.igroups is None and self.bynode_k is None
                  else self.leaf_feature_mask(st))
+        fmask = self._slice_f(torch.from_numpy(np.ascontiguousarray(
+            fmask)).to(dev))
+        rand = (self._slice_f(self.rand_bins(st).to(dev)) if self.extra_trees
+                else None)
+        if adv is not None:
+            adv = tuple(a[:, self.off:self.off + self.f_loc] for a in adv)
+        hist = st.hist
+        if self.learner == "voting" and self.world > 1:
+            hist, fmask = self._vote(st, aggs, fmask, rand)
         best = find_best_splits(
-            st.hist, *aggs, self.meta_dev, self.params_dev,
-            torch.from_numpy(np.ascontiguousarray(fmask)).to(dev),
+            hist, *aggs, self.meta_s, self.params_dev, fmask,
             self.max_depth, with_categorical=self.with_categorical,
             cat_words=self.cat_words, leaf_min=bounds[0],
-            leaf_max=bounds[1], adv_bounds=adv,
-            rand_bin=(self.rand_bins(st).to(dev) if self.extra_trees
-                      else None),
-            gain_adjust=self.cegb_adjust(st), bundle=self.bundle)
-        st.best = SplitInfo(*(_np(v) for v in best))
+            leaf_max=bounds[1], adv_bounds=adv, rand_bin=rand,
+            gain_adjust=self.cegb_adjust(st), bundle=self._bundle_s())
+        st.best = SplitInfo(*(_np(v) for v in self._sync(best)))
         st.rounds += 1
+
+    def _slice_f(self, arr: torch.Tensor) -> torch.Tensor:
+        """A per-feature trailing axis cut to this rank's slice."""
+        if not self.sliced:
+            return arr
+        return arr[..., self.off:self.off + self.f_loc]
+
+    def _bundle_s(self) -> Optional[BundleMeta]:
+        if self.bundle is None or not self.sliced:
+            return self.bundle
+        return type(self.bundle)(*(a[self.off:self.off + self.f_loc]
+                                   for a in self.bundle))
+
+    def _sync(self, best: SplitInfo) -> SplitInfo:
+        """A sliced search's best splits: local feature index to global,
+        then the best over ranks (ties to the lowest rank)."""
+        if not self.sliced or self.world == 1:
+            return best
+        best = best._replace(feature=best.feature + self.off)
+        return sync_best_splits(best, self.net)
+
+    def _vote(self, st: GrowState, aggs, fmask: torch.Tensor,
+              rand: Optional[torch.Tensor]):
+        """The voting learner's election (the JAX package's, after
+        voting_parallel_tree_learner.cpp:137-182): each rank's best gain
+        per (leaf, feature) on its local planes and local leaf sums, with
+        ``min_data`` and ``min_hess`` over W; its top ``top_k`` features
+        vote, the tally elects the top 2k per leaf (ties to the lower
+        feature), and only the elected columns are summed over ranks.
+        Returns (planes with the elected columns summed and zeros
+        elsewhere, the search's feature mask). The JAX package selects the
+        columns with one-hot matmuls; here a gather, whose result is
+        normalised as the matmul's sum from +0 leaves it (-0 becomes +0)."""
+        dev = self.dev
+        L, f = self.L, self.f
+        hist = st.hist
+        lsum = tree_sum(hist[:, 0], 1)                          # [L, 3]
+        ndev = torch.tensor(float(self.world), dtype=torch.float32)
+        p = self.params_dev
+        pv = p._replace(min_data_in_leaf=p.min_data_in_leaf / ndev.to(dev),
+                        min_sum_hessian_in_leaf=p.min_sum_hessian_in_leaf
+                        / ndev.to(dev))
+        _, fgain = find_best_splits(
+            hist, lsum[:, 0], lsum[:, 1], lsum[:, 2], aggs[3], aggs[4],
+            self.meta_s, pv, fmask, self.max_depth,
+            with_categorical=self.with_categorical,
+            cat_words=self.cat_words, rand_bin=rand, bundle=self.bundle,
+            return_feature_gains=True)
+        kk = min(self.vote_top_k, f)
+        k2 = min(2 * self.vote_top_k, f)
+        rank_local = torch.argsort(torch.argsort(-fgain, dim=1, stable=True),
+                                   dim=1, stable=True)
+        local_top = (rank_local < kk) & torch.isfinite(fgain)
+        votes = self.net.fold_sum(local_top.to(torch.float32))
+        key = votes * np.float32(f + 1) - torch.arange(
+            f, dtype=torch.float32, device=dev)[None, :]
+        el = torch.argsort(-key, dim=1, stable=True)[:, :k2]     # [L, k2]
+        li = torch.arange(L, device=dev)[:, None]
+        hist_el = self.net.fold_sum(hist[li, el] + 0.0)         # [L, k2, B, 3]
+        search = torch.zeros_like(hist)
+        search[li, el] = hist_el + 0.0
+        elected = torch.zeros((L, f), dtype=torch.bool, device=dev)
+        elected[li, el] = True
+        fm = fmask.to(torch.bool)
+        if fm.dim() == 1:
+            fm = fm[None, :].expand(L, f)
+        return search, (fm & elected).to(torch.float32)
 
     def cegb_adjust(self, st: GrowState) -> Optional[torch.Tensor]:
         """CEGB's cost per (leaf, feature), taken off the keyed gains
@@ -1080,6 +1259,10 @@ class Grower:
             unused = (~c.state["row_used"]).to(torch.int32)           # [N, F]
             cnt = torch.zeros((L, self.f), dtype=torch.int32, device=dev)
             cnt.index_add_(0, st.leaf_id.long(), unused)
+            if self.rows_sharded:
+                # the gang's rows (the JAX package's psum of cnt_unused;
+                # the learners refuse CEGB, as the JAX package's do)
+                cnt = self.net.fold_sum(cnt)
             tl = torch.from_numpy(t * c.lazy).to(dev)
             if delta.dtype == torch.float64:
                 # f64 leaf counts: the float32 product is converted before
@@ -1332,15 +1515,20 @@ class Grower:
         bounds = ([torch.from_numpy(a).to(dev)
                    for a in (st.leaf_min, st.leaf_max)]
                   if self.with_monotone else (None, None))
+        if adv is not None:
+            adv = tuple(a[:, self.off:self.off + self.f_loc] for a in adv)
+        # ff holds global feature indices: under a feature slice only the
+        # owner's mask lights up, and the sync picks its split
         best = find_best_splits(
-            st.hist, *aggs, self.meta_dev, params,
-            torch.arange(self.f, device=dev) == int(ff[k]), self.max_depth,
-            with_categorical=False, cat_words=self.cat_words,
-            leaf_min=bounds[0], leaf_max=bounds[1], adv_bounds=adv,
-            rand_bin=torch.full((self.L, self.f), int(ft[k]),
+            st.hist, *aggs, self.meta_s, params,
+            torch.arange(self.f_loc, device=dev) + self.off == int(ff[k]),
+            self.max_depth, with_categorical=False,
+            cat_words=self.cat_words, leaf_min=bounds[0],
+            leaf_max=bounds[1], adv_bounds=adv,
+            rand_bin=torch.full((self.L, self.f_loc), int(ft[k]),
                                 dtype=torch.int32, device=dev),
-            bundle=self.bundle)
-        st.best = SplitInfo(*(_np(v) for v in best))
+            bundle=self._bundle_s())
+        st.best = SplitInfo(*(_np(v) for v in self._sync(best)))
         st.rounds += 1
         ok = (l >= 0 and st.num_leaves < self.L and bool(st.hist_valid[lsafe])
               and not bool(st.leaf_dead[lsafe])
@@ -1377,13 +1565,21 @@ class Grower:
                    and np.isfinite(st.leaf_output).all())
         if not bad and st.hist is not None:
             bad = bool((~torch.isfinite(st.hist)).any())
+        if self.rows_sharded:
+            # any rank's verdict (the JAX package's psum of the flags)
+            bad = float(self.net.fold_sum(torch.tensor([float(bad)]))) > 0
         return bad
 
     def finalize(self, st: GrowState):
         tree = TreeArrays(*(torch.as_tensor(np.asarray(a)) for a in st.tree))
         tree = tree._replace(
             num_leaves=torch.tensor(st.num_leaves, dtype=torch.int32))
-        return tree, st.leaf_id, st.rows_streamed
+        streamed = st.rows_streamed
+        if self.rows_sharded:
+            # the gang's rows per tree (each rank counted its own)
+            streamed = float(self.net.fold_sum(
+                torch.tensor([streamed], dtype=torch.float64)))
+        return tree, st.leaf_id, streamed
 
 
 def grow_tree(binsT: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
@@ -1406,7 +1602,9 @@ def grow_tree(binsT: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
               cegb: Optional["CegbSpec"] = None,
               forced: Optional[tuple] = None,
               hist_dp: bool = False, feature_block: int = 0,
-              numerics_sentinels: bool = False
+              numerics_sentinels: bool = False, net=None,
+              learner: str = "serial", vote_top_k: int = 20,
+              gang_rows: Optional[int] = None
               ) -> Tuple[TreeArrays, torch.Tensor, float]:
     """Grow one tree from per-row gradients/hessians. ``hist_method`` is
     ``ops/histogram.resolve_method``'s answer (empty: the f32 mode of the
@@ -1421,7 +1619,11 @@ def grow_tree(binsT: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
     histograms and per-leaf state) and ``feature_block`` (the blocked
     mode's column width, 0 = the resident state) as ``Grower``'s; the leaf
     ids cover all N rows either way. ``numerics_sentinels`` judges the
-    final state (``Grower.sentinel``) into ``counters["sentinel"]``."""
+    final state (``Grower.sentinel``) into ``counters["sentinel"]``.
+    ``net``, ``learner``, ``vote_top_k`` and ``gang_rows`` (the gang's
+    padded row count): one rank of a distributed learner, as
+    ``parallel/learners.ParallelGrower`` calls it; the leaf ids are then
+    this rank's rows'."""
     g = Grower(binsT, grad, hess, meta, params, missing_bin,
                max_leaves=max_leaves, num_bins=num_bins, max_depth=max_depth,
                exact=exact, tile_leaves=tile_leaves,
@@ -1434,7 +1636,8 @@ def grow_tree(binsT: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
                interaction_groups=interaction_groups,
                extra_trees=extra_trees, bynode_fraction=bynode_fraction,
                bundle=bundle, cegb=cegb, forced=forced, hist_dp=hist_dp,
-               feature_block=feature_block)
+               feature_block=feature_block, net=net, learner=learner,
+               vote_top_k=vote_top_k, gang_rows=gang_rows)
     st = g.init_state()
     k_forced = 0 if g.forced is None else len(g.forced[0])
     while g.outer_cond(st):

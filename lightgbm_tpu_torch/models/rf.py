@@ -48,7 +48,7 @@ class RF(GBDT):
         self.shrinkage_rate = 1.0
         # the caches start at zero: the init score lives in the trees
         self.train_score = torch.zeros_like(self.train_score)
-        self._const_score = self._score_cache(train_set.num_data)
+        self._const_score = self._score_cache(self._n_score_rows)
         self._fixed_grad, self._fixed_hess = \
             self.objective.get_grad_hess(self._const_score)
 

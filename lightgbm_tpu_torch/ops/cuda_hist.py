@@ -87,6 +87,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Optional, Tuple
@@ -247,14 +248,17 @@ def build_kernels(names: Tuple[str, ...] = _SOURCES) -> float:
 def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     if name == "hist_tile":
-        lib.hist_full_launch.argtypes = ([vp] * 4 + [ci, vp,
-                                                     ctypes.c_longlong]
-                                         + [vp] * 2 + [ci] * 11 + [vp])
+        ll = ctypes.c_longlong
+        lib.hist_full_launch.argtypes = ([vp] * 4 + [ci, vp, ll]
+                                         + [vp] * 2 + [ci] * 11
+                                         + [ll, ci, vp])
         lib.hist_full_launch.restype = ci
-        lib.hist_gather_launch.argtypes = ([vp] * 6 + [ci, vp,
-                                                       ctypes.c_longlong]
-                                           + [vp] * 4 + [ci] * 13 + [vp])
+        lib.hist_gather_launch.argtypes = ([vp] * 6 + [ci, vp, ll]
+                                           + [vp] * 4 + [ci] * 13
+                                           + [ll, ci, vp])
         lib.hist_gather_launch.restype = ci
+        lib.hist_convert_launch.argtypes = [vp] * 3 + [ll, ll, ci, vp]
+        lib.hist_convert_launch.restype = ci
     elif name == "split_epilogue":
         lib.split_epilogue_launch.argtypes = [vp] * 9 + [ci] * 4 + [vp]
         lib.split_epilogue_launch.restype = ci
@@ -397,26 +401,40 @@ def hist_tile_exact(binsT: torch.Tensor, leaf_ids: torch.Tensor,
                     num_bins: int, num_leaves: int,
                     idx: Optional[torch.Tensor] = None,
                     amax: Optional[torch.Tensor] = None,
-                    dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                    dtype: torch.dtype = torch.float32,
+                    rows: Optional[int] = None,
+                    raw: bool = False) -> torch.Tensor:
     """``hist_tile``'s own arithmetic in plain PyTorch: each stat scaled by
     2^k and rounded to a 64-bit integer, integer sums (order-free), one
     conversion back to ``dtype`` (float32, or float64 in the f64 mode) --
     bitwise the kernel's planes on any stats (a non-finite stat makes its
-    channel NaN). ``amax`` as ``hist_tile``'s. Returns [P, F, B, 3] in
-    ``dtype``."""
+    channel NaN). ``amax`` and ``rows`` (the exponent's row count, by
+    default the pass's) as ``hist_tile``'s; ``raw``: the int64 sums
+    before the conversion (``hist_convert_plain`` converts them). Returns
+    [P, F, B, 3] in ``dtype``, or int64 with ``raw``."""
     f, n = binsT.shape
     m = n if idx is None else idx.shape[0]
-    rows, cells = _tile_cells(binsT, leaf_ids, chan, num_slots, num_bins,
+    kept, cells = _tile_cells(binsT, leaf_ids, chan, num_slots, num_bins,
                               num_leaves, idx)
-    fixed, k, finite = _to_fixed(stats[rows], _absmax(stats) if amax is None
-                                 else amax, m)
-    contrib = fixed[:, None, :].expand(rows.shape[0], f, _STATS).reshape(
+    fixed, k, finite = _to_fixed(stats[kept], _absmax(stats) if amax is None
+                                 else amax, m if rows is None else rows)
+    contrib = fixed[:, None, :].expand(kept.shape[0], f, _STATS).reshape(
         -1, _STATS)
     acc = torch.zeros((num_slots * f * num_bins, _STATS), dtype=torch.int64,
                       device=binsT.device)
     acc.index_add_(0, cells.reshape(-1), contrib)
-    return _from_fixed(acc, k, finite, dtype).reshape(num_slots, f,
-                                                      num_bins, _STATS)
+    acc = acc.reshape(num_slots, f, num_bins, _STATS)
+    return acc if raw else _from_fixed(acc, k, finite, dtype)
+
+
+def hist_convert_plain(acc: torch.Tensor, amax: torch.Tensor, rows: int,
+                       dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Plain version of ``hist_convert``: int64 fixed-point planes [..., 3]
+    whose exponent came from ``amax`` [3] and ``rows`` -> ``dtype``, as
+    ``hist_tile``'s convert rounds them (``_from_fixed``)."""
+    finite = torch.isfinite(amax)
+    k = torch.where(finite, _fixed_exponent(amax, rows), 0)
+    return _from_fixed(acc, k, finite, dtype)
 
 
 def gather_partition_plain(leaf_ids: torch.Tensor, chan: torch.Tensor,
@@ -516,7 +534,8 @@ def full_accumulate_plain(binsT: torch.Tensor, leaf_ids: torch.Tensor,
                           num_slots: int, num_bins: int, num_leaves: int,
                           amax: Optional[torch.Tensor] = None,
                           blocks: int = 3,
-                          dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                          dtype: torch.dtype = torch.float32,
+                          rows: Optional[int] = None) -> torch.Tensor:
     """Plain version of ``hist_tile``'s full form (``idx=None``). One
     computed slot (the root pass): ``full_accumulate``'s decomposition --
     ``blocks`` row ranges of a multiple of 32 rows, each block's rows of the
@@ -528,17 +547,19 @@ def full_accumulate_plain(binsT: torch.Tensor, leaf_ids: torch.Tensor,
     cells added as int64 (the flush), one conversion to ``dtype`` (the
     convert): bitwise ``hist_tile_exact``. Several computed slots: the
     gather form's plain pipeline over all N rows. q8 mode (int8 stats):
-    exact int32 sums. Slots that compute nothing come out zero. Returns
-    [P, F, B, 3] in ``dtype``, or int32 in q8 mode."""
+    exact int32 sums. Slots that compute nothing come out zero. ``rows``:
+    the exponent's row count (default N). Returns [P, F, B, 3] in
+    ``dtype``, or int32 in q8 mode."""
     f, n = binsT.shape
     dev = binsT.device
     q8 = stats.dtype == torch.int8
+    m = n if rows is None else rows
     lanes, comp = _slot_table(chan, num_slots, num_leaves)
     if int((comp >= 0).sum()) > 1:
-        offsets, rows = gather_partition_plain(leaf_ids, chan, num_slots,
+        offsets, kept = gather_partition_plain(leaf_ids, chan, num_slots,
                                                num_leaves)
-        return gather_accumulate_plain(binsT, stats, offsets, rows, chan,
-                                       num_slots, num_bins, num_leaves, n,
+        return gather_accumulate_plain(binsT, stats, offsets, kept, chan,
+                                       num_slots, num_bins, num_leaves, m,
                                        amax, dtype)
     out = torch.zeros((num_slots, f, num_bins, _STATS),
                       dtype=torch.int32 if q8 else dtype, device=dev)
@@ -551,7 +572,7 @@ def full_accumulate_plain(binsT: torch.Tensor, leaf_ids: torch.Tensor,
         vals = stats.to(torch.int32)
     else:
         vals, k, finite = _to_fixed(stats, _absmax(stats) if amax is None
-                                    else amax, n)
+                                    else amax, m)
         lo, hi = vals & 0xFFFFFFFF, vals >> 32     # the two words of a value
     sums = torch.zeros((f * num_bins, _STATS), dtype=vals.dtype, device=dev)
     kept = leaf_ids == int(lanes[slot])
@@ -576,7 +597,12 @@ def full_accumulate_plain(binsT: torch.Tensor, leaf_ids: torch.Tensor,
     return out
 
 
-_cpu_sums = {"kernel": False}
+_cpu_sums = threading.local()      # the calling thread's switch (``on``)
+
+
+def kernel_sums_active() -> bool:
+    """Whether the calling thread is inside ``kernel_sums_on_cpu()``."""
+    return getattr(_cpu_sums, "on", False)
 
 
 @contextlib.contextmanager
@@ -585,13 +611,14 @@ def kernel_sums_on_cpu():
     does (``hist_tile_exact``, in the f32 and the f64 mode) instead of in
     the JAX package's float order, and ``ops/rank.lambdarank_grads`` adds in the kernel's partner
     order (``lambdarank_grads_exact``): a CPU run that reproduces a card
-    run's bits."""
-    old = _cpu_sums["kernel"]
-    _cpu_sums["kernel"] = True
+    run's bits. The switch is the calling thread's (thread-ranks of one
+    process each enter it for their own run)."""
+    old = kernel_sums_active()
+    _cpu_sums.on = True
     try:
         yield
     finally:
-        _cpu_sums["kernel"] = old
+        _cpu_sums.on = old
 
 
 def gather_layout(num_features: int, num_bins: int,
@@ -683,7 +710,9 @@ def hist_tile(binsT: torch.Tensor, leaf_ids: torch.Tensor,
               idx: Optional[torch.Tensor] = None,
               plane: bool = False,
               amax: Optional[torch.Tensor] = None,
-              dtype: torch.dtype = torch.float32) -> torch.Tensor:
+              dtype: torch.dtype = torch.float32,
+              rows: Optional[int] = None,
+              raw: bool = False) -> torch.Tensor:
     """[P, F, B, 3] histogram planes of the computed slots (see the module
     docstring). ``binsT`` [F, N] uint8, ``leaf_ids`` [N] int32, ``stats``
     [N, 3] f32 (f32 mode; float32 planes) or int8 (q8 mode; int32 planes),
@@ -696,10 +725,23 @@ def hist_tile(binsT: torch.Tensor, leaf_ids: torch.Tensor,
     ``binsT`` selects the wide mode (up to ``MAX_BINS_WIDE`` bins).
     ``dtype`` torch.float64 selects the f64 mode (``gpu_use_dp``): float
     stats, the same fixed-point sums converted once to float64 planes; a
-    plane-only launch only (the fused path's epilogue takes float32)."""
+    plane-only launch only (the fused path's epilogue takes float32).
+
+    The integer-planes mode (the distributed learners' passes, whose
+    planes other ranks' planes add to): ``rows`` is the row count the
+    fixed-point exponent is taken over (by default the pass's own, N or
+    the rung's M), and ``raw=True`` returns the f32 mode's int64 sums
+    before the convert; with the gang's max|stat| as ``amax`` and the
+    gang's row count as ``rows``, every rank's planes share one exponent,
+    so they add exactly, in any order, and ``hist_convert`` turns the sum
+    into the planes one pass over all the gang's rows gives. In q8 mode
+    the planes are integer already (int32) and ``raw`` changes nothing."""
     q8 = stats.dtype == torch.int8
     wide = binsT.dtype == torch.int16
     dp = dtype == torch.float64
+    raw = raw and not q8
+    _check(not raw or (plane and not dp), "hist_tile: the integer-planes "
+           "mode is a plane-only launch of the f32 mode")
     _check(dtype in (torch.float32, torch.float64), f"hist_tile: planes are "
            f"float32 or float64, not {dtype}")
     _check(not dp or (plane and not q8), "hist_tile: the f64 mode is the "
@@ -709,13 +751,19 @@ def hist_tile(binsT: torch.Tensor, leaf_ids: torch.Tensor,
     _check(amax is None or not q8, "hist_tile: amax sets the f32 mode's "
            "fixed-point scale; the q8 mode has none")
     if binsT.device.type == "cpu":
-        if _cpu_sums["kernel"] and not q8:
+        if raw:
+            return hist_tile_exact(binsT, leaf_ids, stats, chan, num_slots,
+                                   num_bins, num_leaves, idx, amax, rows=rows,
+                                   raw=True)
+        if kernel_sums_active() and not q8:
             if idx is None:
                 return full_accumulate_plain(binsT, leaf_ids, stats, chan,
                                              num_slots, num_bins,
-                                             num_leaves, amax, dtype=dtype)
+                                             num_leaves, amax, dtype=dtype,
+                                             rows=rows)
             return hist_tile_exact(binsT, leaf_ids, stats, chan, num_slots,
-                                   num_bins, num_leaves, idx, amax, dtype)
+                                   num_bins, num_leaves, idx, amax, dtype,
+                                   rows=rows)
         return hist_tile_plain(binsT, leaf_ids, stats, chan, num_slots,
                                num_bins, num_leaves, idx, dtype)
     _check(binsT.device.type == "cuda", f"hist_tile: no kernel for device "
@@ -751,20 +799,27 @@ def hist_tile(binsT: torch.Tensor, leaf_ids: torch.Tensor,
     lanes, comp_np = _slot_table(chan, num_slots, num_leaves)
     active = int((comp_np >= 0).sum())
     m = n if idx is None else idx.shape[0]
+    exp_rows = m if rows is None else int(rows)
+    _check(exp_rows >= m, f"hist_tile: the exponent's {exp_rows} rows are "
+           f"fewer than the pass's {m}")
     out = torch.empty((num_slots, f, num_bins, _STATS),
-                      dtype=torch.int32 if q8 else dtype, device=dev)
+                      dtype=torch.int32 if q8 else torch.int64 if raw
+                      else dtype, device=dev)
     if m == 0 or f == 0:
         return out.zero_()
     lib = _lib("hist_tile")
     stream = torch.cuda.current_stream(dev).cuda_stream
     if idx is None and active <= 1:
         err = _launch_full(lib, binsT, leaf_ids, stats, lanes, comp_np, amax,
-                           out, q8, dp, n, f, num_slots, num_bins, stream)
+                           out, q8, dp, n, f, num_slots, num_bins, stream,
+                           exp_rows, raw)
     else:
         err = _launch_gather(lib, binsT, leaf_ids, stats, lanes, comp_np,
                              idx, amax, out, q8, dp, n, f, m, num_slots,
-                             num_bins, num_leaves, active, stream)
-    sfx = ("_wide" if wide else "") + ("_q8" if q8 else "_dp" if dp else "")
+                             num_bins, num_leaves, active, stream, exp_rows,
+                             raw)
+    sfx = ("_wide" if wide else "") + ("_q8" if q8 else "_dp" if dp
+                                       else "_raw" if raw else "")
     _count(hist_tile, "launches" + sfx)
     if idx is not None:
         _count(hist_tile, "gather_launches" + sfx)
@@ -775,7 +830,7 @@ def hist_tile(binsT: torch.Tensor, leaf_ids: torch.Tensor,
 
 
 def _launch_full(lib, binsT, leaf_ids, stats, lanes, comp_np, amax, out,
-                 q8, dp, n, f, p, b, stream) -> int:
+                 q8, dp, n, f, p, b, stream, exp_rows, raw) -> int:
     """The full-row form of a tile with one computed slot: full_accumulate
     over the row-major bins, convert (csrc/hist_tile.cu); a tile with none
     launches the convert alone, which writes zeros. No slot table on the
@@ -795,11 +850,12 @@ def _launch_full(lib, binsT, leaf_ids, stats, lanes, comp_np, amax, out,
         None if q8 else (base + amax_off if amax is None else _ptr(amax)),
         int(amax is None and not q8), base, scratch.numel() * 8, base,
         _ptr(out), int(q8), int(rows.dtype == torch.int16), int(dp), n, f,
-        p, b, slot, target, group, width, stream)
+        p, b, slot, target, group, width, exp_rows, int(raw), stream)
 
 
 def _launch_gather(lib, binsT, leaf_ids, stats, lanes, comp_np, idx, amax,
-                   out, q8, dp, n, f, m, p, b, l, active, stream) -> int:
+                   out, q8, dp, n, f, m, p, b, l, active, stream, exp_rows,
+                   raw) -> int:
     """The gather form: partition the rung's rows into slot-grouped runs of
     (row, stats), accumulate them over the row-major bins, convert
     (csrc/hist_tile.cu); ``idx`` None is the full form of a tile with
@@ -830,7 +886,41 @@ def _launch_gather(lib, binsT, leaf_ids, stats, lanes, comp_np, idx, amax,
         int(amax is None and not q8), base, scratch.numel() * 8,
         base + cnt_off, _ptr(payload), base, _ptr(out), int(q8),
         int(rows.dtype == torch.int16), int(dp), n, f, m, p, b, l, active,
-        group, width, tile, stream)
+        group, width, tile, exp_rows, int(raw), stream)
+
+
+def hist_convert(acc: torch.Tensor, amax: torch.Tensor, rows: int,
+                 dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The integer-planes mode's convert as a launch of its own
+    (``csrc/hist_tile.cu`` ``hist_convert``): int64 fixed-point planes
+    [P, F, B, 3] -- one rank's ``hist_tile(raw=True)``, or the gang's sum of
+    them -- whose exponent came from ``amax`` [3] float32 and ``rows``, to
+    ``dtype`` planes (float32, or float64 in the f64 mode), with
+    ``hist_tile``'s convert's rounding. On a CPU tensor its plain version
+    (``hist_convert_plain``)."""
+    _check(acc.dtype == torch.int64 and acc.shape[-1] == _STATS,
+           f"hist_convert: int64 [..., 3] planes, got {acc.dtype} "
+           f"{tuple(acc.shape)}")
+    _check(dtype in (torch.float32, torch.float64),
+           f"hist_convert: planes are float32 or float64, not {dtype}")
+    if acc.device.type == "cpu":
+        return hist_convert_plain(acc, amax.to(torch.float32), rows, dtype)
+    _check(acc.device.type == "cuda", f"hist_convert: no kernel for device "
+           f"{acc.device}")
+    _check(acc.is_contiguous(), "hist_convert: acc must be contiguous")
+    _check(amax.device == acc.device and amax.dtype == torch.float32
+           and amax.shape == (_STATS,) and amax.is_contiguous(),
+           "hist_convert: amax must be [3] float32 on the planes' device")
+    out = torch.empty(acc.shape, dtype=dtype, device=acc.device)
+    if acc.numel() == 0:
+        return out
+    dp = dtype == torch.float64
+    err = _lib("hist_tile").hist_convert_launch(
+        _ptr(acc), _ptr(amax), _ptr(out), acc.numel() // _STATS, int(rows),
+        int(dp), torch.cuda.current_stream(acc.device).cuda_stream)
+    _count(hist_convert, "launches_dp" if dp else "launches")
+    _raise_on(err, "hist_convert")
+    return out
 
 
 _COUNTERS: Dict[str, Tuple[str, ...]] = {}   # wrapper name -> counters
@@ -1032,8 +1122,9 @@ def launch_counts() -> Dict[str, int]:
 
 
 register_counters(hist_tile, tuple(
-    c + w + q for w in ("", "_wide") for q in ("", "_q8", "_dp")
+    c + w + q for w in ("", "_wide") for q in ("", "_q8", "_dp", "_raw")
     for c in ("launches", "gather_launches", "launches_plane")))
+register_counters(hist_convert, ("launches", "launches_dp"))
 register_counters(split_epilogue, tuple(
     "launches" + w + m + q for w in ("", "_wide") for m in ("", "_mono")
     for q in ("", "_q8")))

@@ -73,7 +73,9 @@ def histogram_tiles(binsT: torch.Tensor, stats: torch.Tensor,
                     gather_idx: Optional[torch.Tensor] = None,
                     plane: bool = True,
                     amax: Optional[torch.Tensor] = None,
-                    dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                    dtype: torch.dtype = torch.float32,
+                    rows: Optional[int] = None,
+                    raw: bool = False) -> torch.Tensor:
     """[P, F, B, 3] planes: slot p accumulates the rows whose leaf is
     ``sel[p]`` (< 0 = inactive slot, zero output); ``gather_idx`` restricts
     the pass to those rows (entries >= N are padding). Every slot is
@@ -83,11 +85,12 @@ def histogram_tiles(binsT: torch.Tensor, stats: torch.Tensor,
     mode of ``gpu_use_dp``: the kernel's f64 mode on CUDA, the float64
     ``index_add_`` of the JAX package's f64 scatter on the CPU); exact
     int32 planes of int8 stats (q8). ``amax``: the float stats' max|stat|
-    per channel, when the caller has it (``hist_tile``)."""
+    per channel, when the caller has it; ``rows`` and ``raw``: the
+    integer-planes mode of the distributed learners (``hist_tile``)."""
     chan = cuda_hist.chan_leaf_table(sel)
     return cuda_hist.hist_tile(binsT, leaf_ids, stats, chan, sel.shape[0],
                                num_bins, num_leaves, gather_idx, plane=plane,
-                               amax=amax, dtype=dtype)
+                               amax=amax, dtype=dtype, rows=rows, raw=raw)
 
 
 def epilogue_supported(p: int, s: int) -> bool:

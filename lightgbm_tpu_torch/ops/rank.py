@@ -452,7 +452,7 @@ def lambdarank_grads(score: torch.Tensor, label: torch.Tensor,
         _check(t.is_contiguous(), f"lambdarank_grads: {name} not "
                f"contiguous")
     if dev.type == "cpu":
-        fn = (lambdarank_grads_exact if cuda_hist._cpu_sums["kernel"]
+        fn = (lambdarank_grads_exact if cuda_hist.kernel_sums_active()
               else lambdarank_grads_plain)
         return fn(score, label, gain, inv_max_dcg, layout, sigmoid, trunc,
                   norm)

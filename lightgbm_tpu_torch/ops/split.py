@@ -762,7 +762,8 @@ def find_best_splits(hist, leaf_sum_g, leaf_sum_h, leaf_cnt, leaf_output,
                      cat_words: Optional[int] = None,
                      leaf_min=None, leaf_max=None, adv_bounds=None,
                      gain_adjust=None, rand_bin=None,
-                     bundle: Optional[BundleMeta] = None) -> SplitInfo:
+                     bundle: Optional[BundleMeta] = None,
+                     return_feature_gains: bool = False):
     """Best split per leaf over the resident planes (the classic search).
 
     hist: [L, F, B, 3] (grad, hess, count); leaf aggregates [L];
@@ -785,7 +786,10 @@ def find_best_splits(hist, leaf_sum_g, leaf_sum_h, leaf_cnt, leaf_output,
     ``bundle`` (EFB): the segment-relative scan of the bundle columns, and
     their tie-break tables, so ties resolve as the unbundled run's; the
     chosen bundle split's segment is ``seg_lo``/``seg_hi``. ``cat_words``:
-    the bitset's words, by default ``cat_words_for(B)``."""
+    the bitset's words, by default ``cat_words_for(B)``.
+    ``return_feature_gains``: also return each (leaf, feature)'s best keyed
+    numerical gain [L, F] (``per_feature_best_gain_key``, what the voting
+    learner votes on)."""
     L, F, B, _ = hist.shape
     dev = hist.device
     cat_words = cat_words_for(B) if cat_words is None else cat_words
@@ -885,8 +889,10 @@ def find_best_splits(hist, leaf_sum_g, leaf_sum_h, leaf_cnt, leaf_output,
         cat_bitset=torch.zeros((L, cat_words), dtype=torch.int64,
                                device=dev),
         seg_lo=seg_lo, seg_hi=seg_hi)
+    fgain = (per_feature_best_gain_key(key_rev, key_fwd)
+             if return_feature_gains else None)
     if not with_categorical:
-        return num
+        return (num, fgain) if return_feature_gains else num
 
     cgain, cfeat, clg, clh, clc, cbits, cl2 = find_best_cat_splits(
         hist, leaf_sum_g, leaf_sum_h, leaf_cnt, leaf_output, leaf_depth,
@@ -908,7 +914,7 @@ def find_best_splits(hist, leaf_sum_g, leaf_sum_h, leaf_cnt, leaf_output,
         return torch.where(cond, cv, nv)
 
     zi = torch.zeros((L,), dtype=torch.int32, device=dev)
-    return SplitInfo(
+    merged = SplitInfo(
         gain=sel(cgain, num.gain), feature=sel(cfeat, num.feature),
         threshold=sel(zi, num.threshold),
         default_left=sel(torch.zeros_like(num.default_left),
@@ -923,6 +929,17 @@ def find_best_splits(hist, leaf_sum_g, leaf_sum_h, leaf_cnt, leaf_output,
         right_output=sel(cro, num.right_output),
         is_cat=take_cat, cat_bitset=sel(cbits, num.cat_bitset),
         seg_lo=sel(none, num.seg_lo), seg_hi=sel(none, num.seg_hi))
+    return (merged, fgain) if return_feature_gains else merged
+
+
+def sync_best_splits(info: SplitInfo, net) -> SplitInfo:
+    """The per-leaf best of every rank's ``SplitInfo`` over the network
+    ``net`` (the JAX package's ``sync_best_splits``, an all_gather and an
+    argmax; reference: SyncUpGlobalBestSplit, parallel_tree_learner.h:
+    191-214): the largest gain wins, a tie goes to the lowest rank. Used
+    by the learners whose ranks each searched their own feature slice
+    (``feature``, and ``data``'s owner search)."""
+    return net.sync_best(info)
 
 
 def per_feature_best_gain_key(gains_rev, gains_fwd) -> torch.Tensor:

@@ -9,8 +9,8 @@ and GOSS with custom gradients too. ``dump_model()`` (JSON),
 ``lower_bound``/``upper_bound``/``get_leaf_output`` and ``eval(data, name,
 feval)`` give equal structures; the refusals (rollback with sparse device
 columns) carry the JAX messages. The port's Booster has every public
-method of the JAX package's; ``free_network``/``set_network`` raise naming
-their ROADMAP item; ``free_dataset`` drops every device tensor of the sets
+method of the JAX package's; ``free_network``/``set_network`` on a world
+of one leave the process training alone; ``free_dataset`` drops every device tensor of the sets
 and leaves prediction working.
 """
 
@@ -225,8 +225,16 @@ def test_free_dataset_drops_the_device_tensors():
 
 
 @pytest.mark.parametrize("name", ["free_network", "set_network"])
-def test_network_raises_naming_item_15(name):
+def test_network_on_a_world_of_one(name):
+    """``set_network`` with one machine and ``free_network`` leave the
+    process alone (no gang), return the booster, and it trains on as
+    before (a world of 2 is driven in test_torch_network.py's gang)."""
+    from lightgbm_tpu_torch import distributed, network
     b, *_ = _trained(lt, rounds=1)
+    text = b.model_to_string()
     args = (["127.0.0.1:12400"],) if name == "set_network" else ()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
-        getattr(b, name)(*args)
+    assert getattr(b, name)(*args) is b
+    assert not distributed.is_initialized()
+    assert network.current().world == 1
+    b.update()
+    assert b.model_to_string() != text and b.current_iteration() == 2

@@ -1362,3 +1362,85 @@ def test_predict_rung_on_card_keeps_the_bits(dev, monkeypatch):
     c = cuda_hist.launch_counts()
     assert sum(v for k, v in c.items()
                if k.startswith("predict_ensemble.")) == -(-100_000 // 16_384)
+
+
+# ------------------------------------------------- distributed learners
+@pytest.mark.parametrize("form", ["root", "slots", "gather"])
+@pytest.mark.parametrize("dp", [False, True])
+def test_hist_tile_integer_planes_match_exact(dev, form, dp):
+    """The integer-planes mode (``raw=True``, the exponent from the gang's
+    ``amax`` and ``rows``): int64 planes bitwise ``hist_tile_exact``'s
+    integers and a second launch; two row halves' planes add to one
+    pass's; ``hist_convert`` of them bitwise its plain version and the
+    one-pass planes of ``hist_tile_exact`` (f32 and f64); counted apart."""
+    n, f, b = 200_003, 28, 255
+    p = 1 if form == "root" else 42
+    leaves = p + 5
+    binsT, leaf, stats = _hist_inputs(n, f, b, leaves, n + p, False)
+    sel = torch.arange(p, dtype=torch.int32)
+    chan = cuda_hist.chan_leaf_table(sel)
+    idx = None
+    if form == "gather":
+        keep = torch.nonzero(leaf < 9).reshape(-1)
+        idx = torch.cat([keep, torch.full((13,), n)]).to(torch.int32)
+    binsT, leaf, stats, chan = (t.to(dev) for t in (binsT, leaf, stats,
+                                                    chan))
+    gidx = None if idx is None else idx.to(dev)
+    amax = cuda_hist._absmax(stats)
+    rows = 2 * n                          # a gang of two such ranks
+    dtype = torch.float64 if dp else torch.float32
+    cuda_hist.reset_launch_counts()
+    k = cuda_hist.hist_tile(binsT, leaf, stats, chan, p, b, leaves, gidx,
+                            plane=True, amax=amax, rows=rows, raw=True)
+    again = cuda_hist.hist_tile(binsT, leaf, stats, chan, p, b, leaves,
+                                gidx, plane=True, amax=amax, rows=rows,
+                                raw=True)
+    exact = cuda_hist.hist_tile_exact(binsT, leaf, stats, chan, p, b, leaves,
+                                      gidx, amax, rows=rows, raw=True)
+    assert k.dtype == torch.int64
+    assert torch.equal(k, exact) and torch.equal(k, again)
+    if form != "gather":
+        h = n // 2
+        lo = cuda_hist.hist_tile(binsT[:, :h].contiguous(), leaf[:h],
+                                 stats[:h], chan, p, b, leaves, plane=True,
+                                 amax=amax, rows=rows, raw=True)
+        hi = cuda_hist.hist_tile(binsT[:, h:].contiguous(), leaf[h:],
+                                 stats[h:].contiguous(), chan, p, b, leaves,
+                                 plane=True, amax=amax, rows=rows, raw=True)
+        assert torch.equal(lo + hi, k)
+    conv = cuda_hist.hist_convert(k, amax, rows, dtype)
+    plain = cuda_hist.hist_convert_plain(k, amax, rows, dtype)
+    one = cuda_hist.hist_tile_exact(binsT, leaf, stats, chan, p, b, leaves,
+                                    gidx, amax, dtype, rows=rows)
+    counts = cuda_hist.launch_counts()
+    assert counts["hist_tile.launches_plane_raw"] == (2 if form == "gather"
+                                                      else 4)
+    assert counts["hist_convert.launches" + ("_dp" if dp else "")] == 1
+    assert torch.equal(conv, plain) and torch.equal(conv, one)
+
+
+@pytest.mark.parametrize("learner", ["data", "feature", "voting"])
+def test_distributed_learner_on_card_equals_cpu(dev, learner):
+    """Two thread-ranks sharing the card (gloo through host memory): the
+    model text twice the same, and the CPU gang's inside
+    ``kernel_sums_on_cpu()`` (the data learner through the integer planes
+    on both)."""
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch import network
+    rng = np.random.RandomState(3)
+    X = rng.randn(20_000, 10)
+    y = (X[:, 0] + X[:, 1] * X[:, 2] + 0.3 * rng.randn(20_000) > 0)
+    params = {"objective": "binary", "num_leaves": 31, "verbosity": -1,
+              "tree_learner": learner, "top_k": 4}
+
+    def run(device):
+        def body(net):
+            p = dict(params, device_type=device)
+            with (cuda_hist.kernel_sums_on_cpu() if device == "cpu"
+                  else contextlib.nullcontext()):
+                ds = lgb.Dataset(X, label=y.astype(float), params=p)
+                return lgb.train(p, ds, 3).model_to_string()
+        return network.thread_gang(2, body, device=device)
+
+    card, card2, cpu = run("cuda"), run("cuda"), run("cpu")
+    assert card[0] == card[1] == card2[0] == cpu[0]

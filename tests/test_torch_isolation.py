@@ -73,6 +73,14 @@ def test_no_module_imports_jax_or_the_jax_package(path):
         assert top not in ("jax", "jaxlib", "lightgbm_tpu"), (path, name)
 
 
+def test_isolation_covers_the_distributed_modules():
+    """The import rule's cases include the collective layer and the
+    distributed learners."""
+    names = {str(p.relative_to(PKG)) for p in PKG.rglob("*.py")}
+    assert {"network.py", "distributed.py", "parallel/learners.py",
+            "parallel/data_parallel.py"} <= names
+
+
 def test_default_device_without_cuda_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     X = np.random.RandomState(1).randn(100, 3)
@@ -95,14 +103,14 @@ def test_default_device_without_cuda_raises(monkeypatch):
     ("serve_max_batch_rows", 512),
     ("construct_streaming", True),
     ("fault_kill_rank_at_iter", "0:3"),
-    ("num_machines", 2),
+    ("heartbeat_interval", 1.0),
     ("predict_sharded", True),
     ("serve_flush_ms", 5.0),
-    ("tree_learner", "data"),
+    ("min_world_size", 2),
     ("telemetry_dir", "telemetry"),
     ("boost_rounds_per_dispatch", 4),
     ("fault_slow_predict_ms", 50.0),
-    ("tree_learner", "voting"),
+    ("mesh_shape", {"data": 8}),
     ("serve_deadline_ms", 50.0),
     ("hist_pallas_interpret", True),
 ])
