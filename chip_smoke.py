@@ -4,7 +4,7 @@ hand-written kernel against its plain PyTorch version.
     python3 chip_smoke.py [--seed 0] [--rows 2000000] [--valid-rows 200000]
                           [--rounds 5] [--parent DIR]
                           [--only precision|control|predict|faults|
-                                  distributed]
+                                  distributed|resilience]
 
 Phases, in order, each printing one JSON line (any failure raises and the
 script exits non-zero; nothing is caught):
@@ -144,7 +144,7 @@ queries):
   train_rank_xendcg the same with rank_xendcg (no kernel of its own; its
                   host gamma draw timed)
   parity_rank     lambdarank f32, q8, rank_xendcg, and lambdarank with
-                  weights, an init_score and a custom label_gain, at 50,000
+                  weights, an init_score and a custom label_gain, at 25,000
                   documents, 63 leaves, 1 round: two card runs and the CPU
                   run in the kernels' orders (kernel_sums_on_cpu) give the
                   same model text; against the CPU's JAX-order run, equal
@@ -181,7 +181,7 @@ extra_trees, by-node sampling), on train's 2M Higgs-shaped rows:
                   feature_fraction_bynode 0.5; 1 round each
   parity_constraints basic f32 and q8, intermediate, advanced,
                   monotone_penalty 2, interactions, feature_contri
-                  (positive, and with a 0), extra_trees, bynode at 50,000
+                  (positive, and with a 0), extra_trees, bynode at 25,000
                   rows, 63 leaves, 1 round: two card runs and the CPU run
                   in the kernels' orders give the same text; against the
                   CPU's plain run, equal text or the first differing tree
@@ -226,7 +226,7 @@ splits, CEGB):
   parity_data     wide fused f32, q8, classic, monotone f32 and q8, a
                   400-category feature at max_bin 511, EFB on CSR, CSR
                   unbundled, forced bins, max_bin_by_feature, forced
-                  splits, CEGB split, coupled and lazy, at 50,000 rows, 63
+                  splits, CEGB split, coupled and lazy, at 25,000 rows, 63
                   leaves, 1 round: as parity_constraints
 
 The precision modes (gpu_use_dp: the plane-only forms' f64 mode;
@@ -433,6 +433,42 @@ collectives go through host memory over gloo):
 
 With ``--only distributed`` the script runs device, build and this group
 alone, and prints its kernel entries and launches by path.
+
+and the resilience group (supervised, elastic distributed training;
+lightgbm_tpu_torch.supervisor gangs of 2 processes sharing card 0 over
+gloo, the data learner over pre-partitioned rows, 1M of train's rows a
+rank, 255 leaves, 4 rounds, a sharded checkpoint every iteration,
+collective_deadline 10 s, heartbeats every 1 s, the integrity vote every
+iteration; every run prints its restarts, exit codes, seconds to detect,
+to tear down and to relaunch up to the first resumed iteration, the
+sharded checkpoint's and the vote's host times, and rank 0's launches of
+hist_tile's integer-planes mode and of hist_convert):
+
+  resilience_reference  the uninterrupted gang: the text the next two
+                  are held to, its valid AUC
+  resilience_kill rank 1 killed at iteration 2: one relaunch, bitwise
+  resilience_hang rank 1 hung at iteration 2: the watchdog's exit names
+                  rank 1 within the deadline plus 2 s; one relaunch,
+                  bitwise
+  resilience_shrink  relaunched from the reference's sharded checkpoint
+                  of iteration 2, rank 1's spawn fails: the gang shrinks
+                  to 1 and resumes from the two shards (the same bits
+                  again in this process); its valid AUC against the gang
+                  of 2's and the first difference recorded (the gang of 1
+                  bins from its own sample)
+  resilience_parity  at 50,000 rows and 63 leaves, in this process: 2
+                  iterations by a gang of 2 thread-ranks, then a gang of 1
+                  resuming from its shards, twice on the card and once on
+                  the CPU inside kernel_sums_on_cpu(), the three texts
+                  equal, the bins and valid AUC (within 1e-4) the gang of
+                  2's; a supervised gang over replicated rows with rank
+                  1's score cache flipped after iteration 2 (no majority
+                  at world 2: both ranks raise, one relaunch) bitwise the
+                  same gang uninterrupted
+
+With ``--only resilience`` the script runs device, build,
+hist_int_planes and this group alone, and prints the two integer-planes
+kernel entries with the group's launches by path.
 
 and kernel 5, the experiment script's one-hot histogram:
 
@@ -2278,6 +2314,9 @@ def train_rank_phase(lgb, cuda_hist, args, objective="lambdarank"):
 # near 800 s (their CPU runs are the costly part; the weighted run's
 # init_score still starts its tree from a ranked score)
 PARITY_RANK_ROUNDS = 1
+# parity_rank's documents: half of PARITY_ROWS since the resilience group
+# came in (the CPU runs are the costly part)
+PARITY_RANK_ROWS = 25_000
 PARITY_RANK = {
     "lambdarank": ({}, False),
     "lambdarank_q8": ({"quantized_grad": True}, False),
@@ -2297,13 +2336,13 @@ def _parity_rank(lgb, name, seed):
     from lightgbm_tpu_torch.io.model_text import load_model
     from lightgbm_tpu_torch.ops import cuda_hist
     extra, weighted = PARITY_RANK[name]
-    n_queries = PARITY_ROWS // (MSLR_DOCS // MSLR_QUERIES)
-    X, y, g = mslr_like(n_queries, PARITY_ROWS, seed + 53)
+    n_queries = PARITY_RANK_ROWS // (MSLR_DOCS // MSLR_QUERIES)
+    X, y, g = mslr_like(n_queries, PARITY_RANK_ROWS, seed + 53)
     kw = {"group": g}
     if weighted:
         rng = np.random.default_rng(seed + 59)
-        kw.update(weight=rng.uniform(0.5, 2.0, PARITY_ROWS),
-                  init_score=rng.standard_normal(PARITY_ROWS) * 0.1)
+        kw.update(weight=rng.uniform(0.5, 2.0, PARITY_RANK_ROWS),
+                  init_score=rng.standard_normal(PARITY_RANK_ROWS) * 0.1)
     params = dict(RANK_PARAMS, num_leaves=63, seed=seed, **extra)
     setup = (X, y, params, kw)
     texts = {}
@@ -2336,7 +2375,7 @@ def _parity_rank(lgb, name, seed):
 
 
 def parity_rank_phase(lgb, seed):
-    return {"docs": PARITY_ROWS, "num_leaves": 63,
+    return {"docs": PARITY_RANK_ROWS, "num_leaves": 63,
             "rounds": PARITY_RANK_ROUNDS,
             **{m: _parity_rank(lgb, m, seed) for m in PARITY_RANK}}
 
@@ -2899,13 +2938,15 @@ def parity_texts(lgb, name, setup, q8, rounds: int = PARITY_ROUNDS):
 # layer's phases came in and to 1 with the precision modes' (the exact
 # modes' CPU runs are the costly part)
 PARITY_CONSTRAINTS_ROUNDS = 1
+# and its rows: half of PARITY_ROWS since the resilience group came in
+PARITY_CONSTRAINTS_ROWS = 25_000
 
 
 def parity_constraints_phase(lgb, seed):
-    """Each constrained run at 50,000 Higgs-shaped rows, 63 leaves,
+    """Each constrained run at 25,000 Higgs-shaped rows, 63 leaves,
     PARITY_CONSTRAINTS_ROUNDS rounds (parity_texts)."""
-    X, y = higgs_like(PARITY_ROWS, seed + 29)
-    out = {"rows": PARITY_ROWS, "num_leaves": 63,
+    X, y = higgs_like(PARITY_CONSTRAINTS_ROWS, seed + 29)
+    out = {"rows": PARITY_CONSTRAINTS_ROWS, "num_leaves": 63,
            "rounds": PARITY_CONSTRAINTS_ROUNDS}
     for name, extra in PARITY_CONSTRAINTS.items():
         setup = (X, y, dict(PARAMS, num_leaves=63, **extra), {})
@@ -3282,7 +3323,9 @@ def train_forced_cegb_phase(lgb, cuda_hist, args):
     return out
 
 
-PARITY_DATA_ROWS = PARITY_ROWS
+# parity_data's rows: half of PARITY_ROWS since the resilience group came
+# in (its CPU runs are the costly part)
+PARITY_DATA_ROWS = 25_000
 # parity_data's rounds: 1, cut from PARITY_ROUNDS when the precision modes'
 # phases came in (its CPU runs are the costly part)
 PARITY_DATA_ROUNDS = 1
@@ -3332,7 +3375,7 @@ def parity_data_setups(seed: int, tmp: str):
 
 
 def parity_data_phase(lgb, seed):
-    """Each data-layer run at 50,000 rows, 63 leaves, PARITY_DATA_ROUNDS
+    """Each data-layer run at 25,000 rows, 63 leaves, PARITY_DATA_ROUNDS
     rounds (parity_texts: two card runs and the CPU run in the kernels'
     orders equal; q8 also the CPU's plain run; f32 against it equal or the
     first divergent tree named), with the first card run's launches."""
@@ -5594,11 +5637,13 @@ def distributed_phases(lgb, cuda_hist, args):
     return hp, paths
 
 
-def dist_kernel_entries(hp, paths):
-    """The kernels line's entries of the distributed group: hist_tile's
-    integer-planes mode and its convert launch."""
+def dist_kernel_entries(hp, paths, lead=None):
+    """The kernels line's entries of the distributed and resilience
+    groups: hist_tile's integer-planes mode and its convert launch, their
+    ``launches`` those of path ``lead`` (else the first data-learner path
+    by name), ``launches_by_path`` every data-learner path's."""
     data = {k: v for k, v in paths.items() if "/data/" in k}
-    lead = data[min(data)]
+    lead = data[lead if lead is not None else min(data)]
     keys = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     return [
@@ -5625,6 +5670,430 @@ def dist_kernel_entries(hp, paths):
          "launches_by_path": {k: v.get("hist_convert.launches", 0)
                               for k, v in data.items()}}]
 
+
+# -------------------------------------------------------------- resilience
+# The resilience group: supervised, elastic distributed training. Gangs of
+# RES_WORLD processes started by lightgbm_tpu_torch.supervisor (the spawn
+# context; every rank on card 0 through gloo, "ranks share a card"), the
+# data learner over pre-partitioned rows (each rank its contiguous half of
+# train's 2M Higgs-shaped rows), a sharded checkpoint every iteration and
+# resume_from on the same directory, heartbeats, the collective watchdog
+# and the integrity vote every iteration.
+RES_WORLD = 2
+RES_ROUNDS = 4
+RES_DEADLINE = 10.0          # collective_deadline (s)
+RES_HEARTBEAT = 1.0          # heartbeat_interval (s)
+RES_FAULT = "1:2"            # rank 1 at the start of iteration 2
+RES_TIMEOUT = 300            # an incarnation's deadline (s)
+RES_AUC_TOL = 1e-4           # the shrunk run's valid AUC against W = 2's
+RES_PARITY_VALID = 20_000    # resilience_parity's valid rows
+
+
+def res_rank(rank, ckdir, cfg):
+    """One rank of a resilience gang (module level: the supervisor's spawn
+    context pickles it by name). Reads its rows from the group's .npy
+    files (all rows with ``replicated``, else its contiguous block of the
+    gang's world, taken after the init so a shrunk gang re-splits them),
+    trains ``cfg["params"]`` (inside ``kernel_sums_on_cpu()`` with
+    ``kernel_sums``) with a checkpoint every iteration and ``resume_from``
+    on ``ckdir``, and appends one line an iteration to
+    ``<ckdir>.events.jsonl``: incarnation, rank, world, iteration, wall
+    time after its checkpoint, the checkpoint's seconds (``last_save``)
+    and the integrity vote's host ms. Returns the model text, the
+    kernels' launches in this run and the rank's data seconds."""
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch import distributed, network
+    from lightgbm_tpu_torch.ops import cuda_hist
+    from lightgbm_tpu_torch.utils import profiling
+    t0 = time.time()
+    net = network.current()
+    X = np.load(cfg["x"], mmap_mode="r")
+    y = np.load(cfg["y"], mmap_mode="r")
+    params = dict(PARAMS, **cfg["params"])
+    if cfg.get("replicated"):
+        lo, hi = 0, X.shape[0]
+    else:
+        c = -(-X.shape[0] // net.world)
+        lo, hi = net.rank * c, min(X.shape[0], (net.rank + 1) * c)
+    Xr, yr = np.ascontiguousarray(X[lo:hi]), np.ascontiguousarray(y[lo:hi])
+    ckpt = lgb.checkpoint_callback(ckdir, period=1, keep=cfg.get("keep", 2))
+
+    def event(env):
+        line = {"incarnation": int(os.environ.get("LGBM_TPU_RESTART_COUNT",
+                                                  "0")),
+                "rank": net.rank, "world": net.world,
+                "iteration": env.iteration, "t": time.time(),
+                "ckpt": dict(ckpt.manager.last_save),
+                "integrity_ms": profiling.gauges().get(
+                    "integrity_check_ms")}
+        with open(ckdir + ".events.jsonl", "a") as fh:
+            fh.write(json.dumps(line) + "\n")
+    event.order = 45             # after the checkpoint (40)
+
+    with (cuda_hist.kernel_sums_on_cpu() if cfg.get("kernel_sums")
+          else contextlib.nullcontext()):
+        if cfg.get("replicated"):
+            ds = lgb.Dataset(Xr, label=yr, params=dict(params))
+            ds.construct()
+        else:
+            ds = distributed.load_partitioned(Xr, label=yr,
+                                              params=dict(params))
+        data_s = time.time() - t0
+        cuda_hist.reset_launch_counts()
+        booster = lgb.train(dict(params), ds, cfg["rounds"],
+                            callbacks=[ckpt, event], resume_from=ckdir)
+        launches = _launched_nonzero(cuda_hist.launch_counts())
+    return {"text": booster.model_to_string(), "launches": launches,
+            "data_s": data_s, "world": net.world}
+
+
+def _res_events(ckdir):
+    with open(ckdir + ".events.jsonl") as fh:
+        return [json.loads(line) for line in fh]
+
+
+def _res_run(workdir, name, cfg, env=None, world=RES_WORLD, **kw):
+    """One supervised gang of ``world`` ranks, ``env`` (one-shot faults)
+    set while it is launched. Returns (report, events, seconds)."""
+    from lightgbm_tpu_torch import supervisor
+    env = env or {}
+    ckdir = os.path.join(workdir, name)
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    t0 = time.time()
+    try:
+        rep = supervisor.run_supervised(
+            res_rank, nproc=world, args=(ckdir, cfg),
+            device_type=cfg["params"]["device_type"], checkpoint_dir=ckdir,
+            max_restarts=2, timeout=RES_TIMEOUT, **kw)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return rep, _res_events(ckdir), time.time() - t0
+
+
+def _res_numbers(rep, events, fault_rank=None):
+    """A supervised run's numbers: restarts, exit codes, the seconds to
+    detect the fault (from the faulted rank's last completed iteration,
+    or the incarnation's launch when it never completed one), to tear the
+    gang down, to relaunch up to the end of the first resumed iteration
+    (checkpoint included) and from the fault to it, the sharded
+    checkpoint's and the integrity vote's host times (medians over every
+    rank and iteration), and rank 0's launches of the integer-planes mode
+    and of hist_convert."""
+    def med(xs):
+        xs = [x for x in xs if x is not None]
+        return statistics.median(xs) if xs else "not measured"
+
+    out = {"restarts": rep.restarts, "world_size": rep.world_size,
+           "wall_s": rep.wall_time,
+           "exit_codes": [{str(r): c for r, c in f.exit_codes.items()}
+                          for f in rep.failures],
+           "reasons": [f.reason if len(f.reason) <= 300 else
+                       f.reason[:100] + " ... " + f.reason[-200:]
+                       for f in rep.failures],
+           "shrinks": [{"from": s.from_nproc, "to": s.to_nproc,
+                        "lost": s.lost_ranks, "reason": s.reason}
+                       for s in rep.shrinks],
+           "diagnoses": [{k: d.get(k) for k in (
+               "kind", "rank", "iteration", "phase", "suspects", "elapsed",
+               "corrupt_ranks")} for f in rep.failures for d in f.watchdog],
+           "ckpt_write_s": med(e["ckpt"].get("seconds") for e in events),
+           "ckpt_shard_s": med(e["ckpt"].get("shard_seconds")
+                               for e in events),
+           "integrity_ms": med(e["integrity_ms"] for e in events),
+           "rank0_data_s": rep.result["data_s"],
+           "launches_plane_raw": rep.result["launches"].get(
+               "hist_tile.launches_plane_raw", 0),
+           "launches_convert": rep.result["launches"].get(
+               "hist_convert.launches", 0)}
+    if rep.failures:
+        f = rep.failures[0]
+        before = [e["t"] for e in events if e["incarnation"] == 0
+                  and e["rank"] == fault_rank]
+        t_fault = max(before) if before else f.started_at
+        after = [e["t"] for e in events if e["incarnation"] == 1]
+        out.update({
+            "detect_s": f.detected_at - t_fault,
+            "teardown_s": f.teardown_seconds,
+            "relaunch_to_first_iteration_s":
+                min(after) - rep.incarnation_starts[1] if after
+                else "no iteration left",
+            "fault_to_first_resumed_iteration_s":
+                min(after) - t_fault if after else "no iteration left"})
+    return out
+
+
+def _header(text: str) -> str:
+    """A model text's bin-dependent header line (each feature's range)."""
+    return next(ln for ln in text.splitlines()
+                if ln.startswith("feature_infos="))
+
+
+def _res_check(name, checks, out):
+    out["checks"] = checks
+    emit(name, **out)
+    if not all(checks.values()):
+        raise AssertionError(f"{name}: {checks}")
+
+
+def resilience_phases(lgb, cuda_hist, args):
+    """The resilience group's phases, each emitted:
+
+    - ``resilience_reference``: the uninterrupted supervised gang, the
+      text the next two phases are held to, its valid AUC;
+    - ``resilience_kill``: rank 1 killed (exit 137) at iteration 2: one
+      relaunch at the same world size, text bitwise the reference's;
+    - ``resilience_hang``: rank 1 hung at iteration 2: a watchdog exit
+      (97) whose diagnosis names rank 1, then the same;
+    - ``resilience_shrink``: the gang is relaunched from the reference's
+      sharded checkpoint of iteration 2 and rank 1's spawn fails (exit
+      96): the gang shrinks to 1 and resumes from the two shards; the
+      same resume again in this process gives the same bits; its valid
+      AUC against the reference's (within RES_AUC_TOL or not: the gang of
+      1 re-bins from its own sample) and its first difference recorded;
+    - ``resilience_parity`` at DIST_PARITY_ROWS rows and
+      DIST_PARITY_LEAVES leaves, in this process: a gang of 2 thread-ranks
+      checkpoints 2 iterations and a gang of 1 resumes from its shards,
+      twice on the card and once on the CPU inside kernel_sums_on_cpu(),
+      the three texts equal, its bins and valid AUC (within RES_AUC_TOL)
+      the uninterrupted gang of 2's; and a supervised gang over replicated
+      rows
+      with rank 1's score flipped after iteration 2 and the vote every
+      iteration (at world 2 no majority: both ranks raise, the gang
+      relaunches) against the same gang uninterrupted, bitwise.
+
+    Returns the launches of every run's rank 0 by path."""
+    import shutil
+    import tempfile
+    workdir = tempfile.mkdtemp(prefix="chip_resilience_")
+    paths = {}
+    try:
+        t0 = time.time()
+        X, y = higgs_like(args.rows + args.valid_rows, args.seed)
+        Xv, yv = X[args.rows:], y[args.rows:]
+        np.save(os.path.join(workdir, "x.npy"), X[:args.rows])
+        np.save(os.path.join(workdir, "y.npy"), y[:args.rows])
+        del X, y
+        data_s = time.time() - t0
+        supervision = {"tree_learner": "data",
+                       "heartbeat_interval": RES_HEARTBEAT,
+                       "collective_deadline": RES_DEADLINE,
+                       "integrity_check_period": 1}
+        full = {"x": os.path.join(workdir, "x.npy"),
+                "y": os.path.join(workdir, "y.npy"), "rounds": RES_ROUNDS,
+                "params": dict(supervision, device_type="cuda")}
+
+        def valid_auc(text):
+            b = lgb.Booster(params={"device_type": "cuda"}, model_str=text)
+            return auc(np.asarray(b.predict(Xv)), yv)
+
+        common = {"world": RES_WORLD, "rows": args.rows,
+                  "rows_per_rank": args.rows // RES_WORLD,
+                  "rounds": RES_ROUNDS, "leaves": PARAMS["num_leaves"],
+                  "deadline_s": RES_DEADLINE}
+        rep, ev, wall = _res_run(workdir, "reference", dict(full, keep=4))
+        ref = rep.result["text"]
+        ref_auc = valid_auc(ref)
+        out = dict(common, make_data_s=data_s, seconds=wall,
+                   valid_auc=ref_auc,
+                   **_res_numbers(rep, ev))
+        paths["resilience/data/reference"] = rep.result["launches"]
+        _res_check("resilience_reference", {
+            "no_restart": rep.restarts == 0,
+            "integer_planes_launched": out["launches_plane_raw"] > 0,
+            "convert_launched": out["launches_convert"] > 0,
+            "sharded": all(e["ckpt"].get("sharded") for e in ev)}, out)
+
+        rep, ev, wall = _res_run(
+            workdir, "kill", full,
+            {"LGBM_TPU_FAULT_KILL_RANK_AT_ITER": RES_FAULT})
+        out = dict(common, seconds=wall, **_res_numbers(rep, ev, 1))
+        paths["resilience/data/kill"] = rep.result["launches"]
+        _res_check("resilience_kill", {
+            "one_relaunch": rep.restarts == 1 and rep.world_size == RES_WORLD,
+            "rank1_killed": rep.failures[0].exit_codes.get(1) == 137,
+            "text_bitwise_reference": rep.result["text"] == ref}, out)
+
+        rep, ev, wall = _res_run(
+            workdir, "hang", full,
+            {"LGBM_TPU_FAULT_HANG_RANK_AT_ITER": RES_FAULT})
+        out = dict(common, seconds=wall, **_res_numbers(rep, ev, 1))
+        paths["resilience/data/hang"] = rep.result["launches"]
+        _res_check("resilience_hang", {
+            "one_relaunch": rep.restarts == 1 and rep.world_size == RES_WORLD,
+            "watchdog_fired": rep.failures[0].watchdog_fired,
+            "names_rank1": any(1 in (d.get("suspects") or [])
+                               for d in rep.failures[0].watchdog),
+            "detected_within_deadline_plus_2s":
+                out["detect_s"] <= RES_DEADLINE + 2.0,
+            "text_bitwise_reference": rep.result["text"] == ref}, out)
+
+        # the shrink: the gang checkpointed at iteration 2 (the
+        # reference's sharded checkpoint, written by the gang of 2), is
+        # relaunched, and rank 1's spawn fails: the gang of 1 resumes
+        # from the two shards
+        for name in ("shrink", "shrink_again"):
+            os.makedirs(os.path.join(workdir, name))
+            shutil.copytree(os.path.join(workdir, "reference",
+                                         "ckpt_00000002"),
+                            os.path.join(workdir, name, "ckpt_00000002"))
+        rep, ev, wall = _res_run(
+            workdir, "shrink", full,
+            {"LGBM_TPU_FAULT_SPAWN_FAIL_RANK": "1"})
+        shrunk = rep.result["text"]
+        shrunk_auc = valid_auc(shrunk)
+        # the same shrunk run again, in this process: a gang of 1 resuming
+        # from the same checkpoint
+        t1 = time.time()
+        again = _res_inprocess(lgb, full, os.path.join(workdir,
+                                                       "shrink_again"))
+        # the gang of 1 bins its rows from its own sample
+        # (bin_construct_sample_cnt rows of 2M, not 100,000 of each 1M):
+        # its later trees see other bin boundaries, so the AUC bar is
+        # recorded here and held at the parity size, where every world
+        # size samples every row
+        out = dict(common, seconds=wall, valid_auc=shrunk_auc,
+                   reference_auc=ref_auc,
+                   auc_diff=shrunk_auc - ref_auc,
+                   auc_within_tol=abs(shrunk_auc - ref_auc) <= RES_AUC_TOL,
+                   auc_tol=RES_AUC_TOL,
+                   rebinned=_header(shrunk) != _header(ref),
+                   text_equal_reference=shrunk == ref,
+                   first_diff_vs_reference=_first_diff(shrunk, ref),
+                   again_seconds=time.time() - t1,
+                   launches_plane=rep.result["launches"].get(
+                       "hist_tile.launches_plane", 0),
+                   **_res_numbers(rep, ev))
+        paths["resilience/data/shrink"] = rep.result["launches"]
+        _res_check("resilience_shrink", {
+            "shrunk_2_to_1": [(s.from_nproc, s.to_nproc, s.lost_ranks)
+                              for s in rep.shrinks] == [(2, 1, [1])],
+            "spawn_failed": rep.failures[0].spawn_failed_ranks == [1],
+            "resumed_at_2": sorted({e["iteration"] for e in ev
+                                    if e["incarnation"] == 1}) == [2, 3],
+            "same_bits_twice": again == shrunk,
+            "kernels_3_4_launched": out["launches_plane"] > 0}, out)
+
+        par, ppaths = _resilience_parity(lgb, cuda_hist, workdir, args,
+                                         supervision)
+        paths.update(ppaths)
+        emit("resilience_parity", **par)
+        if not all(par["checks"].values()):
+            raise AssertionError(f"resilience_parity: {par['checks']}")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    return paths
+
+
+def _res_inprocess(lgb, cfg, ckdir, stop=None, world=1, kernel_sums=False):
+    """The group's training in this process: a gang of ``world``
+    thread-ranks (network.thread_gang; a gang of 1 alone) on
+    ``cfg["params"]``'s device, pre-partitioned like res_rank (all rows
+    with ``replicated``), checkpointing to ``ckdir`` and resuming from it,
+    ``stop`` rounds (else cfg's), each rank inside kernel_sums_on_cpu()
+    with ``kernel_sums``. Returns rank 0's model text."""
+    from lightgbm_tpu_torch import distributed, network
+    from lightgbm_tpu_torch.ops import cuda_hist
+    X, y = np.load(cfg["x"]), np.load(cfg["y"])
+    params = dict(PARAMS, **cfg["params"])
+
+    def body(net):
+        with (cuda_hist.kernel_sums_on_cpu() if kernel_sums
+              else contextlib.nullcontext()):
+            if cfg.get("replicated"):
+                ds = lgb.Dataset(X, label=y, params=dict(params))
+            else:
+                c = -(-X.shape[0] // net.world)
+                lo, hi = net.rank * c, min(X.shape[0], (net.rank + 1) * c)
+                ds = distributed.load_partitioned(
+                    X[lo:hi], label=y[lo:hi], params=dict(params))
+            b = lgb.train(dict(params), ds, stop or cfg["rounds"],
+                          callbacks=[lgb.checkpoint_callback(ckdir,
+                                                             period=1)],
+                          resume_from=ckdir)
+            return b.model_to_string()
+
+    if world == 1:
+        return body(network.current())
+    dev = "cuda:0" if params["device_type"] == "cuda" else "cpu"
+    return network.thread_gang(world, body, device=dev)[0]
+
+
+def _resilience_parity(lgb, cuda_hist, workdir, args, supervision):
+    """resilience_parity's runs (see resilience_phases); returns its line
+    and the launches by path."""
+    t0 = time.time()
+    X, y = higgs_like(DIST_PARITY_ROWS + RES_PARITY_VALID, args.seed + 5)
+    Xv, yv = X[DIST_PARITY_ROWS:], y[DIST_PARITY_ROWS:]
+    np.save(os.path.join(workdir, "px.npy"), X[:DIST_PARITY_ROWS])
+    np.save(os.path.join(workdir, "py.npy"), y[:DIST_PARITY_ROWS])
+    small = {"x": os.path.join(workdir, "px.npy"),
+             "y": os.path.join(workdir, "py.npy"), "rounds": RES_ROUNDS}
+    card = dict(small, params=dict(supervision, device_type="cuda",
+                                   num_leaves=DIST_PARITY_LEAVES))
+    # the in-process runs arm no watchdog in this process: a CPU step in
+    # the kernels' orders may take longer than the deadline
+    quiet = dict(supervision, collective_deadline=0.0,
+                 heartbeat_interval=0.0, num_leaves=DIST_PARITY_LEAVES)
+    texts = {}
+    # the kill and the shrink, in this process: a gang of 2 thread-ranks
+    # checkpoints iterations 0 and 1, then a gang of 1 resumes from its
+    # two shards
+    for name, dev, sums in (("shrink_card", "cuda", False),
+                            ("shrink_card_again", "cuda", False),
+                            ("shrink_cpu_kernel_order", "cpu", True)):
+        cfg = dict(small, params=dict(quiet, device_type=dev))
+        ck = os.path.join(workdir, name)
+        _res_inprocess(lgb, cfg, ck, stop=2, world=2, kernel_sums=sums)
+        texts[name] = _res_inprocess(lgb, cfg, ck, kernel_sums=sums)
+    # the same gang of 2 uninterrupted
+    texts["gang_of_2"] = _res_inprocess(
+        lgb, dict(small, params=dict(quiet, device_type="cuda")),
+        os.path.join(workdir, "gang_of_2"), world=2)
+    # replicated rows, the vote every iteration, rank 1's score flipped
+    # after iteration 2: at world 2 no majority, both ranks raise, one
+    # relaunch; against the same gang uninterrupted (in this process)
+    rep_cfg = dict(card, replicated=True)
+    texts["replicated"] = _res_inprocess(
+        lgb, rep_cfg, os.path.join(workdir, "replicated"), world=2)
+    rep, ev, wall = _res_run(workdir, "replicated_flip", rep_cfg,
+                             {"LGBM_TPU_FAULT_FLIP_SCORE_RANK": RES_FAULT})
+    flip = dict(seconds=wall, **_res_numbers(rep, ev, 1))
+    texts["replicated_flip"] = rep.result["text"]
+    aucs = {k: auc(np.asarray(lgb.Booster(
+        params={"device_type": "cuda"}, model_str=texts[k]).predict(Xv)), yv)
+        for k in ("shrink_card", "gang_of_2")}
+    checks = {
+        "shrunk_card_same_bits_twice":
+            texts["shrink_card"] == texts["shrink_card_again"],
+        "shrunk_card_equals_cpu_gang_kernel_order":
+            texts["shrink_card"] == texts["shrink_cpu_kernel_order"],
+        "flip_detected_and_relaunched":
+            rep.restarts == 1
+            and "RankDivergenceError" in " ".join(flip["reasons"]),
+        "flip_restart_bitwise":
+            texts["replicated_flip"] == texts["replicated"],
+        "flip_integer_planes_launched": flip["launches_plane_raw"] > 0,
+        # every world size bins every row here: the shrunk run's bins are
+        # the gang of 2's
+        "same_bins_after_the_shrink":
+            _header(texts["shrink_card"]) == _header(texts["gang_of_2"]),
+        "shrunk_auc_within_tol":
+            abs(aucs["shrink_card"] - aucs["gang_of_2"]) <= RES_AUC_TOL}
+    return ({"rows": DIST_PARITY_ROWS, "leaves": DIST_PARITY_LEAVES,
+             "rounds": RES_ROUNDS, "seconds": time.time() - t0,
+             "replicated_flip": flip,
+             "valid_rows": RES_PARITY_VALID, "valid_auc": aucs,
+             "text_sha": {k: _sha(v) for k, v in texts.items()},
+             "first_diff_shrunk_vs_gang_of_2": _first_diff(
+                 texts["shrink_card"], texts["gang_of_2"]),
+             "checks": checks},
+            {"resilience/data/parity_replicated_flip":
+             rep.result["launches"]})
 
 def per_launch(profile, name):
     """A kernel's device ms a launch in a train phase's profile
@@ -5659,7 +6128,8 @@ def main() -> int:
                          "forms are timed on the same inputs before and "
                          "after this run's phases")
     ap.add_argument("--only", choices=("precision", "control", "predict",
-                                       "faults", "distributed"),
+                                       "faults", "distributed",
+                                       "resilience"),
                     default=None,
                     help="run the device, build and train phases and this "
                          "group's phases alone (a quicker check of one "
@@ -5744,6 +6214,20 @@ def main() -> int:
                           "launches_by_path": dpaths,
                           "total_seconds": time.time() - t_start}),
               flush=True)
+        print(smi, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
+    if args.only == "resilience":
+        t0 = time.time()
+        hp = hist_int_planes_phase(cuda_hist, args)
+        emit("hist_int_planes", seconds=time.time() - t0, **hp)
+        rpaths = resilience_phases(lgb, cuda_hist, args)
+        print(json.dumps({"kernels": dist_kernel_entries(
+            hp, rpaths, lead="resilience/data/reference"),
+            "launches_by_path": rpaths,
+            "total_seconds": time.time() - t_start}), flush=True)
         print(smi, flush=True)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": kind,
@@ -5871,6 +6355,7 @@ def main() -> int:
     predict_entry["launches_by_path"]["faults/predict_oom"] = po_launches
     torch.cuda.empty_cache()
     dist_hp, dpaths = distributed_phases(lgb, cuda_hist, args)
+    rpaths = resilience_phases(lgb, cuda_hist, args)
 
     hv = hist_variants_phase(cuda_hist)
     emit("hist_variants", **hv)
@@ -6183,7 +6668,8 @@ def main() -> int:
         kernels[6]["parent_ms"] = {v: [pt[f"hist_onehot/{v}"]
                                        for pt in parent] for v in VARIANTS}
     kernels.append(predict_entry)
-    kernels.extend(dist_kernel_entries(dist_hp, dpaths))
+    kernels.extend(dist_kernel_entries(dist_hp, {**dpaths, **rpaths},
+                                       lead="distributed/data/rank0"))
     print(json.dumps({"kernels": kernels,
                       "total_seconds": time.time() - t_start}), flush=True)
     print(smi, flush=True)

@@ -14,7 +14,10 @@ through a hand-written ensemble-traversal kernel (raw, converted,
 scikit-learn estimators, the plotting helpers and the CLI (``python -m
 lightgbm_tpu_torch``). ``tree_learner`` data, feature or voting trains
 over a gang of processes (``distributed``: ``init``, ``spawn``,
-``train_distributed``, ``load_partitioned``; or torchrun). The package
+``train_distributed``, ``load_partitioned``; or torchrun), and
+``supervisor`` keeps a gang alive: heartbeats and a collective watchdog,
+relaunches from sharded checkpoints at the same or a smaller world size,
+and a cross-rank integrity vote. The package
 imports torch and numpy only; scikit-learn, matplotlib and graphviz are
 imported when their names are first used.
 
@@ -24,7 +27,7 @@ imported when their names are first used.
     booster.predict(X_test)
 """
 
-from . import distributed
+from . import distributed, supervisor
 from .basic import Dataset
 from .booster import Booster
 from .callback import (EarlyStopException, early_stopping, log_evaluation,
@@ -35,7 +38,7 @@ from .convert import booster_from_numpy, booster_to_numpy, mappers_from_numpy
 from .engine import CVBooster, cv, train
 
 __all__ = ["Booster", "CVBooster", "Config", "Dataset", "EarlyStopException",
-           "distributed",
+           "distributed", "supervisor",
            "booster_from_numpy", "booster_to_numpy", "checkpoint_callback",
            "cv",
            "early_stopping", "log_evaluation", "mappers_from_numpy",

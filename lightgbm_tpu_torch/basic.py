@@ -38,8 +38,9 @@ dense construct keeps the raw features as float32 (``raw_data_np``) when
 ``linear_tree`` is in its params or its reference keeps them, for linear
 leaves; sparse input with ``linear_tree`` raises. ``subset`` re-bins a
 row subset with the set's mappers (``cv``'s folds; the raw data must be
-kept, ``free_raw_data=False``). Streaming construction and a group column
-read from a file wait for ROADMAP Queue 1 items 15 and 12b.
+kept, ``free_raw_data=False``). A group column of a data file is read by
+the CLI's loader (``cli.py``). Streaming construction waits for ROADMAP
+Queue 1 item 15.
 """
 
 from __future__ import annotations

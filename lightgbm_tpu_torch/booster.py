@@ -10,8 +10,9 @@ outputs, score bounds, split-value histograms), ``shuffle_models``,
 or from trees carried across as numpy arrays
 (``convert.booster_from_numpy``). Predictions of a K-class model are
 [N, K]: raw scores, or the softmax (``multiclass``) or per-class sigmoid
-(``multiclassova``) of them. ``free_network`` and ``set_network`` wait for
-the distributed learners (ROADMAP.md Queue 1 item 15).
+(``multiclassova``) of them. ``free_network`` leaves the process's gang
+and ``set_network`` joins one (``distributed.init``), for the distributed
+learners.
 """
 
 from __future__ import annotations

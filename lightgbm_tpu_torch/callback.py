@@ -242,6 +242,18 @@ def checkpoint(directory: str, period: int = 1, keep: int = 2) -> Callable:
         if _callback.manager is None:
             _callback.manager = CheckpointManager(directory, keep=keep,
                                                   config=model.config)
+        # with the integrity vote armed, a checkpoint written between votes
+        # could capture corruption born since the last one: vote before
+        # capturing, unless engine.train voted at this very iteration (the
+        # guard and the config are the same on every rank, so the exchange
+        # stays in lockstep)
+        integ = int(getattr(boosting.config, "integrity_check_period", 0)
+                    or 0)
+        if integ > 0 \
+                and getattr(boosting, "_integrity_checked_iter", None) \
+                != env.iteration:
+            from . import distributed
+            distributed.check_model_integrity(boosting, env.iteration)
         _callback.manager.save(model, env.iteration + 1)
     _callback.order = 40
     _callback.ckpt_period = period

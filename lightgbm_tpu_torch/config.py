@@ -787,6 +787,16 @@ _SLICE_PARAMS = frozenset({
     # network.py, parallel/)
     "top_k", "num_machines", "machines", "local_listen_port", "time_out",
     "machine_list_filename", "pre_partition",
+    # supervised, elastic distributed training: heartbeats and the
+    # collective watchdog, the supervisor's budgets (read by
+    # supervisor.train_supervised), sharded checkpoints, the integrity
+    # vote and the multi-process faults
+    "heartbeat_interval", "collective_deadline", "max_restarts",
+    "rank_restart_budget", "min_world_size", "checkpoint_shards",
+    "integrity_check_period", "fault_hang_at_iter",
+    "fault_kill_rank_at_iter", "fault_hang_rank_at_iter",
+    "fault_kill_in_shard_write", "fault_corrupt_shard",
+    "fault_flip_score_rank",
 })
 
 # ROADMAP.md "Queue 1" item that brings each group of parameters
@@ -798,17 +808,8 @@ for _names, _item in (
         (("boost_rounds_per_dispatch", "compile_cache_dir",
           "compile_warmup"),
          "Queue 1 item 13 (dispatch)"),
-        (("mesh_shape", "num_gpu", "heartbeat_interval",
-          "collective_deadline", "max_restarts", "rank_restart_budget",
-          "min_world_size", "construct_chunk_rows", "construct_streaming",
-          "sketch_max_size", "predict_sharded",
-          # sharded checkpoints, the integrity vote (a no-op in one
-          # process), the multi-process faults and the hang a watchdog
-          # answers
-          "checkpoint_shards", "integrity_check_period",
-          "fault_kill_rank_at_iter", "fault_hang_rank_at_iter",
-          "fault_kill_in_shard_write", "fault_corrupt_shard",
-          "fault_flip_score_rank", "fault_hang_at_iter"),
+        (("mesh_shape", "num_gpu", "construct_chunk_rows",
+          "construct_streaming", "sketch_max_size", "predict_sharded"),
          "Queue 1 item 15 (distributed)"),
         (("serve_flush_ms", "serve_max_batch_rows",
           "serve_max_queue_rows", "serve_deadline_ms", "serve_metrics",

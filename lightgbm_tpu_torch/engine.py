@@ -11,11 +11,17 @@ from ``init_model``, and cross-validation with stratified, shuffled or
 caller-given (group-aware) folds. The Booster takes the boosting type
 ``boosting`` names (``models/boosting.create_boosting``), and
 ``resume_from`` continues from the newest valid checkpoint of a
-``callback.checkpoint`` directory bit-identically (``checkpoint.py``),
-with the fault hooks of ``utils/faults.py`` (``fault_kill_at_iter``) at
-every iteration's start. The JAX package's K-block dispatch and
-``compile_warmup`` wait for ROADMAP.md Queue 1 item 13, its distributed
-supervision (heartbeats, watchdog, the integrity vote) for item 15.
+``callback.checkpoint`` directory bit-identically (``checkpoint.py``;
+a pre-partitioned gang resumes from sharded checkpoints, at the world
+size they were written at or another), with the fault hooks of
+``utils/faults.py`` (kill and hang, rank-targeted or not) at every
+iteration's start. Training runs under the distributed supervision of
+``distributed.start_health`` (heartbeats and the collective watchdog, by
+``heartbeat_interval`` and ``collective_deadline``), and a gang votes on
+its model state's integrity every ``integrity_check_period`` iterations,
+before the after-iteration callbacks, so no checkpoint is written from
+state the gang has voted corrupt. The JAX package's K-block dispatch and
+``compile_warmup`` wait for ROADMAP.md Queue 1 item 13.
 """
 
 from __future__ import annotations
@@ -189,29 +195,47 @@ def train(params: Dict[str, Any], train_set: Dataset,
             log.info(f"resumed from checkpoint {ckpt.path} at iteration "
                      f"{start_iter}")
 
+    from . import distributed, network
     from .utils import faults
     fault_plan = faults.plan_from(booster.config)
-    for i in range(start_iter, num_boost_round):
-        faults.maybe_kill(fault_plan, i)
-        for cb in cbs_before:
-            cb(CallbackEnv(model=booster, params=params, iteration=i,
-                           begin_iteration=0, end_iteration=num_boost_round,
-                           evaluation_result_list=None))
-        booster.update(fobj=fobj)
-        evaluation_result_list = []
-        if valid_sets or booster._boosting.config.is_provide_training_metric:
-            evaluation_result_list = booster.eval_set(feval)
-        try:
-            for cb in cbs_after:
+    # a dead or hung peer surfaces as the watchdog's diagnosis (or a
+    # supervised restart), never an endless collective wait
+    health = distributed.start_health(booster.config)
+    integ_period = int(booster.config.integrity_check_period or 0)
+    integ_on = integ_period > 0 and network.current().world > 1
+    boosting = booster._boosting
+    try:
+        for i in range(start_iter, num_boost_round):
+            faults.maybe_kill(fault_plan, i)
+            faults.maybe_hang(fault_plan, i)
+            for cb in cbs_before:
                 cb(CallbackEnv(model=booster, params=params, iteration=i,
                                begin_iteration=0,
                                end_iteration=num_boost_round,
-                               evaluation_result_list=evaluation_result_list))
-        except EarlyStopException as es:
-            booster.best_iteration = es.best_iteration + 1
-            for item in es.best_score:
-                booster.best_score.setdefault(item[0], {})[item[1]] = item[2]
-            break
+                               evaluation_result_list=None))
+            booster.update(fobj=fobj)
+            # the vote runs on every period boundary crossed, before the
+            # after-iteration callbacks (the checkpoint among them)
+            if integ_on and (i + 1) % integ_period == 0:
+                distributed.check_model_integrity(boosting, i)
+            evaluation_result_list = []
+            if valid_sets or boosting.config.is_provide_training_metric:
+                evaluation_result_list = booster.eval_set(feval)
+            try:
+                for cb in cbs_after:
+                    cb(CallbackEnv(model=booster, params=params,
+                                   iteration=i, begin_iteration=0,
+                                   end_iteration=num_boost_round,
+                                   evaluation_result_list=(
+                                       evaluation_result_list)))
+            except EarlyStopException as es:
+                booster.best_iteration = es.best_iteration + 1
+                for item in es.best_score:
+                    booster.best_score.setdefault(item[0], {})[item[1]] = \
+                        item[2]
+                break
+    finally:
+        health.stop()
     return booster
 
 

@@ -386,9 +386,11 @@ class GBDT:
                 and existing.net is net:
             return
         if net.world == 1:
+            # a gang of 1 runs no collective: its device is the Dataset's
+            # (a process that joined no gang trains on the card too)
             log.info(f"tree_learner={mode} with a single rank: running the "
                      f"distributed learner on a gang of 1")
-        if net.device.type != self.device.type:
+        elif net.device.type != self.device.type:
             log.fatal(f"tree_learner={mode}: the network's ranks hold "
                       f"{net.device} but the Dataset lives on {self.device}")
         self._parallel = ParallelGrower(mode, net)
@@ -822,6 +824,7 @@ class GBDT:
         booster one rung down (``_maybe_degrade_oom``) and retries the
         iteration, which is safe while the failed attempt added no tree."""
         from .. import distributed
+        from ..utils import faults
         it = self.iter
         distributed.notify_step_begin(it)
         try:
@@ -833,8 +836,18 @@ class GBDT:
                 except Exception as e:
                     if not self._maybe_degrade_oom(e, ntrees_before):
                         raise
+                    # the retry runs under a fresh clock, with the first
+                    # step's watchdog exemption
+                    distributed.notify_step_retry(it)
         finally:
             distributed.notify_step_end(it if self.iter > it else it - 1)
+        if self._fault_plan is not None:
+            # the silent-corruption fault: one score-cache bit flipped on
+            # one rank after the iteration completed
+            flipped = faults.maybe_flip_score(self._fault_plan, it,
+                                              self.train_score)
+            if flipped is not None:
+                self.train_score = flipped
         return stop
 
     def _train_one_iter_impl(self, grad=None, hess=None) -> bool:

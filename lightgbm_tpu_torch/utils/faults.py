@@ -15,9 +15,34 @@ config:
   LGBM_TPU_FAULT_KILL_AT_ITER=k       hard-exit (os._exit(137), no cleanup,
                                       like SIGKILL) at the start of 0-based
                                       boosting iteration k
+  LGBM_TPU_FAULT_HANG_AT_ITER=k       hang (an interruptible sleep loop,
+                                      forever) at the start of iteration k
+  LGBM_TPU_FAULT_KILL_RANK_AT_ITER=r:k   kill only rank r of the gang at
+                                      iteration k
+  LGBM_TPU_FAULT_HANG_RANK_AT_ITER=r:k   hang only rank r at iteration k
   LGBM_TPU_FAULT_KILL_IN_CKPT_WRITE=k hard-exit in the middle of the
                                       checkpoint write for iteration k
                                       (payload files written, manifest not)
+  LGBM_TPU_FAULT_KILL_IN_SHARD_WRITE=r:k  hard-exit rank r between writing
+                                      its score-cache shard and the shards'
+                                      metadata exchange of the sharded
+                                      checkpoint for iteration k (the
+                                      stale ckpt_N.tmp must stay harmless)
+  LGBM_TPU_FAULT_CORRUPT_SHARD=r      flip bytes in rank r's shard file of
+                                      every sharded checkpoint right after
+                                      it is published (the manifest stays,
+                                      so only the checksums catch it)
+  LGBM_TPU_FAULT_SPAWN_FAIL_RANK=r    make spawned child rank r exit with
+                                      SPAWN_FAIL_EXIT_CODE (96) before the
+                                      gang's init, the "machine cannot
+                                      start" shape the supervisor answers
+                                      with a shrink (environment only: it
+                                      fires before a config exists)
+  LGBM_TPU_FAULT_FLIP_SCORE_RANK=r:k  flip one bit of rank r's train-score
+                                      cache right after iteration k, the
+                                      silent corruption the integrity vote
+                                      (distributed.check_model_integrity)
+                                      must catch
   LGBM_TPU_FAULT_NAN_GRAD_AT_ITER=k   overwrite the first
                                       LGBM_TPU_FAULT_NAN_GRAD_COUNT (default
                                       8) gradient values with NaN at
@@ -43,11 +68,13 @@ config:
                                       the predict-chunk rung
                                       (_maybe_degrade_predict_oom)
 
-The multi-process faults (rank-targeted kills and hangs, the sharded
-checkpoint's, the score-bit flip) and the hang a watchdog answers come
-with ROADMAP Queue 1 item 15, the slow-predict fault with item 16: their
-parameters raise naming the item (``config.py``). With no fault armed the
-plan is ``None`` and every hook is one attribute check.
+The rank-targeted forms read the rank of the calling thread's or
+process's gang (``network.current()``), so the plan can be built before
+the gang is joined. The gang supervisor strips every
+``LGBM_TPU_FAULT_*`` variable from the incarnations it relaunches. The
+slow-predict fault comes with ROADMAP Queue 1 item 16: its parameter
+raises naming the item (``config.py``). With no fault armed the plan is
+``None`` and every hook is one attribute check.
 """
 
 from __future__ import annotations
@@ -55,8 +82,9 @@ from __future__ import annotations
 import os
 import sys
 import threading
+import time
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
 
 _KILL_EXIT_CODE = 137   # 128 + SIGKILL: what a preemption/oom kill reports
 
@@ -64,10 +92,16 @@ _KILL_EXIT_CODE = 137   # 128 + SIGKILL: what a preemption/oom kill reports
 @dataclass
 class FaultPlan:
     kill_at_iter: int = -1
+    hang_at_iter: int = -1
+    kill_rank_at_iter: Optional[Tuple[int, int]] = None   # (rank, iter)
+    hang_rank_at_iter: Optional[Tuple[int, int]] = None   # (rank, iter)
     kill_in_ckpt_write: int = -1
+    kill_in_shard_write: Optional[Tuple[int, int]] = None  # (rank, iter)
+    corrupt_shard: int = -1                               # rank
     nan_grad_at_iter: int = -1
     nan_grad_count: int = 8
     corrupt_checkpoint: bool = False
+    flip_score_rank: Optional[Tuple[int, int]] = None     # (rank, iter)
     nan_hist_at_iter: int = -1
     oom_at_iter: int = -1
     oom_count: int = 1            # consecutive simulated OOM raises left
@@ -82,6 +116,23 @@ def _env_int(name: str, default: int) -> int:
         return default
 
 
+def _env_rank_iter(name: str,
+                   default: str = "") -> Optional[Tuple[int, int]]:
+    """An "r:k" rank-targeted fault from the environment (else the
+    parameter's string); None when unset or malformed (a malformed value
+    must not kill rank 0)."""
+    v = os.environ.get(name, "") or str(default or "")
+    if not v:
+        return None
+    try:
+        r, _, k = v.partition(":")
+        return (int(r), int(k))
+    except ValueError:
+        sys.stderr.write(f"[faults] ignoring malformed {name}={v!r} "
+                         f"(want rank:iter)\n")
+        return None
+
+
 def plan_from(config=None) -> Optional[FaultPlan]:
     """The active fault plan from config fields overridden by the
     LGBM_TPU_FAULT_* environment; None when nothing is armed."""
@@ -90,11 +141,27 @@ def plan_from(config=None) -> Optional[FaultPlan]:
     plan = FaultPlan(
         kill_at_iter=_env_int("LGBM_TPU_FAULT_KILL_AT_ITER",
                               int(get("fault_kill_at_iter", -1))),
+        hang_at_iter=_env_int("LGBM_TPU_FAULT_HANG_AT_ITER",
+                              int(get("fault_hang_at_iter", -1))),
+        kill_rank_at_iter=_env_rank_iter(
+            "LGBM_TPU_FAULT_KILL_RANK_AT_ITER",
+            get("fault_kill_rank_at_iter", "")),
+        hang_rank_at_iter=_env_rank_iter(
+            "LGBM_TPU_FAULT_HANG_RANK_AT_ITER",
+            get("fault_hang_rank_at_iter", "")),
         kill_in_ckpt_write=_env_int("LGBM_TPU_FAULT_KILL_IN_CKPT_WRITE",
                                     int(get("fault_kill_in_ckpt_write", -1))),
+        kill_in_shard_write=_env_rank_iter(
+            "LGBM_TPU_FAULT_KILL_IN_SHARD_WRITE",
+            get("fault_kill_in_shard_write", "")),
+        corrupt_shard=_env_int("LGBM_TPU_FAULT_CORRUPT_SHARD",
+                               int(get("fault_corrupt_shard", -1))),
         nan_grad_at_iter=_env_int("LGBM_TPU_FAULT_NAN_GRAD_AT_ITER",
                                   int(get("fault_nan_grad_at_iter", -1))),
         nan_grad_count=_env_int("LGBM_TPU_FAULT_NAN_GRAD_COUNT", 8),
+        flip_score_rank=_env_rank_iter(
+            "LGBM_TPU_FAULT_FLIP_SCORE_RANK",
+            get("fault_flip_score_rank", "")),
         nan_hist_at_iter=_env_int("LGBM_TPU_FAULT_NAN_HIST_AT_ITER",
                                   int(get("fault_nan_hist_at_iter", -1))),
         oom_at_iter=_env_int("LGBM_TPU_FAULT_OOM_AT_ITER",
@@ -108,11 +175,22 @@ def plan_from(config=None) -> Optional[FaultPlan]:
             if "LGBM_TPU_FAULT_CORRUPT_CHECKPOINT" in os.environ
             else bool(get("fault_corrupt_checkpoint", False))),
     )
-    if (plan.kill_at_iter < 0 and plan.kill_in_ckpt_write < 0
+    if (plan.kill_at_iter < 0 and plan.hang_at_iter < 0
+            and plan.kill_rank_at_iter is None
+            and plan.hang_rank_at_iter is None
+            and plan.kill_in_ckpt_write < 0
+            and plan.kill_in_shard_write is None
+            and plan.corrupt_shard < 0
             and plan.nan_grad_at_iter < 0 and plan.nan_hist_at_iter < 0
+            and plan.flip_score_rank is None
             and plan.oom_at_iter < 0 and not plan.corrupt_checkpoint):
         return None
     return plan
+
+
+def _process_rank() -> int:
+    from .. import network
+    return network.current().rank
 
 
 def _hard_exit(context: str) -> None:
@@ -124,9 +202,36 @@ def _hard_exit(context: str) -> None:
 
 
 def maybe_kill(plan: Optional[FaultPlan], iteration: int) -> None:
-    """Hard-exit at the armed iteration."""
-    if plan is not None and plan.kill_at_iter == iteration:
+    """Hard-exit at the armed iteration (optionally rank-targeted)."""
+    if plan is None:
+        return
+    if plan.kill_at_iter == iteration:
         _hard_exit(f"at iteration {iteration}")
+    if plan.kill_rank_at_iter is not None \
+            and plan.kill_rank_at_iter[1] == iteration \
+            and plan.kill_rank_at_iter[0] == _process_rank():
+        _hard_exit(f"(rank {plan.kill_rank_at_iter[0]}) at iteration "
+                   f"{iteration}")
+
+
+def maybe_hang(plan: Optional[FaultPlan], iteration: int) -> None:
+    """Hang forever at the armed iteration (optionally rank-targeted) in
+    an interruptible short-sleep loop: it re-enters Python bytecode every
+    tick, so the watchdog's asynchronous DistributedTimeoutError lands and
+    a supervisor's SIGTERM still ends the process."""
+    if plan is None:
+        return
+    hang = plan.hang_at_iter == iteration
+    if not hang and plan.hang_rank_at_iter is not None \
+            and plan.hang_rank_at_iter[1] == iteration:
+        hang = plan.hang_rank_at_iter[0] == _process_rank()
+    if not hang:
+        return
+    sys.stderr.write(f"[faults] hanging rank {_process_rank()} at "
+                     f"iteration {iteration}\n")
+    sys.stderr.flush()
+    while True:
+        time.sleep(0.05)
 
 
 def maybe_kill_in_ckpt_write(plan: Optional[FaultPlan],
@@ -185,6 +290,74 @@ def maybe_corrupt_checkpoint(plan: Optional[FaultPlan], path: str) -> None:
     so only checksum validation can catch it)."""
     if plan is not None and plan.corrupt_checkpoint:
         corrupt_file(path)
+
+
+def maybe_kill_in_shard_write(plan: Optional[FaultPlan],
+                              iteration: int) -> None:
+    """Kill rank r between writing its score-cache shard into the staging
+    directory and the shards' metadata exchange: one participant of the
+    sharded write dies mid-protocol, the manifest never lands, and the
+    stale ``ckpt_N.tmp`` must be ignored by readers and removed by the
+    next write."""
+    if plan is None or plan.kill_in_shard_write is None:
+        return
+    if plan.kill_in_shard_write[1] == iteration \
+            and plan.kill_in_shard_write[0] == _process_rank():
+        _hard_exit(f"(rank {plan.kill_in_shard_write[0]}) inside sharded "
+                   f"checkpoint write for iteration {iteration}")
+
+
+def maybe_corrupt_shard(plan: Optional[FaultPlan], path: str,
+                        rank: int) -> None:
+    """Corrupt one rank's published shard file (the manifest stays): only
+    the shard's sha256 in MANIFEST.json can catch it, and the checkpoint
+    must then count as invalid."""
+    if plan is not None and plan.corrupt_shard == rank:
+        corrupt_file(path)
+
+
+def maybe_flip_score(plan: Optional[FaultPlan], iteration: int, score):
+    """Flip one bit (the lowest mantissa bit of element 0) of the armed
+    rank's train-score cache after iteration ``iteration`` completes: the
+    silent single-bit corruption the integrity vote must pin on exactly
+    this rank. Returns the corrupted score tensor (on the score's device),
+    or None when the fault is not armed for this rank and iteration.
+    Applied twice it restores the original bits."""
+    if plan is None or plan.flip_score_rank is None:
+        return None
+    if plan.flip_score_rank[1] != iteration \
+            or plan.flip_score_rank[0] != _process_rank():
+        return None
+    import numpy as np
+    import torch
+    arr = score.detach().cpu().numpy().astype(np.float32, copy=True)
+    flat = arr.reshape(-1).view(np.uint32)
+    flat[0] ^= np.uint32(1)
+    sys.stderr.write(f"[faults] flipping one score-cache bit on rank "
+                     f"{_process_rank()} after iteration {iteration}\n")
+    sys.stderr.flush()
+    return torch.from_numpy(arr).to(score.device)
+
+
+def maybe_fail_spawn(rank: int) -> None:
+    """The spawn-failure injection point, at the very top of a spawned
+    child (before the gang's init, so it reads the environment only):
+    exits with SPAWN_FAIL_EXIT_CODE, and the supervisor classifies the
+    rank permanently lost and shrinks the gang."""
+    v = os.environ.get("LGBM_TPU_FAULT_SPAWN_FAIL_RANK", "")
+    if not v:
+        return
+    try:
+        target = int(v)
+    except ValueError:
+        sys.stderr.write(f"[faults] ignoring malformed "
+                         f"LGBM_TPU_FAULT_SPAWN_FAIL_RANK={v!r}\n")
+        return
+    if target == rank:
+        from ..distributed import SPAWN_FAIL_EXIT_CODE
+        sys.stderr.write(f"[faults] failing spawn of rank {rank}\n")
+        sys.stderr.flush()
+        os._exit(SPAWN_FAIL_EXIT_CODE)
 
 
 class SimulatedResourceExhausted(RuntimeError):

@@ -433,13 +433,3 @@ def test_save_model_is_atomic(tmp_path):
     with open(path) as fh:
         assert fh.read() == b.model_to_string()
     assert os.listdir(tmp_path) == ["m.txt"]
-
-
-def test_sharded_paths_raise_naming_item_15(tmp_path):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
-        tckpt.repartition_checkpoint(str(tmp_path), 2, str(tmp_path / "x"))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
-        tckpt.load_shard(str(tmp_path), 0)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
-        lt.Config.from_params({"checkpoint_shards": False,
-                               "device_type": "cpu"})

@@ -74,11 +74,34 @@ def test_no_module_imports_jax_or_the_jax_package(path):
 
 
 def test_isolation_covers_the_distributed_modules():
-    """The import rule's cases include the collective layer and the
-    distributed learners."""
+    """The import rule's cases include the collective layer, the
+    distributed learners and the supervision layer."""
     names = {str(p.relative_to(PKG)) for p in PKG.rglob("*.py")}
     assert {"network.py", "distributed.py", "parallel/learners.py",
-            "parallel/data_parallel.py"} <= names
+            "parallel/data_parallel.py", "supervisor.py", "checkpoint.py",
+            "utils/faults.py", "utils/profiling.py"} <= names
+
+
+def test_supervisor_imports_no_jax_in_a_fresh_interpreter():
+    """The supervision layer (supervisor, watchdog, heartbeats, sharded
+    checkpoints, the integrity vote) loads without JAX."""
+    code = textwrap.dedent("""
+        import sys
+        import lightgbm_tpu_torch as lgb
+        from lightgbm_tpu_torch import checkpoint, distributed, supervisor
+        from lightgbm_tpu_torch.utils import faults, profiling
+        assert lgb.supervisor is supervisor
+        assert distributed.WATCHDOG_EXIT_CODE == 97
+        bad = sorted(m for m in sys.modules
+                     if m == "jax" or m.startswith(("jax.", "jaxlib"))
+                     or m == "lightgbm_tpu" or m.startswith("lightgbm_tpu."))
+        print("BAD", bad)
+        sys.exit(1 if bad else 0)
+    """)
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    res = subprocess.run([sys.executable, "-c", code], cwd=str(REPO),
+                         env=env, capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
 
 
 def test_default_device_without_cuda_raises(monkeypatch):
@@ -99,14 +122,14 @@ def test_default_device_without_cuda_raises(monkeypatch):
 @pytest.mark.parametrize("key,value", [
     ("histogram_method", "onehot_q8"),
     ("histogram_method", "scatter"),
-    ("checkpoint_shards", False),
+    ("construct_chunk_rows", 4096),
     ("serve_max_batch_rows", 512),
     ("construct_streaming", True),
-    ("fault_kill_rank_at_iter", "0:3"),
-    ("heartbeat_interval", 1.0),
+    ("num_gpu", 2),
+    ("sketch_max_size", 256),
     ("predict_sharded", True),
     ("serve_flush_ms", 5.0),
-    ("min_world_size", 2),
+    ("telemetry_ring_size", 64),
     ("telemetry_dir", "telemetry"),
     ("boost_rounds_per_dispatch", 4),
     ("fault_slow_predict_ms", 50.0),
@@ -122,7 +145,7 @@ def test_unported_parameter_raises(key, value):
 @pytest.mark.parametrize("key,value,item", [
     ("predict_sharded", True, "Queue 1 item 15"),
     ("serve_max_batch_rows", 512, "Queue 1 item 16"),
-    ("fault_corrupt_shard", 0, "Queue 1 item 15"),
+    ("construct_chunk_rows", 4096, "Queue 1 item 15"),
 ])
 def test_unported_parameter_names_its_item(key, value, item):
     with pytest.raises(NotImplementedError, match=item):

@@ -275,19 +275,48 @@ def test_refusals_carry_the_jax_messages(extra, learner, tmp_path):
     assert "tree_learner" in msgs[1] or "Unknown tree learner" in msgs[1]
 
 
+def test_a_gang_of_one_trains_on_the_datasets_device():
+    """A process in no gang (a world of 1) trains a distributed learner on
+    its Dataset's device whatever its network's device: a gang of 1 runs
+    no collective (a single-card run of tree_learner=data was refused)."""
+    X, y, params, _ = gc.case("data_binary")
+    params = dict(params, device_type="cpu")
+
+    def run():
+        return lt.train(params, lt.Dataset(X, label=y, params=dict(params)),
+                        2).model_to_string()
+
+    alone = run()
+    with network.bind(network.Network(None, 0, 1, device="meta")):
+        assert run() == alone
+
+
 @pytest.mark.parametrize("key,value", [
-    ("heartbeat_interval", 1.0), ("collective_deadline", 30.0),
-    ("max_restarts", 0), ("rank_restart_budget", 3), ("min_world_size", 2),
-    ("integrity_check_period", 5), ("construct_streaming", True),
-    ("construct_chunk_rows", 1024), ("sketch_max_size", 128),
-    ("predict_sharded", True), ("mesh_shape", {"data": 2}),
-    ("num_gpu", 2), ("checkpoint_shards", False)])
+    ("construct_streaming", True), ("construct_chunk_rows", 1024),
+    ("sketch_max_size", 128), ("predict_sharded", True),
+    ("mesh_shape", {"data": 2}), ("num_gpu", 2)])
 def test_the_rest_of_item_15_raises(key, value):
     with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
         lt.Config.from_params({key: value, "device_type": "cpu"})
 
 
+@pytest.mark.parametrize("key,value", [
+    ("heartbeat_interval", 1.0), ("collective_deadline", 30.0),
+    ("max_restarts", 0), ("rank_restart_budget", 3), ("min_world_size", 2),
+    ("integrity_check_period", 5), ("checkpoint_shards", False),
+    ("fault_hang_at_iter", 3), ("fault_kill_rank_at_iter", "1:3"),
+    ("fault_hang_rank_at_iter", "1:3"), ("fault_kill_in_shard_write", "0:2"),
+    ("fault_corrupt_shard", 1), ("fault_flip_score_rank", "1:2")])
+def test_supervision_parameters_are_accepted(key, value):
+    """Item 15's supervision, elasticity and integrity parameters
+    configure the port."""
+    cfg = lt.Config.from_params({key: value, "device_type": "cpu"})
+    assert getattr(cfg, key) == value
+
+
 def test_streaming_and_sharded_checkpoints_raise(tmp_path):
+    """The streaming construct still raises naming item 15; a gang over
+    replicated rows now checkpoints, from rank 0 alone."""
     with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
         lt.Dataset.from_chunks([])
     with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
@@ -297,12 +326,14 @@ def test_streaming_and_sharded_checkpoints_raise(tmp_path):
 
     def body(net):
         ds = lt.Dataset(X, label=y, params=dict(params))
-        with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
-            lt.train(params, ds, 2, callbacks=[lt.checkpoint_callback(
-                str(tmp_path / f"r{net.rank}"))])
+        lt.train(params, ds, 2, callbacks=[lt.checkpoint_callback(
+            str(tmp_path / f"r{net.rank}"))])
         return True
 
     assert network.thread_gang(2, body) == [True, True]
+    assert sorted(os.listdir(tmp_path / "r0")) == ["ckpt_00000001",
+                                                  "ckpt_00000002"]
+    assert not (tmp_path / "r1").exists()
 
 
 def test_train_distributed_refuses_serial():
