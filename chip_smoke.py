@@ -4,7 +4,7 @@ hand-written kernel against its plain PyTorch version.
     python3 chip_smoke.py [--seed 0] [--rows 2000000] [--valid-rows 200000]
                           [--rounds 5] [--parent DIR]
                           [--only precision|control|predict|faults|
-                                  distributed|resilience]
+                                  distributed|resilience|redesign]
 
 Phases, in order, each printing one JSON line (any failure raises and the
 script exits non-zero; nothing is caught):
@@ -123,9 +123,10 @@ queries):
   lambdarank_grads the pairwise lambda kernel (csrc/lambdarank.cu) at
                   train_rank's query layout and labels (scores N(0, 1)) and
                   at edge layouts (1-document queries, a query longer than
-                  a block's threads, all-tied scores, labels all 0,
-                  truncation 3 and above n, no normalisation with sigmoid
-                  2): bitwise its plain version in the kernel's order
+                  a block's threads, one longer than the kernel's partner
+                  tile, all-tied scores, labels all 0, truncation 3 and
+                  above n, no normalisation with sigmoid 2): bitwise its
+                  plain version in the kernel's order
                   (lambdarank_grads_exact) and a second launch; within
                   1e-5 of the largest magnitude of the JAX-order plain
                   version (lambdarank_grads_plain, chunked on the card);
@@ -144,7 +145,7 @@ queries):
   train_rank_xendcg the same with rank_xendcg (no kernel of its own; its
                   host gamma draw timed)
   parity_rank     lambdarank f32, q8, rank_xendcg, and lambdarank with
-                  weights, an init_score and a custom label_gain, at 25,000
+                  weights, an init_score and a custom label_gain, at 12,500
                   documents, 63 leaves, 1 round: two card runs and the CPU
                   run in the kernels' orders (kernel_sums_on_cpu) give the
                   same model text; against the CPU's JAX-order run, equal
@@ -181,7 +182,7 @@ extra_trees, by-node sampling), on train's 2M Higgs-shaped rows:
                   feature_fraction_bynode 0.5; 1 round each
   parity_constraints basic f32 and q8, intermediate, advanced,
                   monotone_penalty 2, interactions, feature_contri
-                  (positive, and with a 0), extra_trees, bynode at 25,000
+                  (positive, and with a 0), extra_trees, bynode at 12,500
                   rows, 63 leaves, 1 round: two card runs and the CPU run
                   in the kernels' orders give the same text; against the
                   CPU's plain run, equal text or the first differing tree
@@ -226,7 +227,7 @@ splits, CEGB):
   parity_data     wide fused f32, q8, classic, monotone f32 and q8, a
                   400-category feature at max_bin 511, EFB on CSR, CSR
                   unbundled, forced bins, max_bin_by_feature, forced
-                  splits, CEGB split, coupled and lazy, at 25,000 rows, 63
+                  splits, CEGB split, coupled and lazy, at 12,500 rows, 63
                   leaves, 1 round: as parity_constraints
 
 The precision modes (gpu_use_dp: the plane-only forms' f64 mode;
@@ -313,8 +314,13 @@ and prediction and the user surface (after parity_control):
                   ms (events), device ms, plain ms, bound (the bins, the
                   tables and the result over 3.35 TB/s, against the node
                   visits of this run's leaves x OPS_PER_VISIT over 67
-                  T/s); then int16 bins (max_bin 1,023, 3 rounds) and a
-                  categorical Expo-shaped model (50,000 rows)
+                  T/s); then int16 bins (max_bin 1,023, 3 rounds), a
+                  categorical Expo-shaped model (50,000 rows), the K = 7
+                  Covertype-shaped model, random 1,023-leaf trees, the
+                  200k rows inside 2,000 columns and 4,095-leaf trees on
+                  EFB segments, each case checked in the geometry
+                  launch_geometry gives its shape (tiled or global; only
+                  the tiled 2M, 200k and int16 cases timed)
   predict         Booster.predict of that model on the 2M and the 200k raw
                   rows: seconds, split into the host's input checks,
                   binning on the card, the kernel, the conversion and the
@@ -327,7 +333,7 @@ and prediction and the user surface (after parity_control):
                   K = 7 Covertype-shaped model (50,000 rows, 3 rounds)
                   the same; score_dataset of 20,000 valid rows, with the
                   trees' biases, bitwise the plain version on the CPU
-  predict_contrib TreeSHAP of that model over 20,000 valid rows on the
+  predict_contrib TreeSHAP of that model over 10,000 valid rows on the
                   card: seconds (host decisions, device DP), peak device
                   memory; within rtol 1e-9 / atol 1e-11 of the CPU's on
                   200 rows, each row summing to its raw score within
@@ -366,7 +372,7 @@ kernels 1-4 and predict_ensemble, counted by path):
                   fall back to the last clean one; each resumed to the same
                   text
   train_blocked   an Epsilon-shaped table (docs/GPU-Performance.rst: dense
-                  binary, 2,000 float features; 400,000 + 100,000 valid rows
+                  binary, 2,000 float features; 100,000 + 25,000 valid rows
                   made from --seed), 255 leaves, 3 rounds: the blocked pass
                   under histogram_pool_size=256 (569 columns a block, 4
                   blocks), twice, against the resident run on the classic
@@ -412,10 +418,10 @@ collectives go through host memory over gloo):
                   ms, device ms, plain ms, the bound (bytes) and one
                   index_add_ of int64 (the library call)
   train_serial_classic  train's rows on the classic path (split_fusion
-                  off), 3 rounds: the AUC reference
+                  off), 2 rounds: the AUC reference
   train_data_parallel, train_feature_parallel, train_voting_parallel
                   each learner on train's 2M + 200k Higgs-shaped rows at
-                  255 leaves, 3 rounds, twice, every rank holding all rows:
+                  255 leaves, 2 rounds, twice, every rank holding all rows:
                   the backend, sec/iter, device busy an iteration (one
                   profiled iteration per rank), the collectives' seconds,
                   bytes and calls an iteration, valid AUC within 0.01 of
@@ -470,6 +476,12 @@ With ``--only resilience`` the script runs device, build,
 hist_int_planes and this group alone, and prints the two integer-planes
 kernel entries with the group's launches by path.
 
+With ``--only redesign`` the script runs device and build, and with
+``--parent DIR`` the predict_ensemble and lambdarank_grads probes on DIR's
+package and on this one (parent, this, this, parent), around the
+predict_ensemble, predict, lambdarank_grads and train_rank phases; it
+prints the two kernels' entries.
+
 and kernel 5, the experiment script's one-hot histogram:
 
   hist_variants   python -m lightgbm_tpu_torch.scripts.exp_hist_variants at
@@ -491,7 +503,12 @@ subprocess runs this script's hist_tile phases, and the split epilogue's
 and kernel 5's probes (``redesign_probes``), on DIR's package, same
 inputs and checks, before the first phase and after the last
 (``parent_times``); the ``kernels`` line carries those times as
-``parent_ms``: two designs timed in one run; the probe also trains the
+``parent_ms``: two designs timed in one run; the predict_ensemble and
+lambdarank_grads probes (the predict group's model over train's 2M rows,
+float64 and leaves; train_rank's layout, the wrapper and the kernel)
+read inputs this run saves (``probe_inputs``) and run on both packages,
+parent, this, this, parent (``probes`` in their entries); the probe
+also trains the
 parity phases' models once on the card with DIR's package, and each of
 parity, parity_sparse, parity_q8 and parity_q8_cat must give the same
 model text (sha256). The epilogue entries also
@@ -973,11 +990,15 @@ if "amax" not in inspect.signature(cuda_hist.hist_tile).parameters:
     hist_tile.__dict__.update(cuda_hist.hist_tile.__dict__)  # its counters
     cuda_hist.hist_tile = hist_tile
 cuda_hist.build_kernels()
-times = cs._times(cs.kernel_phases(
-    cuda_hist, int(sys.argv[3]), int(sys.argv[4]), int(sys.argv[5])))
-times.update(cs.redesign_probes(cuda_hist, int(sys.argv[5])))
-import lightgbm_tpu_torch as lgb
-times["parity_sha256"] = cs.parity_text_hashes(lgb, int(sys.argv[5]))
+seed, what, inputs = int(sys.argv[5]), sys.argv[6], sys.argv[7] or None
+if what == "all":
+    times = cs._times(cs.kernel_phases(
+        cuda_hist, int(sys.argv[3]), int(sys.argv[4]), seed))
+    times.update(cs.redesign_probes(cuda_hist, seed, inputs))
+    import lightgbm_tpu_torch as lgb
+    times["parity_sha256"] = cs.parity_text_hashes(lgb, seed)
+else:
+    times = cs.redesign_probes(cuda_hist, seed, inputs, cs.SECOND_PASS)
 print(json.dumps(times))
 """
 
@@ -985,48 +1006,140 @@ print(json.dumps(times))
 VARIANTS = ("2x2048", "4x2048", "4x1024", "7x1024")   # the script's default
 
 
-def redesign_probes(cuda_hist, seed: int = 0):
-    """The two kernels that this script's split_epilogue* and
-    hist_variants phases check, timed on any checkout's package at the
-    main path's shapes: per form [event ms, device ms] --
+SECOND_PASS = ("predict_ensemble", "lambdarank_grads")
+PROBES = ("split_epilogue", "hist_onehot") + SECOND_PASS
+
+
+def probe_inputs(lgb, args, path: str) -> None:
+    """The predict_ensemble and lambdarank_grads probes' inputs, made with
+    this run's package and saved to ``path`` so that another checkout's
+    probe reads the same ones: the predict group's model (its stacked
+    trees and depth), the bins of train's rows and their missing bins;
+    train_rank's labels and query sizes."""
+    (b, X, _), _ = predict_group_model(lgb, args)
+    g = b._boosting
+    tables = g._predict_engine().tables
+    train = rank_datasets(lgb, args.seed)[0]
+    torch.save({"stacked": [x.cpu() for x in tables.stacked],
+                "depth": tables.depth,
+                "binsT": g.train_set.bin_new_data(X).cpu(),
+                "missing_bin": g.train_set.missing_bin.cpu(),
+                "label": np.asarray(train.get_label()),
+                "group": np.asarray(train.get_group())}, path)
+
+
+def redesign_probes(cuda_hist, seed: int = 0, inputs: str = None,
+                    kernels=PROBES):
+    """The redesigned kernels timed on any checkout's package at the main
+    path's shapes: per form [event ms, device ms] --
     ``split_epilogue`` and ``split_epilogue_q8`` (P=42, F=28, B=255, device
     ms a launch over EPI_LAUNCHES, each on a cold L2) and
     ``hist_onehot/<variant>`` at the experiment script's defaults (2M rows,
-    28 features, 255 bins, its data)."""
-    from lightgbm_tpu_torch.scripts import exp_hist_variants as ev
+    28 features, 255 bins, its data); with ``inputs`` (``probe_inputs``'
+    file), ``predict_ensemble/float64`` and ``/leaves`` (the predict
+    group's 100 trees over train's 2M rows; ``/sha256`` of both outputs'
+    bytes), ``lambdarank_grads/wrapper`` (train_rank's layout and labels,
+    scores N(0, 1) from ``seed``) and ``lambdarank_grads/kernel`` (the
+    wrapper profile's kernel alone, device ms)."""
     out = {}
-    for q8 in (False, True):
-        args = epilogue_inputs(cuda_hist, seed, q8)
-        out["split_epilogue" + ("_q8" if q8 else "")] = [
-            time_ms(lambda: cuda_hist.split_epilogue(*args)),
-            epilogue_device_ms(cuda_hist, args)]
-    binsT, rhs = ev.make_data(2_000_000, F, B, torch.device("cuda"))
-    for spec in VARIANTS:
-        fg, blk = (int(x) for x in spec.split("x"))
-        bp, rp = ev.pad_rows(binsT, rhs, blk)
-        call = lambda: cuda_hist.hist_onehot(bp, rp, B, fg, blk)
-        out[f"hist_onehot/{spec}"] = [
-            time_ms(call, reps=5, warm=1),
-            device_ms(call, reps=5, need="hist_onehot_kernel")[0]]
-        del bp, rp
-    del binsT, rhs
+    if "split_epilogue" in kernels:
+        for q8 in (False, True):
+            args = epilogue_inputs(cuda_hist, seed, q8)
+            out["split_epilogue" + ("_q8" if q8 else "")] = [
+                time_ms(lambda: cuda_hist.split_epilogue(*args)),
+                epilogue_device_ms(cuda_hist, args)]
+    if "hist_onehot" in kernels:
+        from lightgbm_tpu_torch.scripts import exp_hist_variants as ev
+        binsT, rhs = ev.make_data(2_000_000, F, B, torch.device("cuda"))
+        for spec in VARIANTS:
+            fg, blk = (int(x) for x in spec.split("x"))
+            bp, rp = ev.pad_rows(binsT, rhs, blk)
+            call = lambda: cuda_hist.hist_onehot(bp, rp, B, fg, blk)
+            out[f"hist_onehot/{spec}"] = [
+                time_ms(call, reps=5, warm=1),
+                device_ms(call, reps=5, need="hist_onehot_kernel")[0]]
+            del bp, rp
+        del binsT, rhs
+    saved = None if inputs is None else torch.load(inputs,
+                                                   weights_only=False)
+    if saved is not None and "predict_ensemble" in kernels:
+        from lightgbm_tpu_torch.models.tree import TreeArrays
+        from lightgbm_tpu_torch.ops import predict as P
+        tables = P.pack_ensemble(TreeArrays(*saved["stacked"]),
+                                 saved["depth"], "cuda")
+        binsT = saved["binsT"].cuda()
+        mb = saved["missing_bin"].cuda()
+        t = int(tables.nodes.shape[0])
+        for key, kw in (("float64", {}), ("leaves", {"leaves": True})):
+            def call():
+                return P.predict_ensemble(tables, binsT, mb, (0, t), 1, **kw)
+            res = call()
+            out[f"predict_ensemble/{key}"] = [
+                time_ms(call), device_ms(call, need="predict_ensemble")[0]]
+            out[f"predict_ensemble/{key}/sha256"] = hashlib.sha256(
+                res.cpu().numpy().tobytes()).hexdigest()
+            del res
+        del tables, binsT, mb
+    if saved is not None and "lambdarank_grads" in kernels:
+        from lightgbm_tpu_torch import ranking
+        from lightgbm_tpu_torch.config import Config
+        from lightgbm_tpu_torch.ops import rank
+        obj = ranking.create_ranking_objective(
+            Config.from_params(dict(RANK_PARAMS, device_type="cuda")))
+        obj.init(saved["label"], None, saved["group"], device="cuda")
+        g = torch.Generator(device="cuda").manual_seed(seed + 43)
+        score = torch.randn(len(saved["label"]), generator=g, device="cuda")
+        args = (score, obj.label, obj.gain, obj.inv_max_dcg, obj.layout,
+                obj.sigmoid, obj.truncation_level, obj.norm)
+
+        def call():
+            return rank.lambdarank_grads(*args)
+        dev, split = device_ms(call)
+        out["lambdarank_grads/wrapper"] = [time_ms(call), dev]
+        out["lambdarank_grads/kernel"] = split.get("lambdarank_kernel",
+                                                   "not measured")
     torch.cuda.empty_cache()
     return out
 
 
-def parent_times(parent_dir: str, n: int, valid_rows: int, seed: int):
-    """The other checkout's hist_tile forms, split epilogue and kernel 5
-    timed by this script's phases: per form, [event ms, device ms]."""
+def parent_times(parent_dir: str, n: int, valid_rows: int, seed: int,
+                 what: str = "all", inputs: str = None):
+    """The other checkout's kernels timed by this script's phases: per
+    form, [event ms, device ms]. ``what``: "all" (the hist_tile forms,
+    every probe of ``redesign_probes`` and the parity texts' hashes) or
+    "second_pass" (the predict_ensemble and lambdarank_grads probes)."""
     res = subprocess.run([sys.executable, "-c", PARENT_PROBE,
                           os.path.abspath(parent_dir),
                           os.path.abspath(__file__), str(n),
-                          str(valid_rows), str(seed)],
+                          str(valid_rows), str(seed), what, inputs or ""],
                          cwd=parent_dir, capture_output=True, text=True,
                          timeout=900)
     if res.returncode != 0:
         raise RuntimeError(f"the probe of {parent_dir} failed:\n"
                            f"{res.stderr[-6000:]}")
     return json.loads(res.stdout.strip().splitlines()[-1])
+
+
+def attach_probes(entries, own, parent):
+    """Each second-pass entry's probe times (``probes``: per form, this
+    run's and the other checkout's in the order taken), after checking
+    that every predict probe gave the same bits."""
+    runs = own + parent
+    for key in ("predict_ensemble/float64/sha256",
+                "predict_ensemble/leaves/sha256"):
+        if len({r[key] for r in runs}) != 1:
+            raise AssertionError(f"the probes' {key} differ between "
+                                 f"checkouts or calls")
+    for entry in entries:
+        forms = {"predict_ensemble": ("predict_ensemble/float64",
+                                      "predict_ensemble/leaves"),
+                 "lambdarank_grads": ("lambdarank_grads/wrapper",
+                                      "lambdarank_grads/kernel")}.get(
+                                          entry["name"], ())
+        if forms:
+            entry["probes"] = {f: {"change": [r[f] for r in own],
+                                   "parent": [r[f] for r in parent]}
+                               for f in forms}
 
 
 EPI_LAUNCHES = 50    # epilogue launches in one profile, each on a cold L2
@@ -2063,6 +2176,10 @@ RANK_LAYOUTS = {
     "labels_all_0": ([3, 7, 40], "zero_labels", {}),
     "no_norm_sigmoid2": ([5, 64, 130], "random",
                          {"lambdarank_norm": False, "sigmoid": 2.0}),
+    # a query past the kernel's partner tile of 256 documents (its top
+    # walks tile through, its other documents read partners from global
+    # memory) and past 32 x trunc
+    "longer_than_tile": ([2100, 1, 7, 40, 1251], "random", {}),
 }
 
 
@@ -2121,9 +2238,9 @@ def rank_kernel_case(cuda_hist, obj, score, timed=False):
         out["device_ms"], out["device_split"] = device_ms(
             lambda: rank.lambdarank_grads(*args))
         out["plain_ms"] = time_ms(lambda: rank.lambdarank_grads_plain(*args),
-                                  reps=3, warm=1)
+                                  reps=1, warm=0)
         out["exact_ms"] = time_ms(lambda: rank.lambdarank_grads_exact(*args),
-                                  reps=3, warm=1)
+                                  reps=1, warm=0)
         pairs = admitted_pairs(obj, score)
         n, q = obj.layout.num_data, obj.layout.num_queries
         # least traffic: score, label, gain in, lambda and hessian out, the
@@ -2164,6 +2281,28 @@ def rank_kernel_phase(lgb, cuda_hist, args):
         out[name] = rank_kernel_case(cuda_hist, o,
                                      torch.from_numpy(sc).cuda())
     return out
+
+
+def rank_entry(rk, launches):
+    """The kernels line's entry of lambdarank_grads: train_rank's layout's
+    numbers (the wrapper's ms and device ms, the kernel's device ms),
+    ``launches`` the train_rank run's counts."""
+    main = rk["train_rank_layout"]
+    return {
+        "name": "lambdarank_grads", "route": "cuda",
+        "source": "lightgbm_tpu_torch/csrc/lambdarank.cu",
+        "replaces": "none, a port-only kernel: lightgbm_tpu/ranking.py:158 "
+                    "LambdarankNDCG._padded_grads + :111 _scatter_grads "
+                    "are plain jnp (no pallas_call)",
+        "launches": launches["lambdarank_grads.launches"],
+        "max_abs_err": max(v["max_abs_err_vs_plain"] for v in rk.values()),
+        "tolerance_of_plain_scale": RANK_TOL,
+        "ms": main["ms"], "device_ms": main["device_ms"],
+        "kernel_device_ms": main["device_split"].get("lambdarank_kernel",
+                                                     "not measured"),
+        **{k: main[k] for k in ("plain_ms", "exact_ms", "bound_ms",
+                                "bound_by", "pairs_admitted")},
+        "library_ms": None}
 
 
 def hist_rank_phase(lgb, cuda_hist, args):
@@ -2314,9 +2453,10 @@ def train_rank_phase(lgb, cuda_hist, args, objective="lambdarank"):
 # near 800 s (their CPU runs are the costly part; the weighted run's
 # init_score still starts its tree from a ranked score)
 PARITY_RANK_ROUNDS = 1
-# parity_rank's documents: half of PARITY_ROWS since the resilience group
-# came in (the CPU runs are the costly part)
-PARITY_RANK_ROWS = 25_000
+# parity_rank's documents: a quarter of PARITY_ROWS, to keep the whole
+# script well inside its limit on a slower host (the CPU runs are the
+# costly part)
+PARITY_RANK_ROWS = 12_500
 PARITY_RANK = {
     "lambdarank": ({}, False),
     "lambdarank_q8": ({"quantized_grad": True}, False),
@@ -2938,12 +3078,13 @@ def parity_texts(lgb, name, setup, q8, rounds: int = PARITY_ROUNDS):
 # layer's phases came in and to 1 with the precision modes' (the exact
 # modes' CPU runs are the costly part)
 PARITY_CONSTRAINTS_ROUNDS = 1
-# and its rows: half of PARITY_ROWS since the resilience group came in
-PARITY_CONSTRAINTS_ROWS = 25_000
+# and its rows: a quarter of PARITY_ROWS, to keep the whole script well
+# inside its limit on a slower host
+PARITY_CONSTRAINTS_ROWS = 12_500
 
 
 def parity_constraints_phase(lgb, seed):
-    """Each constrained run at 25,000 Higgs-shaped rows, 63 leaves,
+    """Each constrained run at 12,500 Higgs-shaped rows, 63 leaves,
     PARITY_CONSTRAINTS_ROUNDS rounds (parity_texts)."""
     X, y = higgs_like(PARITY_CONSTRAINTS_ROWS, seed + 29)
     out = {"rows": PARITY_CONSTRAINTS_ROWS, "num_leaves": 63,
@@ -3323,9 +3464,9 @@ def train_forced_cegb_phase(lgb, cuda_hist, args):
     return out
 
 
-# parity_data's rows: half of PARITY_ROWS since the resilience group came
-# in (its CPU runs are the costly part)
-PARITY_DATA_ROWS = 25_000
+# parity_data's rows: a quarter of PARITY_ROWS, to keep the whole script
+# well inside its limit on a slower host (its CPU runs are the costly part)
+PARITY_DATA_ROWS = 12_500
 # parity_data's rounds: 1, cut from PARITY_ROUNDS when the precision modes'
 # phases came in (its CPU runs are the costly part)
 PARITY_DATA_ROUNDS = 1
@@ -3375,7 +3516,7 @@ def parity_data_setups(seed: int, tmp: str):
 
 
 def parity_data_phase(lgb, seed):
-    """Each data-layer run at 25,000 rows, 63 leaves, PARITY_DATA_ROUNDS
+    """Each data-layer run at 12,500 rows, 63 leaves, PARITY_DATA_ROUNDS
     rounds (parity_texts: two card runs and the CPU run in the kernels'
     orders equal; q8 also the CPU's plain run; f32 against it equal or the
     first divergent tree named), with the first card run's launches."""
@@ -4185,7 +4326,7 @@ PREDICT_WIDE_ROUNDS = 3       # max_bin 1,023 (int16 bins)
 PREDICT_CAT_ROWS = 50_000     # the Expo-shaped categorical model's rows
 PREDICT_MC_ROWS = 50_000      # the Covertype-shaped K = 7 model's rows
 PREDICT_MC_ROUNDS = 3
-CONTRIB_ROWS = 20_000         # TreeSHAP rows on the card
+CONTRIB_ROWS = 10_000         # TreeSHAP rows on the card
 CONTRIB_CPU_ROWS = 200        # of them, also run on the CPU (float64 DP)
 CONTRIB_AGAIN_ROWS = 2_000    # of them, run twice on the card (same bits)
 CLI_ROWS = 50_000             # the CLI's and the sklearn estimator's rows
@@ -4211,15 +4352,27 @@ def _cpu_tables(P, tables):
                             tables.depth)
 
 
-def ensemble_case(P, tables, binsT, mb, k, seed, timed=False):
+def ensemble_case(P, tables, binsT, mb, k, seed, timed=False, mode=None):
     """``predict_ensemble`` on one bin matrix against its plain version on
     the same card tensors, in each accumulation mode without and with the
     biases and with an active mask of half the rows, and in leaves mode:
-    bitwise, and a second launch equal. ``timed``: the float64 mode's ms
-    (events), device ms (profiler), plain ms and bound."""
+    bitwise, and a second launch equal; every launch in the geometry
+    ``mode`` (``P.launch_geometry``'s choice for the shape). ``timed``: the
+    float64 mode's ms (events), device ms (profiler), plain ms and
+    bound."""
+    from lightgbm_tpu_torch.ops import cuda_hist
     dev = binsT.device
     n = binsT.shape[1]
     t = int(tables.nodes.shape[0])
+    geo = P.launch_geometry(
+        n, binsT.shape[0], binsT.element_size(), int(tables.nodes.shape[1]),
+        int(tables.stacked.leaf_value.shape[1]), tables.has_cat,
+        tables.has_seg,
+        torch.cuda.get_device_properties(dev).multi_processor_count)
+    if mode is not None and geo.mode != mode:
+        raise AssertionError(f"predict_ensemble at {tuple(binsT.shape)}: "
+                             f"geometry {geo.mode}, expected {mode}")
+    cuda_hist.reset_launch_counts()
     rng = np.random.RandomState(seed)
     bias = torch.as_tensor(rng.randn(t) * 0.01, dtype=torch.float64,
                            device=dev)
@@ -4247,16 +4400,32 @@ def ensemble_case(P, tables, binsT, mb, k, seed, timed=False):
         raise AssertionError(f"predict_ensemble leaves at {n} rows differ "
                              f"from the plain version")
     visits = P.node_visits(tables, leaves, (0, t))
-    out = {"rows": n, "trees": t, "k": k, "bins": str(binsT.dtype),
-           "depth": tables.depth, "cases_bitwise": cases + 1,
-           "node_visits": visits}
+    counts = cuda_hist.launch_counts()
+    launched = {m: counts[f"predict_ensemble_geometry.launches_{m}"]
+                for m in P.GEOMETRY_MODES}
+    if launched[geo.mode] != 2 * (cases + 1) or sum(launched.values()) != \
+            launched[geo.mode]:
+        raise AssertionError(f"predict_ensemble's geometry launches "
+                             f"{launched}, expected {2 * (cases + 1)} in "
+                             f"{geo.mode}")
+    out = {"rows": n, "columns": int(binsT.shape[0]), "trees": t, "k": k,
+           "bins": str(binsT.dtype), "depth": tables.depth,
+           "leaves_cap": int(tables.stacked.leaf_value.shape[1]),
+           "cases_bitwise": cases + 1, "node_visits": visits,
+           "geometry": {"mode": geo.mode, "threads": geo.threads,
+                        "rows_a_tile": geo.rows, "chunk_trees":
+                        geo.chunk_trees, "stage_bytes": geo.stage.bytes,
+                        "smem": geo.smem, "blocks": geo.blocks}}
     if timed:
         def run():
             P.predict_ensemble(tables, binsT, mb, (0, t), k)
         out["ms"] = time_ms(run)
         out["device_ms"] = device_ms(run, need="predict_ensemble")[0]
-        out["leaves_ms"] = time_ms(lambda: P.predict_ensemble(
-            tables, binsT, mb, (0, t), k, leaves=True))
+        def run_leaves():
+            P.predict_ensemble(tables, binsT, mb, (0, t), k, leaves=True)
+        out["leaves_ms"] = time_ms(run_leaves)
+        out["leaves_device_ms"] = device_ms(run_leaves,
+                                            need="predict_ensemble")[0]
         out["plain_ms"] = time_ms(lambda: P.predict_ensemble_plain(
             tables, binsT, mb, (0, t), k, None, None,
             P.new_carry(n, k, "float64", dev), "float64"), reps=3, warm=0)
@@ -4279,10 +4448,103 @@ def predict_model(lgb, args, X, y, rounds=PREDICT_ROUNDS, **extra):
     return booster, time.time() - t0
 
 
+def random_trees(count: int, leaves: int, f: int, b: int, seed: int,
+                 segments: bool = False):
+    """``count`` random unbalanced trees of ``leaves`` leaves over ``f``
+    columns of ``b`` bins (a leaf drawn at random splits next, on a random
+    column and threshold, default directions at random; with ``segments``
+    a third of the nodes on EFB bundle segments), stacked as the port's
+    TreeArrays: ensembles past what the train phases grow."""
+    from lightgbm_tpu_torch.models.tree import empty_tree, stack_trees
+    rng = np.random.RandomState(seed)
+    trees = []
+    for _ in range(count):
+        li = leaves - 1
+        left = np.zeros(li, np.int32)
+        right = np.zeros(li, np.int32)
+        depth = {0: 0}
+        open_leaves, link = [0], {}
+        for node in range(li):
+            leaf = open_leaves.pop(rng.randint(len(open_leaves)))
+            if leaf in link:
+                arr, pos = link.pop(leaf)
+                arr[pos] = node
+            new = node + 1
+            left[node], right[node] = ~leaf, ~new
+            link[leaf], link[new] = (left, node), (right, node)
+            depth[leaf] = depth[new] = depth[leaf] + 1
+            open_leaves += [leaf, new]
+        trees.append(empty_tree(leaves)._replace(
+            num_leaves=torch.tensor(leaves, dtype=torch.int32),
+            node_feature=torch.as_tensor(rng.randint(0, f, li),
+                                         dtype=torch.int32),
+            node_threshold_bin=torch.as_tensor(rng.randint(0, b - 1, li),
+                                               dtype=torch.int32),
+            node_default_left=torch.as_tensor(rng.rand(li) < 0.5),
+            node_left=torch.as_tensor(left), node_right=torch.as_tensor(right),
+            leaf_value=torch.as_tensor(rng.randn(leaves).astype(np.float32)),
+            leaf_depth=torch.as_tensor(
+                np.array([depth[i] for i in range(leaves)], np.int32))))
+        if segments:
+            lo = rng.randint(0, b // 2, li)
+            seg = rng.rand(li) < 1 / 3
+            trees[-1] = trees[-1]._replace(
+                node_seg_lo=torch.as_tensor(np.where(seg, lo, -1),
+                                            dtype=torch.int32),
+                node_seg_hi=torch.as_tensor(np.where(seg, lo + b // 3, -1),
+                                            dtype=torch.int32))
+    return stack_trees(trees)
+
+
+def wide_slice(binsT, mb, columns: int, pad: int = 37):
+    """``binsT`` as the first rows of a ``columns``-row bin matrix, handed
+    over as a column slice (leading dimension N + pad): the other columns
+    are 0 and their missing bins -1, so the trees' walks are the same."""
+    f, n = binsT.shape
+    big = torch.zeros((columns, n + pad), dtype=binsT.dtype,
+                      device=binsT.device)
+    big[:f, 5:5 + n] = binsT
+    wmb = torch.full((columns,), -1, dtype=mb.dtype, device=mb.device)
+    wmb[:f] = mb
+    return big[:, 5:5 + n], wmb
+
+
+PREDICT_WIDE_COLUMNS = 2_000     # Epsilon's width: the bins stay in global
+PREDICT_TILED_LEAVES = 1_023     # 12 KB a tree: the tiled mode's deepest
+PREDICT_DEEP_LEAVES = 4_095      # with EFB segments: the global mode
+PREDICT_DEEP_TREES = 4
+PREDICT_EDGE_TREES = 20          # the model's first trees, in the wide cases
+_mc_cache = {}
+
+
+def first_trees(P, tables, count: int):
+    """The kernel's tables of an ensemble's first ``count`` trees."""
+    from lightgbm_tpu_torch.models.tree import TreeArrays
+    return P.pack_ensemble(TreeArrays(*(x[:count] for x in tables.stacked)),
+                           tables.depth, tables.nodes.device)
+
+
+def multiclass_model(lgb, args):
+    """The predict group's K = 7 Covertype-shaped model (50,000 rows, 3
+    rounds) and its rows, trained once a run."""
+    if args.seed not in _mc_cache:
+        Xk, yk = covertype_like(PREDICT_MC_ROWS, args.seed)
+        kb = lgb.train(dict(PARAMS, device_type="cuda", **MULTICLASS),
+                       lgb.Dataset(Xk, label=yk,
+                                   params={"device_type": "cuda"}),
+                       PREDICT_MC_ROUNDS)
+        _mc_cache[args.seed] = (kb, Xk)
+    return _mc_cache[args.seed]
+
+
 def predict_ensemble_phase(lgb, P, args, model):
     """The kernel alone at the main path's shapes: the 100-round model over
     the bins of the 2M train and 200k valid rows; then int16 bins
-    (max_bin 1,023) and categorical bitsets (Expo-shaped)."""
+    (max_bin 1,023), categorical bitsets (Expo-shaped, ``global``), the
+    K = 7 carry (Covertype-shaped), 1,023-leaf trees (``tiled``), and the
+    shapes the rule sends to ``global``: the 200k rows as 2,000 columns
+    (on the model's first PREDICT_EDGE_TREES trees) and 4,095-leaf trees
+    with EFB segments. Only the main path's tiled shapes are timed."""
     b, X, Xv = model
     g = b._boosting
     eng = g._predict_engine()
@@ -4291,7 +4553,23 @@ def predict_ensemble_phase(lgb, P, args, model):
     for name, rows, timed in (("2M", X, True), ("200k", Xv, True)):
         binsT = g.train_set.bin_new_data(rows)
         out[name] = ensemble_case(P, eng.tables, binsT, mb, 1, args.seed,
-                                  timed=timed)
+                                  timed=timed, mode="tiled")
+        if name == "200k":
+            head = first_trees(P, eng.tables, PREDICT_EDGE_TREES)
+            wide, wmb = wide_slice(binsT, mb, PREDICT_WIDE_COLUMNS)
+            out["columns_2000_200k"] = ensemble_case(
+                P, head, wide, wmb, 1, args.seed + 3, mode="global")
+            del wide, wmb, head
+            for leaves, segments, mode in (
+                    (PREDICT_TILED_LEAVES, False, "tiled"),
+                    (PREDICT_DEEP_LEAVES, True, "global")):
+                st = random_trees(PREDICT_DEEP_TREES, leaves, F, B,
+                                  args.seed + 4, segments)
+                deep = P.pack_ensemble(st, int(st.leaf_depth.max()), "cuda")
+                out[f"leaves_{leaves}" + ("_segments" if segments else "")
+                    + "_200k"] = ensemble_case(
+                    P, deep, binsT, mb, 1, args.seed + 4, mode=mode)
+                del deep
         del binsT
     _, y = higgs_rows(args)[:2]
     wb, _ = predict_model(lgb, args, X[:PREDICT_TRAIN_ROWS],
@@ -4303,7 +4581,7 @@ def predict_ensemble_phase(lgb, P, args, model):
         raise AssertionError(f"max_bin 1023 binned to {wbins.dtype}")
     out["wide_200k"] = ensemble_case(P, wg._predict_engine().tables, wbins,
                                      wg.train_set.missing_bin.cuda(), 1,
-                                     args.seed + 1, timed=True)
+                                     args.seed + 1, timed=True, mode="tiled")
     Xc, yc = expo_like(PREDICT_CAT_ROWS, args.seed)
     cb = lgb.train(dict(PARAMS, device_type="cuda",
                         categorical_feature=CAT_COLUMNS),
@@ -4316,8 +4594,14 @@ def predict_ensemble_phase(lgb, P, args, model):
                              "split")
     out["categorical_50k"] = ensemble_case(
         P, ctab, cg.train_set.bin_new_data(Xc),
-        cg.train_set.missing_bin.cuda(), 1, args.seed + 2)
+        cg.train_set.missing_bin.cuda(), 1, args.seed + 2, mode="global")
     out["categorical_50k"]["words"] = int(ctab.bits.shape[2])
+    kb, Xk = multiclass_model(lgb, args)
+    kg = kb._boosting
+    keng = kg._predict_engine()
+    out["multiclass_k7_50k"] = ensemble_case(
+        P, keng.tables, kg.train_set.bin_new_data(Xk),
+        kg.train_set.missing_bin.cuda(), keng.k, args.seed + 6, mode="tiled")
     return out
 
 
@@ -4353,15 +4637,33 @@ def _predict_launches(cuda_hist, P):
     return sum(v for k, v in c.items() if k.startswith("predict_ensemble."))
 
 
+def _geometry_launches(cuda_hist, P):
+    c = cuda_hist.launch_counts()
+    return {m: c[f"predict_ensemble_geometry.launches_{m}"]
+            for m in P.GEOMETRY_MODES}
+
+
 def predict_e2e_phase(lgb, cuda_hist, P, args, model):
     """Booster.predict end to end on the card, its time split, and its
-    outputs against the same trees on the CPU."""
+    outputs against the same trees on the CPU; on the 2M rows also the
+    first call after the engine is dropped (``seconds_cold``: the trees
+    packed and staged again, as after training or a new tree window).
+    Each path's launches by geometry (``geometry_by_path``); the 2M rows
+    must take the tiled mode."""
     b, X, Xv = model
     g = b._boosting
     twin = _twin(lgb, b)
-    out, paths = {}, {}
+    out, paths, geometry = {}, {}, {}
     for name, rows in (("2M", X), ("200k", Xv)):
         b.predict(rows[:1000])                 # warm
+        cold = None
+        if name == "2M":
+            g._engine_cache.clear()
+            torch.cuda.synchronize()
+            t0 = time.time()
+            b.predict(rows)
+            torch.cuda.synchronize()
+            cold = time.time() - t0
         torch.cuda.synchronize()
         cuda_hist.reset_launch_counts()
         t0 = time.time()
@@ -4370,9 +4672,14 @@ def predict_e2e_phase(lgb, cuda_hist, P, args, model):
         total = time.time() - t0
         launched = _predict_launches(cuda_hist, P)
         paths[f"predict/{name}"] = launched
+        geometry[f"predict/{name}"] = _geometry_launches(cuda_hist, P)
         if launched < 1:
             raise AssertionError(f"Booster.predict on {name} rows launched "
                                  f"no predict_ensemble")
+        if name == "2M" and geometry["predict/2M"]["tiled"] != launched:
+            raise AssertionError(f"Booster.predict on 2M rows: geometries "
+                                 f"{geometry['predict/2M']}, expected "
+                                 f"{launched} tiled")
         # the same call in its parts
         t0 = time.time()
         Xp = g._prep_predict_X(rows)
@@ -4395,6 +4702,7 @@ def predict_e2e_phase(lgb, cuda_hist, P, args, model):
             carry[:, 0]))
         t_fetch = _median_s(lambda: s32.cpu())
         out[name] = {"rows": len(rows), "seconds": total,
+                     "seconds_cold": cold,
                      "launches_per_call": launched,
                      "split_s": {"input_checks_host": t_check,
                                  "binning_on_card": t_bin,
@@ -4422,6 +4730,7 @@ def predict_e2e_phase(lgb, cuda_hist, P, args, model):
         cuda_hist.reset_launch_counts()
         got = b.predict(Xm, **kw)
         paths[f"predict/{name}"] = _predict_launches(cuda_hist, P)
+        geometry[f"predict/{name}"] = _geometry_launches(cuda_hist, P)
         _equal(name, got, twin.predict(Xm, **kw))
         checks[name] = {"rows": len(Xm),
                         "launches": paths[f"predict/{name}"]}
@@ -4432,14 +4741,12 @@ def predict_e2e_phase(lgb, cuda_hist, P, args, model):
         np.sum(es_raw != full))
     out["bitwise_cpu"] = checks
     # K = 7
-    Xk, yk = covertype_like(PREDICT_MC_ROWS, args.seed)
-    kb = lgb.train(dict(PARAMS, device_type="cuda", **MULTICLASS),
-                   lgb.Dataset(Xk, label=yk, params={"device_type": "cuda"}),
-                   PREDICT_MC_ROUNDS)
+    kb, Xk = multiclass_model(lgb, args)
     ktwin = _twin(lgb, kb)
     cuda_hist.reset_launch_counts()
     kraw = kb.predict(Xk, raw_score=True)
     paths["predict/multiclass"] = _predict_launches(cuda_hist, P)
+    geometry["predict/multiclass"] = _geometry_launches(cuda_hist, P)
     _equal("multiclass raw", kraw, ktwin.predict(Xk, raw_score=True))
     _equal("multiclass converted", kb.predict(Xk), ktwin.predict(Xk))
     _equal("multiclass pred_leaf", kb.predict(Xk, pred_leaf=True),
@@ -4453,6 +4760,7 @@ def predict_e2e_phase(lgb, cuda_hist, P, args, model):
     cuda_hist.reset_launch_counts()
     score = g.score_dataset(vs)
     paths["score_dataset"] = _predict_launches(cuda_hist, P)
+    geometry["score_dataset"] = _geometry_launches(cuda_hist, P)
     eng = g._predict_engine()
     if eng.biases is None:
         raise AssertionError("the model's trees carry no bias")
@@ -4463,6 +4771,7 @@ def predict_e2e_phase(lgb, cuda_hist, P, args, model):
     _equal("score_dataset", score, ref[:, 0].numpy())
     out["score_dataset"] = {"rows": nv, "bitwise_plain_cpu": True,
                             "bias_tree0": float(eng.biases[0])}
+    out["geometry_by_path"] = geometry
     return out, paths
 
 
@@ -4628,15 +4937,28 @@ def sklearn_phase(lgb, args):
             "predict_equal_train": True}
 
 
-def predict_phases(lgb, cuda_hist, args):
-    """The predict group's phases, each emitted; returns the kernels line's
-    entry of predict_ensemble."""
+_predict_model_cache = {}
+
+
+def predict_group_model(lgb, args):
+    """The predict group's model (100 rounds of 255 leaves on 500,000 of
+    train's rows) with train's and valid's rows, trained once a run, and
+    its training seconds."""
+    if args.seed not in _predict_model_cache:
+        X, y, Xv, _ = higgs_rows(args)
+        b, train_s = predict_model(lgb, args, X[:PREDICT_TRAIN_ROWS],
+                                   y[:PREDICT_TRAIN_ROWS])
+        _predict_model_cache[args.seed] = ((b, X, Xv), train_s)
+    return _predict_model_cache[args.seed]
+
+
+def predict_kernel_phases(lgb, cuda_hist, args):
+    """predict_ensemble and predict, each emitted; returns (the kernel
+    phase's cases, the launches by path, and under ``"geometry"`` the
+    predict paths' launches by geometry)."""
     from lightgbm_tpu_torch.ops import predict as P
-    X, y, Xv, yv = higgs_rows(args)
     t0 = time.time()
-    b, train_s = predict_model(lgb, args, X[:PREDICT_TRAIN_ROWS],
-                               y[:PREDICT_TRAIN_ROWS])
-    model = (b, X, Xv)
+    model, train_s = predict_group_model(lgb, args)
     pe = predict_ensemble_phase(lgb, P, args, model)
     emit("predict_ensemble", seconds=time.time() - t0,
          model={"rows": PREDICT_TRAIN_ROWS, "rounds": PREDICT_ROUNDS,
@@ -4644,13 +4966,12 @@ def predict_phases(lgb, cuda_hist, args):
     t0 = time.time()
     pr, paths = predict_e2e_phase(lgb, cuda_hist, P, args, model)
     emit("predict", seconds=time.time() - t0, **pr)
-    t0 = time.time()
-    pc = predict_contrib_phase(lgb, cuda_hist, args, model)
-    emit("predict_contrib", seconds=time.time() - t0, **pc)
-    t0 = time.time()
-    cl = cli_phase(lgb, args)
-    emit("cli", seconds=time.time() - t0, **cl)
-    emit("sklearn", **sklearn_phase(lgb, args))
+    return pe, dict(paths, geometry=pr["geometry_by_path"])
+
+
+def predict_entry(pe, paths):
+    """The kernels line's entry of predict_ensemble: the 2M-row float64
+    case's numbers, every case's beside them, the launches by path."""
     main_case = pe["2M"]
     return {
         "name": "predict_ensemble", "route": "cuda",
@@ -4659,15 +4980,37 @@ def predict_phases(lgb, cuda_hist, args):
                     "predict_engine.py:123 _accum_core + :182 _leaves_core "
                     "are plain jnp scans (no pallas_call)",
         "launches": paths["predict/2M"], "max_abs_err": 0.0,
+        "geometry_by_path": paths["geometry"],
         **{k: main_case[k] for k in ("ms", "device_ms", "plain_ms",
                                      "bound_ms", "bound_by", "library_ms",
                                      "node_visits", "rows", "trees")},
         "leaves_ms": main_case["leaves_ms"],
+        "leaves_device_ms": main_case["leaves_device_ms"],
+        "geometry": main_case["geometry"],
         "shapes": {k: {kk: v[kk] for kk in ("ms", "device_ms", "plain_ms",
                                             "bound_ms", "bound_by")}
+                   | {"mode": v["geometry"]["mode"]}
                    for k, v in pe.items() if "ms" in v},
+        "geometries_checked": sorted({v["geometry"]["mode"]
+                                      for v in pe.values()}),
         "cases_bitwise": sum(v["cases_bitwise"] for v in pe.values()),
-        "launches_by_path": {k: v for k, v in paths.items() if v > 0}}
+        "launches_by_path": {k: v for k, v in paths.items()
+                             if k != "geometry" and v > 0}}
+
+
+def predict_phases(lgb, cuda_hist, args):
+    """The predict group's phases, each emitted; returns the kernels line's
+    entry of predict_ensemble."""
+    pe, paths = predict_kernel_phases(lgb, cuda_hist, args)
+    model, _ = predict_group_model(lgb, args)
+    t0 = time.time()
+    pc = predict_contrib_phase(lgb, cuda_hist, args, model)
+    emit("predict_contrib", seconds=time.time() - t0, **pc)
+    t0 = time.time()
+    cl = cli_phase(lgb, args)
+    emit("cli", seconds=time.time() - t0, **cl)
+    emit("sklearn", **sklearn_phase(lgb, args))
+    return predict_entry(pe, paths)
 
 
 # ------------------------------------------------------------------ faults
@@ -4680,7 +5023,7 @@ RESUME = {"bagging_fraction": 0.8, "bagging_freq": 2,
           "feature_fraction": 0.8}
 RESUME_KILL_AT = 3
 EPS_FEATURES = 2000            # Epsilon (docs/GPU-Performance.rst)
-EPS_ROWS, EPS_VALID = 400_000, 100_000
+EPS_ROWS, EPS_VALID = 100_000, 25_000
 EPS_ROUNDS = 3
 EPS_POOL_MB = 256              # ~569 columns a block, 4 blocks
 EPS_PARITY_ROWS, EPS_PARITY_LEAVES, EPS_PARITY_ROUNDS = 2_000, 15, 2
@@ -5283,7 +5626,7 @@ def faults_phases(lgb, cuda_hist, args):
 
 # ------------------------------------------------------- distributed group
 DIST_WORLD = 2               # ranks of the gang (one card: they share it)
-DIST_ROUNDS = 3              # each learner's full-width rounds, run twice
+DIST_ROUNDS = 2              # each learner's full-width rounds, run twice
 DIST_LEARNERS = ("data", "feature", "voting")
 DIST_TOP_K = 20              # voting's top_k (the JAX package's default)
 DIST_PARITY_ROWS = 50_000
@@ -6116,6 +6459,49 @@ def _full_numbers(root, real, multi):
             "multi_slot": {k: multi[k] for k in keys}}
 
 
+def redesign_group(lgb, cuda_hist, args):
+    """``--only redesign``: the second passes' kernels, predict_ensemble
+    and lambdarank_grads, alone -- the predict_ensemble and predict
+    phases, lambdarank_grads and train_rank -- and with ``--parent DIR``
+    their probes on DIR's package and on this one, in turns (parent,
+    this, this, parent), on the same inputs. Returns the two kernel
+    entries."""
+    import tempfile
+    parent, own = [], []
+    with tempfile.TemporaryDirectory() as tmp:
+        inputs = os.path.join(tmp, "probe_inputs.pt")
+        if args.parent:
+            probe_inputs(lgb, args, inputs)
+
+        def probe(other: bool):
+            if other:
+                parent.append(parent_times(args.parent, args.rows,
+                                           args.valid_rows, args.seed,
+                                           "second_pass", inputs))
+                emit("parent_times", dir=args.parent, ms=parent[-1])
+            else:
+                own.append(redesign_probes(cuda_hist, args.seed, inputs,
+                                           SECOND_PASS))
+                emit("probe_times", ms=own[-1])
+        if args.parent:
+            probe(True)
+            probe(False)
+        pe, paths = predict_kernel_phases(lgb, cuda_hist, args)
+        rk = rank_kernel_phase(lgb, cuda_hist, args)
+        emit("lambdarank_grads", **rk)
+        trk, rank_launches = train_rank_phase(lgb, cuda_hist, args)
+        emit("train_rank", **trk)
+        if args.parent:
+            probe(False)
+            probe(True)
+    entries = [predict_entry(pe, paths), rank_entry(rk, rank_launches)]
+    entries[1]["launches_by_path"] = {
+        "train_rank": rank_launches["lambdarank_grads.launches"]}
+    if args.parent:
+        attach_probes(entries, own, parent)
+    return entries
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6124,12 +6510,12 @@ def main() -> int:
     ap.add_argument("--rounds", type=int, default=5)
     ap.add_argument("--parent", default=None,
                     help="another checkout of this repository (e.g. the "
-                         "parent commit from git archive): its hist_tile "
-                         "forms are timed on the same inputs before and "
-                         "after this run's phases")
+                         "parent commit from git archive): its kernels are "
+                         "timed on the same inputs before and after this "
+                         "run's phases")
     ap.add_argument("--only", choices=("precision", "control", "predict",
                                        "faults", "distributed",
-                                       "resilience"),
+                                       "resilience", "redesign"),
                     default=None,
                     help="run the device, build and train phases and this "
                          "group's phases alone (a quicker check of one "
@@ -6233,6 +6619,16 @@ def main() -> int:
             "platform": "gpu", "kind": kind,
             "count": torch.cuda.device_count()}}), flush=True)
         return 0
+    if args.only == "redesign":
+        kernels = redesign_group(lgb, cuda_hist, args)
+        print(json.dumps({"kernels": kernels,
+                          "total_seconds": time.time() - t_start}),
+              flush=True)
+        print(smi, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     if args.only == "predict":
         tr, launches = train_phase(lgb, cuda_hist, args)
         emit("train", **tr)
@@ -6245,11 +6641,18 @@ def main() -> int:
             "platform": "gpu", "kind": kind,
             "count": torch.cuda.device_count()}}), flush=True)
         return 0
-    parent = []
+    parent, own, inputs = [], [], None
     if args.parent:
+        import tempfile
+        probe_dir = tempfile.TemporaryDirectory()
+        inputs = os.path.join(probe_dir.name, "probe_inputs.pt")
+        probe_inputs(lgb, args, inputs)
         parent.append(parent_times(args.parent, n, args.valid_rows,
-                                   args.seed))
+                                   args.seed, "all", inputs))
         emit("parent_times", dir=args.parent, ms=parent[-1])
+        own.append(redesign_probes(cuda_hist, args.seed, inputs,
+                                   SECOND_PASS))
+        emit("probe_times", ms=own[-1])
     kp = kernel_phases(cuda_hist, n, args.valid_rows, args.seed)
     emit("hist_tile_root", n=n, b=B, p=P, leaves=LEAVES,
          **{k: kp[k] for k in ("full_root", "plane_root", "q8_full_root",
@@ -6350,9 +6753,9 @@ def main() -> int:
     emit("parity_data", **pdata)
     prec = precision_phases(lgb, cuda_hist, args, tr["valid_auc"])
     control = control_phases(lgb, cuda_hist, args, tr)
-    predict_entry = predict_phases(lgb, cuda_hist, args)
+    pentry = predict_phases(lgb, cuda_hist, args)
     fpaths, po_launches = faults_phases(lgb, cuda_hist, args)
-    predict_entry["launches_by_path"]["faults/predict_oom"] = po_launches
+    pentry["launches_by_path"]["faults/predict_oom"] = po_launches
     torch.cuda.empty_cache()
     dist_hp, dpaths = distributed_phases(lgb, cuda_hist, args)
     rpaths = resilience_phases(lgb, cuda_hist, args)
@@ -6360,9 +6763,13 @@ def main() -> int:
     hv = hist_variants_phase(cuda_hist)
     emit("hist_variants", **hv)
     if args.parent:
+        own.append(redesign_probes(cuda_hist, args.seed, inputs,
+                                   SECOND_PASS))
+        emit("probe_times", ms=own[-1])
         parent.append(parent_times(args.parent, n, args.valid_rows,
-                                   args.seed))
+                                   args.seed, "all", inputs))
         emit("parent_times", dir=args.parent, ms=parent[-1])
+        probe_dir.cleanup()
 
     hist_err = max([full["max_abs_err"]]
                    + [r["max_abs_err"] for r in rungs.values()]
@@ -6478,24 +6885,7 @@ def main() -> int:
          "plain_ms": hv["plain_ms"], "bound_ms": hv["bound_ms"],
          "bound_by": hv["bound_by"], "library_ms": hv["library_ms"],
          "onehot_floor_ms": hv["onehot_floor_ms"]},
-        {"name": "lambdarank_grads", "route": "cuda",
-         "source": "lightgbm_tpu_torch/csrc/lambdarank.cu",
-         "replaces": "none, a port-only kernel: lightgbm_tpu/ranking.py:158 "
-                     "LambdarankNDCG._padded_grads + :111 _scatter_grads "
-                     "are plain jnp (no pallas_call)",
-         "launches": rank_launches["lambdarank_grads.launches"],
-         "max_abs_err": max(v["max_abs_err_vs_plain"] for v in rk.values()),
-         "tolerance_of_plain_scale": RANK_TOL,
-         "ms": rk["train_rank_layout"]["ms"],
-         "device_ms": rk["train_rank_layout"]["device_ms"],
-         "kernel_device_ms": rk["train_rank_layout"]["device_split"].get(
-             "lambdarank_kernel", "not measured"),
-         "plain_ms": rk["train_rank_layout"]["plain_ms"],
-         "exact_ms": rk["train_rank_layout"]["exact_ms"],
-         "bound_ms": rk["train_rank_layout"]["bound_ms"],
-         "bound_by": rk["train_rank_layout"]["bound_by"],
-         "pairs_admitted": rk["train_rank_layout"]["pairs_admitted"],
-         "library_ms": None},
+        rank_entry(rk, rank_launches),
     ]
     # the epilogue's monotone mode: the kernels line's own numbers at the
     # main path's width (F = 28), F = 136 beside them
@@ -6667,7 +7057,9 @@ def main() -> int:
         kernels[5]["parent_ms"] = [pt["split_epilogue_q8"] for pt in parent]
         kernels[6]["parent_ms"] = {v: [pt[f"hist_onehot/{v}"]
                                        for pt in parent] for v in VARIANTS}
-    kernels.append(predict_entry)
+    kernels.append(pentry)
+    if args.parent:
+        attach_probes([kernels[7], pentry], own, parent)
     kernels.extend(dist_kernel_entries(dist_hp, {**dpaths, **rpaths},
                                        lead="distributed/data/rank0"))
     print(json.dumps({"kernels": kernels,

@@ -265,13 +265,15 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
     elif name == "lambdarank":
         lib.lambdarank_launch.argtypes = ([vp] * 10 + [ci] * 3
                                           + [ctypes.c_float, ci]
-                                          + [vp] * 4 + [ci, vp])
+                                          + [vp] * 5 + [ci, vp])
         lib.lambdarank_launch.restype = ci
     elif name == "predict_ensemble":
         lib.predict_ensemble_launch.argtypes = ([vp, ci, ctypes.c_longlong,
-                                                 ci] + [vp] * 3 + [ci] * 2
-                                                + [vp, ci, vp] + [ci] * 3
-                                                + [vp] * 5 + [ci] * 2 + [vp])
+                                                 ci, ci] + [vp] * 3
+                                                + [ci] * 2 + [vp, ci, vp]
+                                                + [ci] * 3 + [vp] * 5
+                                                + [ci] * 2 + [vp]
+                                                + [ci] * 8 + [vp])
         lib.predict_ensemble_launch.restype = ci
     else:
         ll = ctypes.c_longlong

@@ -9,21 +9,25 @@ M = 1,256) one such tensor is 119 GB, so the port computes the same
 function another way:
 
 - ``lambdarank_grads`` (``csrc/lambdarank.cu``) on the card: one block a
-  query, a thread a document (in rank order), walking its real partners
-  (the reference's loop, rank_objective.hpp:142-227): every document for
-  a document ranked above the truncation level, the top-``trunc``
-  documents for the rest. It reads per-document arrays and writes the
-  per-document sums; no pair tensor exists.
+  query (longest first), walking the real pairs (the reference's loop,
+  rank_objective.hpp:142-227): the documents ranked above the truncation
+  level four at a time in ascending index, a warp each, its lanes over
+  all the document's partners, each pair's terms added to both of its
+  documents. It reads per-document arrays and writes the per-document
+  sums; no pair tensor exists.
 - ``lambdarank_grads_plain`` on the CPU: the JAX arithmetic over
   ``[Q, M, M]``, chunked over queries, with XLA:CPU's reduction order
   (``xla_sum``) and flush-to-zero, so the gradients are bitwise the JAX
   package's.
 - ``lambdarank_grads_exact``: the kernel's own summation order in plain
-  PyTorch (each document's terms as the higher label and as the lower
-  label summed apart, partners in ascending index order; the query's
-  lambda sum over documents in index order). The card holds the kernel to
-  it bit for bit; inside ``cuda_hist.kernel_sums_on_cpu()`` a CPU run uses
-  it and reproduces a card run's gradients.
+  PyTorch (a top document's terms as the higher label and as the lower
+  label summed apart in 32 lanes, lane l over partners l, l + 32, ... in
+  ascending index, the lanes combined by a xor butterfly; another
+  document's summed over the top list in ascending index; the query's
+  higher lambdas summed by ``_THREADS`` strided partial sums and a halving
+  tree). The card holds the kernel to it bit for bit; inside
+  ``cuda_hist.kernel_sums_on_cpu()`` a CPU run uses it and reproduces a
+  card run's gradients.
 
 Every path shares the ranks (one stable sort of (query, -score) keys, ties
 in index order as ``jnp.argsort(-s, stable=True)``), the discounts
@@ -49,6 +53,7 @@ PAD_SCORE = -1e30           # the padded slots' score (JAX ranking.py)
 _WINDOW = 32                # XLA:CPU's tree-reduction window
 _INV_LN2 = _c32(1.0 / np.log(2.0))
 _THREADS = 128              # threads of a lambdarank_grads block
+_LANES = 32                 # lanes of a warp: a top document's partial sums
 
 
 def log2_f32(x: torch.Tensor) -> torch.Tensor:
@@ -210,7 +215,9 @@ class RankLayout:
     device): each document's query (``qid`` [N] int64), the boundaries
     (``bounds`` [Q+1] int32 on the device, int64 on the host), the
     padded ``[Q, M]`` gather plan of ``ranking._PaddedQueries`` (host
-    ``doc_index``/``mask``, the CPU paths' layout) and M."""
+    ``doc_index``/``mask``, the CPU paths' layout), M, and ``by_length``
+    [Q] int32 on the device: the queries longest first (ties by index),
+    the kernel's block order."""
 
     def __init__(self, bounds: np.ndarray, doc_index: np.ndarray,
                  mask: np.ndarray, device):
@@ -226,6 +233,9 @@ class RankLayout:
                                       device=self.device)
         self.doc_index = torch.as_tensor(doc_index, device=self.device)
         self.mask = torch.as_tensor(mask, device=self.device)
+        self.by_length = torch.as_tensor(
+            np.argsort(-sizes, kind="stable").astype(np.int32),
+            device=self.device)
 
 
 def doc_ranks(score: torch.Tensor, layout: RankLayout
@@ -374,14 +384,70 @@ def lambdarank_grads_plain(score, label, gain, inv_max_dcg,
     return _normalise(lam, hess, sum_high, layout.qid, norm)
 
 
+def _butterfly(v: torch.Tensor) -> torch.Tensor:
+    """The lanes of the last dimension (32) combined as the kernel's warp
+    does: v + v[lane ^ m] for m = 16, 8, 4, 2, 1; lane 0's value."""
+    lane = torch.arange(_LANES, device=v.device)
+    for m in (16, 8, 4, 2, 1):
+        v = _ftz(v + v[..., lane ^ m])
+    return v[..., 0]
+
+
+def _lane_sums(ok: torch.Tensor, term: torch.Tensor) -> torch.Tensor:
+    """[Qc, e, e] terms where ``ok`` summed over the last dimension as a
+    warp's lanes sum them: lane l adds partners l, l + 32, ... in order
+    from +0, then the butterfly. [Qc, e]."""
+    acc = torch.zeros(term.shape[:-1] + (_LANES,), dtype=term.dtype,
+                      device=term.device)
+    e = term.shape[-1]
+    for k0 in range(0, e, _LANES):
+        w = min(_LANES, e - k0)
+        part = acc[..., :w]
+        acc[..., :w] = torch.where(ok[..., k0:k0 + w],
+                                   _ftz(part + term[..., k0:k0 + w]), part)
+    return _butterfly(acc)
+
+
+def _seq_sums(ok: torch.Tensor, term: torch.Tensor) -> torch.Tensor:
+    """[Qc, e, e] terms where ``ok`` summed over the last dimension one
+    after another in order from +0. [Qc, e]."""
+    acc = torch.zeros_like(term[..., 0])
+    for k in range(term.shape[-1]):
+        acc = torch.where(ok[..., k], _ftz(acc + term[..., k]), acc)
+    return acc
+
+
+def _block_sum(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """[Qc, e] summed as the kernel's block sums a query's higher lambdas:
+    thread t adds documents t, t + _THREADS, ... (where ``mask``) in order
+    from +0, then the threads' sums as a halving tree (t += t + s for s =
+    _THREADS / 2, ..., 1). [Qc]."""
+    acc = x.new_zeros(x.shape[:-1] + (_THREADS,))
+    e = x.shape[-1]
+    for k0 in range(0, e, _THREADS):
+        w = min(_THREADS, e - k0)
+        part = acc[..., :w]
+        acc[..., :w] = torch.where(mask[..., k0:k0 + w],
+                                   _ftz(part + x[..., k0:k0 + w]), part)
+    s = _THREADS // 2
+    while s:
+        acc = torch.cat([_ftz(acc[..., :s] + acc[..., s:2 * s]),
+                         acc[..., s:]], dim=-1)
+        s //= 2
+    return acc[..., 0]
+
+
 def lambdarank_grads_exact(score, label, gain, inv_max_dcg,
                            layout: RankLayout, sigmoid: float, trunc: int,
                            norm: bool) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version in the kernel's order: for each document its terms as
-    the higher label and as the lower label, each summed over the partners
-    in ascending index order (only the pairs the truncation admits), then
-    higher - lower (hessians: +); the query's lambda sum over its documents
-    in index order. [N] lambdas and hessians, bitwise the kernel's."""
+    the higher label and as the lower label summed apart (only the pairs
+    the truncation admits) -- a document ranked above the truncation level
+    in 32 lanes over its partners in ascending index, the lanes combined
+    by the warp's butterfly; any other over the top list in ascending
+    index one after another -- then higher - lower (hessians: +); the
+    query's lambda sum by the block's strided sums and halving tree. [N]
+    lambdas and hessians, bitwise the kernel's."""
     rank, _, disc, same = _preamble(score, layout)
     lam = torch.zeros((layout.num_data,), dtype=torch.float32,
                       device=score.device)
@@ -394,16 +460,13 @@ def lambdarank_grads_exact(score, label, gain, inv_max_dcg,
                                         sigmoid, trunc, norm)
         # [:, d, k]: d higher and partner k lower (okt: k higher, d lower)
         okt, plt, pht = (t.transpose(1, 2) for t in (ok, pl, ph))
-        hl, hh, ll, lh = (torch.zeros_like(pl[:, :, 0]) for _ in range(4))
-        for k in range(e):
-            hl = torch.where(ok[:, :, k], _ftz(hl + pl[:, :, k]), hl)
-            hh = torch.where(ok[:, :, k], _ftz(hh + ph[:, :, k]), hh)
-            ll = torch.where(okt[:, :, k], _ftz(ll + plt[:, :, k]), ll)
-            lh = torch.where(okt[:, :, k], _ftz(lh + pht[:, :, k]), lh)
-        acc = torch.zeros_like(hl[:, 0])
-        for k in range(e):
-            acc = torch.where(mask[:, k], _ftz(acc + hl[:, k]), acc)
-        sum_high[rows] = acc
+        top = _padded(rank, layout, rows, e) < trunc
+        sums = []
+        for o, term in ((ok, pl), (ok, ph), (okt, plt), (okt, pht)):
+            sums.append(torch.where(top, _lane_sums(o, term),
+                                    _seq_sums(o, term)))
+        hl, hh, ll, lh = sums
+        sum_high[rows] = _block_sum(hl, mask)
         idx = layout.doc_index[rows, :e][mask]
         lam[idx] = _ftz(hl - ll)[mask]
         hess[idx] = _ftz(hh + lh)[mask]
@@ -464,14 +527,14 @@ def lambdarank_grads(score: torch.Tensor, label: torch.Tensor,
     hess = torch.empty_like(lam)
     sum_high = torch.empty((q,), dtype=torch.float32, device=dev)
     high = torch.empty_like(lam)     # scratch: each document's higher sum
-    rank32, order32 = rank.to(torch.int32), order.to(torch.int32)
-    same32 = same.to(torch.int32)
+    part = torch.empty((4, n), dtype=torch.float32, device=dev)  # scratch
+    rank32, same32 = rank.to(torch.int32), same.to(torch.int32)
     err = _lib("lambdarank").lambdarank_launch(
         _ptr(score), _ptr(label), _ptr(gain), _ptr(disc), _ptr(rank32),
-        _ptr(order32), _ptr(layout.bounds), _ptr(top), _ptr(inv_max_dcg),
-        _ptr(same32), q,
+        _ptr(layout.bounds), _ptr(layout.by_length), _ptr(top),
+        _ptr(inv_max_dcg), _ptr(same32), q,
         t, int(trunc), float(_c32(sigmoid)), int(bool(norm)), _ptr(lam),
-        _ptr(hess), _ptr(high), _ptr(sum_high), _THREADS,
+        _ptr(hess), _ptr(high), _ptr(part), _ptr(sum_high), _THREADS,
         torch.cuda.current_stream(dev).cuda_stream)
     cuda_hist._count(lambdarank_grads, "launches")
     _raise_on(err, "lambdarank_grads")

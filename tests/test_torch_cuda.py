@@ -652,6 +652,8 @@ RANK_LAYOUTS = {
     "labels_all_0": ([3, 7, 40], "zero_labels", {}),
     "no_norm_sigmoid2": ([5, 64, 130], "random",
                          {"lambdarank_norm": False, "sigmoid": 2.0}),
+    # past the kernel's partner tile of 256 documents
+    "longer_than_tile": ([2100, 1, 7, 40], "random", {}),
 }
 
 
@@ -1260,6 +1262,95 @@ def test_predict_ensemble_matches_plain(dev, kind):
           for _ in range(2)]
     ref = P.predict_ensemble_plain(tb, binsT, mb, (0, t), k, leaves=True)
     assert torch.equal(lv[0], ref) and torch.equal(lv[1], ref)
+
+
+def _deep_trees(count, leaves, f, b, seed, segments=True):
+    """Random unbalanced trees of ``leaves`` leaves (a leaf drawn at random
+    splits next; with ``segments`` a third of the nodes on EFB bundle
+    segments), stacked."""
+    from lightgbm_tpu_torch.models.tree import empty_tree, stack_trees
+    rng = np.random.RandomState(seed)
+    trees = []
+    for _ in range(count):
+        li = leaves - 1
+        left, right = np.zeros(li, np.int32), np.zeros(li, np.int32)
+        open_leaves, link = [0], {}
+        for node in range(li):
+            leaf = open_leaves.pop(rng.randint(len(open_leaves)))
+            if leaf in link:
+                arr, pos = link.pop(leaf)
+                arr[pos] = node
+            left[node], right[node] = ~leaf, ~(node + 1)
+            link[leaf], link[node + 1] = (left, node), (right, node)
+            open_leaves += [leaf, node + 1]
+        trees.append(empty_tree(leaves)._replace(
+            num_leaves=torch.tensor(leaves, dtype=torch.int32),
+            node_feature=torch.as_tensor(rng.randint(0, f, li),
+                                         dtype=torch.int32),
+            node_threshold_bin=torch.as_tensor(rng.randint(0, b - 1, li),
+                                               dtype=torch.int32),
+            node_default_left=torch.as_tensor(rng.rand(li) < 0.5),
+            node_left=torch.as_tensor(left), node_right=torch.as_tensor(right),
+            leaf_value=torch.as_tensor(rng.randn(leaves).astype(np.float32)),
+            node_seg_lo=torch.as_tensor(
+                np.where((rng.rand(li) < 1 / 3) & segments, 2, -1),
+                dtype=torch.int32)))
+        trees[-1] = trees[-1]._replace(node_seg_hi=torch.where(
+            trees[-1].node_seg_lo >= 0, trees[-1].node_seg_lo + b // 3,
+            trees[-1].node_seg_lo))
+    return stack_trees(trees)
+
+
+@pytest.mark.parametrize("case,mode", [
+    ("model", "tiled"), ("leaves_1023", "tiled"),
+    ("columns_2000", "global"), ("segments_4095", "global")])
+def test_predict_ensemble_geometries_match_plain(dev, case, mode):
+    """Each of the kernel's geometries, chosen by ``launch_geometry`` from
+    the shape (a model's 10 columns; 1,023-leaf trees; the columns inside
+    2,000 handed over as a column slice; 4,095-leaf trees on EFB
+    segments), bitwise its plain version in the float64 mode with biases
+    and in leaves mode, a second launch equal, every launch counted in
+    that geometry."""
+    from lightgbm_tpu_torch.ops import predict as P
+    b, X = _predict_model("u8", "cuda")
+    g = b._boosting
+    tb = g._predict_engine().tables
+    binsT = g.train_set.bin_new_data(X[:4000])
+    mb = g.train_set.missing_bin.to(dev).to(torch.int32)
+    if case in ("leaves_1023", "segments_4095"):
+        leaves = 1023 if case == "leaves_1023" else 4095
+        st = _deep_trees(3, leaves, binsT.shape[0], 32, 5,
+                         segments=case == "segments_4095")
+        tb = P.pack_ensemble(st, int(st.node_left.shape[1]), dev)
+    if case == "columns_2000":
+        cols = 2000
+        big = torch.zeros((cols, binsT.shape[1] + 9), dtype=binsT.dtype,
+                          device=dev)
+        big[:binsT.shape[0], 3:-6] = binsT
+        binsT = big[:, 3:-6]
+        mb = torch.cat([mb, torch.full((cols - mb.shape[0],), -1,
+                                       dtype=torch.int32, device=dev)])
+    n, t = binsT.shape[1], int(tb.nodes.shape[0])
+    geo = P.launch_geometry(n, binsT.shape[0], binsT.element_size(),
+                            int(tb.nodes.shape[1]),
+                            int(tb.stacked.leaf_value.shape[1]), tb.has_cat,
+                            tb.has_seg)
+    assert geo.mode == mode
+    bias = torch.as_tensor(np.random.RandomState(3).randn(t) * 0.01,
+                           dtype=torch.float64, device=dev)
+    cuda_hist.reset_launch_counts()
+    outs = [P.predict_ensemble(tb, binsT, mb, (0, t), 1, bias=bias)
+            for _ in range(2)]
+    ref = P.predict_ensemble_plain(tb, binsT, mb, (0, t), 1, bias, None,
+                                   P.new_carry(n, 1, "float64", dev))
+    assert torch.equal(outs[0], ref) and torch.equal(outs[1], ref)
+    lv = [P.predict_ensemble(tb, binsT, mb, (0, t), leaves=True)
+          for _ in range(2)]
+    ref = P.predict_ensemble_plain(tb, binsT, mb, (0, t), leaves=True)
+    assert torch.equal(lv[0], ref) and torch.equal(lv[1], ref)
+    assert getattr(P.predict_ensemble_geometry, "launches_" + mode) == 4
+    assert sum(getattr(P.predict_ensemble_geometry, c) for c in
+               cuda_hist._COUNTERS["predict_ensemble_geometry"]) == 4
 
 
 @pytest.mark.parametrize("kind", ["u8", "multi", "sparse"])

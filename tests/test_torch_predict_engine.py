@@ -424,3 +424,203 @@ def test_stacked_leaves_and_values(pairs, data):
         _same(predict_values_stacked(st, binsT, mb, depth).numpy(),
               np.asarray(jvalues(gj._stacked(), bins,
                                  gj.train_set.missing_bin)))
+
+
+# ------------------------------------------- the kernel's launch geometry
+# launch_geometry's rule on the shapes it must place (pure Python): the
+# arguments (rows, columns, bytes a bin, records a tree, leaves,
+# categorical, segment nodes) and the geometry it gives: mode, threads a
+# block, rows a tile, the bins' row stride, trees a chunk, a tree's stage
+# bytes, shared bytes a block, blocks
+GEOMETRY_CASES = {
+    # Higgs: 28 uint8 columns, 100 trees of 255 leaves, 2M rows
+    "higgs_u8_255": ((2_000_000, 28, 1, 254, 255, False, False),
+                     ("tiled", 256, 1024, 28, 6, 3072, 28672 + 36864, 1954)),
+    # max_bin 1,023: int16 bins (56 bytes a row, 15 words), 200k rows
+    "max_bin_1023_int16": ((200_000, 28, 2, 254, 255, False, False),
+                           ("tiled", 128, 512, 60, 6, 3072, 30720 + 36864,
+                            391)),
+    # Epsilon: 2,000 uint8 columns, a tile's bins past the block's memory
+    "epsilon_2000": ((400_000, 2000, 1, 254, 255, False, False),
+                     ("global", 256, 256, 0, 0, 3072, 0, 1563)),
+    # a categorical node: the global mode
+    "categorical": ((2_000_000, 28, 1, 254, 255, True, False),
+                    ("global", 256, 256, 0, 0, 3072, 0, 7813)),
+    "leaves_1023": ((2_000_000, 28, 1, 1022, 1023, False, False),
+                    ("tiled", 256, 1024, 28, 1, 12288, 28672 + 24576, 1954)),
+    # 2,047 leaves: 24 KB a tree, past the 16 KB stage
+    "leaves_2047": ((2_000_000, 28, 1, 2046, 2047, False, False),
+                    ("global", 256, 256, 0, 0, 24576, 0, 7813)),
+    "leaves_4095": ((2_000_000, 28, 1, 4094, 4095, False, False),
+                    ("global", 256, 256, 0, 0, 49152, 0, 7813)),
+    # EFB segments: the global mode
+    "leaves_4095_segments": ((2_000_000, 28, 1, 4094, 4095, False, True),
+                             ("global", 256, 256, 0, 0, 49152, 0, 7813)),
+    # small calls: blocks of 64 threads
+    "rows_20k": ((20_000, 28, 1, 254, 255, False, False),
+                 ("tiled", 64, 256, 28, 6, 3072, 7168 + 36864, 79)),
+    # past an 8-byte record: the first design, a thread a row
+    "leaves_40001": ((100_000, 28, 1, 40_000, 40_001, False, False),
+                     ("global", 256, 256, 0, 0, 320_016 + 160_016, 0, 391)),
+    "columns_4097": ((5_000, 4097, 1, 254, 255, False, False),
+                     ("global", 256, 256, 0, 0, 3072, 0, 20)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(GEOMETRY_CASES))
+def test_predict_launch_geometry(case):
+    """Rows a tile, shared bytes and the mode ``launch_geometry`` gives each
+    shape, the layout's offsets, and the block's shared memory within the
+    card's 227 KB."""
+    args, want = GEOMETRY_CASES[case]
+    g = tp.launch_geometry(*args)
+    got = (g.mode, g.threads, g.rows, g.stride, g.chunk_trees, g.stage.bytes,
+           g.smem, g.blocks)
+    assert got == want
+    n, f, bin_bytes = args[:3]
+    assert g.smem <= 232_448 and g.stage.bytes % 16 == 0
+    assert g.blocks * g.rows >= n > (g.blocks - 1) * g.rows
+    assert (g.mode == "tiled") == (tp.stageable(*args[3:])
+                                   and g.smem > 0)
+    if g.mode == "tiled":
+        assert g.rows == 4 * g.threads
+        # bins at 0, an odd number of words a row, then the two buffers
+        assert g.stride >= f * bin_bytes and (g.stride // 4) % 2 == 1
+        assert g.off_trees == -(-g.rows * g.stride // 16) * 16
+        assert g.smem == g.off_trees + 2 * g.chunk_trees * g.stage.bytes
+        assert g.stage.bytes <= 16 * 1024
+    else:
+        assert g.smem == g.off_trees == g.chunk_trees == 0
+
+
+def test_launch_geometry_follows_the_card():
+    """Fewer streaming multiprocessors, larger blocks: the tiles fill two
+    blocks an SM where the rows allow."""
+    shape = (28, 1, 254, 255, False)
+    assert tp.launch_geometry(2_000_000, *shape, sms=132).threads == 256
+    assert tp.launch_geometry(200_000, *shape, sms=132).threads == 128
+    assert tp.launch_geometry(100_000, *shape, sms=132).threads == 64
+    assert tp.launch_geometry(200_000, *shape, sms=16).threads == 256
+    assert tp.launch_geometry(0, *shape).blocks == 1
+
+
+def _stage_trees(rng, n_feats, n_bins):
+    """Random deep trees with default directions, a tree of one leaf, and
+    leaf capacities that differ."""
+    trees = []
+    for n_leaves in (9, 1, 23, 17, 2):
+        if n_leaves == 1:
+            trees.append(empty_tree(12)._replace(leaf_value=torch.as_tensor(
+                rng.randn(12).astype(np.float32))))
+            continue
+        t = _random_deep_tree(rng, n_leaves, n_feats, n_bins)[0]
+        trees.append(t._replace(node_default_left=torch.as_tensor(
+            rng.rand(n_leaves - 1) < 0.5)))
+    return trees
+
+
+def _walk_stages(stage, lay, node_cap, binsT, mb):
+    """The tile kernel's traversal transcribed in numpy over the staged
+    bytes (a landed chunk's records get their exception bins from ``mb``
+    first): leaves [T, N] and the staged leaf values (with the stage's
+    padding)."""
+    t_count = stage.shape[0]
+    raw = stage.numpy()
+    rec = raw[:, :(node_cap + 1) * 8].copy().view(np.uint32).reshape(
+        t_count, node_cap + 1, 2).astype(np.int64)
+    x, y = rec[..., 0], rec[..., 1]
+    feat, thr, dl = x & 0xFFF, (x >> 12) & 0xFFF, x >> 24
+    m = mb[feat]
+    e = np.where((m >= 0) & ((m <= thr) != (dl != 0)), m, 8191)
+    lc, rc = (y >> 5) & 0x1FFF, (y >> 18) & 0x1FFF
+    assert not (y >> 31).any()
+    lv = raw[:, lay.off_leaf:].copy().view(np.float32)
+    bins = binsT.numpy().astype(np.int64)
+    n = bins.shape[1]
+    rows = np.arange(n)
+    out = np.zeros((t_count, n), np.int32)
+    for t in range(t_count):
+        cur = np.zeros(n, np.int64)
+        leaf = np.full(n, -1, np.int64)
+        while (leaf < 0).any():
+            go = leaf < 0
+            bv = bins[feat[t, cur], rows]
+            left = (bv <= thr[t, cur]) != (bv == e[t, cur])
+            code = np.where(left, lc[t, cur], rc[t, cur])
+            done = go & (code >= 4096)
+            leaf[done] = code[done] - 4096
+            cur = np.where(go & (code < 4096), code, cur)
+        out[t] = leaf
+    return out, lv
+
+
+@pytest.mark.parametrize("seed", [12, 14])
+def test_staged_trees_walk_as_the_plain_version(seed):
+    """The trees as ``stage_ensemble`` packs them for the tiled mode
+    (8-byte records numbered breadth first, then the leaf values), walked
+    as the kernel walks them, reach the plain version's leaves, and the
+    staged leaf values are the trees' -- nodes with a missing bin on
+    either side of the threshold and either default direction, a tree of
+    one leaf, capacities that differ."""
+    rng = np.random.RandomState(seed)
+    n_feats, n_bins, n = 5, 32, 400
+    trees = _stage_trees(rng, n_feats, n_bins)
+    st = stack_trees(trees)
+    tables = tp.pack_ensemble(st, 22, "cpu")
+    assert tables.stage is None and not tables.has_cat
+    stage = tp.stage_ensemble(tables.stacked, tables.nodes, tables.depth)
+    node_cap, leaf_cap = tables.nodes.shape[1], st.leaf_value.shape[1]
+    lay = tp.stage_layout(node_cap, leaf_cap)
+    assert tuple(stage.shape) == (len(trees), lay.bytes)
+    assert stage.dtype == torch.uint8
+    bins = rng.randint(0, n_bins, size=(n_feats, n)).astype(np.uint8)
+    binsT = torch.as_tensor(bins)
+    for mb in (np.array([-1, 3, 0, -1, n_bins - 1], np.int64),
+               np.array([n_bins - 1, 0, 7, 1, -1], np.int64)):
+        got, lv = _walk_stages(stage, lay, node_cap, binsT, mb)
+        ref = tp.predict_ensemble_plain(
+            tables, binsT, torch.as_tensor(mb, dtype=torch.int32),
+            (0, len(trees)), leaves=True)
+        _same(got, ref.numpy())
+    assert (got[1] == 0).all()
+    _same(lv[:, :leaf_cap], st.leaf_value.numpy())
+    assert tp.stageable(node_cap, leaf_cap, False, False)
+    assert not tp.stageable(node_cap, leaf_cap, True, False)
+    assert not tp.stageable(node_cap, leaf_cap, False, True)
+
+
+def test_staged_records_are_breadth_first():
+    """A tree's records in breadth-first order: the root first, each
+    depth's nodes together, children after their parents."""
+    rng = np.random.RandomState(2)
+    tree = _random_deep_tree(rng, 40, 4, 16)[0]
+    st = stack_trees([tree])
+    tables = tp.pack_ensemble(st, 39, "cpu")
+    stage = tp.stage_ensemble(tables.stacked, tables.nodes,
+                              tables.depth).numpy()
+    rec = stage[0, :40 * 8].copy().view(np.uint32).reshape(40, 2)
+    # the sentinel after the nodes: both children itself
+    assert rec[39, 0] == 0 and rec[39, 1] == (39 << 5 | 39 << 18)
+    depth = np.zeros(39, np.int64)
+    for node in range(39):
+        for code in ((rec[node, 1] >> 5) & 0x1FFF,
+                     (rec[node, 1] >> 18) & 0x1FFF):
+            if code < 4096:
+                assert code > node
+                depth[code] = depth[node] + 1
+    assert (np.diff(depth) >= 0).all()
+    # several trees at once: each tree's records are its own queue order
+    trees = _stage_trees(rng, 5, 32)
+    st = stack_trees(trees)
+    tables = tp.pack_ensemble(st, 22, "cpu")
+    stage = tp.stage_ensemble(tables.stacked, tables.nodes,
+                              tables.depth).numpy()
+    cap = tables.nodes.shape[1]
+    for t, tree in enumerate(trees):
+        left, right = tree.node_left.tolist(), tree.node_right.tolist()
+        queue = [0] if int(tree.num_leaves) > 1 else []
+        for node in queue:
+            queue += [c for c in (left[node], right[node]) if c >= 0]
+        rec = stage[t, :cap * 8].copy().view(np.uint32).reshape(cap, 2)
+        want = np.array([tree.node_feature[i] for i in queue], np.uint32)
+        assert (rec[:len(queue), 0] & 0xFFF == want).all()

@@ -353,3 +353,125 @@ def test_ranking_parameters_parse_as_jax():
     from lightgbm_tpu_torch.metrics import default_metric_for_objective
     assert default_metric_for_objective("lambdarank") == ["ndcg"]
     assert default_metric_for_objective("rank_xendcg") == ["ndcg"]
+
+
+# ------------------------------------ the kernel's order, transcribed
+_FLT_MIN = np.float32(1.17549435082228750797e-38)
+
+
+def _ftz32(x):
+    x = np.asarray(x, np.float32)
+    return np.where(np.abs(x) < _FLT_MIN, x * np.float32(0.0),
+                    x).astype(np.float32)
+
+
+def _kernel_order_numpy(to, score):
+    """``lambdarank_grads``' sums as the card's kernel adds them, written
+    out in numpy query by query: a top document's (rank < trunc) higher
+    and lower sums in 32 lanes (lane l over partners l, l + 32, ... of the
+    query in ascending index, each from +0), combined by the butterfly
+    v + v[l ^ m] for m = 16, 8, 4, 2, 1; any other document's over the top
+    list in ascending index; the query's higher lambdas by 128 strided
+    partial sums and a halving tree. The pair terms are the port's
+    (``_pair_terms``), the normalisation its ``_normalise``."""
+    lay = to.layout
+    s = torch.from_numpy(score)
+    rank, _, disc, same = trank_ops._preamble(s, lay)
+    rank, disc = rank.numpy(), disc.numpy()
+    lab, gain = to.label.numpy(), to.gain.numpy()
+    trunc = to.truncation_level
+    lam = np.zeros(lay.num_data, np.float32)
+    hess = np.zeros_like(lam)
+    sum_high = np.zeros(lay.num_queries, np.float32)
+    lanes = np.arange(32)
+    for q in range(lay.num_queries):
+        b0, b1 = lay.bounds_np[q], lay.bounds_np[q + 1]
+        n = b1 - b0
+        sl = slice(b0, b1)
+        t = lambda x: torch.from_numpy(np.ascontiguousarray(x))
+        ok = ((lab[sl][:, None] > lab[sl][None, :])
+              & (np.minimum(rank[sl][:, None], rank[sl][None, :]) < trunc))
+        pl, ph = trank_ops._pair_terms(
+            t(score[sl][:, None]), t(score[sl][None, :]),
+            t(lab[sl][:, None]), t(lab[sl][None, :]),
+            t(gain[sl][:, None]), t(gain[sl][None, :]),
+            t(disc[sl][:, None]), t(disc[sl][None, :]), t(ok),
+            to.inv_max_dcg[q], same[q], to.sigmoid, to.norm)
+        pl, ph = pl.numpy(), ph.numpy()
+        # [d, k]: d higher, k lower; and the transposes: k higher, d lower
+        terms = ((ok, pl), (ok, ph), (ok.T, pl.T), (ok.T, ph.T))
+        top = rank[sl] < trunc
+        sums = []
+        for o, x in terms:
+            steps = -(-n // 32)
+            acc = np.zeros((n, 32), np.float32)
+            for st in range(steps):
+                k = st * 32 + lanes
+                inside = k < n
+                kk = np.minimum(k, n - 1)
+                add = o[:, kk] & inside[None, :]
+                acc = np.where(add, _ftz32(acc + x[:, kk]), acc)
+            for m in (16, 8, 4, 2, 1):
+                acc = _ftz32(acc + acc[:, lanes ^ m])
+            top_sum = acc[:, 0]
+            seq = np.zeros(n, np.float32)
+            for k in range(n):
+                seq = np.where(o[:, k], _ftz32(seq + x[:, k]), seq)
+            sums.append(np.where(top, top_sum, seq))
+        hl, hh, ll, lh = sums
+        lam[sl] = _ftz32(hl - ll)
+        hess[sl] = _ftz32(hh + lh)
+        part = np.zeros(128, np.float32)
+        for k in range(n):
+            part[k % 128] = _ftz32(part[k % 128] + hl[k])
+        width = 64
+        while width:
+            part[:width] = _ftz32(part[:width] + part[width:2 * width])
+            width //= 2
+        sum_high[q] = part[0]
+    g, h = trank_ops._normalise(torch.from_numpy(lam), torch.from_numpy(hess),
+                                torch.from_numpy(sum_high), lay.qid,
+                                to.norm)
+    return g.numpy(), h.numpy()
+
+
+def _order_layout(seed):
+    """A query longer than the kernel's partner tile (256) and than 32 x
+    trunc, a one-document query, tied scores, labels all 0, and short
+    ones."""
+    rng = np.random.RandomState(seed)
+    groups = np.array([2100, 1, 40, 7, 33, 12, 64, 1, 130])
+    b = np.concatenate([[0], np.cumsum(groups)])
+    n = int(b[-1])
+    label = rng.randint(0, 5, size=n).astype(np.float64)
+    score = rng.normal(size=n).astype(np.float32)
+    score[b[2]:b[3]] = 0.25                       # all tied
+    label[b[3]:b[4]] = 0.0                        # labels all 0
+    score[b[6]:b[7]] = np.round(score[b[6]:b[7]])  # ties among others
+    return groups, label, score
+
+
+@pytest.mark.parametrize("params", [
+    {},
+    {"lambdarank_truncation_level": 3},
+    {"lambdarank_truncation_level": 5000},
+    {"lambdarank_norm": False, "sigmoid": 2.0}],
+    ids=["default", "trunc3", "trunc_above_n", "no_norm_sigmoid2"])
+def test_exact_is_the_kernel_order(params):
+    """``lambdarank_grads_exact`` is bitwise the kernel's sum order written
+    out in numpy: lane-strided sums and the butterfly for the top
+    documents, ascending sums for the rest, the block's strided sums and
+    halving tree for the query's lambda sum."""
+    groups, label, score = _order_layout(9)
+    _, to = _objectives(dict({"objective": "lambdarank"}, **params), label,
+                        None, groups)
+    s = torch.from_numpy(score)
+    eg, eh = trank_ops.lambdarank_grads_exact(
+        s, to.label, to.gain, to.inv_max_dcg, to.layout, to.sigmoid,
+        to.truncation_level, to.norm)
+    ng, nh = _kernel_order_numpy(to, score)
+    np.testing.assert_array_equal(_bits(eg), _bits(ng))
+    np.testing.assert_array_equal(_bits(eh), _bits(nh))
+    # the layout's block order: longest first, ties by index
+    np.testing.assert_array_equal(to.layout.by_length.numpy(),
+                                  np.argsort(-groups, kind="stable"))
