@@ -6,8 +6,20 @@ hand-written kernel against its plain PyTorch version.
                           [--only precision|control|predict|faults|
                                   distributed|resilience|redesign]
 
-Phases, in order, each printing one JSON line (any failure raises and the
-script exits non-zero; nothing is caught):
+Phases, each printing one JSON line (any failure raises and the script
+exits non-zero; nothing is caught). The full run times the kernel phases
+first, with the card to itself: device, build, hist_tile_root through
+hist_tile_q8, split_epilogue, hist_wide, epilogue_wide and hist_variants.
+Then it starts three lanes (LANES), processes of this script that run
+beside it: ``gangs`` (the distributed group, the resilience group,
+training control), ``predict`` (prediction and the user surface, then the
+faults group) and ``constraints`` (learning to rank, then the split
+constraints). The main process goes on with train through parity_q8_cat,
+the boosting modes, the data layer's training and parity phases and the
+precision modes; then it relays each lane's lines (``at_s`` from the main
+process's start) and prints the kernels line. Control and the
+constraints wait for train's and train_q8's numbers. Below, each group's
+phases in the order they run:
 
   device          nvidia-smi's name and power limit, torch's device name
   build           nvcc of every kernel source in lightgbm_tpu_torch/csrc/
@@ -115,10 +127,10 @@ The boosting modes, on the kernels above (counted from 0 around each run):
                   0.3, so that a tree drops) at 50,000 rows, 3 rounds:
                   card twice and CPU, identical model text
 
-Learning to rank, at MS LTR width (MSLR-WEB30K Fold 1's 2,270,296
-training documents in 18,919 queries, the longest 1,251, 136 dense
-features, labels 0-4 at its shares, made from --seed; valid: 6,000 more
-queries):
+Learning to rank (first in the ``constraints`` lane), at MS LTR width
+(MSLR-WEB30K Fold 1's 2,270,296 training documents in 18,919 queries, the
+longest 1,251, 136 dense features, labels 0-4 at its shares, made from
+--seed; valid: 6,000 more queries):
 
   lambdarank_grads the pairwise lambda kernel (csrc/lambdarank.cu) at
                   train_rank's query layout and labels (scores N(0, 1)) and
@@ -152,8 +164,9 @@ queries):
                   text or the first differing tree and the leaf error
                   before it
 
-The split constraints (monotone, interaction, feature_contri,
-extra_trees, by-node sampling), on train's 2M Higgs-shaped rows:
+The split constraints (after learning to rank in its lane; monotone,
+interaction, feature_contri, extra_trees, by-node sampling), on train's
+2M Higgs-shaped rows:
 
   epilogue_mono   split_epilogue's monotone mode at P=42, B=255, F = 28
                   (tiles of train's own bins) and F = 136 (train_rank's),
@@ -261,7 +274,8 @@ linear_tree):
                   parity_data
 
 With ``--only precision`` the script runs device, build, train and these
-phases alone (the full run runs them after parity_data).
+phases alone (the full run runs them after parity_data, last in the
+main process).
 
 Training control (callbacks, early stopping, custom objectives and
 metrics, init_model, rollback, refit, free_dataset, cv), on the fused
@@ -300,9 +314,10 @@ counted from 0 around it and must be above 0:
 
 With ``--only control`` the script runs device, build, train and these
 phases alone, and prints their launches by path in place of the kernels
-line (the full run runs them after parity_linear).
+line (the full run runs them in the ``gangs`` lane, after the
+resilience group).
 
-and prediction and the user surface (after parity_control):
+and prediction and the user surface (first in the ``predict`` lane):
 
   predict_ensemble the ensemble traversal kernel alone: a 100-round,
                   255-leaf model trained on 500,000 of train's rows, over
@@ -352,7 +367,8 @@ and prediction and the user surface (after parity_control):
 With ``--only predict`` the script runs device, build, train and these
 phases alone, and prints a kernels line of predict_ensemble alone.
 
-then the faults group (fault tolerance; no new kernel: its runs launch
+then the faults group (after the predict group in its lane; fault
+tolerance; no new kernel: its runs launch
 kernels 1-4 and predict_ensemble, counted by path):
 
   train_resume    train's rows (2M + 200k valid, 28 features, 255 leaves),
@@ -404,7 +420,7 @@ kernels 1-4 and predict_ensemble, counted by path):
 With ``--only faults`` the script runs device, build, train and this group
 alone, and prints its launches by path.
 
-The distributed group (after the faults group), the learners of
+The distributed group (first in the ``gangs`` lane), the learners of
 ``tree_learner`` data, feature and voting in a gang of 2 ranks (each a
 ``--child dist`` process; on one card both ranks share it and the gang's
 collectives go through host memory over gloo):
@@ -476,13 +492,19 @@ With ``--only resilience`` the script runs device, build,
 hist_int_planes and this group alone, and prints the two integer-planes
 kernel entries with the group's launches by path.
 
-With ``--only redesign`` the script runs device and build, and with
-``--parent DIR`` the predict_ensemble and lambdarank_grads probes on DIR's
-package and on this one (parent, this, this, parent), around the
-predict_ensemble, predict, lambdarank_grads and train_rank phases; it
-prints the two kernels' entries.
+With ``--only redesign`` the script runs device, build, train,
+epilogue_wide, train_wide, train_wide_q8 and parity_data's four wide runs
+on the card (parity_data_wide: f32, q8, monotone, monotone q8; each
+text's sha256 and launches), and with ``--parent DIR`` the wide
+epilogue's probes on DIR's package and on this one (parent, this, this,
+parent) around them: B = 1023 and 4095, f32 and q8, unconstrained and
+monotone, each event ms, device ms a launch on a cold L2 and the sha256
+of both outputs, which must be the same in every probe; DIR's package
+also trains the four wide runs, whose texts must equal this run's. It
+prints the wide epilogue's four entries (``probes`` in each).
 
-and kernel 5, the experiment script's one-hot histogram:
+and kernel 5, the experiment script's one-hot histogram (after
+epilogue_wide, before the lanes start):
 
   hist_variants   python -m lightgbm_tpu_torch.scripts.exp_hist_variants at
                   its defaults (2M rows, 28 features, 255 bins, variants
@@ -503,15 +525,13 @@ subprocess runs this script's hist_tile phases, and the split epilogue's
 and kernel 5's probes (``redesign_probes``), on DIR's package, same
 inputs and checks, before the first phase and after the last
 (``parent_times``); the ``kernels`` line carries those times as
-``parent_ms``: two designs timed in one run; the predict_ensemble and
-lambdarank_grads probes (the predict group's model over train's 2M rows,
-float64 and leaves; train_rank's layout, the wrapper and the kernel)
-read inputs this run saves (``probe_inputs``) and run on both packages,
-parent, this, this, parent (``probes`` in their entries); the probe
-also trains the
-parity phases' models once on the card with DIR's package, and each of
-parity, parity_sparse, parity_q8 and parity_q8_cat must give the same
-model text (sha256). The epilogue entries also
+``parent_ms``: two designs timed in one run; the wide epilogue's probes
+run on both packages, parent, this, this, parent (``probes`` in its
+entries, outputs bitwise the same); the probe also trains the parity
+phases' models and parity_data's four wide runs once on the card with
+DIR's package, and each of parity, parity_sparse, parity_q8,
+parity_q8_cat and the wide runs must give the same model text (sha256).
+The epilogue entries also
 carry their device ms a launch in the train phases' own profiles
 (``train_device_ms_per_launch``).
 
@@ -990,15 +1010,17 @@ if "amax" not in inspect.signature(cuda_hist.hist_tile).parameters:
     hist_tile.__dict__.update(cuda_hist.hist_tile.__dict__)  # its counters
     cuda_hist.hist_tile = hist_tile
 cuda_hist.build_kernels()
-seed, what, inputs = int(sys.argv[5]), sys.argv[6], sys.argv[7] or None
+import lightgbm_tpu_torch as lgb
+seed, what = int(sys.argv[5]), sys.argv[6]
 if what == "all":
     times = cs._times(cs.kernel_phases(
         cuda_hist, int(sys.argv[3]), int(sys.argv[4]), seed))
-    times.update(cs.redesign_probes(cuda_hist, seed, inputs))
-    import lightgbm_tpu_torch as lgb
+    times.update(cs.redesign_probes(cuda_hist, seed))
     times["parity_sha256"] = cs.parity_text_hashes(lgb, seed)
 else:
-    times = cs.redesign_probes(cuda_hist, seed, inputs, cs.SECOND_PASS)
+    times = cs.redesign_probes(cuda_hist, seed, cs.WIDE_PASS)
+times["wide_sha256"] = {k: v["sha256"]
+                        for k, v in cs.wide_texts(lgb, seed).items()}
 print(json.dumps(times))
 """
 
@@ -1006,41 +1028,21 @@ print(json.dumps(times))
 VARIANTS = ("2x2048", "4x2048", "4x1024", "7x1024")   # the script's default
 
 
-SECOND_PASS = ("predict_ensemble", "lambdarank_grads")
-PROBES = ("split_epilogue", "hist_onehot") + SECOND_PASS
+WIDE_PASS = ("split_epilogue_wide",)
+PROBES = ("split_epilogue", "hist_onehot") + WIDE_PASS
 
 
-def probe_inputs(lgb, args, path: str) -> None:
-    """The predict_ensemble and lambdarank_grads probes' inputs, made with
-    this run's package and saved to ``path`` so that another checkout's
-    probe reads the same ones: the predict group's model (its stacked
-    trees and depth), the bins of train's rows and their missing bins;
-    train_rank's labels and query sizes."""
-    (b, X, _), _ = predict_group_model(lgb, args)
-    g = b._boosting
-    tables = g._predict_engine().tables
-    train = rank_datasets(lgb, args.seed)[0]
-    torch.save({"stacked": [x.cpu() for x in tables.stacked],
-                "depth": tables.depth,
-                "binsT": g.train_set.bin_new_data(X).cpu(),
-                "missing_bin": g.train_set.missing_bin.cpu(),
-                "label": np.asarray(train.get_label()),
-                "group": np.asarray(train.get_group())}, path)
-
-
-def redesign_probes(cuda_hist, seed: int = 0, inputs: str = None,
-                    kernels=PROBES):
+def redesign_probes(cuda_hist, seed: int = 0, kernels=PROBES):
     """The redesigned kernels timed on any checkout's package at the main
     path's shapes: per form [event ms, device ms] --
     ``split_epilogue`` and ``split_epilogue_q8`` (P=42, F=28, B=255, device
-    ms a launch over EPI_LAUNCHES, each on a cold L2) and
+    ms a launch over EPI_LAUNCHES, each on a cold L2),
     ``hist_onehot/<variant>`` at the experiment script's defaults (2M rows,
-    28 features, 255 bins, its data); with ``inputs`` (``probe_inputs``'
-    file), ``predict_ensemble/float64`` and ``/leaves`` (the predict
-    group's 100 trees over train's 2M rows; ``/sha256`` of both outputs'
-    bytes), ``lambdarank_grads/wrapper`` (train_rank's layout and labels,
-    scores N(0, 1) from ``seed``) and ``lambdarank_grads/kernel`` (the
-    wrapper profile's kernel alone, device ms)."""
+    28 features, 255 bins, its data) and
+    ``split_epilogue_wide/b<B>[_q8][_mono]`` at B = 1,023 and 4,095, f32
+    and q8, unconstrained and monotone (epilogue_wide's inputs; device ms
+    as the B = 255 probes), each with ``/sha256`` of both outputs'
+    bytes."""
     out = {}
     if "split_epilogue" in kernels:
         for q8 in (False, True):
@@ -1060,58 +1062,35 @@ def redesign_probes(cuda_hist, seed: int = 0, inputs: str = None,
                 device_ms(call, reps=5, need="hist_onehot_kernel")[0]]
             del bp, rp
         del binsT, rhs
-    saved = None if inputs is None else torch.load(inputs,
-                                                   weights_only=False)
-    if saved is not None and "predict_ensemble" in kernels:
-        from lightgbm_tpu_torch.models.tree import TreeArrays
-        from lightgbm_tpu_torch.ops import predict as P
-        tables = P.pack_ensemble(TreeArrays(*saved["stacked"]),
-                                 saved["depth"], "cuda")
-        binsT = saved["binsT"].cuda()
-        mb = saved["missing_bin"].cuda()
-        t = int(tables.nodes.shape[0])
-        for key, kw in (("float64", {}), ("leaves", {"leaves": True})):
-            def call():
-                return P.predict_ensemble(tables, binsT, mb, (0, t), 1, **kw)
-            res = call()
-            out[f"predict_ensemble/{key}"] = [
-                time_ms(call), device_ms(call, need="predict_ensemble")[0]]
-            out[f"predict_ensemble/{key}/sha256"] = hashlib.sha256(
-                res.cpu().numpy().tobytes()).hexdigest()
-            del res
-        del tables, binsT, mb
-    if saved is not None and "lambdarank_grads" in kernels:
-        from lightgbm_tpu_torch import ranking
-        from lightgbm_tpu_torch.config import Config
-        from lightgbm_tpu_torch.ops import rank
-        obj = ranking.create_ranking_objective(
-            Config.from_params(dict(RANK_PARAMS, device_type="cuda")))
-        obj.init(saved["label"], None, saved["group"], device="cuda")
-        g = torch.Generator(device="cuda").manual_seed(seed + 43)
-        score = torch.randn(len(saved["label"]), generator=g, device="cuda")
-        args = (score, obj.label, obj.gain, obj.inv_max_dcg, obj.layout,
-                obj.sigmoid, obj.truncation_level, obj.norm)
-
-        def call():
-            return rank.lambdarank_grads(*args)
-        dev, split = device_ms(call)
-        out["lambdarank_grads/wrapper"] = [time_ms(call), dev]
-        out["lambdarank_grads/kernel"] = split.get("lambdarank_kernel",
-                                                   "not measured")
+    if "split_epilogue_wide" in kernels:
+        for b in (WIDE_B, WIDE_STRESS_B):
+            for q8 in (False, True):
+                base = epilogue_inputs(cuda_hist, seed, q8=q8, b=b)
+                for mono in (False, True):
+                    call = wide_epilogue_call(cuda_hist, base, q8, mono)
+                    kf, kc = call()
+                    key = wide_form(b, q8, mono)
+                    out[key] = [time_ms(call), device_ms(
+                        call, per_profile=EPI_LAUNCHES,
+                        need="split_epilogue", cold_each=True)[0]]
+                    out[key + "/sha256"] = hashlib.sha256(
+                        kf.cpu().numpy().tobytes()
+                        + kc.cpu().numpy().tobytes()).hexdigest()
     torch.cuda.empty_cache()
     return out
 
 
 def parent_times(parent_dir: str, n: int, valid_rows: int, seed: int,
-                 what: str = "all", inputs: str = None):
+                 what: str = "all"):
     """The other checkout's kernels timed by this script's phases: per
     form, [event ms, device ms]. ``what``: "all" (the hist_tile forms,
     every probe of ``redesign_probes`` and the parity texts' hashes) or
-    "second_pass" (the predict_ensemble and lambdarank_grads probes)."""
+    "wide" (the wide epilogue's probes); both with the card texts' hashes
+    of parity_data's four wide runs (``wide_sha256``)."""
     res = subprocess.run([sys.executable, "-c", PARENT_PROBE,
                           os.path.abspath(parent_dir),
                           os.path.abspath(__file__), str(n),
-                          str(valid_rows), str(seed), what, inputs or ""],
+                          str(valid_rows), str(seed), what],
                          cwd=parent_dir, capture_output=True, text=True,
                          timeout=900)
     if res.returncode != 0:
@@ -1121,25 +1100,20 @@ def parent_times(parent_dir: str, n: int, valid_rows: int, seed: int,
 
 
 def attach_probes(entries, own, parent):
-    """Each second-pass entry's probe times (``probes``: per form, this
+    """Each wide epilogue entry's probe times (``probes``: per form, this
     run's and the other checkout's in the order taken), after checking
-    that every predict probe gave the same bits."""
+    that every probe of a form gave the same bits. ``entries``: (entry,
+    (q8, monotone)) pairs."""
     runs = own + parent
-    for key in ("predict_ensemble/float64/sha256",
-                "predict_ensemble/leaves/sha256"):
-        if len({r[key] for r in runs}) != 1:
-            raise AssertionError(f"the probes' {key} differ between "
-                                 f"checkouts or calls")
-    for entry in entries:
-        forms = {"predict_ensemble": ("predict_ensemble/float64",
-                                      "predict_ensemble/leaves"),
-                 "lambdarank_grads": ("lambdarank_grads/wrapper",
-                                      "lambdarank_grads/kernel")}.get(
-                                          entry["name"], ())
-        if forms:
-            entry["probes"] = {f: {"change": [r[f] for r in own],
-                                   "parent": [r[f] for r in parent]}
-                               for f in forms}
+    for entry, (q8, mono) in entries:
+        forms = [wide_form(b, q8, mono) for b in (WIDE_B, WIDE_STRESS_B)]
+        for form in forms:
+            if len({r[form + "/sha256"] for r in runs}) != 1:
+                raise AssertionError(f"the probes' {form} outputs differ "
+                                     f"between checkouts or calls")
+        entry["probes"] = {f: {"change": [r[f] for r in own],
+                               "parent": [r[f] for r in parent]}
+                           for f in forms}
 
 
 EPI_LAUNCHES = 50    # epilogue launches in one profile, each on a cold L2
@@ -3151,30 +3125,43 @@ def hist_wide_phase(cuda_hist, n, seed):
     return out
 
 
+def wide_form(b: int, q8: bool, mono: bool) -> str:
+    """A wide epilogue probe's name: split_epilogue_wide/b<B>[_q8][_mono]."""
+    return (f"split_epilogue_wide/b{b}" + ("_q8" if q8 else "")
+            + ("_mono" if mono else ""))
+
+
+def wide_epilogue_call(cuda_hist, base, q8: bool, mono: bool, plain=False):
+    """split_epilogue (or with ``plain`` its plain version) on
+    epilogue_inputs' ``base``; ``mono``: the monotone mode with each
+    slot's bounds +-0.02 and directions +1, -1, 0 over the features."""
+    args = list(base[:6])
+    if mono:
+        args[3] = args[3].clone()
+        args[3][:, 4], args[3][:, 5] = -0.02, 0.02
+        args[4] = args[4].clone()
+        f = args[4].shape[0]
+        args[4][:, 3] = MONO_DIRS.repeat(f // 3 + 1)[:f].cuda()
+    qs = base[6] if q8 else None
+    fn = cuda_hist.split_epilogue_plain if plain else cuda_hist.split_epilogue
+    return lambda: fn(*args, qs, with_monotone=mono)
+
+
 def epilogue_wide_phase(cuda_hist, seed=0):
     """split_epilogue's wide mode at P=42, F=28, B = 1023 and 4095, f32 and
-    q8, unconstrained and monotone (each slot's bounds +-0.02, directions
-    +1, -1, 0 over the features), with the B = 255 mode beside it on
-    inputs made the same way: bitwise its plain version and a second
-    launch, each launch counted in its own mode's counter; ms, device ms
-    a launch (50 a profile, each on a cold L2), plain ms, the bound."""
+    q8, unconstrained and monotone (wide_epilogue_call), with the B = 255
+    mode beside it on inputs made the same way: bitwise its plain version
+    and a second launch, each launch counted in its own mode's counter;
+    ms, device ms a launch (50 a profile, each on a cold L2), plain ms,
+    the bound."""
     out = {}
     for b in (B, WIDE_B, WIDE_STRESS_B):
         for q8 in (False, True):
             base = epilogue_inputs(cuda_hist, seed, q8=q8, b=b)
             for mono in (False, True):
-                args = list(base[:6])
-                if mono:
-                    args[3] = args[3].clone()
-                    args[3][:, 4], args[3][:, 5] = -0.02, 0.02
-                    args[4] = args[4].clone()
-                    args[4][:, 3] = MONO_DIRS.repeat(F // 3 + 1)[:F].cuda()
-                qs = base[6] if q8 else None
-
-                def call(a=args, qs=qs, mono=mono):
-                    return cuda_hist.split_epilogue(*a, qs,
-                                                    with_monotone=mono)
-
+                call = wide_epilogue_call(cuda_hist, base, q8, mono)
+                plain = wide_epilogue_call(cuda_hist, base, q8, mono,
+                                           plain=True)
                 cuda_hist.reset_launch_counts()
                 kf, kc = call()
                 kf2, kc2 = call()
@@ -3182,8 +3169,7 @@ def epilogue_wide_phase(cuda_hist, seed=0):
                         + ("_wide" if b > 256 else "")
                         + ("_mono" if mono else "") + ("_q8" if q8 else ""))
                 counts = cuda_hist.launch_counts()
-                pf, pc = cuda_hist.split_epilogue_plain(*args, qs,
-                                                        with_monotone=mono)
+                pf, pc = plain()
                 torch.cuda.synchronize()
                 for x, y in ((kc, pc), (kf, pf), (kc, kc2), (kf, kf2)):
                     if not torch.equal(x.view(torch.int32),
@@ -3197,7 +3183,7 @@ def epilogue_wide_phase(cuda_hist, seed=0):
                 valid = int(torch.isfinite(kc[..., 0]).sum())
                 if valid == 0:
                     raise AssertionError(f"no valid candidate at B={b}")
-                bms, by = epilogue_bound(args[2], q8, mono=mono, b=b)
+                bms, by = epilogue_bound(base[2], q8, mono=mono, b=b)
                 out[f"b{b}" + ("_q8" if q8 else "")
                     + ("_mono" if mono else "")] = {
                     "bitwise_vs_plain": True, "deterministic": True,
@@ -3207,10 +3193,8 @@ def epilogue_wide_phase(cuda_hist, seed=0):
                     "device_ms": device_ms(
                         call, per_profile=EPI_LAUNCHES,
                         need="split_epilogue", cold_each=True)[0],
-                    "plain_ms": time_ms(
-                        lambda: cuda_hist.split_epilogue_plain(
-                            *args, qs, with_monotone=mono),
-                        reps=3 if b > WIDE_B else 10, warm=1),
+                    "plain_ms": time_ms(plain, reps=3 if b > WIDE_B else 10,
+                                        warm=1),
                     "library_ms": None, "bound_ms": bms, "bound_by": by}
     return out
 
@@ -3534,6 +3518,38 @@ def parity_data_phase(lgb, seed):
         raise AssertionError("the wide monotone runs missed the epilogue's "
                              "wide monotone mode")
     return out
+
+
+WIDE_TEXTS = ("wide", "wide_q8", "wide_mono", "wide_mono_q8")
+
+
+def wide_texts(lgb, seed: int):
+    """parity_data's four wide fused runs (max_bin 1023: f32, q8,
+    monotone, monotone q8), one card training each: name -> {"sha256":
+    the model text's, "launches": the nonzero launch counts}. A
+    checkout's package run by --parent's probe gives the texts its
+    parity_data phase would."""
+    import tempfile
+    from lightgbm_tpu_torch.ops import cuda_hist
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        setups = parity_data_setups(seed, tmp)
+        for name in WIDE_TEXTS:
+            cuda_hist.reset_launch_counts()
+            text = parity_text(lgb, setups[name], "cuda", PARITY_DATA_ROUNDS)
+            out[name] = {"sha256": _sha(text), "launches": {
+                k: v for k, v in cuda_hist.launch_counts().items() if v}}
+    return out
+
+
+def same_wide_texts(hashes, parent):
+    """With --parent: parity_data's four wide card texts (``hashes``,
+    name -> sha256) must be the other checkout's, in each of its probes."""
+    for name, sha in hashes.items():
+        if any(pt["wide_sha256"][name] != sha for pt in parent):
+            raise AssertionError(f"parity_data/{name}: the card's model "
+                                 f"text differs from the parent checkout's")
+    return {"wide_texts_equal_parent": True}
 
 
 # -------------------------------------------------------- precision modes
@@ -6459,47 +6475,287 @@ def _full_numbers(root, real, multi):
             "multi_slot": {k: multi[k] for k in keys}}
 
 
-def redesign_group(lgb, cuda_hist, args):
-    """``--only redesign``: the second passes' kernels, predict_ensemble
-    and lambdarank_grads, alone -- the predict_ensemble and predict
-    phases, lambdarank_grads and train_rank -- and with ``--parent DIR``
-    their probes on DIR's package and on this one, in turns (parent,
-    this, this, parent), on the same inputs. Returns the two kernel
-    entries."""
-    import tempfile
-    parent, own = [], []
-    with tempfile.TemporaryDirectory() as tmp:
-        inputs = os.path.join(tmp, "probe_inputs.pt")
-        if args.parent:
-            probe_inputs(lgb, args, inputs)
-
-        def probe(other: bool):
-            if other:
-                parent.append(parent_times(args.parent, args.rows,
-                                           args.valid_rows, args.seed,
-                                           "second_pass", inputs))
-                emit("parent_times", dir=args.parent, ms=parent[-1])
-            else:
-                own.append(redesign_probes(cuda_hist, args.seed, inputs,
-                                           SECOND_PASS))
-                emit("probe_times", ms=own[-1])
-        if args.parent:
-            probe(True)
-            probe(False)
-        pe, paths = predict_kernel_phases(lgb, cuda_hist, args)
-        rk = rank_kernel_phase(lgb, cuda_hist, args)
-        emit("lambdarank_grads", **rk)
-        trk, rank_launches = train_rank_phase(lgb, cuda_hist, args)
-        emit("train_rank", **trk)
-        if args.parent:
-            probe(False)
-            probe(True)
-    entries = [predict_entry(pe, paths), rank_entry(rk, rank_launches)]
-    entries[1]["launches_by_path"] = {
-        "train_rank": rank_launches["lambdarank_grads.launches"]}
-    if args.parent:
-        attach_probes(entries, own, parent)
+def epilogue_wide_entries(ew, q8: bool, fused, prof, mono_launches,
+                          mono_path: str):
+    """The wide epilogue's two kernels-line entries of one mode (f32 or
+    q8), each with epilogue_wide's numbers at B = 1023 and those at 4095
+    and 255 beside them: unconstrained (launches from ``fused``, the
+    train_wide run's counts, and the device ms a launch in its profile
+    ``prof``) and monotone (launches from ``mono_launches``, the counts
+    of a wide monotone run on ``mono_path``, which must hold some)."""
+    keys = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    tag, sfx = (", q8", "_q8") if q8 else ("", "")
+    entries = []
+    for mono in (False, True):
+        m = "_mono" if mono else ""
+        forms = {bb: ew[f"b{bb}{sfx}{m}"] for bb in (WIDE_B, WIDE_STRESS_B, B)}
+        counter = f"split_epilogue.launches_wide{m}{sfx}"
+        launched = (mono_launches if mono else fused).get(counter, 0)
+        path = mono_path if mono else "train_wide" + sfx
+        if launched <= 0:
+            raise AssertionError(f"{path} launched no {counter}")
+        entry = {
+            "name": f"split_epilogue{m} (wide{tag})", "route": "cuda",
+            "source": "lightgbm_tpu_torch/csrc/split_epilogue.cu",
+            "replaces": "lightgbm_tpu/ops/pallas_hist.py:465 "
+                        "_epilogue_compute"
+                        + (" with_monotone=True" if mono else "")
+                        + " at num_bins > 256" + (", mode q8" if q8 else "")
+                        + " (epilogue of :497 and :527)",
+            "launches": launched,
+            "max_abs_err": max(forms[WIDE_B]["max_abs_err"],
+                               forms[WIDE_STRESS_B]["max_abs_err"]),
+            **{k: forms[WIDE_B][k] for k in keys},
+            f"b{WIDE_STRESS_B}": {k: forms[WIDE_STRESS_B][k] for k in keys},
+            f"b{B}": {k: forms[B][k] for k in keys},
+            "launches_by_path": {path: launched}}
+        if not mono:
+            entry["train_device_ms_per_launch"] = per_launch(
+                prof, "split_epilogue_wide")
+        entries.append(entry)
     return entries
+
+
+def redesign_group(lgb, cuda_hist, args):
+    """``--only redesign``: the wide epilogue alone -- train (the AUC the
+    wide runs are held to), epilogue_wide, train_wide and train_wide_q8,
+    parity_data's four wide runs on the card -- and with ``--parent DIR``
+    its probes on DIR's package and on this one, in turns (parent, this,
+    this, parent), on the same inputs, and those four runs' model texts
+    against DIR's. Returns the wide epilogue's four entries."""
+    parent, own = [], []
+
+    def probe(other: bool):
+        if other:
+            parent.append(parent_times(args.parent, args.rows,
+                                       args.valid_rows, args.seed, "wide"))
+            emit("parent_times", dir=args.parent, ms=parent[-1])
+        else:
+            own.append(redesign_probes(cuda_hist, args.seed, WIDE_PASS))
+            emit("probe_times", ms=own[-1])
+    if args.parent:
+        probe(True)
+        probe(False)
+    tr, _ = train_phase(lgb, cuda_hist, args)
+    emit("train", **tr)
+    ew = epilogue_wide_phase(cuda_hist, args.seed)
+    emit("epilogue_wide", p=P, f=F, **ew)
+    twd, wide_launches = train_wide_phase(lgb, cuda_hist, args,
+                                          tr["valid_auc"])
+    emit("train_wide", **twd)
+    twq, wideq_launches = train_wide_phase(lgb, cuda_hist, args,
+                                           twd["valid_auc"], q8=True)
+    emit("train_wide_q8", **twq)
+    texts = wide_texts(lgb, args.seed)
+    if args.parent:
+        probe(False)
+        probe(True)
+        same = same_wide_texts({k: v["sha256"] for k, v in texts.items()},
+                               parent)
+    emit("parity_data_wide", **texts, **(same if args.parent else {}))
+    entries = []
+    for q8, fused, prof in ((False, wide_launches, twd["profile"]),
+                            (True, wideq_launches, twq["profile"])):
+        mono_run = "wide_mono" + ("_q8" if q8 else "")
+        entries += epilogue_wide_entries(ew, q8, fused, prof,
+                                         texts[mono_run]["launches"],
+                                         f"parity_data/{mono_run}")
+    if args.parent:
+        attach_probes(zip(entries, ((False, False), (False, True),
+                                    (True, False), (True, True))),
+                      own, parent)
+    return entries
+
+
+# ------------------------------------------------------------------ lanes
+# The full run's groups that need nothing of the main process but train's
+# and train_q8's numbers run beside its later phases: each lane is a
+# process of this script (--child lane), all started together once the
+# main process has timed its kernel phases. Their time is mostly the
+# host's (process starts, gang ranks waiting on each other, the CPU's
+# runs in the kernels' orders) and the card holds them all at once. A
+# lane runs its groups in the order listed, writes its phase lines to its
+# own output (relayed after the main process's phases; ``at_s`` counted
+# from the main process's start) and its numbers as JSON; a lane that
+# fails, or runs past LANE_DEADLINE, fails the run.
+LANES = {"gangs": ("distributed", "resilience", "control"),
+         "predict": ("predict", "faults"),
+         "constraints": ("rank", "constraints")}
+LANE_DEADLINE = 1100     # seconds from the main process's start
+LANE_REF = "ref.json"    # train's and train_q8's numbers, for control and
+                         # constraints (written by the main process)
+
+
+def lane_ref(workdir: str) -> dict:
+    """The main process's train numbers (``LANE_REF`` in ``workdir``),
+    waited for up to the lanes' deadline."""
+    path = os.path.join(workdir, LANE_REF)
+    while not os.path.exists(path):
+        if time.time() > _T0 + LANE_DEADLINE:
+            raise AssertionError(f"lane: no {LANE_REF} from the main "
+                                 f"process")
+        time.sleep(0.5)
+    with open(path) as fh:
+        return json.load(fh)
+
+
+def rank_phases(lgb, cuda_hist, args):
+    """The ranking phases, each emitted; returns lambdarank_grads' numbers
+    and train_rank's and train_rank_xendcg's launches."""
+    rk = rank_kernel_phase(lgb, cuda_hist, args)
+    emit("lambdarank_grads", **rk)
+    emit("hist_tile_rank", **hist_rank_phase(lgb, cuda_hist, args))
+    trk, rank_launches = train_rank_phase(lgb, cuda_hist, args)
+    emit("train_rank", **trk)
+    trx, xe_launches = train_rank_phase(lgb, cuda_hist, args, "rank_xendcg")
+    emit("train_rank_xendcg", **trx)
+    emit("parity_rank", **parity_rank_phase(lgb, args.seed))
+    return {"rk": rk, "rank_launches": rank_launches,
+            "xe_launches": xe_launches}
+
+
+def constraint_phases(lgb, cuda_hist, args, ref):
+    """The split constraints' phases, each emitted (``ref``: LANE_REF's
+    train numbers); returns epilogue_mono's numbers, train_mono's and
+    train_mono_q8's launches and profiles."""
+    epm = epilogue_mono_phase(lgb, cuda_hist, args, real_bins(
+        args.rows, args.valid_rows, args.seed)["higgs"])
+    emit("epilogue_mono", p=P, b=B, **epm)
+    tmn, mono_launches = train_mono_phase(lgb, cuda_hist, args,
+                                          ref["train"]["valid_auc"])
+    emit("train_mono", **tmn)
+    tmq, monoq_launches = train_mono_phase(lgb, cuda_hist, args,
+                                           ref["train_q8"]["valid_auc"],
+                                           q8=True)
+    emit("train_mono_q8", **tmq)
+    emit("train_mono_modes", **train_mono_modes_phase(lgb, cuda_hist, args,
+                                                      CONSTRAINED_ROUNDS))
+    emit("train_constraints", **train_constraints_phase(
+        lgb, cuda_hist, args, CONSTRAINED_ROUNDS))
+    emit("parity_constraints", **parity_constraints_phase(lgb, args.seed))
+    return {"epm": epm, "mono_launches": mono_launches,
+            "monoq_launches": monoq_launches,
+            "mono_profile": tmn["profile"], "monoq_profile": tmq["profile"]}
+
+
+def _lane_group(group, lgb, cuda_hist, args) -> dict:
+    """One group of a lane, its numbers as a JSON-able dict."""
+    if group == "distributed":
+        hp, paths = distributed_phases(lgb, cuda_hist, args)
+        return {"dist_hp": hp, "dpaths": paths}
+    if group == "resilience":
+        return {"rpaths": resilience_phases(lgb, cuda_hist, args)}
+    if group == "control":
+        return {"control": control_phases(lgb, cuda_hist, args,
+                                          lane_ref(args.workdir)["train"])}
+    if group == "predict":
+        return {"pentry": predict_phases(lgb, cuda_hist, args)}
+    if group == "faults":
+        fpaths, po_launches = faults_phases(lgb, cuda_hist, args)
+        return {"fpaths": fpaths, "po_launches": po_launches}
+    if group == "rank":
+        return rank_phases(lgb, cuda_hist, args)
+    return constraint_phases(lgb, cuda_hist, args, lane_ref(args.workdir))
+
+
+def lane_main(args) -> int:
+    """``--child lane``: one lane's groups, then their numbers as one JSON
+    object in ``<workdir>/<lane>.json``. Each lane takes an equal share of
+    the host's cores for torch's CPU threads."""
+    global _T0
+    _T0 = args.t0
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch.ops import cuda_hist, rank  # noqa: F401 (counts)
+    torch.set_num_threads(max(1, (os.cpu_count() or 4) // (len(LANES) + 1)))
+    cuda_hist.build_kernels()
+    out = {}
+    for group in LANES[args.lane]:
+        out.update(_lane_group(group, lgb, cuda_hist, args))
+    tmp = os.path.join(args.workdir, f"{args.lane}.json.tmp")
+    with open(tmp, "w") as fh:
+        json.dump(out, fh)
+    os.replace(tmp, os.path.join(args.workdir, f"{args.lane}.json"))
+    return 0
+
+
+def start_lanes(args, workdir: str) -> dict:
+    """Every lane of LANES as a process of this script in a session of its
+    own (stop_lanes ends it with whatever it started), its output and
+    error output to files in ``workdir``."""
+    procs = {}
+    for lane in LANES:
+        cmd = [sys.executable, os.path.abspath(__file__), "--child", "lane",
+               "--lane", lane, "--workdir", workdir, "--t0", repr(_T0),
+               "--seed", str(args.seed), "--rows", str(args.rows),
+               "--valid-rows", str(args.valid_rows), "--rounds",
+               str(args.rounds)]
+        with open(os.path.join(workdir, f"{lane}.out"), "w") as out, \
+                open(os.path.join(workdir, f"{lane}.err"), "w") as err:
+            procs[lane] = subprocess.Popen(cmd, stdout=out, stderr=err,
+                                           start_new_session=True)
+    return procs
+
+
+def write_lane_ref(workdir: str, ref: dict) -> None:
+    tmp = os.path.join(workdir, LANE_REF + ".tmp")
+    with open(tmp, "w") as fh:
+        json.dump(ref, fh)
+    os.replace(tmp, os.path.join(workdir, LANE_REF))
+
+
+def _relay(workdir: str, lane: str) -> str:
+    """Prints a lane's phase lines and error output (once: the files go);
+    returns the error output."""
+    out, err = (os.path.join(workdir, f"{lane}.{k}") for k in ("out", "err"))
+    if not os.path.exists(out):
+        return ""
+    with open(out) as fh:
+        sys.stdout.write(fh.read())
+    sys.stdout.flush()
+    with open(err) as fh:
+        text = fh.read()
+    sys.stderr.write(text)
+    sys.stderr.flush()
+    os.remove(out)
+    os.remove(err)
+    return text
+
+
+def finish_lanes(procs: dict, workdir: str) -> dict:
+    """Waits for every lane up to LANE_DEADLINE; relays each one's phase
+    lines and error output, in LANES' order; fails if one failed or ran
+    out of time. Returns the lanes' numbers, merged."""
+    out = {}
+    for lane, proc in procs.items():
+        try:
+            rc = proc.wait(timeout=max(1.0, _T0 + LANE_DEADLINE
+                                       - time.time()))
+        except subprocess.TimeoutExpired:
+            rc = None
+        err = _relay(workdir, lane)
+        if rc != 0:
+            raise AssertionError(
+                f"lane {lane} ({', '.join(LANES[lane])}) "
+                + ("ran past its deadline" if rc is None else f"exited {rc}")
+                + f": {err[-3000:]}")
+        with open(os.path.join(workdir, f"{lane}.json")) as fh:
+            out.update(json.load(fh))
+    return out
+
+
+def stop_lanes(procs: dict, workdir: str) -> None:
+    """Ends every lane's session (the lane and what it started) and relays
+    what a lane not yet relayed had written."""
+    import signal
+    for lane, proc in procs.items():
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        proc.wait()
+        _relay(workdir, lane)
 
 
 def main() -> int:
@@ -6521,8 +6777,12 @@ def main() -> int:
                          "group's phases alone (a quicker check of one "
                          "group; without it every phase runs)")
     # the faults group's child processes (see child_main)
-    ap.add_argument("--child", choices=("resume", "oom", "dist"),
+    ap.add_argument("--child", choices=("resume", "oom", "dist", "lane"),
                     default=None, help=argparse.SUPPRESS)
+    # a lane of the full run (see lane_main)
+    ap.add_argument("--lane", choices=tuple(LANES), default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--t0", type=float, default=None, help=argparse.SUPPRESS)
     # the distributed group's ranks (see dist_child_main)
     for flag, kind in (("--rank", int), ("--world", int), ("--port", int)):
         ap.add_argument(flag, type=kind, default=0, help=argparse.SUPPRESS)
@@ -6537,6 +6797,8 @@ def main() -> int:
         return 1
     if args.child == "dist":
         return dist_child_main(args)
+    if args.child == "lane":
+        return lane_main(args)
     if args.child:
         return child_main(args)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -6641,17 +6903,12 @@ def main() -> int:
             "platform": "gpu", "kind": kind,
             "count": torch.cuda.device_count()}}), flush=True)
         return 0
-    parent, own, inputs = [], [], None
+    parent, own = [], []
     if args.parent:
-        import tempfile
-        probe_dir = tempfile.TemporaryDirectory()
-        inputs = os.path.join(probe_dir.name, "probe_inputs.pt")
-        probe_inputs(lgb, args, inputs)
         parent.append(parent_times(args.parent, n, args.valid_rows,
-                                   args.seed, "all", inputs))
+                                   args.seed))
         emit("parent_times", dir=args.parent, ms=parent[-1])
-        own.append(redesign_probes(cuda_hist, args.seed, inputs,
-                                   SECOND_PASS))
+        own.append(redesign_probes(cuda_hist, args.seed, WIDE_PASS))
         emit("probe_times", ms=own[-1])
     kp = kernel_phases(cuda_hist, n, args.valid_rows, args.seed)
     emit("hist_tile_root", n=n, b=B, p=P, leaves=LEAVES,
@@ -6671,105 +6928,95 @@ def main() -> int:
          plane={"f": F_CAT, **q8_plane}, plane_rungs=q8_plane_rungs)
     epi = epilogue_phase(cuda_hist)
     emit("split_epilogue", p=P, f=F, b=B, **epi)
-
-    tr, launches = train_phase(lgb, cuda_hist, args)
-    emit("train", **tr)
-    emit("parity", **same_as_parent(parity_phase(lgb, args.seed), "parity",
-                                    parent))
-
-    tc, cat_launches = train_cat_phase(lgb, cuda_hist, args)
-    emit("train_cat", **tc)
-    emit("parity_cat", **parity_cat_phase(lgb, args.seed))
-    emit("parity_sparse", **same_as_parent(
-        parity_sparse_phase(lgb, args.seed), "parity_sparse", parent))
-
-    epi_q8 = epilogue_q8_phase(cuda_hist)
-    emit("split_epilogue_q8", p=P, f=F, b=B, **epi_q8)
-    tq, q8_launches = train_phase(lgb, cuda_hist, args,
-                                  q8_ref_auc=tr["valid_auc"])
-    emit("train_q8", **tq)
-    tqc, q8_cat_launches = train_cat_phase(lgb, cuda_hist, args,
-                                           q8_ref_auc=tc["valid_auc"])
-    emit("train_q8_cat", **tqc)
-    emit("parity_q8", **same_as_parent(parity_q8_phase(lgb, args.seed),
-                                       "parity_q8", parent))
-    emit("parity_q8_cat", **same_as_parent(
-        parity_q8_cat_phase(lgb, args.seed), "parity_q8_cat", parent))
-
-    tm, mc_launches = train_multiclass_phase(lgb, cuda_hist, args)
-    emit("train_multiclass", **tm)
-    tmq, mcq_launches = train_multiclass_phase(
-        lgb, cuda_hist, args, q8_ref_error=tm["valid_multi_error"])
-    emit("train_q8_multiclass", **tmq)
-    emit("parity_multiclass", **parity_multiclass_phase(lgb, args.seed))
-    ts = train_sampling_phase(lgb, cuda_hist, args,
-                              tr["rows_streamed_per_tree"])
-    emit("train_sampling", **ts)
-    emit("parity_sampling", **parity_sampling_phase(lgb, args.seed))
-
-    rk = rank_kernel_phase(lgb, cuda_hist, args)
-    emit("lambdarank_grads", **rk)
-    emit("hist_tile_rank", **hist_rank_phase(lgb, cuda_hist, args))
-    trk, rank_launches = train_rank_phase(lgb, cuda_hist, args)
-    emit("train_rank", **trk)
-    trx, xe_launches = train_rank_phase(lgb, cuda_hist, args, "rank_xendcg")
-    emit("train_rank_xendcg", **trx)
-    emit("parity_rank", **parity_rank_phase(lgb, args.seed))
-
-    epm = epilogue_mono_phase(lgb, cuda_hist, args, real_bins(
-        n, args.valid_rows, args.seed)["higgs"])
-    emit("epilogue_mono", p=P, b=B, **epm)
-    tmn, mono_launches = train_mono_phase(lgb, cuda_hist, args,
-                                          tr["valid_auc"])
-    emit("train_mono", **tmn)
-    tmq, monoq_launches = train_mono_phase(lgb, cuda_hist, args,
-                                           tq["valid_auc"], q8=True)
-    emit("train_mono_q8", **tmq)
-    emit("train_mono_modes", **train_mono_modes_phase(lgb, cuda_hist, args,
-                                                      CONSTRAINED_ROUNDS))
-    emit("train_constraints", **train_constraints_phase(
-        lgb, cuda_hist, args, CONSTRAINED_ROUNDS))
-    emit("parity_constraints", **parity_constraints_phase(lgb, args.seed))
-
     hw = hist_wide_phase(cuda_hist, n, args.seed)
     emit("hist_wide", n=n, f=F, p=P, leaves=LEAVES, **hw)
     ew = epilogue_wide_phase(cuda_hist, args.seed)
     emit("epilogue_wide", p=P, f=F, **ew)
-    twd, wide_launches = train_wide_phase(lgb, cuda_hist, args,
-                                          tr["valid_auc"])
-    emit("train_wide", **twd)
-    twq, wideq_launches = train_wide_phase(lgb, cuda_hist, args,
-                                           twd["valid_auc"], q8=True)
-    emit("train_wide_q8", **twq)
-    twc, widec_launches = train_wide_phase(lgb, cuda_hist, args, None,
-                                           classic=True)
-    twcq, widecq_launches = train_wide_phase(lgb, cuda_hist, args, None,
-                                             q8=True, classic=True)
-    emit("train_wide_classic", f32=twc, q8=twcq)
-    emit("train_efb", **train_efb_phase(lgb, cuda_hist, args))
-    emit("train_forced_cegb", **train_forced_cegb_phase(lgb, cuda_hist,
-                                                        args))
-    pdata = parity_data_phase(lgb, args.seed)
-    emit("parity_data", **pdata)
-    prec = precision_phases(lgb, cuda_hist, args, tr["valid_auc"])
-    control = control_phases(lgb, cuda_hist, args, tr)
-    pentry = predict_phases(lgb, cuda_hist, args)
-    fpaths, po_launches = faults_phases(lgb, cuda_hist, args)
-    pentry["launches_by_path"]["faults/predict_oom"] = po_launches
-    torch.cuda.empty_cache()
-    dist_hp, dpaths = distributed_phases(lgb, cuda_hist, args)
-    rpaths = resilience_phases(lgb, cuda_hist, args)
-
     hv = hist_variants_phase(cuda_hist)
     emit("hist_variants", **hv)
+
+    # the lanes start once the kernel phases above have the card alone
+    import shutil
+    import tempfile
+    lane_dir = tempfile.mkdtemp(prefix="chip_lanes_")
+    lanes = start_lanes(args, lane_dir)
+    try:
+        tr, launches = train_phase(lgb, cuda_hist, args)
+        emit("train", **tr)
+        emit("parity", **same_as_parent(parity_phase(lgb, args.seed),
+                                        "parity", parent))
+
+        tc, cat_launches = train_cat_phase(lgb, cuda_hist, args)
+        emit("train_cat", **tc)
+        emit("parity_cat", **parity_cat_phase(lgb, args.seed))
+        emit("parity_sparse", **same_as_parent(
+            parity_sparse_phase(lgb, args.seed), "parity_sparse", parent))
+
+        epi_q8 = epilogue_q8_phase(cuda_hist)
+        emit("split_epilogue_q8", p=P, f=F, b=B, **epi_q8)
+        tq, q8_launches = train_phase(lgb, cuda_hist, args,
+                                      q8_ref_auc=tr["valid_auc"])
+        emit("train_q8", **tq)
+        write_lane_ref(lane_dir, {
+            "train": {"sec_per_iter": tr["sec_per_iter"],
+                      "valid_auc": tr["valid_auc"]},
+            "train_q8": {"valid_auc": tq["valid_auc"]}})
+        tqc, q8_cat_launches = train_cat_phase(lgb, cuda_hist, args,
+                                               q8_ref_auc=tc["valid_auc"])
+        emit("train_q8_cat", **tqc)
+        emit("parity_q8", **same_as_parent(parity_q8_phase(lgb, args.seed),
+                                           "parity_q8", parent))
+        emit("parity_q8_cat", **same_as_parent(
+            parity_q8_cat_phase(lgb, args.seed), "parity_q8_cat", parent))
+
+        tm, mc_launches = train_multiclass_phase(lgb, cuda_hist, args)
+        emit("train_multiclass", **tm)
+        tmcq, mcq_launches = train_multiclass_phase(
+            lgb, cuda_hist, args, q8_ref_error=tm["valid_multi_error"])
+        emit("train_q8_multiclass", **tmcq)
+        emit("parity_multiclass", **parity_multiclass_phase(lgb, args.seed))
+        ts = train_sampling_phase(lgb, cuda_hist, args,
+                                  tr["rows_streamed_per_tree"])
+        emit("train_sampling", **ts)
+        emit("parity_sampling", **parity_sampling_phase(lgb, args.seed))
+
+        twd, wide_launches = train_wide_phase(lgb, cuda_hist, args,
+                                              tr["valid_auc"])
+        emit("train_wide", **twd)
+        twq, wideq_launches = train_wide_phase(lgb, cuda_hist, args,
+                                               twd["valid_auc"], q8=True)
+        emit("train_wide_q8", **twq)
+        twc, widec_launches = train_wide_phase(lgb, cuda_hist, args, None,
+                                               classic=True)
+        twcq, widecq_launches = train_wide_phase(lgb, cuda_hist, args, None,
+                                                 q8=True, classic=True)
+        emit("train_wide_classic", f32=twc, q8=twcq)
+        emit("train_efb", **train_efb_phase(lgb, cuda_hist, args))
+        emit("train_forced_cegb", **train_forced_cegb_phase(lgb, cuda_hist,
+                                                            args))
+        pdata = parity_data_phase(lgb, args.seed)
+        emit("parity_data", **pdata)
+        prec = precision_phases(lgb, cuda_hist, args, tr["valid_auc"])
+        lane = finish_lanes(lanes, lane_dir)
+    finally:
+        stop_lanes(lanes, lane_dir)
+        shutil.rmtree(lane_dir, ignore_errors=True)
+    rk, rank_launches = lane["rk"], lane["rank_launches"]
+    xe_launches, epm = lane["xe_launches"], lane["epm"]
+    mono_launches, monoq_launches = (lane["mono_launches"],
+                                     lane["monoq_launches"])
+    control, fpaths, pentry = lane["control"], lane["fpaths"], lane["pentry"]
+    pentry["launches_by_path"]["faults/predict_oom"] = lane["po_launches"]
+    dist_hp, dpaths, rpaths = lane["dist_hp"], lane["dpaths"], lane["rpaths"]
+
     if args.parent:
-        own.append(redesign_probes(cuda_hist, args.seed, inputs,
-                                   SECOND_PASS))
+        own.append(redesign_probes(cuda_hist, args.seed, WIDE_PASS))
         emit("probe_times", ms=own[-1])
         parent.append(parent_times(args.parent, n, args.valid_rows,
-                                   args.seed, "all", inputs))
+                                   args.seed))
         emit("parent_times", dir=args.parent, ms=parent[-1])
-        probe_dir.cleanup()
+        same_wide_texts({k: pdata[k]["card_text_sha256"]
+                         for k in WIDE_TEXTS}, parent)
 
     hist_err = max([full["max_abs_err"]]
                    + [r["max_abs_err"] for r in rungs.values()]
@@ -6907,7 +7154,8 @@ def main() -> int:
                                       "bound_ms", "bound_by",
                                       "library_ms")},
             "train_device_ms_per_launch": per_launch(
-                (tmq if q8 else tmn)["profile"], "split_epilogue"),
+                lane["monoq_profile" if q8 else "mono_profile"],
+                "split_epilogue"),
             "f136": {k: wide[k] for k in ("ms", "device_ms", "free_ms",
                                           "free_device_ms", "plain_ms",
                                           "bound_ms")},
@@ -6965,45 +7213,10 @@ def main() -> int:
             "launches_by_path": {("train_wide_classic/q8" if q8 else
                                   "train_wide_classic/f32"):
                                  classic["hist_tile.launches_plane" + sfx]}})
-        e = f"b{WIDE_B}" + ("_q8" if q8 else "")
-        kernels.append({
-            "name": f"split_epilogue (wide{tag})", "route": "cuda",
-            "source": "lightgbm_tpu_torch/csrc/split_epilogue.cu",
-            "replaces": "lightgbm_tpu/ops/pallas_hist.py:465 "
-                        "_epilogue_compute at num_bins > 256"
-                        + (", mode q8" if q8 else "")
-                        + " (epilogue of :497 and :527)",
-            "launches": fused["split_epilogue.launches" + sfx],
-            "max_abs_err": max(ew[e]["max_abs_err"],
-                               ew[e.replace(str(WIDE_B),
-                                            str(WIDE_STRESS_B))]
-                               ["max_abs_err"]),
-            **nums(ew[e]),
-            "b4095": nums(ew[e.replace(str(WIDE_B), str(WIDE_STRESS_B))]),
-            "b255": nums(ew[e.replace(str(WIDE_B), str(B))]),
-            "train_device_ms_per_launch": per_launch(prof,
-                                                     "split_epilogue_wide"),
-            "launches_by_path": {("train_wide_q8" if q8 else "train_wide"):
-                                 fused["split_epilogue.launches" + sfx]}})
-        pl = pdata["wide_mono_q8" if q8 else "wide_mono"]["launches"]
-        name = "split_epilogue.launches_wide_mono" + ("_q8" if q8 else "")
-        kernels.append({
-            "name": f"split_epilogue_mono (wide{tag})", "route": "cuda",
-            "source": "lightgbm_tpu_torch/csrc/split_epilogue.cu",
-            "replaces": "lightgbm_tpu/ops/pallas_hist.py:465 "
-                        "_epilogue_compute with_monotone=True at num_bins "
-                        "> 256" + (", mode q8" if q8 else "")
-                        + " (epilogue of :497 and :527)",
-            "launches": pl[name],
-            "max_abs_err": max(ew[e + "_mono"]["max_abs_err"],
-                               ew[e.replace(str(WIDE_B), str(WIDE_STRESS_B))
-                                  + "_mono"]["max_abs_err"]),
-            **nums(ew[e + "_mono"]),
-            "b4095": nums(ew[e.replace(str(WIDE_B), str(WIDE_STRESS_B))
-                             + "_mono"]),
-            "b255": nums(ew[e.replace(str(WIDE_B), str(B)) + "_mono"]),
-            "launches_by_path": {("parity_data/wide_mono_q8" if q8 else
-                                  "parity_data/wide_mono"): pl[name]}})
+        mono_run = "wide_mono" + ("_q8" if q8 else "")
+        kernels += epilogue_wide_entries(ew, q8, fused, prof,
+                                         pdata[mono_run]["launches"],
+                                         f"parity_data/{mono_run}")
     # the f64 mode of the plane-only forms (gpu_use_dp)
     kernels.append(dp_kernel_entry(prec))
     # each kernel's launches on every path that launched it, each path's
@@ -7059,7 +7272,11 @@ def main() -> int:
                                        for pt in parent] for v in VARIANTS}
     kernels.append(pentry)
     if args.parent:
-        attach_probes([kernels[7], pentry], own, parent)
+        by_name = {k["name"]: k for k in kernels}
+        attach_probes([(by_name[f"split_epilogue{m} (wide{t})"], (q8, mono))
+                       for q8, t in ((False, ""), (True, ", q8"))
+                       for mono, m in ((False, ""), (True, "_mono"))],
+                      own, parent)
     kernels.extend(dist_kernel_entries(dist_hp, {**dpaths, **rpaths},
                                        lead="distributed/data/rank0"))
     print(json.dumps({"kernels": kernels,

@@ -74,25 +74,50 @@
 // compares and a select a candidate.
 //
 // Wide mode (B > 256, up to kMaxBinsWide; split_epilogue_wide): the same
-// warp per (slot, feature), the same arithmetic per candidate, but the
-// plane no longer fits 8 bins a lane, so the warp walks it in chunks of
-// 256 bins (8 a lane) and the scan follows XLA's order past 16 blocks,
-// which is three levels, not a running sum (blocked_cumsum's recursion):
-//   A. per chunk, each 16-bin block's within-block prefix as above; the
-//      prefixes go back to shared memory and the odd lanes write the
-//      block totals T[k] (the totals include the +0 padding past B);
-//   B. lane s (< 16) scans super-block s of T left to right from +0 (its
-//      16 totals, zeros past the last block): W2[k], and its total S[s];
-//   C. the exclusive prefix of the S from +0 (lane s chains S[0..s-1];
-//      0 for s = 0), added to every W2[k] of super-block s: tot[k]
-//      (the add of +0 included, as the plain version adds it);
-//   D. per chunk, each bin's cumulative sum = its within-block prefix +
-//      (block 0 ? +0 : tot[block - 1]), then the candidates as above.
-// A warp's shared memory is its staged plane (3 x (B + B / 32) floats)
-// and two 3 x 256 arrays (T / tot, and W2): 56,832 bytes at B = 4,096, so
-// the launcher fits 4 warps a block up to the cap and fewer where they do
-// not fit (dynamic shared memory). Each of its four instantiations (q8 x
-// monotone) counts its launches apart in the wrapper.
+// arithmetic per candidate, but the plane no longer fits one warp at 8
+// bins a lane, and the scan follows XLA's order past 16 blocks, which is
+// three levels, not a running sum (blocked_cumsum's recursion: the
+// block totals are scanned in super-blocks of 16, the super-block totals
+// once more, each level's exclusive prefix added from +0). A warp walking
+// the plane in chunks (the first design) waited on one memory latency a
+// pass and walked the chunks twice; here the plane is spread over a CTA:
+//   - one CTA of ceil(B / 256) warps a (slot, feature); warp w owns the
+//     256-bin chunk w and lane l its bins 8l..8l+7 for the 3 stats, in
+//     registers from the load to the candidates. Inside a chunk, steps 1
+//     to 3 are the kernel above: every load issued before its first use,
+//     one coalesced write of the full plane, the transpose by stat through
+//     the warp's padded tile, the within-block prefix;
+//   - a chunk is exactly one super-block (16 blocks of 16 bins), so level
+//     2 stays in the warp: every lane chains the chunk's 16 block totals
+//     (shuffled from the odd lanes; +0 past the last block, the plain
+//     version's padding) from +0, keeping the chain up to its own block's
+//     predecessor; lane 0 puts the chunk's whole chain S[w] in shared
+//     memory, and the lane holding bin B-1 that bin's within-block csum
+//     and its chain;
+//   - one barrier; then every thread chains S[0..] from +0 itself (lane
+//     s reads S[s], the chain takes them by shuffles), which gives the
+//     exclusive prefix E of its own chunk, of the one before and of the
+//     last two, and adds its block's predecessor's inclusive scan --
+//     chain + E[w], or for a chunk's first block S[w-1] + E[w-1], +0 for
+//     block 0 -- to its registers, in the plain version's operand order;
+//     the last bin's csum (`total`) is formed the same way by every
+//     thread, so no second scan barrier;
+//   - each warp reduces its best (key, position) by shuffles, its owner
+//     puts it and the six sums in shared memory, and after a second
+//     barrier warp 0 reduces the at most 16 entries in the same order and
+//     its owner writes the row. The order is total, so the shape of the
+//     reduction changes no bit.
+// The work is the candidates' arithmetic (4 IEEE divisions a bin, each a
+// branch region around its slow path), so instructions and their latency
+// bound it, not bytes: a candidate outside its scan keys -inf whatever its
+// gain, so its gain is not computed (a feature with no missing type, most
+// of them, has no forward scan). Shared memory is sized to B (dynamic: the
+// warps' tiles and 182 floats): 13.4 KB at B = 1,023, 51.4 KB at 4,096,
+// so registers set the occupancy: the launch bounds ask for two 512-thread
+// CTAs an SM (64 registers; a few bytes spill in the q8 modes), which
+// measured faster in every mode than 78-128 registers at one CTA. Each of
+// the four instantiations (q8 x monotone) counts its launches apart in
+// the wrapper.
 // PERF.md has the measured time against the bound.
 
 #include <cuda_runtime.h>
@@ -426,39 +451,38 @@ split_epilogue_kernel(const float* __restrict__ tile,
 
 // ---------------------------------------------------------------- wide mode
 constexpr int kMaxBinsWide = 4096;
-constexpr int kChunk = 256;                      // bins a warp scans at once
-constexpr int kMaxTotals = kMaxBinsWide / kBlock;   // 256 block totals
-constexpr int kSmemPerBlock = 232448;
+constexpr int kChunk = kMaxBins;                 // bins a warp owns: 256
+constexpr int kMaxWideWarps = kMaxBinsWide / kChunk;   // 16, 512 threads
+constexpr int kTileFloats = 3 * kStride;         // a warp's transpose tile
+// after the tiles: the chunk totals S [16][3], bin B-1's within-block csum
+// and its block's in-chunk prefix [6], the warps' best key [16], position
+// [16] and six sums [16][6]
+constexpr int kWideScratch = 3 * kMaxWideWarps + 6 + 8 * kMaxWideWarps;
+constexpr int kDefaultSmem = 48 * 1024;          // without the opt-in
 
-__host__ __device__ __forceinline__ int wide_stride(int b) {
-  const int b32 = (b + 31) / 32 * 32;
-  return b32 + b32 / 32;                         // one pad word / 32 bins
-}
-
-__host__ __device__ __forceinline__ int wide_warp_floats(int b) {
-  return 3 * wide_stride(b) + 2 * 3 * kMaxTotals;
+inline int wide_smem_floats(int warps) {
+  return warps * kTileFloats + kWideScratch;
 }
 
 template <bool kQ8, bool kMono>
-__global__ void split_epilogue_wide(const float* __restrict__ tile,
-                                    const int32_t* __restrict__ qtile,
-                                    const float* __restrict__ qscale,
-                                    const float* __restrict__ parent,
-                                    const int32_t* __restrict__ der,
-                                    const float* __restrict__ la,
-                                    const float* __restrict__ fm,
-                                    const float* __restrict__ pv,
-                                    float* __restrict__ full,
-                                    float* __restrict__ cand,
-                                    int p, int f, int b) {
+__global__ void __launch_bounds__(32 * kMaxWideWarps, 2)
+split_epilogue_wide(const float* __restrict__ tile,
+                    const int32_t* __restrict__ qtile,
+                    const float* __restrict__ qscale,
+                    const float* __restrict__ parent,
+                    const int32_t* __restrict__ der,
+                    const float* __restrict__ la,
+                    const float* __restrict__ fm,
+                    const float* __restrict__ pv,
+                    float* __restrict__ full,
+                    float* __restrict__ cand,
+                    int p, int f, int b) {
   extern __shared__ float wide_smem[];
-  const int warps = blockDim.x / 32;
+  const int nw = blockDim.x / 32;                // ceil(B / 256) chunks
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int pair = blockIdx.x * warps + warp;
-  if (pair >= p * f) return;      // whole warps leave; no block barrier
-  const int slot = pair / f;
-  const int feat = pair % f;
+  const int slot = blockIdx.x / f;               // the grid is P * F CTAs:
+  const int feat = blockIdx.x % f;               // no thread leaves early
   const Params prm{pv[0], pv[1], pv[2], pv[3], pv[4], pv[5], pv[6]};
   const int nb = static_cast<int>(fm[feat * 8 + 0]);
   const int mt = static_cast<int>(fm[feat * 8 + 1]);
@@ -469,117 +493,149 @@ __global__ void split_epilogue_wide(const float* __restrict__ tile,
   const bool is_zero = mt == kMissingZero;
   const bool derived = der[slot * 3] != 0;
 
-  const int stride = wide_stride(b);
-  float* st = wide_smem + (size_t)warp * wide_warp_floats(b);  // [3][stride]
-  float* tot = st + 3 * stride;                  // [3][kMaxTotals]: T, tot
-  float* w2 = tot + 3 * kMaxTotals;              // [3][kMaxTotals]
+  float* st = wide_smem + warp * kTileFloats;    // [3][kStride]
+  float* sup = wide_smem + nw * kTileFloats;     // [kMaxWideWarps][3]
+  float* lastv = sup + 3 * kMaxWideWarps;        // [2][3]
+  float* akey = lastv + 6;                       // [kMaxWideWarps]
+  int* apos = reinterpret_cast<int*>(akey + kMaxWideWarps);
+  float* asum = akey + 2 * kMaxWideWarps;        // [kMaxWideWarps][6]
   const size_t plane = (size_t)b * 3;
   const size_t base = ((size_t)slot * f + feat) * plane;
   const size_t sib = slot > 0 ? ((size_t)(slot - 1) * f + feat) * plane : 0;
-  const int nbk = (b + kBlock - 1) / kBlock;     // level-1 blocks
-  const int nch = (b + kChunk - 1) / kChunk;
+  const int c0 = warp * 3 * kChunk;              // the chunk's first cell
+  const int lim = 3 * b - c0;                    // its cells inside B
 
-  // 1. full plane, coalesced over its B*3 contiguous cells, written out
-  //    and staged by stat
-  for (int i = lane; i < 3 * b; i += 32) {
-    float v;
-    if (derived) {
-      const float s = slot > 0
-          ? tile_cell<kQ8>(tile, qtile, qscale, sib + i, i % 3) : 0.f;
-      v = parent[base + i] - s;
-    } else {
-      v = tile_cell<kQ8>(tile, qtile, qscale, base + i, i % 3);
+  // 1. the chunk's full plane, coalesced over its 768 contiguous cells:
+  //    every load of the lane issued before the first use, then written
+  //    out and staged by stat in the warp's tile
+  constexpr int kCells = 3 * kChunk / 32;        // 24 cells a lane
+  float v[kCells];
+  if (derived) {
+#pragma unroll
+    for (int k = 0; k < kCells; ++k) {
+      const int i = lane + 32 * k;
+      const float s = i < lim && slot > 0
+          ? tile_cell<kQ8>(tile, qtile, qscale, sib + c0 + i, i % 3) : 0.f;
+      v[k] = i < lim ? parent[base + c0 + i] - s : 0.f;
     }
-    const int c = i % 3, t = i / 3;
-    full[base + i] = v;
-    st[c * stride + t + t / 32] = v;
+  } else {
+#pragma unroll
+    for (int k = 0; k < kCells; ++k) {
+      const int i = lane + 32 * k;
+      v[k] = i < lim
+          ? tile_cell<kQ8>(tile, qtile, qscale, base + c0 + i, i % 3) : 0.f;
+    }
   }
-  __syncwarp();
-
-  // A. per chunk: within-block prefixes (back into the staged plane) and
-  //    the block totals
-  for (int ch = 0; ch < nch; ++ch) {
-    const int t0 = ch * kChunk + lane * kBinsPerLane;
-    float x[3][kBinsPerLane];
 #pragma unroll
-    for (int j = 0; j < kBinsPerLane; ++j) {
-      const int t = t0 + j;
-      const bool excl = (mode_a && is_nan && t == nb - 1)
-                        || (mode_a && is_zero && t == dbin);
-#pragma unroll
-      for (int c = 0; c < 3; ++c)
-        x[c][j] = (t < b && !excl) ? st[c * stride + t + t / 32] : 0.f;
-    }
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      float acc = 0.f;
-#pragma unroll
-      for (int j = 0; j < kBinsPerLane; ++j) acc = acc + x[c][j];
-      const float even_total = __shfl_sync(kFull, acc, lane & ~1);
-      acc = (lane & 1) ? even_total : 0.f;
-#pragma unroll
-      for (int j = 0; j < kBinsPerLane; ++j) {
-        acc = acc + x[c][j];
-        const int t = t0 + j;
-        if (t < b) st[c * stride + t + t / 32] = acc;
-      }
-      const int blk = ch * (kChunk / kBlock) + lane / 2;
-      if ((lane & 1) && blk < nbk) tot[c * kMaxTotals + blk] = acc;
-    }
-    __syncwarp();
-  }
-
-  // B. level 2: lane s scans super-block s of the block totals
-  float sup[3] = {0.f, 0.f, 0.f};
-  if (lane < kBlock) {
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      float acc = 0.f;
-      for (int k = 0; k < kBlock; ++k) {
-        const int blk = lane * kBlock + k;
-        acc = acc + (blk < nbk ? tot[c * kMaxTotals + blk] : 0.f);
-        if (blk < nbk) w2[c * kMaxTotals + blk] = acc;
-      }
-      sup[c] = acc;
+  for (int k = 0; k < kCells; ++k) {
+    const int i = lane + 32 * k;
+    if (i < lim) {
+      const int c = i % 3, t = i / 3;
+      full[base + c0 + i] = v[k];
+      st[c * kStride + t + t / 32] = v[k];
     }
   }
   __syncwarp();
 
-  // C. level 3: the exclusive prefix of the super-block totals, added to
-  //    each W2; tot[k] is then the inclusive scan of the block totals
-  float ex2[3];
+  // 2. this lane's 8 bins of the chunk, the excluded ones zeroed; bins
+  //    >= B are the plain version's +0 padding
+  const int t0 = warp * kChunk + lane * kBinsPerLane;
+  float x[3][kBinsPerLane];
+#pragma unroll
+  for (int j = 0; j < kBinsPerLane; ++j) {
+    const int t = t0 + j, tl = lane * kBinsPerLane + j;
+    const bool excl = (mode_a && is_nan && t == nb - 1)
+                      || (mode_a && is_zero && t == dbin);
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+      x[c][j] = (t < b && !excl) ? st[c * kStride + tl + tl / 32] : 0.f;
+  }
+
+  // 3a. level 1: the within-block prefix of each 16-bin block (the even
+  //     lane from +0, the odd lane from the even lane's total)
+  float cs[3][kBinsPerLane];
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
     float acc = 0.f;
 #pragma unroll
-    for (int i = 0; i < kBlock; ++i) {
-      const float si = __shfl_sync(kFull, sup[c], i);
-      if (i < lane) acc = acc + si;
-    }
-    ex2[c] = lane == 0 ? 0.f : acc;
-  }
-  for (int blk = lane; blk < kMaxTotals; blk += 32) {
-    // the lane holding super-block blk / 16's prefix shuffles it over
+    for (int j = 0; j < kBinsPerLane; ++j) acc = acc + x[c][j];
+    const float even_total = __shfl_sync(kFull, acc, lane & ~1);
+    acc = (lane & 1) ? even_total : 0.f;
 #pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      const float e = __shfl_sync(kFull, ex2[c], (blk / kBlock) & 31);
-      if (blk < nbk) tot[c * kMaxTotals + blk] = w2[c * kMaxTotals + blk] + e;
+    for (int j = 0; j < kBinsPerLane; ++j) {
+      acc = acc + x[c][j];
+      cs[c][j] = acc;
     }
   }
-  __syncwarp();
+  // 3b. level 2: a chunk is one super-block of 16 block totals (the odd
+  //     lanes' last values; +0 past the last block, as the plain version
+  //     pads), chained from +0: w2, the chain up to the block before the
+  //     lane's own, and S, the chunk's whole chain, to shared memory
+  const int kb = lane / 2;                       // the lane's block
+  float w2[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const float last = cs[c][kBinsPerLane - 1];
+    float acc = 0.f, mine = 0.f;
+#pragma unroll
+    for (int k = 0; k < kChunk / kBlock; ++k) {
+      acc = acc + __shfl_sync(kFull, last, 2 * k + 1);
+      if (k == kb - 1) mine = acc;
+    }
+    w2[c] = mine;
+    if (lane == 0) sup[warp * 3 + c] = acc;
+  }
+  // the last bin's within-block csum and its block's w2, for `total`,
+  // from the one (lane, j) holding bin B-1 (a store a j: a select by a
+  // runtime j would put cs in local memory)
+  const int tl_last = b - 1 - (nw - 1) * kChunk;
+#pragma unroll
+  for (int j = 0; j < kBinsPerLane; ++j) {
+    if (t0 + j == b - 1) {
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        lastv[c] = cs[c][j];
+        lastv[3 + c] = w2[c];
+      }
+    }
+  }
+  __syncthreads();
 
-  // the last bin's csum (the excluded total)
+  // 3c. level 3: the exclusive prefix E of the chunk totals from +0 (E[0]
+  //     the +0 itself), chained by every thread from lane s's S[s]
+  //     (shuffled, so the 16 reads do not wait on each other); block k's
+  //     inclusive scan is w2 + E[its chunk], the last block of chunk s - 1
+  //     S[s - 1] + E[s - 1]. Each lane adds its block's predecessor's (+0
+  //     for block 0, as the plain version adds it); every thread forms the
+  //     last bin's csum the same way
+  const int wm1 = warp > 0 ? warp - 1 : 0;
   float total[3];
-  {
-    const int t = b - 1, blk = t / kBlock;
 #pragma unroll
-    for (int c = 0; c < 3; ++c)
-      total[c] = st[c * stride + t + t / 32]
-                 + (blk == 0 ? 0.f : tot[c * kMaxTotals + blk - 1]);
+  for (int c = 0; c < 3; ++c) {
+    const float sl = lane < nw ? sup[lane * 3 + c] : 0.f;
+    float acc = 0.f, ew = 0.f, ewm1 = 0.f, el = 0.f, elm1 = 0.f;
+#pragma unroll
+    for (int s = 0; s < kMaxWideWarps; ++s) {
+      const float ss = __shfl_sync(kFull, sl, s);
+      if (s == warp) ew = acc;
+      if (s == wm1) ewm1 = acc;
+      if (s == nw - 1) el = acc;
+      if (s == nw - 2) elm1 = acc;
+      acc = acc + ss;
+    }
+    const float swm1 = __shfl_sync(kFull, sl, wm1);
+    const float snm2 = __shfl_sync(kFull, sl, nw - 2);
+    float add = 0.f;
+    if (kb > 0) add = w2[c] + ew;
+    else if (warp > 0) add = swm1 + ewm1;
+#pragma unroll
+    for (int j = 0; j < kBinsPerLane; ++j) cs[c][j] = cs[c][j] + add;
+    total[c] = lastv[c] + (tl_last / kBlock > 0 ? lastv[3 + c] + el
+                                                 : snm2 + elm1);
   }
 
-  // D. candidates, chunk by chunk; the lane's best (key, position) and
-  //    the six sums it carries
+  // 4. candidates at each of this lane's thresholds, both directions;
+  //    the lane's best (key, position) and the six sums it carries
   const float* aux = la + (size_t)slot * 8;
   const float leaf_g = aux[0], leaf_h = aux[1], leaf_c = aux[2];
   const float leaf_out = aux[3];
@@ -591,37 +647,35 @@ __global__ void split_epilogue_wide(const float* __restrict__ tile,
   float best_key = -CUDART_INF_F;
   int best_pos = 0x7fffffff;
   float bs[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  for (int ch = 0; ch < nch; ++ch) {
-    const int t0 = ch * kChunk + lane * kBinsPerLane;
 #pragma unroll
-    for (int j = 0; j < kBinsPerLane; ++j) {
-      const int t = t0 + j;
-      if (t >= b) continue;
-      const int blk = t / kBlock;
-      float cs[3];
-#pragma unroll
-      for (int c = 0; c < 3; ++c)
-        cs[c] = st[c * stride + t + t / 32]
-                + (blk == 0 ? 0.f : tot[c * kMaxTotals + blk - 1]);
-      const float fl_g = cs[0], fl_h = cs[1] + eps, fl_c = cs[2];
-      const float rr_g = total[0] - cs[0];
-      const float rr_h = (total[1] - cs[1]) + eps;
-      const float rr_c = total[2] - cs[2];
+  for (int j = 0; j < kBinsPerLane; ++j) {
+    const int t = t0 + j;
+    if (t < b) {
+      const float fl_g = cs[0][j], fl_h = cs[1][j] + eps, fl_c = cs[2][j];
+      const float rr_g = total[0] - cs[0][j];
+      const float rr_h = (total[1] - cs[1][j]) + eps;
+      const float rr_c = total[2] - cs[2][j];
       const float fr_g = leaf_g - fl_g, fr_h = leaf_h - fl_h,
                   fr_c = leaf_c - fl_c;
       const float rl_g = leaf_g - rr_g, rl_h = leaf_h - rr_h,
                   rl_c = leaf_c - rr_c;
-      const float gain_fwd = candidate_gain<kMono>(
-          fl_g, fl_h, fl_c, fr_g, fr_h, fr_c, leaf_out, prm, lmin, lmax, mono);
-      const float gain_rev = candidate_gain<kMono>(
-          rl_g, rl_h, rl_c, rr_g, rr_h, rr_c, leaf_out, prm, lmin, lmax, mono);
+      const bool zero_skip = mode_a && is_zero && t == dbin;
+      const bool fwd_ok = mode_a && t <= nb - 2 && !zero_skip;
+      const bool rev_ok = t <= rev_upper && !zero_skip;
+      // a candidate outside its scan keys -inf whatever its gain, so its
+      // gain is not computed: a feature with no missing type (most) has
+      // no forward scan, and the bins past nb - 2 none at all
+      float gain_fwd = 0.f, gain_rev = 0.f;
+      if (fwd_ok)
+        gain_fwd = candidate_gain<kMono>(fl_g, fl_h, fl_c, fr_g, fr_h, fr_c,
+                                         leaf_out, prm, lmin, lmax, mono);
+      if (rev_ok)
+        gain_rev = candidate_gain<kMono>(rl_g, rl_h, rl_c, rr_g, rr_h, rr_c,
+                                         leaf_out, prm, lmin, lmax, mono);
       const bool cm_fwd = fl_c >= prm.min_data && fr_c >= prm.min_data
                           && fl_h >= prm.min_hess && fr_h >= prm.min_hess;
       const bool cm_rev = rl_c >= prm.min_data && rr_c >= prm.min_data
                           && rl_h >= prm.min_hess && rr_h >= prm.min_hess;
-      const bool zero_skip = mode_a && is_zero && t == dbin;
-      const bool fwd_ok = mode_a && t <= nb - 2 && !zero_skip;
-      const bool rev_ok = t <= rev_upper && !zero_skip;
       const bool v_fwd = cm_fwd && fwd_ok && gain_fwd > min_gain_shift
                          && !(gain_fwd != gain_fwd);
       const bool v_rev = cm_rev && rev_ok && gain_rev > min_gain_shift
@@ -641,7 +695,9 @@ __global__ void split_epilogue_wide(const float* __restrict__ tile,
     }
   }
 
-  // the warp's best (key, position); its owner writes the table row
+  // 5. each warp's best (key, position) by shuffles, its owner's row to
+  //    shared memory; warp 0 reduces the warps' and its owner writes the
+  //    table row. Every warp holds a bin below B, so each has one owner.
   float key = best_key;
   int pos = best_pos;
 #pragma unroll
@@ -651,34 +707,53 @@ __global__ void split_epilogue_wide(const float* __restrict__ tile,
     if (beats(ok, op, key, pos)) { key = ok; pos = op; }
   }
   if (best_pos == pos) {
-    const bool rev = pos < b;
-    float* out = cand + ((size_t)slot * f + feat) * kCand;
-    out[0] = key;
-    out[1] = static_cast<float>(rev ? b - 1 - pos : pos - b);
-    out[2] = rev ? 1.f : 0.f;
+    akey[warp] = key;
+    apos[warp] = pos;
 #pragma unroll
-    for (int k = 0; k < 6; ++k) out[3 + k] = bs[k];
-    out[9] = 0.f; out[10] = 0.f; out[11] = 0.f;
+    for (int k = 0; k < 6; ++k) asum[warp * 6 + k] = bs[k];
+  }
+  __syncthreads();
+  if (warp == 0) {
+    const float wk = lane < nw ? akey[lane] : -CUDART_INF_F;
+    const int wp = lane < nw ? apos[lane] : 0x7fffffff;
+    key = wk;
+    pos = wp;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      const float ok = __shfl_xor_sync(kFull, key, off);
+      const int op = __shfl_xor_sync(kFull, pos, off);
+      if (beats(ok, op, key, pos)) { key = ok; pos = op; }
+    }
+    if (lane < nw && wp == pos) {
+      const bool rev = pos < b;
+      float* out = cand + ((size_t)slot * f + feat) * kCand;
+      out[0] = key;
+      out[1] = static_cast<float>(rev ? b - 1 - pos : pos - b);
+      out[2] = rev ? 1.f : 0.f;
+#pragma unroll
+      for (int k = 0; k < 6; ++k) out[3 + k] = asum[lane * 6 + k];
+      out[9] = 0.f; out[10] = 0.f; out[11] = 0.f;
+    }
   }
 }
 
+// One CTA of ceil(B / 256) warps a (slot, feature), its dynamic shared
+// memory sized to them. Above the 48 KB a launch gets without it (B >
+// 3,840) the kernel's limit is raised first.
 template <bool kQ8, bool kMono>
 int launch_wide(const void* tile, const float* qs, const float* par,
                 const int32_t* dr, const float* lap, const float* fmp,
                 const float* pvp, void* full, void* cand, int p, int f,
                 int b, cudaStream_t st) {
-  const size_t per_warp = (size_t)wide_warp_floats(b) * sizeof(float);
-  int warps = (int)(kSmemPerBlock / per_warp);
-  warps = warps < kWarps ? warps : kWarps;
-  if (warps < 1) return (int)cudaErrorInvalidValue;
-  const size_t smem = per_warp * warps;
-  cudaError_t err = cudaFuncSetAttribute(
-      split_epilogue_wide<kQ8, kMono>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int pairs = p * f;
-  const int blocks = (pairs + warps - 1) / warps;
-  split_epilogue_wide<kQ8, kMono><<<blocks, 32 * warps, smem, st>>>(
+  const int warps = (b + kChunk - 1) / kChunk;
+  const size_t smem = (size_t)wide_smem_floats(warps) * sizeof(float);
+  if (smem > (size_t)kDefaultSmem) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        split_epilogue_wide<kQ8, kMono>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  split_epilogue_wide<kQ8, kMono><<<p * f, 32 * warps, smem, st>>>(
       kQ8 ? nullptr : static_cast<const float*>(tile),
       kQ8 ? static_cast<const int32_t*>(tile) : nullptr, qs, par, dr, lap,
       fmp, pvp, static_cast<float*>(full), static_cast<float*>(cand), p, f,

@@ -39,9 +39,9 @@ Hopper that is two hand-written CUDA kernels (``csrc/``):
   numerical_candidates``) -> the ``[P, F, 12]`` table; in its monotone
   mode (``with_monotone``, basic monotone constraints) the scan clips each
   candidate's outputs to its slot's bounds and zeroes the gain of those
-  that break the feature's direction. Above 256 bins its wide mode walks
-  a plane in chunks of 256 bins and carries the scan in XLA's three-level
-  block order.
+  that break the feature's direction. Above 256 bins its wide mode
+  spreads a plane over one block of a warp per 256-bin chunk and carries
+  the scan in XLA's three-level block order.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs, launches on the current stream, raises if the launch failed, and

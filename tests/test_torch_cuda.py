@@ -872,25 +872,35 @@ def test_hist_tile_wide_matches_plain(dev, b, form, q8):
     assert torch.equal(k.view(torch.int32), again.view(torch.int32))
 
 
+# the wide epilogue's geometry (a CTA of ceil(B / 256) warps a (slot,
+# feature)): B on the edges of its chunks, 16-bin blocks and 256-bin
+# super-blocks (bin B-1 first or last in a lane, a block or a chunk; 17
+# blocks), a plane of one (slot, feature), a few, and more CTAs than one
+# wave (F = 136)
+WIDE_BINS = (257, 272, 511, 512, 513, 768, 1023, 2048, 2049, 4095, 4096)
+WIDE_EPI = ([(42, 28, b, None) for b in WIDE_BINS]
+            + [(1, 1, 257, None), (1, 1, 4096, None), (3, 5, 513, None),
+               (3, 5, 2049, None), (42, 136, 1023, None),
+               (42, 136, 4095, None)]
+            + [(6, 6, b, c) for c in EDGE_CASES
+               for b in (272, 513, 1023, 2049, 4095)])
+
+
 @pytest.mark.parametrize("mono", [False, True], ids=["free", "monotone"])
 @pytest.mark.parametrize("q8", [False, True], ids=["f32", "q8"])
-@pytest.mark.parametrize("b,case", [(257, None), (1023, None),
-                                    (4095, None), (4096, None)]
-                         + [(b, c) for c in EDGE_CASES
-                            for b in (272, 1023, 4095)])
-def test_split_epilogue_wide_matches_plain(dev, b, case, q8, mono):
+@pytest.mark.parametrize("p,f,b,case", WIDE_EPI)
+def test_split_epilogue_wide_matches_plain(dev, p, f, b, case, q8, mono):
     """The epilogue's wide mode (B > 256, XLA's three-level scan): bitwise
     its plain version and a second launch, in each of its four modes,
     each counted apart."""
     if case is None:
-        p, f = 42, 28
         tile, parent, der, la, fm = _epilogue_inputs(p, f, b, b)
         qs = None
         if q8:
             qs = torch.tensor([0.0137, 0.00291, 1.0])
             tile = (tile * 64).round().to(torch.int32)
     else:
-        tile, parent, der, la, fm, qs, _ = epilogue_case(case, b, q8)
+        tile, parent, der, la, fm, qs, _ = epilogue_case(case, b, q8, p, f)
     if mono:
         p = tile.shape[0]
         la = la.clone()

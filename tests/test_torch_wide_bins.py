@@ -198,11 +198,13 @@ def test_fused_pass_matches_interpreted_pallas_epilogue(q8, mono):
 
 
 @pytest.mark.parametrize("q8", [False, True], ids=["f32", "q8"])
-@pytest.mark.parametrize("b", [272, 1023, 4095])
+@pytest.mark.parametrize("b", [257, 272, 512, 513, 1023, 2048, 4095, 4096])
 @pytest.mark.parametrize("case", EDGE_CASES)
 def test_epilogue_edge_cases_match_jax_past_256_bins(case, b, q8):
     """The plain epilogue past 16 scan blocks (XLA's three-level cumulative
-    sum) on the edge-case planes: bitwise the JAX derive_and_scan."""
+    sum) on the edge-case planes, at B on the wide kernel's chunk and
+    block edges (17 blocks; bin B-1 first or last in a 256-bin chunk):
+    bitwise the JAX derive_and_scan."""
     from lightgbm_tpu.ops.histogram import derive_and_scan as j_das
     tile, parent, der, la, fm, q_scale, derive = epilogue_case(
         case, b, q8)
