@@ -4,7 +4,7 @@ hand-written kernel against its plain PyTorch version.
     python3 chip_smoke.py [--seed 0] [--rows 2000000] [--valid-rows 200000]
                           [--rounds 5] [--parent DIR]
                           [--only precision|control|predict|faults|
-                                  distributed|resilience|redesign]
+                                  distributed|resilience|redesign|serve]
 
 Phases, each printing one JSON line (any failure raises and the script
 exits non-zero; nothing is caught). The full run times the kernel phases
@@ -12,7 +12,7 @@ first, with the card to itself: device, build, hist_tile_root through
 hist_tile_q8, split_epilogue, hist_wide, epilogue_wide and hist_variants.
 Then it starts three lanes (LANES), processes of this script that run
 beside it: ``gangs`` (the distributed group, the resilience group,
-training control), ``predict`` (prediction and the user surface, then the
+training control, the serve group), ``predict`` (prediction and the user surface, then the
 faults group) and ``constraints`` (learning to rank, then the split
 constraints). The main process goes on with train through parity_q8_cat,
 the boosting modes, the data layer's training and parity phases and the
@@ -468,10 +468,15 @@ hist_tile's integer-planes mode and of hist_convert):
 
   resilience_reference  the uninterrupted gang: the text the next two
                   are held to, its valid AUC
-  resilience_kill rank 1 killed at iteration 2: one relaunch, bitwise
+  resilience_kill rank 1 killed at iteration 2: one relaunch, bitwise; the
+                  report's post-mortem (the supervisor's analysis of the
+                  flushed flight recorders and exit codes) says kill,
+                  rank 1, iteration 2
   resilience_hang rank 1 hung at iteration 2: the watchdog's exit names
                   rank 1 within the deadline plus 2 s; one relaunch,
-                  bitwise
+                  bitwise; the post-mortem says hang, rank 1, iteration 1
+                  (the last completed: the hang comes before iteration
+                  2's step)
   resilience_shrink  relaunched from the reference's sharded checkpoint
                   of iteration 2, rank 1's spawn fails: the gang shrinks
                   to 1 and resumes from the two shards (the same bits
@@ -487,6 +492,47 @@ hist_tile's integer-planes mode and of hist_convert):
                   1's score cache flipped after iteration 2 (no majority
                   at world 2: both ranks raise, one relaunch) bitwise the
                   same gang uninterrupted
+
+The serve group (last in the ``gangs`` lane; the ops layer: the engine's
+serve mode, ServeFrontend, telemetry; no new kernel: predict_ensemble
+serves, kernels 1-4 train), over the predict group's model (trained again
+in the lane):
+
+  serve_kernel    predict_ensemble at 1, 64, 1,024 and 8,192 rows x 100
+                  trees: every mode bitwise its plain version and a second
+                  launch (ensemble_case); ms (events), device ms
+                  (profiler, cold L2; 20 launches a profile below 1,024
+                  rows), plain ms and the bound as the 2M-row case's
+  serve_steady    200 flushes of 1-8,192 rows (log-uniform) through serve
+                  mode (raw scores): after each bucket's first flush the
+                  caching allocator takes no request, every slot buffer
+                  keeps its address, one launch a flush, the answers
+                  bitwise Booster.predict outside serve mode; host ms a
+                  flush, and with profiling on the split into copy in,
+                  binning, kernel and fetch
+  serve           a ServeFrontend with the default policy, 16 client
+                  threads in closed loops of 1-256 rows for 10 s:
+                  requests/s, rows/s, p50 / p99 ms, batches, rows a
+                  batch; every answer bitwise Booster.predict of its rows,
+                  one launch a batch
+  serve_control   overload (serve_max_queue_rows 64 behind a slow
+                  dispatch: ServeOverloadErrors, one serve_shed episode in
+                  health_snapshot()), the dispatch and queue-wait
+                  deadlines, a hot swap under traffic to a same-shape
+                  model of other rows (the old bits before it, the new
+                  after), a rejected swap to 3 classes (the old model
+                  serves on), the serve OOM (the chunk halves, the bits
+                  stay), a GET /metrics whose serve p99 is stats()'s
+  telemetry       train's rows (2M + 200k, 255 leaves, --rounds) with
+                  profiling on and the dispatch hook, the flight recorder
+                  off and on: the texts bitwise, launches and the hook's
+                  counts each iteration equal, one valid flight record an
+                  iteration with torch.cuda's memory, the five largest
+                  scopes; a trace_window of 2 more iterations naming the
+                  hist_tile and split_epilogue kernels and the scopes
+
+With ``--only serve`` the script runs device, build and this group alone,
+and prints predict_ensemble's entry with its serve sizes.
 
 With ``--only resilience`` the script runs device, build,
 hist_int_planes and this group alone, and prints the two integer-planes
@@ -5029,6 +5075,647 @@ def predict_phases(lgb, cuda_hist, args):
     return predict_entry(pe, paths)
 
 
+# ------------------------------------------------------------------- serve
+# The serve group (the ops layer's main path): the predict group's model
+# behind the engine's serve mode and a ServeFrontend, then the telemetry
+# layer around train's training.
+SERVE_SIZES = (1, 64, 1024, 8192)   # predict_ensemble at serve flush sizes
+SERVE_FLUSHES = 200                 # serve_steady's flushes of 1-8,192 rows
+SERVE_BUCKETS = (1024, 2048, 4096, 8192)
+SERVE_CLIENTS = 16                  # the serve phase's client threads
+SERVE_SECONDS = 10.0                # their closed loops' length
+SERVE_MAX_REQUEST = 256             # rows a request, uniform in 1..256
+SERVE_SWAP_ROWS = 100_000           # the swapped-in model's training rows
+SERVE_SWAP_CLIENTS = 4
+TELEMETRY_TRACE_ITERS = 2
+
+
+def serve_kernel_phase(P, args, model):
+    """predict_ensemble at serve sizes over the predict group's model: each
+    size's float64 launch bitwise its plain version and a second launch
+    (``ensemble_case``: every mode, biases, the active mask, leaves), and
+    its ms (events), device ms (profiler, cold L2; several launches a
+    profile at the small sizes, whose lone activity the profiler can
+    drop), plain ms and the bound as the 2M-row case computes it (each
+    input byte once over 3.35 TB/s against this run's node visits x
+    OPS_PER_VISIT over 67 T/s)."""
+    b, _, Xv = model
+    g = b._boosting
+    eng = g._predict_engine()
+    mb = g.train_set.missing_bin.cuda()
+    out = {}
+    for n in SERVE_SIZES:
+        binsT = g.train_set.bin_new_data(Xv[:n])
+        case = ensemble_case(P, eng.tables, binsT, mb, 1, args.seed + n)
+        t = eng.T
+
+        def run():
+            P.predict_ensemble(eng.tables, binsT, mb, (0, t), 1)
+        case["ms"] = time_ms(run)
+        case["device_ms"] = device_ms(
+            run, per_profile=1 if n >= 1024 else 20,
+            need="predict_ensemble", cold_each=n < 1024)[0]
+        case["plain_ms"] = time_ms(lambda: P.predict_ensemble_plain(
+            eng.tables, binsT, mb, (0, t), 1, None, None,
+            P.new_carry(n, 1, "float64", binsT.device), "float64"),
+            reps=3, warm=1)
+        st = eng.tables.stacked
+        nbytes = (binsT.numel() * binsT.element_size() + n * 8
+                  + eng.tables.nodes.numel() * 4
+                  + eng.tables.bits.numel() * 4
+                  + st.leaf_value.numel() * 4 + mb.numel() * 4)
+        case["bound_ms"], case["bound_by"] = bound(
+            nbytes, case["node_visits"] * OPS_PER_VISIT)
+        case["library_ms"] = None
+        out[str(n)] = case
+    return out
+
+
+def _serve_sizes(rng, count: int):
+    """``count`` flush sizes of 1 to 8,192 rows, log-uniform."""
+    return [int(v) for v in np.exp(rng.uniform(0, np.log(8192), count))
+            .round().clip(1, 8192)]
+
+
+def serve_steady_phase(lgb, cuda_hist, args, model):
+    """SERVE_FLUSHES flushes of 1 to 8,192 rows through the engine's serve
+    mode (Booster.predict, raw scores): after each bucket's first flush no
+    device allocation (the caching allocator's request count), every slot
+    buffer at its address, one predict_ensemble launch a flush, answers
+    bitwise Booster.predict outside serve mode; the flushes' host ms, and
+    with profiling on (each scope synchronised) the split into copy in,
+    binning, kernel and fetch."""
+    from lightgbm_tpu_torch.utils import profiling
+    b, _, Xv = model
+    g = b._boosting
+    rng = np.random.RandomState(args.seed + 19)
+    sizes = _serve_sizes(rng, SERVE_FLUSHES)
+    starts = [int(rng.randint(0, len(Xv) - n)) for n in sizes]
+    want = [b.predict(Xv[s:s + n], raw_score=True)
+            for s, n in zip(starts, sizes)]
+    g.enable_serve_mode(True)
+    try:
+        for n in SERVE_BUCKETS:                       # each slot's first
+            b.predict(Xv[:n], raw_score=True)
+        eng = g._predict_engine()
+        if sorted(eng._serve_slots) != list(SERVE_BUCKETS):
+            raise AssertionError(f"serve slots {sorted(eng._serve_slots)}")
+        ptrs = {bk: {k: t.data_ptr() for k, t in sl.tensors().items()}
+                for bk, sl in eng._serve_slots.items()}
+        torch.cuda.synchronize()
+        alloc0 = torch.cuda.memory_stats()["allocation.all.allocated"]
+        cuda_hist.reset_launch_counts()
+        got, host_ms = [], []
+        for s, n in zip(starts, sizes):
+            t0 = time.perf_counter()
+            got.append(b.predict(Xv[s:s + n], raw_score=True))
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        alloc1 = torch.cuda.memory_stats()["allocation.all.allocated"]
+        launches = _predict_launches(cuda_hist, None)
+        same_ptrs = ptrs == {
+            bk: {k: t.data_ptr() for k, t in sl.tensors().items()}
+            for bk, sl in eng._serve_slots.items()}
+        profiling.reset()
+        profiling.enable(True)
+        try:
+            for s, n in zip(starts, sizes):
+                b.predict(Xv[s:s + n], raw_score=True)
+            sc = profiling.scopes()
+        finally:
+            profiling.enable(False)
+            profiling.reset()
+    finally:
+        g.enable_serve_mode(False)
+    bitwise = all(np.array_equal(w, o) for w, o in zip(want, got))
+    split = {k: 1e3 * sc[f"serve_{k}"]["total_s"] / len(sizes)
+             for k in ("copy_in", "bin", "kernel", "fetch")}
+    out = {"flushes": len(sizes), "rows_min": min(sizes),
+           "rows_max": max(sizes), "rows_mean": float(np.mean(sizes)),
+           "buckets": list(SERVE_BUCKETS),
+           "allocations_after_warmup": alloc1 - alloc0,
+           "launches": launches, "slot_addresses_kept": same_ptrs,
+           "bitwise_booster_predict": bitwise,
+           "host_ms_p50": float(np.percentile(host_ms, 50)),
+           "host_ms_p99": float(np.percentile(host_ms, 99)),
+           "host_ms_mean": float(np.mean(host_ms)),
+           "split_ms_mean_profiled": split,
+           "profiled_flush_ms_mean": sum(split.values())}
+    checks = {"no_allocation": alloc1 == alloc0,
+              "one_launch_a_flush": launches == len(sizes),
+              "slot_addresses_kept": same_ptrs, "bitwise": bitwise}
+    out["checks"] = checks
+    if not all(checks.values()):
+        raise AssertionError(f"serve_steady: {checks}")
+    return out
+
+
+def _serve_clients(fe, Xv, seed, done, clients, max_rows, raw=False):
+    """``clients`` threads, each a closed loop of requests of 1 to
+    ``max_rows`` rows (uniform, from ``seed``) at random offsets of
+    ``Xv`` until ``done()``; returns [(thread, start, rows, t0, t1,
+    answer)] and the threads' errors."""
+    import threading
+    log_, errs = [], []
+    lock = threading.Lock()
+
+    def client(i):
+        rng = np.random.RandomState(seed + i)
+        mine = []
+        try:
+            while not done():
+                n = int(rng.randint(1, max_rows + 1))
+                s = int(rng.randint(0, len(Xv) - n))
+                t0 = time.perf_counter()
+                ans = fe.predict(Xv[s:s + n], raw_score=raw)
+                mine.append((i, s, n, t0, time.perf_counter(), ans))
+        except BaseException as e:       # noqa: BLE001 -- reported
+            errs.append(repr(e))
+        with lock:
+            log_.extend(mine)
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+        if t.is_alive():
+            raise AssertionError("a serve client did not finish")
+    return log_, errs
+
+
+def serve_phase(lgb, cuda_hist, args, model):
+    """A ServeFrontend with the default policy over the model, driven by
+    SERVE_CLIENTS client threads in closed loops of 1 to
+    SERVE_MAX_REQUEST rows for SERVE_SECONDS: requests/s, rows/s, the
+    clients' p50 / p99 ms, the batches and their mean rows; every answer
+    bitwise Booster.predict of the same rows (converted scores), one
+    predict_ensemble launch a batch (counts from 0 around the run)."""
+    b, _, Xv = model
+    M = 200_000
+    want = b.predict(Xv[:M])
+    fe = lgb.ServeFrontend(b)
+    try:
+        fe.predict(Xv[:1])
+        st0 = fe.stats()
+        cuda_hist.reset_launch_counts()
+        t0 = time.perf_counter()
+        log_, errs = _serve_clients(
+            fe, Xv[:M], args.seed + 23,
+            lambda: time.perf_counter() > t0 + SERVE_SECONDS,
+            SERVE_CLIENTS, SERVE_MAX_REQUEST)
+        wall = time.perf_counter() - t0
+        launches = _predict_launches(cuda_hist, None)
+        st = fe.stats()
+    finally:
+        fe.close()
+    if errs:
+        raise AssertionError(f"serve clients failed: {errs[:3]}")
+    bad = [r for r in log_ if not np.array_equal(r[5], want[r[1]:r[1]
+                                                               + r[2]])]
+    lat = np.array([(r[4] - r[3]) * 1e3 for r in log_])
+    rows = sum(r[2] for r in log_)
+    batches = st["batches"] - st0["batches"]
+    out = {"clients": SERVE_CLIENTS, "seconds": wall,
+           "max_request_rows": SERVE_MAX_REQUEST, "requests": len(log_),
+           "rows": rows, "requests_per_s": len(log_) / wall,
+           "rows_per_s": rows / wall,
+           "p50_ms": float(np.percentile(lat, 50)),
+           "p99_ms": float(np.percentile(lat, 99)),
+           "frontend_p50_ms": st.get("p50_ms"),
+           "frontend_p99_ms": st.get("p99_ms"),
+           "batches": batches, "rows_per_batch": rows / max(batches, 1),
+           "launches": launches, "policy": {
+               "flush_ms": fe.flush_s * 1e3,
+               "max_batch_rows": fe.max_batch_rows,
+               "max_queue_rows": fe.max_queue_rows}}
+    checks = {"every_answer_bitwise": not bad,
+              "launches_per_batch_1": launches == batches and batches > 0,
+              "no_shed_or_timeout": st["shed"] == st["timeouts"] == 0}
+    out["checks"] = checks
+    if not all(checks.values()):
+        raise AssertionError(f"serve: {checks} ({len(bad)} answers "
+                             f"differ)")
+    return out, launches
+
+
+def serve_control_phase(lgb, cuda_hist, args, model):
+    """The serving layer's controls on the card: overload (a small
+    serve_max_queue_rows behind a slow dispatch: ServeOverloadErrors and
+    one serve_shed episode in health_snapshot()), the dispatch and
+    queue-wait deadlines (fault_slow_predict_ms), a hot swap under traffic
+    to a same-shape model trained from another seed (answers of requests
+    finished before the swap began the old model's bits, of requests begun
+    after it returned the new model's, in between one of the two), a
+    rejected swap to a 3-class model (ServeSwapError, the old model
+    serving on), the serve OOM (fault_oom_at_predict: the chunk halves,
+    the answers stay bitwise), and a GET /metrics scrape whose
+    lightgbm_tpu_serve_p99_ms is stats()'s."""
+    import threading
+    import urllib.request
+    from lightgbm_tpu_torch import distributed
+    from lightgbm_tpu_torch.serving import (ServeOverloadError,
+                                            ServeSwapError,
+                                            ServeTimeoutError)
+    from lightgbm_tpu_torch.telemetry import _metric_value
+    from lightgbm_tpu_torch.utils import faults
+    b, X, Xv = model
+    g = b._boosting
+    out, checks = {}, {}
+    slow = "LGBM_TPU_FAULT_SLOW_PREDICT_MS"
+
+    # overload
+    fe = lgb.ServeFrontend(b, flush_ms=2.0, max_queue_rows=64)
+    try:
+        fe.predict(Xv[:10])
+        before = len(distributed.degradations())
+        os.environ[slow] = "400"
+        try:
+            t1 = threading.Thread(target=lambda: fe.predict(Xv[:40]))
+            t1.start()
+            time.sleep(0.15)
+            t2 = threading.Thread(target=lambda: fe.predict(Xv[40:60]))
+            t2.start()
+            time.sleep(0.05)
+            shed = []
+            for i in range(3):
+                try:
+                    fe.predict(Xv[60 + i:80 + i])
+                except ServeOverloadError as e:
+                    shed.append(e)
+            t1.join(timeout=30)
+            t2.join(timeout=30)
+        finally:
+            del os.environ[slow]
+        episodes = [d for d in distributed.degradations()[before:]
+                    if d["kind"] == "serve_shed"]
+        health = distributed.health_snapshot()
+        out["overload"] = {"max_queue_rows": 64, "shed": len(shed),
+                           "episodes": len(episodes),
+                           "episode_count": episodes[0]["count"]
+                           if episodes else 0,
+                           "message": str(shed[0]) if shed else None}
+        checks["overload_sheds_retriable"] = (
+            len(shed) == 3 and all(e.retriable for e in shed))
+        checks["one_shed_episode_in_health"] = len(episodes) == 1 and any(
+            d["kind"] == "serve_shed" for d in health.get("degradations",
+                                                          []))
+    finally:
+        fe.close()
+
+    # deadlines
+    fe = lgb.ServeFrontend(b, flush_ms=2.0)
+    try:
+        fe.predict(Xv[:10])
+        os.environ[slow] = "400"
+        try:
+            try:
+                fe.predict(Xv[:10], deadline_ms=100.0)
+                dispatch = None
+            except ServeTimeoutError as e:
+                dispatch = e
+            t = threading.Thread(target=lambda: fe.predict(Xv[:10]))
+            t.start()
+            time.sleep(0.15)
+            try:
+                fe.predict(Xv[10:20], deadline_ms=80.0)
+                queued = None
+            except ServeTimeoutError as e:
+                queued = e
+            t.join(timeout=30)
+        finally:
+            del os.environ[slow]
+        out["deadlines"] = {
+            "dispatch": dispatch and {"phase": dispatch.phase,
+                                      "waited_ms": dispatch.waited_ms},
+            "queue_wait": queued and {"phase": queued.phase,
+                                      "waited_ms": queued.waited_ms}}
+        checks["deadline_dispatch"] = dispatch is not None \
+            and dispatch.phase == "dispatch"
+        checks["deadline_queue_wait"] = queued is not None \
+            and queued.phase == "queue-wait"
+    finally:
+        fe.close()
+
+    # hot swap under traffic, then a rejected swap
+    _, y, _, _ = higgs_rows(args)
+    lo = PREDICT_TRAIN_ROWS
+    t0 = time.time()
+    new, _ = predict_model(lgb, args, X[lo:lo + SERVE_SWAP_ROWS],
+                           y[lo:lo + SERVE_SWAP_ROWS], seed=args.seed + 7)
+    swap_train_s = time.time() - t0
+    if new.num_trees() != b.num_trees():
+        raise AssertionError("the swap candidate's shape differs")
+    M = 50_000
+    old_raw, new_raw = b.predict(Xv[:M], raw_score=True), \
+        new.predict(Xv[:M], raw_score=True)
+    fe = lgb.ServeFrontend(b)
+    try:
+        fe.predict(Xv[:1], raw_score=True)
+        marks = {}
+
+        def swapper():
+            time.sleep(1.0)
+            marks["t0"] = time.perf_counter()
+            marks["version"] = fe.swap("default", new)
+            marks["t1"] = time.perf_counter()
+
+        sw = threading.Thread(target=swapper)
+        sw.start()
+        t_end = time.perf_counter() + 120.0
+        # traffic runs on for a second past the swap's return
+        log_, errs = _serve_clients(
+            fe, Xv[:M], args.seed + 29,
+            lambda: time.perf_counter() > min(
+                t_end, marks.get("t1", t_end) + 1.0),
+            SERVE_SWAP_CLIENTS, SERVE_MAX_REQUEST, raw=True)
+        sw.join(timeout=120)
+        if errs:
+            raise AssertionError(f"swap clients failed: {errs[:3]}")
+        before = [r for r in log_ if r[4] < marks["t0"]]
+        after = [r for r in log_ if r[3] > marks["t1"]]
+        between = [r for r in log_ if r not in before and r not in after]
+
+        def same(r, ref):
+            return np.array_equal(r[5], ref[r[1]:r[1] + r[2]])
+        out["swap"] = {"train_s": swap_train_s, "requests": len(log_),
+                       "before": len(before), "after": len(after),
+                       "overlapping": len(between),
+                       "swap_ms": (marks["t1"] - marks["t0"]) * 1e3,
+                       "version": marks["version"]}
+        checks["swap_before_old_bits"] = bool(before) and all(
+            same(r, old_raw) for r in before)
+        checks["swap_after_new_bits"] = bool(after) and all(
+            same(r, new_raw) for r in after)
+        checks["swap_overlap_one_of_two"] = all(
+            same(r, old_raw) or same(r, new_raw) for r in between)
+        checks["models_differ"] = not np.array_equal(old_raw, new_raw)
+        # the wrong arity: 3 classes over the same 28 columns
+        ym = np.digitize(X[:20_000, 0], [-0.5, 0.5]).astype(np.float64)
+        mp = {"objective": "multiclass", "num_class": 3, "num_leaves": 15,
+              "verbosity": -1, "device_type": "cuda"}
+        multi = lgb.train(mp, lgb.Dataset(X[:20_000], label=ym,
+                                          params=dict(mp)), 2)
+        try:
+            fe.swap("default", multi)
+            rejected = None
+        except ServeSwapError as e:
+            rejected = str(e)
+        out["rejected_swap"] = rejected
+        checks["rejected_swap_raises"] = rejected is not None
+        checks["old_model_serves_on"] = fe.version() == 2 and \
+            np.array_equal(fe.predict(Xv[:300], raw_score=True),
+                           new_raw[:300])
+    finally:
+        fe.close()
+
+    # serve OOM
+    fe = lgb.ServeFrontend(b, flush_ms=2.0)
+    try:
+        ref = b.predict(Xv[:500])
+        fe.predict(Xv[:500])
+        before = len(distributed.degradations())
+        chunk0 = g._predict_chunk_rows()
+        faults.reset_predict_oom()
+        os.environ["LGBM_TPU_FAULT_OOM_AT_PREDICT"] = "1"
+        cuda_hist.reset_launch_counts()
+        try:
+            ans = fe.predict(Xv[:500])
+        finally:
+            del os.environ["LGBM_TPU_FAULT_OOM_AT_PREDICT"]
+            faults.reset_predict_oom()
+        ooms = [d for d in distributed.degradations()[before:]
+                if d["kind"] == "oom_predict"]
+        out["serve_oom"] = {"chunk_before": chunk0,
+                            "chunk_after": g._oom_predict_chunk,
+                            "events": len(ooms),
+                            "launches": _predict_launches(cuda_hist, None),
+                            "memory": ooms[0]["memory"] if ooms else None}
+        checks["serve_oom_halves_the_chunk"] = (
+            len(ooms) == 1 and g._oom_predict_chunk == (chunk0 or 1 << 22)
+            // 2 and g._oom_level == 0)
+        checks["serve_oom_bitwise"] = np.array_equal(ans, ref)
+    finally:
+        fe.close()
+    g._oom_predict_chunk = 0
+    with g._engine_lock:
+        g._engine_cache.clear()
+
+    # the metrics endpoint
+    fe = lgb.ServeFrontend(b, metrics=True, metrics_port=0)
+    try:
+        for n in (1, 10, 100):
+            fe.predict(Xv[:n])
+        body = urllib.request.urlopen(f"http://{fe.metrics_addr}/metrics",
+                                      timeout=30).read().decode()
+        p99 = fe.stats()["p99_ms"]
+        line = next((ln for ln in body.splitlines()
+                     if ln.startswith("lightgbm_tpu_serve_p99_ms ")), None)
+        out["metrics"] = {"addr": fe.metrics_addr, "p99_line": line,
+                          "stats_p99_ms": p99, "lines": len(
+                              body.splitlines())}
+        checks["metrics_p99_is_stats"] = line == \
+            f"lightgbm_tpu_serve_p99_ms {_metric_value(p99)}"
+    finally:
+        fe.close()
+    out["checks"] = checks
+    if not all(checks.values()):
+        raise AssertionError(f"serve_control: {checks}")
+    return out
+
+
+def telemetry_phase(lgb, cuda_hist, args):
+    """The telemetry layer around train's training (2M + 200k rows, 255
+    leaves, args.rounds rounds) with profiling on and the dispatch hook
+    installed, after a one-round warm-up: once with the flight recorder
+    off and once on (telemetry_dir): the texts bitwise, the launches by
+    path equal, the hook's counts each iteration (update and valid eval)
+    equal; one flight record an iteration, the JSONL valid, every record's
+    memory fields non-null (torch.cuda's allocator); the recorder-on run's
+    five largest scopes in ms an iteration; the recorder's cost (sec/iter
+    off, on, on, off without profiling or the hook); then a trace_window
+    around TELEMETRY_TRACE_ITERS more iterations whose Chrome trace names
+    the hist_tile and split_epilogue kernels and the grower's scopes."""
+    import shutil
+    import tempfile
+    from lightgbm_tpu_torch import telemetry
+    from lightgbm_tpu_torch.utils import profiling
+    X, y, Xv, yv = higgs_rows(args)
+    work = tempfile.mkdtemp(prefix="chip_telemetry_")
+    out, runs = {}, {}
+    try:
+        train = lgb.Dataset(X, label=y, params=dict(PARAMS,
+                                                    device_type="cuda"))
+        valid = lgb.Dataset(Xv, label=yv, reference=train)
+        train.construct()
+        valid.construct()
+        profiling.reset()
+        profiling.enable(True)
+        try:
+            for on in (None, False, True):
+                params = dict(PARAMS, device_type="cuda",
+                              telemetry_flight_recorder=bool(on))
+                if on:
+                    params["telemetry_dir"] = os.path.join(work, "tele")
+                per_iter, snap = [], {}
+
+                def before(env):
+                    snap["d"] = profiling.dispatch_stats()
+                before.before_iteration = True
+
+                def after(env):
+                    per_iter.append(profiling.dispatch_delta(snap["d"]))
+                after.order = -1
+                profiling.reset()
+                cuda_hist.reset_launch_counts()
+                torch.cuda.synchronize()
+                profiling.install_dispatch_hook()
+                t0 = time.time()
+                try:
+                    booster = lgb.train(
+                        params, train, 1 if on is None else args.rounds,
+                        valid_sets=[valid], valid_names=["valid"],
+                        callbacks=[before, after])
+                    torch.cuda.synchronize()
+                finally:
+                    profiling.uninstall_dispatch_hook()
+                runs[on] = {"text": booster.model_to_string().split(
+                    "\nparameters:")[0],
+                    "launches": cuda_hist.launch_counts(),
+                    "dispatch": per_iter, "wall_s": time.time() - t0,
+                    "scopes": profiling.scopes()}
+            tdir = os.path.join(work, "trace")
+            with telemetry.trace_window(tdir, TELEMETRY_TRACE_ITERS) as tw:
+                for _ in range(TELEMETRY_TRACE_ITERS):
+                    booster.update()
+        finally:
+            profiling.enable(False)
+            profiling.reset()
+        # the recorder's cost alone: sec/iter with it off and on, in turns
+        # (off, on, on, off), no profiling and no dispatch hook
+        cost = {False: [], True: []}
+        for on in (False, True, True, False):
+            params = dict(PARAMS, device_type="cuda",
+                          telemetry_flight_recorder=on)
+            if on:
+                params["telemetry_dir"] = os.path.join(work, "cost")
+            torch.cuda.synchronize()
+            t0 = time.time()
+            lgb.train(params, train, args.rounds)
+            torch.cuda.synchronize()
+            cost[on].append((time.time() - t0) / args.rounds)
+        out["recorder_cost"] = {
+            "sec_per_iter_off": cost[False], "sec_per_iter_on": cost[True],
+            "on_over_off": sum(cost[True]) / sum(cost[False]) - 1.0}
+        path = os.path.join(work, "tele", "flight_rank0.jsonl")
+        recs, errors = telemetry.validate_flight_jsonl(path)
+        iters = [r for r in recs if r["type"] == "iter"]
+        mem_ok = bool(iters) and all(
+            isinstance(r.get("mem", {}).get(k), int)
+            for r in iters for k in ("hbm_bytes_in_use", "hbm_peak_bytes",
+                                     "host_rss_bytes"))
+        sc = runs[True]["scopes"]
+        top = sorted(sc.items(), key=lambda kv: -kv[1]["total_s"])[:5]
+        out["scopes_ms_per_iteration"] = {
+            k: 1e3 * v["total_s"] / args.rounds for k, v in top}
+        out["recorder"] = {
+            "records": len(iters), "jsonl_errors": errors,
+            "jsonl_bytes": os.path.getsize(path),
+            "flushes": [r["reason"] for r in recs if r["type"] == "flush"],
+            "context": recs[0]["context"],
+            "phases_last": iters[-1]["phases"] if iters else None,
+            "mem_last": iters[-1]["mem"] if iters else None,
+            "dispatch_per_iteration": runs[True]["dispatch"],
+            "wall_s_off": runs[False]["wall_s"],
+            "wall_s_on": runs[True]["wall_s"]}
+        checks = {
+            "one_record_an_iteration": [r["iteration"] for r in iters]
+            == list(range(args.rounds)),
+            "jsonl_valid": errors == [],
+            "memory_from_torch_cuda": mem_ok,
+            "text_bitwise_on_off": runs[True]["text"] == runs[False]["text"],
+            "launches_equal_on_off": runs[True]["launches"]
+            == runs[False]["launches"],
+            "dispatch_equal_on_off": runs[True]["dispatch"]
+            == runs[False]["dispatch"]}
+        if not tw.ok:
+            raise AssertionError(f"trace_window: {tw.error}")
+        with open(tw.path) as fh:
+            events = json.load(fh)["traceEvents"]
+        names = {e.get("name", "") for e in events}
+        kernels = {k: any(k in nm for nm in names)
+                   for k in ("full_accumulate", "gather_", "split_epilogue")}
+        scopes = {k: k in names for k in ("grow_tree", "hist_pass",
+                                          "apply_split", "score_update")}
+        out["trace"] = {**tw.to_json(), "bytes": os.path.getsize(tw.path),
+                        "events": len(events), "kernels": kernels,
+                        "scopes": scopes}
+        checks["trace_names_hist_tile"] = kernels["full_accumulate"] \
+            or kernels["gather_"]
+        checks["trace_names_split_epilogue"] = kernels["split_epilogue"]
+        checks["trace_names_scopes"] = all(scopes.values())
+        out["checks"] = checks
+        if not all(checks.values()):
+            raise AssertionError(f"telemetry: {checks}")
+        return out, runs[True]["launches"]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def serve_phases(lgb, cuda_hist, args):
+    """The serve group's phases, each emitted; returns its numbers for the
+    kernels line (the serve sizes' cases, the launches by path)."""
+    from lightgbm_tpu_torch.ops import predict as P
+    t0 = time.time()
+    model, train_s = predict_group_model(lgb, args)
+    sk = serve_kernel_phase(P, args, model)
+    emit("serve_kernel", seconds=time.time() - t0,
+         model={"rows": PREDICT_TRAIN_ROWS, "rounds": PREDICT_ROUNDS,
+                "leaves": LEAVES, "train_s": train_s}, sizes=sk)
+    t0 = time.time()
+    ss = serve_steady_phase(lgb, cuda_hist, args, model)
+    emit("serve_steady", seconds=time.time() - t0, **ss)
+    sv, serve_launches = serve_phase(lgb, cuda_hist, args, model)
+    emit("serve", **sv)
+    t0 = time.time()
+    sc = serve_control_phase(lgb, cuda_hist, args, model)
+    emit("serve_control", seconds=time.time() - t0, **sc)
+    t0 = time.time()
+    tele, tele_launches = telemetry_phase(lgb, cuda_hist, args)
+    emit("telemetry", seconds=time.time() - t0, **tele)
+    return {"serve_sizes": sk, "serve_paths": {
+        "serve/steady": ss["launches"], "serve/frontend": serve_launches},
+        "telemetry_launches": tele_launches}
+
+
+def serve_entry(serve):
+    """The kernels line's entry of predict_ensemble under ``--only serve``:
+    the 8,192-row case's numbers, every serve size beside them, the
+    launches by path (the frontend's run is the main path)."""
+    sizes = serve["serve_sizes"]
+    main_case = sizes[str(SERVE_SIZES[-1])]
+    return {
+        "name": "predict_ensemble", "route": "cuda",
+        "source": "lightgbm_tpu_torch/csrc/predict_ensemble.cu",
+        "replaces": "none, a port-only kernel: lightgbm_tpu/models/"
+                    "predict_engine.py:123 _accum_core + :182 _leaves_core "
+                    "are plain jnp scans (no pallas_call)",
+        "launches": serve["serve_paths"]["serve/frontend"],
+        "max_abs_err": 0.0,
+        **{k: main_case[k] for k in ("ms", "device_ms", "plain_ms",
+                                     "bound_ms", "bound_by", "library_ms",
+                                     "node_visits", "rows", "trees")},
+        "serve_sizes": serve_sizes_numbers(sizes),
+        "launches_by_path": serve["serve_paths"]}
+
+
+def serve_sizes_numbers(sizes):
+    return {k: {kk: v[kk] for kk in ("ms", "device_ms", "plain_ms",
+                                     "bound_ms", "bound_by", "node_visits")}
+            | {"mode": v["geometry"]["mode"]} for k, v in sizes.items()}
+
+
 # ------------------------------------------------------------------ faults
 # The faults group (fault tolerance): checkpoints and bit-identical resume
 # across a killed child process, the feature-blocked pass under
@@ -6168,7 +6855,8 @@ def _res_numbers(rep, events, fault_rank=None):
            "launches_plane_raw": rep.result["launches"].get(
                "hist_tile.launches_plane_raw", 0),
            "launches_convert": rep.result["launches"].get(
-               "hist_convert.launches", 0)}
+               "hist_convert.launches", 0),
+           "postmortem": _res_postmortem(rep)}
     if rep.failures:
         f = rep.failures[0]
         before = [e["t"] for e in events if e["incarnation"] == 0
@@ -6184,6 +6872,18 @@ def _res_numbers(rep, events, fault_rank=None):
             "fault_to_first_resumed_iteration_s":
                 min(after) - t_fault if after else "no iteration left"})
     return out
+
+
+def _res_postmortem(rep):
+    """The supervisor's post-mortem of a run with a failure (its verdict,
+    rank, iteration, cause and the flight recorders it read), or None."""
+    if rep.postmortem is None:
+        return None
+    with open(rep.postmortem) as fh:
+        pm = json.load(fh)
+    return {k: pm[k] for k in ("verdict", "rank", "iteration", "cause")} \
+        | {"flights": len(pm["sources"]["flights"]),
+           "diags": len(pm["sources"]["diags"])}
 
 
 def _header(text: str) -> str:
@@ -6275,6 +6975,9 @@ def resilience_phases(lgb, cuda_hist, args):
         _res_check("resilience_kill", {
             "one_relaunch": rep.restarts == 1 and rep.world_size == RES_WORLD,
             "rank1_killed": rep.failures[0].exit_codes.get(1) == 137,
+            "postmortem_kill_rank1_iteration2": out["postmortem"] is not None
+            and (out["postmortem"]["verdict"], out["postmortem"]["rank"],
+                 out["postmortem"]["iteration"]) == ("kill", 1, 2),
             "text_bitwise_reference": rep.result["text"] == ref}, out)
 
         rep, ev, wall = _res_run(
@@ -6289,6 +6992,11 @@ def resilience_phases(lgb, cuda_hist, args):
                                for d in rep.failures[0].watchdog),
             "detected_within_deadline_plus_2s":
                 out["detect_s"] <= RES_DEADLINE + 2.0,
+            # the hang begins before iteration 2's step: the diagnoses
+            # name iteration 1, the last one completed
+            "postmortem_hang_rank1_iteration1": out["postmortem"] is not None
+            and (out["postmortem"]["verdict"], out["postmortem"]["rank"],
+                 out["postmortem"]["iteration"]) == ("hang", 1, 1),
             "text_bitwise_reference": rep.result["text"] == ref}, out)
 
         # the shrink: the gang checkpointed at iteration 2 (the
@@ -6579,7 +7287,7 @@ def redesign_group(lgb, cuda_hist, args):
 # own output (relayed after the main process's phases; ``at_s`` counted
 # from the main process's start) and its numbers as JSON; a lane that
 # fails, or runs past LANE_DEADLINE, fails the run.
-LANES = {"gangs": ("distributed", "resilience", "control"),
+LANES = {"gangs": ("distributed", "resilience", "control", "serve"),
          "predict": ("predict", "faults"),
          "constraints": ("rank", "constraints")}
 LANE_DEADLINE = 1100     # seconds from the main process's start
@@ -6656,6 +7364,8 @@ def _lane_group(group, lgb, cuda_hist, args) -> dict:
         return {"fpaths": fpaths, "po_launches": po_launches}
     if group == "rank":
         return rank_phases(lgb, cuda_hist, args)
+    if group == "serve":
+        return {"serve": serve_phases(lgb, cuda_hist, args)}
     return constraint_phases(lgb, cuda_hist, args, lane_ref(args.workdir))
 
 
@@ -6771,7 +7481,7 @@ def main() -> int:
                          "run's phases")
     ap.add_argument("--only", choices=("precision", "control", "predict",
                                        "faults", "distributed",
-                                       "resilience", "redesign"),
+                                       "resilience", "redesign", "serve"),
                     default=None,
                     help="run the device, build and train phases and this "
                          "group's phases alone (a quicker check of one "
@@ -6884,6 +7594,20 @@ def main() -> int:
     if args.only == "redesign":
         kernels = redesign_group(lgb, cuda_hist, args)
         print(json.dumps({"kernels": kernels,
+                          "total_seconds": time.time() - t_start}),
+              flush=True)
+        print(smi, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
+    if args.only == "serve":
+        serve = serve_phases(lgb, cuda_hist, args)
+        print(json.dumps({"kernels": [serve_entry(serve)],
+                          "launches_by_path": {
+                              "telemetry": {k: v for k, v in
+                                            serve["telemetry_launches"]
+                                            .items() if v}},
                           "total_seconds": time.time() - t_start}),
               flush=True)
         print(smi, flush=True)
@@ -7007,6 +7731,10 @@ def main() -> int:
                                      lane["monoq_launches"])
     control, fpaths, pentry = lane["control"], lane["fpaths"], lane["pentry"]
     pentry["launches_by_path"]["faults/predict_oom"] = lane["po_launches"]
+    # the serving path (the gangs lane's serve group): the kernel at serve
+    # sizes, its launches a flush
+    pentry["serve_sizes"] = serve_sizes_numbers(lane["serve"]["serve_sizes"])
+    pentry["launches_by_path"].update(lane["serve"]["serve_paths"])
     dist_hp, dpaths, rpaths = lane["dist_hp"], lane["dpaths"], lane["rpaths"]
 
     if args.parent:
@@ -7230,6 +7958,7 @@ def main() -> int:
              "train_linear": prec["linear_launches"],
              **{f"train_sampling/{k}": v["launches"]
                 for k, v in ts["runs"].items()},
+             "telemetry": lane["serve"]["telemetry_launches"],
              **control, **fpaths}
     for entry, count in zip(kernels[:6], (
             lambda c: c["hist_tile.launches"] - c["hist_tile.launches_plane"],

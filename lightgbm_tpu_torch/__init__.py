@@ -17,7 +17,12 @@ over a gang of processes (``distributed``: ``init``, ``spawn``,
 ``train_distributed``, ``load_partitioned``; or torchrun), and
 ``supervisor`` keeps a gang alive: heartbeats and a collective watchdog,
 relaunches from sharded checkpoints at the same or a smaller world size,
-and a cross-rank integrity vote. The package
+and a cross-rank integrity vote, each failure classified by the
+post-mortem analyzer (``postmortem``). ``ServeFrontend`` puts a model
+behind traffic: micro-batching, deadlines, load shedding, validated hot
+swap and a metrics endpoint, over the engine's serve mode; ``telemetry``
+holds the flight recorder, the snapshot and its Prometheus form, and
+trace capture. The package
 imports torch and numpy only; scikit-learn, matplotlib and graphviz are
 imported when their names are first used.
 
@@ -36,9 +41,12 @@ from .callback import checkpoint as checkpoint_callback
 from .config import Config
 from .convert import booster_from_numpy, booster_to_numpy, mappers_from_numpy
 from .engine import CVBooster, cv, train
+from .serving import (ServeFrontend, ServeOverloadError, ServeSwapError,
+                      ServeTimeoutError)
 
 __all__ = ["Booster", "CVBooster", "Config", "Dataset", "EarlyStopException",
-           "distributed", "supervisor",
+           "ServeFrontend", "ServeOverloadError", "ServeSwapError",
+           "ServeTimeoutError", "distributed", "supervisor",
            "booster_from_numpy", "booster_to_numpy", "checkpoint_callback",
            "cv",
            "early_stopping", "log_evaluation", "mappers_from_numpy",

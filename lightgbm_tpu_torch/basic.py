@@ -480,22 +480,42 @@ class Dataset:
         its device -> binsT [G, N] (uint8, or int16 in the wide mode; a
         zero column stands in for no features). scipy-sparse rows are
         binned column by column without densifying."""
+        X = self._new_rows(X)
+        if self.bundles is not None:
+            return self._bin_columns(X)
+        if _is_scipy_sparse(X):
+            return self._bin_columns_unbundled(X)
+        if not len(self.used_features):
+            return torch.zeros((1, X.shape[0]), dtype=torch.uint8,
+                               device=self.device)
+        return binning.bin_data_device(*self._used_columns(X), self.device)
+
+    def serve_rows(self, X):
+        """The serve mode's input (``models/predict_engine.py``): the dense
+        raw rows of the used features and their mappers, as
+        ``bin_new_data`` would bin them, or None where it bins otherwise
+        (EFB bundles, scipy-sparse rows, no used features)."""
+        if self.bundles is not None or _is_scipy_sparse(X) \
+                or not len(self.used_features):
+            return None
+        return self._used_columns(self._new_rows(X))
+
+    def _new_rows(self, X):
+        """New raw rows as ``bin_new_data`` takes them: dense float (or
+        scipy-sparse), their feature count checked."""
         if not _is_scipy_sparse(X):
             X = _to_2d_float(self._pandas_to_codes(X))
         if X.shape[1] != self.num_total_features:
             log.fatal(f"The number of features in data ({X.shape[1]}) is not "
                       f"the same as it was in training data "
                       f"({self.num_total_features}).")
-        if self.bundles is not None:
-            return self._bin_columns(X)
-        if _is_scipy_sparse(X):
-            return self._bin_columns_unbundled(X)
+        return X
+
+    def _used_columns(self, X):
+        """The used features' columns of dense rows, and their mappers."""
         used = [self.mappers[j] for j in self.used_features]
-        if not used:
-            return torch.zeros((1, X.shape[0]), dtype=torch.uint8,
-                               device=self.device)
-        Xu = X if len(used) == X.shape[1] else X[:, self.used_features]
-        return binning.bin_data_device(Xu, used, self.device)
+        return (X if len(used) == X.shape[1]
+                else X[:, self.used_features]), used
 
     # ------------------------------------------------- sparse + EFB path
     def _construct_sparse(self, config: Config) -> "Dataset":

@@ -608,17 +608,102 @@ def quantize_block(xT, bounds, nan_to_zero, nan_bin):
     return torch.where(torch.isnan(v), nan_bin[:, None], cnt)
 
 
+class BinSlot:
+    """Buffers to quantize up to ``rows`` rows of one feature width in
+    place, allocated once: the serve mode's binning
+    (``bin_data_device(..., out=slot)``, ``models/predict_engine.py``).
+    The rows go to a host staging buffer (pinned on a CUDA device), up to
+    the device in one asynchronous copy, are transposed into ``xT`` and
+    quantized over the whole slot into ``cnt`` and ``binsT`` with the
+    operations' ``out=`` forms: a call allocates no device memory. The
+    predicate is ``quantize_block``'s, so the bins are bitwise
+    ``bin_data_device``'s; rows past the call's ``n`` hold stale values
+    nobody reads."""
+
+    def __init__(self, mappers: Sequence[BinMapper], rows: int, dtype,
+                 device):
+        import torch
+        self.mappers = list(mappers)
+        self.rows = int(rows)
+        self.dtype = np.dtype(dtype)
+        self.device = torch.device(device)
+        fs = len(self.mappers)
+        bounds, nz, nb = device_bin_tables(self.mappers, self.dtype.type)
+        tdt = torch.from_numpy(np.zeros(0, self.dtype)).dtype
+        dev = self.device
+        self.bounds = torch.as_tensor(bounds, device=dev)
+        self.nz = torch.as_tensor(nz, device=dev)[:, None]
+        self.nb = torch.as_tensor(nb, device=dev)[:, None]
+        pin = dev.type == "cuda"
+        self.host = torch.empty((self.rows, fs), dtype=tdt, pin_memory=pin)
+        self.host_np = self.host.numpy()
+        self.raw = torch.empty((self.rows, fs), dtype=tdt, device=dev)
+        self.xT = torch.empty((fs, self.rows), dtype=tdt, device=dev)
+        self.nan = torch.empty((fs, self.rows), dtype=torch.bool, device=dev)
+        self.cnt = torch.empty((fs, self.rows), dtype=torch.int64, device=dev)
+        out_dtype = bins_dtype(max((m.num_bin for m in self.mappers),
+                                   default=2))
+        self.binsT = torch.empty((fs, self.rows), dtype=out_dtype, device=dev)
+        self.cat = [j for j, m in enumerate(self.mappers)
+                    if m.bin_type == BIN_TYPE_CATEGORICAL]
+        self.cat_host = torch.empty((len(self.cat), self.rows),
+                                    dtype=out_dtype, pin_memory=pin)
+        self.cat_np = self.cat_host.numpy()
+
+    def fits(self, X: np.ndarray) -> bool:
+        return (X.shape[0] <= self.rows and X.shape[1] == len(self.mappers)
+                and X.dtype == self.dtype)
+
+    def bin(self, X: np.ndarray):
+        """Quantize ``X [n, F]`` (n <= rows) into ``binsT[:, :n]`` and
+        return that view. With profiling enabled the copy in and the
+        binning are scopes of their own (``serve_copy_in``,
+        ``serve_bin``)."""
+        import torch
+        from .utils import profiling
+        n = X.shape[0]
+        nb = not self.device.type == "cpu"
+        with profiling.timer("serve_copy_in", sync=self.device):
+            self.host_np[:n] = X
+            self.raw[:n].copy_(self.host[:n], non_blocking=nb)
+        with profiling.timer("serve_bin", sync=self.device):
+            self.xT[:, :n].copy_(self.raw[:n].t())
+            torch.ne(self.xT, self.xT, out=self.nan)
+            torch.logical_and(self.nan, self.nz, out=self.nan)
+            self.xT.masked_fill_(self.nan, 0)
+            torch.searchsorted(self.bounds, self.xT, right=False,
+                               out=self.cnt)
+            torch.ne(self.xT, self.xT, out=self.nan)
+            torch.where(self.nan, self.nb, self.cnt, out=self.cnt)
+            self.binsT.copy_(self.cnt)
+            # categorical columns: the host's category lookup overwrites
+            # the row, as in bin_data_device
+            for i, j in enumerate(self.cat):
+                self.cat_np[i, :n] = self.mappers[j].values_to_bins(X[:, j])
+                self.binsT[j, :n].copy_(self.cat_host[i, :n],
+                                        non_blocking=nb)
+        return self.binsT[:, :n]
+
+
 def bin_data_device(X: np.ndarray, mappers: Sequence[BinMapper], device,
-                    block: int = 1 << 20):
+                    block: int = 1 << 20, out: Optional[BinSlot] = None):
     """Quantize ``X [N, F]`` on ``device``; returns the feature-major
     ``binsT [F, N]`` (``bins_dtype``: uint8 when every feature has <= 256
     bins, else int16). Bit-exact vs ``bin_data`` for float32 and float64 input (see
     ``device_bin_tables``). Rows go up in blocks so the int64 searchsorted
-    result stays bounded."""
+    result stays bounded. ``out``: a ``BinSlot`` of these mappers that fits
+    ``X``, which bins in place into its preallocated buffers and returns
+    the ``[F, N]`` view of its bins (the serve mode's path)."""
     import torch
     X = np.asarray(X)
     if X.dtype not in (np.float32, np.float64):
         X = X.astype(np.float64)
+    if out is not None:
+        if not out.fits(X):
+            raise ValueError(f"bin_data_device: rows {X.shape} {X.dtype} do "
+                             f"not fit the slot ({out.rows} rows of "
+                             f"{len(out.mappers)} columns, {out.dtype})")
+        return out.bin(X)
     n, fs = X.shape
     bounds, nz, nb = device_bin_tables(mappers, X.dtype.type)
     out_dtype = bins_dtype(max((m.num_bin for m in mappers), default=2))

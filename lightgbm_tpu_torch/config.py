@@ -764,7 +764,8 @@ _SLICE_PARAMS = frozenset({
     # prediction and the user surface: the CLI's data files (the parser is
     # always exact, so precise_float_parser has no effect, as in the JAX
     # package), the predict and convert tasks, and the engine's parameters
-    # (predict_bucket_min_rows has no effect: the port pads no rows)
+    # (predict_bucket_min_rows sizes the serve mode's smallest slot; the
+    # ordinary path pads no rows)
     "data", "valid", "header", "label_column", "weight_column",
     "group_column", "ignore_column", "two_round", "save_binary",
     "precise_float_parser", "start_iteration_predict",
@@ -797,6 +798,13 @@ _SLICE_PARAMS = frozenset({
     "fault_kill_rank_at_iter", "fault_hang_rank_at_iter",
     "fault_kill_in_shard_write", "fault_corrupt_shard",
     "fault_flip_score_rank",
+    # the ops layer: the serving front end (serving.py), the flight
+    # recorder and memory telemetry (telemetry.py), the slow-predict fault
+    "serve_flush_ms", "serve_max_batch_rows", "serve_max_queue_rows",
+    "serve_deadline_ms", "serve_metrics", "serve_metrics_port",
+    "serve_metrics_host", "telemetry_flight_recorder", "telemetry_ring_size",
+    "telemetry_memory", "telemetry_dir", "telemetry_flush_period",
+    "fault_slow_predict_ms",
 })
 
 # ROADMAP.md "Queue 1" item that brings each group of parameters
@@ -811,13 +819,6 @@ for _names, _item in (
         (("mesh_shape", "num_gpu", "construct_chunk_rows",
           "construct_streaming", "sketch_max_size", "predict_sharded"),
          "Queue 1 item 15 (distributed)"),
-        (("serve_flush_ms", "serve_max_batch_rows",
-          "serve_max_queue_rows", "serve_deadline_ms", "serve_metrics",
-          "serve_metrics_port", "serve_metrics_host",
-          "telemetry_flight_recorder", "telemetry_ring_size",
-          "telemetry_memory", "telemetry_dir", "telemetry_flush_period",
-          "fault_slow_predict_ms"),
-         "Queue 1 item 16 (ops layer)"),
         (("hist_pallas_interpret",),
          "Queue 2 (the port runs no Pallas interpreter; its CPU path is the "
          "plain PyTorch version of each kernel)")):

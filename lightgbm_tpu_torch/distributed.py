@@ -283,8 +283,10 @@ def reset_degradations() -> None:
 def health_snapshot() -> dict:
     """The restart count (from the supervisor's environment), this
     process's progress, the heartbeat table and the deadline when they are
-    live, and every degradation event: the supervision record of every
-    checkpoint manifest."""
+    live, every degradation event, the serving layer's ``serve_*`` gauges
+    (``serve``), the memory gauges the flight recorder samples
+    (``memory``) and the flight recorder's path (``flight_recorder``): the
+    supervision record of every checkpoint manifest."""
     snap = _progress.snapshot()
     out = {
         "restart_count": int(os.environ.get(_RESTART_COUNT_ENV, "0") or 0),
@@ -303,6 +305,19 @@ def health_snapshot() -> dict:
     with _lock:
         if _degradations:
             out["degradations"] = list(_degradations)
+    g = profiling.gauges()
+    serve = {k: v for k, v in g.items() if k.startswith("serve_")}
+    if serve:
+        out["serve"] = serve
+    mem = {k: int(v) for k, v in g.items()
+           if k in ("hbm_bytes_in_use", "hbm_peak_bytes", "host_rss_bytes",
+                    "host_rss_peak_bytes")}
+    if mem:
+        out["memory"] = mem
+    from . import telemetry
+    fr = telemetry.recorder_path()
+    if fr:
+        out["flight_recorder"] = fr
     return out
 
 
@@ -1084,6 +1099,13 @@ class CollectiveWatchdog:
                                      diag["suspects"], diag["phase"],
                                      self.deadline)
         log.warning(f"watchdog: {msg}")
+        # flush the flight recorder now (the training thread is stalled
+        # inside the phase being diagnosed) and carry its path in the
+        # diagnosis: the supervisor's report then points at a
+        # per-iteration post-mortem
+        from . import telemetry
+        diag["flight_recorder"] = telemetry.flush_recorder(
+            f"watchdog: {msg}")
         if self.diag_dir:
             try:
                 os.makedirs(self.diag_dir, exist_ok=True)
@@ -1348,6 +1370,10 @@ def check_model_integrity(boosting, iteration: int,
                     "corrupt_ranks": corrupt, "fingerprints": table,
                     "kind": "divergence",
                     "t": time.time(), "t_mono": time.monotonic()}
+            from . import telemetry
+            diag["flight_recorder"] = telemetry.flush_recorder(
+                f"divergence: rank {rank} voted corrupt at iteration "
+                f"{iteration}")
             if diag_dir:
                 try:
                     os.makedirs(diag_dir, exist_ok=True)

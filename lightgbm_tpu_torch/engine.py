@@ -137,10 +137,12 @@ def train(params: Dict[str, Any], train_set: Dataset,
     if init_model is not None:
         loaded = _load_init_model(init_model, params, train_set, valid_sets)
     if not train_set._constructed:
+        from .utils import profiling
         merged = dict(train_set.params or {})
         merged.update(params)
         train_set.params = merged
-        train_set.construct()
+        with profiling.timer("construct"):
+            train_set.construct()
     booster = Booster(params=params, train_set=train_set)
     boosting = booster._boosting
     if loaded is not None:
@@ -234,8 +236,21 @@ def train(params: Dict[str, Any], train_set: Dataset,
                     booster.best_score.setdefault(item[0], {})[item[1]] = \
                         item[2]
                 break
+    except BaseException as e:
+        # a dying run flushes its flight recorder (telemetry.py): the ring
+        # and this reason are the post-mortem, on disk before the
+        # exception unwinds (this booster's recorder, not the module's)
+        boosting._flush_flight(
+            f"train-error: {type(e).__name__}: {str(e)[:300]}")
+        raise
     finally:
         health.stop()
+    # clean end: flush only with a durable telemetry directory
+    # (telemetry_dir, the supervisor's diagnosis directory,
+    # checkpoint_path); an ordinary run leaves no post-mortem files
+    fr = boosting._flight
+    if fr is not None and fr.directory:
+        fr.flush("train-end")
     return booster
 
 

@@ -575,15 +575,70 @@ class LoadedGBDT:
                if num_iteration is not None and num_iteration > 0 else total)
         return start, end
 
+    _oom_predict_chunk = 0       # the predict rung's chunk (serve OOM)
+
     def predict_raw(self, X, num_iteration: Optional[int] = None,
                     start_iteration: int = 0,
                     pred_early_stop: bool = False,
                     pred_early_stop_freq: int = 10,
                     pred_early_stop_margin: float = 10.0) -> np.ndarray:
         """Raw scores over raw rows on the host, tree by tree in float64,
-        with margin-based early stop (none for an averaged model)."""
-        from ..models.gbdt import _accumulate_active, _early_stop_mask
+        with margin-based early stop (none for an averaged model). The
+        predict rung as the trained booster's, so a file-loaded model
+        behind a ``ServeFrontend`` rides an allocation failure the same
+        way: the chunk halves and the call is retried (rows never
+        interact, so chunking is exact)."""
         X = self._check_features(X)
+        kw = dict(num_iteration=num_iteration,
+                  start_iteration=start_iteration,
+                  pred_early_stop=pred_early_stop,
+                  pred_early_stop_freq=pred_early_stop_freq,
+                  pred_early_stop_margin=pred_early_stop_margin)
+        while True:
+            try:
+                chunk = self._oom_predict_chunk
+                if chunk and X.shape[0] > chunk:
+                    return np.concatenate(
+                        [self._predict_raw_chunk(X[a:a + chunk], **kw)
+                         for a in range(0, X.shape[0], chunk)], axis=0)
+                return self._predict_raw_chunk(X, **kw)
+            except Exception as e:
+                if not self._maybe_degrade_predict_oom(e):
+                    raise
+
+    def _maybe_degrade_predict_oom(self, exc: BaseException) -> bool:
+        """The predict rung of a file-loaded model: halve the chunk (floor
+        16k rows), record the event, retry; False (re-raise) at the floor
+        or for any other error."""
+        from .. import distributed
+        from ..utils import faults, profiling
+        nxt = faults.next_predict_chunk(
+            exc, self._oom_predict_chunk,
+            getattr(self.config, "hist_oom_fallback", True))
+        if nxt is None:
+            return False
+        self._oom_predict_chunk = nxt
+        action = f"predict_chunk_rows -> {self._oom_predict_chunk}"
+        distributed.record_degradation({
+            "kind": "oom_predict", "iteration": -1, "level": 0,
+            "action": action, "error": str(exc)[:200],
+            "memory": profiling.sample_memory()})
+        profiling.set_gauge("predict_oom_chunk_rows",
+                            float(self._oom_predict_chunk))
+        log.warning(f"RESOURCE_EXHAUSTED in loaded-model predict: "
+                    f"degrading ({action}) and retrying")
+        return True
+
+    def _predict_raw_chunk(self, X, num_iteration=None, start_iteration=0,
+                           pred_early_stop=False, pred_early_stop_freq=10,
+                           pred_early_stop_margin=10.0) -> np.ndarray:
+        from ..models.gbdt import _accumulate_active, _early_stop_mask
+        from ..utils import faults
+        sf = faults.serve_faults(self.config)
+        if sf is not None:
+            # the trained booster's serve-side fault points
+            faults.maybe_slow_predict(sf)
+            faults.maybe_oom_predict(sf)
         k = self.num_tree_per_iteration
         start, end = self._window(num_iteration, start_iteration)
         out = np.zeros((X.shape[0], k), np.float64)

@@ -49,11 +49,19 @@ every tree in the q8 mode; ``gpu_use_dp`` grows every tree on the classic
 path with float64 histograms and leaf state (always: the JAX package's
 x64 mode, which the port has no switch to leave). The
 JAX package's fused one-program iteration, K-block dispatch, compile
-cache, sentinels, flight recorder and OOM ladder wait for later ROADMAP
-items; its fused and unfused iterations give the same trees (its fused
-tweedie and gamma gradients excepted: XLA contracts their multiply-adds
-there), so the port runs the unfused one whatever ``fused_iteration``
-says.
+cache and in-program sentinels wait for later ROADMAP items; its fused
+and unfused iterations give the same trees (its fused tweedie and gamma
+gradients excepted: XLA contracts their multiply-adds there), so the port
+runs the unfused one whatever ``fused_iteration`` says.
+
+Telemetry, as the JAX package wires it: ``_init_train`` builds the run's
+flight recorder (``telemetry.configure``), each ``train_one_iter``
+appends one record from values the host already holds (``_record_flight``:
+no synchronise, no launch), and the OOM ladder's exhaustion flushes it;
+the phases are ``profiling`` scopes (``gradients``, ``grow_tree``,
+``finalize_tree``, ``score_update``, the grower's ``hist_pass`` /
+``split_search`` / ``apply_split``). ``enable_serve_mode`` puts the
+booster's predict engines in serve mode (``models/predict_engine.py``).
 
 Linear leaves (``linear_tree``, ``linear_lambda``): after each tree grows,
 ``_fit_linear_leaves`` fits every leaf's ridge model on the raw values of
@@ -82,6 +90,7 @@ so the model text needs no further transfer.
 from __future__ import annotations
 
 import threading
+import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -94,7 +103,7 @@ from ..objectives import ObjectiveFunction, create_objective
 from ..ops import cuda_hist
 from ..ops.histogram import resolve_method
 from ..ops.split import SplitParams
-from ..utils import log
+from ..utils import log, profiling
 from ..utils.ordered import linear_row_sum
 from ..utils.random import bits, fold_in, prng_key, stable_argsort, uniform
 from .grower import CegbSpec, grow_tree
@@ -196,6 +205,23 @@ class GBDT:
     _bag_stale = False           # a restore marks the bag for re-derivation
     _parallel = None             # the distributed learner (tree_learner)
     _pre_part = False            # a pre-partitioned train set
+    _flight = None               # the run's flight recorder (telemetry.py);
+                                 # None for loaded boosters or when off
+    _mem_telemetry = True        # memory in every flight record
+                                 # (telemetry_memory)
+    _serve_mode = False          # a ServeFrontend registered the booster
+
+    def enable_serve_mode(self, on: bool = True) -> None:
+        """Serve mode for this booster's predict engines: their flushes go
+        through per-bucket slots of preallocated buffers
+        (``PredictEngine._serve_chunk``). Applied to the engines already
+        built too; turning it off releases their slots."""
+        self._serve_mode = bool(on)
+        with self._engine_lock:
+            for _, eng in self._engine_cache.values():
+                eng.serve_mode = self._serve_mode
+                if not self._serve_mode:
+                    eng.release_serve_slots()
 
     def _init_train(self, train_set: Dataset) -> None:
         from .. import distributed
@@ -207,6 +233,11 @@ class GBDT:
         # health snapshots and checkpoint manifests must not inherit an
         # earlier booster's OOM events
         distributed.reset_degradations()
+        # a fresh flight-recorder ring a training run, fed host values only
+        # (train_one_iter); the context header fills after the first step
+        from .. import telemetry
+        self._flight = telemetry.configure(cfg)
+        self._mem_telemetry = bool(getattr(cfg, "telemetry_memory", True))
         self.device = train_set.device
         if cfg.linear_tree and self.name in ("dart", "rf"):
             log.fatal(f"linear_tree is not supported with boosting={self.name}")
@@ -826,6 +857,13 @@ class GBDT:
         from .. import distributed
         from ..utils import faults
         it = self.iter
+        # flight-recorder bookkeeping (host snapshots only; the record is
+        # built in the finally, so a failed step leaves an in-flight one)
+        flight = self._flight
+        t_rec = time.time() if flight is not None else 0.0
+        disp0 = profiling.dispatch_stats() if flight is not None else None
+        sc0 = profiling.scopes() \
+            if flight is not None and profiling.enabled() else None
         distributed.notify_step_begin(it)
         try:
             while True:
@@ -841,6 +879,17 @@ class GBDT:
                     distributed.notify_step_retry(it)
         finally:
             distributed.notify_step_end(it if self.iter > it else it - 1)
+            if flight is not None:
+                # telemetry must not end the run it observes, and an error
+                # escaping this finally would replace a real training
+                # exception: a failing recorder disarms itself with one
+                # warning, as in the JAX package
+                try:
+                    self._record_flight(flight, it, t_rec, disp0, sc0)
+                except Exception as e:     # noqa: BLE001 -- see above
+                    self._flight = None
+                    log.warning(f"flight recorder disabled after record "
+                                f"failure: {e}")
         if self._fault_plan is not None:
             # the silent-corruption fault: one score-cache bit flipped on
             # one rank after the iteration completed
@@ -859,10 +908,11 @@ class GBDT:
         faults.maybe_oom(self._fault_plan, self.iter)
         self._update_bagging()
         mask = self._bag_mask
-        if grad is None:
-            g, h = self._gradients()
-        else:
-            g, h = self._custom_gradients(grad, hess)
+        with profiling.timer("gradients", sync=self.device):
+            if grad is None:
+                g, h = self._gradients()
+            else:
+                g, h = self._custom_gradients(grad, hess)
         if self._fault_plan is not None:
             g, h = faults.maybe_nan_grad(self._fault_plan, self.iter, g, h)
             g, h = faults.maybe_nan_hist(self._fault_plan, self.iter, g, h)
@@ -881,11 +931,20 @@ class GBDT:
             hc = h[:, c].contiguous() if k > 1 else h
             fmask = self._feature_mask()
             iter_key = fold_in(self._extra_rng_key, self.iter * k + c)
-            tree, leaf_id, streamed = self._grow_one(gc, hc, mask, fmask,
-                                                     iter_key)
+            coll0 = (self._coll_bytes() if profiling.enabled() else 0)
+            with profiling.timer_sync("grow_tree") as grow_scope:
+                tree, leaf_id, streamed = self._grow_one(gc, hc, mask, fmask,
+                                                         iter_key)
+                grow_scope.sync(leaf_id)
             if cfg.check_numerics and self._hist_counters.pop("sentinel", 0):
                 self._check_sentinel_flags(1 << 2)
             self._rows_streamed += streamed
+            if profiling.enabled():
+                # the tree's histogram rows and collective bytes (host
+                # values the grower and the network already hold)
+                profiling.counter("hist_rows_streamed", float(streamed))
+                profiling.counter("hist_coll_bytes",
+                                  float(self._coll_bytes() - coll0))
             lin = None
             if cfg.linear_tree:
                 # the first tree counts an init model's trees too
@@ -893,10 +952,12 @@ class GBDT:
                 lin = self._fit_linear_leaves(
                     tree, leaf_id, gc, hc, mask,
                     len(self.trees) < k and self.loaded_iters == 0)
-            tree, had_split = self._finalize_tree(tree, leaf_id, c)
+            with profiling.timer("finalize_tree", sync=self.device):
+                tree, had_split = self._finalize_tree(tree, leaf_id, c)
             no_split = no_split and not had_split
-            self._add_tree(tree, leaf_id, c, lin)
-            self._bias_after_score(c, had_split)
+            with profiling.timer("score_update", sync=self.device):
+                self._add_tree(tree, leaf_id, c, lin)
+                self._bias_after_score(c, had_split)
         self.iter += 1
         return no_split
 
@@ -1277,6 +1338,11 @@ class GBDT:
         if len(self.trees) != ntrees_before:
             return False
         if self._oom_level >= 3:
+            # the ladder is spent: the error re-raises and ends the run;
+            # the flushed ring is the post-mortem naming every rung taken
+            self._flush_flight(
+                f"oom-exhausted: ladder spent at iteration {self.iter} "
+                f"(level {self._oom_level}/3)")
             return False
         if self._oom_level < 2:
             why = self._blocked_refusal()
@@ -1307,6 +1373,7 @@ class GBDT:
             "kind": "oom", "iteration": int(self.iter),
             "level": int(self._oom_level), "action": action,
             "error": str(exc)[:200], **self._oom_memory_evidence()})
+        profiling.set_gauge("hist_oom_degrade_level", self._oom_level)
         log.warning(
             f"RESOURCE_EXHAUSTED in boosting iteration {self.iter}: "
             f"degrading ({action}; ladder rung {self._oom_level}/3) and "
@@ -1315,14 +1382,13 @@ class GBDT:
         return True
 
     def _oom_memory_evidence(self) -> dict:
-        """The device allocator's view at the failure (null on the CPU)."""
-        if self.device.type != "cuda":
-            return {"memory": None}
-        return {"memory": {
-            "allocated": int(torch.cuda.memory_allocated(self.device)),
-            "reserved": int(torch.cuda.memory_reserved(self.device)),
-            "max_allocated": int(torch.cuda.max_memory_allocated(
-                self.device))}}
+        """What every OOM degradation event carries, as in the JAX
+        package: the memory sample at the failure (``profiling
+        .sample_memory``: device fields null on the CPU) and the bytes
+        the histogram state needs (``predicted_hist_bytes``: the resident
+        [L, F, B, 3] state's)."""
+        return {"memory": profiling.sample_memory(),
+                "predicted_hist_bytes": int(self._resident_hist_bytes())}
 
     def _maybe_degrade_predict_oom(self, exc: BaseException) -> bool:
         """The predict path's entry to rung 3: halve the effective predict
@@ -1344,9 +1410,80 @@ class GBDT:
             "kind": "oom_predict", "iteration": int(self.iter),
             "level": int(self._oom_level), "action": action,
             "error": str(exc)[:200], **self._oom_memory_evidence()})
+        profiling.set_gauge("predict_oom_chunk_rows",
+                            float(self._oom_predict_chunk))
         log.warning(f"RESOURCE_EXHAUSTED in predict: degrading ({action}) "
                     f"and retrying")
         return True
+
+    def _coll_bytes(self) -> int:
+        """This rank's collective input bytes so far (the network's
+        counters; 0 in a gang of one)."""
+        from .. import network
+        return int(network.current().totals()["bytes"])
+
+    # --------------------------------------------------- flight recorder
+    def _flush_flight(self, reason: str) -> Optional[str]:
+        """Flush this booster's flight recorder (not the process's: in a
+        process of several boosters, cv folds, the module slot holds the
+        last one's ring)."""
+        if self._flight is None:
+            return None
+        return self._flight.flush(reason)
+
+    def _record_flight(self, flight, it: int, t0: float, disp0,
+                       sc0) -> None:
+        """Append the flight record of the update() that began at
+        iteration ``it`` (completed False when the step failed). Reads host
+        state only: the phase deltas from the profiling scopes and the
+        cumulative rows and collective bytes of the histogram passes from
+        its counters (both empty when profiling is off), the OOM rung,
+        heartbeat ages and, with ``telemetry_memory``, a memory sample (an
+        allocator query and a /proc read), which also feeds the memory
+        gauges."""
+        from .. import distributed
+        consumed = self.iter - it
+        phases = None
+        if sc0 is not None:
+            phases = {}
+            for name, sc in profiling.scopes().items():
+                d = sc["total_s"] - sc0.get(name, {}).get("total_s", 0.0)
+                if d > 0:
+                    phases[name] = round(d, 6)
+        # the unfused iteration judges its numerics inside the step (a
+        # failure raises and the train-error flush names it)
+        sentinel = "ok" if self.config.check_numerics else "off"
+        counters = profiling.counters() if sc0 is not None else {}
+        hb = distributed.heartbeat_ages()
+        mem = None
+        if self._mem_telemetry:
+            mem = profiling.sample_memory()
+            for key, val in mem.items():
+                if val is not None:
+                    profiling.set_gauge(key, float(val))
+            rss_peak = profiling.host_rss_peak_bytes()
+            if rss_peak is not None:
+                profiling.set_gauge("host_rss_peak_bytes", float(rss_peak))
+        flight.record(
+            iteration=it, iters=max(consumed, 1), completed=consumed > 0,
+            wall_s=time.time() - t0, phases=phases,
+            dispatch=profiling.dispatch_delta(disp0) if disp0 else None,
+            sentinel=sentinel, oom_level=self._oom_level,
+            coll_bytes=counters.get("hist_coll_bytes"),
+            rows_streamed=counters.get("hist_rows_streamed"),
+            heartbeat_age=(max(hb.values()) if hb else None), mem=mem)
+        if not flight.has_context:
+            # the resolved execution context, after the first step
+            flight.set_context(
+                backend=self.device.type, boosting=self.name,
+                hist_method=self._hist_method,
+                split_fusion=bool(self._split_fusion_on(
+                    self._feature_block())),
+                quantized_grad=bool(getattr(self.config, "quantized_grad",
+                                            False)),
+                rounds_per_dispatch=1,
+                num_leaves=int(self.config.num_leaves),
+                tree_learner=self.config.tree_learner)
 
     def _predict_chunk_rows(self) -> int:
         """``predict_chunk_rows`` under the predict rung's override."""
@@ -1708,7 +1845,9 @@ class GBDT:
             eng = PredictEngine(
                 stacked, k, nt, self._ensemble_depth(nt), biases=biases,
                 accum=cfg.predict_accum, chunk_rows=chunk,
-                device=self.device)
+                device=self.device,
+                bucket_min_rows=cfg.predict_bucket_min_rows)
+            eng.serve_mode = self._serve_mode
             if len(self._engine_cache) >= 2:
                 self._engine_cache.pop(next(iter(self._engine_cache)))
             self._engine_cache[key] = (stacked, eng)
@@ -1780,10 +1919,18 @@ class GBDT:
         model trees on the host, in chunks of ``_RAW_CHUNK`` rows (new rows
         need not keep the bundles' exclusivity; linear leaves read raw
         features). An averaged model (RF) divides by the iterations used,
-        and takes no early stop. ``fault_oom_at_predict`` raises here
-        first (``utils/faults``)."""
+        and takes no early stop. ``fault_slow_predict_ms`` sleeps and
+        ``fault_oom_at_predict`` raises here first (``utils/faults``). In
+        serve mode a dense input over the whole ensemble goes through the
+        engine's serve slots (``_predict_bins``)."""
         from ..utils import faults
-        faults.maybe_oom_predict(faults.serve_faults(self.config))
+        sf = faults.serve_faults(self.config)
+        if sf is not None:
+            # the serve-side fault points: a delay that forces deadlines
+            # and shedding, and a simulated allocation failure the predict
+            # rung (predict_raw's retry loop) must ride
+            faults.maybe_slow_predict(sf)
+            faults.maybe_oom_predict(sf)
         X = self._prep_predict_X(X)
         k = self.num_tree_per_iteration
         start, end = self._iter_range(num_iteration, start_iteration)
@@ -1808,8 +1955,17 @@ class GBDT:
         device bins of ``X``: the init model's prefix on the host, then the
         engine (``postprocess``: the converted [N] or [N, K] result)."""
         from ..basic import _is_scipy_sparse
-        binsT = self.train_set.bin_new_data(X)
         k = self.num_tree_per_iteration
+        if self._serve_mode and not es and start == 0 \
+                and self.loaded_iters == 0 and X.shape[0] > 0:
+            rows = self.train_set.serve_rows(X)
+            eng = self._predict_engine(end) if rows is not None else None
+            if eng is not None and eng.serve_mode:
+                res = eng.serve_predict(*rows, self.train_set.missing_bin,
+                                        postprocess)
+                return res if postprocess is not None \
+                    else np.asarray(res, np.float64).reshape(-1, k)
+        binsT = self.train_set.bin_new_data(X)
         n = binsT.shape[1]
         out = np.zeros((n, k), dtype=np.float64)
         mb = self.train_set.missing_bin

@@ -158,6 +158,7 @@ from ..ops.histogram import (compact_indices, epilogue_supported,
 from ..ops.split import (BundleMeta, FeatureMeta, SplitInfo, SplitParams,
                          calculate_leaf_output, candidates_to_splitinfo,
                          cat_words_for, find_best_splits, sync_best_splits)
+from ..utils import profiling
 from ..utils.ordered import fma_f32, tree_sum
 from ..utils.random import fold_in, prng_key, uniform
 from .tree import TreeArrays, empty_tree
@@ -1472,8 +1473,10 @@ class Grower:
             # the search already ran in the tile passes' epilogues
             st.rounds += 1
         else:
-            self.split_search(st)
-        self.split_apply(st)
+            with profiling.timer("split_search", sync=self.dev):
+                self.split_search(st)
+        with profiling.timer("apply_split", sync=self.dev):
+            self.split_apply(st)
 
     def forced_phase(self, st: GrowState) -> None:
         """Apply the next forced split (reference:
@@ -1643,7 +1646,8 @@ def grow_tree(binsT: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
     while g.outer_cond(st):
         g.dead_guard(st)
         if bool(g.pending_mask(st).any()):
-            g.hist_phase(st)
+            with profiling.timer("hist_pass", sync=g.dev):
+                g.hist_phase(st)
         elif st.forced_idx < k_forced:
             g.forced_phase(st)
         else:

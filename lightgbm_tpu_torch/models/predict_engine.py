@@ -17,20 +17,32 @@ card), and only the ``[N, K]`` result crosses to the host.
 - **Chunked streaming.** Inputs larger than ``predict_chunk_rows`` (auto:
   4M rows) run in row chunks, the carry fetched a chunk at a time.
 
+- **Serve mode** (``serve_mode``, set by ``GBDT.enable_serve_mode`` when
+  a ``ServeFrontend`` registers the booster): the JAX engine recycles a
+  padded bin matrix and a carry a power-of-two row bucket by buffer
+  donation (``_serve_chunk``). Here each bucket (``bucket_rows``: the
+  smallest power of two >= max(n, ``predict_bucket_min_rows``)) keeps one
+  slot of device buffers allocated at its first flush: the raw rows with
+  a pinned host staging buffer, the bins (``binning.BinSlot``), the carry
+  and a pinned output buffer. A flush copies its rows in with
+  ``non_blocking=True``, bins them in place, launches ``predict_ensemble``
+  into the slot's carry over its first n rows and fetches n rows: in the
+  steady state it allocates no device memory (a converted predict's
+  conversion excepted: it is the objective's own code, shared with the
+  ordinary path so the bits agree). Bitwise the ordinary path, since a
+  row's traversal reads no other row. The engine's lock holds for a whole
+  flush, as in the JAX package.
+
 The JAX engine's XLA-only parts have no counterpart here:
 - ``TRACE_COUNTS``: nothing is traced or compiled per shape (the kernel is
   built once, at first use);
-- buffer donation (``_serve_*_jit``): PyTorch's caching allocator reuses
-  the buffers;
 - ``warm_aot``: there is no program to compile ahead of time;
-- power-of-two row buckets: nothing is compiled per row count, so rows are
-  not padded (``predict_bucket_min_rows`` is accepted and has no effect),
-  and results do not depend on padding in either package.
-An engine holds no mutable state: each call makes its own carry, so
-callers may share one (``GBDT._predict_engine``'s lock guards building
-it).
-``predict_sharded`` (several devices) comes with ROADMAP Queue 1 item 15,
-serve mode with item 16.
+- padding outside serve mode: nothing is compiled per row count, so the
+  ordinary path pads no rows, and results do not depend on padding in
+  either package.
+Outside serve mode an engine call makes its own carry, so callers may
+share one (``GBDT._predict_engine``'s lock guards building it).
+``predict_sharded`` (several devices) comes with ROADMAP Queue 1 item 15.
 
 The engine is built per (booster, tree range) by ``GBDT._predict_engine``
 and also serves ``score_dataset`` (per-tree bias subtraction) and
@@ -39,12 +51,15 @@ and also serves ``score_dataset`` (per-tree bias subtraction) and
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import threading
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ..binning import BinSlot, bin_data_device
 from ..ops.predict import Carry, new_carry, pack_ensemble, predict_ensemble
+from ..utils import profiling
 from .tree import TreeArrays
 
 _AUTO_CHUNK_ROWS = 1 << 22      # auto: ~4M-row chunks bound device residency
@@ -92,7 +107,8 @@ class PredictEngine:
 
     def __init__(self, stacked: TreeArrays, k: int, num_trees: int,
                  max_depth: int, *, biases: Optional[np.ndarray] = None,
-                 accum: str = "auto", chunk_rows: int = 0, device="cpu"):
+                 accum: str = "auto", chunk_rows: int = 0, device="cpu",
+                 bucket_min_rows: int = 1024):
         self.k = int(k)
         self.T = int(num_trees)
         self.depth = int(max_depth)
@@ -102,6 +118,10 @@ class PredictEngine:
         self.tables = pack_ensemble(stacked, self.depth, self.device)
         self.biases = (None if biases is None else torch.as_tensor(
             np.asarray(biases, np.float64), device=self.device))
+        self.bucket_min = max(1, int(bucket_min_rows))
+        self.serve_mode = False
+        self._serve_slots: Dict[int, ServeSlot] = {}
+        self._lock = threading.Lock()
 
     def _chunk_rows(self, n: int) -> int:
         return self.chunk_rows if self.chunk_rows > 0 else _AUTO_CHUNK_ROWS
@@ -179,6 +199,54 @@ class PredictEngine:
             return np.asarray(postprocess(s[:, 0] if self.k == 1 else s))
         return self.fetch(carry, n)
 
+    # -------------------------------------------------------------- serve
+    def bucket_rows(self, n: int) -> int:
+        """The serve slot of an n-row flush: the smallest power of two
+        >= max(n, ``predict_bucket_min_rows``)."""
+        b = self.bucket_min
+        while b < n:
+            b <<= 1
+        return b
+
+    def serve_predict(self, X: np.ndarray, mappers: Sequence,
+                      missing_bin: torch.Tensor,
+                      postprocess=None) -> np.ndarray:
+        """Serve-mode predict of raw rows ``X [n, F]`` (the used features,
+        ``mappers`` theirs) over the whole ensemble, row-chunked like
+        ``predict``; each chunk through its bucket's slot
+        (``_serve_chunk``)."""
+        n = X.shape[0]
+        chunk = self._chunk_rows(n)
+        outs = [self._serve_chunk(X[a0:a0 + chunk], mappers, missing_bin,
+                                  postprocess)
+                for a0 in range(0, n, chunk)]
+        return outs[0] if len(outs) == 1 else np.concatenate(outs, axis=0)
+
+    def _serve_chunk(self, X: np.ndarray, mappers: Sequence,
+                     missing_bin: torch.Tensor, postprocess) -> np.ndarray:
+        """One flush through a slot, under the engine's lock (two threads
+        in one slot would overwrite each other's rows). A failure drops the
+        slot, so the next flush starts it afresh."""
+        n = X.shape[0]
+        bucket = self.bucket_rows(n)
+        with self._lock:
+            slot = self._serve_slots.get(bucket)
+            if slot is None or not slot.bins.fits(X):
+                slot = ServeSlot(mappers, bucket, X.dtype, self.k,
+                                 self.accum, missing_bin, self.device)
+                self._serve_slots[bucket] = slot
+            try:
+                return slot.run(self, X, postprocess)
+            except BaseException:
+                self._serve_slots.pop(bucket, None)
+                raise
+
+    def release_serve_slots(self) -> None:
+        """Drop the serve slots (the owning frontend closed or swapped the
+        booster out): their buffers go back to the allocator."""
+        with self._lock:
+            self._serve_slots.clear()
+
     # ------------------------------------------------------------- leaves
     def leaves(self, binsT: torch.Tensor, missing_bin: torch.Tensor,
                tree_range: Optional[Tuple[int, int]] = None) -> np.ndarray:
@@ -188,3 +256,63 @@ class PredictEngine:
         return predict_ensemble(self.tables, binsT,
                                 missing_bin.to(self.device), (a, b), self.k,
                                 leaves=True).cpu().numpy()
+
+
+class ServeSlot:
+    """One serve bucket's buffers (``PredictEngine._serve_chunk``): the
+    binning slot (raw rows, their pinned host staging, the bins), the
+    carry [rows, K] in the accumulation mode's dtype, a pinned host output
+    buffer and the missing bins as the kernel reads them, all allocated
+    here, once."""
+
+    def __init__(self, mappers: Sequence, rows: int, dtype, k: int,
+                 accum: str, missing_bin: torch.Tensor, device):
+        self.rows = int(rows)
+        self.device = torch.device(device)
+        self.bins = BinSlot(mappers, self.rows, dtype, self.device)
+        self.carry = new_carry(self.rows, k, accum, self.device)
+        s = self.carry[0] if accum == "compensated" else self.carry
+        self.out = torch.empty(tuple(s.shape), dtype=s.dtype,
+                               pin_memory=self.device.type == "cuda")
+        self.out_np = self.out.numpy()
+        self.mb = missing_bin.to(device=self.device,
+                                 dtype=torch.int32).contiguous()
+        self.k = int(k)
+        self.accum = accum
+
+    def tensors(self) -> Dict[str, torch.Tensor]:
+        """Every buffer of the slot by name (their ``data_ptr`` stays the
+        same from flush to flush)."""
+        parts = self.carry if self.accum == "compensated" else (self.carry,)
+        b = self.bins
+        out = {"host_rows": b.host, "rows": b.raw, "rowsT": b.xT,
+               "nan": b.nan, "cnt": b.cnt, "binsT": b.binsT,
+               "out": self.out, "missing_bin": self.mb}
+        out.update({f"carry{i}": p for i, p in enumerate(parts)})
+        return out
+
+    def run(self, eng: PredictEngine, X: np.ndarray,
+            postprocess) -> np.ndarray:
+        n = X.shape[0]
+        binsT = bin_data_device(X, self.bins.mappers, self.device,
+                                out=self.bins)
+        with profiling.timer("serve_kernel", sync=self.device):
+            parts = (self.carry if self.accum == "compensated"
+                     else (self.carry,))
+            for p in parts:
+                p[:n].zero_()
+            carry = (tuple(p[:n] for p in parts) if self.accum ==
+                     "compensated" else parts[0][:n])
+            predict_ensemble(eng.tables, binsT, self.mb, (0, eng.T), eng.k,
+                             carry=carry, accum=self.accum)
+        with profiling.timer("serve_fetch", sync=self.device):
+            s = carry[0] if self.accum == "compensated" else carry
+            if postprocess is not None:
+                return np.asarray(postprocess(s[:, 0] if self.k == 1
+                                              else s))
+            cuda = self.device.type == "cuda"
+            self.out[:n].copy_(s, non_blocking=cuda)
+            if cuda:
+                torch.cuda.current_stream(self.device).synchronize()
+            res = self.out_np[:n].astype(np.float64)
+        return res[:, 0] if self.k == 1 else res

@@ -95,6 +95,8 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils import profiling
+
 _PAD = 128                  # lane width of the TPU layout tables
 _STATS = 3                  # (grad, hess, count) per row
 MAX_BINS = 256              # uint8 bins; split_epilogue: 8 bins a lane
@@ -941,6 +943,7 @@ def register_counters(fn, names: Tuple[str, ...]) -> None:
 
 def _count(fn, name: str) -> None:
     setattr(fn, name, getattr(fn, name) + 1)
+    profiling.note_launch()
 
 
 # ------------------------------------------------------------- split_epilogue

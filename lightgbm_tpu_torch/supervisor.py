@@ -55,9 +55,14 @@ be forked, and the supervising process may hold a CUDA context itself).
 Teardown terminates every live rank at once, waits at most 10 s, then
 kills: a rank inside a CUDA call may ignore SIGTERM.
 
-``SupervisorReport.postmortem`` stays None and
-``GangFailure.flight_recorders`` stays empty until the flight recorder and
-the post-mortem analyzer are ported (ROADMAP.md Queue 1 item 16).
+Every failure leaves a post-mortem: the ranks' flight recorders flush
+into the diagnosis directory (a killed rank before its exit, a watchdog
+or a divergence verdict into its diagnosis, ``telemetry.py``), and when
+any incarnation failed the supervisor runs ``postmortem.analyze`` over
+the directory, the failure history and the checkpoint manifests, writes
+``postmortem.json`` / ``postmortem.txt`` beside them, and carries the
+report's path in ``SupervisorReport.postmortem`` (or
+``GangFailedError.postmortem``).
 """
 
 from __future__ import annotations
@@ -107,9 +112,10 @@ class GangFailure:
 
     @property
     def flight_recorders(self) -> List[str]:
-        """The per-rank flight-recorder files the diagnoses reference:
-        empty until the flight recorder is ported (ROADMAP.md Queue 1
-        item 16)."""
+        """The per-rank flight-recorder files the diagnoses reference
+        (the watchdog and the divergence verdict flush before writing
+        theirs; a killed rank's JSONL is found as flight_rank*.jsonl in
+        the diagnosis directory)."""
         return sorted({d["flight_recorder"] for d in self.watchdog
                        if d.get("flight_recorder")})
 
@@ -136,21 +142,42 @@ class SupervisorReport:
     wall_time: float
     world_size: int = 0               # nproc the gang finished at
     shrinks: List[GangShrink] = field(default_factory=list)
-    # the post-mortem report's path: None until the post-mortem analyzer
-    # is ported (ROADMAP.md Queue 1 item 16)
+    # the post-mortem report's path (postmortem.py) when any incarnation
+    # failed; None on a clean first-try run
     postmortem: Optional[str] = None
     incarnation_starts: List[float] = field(default_factory=list)
 
 
 class GangFailedError(RuntimeError):
     """The gang kept failing past ``max_restarts``; carries the failure
-    history."""
+    history and the post-mortem report's path."""
 
     def __init__(self, msg: str, failures: List[GangFailure],
                  postmortem: Optional[str] = None):
         super().__init__(msg)
         self.failures = failures
         self.postmortem = postmortem
+
+
+def _run_postmortem(diag_dir: str, failures: List[GangFailure],
+                    checkpoint_dir: Optional[str]) -> Optional[str]:
+    """Analyze the failed gang's breadcrumbs (the flight JSONLs in the
+    diagnosis directory, the diagnoses the failure history consumed, the
+    checkpoint manifests) and write the report beside them. Best effort,
+    as in the JAX package: an analyzer failure must not replace the real
+    failure path, so it warns and returns None."""
+    from . import postmortem
+    try:
+        pm = postmortem.analyze(diag_dir, checkpoint_dir=checkpoint_dir,
+                                failures=failures)
+        path = postmortem.write_report(pm, diag_dir)
+    except Exception as e:           # noqa: BLE001 -- see docstring
+        log.warning(f"supervisor: post-mortem analysis failed: {e}")
+        return None
+    log.warning(f"supervisor: post-mortem verdict {pm.verdict.upper()}"
+                + (f" (rank {pm.rank})" if pm.rank is not None else "")
+                + f" -- report at {path}")
+    return path
 
 
 def _read_diags(diag_dir: str) -> List[dict]:
@@ -401,6 +428,9 @@ def run_supervised(fn: Callable, nproc: int = 2, args: tuple = (),
                                     failures=failures,
                                     wall_time=time.monotonic() - t0,
                                     world_size=world, shrinks=shrinks,
+                                    postmortem=(_run_postmortem(
+                                        diag_dir, failures, checkpoint_dir)
+                                        if failures else None),
                                     incarnation_starts=starts)
         diags = _read_diags(diag_dir)
         rec = GangFailure(
@@ -474,15 +504,17 @@ def run_supervised(fn: Callable, nproc: int = 2, args: tuple = (),
     last = failures[-1]
     wd = next((d for d in last.watchdog if d.get("kind") == "watchdog"),
               None)
+    pm_path = _run_postmortem(diag_dir, failures, checkpoint_dir)
     raise GangFailedError(
         f"gang failed {len(failures)} time(s), exceeding max_restarts="
         f"{max_restarts}. Last failure: {last.reason}"
         + (f" (watchdog diagnosis: "
            f"{distributed.format_timeout_message(wd.get('rank'), wd.get('iteration'), wd.get('suspects'), wd.get('phase'), wd.get('deadline'))})"
            if wd else "")
+        + (f". Post-mortem report: {pm_path}" if pm_path else "")
         + (f". Resumable checkpoints: {checkpoint_dir}"
            if checkpoint_dir else ""),
-        failures)
+        failures, postmortem=pm_path)
 
 
 def train_supervised(params: dict, data, label=None,

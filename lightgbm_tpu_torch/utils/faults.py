@@ -67,14 +67,17 @@ config:
                                       call builds, so the retry loop ends):
                                       the predict-chunk rung
                                       (_maybe_degrade_predict_oom)
+  LGBM_TPU_FAULT_SLOW_PREDICT_MS=ms   sleep ``ms`` milliseconds inside every
+                                      predict call (the slow-dispatch shape
+                                      the serving layer's per-request
+                                      deadlines and admission control must
+                                      answer; twin: fault_slow_predict_ms)
 
 The rank-targeted forms read the rank of the calling thread's or
 process's gang (``network.current()``), so the plan can be built before
 the gang is joined. The gang supervisor strips every
-``LGBM_TPU_FAULT_*`` variable from the incarnations it relaunches. The
-slow-predict fault comes with ROADMAP Queue 1 item 16: its parameter
-raises naming the item (``config.py``). With no fault armed the plan is
-``None`` and every hook is one attribute check.
+``LGBM_TPU_FAULT_*`` variable from the incarnations it relaunches. With no
+fault armed the plan is ``None`` and every hook is one attribute check.
 """
 
 from __future__ import annotations
@@ -112,6 +115,14 @@ def _env_int(name: str, default: int) -> int:
     v = os.environ.get(name, "")
     try:
         return int(v) if v != "" else default
+    except ValueError:
+        return default
+
+
+def _env_float(name: str, default: float) -> float:
+    v = os.environ.get(name, "")
+    try:
+        return float(v) if v != "" else default
     except ValueError:
         return default
 
@@ -195,7 +206,14 @@ def _process_rank() -> int:
 
 def _hard_exit(context: str) -> None:
     """``os._exit`` skips atexit and finally, so nothing gets the chance
-    to finish a write (the SIGKILL shape a preempted worker sees)."""
+    to finish a write (the SIGKILL shape a preempted worker sees).
+
+    One exception, as in the JAX package: the flight recorder flushes
+    first. The harness kill is the testable stand-in for preemption, and
+    a killed gang is meant to leave its post-mortem ring; the flush is one
+    atomic file write, so it finishes no in-flight checkpoint."""
+    from .. import telemetry
+    telemetry.flush_recorder(f"fault-kill {context}")
     sys.stderr.write(f"[faults] killing process {context}\n")
     sys.stderr.flush()
     os._exit(_KILL_EXIT_CODE)
@@ -399,6 +417,7 @@ def is_resource_exhausted(exc: BaseException) -> bool:
 # ------------------------------------------------------------ predict faults
 @dataclass
 class ServeFaults:
+    slow_predict_ms: float = 0.0   # sleep inside every predict call
     oom_predicts: int = 0          # simulated OOMs to raise, process-wide
 
 
@@ -413,9 +432,20 @@ def serve_faults(config=None) -> Optional[ServeFaults]:
     """The active predict-side fault plan; None when nothing is armed."""
     get = (lambda k, d: getattr(config, k, d)) if config is not None \
         else (lambda k, d: d)
+    slow = _env_float("LGBM_TPU_FAULT_SLOW_PREDICT_MS",
+                      float(get("fault_slow_predict_ms", 0.0)))
     ooms = _env_int("LGBM_TPU_FAULT_OOM_AT_PREDICT",
                     int(get("fault_oom_at_predict", 0)))
-    return ServeFaults(oom_predicts=ooms) if ooms > 0 else None
+    if slow <= 0 and ooms <= 0:
+        return None
+    return ServeFaults(slow_predict_ms=slow, oom_predicts=ooms)
+
+
+def maybe_slow_predict(sf: Optional[ServeFaults]) -> None:
+    """Delay inside the predict call: forces requests past their
+    deadlines and backs the serve queue up into admission control."""
+    if sf is not None and sf.slow_predict_ms > 0:
+        time.sleep(sf.slow_predict_ms / 1e3)
 
 
 def maybe_oom_predict(sf: Optional[ServeFaults]) -> None:

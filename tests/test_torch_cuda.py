@@ -69,9 +69,12 @@ free_dataset gives back at least the bin matrix's device bytes.
 Prediction: the ensemble traversal kernel (``predict_ensemble``) bitwise
 its plain version and a second launch in every accumulation mode, with
 biases and an active mask, in leaves mode, on uint8 and int16 bins,
-categorical bitsets and 3 classes; a card booster's predictions bitwise
-those of its trees carried to a CPU booster, its SHAP values within
-1e-9 / 1e-11. Fault tolerance: the feature-blocked pass
+categorical bitsets and 3 classes, and at serve sizes (1 and 8,192 rows);
+a card booster's predictions bitwise those of its trees carried to a CPU
+booster, its SHAP values within 1e-9 / 1e-11. Serve mode: after each
+bucket's first flush a flush allocates no device memory, keeps its slot's
+buffers, launches the kernel once and answers bitwise the ordinary
+path. Fault tolerance: the feature-blocked pass
 (``histogram_pool_size``) gives the resident run's trees (no
 subtraction) and the CPU's with the kernel's sums, kernel 3 once a block a
 pass; a run resumed from a checkpoint gives the uninterrupted text; a real
@@ -1463,6 +1466,68 @@ def test_predict_rung_on_card_keeps_the_bits(dev, monkeypatch):
     c = cuda_hist.launch_counts()
     assert sum(v for k, v in c.items()
                if k.startswith("predict_ensemble.")) == -(-100_000 // 16_384)
+
+
+# ------------------------------------------------------------- serving
+@pytest.mark.parametrize("rows", [1, 8192])
+def test_predict_ensemble_serve_sizes_match_plain(dev, rows):
+    """The kernel at a serve flush's row counts (1 and 8,192 rows), in
+    every accumulation mode: bitwise its plain version on the card's
+    tensors and a second launch."""
+    from lightgbm_tpu_torch.ops import predict as P
+    b, X = _predict_model("u8", "cuda")
+    g = b._boosting
+    eng = g._predict_engine()
+    binsT = g.train_set.bin_new_data(X[:rows])
+    mb = g.train_set.missing_bin.to(dev)
+    for accum in ("float64", "compensated", "float32"):
+        one = P.predict_ensemble(eng.tables, binsT, mb, (0, eng.T), eng.k,
+                                 accum=accum)
+        two = P.predict_ensemble(eng.tables, binsT, mb, (0, eng.T), eng.k,
+                                 accum=accum)
+        ref = P.predict_ensemble_plain(
+            eng.tables, binsT, mb, (0, eng.T), eng.k,
+            carry=P.new_carry(rows, eng.k, accum, dev), accum=accum)
+        flat = [torch.cat(c, 1) if isinstance(c, tuple) else c
+                for c in (one, two, ref)]
+        assert torch.equal(flat[0], flat[2]) and torch.equal(flat[0],
+                                                             flat[1])
+
+
+@pytest.mark.parametrize("kind", ["u8", "cat", "multi"])
+def test_serve_mode_steady_state_allocates_nothing(dev, kind):
+    """Serve mode: after each bucket's first flush, flushes of 1 to 8,192
+    rows make no device allocation (the caching allocator's request
+    count stays), keep every slot buffer's address, launch the kernel once
+    each, and answer bitwise the ordinary path."""
+    b, X = _predict_model(kind, "cuda")
+    g = b._boosting
+    sizes = [1, 700, 1024, 1500, 5000, 8192, 3, 2048, 4096, 64]
+    want = {n: b.predict(X[:n], raw_score=True) for n in set(sizes)}
+    g.enable_serve_mode(True)
+    try:
+        for n in sizes:
+            b.predict(X[:n], raw_score=True)
+        eng = g._predict_engine()
+        assert sorted(eng._serve_slots) == [1024, 2048, 4096, 8192]
+        ptrs = {bk: {k: t.data_ptr() for k, t in sl.tensors().items()}
+                for bk, sl in eng._serve_slots.items()}
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_stats()["allocation.all.allocated"]
+        cuda_hist.reset_launch_counts()
+        got = {n: b.predict(X[:n], raw_score=True) for n in sizes}
+        torch.cuda.synchronize()
+        after = torch.cuda.memory_stats()["allocation.all.allocated"]
+        c = cuda_hist.launch_counts()
+        assert after == before
+        assert sum(v for k, v in c.items()
+                   if k.startswith("predict_ensemble.")) == len(sizes)
+        assert {bk: {k: t.data_ptr() for k, t in sl.tensors().items()}
+                for bk, sl in eng._serve_slots.items()} == ptrs
+    finally:
+        g.enable_serve_mode(False)
+    for n in sizes:
+        np.testing.assert_array_equal(got[n], want[n])
 
 
 # ------------------------------------------------- distributed learners

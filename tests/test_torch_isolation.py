@@ -75,11 +75,13 @@ def test_no_module_imports_jax_or_the_jax_package(path):
 
 def test_isolation_covers_the_distributed_modules():
     """The import rule's cases include the collective layer, the
-    distributed learners and the supervision layer."""
+    distributed learners, the supervision layer and the ops layer."""
     names = {str(p.relative_to(PKG)) for p in PKG.rglob("*.py")}
     assert {"network.py", "distributed.py", "parallel/learners.py",
             "parallel/data_parallel.py", "supervisor.py", "checkpoint.py",
-            "utils/faults.py", "utils/profiling.py"} <= names
+            "utils/faults.py", "utils/profiling.py", "serving.py",
+            "telemetry.py", "postmortem.py",
+            "scripts/postmortem.py"} <= names
 
 
 def test_supervisor_imports_no_jax_in_a_fresh_interpreter():
@@ -123,18 +125,12 @@ def test_default_device_without_cuda_raises(monkeypatch):
     ("histogram_method", "onehot_q8"),
     ("histogram_method", "scatter"),
     ("construct_chunk_rows", 4096),
-    ("serve_max_batch_rows", 512),
     ("construct_streaming", True),
     ("num_gpu", 2),
     ("sketch_max_size", 256),
     ("predict_sharded", True),
-    ("serve_flush_ms", 5.0),
-    ("telemetry_ring_size", 64),
-    ("telemetry_dir", "telemetry"),
     ("boost_rounds_per_dispatch", 4),
-    ("fault_slow_predict_ms", 50.0),
     ("mesh_shape", {"data": 8}),
-    ("serve_deadline_ms", 50.0),
     ("hist_pallas_interpret", True),
 ])
 def test_unported_parameter_raises(key, value):
@@ -144,12 +140,30 @@ def test_unported_parameter_raises(key, value):
 
 @pytest.mark.parametrize("key,value,item", [
     ("predict_sharded", True, "Queue 1 item 15"),
-    ("serve_max_batch_rows", 512, "Queue 1 item 16"),
     ("construct_chunk_rows", 4096, "Queue 1 item 15"),
 ])
 def test_unported_parameter_names_its_item(key, value, item):
     with pytest.raises(NotImplementedError, match=item):
         lt.Config.from_params({key: value, "device_type": "cpu"})
+
+
+@pytest.mark.parametrize("key,value", [
+    ("serve_max_batch_rows", 512),
+    ("serve_flush_ms", 5.0),
+    ("telemetry_ring_size", 64),
+    ("telemetry_dir", "telemetry"),
+    ("fault_slow_predict_ms", 50.0),
+    ("serve_deadline_ms", 50.0),
+    ("serve_max_batch_rows", 1024),
+], ids=["serve_max_batch_rows", "serve_flush_ms", "telemetry_ring_size",
+        "telemetry_dir", "fault_slow_predict_ms", "serve_deadline_ms",
+        "serve_max_batch_rows_named_item"])
+def test_ops_layer_parameters_are_accepted(key, value):
+    """The ops layer's parameters (the serving front end, the flight
+    recorder, the slow-predict fault), which raised naming Queue 1 item
+    16 until the layer was ported, configure the port."""
+    cfg = lt.Config.from_params({key: value, "device_type": "cpu"})
+    assert getattr(cfg, key) == value != getattr(lt.Config(), key)
 
 
 @pytest.mark.parametrize("key,value", [

@@ -16,10 +16,12 @@ the JAX package, on the CPU.
   ``torch_supervised_cases``) through three faults:
 
   * rank 1 killed at iteration 2: one relaunch, and the text is the
-    uninterrupted gang's;
+    uninterrupted gang's; the report's post-mortem says ``kill``, rank 1,
+    iteration 2;
   * rank 1 hung at iteration 1: rank 0's main thread sits inside a gloo
     collective while its watchdog thread fires within the deadline plus
-    2 s, naming rank 1 and iteration 0; the relaunch gives the same text;
+    2 s, naming rank 1 and iteration 0; the relaunch gives the same text,
+    and the post-mortem says ``hang`` on rank 1;
   * rank 1 killed at iteration 2 with ``rank_restart_budget=0``: rank 1
     is lost for good, the gang shrinks to 1 and resumes from the sharded
     checkpoint the gang of 2 wrote.
@@ -30,6 +32,7 @@ the JAX package, on the CPU.
   mesh. Each JAX run gets its mesh by ``make_mesh`` patched in the test.
 """
 
+import json
 import os
 import sys
 import time
@@ -332,8 +335,13 @@ def test_kill_restart_bitwise(gang):
     fl = rep.failures[0]
     assert fl.exit_codes.get(1) == 137
     assert fl.failed_ranks == [0, 1] or fl.failed_ranks == [1]
-    assert rep.shrinks == [] and rep.postmortem is None
-    assert fl.flight_recorders == []
+    assert rep.shrinks == []
+    # the relaunched gang's report carries the post-mortem of the kill:
+    # rank 1 at iteration 2, from its flushed ring and exit code
+    with open(rep.postmortem) as fh:
+        pm = json.load(fh)
+    assert (pm["verdict"], pm["rank"], pm["iteration"]) == ("kill", 1, 2)
+    assert all(os.path.exists(p) for p in fl.flight_recorders)
     assert rep.result == gang["jax_w2"]
     ev = sc.events(ckdir)
     # the relaunch resumed at iteration 2 (checkpoint 2) on both ranks
@@ -365,6 +373,10 @@ def test_hang_watchdog_fires_over_gloo_within_deadline(gang):
         d["rank"], d["iteration"], d["suspects"], d["phase"], deadline)
     assert rep.shrinks == []
     assert rep.result == gang["jax_w2"]
+    with open(rep.postmortem) as fh:
+        pm = json.load(fh)
+    assert (pm["verdict"], pm["rank"]) == ("hang", 1)
+    assert fl.flight_recorders
 
 
 def test_shrink_2_to_1_resumes_from_the_gang_of_2(gang):
