@@ -4,7 +4,8 @@ hand-written kernel against its plain PyTorch version.
     python3 chip_smoke.py [--seed 0] [--rows 2000000] [--valid-rows 200000]
                           [--rounds 5] [--parent DIR]
                           [--only precision|control|predict|faults|
-                                  distributed|resilience|redesign|serve]
+                                  distributed|resilience|redesign|serve|
+                                  construct]
 
 Phases, each printing one JSON line (any failure raises and the script
 exits non-zero; nothing is caught). The full run times the kernel phases
@@ -12,9 +13,9 @@ first, with the card to itself: device, build, hist_tile_root through
 hist_tile_q8, split_epilogue, hist_wide, epilogue_wide and hist_variants.
 Then it starts three lanes (LANES), processes of this script that run
 beside it: ``gangs`` (the distributed group, the resilience group,
-training control, the serve group), ``predict`` (prediction and the user surface, then the
-faults group) and ``constraints`` (learning to rank, then the split
-constraints). The main process goes on with train through parity_q8_cat,
+training control, the serve group), ``predict`` (prediction and the user surface, the
+faults group, then the construct group) and ``constraints`` (learning to
+rank, then the split constraints). The main process goes on with train through parity_q8_cat,
 the boosting modes, the data layer's training and parity phases and the
 precision modes; then it relays each lane's lines (``at_s`` from the main
 process's start) and prints the kernels line. Control and the
@@ -533,6 +534,44 @@ in the lane):
 
 With ``--only serve`` the script runs device, build and this group alone,
 and prints predict_ensemble's entry with its serve sizes.
+
+the construct group (the streaming construct and the row-sharded
+predict; last in the ``predict`` lane, whose model predict_sharded
+reuses; every chunk made from --seed and its index):
+
+  construct_stream  Dataset.from_chunks over 2M + 200k Higgs-shaped rows in
+                  chunks of 262,144 (8 chunks, the last shorter; the valid
+                  set aligned by reference): sketch_pass, bin_pass and
+                  h2d_overlap seconds, peak host bytes within one chunk
+                  plus the staged copy, the device bins bitwise
+                  binning.bin_data on the host chunk by chunk; then train,
+                  5 rounds at 255 leaves: sec/iter, valid AUC > 0.6, the
+                  full and gather forms' and the epilogue's launches
+  construct_parity 200,000 rows (every row the sample), exact sketches:
+                  streamed mappers and bins bitwise the monolithic
+                  construct's, the card's model text (3 rounds) the
+                  monolithic run's and a second streamed run's, a float64
+                  chunk stream the same mappers and bins
+  construct_epsilon Epsilon's 2,000 columns, 20,000 rows in chunks of 5,000
+                  (rows cut, width kept): host seconds of the sketch pass,
+                  mapper fit and bin pass against the monolithic
+                  construct's mapper fit and binning; the same mappers and
+                  bins
+  construct_gang  load_partitioned_chunks in a gang of 2 --child cgang
+                  processes on card 0 over gloo (each rank its half of
+                  200,000 rows as two chunks) and a gang of 1: the same
+                  mappers and binned rows everywhere, the pre-partitioned
+                  fields, the data learner's text (3 rounds) equal to the
+                  monolithic load_partitioned gang's (enable_bundle=false),
+                  the integer-planes forms and hist_convert launched
+  predict_sharded the predict group's 100-tree model over train's 2M rows
+                  with predict_sharded over every visible card and over
+                  [cuda:0, cuda:0] in chunks of 1,000,000: converted and
+                  raw results bitwise the unsharded ones, launches = shards
+                  x chunks, seconds, torch.cuda.device_count()
+
+With ``--only construct`` the script runs device, build and this group
+alone, and prints the group's launches by path.
 
 With ``--only resilience`` the script runs device, build,
 hist_int_planes and this group alone, and prints the two integer-planes
@@ -4752,7 +4791,8 @@ def predict_e2e_phase(lgb, cuda_hist, P, args, model):
         t_bin = time.time() - t0
         eng = g._predict_engine()
         t0 = time.time()
-        carry = eng.accumulate(binsT, g.train_set.missing_bin, use_bias=False)
+        carry = eng.accumulate([binsT], g.train_set.missing_bin,
+                               use_bias=False)[0]
         torch.cuda.synchronize()
         t_kernel = time.time() - t0
         # the conversion ends in the fetch of its float32 result: the
@@ -5266,10 +5306,13 @@ def serve_phase(lgb, cuda_hist, args, model):
             lambda: time.perf_counter() > t0 + SERVE_SECONDS,
             SERVE_CLIENTS, SERVE_MAX_REQUEST)
         wall = time.perf_counter() - t0
-        launches = _predict_launches(cuda_hist, None)
-        st = fe.stats()
     finally:
         fe.close()
+    # read once the dispatcher is joined: it counts a batch after it has
+    # answered the batch's requests, so a client can have its answer
+    # before the batch is counted
+    launches = _predict_launches(cuda_hist, None)
+    st = fe.stats()
     if errs:
         raise AssertionError(f"serve clients failed: {errs[:3]}")
     bad = [r for r in log_ if not np.array_equal(r[5], want[r[1]:r[1]
@@ -5296,7 +5339,8 @@ def serve_phase(lgb, cuda_hist, args, model):
     out["checks"] = checks
     if not all(checks.values()):
         raise AssertionError(f"serve: {checks} ({len(bad)} answers "
-                             f"differ)")
+                             f"differ; {launches} launches, {batches} "
+                             f"batches)")
     return out, launches
 
 
@@ -7277,6 +7321,529 @@ def redesign_group(lgb, cuda_hist, args):
 
 
 # ------------------------------------------------------------------ lanes
+# ---------------------------------------------------------------- construct
+# The construct group (ROADMAP items 15.4-15.5): the streaming construct at
+# train's width and its train, its parity with the monolithic construct,
+# Epsilon's width, a pre-partitioned gang's chunked load, and the
+# row-sharded predict. Every chunk is made from --seed and its index, so a
+# source makes the same chunks on both passes and the raw matrix never
+# exists in one piece.
+CONSTRUCT_CHUNK = 262_144        # rows a chunk of the 2M-row stream
+CONSTRUCT_PARITY_ROWS = 200_000  # <= bin_construct_sample_cnt: the sample is
+                                 # every row, so the sketch (exact) fits the
+                                 # sampled mappers
+CONSTRUCT_PARITY_CHUNK = 65_536
+CONSTRUCT_PARITY_ROUNDS = 3
+EPS_CONSTRUCT_ROWS = 20_000      # Epsilon's 2,000 columns; rows cut so both
+EPS_CONSTRUCT_CHUNK = 5_000      # constructs take ~40 s of host fits
+CGANG_WORLD, CGANG_ROUNDS = 2, 3
+SHARDED_CHUNK = 1_000_000        # [cuda:0, cuda:0]'s chunks: 2 x 2 launches
+# exact sketches: a compacted one is not the sampled fit (the parity phases
+# compare with the monolithic construct's mappers)
+EXACT = {"sketch_max_size": 0}
+
+
+def higgs_chunk(seed: int, index: int, rows: int):
+    """Chunk ``index`` of a Higgs-shaped stream: ``rows`` rows drawn from
+    the seed and the index alone."""
+    return higgs_like(rows, seed * 1_000_003 + index + 1)
+
+
+def higgs_source(seed: int, rows: int, chunk: int, dtype=np.float32,
+                 first: int = 0):
+    """A callable chunk source of ``rows`` Higgs-shaped rows in chunks of
+    ``chunk`` (the last shorter), chunk indices from ``first``; each call
+    makes a fresh iterator that draws its chunks one at a time and keeps
+    no reference to a chunk it yielded."""
+    def cast(c):
+        return c[0].astype(dtype, copy=False), c[1]
+
+    def source():
+        for i, s in enumerate(range(0, rows, chunk)):
+            yield cast(higgs_chunk(seed, first + i, min(chunk, rows - s)))
+    return source
+
+
+def chunk_census(source):
+    """``source`` with a census of the chunks it yields: a weakref
+    finalizer on each chunk's rows, and the most chunks (and their bytes)
+    alive at once, read when each chunk is made. Returns the wrapped
+    source and the census dict."""
+    import weakref
+    census = {"live": {}, "peak_chunks": 0, "peak_bytes": 0}
+    live = census["live"]
+
+    def source_():
+        it = iter(source())
+        while True:
+            c = next(it, None)
+            if c is None:
+                return
+            x = c[0]
+            live[id(x)] = x.nbytes
+            weakref.finalize(x, live.pop, id(x), None)
+            x = None
+            census["peak_chunks"] = max(census["peak_chunks"], len(live))
+            census["peak_bytes"] = max(census["peak_bytes"],
+                                       sum(live.values()))
+            yield c
+            c = None
+    return source_, census
+
+
+def _gather_source(source):
+    """A chunk source's rows in one piece (the monolithic side of a
+    parity check)."""
+    parts = list(source())
+    return (np.concatenate([p[0] for p in parts]),
+            np.concatenate([p[1] for p in parts]))
+
+
+def _mapper_key(m) -> str:
+    return _sha(json.dumps([m.num_bin, m.missing_type, m.bin_type,
+                            m.is_trivial, m.sparse_rate,
+                            np.asarray(m.bin_upper_bound,
+                                       np.float64).tobytes().hex(),
+                            list(m.bin_2_categorical), m.default_bin,
+                            m.most_freq_bin, m.min_val, m.max_val]))
+
+
+def _mappers_sha(ds) -> str:
+    return _sha("".join(_mapper_key(m) for m in ds.mappers))
+
+
+def _fused_launches_ok(c) -> bool:
+    gather = c["hist_tile.gather_launches"]
+    return (gather > 0 and c["hist_tile.launches"] - gather > 0
+            and c["split_epilogue.launches"] > 0
+            and not c["hist_tile.launches_plane"])
+
+
+def construct_stream_phase(lgb, cuda_hist, args):
+    """2M training and 200k validation Higgs-shaped rows through
+    ``Dataset.from_chunks`` (262,144 rows a chunk, the last shorter): the
+    passes' seconds; the host memory, measured two ways: a census of the
+    source's chunks alive at once during the timed construct (one chunk,
+    plus the writer's pinned staging buffer, must stay within the bound of
+    one chunk plus the staged copy) and the tracemalloc peak of a second,
+    untimed construct of the same source (numpy and Python allocations;
+    with the pinned staging, which tracemalloc does not see, it must stay
+    below the host matrix the monolithic construct holds); the device bins
+    bitwise ``binning.bin_data`` on the host for the same mappers (chunk by
+    chunk, made again), then 5 rounds of train at 255 leaves with the
+    streamed valid set: sec/iter, AUC above 0.6, and the launches of the
+    full and gather forms and the epilogue. The ``peak_host_bytes`` gauge
+    is the JAX package's formula (the last chunk's bytes plus the staging
+    buffer's), reported beside the measurements."""
+    import tracemalloc
+    from lightgbm_tpu_torch import binning
+    params = dict(PARAMS, device_type="cuda")
+    src, census = chunk_census(higgs_source(args.seed, args.rows,
+                                            CONSTRUCT_CHUNK))
+    vsrc = higgs_source(args.seed + 1, args.valid_rows, CONSTRUCT_CHUNK)
+    train = lgb.Dataset.from_chunks(src, params=params)
+    valid = lgb.Dataset.from_chunks(vsrc, reference=train, params=params)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    train.construct()
+    torch.cuda.synchronize()
+    construct_s = time.time() - t0
+    t0 = time.time()
+    valid.construct()
+    torch.cuda.synchronize()
+    valid_s = time.time() - t0
+    stats = dict(train.construct_stats)
+    chunks = -(-args.rows // CONSTRUCT_CHUNK)
+    chunk_bytes = CONSTRUCT_CHUNK * F * 4
+    staged_bytes = chunk_bytes      # the slot's pinned [chunk, F] float32
+    bound_bytes = chunk_bytes + staged_bytes
+    matrix_bytes = args.rows * F * 4
+    traced = lgb.Dataset.from_chunks(
+        higgs_source(args.seed, args.rows, CONSTRUCT_CHUNK), params=params)
+    tracemalloc.start()
+    base = tracemalloc.get_traced_memory()[0]
+    t0 = time.time()
+    traced.construct()
+    torch.cuda.synchronize()
+    traced_s = time.time() - t0
+    traced_peak = tracemalloc.get_traced_memory()[1] - base
+    tracemalloc.stop()
+    traced = None
+    memory = {"census_peak_chunks": census["peak_chunks"],
+              "census_peak_chunk_bytes": census["peak_bytes"],
+              "staged_bytes": staged_bytes,
+              "census_peak_bytes": census["peak_bytes"] + staged_bytes,
+              "chunk_bound_bytes": bound_bytes,
+              "traced_peak_bytes": traced_peak,
+              "traced_construct_s": traced_s,
+              "host_peak_bytes": traced_peak + staged_bytes,
+              "label_bytes": int(train.get_label().nbytes),
+              "matrix_bytes": matrix_bytes,
+              "gauge_peak_host_bytes": stats["peak_host_bytes"]}
+    if not 0 < census["peak_bytes"] + staged_bytes <= bound_bytes \
+            or not traced_peak + staged_bytes < matrix_bytes:
+        raise AssertionError(f"construct_stream: host memory {memory}")
+    used = [train.mappers[j] for j in train.used_features]
+    t0 = time.time()
+    bad = []
+    for i, s in enumerate(range(0, args.rows, CONSTRUCT_CHUNK)):
+        X, _ = higgs_chunk(args.seed, i, min(CONSTRUCT_CHUNK, args.rows - s))
+        host = binning.bin_data(X[:, train.used_features], used)
+        dev = train.binsT[:, s:s + len(X)].cpu().numpy()
+        if not np.array_equal(dev, host.T):
+            bad.append(i)
+    host_check_s = time.time() - t0
+    if bad or train.binsT.shape != (F, args.rows):
+        raise AssertionError(f"construct_stream: the device bins of chunks "
+                             f"{bad} differ from bin_data's "
+                             f"({tuple(train.binsT.shape)})")
+    evals = {}
+    cuda_hist.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    booster = lgb.train(params, train, args.rounds, valid_sets=[valid],
+                        valid_names=["valid"], evals_result=evals)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = cuda_hist.launch_counts()
+    valid_auc = evals["valid"]["auc"][-1]
+    if not valid_auc > 0.6 or not _fused_launches_ok(launches):
+        raise AssertionError(f"construct_stream: valid AUC {valid_auc}, "
+                             f"launches {_launched_nonzero(launches)}")
+    return {"rows": args.rows, "valid_rows": args.valid_rows,
+            "features": F, "chunk_rows": CONSTRUCT_CHUNK, "chunks": chunks,
+            "construct_s": construct_s, "valid_construct_s": valid_s,
+            "sketch_pass_s": stats["sketch_pass"],
+            "bin_pass_s": stats["bin_pass"],
+            "h2d_overlap_s": stats["h2d_overlap"],
+            "host_memory": memory,
+            "rows_per_s": args.rows / max(construct_s, 1e-9),
+            "bins_bitwise_host": True, "host_check_s": host_check_s,
+            "rounds": args.rounds, "sec_per_iter": wall / args.rounds,
+            "valid_auc": valid_auc,
+            "full_launches": launches["hist_tile.launches"]
+            - launches["hist_tile.gather_launches"],
+            "gather_launches": launches["hist_tile.gather_launches"],
+            "epilogue_launches": launches["split_epilogue.launches"]}, \
+        launches
+
+
+def construct_parity_phase(lgb, cuda_hist, args):
+    """200,000 rows (every row the sample) in chunks of 65,536, exact
+    sketches: the streamed mappers and bins bitwise the monolithic
+    construct's, the model text (3 rounds, 255 leaves, on the card) the
+    monolithic run's, two streamed runs the same text, and a float64
+    chunk stream the same bins."""
+    params = dict(PARAMS, device_type="cuda", **EXACT)
+    rows = CONSTRUCT_PARITY_ROWS
+    src = higgs_source(args.seed + 2, rows, CONSTRUCT_PARITY_CHUNK)
+    X, y = _gather_source(src)
+    t0 = time.time()
+    mono = lgb.Dataset(X, label=y, params=dict(params)).construct()
+    torch.cuda.synchronize()
+    mono_s = time.time() - t0
+    t0 = time.time()
+    stream = lgb.Dataset.from_chunks(src, params=dict(params)).construct()
+    torch.cuda.synchronize()
+    stream_s = time.time() - t0
+    f64 = lgb.Dataset.from_chunks(
+        higgs_source(args.seed + 2, rows, CONSTRUCT_PARITY_CHUNK,
+                     dtype=np.float64), params=dict(params)).construct()
+    out = {"rows": rows, "chunk_rows": CONSTRUCT_PARITY_CHUNK,
+           "mono_construct_s": mono_s, "stream_construct_s": stream_s,
+           "mappers_equal": _mappers_sha(mono) == _mappers_sha(stream),
+           "bins_equal": bool(torch.equal(mono.binsT, stream.binsT)),
+           "f64_mappers_equal": _mappers_sha(f64) == _mappers_sha(stream),
+           "f64_bins_equal": bool(torch.equal(f64.binsT, stream.binsT))}
+    texts, launches = {}, {}
+    for name, make in (
+            ("mono", lambda: lgb.Dataset(X, label=y, params=dict(params))),
+            ("stream", lambda: lgb.Dataset.from_chunks(src,
+                                                       params=dict(params))),
+            ("stream_again", lambda: lgb.Dataset.from_chunks(
+                src, params=dict(params)))):
+        cuda_hist.reset_launch_counts()
+        texts[name] = lgb.train(params, make(), CONSTRUCT_PARITY_ROUNDS
+                                ).model_to_string()
+        launches[name] = cuda_hist.launch_counts()
+    out["texts_equal"] = texts["mono"] == texts["stream"] \
+        == texts["stream_again"]
+    out["text_sha256"] = _sha(texts["stream"])
+    out["first_diff"] = _first_diff(texts["mono"], texts["stream"])
+    if not all(out[k] for k in ("mappers_equal", "bins_equal",
+                                "f64_mappers_equal", "f64_bins_equal",
+                                "texts_equal")) \
+            or not _fused_launches_ok(launches["stream"]):
+        raise AssertionError(f"construct_parity: {out}")
+    return out, launches["stream"]
+
+
+def construct_epsilon_phase(lgb, args):
+    """Epsilon's width (2,000 columns) as chunks of 5,000 of 20,000 rows
+    (rows cut from 400,000, the width kept): the host seconds of the
+    sketch pass, the mapper fit and the bin pass against the monolithic
+    construct's mapper fit and binning at the same rows in the same call;
+    the streamed mappers and bins bitwise the monolithic ones (exact
+    sketches)."""
+    from lightgbm_tpu_torch import basic, binning
+    rows, chunk = EPS_CONSTRUCT_ROWS, EPS_CONSTRUCT_CHUNK
+    parts = [epsilon_like(chunk, args.seed * 1_000_003 + 50 + i)
+             for i in range(rows // chunk)]
+    params = {"device_type": "cuda", "verbosity": -1, **EXACT}
+    acc = {}
+    real = [_timed(binning, "find_bin_mappers", acc),
+            _timed(binning, "fit_mappers_from_sketches", acc),
+            _timed(binning, "bin_data_device", acc)]
+    try:
+        X = np.concatenate([p[0] for p in parts])
+        y = np.concatenate([p[1] for p in parts])
+        t0 = time.time()
+        mono = basic.Dataset(X, label=y, params=dict(params)).construct()
+        torch.cuda.synchronize()
+        mono_s = time.time() - t0
+        X = y = None
+        t0 = time.time()
+        stream = basic.Dataset.from_chunks(parts, params=dict(params))
+        stream.construct()
+        torch.cuda.synchronize()
+        stream_s = time.time() - t0
+    finally:
+        (binning.find_bin_mappers, binning.fit_mappers_from_sketches,
+         binning.bin_data_device) = real
+    stats = stream.construct_stats
+    out = {"rows": rows, "features": EPS_FEATURES, "chunk_rows": chunk,
+           "reduced": "rows 400,000 -> 20,000 (Epsilon's 2,000 columns "
+                      "kept)",
+           "stream": {"wall_s": stream_s, "sketch_pass_s":
+                      stats["sketch_pass"],
+                      "mapper_fit_s": sum(acc["fit_mappers_from_sketches"]),
+                      "bin_pass_s": stats["bin_pass"],
+                      "peak_host_bytes": stats["peak_host_bytes"]},
+           "mono": {"wall_s": mono_s,
+                    "mapper_fit_s": sum(acc["find_bin_mappers"]),
+                    "bin_s": sum(acc["bin_data_device"])},
+           "mappers_equal": _mappers_sha(mono) == _mappers_sha(stream),
+           "bins_equal": bool(torch.equal(mono.binsT, stream.binsT))}
+    if not (out["mappers_equal"] and out["bins_equal"]):
+        raise AssertionError(f"construct_epsilon: {out}")
+    return out
+
+
+def cgang_child_main(args) -> int:
+    """One rank of the construct group's gang (``--child cgang``): joins a
+    gang of ``--world`` on card 0 through gloo, loads its contiguous share
+    of the 200,000 rows through ``load_partitioned_chunks`` (two chunks,
+    exact sketches), reports the agreed mappers and the gang's rows binned
+    by them; in a gang of two it trains the data learner 3 rounds on the
+    chunked load and on ``load_partitioned`` (``enable_bundle=false``) and
+    reports both texts and the chunked run's launches. One JSON line."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch import distributed
+    from lightgbm_tpu_torch.ops import cuda_hist
+    machines = ",".join(f"127.0.0.1:{args.port}" for _ in range(args.world))
+    net = distributed.init(machines=machines, num_machines=args.world,
+                           rank=args.rank, device="cuda:0",
+                           params={"device_type": "cuda", "time_out": 10})
+    rows = CONSTRUCT_PARITY_ROWS
+    # the gang's rows: chunks 0-3 of 50,000; rank r holds 2r and 2r + 1
+    # of two ranks, all four alone
+    per = 4 // args.world
+    src = higgs_source(args.seed + 3, per * (rows // 4), rows // 4,
+                       first=per * args.rank)
+    params = dict(PARAMS, device_type="cuda", enable_bundle=False, **EXACT)
+    t0 = time.time()
+    ds = distributed.load_partitioned_chunks(src, params=dict(params))
+    torch.cuda.synchronize()
+    load_s = time.time() - t0
+    X, y = _gather_source(higgs_source(args.seed + 3, rows, rows // 4))
+    out = {"rank": net.rank, "world": net.world, "backend": net.backend,
+           "load_s": load_s, "construct_stats": ds.construct_stats,
+           "fields": [ds.is_pre_partitioned, ds.num_data,
+                      ds.num_local_data, ds.partition_counts,
+                      ds.local_row_start],
+           "mappers_sha": _mappers_sha(ds),
+           "bins_sha": _sha(ds.bin_new_data(X).cpu().numpy().tobytes().hex())}
+    if args.world > 1:
+        p = dict(params, tree_learner="data")
+        cuda_hist.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        chunked = lgb.train(p, ds, CGANG_ROUNDS).model_to_string()
+        torch.cuda.synchronize()
+        out["sec_per_iter"] = (time.time() - t0) / CGANG_ROUNDS
+        out["launches"] = _launched_nonzero(cuda_hist.launch_counts())
+        c = rows // args.world
+        lo = net.rank * c
+        mono_ds = distributed.load_partitioned(
+            X[lo:lo + c], label=y[lo:lo + c], params=dict(params))
+        mono = lgb.train(p, mono_ds, CGANG_ROUNDS).model_to_string()
+        out["texts_equal"] = chunked == mono
+        out["text_sha256"] = _sha(chunked)
+        out["first_diff"] = _first_diff(chunked, mono)
+    print(json.dumps(out), flush=True)
+    distributed.shutdown()
+    return 0
+
+
+def _run_cgang(args, world: int):
+    """The construct group's gang of ``world`` ``--child cgang`` processes
+    on a free port, started together; returns their Popen objects."""
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    cmd = [sys.executable, os.path.abspath(__file__), "--child", "cgang",
+           "--world", str(world), "--port", str(port), "--seed",
+           str(args.seed)]
+    return [subprocess.Popen(cmd + ["--rank", str(r)],
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                             text=True) for r in range(world)]
+
+
+def _gang_results(procs, what: str):
+    results = []
+    try:
+        for r, proc in enumerate(procs):
+            so, se = proc.communicate(timeout=DIST_CHILD_TIMEOUT)
+            if proc.returncode != 0:
+                raise AssertionError(f"{what} rank {r} exited "
+                                     f"{proc.returncode}: {se[-3000:]}")
+            results.append(json.loads([ln for ln in so.splitlines()
+                                       if ln.startswith("{")][-1]))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return results
+
+
+def construct_gang_phase(args):
+    """``load_partitioned_chunks`` in a gang of 2 on one card over gloo
+    (each rank its half of 200,000 rows as two chunks) beside a gang of 1
+    over all four chunks: the mappers and the gang's rows binned the same
+    on both ranks and alone, each rank's pre-partitioned fields, and the
+    data learner's text (3 rounds) the monolithic ``load_partitioned``
+    gang's, with launches of the integer-planes forms and hist_convert."""
+    t0 = time.time()
+    two = _run_cgang(args, CGANG_WORLD)
+    one = _run_cgang(args, 1)
+    two, one = _gang_results(two, "construct_gang"), \
+        _gang_results(one, "construct_gang (alone)")
+    r0 = two[0]
+    out = {"world": CGANG_WORLD, "rows": CONSTRUCT_PARITY_ROWS,
+           "rounds": CGANG_ROUNDS, "backend": r0["backend"],
+           "gangs_s": time.time() - t0,
+           "load_s": [r["load_s"] for r in two],
+           "construct_stats": [r["construct_stats"] for r in two],
+           "fields": [r["fields"] for r in two],
+           "mappers_equal": len({r["mappers_sha"] for r in two + one}) == 1,
+           "bins_equal": len({r["bins_sha"] for r in two + one}) == 1,
+           "texts_equal_mono": all(r["texts_equal"] for r in two),
+           "ranks_same_text": len({r["text_sha256"] for r in two}) == 1,
+           "text_sha256": r0["text_sha256"],
+           "first_diff": r0["first_diff"],
+           "sec_per_iter": [r["sec_per_iter"] for r in two],
+           "launches": [r["launches"] for r in two]}
+    half = CONSTRUCT_PARITY_ROWS // CGANG_WORLD
+    fields_ok = all(f == [True, CONSTRUCT_PARITY_ROWS, half,
+                          [half] * CGANG_WORLD, half * r]
+                    for r, f in enumerate(out["fields"]))
+    int_ok = all(l.get("hist_tile.launches_plane_raw", 0) > 0
+                 and l.get("hist_convert.launches", 0) > 0
+                 for l in out["launches"])
+    if not (out["mappers_equal"] and out["bins_equal"] and fields_ok
+            and out["texts_equal_mono"] and out["ranks_same_text"]
+            and int_ok):
+        raise AssertionError(f"construct_gang: {out}")
+    paths = {f"construct_gang/data/rank{r['rank']}": r["launches"]
+             for r in two}
+    return out, paths
+
+
+def predict_sharded_phase(lgb, cuda_hist, args):
+    """The predict group's 100-tree model over train's 2M rows with
+    ``predict_sharded``: over every visible card, and over the device list
+    [cuda:0, cuda:0] in chunks of 1,000,000 (two shards a chunk on one
+    card, so the shard-and-gather code runs with several shards); each
+    converted and raw result bitwise the unsharded predict's; the
+    launches (shards x chunks) and seconds of each."""
+    from lightgbm_tpu_torch.ops import predict as P
+    (b, X, _), _ = predict_group_model(lgb, args)
+    g = b._boosting
+    want = {"converted": b.predict(X), "raw": b.predict(X, raw_score=True)}
+    torch.cuda.synchronize()
+    t0 = time.time()
+    b.predict(X)
+    torch.cuda.synchronize()
+    out = {"rows": len(X), "trees": b.num_trees(),
+           "device_count": torch.cuda.device_count(),
+           "unsharded_s": time.time() - t0}
+    paths = {}
+    try:
+        for name, devices, chunk in (("visible", None, 0),
+                                     ("cuda0x2", ["cuda:0", "cuda:0"],
+                                      SHARDED_CHUNK)):
+            g.config.predict_sharded = True
+            g.config.predict_chunk_rows = chunk
+            g.predict_devices = devices
+            g._engine_cache.clear()
+            b.predict(X[:1000])                    # the tables, once a device
+            eng = g._predict_engine()
+            step = eng._chunk_rows(len(X))
+            expect = sum(len(eng.shards(min(step, len(X) - a)))
+                         for a in range(0, len(X), step))
+            torch.cuda.synchronize()
+            cuda_hist.reset_launch_counts()
+            t0 = time.time()
+            got = b.predict(X)
+            torch.cuda.synchronize()
+            secs = time.time() - t0
+            launched = _predict_launches(cuda_hist, P)
+            raw = b.predict(X, raw_score=True)
+            res = {"devices": [str(d) for d in eng.devices],
+                   "chunks": -(-len(X) // step), "launches": launched,
+                   "expected_launches": expect, "seconds": secs,
+                   "bitwise": bool(np.array_equal(got, want["converted"])
+                                   and np.array_equal(raw, want["raw"]))}
+            out[name] = res
+            paths[f"predict_sharded/{name}"] = launched
+            if not res["bitwise"] or launched != expect:
+                raise AssertionError(f"predict_sharded {name}: {res}")
+    finally:
+        g.config.predict_sharded = False
+        g.config.predict_chunk_rows = 0
+        g.predict_devices = None
+        g._engine_cache.clear()
+    return out, paths
+
+
+def construct_phases(lgb, cuda_hist, args):
+    """The construct group's phases, each emitted; returns the launches of
+    its paths: the streamed train's and parity run's counts, the gang's
+    data-learner paths and the sharded predicts' launches."""
+    t0 = time.time()
+    cs, stream_launches = construct_stream_phase(lgb, cuda_hist, args)
+    emit("construct_stream", seconds=time.time() - t0, **cs)
+    t0 = time.time()
+    cp, parity_launches = construct_parity_phase(lgb, cuda_hist, args)
+    emit("construct_parity", seconds=time.time() - t0, **cp)
+    t0 = time.time()
+    eps = construct_epsilon_phase(lgb, args)
+    emit("construct_epsilon", seconds=time.time() - t0, **eps)
+    t0 = time.time()
+    cg, gang_paths = construct_gang_phase(args)
+    emit("construct_gang", seconds=time.time() - t0, **cg)
+    t0 = time.time()
+    ps, sharded_paths = predict_sharded_phase(lgb, cuda_hist, args)
+    emit("predict_sharded", seconds=time.time() - t0, **ps)
+    return {"construct_paths": {"construct_stream": stream_launches,
+                                "construct_parity": parity_launches},
+            "cgang_paths": gang_paths, "sharded_paths": sharded_paths}
+
+
 # The full run's groups that need nothing of the main process but train's
 # and train_q8's numbers run beside its later phases: each lane is a
 # process of this script (--child lane), all started together once the
@@ -7288,7 +7855,7 @@ def redesign_group(lgb, cuda_hist, args):
 # from the main process's start) and its numbers as JSON; a lane that
 # fails, or runs past LANE_DEADLINE, fails the run.
 LANES = {"gangs": ("distributed", "resilience", "control", "serve"),
-         "predict": ("predict", "faults"),
+         "predict": ("predict", "faults", "construct"),
          "constraints": ("rank", "constraints")}
 LANE_DEADLINE = 1100     # seconds from the main process's start
 LANE_REF = "ref.json"    # train's and train_q8's numbers, for control and
@@ -7366,6 +7933,8 @@ def _lane_group(group, lgb, cuda_hist, args) -> dict:
         return rank_phases(lgb, cuda_hist, args)
     if group == "serve":
         return {"serve": serve_phases(lgb, cuda_hist, args)}
+    if group == "construct":
+        return construct_phases(lgb, cuda_hist, args)
     return constraint_phases(lgb, cuda_hist, args, lane_ref(args.workdir))
 
 
@@ -7481,13 +8050,15 @@ def main() -> int:
                          "run's phases")
     ap.add_argument("--only", choices=("precision", "control", "predict",
                                        "faults", "distributed",
-                                       "resilience", "redesign", "serve"),
+                                       "resilience", "redesign", "serve",
+                                       "construct"),
                     default=None,
                     help="run the device, build and train phases and this "
                          "group's phases alone (a quicker check of one "
                          "group; without it every phase runs)")
     # the faults group's child processes (see child_main)
-    ap.add_argument("--child", choices=("resume", "oom", "dist", "lane"),
+    ap.add_argument("--child", choices=("resume", "oom", "dist", "lane",
+                                        "cgang"),
                     default=None, help=argparse.SUPPRESS)
     # a lane of the full run (see lane_main)
     ap.add_argument("--lane", choices=tuple(LANES), default=None,
@@ -7507,6 +8078,8 @@ def main() -> int:
         return 1
     if args.child == "dist":
         return dist_child_main(args)
+    if args.child == "cgang":
+        return cgang_child_main(args)
     if args.child == "lane":
         return lane_main(args)
     if args.child:
@@ -7610,6 +8183,18 @@ def main() -> int:
                                             .items() if v}},
                           "total_seconds": time.time() - t_start}),
               flush=True)
+        print(smi, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
+    if args.only == "construct":
+        cons = construct_phases(lgb, cuda_hist, args)
+        print(json.dumps({"launches_by_path": {
+            **{k: _launched_nonzero(v)
+               for k, v in cons["construct_paths"].items()},
+            **cons["cgang_paths"], **cons["sharded_paths"]},
+            "total_seconds": time.time() - t_start}), flush=True)
         print(smi, flush=True)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": kind,
@@ -7735,6 +8320,9 @@ def main() -> int:
     # sizes, its launches a flush
     pentry["serve_sizes"] = serve_sizes_numbers(lane["serve"]["serve_sizes"])
     pentry["launches_by_path"].update(lane["serve"]["serve_paths"])
+    # the row-sharded predict (the construct group): one launch a shard
+    # and chunk
+    pentry["launches_by_path"].update(lane["sharded_paths"])
     dist_hp, dpaths, rpaths = lane["dist_hp"], lane["dpaths"], lane["rpaths"]
 
     if args.parent:
@@ -7959,7 +8547,7 @@ def main() -> int:
              **{f"train_sampling/{k}": v["launches"]
                 for k, v in ts["runs"].items()},
              "telemetry": lane["serve"]["telemetry_launches"],
-             **control, **fpaths}
+             **lane["construct_paths"], **control, **fpaths}
     for entry, count in zip(kernels[:6], (
             lambda c: c["hist_tile.launches"] - c["hist_tile.launches_plane"],
             lambda c: c["hist_tile.launches_plane"],
@@ -8006,8 +8594,9 @@ def main() -> int:
                        for q8, t in ((False, ""), (True, ", q8"))
                        for mono, m in ((False, ""), (True, "_mono"))],
                       own, parent)
-    kernels.extend(dist_kernel_entries(dist_hp, {**dpaths, **rpaths},
-                                       lead="distributed/data/rank0"))
+    kernels.extend(dist_kernel_entries(
+        dist_hp, {**dpaths, **rpaths, **lane["cgang_paths"]},
+        lead="distributed/data/rank0"))
     print(json.dumps({"kernels": kernels,
                       "total_seconds": time.time() - t_start}), flush=True)
     print(smi, flush=True)

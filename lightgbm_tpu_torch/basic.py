@@ -39,8 +39,12 @@ dense construct keeps the raw features as float32 (``raw_data_np``) when
 leaves; sparse input with ``linear_tree`` raises. ``subset`` re-bins a
 row subset with the set's mappers (``cv``'s folds; the raw data must be
 kept, ``free_raw_data=False``). A group column of a data file is read by
-the CLI's loader (``cli.py``). Streaming construction waits for ROADMAP
-Queue 1 item 15.
+the CLI's loader (``cli.py``).
+
+The streaming construct (``Dataset.from_chunks``, or ``construct_streaming``
+on array input) never holds the raw matrix: a sketch pass over the chunks
+fits the mappers, a bin pass quantizes each chunk on the device into its
+slot of ``binsT`` (``_construct_streaming``).
 """
 
 from __future__ import annotations
@@ -163,6 +167,12 @@ class Dataset:
         # the raw features as float32, kept for linear leaves (reference:
         # dataset.h:720 raw_data_), else None
         self.raw_data_np: Optional[np.ndarray] = None
+        # the streaming construct (from_chunks): the chunk source, and the
+        # construct's own numbers (sketch_pass, bin_pass, h2d_overlap
+        # seconds, peak_host_bytes, rows), which the flight recorder's
+        # header reads
+        self._chunk_source = None
+        self.construct_stats: Optional[Dict[str, Any]] = None
 
     @classmethod
     def from_mappers(cls, mappers, used_features, feature_names=None,
@@ -183,13 +193,32 @@ class Dataset:
         return ds
 
     @classmethod
-    def from_chunks(cls, chunks, *args, **kwargs) -> "Dataset":
-        """Not ported yet: the streaming construct (the JAX package's
-        ``Dataset.from_chunks``)."""
-        raise NotImplementedError(
-            "Dataset.from_chunks (streaming construct) is not ported to "
-            "lightgbm_tpu_torch yet; it arrives with ROADMAP.md Queue 1 "
-            "item 15 (distributed)")
+    def from_chunks(cls, chunks, label=None,
+                    reference: Optional["Dataset"] = None, weight=None,
+                    group=None, init_score=None, feature_name="auto",
+                    categorical_feature="auto",
+                    params: Optional[Dict[str, Any]] = None,
+                    free_raw_data: bool = True) -> "Dataset":
+        """A Dataset over a chunk stream instead of one matrix: the raw
+        feature matrix never exists in one piece. Construction makes two
+        passes over the source (``_construct_streaming``): a sketch pass
+        that fits the bin mappers, then a bin pass that quantizes each
+        chunk on the device into its slot of ``binsT``, its upload
+        overlapping the parse of the next chunk.
+
+        ``chunks`` is a callable returning a fresh iterator of chunks, a
+        sequence of chunks, or a 2-D array (sliced into
+        ``construct_chunk_rows`` views). A chunk is ``[rows, F]`` or an
+        ``(X, y)`` pair whose labels concatenate into the label (pass
+        ``label=`` or chunk labels, not both). A pre-partitioned gang
+        loads with ``distributed.load_partitioned_chunks`` instead."""
+        ds = cls(None, label=label, reference=reference, weight=weight,
+                 group=group, init_score=init_score,
+                 feature_name=feature_name,
+                 categorical_feature=categorical_feature, params=params,
+                 free_raw_data=free_raw_data)
+        ds._chunk_source = chunks
+        return ds
 
     @property
     def has_sparse_cols(self) -> bool:
@@ -286,7 +315,10 @@ class Dataset:
         self.construct()
         return self._feature_names
 
-    def construct(self) -> "Dataset":
+    def construct(self, streaming: Optional[bool] = None) -> "Dataset":
+        """Bin the data on the device. A chunk source always streams;
+        ``streaming`` (default: the ``construct_streaming`` parameter)
+        streams array input too, in ``construct_chunk_rows`` slices."""
         if self._constructed:
             return self
         config = Config.from_params(self.params)
@@ -295,6 +327,10 @@ class Dataset:
                else None)
         self.device = ref.device if ref is not None \
             else config.torch_device()
+        if self._chunk_source is not None or (
+                streaming if streaming is not None
+                else config.construct_streaming):
+            return self._construct_streaming(config, ref)
         if _is_scipy_sparse(self.data) or (ref is not None
                                            and ref.bundles is not None):
             return self._construct_sparse(config)
@@ -327,6 +363,120 @@ class Dataset:
         keep_raw = config.linear_tree or (ref is not None
                                           and ref.raw_data_np is not None)
         self.raw_data_np = X.astype(np.float32) if keep_raw else None
+        self._finish_construct()
+        return self
+
+    def _construct_streaming(self, config: Config, ref) -> "Dataset":
+        """Two-pass construct with O(chunk) host memory: the raw matrix
+        never exists in one piece.
+
+        Pass 1 (scope ``sketch_pass``) folds each chunk into per-feature
+        ``binning.FeatureSketch`` es and fits the mappers from them: the
+        sampled ``find_bin_mappers``' mappers whenever the sample is every
+        row (the sketches stay exact). A valid set aligned to ``ref``
+        takes its mappers and makes the light pass (rows, sizes, labels).
+        Pass 2 (``bin_pass``) quantizes each chunk on the device into its
+        slot of ``binsT`` (``binning.StreamingBinWriter``, one write in
+        flight, the upload of chunk k overlapping the parse of chunk k+1);
+        the wait for the last write is the ``h2d_overlap`` scope. No EFB
+        and no sparse columns (dense chunks, as the dense monolithic
+        construct); ``linear_tree``, scipy-sparse and pandas input, and an
+        EFB-bundled reference are refused.
+
+        The gauges ``construct_sketch_s``, ``construct_bin_s``,
+        ``construct_h2d_overlap_s``, ``construct_peak_bytes`` (the most raw
+        bytes resident: a chunk and the staged copy) and ``construct_rows``
+        describe the process's last streaming construct
+        (``telemetry.construct_snapshot``); ``construct_stats`` keeps this
+        dataset's, so a later construct changes neither."""
+        import time
+        from .utils import profiling
+        if config.linear_tree:
+            log.fatal("linear_tree keeps the raw matrix resident and is not "
+                      "supported with streaming construction")
+        source = (self._chunk_source if self._chunk_source is not None
+                  else self.data)
+        if _is_scipy_sparse(source) or hasattr(source, "dtypes"):
+            log.fatal("streaming construction supports dense arrays or chunk "
+                      "sources only (scipy-sparse and pandas input take the "
+                      "monolithic paths)")
+        profiling.drop_gauges("construct_")
+        factory = binning.chunk_factory(source, config.construct_chunk_rows)
+        peak = [0]
+
+        def track(nbytes):
+            peak[0] = max(peak[0], int(nbytes))
+
+        t0 = time.time()
+        with profiling.timer("sketch_pass"):
+            sketches, num_data, sizes, chunk_labels = binning.sketch_chunks(
+                factory, max_size=config.sketch_max_size, track_bytes=track,
+                fold=ref is None)
+        sketch_s = time.time() - t0
+        self.num_data, self.num_total_features = num_data, len(sketches)
+        if chunk_labels is not None:
+            if self.label is not None:
+                log.fatal("labels were passed both to the Dataset and in the "
+                          "chunk stream; pass one or the other")
+            self.label = chunk_labels
+        self._set_feature_names()
+        self.bundles = None
+        if ref is not None:
+            if ref.bundles is not None:
+                log.fatal("streaming construction cannot align to an "
+                          "EFB-bundled reference dataset")
+            if self.num_total_features != ref.num_total_features:
+                log.fatal("validation data has different number of features")
+            self.mappers = ref.mappers
+            self.used_features = ref.used_features
+            self.pandas_categorical = ref.pandas_categorical
+        else:
+            cats = self._resolve_categorical(config)
+            forced = _load_forced_bins(config, self.num_total_features, cats)
+            self.mappers = binning.fit_mappers_from_sketches(
+                sketches, num_data, config, cats, forced_bounds=forced)
+            self.used_features = np.array(
+                [j for j, m in enumerate(self.mappers) if not m.is_trivial],
+                dtype=np.int32)
+            if len(self.used_features) == 0:
+                log.warning("There are no meaningful features, as all feature "
+                            "values are constant.")
+        sketches = None
+        self._build_feature_meta(config)
+
+        uf = self.used_features
+        writer = binning.StreamingBinWriter(
+            [self.mappers[j] for j in uf], num_data, max(sizes, default=1),
+            self.device)
+        t0 = time.time()
+        with profiling.timer("bin_pass"):
+            binning.bin_chunks_host(factory, uf, writer, track)
+            t1 = time.time()
+            with profiling.timer("h2d_overlap"):
+                self.binsT = writer.finalize()
+            overlap_s = time.time() - t1
+        bin_s = time.time() - t0
+
+        profiling.set_gauge("construct_sketch_s", sketch_s)
+        profiling.set_gauge("construct_bin_s", bin_s)
+        profiling.set_gauge("construct_h2d_overlap_s", overlap_s)
+        profiling.set_gauge("construct_peak_bytes", float(peak[0]))
+        profiling.set_gauge("construct_rows", float(num_data))
+        self.construct_stats = {
+            "sketch_pass": round(sketch_s, 6),
+            "bin_pass": round(bin_s, 6),
+            "h2d_overlap": round(overlap_s, 6),
+            "peak_host_bytes": int(peak[0]),
+            "rows": int(num_data),
+        }
+        # nothing of a monolithic raw matrix survives a streaming construct
+        self.sp_cols = self.sp_rows = self.sp_bins = self.sp_default = None
+        self.raw_data_np = None
+        if self.free_raw_data:
+            self._chunk_source = None
+        log.info(f"streaming construct: {len(sizes)} chunks, peak raw "
+                 f"{peak[0]} bytes, sketch {sketch_s:.2f}s + bin "
+                 f"{bin_s:.2f}s, drain {overlap_s:.2f}s")
         self._finish_construct()
         return self
 
@@ -475,20 +625,22 @@ class Dataset:
         self.has_categorical = bool(self.feature_meta.is_categorical.any())
         self.missing_bin = torch.as_tensor(missing_bin_of(self.feature_meta))
 
-    def bin_new_data(self, X) -> torch.Tensor:
+    def bin_new_data(self, X, device=None) -> torch.Tensor:
         """Quantize raw rows with this dataset's mappers (and bundles) on
-        its device -> binsT [G, N] (uint8, or int16 in the wide mode; a
-        zero column stands in for no features). scipy-sparse rows are
-        binned column by column without densifying."""
+        its device, or on ``device`` (a sharded predict's shard) -> binsT
+        [G, N] (uint8, or int16 in the wide mode; a zero column stands in
+        for no features). scipy-sparse rows are binned column by column
+        without densifying."""
         X = self._new_rows(X)
+        device = self.device if device is None else device
         if self.bundles is not None:
-            return self._bin_columns(X)
+            return self._bin_columns(X).to(device)
         if _is_scipy_sparse(X):
-            return self._bin_columns_unbundled(X)
+            return self._bin_columns_unbundled(X).to(device)
         if not len(self.used_features):
             return torch.zeros((1, X.shape[0]), dtype=torch.uint8,
-                               device=self.device)
-        return binning.bin_data_device(*self._used_columns(X), self.device)
+                               device=device)
+        return binning.bin_data_device(*self._used_columns(X), device)
 
     def serve_rows(self, X):
         """The serve mode's input (``models/predict_engine.py``): the dense

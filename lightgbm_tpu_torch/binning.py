@@ -24,8 +24,16 @@ bound tables of ``device_bin_tables``, which returns the feature-major
 are mapped on the host (``values_to_bins``) and copied in. The bin matrix
 is uint8 while every feature has at most 256 bins and int16 above (the
 wide mode; every bin is below the kernels' cap of 4,096 bins, so its
-value reads the same signed or unsigned). Streaming sketches wait for
-ROADMAP Queue 1 item 15.
+value reads the same signed or unsigned).
+
+The streaming construct folds row chunks into mergeable per-feature
+sketches (``FeatureSketch``: distinct values and counts, compacted to
+equal-mass representatives past ``sketch_max_size``; ``sketch_chunks``,
+``fit_mappers_from_sketches`` through ``BinMapper.find_bin_from_distinct``,
+the one fit of every path) and quantizes each chunk on the device into its
+slot of the feature-major matrix (``StreamingBinWriter``, driven by
+``bin_chunks_host``). ``bin_data`` is the host quantization the device
+passes are held to.
 """
 
 from __future__ import annotations
@@ -309,7 +317,9 @@ class BinMapper:
                  forced_bounds: Optional[Sequence[float]] = None) -> None:
         """Fit the mapper on sampled values (reference: bin.cpp:325-520).
         ``total_sample_cnt - len(values)`` rows are implied zeros;
-        ``forced_bounds`` are a numerical feature's forced upper bounds."""
+        ``forced_bounds`` are a numerical feature's forced upper bounds.
+        The values are reduced to their distinct values, counts and NaN
+        count and fitted by ``find_bin_from_distinct``."""
         values = np.asarray(values, dtype=np.float64)
         na_mask = np.isnan(values)
         na_cnt = int(na_mask.sum())
@@ -318,7 +328,30 @@ class BinMapper:
             vals, counts = np.unique(values, return_counts=True)
         else:
             vals, counts = np.array([]), np.array([], dtype=np.int64)
-        counts = np.asarray(counts, dtype=np.int64)
+        self.find_bin_from_distinct(
+            vals, counts, na_cnt, total_sample_cnt, max_bin,
+            min_data_in_bin=min_data_in_bin, min_split_data=min_split_data,
+            pre_filter=pre_filter, bin_type=bin_type, use_missing=use_missing,
+            zero_as_missing=zero_as_missing, forced_bounds=forced_bounds)
+
+    def find_bin_from_distinct(self, vals: np.ndarray, counts: np.ndarray,
+                               na_cnt: int, total_sample_cnt: int,
+                               max_bin: int, min_data_in_bin: int = 3,
+                               min_split_data: int = 0,
+                               pre_filter: bool = False,
+                               bin_type: int = BIN_TYPE_NUMERICAL,
+                               use_missing: bool = True,
+                               zero_as_missing: bool = False,
+                               forced_bounds: Optional[Sequence[float]] = None
+                               ) -> None:
+        """Fit from sorted distinct values, their counts and the NaN count:
+        the form a streaming ``FeatureSketch`` holds, and what ``find_bin``
+        computes from its sample, so a sketch that never compacted fits the
+        same mapper as the sampled path. ``total_sample_cnt - counts.sum() -
+        na_cnt`` rows are implied zeros."""
+        vals = np.asarray(vals, dtype=np.float64)
+        counts = np.array(counts, dtype=np.int64)
+        na_cnt = int(na_cnt)
 
         if not use_missing:
             self.missing_type = MISSING_NONE
@@ -551,6 +584,279 @@ def find_bin_mappers(X: np.ndarray, config,
         for j in range(num_features)]
 
 
+# ------------------------------------------------------- streaming sketch
+class FeatureSketch:
+    """Mergeable per-feature summary for the streaming construct: sorted
+    distinct values, their counts, the NaN count and the rows seen (the
+    reference's distributed bin finding, dataset_loader.cpp:1046-1128,
+    with the sketch-based quantiles of scalable GPU boosting). Chunks fold
+    in one at a time and sketches merge across chunks and ranks
+    (``distributed.merge_feature_sketches``); a mapper fitted from an exact
+    sketch by ``BinMapper.find_bin_from_distinct`` is the sampled path's
+    whenever the sample is every row.
+
+    ``max_size`` bounds the distinct values: past it the sketch compacts to
+    equal-mass representatives (each kept value the upper edge of its mass
+    group, which takes the group's count; the zero slot is kept). A
+    compaction moves a value's cumulative rank by at most
+    ``total / max_size``, so after ``L`` compactions ranks lie within
+    ~``L / max_size`` of exact. ``max_size=0`` means exact."""
+
+    __slots__ = ("max_size", "values", "counts", "na_cnt", "total_cnt",
+                 "compactions")
+
+    def __init__(self, max_size: int = 0):
+        self.max_size = int(max_size)
+        self.values = np.zeros((0,), np.float64)
+        self.counts = np.zeros((0,), np.int64)
+        self.na_cnt = 0
+        self.total_cnt = 0
+        self.compactions = 0
+
+    def fold(self, column: np.ndarray) -> None:
+        """Fold one chunk's raw column (NaN included): NaNs are counted
+        and the rest reduced by ``np.unique``, as ``find_bin`` does."""
+        col = np.asarray(column, dtype=np.float64).reshape(-1)
+        self.total_cnt += len(col)
+        na = np.isnan(col)
+        n_na = int(na.sum())
+        if n_na:
+            self.na_cnt += n_na
+            col = col[~na]
+        if len(col):
+            v, c = np.unique(col, return_counts=True)
+            self._merge_arrays(v, c.astype(np.int64))
+
+    def merge(self, other: "FeatureSketch") -> "FeatureSketch":
+        """Fold another sketch in; exact when neither side compacted."""
+        self.na_cnt += other.na_cnt
+        self.total_cnt += other.total_cnt
+        self.compactions = max(self.compactions, other.compactions)
+        self._merge_arrays(other.values, other.counts)
+        return self
+
+    def _merge_arrays(self, v: np.ndarray, c: np.ndarray) -> None:
+        if len(v):
+            if len(self.values):
+                allv = np.concatenate([self.values, v])
+                allc = np.concatenate([self.counts, c])
+                uv, inv = np.unique(allv, return_inverse=True)
+                uc = np.zeros(len(uv), np.int64)
+                np.add.at(uc, inv.reshape(-1), allc)
+                self.values, self.counts = uv, uc
+            else:
+                self.values = np.asarray(v, np.float64).copy()
+                self.counts = np.asarray(c, np.int64).copy()
+        if self.max_size and len(self.values) > self.max_size:
+            self._compact()
+
+    def _compact(self) -> None:
+        """Equal-mass compaction to ``max_size`` representatives; the zero
+        slot stays when present (``find_bin_with_zero_as_one_bin``'s zero
+        bin keys on it)."""
+        n = len(self.values)
+        m = self.max_size
+        cum = np.cumsum(self.counts)
+        total = int(cum[-1])
+        edges = np.searchsorted(cum, total * (np.arange(1, m + 1) / m),
+                                side="left")
+        edges = np.clip(edges, 0, n - 1)
+        zi = int(np.searchsorted(self.values, 0.0))
+        if zi < n and self.values[zi] == 0.0:
+            edges = np.append(edges, zi)
+        edges = np.unique(edges)
+        grp_cnt = np.diff(np.concatenate([[0], cum[edges]]))
+        self.values = self.values[edges]
+        self.counts = grp_cnt.astype(np.int64)
+        self.compactions += 1
+
+    @property
+    def exact(self) -> bool:
+        return self.compactions == 0
+
+    # the cross-rank exchange's JSON payload: floats written by repr
+    # round-trip float64 bit for bit, so every rank fits the same mappers
+    def to_dict(self) -> dict:
+        return {"max_size": self.max_size,
+                "values": [float(x) for x in self.values],
+                "counts": [int(x) for x in self.counts],
+                "na_cnt": int(self.na_cnt),
+                "total_cnt": int(self.total_cnt),
+                "compactions": int(self.compactions)}
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "FeatureSketch":
+        sk = cls(int(d.get("max_size", 0)))
+        sk.values = np.asarray(d["values"], np.float64)
+        sk.counts = np.asarray(d["counts"], np.int64)
+        sk.na_cnt = int(d["na_cnt"])
+        sk.total_cnt = int(d["total_cnt"])
+        sk.compactions = int(d.get("compactions", 0))
+        return sk
+
+
+def split_chunk(chunk):
+    """One chunk as ``(X [rows, F] ndarray, labels or None)``: a source
+    yields bare feature arrays or ``(X, y)`` pairs."""
+    y = None
+    if isinstance(chunk, (tuple, list)) and len(chunk) == 2:
+        chunk, y = chunk
+    X = np.asarray(chunk)
+    if X.ndim == 1:
+        X = X.reshape(-1, 1)
+    if y is not None:
+        y = np.asarray(y, dtype=np.float64).reshape(-1)
+    return X, y
+
+
+def chunk_factory(source, chunk_rows: int = 0):
+    """A chunk source as a re-iterable factory (the construct makes two
+    passes, so a one-shot generator cannot feed it):
+
+    - a callable: called a pass, it returns a fresh iterator of chunks
+      (each ``[rows, F]`` or an ``(X, y)`` pair);
+    - a list or tuple of chunks: iterated a pass;
+    - a 2-D array: sliced into ``chunk_rows`` row views (auto: 1M rows).
+    """
+    default = int(chunk_rows) if chunk_rows else (1 << 20)
+    if callable(source):
+        return source
+    if isinstance(source, (list, tuple)):
+        return lambda: iter(source)
+    if hasattr(source, "shape") and getattr(source, "ndim", 0) == 2:
+        def _slices():
+            n = source.shape[0]
+            for s in range(0, max(n, 1), default):
+                yield source[s:s + default]
+        return _slices
+    log.fatal("chunk source must be re-iterable: a callable returning an "
+              "iterator of chunks, a sequence of chunk arrays, or a 2-D "
+              f"array (got {type(source).__name__}; a one-shot generator "
+              "cannot feed the two construct passes)")
+
+
+def sketch_chunks(factory, max_size: int = 0, track_bytes=None,
+                  fold: bool = True):
+    """Pass 1 of the streaming construct: every chunk folded into
+    per-feature ``FeatureSketch`` es, one raw chunk held at a time. Returns
+    ``(sketches, num_data, chunk_sizes, labels)`` (``labels`` the chunks'
+    label parts concatenated, None without). ``track_bytes`` is fed each
+    chunk's raw bytes. ``fold=False`` skips the folds but keeps the row,
+    size and label accounting and the width check: the light pass of a
+    valid set aligned to a reference, whose mappers it takes."""
+    sketches: Optional[List[FeatureSketch]] = None
+    num_data = 0
+    sizes: List[int] = []
+    label_parts: List[np.ndarray] = []
+    # an explicit next() loop drops the previous chunk before the source
+    # builds the next one (a for-loop keeps its variable bound across
+    # next(), two chunks alive)
+    it = iter(factory())
+    while True:
+        chunk = next(it, None)
+        if chunk is None:
+            break
+        X, y = split_chunk(chunk)
+        chunk = None
+        if track_bytes is not None:
+            track_bytes(int(getattr(X, "nbytes", 0)))
+        if sketches is None:
+            sketches = [FeatureSketch(max_size) for _ in range(X.shape[1])]
+        elif X.shape[1] != len(sketches):
+            log.fatal(f"chunk feature count changed mid-stream: "
+                      f"{X.shape[1]} vs {len(sketches)}")
+        if fold:
+            for j in range(X.shape[1]):
+                sketches[j].fold(X[:, j])
+        num_data += X.shape[0]
+        sizes.append(X.shape[0])
+        if y is not None:
+            label_parts.append(y)
+        X = None
+    if sketches is None:
+        log.fatal("chunk source yielded no chunks")
+    labels = np.concatenate(label_parts) if label_parts else None
+    return sketches, num_data, sizes, labels
+
+
+def fit_mappers_from_sketches(sketches: Sequence[FeatureSketch],
+                              num_data: int, config,
+                              categorical_features: Sequence[int] = (),
+                              forced_bounds: Optional[Dict[int, List[float]]]
+                              = None) -> List[BinMapper]:
+    """One BinMapper per feature from (possibly rank-merged) sketches, the
+    streaming twin of ``find_bin_mappers``: with exact sketches over every
+    row it is the sampled fit whose sample is all rows, so the mappers are
+    the same whenever ``num_data <= bin_construct_sample_cnt``."""
+    cat_set = set(int(c) for c in categorical_features)
+    total = int(sketches[0].total_cnt) if len(sketches) else 0
+    filter_cnt = filter_cnt_for_sample(config, total, num_data)
+    out = []
+    for j, sk in enumerate(sketches):
+        if j in cat_set and sk.compactions > 0:
+            # a compaction merges codes into their group's edge code:
+            # meaningless for unordered categories
+            log.fatal(
+                f"categorical feature {j} exceeded sketch_max_size "
+                f"({sk.max_size}) distinct codes during streaming "
+                f"construction and was compacted; raise sketch_max_size "
+                f"above the category count (rank-error compaction only "
+                f"applies to numerical features)")
+        m = BinMapper()
+        m.find_bin_from_distinct(
+            sk.values, sk.counts, sk.na_cnt, sk.total_cnt,
+            **_find_bin_kwargs(j, config, cat_set, filter_cnt,
+                               forced_bounds))
+        out.append(m)
+    return out
+
+
+def bin_data(X: np.ndarray, mappers: Sequence[BinMapper]) -> np.ndarray:
+    """The host quantization, column by column through ``values_to_bins``:
+    int32 ``[N, F]`` (a trivial mapper's column stays 0). The reference the
+    device passes are held to."""
+    num_data, num_features = X.shape
+    out = np.zeros((num_data, num_features), dtype=np.int32)
+    for j, m in enumerate(mappers):
+        if m.is_trivial:
+            continue
+        out[:, j] = m.values_to_bins(np.asarray(X[:, j], dtype=np.float64))
+    return out
+
+
+def bin_chunks_host(factory, uf, out: "StreamingBinWriter",
+                    track=None) -> None:
+    """Pass 2 of the streaming construct: re-iterate the chunk source on
+    the host and hand each chunk's used columns ``uf`` to ``out``, which
+    quantizes it on its device into its row slot (the JAX package's host
+    pass writes a host matrix here; the port's destination is the device
+    matrix). The same ref-dropping loop as ``sketch_chunks``; ``track`` is
+    fed the bytes resident (the chunk and the writer's staged copy). A
+    source that yields other rows than on the sketch pass fails loudly
+    instead of training on a short or overlong matrix."""
+    row, fits = 0, True
+    it = iter(factory())
+    while True:
+        chunk = next(it, None)
+        if chunk is None:
+            break
+        X, _y = split_chunk(chunk)
+        chunk = None
+        n = X.shape[0]
+        fits = fits and row + n <= out.n and n <= out.max_chunk_rows
+        if fits:
+            out.write(X, uf)
+            if track is not None:
+                track(X.nbytes + out.staged_bytes)
+        X = None
+        row += n
+    if row != out.n or not fits:
+        log.fatal(f"chunk source yielded {row} rows on the bin pass but "
+                  f"{out.n} on the sketch pass: the source must be "
+                  f"re-iterable and deterministic (a one-shot iterator "
+                  f"cannot feed the two construct passes)")
+
+
 def bins_dtype(max_num_bins: int):
     """The bin matrix's dtype: uint8 up to 256 bins, int16 above (the
     wide mode)."""
@@ -618,15 +924,17 @@ class BinSlot:
     operations' ``out=`` forms: a call allocates no device memory. The
     predicate is ``quantize_block``'s, so the bins are bitwise
     ``bin_data_device``'s; rows past the call's ``n`` hold stale values
-    nobody reads."""
+    nobody reads. The streaming construct's ``StreamingBinWriter`` bins
+    its chunks through one slot too (``timed=False``: no serve scopes)."""
 
     def __init__(self, mappers: Sequence[BinMapper], rows: int, dtype,
-                 device):
+                 device, timed: bool = True):
         import torch
         self.mappers = list(mappers)
         self.rows = int(rows)
         self.dtype = np.dtype(dtype)
         self.device = torch.device(device)
+        self.timed = timed
         fs = len(self.mappers)
         bounds, nz, nb = device_bin_tables(self.mappers, self.dtype.type)
         tdt = torch.from_numpy(np.zeros(0, self.dtype)).dtype
@@ -654,19 +962,32 @@ class BinSlot:
         return (X.shape[0] <= self.rows and X.shape[1] == len(self.mappers)
                 and X.dtype == self.dtype)
 
-    def bin(self, X: np.ndarray):
-        """Quantize ``X [n, F]`` (n <= rows) into ``binsT[:, :n]`` and
-        return that view. With profiling enabled the copy in and the
-        binning are scopes of their own (``serve_copy_in``,
-        ``serve_bin``)."""
-        import torch
+    def _scope(self, name: str):
+        from contextlib import nullcontext
         from .utils import profiling
+        return (profiling.timer(name, sync=self.device) if self.timed
+                else nullcontext())
+
+    def bin(self, X: np.ndarray, cols: Optional[Sequence[int]] = None):
+        """Quantize ``X [n, F]`` (n <= rows; with ``cols``, its columns
+        ``cols``, one a mapper, copied straight into the staging buffer)
+        into ``binsT[:, :n]`` and return that view. The copy into the
+        staging buffer casts to the slot's dtype. With profiling enabled
+        and ``timed`` the copy in and the binning are scopes of their own
+        (``serve_copy_in``, ``serve_bin``)."""
+        import torch
         n = X.shape[0]
         nb = not self.device.type == "cpu"
-        with profiling.timer("serve_copy_in", sync=self.device):
-            self.host_np[:n] = X
+        if cols is None or len(cols) == X.shape[1]:
+            cols = None
+        with self._scope("serve_copy_in"):
+            if cols is None:
+                self.host_np[:n] = X
+            else:
+                for i, j in enumerate(cols):
+                    self.host_np[:n, i] = X[:, j]
             self.raw[:n].copy_(self.host[:n], non_blocking=nb)
-        with profiling.timer("serve_bin", sync=self.device):
+        with self._scope("serve_bin"):
             self.xT[:, :n].copy_(self.raw[:n].t())
             torch.ne(self.xT, self.xT, out=self.nan)
             torch.logical_and(self.nan, self.nz, out=self.nan)
@@ -679,7 +1000,8 @@ class BinSlot:
             # categorical columns: the host's category lookup overwrites
             # the row, as in bin_data_device
             for i, j in enumerate(self.cat):
-                self.cat_np[i, :n] = self.mappers[j].values_to_bins(X[:, j])
+                self.cat_np[i, :n] = self.mappers[j].values_to_bins(
+                    X[:, j if cols is None else cols[j]])
                 self.binsT[j, :n].copy_(self.cat_host[i, :n],
                                         non_blocking=nb)
         return self.binsT[:, :n]
@@ -721,3 +1043,85 @@ def bin_data_device(X: np.ndarray, mappers: Sequence[BinMapper], device,
             out[j] = torch.as_tensor(m.values_to_bins(X[:, j]),
                                      device=device).to(out_dtype)
     return out
+
+
+class StreamingBinWriter:
+    """Pass 2's destination: the preallocated feature-major ``binsT
+    [F_used, N]`` on ``device``, each row chunk quantized into its column
+    slot as it comes (the JAX package's ``StreamingBinWriter``, which
+    writes row slots of ``[N, F]``; a column slice of ``binsT`` needs no
+    padding, so no pad rows spill into the next slot).
+
+    The chunks go through one ``BinSlot`` of the used mappers, sized to a
+    chunk and made by the first write: ``write`` waits on the previous
+    write's CUDA event first, so at most one write is in flight, then the
+    slot copies the chunk's used columns into its staging buffer (pinned
+    on a CUDA device), uploads it with ``non_blocking=True`` and quantizes
+    it (categorical columns through the host lookup), and the slot's bins
+    are copied into the chunk's columns of ``binsT`` on the device: the
+    parse of chunk k+1 overlaps chunk k's upload and quantization. Peak
+    host residency is one source chunk plus the staged copy. ``finalize``
+    waits for the last write (the ``h2d_overlap`` scope) and returns
+    ``binsT``. The first chunk's dtype sets the pass's: float32 chunks
+    quantize in float32, any other in float64, and a chunk of another
+    dtype after float32 ones fails (a cast could move a value across a
+    bound). The bins are bitwise ``bin_data``'s in both dtypes
+    (``device_bin_tables``)."""
+
+    def __init__(self, mappers: Sequence[BinMapper], total_rows: int,
+                 max_chunk_rows: int, device):
+        import torch
+        self.mappers = list(mappers)
+        self.n = int(total_rows)
+        self.max_chunk_rows = max(int(max_chunk_rows), 1)
+        self.device = torch.device(device)
+        out_dtype = bins_dtype(max((m.num_bin for m in self.mappers),
+                                   default=2))
+        self.binsT = torch.zeros((max(len(self.mappers), 1), self.n),
+                                 dtype=out_dtype, device=self.device)
+        self.dtype = None           # set by the first write
+        self.slot: Optional[BinSlot] = None
+        self.staged_bytes = 0
+        self._event = None
+        self._next = 0
+
+    def write(self, X: np.ndarray, uf: Sequence[int]) -> None:
+        """Quantize the used columns ``uf`` of chunk ``X [rows, F]`` into
+        the next ``rows`` columns of ``binsT``."""
+        import torch
+        rows = X.shape[0]
+        if self.dtype is None:
+            self.dtype = np.dtype(np.float32 if X.dtype == np.float32
+                                  else np.float64)
+            if self.mappers:
+                self.slot = BinSlot(self.mappers, self.max_chunk_rows,
+                                    self.dtype, self.device, timed=False)
+                self.staged_bytes = int(self.slot.host.numel()
+                                        * self.slot.host.element_size())
+        elif self.dtype == np.float32 and X.dtype != np.float32:
+            log.fatal(f"chunk dtype changed mid-stream ({X.dtype} after "
+                      f"float32): streaming construction requires a "
+                      f"uniform chunk dtype; make every chunk float32, or "
+                      f"every chunk float64")
+        assert rows <= self.max_chunk_rows and self._next + rows <= self.n
+        s0 = self._next
+        self._next += rows
+        if not self.mappers or not rows:
+            return
+        if self._event is not None:
+            self._event.synchronize()         # at most one write in flight
+        self.binsT[:, s0:s0 + rows].copy_(self.slot.bin(X, uf))
+        if self.device.type == "cuda":
+            self._event = torch.cuda.Event()
+            self._event.record(torch.cuda.current_stream(self.device))
+
+    def finalize(self):
+        """Wait for the last write and return ``binsT [F_used, N]`` (a
+        zero row for no used features); the slot and its staging buffer
+        go."""
+        assert self._next == self.n, (self._next, self.n)
+        if self._event is not None:
+            self._event.synchronize()
+        self._event = self.slot = None
+        out, self.binsT = self.binsT, None
+        return out

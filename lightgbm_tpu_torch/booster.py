@@ -173,8 +173,12 @@ class Booster:
         A trained model predicts through the device engine
         (``models/predict_engine.py``: one kernel launch a row chunk, the
         ``[N, K]`` result the only transfer), tuned by
-        ``predict_chunk_rows`` and ``predict_accum``; a model loaded from
-        text predicts on the host."""
+        ``predict_chunk_rows`` and ``predict_accum``; with
+        ``predict_sharded`` each row chunk splits into contiguous shards
+        over the process's visible devices (the booster's
+        ``predict_devices`` where set), each binned and walked on its own
+        device with its own copy of the trees, bitwise the unsharded
+        result. A model loaded from text predicts on the host."""
         if num_iteration is None:
             num_iteration = self.best_iteration if self.best_iteration > 0 \
                 else -1
@@ -391,6 +395,7 @@ class Booster:
             ts.label = ts.weight = ts.init_score = None
             ts.raw_data_np = None
             ts.data = None
+            ts._chunk_source = None
         b.train_score = None
         b._bag_mask = b._bag_sub = None
         for vs in b.valid_sets:

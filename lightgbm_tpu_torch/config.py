@@ -451,9 +451,12 @@ class Config:
 
     # GPU analog: TPU controls
     gpu_use_dp: bool = False        # if True use float64-grade (compensated) histograms
+    # accepted and read by nothing (nor in the JAX package): a sharded
+    # predict uses every visible device, the learners one device a rank
     num_gpu: int = 1
 
-    # TPU-specific (new; no reference analog)
+    # TPU-specific (new; no reference analog); accepted and read by
+    # nothing, as in the JAX package
     mesh_shape: Optional[Dict[str, int]] = None     # e.g. {"data": 8}
     # "batched": all available splits per histogram round (fast, see
     # models/grower.py docstring); "exact": strict best-first like the
@@ -559,9 +562,10 @@ class Config:
     # row chunks so the device never holds more than one chunk of the
     # feature matrix (0 = auto, ~4M-row chunks)
     predict_chunk_rows: int = 0
-    # row-shard full-ensemble prediction over all visible devices via
-    # shard_map (trees replicated, rows split; per-row accumulation order
-    # is unchanged so results are bit-identical to single-device)
+    # row-shard full-ensemble prediction over all visible devices of the
+    # process (trees replicated a device, rows split into contiguous
+    # shards; a row's accumulation order is unchanged, so the result is
+    # bitwise the unsharded one)
     predict_sharded: bool = False
     # ensemble accumulation precision: auto|float64|compensated|float32.
     # auto/float64 sums tree outputs in float64 on device IN TREE ORDER —
@@ -805,6 +809,11 @@ _SLICE_PARAMS = frozenset({
     "serve_metrics_host", "telemetry_flight_recorder", "telemetry_ring_size",
     "telemetry_memory", "telemetry_dir", "telemetry_flush_period",
     "fault_slow_predict_ms",
+    # the streaming construct (Dataset.from_chunks, load_partitioned_chunks)
+    # and row-sharded predict; mesh_shape and num_gpu are accepted and read
+    # by nothing, as in the JAX package
+    "construct_streaming", "construct_chunk_rows", "sketch_max_size",
+    "predict_sharded", "mesh_shape", "num_gpu",
 })
 
 # ROADMAP.md "Queue 1" item that brings each group of parameters
@@ -816,9 +825,6 @@ for _names, _item in (
         (("boost_rounds_per_dispatch", "compile_cache_dir",
           "compile_warmup"),
          "Queue 1 item 13 (dispatch)"),
-        (("mesh_shape", "num_gpu", "construct_chunk_rows",
-          "construct_streaming", "sketch_max_size", "predict_sharded"),
-         "Queue 1 item 15 (distributed)"),
         (("hist_pallas_interpret",),
          "Queue 2 (the port runs no Pallas interpreter; its CPU path is the "
          "plain PyTorch version of each kernel)")):

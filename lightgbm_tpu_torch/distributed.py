@@ -26,7 +26,9 @@ data, feature or voting; ROADMAP Queue 1 item 15):
   trains one pre-partitioned part a process through it;
   ``load_partitioned`` builds a rank's pre-partitioned Dataset: bin
   mappers fitted from an allgathered row sample, so every rank holds the
-  same ones, and only the rank's own rows binned; ``repartition_rows``
+  same ones, and only the rank's own rows binned;
+  ``load_partitioned_chunks`` does the same from the rank's chunk source
+  through mergeable sketches (``merge_feature_sketches``); ``repartition_rows``
   reassembles a rank's rows from shards written under another partition
   (the load half of resuming at another world size, ``checkpoint.py``).
 
@@ -761,30 +763,159 @@ def load_partitioned(data, label=None, weight=None, init_score=None,
     ds.used_features = np.array(
         [j for j, m in enumerate(ds.mappers) if not m.is_trivial], np.int32)
     ds._build_feature_meta(config)
-    local = ds.bin_new_data(X)
+    _shard_local_bins(ds, ds.bin_new_data(X), counts)
+    log.info(f"pre-partitioned dataset: {n_local} local rows of "
+             f"{n_global} on {w} ranks")
+    return ds
+
+
+def _shard_local_bins(ds, local, counts) -> None:
+    """The shared tail of ``load_partitioned`` and
+    ``load_partitioned_chunks``: this rank's binned rows ``local [G,
+    n_local]``, padded to the gang's largest local count (the padded rows
+    carry no mass), become the Dataset's ``binsT``, and the pre-partitioned
+    fields are set: ``num_data`` the gang's rows, ``num_local_data`` this
+    rank's, ``partition_counts`` every rank's in rank order and
+    ``local_row_start`` this rank's first row (the sharded checkpoints'
+    partition)."""
+    import torch
+    counts = [int(c) for c in counts]
+    n_local = int(local.shape[1])
     target = max(counts)
     if target > n_local:
         local = torch.cat([local, local.new_zeros(
             (local.shape[0], target - n_local))], dim=1)
     ds.binsT = local.contiguous()
     ds.raw_data_np = None
-    ds.num_data = n_global
+    ds.num_data = int(sum(counts))
     ds.num_local_data = n_local
     ds.is_pre_partitioned = True
     ds.partition_counts = counts
-    ds.local_row_start = int(sum(counts[:net.rank]))
+    ds.local_row_start = int(sum(counts[:network.current().rank]))
     ds._finish_construct()
-    log.info(f"pre-partitioned dataset: {n_local} local rows of "
-             f"{n_global} on {w} ranks")
+
+
+def merge_feature_sketches(sketches, tag: str = "construct"):
+    """Every rank's per-feature construct sketches, exchanged as JSON and
+    merged in rank order (the reference's distributed bin finding,
+    dataset_loader.cpp:1046-1128): every rank gets the same payloads in
+    the same order, so the mappers fitted from the result are the same
+    everywhere (floats by ``repr`` round-trip float64). Alone, the input
+    comes back. The feature counts are agreed first over ``exchange_host``
+    (a few bytes a rank), so a width mismatch fails before the ranks could
+    hang in lockstep; the payloads (an exact sketch holds every distinct
+    value: tens of MB) then go through the gang's own collective
+    (``Network.allgather_object``, padded to the longest), so none of them
+    stays in the store."""
+    from . import binning
+    sketches = list(sketches)
+    net = network.current()
+    if net.world <= 1:
+        return sketches
+    nfs = [int(v) for v in exchange_host(f"sketch_{tag}_nf",
+                                         str(len(sketches)))]
+    if len(set(nfs)) != 1:
+        log.fatal(f"pre-partitioned chunk sources disagree on feature "
+                  f"count across ranks: {nfs}")
+    with watchdog_phase(f"exchange:sketch_{tag}"):
+        texts = net.allgather_object(
+            json.dumps([sk.to_dict() for sk in sketches]))
+    merged = [binning.FeatureSketch.from_dict(d)
+              for d in json.loads(texts[0])]
+    for text in texts[1:]:
+        for sk, d in zip(merged, json.loads(text)):
+            sk.merge(binning.FeatureSketch.from_dict(d))
+    return merged
+
+
+def load_partitioned_chunks(chunks, label=None, weight=None, init_score=None,
+                            params: Optional[dict] = None,
+                            feature_name="auto", categorical_feature="auto"):
+    """This rank's pre-partitioned Dataset from its own chunk source, the
+    streaming twin of ``load_partitioned``: the rank folds its chunks into
+    per-feature sketches (O(chunk) host memory; the local matrix never
+    exists in one piece), the sketches merge across the gang
+    (``merge_feature_sketches``), every rank fits the same mappers from
+    them and bins its chunks on its device into its local bin matrix
+    (``binning.StreamingBinWriter``). ``chunks`` takes the forms of
+    ``binning.chunk_factory``; a chunk is ``[rows, F]`` or an ``(X, y)``
+    pair whose labels concatenate into the local label (``label=`` or
+    chunk labels, not both). No EFB: compare with ``load_partitioned`` at
+    ``enable_bundle=false``. The training contract is
+    ``load_partitioned``'s (labels, weights and scores local,
+    ``tree_learner`` data or voting; no dart, linear_tree or
+    rollback_one_iter)."""
+    from . import binning
+    from .basic import Dataset, _load_forced_bins
+    from .config import Config
+    config = Config.from_params(dict(params or {}))
+    if config.boosting == "dart":
+        log.fatal("load_partitioned_chunks does not support boosting=dart")
+    if config.linear_tree:
+        log.fatal("linear_tree is not supported with pre-partitioned "
+                  "Datasets (raw features are not retained)")
+    profiling.drop_gauges("construct_")
+    factory = binning.chunk_factory(chunks, config.construct_chunk_rows)
+    peak = [0]
+
+    def track(nbytes):
+        peak[0] = max(peak[0], int(nbytes))
+
+    t0 = time.time()
+    with profiling.timer("sketch_pass"):
+        sketches, n_local, sizes, chunk_labels = binning.sketch_chunks(
+            factory, max_size=config.sketch_max_size, track_bytes=track)
+        merged = merge_feature_sketches(sketches)
+    sketch_s = time.time() - t0
+    sketches = None
+    f = len(merged)
+    n_global = int(merged[0].total_cnt) if f else 0
+    counts = [int(json.loads(p)) for p in
+              exchange_host("prepart_chunk_rows", json.dumps(int(n_local)))]
+    if f and sum(counts) != n_global:
+        log.fatal(f"pre-partitioned chunk sources: the ranks' rows {counts} "
+                  f"do not add up to the merged sketches' {n_global}")
+    if chunk_labels is not None:
+        if label is not None:
+            log.fatal("labels were passed both to load_partitioned_chunks "
+                      "and in the chunk stream; pass one or the other")
+        label = chunk_labels
+
+    ds = Dataset(None, label=label, weight=weight, init_score=init_score,
+                 params=dict(params or {}), feature_name=feature_name,
+                 categorical_feature=categorical_feature)
+    ds.device = config.torch_device()
+    ds.num_data, ds.num_total_features = n_global, f
+    ds._set_feature_names()
+    cats = ds._resolve_categorical(config)
+    forced = _load_forced_bins(config, f, cats)
+    ds.mappers = binning.fit_mappers_from_sketches(
+        merged, n_global, config, cats, forced_bounds=forced)
+    ds.used_features = np.array(
+        [j for j, m in enumerate(ds.mappers) if not m.is_trivial], np.int32)
+    ds._build_feature_meta(config)
+    uf = ds.used_features
+    writer = binning.StreamingBinWriter(
+        [ds.mappers[j] for j in uf], n_local, max(sizes, default=1),
+        ds.device)
+    t0 = time.time()
+    with profiling.timer("bin_pass"):
+        binning.bin_chunks_host(factory, uf, writer, track)
+        local = writer.finalize()
+    bin_s = time.time() - t0
+    profiling.set_gauge("construct_sketch_s", sketch_s)
+    profiling.set_gauge("construct_bin_s", bin_s)
+    profiling.set_gauge("construct_peak_bytes", float(peak[0]))
+    profiling.set_gauge("construct_rows", float(n_local))
+    ds.construct_stats = {
+        "sketch_pass": round(sketch_s, 6), "bin_pass": round(bin_s, 6),
+        "peak_host_bytes": int(peak[0]), "rows": int(n_local),
+    }
+    _shard_local_bins(ds, local, counts)
+    log.info(f"pre-partitioned streaming dataset: {n_local} local rows of "
+             f"{n_global} in {len(sizes)} chunks (peak raw {peak[0]} bytes), "
+             f"{len(uf)} used features")
     return ds
-
-
-def load_partitioned_chunks(chunks, *args, **kwargs):
-    """Not ported yet: the streaming pre-partitioned construct."""
-    raise NotImplementedError(
-        "load_partitioned_chunks (streaming construct) is not ported to "
-        "lightgbm_tpu_torch yet; it arrives with ROADMAP.md Queue 1 item 15 "
-        "(distributed)")
 
 
 def repartition_rows(old_ranges, row_start: int, row_count: int,

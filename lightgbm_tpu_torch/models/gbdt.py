@@ -107,7 +107,8 @@ from ..utils import log, profiling
 from ..utils.ordered import linear_row_sum
 from ..utils.random import bits, fold_in, prng_key, stable_argsort, uniform
 from .grower import CegbSpec, grow_tree
-from .predict_engine import PredictEngine, host_tree_depth
+from .predict_engine import (PredictEngine, host_tree_depth, slice_rows,
+                             tensor_rows)
 from .tree import (HostTree, TreeArrays, empty_tree, predict_leaf_bins,
                    predict_value_bins, stack_trees)
 
@@ -188,6 +189,10 @@ class GBDT:
         self._stacked_cache = None
         self._engine_cache: Dict[tuple, tuple] = {}
         self._engine_lock = threading.Lock()
+        # a sharded predict's devices (predict_sharded): None = every
+        # visible device; a list of several entries for one device shards
+        # on it alone (no parameter: the engine's constructor argument)
+        self.predict_devices: Optional[list] = None
         self._mt_cache: Dict[int, tuple] = {}
         # the OOM ladder's position (_maybe_degrade_oom): rungs 1-2 set the
         # feature-blocked pass's column width, rung 3 (and the predict
@@ -1484,6 +1489,11 @@ class GBDT:
                 rounds_per_dispatch=1,
                 num_leaves=int(self.config.num_leaves),
                 tree_learner=self.config.tree_learner)
+            # a streamed training set's construct numbers, from the
+            # dataset itself: a later construct cannot wipe them
+            construct = getattr(self.train_set, "construct_stats", None)
+            if construct:
+                flight.set_context(construct=dict(construct))
 
     def _predict_chunk_rows(self) -> int:
         """``predict_chunk_rows`` under the predict rung's override."""
@@ -1837,8 +1847,11 @@ class GBDT:
             b = np.asarray(self.tree_bias[:nt], np.float64)
             biases = b if (len(b) == nt and b.size and np.any(b)) else None
             chunk = self._predict_chunk_rows()
+            devices = (None if self.predict_devices is None
+                       else tuple(str(d) for d in self.predict_devices))
             key = (nt, cfg.predict_accum, chunk,
-                   None if biases is None else biases.tobytes())
+                   None if biases is None else biases.tobytes(),
+                   bool(cfg.predict_sharded), devices)
             hit = self._engine_cache.get(key)
             if hit is not None and hit[0] is stacked:
                 return hit[1]
@@ -1846,7 +1859,8 @@ class GBDT:
                 stacked, k, nt, self._ensemble_depth(nt), biases=biases,
                 accum=cfg.predict_accum, chunk_rows=chunk,
                 device=self.device,
-                bucket_min_rows=cfg.predict_bucket_min_rows)
+                bucket_min_rows=cfg.predict_bucket_min_rows,
+                sharded=cfg.predict_sharded, devices=devices)
             eng.serve_mode = self._serve_mode
             if len(self._engine_cache) >= 2:
                 self._engine_cache.pop(next(iter(self._engine_cache)))
@@ -1960,13 +1974,15 @@ class GBDT:
                 and self.loaded_iters == 0 and X.shape[0] > 0:
             rows = self.train_set.serve_rows(X)
             eng = self._predict_engine(end) if rows is not None else None
-            if eng is not None and eng.serve_mode:
+            # a sharded engine takes the ordinary path, as in the JAX
+            # package
+            if eng is not None and eng.serve_mode and not eng.sharded:
                 res = eng.serve_predict(*rows, self.train_set.missing_bin,
                                         postprocess)
                 return res if postprocess is not None \
                     else np.asarray(res, np.float64).reshape(-1, k)
-        binsT = self.train_set.bin_new_data(X)
-        n = binsT.shape[1]
+        rows = self._predict_rows(X)
+        n = X.shape[0]
         out = np.zeros((n, k), dtype=np.float64)
         mb = self.train_set.missing_bin
         active = np.ones(n, dtype=bool)
@@ -1989,54 +2005,68 @@ class GBDT:
             rng = ((it - lo) * k, own_end * k)
             base = out if out.any() else None   # an init model's prefix
             if not es:
-                res = eng.predict(binsT, mb, base=base, use_bias=False,
-                                  tree_range=rng, postprocess=postprocess)
+                res = eng.predict(rows, mb, base=base, use_bias=False,
+                                  tree_range=rng, postprocess=postprocess,
+                                  n=n)
                 return res if postprocess is not None \
                     else np.asarray(res, np.float64).reshape(n, k)
-            out = self._predict_early_stop(eng, binsT, mb, out, active, base,
-                                           it, end, start, freq, margin)
+            out = self._predict_early_stop(eng, rows, n, mb, out, active,
+                                           base, it, end, start, freq,
+                                           margin)
         if postprocess is not None:
             return postprocess(torch.as_tensor(out if k > 1 else out[:, 0]))
         return out
 
-    def _predict_early_stop(self, eng: PredictEngine, binsT, mb, out, active,
-                            base, it, end_iter, start_iteration, freq,
-                            margin) -> np.ndarray:
+    def _predict_rows(self, X):
+        """The rows of ``X`` as the engine reads them: a shard's rows
+        binned on the shard's own device (the feature count checked here,
+        scipy-sparse rows sliced as CSR)."""
+        from ..basic import _is_scipy_sparse
+        ts = self.train_set
+        X = ts._new_rows(X)
+        if _is_scipy_sparse(X):
+            X = X.tocsr()
+        return lambda lo, hi, dev: ts.bin_new_data(X[lo:hi], device=dev)
+
+    def _predict_early_stop(self, eng: PredictEngine, rows, n: int, mb, out,
+                            active, base, it, end_iter, start_iteration,
+                            freq, margin) -> np.ndarray:
         """Margin-based prediction early stop on the engine: the carry
-        stays on the device across the check chunks (one launch each; the
-        accumulation order is the host loop's), inactive rows keep their
-        carry through a device mask, and the host sees the [n, K] scores
-        only at the check points. Row chunks beyond ``predict_chunk_rows``
-        run one after another (early stop is per row, so chunking is
-        exact)."""
+        stays on the device across the check chunks (one launch each, or
+        one a shard; the accumulation order is the host loop's), inactive
+        rows keep their carry through a device mask (uploaded a shard at a
+        time when sharded), and the host sees the [n, K] scores only at
+        the check points. Row chunks beyond ``predict_chunk_rows`` run one
+        after another (early stop is per row, so chunking is exact)."""
         k = self.num_tree_per_iteration
-        n = binsT.shape[1]
         chunk = eng._chunk_rows(n)
         if n > chunk:
             return np.concatenate([self._predict_early_stop(
-                eng, binsT[:, a0:min(n, a0 + chunk)], mb,
+                eng, slice_rows(rows, a0, min(n, a0 + chunk)),
+                min(n, a0 + chunk) - a0, mb,
                 out[a0:a0 + chunk], active[a0:a0 + chunk],
                 None if base is None else base[a0:a0 + chunk], it, end_iter,
                 start_iteration, freq, margin)
                 for a0 in range(0, n, chunk)], axis=0)
+        bins = eng.prepare_bins(rows, n)
         carry = eng.make_carry(base, n)
         lo = self.loaded_iters
-        active_dev = torch.as_tensor(active, device=eng.device)
+        active_dev = eng.upload_rows(active)
         while it < end_iter:
             nxt = start_iteration + ((it - start_iteration) // freq
                                      + 1) * freq
             ce = min(end_iter, nxt)
-            carry = eng.accumulate(binsT, mb, carry, active_dev,
+            carry = eng.accumulate(bins, mb, carry, active_dev,
                                    tree_range=((it - lo) * k, (ce - lo) * k),
                                    use_bias=False)
             it = ce
             if (it - start_iteration) % freq == 0 and it < end_iter:
-                out = eng.fetch(carry, n).reshape(n, k)
+                out = eng.fetch(carry).reshape(n, k)
                 active &= ~_early_stop_mask(out, k, margin)
                 if not active.any():
                     return out
-                active_dev = torch.as_tensor(active, device=eng.device)
-        return eng.fetch(carry, n).reshape(n, k)
+                active_dev = eng.upload_rows(active)
+        return eng.fetch(carry).reshape(n, k)
 
     def _predict_model_trees(self, X, start: int, end: int, es: bool = False,
                              freq: int = 10, margin: float = 10.0
@@ -2111,7 +2141,8 @@ class GBDT:
             base = np.asarray(ds.init_score, np.float64).reshape(n, k).copy()
         eng = self._predict_engine()
         if eng is not None:
-            return eng.predict(ds.traversal_binsT(), ds.missing_bin,
+            return eng.predict(tensor_rows(ds.traversal_binsT()),
+                               ds.missing_bin, n=n,
                                base=base if k > 1 else base[:, 0])
         return base if k > 1 else base[:, 0]
 
@@ -2147,7 +2178,7 @@ class GBDT:
         from ..basic import _is_scipy_sparse
         X = self._prep_predict_X(X)
         bundled = self.train_set.bundles is not None
-        binsT = None if bundled else self.train_set.bin_new_data(X)
+        rows = None if bundled else self._predict_rows(X)
         k = self.num_tree_per_iteration
         start, end = self._iter_range(num_iteration, start_iteration)
         if (bundled or start < min(end, self.loaded_iters)) \
@@ -2162,11 +2193,12 @@ class GBDT:
         if not bundled and it < end:
             own_end = end - self.loaded_iters
             eng = self._predict_engine(own_end)
-            n = binsT.shape[1]
+            n = X.shape[0]
             mb = self.train_set.missing_bin
+            bins = eng.prepare_bins(rows, n)
             for a, b in _chunked_tree_ranges(it - self.loaded_iters, own_end,
                                              k, n, itemsize=4):
-                cols.extend(list(eng.leaves(binsT, mb, tree_range=(a, b))))
+                cols.extend(list(eng.leaves(bins, mb, tree_range=(a, b))))
         return (np.stack(cols, axis=1) if cols
                 else np.zeros((X.shape[0], 0), np.int32))
 

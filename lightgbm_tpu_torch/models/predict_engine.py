@@ -42,7 +42,23 @@ The JAX engine's XLA-only parts have no counterpart here:
   either package.
 Outside serve mode an engine call makes its own carry, so callers may
 share one (``GBDT._predict_engine``'s lock guards building it).
-``predict_sharded`` (several devices) comes with ROADMAP Queue 1 item 15.
+
+- **Row-sharded predict** (``sharded``, the ``predict_sharded``
+  parameter): the JAX engine runs its scan under ``shard_map`` over every
+  visible device (``jax.devices()``), rows sharded and trees replicated.
+  Here the engine takes its device list (``devices``; by default every
+  visible CUDA device of the process, or the CPU), keeps one packed table
+  a device (``tables_on``), splits each row chunk into contiguous, equal
+  shards over the devices (``shards``: ceil(n / D) rows each, the last
+  shorter and nothing padded, as the ordinary path pads nothing) and bins
+  and walks each shard on its own device, one launch a shard; the shards'
+  results come back in row order. A row's accumulation order is
+  unchanged, so the result is bitwise the unsharded one. With one device
+  there is one shard through the same code, and the engine logs so. An
+  unsharded engine is the same code over the one device list
+  ``[device]``: every operand is a list over the shards (``prepare_bins``,
+  ``upload_rows``, ``make_carry``), and ``predict_sharded`` only chooses
+  the list. A serve-mode flush never shards.
 
 The engine is built per (booster, tree range) by ``GBDT._predict_engine``
 and also serves ``score_dataset`` (per-tree bias subtraction) and
@@ -52,15 +68,19 @@ and also serves ``score_dataset`` (per-tree bias subtraction) and
 from __future__ import annotations
 
 import threading
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..binning import BinSlot, bin_data_device
 from ..ops.predict import Carry, new_carry, pack_ensemble, predict_ensemble
-from ..utils import profiling
+from ..utils import log, profiling
 from .tree import TreeArrays
+
+# the rows of a predict: a callable ``rows(lo, hi, device)`` giving the
+# bins [F, hi - lo] of rows [lo, hi) on ``device``
+Rows = Callable[[int, int, torch.device], torch.Tensor]
 
 _AUTO_CHUNK_ROWS = 1 << 22      # auto: ~4M-row chunks bound device residency
 
@@ -77,6 +97,28 @@ def resolve_accum(mode: str) -> str:
     if mode in ("float32", "f32", "single"):
         return "float32"
     raise ValueError(f"unknown predict_accum mode: {mode!r}")
+
+
+def visible_devices(device) -> List[torch.device]:
+    """The devices a sharded engine spreads over by default: every visible
+    CUDA device of the process for a CUDA ``device`` (as ``shard_map``
+    spans ``jax.devices()``), else ``device`` alone."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    return [device]
+
+
+def tensor_rows(binsT: torch.Tensor) -> Rows:
+    """A bin matrix [F, N] as rows: a shard is its column slice, a view on
+    the matrix's own device, copied only to another device."""
+    return lambda lo, hi, dev: binsT[:, lo:hi].to(dev)
+
+
+def slice_rows(rows: Rows, a: int, b: int) -> Rows:
+    """Rows [a, b) of ``rows``."""
+    return lambda lo, hi, dev: rows(a + lo, a + hi, dev)
 
 
 def host_tree_depth(left_child: np.ndarray, right_child: np.ndarray,
@@ -108,16 +150,28 @@ class PredictEngine:
     def __init__(self, stacked: TreeArrays, k: int, num_trees: int,
                  max_depth: int, *, biases: Optional[np.ndarray] = None,
                  accum: str = "auto", chunk_rows: int = 0, device="cpu",
-                 bucket_min_rows: int = 1024):
+                 bucket_min_rows: int = 1024, sharded: bool = False,
+                 devices: Optional[Sequence] = None):
         self.k = int(k)
         self.T = int(num_trees)
         self.depth = int(max_depth)
         self.accum = resolve_accum(accum)
         self.chunk_rows = int(chunk_rows)
         self.device = torch.device(device)
+        self.stacked = stacked
         self.tables = pack_ensemble(stacked, self.depth, self.device)
         self.biases = (None if biases is None else torch.as_tensor(
             np.asarray(biases, np.float64), device=self.device))
+        self.sharded = bool(sharded)
+        # the shards' devices: unsharded, the engine's device alone
+        self.devices = ([torch.device(d) for d in devices] if devices
+                        else visible_devices(self.device)) \
+            if self.sharded else [self.device]
+        self._tables: Dict[torch.device, tuple] = {
+            self.device: (self.tables, self.biases)}
+        if self.sharded and len(self.devices) == 1:
+            log.info(f"predict_sharded: one device ({self.devices[0]}), so "
+                     f"one shard through the sharded path")
         self.bucket_min = max(1, int(bucket_min_rows))
         self.serve_mode = False
         self._serve_slots: Dict[int, ServeSlot] = {}
@@ -126,78 +180,134 @@ class PredictEngine:
     def _chunk_rows(self, n: int) -> int:
         return self.chunk_rows if self.chunk_rows > 0 else _AUTO_CHUNK_ROWS
 
+    # ------------------------------------------------------------ shards
+    def tables_on(self, device) -> tuple:
+        """The packed tables and biases replicated on ``device``, packed
+        once and kept."""
+        device = torch.device(device)
+        hit = self._tables.get(device)
+        if hit is None:
+            with self._lock:
+                hit = self._tables.get(device)
+                if hit is None:
+                    hit = (pack_ensemble(self.stacked, self.depth, device),
+                           None if self.biases is None
+                           else self.biases.to(device))
+                    self._tables[device] = hit
+        return hit
+
+    def shards(self, n: int) -> List[Tuple[torch.device, int, int]]:
+        """The contiguous row shards ``(device, lo, hi)`` of n rows, one a
+        device in order, ceil(n / D) rows each (the last shorter, empty
+        ones dropped)."""
+        if n == 0:
+            return [(self.devices[0], 0, 0)]
+        d = len(self.devices)
+        size = -(-n // d)
+        return [(dev, i * size, min(n, (i + 1) * size))
+                for i, dev in enumerate(self.devices) if i * size < n]
+
+    def prepare_bins(self, rows: Rows, n: int) -> List[torch.Tensor]:
+        """The bins the launches read, one matrix a shard on its own
+        device."""
+        return [rows(lo, hi, dev) for dev, lo, hi in self.shards(n)]
+
+    def upload_rows(self, arr: np.ndarray) -> List[torch.Tensor]:
+        """A host per-row array (the early stop's active mask) split over
+        the shards, each on its device."""
+        return [torch.as_tensor(arr[lo:hi], device=dev)
+                for dev, lo, hi in self.shards(len(arr))]
+
     # ------------------------------------------------------- accumulation
-    def make_carry(self, base: Optional[np.ndarray], n: int) -> Carry:
-        """Device carry [n, K] seeded from a host float64 base (None:
-        zeros), cast to the accumulation mode (compensated pairs the seed
-        with a zero compensation term)."""
-        if base is None:
-            return new_carry(n, self.k, self.accum, self.device)
-        b = np.asarray(base, np.float64).reshape(n, self.k)
+    def make_carry(self, base: Optional[np.ndarray], n: int) -> List[Carry]:
+        """The device carries [rows, K] of the shards, seeded from a host
+        float64 base [n, K] (None: zeros) and cast to the accumulation
+        mode (compensated pairs the seed with a zero compensation term)."""
+        b = (None if base is None
+             else np.asarray(base, np.float64).reshape(n, self.k))
+        return [self._carry(None if b is None else b[lo:hi], hi - lo, dev)
+                for dev, lo, hi in self.shards(n)]
+
+    def _carry(self, b: Optional[np.ndarray], n: int, device) -> Carry:
+        if b is None:
+            return new_carry(n, self.k, self.accum, device)
         if self.accum == "compensated":
-            s = torch.as_tensor(b.astype(np.float32), device=self.device)
+            s = torch.as_tensor(b.astype(np.float32), device=device)
             return (s, torch.zeros_like(s))
         dt = np.float64 if self.accum == "float64" else np.float32
         return torch.as_tensor(np.ascontiguousarray(b.astype(dt)),
-                               device=self.device)
+                               device=device)
 
-    def accumulate(self, binsT: torch.Tensor, missing_bin: torch.Tensor,
-                   carry: Optional[Carry] = None,
-                   active: Optional[torch.Tensor] = None,
+    def accumulate(self, bins: List[torch.Tensor], missing_bin: torch.Tensor,
+                   carry: Optional[List[Carry]] = None,
+                   active: Optional[List[torch.Tensor]] = None,
                    tree_range: Optional[Tuple[int, int]] = None,
-                   use_bias: bool = True) -> Carry:
-        """One launch: trees [a, b) over ``binsT`` [F, n], added into
-        ``carry`` (None: zeros). Returns the device carry."""
+                   use_bias: bool = True) -> List[Carry]:
+        """Trees [a, b) over the shards' bins (``prepare_bins``), added
+        into their carries (None: zeros), one launch a shard on its device
+        with that device's tables. Returns the shards' device carries."""
         a, b = tree_range if tree_range is not None else (0, self.T)
-        n = binsT.shape[1]
-        if carry is None:
-            carry = new_carry(n, self.k, self.accum, self.device)
-        if b <= a:
-            return carry
-        return predict_ensemble(
-            self.tables, binsT, missing_bin.to(self.device), (a, b), self.k,
-            bias=self.biases if use_bias else None, active=active,
-            carry=carry, accum=self.accum)
+        carry = [None] * len(bins) if carry is None else carry
+        active = [None] * len(bins) if active is None else active
+        out = []
+        for bt, c, act in zip(bins, carry, active):
+            dev = bt.device
+            if c is None:
+                c = new_carry(bt.shape[1], self.k, self.accum, dev)
+            if b > a:
+                tables, biases = self.tables_on(dev)
+                with _on(dev):
+                    c = predict_ensemble(
+                        tables, bt, missing_bin.to(dev), (a, b), self.k,
+                        bias=biases if use_bias else None, active=act,
+                        carry=c, accum=self.accum)
+            out.append(c)
+        return out
 
-    def fetch(self, carry: Carry, n: int) -> np.ndarray:
-        """The result to the host as float64: [n], or [n, K] with K > 1 --
-        the only device-to-host transfer of a predict."""
-        s = carry[0] if self.accum == "compensated" else carry
-        out = s[:n].cpu().numpy().astype(np.float64)
+    def fetch(self, carry: List[Carry]) -> np.ndarray:
+        """The result to the host as float64, the shards in row order: [n],
+        or [n, K] with K > 1 -- the only device-to-host transfer of a
+        predict."""
+        out = np.concatenate([
+            (c[0] if self.accum == "compensated" else c).cpu().numpy()
+            for c in carry], axis=0).astype(np.float64)
         return out[:, 0] if self.k == 1 else out
 
     # ------------------------------------------------------------ predict
-    def predict(self, binsT: torch.Tensor, missing_bin: torch.Tensor, *,
+    def predict(self, rows: Rows, missing_bin: torch.Tensor, *, n: int,
                 base: Optional[np.ndarray] = None, use_bias: bool = True,
                 postprocess=None,
                 tree_range: Optional[Tuple[int, int]] = None) -> np.ndarray:
-        """Full predict over a device bin matrix ``binsT`` [F, N]:
-        row-chunked, accumulated on the device; returns the host ``[n,
-        K]`` (or ``[n]``) result. ``base``: optional float64 initial
-        scores. ``postprocess``: the objective's output conversion, applied
-        on the device to the carry ([n] or [n, K]) before the fetch; it
-        returns the host array."""
-        n = binsT.shape[1]
+        """Full predict over n rows (``tensor_rows`` wraps a device bin
+        matrix): row-chunked, each chunk over the shards, accumulated on
+        the device; returns the host ``[n, K]`` (or ``[n]``) result.
+        ``base``: optional float64 initial scores. ``postprocess``: the
+        objective's output conversion, applied on the device to each
+        shard's carry ([rows] or [rows, K]) before the fetch; it returns
+        the host array."""
         chunk = self._chunk_rows(n)
         outs = []
         for a0 in range(0, max(n, 1), chunk):
             b0 = min(n, a0 + chunk)
             outs.append(self._predict_chunk(
-                binsT[:, a0:b0], missing_bin,
+                slice_rows(rows, a0, b0), b0 - a0, missing_bin,
                 None if base is None else base[a0:b0], postprocess,
                 tree_range, use_bias))
         return outs[0] if len(outs) == 1 else np.concatenate(outs, axis=0)
 
-    def _predict_chunk(self, binsT, missing_bin, base, postprocess,
+    def _predict_chunk(self, rows, n, missing_bin, base, postprocess,
                        tree_range, use_bias) -> np.ndarray:
-        n = binsT.shape[1]
-        carry = self.make_carry(base, n)
-        carry = self.accumulate(binsT, missing_bin, carry,
+        carry = self.accumulate(self.prepare_bins(rows, n), missing_bin,
+                                self.make_carry(base, n),
                                 tree_range=tree_range, use_bias=use_bias)
-        if postprocess is not None:
-            s = carry[0] if self.accum == "compensated" else carry
-            return np.asarray(postprocess(s[:, 0] if self.k == 1 else s))
-        return self.fetch(carry, n)
+        if postprocess is None:
+            return self.fetch(carry)
+        outs = []
+        for c in carry:
+            s = c[0] if self.accum == "compensated" else c
+            outs.append(np.asarray(postprocess(s[:, 0] if self.k == 1
+                                               else s)))
+        return outs[0] if len(outs) == 1 else np.concatenate(outs, axis=0)
 
     # -------------------------------------------------------------- serve
     def bucket_rows(self, n: int) -> int:
@@ -248,14 +358,28 @@ class PredictEngine:
             self._serve_slots.clear()
 
     # ------------------------------------------------------------- leaves
-    def leaves(self, binsT: torch.Tensor, missing_bin: torch.Tensor,
+    def leaves(self, bins: List[torch.Tensor], missing_bin: torch.Tensor,
                tree_range: Optional[Tuple[int, int]] = None) -> np.ndarray:
-        """[t, n] int32 per-tree leaf indices over the range, in one
-        launch (the [t, n] transfer is inherent to the predict_leaf API)."""
+        """[t, n] int32 per-tree leaf indices over the range of the shards'
+        bins (``prepare_bins``), one launch a shard (the [t, n] transfer
+        is inherent to the predict_leaf API)."""
         a, b = tree_range if tree_range is not None else (0, self.T)
-        return predict_ensemble(self.tables, binsT,
-                                missing_bin.to(self.device), (a, b), self.k,
-                                leaves=True).cpu().numpy()
+        outs = []
+        for bt in bins:
+            tables, _ = self.tables_on(bt.device)
+            with _on(bt.device):
+                outs.append(predict_ensemble(
+                    tables, bt, missing_bin.to(bt.device), (a, b), self.k,
+                    leaves=True).cpu().numpy())
+        return outs[0] if len(outs) == 1 else np.concatenate(outs, axis=1)
+
+
+def _on(device: torch.device):
+    """The device's context for a launch (a ctypes launch goes to the
+    current CUDA device); nothing on the CPU."""
+    from contextlib import nullcontext
+    return torch.cuda.device(device) if device.type == "cuda" \
+        else nullcontext()
 
 
 class ServeSlot:

@@ -229,10 +229,10 @@ def cold(seed):
             eng = PredictEngine(stacked, 1, count, depth, device="cuda")
             torch.cuda.synchronize()
             t1 = time.perf_counter()
-            eng.accumulate(binsT, mb, use_bias=False)
+            eng.accumulate([binsT], mb, use_bias=False)
             torch.cuda.synchronize()
             t2 = time.perf_counter()
-            eng.accumulate(binsT, mb, use_bias=False)
+            eng.accumulate([binsT], mb, use_bias=False)
             torch.cuda.synchronize()
             t3 = time.perf_counter()
             builds.append(t1 - t0)

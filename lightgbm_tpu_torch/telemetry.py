@@ -107,10 +107,9 @@ def memory_snapshot() -> Dict[str, Any]:
 
 def construct_snapshot() -> Dict[str, Any]:
     """The construct phase's telemetry from the ``construct_*`` gauges a
-    streaming construct records (the JAX package's
-    ``_construct_streaming`` and ``load_partitioned_chunks``); an empty
-    dict when no such construct ran in this process (the port constructs
-    monolithically until ROADMAP.md Queue 1 item 15.4)."""
+    streaming construct records (``Dataset._construct_streaming`` and
+    ``distributed.load_partitioned_chunks``); an empty dict when no such
+    construct ran in this process."""
     from .utils import profiling
     g = profiling.gauges()
     out: Dict[str, Any] = {}

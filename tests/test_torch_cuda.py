@@ -1610,3 +1610,64 @@ def test_distributed_learner_on_card_equals_cpu(dev, learner):
 
     card, card2, cpu = run("cuda"), run("cuda"), run("cpu")
     assert card[0] == card[1] == card2[0] == cpu[0]
+
+
+# ------------------------------------------ streaming construct, sharding
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_streaming_bins_on_card_match_host(dev, dtype):
+    """The streaming construct's bin pass on the card (the pinned staging
+    buffer, one write in flight), float32 and float64 chunks, a NaN column
+    and a categorical one (the host lookup): ``binsT`` bitwise
+    ``binning.bin_data`` on the host and the monolithic construct's, the
+    peak host bytes within a chunk plus the staged copy."""
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch import binning
+    rng = np.random.RandomState(8)
+    n, f, c = 30_000, 9, 7_000
+    X = rng.randn(n, f).astype(dtype)
+    X[rng.rand(n) < 0.05, 2] = np.nan
+    X[:, 4] = rng.randint(0, 40, n)
+    y = (np.nan_to_num(X[:, 0]) + X[:, 1] > 0).astype(float)
+    p = {"verbosity": -1, "device_type": "cuda", "sketch_max_size": 0}
+    ds = lgb.Dataset.from_chunks(
+        [(X[s:s + c], y[s:s + c]) for s in range(0, n, c)],
+        categorical_feature=[4], params=dict(p)).construct()
+    mono = lgb.Dataset(X, label=y, categorical_feature=[4],
+                       params=dict(p)).construct()
+    assert ds.binsT.device.type == "cuda"
+    host = binning.bin_data(X[:, ds.used_features],
+                            [ds.mappers[j] for j in ds.used_features])
+    assert np.array_equal(ds.binsT.cpu().numpy(), host.T)
+    assert torch.equal(ds.binsT, mono.binsT)
+    assert 0 < ds.construct_stats["peak_host_bytes"] <= 2 * c * f * X.itemsize
+
+
+def test_sharded_predict_on_card_is_bitwise(dev):
+    """``predict_sharded`` over the device list [cuda, cuda] in chunks of
+    7,000 rows: converted, raw, early-stopped and leaf outputs bitwise the
+    unsharded ones, one launch a (chunk, shard)."""
+    b, X = _predict_model("u8", "cuda")
+    g = b._boosting
+    es = dict(pred_early_stop=True, pred_early_stop_freq=2,
+              pred_early_stop_margin=1.0)
+    want = (b.predict(X), b.predict(X, raw_score=True), b.predict(X, **es),
+            b.predict(X, pred_leaf=True))
+    g.config.predict_sharded = True
+    g.config.predict_chunk_rows = 7_000
+    g.predict_devices = [dev, dev]
+    g._engine_cache.clear()
+    try:
+        cuda_hist.reset_launch_counts()
+        got = b.predict(X)
+        c = cuda_hist.launch_counts()
+        rest = (b.predict(X, raw_score=True), b.predict(X, **es),
+                b.predict(X, pred_leaf=True))
+    finally:
+        g.config.predict_sharded = False
+        g.config.predict_chunk_rows = 0
+        g.predict_devices = None
+        g._engine_cache.clear()
+    assert sum(v for k, v in c.items()
+               if k.startswith("predict_ensemble.")) == 3 * 2
+    for a, w in zip((got,) + rest, want):
+        np.testing.assert_array_equal(a, w)

@@ -44,6 +44,7 @@ from lightgbm_tpu.parallel.learners import _shard_map
 from lightgbm_tpu_torch import distributed, network
 from lightgbm_tpu_torch.ops import cuda_hist
 from lightgbm_tpu_torch.ops.split import SplitInfo
+from lightgbm_tpu_torch.utils.log import LightGBMError
 
 sys.path.insert(0, os.path.dirname(__file__))
 import torch_gang_cases as gc  # noqa: E402
@@ -295,9 +296,12 @@ def test_a_gang_of_one_trains_on_the_datasets_device():
     ("construct_streaming", True), ("construct_chunk_rows", 1024),
     ("sketch_max_size", 128), ("predict_sharded", True),
     ("mesh_shape", {"data": 2}), ("num_gpu", 2)])
-def test_the_rest_of_item_15_raises(key, value):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
-        lt.Config.from_params({key: value, "device_type": "cpu"})
+def test_the_rest_of_item_15_is_accepted(key, value):
+    """Items 15.4-15.5's parameters (the streaming construct, row-sharded
+    predict; mesh_shape and num_gpu read by nothing, as in the JAX
+    package) configure the port."""
+    cfg = lt.Config.from_params({key: value, "device_type": "cpu"})
+    assert getattr(cfg, key) == value != getattr(lt.Config(), key)
 
 
 @pytest.mark.parametrize("key,value", [
@@ -315,14 +319,19 @@ def test_supervision_parameters_are_accepted(key, value):
 
 
 def test_streaming_and_sharded_checkpoints_raise(tmp_path):
-    """The streaming construct still raises naming item 15; a gang over
-    replicated rows now checkpoints, from rank 0 alone."""
-    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
-        lt.Dataset.from_chunks([])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
-        distributed.load_partitioned_chunks([])
+    """The streaming constructs are ported: an empty chunk source raises
+    as in the JAX package, a gang of one loads chunks; a gang over
+    replicated rows checkpoints, from rank 0 alone."""
     X, y, params, _ = gc.case("data_binary")
     params = dict(params, device_type="cpu")
+    with pytest.raises(LightGBMError, match="yielded no chunks"):
+        lt.Dataset.from_chunks([], params=dict(params)).construct()
+    with pytest.raises(LightGBMError, match="yielded no chunks"):
+        distributed.load_partitioned_chunks([], params=dict(params))
+    assert lt.Dataset.from_chunks([(X, y)], params=dict(
+        params)).construct().num_data == len(X)
+    assert distributed.load_partitioned_chunks(
+        [(X, y)], params=dict(params)).is_pre_partitioned
 
     def body(net):
         ds = lt.Dataset(X, label=y, params=dict(params))
