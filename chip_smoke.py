@@ -5,17 +5,20 @@ hand-written kernel against its plain PyTorch version.
                           [--rounds 5] [--parent DIR]
                           [--only precision|control|predict|faults|
                                   distributed|resilience|redesign|serve|
-                                  construct]
+                                  construct|widebins]
 
 Phases, each printing one JSON line (any failure raises and the script
 exits non-zero; nothing is caught). The full run times the kernel phases
 first, with the card to itself: device, build, hist_tile_root through
-hist_tile_q8, split_epilogue, hist_wide, epilogue_wide and hist_variants.
+hist_tile_q8, split_epilogue, hist_wide, epilogue_wide, hist_variants and
+the widebins group's kernel phases (hist_wider, epilogue_wider,
+autotune_wider).
 Then it starts three lanes (LANES), processes of this script that run
 beside it: ``gangs`` (the distributed group, the resilience group,
 training control, the serve group), ``predict`` (prediction and the user surface, the
 faults group, then the construct group) and ``constraints`` (learning to
-rank, then the split constraints). The main process goes on with train through parity_q8_cat,
+rank, the split constraints, then the widebins group's train_wider and
+parity_wider). The main process goes on with train through parity_q8_cat,
 the boosting modes, the data layer's training and parity phases and the
 precision modes; then it relays each lane's lines (``at_s`` from the main
 process's start) and prints the kernels line. Control and the
@@ -30,7 +33,13 @@ phases in the order they run:
                   f32 and q8, each on uniform random bins and on the train
                   phases' own bins (the Higgs- and Expo-shaped rows binned
                   by the package's Dataset); checks and times as hist_tile
-                  and hist_tile_q8
+                  and hist_tile_q8. First, autotune_hist on train's own
+                  bins at its shape bucket (main_geometry): the sweep's
+                  cache is the process's, so train and train_q8 run that
+                  geometry, and the fused path's f32 and q8 rows here
+                  (root, hist_tile, its rungs and stress) are timed at it;
+                  where it is not the default, the root pass on train's
+                  bins at the default too (*_default_geometry)
   hist_tile       full-row form of several computed slots at the train
                   phase's shapes (N=--rows, F=28, B=255, 255 leaves, a
                   42-slot tile of 21 computed leaves holding 3/4 of the
@@ -62,7 +71,10 @@ phases in the order they run:
                   of them the tile's rows, rows_real_per_tree) and each
                   kernel's launches on this run (both hist_tile forms and
                   split_epilogue must launch, at the shapes the kernel
-                  phases checked)
+                  phases checked); the geometry its sweep kept
+                  (hist_tuned), and sec/iter of the same run with
+                  hist_autotune off (the default geometry) and then on
+                  again, whose trees must be the same
   parity          the same training at 50,000 x 28, 63 leaves, 1 round on
                   the card and on the CPU plain path: same split features
                   and thresholds, leaf values within 1e-4; two card runs,
@@ -573,6 +585,46 @@ reuses; every chunk made from --seed and its index):
 With ``--only construct`` the script runs device, build and this group
 alone, and prints the group's launches by path.
 
+The widebins group (bins past 4,096 a feature: hist_tile's bin-range
+split and global form, split_epilogue_wider, int32 bins past 32,767):
+
+  hist_wider      hist_tile at N=2M, F=28, P=42, B = 8,191 / 16,383 /
+                  65,535: the root pass and the 1M-row rung, f32 and q8,
+                  as hist_phase (bitwise, two launches equal, ms, device
+                  ms, plain, one index_add_, traffic_model's bound), the
+                  integer-planes mode at 16,383 (root, 42 slots)
+  epilogue_wider  split_epilogue at P=42, F=28 and the same B, f32 and
+                  q8, unconstrained and monotone, as epilogue_wide
+  autotune_wider  autotune_hist at B = 16,383 and 65,535, f32 and q8:
+                  each candidate geometry's ms, the winner, every
+                  candidate's planes bitwise equal
+  forms_wider     both forms past one block's plane on the same inputs
+                  at B = 16,383 and 65,535, f32 and q8: the root pass, a
+                  1M-row rung of 21 and of 2 computed slots, uniform and
+                  skewed bins (80% in bin 0): each form's ms, planes
+                  bitwise equal between them
+  train_wider     train's 2M rows at max_bin 16,383, 255 leaves, f32 and
+                  q8, three runs on one Dataset: launches by counter (the
+                  wider modes), sec/iter, AUC, two texts equal, the trees
+                  with hist_autotune off equal, the sweep's choice, the
+                  200,000 valid rows' predict bitwise its plain version
+  parity_wider    50,000 rows x 3 columns at max_bin 40,000 (int32 bins),
+                  63 leaves: f32 and monotone card texts equal to the
+                  CPU's in the kernels' orders; q8 and monotone q8 twice
+                  equal on the card
+  train_wider_data_parallel  the data learner's gang (2 ranks on the card,
+                  gloo) on train's rows at max_bin 16,383, 1 round, 255
+                  leaves (run by the main process after the precision
+                  modes): every rank launches the integer-planes pass past
+                  one block's plane (hist_tile.launches_plane_wider_raw,
+                  counted from 0 just before) and the convert, the ranks'
+                  trees equal; the kernels line's integer-planes entry
+                  past 4,096 bins takes its launches from this run
+
+With ``--only widebins`` the script runs device, build and this group
+alone (train_wider without train's AUC to compare with), and prints the
+group's kernel entries.
+
 With ``--only resilience`` the script runs device, build,
 hist_int_planes and this group alone, and prints the two integer-planes
 kernel entries with the group's launches by path.
@@ -684,6 +736,16 @@ def nvidia_smi() -> str:
 def bound(nbytes: float, flops: float, rate: float = F32_FLOP_PER_S):
     t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / rate
     return (max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations")
+
+
+def pass_bytes(cuda_hist, n, f, b, mode, m, n_tile, binsT):
+    """The least HBM bytes of one hist_tile pass (the package's
+    traffic_model): the full form (``m`` None) over n rows, or the gather
+    form over a rung of ``m``, ``n_tile`` rows in the tile."""
+    t = cuda_hist.traffic_model(n, f, b, P, mode=mode, gathered_rows=m,
+                                tile_rows=n_tile,
+                                bin_bytes=binsT.element_size())
+    return t["full" if m is None else "gather"]
 
 
 _flush_buf = None
@@ -831,11 +893,12 @@ def hist_inputs(n, f, seed, integer, tile_leaves, share, hot=0.0, skew=0.0,
     """Random rows over LEAVES leaves, ``share`` of them in the tile's
     computed leaves; ``hot`` of the tile's rows in its first leaf, and
     ``skew`` of all bins 0 (the rest uniform over ``b`` bins: uint8, or
-    int16 past 256 bins, the wide mode)."""
+    int16 past 256 bins, the wide mode, int32 past 32,768)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     binsT = torch.randint(0, b, (f, n), generator=g, device="cuda",
                           dtype=torch.int32).to(
-        torch.uint8 if b <= 256 else torch.int16)
+        torch.uint8 if b <= 256 else torch.int16 if b <= 32768
+        else torch.int32)
     if skew:
         binsT[torch.rand((f, n), generator=g, device="cuda") < skew] = 0
     others = torch.ones(LEAVES, dtype=torch.bool)
@@ -882,7 +945,7 @@ def library_ms(binsT, leaf, stats, sel, in_tile, f, b, acc_dtype):
 
 
 def hist_phase(cuda_hist, n, m=None, seed=0, f=F, plane=False, real=0.9,
-               hot=0.0, skew=0.0, root=False, bins=None, b=B):
+               hot=0.0, skew=0.0, root=False, bins=None, b=B, geometry=None):
     """Kernel vs plain on integer-valued and float stats at the shapes of
     one main-path pass: the full form (``m`` None; 3/4 of the rows in the
     tile's computed slots) or the gather form over a rung of ``m`` rows
@@ -896,7 +959,8 @@ def hist_phase(cuda_hist, n, m=None, seed=0, f=F, plane=False, real=0.9,
     once a tree; a launch that computes it itself and a second launch
     must give the same bits. ``ms_computing_amax`` times the launch
     without it. The kernel gets the slot table on the host, as the grower
-    hands it over; the plain versions on the card."""
+    hands it over; the plain versions on the card. ``geometry``: the
+    kernel's launch geometry (cuda_hist.HistGeometry; None the default)."""
     from lightgbm_tpu_torch.ops.histogram import compact_indices
     sel = tile_selection(plane, root)
     tile_leaves = sel[sel >= 0]
@@ -919,7 +983,11 @@ def hist_phase(cuda_hist, n, m=None, seed=0, f=F, plane=False, real=0.9,
             idx = compact_indices(in_tile, m)
         args = (binsT, leaf, stats, chan, P, b, LEAVES, idx)
         kargs = (binsT, leaf, stats, chan_h, P, b, LEAVES, idx)
-        k = cuda_hist.hist_tile(*kargs, plane=plane, amax=amax)
+
+        def launch(**kw):
+            return cuda_hist.hist_tile(*kargs, plane=plane,
+                                       geometry=geometry, **kw)
+        k = launch(amax=amax)
         p = cuda_hist.hist_tile_plain(*args)
         torch.cuda.synchronize()
         if integer:
@@ -928,7 +996,7 @@ def hist_phase(cuda_hist, n, m=None, seed=0, f=F, plane=False, real=0.9,
                                      "plain version on integer-valued stats")
             out["int_max_abs_err"] = float((k - p).abs().max())
             continue
-        again = cuda_hist.hist_tile(*kargs, plane=plane)
+        again = launch()
         exact = cuda_hist.hist_tile_exact(*args)
         torch.cuda.synchronize()
         if not torch.equal(k.view(torch.int32), again.view(torch.int32)):
@@ -946,23 +1014,21 @@ def hist_phase(cuda_hist, n, m=None, seed=0, f=F, plane=False, real=0.9,
         # up to N rows, where the float32 plain sum's error passes 1e-5
         out["max_abs_err"] = float_err(k, p, mag,
                                        rows=mag[..., 2:] if root else None)
-        out["ms"] = time_ms(lambda: cuda_hist.hist_tile(*kargs, plane=plane,
-                                                        amax=amax))
+        out["ms"] = time_ms(lambda: launch(amax=amax))
         out["device_ms"], out["device_split"] = device_ms(
-            lambda: cuda_hist.hist_tile(*kargs, plane=plane, amax=amax))
-        out["ms_computing_amax"] = time_ms(
-            lambda: cuda_hist.hist_tile(*kargs, plane=plane))
+            lambda: launch(amax=amax))
+        out["ms_computing_amax"] = time_ms(launch)
         out["plain_ms"] = time_ms(lambda: cuda_hist.hist_tile_plain(*args),
                                   reps=10, warm=1)
         out["library_ms"] = library_ms(binsT, leaf, stats, sel, in_tile, f,
                                        b, torch.float32)
-        # least traffic: the row-index buffer (gather form), the leaf id of
-        # every row it names, the bins and stats of the tile's rows, the
-        # planes written once; one add per (tile row, feature, stat)
-        scanned = n if idx is None else n_tile
-        nbytes = (0 if idx is None else 4 * m) + 4 * scanned \
-            + n_tile * (f * binsT.element_size() + 12) + P * f * b * 3 * 4
-        out["bound_ms"], out["bound_by"] = bound(nbytes, 3 * n_tile * f)
+        # least traffic (traffic_model): the row-index buffer (gather
+        # form), the leaf id of every row it names, the bins and stats of
+        # the tile's rows, the planes written once; one add per (tile row,
+        # feature, stat)
+        out["bound_ms"], out["bound_by"] = bound(
+            pass_bytes(cuda_hist, n, f, b, "f32", m, n_tile, binsT),
+            3 * n_tile * f)
         out["rows"], out["tile_rows"] = (n if m is None else m), n_tile
     return out
 
@@ -975,14 +1041,17 @@ STRESS = {"sparse_rung": {"real": 0.01}, "hot_slot": {"hot": 0.9},
           "skew_bins": {"skew": 0.8}}
 
 
-def stress_phase(cuda_hist, n):
+def stress_phase(cuda_hist, n, geo=None, geo_q8=None):
     """Each stress input, f32 and q8, through hist_phase / hist_q8_phase
-    at the 1,000,000-row rung of N rows: bitwise checks and times."""
+    at the 1,000,000-row rung of N rows: bitwise checks and times (at the
+    launch geometries ``geo`` / ``geo_q8``; None the default)."""
     m = ladder_rungs(n)[1]
     return {"m": m,
-            "f32": {k: hist_phase(cuda_hist, n, m=m, seed=31 + i, **kw)
+            "f32": {k: hist_phase(cuda_hist, n, m=m, seed=31 + i,
+                                  geometry=geo, **kw)
                     for i, (k, kw) in enumerate(STRESS.items())},
-            "q8": {k: hist_q8_phase(cuda_hist, n, m=m, seed=41 + i, **kw)
+            "q8": {k: hist_q8_phase(cuda_hist, n, m=m, seed=41 + i,
+                                    geometry=geo_q8, **kw)
                    for i, (k, kw) in enumerate(STRESS.items())}}
 
 
@@ -1009,24 +1078,27 @@ def real_bins(n: int, valid_rows: int, seed: int):
     return _bins_cache[(n, valid_rows, seed)]
 
 
-def root_phases(cuda_hist, n, bins):
+def root_phases(cuda_hist, n, bins, geo=None, geo_q8=None):
     """The root pass, the one full pass a tree takes (one computed slot,
     all N rows), of both paths and modes, each on uniform random bins and
-    on the train phases' own bins (``bins``, real_bins)."""
+    on the train phases' own bins (``bins``, real_bins); the fused path's
+    at the launch geometries ``geo`` / ``geo_q8`` (None the default)."""
     return {
         "full_root": {
-            "uniform": hist_phase(cuda_hist, n, root=True, seed=51),
+            "uniform": hist_phase(cuda_hist, n, root=True, seed=51,
+                                  geometry=geo),
             "higgs": hist_phase(cuda_hist, n, root=True, seed=52,
-                                bins=bins["higgs"])},
+                                bins=bins["higgs"], geometry=geo)},
         "plane_root": {
             "uniform": hist_phase(cuda_hist, n, f=F_CAT, plane=True,
                                   root=True, seed=53),
             "expo": hist_phase(cuda_hist, n, f=F_CAT, plane=True, root=True,
                                seed=54, bins=bins["expo"])},
         "q8_full_root": {
-            "uniform": hist_q8_phase(cuda_hist, n, root=True, seed=55),
+            "uniform": hist_q8_phase(cuda_hist, n, root=True, seed=55,
+                                     geometry=geo_q8),
             "higgs": hist_q8_phase(cuda_hist, n, root=True, seed=56,
-                                   bins=bins["higgs"])},
+                                   bins=bins["higgs"], geometry=geo_q8)},
         "q8_plane_root": {
             "uniform": hist_q8_phase(cuda_hist, n, f=F_CAT, plane=True,
                                      root=True, seed=57),
@@ -1034,32 +1106,66 @@ def root_phases(cuda_hist, n, bins):
                                   root=True, seed=58, bins=bins["expo"])}}
 
 
+def main_geometries(cuda_hist, higgs_bins):
+    """The launch geometry of train's and train_q8's passes: autotune_hist
+    on train's own bins at its shape bucket (F, B, N, q8, the fused
+    path's epilogue), as the trainer sweeps it. The sweep's cache is the
+    process's, so those phases find these entries and run these
+    geometries. Returns {"f32": ..., "q8": ...}: the sweep's dicts, with
+    ``geometry`` (the HistGeometry as a list, None for the defaults) and
+    ``is_default``."""
+    out = {}
+    for mode in ("f32", "q8"):
+        hit = cuda_hist.autotune_hist(higgs_bins, B, q8=mode == "q8",
+                                      epilogue=True)
+        geo = cuda_hist.tuned_geometry(hit)
+        out[mode] = dict(hit, geometry=None if geo is None else list(geo),
+                         is_default=geo in (None,
+                                            cuda_hist.DEFAULT_GEOMETRY))
+    return out
+
+
 def kernel_phases(cuda_hist, n, valid_rows, seed):
     """Every hist_tile phase of this script at N rows: the root passes of
     both paths and modes, the main path's full form of several slots and
     its rungs and the stress inputs, the classic path's plane-only forms,
     and the q8 forms of both (the train phases' data for the real bins
-    made from ``seed`` with ``valid_rows`` more rows, as they make it)."""
+    made from ``seed`` with ``valid_rows`` more rows, as they make it).
+    The main path's f32 and q8 rows run at the geometry its sweep keeps
+    (main_geometries); where that is not the default, the root pass on
+    train's bins at the default geometry too (``*_default_geometry``)."""
     rungs = ladder_rungs(n)
     bins = real_bins(n, valid_rows, seed)
-    return {
-        **root_phases(cuda_hist, n, bins),
-        "full": hist_phase(cuda_hist, n),
-        "rungs": {str(m): hist_phase(cuda_hist, n, m=m, seed=3)
+    mg = main_geometries(cuda_hist, bins["higgs"])
+    geo, geo_q8 = (cuda_hist.tuned_geometry(mg[m]) for m in ("f32", "q8"))
+    out = {
+        "main_geometry": mg,
+        **root_phases(cuda_hist, n, bins, geo, geo_q8),
+        "full": hist_phase(cuda_hist, n, geometry=geo),
+        "rungs": {str(m): hist_phase(cuda_hist, n, m=m, seed=3,
+                                     geometry=geo)
                   for m in rungs},
-        "stress": stress_phase(cuda_hist, n),
+        "stress": stress_phase(cuda_hist, n, geo, geo_q8),
         "plane_full": hist_phase(cuda_hist, n, f=F_CAT, plane=True, seed=5),
         "plane_rungs": {str(m): hist_phase(cuda_hist, n, m=m, seed=6,
                                            f=F_CAT, plane=True)
                         for m in rungs},
-        "q8_full": hist_q8_phase(cuda_hist, n, seed=21),
-        "q8_rungs": {str(m): hist_q8_phase(cuda_hist, n, m=m, seed=22)
+        "q8_full": hist_q8_phase(cuda_hist, n, seed=21, geometry=geo_q8),
+        "q8_rungs": {str(m): hist_q8_phase(cuda_hist, n, m=m, seed=22,
+                                           geometry=geo_q8)
                      for m in rungs},
         "q8_plane": hist_q8_phase(cuda_hist, n, f=F_CAT, plane=True,
                                   seed=23),
         "q8_plane_rungs": {str(m): hist_q8_phase(cuda_hist, n, m=m, seed=24,
                                                  f=F_CAT, plane=True)
                            for m in rungs}}
+    if not mg["f32"]["is_default"]:
+        out["full_root_default_geometry"] = {"higgs": hist_phase(
+            cuda_hist, n, root=True, seed=52, bins=bins["higgs"])}
+    if not mg["q8"]["is_default"]:
+        out["q8_full_root_default_geometry"] = {"higgs": hist_q8_phase(
+            cuda_hist, n, root=True, seed=56, bins=bins["higgs"])}
+    return out
 
 
 def _times(phases):
@@ -1067,6 +1173,8 @@ def _times(phases):
     pick = lambda r: [r["ms"], r["device_ms"]]
     out = {}
     for key, val in phases.items():
+        if key == "main_geometry":
+            continue
         if key == "stress":
             for mode in ("f32", "q8"):
                 out.update({f"stress_{mode}/{k}": pick(v)
@@ -1277,16 +1385,18 @@ def epilogue_device_ms(cuda_hist, args):
 def epilogue_bound(der, q8: bool, f: int = F, mono: bool = False,
                    b: int = B):
     """The epilogue's bound at P, F, B (or ``f``, ``b``) on derive lanes
-    ``der`` (slot p at lane 3p): the bytes it must move are the tile planes it reads (each
-    computed slot's, also the sibling of a derived slot), the derived
-    slots' parent planes, every full plane written once, and the small
-    tables; 60 float operations a bin (61 in q8, the dequant; MONO_OPS
-    more in the monotone mode)."""
+    ``der`` (slot p at lane 3p): the bytes it must move (traffic_model's
+    ``epilogue``) are the tile planes it reads (each computed slot's, also
+    the sibling of a derived slot), the derived slots' parent planes,
+    every full plane written once, and the small tables; 60 float
+    operations a bin (61 in q8, the dequant; MONO_OPS more in the
+    monotone mode)."""
+    from lightgbm_tpu_torch.ops import cuda_hist
     derive = (der[0, 0:3 * P:3] != 0).tolist()
     tiles = {p - 1 if d else p for p, d in enumerate(derive)} - {-1}
-    planes = len(tiles) + sum(derive) + P
-    nbytes = planes * f * b * 3 * 4 + P * f * 12 * 4 + P * 8 * 4 \
-        + f * 8 * 4 + 8 * 4 + (12 if q8 else 0)
+    nbytes = cuda_hist.traffic_model(
+        1, f, b, P, mode="q8" if q8 else "f32", derived=sum(derive),
+        tiles_read=len(tiles))["epilogue"]
     return bound(nbytes, ((61 if q8 else 60) + (MONO_OPS if mono else 0))
                  * P * f * b)
 
@@ -1327,7 +1437,8 @@ def q8_stats(n: int, seed: int) -> torch.Tensor:
 
 
 def hist_q8_phase(cuda_hist, n, m=None, seed=0, f=F, plane=False, real=0.9,
-                  hot=0.0, skew=0.0, root=False, bins=None, b=B):
+                  hot=0.0, skew=0.0, root=False, bins=None, b=B,
+                  geometry=None):
     """The q8 form (int8 stats, exact int32 planes) at the shapes of one
     main-path or classic-path pass, as hist_phase: bitwise vs the plain
     version and vs a second launch."""
@@ -1351,8 +1462,11 @@ def hist_q8_phase(cuda_hist, n, m=None, seed=0, f=F, plane=False, real=0.9,
         idx = compact_indices(in_tile, m)
     args = (binsT, leaf, stats, chan, P, b, LEAVES, idx)
     kargs = (binsT, leaf, stats, chan_h, P, b, LEAVES, idx)
-    k = cuda_hist.hist_tile(*kargs, plane=plane)
-    again = cuda_hist.hist_tile(*kargs, plane=plane)
+
+    def launch():
+        return cuda_hist.hist_tile(*kargs, plane=plane, geometry=geometry)
+    k = launch()
+    again = launch()
     p = cuda_hist.hist_tile_plain(*args)
     torch.cuda.synchronize()
     if k.dtype != torch.int32 or not torch.equal(k, p):
@@ -1362,20 +1476,17 @@ def hist_q8_phase(cuda_hist, n, m=None, seed=0, f=F, plane=False, real=0.9,
         raise AssertionError("two q8 hist_tile launches differ")
     out = {"bitwise_vs_plain": True, "deterministic": True,
            "max_abs_err": float((k - p).abs().max())}
-    out["ms"] = time_ms(lambda: cuda_hist.hist_tile(*kargs, plane=plane))
-    out["device_ms"], out["device_split"] = device_ms(
-        lambda: cuda_hist.hist_tile(*kargs, plane=plane))
+    out["ms"] = time_ms(launch)
+    out["device_ms"], out["device_split"] = device_ms(launch)
     out["plain_ms"] = time_ms(lambda: cuda_hist.hist_tile_plain(*args),
                               reps=10, warm=1)
     out["library_ms"] = library_ms(binsT, leaf, stats, sel, in_tile, f, b,
                                    torch.int32)
-    # least traffic: the row-index buffer (gather form), the leaf id of
-    # every row it names, the bins and 3 int8 stats of the tile's rows,
-    # the int32 planes written once; one add per (tile row, feature, stat)
-    scanned = n if idx is None else n_tile
-    nbytes = (0 if idx is None else 4 * m) + 4 * scanned \
-        + n_tile * (f * binsT.element_size() + 3) + P * f * b * 3 * 4
-    out["bound_ms"], out["bound_by"] = bound(nbytes, 3 * n_tile * f)
+    # least traffic (traffic_model): hist_phase's, with 3 int8 stats a
+    # row and int32 planes
+    out["bound_ms"], out["bound_by"] = bound(
+        pass_bytes(cuda_hist, n, f, b, "q8", m, n_tile, binsT),
+        3 * n_tile * f)
     out["rows"], out["tile_rows"] = (n if m is None else m), n_tile
     return out
 
@@ -1534,6 +1645,28 @@ def train_phase(lgb, cuda_hist, args, q8_ref_auc=None):
     if q8 and not valid_auc >= q8_ref_auc - 0.01:
         raise AssertionError(f"q8 valid AUC {valid_auc} more than 0.01 "
                              f"below the f32 run's {q8_ref_auc}")
+    # the geometry the sweep kept for these passes; the same run with
+    # hist_autotune off (the default geometry), then on again (the first
+    # run also pays the Dataset's first-use costs): the same trees
+    tuned = gb._hist_tuned
+    geo = cuda_hist.tuned_geometry(tuned)
+    out["hist_tuned"] = dict(tuned or {}, geometry=None if geo is None
+                             else list(geo))
+    for name, flag in (("off", False), ("on_again", True)):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        again = lgb.train(dict(params, hist_autotune=flag), train,
+                          args.rounds, valid_sets=[valid],
+                          valid_names=["valid"])
+        torch.cuda.synchronize()
+        out[f"sec_per_iter_autotune_{name}"] = \
+            (time.time() - t0) / args.rounds
+        if _trees(again.model_to_string()) != \
+                _trees(booster.model_to_string()):
+            raise AssertionError(f"train with hist_autotune {flag} grew "
+                                 f"other trees")
+        del again
+    out["autotune_off_trees_equal"] = True
     out["profile"] = profile_iteration(booster, wall / args.rounds)
     return out, launches
 
@@ -3232,15 +3365,15 @@ def wide_epilogue_call(cuda_hist, base, q8: bool, mono: bool, plain=False):
     return lambda: fn(*args, qs, with_monotone=mono)
 
 
-def epilogue_wide_phase(cuda_hist, seed=0):
+def epilogue_wide_phase(cuda_hist, seed=0, bins=(B, WIDE_B, WIDE_STRESS_B)):
     """split_epilogue's wide mode at P=42, F=28, B = 1023 and 4095, f32 and
     q8, unconstrained and monotone (wide_epilogue_call), with the B = 255
-    mode beside it on inputs made the same way: bitwise its plain version
-    and a second launch, each launch counted in its own mode's counter;
-    ms, device ms a launch (50 a profile, each on a cold L2), plain ms,
-    the bound."""
+    mode beside it on inputs made the same way (or at ``bins``: the wider
+    mode past 4,096): bitwise its plain version and a second launch, each
+    launch counted in its own mode's counter; ms, device ms a launch (50 a
+    profile, each on a cold L2), plain ms, the bound."""
     out = {}
-    for b in (B, WIDE_B, WIDE_STRESS_B):
+    for b in bins:
         for q8 in (False, True):
             base = epilogue_inputs(cuda_hist, seed, q8=q8, b=b)
             for mono in (False, True):
@@ -3251,7 +3384,8 @@ def epilogue_wide_phase(cuda_hist, seed=0):
                 kf, kc = call()
                 kf2, kc2 = call()
                 name = ("split_epilogue.launches"
-                        + ("_wide" if b > 256 else "")
+                        + ("_wider" if b > cuda_hist.MAX_BINS_WIDE
+                           else "_wide" if b > 256 else "")
                         + ("_mono" if mono else "") + ("_q8" if q8 else ""))
                 counts = cuda_hist.launch_counts()
                 pf, pc = plain()
@@ -3326,6 +3460,498 @@ def train_wide_phase(lgb, cuda_hist, args, ref_auc, q8=False,
         raise AssertionError(f"wide valid AUC {out['valid_auc']} not within "
                              f"0.01 of {ref_auc}")
     return out, launches
+
+
+# ------------------------------------------------ bins past 4,096 a feature
+# the kernel phases' bins: one f32 plane still fits a full-form block
+# (8,191), each feature's bins split in two ranges (16,383; q8 fits one
+# block), in 7-8 (65,535; int32 bins)
+WIDER_BINS = (8191, 16383, 65535)
+WIDER_TRAIN_BIN = 16383      # train_wider's max_bin (int16 bins)
+WIDER_PARITY_BIN = 40000     # parity_wider's (int32 bins, past 32,767)
+WIDER_PARITY_F = 3           # its Higgs columns: the CPU side's cost
+WIDER_PARITY_ROWS = 50_000
+WIDER_AUTOTUNE_BINS = (16383, 65535)
+
+
+def wider_hist_phase(cuda_hist, n, seed):
+    """hist_tile past 4,096 bins a feature at N=n, F=28, P=42, B in
+    WIDER_BINS with the default geometry (where a feature's plane passes
+    a block, the form cuda_hist.default_form takes: the bin-range split,
+    or the global form at 65,535 in f32): the root pass and the 1M-row
+    rung, f32 and q8 (hist_phase / hist_q8_phase: bitwise its own
+    arithmetic or the exact sums, two launches equal, times, one
+    index_add_, traffic_model's bound); the same through the other form
+    at 16,383 and 65,535 (``b<B>_<mode>_other``); and the integer-planes
+    mode at 16,383 (root and 42 slots over one rank's rows,
+    _int_planes_case).
+    The default form's launches are counted from 0 around each B and
+    mode: the wide and wider modes only."""
+    m = ladder_rungs(n)[-1]
+    out = {}
+    for b in WIDER_BINS:
+        for mode, fn in (("f32", hist_phase), ("q8", hist_q8_phase)):
+            cuda_hist.reset_launch_counts()
+            res = {"root": fn(cuda_hist, n, seed=seed, root=True, b=b),
+                   f"rung_{m}": fn(cuda_hist, n, m, seed=seed, b=b)}
+            res["launches"] = {k: v for k, v in
+                               cuda_hist.launch_counts().items()
+                               if v and k.startswith("hist_tile.")}
+            if not res["launches"] or any("_wide" not in k
+                                          for k in res["launches"]):
+                raise AssertionError(f"hist_tile at B={b} ({mode}) left "
+                                     f"the wide modes: {res['launches']}")
+            out[f"b{b}_{mode}"] = res
+    out["default_forms"] = {
+        f"b{b}_{mode}": cuda_hist.default_form(b, mode == "q8")
+        for b in WIDER_BINS for mode in ("f32", "q8")}
+    # the other form past a block's plane, on the same inputs (the
+    # sweep's alternative to the default's)
+    for b in WIDER_BINS[1:]:
+        for mode, fn in (("f32", hist_phase), ("q8", hist_q8_phase)):
+            other = ("smem" if cuda_hist.default_form(b, mode == "q8")
+                     == "global" else "global")
+            geo = cuda_hist.HistGeometry(form=other)
+            out[f"b{b}_{mode}_other"] = {
+                "form": other,
+                "root": fn(cuda_hist, n, seed=seed, root=True, b=b,
+                           geometry=geo),
+                f"rung_{m}": fn(cuda_hist, n, m, seed=seed, b=b,
+                                geometry=geo)}
+    # what the kernels themselves move at these shapes, beside the least
+    # bytes of the bounds (the bin-range split rereads the rows)
+    out["traffic"] = {
+        f"b{b}_{mode}": cuda_hist.traffic_model(
+            n, F, b, P, mode=mode, gathered_rows=m,
+            bin_bytes=2 if b <= 32768 else 4)
+        for b in WIDER_BINS for mode in ("f32", "q8")}
+    n_loc = n // DIST_WORLD
+    raw = {"rows_per_rank": n_loc, "gang_rows": n_loc * DIST_WORLD}
+    cuda_hist.reset_launch_counts()
+    for name, sel, share in (("root", tile_selection(root=True), 1.0),
+                             ("slots", tile_selection(plane=True), 0.75)):
+        binsT, leaf, stats = hist_inputs(n_loc, F, seed + 31, False,
+                                         sel[sel >= 0], share,
+                                         b=WIDER_TRAIN_BIN)
+        raw[name] = _int_planes_case(cuda_hist, binsT, leaf, stats, sel,
+                                     n_loc * DIST_WORLD, b=WIDER_TRAIN_BIN)
+    raw["launches"] = cuda_hist.launch_counts()[
+        "hist_tile.launches_plane_wider_raw"]
+    if raw["launches"] <= 0:
+        raise AssertionError(f"the integer-planes mode at B="
+                             f"{WIDER_TRAIN_BIN} launched no wider pass")
+    out[f"b{WIDER_TRAIN_BIN}_raw"] = raw
+    return out
+
+
+def forms_phase(cuda_hist, n, seed):
+    """Both forms past one block's plane (``smem``, the bin-range split,
+    and ``global``, integer atomics into the sums) on the same inputs,
+    f32 and q8, at B = 16,383 and 65,535: the root pass, the 1M-row rung
+    of the fused path's 21 computed slots, and a 1M-row
+    rung of 2 computed slots (the global form's sums are one slot's 11 MB
+    at 16,383 f32, inside the card's 50 MB L2, and 21 slots' 231 MB,
+    past it), each on uniform bins and on skewed ones (80% of every
+    feature's rows in bin 0, as STRESS's skew_bins). Each case: both
+    forms' ms (events, cold L2), their ratio, and the planes bitwise
+    equal between the forms."""
+    from lightgbm_tpu_torch.ops.histogram import compact_indices
+    m = ladder_rungs(n)[-1]
+    two = torch.full((P,), -1, dtype=torch.int32)
+    two[0], two[2] = 0, LEAVES // 21
+    passes = {"root": (tile_selection(root=True), None),
+              "rung_21": (tile_selection(), m), "rung_2": (two, m)}
+    out = {}
+    for skew in (0.0, 0.8):
+        for b in WIDER_BINS[1:]:
+            for name, (sel, rung) in passes.items():
+                tile = sel[sel >= 0]
+                binsT, leaf, f32 = hist_inputs(
+                    n, F, seed, False, tile,
+                    1.0 if rung is None else 0.9 * rung / n, skew=skew, b=b)
+                idx = None if rung is None else compact_indices(
+                    torch.isin(leaf, tile.cuda()), rung)
+                chan = cuda_hist.chan_leaf_table(sel)
+                for mode, stats in (("f32", f32), ("q8", q8_stats(n, seed))):
+                    res = {}
+                    planes = {}
+                    for form in ("smem", "global"):
+                        geo = cuda_hist.HistGeometry(form=form)
+
+                        def run():
+                            return cuda_hist.hist_tile(
+                                binsT, leaf, stats, chan, P, b, LEAVES, idx,
+                                geometry=geo)
+                        planes[form] = run()
+                        res[f"{form}_ms"] = time_ms(run)
+                    a, g = planes.values()
+                    if not torch.equal(a.view(torch.int32),
+                                       g.view(torch.int32)):
+                        raise AssertionError(f"forms at B={b} {name} {mode} "
+                                             f"skew {skew}: planes differ")
+                    res["global_over_smem"] = res["global_ms"] / res["smem_ms"]
+                    res["ranges"] = cuda_hist.bin_ranges(
+                        b, mode == "q8", idx is None and tile.numel() <= 1)[1]
+                    out[f"{'skew' if skew else 'uniform'}/b{b}/{name}/"
+                        f"{mode}"] = res
+                del binsT, leaf, f32, idx, planes
+    return out
+
+
+def wider_autotune_phase(cuda_hist, n, seed):
+    """autotune_hist on N random rows of F=28 (its sample: 262,144 rows) at
+    B in WIDER_AUTOTUNE_BINS, f32 and q8: each candidate geometry's ms as
+    the sweep timed it, the winner, the sweep's seconds, and every
+    candidate's planes (the root pass and a gather pass over half the
+    sample) bitwise equal to the default geometry's. The sweep's cache
+    is left as it was found (the main path's entries, main_geometries)."""
+    out = {}
+    kept = dict(cuda_hist._tuned)
+    g = torch.Generator(device="cuda").manual_seed(seed + 3)
+    for b in WIDER_AUTOTUNE_BINS:
+        binsT = torch.randint(0, b, (F, n), generator=g, device="cuda",
+                              dtype=torch.int32).to(
+            torch.int16 if b <= 32768 else torch.int32)
+        for q8 in (False, True):
+            cuda_hist._tuned.clear()
+            torch.cuda.synchronize()
+            t0 = time.time()
+            res = cuda_hist.autotune_hist(binsT, b, q8=q8, epilogue=True)
+            sweep_s = time.time() - t0
+            run = cuda_hist.autotune_pass(binsT, b, q8, 262144)
+            cands = cuda_hist.hist_candidates(F, b, q8)
+            ref = run(cands[0])
+            for geo in cands[1:]:
+                for x, y in zip(run(geo), ref):
+                    if not torch.equal(x.view(torch.int32),
+                                       y.view(torch.int32)):
+                        raise AssertionError(
+                            f"autotune candidate {tuple(geo)} at B={b} "
+                            f"(q8 {q8}) changed the planes")
+            out[f"b{b}" + ("_q8" if q8 else "")] = {
+                "times_ms": res["times_ms"],
+                "winner": [res["block"], res["threads"], res["form"]],
+                "candidates": len(cands), "sweep_s": sweep_s,
+                "planes_bitwise_equal": True}
+    cuda_hist._tuned.clear()
+    cuda_hist._tuned.update(kept)
+    return out
+
+
+def _trees(text: str) -> str:
+    return text.split("\nparameters:")[0]
+
+
+def train_wider_phase(lgb, cuda_hist, args, ref_auc=None):
+    """train's 2M Higgs-shaped rows at max_bin WIDER_TRAIN_BIN (16,384 bins
+    a feature: the f32 passes split each feature's bins in two ranges, the
+    epilogue its wider mode), 255 leaves, --rounds rounds, f32 and q8,
+    each three times on one Dataset: the first run's sweep (autotune_hist,
+    in its wall time) and launches by counter (the wider modes, no uint8
+    one), the second's sec/iter, the two texts equal and the trees of a
+    third run with hist_autotune off equal to them; valid AUC (within 0.01
+    of ``ref_auc``, train's, when given); predict_ensemble on the 200,000
+    valid rows bitwise its plain version (int16 bins, thresholds past a
+    staged record's: the global geometry)."""
+    from lightgbm_tpu_torch.ops import predict as PR
+    X, y, Xv, yv = higgs_rows(args)
+    base = dict(PARAMS, device_type="cuda", max_bin=WIDER_TRAIN_BIN)
+    t0 = time.time()
+    train = lgb.Dataset(X, label=y, params=base)
+    valid = lgb.Dataset(Xv, label=yv, reference=train)
+    train.construct()
+    valid.construct()
+    torch.cuda.synchronize()
+    out = {"construct_s": time.time() - t0, "rows": args.rows,
+           "rounds": args.rounds}
+    for q8 in (False, True):
+        mode = "q8" if q8 else "f32"
+        sfx = "_q8" if q8 else ""
+        texts, walls, counts, aucs = [], [], [], []
+        booster = None
+        for autotune in (True, True, False):
+            evals = {}
+            cuda_hist.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.time()
+            bst = lgb.train(dict(base, quantized_grad=q8,
+                                 hist_autotune=autotune),
+                            train, args.rounds, valid_sets=[valid],
+                            valid_names=["valid"], evals_result=evals)
+            torch.cuda.synchronize()
+            walls.append(time.time() - t0)
+            counts.append({k: v for k, v in cuda_hist.launch_counts().items()
+                           if v})
+            texts.append(bst.model_to_string())
+            aucs.append(evals["valid"]["auc"][-1])
+            if booster is None:
+                booster = bst
+        g = booster._boosting
+        # the second run's: the first also counts the sweep's passes
+        launched = counts[1]
+        need = ["split_epilogue.launches_wider" + sfx,
+                "hist_tile.launches" + ("_wide_q8" if q8 else "_wider"),
+                "hist_tile.gather_launches" + ("_wide_q8" if q8
+                                               else "_wider")]
+        narrow = [k for k in launched if k.startswith(
+            ("hist_tile.", "split_epilogue.")) and "_wide" not in k]
+        res = {"sec_per_iter": walls[1] / args.rounds,
+               "sec_per_iter_with_sweep": walls[0] / args.rounds,
+               "sec_per_iter_autotune_off": walls[2] / args.rounds,
+               "valid_auc": aucs[1], "reference_auc": ref_auc,
+               "num_bins": g.train_set.max_num_bins,
+               "bins_dtype": str(g.train_set.binsT.dtype),
+               "split_fusion": g._split_fusion_on(),
+               "tuned": g._hist_tuned,
+               "text_sha256": hashlib.sha256(texts[0].encode()).hexdigest(),
+               "two_runs_equal": texts[0] == texts[1],
+               "autotune_off_trees_equal":
+                   _trees(texts[0]) == _trees(texts[2]),
+               "launches": launched, "launches_with_sweep": counts[0]}
+        if not (res["two_runs_equal"] and res["autotune_off_trees_equal"]):
+            raise AssertionError(f"train_wider ({mode}): texts differ "
+                                 f"{_first_diff(texts[0], texts[1])} / "
+                                 f"{_first_diff(texts[0], texts[2])}")
+        if narrow or any(launched.get(k, 0) <= 0 for k in need) or \
+                not res["split_fusion"]:
+            raise AssertionError(f"train_wider ({mode}) left its path: "
+                                 f"{launched}")
+        if not res["valid_auc"] > 0.6 or (
+                ref_auc is not None and abs(res["valid_auc"] - ref_auc)
+                > 0.01):
+            raise AssertionError(f"train_wider ({mode}) AUC {aucs}")
+        # predict of the valid rows: the kernel against its plain version
+        eng = g._predict_engine()
+        tb = eng.tables
+        bins_v = g.train_set.bin_new_data(Xv)
+        mb = g.train_set.missing_bin.to(bins_v.device)
+        n_v, t = bins_v.shape[1], eng.T
+        cuda_hist.reset_launch_counts()
+        k = PR.predict_ensemble(tb, bins_v, mb, (0, t), 1)
+        geo = {c: v for c, v in cuda_hist.launch_counts().items()
+               if v and c.startswith("predict_ensemble_geometry")}
+        ref = PR.predict_ensemble_plain(tb, bins_v, mb, (0, t), 1, None,
+                                        None, PR.new_carry(n_v, 1, "float64",
+                                                           bins_v.device))
+        torch.cuda.synchronize()
+        if not torch.equal(k, ref):
+            raise AssertionError(f"train_wider ({mode}): predict_ensemble "
+                                 f"is not bitwise its plain version")
+        res["predict"] = {
+            "rows": n_v, "trees": t, "bins_dtype": str(bins_v.dtype),
+            "bitwise_vs_plain": True, "geometry_launches": geo,
+            "ms": time_ms(lambda: PR.predict_ensemble(tb, bins_v, mb,
+                                                      (0, t), 1)),
+            "plain_ms": time_ms(lambda: PR.predict_ensemble_plain(
+                tb, bins_v, mb, (0, t), 1, None, None,
+                PR.new_carry(n_v, 1, "float64", bins_v.device)), reps=3,
+                warm=1)}
+        out[mode] = res
+        del booster, g, eng, tb, bins_v
+    return out
+
+
+def parity_wider_phase(lgb, cuda_hist, seed):
+    """WIDER_PARITY_ROWS of the Higgs-shaped rows' first WIDER_PARITY_F
+    columns at max_bin WIDER_PARITY_BIN (int32 bins, past 32,767), 63
+    leaves, 2 rounds: the card's text equal to a CPU run in the kernels'
+    orders (kernel_sums_on_cpu), unconstrained and with basic monotone
+    constraints (the wider epilogue's monotone mode); q8 and q8 monotone
+    on the card alone (each feature's q8 plane split in three ranges),
+    twice the same. Each run's launches by counter."""
+    X, y = higgs_like(WIDER_PARITY_ROWS, seed + 11)
+    X = np.ascontiguousarray(X[:, :WIDER_PARITY_F])
+    base = {"objective": "binary", "num_leaves": 63, "verbosity": -1,
+            "max_bin": WIDER_PARITY_BIN, "min_data_in_bin": 1}
+    runs = {"f32": {}, "mono": {"monotone_constraints": [1, -1, 0]},
+            "q8": {"quantized_grad": True},
+            "mono_q8": {"monotone_constraints": [1, -1, 0],
+                        "quantized_grad": True}}
+    out = {}
+    for name, extra in runs.items():
+        p = dict(base, **extra)
+        texts = []
+        for _ in range(1 if name in ("f32", "mono") else 2):
+            cuda_hist.reset_launch_counts()
+            t0 = time.time()
+            b = lgb.train(dict(p, device_type="cuda"), lgb.Dataset(
+                X, label=y, params=dict(p, device_type="cuda")), 2)
+            card_s = time.time() - t0
+            texts.append(b.model_to_string())
+            launches = {k: v for k, v in cuda_hist.launch_counts().items()
+                        if v}
+        res = {"card_s": card_s, "launches": launches,
+               "num_bins": b._boosting.train_set.max_num_bins,
+               "bins_dtype": str(b._boosting.train_set.binsT.dtype),
+               "card_text_sha256": hashlib.sha256(
+                   texts[0].encode()).hexdigest()}
+        if name in ("f32", "mono"):
+            t0 = time.time()
+            with cuda_hist.kernel_sums_on_cpu():
+                cpu = lgb.train(dict(p, device_type="cpu"), lgb.Dataset(
+                    X, label=y, params=dict(p, device_type="cpu")), 2)
+            res["cpu_s"] = time.time() - t0
+            texts.append(cpu.model_to_string())
+            res["card_equals_cpu"] = texts[0] == texts[1]
+        else:
+            res["two_runs_equal"] = texts[0] == texts[1]
+        if texts[0] != texts[1]:
+            raise AssertionError(f"parity_wider/{name}: "
+                                 f"{_first_diff(texts[0], texts[1])}")
+        sfx = ("_mono" if "mono" in name else "") + (
+            "_q8" if "q8" in name else "")
+        want = ["split_epilogue.launches_wider" + sfx] + (
+            ["hist_tile.launches_wider_q8"] if "q8" in name else [])
+        if res["num_bins"] <= 32768 or res["bins_dtype"] != "torch.int32" \
+                or any(launches.get(k, 0) <= 0 for k in want):
+            raise AssertionError(f"parity_wider/{name}: {res}")
+        out[name] = res
+    return out
+
+
+def wider_phases(lgb, cuda_hist, args, ref_auc=None):
+    """The widebins group's training phases (train_wider, parity_wider),
+    each emitted; returns their numbers."""
+    tw = train_wider_phase(lgb, cuda_hist, args, ref_auc)
+    emit("train_wider", **tw)
+    pw = parity_wider_phase(lgb, cuda_hist, args.seed)
+    emit("parity_wider", **pw)
+    return {"train_wider": tw, "parity_wider": pw}
+
+
+def train_wider_data_parallel_phase(args):
+    """The data learner's gang (DIST_WORLD ranks on the card, gloo) at
+    max_bin WIDER_TRAIN_BIN, DIST_WIDER_ROUNDS round(s) (_dist_wider):
+    the integer-planes mode past one block's plane on its path. Fails
+    unless every rank launched the wider integer-planes pass and the
+    convert and the ranks grew the same trees."""
+    t0 = time.time()
+    ranks = _run_gang(args, DIST_WORLD, parity=False, wider=True)
+    per = [r["wider"] for r in ranks]
+    ok = {"ranks_equal": len({r["trees_sha"] for r in per}) == 1,
+          "every_rank_wider_integer_planes": all(
+              r["launches"].get("hist_tile.launches_plane_wider_raw", 0) > 0
+              and r["launches"].get("hist_convert.launches", 0) > 0
+              for r in per),
+          "past_one_block": all(r["num_bins"] > 9000 for r in per)}
+    out = {"world": DIST_WORLD, "backend": ranks[0]["backend"],
+           "rounds": DIST_WIDER_ROUNDS, "max_bin": WIDER_TRAIN_BIN,
+           "ranks": per, "checks": ok, "seconds": time.time() - t0}
+    if not all(ok.values()):
+        raise AssertionError(f"train_wider_data_parallel: {out}")
+    return out
+
+
+def wider_kernel_phases(cuda_hist, args):
+    """The widebins group's kernel phases, with the card to themselves,
+    each emitted; returns their numbers."""
+    t0 = time.time()
+    wh = wider_hist_phase(cuda_hist, args.rows, args.seed)
+    emit("hist_wider", n=args.rows, f=F, p=P, leaves=LEAVES,
+         seconds=time.time() - t0, **wh)
+    t0 = time.time()
+    ew = epilogue_wide_phase(cuda_hist, args.seed, bins=WIDER_BINS)
+    emit("epilogue_wider", p=P, f=F, seconds=time.time() - t0, **ew)
+    t0 = time.time()
+    at = wider_autotune_phase(cuda_hist, args.rows, args.seed)
+    emit("autotune_wider", n=args.rows, f=F, seconds=time.time() - t0, **at)
+    t0 = time.time()
+    fm = forms_phase(cuda_hist, args.rows, args.seed)
+    emit("forms_wider", n=args.rows, f=F, p=P, seconds=time.time() - t0,
+         cases=fm)
+    return {"wh": wh, "ew": ew, "at": at, "fm": fm}
+
+
+def wider_kernel_entries(kp, wp, wdp):
+    """The kernels line's entries of the modes past 4,096 bins a feature:
+    hist_tile's f32, q8 and integer-planes passes (the numbers at B =
+    16,383, 65,535 for q8, whose plane splits only there, with every B
+    beside), and split_epilogue_wider's four modes (B = 16,383, every B
+    beside); launches from the path that runs each mode (``wdp``:
+    train_wider_data_parallel's, the integer-planes mode's)."""
+    wh, ew, at = kp["wh"], kp["ew"], kp["at"]
+    tw, pw = wp["train_wider"], wp["parity_wider"]
+    keys = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    def nums(res):
+        return {k: res[k] for k in keys}
+
+    def hist_entry(name, mode, main_b, launches, path):
+        h = {b: wh[f"b{b}_{mode}"] for b in WIDER_BINS}
+        return {
+            "name": name, "route": "cuda",
+            "source": "lightgbm_tpu_torch/csrc/hist_tile.cu",
+            "replaces": "lightgbm_tpu/ops/pallas_hist.py:497 "
+                        "_fused_epi_kernel + :527 _gather_epi_kernel at "
+                        "num_bins > 4,096, bins cast at :143 (accumulation)"
+                        + (", mode q8" if mode == "q8" else ""),
+            "launches": launches,
+            "max_abs_err": max(r["max_abs_err"] for hb in h.values()
+                               for k, r in hb.items() if k != "launches"),
+            **nums(h[main_b]["root"]),
+            "by_bins": {f"b{b}": {k: nums(v) for k, v in hb.items()
+                                  if k != "launches"}
+                        for b, hb in h.items()},
+            "default_form": {f"b{b}": wh["default_forms"][f"b{b}_{mode}"]
+                             for b in WIDER_BINS},
+            "other_form": {f"b{b}": {k: v if k == "form" else nums(v)
+                                     for k, v in
+                                     wh[f"b{b}_{mode}_other"].items()}
+                           for b in WIDER_BINS[1:]},
+            "autotune": {k: v for k, v in at.items()
+                         if k.endswith("_q8") == (mode == "q8")},
+            "launches_by_path": {path: launches}}
+    raw = wh[f"b{WIDER_TRAIN_BIN}_raw"]
+    raw_paths = {f"train_wider_data_parallel/rank{r}": x["launches"].get(
+        "hist_tile.launches_plane_wider_raw", 0)
+        for r, x in enumerate(wdp["ranks"])}
+    entries = [
+        hist_entry("hist_tile (wider)", "f32", WIDER_TRAIN_BIN,
+                   tw["f32"]["launches"]["hist_tile.launches_wider"],
+                   "train_wider"),
+        hist_entry("hist_tile (wider, q8)", "q8", 65535,
+                   pw["q8"]["launches"].get("hist_tile.launches_wider_q8",
+                                            0), "parity_wider/q8"),
+        {"name": "hist_tile (wider, integer planes)", "route": "cuda",
+         "source": "lightgbm_tpu_torch/csrc/hist_tile.cu",
+         "replaces": "lightgbm_tpu/ops/pallas_hist.py:154 _fused_kernel + "
+                     ":205 _gather_kernel at num_bins > 4,096, each "
+                     "device's planes before the data learner's "
+                     "psum_scatter (lightgbm_tpu/models/grower.py:1110)",
+         "launches": raw_paths["train_wider_data_parallel/rank0"],
+         "max_abs_err": 0.0, **nums(raw["root"]["pass"]),
+         "slots": nums(raw["slots"]["pass"]),
+         "launches_by_path": raw_paths},
+    ]
+    for q8 in (False, True):
+        for mono in (False, True):
+            sfx = ("_mono" if mono else "") + ("_q8" if q8 else "")
+            res = {b: ew[f"b{b}" + ("_q8" if q8 else "")
+                         + ("_mono" if mono else "")] for b in WIDER_BINS}
+            if mono:
+                run = "mono_q8" if q8 else "mono"
+                launches = pw[run]["launches"][
+                    "split_epilogue.launches_wider" + sfx]
+                path = f"parity_wider/{run}"
+            else:
+                launches = tw["q8" if q8 else "f32"]["launches"][
+                    "split_epilogue.launches_wider" + sfx]
+                path = "train_wider" + ("/q8" if q8 else "")
+            entries.append({
+                "name": "split_epilogue_wider" + ("_mono" if mono else "")
+                        + (" (q8)" if q8 else ""),
+                "route": "cuda",
+                "source": "lightgbm_tpu_torch/csrc/split_epilogue.cu",
+                "replaces": "lightgbm_tpu/ops/pallas_hist.py:465 "
+                            "_epilogue_compute at num_bins > 4,096"
+                            + (" with_monotone=True" if mono else "")
+                            + (", mode q8" if q8 else ""),
+                "launches": launches,
+                "max_abs_err": max(r["max_abs_err"] for r in res.values()),
+                **nums(res[WIDER_TRAIN_BIN]),
+                "by_bins": {f"b{b}": nums(r) for b, r in res.items()},
+                "launches_by_path": {path: launches}})
+    return entries
 
 
 # Allstate-shaped rows (docs/Experiments.rst: Allstate Claim Prediction,
@@ -3736,11 +4362,11 @@ def hist_dp_case(cuda_hist, n, f, m=None, root=False, seed=0, bins=None,
         lambda: cuda_hist.hist_tile_plain(*args, dtype=f64), reps=10, warm=1)
     out["library_ms"] = library_ms(binsT, leaf, stats, sel, in_tile, f, b,
                                    f64)
-    # least traffic: hist_phase's, the planes written as float64
-    scanned = n if idx is None else n_tile
-    nbytes = (0 if idx is None else 4 * m) + 4 * scanned \
-        + n_tile * (f * binsT.element_size() + 12) + P * f * b * 3 * 8
-    out["bound_ms"], out["bound_by"] = bound(nbytes, 3 * n_tile * f)
+    # least traffic (traffic_model): hist_phase's, the planes written as
+    # float64
+    out["bound_ms"], out["bound_by"] = bound(
+        pass_bytes(cuda_hist, n, f, b, "f64", m, n_tile, binsT),
+        3 * n_tile * f)
     return out
 
 
@@ -6166,8 +6792,10 @@ def train_blocked_phase(lgb, cuda_hist, args, workdir):
             and counts["blocked"]["split_epilogue.launches"] == 0
             and runs["resident"]["feature_block"] == 0
             # one row-major copy a column block, made once (the second
-            # run reuses the views'), never one a launch
+            # run reuses the views'), never one a launch; the blocked
+            # pass never sweeps
             and blk["row_major_copies"] == len(widths)
+            and counts["blocked"]["autotune_hist.launches"] == 0
             and runs["blocked_again"]["row_major_copies"] == 0
             and counts["resident"]["hist_tile.gather_launches"] > 0
             and counts["resident"]["split_epilogue.launches"] == 0
@@ -6380,9 +7008,10 @@ DIST_PARITY_ROWS = 50_000
 DIST_PARITY_LEAVES = 63
 DIST_PARITY_ROUNDS = 2
 DIST_CHILD_TIMEOUT = 600
+DIST_WIDER_ROUNDS = 1        # the data learner's rounds at max_bin 16,383
 
 
-def _int_planes_case(cuda_hist, binsT, leaf, stats, sel, gang_rows):
+def _int_planes_case(cuda_hist, binsT, leaf, stats, sel, gang_rows, b=B):
     """One tile of the data learner's pass on one rank's rows in the
     integer-planes mode (the exponent from the gang's ``amax`` and
     ``gang_rows``): bitwise ``hist_tile_exact``'s integers and a second
@@ -6393,7 +7022,7 @@ def _int_planes_case(cuda_hist, binsT, leaf, stats, sel, gang_rows):
     f = binsT.shape[0]
     chan = cuda_hist.chan_leaf_table(sel).cuda()
     amax = cuda_hist._absmax(stats)
-    args = (binsT, leaf, stats, chan, P, B, LEAVES)
+    args = (binsT, leaf, stats, chan, P, b, LEAVES)
 
     def run():
         return cuda_hist.hist_tile(*args, plane=True, amax=amax,
@@ -6401,15 +7030,17 @@ def _int_planes_case(cuda_hist, binsT, leaf, stats, sel, gang_rows):
 
     cuda_hist.reset_launch_counts()
     a, again = run(), run()
-    launched = cuda_hist.launch_counts()["hist_tile.launches_plane_raw"]
+    launched = sum(v for k, v in cuda_hist.launch_counts().items()
+                   if k.startswith("hist_tile.launches_plane")
+                   and k.endswith("_raw"))
     exact = cuda_hist.hist_tile_exact(*args, amax=amax, rows=gang_rows,
                                       raw=True)
     h = n // 2
     lo = cuda_hist.hist_tile(binsT[:, :h].contiguous(), leaf[:h].contiguous(),
-                             stats[:h].contiguous(), chan, P, B, LEAVES,
+                             stats[:h].contiguous(), chan, P, b, LEAVES,
                              plane=True, amax=amax, rows=gang_rows, raw=True)
     hi = cuda_hist.hist_tile(binsT[:, h:].contiguous(), leaf[h:].contiguous(),
-                             stats[h:].contiguous(), chan, P, B, LEAVES,
+                             stats[h:].contiguous(), chan, P, b, LEAVES,
                              plane=True, amax=amax, rows=gang_rows, raw=True)
     conv = cuda_hist.hist_convert(a, amax, gang_rows)
     conv_plain = cuda_hist.hist_convert_plain(a, amax, gang_rows)
@@ -6427,9 +7058,12 @@ def _int_planes_case(cuda_hist, binsT, leaf, stats, sel, gang_rows):
     in_tile[sel[sel >= 0].long().cuda()] = True
     in_tile = in_tile[leaf.long()]
     fixed, _, _ = cuda_hist._to_fixed(stats, amax, gang_rows)
-    cells = P * f * B * 3
-    pass_bound = bound(f * n + 16 * n + cells * 8, float(in_tile.sum()) * f
-                       * 3)
+    cells = P * f * b * 3
+    # least traffic (traffic_model, the raw mode: int64 planes): every
+    # row's leaf and stats and bins, the planes written once
+    pass_bound = bound(cuda_hist.traffic_model(
+        n, f, b, P, mode="raw", bin_bytes=binsT.element_size())["full"],
+        float(in_tile.sum()) * f * 3)
     conv_bound = bound(cells * (8 + 4), cells)
     pass_dev = device_ms(run)
     conv_dev = device_ms(lambda: cuda_hist.hist_convert(a, amax, gang_rows),
@@ -6442,7 +7076,7 @@ def _int_planes_case(cuda_hist, binsT, leaf, stats, sel, gang_rows):
                          reps=3, warm=1),
                      "bound_ms": pass_bound[0], "bound_by": pass_bound[1],
                      "library_ms": library_ms(binsT, leaf, fixed, sel,
-                                              in_tile, f, B, torch.int64)},
+                                              in_tile, f, b, torch.int64)},
             "convert": {"ms": time_ms(lambda: cuda_hist.hist_convert(
                 a, amax, gang_rows)), "device_ms": conv_dev[0],
                 "plain_ms": time_ms(lambda: cuda_hist.hist_convert_plain(
@@ -6512,6 +7146,11 @@ def dist_child_main(args) -> int:
     out = {"rank": net.rank, "world": net.world, "device": str(net.device),
            "backend": net.backend, "reason": net.reason,
            "join_s": time.time() - t_start, "learners": {}}
+    if args.wider:
+        out["wider"] = _dist_wider(lgb, cuda_hist, net, args)
+        print(json.dumps(out), flush=True)
+        distributed.shutdown()
+        return 0
     X, y = higgs_like(args.rows + args.valid_rows, args.seed)
     Xv, yv = X[args.rows:], y[args.rows:]
     X, y = X[:args.rows], y[:args.rows]
@@ -6572,6 +7211,37 @@ def dist_child_main(args) -> int:
     return 0
 
 
+def _dist_wider(lgb, cuda_hist, net, args):
+    """The data learner at max_bin WIDER_TRAIN_BIN on train's rows,
+    replicated (16,383 bins a feature: each rank's integer planes split
+    every feature's bins in two ranges, hist_tile's ``_wider_raw``
+    launches), DIST_WIDER_ROUNDS round(s) at 255 leaves: its launches,
+    counted from 0 just before the training, its collectives and its
+    trees' hash."""
+    X, y = higgs_like(args.rows, args.seed)
+    p = dict(PARAMS, device_type="cuda", max_bin=WIDER_TRAIN_BIN,
+             tree_learner="data", top_k=DIST_TOP_K)
+    t0 = time.time()
+    train = lgb.Dataset(X, label=y, params=p)
+    train.construct()
+    torch.cuda.synchronize()
+    construct_s = time.time() - t0
+    cuda_hist.reset_launch_counts()
+    net.reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    b = lgb.train(p, train, DIST_WIDER_ROUNDS)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    text = b.model_to_string()
+    return {"construct_s": construct_s,
+            "sec_per_iter": wall / DIST_WIDER_ROUNDS,
+            "num_bins": b._boosting.train_set.max_num_bins,
+            "trees_sha": _sha(_trees(text)), "trees": b.num_trees(),
+            "launches": _launched_nonzero(cuda_hist.launch_counts()),
+            "collectives": net.totals()}
+
+
 def _dist_parity(lgb, cuda_hist, network, net, args):
     """Each learner at DIST_PARITY_ROWS rows and DIST_PARITY_LEAVES leaves:
     the card gang's text against the same gang's CPU run inside
@@ -6602,10 +7272,12 @@ def _dist_parity(lgb, cuda_hist, network, net, args):
     return out
 
 
-def _run_gang(args, world, nccl=False, parity=True):
+def _run_gang(args, world, nccl=False, parity=True, wider=False):
     """The distributed group's gang: ``world`` ranks as ``--child dist``
-    processes started together; fails if a rank fails (its exit code and
-    the tail of its error output). Returns every rank's JSON, rank order."""
+    processes started together (``wider``: the data learner past one
+    block's plane alone, _dist_wider); fails if a rank fails (its exit
+    code and the tail of its error output). Returns every rank's JSON,
+    rank order."""
     import socket
     s = socket.socket()
     s.bind(("127.0.0.1", 0))
@@ -6615,7 +7287,8 @@ def _run_gang(args, world, nccl=False, parity=True):
            "--world", str(world), "--port", str(port), "--seed",
            str(args.seed), "--rows", str(args.rows), "--valid-rows",
            str(args.valid_rows), "--rounds", str(DIST_ROUNDS)]
-    cmd += (["--nccl"] if nccl else []) + (["--parity"] if parity else [])
+    cmd += (["--nccl"] if nccl else []) + (["--parity"] if parity else []) \
+        + (["--wider"] if wider else [])
     procs = [subprocess.Popen(cmd + ["--rank", str(r)],
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                               text=True) for r in range(world)]
@@ -7856,7 +8529,7 @@ def construct_phases(lgb, cuda_hist, args):
 # fails, or runs past LANE_DEADLINE, fails the run.
 LANES = {"gangs": ("distributed", "resilience", "control", "serve"),
          "predict": ("predict", "faults", "construct"),
-         "constraints": ("rank", "constraints")}
+         "constraints": ("rank", "constraints", "widebins")}
 LANE_DEADLINE = 1100     # seconds from the main process's start
 LANE_REF = "ref.json"    # train's and train_q8's numbers, for control and
                          # constraints (written by the main process)
@@ -7935,6 +8608,10 @@ def _lane_group(group, lgb, cuda_hist, args) -> dict:
         return {"serve": serve_phases(lgb, cuda_hist, args)}
     if group == "construct":
         return construct_phases(lgb, cuda_hist, args)
+    if group == "widebins":
+        return {"widebins": wider_phases(
+            lgb, cuda_hist, args,
+            lane_ref(args.workdir)["train"]["valid_auc"])}
     return constraint_phases(lgb, cuda_hist, args, lane_ref(args.workdir))
 
 
@@ -8051,7 +8728,7 @@ def main() -> int:
     ap.add_argument("--only", choices=("precision", "control", "predict",
                                        "faults", "distributed",
                                        "resilience", "redesign", "serve",
-                                       "construct"),
+                                       "construct", "widebins"),
                     default=None,
                     help="run the device, build and train phases and this "
                          "group's phases alone (a quicker check of one "
@@ -8069,6 +8746,7 @@ def main() -> int:
         ap.add_argument(flag, type=kind, default=0, help=argparse.SUPPRESS)
     ap.add_argument("--nccl", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--parity", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--wider", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--workdir", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--resume", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -8200,6 +8878,19 @@ def main() -> int:
             "platform": "gpu", "kind": kind,
             "count": torch.cuda.device_count()}}), flush=True)
         return 0
+    if args.only == "widebins":
+        wk = wider_kernel_phases(cuda_hist, args)
+        wp = wider_phases(lgb, cuda_hist, args)
+        wdp = train_wider_data_parallel_phase(args)
+        emit("train_wider_data_parallel", **wdp)
+        print(json.dumps({"kernels": wider_kernel_entries(wk, wp, wdp),
+                          "total_seconds": time.time() - t_start}),
+              flush=True)
+        print(smi, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     if args.only == "predict":
         tr, launches = train_phase(lgb, cuda_hist, args)
         emit("train", **tr)
@@ -8221,8 +8912,8 @@ def main() -> int:
         emit("probe_times", ms=own[-1])
     kp = kernel_phases(cuda_hist, n, args.valid_rows, args.seed)
     emit("hist_tile_root", n=n, b=B, p=P, leaves=LEAVES,
-         **{k: kp[k] for k in ("full_root", "plane_root", "q8_full_root",
-                               "q8_plane_root")})
+         **{k: v for k, v in kp.items() if "root" in k or k ==
+            "main_geometry"})
     full, rungs, stress = kp["full"], kp["rungs"], kp["stress"]
     emit("hist_tile", n=n, f=F, b=B, p=P, leaves=LEAVES, **full)
     emit("hist_tile_gather", n=n, f=F, b=B, p=P, leaves=LEAVES, rungs=rungs)
@@ -8243,6 +8934,7 @@ def main() -> int:
     emit("epilogue_wide", p=P, f=F, **ew)
     hv = hist_variants_phase(cuda_hist)
     emit("hist_variants", **hv)
+    wk = wider_kernel_phases(cuda_hist, args)
 
     # the lanes start once the kernel phases above have the card alone
     import shutil
@@ -8306,6 +8998,8 @@ def main() -> int:
         pdata = parity_data_phase(lgb, args.seed)
         emit("parity_data", **pdata)
         prec = precision_phases(lgb, cuda_hist, args, tr["valid_auc"])
+        wdp = train_wider_data_parallel_phase(args)
+        emit("train_wider_data_parallel", **wdp)
         lane = finish_lanes(lanes, lane_dir)
     finally:
         stop_lanes(lanes, lane_dir)
@@ -8348,6 +9042,7 @@ def main() -> int:
                      "+ :527 _gather_epi_kernel (accumulation)",
          "launches": launches["hist_tile.launches"], "max_abs_err": hist_err,
          **_full_numbers(kp["full_root"], "higgs", full),
+         "geometry": kp["main_geometry"]["f32"]["geometry"],
          "gather_launches": launches["hist_tile.gather_launches"],
          "gather_ms": {k: v["ms"] for k, v in rungs.items()},
          "gather_ms_computing_amax": {k: v["ms_computing_amax"]
@@ -8397,6 +9092,7 @@ def main() -> int:
                             + [r["max_abs_err"]
                                for r in kp["q8_full_root"].values()]),
          **_full_numbers(kp["q8_full_root"], "higgs", q8_full),
+         "geometry": kp["main_geometry"]["q8"]["geometry"],
          "gather_launches": q8_launches["hist_tile.gather_launches_q8"],
          "gather_ms": {k: v["ms"] for k, v in q8_rungs.items()},
          "gather_bound_ms": {k: v["bound_ms"] for k, v in q8_rungs.items()},
@@ -8597,6 +9293,7 @@ def main() -> int:
     kernels.extend(dist_kernel_entries(
         dist_hp, {**dpaths, **rpaths, **lane["cgang_paths"]},
         lead="distributed/data/rank0"))
+    kernels.extend(wider_kernel_entries(wk, lane["widebins"], wdp))
     print(json.dumps({"kernels": kernels,
                       "total_seconds": time.time() - t_start}), flush=True)
     print(smi, flush=True)

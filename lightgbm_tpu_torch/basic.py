@@ -7,10 +7,10 @@ columns and pandas ``category`` columns get categorical mappers, the
 ``forcedbins_filename`` bounds and ``max_bin_by_feature`` apply per
 column), keeps the non-trivial features, and quantizes the matrix into the
 feature-major ``binsT [G, N]`` matrix the histogram kernels read: uint8
-while every device column has at most 256 bins, else int16 (the kernels'
-wide mode; the JAX package holds such bins as int32, but every bin is
-below the kernels' cap of 4,096, so 16 bits hold it, read the same signed
-or unsigned).
+while every device column has at most 256 bins, else int16 up to 32,768
+bins (the kernels' wide mode; the JAX package holds such bins as int32,
+but 16 bits hold every bin below 32,768, read the same signed or
+unsigned), else int32 up to the cap of 65,536 bins.
 
 Two construct paths, as in the JAX package:
 
@@ -628,9 +628,9 @@ class Dataset:
     def bin_new_data(self, X, device=None) -> torch.Tensor:
         """Quantize raw rows with this dataset's mappers (and bundles) on
         its device, or on ``device`` (a sharded predict's shard) -> binsT
-        [G, N] (uint8, or int16 in the wide mode; a zero column stands in
-        for no features). scipy-sparse rows are binned column by column
-        without densifying."""
+        [G, N] (uint8, or int16 / int32 in the wide mode; a zero column
+        stands in for no features). scipy-sparse rows are binned column by
+        column without densifying."""
         X = self._new_rows(X)
         device = self.device if device is None else device
         if self.bundles is not None:

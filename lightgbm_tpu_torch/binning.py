@@ -22,9 +22,10 @@ The data matrix is quantized on the device (``bin_data_device``): one
 bound tables of ``device_bin_tables``, which returns the feature-major
 ``binsT [F, N]`` the histogram kernels read directly; categorical columns
 are mapped on the host (``values_to_bins``) and copied in. The bin matrix
-is uint8 while every feature has at most 256 bins and int16 above (the
-wide mode; every bin is below the kernels' cap of 4,096 bins, so its
-value reads the same signed or unsigned).
+is uint8 while every feature has at most 256 bins, int16 up to 32,768
+(the wide mode; every bin is below 32,768, so its value reads the same
+signed or unsigned) and int32 above, up to 65,536 bins (``max_bin``
+65,535 and a NaN bin).
 
 The streaming construct folds row chunks into mergeable per-feature
 sketches (``FeatureSketch``: distinct values and counts, compacted to
@@ -858,10 +859,13 @@ def bin_chunks_host(factory, uf, out: "StreamingBinWriter",
 
 
 def bins_dtype(max_num_bins: int):
-    """The bin matrix's dtype: uint8 up to 256 bins, int16 above (the
-    wide mode)."""
+    """The bin matrix's dtype: uint8 up to 256 bins, int16 up to 32,768
+    (the wide mode), int32 above (an int16 bin past 32,767 would read
+    negative wherever it is read as signed)."""
     import torch
-    return torch.uint8 if max_num_bins <= 256 else torch.int16
+    if max_num_bins <= 256:
+        return torch.uint8
+    return torch.int16 if max_num_bins <= 32768 else torch.int32
 
 
 def device_bin_tables(mappers: Sequence[BinMapper], dtype=np.float32):
@@ -1011,7 +1015,7 @@ def bin_data_device(X: np.ndarray, mappers: Sequence[BinMapper], device,
                     block: int = 1 << 20, out: Optional[BinSlot] = None):
     """Quantize ``X [N, F]`` on ``device``; returns the feature-major
     ``binsT [F, N]`` (``bins_dtype``: uint8 when every feature has <= 256
-    bins, else int16). Bit-exact vs ``bin_data`` for float32 and float64 input (see
+    bins, else int16, or int32 past 32,768 bins). Bit-exact vs ``bin_data`` for float32 and float64 input (see
     ``device_bin_tables``). Rows go up in blocks so the int64 searchsorted
     result stays bounded. ``out``: a ``BinSlot`` of these mappers that fits
     ``X``, which bins in place into its preallocated buffers and returns

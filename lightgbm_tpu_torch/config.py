@@ -472,15 +472,15 @@ class Config:
     # elsewhere); excluded with gpu_use_dp
     quantized_grad: bool = False
     tile_leaves: int = 0                            # hist tile width (0 = auto: 42)
-    hist_block: int = 0                             # hist row-block size (0 = auto per method)
-    # measured Pallas kernel tuning on TPU (ops/pallas_hist.py
-    # autotune_hist): times the candidate row-block sizes once per shape
-    # bucket (keyed like the predict engine's compile cache) and picks the
-    # leaf batch structurally (the widest tile in the 128-lane group);
-    # explicit tile_leaves/hist_block values always win. Serial learner
-    # only — the parallel learners keep the static defaults (a measured
-    # winner is wall-clock-dependent and the method/block are static SPMD
-    # program parameters that must match across shards)
+    hist_block: int = 0                             # hist rows a block (0 = one wave)
+    # measured kernel tuning on the card (ops/cuda_hist.py autotune_hist):
+    # times hist_tile's accumulate geometries (rows a block, threads a
+    # block, the form past a block's shared memory) once per shape bucket
+    # and keeps the fastest; the leaf batch is structural (the widest tile
+    # in the 128-lane tables); explicit tile_leaves/hist_block values
+    # always win; False keeps the fixed default geometry. Serial learner
+    # only -- the parallel learners keep the defaults. Every geometry gives
+    # the same planes (fixed-point sums), so it changes no bit
     hist_autotune: bool = True
     # fused split-finding epilogue + level-batched frontier growth
     # (ops/pallas_hist.py epilogue kernels, models/grower.py
@@ -501,11 +501,9 @@ class Config:
     # (tier-1-asserted), structure-identical within documented f32
     # bounds otherwise.
     split_fusion: str = "auto"
-    # run the Pallas histogram kernels through the Pallas INTERPRETER on
-    # non-TPU backends (tests/CI): the production TPU pipeline — fused
-    # leaf channels, in-kernel row gather, q8 — becomes CPU-testable;
-    # never set in production (the interpreter is orders of magnitude
-    # slower than the XLA fallbacks)
+    # the JAX package's Pallas interpreter switch; accepted with no
+    # counterpart (logged once): the port's CPU path always runs each
+    # kernel's plain PyTorch version
     hist_pallas_interpret: bool = False
     # histogram subtraction trick (serial_tree_learner.cpp:311-320): build
     # only the smaller sibling and derive the larger as parent - smaller
@@ -734,6 +732,9 @@ _SLICE_PARAMS = frozenset({
     "metric_freq", "is_provide_training_metric", "histogram_method",
     "split_fusion", "hist_subtraction", "hist_compaction",
     "hist_compaction_ladder", "tile_leaves", "fused_iteration",
+    # hist_tile's launch geometry (ops/cuda_hist.py autotune_hist) and the
+    # JAX package's interpreter switch, which has no counterpart here
+    "hist_block", "hist_autotune", "hist_pallas_interpret",
     "tree_growth_mode", "deterministic", "quantized_grad",
     # the precision modes: f64 histograms on the classic path, linear leaves
     "gpu_use_dp", "linear_tree", "linear_lambda",
@@ -819,15 +820,9 @@ _SLICE_PARAMS = frozenset({
 # ROADMAP.md "Queue 1" item that brings each group of parameters
 _ROADMAP_ITEM = {}
 for _names, _item in (
-        (("hist_block", "hist_autotune"),
-         "Queue 2 (autotune_hist becomes a Hopper sweep over rows per "
-         "block)"),
         (("boost_rounds_per_dispatch", "compile_cache_dir",
           "compile_warmup"),
-         "Queue 1 item 13 (dispatch)"),
-        (("hist_pallas_interpret",),
-         "Queue 2 (the port runs no Pallas interpreter; its CPU path is the "
-         "plain PyTorch version of each kernel)")):
+         "Queue 1 item 13 (dispatch)"),):
     for _n in _names:
         _ROADMAP_ITEM[_n] = _item
 
@@ -845,6 +840,9 @@ def _not_in_slice(name: str, value, why: str = "") -> None:
     raise NotImplementedError(
         f"parameter {name}={value!r} is not ported to lightgbm_tpu_torch "
         f"yet{why}; it arrives with ROADMAP.md {item}")
+
+
+_interpret_noted: list = []     # hist_pallas_interpret's log line, once
 
 
 def _check_slice(cfg: Config) -> None:
@@ -874,6 +872,14 @@ def _check_slice(cfg: Config) -> None:
     if not 0 <= cfg.tile_leaves <= 42:
         log.fatal(f"tile_leaves must be in [0, 42] (42 slots of 3 stats fill "
                   f"the kernels' 128-lane tables), got {cfg.tile_leaves}")
+    if cfg.hist_block < 0:
+        log.fatal(f"hist_block must be >= 0 (rows a histogram block; 0 = one "
+                  f"wave), got {cfg.hist_block}")
+    if cfg.hist_pallas_interpret and not _interpret_noted:
+        _interpret_noted.append(True)
+        log.info("hist_pallas_interpret has no counterpart in "
+                 "lightgbm_tpu_torch: its CPU path always runs each kernel's "
+                 "plain PyTorch version (no Pallas interpreter)")
     if cfg.tree_growth_mode not in ("batched", "exact"):
         log.fatal(f"tree_growth_mode must be batched or exact, "
                   f"got {cfg.tree_growth_mode!r}")

@@ -111,18 +111,42 @@
 // parameter of the convert alone, so the f32, q8 and wide instantiations
 // keep their code; no float atomics either way.
 //
-// Wide bins (`wide` != 0; the Pallas kernels at num_bins > 256, which cast
-// each bin to int32, pallas_hist.py:143): the bin type is a template
-// parameter, uint8_t or uint16_t (the port's int16 bins, every one below
-// the cap of 4,096), so the uint8 instantiations keep their code. Only the
-// row-major copy's element and the planes' size change: a block's planes
-// are [group, B, 3] cells, so `group` shrinks as B grows (at B = 1,023 in
-// f32, 8 features fit a full-form block: the 28 Higgs features take 4
-// groups of 7 and the rows are read 4 times; at B = 4,095 one feature a
-// block, 98 KB of planes). The payload of the gather form carries no bins,
-// so it is unchanged. At wide B a block fills most of an SM's shared
-// memory, so one block runs per SM, and the atomics spread over more
-// banks.
+// Wide bins (`bin_bytes` 2 or 4; the Pallas kernels at num_bins > 256,
+// which cast each bin to int32, pallas_hist.py:143): the bin type is a
+// template parameter, uint8_t, uint16_t (the port's int16 bins, up to
+// 32,768 bins) or uint32_t (its int32 bins above that, up to the cap of
+// 65,536 bins a column), so the uint8 instantiations keep their code. Only
+// the row-major copy's element and the planes' size change: a block's
+// planes are [group, span, 3] cells, so `group` shrinks as B grows (at B =
+// 1,023 in f32, 8 features fit a full-form block: the 28 Higgs features
+// take 4 groups of 7 and the rows are read 4 times; at B = 4,095 one
+// feature a block, 98 KB of planes). The payload of the gather form
+// carries no bins, so it is unchanged. At wide B a block fills most of an
+// SM's shared memory, so one block runs per SM, and the atomics spread
+// over more banks.
+//
+// A feature's bins across blocks (B past what one block's shared memory
+// holds: ~8,400 bins in the full form's f32 mode, ~9,600 in the gather
+// form's; at 65,536 bins one f32 plane is 1.5 MB). Two forms, chosen by
+// the wrapper (ops/cuda_hist.py HistGeometry.form):
+//   - `smem`, the bin-range split: the feature's bins are cut into
+//     `nranges` ranges of `span` bins that fit; grid row y is (feature
+//     group, range), and a block accumulates (row range, feature, bin
+//     range), skipping the rows whose bin lies outside its range, then
+//     flushes by integer add into the scratch plane at the range's offset.
+//     Every range re-reads the rows (their bin, leaf and stats);
+//   - `global`: no shared-memory planes; every (row, feature) adds its
+//     three fixed-point values straight into the global int64 (q8: int32)
+//     sums with atomics. The rows are read once; each add is a global
+//     atomic.
+// Both give the same integers as one block's plane: the sums are
+// fixed-point, exact in any order and any split, so the planes are
+// bitwise hist_tile_exact's and bitwise from launch to launch.
+//
+// The launch geometry is the caller's (ops/cuda_hist.py autotune_hist
+// sweeps it): rows a block takes (`per`; 0 = one wave of device_sms() x
+// occupancy blocks of at least kMinRows rows, the default), threads a
+// block (a multiple of 32, at most 1,024) and the form above.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -223,27 +247,33 @@ template <bool kQ8> struct Staged {
 };
 
 // Block (x, y): rows [x*per, x*per + per) of the n rows (per a multiple of
-// 32, the rows split evenly over gridDim.x), features [y*group, y*group +
-// group); only the rows of leaf `target` are added. Shared memory: the
-// planes ([group][b][3] cells: the add_split pair in f32 mode, 8 bytes; an
-// int32 sum in q8, 4), then each warp's 32 staged rows (their stats, then
-// their row ids). accum [f][b][3] integer sums, zeroed by the caller. Pair
-// q of a warp's staged rows is (row q / gn, feature q % gn).
-template <bool kQ8, typename Bin>
+// 32); grid row y is (feature group y / nranges, bin range y % nranges):
+// features [g0, g0 + group), bins [lo, lo + span) of each. Only the rows
+// of leaf `target` are added. Shared memory: the planes ([group][span][3]
+// cells: the add_split pair in f32 mode, 8 bytes; an int32 sum in q8, 4;
+// none in the global form, which adds to accum directly), then each warp's
+// 32 staged rows (their stats, then their row ids). accum [f][b][3]
+// integer sums, zeroed by the caller. Pair q of a warp's staged rows is
+// (row q / gn, feature q % gn).
+template <bool kQ8, bool kGlobal, typename Bin>
 __global__ void full_accumulate(
     const Bin* __restrict__ rows, const int32_t* __restrict__ leaf,
     const typename Mode<kQ8>::Stat* __restrict__ stats,
     const unsigned* __restrict__ amax_bits,
     typename Mode<kQ8>::Acc* __restrict__ accum, int n, int f, int b,
-    int target, int width, int group, long long exp_rows) {
+    int target, int width, int group, int span, int nranges, long long per,
+    long long exp_rows) {
   using SG = Staged<kQ8>;
   constexpr int kWords = kQ8 ? 1 : 2;                      // words a cell
   extern __shared__ __align__(16) unsigned char full_smem[];
   __shared__ double scale[kStats];
-  const int g0 = blockIdx.y * group;
+  const int gi = blockIdx.y / nranges;
+  const int lo = (blockIdx.y - gi * nranges) * span;        // first bin
+  const int bs = min(span, b - lo);                         // bins held
+  const int g0 = gi * group;
   const int gn = min(group, f - g0);
-  const int row_cells = b * kStats;
-  const int cells = gn * row_cells;
+  const int row_cells = bs * kStats;
+  const int cells = kGlobal ? 0 : gn * row_cells;
   const int warps = blockDim.x >> 5;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -257,8 +287,6 @@ __global__ void full_accumulate(
     scale[threadIdx.x] = fixed_scale(amax_bits[threadIdx.x], exp_rows);
   __syncthreads();
 
-  long long per = ((long long)n + gridDim.x - 1) / gridDim.x;
-  per = (per + 31) / 32 * 32;
   const long long r0 = (long long)blockIdx.x * per;
   const long long r1 = min((long long)n, r0 + per);
   const int step_j = 32 / gn, step_f = 32 % gn;    // a lane's step: 32 pairs
@@ -308,34 +336,55 @@ __global__ void full_accumulate(
       }
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
-        if (bin[u] >= b) continue;
-        unsigned* cell =
-            plane + ((size_t)fr[u] * row_cells + bin[u] * kStats) * kWords;
-        if constexpr (kQ8) {
-          const uint32_t w = val[jr[u]];
-          for (int k = 0; k < kStats; ++k)
-            atomicAdd(reinterpret_cast<int*>(cell) + k,
-                      (int)(int8_t)(uint8_t)(w >> (8 * k)));
+        const int rel = bin[u] - lo;               // b - lo >= bs: skipped
+        if ((unsigned)rel >= (unsigned)bs) continue;
+        if constexpr (kGlobal) {
+          typename Mode<kQ8>::Acc* cell =
+              accum + ((size_t)(g0 + fr[u]) * b + bin[u]) * kStats;
+          if constexpr (kQ8) {
+            const uint32_t w = val[jr[u]];
+            for (int k = 0; k < kStats; ++k) {
+              const int x = (int)(int8_t)(uint8_t)(w >> (8 * k));
+              if (x) atomicAdd(cell + k, x);
+            }
+          } else {
+            const long long* v =
+                reinterpret_cast<const long long*>(val + jr[u] * SG::kWords);
+            for (int k = 0; k < kStats; ++k)
+              if (v[k]) atomicAdd(cell + k, (unsigned long long)v[k]);
+          }
         } else {
-          const long long* v =
-              reinterpret_cast<const long long*>(val + jr[u] * SG::kWords);
-          for (int k = 0; k < kStats; ++k) add_split(cell + 2 * k, v[k]);
+          unsigned* cell =
+              plane + ((size_t)fr[u] * row_cells + rel * kStats) * kWords;
+          if constexpr (kQ8) {
+            const uint32_t w = val[jr[u]];
+            for (int k = 0; k < kStats; ++k)
+              atomicAdd(reinterpret_cast<int*>(cell) + k,
+                        (int)(int8_t)(uint8_t)(w >> (8 * k)));
+          } else {
+            const long long* v =
+                reinterpret_cast<const long long*>(val + jr[u] * SG::kWords);
+            for (int k = 0; k < kStats; ++k) add_split(cell + 2 * k, v[k]);
+          }
         }
       }
     }
     __syncwarp();
   }
+  if constexpr (kGlobal) return;
   __syncthreads();
-  // flush: each nonzero cell added to the global sums
-  typename Mode<kQ8>::Acc* dst = accum + (size_t)g0 * row_cells;
+  // flush: each nonzero cell added to the global sums at the range's bins
+  typename Mode<kQ8>::Acc* dst = accum + ((size_t)g0 * b + lo) * kStats;
   for (int i = threadIdx.x; i < cells; i += blockDim.x) {
+    const int fi = i / row_cells;
+    const size_t at = (size_t)fi * b * kStats + (i - fi * row_cells);
     if constexpr (kQ8) {
       const int v = (int)plane[i];
-      if (v != 0) atomicAdd(dst + i, v);
+      if (v != 0) atomicAdd(dst + at, v);
     } else {
       const unsigned long long v =
           ((unsigned long long)plane[2 * i + 1] << 32) + plane[2 * i];
-      if (v != 0) atomicAdd(dst + i, v);
+      if (v != 0) atomicAdd(dst + at, v);
     }
   }
 }
@@ -438,41 +487,73 @@ int device_sms() {
   return sms > 0 ? sms : 1;
 }
 
+// The launch geometry of an accumulate kernel (ops/cuda_hist.py
+// full_layout / gather_layout): features a block, bins a block's plane
+// holds (`span`) and the ranges they cut B into, rows a block (0 = one
+// wave), threads a block, and the global form.
+struct Geo {
+  int group, span, nranges;
+  long long per;
+  int threads, global;
+};
+
 // The full form's accumulate + convert launches of one mode (one computed
 // slot, `slot`, whose leaf is `target`; slot -1: none computed, the convert
 // alone writes zeros; `dp`: the f64 convert); returns cudaGetLastError().
+template <bool kQ8, bool kGlobal, typename Bin>
+int launch_full_form(const Bin* rows, const void* leaf, const void* stats,
+                     const unsigned* amax_bits, void* accum, int n, int f,
+                     int b, int target, int width, const Geo& g,
+                     long long exp_rows, cudaStream_t st) {
+  using M = Mode<kQ8>;
+  auto kernel = full_accumulate<kQ8, kGlobal, Bin>;
+  const size_t smem = (kGlobal ? 0 : (size_t)g.group * g.span * kStats
+                                         * (kQ8 ? 4 : 8))
+                      + (size_t)g.threads * (Staged<kQ8>::kWords + 1) * 4;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long ys = (long long)((f + g.group - 1) / g.group) * g.nranges;
+  long long per = g.per;
+  if (per <= 0) {
+    int occ = 1;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kernel, g.threads,
+                                                  smem);
+    const long long wave = (long long)device_sms() * (occ > 0 ? occ : 1);
+    long long blocks = (wave + ys - 1) / ys;
+    const long long most = ((long long)n + kMinRows - 1) / kMinRows;
+    blocks = blocks < most ? blocks : most;
+    blocks = blocks > 0 ? blocks : 1;
+    per = ((long long)n + blocks - 1) / blocks;
+  }
+  per = (per + 31) / 32 * 32;
+  const long long xs = ((long long)n + per - 1) / per;
+  kernel<<<dim3((unsigned)(xs > 0 ? xs : 1), (unsigned)ys), g.threads, smem,
+           st>>>(rows, static_cast<const int32_t*>(leaf),
+                 static_cast<const typename M::Stat*>(stats), amax_bits,
+                 static_cast<typename M::Acc*>(accum), n, f, b, target,
+                 width, g.group, g.span, g.nranges, per, exp_rows);
+  return (int)cudaGetLastError();
+}
+
 template <bool kQ8, typename Bin>
 int launch_full(const Bin* rows, const void* leaf, const void* stats,
                 const unsigned* amax_bits, void* accum, void* out, int n,
-                int f, int p, int b, int slot, int target, int group,
-                int width, bool dp, long long exp_rows, bool raw,
+                int f, int p, int b, int slot, int target, int width,
+                const Geo& g, bool dp, long long exp_rows, bool raw,
                 cudaStream_t st) {
-  using M = Mode<kQ8>;
-  if (slot < 0)
-    return launch_reduce(kQ8, dp, raw, accum, nullptr, -1, amax_bits, out,
-                         p, f, b, exp_rows, st);
-  const size_t smem = (size_t)group * b * kStats * (kQ8 ? 4 : 8)
-                      + (size_t)kThreads * (Staged<kQ8>::kWords + 1) * 4;
-  cudaError_t err = cudaFuncSetAttribute(
-      full_accumulate<kQ8, Bin>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  int occ = 1;
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &occ, full_accumulate<kQ8, Bin>, kThreads, smem);
-  const int ngroups = (f + group - 1) / group;
-  const long long wave = (long long)device_sms() * (occ > 0 ? occ : 1);
-  long long blocks = (wave + ngroups - 1) / ngroups;
-  const long long most = ((long long)n + kMinRows - 1) / kMinRows;
-  blocks = blocks < most ? blocks : most;
-  full_accumulate<kQ8, Bin><<<dim3((int)(blocks > 0 ? blocks : 1),
-                                   ngroups), kThreads, smem, st>>>(
-      rows, static_cast<const int32_t*>(leaf),
-      static_cast<const typename M::Stat*>(stats), amax_bits,
-      static_cast<typename M::Acc*>(accum), n, f, b, target, width, group,
-      exp_rows);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  if (slot >= 0) {
+    const int err =
+        g.global ? launch_full_form<kQ8, true, Bin>(rows, leaf, stats,
+                                                    amax_bits, accum, n, f, b,
+                                                    target, width, g,
+                                                    exp_rows, st)
+                 : launch_full_form<kQ8, false, Bin>(rows, leaf, stats,
+                                                     amax_bits, accum, n, f,
+                                                     b, target, width, g,
+                                                     exp_rows, st);
+    if (err != 0) return err;
+  }
   return launch_reduce(kQ8, dp, raw, accum, nullptr, slot, amax_bits, out,
                        p, f, b, exp_rows, st);
 }
@@ -625,34 +706,43 @@ __global__ void gather_scatter(
   }
 }
 
-// Block (x, y): payload rows [x*per, x*per + per) (per >= kMinRows, the
-// rows split evenly over gridDim.x), features [y*group, y*group + group).
-// accum [active][f][b][3] integer sums, zeroed by the caller. A plane cell
-// is the add_split pair in f32 mode (8 bytes), an int32 sum in q8 (4).
-// Thread (jj, fi) takes feature fi of every rows_per_iter-th row, loading
-// kUnroll rows before it adds them.
-template <bool kQ8, typename Bin>
+// Block (x, y): payload rows [x*per, x*per + per) (per_rows, or with 0
+// per >= kMinRows, the rows split evenly over gridDim.x); grid row y is
+// (feature group y / nranges, bin range y % nranges): features [g0, g0 +
+// group), bins [lo, lo + span) of each. accum [active][f][b][3] integer
+// sums, zeroed by the caller. A plane cell is the add_split pair in f32
+// mode (8 bytes), an int32 sum in q8 (4); the global form keeps no plane
+// and adds to accum directly. Thread (jj, fi) takes feature fi of every
+// rows_per_iter-th row, loading kUnroll rows before it adds them.
+template <bool kQ8, bool kGlobal, typename Bin>
 __global__ void gather_accumulate(const uint32_t* __restrict__ payload,
                                   const Bin* __restrict__ rows,
                                   const int* __restrict__ counts,
                                   typename Mode<kQ8>::Acc* __restrict__ accum,
                                   int f, int b, int active, int width,
-                                  int group) {
+                                  int group, int span, int nranges,
+                                  long long per_rows) {
   using PL = Payload<kQ8>;
   extern __shared__ __align__(16) unsigned char acc_smem[];
-  unsigned* plane = reinterpret_cast<unsigned*>(acc_smem);  // [group][b][3]
+  unsigned* plane = reinterpret_cast<unsigned*>(acc_smem);  // [group][span][3]
   __shared__ int g_off[kMaxSlots + 1];
-  const int g0 = blockIdx.y * group;
+  const int gi = blockIdx.y / nranges;
+  const int lo = (blockIdx.y - gi * nranges) * span;        // first bin
+  const int bs = min(span, b - lo);                         // bins held
+  const int g0 = gi * group;
   const int gn = min(group, f - g0);
-  const int row_cells = b * kStats;
-  const int cells = gn * row_cells;
+  const int row_cells = bs * kStats;
+  const int cells = kGlobal ? 0 : gn * row_cells;
   constexpr int kWords = kQ8 ? 1 : 2;                      // words a cell
   warp_scan_slots(counts, g_off, active);
   for (int i = threadIdx.x; i < cells * kWords; i += blockDim.x) plane[i] = 0;
   __syncthreads();
   const long long total = g_off[active];
-  long long per = (total + gridDim.x - 1) / gridDim.x;
-  per = per > kMinRows ? per : kMinRows;
+  long long per = per_rows;
+  if (per <= 0) {
+    per = (total + gridDim.x - 1) / gridDim.x;
+    per = per > kMinRows ? per : kMinRows;
+  }
   const long long j0 = (long long)blockIdx.x * per;
   const long long j1 = min(total, j0 + per);
   if (j0 >= j1) return;
@@ -663,6 +753,8 @@ __global__ void gather_accumulate(const uint32_t* __restrict__ payload,
     const long long a = max(j0, (long long)g_off[c]);
     const long long z = min(j1, (long long)g_off[c + 1]);
     if (a >= z) continue;
+    typename Mode<kQ8>::Acc* dst =
+        accum + (((size_t)c * f + g0) * b + lo) * kStats;
     if (jj < rows_per_iter) {
       for (long long j = a + jj; j < z;
            j += (long long)kUnroll * rows_per_iter) {
@@ -687,27 +779,45 @@ __global__ void gather_accumulate(const uint32_t* __restrict__ payload,
         }
 #pragma unroll
         for (int u = 0; u < kUnroll; ++u) {
-          if (bin[u] >= b) continue;
-          unsigned* cell = plane + ((size_t)fi * row_cells + bin[u] * kStats)
-                                   * kWords;
-          if constexpr (kQ8) {
-            for (int k = 0; k < kStats; ++k)
-              atomicAdd(reinterpret_cast<int*>(cell) + k,
-                        (int)(int8_t)(uint8_t)(w[u] >> (8 * k)));
+          const int rel = bin[u] - lo;             // b - lo >= bs: skipped
+          if ((unsigned)rel >= (unsigned)bs) continue;
+          if constexpr (kGlobal) {
+            typename Mode<kQ8>::Acc* cell =
+                dst + ((size_t)fi * b + rel) * kStats;
+            if constexpr (kQ8) {
+              for (int k = 0; k < kStats; ++k) {
+                const int x = (int)(int8_t)(uint8_t)(w[u] >> (8 * k));
+                if (x) atomicAdd(cell + k, x);
+              }
+            } else {
+              for (int k = 0; k < kStats; ++k)
+                if (v[u][k]) atomicAdd(cell + k, (unsigned long long)v[u][k]);
+            }
           } else {
-            for (int k = 0; k < kStats; ++k) add_split(cell + 2 * k, v[u][k]);
+            unsigned* cell = plane + ((size_t)fi * row_cells + rel * kStats)
+                                     * kWords;
+            if constexpr (kQ8) {
+              for (int k = 0; k < kStats; ++k)
+                atomicAdd(reinterpret_cast<int*>(cell) + k,
+                          (int)(int8_t)(uint8_t)(w[u] >> (8 * k)));
+            } else {
+              for (int k = 0; k < kStats; ++k)
+                add_split(cell + 2 * k, v[u][k]);
+            }
           }
         }
       }
     }
+    if constexpr (kGlobal) continue;
     __syncthreads();
-    typename Mode<kQ8>::Acc* dst = accum + ((size_t)c * f + g0) * row_cells;
     for (int i = threadIdx.x; i < cells; i += blockDim.x) {
+      const int fr = i / row_cells;
+      const size_t at = (size_t)fr * b * kStats + (i - fr * row_cells);
       if constexpr (kQ8) {
         const int v = (int)plane[i];
         if (v != 0) {
           plane[i] = 0;
-          atomicAdd(dst + i, v);
+          atomicAdd(dst + at, v);
         }
       } else {
         const unsigned long long v =
@@ -715,12 +825,43 @@ __global__ void gather_accumulate(const uint32_t* __restrict__ payload,
         if (v != 0) {
           plane[2 * i] = 0;
           plane[2 * i + 1] = 0;
-          atomicAdd(dst + i, v);
+          atomicAdd(dst + at, v);
         }
       }
     }
     __syncthreads();
   }
+}
+
+// gather_accumulate of one form over the payload: one wave of blocks
+// (per 0) or ceil(m / per) blocks a grid row.
+template <bool kQ8, bool kGlobal, typename Bin>
+cudaError_t launch_accumulate(const uint32_t* payload, const Bin* rows,
+                              const int* counts, void* accum, int f, int m,
+                              int b, int active, int width, const Geo& g,
+                              int sms, cudaStream_t st) {
+  auto kernel = gather_accumulate<kQ8, kGlobal, Bin>;
+  const size_t asmem =
+      kGlobal ? 0 : (size_t)g.group * g.span * kStats * (kQ8 ? 4 : 8);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)asmem);
+  if (err != cudaSuccess) return err;
+  const long long ys = (long long)((f + g.group - 1) / g.group) * g.nranges;
+  long long xs;
+  if (g.per > 0) {
+    xs = ((long long)m + g.per - 1) / g.per;
+  } else {
+    int occ = 1;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kernel, g.threads,
+                                                  asmem);
+    const long long awave = (long long)sms * (occ > 0 ? occ : 1);
+    xs = (awave + ys - 1) / ys;
+  }
+  kernel<<<dim3((unsigned)(xs > 0 ? xs : 1), (unsigned)ys), g.threads, asmem,
+           st>>>(payload, rows, counts,
+                 static_cast<typename Mode<kQ8>::Acc*>(accum), f, b, active,
+                 width, g.group, g.span, g.nranges, g.per);
+  return cudaGetLastError();
 }
 
 // The gather form's four launches (count, scatter, accumulate, convert) of
@@ -731,8 +872,8 @@ int launch_gather(const Bin* rows, const void* leaf, const void* stats,
                   const int32_t* slotmap, const void* idx,
                   const unsigned* amax_bits, int* counts, uint32_t* payload,
                   void* accum, void* out, int n, int f, int m, int p, int b,
-                  int l, int active, int group, int width, int tile, bool dp,
-                  long long exp_rows, bool raw, cudaStream_t st) {
+                  int l, int active, int width, const Geo& g, int tile,
+                  bool dp, long long exp_rows, bool raw, cudaStream_t st) {
   using M = Mode<kQ8>;
   const int sms = device_sms();
   const int32_t* slot_of = slotmap;
@@ -764,21 +905,13 @@ int launch_gather(const Bin* rows, const void* leaf, const void* stats,
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
-  const size_t asmem = (size_t)group * b * kStats * (kQ8 ? 4 : 8);
-  err = cudaFuncSetAttribute(gather_accumulate<kQ8, Bin>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)asmem);
-  if (err != cudaSuccess) return (int)err;
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &occ, gather_accumulate<kQ8, Bin>, kThreads, asmem);
-  const int ngroups = (f + group - 1) / group;
-  const long long awave = (long long)sms * (occ > 0 ? occ : 1);
-  const int ablocks = (int)((awave + ngroups - 1) / ngroups);
-  gather_accumulate<kQ8, Bin><<<dim3(ablocks, ngroups), kThreads, asmem,
-                                st>>>(
-      payload, rows, counts, static_cast<typename M::Acc*>(accum), f, b,
-      active, width, group);
-  err = cudaGetLastError();
+  err = g.global
+            ? launch_accumulate<kQ8, true, Bin>(payload, rows, counts, accum,
+                                                f, m, b, active, width, g,
+                                                sms, st)
+            : launch_accumulate<kQ8, false, Bin>(payload, rows, counts,
+                                                 accum, f, m, b, active,
+                                                 width, g, sms, st);
   if (err != cudaSuccess) return (int)err;
   return launch_reduce(kQ8, dp, raw, accum, comp, 0, amax_bits, out, p, f, b,
                        exp_rows, st);
@@ -798,12 +931,12 @@ template <typename Bin>
 int full_mode(bool q8, bool dp, const void* rows, const void* leaf,
               const void* stats, void* amax_bits, int compute_amax,
               void* accum, void* out, int n, int f, int p, int b, int slot,
-              int target, int group, int width, long long exp_rows, bool raw,
-              cudaStream_t st) {
+              int target, int width, const Geo& g, long long exp_rows,
+              bool raw, cudaStream_t st) {
   const Bin* rw = static_cast<const Bin*>(rows);
   if (q8)
     return launch_full<true, Bin>(rw, leaf, stats, nullptr, accum, out, n,
-                                  f, p, b, slot, target, group, width, false,
+                                  f, p, b, slot, target, width, g, false,
                                   exp_rows, false, st);
   if (compute_amax) {
     launch_absmax(stats, amax_bits, n, st);
@@ -812,8 +945,8 @@ int full_mode(bool q8, bool dp, const void* rows, const void* leaf,
   }
   return launch_full<false, Bin>(rw, leaf, stats,
                                  static_cast<const unsigned*>(amax_bits),
-                                 accum, out, n, f, p, b, slot, target, group,
-                                 width, dp, exp_rows, raw, st);
+                                 accum, out, n, f, p, b, slot, target, width,
+                                 g, dp, exp_rows, raw, st);
 }
 
 // The gather form of one mode and bin type, after the scratch memset and
@@ -823,14 +956,14 @@ int gather_mode(bool q8, bool dp, const void* rows, const void* leaf,
                 const void* stats, const int32_t* sm, const void* idx,
                 void* amax_bits, int compute_amax, int* cn, uint32_t* pl,
                 void* accum, void* out, int n, int f, int m, int p, int b,
-                int l, int active, int group, int width, int tile,
+                int l, int active, int width, const Geo& g, int tile,
                 long long exp_rows, bool raw, cudaStream_t st) {
   const Bin* rw = static_cast<const Bin*>(rows);
   if (q8)
     return launch_gather<true, Bin>(rw, leaf, stats, sm, idx, nullptr, cn,
                                     pl, accum, out, n, f, m, p, b, l, active,
-                                    group, width, tile, false, exp_rows,
-                                    false, st);
+                                    width, g, tile, false, exp_rows, false,
+                                    st);
   if (compute_amax) {
     launch_absmax(stats, amax_bits, n, st);
     const cudaError_t err = cudaGetLastError();
@@ -839,88 +972,122 @@ int gather_mode(bool q8, bool dp, const void* rows, const void* leaf,
   return launch_gather<false, Bin>(rw, leaf, stats, sm, idx,
                                    static_cast<const unsigned*>(amax_bits),
                                    cn, pl, accum, out, n, f, m, p, b, l,
-                                   active, group, width, tile, dp, exp_rows,
-                                   raw, st);
+                                   active, width, g, tile, dp, exp_rows, raw,
+                                   st);
+}
+
+// A launch's geometry from the entry points' arguments; an impossible one
+// is refused (cudaErrorInvalidValue) before anything runs.
+bool make_geo(int f, int b, int group, int span, int nranges, long long per,
+              int threads, int global, Geo* g) {
+  *g = Geo{group, span, nranges, per, threads, global};
+  return group >= 1 && span >= 1 && nranges >= 1 &&
+         (long long)span * nranges >= b && (long long)span * (nranges - 1) < b
+         && threads >= 32 && threads <= kThreads && threads % 32 == 0 &&
+         group <= threads && (global == 0 || nranges == 1) && per >= 0 &&
+         f >= 1;
 }
 
 }  // namespace
 
 // Full-row form of a tile with one computed slot, `slot` (leaf `target`),
-// `q8` != 0 for the q8 mode, `wide` != 0 for 16-bit bins, `dp` != 0 for
-// the f64 mode (float stats, double `out`; not with q8). Returns
-// cudaGetLastError() (0 = launched). `rows` the bins row-major, n *
-// `width` elements of the bin type (feature f of row r at r * width + f);
-// `stats` n * 3 floats (f32) or int8 (q8); `amax_bits` 3 words, the
-// float32 max|stat| of each channel, or (`compute_amax` != 0)
-// 3 words of the scratch that stat_absmax fills (f32 mode only);
-// `scratch` `scratch_bytes` bytes, zeroed here, holding `accum` (f * b * 3
-// int64 in f32 mode, int32 in q8) and stat_absmax's words; `out` p * f * b
-// * 3 float32 (f32), double (f64), int32 (q8) or, with `raw` != 0 (the
-// integer-planes mode of the f32 mode), int64 sums left unconverted.
-// `group` features share a block. `exp_rows` is the row count the
-// fixed-point exponent is taken over (n for a pass of its own; the gang's
-// rows when several ranks' planes are to be added).
+// `q8` != 0 for the q8 mode, `bin_bytes` the bin type's size (1 uint8, 2
+// the 16-bit bins, 4 the 32-bit ones), `dp` != 0 for the f64 mode (float
+// stats, double `out`; not with q8). Returns cudaGetLastError() (0 =
+// launched). `rows` the bins row-major, n * `width` elements of the bin
+// type (feature f of row r at r * width + f); `stats` n * 3 floats (f32) or
+// int8 (q8); `amax_bits` 3 words, the float32 max|stat| of each channel,
+// or (`compute_amax` != 0) 3 words of the scratch that stat_absmax fills
+// (f32 mode only); `scratch` `scratch_bytes` bytes, zeroed here, holding
+// `accum` (f * b * 3 int64 in f32 mode, int32 in q8) and stat_absmax's
+// words; `out` p * f * b * 3 float32 (f32), double (f64), int32 (q8) or,
+// with `raw` != 0 (the integer-planes mode of the f32 mode), int64 sums
+// left unconverted. The geometry: `group` features share a block, whose
+// plane holds `span` bins of each (B cut into `nranges` ranges), `per`
+// rows a block (0: one wave), `threads` a block, `global` != 0 the global
+// form (no planes in shared memory, nranges 1). `exp_rows` is the row
+// count the fixed-point exponent is taken over (n for a pass of its own;
+// the gang's rows when several ranks' planes are to be added).
 extern "C" int hist_full_launch(const void* rows, const void* leaf,
                                 const void* stats, void* amax_bits,
                                 int compute_amax, void* scratch,
                                 long long scratch_bytes, void* accum,
-                                void* out, int q8, int wide, int dp, int n,
-                                int f, int p, int b, int slot, int target,
-                                int group, int width, long long exp_rows,
-                                int raw, void* stream) {
+                                void* out, int q8, int bin_bytes, int dp,
+                                int n, int f, int p, int b, int slot,
+                                int target, int group, int span, int nranges,
+                                long long per, int threads, int global,
+                                int width, long long exp_rows, int raw,
+                                void* stream) {
+  Geo g;
+  if (!make_geo(f, b, group, span, nranges, per, threads, global, &g))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaMemsetAsync(scratch, 0, (size_t)scratch_bytes, st);
   if (err != cudaSuccess) return (int)err;
-  if (wide)
+  if (bin_bytes == 4)
+    return full_mode<uint32_t>(q8 != 0, dp != 0, rows, leaf, stats,
+                               amax_bits, compute_amax, accum, out, n, f, p,
+                               b, slot, target, width, g, exp_rows, raw != 0,
+                               st);
+  if (bin_bytes == 2)
     return full_mode<uint16_t>(q8 != 0, dp != 0, rows, leaf, stats,
                                amax_bits, compute_amax, accum, out, n, f, p,
-                               b, slot, target, group, width, exp_rows,
-                               raw != 0, st);
+                               b, slot, target, width, g, exp_rows, raw != 0,
+                               st);
   return full_mode<uint8_t>(q8 != 0, dp != 0, rows, leaf, stats, amax_bits,
                             compute_amax, accum, out, n, f, p, b, slot,
-                            target, group, width, exp_rows, raw != 0, st);
+                            target, width, g, exp_rows, raw != 0, st);
 }
 
 // Gather form over idx[m] (entries outside [0, n) are padding; a null idx
 // is the implicit rung 0..m-1, the full form of a tile with several
-// computed slots), `q8` != 0 for the q8 mode, `wide` != 0 for 16-bit bins,
-// `dp` != 0 for the f64 mode. `rows` the bins row-major, n * `width` elements of the bin type (feature
-// f of row r at r * width + f); `slotmap`
-// l + p int32: each leaf's compact slot (-1: not computed), then each
-// slot's compact index (-1: none); `amax_bits` as hist_full_launch (f32
-// mode only); `scratch` `scratch_bytes` bytes, zeroed here, holding
-// `counts` (2 * active int32),
+// computed slots), `q8`, `bin_bytes`, `dp` and the geometry as
+// hist_full_launch (`per` 0: one wave of accumulate blocks). `rows` the
+// bins row-major, n * `width` elements of the bin type (feature f of row
+// r at r * width + f); `slotmap` l + p int32: each leaf's compact slot
+// (-1: not computed), then each slot's compact index (-1: none);
+// `amax_bits` as hist_full_launch (f32 mode only); `scratch`
+// `scratch_bytes` bytes, zeroed here, holding `counts` (2 * active int32),
 // `accum` (active * f * b * 3 int64 in f32 mode, int32 in q8) and, with
 // `compute_amax`, `amax_bits`; `payload` m * 8 (f32) or m * 2 (q8) words;
 // `out` p * f * b * 3 float32 (f32), double (f64), int32 (q8) or int64
-// (`raw`, as hist_full_launch). `group` features share an accumulate block;
-// the scatter stages `tile` rung entries a block (a multiple of 32).
-// `exp_rows` as hist_full_launch (m for a pass of its own).
+// (`raw`, as hist_full_launch). The scatter stages `tile` rung entries a
+// block (a multiple of 32). `exp_rows` as hist_full_launch (m for a pass
+// of its own).
 extern "C" int hist_gather_launch(const void* rows, const void* leaf,
                                   const void* stats, const void* slotmap,
                                   const void* idx, void* amax_bits,
                                   int compute_amax, void* scratch,
                                   long long scratch_bytes, void* counts,
                                   void* payload, void* accum, void* out,
-                                  int q8, int wide, int dp, int n, int f,
+                                  int q8, int bin_bytes, int dp, int n, int f,
                                   int m, int p, int b, int l, int active,
-                                  int group, int width, int tile,
-                                  long long exp_rows, int raw,
-                                  void* stream) {
+                                  int group, int span, int nranges,
+                                  long long per, int threads, int global,
+                                  int width, int tile, long long exp_rows,
+                                  int raw, void* stream) {
+  Geo g;
+  if (!make_geo(f, b, group, span, nranges, per, threads, global, &g))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaMemsetAsync(scratch, 0, (size_t)scratch_bytes, st);
   if (err != cudaSuccess) return (int)err;
   const int32_t* sm = static_cast<const int32_t*>(slotmap);
   int* cn = static_cast<int*>(counts);
   uint32_t* pl = static_cast<uint32_t*>(payload);
-  if (wide)
+  if (bin_bytes == 4)
+    return gather_mode<uint32_t>(q8 != 0, dp != 0, rows, leaf, stats, sm,
+                                 idx, amax_bits, compute_amax, cn, pl, accum,
+                                 out, n, f, m, p, b, l, active, width, g,
+                                 tile, exp_rows, raw != 0, st);
+  if (bin_bytes == 2)
     return gather_mode<uint16_t>(q8 != 0, dp != 0, rows, leaf, stats, sm,
                                  idx, amax_bits, compute_amax, cn, pl, accum,
-                                 out, n, f, m, p, b, l, active, group, width,
+                                 out, n, f, m, p, b, l, active, width, g,
                                  tile, exp_rows, raw != 0, st);
   return gather_mode<uint8_t>(q8 != 0, dp != 0, rows, leaf, stats, sm, idx,
                               amax_bits, compute_amax, cn, pl, accum, out, n,
-                              f, m, p, b, l, active, group, width, tile,
+                              f, m, p, b, l, active, width, g, tile,
                               exp_rows, raw != 0, st);
 }
 

@@ -60,7 +60,8 @@
 //
 // Which shapes take it (the wrapper's rule, ops/predict.py
 // launch_geometry, chooses from the shape alone, never from a failure):
-//   - tiled:  a numerical ensemble (no categorical or EFB-segment node)
+//   - tiled:  a numerical ensemble (no categorical or EFB-segment node,
+//             every threshold below 4,096: a record's 12-bit field)
 //             whose tree stages are at most 16 KB (1,023 leaves) and whose
 //             tile of bins fits the block's shared memory beside two
 //             chunk buffers (Higgs' 28 uint8 columns, max_bin 1,023's
@@ -184,6 +185,17 @@ __global__ void predict_ensemble_kernel(
 // lie together and hit different banks.
 constexpr int kSlots = 4;           // rows a thread (ops/predict.py)
 constexpr int kNone = 8191;
+constexpr int kRecBins = 4096;      // bins a record's threshold field holds
+
+// A bin as the tiled mode keeps it in shared memory. The wrapper stages
+// only trees whose thresholds lie below kRecBins, so every bin at or above
+// it goes right of every threshold; only whether it is the column's
+// missing bin m still matters. Those bins fold to kRecBins, or kRecBins + 1
+// for m (whose exception bin folds the same way), so a 16- or 32-bit bin
+// past the record's 12 bits decides as it would unfolded.
+__device__ __forceinline__ int fold_bin(int v, int m) {
+  return v < kRecBins ? v : (v == m ? kRecBins + 1 : kRecBins);
+}
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
@@ -239,8 +251,14 @@ __global__ void __launch_bounds__(256, 3) predict_ensemble_tile(
     Bin* dst = reinterpret_cast<Bin*>(smem);
     for (int ff = 0; ff < f; ++ff) {
       const Bin* src = bins + (long long)ff * ld + row0;
-      for (int lr = tid; lr < rows_tile; lr += nt)
-        dst[lr * stride_e + ff] = row0 + lr < n ? src[lr] : (Bin)0;
+      const int m = mb[ff];
+      for (int lr = tid; lr < rows_tile; lr += nt) {
+        const Bin v = row0 + lr < n ? src[lr] : (Bin)0;
+        if constexpr (sizeof(Bin) > 1)
+          dst[lr * stride_e + ff] = (Bin)fold_bin((int)v, m);
+        else
+          dst[lr * stride_e + ff] = v;
+      }
     }
   }
 
@@ -284,8 +302,9 @@ __global__ void __launch_bounds__(256, 3) predict_ensemble_tile(
           buf + (i / node_cap) * stage_bytes + (i % node_cap) * 8);
       uint2 v = *r;
       const int ff = v.x & 0xFFF;
-      const int e = exception_bin(ff < f ? mb[ff] : -1, (v.x >> 12) & 0xFFF,
-                                  v.x >> 24);
+      const int m = ff < f ? mb[ff] : -1;
+      const int e = exception_bin(m < kRecBins ? m : kRecBins + 1,
+                                  (v.x >> 12) & 0xFFF, v.x >> 24);
       v.x = (v.x & 0xFFFFFFu) | ((unsigned)(e & 0xFF) << 24);
       v.y = (v.y & ~31u) | (unsigned)(e >> 8);
       *r = v;
@@ -468,7 +487,8 @@ cudaError_t launch_bin(int mode, int geometry, const Args& p) {
 
 }  // namespace
 
-// bins: uint8_t (wide = 0) or int16_t (wide = 1) [F, ld], rows 0..n-1 of
+// bins: uint8_t (bin_bytes 1), int16_t (2) or int32_t (4) [F, ld], rows
+// 0..n-1 of
 // it; carry: double [N, K] (mode 0) or float [N, K] (modes 1, 2); comp:
 // float [N, K] (mode 1); leaves_out: int32 [b - a, N] (mode 3); bias,
 // active: null when not given. The global mode reads nodes [T, C, 8],
@@ -476,7 +496,8 @@ cudaError_t launch_bin(int mode, int geometry, const Args& p) {
 // reads the stages [T, stage_bytes] with the geometry's shared-memory
 // layout (ops/predict.py launch_geometry).
 extern "C" int predict_ensemble_launch(
-    const void* bins, int wide, long long ld, int n, int f, const void* mb,
+    const void* bins, int bin_bytes, long long ld, int n, int f,
+    const void* mb,
     const void* nodes, const void* bits, int words, int node_cap,
     const void* leaf_value, int leaf_cap, const void* num_leaves, int a,
     int b, int k, const void* bias, const void* active, void* carry,
@@ -497,7 +518,8 @@ extern "C" int predict_ensemble_launch(
          leaf_cap, num_leaves, a, b, k, bias, active, carry, comp,
          leaves_out, stage, stage_bytes, off_leaf, stride, chunk_trees,
          off_trees, smem, threads, blocks, static_cast<cudaStream_t>(stream)};
-  cudaError_t err = wide ? launch_bin<int16_t>(mode, geometry, p)
-                         : launch_bin<uint8_t>(mode, geometry, p);
+  cudaError_t err = bin_bytes == 4 ? launch_bin<int32_t>(mode, geometry, p)
+                    : bin_bytes == 2 ? launch_bin<int16_t>(mode, geometry, p)
+                                     : launch_bin<uint8_t>(mode, geometry, p);
   return (int)err;
 }

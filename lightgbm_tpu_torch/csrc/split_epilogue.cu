@@ -73,7 +73,8 @@
 // is the code it was; the monotone one adds two clips a side, the two
 // compares and a select a candidate.
 //
-// Wide mode (B > 256, up to kMaxBinsWide; split_epilogue_wide): the same
+// Wide mode (B > 256, up to kMaxBinsWide = 4,096; split_epilogue_wide;
+// past it the wider mode below, up to the bin types' 65,536): the same
 // arithmetic per candidate, but the plane no longer fits one warp at 8
 // bins a lane, and the scan follows XLA's order past 16 blocks, which is
 // three levels, not a running sum (blocked_cumsum's recursion: the
@@ -119,6 +120,19 @@
 // the four instantiations (q8 x monotone) counts its launches apart in
 // the wrapper.
 // PERF.md has the measured time against the bound.
+//
+// Wider mode (B > 4,096; split_epilogue_wider): 17 to 256 chunks, more
+// than one CTA holds a warp each, and XLA's scan gains a fourth level
+// (the chunk totals scanned in groups of 16, the group totals once more).
+// A CTA of 16 warps a (slot, feature); warp w takes chunks w, w + 16, ...
+// in turn, in two passes: the first writes each chunk's full plane and
+// puts its total in shared memory, warp 0 then scans the totals in XLA's
+// order, and the second rereads each chunk's full plane (the cells its own
+// lanes wrote) and evaluates the candidates as the wide mode does, each
+// lane keeping its best over its chunks. Same arithmetic, same
+// missing-value handling and tie order, so the table stays bitwise the
+// plain version. The plane is read twice, and the scan of the totals is
+// one warp's; PERF.md has its time against the bound.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -737,6 +751,366 @@ split_epilogue_wide(const float* __restrict__ tile,
   }
 }
 
+// ------------------------------------------------------- wider mode
+// B > kMaxBinsWide (up to kMaxBinsDevice, the bin types' cap): ceil(B /
+// 256) = 17..256 chunks, more than a CTA of kMaxWideWarps warps holds one a
+// warp, and XLA's scan gains a fourth level: the chunk totals are scanned
+// in super-super-blocks of 16 (within each from +0), their totals once more
+// from +0, and each level's exclusive prefix added from +0.
+constexpr int kMaxBinsDevice = 65536;
+constexpr int kMaxChunks = kMaxBinsDevice / kChunk;    // 256
+// after the warps' tiles: the chunk totals T [256][3], their exclusive
+// prefix E [256][3], bin B-1's within-block csum and its block's in-chunk
+// prefix [6], the warps' best key [16], position [16] and six sums [16][6]
+constexpr int kWiderScratch = 6 * kMaxChunks + 6 + 8 * kMaxWideWarps;
+
+// Chunk w's full plane (derived or the tile itself) into v, written to
+// `full` and staged by stat in the warp's tile `st`; `from_full` rereads
+// what an earlier pass wrote to `full` (the same lane wrote those cells).
+template <bool kQ8>
+__device__ __forceinline__ void wider_load(
+    const float* __restrict__ tile, const int32_t* __restrict__ qtile,
+    const float* __restrict__ qscale, const float* __restrict__ parent,
+    float* __restrict__ full, float* st, size_t base, size_t sib, int c0,
+    int lim, int lane, bool derived, bool has_sib, bool from_full) {
+  constexpr int kCells = 3 * kChunk / 32;        // 24 cells a lane
+  float v[kCells];
+#pragma unroll
+  for (int k = 0; k < kCells; ++k) {
+    const int i = lane + 32 * k;
+    if (i >= lim) {
+      v[k] = 0.f;
+    } else if (from_full) {
+      v[k] = full[base + c0 + i];
+    } else if (derived) {
+      const float s = has_sib
+          ? tile_cell<kQ8>(tile, qtile, qscale, sib + c0 + i, i % 3) : 0.f;
+      v[k] = parent[base + c0 + i] - s;
+    } else {
+      v[k] = tile_cell<kQ8>(tile, qtile, qscale, base + c0 + i, i % 3);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kCells; ++k) {
+    const int i = lane + 32 * k;
+    if (i < lim) {
+      const int c = i % 3, t = i / 3;
+      if (!from_full) full[base + c0 + i] = v[k];
+      st[c * kStride + t + t / 32] = v[k];
+    }
+  }
+}
+
+// Levels 1 and 2 of chunk w, as split_epilogue_wide's steps 2-3b: the
+// lane's 8 bins (excluded bins zeroed, +0 past B) scanned within their
+// 16-bin block into cs, w2 the chain of the chunk's block totals up to the
+// block before the lane's own, and the chunk's whole chain returned.
+__device__ __forceinline__ void wider_levels12(
+    const float* st, int t0, int lane, int b, bool excl_nan, int nan_bin,
+    bool excl_zero, int dbin, float cs[3][kBinsPerLane], float w2[3],
+    float chain[3]) {
+  float x[3][kBinsPerLane];
+#pragma unroll
+  for (int j = 0; j < kBinsPerLane; ++j) {
+    const int t = t0 + j, tl = lane * kBinsPerLane + j;
+    const bool excl = (excl_nan && t == nan_bin) || (excl_zero && t == dbin);
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+      x[c][j] = (t < b && !excl) ? st[c * kStride + tl + tl / 32] : 0.f;
+  }
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    float acc = 0.f;
+#pragma unroll
+    for (int j = 0; j < kBinsPerLane; ++j) acc = acc + x[c][j];
+    const float even_total = __shfl_sync(kFull, acc, lane & ~1);
+    acc = (lane & 1) ? even_total : 0.f;
+#pragma unroll
+    for (int j = 0; j < kBinsPerLane; ++j) {
+      acc = acc + x[c][j];
+      cs[c][j] = acc;
+    }
+  }
+  const int kb = lane / 2;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const float last = cs[c][kBinsPerLane - 1];
+    float acc = 0.f, mine = 0.f;
+#pragma unroll
+    for (int k = 0; k < kChunk / kBlock; ++k) {
+      acc = acc + __shfl_sync(kFull, last, 2 * k + 1);
+      if (k == kb - 1) mine = acc;
+    }
+    w2[c] = mine;
+    chain[c] = acc;
+  }
+}
+
+// One CTA of kMaxWideWarps warps a (slot, feature); warp w takes chunks w,
+// w + 16, ... in turn, in two passes over the plane:
+//   A. each chunk's full plane (written out), levels 1-2, its total T[w]
+//      to shared memory, and bin B-1's within-block csum and w2;
+//   B. after a barrier, warp 0 forms E = the exclusive prefix of the chunk
+//      totals' scan in XLA's order (levels 3-4: lane m chains T[16m ..
+//      16m + 15] from +0, the 16 group totals are chained from +0 by
+//      shuffles, each chunk's scan is its group's chain plus its group's
+//      exclusive prefix, and E[w] is chunk w - 1's, +0 for chunk 0);
+//   C. after a second barrier each warp rereads its chunks' full planes
+//      (the cells its own lanes wrote in A), repeats levels 1-2, adds its
+//      blocks' predecessors' inclusive scans -- w2 + E[w], or for a chunk's
+//      first block T[w-1] + E[w-1], +0 for block 0 -- and evaluates the
+//      candidates as split_epilogue_wide does, each lane keeping its best
+//      over all its chunks; then the same two-stage (key, position)
+//      reduction. The order is total, so the chunks' order changes no bit.
+template <bool kQ8, bool kMono>
+__global__ void __launch_bounds__(32 * kMaxWideWarps, 2)
+split_epilogue_wider(const float* __restrict__ tile,
+                     const int32_t* __restrict__ qtile,
+                     const float* __restrict__ qscale,
+                     const float* __restrict__ parent,
+                     const int32_t* __restrict__ der,
+                     const float* __restrict__ la,
+                     const float* __restrict__ fm,
+                     const float* __restrict__ pv,
+                     float* __restrict__ full,
+                     float* __restrict__ cand,
+                     int p, int f, int b) {
+  extern __shared__ float wide_smem[];
+  const int nw = (b + kChunk - 1) / kChunk;      // chunks: 17..256
+  const int warps = blockDim.x / 32;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int slot = blockIdx.x / f;
+  const int feat = blockIdx.x % f;
+  const Params prm{pv[0], pv[1], pv[2], pv[3], pv[4], pv[5], pv[6]};
+  const int nb = static_cast<int>(fm[feat * 8 + 0]);
+  const int mt = static_cast<int>(fm[feat * 8 + 1]);
+  const int dbin = static_cast<int>(fm[feat * 8 + 2]);
+  const int mono = static_cast<int>(fm[feat * 8 + 3]);
+  const bool mode_a = nb > 2 && mt != kMissingNone;
+  const bool is_nan = mt == kMissingNan;
+  const bool is_zero = mt == kMissingZero;
+  const bool derived = der[slot * 3] != 0;
+
+  float* st = wide_smem + warp * kTileFloats;    // [3][kStride]
+  float* tot = wide_smem + warps * kTileFloats;  // [kMaxChunks][3]
+  float* ex = tot + 3 * kMaxChunks;              // [kMaxChunks][3]
+  float* lastv = ex + 3 * kMaxChunks;            // [2][3]
+  float* akey = lastv + 6;                       // [kMaxWideWarps]
+  int* apos = reinterpret_cast<int*>(akey + kMaxWideWarps);
+  float* asum = akey + 2 * kMaxWideWarps;        // [kMaxWideWarps][6]
+  const size_t plane = (size_t)b * 3;
+  const size_t base = ((size_t)slot * f + feat) * plane;
+  const size_t sib = slot > 0 ? ((size_t)(slot - 1) * f + feat) * plane : 0;
+
+  // A. full planes, levels 1-2, the chunk totals
+  for (int w = warp; w < nw; w += warps) {
+    const int c0 = w * 3 * kChunk;
+    wider_load<kQ8>(tile, qtile, qscale, parent, full, st, base, sib, c0,
+                    3 * b - c0, lane, derived, slot > 0, false);
+    __syncwarp();
+    const int t0 = w * kChunk + lane * kBinsPerLane;
+    float cs[3][kBinsPerLane], w2[3], chain[3];
+    wider_levels12(st, t0, lane, b, mode_a && is_nan, nb - 1,
+                   mode_a && is_zero, dbin, cs, w2, chain);
+    if (lane == 0) {
+#pragma unroll
+      for (int c = 0; c < 3; ++c) tot[w * 3 + c] = chain[c];
+    }
+#pragma unroll
+    for (int j = 0; j < kBinsPerLane; ++j) {
+      if (t0 + j == b - 1) {
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          lastv[c] = cs[c][j];
+          lastv[3 + c] = w2[c];
+        }
+      }
+    }
+    __syncwarp();                                // st is rewritten next
+  }
+  __syncthreads();
+
+  // B. E, the chunk totals' exclusive prefix, levels 3-4
+  if (warp == 0) {
+    const int ng = (nw + kBlock - 1) / kBlock;   // groups of 16: 2..16
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      float w3[kBlock];
+      float run = 0.f;
+#pragma unroll
+      for (int i = 0; i < kBlock; ++i) {
+        const int at = kBlock * lane + i;
+        run = run + ((lane < ng && at < nw) ? tot[at * 3 + c] : 0.f);
+        w3[i] = run;
+      }
+      float acc = 0.f, e3 = 0.f;
+#pragma unroll
+      for (int m = 0; m < kBlock; ++m) {
+        const float tm = __shfl_sync(kFull, w3[kBlock - 1], m);
+        if (m == lane) e3 = acc;
+        if (m < ng) acc = acc + tm;
+      }
+#pragma unroll
+      for (int i = 0; i < kBlock; ++i) {
+        const int w = kBlock * lane + i + 1;
+        if (lane < ng && w < nw) ex[w * 3 + c] = w3[i] + e3;
+      }
+      if (lane == 0) ex[c] = 0.f;
+    }
+  }
+  __syncthreads();
+
+  // C. the candidates of every chunk of the warp
+  const float* aux = la + (size_t)slot * 8;
+  const float leaf_g = aux[0], leaf_h = aux[1], leaf_c = aux[2];
+  const float leaf_out = aux[3];
+  const float lmin = aux[4], lmax = aux[5];
+  const float min_gain_shift =
+      split_gain(leaf_g, leaf_h, leaf_c, leaf_out, prm) + prm.min_gain;
+  const int rev_upper = nb - 2 - ((mode_a && is_nan) ? 1 : 0);
+  const float eps = static_cast<float>(1e-15);
+  const int tl_last = b - 1 - (nw - 1) * kChunk;
+  float total[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c)
+    total[c] = lastv[c] + (tl_last / kBlock > 0
+                               ? lastv[3 + c] + ex[(nw - 1) * 3 + c]
+                               : tot[(nw - 2) * 3 + c] + ex[(nw - 2) * 3 + c]);
+  float best_key = -CUDART_INF_F;
+  int best_pos = 0x7fffffff;
+  float bs[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  const int kb = lane / 2;
+  for (int w = warp; w < nw; w += warps) {
+    const int c0 = w * 3 * kChunk;
+    wider_load<kQ8>(tile, qtile, qscale, parent, full, st, base, sib, c0,
+                    3 * b - c0, lane, derived, slot > 0, true);
+    __syncwarp();
+    const int t0 = w * kChunk + lane * kBinsPerLane;
+    float cs[3][kBinsPerLane], w2[3], chain[3];
+    wider_levels12(st, t0, lane, b, mode_a && is_nan, nb - 1,
+                   mode_a && is_zero, dbin, cs, w2, chain);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      float add = 0.f;
+      if (kb > 0) add = w2[c] + ex[w * 3 + c];
+      else if (w > 0) add = tot[(w - 1) * 3 + c] + ex[(w - 1) * 3 + c];
+#pragma unroll
+      for (int j = 0; j < kBinsPerLane; ++j) cs[c][j] = cs[c][j] + add;
+    }
+#pragma unroll
+    for (int j = 0; j < kBinsPerLane; ++j) {
+      const int t = t0 + j;
+      if (t < b) {
+        const float fl_g = cs[0][j], fl_h = cs[1][j] + eps, fl_c = cs[2][j];
+        const float rr_g = total[0] - cs[0][j];
+        const float rr_h = (total[1] - cs[1][j]) + eps;
+        const float rr_c = total[2] - cs[2][j];
+        const float fr_g = leaf_g - fl_g, fr_h = leaf_h - fl_h,
+                    fr_c = leaf_c - fl_c;
+        const float rl_g = leaf_g - rr_g, rl_h = leaf_h - rr_h,
+                    rl_c = leaf_c - rr_c;
+        const bool zero_skip = mode_a && is_zero && t == dbin;
+        const bool fwd_ok = mode_a && t <= nb - 2 && !zero_skip;
+        const bool rev_ok = t <= rev_upper && !zero_skip;
+        float gain_fwd = 0.f, gain_rev = 0.f;
+        if (fwd_ok)
+          gain_fwd = candidate_gain<kMono>(fl_g, fl_h, fl_c, fr_g, fr_h,
+                                           fr_c, leaf_out, prm, lmin, lmax,
+                                           mono);
+        if (rev_ok)
+          gain_rev = candidate_gain<kMono>(rl_g, rl_h, rl_c, rr_g, rr_h,
+                                           rr_c, leaf_out, prm, lmin, lmax,
+                                           mono);
+        const bool cm_fwd = fl_c >= prm.min_data && fr_c >= prm.min_data
+                            && fl_h >= prm.min_hess && fr_h >= prm.min_hess;
+        const bool cm_rev = rl_c >= prm.min_data && rr_c >= prm.min_data
+                            && rl_h >= prm.min_hess && rr_h >= prm.min_hess;
+        const bool v_fwd = cm_fwd && fwd_ok && gain_fwd > min_gain_shift
+                           && !(gain_fwd != gain_fwd);
+        const bool v_rev = cm_rev && rev_ok && gain_rev > min_gain_shift
+                           && !(gain_rev != gain_rev);
+        const float key_rev =
+            v_rev ? gain_rev - min_gain_shift : -CUDART_INF_F;
+        const float key_fwd =
+            v_fwd ? gain_fwd - min_gain_shift : -CUDART_INF_F;
+        if (beats(key_rev, b - 1 - t, best_key, best_pos)) {
+          best_key = key_rev; best_pos = b - 1 - t;
+          bs[0] = rl_g; bs[1] = rl_h; bs[2] = rl_c;
+          bs[3] = rr_g; bs[4] = rr_h; bs[5] = rr_c;
+        }
+        if (beats(key_fwd, b + t, best_key, best_pos)) {
+          best_key = key_fwd; best_pos = b + t;
+          bs[0] = fl_g; bs[1] = fl_h; bs[2] = fl_c;
+          bs[3] = fr_g; bs[4] = fr_h; bs[5] = fr_c;
+        }
+      }
+    }
+    __syncwarp();                                // st is rewritten next
+  }
+
+  // the warp's best, then the warps' (every lane held a bin of a full
+  // first chunk, so each has a position and each warp one owner)
+  float key = best_key;
+  int pos = best_pos;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const float ok = __shfl_xor_sync(kFull, key, off);
+    const int op = __shfl_xor_sync(kFull, pos, off);
+    if (beats(ok, op, key, pos)) { key = ok; pos = op; }
+  }
+  if (best_pos == pos) {
+    akey[warp] = key;
+    apos[warp] = pos;
+#pragma unroll
+    for (int k = 0; k < 6; ++k) asum[warp * 6 + k] = bs[k];
+  }
+  __syncthreads();
+  if (warp == 0) {
+    const float wk = lane < warps ? akey[lane] : -CUDART_INF_F;
+    const int wp = lane < warps ? apos[lane] : 0x7fffffff;
+    key = wk;
+    pos = wp;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      const float ok = __shfl_xor_sync(kFull, key, off);
+      const int op = __shfl_xor_sync(kFull, pos, off);
+      if (beats(ok, op, key, pos)) { key = ok; pos = op; }
+    }
+    if (lane < warps && wp == pos) {
+      const bool rev = pos < b;
+      float* out = cand + ((size_t)slot * f + feat) * kCand;
+      out[0] = key;
+      out[1] = static_cast<float>(rev ? b - 1 - pos : pos - b);
+      out[2] = rev ? 1.f : 0.f;
+#pragma unroll
+      for (int k = 0; k < 6; ++k) out[3 + k] = asum[lane * 6 + k];
+      out[9] = 0.f; out[10] = 0.f; out[11] = 0.f;
+    }
+  }
+}
+
+// One CTA of kMaxWideWarps warps a (slot, feature) past kMaxBinsWide
+// bins: 57.3 KB of dynamic shared memory, above the default 48 KB.
+template <bool kQ8, bool kMono>
+int launch_wider(const void* tile, const float* qs, const float* par,
+                 const int32_t* dr, const float* lap, const float* fmp,
+                 const float* pvp, void* full, void* cand, int p, int f,
+                 int b, cudaStream_t st) {
+  const size_t smem =
+      (size_t)(kMaxWideWarps * kTileFloats + kWiderScratch) * sizeof(float);
+  const cudaError_t err = cudaFuncSetAttribute(
+      split_epilogue_wider<kQ8, kMono>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  split_epilogue_wider<kQ8, kMono><<<p * f, 32 * kMaxWideWarps, smem, st>>>(
+      kQ8 ? nullptr : static_cast<const float*>(tile),
+      kQ8 ? static_cast<const int32_t*>(tile) : nullptr, qs, par, dr, lap,
+      fmp, pvp, static_cast<float*>(full), static_cast<float*>(cand), p, f,
+      b);
+  return (int)cudaGetLastError();
+}
+
 // One CTA of ceil(B / 256) warps a (slot, feature), its dynamic shared
 // memory sized to them. Above the 48 KB a launch gets without it (B >
 // 3,840) the kernel's limit is raised first.
@@ -778,14 +1152,14 @@ void launch(const void* tile, const float* qs, const float* par,
 // Returns cudaGetLastError() (0 = launched). `qscale` null: `tile` is
 // p * f * b * 3 floats; else int32 sums dequantized by qscale[3].
 // `with_monotone` nonzero selects the monotone mode; b > 256 the wide
-// mode.
+// mode, b > 4,096 the wider mode (up to 65,536).
 extern "C" int split_epilogue_launch(const void* tile, const void* qscale,
                                      const void* parent, const void* der,
                                      const void* la, const void* fm,
                                      const void* pv, void* full, void* cand,
                                      int p, int f, int b, int with_monotone,
                                      void* stream) {
-  if (b > kMaxBinsWide || b < 1) return (int)cudaErrorInvalidValue;
+  if (b > kMaxBinsDevice || b < 1) return (int)cudaErrorInvalidValue;
   const int pairs = p * f;
   if (pairs <= 0) return (int)cudaSuccess;
   const float* qs = static_cast<const float*>(qscale);
@@ -796,6 +1170,19 @@ extern "C" int split_epilogue_launch(const void* tile, const void* qscale,
   const float* lap = static_cast<const float*>(la);
   const float* fmp = static_cast<const float*>(fm);
   const float* pvp = static_cast<const float*>(pv);
+  if (b > kMaxBinsWide) {
+    if (qs && with_monotone)
+      return launch_wider<true, true>(tile, qs, par, dr, lap, fmp, pvp, full,
+                                      cand, p, f, b, st);
+    if (qs)
+      return launch_wider<true, false>(tile, qs, par, dr, lap, fmp, pvp,
+                                       full, cand, p, f, b, st);
+    if (with_monotone)
+      return launch_wider<false, true>(tile, qs, par, dr, lap, fmp, pvp,
+                                       full, cand, p, f, b, st);
+    return launch_wider<false, false>(tile, qs, par, dr, lap, fmp, pvp, full,
+                                      cand, p, f, b, st);
+  }
   if (b > kMaxBins) {
     if (qs && with_monotone)
       return launch_wide<true, true>(tile, qs, par, dr, lap, fmp, pvp, full,

@@ -201,6 +201,9 @@ class GBDT:
         self._oom_level = 0
         self._oom_block = 0
         self._oom_predict_chunk = 0
+        # the measured histogram geometry (_hist_tuning); rides the trainer
+        # state with its epilogue key
+        self._hist_tuned: Optional[dict] = None
         self._warned_pool = False
         if train_set is not None:
             self._init_train(train_set)
@@ -681,15 +684,17 @@ class GBDT:
         sp = ((ts.sp_cols, ts.sp_rows, ts.sp_bins, ts.sp_default)
               if ts.has_sparse_cols else None)
         fb = self._feature_block()
+        fused = self._split_fusion_on(fb)
+        tile, geometry = self._hist_tuning(fused, fb)
         return grow_tree(
             ts.binsT, g, h, ts.feature_meta, self.split_params,
             ts.missing_bin, max_leaves=cfg.num_leaves,
             num_bins=ts.max_num_bins, max_depth=cfg.max_depth,
             exact=cfg.tree_growth_mode == "exact",
-            tile_leaves=cfg.tile_leaves,
+            tile_leaves=tile, hist_geometry=geometry,
             hist_subtraction=cfg.hist_subtraction and fb == 0,
             compaction_ladder=() if fb else self._compaction_ladder(),
-            split_fusion=self._split_fusion_on(fb),
+            split_fusion=fused,
             with_categorical=ts.has_categorical, sp=sp,
             hist_method=self._hist_method, rng_key=iter_key,
             counters=self._hist_counters, sample_mask=mask,
@@ -702,6 +707,41 @@ class GBDT:
             bundle=ts.bundle_meta, cegb=self._cegb,
             forced=self._forced_splits, hist_dp=cfg.gpu_use_dp,
             feature_block=fb, numerics_sentinels=cfg.check_numerics)
+
+    def _hist_tuning(self, epilogue: bool, feature_block: int = 0):
+        """(tile_leaves, hist_tile geometry) of the serial learner's passes
+        (the JAX package's ``_hist_tuning``): an explicit ``hist_block``
+        wins (rows a block, the rest default, no sweep); with
+        ``hist_autotune`` the measured winner of ``ops/cuda_hist
+        .autotune_hist`` for this shape bucket (the defaults off the card);
+        else the defaults (None). The feature-blocked pass
+        (``feature_block`` > 0) keeps the defaults: the sweep would copy
+        every column of its sample, the memory that pass exists to save,
+        at a width its passes never launch. ``tile_leaves`` stays
+        structural. The winner is kept on the booster and rides the
+        trainer state; a dict
+        whose ``epilogue`` key is not this pass's form (a resume across
+        ``split_fusion``) is discarded and measured again. Every geometry
+        gives the same planes, so none of this changes a bit."""
+        cfg = self.config
+        if cfg.hist_block:
+            return cfg.tile_leaves, cuda_hist.HistGeometry(cfg.hist_block)
+        if not cfg.hist_autotune or self.train_set is None or feature_block:
+            return cfg.tile_leaves, None
+        hit = self._hist_tuned
+        if hit is not None and hit.get("epilogue", False) != epilogue:
+            log.info(f"hist_tile autotune: the kept geometry was tuned with "
+                     f"epilogue={hit.get('epilogue', False)}; re-tuning for "
+                     f"epilogue={epilogue}")
+            hit = None
+        if hit is None:
+            ts = self.train_set
+            hit = cuda_hist.autotune_hist(
+                ts.binsT, ts.max_num_bins,
+                q8=self._hist_method.endswith("_q8"), epilogue=epilogue)
+            self._hist_tuned = hit
+        return (cfg.tile_leaves or hit["tile_leaves"],
+                cuda_hist.tuned_geometry(hit))
 
     # ------------------------------------------------ memory-bounded growth
     def _resident_hist_bytes(self) -> int:
@@ -1390,10 +1430,20 @@ class GBDT:
         """What every OOM degradation event carries, as in the JAX
         package: the memory sample at the failure (``profiling
         .sample_memory``: device fields null on the CPU) and the bytes
-        the histogram state needs (``predicted_hist_bytes``: the resident
-        [L, F, B, 3] state's)."""
+        the traffic model's bytes for one histogram pass
+        (``predicted_hist_bytes``: ``ops/cuda_hist.traffic_model``'s full
+        form at this shape, a static count) and the resident [L, F, B, 3]
+        state's (``resident_hist_bytes``)."""
+        ts = self.train_set
+        p = min(self.config.tile_leaves
+                or cuda_hist.structural_tile_leaves(), self.config.num_leaves)
+        mode = "q8" if self._hist_method.endswith("_q8") else "f32"
+        one_pass = cuda_hist.traffic_model(
+            int(ts.num_data), ts.num_used_features(), int(ts.max_num_bins),
+            p, mode=mode, bin_bytes=ts.binsT.element_size())["full"]
         return {"memory": profiling.sample_memory(),
-                "predicted_hist_bytes": int(self._resident_hist_bytes())}
+                "predicted_hist_bytes": int(one_pass),
+                "resident_hist_bytes": int(self._resident_hist_bytes())}
 
     def _maybe_degrade_predict_oom(self, exc: BaseException) -> bool:
         """The predict path's entry to rung 3: halve the effective predict
@@ -1531,11 +1581,10 @@ class GBDT:
             "feat_rng_state": self._feat_rng.get_state(),
             "rows_streamed": float(self._rows_streamed),
             "hist_counters": dict(self._hist_counters),
-            # no counterpart in the port: the measured histogram method and
-            # the autotuned kernel shape (one histogram path, no autotune)
-            # and the collective bytes (one process)
+            # no counterpart in the port: the measured histogram method
+            # (one histogram path) and the collective bytes (one process)
             "measured_hm": None,
-            "hist_tuned": None,
+            "hist_tuned": self._hist_tuned,
             "coll_bytes": None,
             "oom_degrade": ({"level": self._oom_level,
                              "block": self._oom_block,
@@ -1578,6 +1627,8 @@ class GBDT:
         self._feat_rng.set_state(state["feat_rng_state"])
         self._rows_streamed = float(state["rows_streamed"])
         self._hist_counters = dict(state.get("hist_counters", {}))
+        if state.get("hist_tuned") is not None:
+            self._hist_tuned = dict(state["hist_tuned"])
         od = state.get("oom_degrade")
         if od:
             self._oom_level = int(od.get("level", 0))

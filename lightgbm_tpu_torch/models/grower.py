@@ -487,6 +487,7 @@ class Grower:
                  missing_bin: torch.Tensor, *, max_leaves: int, num_bins: int,
                  max_depth: int = -1, exact: bool = False,
                  tile_leaves: int = 0, hist_subtraction: bool = True,
+                 hist_geometry: Optional[cuda_hist.HistGeometry] = None,
                  compaction_ladder: tuple = (), split_fusion: bool = True,
                  with_categorical: bool = False, sp: Optional[tuple] = None,
                  hist_method: str = "",
@@ -600,6 +601,7 @@ class Grower:
         self.with_categorical = with_categorical
         self.P = min(tile_leaves or cuda_hist.structural_tile_leaves(),
                      max_leaves)
+        self.geometry = hist_geometry
         self.hist_subtraction = hist_subtraction
         self.ladder = tuple(compaction_ladder)
         self.meta = meta.to("cpu")
@@ -919,7 +921,8 @@ class Grower:
             torch.from_numpy(sel),
             torch.from_numpy(derive), parent_planes, la, self.fm_pack,
             self.pvec, self.B, self.L, gather_idx, q_scale=self.q_scale,
-            amax=self.amax, with_monotone=self.with_monotone)
+            amax=self.amax, with_monotone=self.with_monotone,
+            geometry=self.geometry)
 
         slots = sel[ok]
         st.hist[torch.as_tensor(slots.astype(np.int64)).to(dev)] = tile[
@@ -1052,7 +1055,7 @@ class Grower:
                 torch.from_numpy(sel), self.B, self.L, gather_idx)
         if self.learner != "data" or self.world == 1:
             return histogram_tiles(*args, amax=self.amax, dtype=self.dtype,
-                                   rows=self.exp_rows)
+                                   rows=self.exp_rows, geometry=self.geometry)
         if self.int_planes:
             raw = histogram_tiles(*args, amax=self.amax, rows=self.exp_rows,
                                   raw=True)
@@ -1094,7 +1097,7 @@ class Grower:
         for s_, e_, bins_b in blocks:
             tile = histogram_tiles(bins_b, self.stats, st.leaf_id, sel_t,
                                    self.B, self.L, amax=self.amax,
-                                   dtype=self.dtype)
+                                   dtype=self.dtype, geometry=self.geometry)
             meta_b = FeatureMeta(*(a[s_:e_] for a in self.meta_dev))
             bundle_b = (None if self.bundle is None else type(self.bundle)(
                 *(a[s_:e_] for a in self.bundle)))
@@ -1589,7 +1592,9 @@ def grow_tree(binsT: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
               meta: FeatureMeta, params: SplitParams,
               missing_bin: torch.Tensor, *, max_leaves: int, num_bins: int,
               max_depth: int = -1, exact: bool = False, tile_leaves: int = 0,
-              hist_subtraction: bool = True, compaction_ladder: tuple = (),
+              hist_subtraction: bool = True,
+              hist_geometry: Optional[cuda_hist.HistGeometry] = None,
+              compaction_ladder: tuple = (),
               split_fusion: bool = True, with_categorical: bool = False,
               sp: Optional[tuple] = None, hist_method: str = "",
               rng_key: Optional[torch.Tensor] = None,
@@ -1621,7 +1626,9 @@ def grow_tree(binsT: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
     layer's (``bundle``, ``cegb``, ``forced``), ``hist_dp`` (float64
     histograms and per-leaf state) and ``feature_block`` (the blocked
     mode's column width, 0 = the resident state) as ``Grower``'s; the leaf
-    ids cover all N rows either way. ``numerics_sentinels`` judges the
+    ids cover all N rows either way. ``hist_geometry``: ``hist_tile``'s
+    launch geometry (``ops/cuda_hist.autotune_hist``'s choice; None, the
+    default), which changes no bit. ``numerics_sentinels`` judges the
     final state (``Grower.sentinel``) into ``counters["sentinel"]``.
     ``net``, ``learner``, ``vote_top_k`` and ``gang_rows`` (the gang's
     padded row count): one rank of a distributed learner, as
@@ -1630,7 +1637,7 @@ def grow_tree(binsT: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
     g = Grower(binsT, grad, hess, meta, params, missing_bin,
                max_leaves=max_leaves, num_bins=num_bins, max_depth=max_depth,
                exact=exact, tile_leaves=tile_leaves,
-               hist_subtraction=hist_subtraction,
+               hist_subtraction=hist_subtraction, hist_geometry=hist_geometry,
                compaction_ladder=compaction_ladder, split_fusion=split_fusion,
                with_categorical=with_categorical, sp=sp,
                hist_method=hist_method, rng_key=rng_key,

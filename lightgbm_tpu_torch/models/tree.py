@@ -111,7 +111,9 @@ def _traversal_step(t: TreeArrays, binsT: torch.Tensor,
         node = cur.clamp(min=0)
         feat = t.node_feature[node].to(torch.int64)
         b = binsT[feat, cols].to(torch.int32)
-        word = bits[node * words + (b >> 5).long()]
+        # a numerical node's bin can pass the bitset's words (wide bins):
+        # its word is read and ignored, so clamp it into the node's own
+        word = bits[node * words + (b >> 5).long().clamp(max=words - 1)]
         go_left = _decide_left_bins(b, t.node_threshold_bin[node],
                                     t.node_default_left[node],
                                     missing_bin[feat], t.node_cat[node], word,

@@ -24,15 +24,20 @@ Hopper that is two hand-written CUDA kernels (``csrc/``):
   planes) and q8 (the quantized-gradient mode: int8 stats, exact int32
   sums, int32 planes); the f32 mode of the plane-only forms also writes
   float64 planes (``dtype=torch.float64``, the f64 mode of ``gpu_use_dp``:
-  the same sums, rounded once to double); and two bin widths, chosen by
-  the bins' dtype:
-  uint8 (up to 256 bins) and the wide mode (int16 bins, up to
-  ``MAX_BINS_WIDE`` bins: the kernels hold one feature's [B, 3] plane in
-  a block's shared memory). ``plane=True`` marks a launch of the classic
-  path (the plane-only kernels 3-4). Each mode counts its own launches:
-  ``launches``, ``gather_launches`` and ``launches_plane`` for f32 at
-  uint8 bins, each with ``_q8`` for q8, ``_dp`` for the f64 mode and with
-  ``_wide`` (before ``_q8`` / ``_dp``) for the wide mode;
+  the same sums, rounded once to double); and the bin widths, chosen by
+  the bins' dtype: uint8 (up to 256 bins) and the wide mode (int16 bins
+  up to 32,768, int32 bins up to ``MAX_BINS_DEVICE`` = 65,536, what
+  ``max_bin`` 65,535 and a NaN bin can make). Where one feature's [B, 3]
+  plane fits a block's shared memory a block holds a group of features'
+  planes; past that (~8,400 bins in f32) a feature's bins are cut into
+  ranges that fit and a block accumulates one (row range, feature, bin
+  range), or (the ``global`` form) every add goes straight to the global
+  integer sums (``HistGeometry``, ``bin_ranges``). ``plane=True`` marks a
+  launch of the classic path (the plane-only kernels 3-4). Each mode
+  counts its own launches: ``launches``, ``gather_launches`` and
+  ``launches_plane`` for f32 at uint8 bins, each with ``_q8`` for q8,
+  ``_dp`` for the f64 mode and with ``_wide`` (before ``_q8`` / ``_dp``)
+  for the wide mode, ``_wider`` where a feature's bins span blocks;
 - ``split_epilogue`` (``csrc/split_epilogue.cu``): in q8 mode the int32
   tile dequantized by ``q_scale`` first, then the derived slots' planes as
   parent - computed sibling, then the numerical split scan (``ops/split.py
@@ -41,7 +46,15 @@ Hopper that is two hand-written CUDA kernels (``csrc/``):
   candidate's outputs to its slot's bounds and zeroes the gain of those
   that break the feature's direction. Above 256 bins its wide mode
   spreads a plane over one block of a warp per 256-bin chunk and carries
-  the scan in XLA's three-level block order.
+  the scan in XLA's three-level block order; above 4,096 (``_wider``) a
+  warp takes several chunks in turn and the scan has a fourth level.
+
+The launch geometry of ``hist_tile``'s accumulate kernels (rows a block,
+threads a block, the form past a block's shared memory) is
+``HistGeometry``; ``autotune_hist`` times candidates on the card and keeps
+the fastest per shape bucket (every candidate gives the same bits), and
+``traffic_model`` counts the bytes of a pass of each form (the kernels'
+bounds).
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs, launches on the current stream, raises if the launch failed, and
@@ -90,7 +103,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -100,12 +113,14 @@ from ..utils import profiling
 _PAD = 128                  # lane width of the TPU layout tables
 _STATS = 3                  # (grad, hess, count) per row
 MAX_BINS = 256              # uint8 bins; split_epilogue: 8 bins a lane
-MAX_BINS_WIDE = 4096        # the wide mode's cap: one f32 [B, 3] plane of
-                            # 24 bytes a bin fits a block (ROADMAP Queue 2
-                            # item 3 splits a feature's bins beyond it)
+MAX_BINS_WIDE = 4096        # split_epilogue_wide: one block a plane, a
+                            # warp a 256-bin chunk (the wider mode past it)
+MAX_BINS_DEVICE = 65536     # the bin types' cap: max_bin 65,535 + a NaN bin
 Q8_MAX_ROWS = (2 ** 31 - 1) // 127   # q8: |sum| <= 127 * rows fits int32
 SMEM_PER_BLOCK = 232_448    # Hopper: dynamic shared memory a block can use
 _STATIC_SMEM = 1024         # room left for a gather kernel's static arrays
+_BIN_CAPS = {torch.uint8: MAX_BINS, torch.int16: 32768,
+             torch.int32: MAX_BINS_DEVICE}   # bins each bin dtype holds
 _GATHER_THREADS = 1024      # threads of a gather accumulate block
 _FULL_THREADS = 1024        # threads of a full_accumulate block (32 warps)
 _SCATTER_TILE = 256         # rung entries (threads) of a gather scatter block
@@ -252,12 +267,13 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
     if name == "hist_tile":
         ll = ctypes.c_longlong
         lib.hist_full_launch.argtypes = ([vp] * 4 + [ci, vp, ll]
-                                         + [vp] * 2 + [ci] * 11
-                                         + [ll, ci, vp])
+                                         + [vp] * 2 + [ci] * 12
+                                         + [ll, ci, ci, ci, ll, ci, vp])
         lib.hist_full_launch.restype = ci
         lib.hist_gather_launch.argtypes = ([vp] * 6 + [ci, vp, ll]
                                            + [vp] * 4 + [ci] * 13
-                                           + [ll, ci, vp])
+                                           + [ll, ci, ci, ci, ci, ll, ci,
+                                              vp])
         lib.hist_gather_launch.restype = ci
         lib.hist_convert_launch.argtypes = [vp] * 3 + [ll, ll, ci, vp]
         lib.hist_convert_launch.restype = ci
@@ -625,32 +641,98 @@ def kernel_sums_on_cpu():
         _cpu_sums.on = old
 
 
+class HistGeometry(NamedTuple):
+    """The launch geometry of ``hist_tile``'s accumulate kernels (the full
+    form's ``full_accumulate``, the gather form's ``gather_accumulate``):
+    ``block_rows`` rows a block (0: one wave of the card's SMs times the
+    occupancy, at least 512 rows a block), ``threads`` a block (a multiple
+    of 32 up to 1,024), and the ``form`` a feature whose bins do not fit
+    one block's shared memory takes: ``smem`` (the bin-range split: ranges
+    of bins that fit, a block each), ``global`` (no shared-memory planes:
+    every add a global integer atomic) or ``auto`` (``default_form``).
+    Every geometry gives the same planes: the sums are fixed-point
+    integers."""
+    block_rows: int = 0
+    threads: int = 1024
+    form: str = "auto"
+
+
+DEFAULT_GEOMETRY = HistGeometry()
+HIST_FORMS = ("auto", "smem", "global")
+# the split's ranges from which ``auto`` takes the global form (8-byte
+# cells only): chip_smoke.py forms_wider on an H100 (uniform and skewed
+# bins, the root pass and 2- and 21-slot rungs) has the global form at
+# 0.53-0.77 of the split's time at 65,535 bins in f32 (7-8 ranges), one
+# case of six slower (1.46x, the skewed root); at 16,383 (2 ranges), and
+# in q8 at 65,535 (4 ranges), it is up to 3.3x slower
+GLOBAL_FORM_RANGES = 7
+
+
+def default_form(num_bins: int, q8: bool) -> str:
+    """The form ``auto`` takes for a pass at ``num_bins``: ``global`` for
+    8-byte cells (f32, f64, integer planes) whose feature the gather
+    form cuts into ``GLOBAL_FORM_RANGES`` ranges or more, else ``smem``
+    (which is no split at all where a feature's plane fits a block)."""
+    if q8:
+        return "smem"
+    return ("global" if bin_ranges(num_bins, False, False)[1]
+            >= GLOBAL_FORM_RANGES else "smem")
+
+
+def _plane_room(q8: bool, full: bool, threads: int) -> int:
+    """Shared memory a block has for its planes: the full form stages 32
+    rows a warp beside them (row id and stats: 28 bytes a row in f32
+    mode, 8 in q8)."""
+    room = SMEM_PER_BLOCK - _STATIC_SMEM
+    return room - threads * (8 if q8 else 28) if full else room
+
+
+def bin_ranges(num_bins: int, q8: bool, full: bool,
+               threads: int = 1024) -> Tuple[int, int]:
+    """(bins a block's plane holds, ranges of them over B): one range when
+    one feature's [B, 3] plane fits a block's shared memory (cells of 8
+    bytes in f32 mode, 4 in q8), else the fewest ranges of equal width
+    that fit (``full``: the full form's block, whose staged rows take room
+    too). 65,535 bins in f32: 8 ranges of 8,192 in the full form, 7 of
+    9,363 in the gather form."""
+    check_bins_cap(num_bins)
+    fit = _plane_room(q8, full, threads) // (_STATS * (4 if q8 else 8))
+    nranges = -(-num_bins // fit)
+    return -(-num_bins // nranges), nranges
+
+
+def _group(num_features: int, num_bins: int, q8: bool, full: bool,
+           threads: int) -> int:
+    """Features a block accumulates: as many planes as fit its shared
+    memory (at most ``threads``; one when a feature's bins span ranges),
+    spread evenly over the fewest groups."""
+    fit = min(threads, _plane_room(q8, full, threads)
+              // (num_bins * _STATS * (4 if q8 else 8)))
+    ngroups = -(-num_features // max(fit, 1))
+    return -(-num_features // ngroups)
+
+
 def gather_layout(num_features: int, num_bins: int,
                   q8: bool) -> Tuple[int, int, int]:
     """The gather form's launch shape: (features a block accumulates, bytes
     of a row of the row-major bin copy, rung entries a scatter block
     stages). A block's planes ([group, B, 3] cells of 8 bytes in f32 mode,
     4 in q8) fill at most its shared memory: 37 features at 255 bins in
-    f32, so the 28 Higgs features take one group."""
+    f32, so the 28 Higgs features take one group; past one feature's
+    plane, one feature a block over ``bin_ranges``."""
     check_bins_cap(num_bins)
-    cell = 4 if q8 else 8
-    fit = min(_GATHER_THREADS, (SMEM_PER_BLOCK - _STATIC_SMEM)
-              // (num_bins * _STATS * cell))
-    ngroups = -(-num_features // fit)
-    group = -(-num_features // ngroups)
-    return group, _row_width(num_features), _SCATTER_TILE
+    return (_group(num_features, num_bins, q8, False, _GATHER_THREADS),
+            _row_width(num_features), _SCATTER_TILE)
 
 
 def check_bins_cap(num_bins: int) -> None:
-    """Raise for more bins a device column than the kernels hold: one
-    feature's [B, 3] plane in one block's shared memory (every layout fits
-    up to ``MAX_BINS_WIDE``)."""
-    if num_bins > MAX_BINS_WIDE:
+    """Raise for more bins a device column than the bin types hold
+    (``MAX_BINS_DEVICE``: ``max_bin`` 65,535 and a NaN bin)."""
+    if num_bins > MAX_BINS_DEVICE:
         raise NotImplementedError(
-            f"{num_bins} bins in a device column exceed the kernels' cap of "
-            f"{MAX_BINS_WIDE} (one feature's plane in one block's shared "
-            f"memory); splitting a feature's bins across blocks arrives "
-            f"with ROADMAP.md Queue 2 item 3")
+            f"{num_bins} bins in a device column exceed the cap of "
+            f"{MAX_BINS_DEVICE} (max_bin 65,535 and a NaN bin: the bin "
+            f"types' range)")
 
 
 def _row_width(num_features: int) -> int:
@@ -676,12 +758,24 @@ def full_layout(num_features: int, num_bins: int,
     planes ([group, B, 3] cells of 8 bytes in f32 mode, 4 in q8): 33
     features fit at 255 bins in f32, so the 28 Higgs features take one
     group; 8 fit at 1,023 bins, so they take 4 groups of 7, and the rows
-    are read 4 times."""
+    are read 4 times; past one feature's plane, one feature a block over
+    ``bin_ranges``."""
     check_bins_cap(num_bins)
-    room = SMEM_PER_BLOCK - _STATIC_SMEM - _FULL_THREADS * (8 if q8 else 28)
-    fit = room // (num_bins * _STATS * (4 if q8 else 8))
-    ngroups = -(-num_features // fit)
-    return -(-num_features // ngroups), _row_width(num_features)
+    return (_group(num_features, num_bins, q8, True, _FULL_THREADS),
+            _row_width(num_features))
+
+
+def launch_shape(num_features: int, num_bins: int, q8: bool, full: bool,
+                 geometry: HistGeometry) -> Tuple[int, int, int]:
+    """(features a block, bins a block's plane, ranges of them) of an
+    accumulate launch under ``geometry`` (its form resolved: ``smem`` or
+    ``global``): the global form keeps no plane, so a block takes up to
+    ``threads`` features and all their bins."""
+    if geometry.form == "global":
+        return min(num_features, geometry.threads), num_bins, 1
+    span, nranges = bin_ranges(num_bins, q8, full, geometry.threads)
+    return (_group(num_features, num_bins, q8, full, geometry.threads),
+            span, nranges)
 
 
 def bins_by_row(binsT: torch.Tensor, width: int) -> torch.Tensor:
@@ -716,7 +810,9 @@ def hist_tile(binsT: torch.Tensor, leaf_ids: torch.Tensor,
               amax: Optional[torch.Tensor] = None,
               dtype: torch.dtype = torch.float32,
               rows: Optional[int] = None,
-              raw: bool = False) -> torch.Tensor:
+              raw: bool = False,
+              geometry: Optional[HistGeometry] = None,
+              sweep: bool = False) -> torch.Tensor:
     """[P, F, B, 3] histogram planes of the computed slots (see the module
     docstring). ``binsT`` [F, N] uint8, ``leaf_ids`` [N] int32, ``stats``
     [N, 3] f32 (f32 mode; float32 planes) or int8 (q8 mode; int32 planes),
@@ -726,7 +822,13 @@ def hist_tile(binsT: torch.Tensor, leaf_ids: torch.Tensor,
     float32 max|stat| of each channel over all N rows, which sets the
     fixed-point scale; a caller that keeps the stats for several passes
     computes it once, and without it every launch computes it. int16
-    ``binsT`` selects the wide mode (up to ``MAX_BINS_WIDE`` bins).
+    ``binsT`` selects the wide mode (up to 32,768 bins), int32 its wider
+    bins (up to ``MAX_BINS_DEVICE``). ``geometry``: the accumulate
+    launches' ``HistGeometry`` (None: ``DEFAULT_GEOMETRY``; the form
+    ``auto`` is ``default_form``'s); it changes no bit of the planes.
+    ``sweep``: a launch of ``autotune_hist``'s timing passes, counted in
+    ``autotune_hist.launches`` alone (a training's ``hist_tile``
+    counters then hold its own passes).
     ``dtype`` torch.float64 selects the f64 mode (``gpu_use_dp``): float
     stats, the same fixed-point sums converted once to float64 planes; a
     plane-only launch only (the fused path's epilogue takes float32).
@@ -741,8 +843,14 @@ def hist_tile(binsT: torch.Tensor, leaf_ids: torch.Tensor,
     into the planes one pass over all the gang's rows gives. In q8 mode
     the planes are integer already (int32) and ``raw`` changes nothing."""
     q8 = stats.dtype == torch.int8
-    wide = binsT.dtype == torch.int16
+    wide = binsT.dtype != torch.uint8
     dp = dtype == torch.float64
+    geo = DEFAULT_GEOMETRY if geometry is None else HistGeometry(*geometry)
+    _check(geo.form in HIST_FORMS and geo.block_rows >= 0
+           and 32 <= geo.threads <= 1024 and geo.threads % 32 == 0,
+           f"hist_tile: geometry {tuple(geo)} outside the kernels' "
+           f"(block_rows >= 0, threads a multiple of 32 up to 1,024, form "
+           f"one of {HIST_FORMS})")
     raw = raw and not q8
     _check(not raw or (plane and not dp), "hist_tile: the integer-planes "
            "mode is a plane-only launch of the f32 mode")
@@ -774,8 +882,9 @@ def hist_tile(binsT: torch.Tensor, leaf_ids: torch.Tensor,
            f"{binsT.device}")
     f, n = binsT.shape
     dev = binsT.device
-    for name, t, dt in (("binsT", binsT, torch.int16 if wide
-                         else torch.uint8),
+    _check(binsT.dtype in _BIN_CAPS, f"hist_tile: bins must be uint8, int16 "
+           f"or int32, not {binsT.dtype}")
+    for name, t, dt in (("binsT", binsT, binsT.dtype),
                         ("leaf_ids", leaf_ids, torch.int32),
                         ("stats", stats, torch.int8 if q8 else torch.float32),
                         ("chan", chan, torch.int32)) + (
@@ -794,9 +903,8 @@ def hist_tile(binsT: torch.Tensor, leaf_ids: torch.Tensor,
     _check(chan.numel() == _PAD, "hist_tile: chan must hold 128 lanes")
     _check(1 <= num_slots and num_slots * _STATS <= _PAD,
            f"hist_tile: {num_slots} slots exceed the 128-lane tables")
-    cap = MAX_BINS_WIDE if wide else MAX_BINS
-    if wide:
-        check_bins_cap(num_bins)
+    check_bins_cap(num_bins)
+    cap = _BIN_CAPS[binsT.dtype]
     _check(1 <= num_bins <= cap, f"hist_tile: num_bins {num_bins} outside "
            f"[1, {cap}] for {binsT.dtype} bins")
     _check(n < 2 ** 31, "hist_tile: more than 2^31 rows")
@@ -813,36 +921,46 @@ def hist_tile(binsT: torch.Tensor, leaf_ids: torch.Tensor,
         return out.zero_()
     lib = _lib("hist_tile")
     stream = torch.cuda.current_stream(dev).cuda_stream
-    if idx is None and active <= 1:
+    full = idx is None and active <= 1
+    if geo.form == "auto":
+        geo = geo._replace(form=default_form(num_bins, q8))
+    shape = launch_shape(f, num_bins, q8, full, geo)
+    if full:
         err = _launch_full(lib, binsT, leaf_ids, stats, lanes, comp_np, amax,
                            out, q8, dp, n, f, num_slots, num_bins, stream,
-                           exp_rows, raw)
+                           exp_rows, raw, geo, shape)
     else:
         err = _launch_gather(lib, binsT, leaf_ids, stats, lanes, comp_np,
                              idx, amax, out, q8, dp, n, f, m, num_slots,
                              num_bins, num_leaves, active, stream, exp_rows,
-                             raw)
-    sfx = ("_wide" if wide else "") + ("_q8" if q8 else "_dp" if dp
-                                       else "_raw" if raw else "")
-    _count(hist_tile, "launches" + sfx)
-    if idx is not None:
-        _count(hist_tile, "gather_launches" + sfx)
-    if plane:
-        _count(hist_tile, "launches_plane" + sfx)
+                             raw, geo, shape)
+    # _wider: one feature's plane does not fit a block (either form)
+    split = bin_ranges(num_bins, q8, full, geo.threads)[1] > 1
+    sfx = ("_wider" if split else "_wide" if wide else "") + (
+        "_q8" if q8 else "_dp" if dp else "_raw" if raw else "")
+    if sweep:
+        _count(autotune_hist, "launches")
+    else:
+        _count(hist_tile, "launches" + sfx)
+        if idx is not None:
+            _count(hist_tile, "gather_launches" + sfx)
+        if plane:
+            _count(hist_tile, "launches_plane" + sfx)
     _raise_on(err, "hist_tile")
     return out
 
 
 def _launch_full(lib, binsT, leaf_ids, stats, lanes, comp_np, amax, out,
-                 q8, dp, n, f, p, b, stream, exp_rows, raw) -> int:
+                 q8, dp, n, f, p, b, stream, exp_rows, raw, geo,
+                 shape) -> int:
     """The full-row form of a tile with one computed slot: full_accumulate
     over the row-major bins, convert (csrc/hist_tile.cu); a tile with none
     launches the convert alone, which writes zeros. No slot table on the
     device (the slot and its leaf go as arguments) and one scratch buffer,
     zeroed by the launcher (the integer sums and stat_absmax's words when
     ``amax`` is None); no host sync. Returns the launcher's cudaError."""
-    group, width = full_layout(f, b, q8)
-    rows = bins_by_row(binsT, width)
+    group, span, nranges = shape
+    rows = bins_by_row(binsT, _row_width(f))
     on = np.flatnonzero(comp_np == 0)
     slot, target = (int(on[0]), int(lanes[on[0]])) if on.size else (-1, -1)
     amax_off = -(-f * b * _STATS * (4 if q8 else 8) // 8) * 8
@@ -853,13 +971,14 @@ def _launch_full(lib, binsT, leaf_ids, stats, lanes, comp_np, amax, out,
         _ptr(rows), _ptr(leaf_ids), _ptr(stats),
         None if q8 else (base + amax_off if amax is None else _ptr(amax)),
         int(amax is None and not q8), base, scratch.numel() * 8, base,
-        _ptr(out), int(q8), int(rows.dtype == torch.int16), int(dp), n, f,
-        p, b, slot, target, group, width, exp_rows, int(raw), stream)
+        _ptr(out), int(q8), rows.element_size(), int(dp), n, f, p, b, slot,
+        target, group, span, nranges, geo.block_rows, geo.threads,
+        int(geo.form == "global"), rows.shape[1], exp_rows, int(raw), stream)
 
 
 def _launch_gather(lib, binsT, leaf_ids, stats, lanes, comp_np, idx, amax,
                    out, q8, dp, n, f, m, p, b, l, active, stream, exp_rows,
-                   raw) -> int:
+                   raw, geo, shape) -> int:
     """The gather form: partition the rung's rows into slot-grouped runs of
     (row, stats), accumulate them over the row-major bins, convert
     (csrc/hist_tile.cu); ``idx`` None is the full form of a tile with
@@ -870,8 +989,8 @@ def _launch_gather(lib, binsT, leaf_ids, stats, lanes, comp_np, idx, amax,
     slot counts and cursors, and stat_absmax's words when ``amax`` is
     None); no host sync. Returns the launcher's cudaError."""
     dev = binsT.device
-    group, width, tile = gather_layout(f, b, q8)
-    rows = bins_by_row(binsT, width)
+    group, span, nranges = shape
+    rows = bins_by_row(binsT, _row_width(f))
     table = np.full((l + p,), -1, dtype=np.int32)
     table[lanes[comp_np >= 0]] = comp_np[comp_np >= 0]
     table[l:] = comp_np
@@ -889,8 +1008,9 @@ def _launch_gather(lib, binsT, leaf_ids, stats, lanes, comp_np, idx, amax,
         None if q8 else (base + amax_off if amax is None else _ptr(amax)),
         int(amax is None and not q8), base, scratch.numel() * 8,
         base + cnt_off, _ptr(payload), base, _ptr(out), int(q8),
-        int(rows.dtype == torch.int16), int(dp), n, f, m, p, b, l, active,
-        group, width, tile, exp_rows, int(raw), stream)
+        rows.element_size(), int(dp), n, f, m, p, b, l, active, group, span,
+        nranges, geo.block_rows, geo.threads, int(geo.form == "global"),
+        rows.shape[1], _SCATTER_TILE, exp_rows, int(raw), stream)
 
 
 def hist_convert(acc: torch.Tensor, amax: torch.Tensor, rows: int,
@@ -946,6 +1066,221 @@ def _count(fn, name: str) -> None:
     profiling.note_launch()
 
 
+# -------------------------------------------------------------- roofline
+_MODE_BYTES = {"f32": (4, 4), "q8": (1, 4), "f64": (4, 8), "raw": (4, 8)}
+
+
+def traffic_model(n: int, f: int, b: int, p: int, s: int = _STATS,
+                  mode: str = "f32", gathered_rows: Optional[int] = None, *,
+                  tile_rows: Optional[int] = None, bin_bytes: int = 1,
+                  derived: Optional[int] = None,
+                  tiles_read: Optional[int] = None,
+                  threads: int = 1024) -> Dict[str, int]:
+    """HBM bytes of one histogram tile pass of each form on the card (the
+    JAX package's ``traffic_model`` re-derived for the Hopper kernels; a
+    static count from shapes, not a measurement). ``n`` rows, ``f``
+    features, ``b`` bins, ``p`` slots of ``s`` stats; ``mode`` f32, q8,
+    f64 (float64 planes) or raw (the integer-planes mode's int64 planes);
+    ``gathered_rows`` the rung's M (None: a full pass); ``tile_rows`` the
+    rows in the tile's computed slots (default all n); ``bin_bytes`` 1, 2
+    or 4; ``derived`` the epilogue's derived slots (default p // 2) and
+    ``tiles_read`` the computed tile planes it reads (default p -
+    derived).
+
+    The least bytes a form must move (each input read once, each output
+    written once; the kernels' bounds):
+
+    - ``full``: the leaf id of every row, the bins and stats of the tile's
+      rows, the [p, f, b, s] planes written;
+    - ``gather``: the rung's row ids, the leaf and bins and stats of the
+      tile's rows, the planes;
+    - ``epilogue``: the tile planes it reads, the derived slots' parent
+      planes, every full plane written, the candidates and small tables.
+
+    What the kernels themselves move (``full_kernels``, ``gather_kernels``):
+    the full form reads every row's leaf and stats once a block row
+    (feature group x bin range) and the tile rows' bins once a bin range,
+    adds into the [f, b, s] integer sums (8 bytes a cell in f32, 4 in q8)
+    and converts them; the gather form's ``gather_count`` reads the rung's
+    ids and leaves, ``gather_scatter`` reads them again with the tile
+    rows' stats and writes the payload (32 bytes a row in f32, 8 in q8),
+    ``gather_accumulate`` reads the payload once a block row and the bins
+    once a bin range, and the convert reads the sums and writes the
+    planes. ``ranges`` / ``gather_ranges`` are the bin ranges a feature is
+    cut into (``bin_ranges``); ``split_rows``: the bytes the bin-range
+    split's repeated row reads add to the full form."""
+    stat_b, out_b = _MODE_BYTES[mode]
+    q8 = mode == "q8"
+    t = n if tile_rows is None else int(tile_rows)
+    planes = p * f * b * s * out_b
+    tile_bytes = t * (f * bin_bytes + s * stat_b)
+    out = {"full": 4 * n + tile_bytes + planes}
+    d = p // 2 if derived is None else int(derived)
+    tr = p - d if tiles_read is None else int(tiles_read)
+    out["epilogue"] = ((tr + d + p) * f * b * s * 4 + p * f * 12 * 4
+                       + p * 8 * 4 + f * 8 * 4 + 8 * 4 + (12 if q8 else 0))
+    acc_b = 4 if q8 else 8
+    span, nranges = bin_ranges(b, q8, True, threads)
+    groups = -(-f // _group(f, b, q8, True, threads))
+    sums = f * b * s * acc_b
+    out["ranges"] = nranges
+    out["full_kernels"] = (groups * nranges * n * (4 + s * stat_b)
+                           + nranges * t * f * bin_bytes + 2 * sums + planes)
+    out["split_rows"] = ((nranges - 1) * (groups * n * (4 + s * stat_b)
+                                          + t * f * bin_bytes))
+    if gathered_rows is not None:
+        m = int(gathered_rows)
+        out["gather"] = 4 * m + 4 * t + tile_bytes + planes
+        gspan, granges = bin_ranges(b, q8, False, threads)
+        ggroups = -(-f // _group(f, b, q8, False, threads))
+        payload = 8 if q8 else 32
+        active = sums * max(1, p // 2)
+        out["gather_ranges"] = granges
+        out["gather_kernels"] = (
+            8 * m                                        # gather_count
+            + 8 * m + t * s * stat_b + t * payload       # gather_scatter
+            + ggroups * granges * t * payload            # accumulate
+            + granges * t * f * bin_bytes + active
+            + active + planes)                           # the convert
+    return out
+
+
+# ---------------------------------------------------------------- autotune
+# the winner per (F, B, log2 row bucket, q8, epilogue), as the JAX
+# package's _tuned
+_tuned: Dict[tuple, dict] = {}
+BLOCK_CANDIDATES = (0, 8192, 32768)      # rows a block; 0 = one wave
+THREAD_CANDIDATES = (1024, 512)
+SWEEP_REPS = 3                           # timed runs a candidate, best kept
+
+
+def hist_candidates(num_features: int, num_bins: int, q8: bool,
+                    block_candidates=BLOCK_CANDIDATES):
+    """The geometries ``autotune_hist`` times: each rows-a-block and
+    threads-a-block pair in the form ``default_form`` takes (the first is
+    ``DEFAULT_GEOMETRY`` with that form resolved, the choice without a
+    sweep), and where a feature's bins do not fit one block the other
+    form, one wave, at each threads-a-block."""
+    form = default_form(num_bins, q8)
+    cands = [HistGeometry(blk, th, form) for th in THREAD_CANDIDATES
+             for blk in block_candidates]
+    if bin_ranges(num_bins, q8, False)[1] > 1 or \
+            bin_ranges(num_bins, q8, True)[1] > 1:
+        other = "smem" if form == "global" else "global"
+        cands += [HistGeometry(0, th, other) for th in THREAD_CANDIDATES]
+    return cands
+
+
+def autotune_pass(binsT: torch.Tensor, num_bins: int, q8: bool,
+                  sample_rows: int):
+    """The sweep's passes on a sampled prefix of ``binsT``'s rows: the
+    root pass (one computed slot, every row) and a gather pass over every
+    other row as the fused path's tile lays it out (the structural tile's
+    slots, the even ones computed: 21 leaves, whose integer sums decide
+    whether the global form's atomics stay in L2); ones as stats. A
+    geometry's rows a block shrink with the sample (k of N rows: rows a
+    block x k / N, at least 32), so each pass launches the grid the full
+    pass would, and each block flushes as many planes as there: a fixed
+    count at the sample's size would time a quarter of the blocks a
+    2M-row pass takes. Returns a function of a geometry that runs both
+    and returns their planes (each launch counted in
+    ``autotune_hist.launches``)."""
+    f, n = binsT.shape
+    k = max(1, min(n, int(sample_rows)))
+    sub = binsT[:, :k].contiguous()
+    dev = binsT.device
+    stats = torch.ones((k, _STATS), dtype=torch.int8 if q8
+                       else torch.float32, device=dev)
+    tile = structural_tile_leaves()
+    half = max(1, tile // 2)
+    leaf = ((torch.arange(k, device=dev) // 2) % half).to(torch.int32)
+    zero = torch.zeros_like(leaf)
+    idx = torch.arange(0, k, 2, dtype=torch.int32, device=dev)
+    root = chan_leaf_table(torch.tensor([0, -1], dtype=torch.int32))
+    sel = torch.full((tile,), -1, dtype=torch.int32)
+    sel[0::2] = torch.arange(half, dtype=torch.int32)
+    pairs = chan_leaf_table(sel)
+
+    def run(geo):
+        if geo.block_rows:
+            geo = geo._replace(block_rows=max(32, geo.block_rows * k // n))
+        return (hist_tile(sub, zero, stats, root, 2, num_bins, 2,
+                          geometry=geo, sweep=True),
+                hist_tile(sub, leaf, stats, pairs, tile, num_bins, half, idx,
+                          geometry=geo, sweep=True))
+    return run
+
+
+def autotune_hist(binsT: torch.Tensor, num_bins: int, q8: bool = False,
+                  epilogue: bool = False, sample_rows: int = 262144,
+                  block_candidates=BLOCK_CANDIDATES,
+                  force_measure: bool = False) -> dict:
+    """Measured launch geometry of ``hist_tile`` for this shape bucket (the
+    JAX package's ``autotune_hist``): on a CUDA tensor, time each of
+    ``hist_candidates`` on the root pass and a gather pass over a sampled
+    prefix of ``sample_rows`` rows (the best of ``SWEEP_REPS`` runs after
+    one warm run, CUDA events), and keep the fastest per (F, B, log2 row
+    bucket, q8, epilogue). Every candidate gives the same planes (the sums
+    are fixed-point integers), so the choice changes no bit. ``epilogue``
+    keys the cache on the pass's form as the JAX package does (a geometry
+    tuned for the plane-only pass never rides into the fused one); the
+    epilogue launch itself takes no geometry. The leaf batch is
+    structural (``structural_tile_leaves``). Off the card it returns the
+    defaults without timing (``force_measure`` times on the host, for
+    tests). Returns ``{"block", "threads", "form", "tile_leaves",
+    "epilogue", "times_ms"}`` (0 and "" keep the defaults)."""
+    tile = structural_tile_leaves()
+    if binsT.device.type != "cuda" and not force_measure:
+        return {"block": 0, "threads": 0, "form": "", "tile_leaves": 0,
+                "epilogue": bool(epilogue), "times_ms": {}}
+    f, n = binsT.shape
+    key = (f, int(num_bins), max(n, 1).bit_length(), bool(q8),
+           bool(epilogue))
+    hit = _tuned.get(key)
+    if hit is not None:
+        return hit
+    run = autotune_pass(binsT, num_bins, q8, sample_rows)
+    cuda = binsT.device.type == "cuda"
+    times = {}
+    for geo in hist_candidates(f, num_bins, q8, block_candidates):
+        run(geo)                                 # warm (and the build)
+        best = float("inf")
+        for _ in range(SWEEP_REPS):
+            if cuda:
+                ev = [torch.cuda.Event(enable_timing=True) for _ in "ab"]
+                ev[0].record()
+                run(geo)
+                ev[1].record()
+                ev[1].synchronize()
+                best = min(best, ev[0].elapsed_time(ev[1]))
+            else:
+                t0 = time.perf_counter()
+                run(geo)
+                best = min(best, (time.perf_counter() - t0) * 1e3)
+        times[geo] = best
+    win = min(times, key=times.get)
+    from ..utils import log
+    log.info("hist_tile autotune: " + ", ".join(
+        f"rows{g.block_rows}/t{g.threads}/{g.form}={ms:.3f}ms"
+        for g, ms in times.items())
+        + f" -> {tuple(win)} (F={f}, B={num_bins}, q8={q8}, "
+        f"epilogue={epilogue}, {min(n, sample_rows)} sampled rows)")
+    out = {"block": win.block_rows, "threads": win.threads,
+           "form": win.form, "tile_leaves": tile, "epilogue": bool(epilogue),
+           "times_ms": {"/".join(map(str, g)): ms for g, ms in times.items()}}
+    _tuned[key] = out
+    return out
+
+
+def tuned_geometry(tuned: dict) -> Optional[HistGeometry]:
+    """The ``HistGeometry`` of an ``autotune_hist`` result (None: the
+    defaults)."""
+    if not tuned or not tuned.get("threads"):
+        return None
+    return HistGeometry(int(tuned["block"]), int(tuned["threads"]),
+                        str(tuned["form"]))
+
+
 # ------------------------------------------------------------- split_epilogue
 def split_epilogue_plain(tile: torch.Tensor, parent: torch.Tensor,
                          der: torch.Tensor, la: torch.Tensor, fm: torch.Tensor,
@@ -982,7 +1317,8 @@ def split_epilogue(tile: torch.Tensor, parent: torch.Tensor,
     ``launches_mono_q8``), and each of them above 256 bins (the wide
     mode, up to ``MAX_BINS_WIDE``) its own again (``launches_wide``,
     ``launches_wide_q8``, ``launches_wide_mono``,
-    ``launches_wide_mono_q8``)."""
+    ``launches_wide_mono_q8``), and above it (the wider mode, up to
+    ``MAX_BINS_DEVICE``) again (``launches_wider*``)."""
     q8 = q_scale is not None
     if tile.device.type == "cpu":
         return split_epilogue_plain(tile, parent, der, la, fm, pv, q_scale,
@@ -1007,7 +1343,7 @@ def split_epilogue(tile: torch.Tensor, parent: torch.Tensor,
                f"{tuple(t.shape)} != {shape}")
         _check(t.is_contiguous(), f"split_epilogue: {name} not contiguous")
     check_bins_cap(b)
-    _check(s == _STATS and p * _STATS <= _PAD and 1 <= b <= MAX_BINS_WIDE,
+    _check(s == _STATS and p * _STATS <= _PAD and 1 <= b,
            f"split_epilogue: tile shape {tuple(tile.shape)} unsupported")
     from .split import CAND_CHANNELS
     full = torch.empty_like(parent)
@@ -1016,7 +1352,8 @@ def split_epilogue(tile: torch.Tensor, parent: torch.Tensor,
         _ptr(tile), _ptr(q_scale), _ptr(parent), _ptr(der), _ptr(la),
         _ptr(fm), _ptr(pv), _ptr(full), _ptr(cand), p, f, b,
         int(with_monotone), torch.cuda.current_stream(dev).cuda_stream)
-    _count(split_epilogue, "launches" + ("_wide" if b > MAX_BINS else "")
+    _count(split_epilogue, "launches" + ("_wider" if b > MAX_BINS_WIDE
+                                         else "_wide" if b > MAX_BINS else "")
            + ("_mono" if with_monotone else "") + ("_q8" if q8 else ""))
     _raise_on(err, "split_epilogue")
     return full, cand
@@ -1127,10 +1464,13 @@ def launch_counts() -> Dict[str, int]:
 
 
 register_counters(hist_tile, tuple(
-    c + w + q for w in ("", "_wide") for q in ("", "_q8", "_dp", "_raw")
+    c + w + q for w in ("", "_wide", "_wider")
+    for q in ("", "_q8", "_dp", "_raw")
     for c in ("launches", "gather_launches", "launches_plane")))
+register_counters(autotune_hist, ("launches",))
 register_counters(hist_convert, ("launches", "launches_dp"))
 register_counters(split_epilogue, tuple(
-    "launches" + w + m + q for w in ("", "_wide") for m in ("", "_mono")
+    "launches" + w + m + q for w in ("", "_wide", "_wider")
+    for m in ("", "_mono")
     for q in ("", "_q8")))
 register_counters(hist_onehot, ("launches",))

@@ -75,7 +75,9 @@ def histogram_tiles(binsT: torch.Tensor, stats: torch.Tensor,
                     amax: Optional[torch.Tensor] = None,
                     dtype: torch.dtype = torch.float32,
                     rows: Optional[int] = None,
-                    raw: bool = False) -> torch.Tensor:
+                    raw: bool = False,
+                    geometry: Optional[cuda_hist.HistGeometry] = None
+                    ) -> torch.Tensor:
     """[P, F, B, 3] planes: slot p accumulates the rows whose leaf is
     ``sel[p]`` (< 0 = inactive slot, zero output); ``gather_idx`` restricts
     the pass to those rows (entries >= N are padding). Every slot is
@@ -86,11 +88,13 @@ def histogram_tiles(binsT: torch.Tensor, stats: torch.Tensor,
     ``index_add_`` of the JAX package's f64 scatter on the CPU); exact
     int32 planes of int8 stats (q8). ``amax``: the float stats' max|stat|
     per channel, when the caller has it; ``rows`` and ``raw``: the
-    integer-planes mode of the distributed learners (``hist_tile``)."""
+    integer-planes mode of the distributed learners; ``geometry``: the
+    accumulate launches' (``hist_tile``)."""
     chan = cuda_hist.chan_leaf_table(sel)
     return cuda_hist.hist_tile(binsT, leaf_ids, stats, chan, sel.shape[0],
                                num_bins, num_leaves, gather_idx, plane=plane,
-                               amax=amax, dtype=dtype, rows=rows, raw=raw)
+                               amax=amax, dtype=dtype, rows=rows, raw=raw,
+                               geometry=geometry)
 
 
 def epilogue_supported(p: int, s: int) -> bool:
@@ -137,18 +141,21 @@ def histogram_tiles_with_candidates(binsT, stats, leaf_ids, sel, derive,
                                     parent_planes, leaf_aux, fmeta, pvec,
                                     num_bins: int, num_leaves: int,
                                     gather_idx=None, q_scale=None,
-                                    amax=None, with_monotone: bool = False):
+                                    amax=None, with_monotone: bool = False,
+                                    geometry=None):
     """Histogram tile pass + split epilogue: the computed (even) slots are
     histogrammed, the derived (odd) slots come from parent - sibling, and
     every (leaf, feature) reduces to its best candidate. In q8 mode
     (int8 ``stats``) the epilogue dequantizes the int32 tile by
     ``q_scale`` first; ``amax`` as ``histogram_tiles``';
     ``with_monotone``: the epilogue's monotone mode (bounds in
-    ``leaf_aux``, directions in ``fmeta``). Returns (float32 tile
+    ``leaf_aux``, directions in ``fmeta``); ``geometry`` as
+    ``histogram_tiles``'. Returns (float32 tile
     [P, F, B, 3] with the derived planes filled in, cand [P, F, 12])."""
     sel_compute = torch.where(derive, torch.full_like(sel, -1), sel)
     tile = histogram_tiles(binsT, stats, leaf_ids, sel_compute, num_bins,
-                           num_leaves, gather_idx, plane=False, amax=amax)
+                           num_leaves, gather_idx, plane=False, amax=amax,
+                           geometry=geometry)
     der = cuda_hist._epilogue_lanes(sel, derive).to(tile.device)
     return cuda_hist.split_epilogue(tile, parent_planes.contiguous(), der,
                                     leaf_aux.contiguous(), fmeta.contiguous(),

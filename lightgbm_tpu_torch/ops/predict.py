@@ -25,7 +25,7 @@ there: on a CUDA tensor it launches the kernel (built with the others by
 ``ops/cuda_hist.build_kernels``) or raises. Each launch adds one to its
 accumulation mode's counter (``launches`` for float64,
 ``launches_compensated``, ``launches_f32``, ``launches_leaves``; ``_wide``
-for int16 bins) and one to its geometry's
+for int16 and int32 bins) and one to its geometry's
 (``predict_ensemble_geometry.launches_<mode>``).
 """
 
@@ -65,9 +65,10 @@ class EnsembleTables(NamedTuple):
     leaf's edge count, the plain version's trip count; ``stage`` [T,
     stage_bytes] uint8 the trees as the tiled mode reads them
     (``stage_ensemble``; packed for a CUDA device when the trees can take
-    that mode, None otherwise); ``has_cat`` / ``has_seg`` whether any node
-    is categorical / an EFB segment's (such ensembles take the global
-    mode)."""
+    that mode, None otherwise); ``has_cat`` / ``has_seg`` / ``has_wide``
+    whether any node is categorical / an EFB segment's / split at a bin
+    of 4,096 or more, past a record's 12-bit field (such ensembles take
+    the global mode)."""
     stacked: TreeArrays
     nodes: torch.Tensor
     bits: torch.Tensor
@@ -75,6 +76,7 @@ class EnsembleTables(NamedTuple):
     stage: Optional[torch.Tensor] = None
     has_cat: bool = False
     has_seg: bool = False
+    has_wide: bool = False
 
 
 class StageLayout(NamedTuple):
@@ -97,10 +99,12 @@ def stage_layout(node_cap: int, leaf_cap: int) -> StageLayout:
 
 
 def stageable(node_cap: int, leaf_cap: int, has_cat: bool,
-              has_seg: bool) -> bool:
+              has_seg: bool, has_wide: bool = False) -> bool:
     """Whether trees of this shape can take the tiled mode: numerical
-    nodes only and a stage of at most 16 KB (1,023 leaves)."""
-    return (not has_cat and not has_seg
+    nodes only, every threshold below 4,096 (a record's field; the kernel
+    folds larger bins, ``csrc/predict_ensemble.cu`` fold_bin) and a stage
+    of at most 16 KB (1,023 leaves)."""
+    return (not has_cat and not has_seg and not has_wide
             and stage_layout(node_cap, leaf_cap).bytes <= _STAGE_MAX)
 
 
@@ -224,7 +228,7 @@ class Geometry(NamedTuple):
 
 def launch_geometry(n: int, f: int, bin_bytes: int, node_cap: int,
                     leaf_cap: int, has_cat: bool, has_seg: bool = False,
-                    sms: int = _SMS) -> Geometry:
+                    sms: int = _SMS, has_wide: bool = False) -> Geometry:
     """The kernel's geometry for ``n`` rows of ``f`` bins of ``bin_bytes``
     each over trees of ``node_cap`` records and ``leaf_cap`` leaves. The
     rule, from the shape alone:
@@ -247,7 +251,7 @@ def launch_geometry(n: int, f: int, bin_bytes: int, node_cap: int,
     lay = stage_layout(node_cap, leaf_cap)
     glob = Geometry("global", max(-(-n // _GLOBAL_THREADS), 1),
                     _GLOBAL_THREADS, 1, _GLOBAL_THREADS, 0, 0, lay, 0, 0)
-    if not (stageable(node_cap, leaf_cap, has_cat, has_seg)
+    if not (stageable(node_cap, leaf_cap, has_cat, has_seg, has_wide)
             and 1 <= f <= _REC_MAX):
         return glob
     threads = next((th for th in _TILE_THREADS
@@ -286,13 +290,15 @@ def pack_ensemble(stacked: TreeArrays, depth: int, device) -> EnsembleTables:
     dev_nodes = nodes.contiguous().to(device)
     has_cat = bool(stacked.node_cat.any()) if li else False
     has_seg = bool((stacked.node_seg_lo >= 0).any()) if li else False
+    has_wide = bool((nodes[:, :li, 1] >= _REC_MAX).any()) if li else False
     stage = None
     if torch.device(device).type == "cuda" and stageable(
-            nodes.shape[1], stacked.leaf_value.shape[1], has_cat, has_seg):
+            nodes.shape[1], stacked.leaf_value.shape[1], has_cat, has_seg,
+            has_wide):
         stage = stage_ensemble(dev_stacked, dev_nodes, int(depth))
     return EnsembleTables(dev_stacked, dev_nodes,
                           bits32.contiguous().to(device), int(depth), stage,
-                          has_cat, has_seg)
+                          has_cat, has_seg, has_wide)
 
 
 def predict_ensemble_plain(tables: EnsembleTables, binsT: torch.Tensor,
@@ -381,7 +387,8 @@ def predict_ensemble(tables: EnsembleTables, binsT: torch.Tensor,
                      carry: Optional[Carry] = None, accum: str = "float64",
                      leaves: bool = False) -> Union[Carry, torch.Tensor]:
     """Walk trees [a, b) of ``tables`` over ``binsT`` [F, N] (uint8, or
-    int16 in the wide mode; a column slice of a wider matrix is fine) and
+    int16 / int32 in the wide mode; a column slice of a wider matrix is
+    fine) and
     accumulate into ``carry`` [N, k] (None: zeros; updated in place and
     returned), or (``leaves``) return the leaves [b - a, N] int32.
     ``bias`` [T] float64 comes off each tree's value first; rows whose
@@ -396,8 +403,8 @@ def predict_ensemble(tables: EnsembleTables, binsT: torch.Tensor,
            f"mode {accum!r}")
     _check(0 <= a <= b <= t_count, f"predict_ensemble: tree range "
            f"[{a}, {b}) outside [0, {t_count}]")
-    _check(binsT.dtype in (torch.uint8, torch.int16),
-           f"predict_ensemble: bins must be uint8 or int16, not "
+    _check(binsT.dtype in (torch.uint8, torch.int16, torch.int32),
+           f"predict_ensemble: bins must be uint8, int16 or int32, not "
            f"{binsT.dtype}")
     _check(n == 0 or binsT.stride(1) == 1,
            "predict_ensemble: the bins' rows must be contiguous")
@@ -432,7 +439,7 @@ def predict_ensemble(tables: EnsembleTables, binsT: torch.Tensor,
                                       bias, active, carry, accum, leaves)
     _check(dev.type == "cuda", f"predict_ensemble: no kernel for device "
            f"{dev}")
-    wide = binsT.dtype == torch.int16
+    wide = binsT.dtype != torch.uint8
     mb = missing_bin.to(torch.int32).contiguous()
     lv = tables.stacked.leaf_value
     nl = tables.stacked.num_leaves.to(torch.int32).contiguous()
@@ -447,7 +454,8 @@ def predict_ensemble(tables: EnsembleTables, binsT: torch.Tensor,
         mode, c0, c1 = _MODE[accum], carry, None
     geo = launch_geometry(n, f, binsT.element_size(),
                           int(tables.nodes.shape[1]), int(lv.shape[1]),
-                          tables.has_cat, tables.has_seg, _sm_count(dev))
+                          tables.has_cat, tables.has_seg, _sm_count(dev),
+                          tables.has_wide)
     stage = tables.stage if geo.mode == "tiled" else None
     if geo.mode == "tiled":
         _check(stage is not None and stage.device == dev
@@ -456,7 +464,8 @@ def predict_ensemble(tables: EnsembleTables, binsT: torch.Tensor,
                f"[{t_count}, {geo.stage.bytes}] uint8 on {dev} "
                f"(pack_ensemble for that device)")
     err = _lib("predict_ensemble").predict_ensemble_launch(
-        _ptr(binsT), int(wide), int(binsT.stride(0)), n, f, _ptr(mb),
+        _ptr(binsT), binsT.element_size(), int(binsT.stride(0)), n, f,
+        _ptr(mb),
         _ptr(tables.nodes), _ptr(tables.bits), int(tables.bits.shape[2]),
         int(tables.nodes.shape[1]), _ptr(lv), int(lv.shape[1]), _ptr(nl), a,
         b, int(k), _ptr(bias), _ptr(act), _ptr(c0), _ptr(c1), _ptr(out),

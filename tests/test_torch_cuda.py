@@ -52,7 +52,15 @@ bitwise ``hist_tile_exact`` (f32) or the exact plain sums (q8), two
 launches equal and counted apart from the uint8 mode; the epilogue's wide
 mode at B = 257 to 4,096, f32 and q8, unconstrained and monotone, on
 random planes and the edge cases, bitwise its plain version and a second
-launch. The data layer (wide bins fused, q8 and classic, a 400-category
+launch. Past one block's plane (B = 8,191 to 65,535, int16 and int32
+bins): ``hist_tile``'s bin-range split, its global form and another
+rows-and-threads geometry in the three forms, f32 and q8, bitwise
+``hist_tile_exact`` or the exact sums and two launches equal, the
+integer-planes mode too; the wider epilogue (B = 4,097 to 65,536) in its
+four modes bitwise its plain version; a max_bin 40,000 training's text
+twice the same and the CPU's with the kernel's sums; ``predict_ensemble``
+folding bins past its records' thresholds (tiled) and taking the global
+geometry for thresholds past 4,095, bitwise. The data layer (wide bins fused, q8 and classic, a 400-category
 feature, CSR with and without EFB, forced bins, max_bin_by_feature, forced
 splits, CEGB split, coupled and lazy): a card training's text twice the
 same and equal to the CPU's. The precision modes: ``hist_tile``'s f64 mode
@@ -896,6 +904,13 @@ def test_split_epilogue_wide_matches_plain(dev, p, f, b, case, q8, mono):
     """The epilogue's wide mode (B > 256, XLA's three-level scan): bitwise
     its plain version and a second launch, in each of its four modes,
     each counted apart."""
+    _epilogue_wide_case(dev, p, f, b, case, q8, mono, "launches_wide")
+
+
+def _epilogue_wide_case(dev, p, f, b, case, q8, mono, counter):
+    """One wide or wider epilogue case: random planes (``case`` None) or
+    an edge case, bitwise the plain version and a second launch, the two
+    launches counted under ``counter`` (+ ``_mono``, ``_q8``) alone."""
     if case is None:
         tile, parent, der, la, fm = _epilogue_inputs(p, f, b, b)
         qs = None
@@ -917,7 +932,7 @@ def test_split_epilogue_wide_matches_plain(dev, p, f, b, case, q8, mono):
     cuda_hist.reset_launch_counts()
     kf, kc = cuda_hist.split_epilogue(*args, q, with_monotone=mono)
     kf2, kc2 = cuda_hist.split_epilogue(*args, q, with_monotone=mono)
-    name = ("split_epilogue.launches_wide" + ("_mono" if mono else "")
+    name = ("split_epilogue." + counter + ("_mono" if mono else "")
             + ("_q8" if q8 else ""))
     counts = cuda_hist.launch_counts()
     assert counts[name] == 2 and sum(
@@ -928,6 +943,167 @@ def test_split_epilogue_wide_matches_plain(dev, p, f, b, case, q8, mono):
     assert torch.equal(kf.view(torch.int32), pf.view(torch.int32))
     assert torch.equal(kc.view(torch.int32), kc2.view(torch.int32))
     assert torch.equal(kf.view(torch.int32), kf2.view(torch.int32))
+
+
+# -------------------------------------------- bins past one block's plane
+def _wider_inputs(n, f, b, leaves, seed, q8):
+    """Bins of the dtype the dataset gives ``b`` (int16 up to 32,768,
+    int32 above), half uniform and half skewed toward the low bins, so
+    every bin range of a split feature gets rows; float or int8 stats."""
+    g = torch.Generator().manual_seed(seed)
+    u = torch.rand((f, n), generator=g)
+    u = torch.where(torch.arange(n)[None, :] % 2 == 0, u, u ** 3)
+    binsT = torch.minimum((u * b).to(torch.int64), torch.tensor(b - 1)).to(
+        torch.int16 if b <= 32768 else torch.int32)
+    leaf = torch.randint(0, leaves, (n,), generator=g, dtype=torch.int32)
+    if q8:
+        stats = torch.randint(-127, 128, (n, 3), generator=g).to(torch.int8)
+        stats[:, 2] = 1
+    else:
+        stats = torch.stack([torch.randn(n, generator=g),
+                             torch.rand(n, generator=g), torch.ones(n)], 1)
+    return binsT, leaf, stats.contiguous()
+
+
+WIDER_GEOMETRIES = {"default": None,
+                    "global": cuda_hist.HistGeometry(form="global"),
+                    "smem": cuda_hist.HistGeometry(form="smem"),
+                    "rows4096_t512": cuda_hist.HistGeometry(4096, 512)}
+
+
+@pytest.mark.parametrize("geo", sorted(WIDER_GEOMETRIES))
+@pytest.mark.parametrize("q8", [False, True], ids=["f32", "q8"])
+@pytest.mark.parametrize("form", ["root", "slots", "gather"])
+@pytest.mark.parametrize("b", [8191, 16383, 40000, 65535])
+def test_hist_tile_wider_matches_plain(dev, b, form, q8, geo):
+    """Bins past what one block's shared memory holds (the bin-range
+    split, or the global form), int16 and int32 bins: bitwise
+    ``hist_tile_exact`` (f32) or the exact plain sums (q8), two launches
+    equal, counted as ``_wider`` where a feature's bins span blocks."""
+    n, f = 60_001, 5
+    p = 1 if form == "root" else 42
+    leaves = p + 5
+    binsT, leaf, stats = _wider_inputs(n, f, b, leaves, b + n, q8)
+    sel = torch.arange(p, dtype=torch.int32)
+    chan = cuda_hist.chan_leaf_table(sel)
+    idx = None
+    if form == "gather":
+        keep = torch.nonzero(leaf < 9).reshape(-1)
+        idx = torch.cat([keep, torch.full((13,), n)]).to(torch.int32)
+    args = [t.to(dev) for t in (binsT, leaf, stats, chan)]
+    gidx = None if idx is None else idx.to(dev)
+    g = WIDER_GEOMETRIES[geo]
+    cuda_hist.reset_launch_counts()
+    k = cuda_hist.hist_tile(*args, p, b, leaves, gidx, geometry=g)
+    again = cuda_hist.hist_tile(*args, p, b, leaves, gidx, plane=True,
+                                geometry=g)
+    counts = cuda_hist.launch_counts()
+    full = form == "root"
+    split = cuda_hist.bin_ranges(b, q8, full)[1] > 1
+    sfx = ("_wider" if split else "_wide") + ("_q8" if q8 else "")
+    assert counts["hist_tile.launches" + sfx] == 2
+    ref = (cuda_hist.hist_tile_plain(*args, p, b, leaves, gidx) if q8
+           else cuda_hist.hist_tile_exact(*args, p, b, leaves, gidx))
+    torch.cuda.synchronize()
+    assert torch.equal(k.view(torch.int32), ref.view(torch.int32))
+    assert torch.equal(k.view(torch.int32), again.view(torch.int32))
+
+
+@pytest.mark.parametrize("form", ["root", "gather"])
+def test_hist_tile_wider_integer_planes_match_exact(dev, form):
+    """The integer-planes mode (``raw``) of a split feature at B = 16,383:
+    the int64 sums bitwise ``hist_tile_exact(raw=True)`` in both forms."""
+    n, f, b = 60_001, 5, 16383
+    p = 1 if form == "root" else 42
+    binsT, leaf, stats = _wider_inputs(n, f, b, p + 5, 77, False)
+    chan = cuda_hist.chan_leaf_table(torch.arange(p, dtype=torch.int32))
+    idx = None
+    if form == "gather":
+        idx = torch.nonzero(leaf < 9).reshape(-1).to(torch.int32).to(dev)
+    args = [t.to(dev) for t in (binsT, leaf, stats, chan)]
+    amax = stats.abs().amax(0).to(dev)
+    for g in WIDER_GEOMETRIES.values():
+        k = cuda_hist.hist_tile(*args, p, b, p + 5, idx, plane=True,
+                                amax=amax, rows=2 * n, raw=True, geometry=g)
+        ref = cuda_hist.hist_tile_exact(*args, p, b, p + 5, idx, amax,
+                                        rows=2 * n, raw=True)
+        torch.cuda.synchronize()
+        assert torch.equal(k, ref)
+
+
+# the wider epilogue (B > 4,096: a warp takes chunks in turn, XLA's scan
+# a fourth level): B on the edges of 16 chunks and of 256-chunk groups,
+# one plane, a few, the main path's tile, and the edge cases
+WIDER_BINS = (4097, 4352, 8191, 8192, 8193, 16383, 40000, 65535, 65536)
+WIDER_EPI = ([(6, 6, b, None) for b in WIDER_BINS]
+             + [(42, 28, 8191, None), (42, 28, 16383, None),
+                (1, 1, 4097, None), (1, 1, 65536, None)]
+             + [(6, 6, b, c) for c in EDGE_CASES
+                for b in (4097, 8193, 65535)])
+
+
+@pytest.mark.parametrize("mono", [False, True], ids=["free", "monotone"])
+@pytest.mark.parametrize("q8", [False, True], ids=["f32", "q8"])
+@pytest.mark.parametrize("p,f,b,case", WIDER_EPI)
+def test_split_epilogue_wider_matches_plain(dev, p, f, b, case, q8, mono):
+    """The epilogue past 4,096 bins, in each of its four modes: bitwise
+    its plain version and a second launch, counted as ``_wider``."""
+    _epilogue_wide_case(dev, p, f, b, case, q8, mono, "launches_wider")
+
+
+def test_wider_training_on_card_equals_cpu(dev):
+    """max_bin 40,000 (int32 bins, bins past 32,767): a card training's
+    text twice the same and equal to the CPU's with the kernel's sums;
+    its predictions bitwise those of its trees carried to the CPU."""
+    import lightgbm_tpu_torch as lgb
+    rng = np.random.RandomState(5)
+    n = 50_000
+    X = rng.randn(n, 3)
+    X[rng.rand(n) < 0.05, 1] = np.nan
+    y = (X[:, 0] + np.nan_to_num(X[:, 1]) * 0.5 + rng.randn(n) * 0.3
+         > 0).astype(float)
+    p = {"objective": "binary", "num_leaves": 63, "max_bin": 40000,
+         "min_data_in_bin": 1, "verbosity": -1}
+    texts = []
+    for _ in range(2):
+        b = lgb.train(dict(p, device_type="cuda"),
+                      lgb.Dataset(X, label=y, params=dict(p)), 3)
+        texts.append(b.model_to_string())
+    assert b._boosting.train_set.binsT.dtype == torch.int32
+    with cuda_hist.kernel_sums_on_cpu():
+        cpu = lgb.train(dict(p, device_type="cpu"),
+                        lgb.Dataset(X, label=y, params=dict(
+                            p, device_type="cpu")), 3)
+    assert texts[0] == texts[1] == cpu.model_to_string()
+    carried = lgb.booster_from_numpy(*lgb.booster_to_numpy(b, "cpu"))
+    np.testing.assert_array_equal(b.predict(X), carried.predict(X))
+
+
+@pytest.mark.parametrize("dtype,b", [(torch.int16, 16383),
+                                     (torch.int32, 40000)])
+def test_predict_ensemble_folds_wide_bins(dev, dtype, b):
+    """Trees whose thresholds lie below 4,096 over wide bins take the tiled
+    mode, which folds every bin from 4,096 up (the missing bin apart):
+    bitwise its plain version; trees with a threshold past it take the
+    global mode, bitwise too."""
+    from lightgbm_tpu_torch.ops import predict as P
+    f, n = 6, 40_000
+    rng = np.random.RandomState(9)
+    binsT = torch.as_tensor(rng.randint(0, b, (f, n)), dtype=dtype)
+    mb = torch.tensor([b - 1, 5000, 3, -1, b - 1, 4096], dtype=torch.int32)
+    for j in range(f):
+        if mb[j] >= 0:
+            binsT[j, rng.rand(n) < 0.1] = int(mb[j])
+    binsT, mb = binsT.to(dev), mb.to(dev)
+    for thr_b, mode in ((4000, "tiled"), (b, "global")):
+        st = _deep_trees(4, 255, f, thr_b, 11, segments=False)
+        tb = P.pack_ensemble(st, int(st.node_left.shape[1]), dev)
+        cuda_hist.reset_launch_counts()
+        out = P.predict_ensemble(tb, binsT, mb, (0, 4), 1)
+        ref = P.predict_ensemble_plain(tb, binsT, mb, (0, 4), 1, None, None,
+                                       P.new_carry(n, 1, "float64", dev))
+        assert torch.equal(out, ref), mode
+        assert getattr(P.predict_ensemble_geometry, "launches_" + mode) == 1
 
 
 def _data_layer_run(name, tmp):

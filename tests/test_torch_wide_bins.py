@@ -20,8 +20,8 @@ wide mode is held to its plain versions on the card
   fused path (f32, and q8 against the interpreted Pallas q8 kernels), the
   classic path, and a categorical feature of 400 categories (a bitset of
   13 words a node), with the same ``split_fusion`` resolution;
-- a device column above the kernels' cap raises NotImplementedError
-  naming ROADMAP Queue 2 item 3.
+- a device column above the bin types' cap (65,536 bins) raises
+  NotImplementedError.
 """
 
 import numpy as np
@@ -295,17 +295,26 @@ def test_400_category_feature_bitwise(q8):
 
 
 def test_bins_above_the_cap_raise():
-    n = 9000
+    """Past the bin types' cap of 65,536 bins a column (max_bin 65,535
+    and a NaN bin) construction raises; up to it every layout holds a
+    feature, splitting its bins across blocks where one block's shared
+    memory does not."""
+    n = 90000
     X = np.arange(n, dtype=np.float64).reshape(-1, 1)
     y = np.sin(X[:, 0] / 100.0)
-    ds = lt.Dataset(X, label=y, params={"max_bin": 6000, "min_data_in_bin": 1,
+    ds = lt.Dataset(X, label=y, params={"max_bin_by_feature": [70000],
+                                        "min_data_in_bin": 1,
                                         "device_type": "cpu",
                                         "verbosity": -1})
-    with pytest.raises(NotImplementedError, match="Queue 2 item 3"):
+    with pytest.raises(NotImplementedError, match="cap of 65536"):
         ds.construct()
-    with pytest.raises(NotImplementedError, match="Queue 2 item 3"):
-        cuda_hist.full_layout(28, cuda_hist.MAX_BINS_WIDE + 1, False)
-    # the cap itself fits both forms' shared memory (2 features a block)
+    with pytest.raises(NotImplementedError, match="cap of 65536"):
+        cuda_hist.full_layout(28, cuda_hist.MAX_BINS_DEVICE + 1, False)
+    # the old cap fits both forms' shared memory (2 features a block)
     assert cuda_hist.full_layout(28, cuda_hist.MAX_BINS_WIDE, False)[0] == 2
     assert cuda_hist.gather_layout(28, 1023, False)[0] == 7
     assert cuda_hist.full_layout(28, 1023, False)[0] == 7
+    # past one block's plane: one feature a block, its bins in ranges
+    assert cuda_hist.full_layout(28, cuda_hist.MAX_BINS_DEVICE, False)[0] == 1
+    assert cuda_hist.bin_ranges(cuda_hist.MAX_BINS_DEVICE, False, True) == (
+        8192, 8)
