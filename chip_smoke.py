@@ -2,7 +2,7 @@
 hand-written kernel against its plain PyTorch version.
 
     python3 chip_smoke.py [--seed 0] [--rows 2000000] [--valid-rows 200000]
-                          [--rounds 5] [--parent DIR]
+                          [--rounds 5] [--parent DIR] [--redesign wide|wider]
                           [--only precision|control|predict|faults|
                                   distributed|resilience|redesign|serve|
                                   construct|widebins]
@@ -585,8 +585,8 @@ reuses; every chunk made from --seed and its index):
 With ``--only construct`` the script runs device, build and this group
 alone, and prints the group's launches by path.
 
-The widebins group (bins past 4,096 a feature: hist_tile's bin-range
-split and global form, split_epilogue_wider, int32 bins past 32,767):
+The widebins group (bins past 4,096 a feature: hist_tile's cluster form,
+split_epilogue_wider, int32 bins past 32,767):
 
   hist_wider      hist_tile at N=2M, F=28, P=42, B = 8,191 / 16,383 /
                   65,535: the root pass and the 1M-row rung, f32 and q8,
@@ -598,11 +598,11 @@ split and global form, split_epilogue_wider, int32 bins past 32,767):
   autotune_wider  autotune_hist at B = 16,383 and 65,535, f32 and q8:
                   each candidate geometry's ms, the winner, every
                   candidate's planes bitwise equal
-  forms_wider     both forms past one block's plane on the same inputs
-                  at B = 16,383 and 65,535, f32 and q8: the root pass, a
-                  1M-row rung of 21 and of 2 computed slots, uniform and
-                  skewed bins (80% in bin 0): each form's ms, planes
-                  bitwise equal between them
+  forms_wider     the cluster form past one block's plane at B = 16,383
+                  and 65,535, f32 and q8: the root pass, a 1M-row rung
+                  of 21 and of 2 computed slots, on uniform and on skewed
+                  bins (80% in bin 0): each case's ms, and skewed over
+                  uniform
   train_wider     train's 2M rows at max_bin 16,383, 255 leaves, f32 and
                   q8, three runs on one Dataset: launches by counter (the
                   wider modes), sec/iter, AUC, two texts equal, the trees
@@ -629,7 +629,19 @@ With ``--only resilience`` the script runs device, build,
 hist_int_planes and this group alone, and prints the two integer-planes
 kernel entries with the group's launches by path.
 
-With ``--only redesign`` the script runs device, build, train,
+With ``--only redesign`` (``--redesign wider``, the default) the script
+runs device, build and the widebins group (its kernel phases,
+train_wider, parity_wider, train_wider_data_parallel), and with
+``--parent DIR`` wider_probes on DIR's package and on this one (parent,
+this, this, parent) around them: hist_tile at the default geometry at B =
+16,383 and 65,535, the root pass and 1M-row rungs of 2 and 21 computed
+slots, f32, q8 and the integer planes, uniform and skewed bins; and
+split_epilogue_wider at B = 8,191, 16,383 and 65,535 in its four modes;
+each event ms, device ms and the sha256 of its outputs, which must be the
+same in every probe. DIR's package also trains train_wider's and
+parity_wider's runs and the gang's, whose texts must equal this run's. It
+prints the wider kernels' entries (``probes`` in each). With
+``--redesign wide`` (the wide epilogue's group) it runs device, build, train,
 epilogue_wide, train_wide, train_wide_q8 and parity_data's four wide runs
 on the card (parity_data_wide: f32, q8, monotone, monotone q8; each
 text's sha256 and launches), and with ``--parent DIR`` the wide
@@ -1162,10 +1174,38 @@ def kernel_phases(cuda_hist, n, valid_rows, seed):
     if not mg["f32"]["is_default"]:
         out["full_root_default_geometry"] = {"higgs": hist_phase(
             cuda_hist, n, root=True, seed=52, bins=bins["higgs"])}
+        out["rungs_default_geometry"] = {
+            str(m): hist_phase(cuda_hist, n, m=m, seed=3) for m in rungs}
     if not mg["q8"]["is_default"]:
         out["q8_full_root_default_geometry"] = {"higgs": hist_q8_phase(
             cuda_hist, n, root=True, seed=56, bins=bins["higgs"])}
+    out["sweep_check"] = sweep_check(out)
     return out
+
+
+SWEEP_SLACK = 1.05   # cuda_hist.SWEEP_SLACK (a parent package has none)
+
+
+def sweep_check(kp):
+    """train's swept geometry against the default on the same call's
+    device ms: the root pass on train's bins and each rung, the kept
+    geometry's over the default's (f32), and whether each is within
+    SWEEP_SLACK; the default kept is within by definition."""
+    if kp["main_geometry"]["f32"]["is_default"]:
+        return {"default_kept": True, "within_slack": True}
+    def over(kept, default):
+        a, b = kept["device_ms"], default["device_ms"]
+        return a / b if not isinstance(a, str) and not isinstance(b, str) \
+            else "not measured"
+    ratio = {"root": over(kp["full_root"]["higgs"],
+                          kp["full_root_default_geometry"]["higgs"])}
+    ratio.update({f"rung_{m}": over(r, kp["rungs_default_geometry"][m])
+                  for m, r in kp["rungs"].items()})
+    measured = [v for v in ratio.values() if not isinstance(v, str)]
+    return {"default_kept": False, "kept_over_default": ratio,
+            "within_slack": (all(v <= SWEEP_SLACK
+                                 for v in measured)
+                             if len(measured) == len(ratio) else None)}
 
 
 def _times(phases):
@@ -1173,7 +1213,7 @@ def _times(phases):
     pick = lambda r: [r["ms"], r["device_ms"]]
     out = {}
     for key, val in phases.items():
-        if key == "main_geometry":
+        if key in ("main_geometry", "sweep_check"):
             continue
         if key == "stress":
             for mode in ("f32", "q8"):
@@ -1210,10 +1250,16 @@ if what == "all":
         cuda_hist, int(sys.argv[3]), int(sys.argv[4]), seed))
     times.update(cs.redesign_probes(cuda_hist, seed))
     times["parity_sha256"] = cs.parity_text_hashes(lgb, seed)
+elif what.startswith("wider"):
+    times = cs.wider_probes(cuda_hist, int(sys.argv[3]), seed)
+    if what == "wider":
+        times["wider_sha256"] = cs.wider_text_hashes(
+            lgb, int(sys.argv[3]), int(sys.argv[4]), seed, int(sys.argv[7]))
 else:
     times = cs.redesign_probes(cuda_hist, seed, cs.WIDE_PASS)
-times["wide_sha256"] = {k: v["sha256"]
-                        for k, v in cs.wide_texts(lgb, seed).items()}
+if not what.startswith("wider"):
+    times["wide_sha256"] = {k: v["sha256"]
+                            for k, v in cs.wide_texts(lgb, seed).items()}
 print(json.dumps(times))
 """
 
@@ -1274,16 +1320,19 @@ def redesign_probes(cuda_hist, seed: int = 0, kernels=PROBES):
 
 
 def parent_times(parent_dir: str, n: int, valid_rows: int, seed: int,
-                 what: str = "all"):
+                 what: str = "all", rounds: int = 5):
     """The other checkout's kernels timed by this script's phases: per
     form, [event ms, device ms]. ``what``: "all" (the hist_tile forms,
     every probe of ``redesign_probes`` and the parity texts' hashes) or
-    "wide" (the wide epilogue's probes); both with the card texts' hashes
-    of parity_data's four wide runs (``wide_sha256``)."""
+    "wide" (the wide epilogue's probes), both with the card texts' hashes
+    of parity_data's four wide runs (``wide_sha256``); "wider" (the probes
+    of ``wider_probes`` and the hashes of train_wider's and parity_wider's
+    texts, ``wider_sha256``, at ``rounds`` rounds) or "wider_probes" (the
+    probes alone)."""
     res = subprocess.run([sys.executable, "-c", PARENT_PROBE,
                           os.path.abspath(parent_dir),
                           os.path.abspath(__file__), str(n),
-                          str(valid_rows), str(seed), what],
+                          str(valid_rows), str(seed), what, str(rounds)],
                          cwd=parent_dir, capture_output=True, text=True,
                          timeout=900)
     if res.returncode != 0:
@@ -3464,8 +3513,8 @@ def train_wide_phase(lgb, cuda_hist, args, ref_auc, q8=False,
 
 # ------------------------------------------------ bins past 4,096 a feature
 # the kernel phases' bins: one f32 plane still fits a full-form block
-# (8,191), each feature's bins split in two ranges (16,383; q8 fits one
-# block), in 7-8 (65,535; int32 bins)
+# (8,191), each feature's plane held by a cluster of two CTAs (16,383; q8
+# fits one block), of 7-8 (65,535; int32 bins)
 WIDER_BINS = (8191, 16383, 65535)
 WIDER_TRAIN_BIN = 16383      # train_wider's max_bin (int16 bins)
 WIDER_PARITY_BIN = 40000     # parity_wider's (int32 bins, past 32,767)
@@ -3477,16 +3526,13 @@ WIDER_AUTOTUNE_BINS = (16383, 65535)
 def wider_hist_phase(cuda_hist, n, seed):
     """hist_tile past 4,096 bins a feature at N=n, F=28, P=42, B in
     WIDER_BINS with the default geometry (where a feature's plane passes
-    a block, the form cuda_hist.default_form takes: the bin-range split,
-    or the global form at 65,535 in f32): the root pass and the 1M-row
-    rung, f32 and q8 (hist_phase / hist_q8_phase: bitwise its own
-    arithmetic or the exact sums, two launches equal, times, one
-    index_add_, traffic_model's bound); the same through the other form
-    at 16,383 and 65,535 (``b<B>_<mode>_other``); and the integer-planes
-    mode at 16,383 (root and 42 slots over one rank's rows,
-    _int_planes_case).
-    The default form's launches are counted from 0 around each B and
-    mode: the wide and wider modes only."""
+    a block, the cluster form): the root pass and the 1M-row rung, f32
+    and q8 (hist_phase / hist_q8_phase: bitwise its own arithmetic or the
+    exact sums, two launches equal, times, one index_add_,
+    traffic_model's bound); and the integer-planes mode at 16,383 (root
+    and 42 slots over one rank's rows, _int_planes_case). The launches
+    are counted from 0 around each B and mode: the wide and wider modes
+    only."""
     m = ladder_rungs(n)[-1]
     out = {}
     for b in WIDER_BINS:
@@ -3502,24 +3548,12 @@ def wider_hist_phase(cuda_hist, n, seed):
                 raise AssertionError(f"hist_tile at B={b} ({mode}) left "
                                      f"the wide modes: {res['launches']}")
             out[f"b{b}_{mode}"] = res
-    out["default_forms"] = {
-        f"b{b}_{mode}": cuda_hist.default_form(b, mode == "q8")
-        for b in WIDER_BINS for mode in ("f32", "q8")}
-    # the other form past a block's plane, on the same inputs (the
-    # sweep's alternative to the default's)
-    for b in WIDER_BINS[1:]:
-        for mode, fn in (("f32", hist_phase), ("q8", hist_q8_phase)):
-            other = ("smem" if cuda_hist.default_form(b, mode == "q8")
-                     == "global" else "global")
-            geo = cuda_hist.HistGeometry(form=other)
-            out[f"b{b}_{mode}_other"] = {
-                "form": other,
-                "root": fn(cuda_hist, n, seed=seed, root=True, b=b,
-                           geometry=geo),
-                f"rung_{m}": fn(cuda_hist, n, m, seed=seed, b=b,
-                                geometry=geo)}
+    # the CTAs of the cluster that holds a feature's plane in the root pass
+    out["cluster"] = {f"b{b}_{mode}": cuda_hist.bin_ranges(b, mode == "q8",
+                                                           True)[1]
+                      for b in WIDER_BINS for mode in ("f32", "q8")}
     # what the kernels themselves move at these shapes, beside the least
-    # bytes of the bounds (the bin-range split rereads the rows)
+    # bytes of the bounds
     out["traffic"] = {
         f"b{b}_{mode}": cuda_hist.traffic_model(
             n, F, b, P, mode=mode, gathered_rows=m,
@@ -3545,16 +3579,13 @@ def wider_hist_phase(cuda_hist, n, seed):
 
 
 def forms_phase(cuda_hist, n, seed):
-    """Both forms past one block's plane (``smem``, the bin-range split,
-    and ``global``, integer atomics into the sums) on the same inputs,
-    f32 and q8, at B = 16,383 and 65,535: the root pass, the 1M-row rung
-    of the fused path's 21 computed slots, and a 1M-row
-    rung of 2 computed slots (the global form's sums are one slot's 11 MB
-    at 16,383 f32, inside the card's 50 MB L2, and 21 slots' 231 MB,
-    past it), each on uniform bins and on skewed ones (80% of every
-    feature's rows in bin 0, as STRESS's skew_bins). Each case: both
-    forms' ms (events, cold L2), their ratio, and the planes bitwise
-    equal between the forms."""
+    """The cluster form past one block's plane on uniform and on skewed
+    bins (80% of every feature's rows in bin 0, as STRESS's skew_bins:
+    the lanes that add to one cell merge first), f32 and q8, at B =
+    16,383 and 65,535: the root pass, the 1M-row rung of the fused path's
+    21 computed slots, and a 1M-row rung of 2 computed slots. Each case:
+    its ms (events, cold L2), the CTAs a cluster, and on skewed bins the
+    ratio to the same pass on uniform bins."""
     from lightgbm_tpu_torch.ops.histogram import compact_indices
     m = ladder_rungs(n)[-1]
     two = torch.full((P,), -1, dtype=torch.int32)
@@ -3573,33 +3604,23 @@ def forms_phase(cuda_hist, n, seed):
                     torch.isin(leaf, tile.cuda()), rung)
                 chan = cuda_hist.chan_leaf_table(sel)
                 for mode, stats in (("f32", f32), ("q8", q8_stats(n, seed))):
-                    res = {}
-                    planes = {}
-                    for form in ("smem", "global"):
-                        geo = cuda_hist.HistGeometry(form=form)
-
-                        def run():
-                            return cuda_hist.hist_tile(
-                                binsT, leaf, stats, chan, P, b, LEAVES, idx,
-                                geometry=geo)
-                        planes[form] = run()
-                        res[f"{form}_ms"] = time_ms(run)
-                    a, g = planes.values()
-                    if not torch.equal(a.view(torch.int32),
-                                       g.view(torch.int32)):
-                        raise AssertionError(f"forms at B={b} {name} {mode} "
-                                             f"skew {skew}: planes differ")
-                    res["global_over_smem"] = res["global_ms"] / res["smem_ms"]
-                    res["ranges"] = cuda_hist.bin_ranges(
-                        b, mode == "q8", idx is None and tile.numel() <= 1)[1]
+                    res = {"ms": time_ms(lambda: cuda_hist.hist_tile(
+                        binsT, leaf, stats, chan, P, b, LEAVES, idx)),
+                        "cluster": cuda_hist.bin_ranges(
+                            b, mode == "q8",
+                            idx is None and tile.numel() <= 1)[1]}
+                    if skew:
+                        res["over_uniform"] = res["ms"] / out[
+                            f"uniform/b{b}/{name}/{mode}"]["ms"]
                     out[f"{'skew' if skew else 'uniform'}/b{b}/{name}/"
                         f"{mode}"] = res
-                del binsT, leaf, f32, idx, planes
+                del binsT, leaf, f32, idx
     return out
 
 
 def wider_autotune_phase(cuda_hist, n, seed):
-    """autotune_hist on N random rows of F=28 (its sample: 262,144 rows) at
+    """autotune_hist on N random rows of F=28 (its sample:
+    cuda_hist.SWEEP_ROWS rows) at
     B in WIDER_AUTOTUNE_BINS, f32 and q8: each candidate geometry's ms as
     the sweep timed it, the winner, the sweep's seconds, and every
     candidate's planes (the root pass and a gather pass over half the
@@ -3618,7 +3639,8 @@ def wider_autotune_phase(cuda_hist, n, seed):
             t0 = time.time()
             res = cuda_hist.autotune_hist(binsT, b, q8=q8, epilogue=True)
             sweep_s = time.time() - t0
-            run = cuda_hist.autotune_pass(binsT, b, q8, 262144)
+            run = cuda_hist.autotune_pass(binsT, b, q8,
+                                          cuda_hist.SWEEP_ROWS)
             cands = cuda_hist.hist_candidates(F, b, q8)
             ref = run(cands[0])
             for geo in cands[1:]:
@@ -3630,7 +3652,7 @@ def wider_autotune_phase(cuda_hist, n, seed):
                             f"(q8 {q8}) changed the planes")
             out[f"b{b}" + ("_q8" if q8 else "")] = {
                 "times_ms": res["times_ms"],
-                "winner": [res["block"], res["threads"], res["form"]],
+                "winner": [res["block"], res["threads"]],
                 "candidates": len(cands), "sweep_s": sweep_s,
                 "planes_bitwise_equal": True}
     cuda_hist._tuned.clear()
@@ -3644,8 +3666,9 @@ def _trees(text: str) -> str:
 
 def train_wider_phase(lgb, cuda_hist, args, ref_auc=None):
     """train's 2M Higgs-shaped rows at max_bin WIDER_TRAIN_BIN (16,384 bins
-    a feature: the f32 passes split each feature's bins in two ranges, the
-    epilogue its wider mode), 255 leaves, --rounds rounds, f32 and q8,
+    a feature: the f32 passes hold each feature's plane in a cluster of
+    two CTAs, the epilogue its wider mode), 255 leaves, --rounds rounds,
+    f32 and q8,
     each three times on one Dataset: the first run's sweep (autotune_hist,
     in its wall time) and launches by counter (the wider modes, no uint8
     one), the second's sec/iter, the two texts equal and the trees of a
@@ -3751,24 +3774,33 @@ def train_wider_phase(lgb, cuda_hist, args, ref_auc=None):
     return out
 
 
+PARITY_WIDER_RUNS = {"f32": {}, "mono": {"monotone_constraints": [1, -1, 0]},
+                     "q8": {"quantized_grad": True},
+                     "mono_q8": {"monotone_constraints": [1, -1, 0],
+                                 "quantized_grad": True}}
+
+
+def parity_wider_setup(seed):
+    """parity_wider's rows, labels and parameters."""
+    X, y = higgs_like(WIDER_PARITY_ROWS, seed + 11)
+    X = np.ascontiguousarray(X[:, :WIDER_PARITY_F])
+    base = {"objective": "binary", "num_leaves": 63, "verbosity": -1,
+            "max_bin": WIDER_PARITY_BIN, "min_data_in_bin": 1}
+    return X, y, base
+
+
 def parity_wider_phase(lgb, cuda_hist, seed):
     """WIDER_PARITY_ROWS of the Higgs-shaped rows' first WIDER_PARITY_F
     columns at max_bin WIDER_PARITY_BIN (int32 bins, past 32,767), 63
     leaves, 2 rounds: the card's text equal to a CPU run in the kernels'
     orders (kernel_sums_on_cpu), unconstrained and with basic monotone
     constraints (the wider epilogue's monotone mode); q8 and q8 monotone
-    on the card alone (each feature's q8 plane split in three ranges),
+    on the card alone (each feature's q8 plane held by a cluster of three
+    CTAs),
     twice the same. Each run's launches by counter."""
-    X, y = higgs_like(WIDER_PARITY_ROWS, seed + 11)
-    X = np.ascontiguousarray(X[:, :WIDER_PARITY_F])
-    base = {"objective": "binary", "num_leaves": 63, "verbosity": -1,
-            "max_bin": WIDER_PARITY_BIN, "min_data_in_bin": 1}
-    runs = {"f32": {}, "mono": {"monotone_constraints": [1, -1, 0]},
-            "q8": {"quantized_grad": True},
-            "mono_q8": {"monotone_constraints": [1, -1, 0],
-                        "quantized_grad": True}}
+    X, y, base = parity_wider_setup(seed)
     out = {}
-    for name, extra in runs.items():
+    for name, extra in PARITY_WIDER_RUNS.items():
         p = dict(base, **extra)
         texts = []
         for _ in range(1 if name in ("f32", "mono") else 2):
@@ -3892,12 +3924,8 @@ def wider_kernel_entries(kp, wp, wdp):
             "by_bins": {f"b{b}": {k: nums(v) for k, v in hb.items()
                                   if k != "launches"}
                         for b, hb in h.items()},
-            "default_form": {f"b{b}": wh["default_forms"][f"b{b}_{mode}"]
-                             for b in WIDER_BINS},
-            "other_form": {f"b{b}": {k: v if k == "form" else nums(v)
-                                     for k, v in
-                                     wh[f"b{b}_{mode}_other"].items()}
-                           for b in WIDER_BINS[1:]},
+            "cluster": {f"b{b}": wh["cluster"][f"b{b}_{mode}"]
+                        for b in WIDER_BINS},
             "autotune": {k: v for k, v in at.items()
                          if k.endswith("_q8") == (mode == "q8")},
             "launches_by_path": {path: launches}}
@@ -3952,6 +3980,107 @@ def wider_kernel_entries(kp, wp, wdp):
                 "by_bins": {f"b{b}": nums(r) for b, r in res.items()},
                 "launches_by_path": {path: launches}})
     return entries
+
+
+WIDER_PROBE_PASSES = ("root", "rung_2", "rung_21")
+WIDER_PROBE_MODES = ("f32", "q8", "raw")
+
+
+def _out_sha(t: torch.Tensor) -> str:
+    return hashlib.sha256(t.contiguous().cpu().numpy().tobytes()).hexdigest()
+
+
+def wider_probes(cuda_hist, n: int, seed: int = 0):
+    """The kernels past one block's plane timed on any checkout's package
+    at the default geometry, on the same inputs: per probe [event ms,
+    device ms] (time_ms, device_ms over 3 calls) and ``/sha256`` of its
+    outputs. ``hist_tile/<uniform|skew>/b<B>/<pass>/<mode>``: N=n, F=28,
+    P=42 at B = 16,383 and 65,535, bins uniform or 80% in bin 0; the root
+    pass, a 1M-row rung of 2 and of the fused path's 21 computed slots
+    (forms_phase's passes); f32, q8 and the integer-planes mode (``raw``:
+    plane-only, the stats' max|stat| and twice the rows as a gang's
+    exponent), the planes of the computed slots hashed.
+    ``split_epilogue_wider/b<B>[_q8][_mono]``: P=42, F=28 at B = 8,191,
+    16,383 and 65,535 (epilogue_inputs; device ms a launch over
+    EPI_LAUNCHES, each on a cold L2), both outputs hashed."""
+    from lightgbm_tpu_torch.ops.histogram import compact_indices
+    m = ladder_rungs(n)[-1]
+    two = torch.full((P,), -1, dtype=torch.int32)
+    two[0], two[2] = 0, LEAVES // 21
+    passes = {"root": (tile_selection(root=True), None),
+              "rung_2": (two, m), "rung_21": (tile_selection(), m)}
+    out = {}
+    for skew in (0.0, 0.8):
+        for b in WIDER_BINS[1:]:
+            for name, (sel, rung) in passes.items():
+                tile = sel[sel >= 0]
+                binsT, leaf, f32 = hist_inputs(
+                    n, F, seed, False, tile,
+                    1.0 if rung is None else 0.9 * rung / n, skew=skew, b=b)
+                idx = None if rung is None else compact_indices(
+                    torch.isin(leaf, tile.cuda()), rung)
+                chan = cuda_hist.chan_leaf_table(sel)
+                amax = f32.abs().amax(0)
+                on = torch.nonzero(sel >= 0).reshape(-1).cuda()
+                for mode in WIDER_PROBE_MODES:
+                    stats = q8_stats(n, seed) if mode == "q8" else f32
+                    kw = (dict(plane=True, raw=True, amax=amax, rows=2 * n)
+                          if mode == "raw" else {})
+
+                    def call():
+                        return cuda_hist.hist_tile(binsT, leaf, stats, chan,
+                                                   P, b, LEAVES, idx, **kw)
+                    key = (f"hist_tile/{'skew' if skew else 'uniform'}/b{b}/"
+                           f"{name}/{mode}")
+                    out[key + "/sha256"] = _out_sha(call()[on])
+                    out[key] = [time_ms(call),
+                                device_ms(call, reps=3)[0]]
+                del binsT, leaf, f32, idx
+    for b in WIDER_BINS:
+        for q8 in (False, True):
+            base = epilogue_inputs(cuda_hist, seed, q8=q8, b=b)
+            for mono in (False, True):
+                call = wide_epilogue_call(cuda_hist, base, q8, mono)
+                kf, kc = call()
+                key = (f"split_epilogue_wider/b{b}" + ("_q8" if q8 else "")
+                       + ("_mono" if mono else ""))
+                out[key + "/sha256"] = hashlib.sha256(
+                    kf.cpu().numpy().tobytes()
+                    + kc.cpu().numpy().tobytes()).hexdigest()
+                out[key] = [time_ms(call), device_ms(
+                    call, per_profile=EPI_LAUNCHES, need="split_epilogue",
+                    cold_each=True)[0]]
+                del kf, kc
+            del base
+    torch.cuda.empty_cache()
+    return out
+
+
+def wider_text_hashes(lgb, n: int, valid_rows: int, seed: int,
+                      rounds: int):
+    """The sha256 of the model texts train_wider and parity_wider hold
+    equal (on any checkout's package, on the card): train_wider's first
+    run in f32 and q8 (train's rows at max_bin WIDER_TRAIN_BIN, the sweep
+    on), parity_wider's four runs."""
+    import types
+    X, y, Xv, yv = higgs_rows(types.SimpleNamespace(
+        rows=n, valid_rows=valid_rows, seed=seed))
+    base = dict(PARAMS, device_type="cuda", max_bin=WIDER_TRAIN_BIN)
+    train = lgb.Dataset(X, label=y, params=base)
+    valid = lgb.Dataset(Xv, label=yv, reference=train)
+    out = {}
+    for q8 in (False, True):
+        bst = lgb.train(dict(base, quantized_grad=q8, hist_autotune=True),
+                        train, rounds, valid_sets=[valid],
+                        valid_names=["valid"], evals_result={})
+        out["train_wider/" + ("q8" if q8 else "f32")] = _sha(
+            bst.model_to_string())
+    Xp, yp, pbase = parity_wider_setup(seed)
+    for name, extra in PARITY_WIDER_RUNS.items():
+        p = dict(pbase, **extra, device_type="cuda")
+        out["parity_wider/" + name] = _sha(lgb.train(p, lgb.Dataset(
+            Xp, label=yp, params=p), 2).model_to_string())
+    return out
 
 
 # Allstate-shaped rows (docs/Experiments.rst: Allstate Claim Prediction,
@@ -7131,8 +7260,11 @@ def dist_child_main(args) -> int:
     learner twice at full width, replicated (every rank holds all rows),
     and (``--parity``) the 50,000-row parity runs on the card and, over
     the same gang, on the CPU inside ``kernel_sums_on_cpu()``. Prints one
-    JSON line."""
+    JSON line. ``--package DIR``: DIR's lightgbm_tpu_torch instead of
+    this checkout's."""
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    if args.package:
+        sys.path.insert(0, args.package)
     import lightgbm_tpu_torch as lgb
     from lightgbm_tpu_torch import distributed, network
     from lightgbm_tpu_torch.ops import cuda_hist
@@ -7272,10 +7404,12 @@ def _dist_parity(lgb, cuda_hist, network, net, args):
     return out
 
 
-def _run_gang(args, world, nccl=False, parity=True, wider=False):
+def _run_gang(args, world, nccl=False, parity=True, wider=False,
+              package=None):
     """The distributed group's gang: ``world`` ranks as ``--child dist``
     processes started together (``wider``: the data learner past one
-    block's plane alone, _dist_wider); fails if a rank fails (its exit
+    block's plane alone, _dist_wider; ``package``: another checkout whose
+    lightgbm_tpu_torch the ranks import); fails if a rank fails (its exit
     code and the tail of its error output). Returns every rank's JSON,
     rank order."""
     import socket
@@ -7288,7 +7422,8 @@ def _run_gang(args, world, nccl=False, parity=True, wider=False):
            str(args.seed), "--rows", str(args.rows), "--valid-rows",
            str(args.valid_rows), "--rounds", str(DIST_ROUNDS)]
     cmd += (["--nccl"] if nccl else []) + (["--parity"] if parity else []) \
-        + (["--wider"] if wider else [])
+        + (["--wider"] if wider else []) \
+        + (["--package", os.path.abspath(package)] if package else [])
     procs = [subprocess.Popen(cmd + ["--rank", str(r)],
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                               text=True) for r in range(world)]
@@ -7990,6 +8125,89 @@ def redesign_group(lgb, cuda_hist, args):
         attach_probes(zip(entries, ((False, False), (False, True),
                                     (True, False), (True, True))),
                       own, parent)
+    return entries
+
+
+def attach_wider_probes(entries, own, parent):
+    """Each wider kernel entry's probe times (``probes``: per probe, this
+    run's and the other checkout's in the order taken, and ``change_over_
+    parent``: the mean device ms of this run's over the other's), after
+    checking that every run of a probe gave the same outputs (sha256)."""
+    runs = own + parent
+    for key in own[0]:
+        if key.endswith("/sha256") and len({r[key] for r in runs}) != 1:
+            raise AssertionError(f"the probes' {key[:-7]} outputs differ "
+                                 f"between checkouts or calls")
+    for entry in entries:
+        name = entry["name"]
+        if name.startswith("hist_tile"):
+            mode = ("raw" if "integer" in name else "q8" if "q8" in name
+                    else "f32")
+            keys = [k for k in own[0] if k.startswith("hist_tile/")
+                    and k.endswith("/" + mode)]
+        else:
+            sfx = ("_q8" if "q8" in name else "") + (
+                "_mono" if "_mono" in name else "")
+            keys = [f"split_epilogue_wider/b{b}{sfx}" for b in WIDER_BINS]
+        entry["probes"] = {}
+        for k in keys:
+            dev = [[r[k][1] for r in rs if not isinstance(r[k][1], str)]
+                   for rs in (own, parent)]
+            entry["probes"][k] = {
+                "change": [r[k] for r in own],
+                "parent": [r[k] for r in parent],
+                "change_over_parent": (statistics.mean(dev[0])
+                                       / statistics.mean(dev[1])
+                                       if all(dev) else "not measured")}
+
+
+def redesign_wider_group(lgb, cuda_hist, args):
+    """``--only redesign`` (``--redesign wider``): the kernels past one
+    block's plane -- hist_tile's cluster form and split_epilogue_wider --
+    alone: the widebins group's kernel phases, train_wider and
+    parity_wider, and train_wider_data_parallel; with ``--parent DIR``
+    wider_probes on DIR's package and on this one in turns (parent, this,
+    this, parent) on the same inputs, every probe's outputs equal, and
+    train_wider's, parity_wider's and the gang's model texts equal to
+    DIR's (the gang rerun on DIR's package). Returns the kernels line's
+    wider entries, each with its probes."""
+    parent, own = [], []
+
+    def probe(other: bool, what: str = "wider_probes"):
+        if other:
+            parent.append(parent_times(args.parent, args.rows,
+                                       args.valid_rows, args.seed, what,
+                                       args.rounds))
+            emit("parent_times", dir=args.parent, ms=parent[-1])
+        else:
+            own.append(wider_probes(cuda_hist, args.rows, args.seed))
+            emit("probe_times", ms=own[-1])
+    if args.parent:
+        probe(True, "wider")
+        probe(False)
+    wk = wider_kernel_phases(cuda_hist, args)
+    wp = wider_phases(lgb, cuda_hist, args)
+    wdp = train_wider_data_parallel_phase(args)
+    emit("train_wider_data_parallel", **wdp)
+    entries = wider_kernel_entries(wk, wp, wdp)
+    if args.parent:
+        probe(False)
+        probe(True)
+        theirs = parent[0].pop("wider_sha256")
+        mine = {f"train_wider/{m}": wp["train_wider"][m]["text_sha256"]
+                for m in ("f32", "q8")}
+        mine.update({f"parity_wider/{k}": v["card_text_sha256"]
+                     for k, v in wp["parity_wider"].items()})
+        gang = _run_gang(args, DIST_WORLD, parity=False, wider=True,
+                         package=args.parent)
+        mine["train_wider_data_parallel"] = wdp["ranks"][0]["trees_sha"]
+        theirs["train_wider_data_parallel"] = gang[0]["wider"]["trees_sha"]
+        same = {k: mine[k] == theirs.get(k) for k in mine}
+        emit("texts_vs_parent", same=same, parent=theirs, change=mine)
+        if not all(same.values()):
+            raise AssertionError(f"wider texts differ from the parent's: "
+                                 f"{same}")
+        attach_wider_probes(entries, own, parent)
     return entries
 
 
@@ -8725,6 +8943,10 @@ def main() -> int:
                          "parent commit from git archive): its kernels are "
                          "timed on the same inputs before and after this "
                          "run's phases")
+    ap.add_argument("--redesign", choices=("wide", "wider"), default="wider",
+                    help="with --only redesign: the wide epilogue's group "
+                         "or the wider kernels' (hist_tile and "
+                         "split_epilogue past one block's plane)")
     ap.add_argument("--only", choices=("precision", "control", "predict",
                                        "faults", "distributed",
                                        "resilience", "redesign", "serve",
@@ -8748,6 +8970,7 @@ def main() -> int:
     ap.add_argument("--parity", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--wider", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--workdir", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--package", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--resume", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -8843,7 +9066,8 @@ def main() -> int:
             "count": torch.cuda.device_count()}}), flush=True)
         return 0
     if args.only == "redesign":
-        kernels = redesign_group(lgb, cuda_hist, args)
+        kernels = (redesign_wider_group if args.redesign == "wider"
+                   else redesign_group)(lgb, cuda_hist, args)
         print(json.dumps({"kernels": kernels,
                           "total_seconds": time.time() - t_start}),
               flush=True)
@@ -8912,8 +9136,8 @@ def main() -> int:
         emit("probe_times", ms=own[-1])
     kp = kernel_phases(cuda_hist, n, args.valid_rows, args.seed)
     emit("hist_tile_root", n=n, b=B, p=P, leaves=LEAVES,
-         **{k: v for k, v in kp.items() if "root" in k or k ==
-            "main_geometry"})
+         **{k: v for k, v in kp.items() if "root" in k or k in
+            ("main_geometry", "sweep_check", "rungs_default_geometry")})
     full, rungs, stress = kp["full"], kp["rungs"], kp["stress"]
     emit("hist_tile", n=n, f=F, b=B, p=P, leaves=LEAVES, **full)
     emit("hist_tile_gather", n=n, f=F, b=B, p=P, leaves=LEAVES, rungs=rungs)

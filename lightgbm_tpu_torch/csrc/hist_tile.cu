@@ -117,7 +117,7 @@
 // 32,768 bins) or uint32_t (its int32 bins above that, up to the cap of
 // 65,536 bins a column), so the uint8 instantiations keep their code. Only
 // the row-major copy's element and the planes' size change: a block's
-// planes are [group, span, 3] cells, so `group` shrinks as B grows (at B =
+// planes are [group, B, 3] cells, so `group` shrinks as B grows (at B =
 // 1,023 in f32, 8 features fit a full-form block: the 28 Higgs features
 // take 4 groups of 7 and the rows are read 4 times; at B = 4,095 one
 // feature a block, 98 KB of planes). The payload of the gather form
@@ -125,29 +125,62 @@
 // SM's shared memory, so one block runs per SM, and the atomics spread
 // over more banks.
 //
-// A feature's bins across blocks (B past what one block's shared memory
-// holds: ~8,400 bins in the full form's f32 mode, ~9,600 in the gather
-// form's; at 65,536 bins one f32 plane is 1.5 MB). Two forms, chosen by
-// the wrapper (ops/cuda_hist.py HistGeometry.form):
-//   - `smem`, the bin-range split: the feature's bins are cut into
-//     `nranges` ranges of `span` bins that fit; grid row y is (feature
-//     group, range), and a block accumulates (row range, feature, bin
-//     range), skipping the rows whose bin lies outside its range, then
-//     flushes by integer add into the scratch plane at the range's offset.
-//     Every range re-reads the rows (their bin, leaf and stats);
-//   - `global`: no shared-memory planes; every (row, feature) adds its
-//     three fixed-point values straight into the global int64 (q8: int32)
-//     sums with atomics. The rows are read once; each add is a global
-//     atomic.
-// Both give the same integers as one block's plane: the sums are
+// A feature's bins across the CTAs of a cluster (B past what one block's
+// shared memory holds: ~8,400 bins in the full form's f32 mode, ~9,600 in
+// the gather form's; at 65,536 bins one f32 plane is 1.5 MB). What bounds
+// the pass there is moving each (row, feature) to its cell once: the
+// earlier bin-range split gave each (feature, bin range) a block that
+// reread every row's leaf, stats and bin and skipped the rows outside its
+// range (traffic_model: 9.97 GB at 65,536 f32 against 1.18 GB least), and
+// its one block an SM left a second wave mostly empty. On Hopper the
+// shared memory of a thread-block cluster is one address space
+// (distributed shared memory), so a cluster of `cluster` CTAs (2 at 16,384
+// f32, 4 at 65,536 q8, 8 at 65,536 f32; at most 8, the portable size)
+// holds one feature's whole [B, 3] plane, CTA rank k the bins [k*span,
+// (k+1)*span):
+//   - full_cluster / gather_cluster: the CTAs of a cluster read disjoint
+//     shares of its rows (the full form, from the feature-major bins,
+//     coalesced) or of its payload rows (the gather form, bins from the
+//     row-major copy), and each (row, feature) adds its stats to the cell
+//     of the CTA that owns its bin, through distributed shared memory
+//     (cluster.map_shared_rank: the owner's cell as a generic address).
+//     A row is read once per
+//     feature, not once per (feature, range), and no add reaches L2
+//     before the flush;
+//   - one cluster barrier before the flush (every add landed), then each
+//     CTA flushes its own bins by integer add into the sums (the gather
+//     form at every slot boundary of its payload range, with a second
+//     barrier before the next slot's adds reach the zeroed cells), and
+//     one at the start (every plane zeroed before a remote add);
+//   - the grid is features x cluster rows, features fastest, so the
+//     clusters of one row range run together and share its leaf ids and
+//     stats through L2; its rows are as many row ranges as make whole
+//     waves of clusters (cudaOccupancyMaxActiveClusters: the wrapper's
+//     ops/cuda_hist.py cluster_rows), with no tail wave. A card that
+//     cannot place the cluster (0 active clusters) is refused by the
+//     wrapper, which names the shape; no other form stands in.
+// What bounds the cluster form is then its atomics: three a (row,
+// feature), most of them remote. f32 cells are 64-bit fixed point, added
+// as one 64-bit atomic on the mapped address (add_split's two words need
+// the low word's old value for the carry, a round trip to the remote SM:
+// 1.5x slower on the card, PERF.md); q8 cells int32. Skewed bins send
+// many lanes of a warp to one remote cell, so the lanes that add to one
+// cell merge their values first (warp_merge: match, then a reduction of
+// each stat), one atomic a stat for the group.
+// Every layout gives the same integers as one block's plane: the sums are
 // fixed-point, exact in any order and any split, so the planes are
-// bitwise hist_tile_exact's and bitwise from launch to launch.
+// bitwise hist_tile_exact's and bitwise from launch to launch. (The
+// earlier forms past one block's plane -- a block a bin range rereading
+// the rows, and global atomics into the sums -- lost to the cluster form
+// in every case chip_smoke.py's forms_wider measured, and went.)
 //
 // The launch geometry is the caller's (ops/cuda_hist.py autotune_hist
-// sweeps it): rows a block takes (`per`; 0 = one wave of device_sms() x
-// occupancy blocks of at least kMinRows rows, the default), threads a
-// block (a multiple of 32, at most 1,024) and the form above.
+// sweeps it): rows a block or a cluster takes (`per`; 0 = one wave of
+// device_sms() x occupancy blocks of at least kMinRows rows, or the
+// cluster rows the wrapper passes) and threads a block (a multiple of 32,
+// at most 1,024).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -165,6 +198,7 @@ constexpr int kMinRows = 512;     // fewest payload rows an accumulate block
 constexpr int kNonFinite = -2147483647 - 1;
 constexpr int kUnroll = 4;        // entries, rows or pairs a thread loads
                                   // at once
+constexpr int kMaxCluster = 8;    // CTAs of a cluster: the portable size
 
 // Exponent k of the fixed-point scale 2^k for a channel whose largest
 // |stat| has float bits `amax_bits`, over `rows` rows; kNonFinite when the
@@ -247,33 +281,27 @@ template <bool kQ8> struct Staged {
 };
 
 // Block (x, y): rows [x*per, x*per + per) of the n rows (per a multiple of
-// 32); grid row y is (feature group y / nranges, bin range y % nranges):
-// features [g0, g0 + group), bins [lo, lo + span) of each. Only the rows
-// of leaf `target` are added. Shared memory: the planes ([group][span][3]
-// cells: the add_split pair in f32 mode, 8 bytes; an int32 sum in q8, 4;
-// none in the global form, which adds to accum directly), then each warp's
-// 32 staged rows (their stats, then their row ids). accum [f][b][3]
-// integer sums, zeroed by the caller. Pair q of a warp's staged rows is
-// (row q / gn, feature q % gn).
-template <bool kQ8, bool kGlobal, typename Bin>
+// 32); grid row y is the feature group: features [g0, g0 + group). Only
+// the rows of leaf `target` are added. Shared memory: the planes
+// ([group][b][3] cells: the add_split pair in f32 mode, 8 bytes; an int32
+// sum in q8, 4), then each warp's 32 staged rows (their stats, then their
+// row ids). accum [f][b][3] integer sums, zeroed by the caller. Pair q of
+// a warp's staged rows is (row q / gn, feature q % gn).
+template <bool kQ8, typename Bin>
 __global__ void full_accumulate(
     const Bin* __restrict__ rows, const int32_t* __restrict__ leaf,
     const typename Mode<kQ8>::Stat* __restrict__ stats,
     const unsigned* __restrict__ amax_bits,
     typename Mode<kQ8>::Acc* __restrict__ accum, int n, int f, int b,
-    int target, int width, int group, int span, int nranges, long long per,
-    long long exp_rows) {
+    int target, int width, int group, long long per, long long exp_rows) {
   using SG = Staged<kQ8>;
   constexpr int kWords = kQ8 ? 1 : 2;                      // words a cell
   extern __shared__ __align__(16) unsigned char full_smem[];
   __shared__ double scale[kStats];
-  const int gi = blockIdx.y / nranges;
-  const int lo = (blockIdx.y - gi * nranges) * span;        // first bin
-  const int bs = min(span, b - lo);                         // bins held
-  const int g0 = gi * group;
+  const int g0 = blockIdx.y * group;
   const int gn = min(group, f - g0);
-  const int row_cells = bs * kStats;
-  const int cells = kGlobal ? 0 : gn * row_cells;
+  const int row_cells = b * kStats;
+  const int cells = gn * row_cells;
   const int warps = blockDim.x >> 5;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -336,45 +364,26 @@ __global__ void full_accumulate(
       }
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
-        const int rel = bin[u] - lo;               // b - lo >= bs: skipped
-        if ((unsigned)rel >= (unsigned)bs) continue;
-        if constexpr (kGlobal) {
-          typename Mode<kQ8>::Acc* cell =
-              accum + ((size_t)(g0 + fr[u]) * b + bin[u]) * kStats;
-          if constexpr (kQ8) {
-            const uint32_t w = val[jr[u]];
-            for (int k = 0; k < kStats; ++k) {
-              const int x = (int)(int8_t)(uint8_t)(w >> (8 * k));
-              if (x) atomicAdd(cell + k, x);
-            }
-          } else {
-            const long long* v =
-                reinterpret_cast<const long long*>(val + jr[u] * SG::kWords);
-            for (int k = 0; k < kStats; ++k)
-              if (v[k]) atomicAdd(cell + k, (unsigned long long)v[k]);
-          }
+        if ((unsigned)bin[u] >= (unsigned)b) continue;   // b: skipped
+        unsigned* cell =
+            plane + ((size_t)fr[u] * row_cells + bin[u] * kStats) * kWords;
+        if constexpr (kQ8) {
+          const uint32_t w = val[jr[u]];
+          for (int k = 0; k < kStats; ++k)
+            atomicAdd(reinterpret_cast<int*>(cell) + k,
+                      (int)(int8_t)(uint8_t)(w >> (8 * k)));
         } else {
-          unsigned* cell =
-              plane + ((size_t)fr[u] * row_cells + rel * kStats) * kWords;
-          if constexpr (kQ8) {
-            const uint32_t w = val[jr[u]];
-            for (int k = 0; k < kStats; ++k)
-              atomicAdd(reinterpret_cast<int*>(cell) + k,
-                        (int)(int8_t)(uint8_t)(w >> (8 * k)));
-          } else {
-            const long long* v =
-                reinterpret_cast<const long long*>(val + jr[u] * SG::kWords);
-            for (int k = 0; k < kStats; ++k) add_split(cell + 2 * k, v[k]);
-          }
+          const long long* v =
+              reinterpret_cast<const long long*>(val + jr[u] * SG::kWords);
+          for (int k = 0; k < kStats; ++k) add_split(cell + 2 * k, v[k]);
         }
       }
     }
     __syncwarp();
   }
-  if constexpr (kGlobal) return;
   __syncthreads();
-  // flush: each nonzero cell added to the global sums at the range's bins
-  typename Mode<kQ8>::Acc* dst = accum + ((size_t)g0 * b + lo) * kStats;
+  // flush: each nonzero cell added to the global sums
+  typename Mode<kQ8>::Acc* dst = accum + (size_t)g0 * b * kStats;
   for (int i = threadIdx.x; i < cells; i += blockDim.x) {
     const int fi = i / row_cells;
     const size_t at = (size_t)fi * b * kStats + (i - fi * row_cells);
@@ -485,77 +494,6 @@ int device_sms() {
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   return sms > 0 ? sms : 1;
-}
-
-// The launch geometry of an accumulate kernel (ops/cuda_hist.py
-// full_layout / gather_layout): features a block, bins a block's plane
-// holds (`span`) and the ranges they cut B into, rows a block (0 = one
-// wave), threads a block, and the global form.
-struct Geo {
-  int group, span, nranges;
-  long long per;
-  int threads, global;
-};
-
-// The full form's accumulate + convert launches of one mode (one computed
-// slot, `slot`, whose leaf is `target`; slot -1: none computed, the convert
-// alone writes zeros; `dp`: the f64 convert); returns cudaGetLastError().
-template <bool kQ8, bool kGlobal, typename Bin>
-int launch_full_form(const Bin* rows, const void* leaf, const void* stats,
-                     const unsigned* amax_bits, void* accum, int n, int f,
-                     int b, int target, int width, const Geo& g,
-                     long long exp_rows, cudaStream_t st) {
-  using M = Mode<kQ8>;
-  auto kernel = full_accumulate<kQ8, kGlobal, Bin>;
-  const size_t smem = (kGlobal ? 0 : (size_t)g.group * g.span * kStats
-                                         * (kQ8 ? 4 : 8))
-                      + (size_t)g.threads * (Staged<kQ8>::kWords + 1) * 4;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const long long ys = (long long)((f + g.group - 1) / g.group) * g.nranges;
-  long long per = g.per;
-  if (per <= 0) {
-    int occ = 1;
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kernel, g.threads,
-                                                  smem);
-    const long long wave = (long long)device_sms() * (occ > 0 ? occ : 1);
-    long long blocks = (wave + ys - 1) / ys;
-    const long long most = ((long long)n + kMinRows - 1) / kMinRows;
-    blocks = blocks < most ? blocks : most;
-    blocks = blocks > 0 ? blocks : 1;
-    per = ((long long)n + blocks - 1) / blocks;
-  }
-  per = (per + 31) / 32 * 32;
-  const long long xs = ((long long)n + per - 1) / per;
-  kernel<<<dim3((unsigned)(xs > 0 ? xs : 1), (unsigned)ys), g.threads, smem,
-           st>>>(rows, static_cast<const int32_t*>(leaf),
-                 static_cast<const typename M::Stat*>(stats), amax_bits,
-                 static_cast<typename M::Acc*>(accum), n, f, b, target,
-                 width, g.group, g.span, g.nranges, per, exp_rows);
-  return (int)cudaGetLastError();
-}
-
-template <bool kQ8, typename Bin>
-int launch_full(const Bin* rows, const void* leaf, const void* stats,
-                const unsigned* amax_bits, void* accum, void* out, int n,
-                int f, int p, int b, int slot, int target, int width,
-                const Geo& g, bool dp, long long exp_rows, bool raw,
-                cudaStream_t st) {
-  if (slot >= 0) {
-    const int err =
-        g.global ? launch_full_form<kQ8, true, Bin>(rows, leaf, stats,
-                                                    amax_bits, accum, n, f, b,
-                                                    target, width, g,
-                                                    exp_rows, st)
-                 : launch_full_form<kQ8, false, Bin>(rows, leaf, stats,
-                                                     amax_bits, accum, n, f,
-                                                     b, target, width, g,
-                                                     exp_rows, st);
-    if (err != 0) return err;
-  }
-  return launch_reduce(kQ8, dp, raw, accum, nullptr, slot, amax_bits, out,
-                       p, f, b, exp_rows, st);
 }
 
 // ----------------------------------------------------------- gather form
@@ -707,32 +645,27 @@ __global__ void gather_scatter(
 }
 
 // Block (x, y): payload rows [x*per, x*per + per) (per_rows, or with 0
-// per >= kMinRows, the rows split evenly over gridDim.x); grid row y is
-// (feature group y / nranges, bin range y % nranges): features [g0, g0 +
-// group), bins [lo, lo + span) of each. accum [active][f][b][3] integer
+// per >= kMinRows, the rows split evenly over gridDim.x); grid row y is the
+// feature group: features [g0, g0 + group). accum [active][f][b][3] integer
 // sums, zeroed by the caller. A plane cell is the add_split pair in f32
-// mode (8 bytes), an int32 sum in q8 (4); the global form keeps no plane
-// and adds to accum directly. Thread (jj, fi) takes feature fi of every
-// rows_per_iter-th row, loading kUnroll rows before it adds them.
-template <bool kQ8, bool kGlobal, typename Bin>
+// mode (8 bytes), an int32 sum in q8 (4). Thread (jj, fi) takes feature
+// fi of every rows_per_iter-th row, loading kUnroll rows before it adds
+// them.
+template <bool kQ8, typename Bin>
 __global__ void gather_accumulate(const uint32_t* __restrict__ payload,
                                   const Bin* __restrict__ rows,
                                   const int* __restrict__ counts,
                                   typename Mode<kQ8>::Acc* __restrict__ accum,
                                   int f, int b, int active, int width,
-                                  int group, int span, int nranges,
-                                  long long per_rows) {
+                                  int group, long long per_rows) {
   using PL = Payload<kQ8>;
   extern __shared__ __align__(16) unsigned char acc_smem[];
-  unsigned* plane = reinterpret_cast<unsigned*>(acc_smem);  // [group][span][3]
+  unsigned* plane = reinterpret_cast<unsigned*>(acc_smem);  // [group][b][3]
   __shared__ int g_off[kMaxSlots + 1];
-  const int gi = blockIdx.y / nranges;
-  const int lo = (blockIdx.y - gi * nranges) * span;        // first bin
-  const int bs = min(span, b - lo);                         // bins held
-  const int g0 = gi * group;
+  const int g0 = blockIdx.y * group;
   const int gn = min(group, f - g0);
-  const int row_cells = bs * kStats;
-  const int cells = kGlobal ? 0 : gn * row_cells;
+  const int row_cells = b * kStats;
+  const int cells = gn * row_cells;
   constexpr int kWords = kQ8 ? 1 : 2;                      // words a cell
   warp_scan_slots(counts, g_off, active);
   for (int i = threadIdx.x; i < cells * kWords; i += blockDim.x) plane[i] = 0;
@@ -753,8 +686,7 @@ __global__ void gather_accumulate(const uint32_t* __restrict__ payload,
     const long long a = max(j0, (long long)g_off[c]);
     const long long z = min(j1, (long long)g_off[c + 1]);
     if (a >= z) continue;
-    typename Mode<kQ8>::Acc* dst =
-        accum + (((size_t)c * f + g0) * b + lo) * kStats;
+    typename Mode<kQ8>::Acc* dst = accum + ((size_t)c * f + g0) * b * kStats;
     if (jj < rows_per_iter) {
       for (long long j = a + jj; j < z;
            j += (long long)kUnroll * rows_per_iter) {
@@ -779,36 +711,20 @@ __global__ void gather_accumulate(const uint32_t* __restrict__ payload,
         }
 #pragma unroll
         for (int u = 0; u < kUnroll; ++u) {
-          const int rel = bin[u] - lo;             // b - lo >= bs: skipped
-          if ((unsigned)rel >= (unsigned)bs) continue;
-          if constexpr (kGlobal) {
-            typename Mode<kQ8>::Acc* cell =
-                dst + ((size_t)fi * b + rel) * kStats;
-            if constexpr (kQ8) {
-              for (int k = 0; k < kStats; ++k) {
-                const int x = (int)(int8_t)(uint8_t)(w[u] >> (8 * k));
-                if (x) atomicAdd(cell + k, x);
-              }
-            } else {
-              for (int k = 0; k < kStats; ++k)
-                if (v[u][k]) atomicAdd(cell + k, (unsigned long long)v[u][k]);
-            }
+          if ((unsigned)bin[u] >= (unsigned)b) continue;   // b: skipped
+          unsigned* cell = plane + ((size_t)fi * row_cells + bin[u] * kStats)
+                                   * kWords;
+          if constexpr (kQ8) {
+            for (int k = 0; k < kStats; ++k)
+              atomicAdd(reinterpret_cast<int*>(cell) + k,
+                        (int)(int8_t)(uint8_t)(w[u] >> (8 * k)));
           } else {
-            unsigned* cell = plane + ((size_t)fi * row_cells + rel * kStats)
-                                     * kWords;
-            if constexpr (kQ8) {
-              for (int k = 0; k < kStats; ++k)
-                atomicAdd(reinterpret_cast<int*>(cell) + k,
-                          (int)(int8_t)(uint8_t)(w[u] >> (8 * k)));
-            } else {
-              for (int k = 0; k < kStats; ++k)
-                add_split(cell + 2 * k, v[u][k]);
-            }
+            for (int k = 0; k < kStats; ++k)
+              add_split(cell + 2 * k, v[u][k]);
           }
         }
       }
     }
-    if constexpr (kGlobal) continue;
     __syncthreads();
     for (int i = threadIdx.x; i < cells; i += blockDim.x) {
       const int fr = i / row_cells;
@@ -833,20 +749,434 @@ __global__ void gather_accumulate(const uint32_t* __restrict__ payload,
   }
 }
 
+// ------------------------------------------------------------ cluster form
+namespace cg = cooperative_groups;
+
+// One row's three values added to the cell `cell` of a plane, local or in
+// another CTA of the cluster (a generic address from map_shared_rank): in
+// q8 the three int32 `q`, in f32 the three fixed-point int64 `v` (one
+// 64-bit atomic each, no value returned). Zero values add nothing.
+template <bool kQ8>
+__device__ __forceinline__ void cluster_add(unsigned* cell, const int* q,
+                                            const long long* v) {
+  for (int k = 0; k < kStats; ++k) {
+    if constexpr (kQ8) {
+      if (q[k]) atomicAdd(reinterpret_cast<int*>(cell) + k, q[k]);
+    } else {
+      if (v[k])
+        atomicAdd(reinterpret_cast<unsigned long long*>(cell) + k,
+                  (unsigned long long)v[k]);
+    }
+  }
+}
+
+// The lanes in `act` that add to one cell (`key`) merge their values
+// first, so a cell that skewed bins send many lanes to takes one atomic a
+// stat (integer sums: exact in any order; the f32 values summed mod 2^64
+// as three 32-bit sums of their 16-bit pieces and high words). Called by
+// the lanes of `act` alone; returns whether this lane adds, with its
+// group's sums in q (q8) or v (f32).
+template <bool kQ8>
+__device__ __forceinline__ bool warp_merge(unsigned act, int key, int* q,
+                                           long long* v) {
+  const unsigned peers = __match_any_sync(act, key);
+  if (__popc(peers) == 1) return true;
+  for (int k = 0; k < kStats; ++k) {
+    if constexpr (kQ8) {
+      q[k] = __reduce_add_sync(peers, q[k]);
+    } else {
+      const unsigned long long u = (unsigned long long)v[k];
+      const unsigned b0 = __reduce_add_sync(peers, (unsigned)(u & 0xffffu));
+      const unsigned b1 =
+          __reduce_add_sync(peers, (unsigned)((u >> 16) & 0xffffu));
+      const unsigned hi = __reduce_add_sync(peers, (unsigned)(u >> 32));
+      v[k] = (long long)(((unsigned long long)hi << 32)
+                         + ((unsigned long long)b1 << 16) + b0);
+    }
+  }
+  return (int)(threadIdx.x & 31) == __ffs(peers) - 1;
+}
+
+// A CTA's own bins flushed: each nonzero cell of its [bs][3] plane added
+// to the integer sums at `dst` (the plane's first bin), and with `zero`
+// cleared for the next slot.
+template <bool kQ8>
+__device__ __forceinline__ void cluster_flush(
+    unsigned* plane, typename Mode<kQ8>::Acc* __restrict__ dst, int cells,
+    bool zero) {
+  for (int i = threadIdx.x; i < cells; i += blockDim.x) {
+    if constexpr (kQ8) {
+      const int v = (int)plane[i];
+      if (v != 0) {
+        if (zero) plane[i] = 0;
+        atomicAdd(dst + i, v);
+      }
+    } else {
+      unsigned long long* cell =
+          reinterpret_cast<unsigned long long*>(plane) + i;
+      const unsigned long long v = *cell;
+      if (v != 0) {
+        if (zero) *cell = 0;
+        atomicAdd(dst + i, v);
+      }
+    }
+  }
+}
+
+// Full form past one block's plane. A 1-D cluster along x of C CTAs holds
+// feature blockIdx.x / C; CTA rank k owns bins [k*span, k*span + span).
+// Grid row y is the cluster's rows [y*per, y*per + per) of the n rows; its
+// CTAs take them in chunks of 32 * kUnroll rows a warp, CTA k's warp w
+// the chunks k*warps + w, k*warps + w + C*warps, ... Lane i of a chunk
+// reads rows base + 32u + i: the leaf id, the stats and the feature's bin
+// from the feature-major `binsT` (coalesced); a row of leaf `target` adds
+// its stats (f32: converted once to the launch's fixed point) to the
+// owner's cell, the lanes of a warp that add to one cell merged first.
+// Shared memory: the CTA's [span][3] cells (int64 in f32, int32 in q8).
+// accum [f][b][3], zeroed by the caller.
+template <bool kQ8, typename Bin>
+__global__ void full_cluster(
+    const Bin* __restrict__ binsT, const int32_t* __restrict__ leaf,
+    const typename Mode<kQ8>::Stat* __restrict__ stats,
+    const unsigned* __restrict__ amax_bits,
+    typename Mode<kQ8>::Acc* __restrict__ accum, int n, int b, int target,
+    int span, long long per, long long exp_rows) {
+  constexpr int kWords = kQ8 ? 1 : 2;                      // words a cell
+  extern __shared__ __align__(16) unsigned char clu_smem[];
+  __shared__ double scale[kStats];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int csize = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int feat = blockIdx.x / csize;
+  const int lo = rank * span;
+  const int cells = max(0, min(span, b - lo)) * kStats;
+  unsigned* plane = reinterpret_cast<unsigned*>(clu_smem);
+  for (int i = threadIdx.x; i < cells * kWords; i += blockDim.x) plane[i] = 0;
+  if (!kQ8 && threadIdx.x < kStats)
+    scale[threadIdx.x] = fixed_scale(amax_bits[threadIdx.x], exp_rows);
+  cluster.sync();                 // every plane zeroed before a remote add
+
+  const long long r0 = (long long)blockIdx.y * per;
+  const long long r1 = min((long long)n, r0 + per);
+  const Bin* col = binsT + (size_t)feat * n;
+  const int warps = blockDim.x >> 5;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const long long chunk = 32LL * kUnroll;
+  for (long long base = r0 + ((long long)rank * warps + warp) * chunk;
+       base < r1; base += (long long)csize * warps * chunk) {
+    int lf[kUnroll], bin[kUnroll];
+    typename Mode<kQ8>::Stat st[kUnroll][kStats];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const long long r = base + 32 * u + lane;
+      lf[u] = -1;
+      bin[u] = b;
+      if (r < r1) {
+        lf[u] = leaf[r];
+        bin[u] = (int)col[r];
+        for (int c = 0; c < kStats; ++c) st[u][c] = stats[r * kStats + c];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const bool add = lf[u] == target && (unsigned)bin[u] < (unsigned)b;
+      const unsigned act = __ballot_sync(0xffffffffu, add);
+      if (!add) continue;
+      int q[kStats];
+      long long v[kStats];
+      for (int c = 0; c < kStats; ++c) {
+        if constexpr (kQ8)
+          q[c] = st[u][c];
+        else
+          v[c] = __double2ll_rn((double)st[u][c] * scale[c]);
+      }
+      if (!warp_merge<kQ8>(act, bin[u], q, v)) continue;
+      const int owner = bin[u] / span;
+      cluster_add<kQ8>(
+          cluster.map_shared_rank(plane, owner)
+              + (size_t)(bin[u] - owner * span) * kStats * kWords, q, v);
+    }
+  }
+  cluster.sync();                 // every add landed
+  cluster_flush<kQ8>(plane, accum + ((size_t)feat * b + lo) * kStats, cells,
+                     false);
+}
+
+// Gather form past one block's plane: clusters as full_cluster, grid row y
+// the cluster's payload rows [y*per, y*per + per) (per_rows, or with 0 per
+// >= kMinRows, the rows split evenly over gridDim.y). Its CTAs take each
+// slot's rows of the range in turn, thread t of CTA k the rows a + k*T +
+// t, a + (k + C)*T + t, ... (T threads a CTA), reading each row's id and
+// stats from the payload and the feature's bin from the row-major copy;
+// at the slot's end one cluster barrier, the flush of each CTA's bins into
+// the slot's sums, and a second barrier before the next slot's adds.
+// accum [active][f][b][3], zeroed by the caller.
+template <bool kQ8, typename Bin>
+__global__ void gather_cluster(const uint32_t* __restrict__ payload,
+                               const Bin* __restrict__ rows,
+                               const int* __restrict__ counts,
+                               typename Mode<kQ8>::Acc* __restrict__ accum,
+                               int f, int b, int active, int width, int span,
+                               long long per_rows) {
+  using PL = Payload<kQ8>;
+  constexpr int kWords = kQ8 ? 1 : 2;                      // words a cell
+  extern __shared__ __align__(16) unsigned char clu_smem[];
+  __shared__ int g_off[kMaxSlots + 1];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int csize = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int feat = blockIdx.x / csize;
+  const int lo = rank * span;
+  const int cells = max(0, min(span, b - lo)) * kStats;
+  unsigned* plane = reinterpret_cast<unsigned*>(clu_smem);
+  warp_scan_slots(counts, g_off, active);
+  for (int i = threadIdx.x; i < cells * kWords; i += blockDim.x) plane[i] = 0;
+  cluster.sync();                 // every plane zeroed before a remote add
+  const long long total = g_off[active];
+  long long per = per_rows;
+  if (per <= 0) {
+    per = (total + gridDim.y - 1) / gridDim.y;
+    per = per > kMinRows ? per : kMinRows;
+  }
+  const long long j0 = (long long)blockIdx.y * per;
+  const long long j1 = min(total, j0 + per);
+  if (j0 >= j1) return;           // the whole cluster: one row range
+  const long long step = (long long)csize * blockDim.x;
+  for (int c = 0; c < active; ++c) {
+    const long long a = max(j0, (long long)g_off[c]);
+    const long long z = min(j1, (long long)g_off[c + 1]);
+    if (a >= z) continue;
+    for (long long j = a + (long long)rank * blockDim.x + threadIdx.x; j < z;
+         j += kUnroll * step) {
+      int bin[kUnroll];
+      uint32_t w[kUnroll];
+      long long v[kUnroll][kStats];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const long long jr = j + u * step;
+        bin[u] = b;
+        if (jr < z) {
+          const uint32_t* pr = payload + (size_t)jr * PL::kWords;
+          bin[u] = (int)rows[(size_t)pr[0] * width + feat];
+          if constexpr (kQ8) {
+            w[u] = pr[PL::kStat];
+          } else {
+            const long long* sv =
+                reinterpret_cast<const long long*>(pr + PL::kStat);
+            for (int k = 0; k < kStats; ++k) v[u][k] = sv[k];
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const bool add = (unsigned)bin[u] < (unsigned)b;
+        const unsigned act = __ballot_sync(__activemask(), add);
+        if (!add) continue;
+        int q[kStats];
+        if constexpr (kQ8)
+          for (int k = 0; k < kStats; ++k)
+            q[k] = (int)(int8_t)(uint8_t)(w[u] >> (8 * k));
+        if (!warp_merge<kQ8>(act, bin[u], q, v[u])) continue;
+        const int owner = bin[u] / span;
+        cluster_add<kQ8>(
+            cluster.map_shared_rank(plane, owner)
+                + (size_t)(bin[u] - owner * span) * kStats * kWords, q, v[u]);
+      }
+    }
+    cluster.sync();               // the slot's adds landed
+    cluster_flush<kQ8>(plane,
+                       accum + (((size_t)c * f + feat) * b + lo) * kStats,
+                       cells, true);
+    cluster.sync();               // zeroed before the next slot's adds
+  }
+}
+
+// The launch geometry of an accumulate kernel (ops/cuda_hist.py
+// launch_shape): features a block, bins a CTA's plane holds (`span`) and
+// the CTAs of a cluster they cut B into (1: no cluster), rows a block or
+// cluster (0 = one wave of blocks, or `ygrid` cluster rows) and threads a
+// block.
+struct Geo {
+  int group, span, cluster;
+  long long per;
+  int ygrid, threads;
+};
+
+// Shared memory of a cluster CTA: its [span][3] cells (no staged rows: a
+// row goes from its loads to its adds).
+inline size_t cluster_smem(bool q8, int span) {
+  return (size_t)span * kStats * (q8 ? 4 : 8);
+}
+
+// A kernel launched as clusters of g.cluster CTAs along x (the grid's x a
+// multiple of it), with its dynamic shared memory raised to `smem`.
+template <typename... Exp, typename... Act>
+cudaError_t launch_clustered(void (*kernel)(Exp...), dim3 grid, int threads,
+                             size_t smem, int cluster, cudaStream_t st,
+                             Act&&... args) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3((unsigned)threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, static_cast<Act&&>(args)...);
+}
+
+// Clusters of `cluster` CTAs of `threads` threads and `smem` bytes the card
+// holds at once (cudaOccupancyMaxActiveClusters; 0: none can be placed).
+template <typename... Exp>
+int active_clusters(void (*kernel)(Exp...), int cluster, int threads,
+                    size_t smem) {
+  if (cudaFuncSetAttribute(kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem) != cudaSuccess)
+    return -1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)cluster);
+  cfg.blockDim = dim3((unsigned)threads);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  if (cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg) != cudaSuccess)
+    return -1;
+  return clusters;
+}
+
+// The full form's accumulate launch of one mode past one block's plane:
+// clusters over f features x ceil(n / per) row ranges (per from the
+// geometry, or n cut into g.ygrid ranges), rows read from the
+// feature-major `binsT`.
+template <bool kQ8, typename Bin>
+int launch_full_cluster(const Bin* binsT, const void* leaf, const void* stats,
+                        const unsigned* amax_bits, void* accum, int n, int f,
+                        int b, int target, const Geo& g, long long exp_rows,
+                        cudaStream_t st) {
+  using M = Mode<kQ8>;
+  if constexpr (sizeof(Bin) == 1) {
+    return (int)cudaErrorInvalidValue;   // 256 bins fit any block
+  } else {
+  long long per = g.per > 0 ? g.per
+                            : ((long long)n + (g.ygrid > 0 ? g.ygrid : 1) - 1)
+                                  / (g.ygrid > 0 ? g.ygrid : 1);
+  per = (per + 31) / 32 * 32;
+  const long long ys = ((long long)n + per - 1) / per;
+  const dim3 grid((unsigned)(f * g.cluster), (unsigned)(ys > 0 ? ys : 1));
+  const size_t smem = cluster_smem(kQ8, g.span);
+  const int32_t* lf = static_cast<const int32_t*>(leaf);
+  const typename M::Stat* sv = static_cast<const typename M::Stat*>(stats);
+  return (int)launch_clustered(full_cluster<kQ8, Bin>, grid, g.threads,
+                               smem, g.cluster, st, binsT, lf, sv, amax_bits,
+                               static_cast<typename M::Acc*>(accum), n, b,
+                               target, g.span, per, exp_rows);
+  }
+}
+
+// The full form's accumulate launch of one mode where a feature group's
+// planes fit a block.
+template <bool kQ8, typename Bin>
+int launch_full_form(const Bin* rows, const void* leaf, const void* stats,
+                     const unsigned* amax_bits, void* accum, int n, int f,
+                     int b, int target, int width, const Geo& g,
+                     long long exp_rows, cudaStream_t st) {
+  using M = Mode<kQ8>;
+  auto kernel = full_accumulate<kQ8, Bin>;
+  const size_t smem = (size_t)g.group * b * kStats * (kQ8 ? 4 : 8)
+                      + (size_t)g.threads * (Staged<kQ8>::kWords + 1) * 4;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long ys = (long long)((f + g.group - 1) / g.group);
+  long long per = g.per;
+  if (per <= 0) {
+    int occ = 1;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kernel, g.threads,
+                                                  smem);
+    const long long wave = (long long)device_sms() * (occ > 0 ? occ : 1);
+    long long blocks = (wave + ys - 1) / ys;
+    const long long most = ((long long)n + kMinRows - 1) / kMinRows;
+    blocks = blocks < most ? blocks : most;
+    blocks = blocks > 0 ? blocks : 1;
+    per = ((long long)n + blocks - 1) / blocks;
+  }
+  per = (per + 31) / 32 * 32;
+  const long long xs = ((long long)n + per - 1) / per;
+  kernel<<<dim3((unsigned)(xs > 0 ? xs : 1), (unsigned)ys), g.threads, smem,
+           st>>>(rows, static_cast<const int32_t*>(leaf),
+                 static_cast<const typename M::Stat*>(stats), amax_bits,
+                 static_cast<typename M::Acc*>(accum), n, f, b, target,
+                 width, g.group, per, exp_rows);
+  return (int)cudaGetLastError();
+}
+
+// The full form's accumulate + convert launches of one mode (one computed
+// slot, `slot`, whose leaf is `target`; slot -1: none computed, the convert
+// alone writes zeros; `dp`: the f64 convert); returns cudaGetLastError().
+// With a cluster, `rows` is the feature-major binsT.
+template <bool kQ8, typename Bin>
+int launch_full(const Bin* rows, const void* leaf, const void* stats,
+                const unsigned* amax_bits, void* accum, void* out, int n,
+                int f, int p, int b, int slot, int target, int width,
+                const Geo& g, bool dp, long long exp_rows, bool raw,
+                cudaStream_t st) {
+  if (slot >= 0) {
+    const int err =
+        g.cluster > 1
+            ? launch_full_cluster<kQ8, Bin>(rows, leaf, stats, amax_bits,
+                                            accum, n, f, b, target, g,
+                                            exp_rows, st)
+            : launch_full_form<kQ8, Bin>(rows, leaf, stats, amax_bits, accum,
+                                         n, f, b, target, width, g, exp_rows,
+                                         st);
+    if (err != 0) return err;
+  }
+  return launch_reduce(kQ8, dp, raw, accum, nullptr, slot, amax_bits, out,
+                       p, f, b, exp_rows, st);
+}
+
 // gather_accumulate of one form over the payload: one wave of blocks
-// (per 0) or ceil(m / per) blocks a grid row.
-template <bool kQ8, bool kGlobal, typename Bin>
+// (per 0) or ceil(m / per) blocks a grid row; past one block's plane,
+// gather_cluster over f features x g.ygrid cluster rows (or ceil(m / per)).
+template <bool kQ8, typename Bin>
 cudaError_t launch_accumulate(const uint32_t* payload, const Bin* rows,
                               const int* counts, void* accum, int f, int m,
                               int b, int active, int width, const Geo& g,
                               int sms, cudaStream_t st) {
-  auto kernel = gather_accumulate<kQ8, kGlobal, Bin>;
-  const size_t asmem =
-      kGlobal ? 0 : (size_t)g.group * g.span * kStats * (kQ8 ? 4 : 8);
+  using Acc = typename Mode<kQ8>::Acc;
+  if constexpr (sizeof(Bin) > 1) {
+  if (g.cluster > 1) {
+    const long long ys = g.per > 0 ? ((long long)m + g.per - 1) / g.per
+                                   : (g.ygrid > 0 ? g.ygrid : 1);
+    const dim3 grid((unsigned)(f * g.cluster), (unsigned)(ys > 0 ? ys : 1));
+    const size_t smem = cluster_smem(kQ8, g.span);
+    return launch_clustered(gather_cluster<kQ8, Bin>, grid, g.threads, smem,
+                            g.cluster, st, payload, rows, counts,
+                            static_cast<Acc*>(accum), f, b, active, width,
+                            g.span, g.per);
+  }
+  }
+  auto kernel = gather_accumulate<kQ8, Bin>;
+  const size_t asmem = (size_t)g.group * b * kStats * (kQ8 ? 4 : 8);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)asmem);
   if (err != cudaSuccess) return err;
-  const long long ys = (long long)((f + g.group - 1) / g.group) * g.nranges;
+  const long long ys = (long long)((f + g.group - 1) / g.group);
   long long xs;
   if (g.per > 0) {
     xs = ((long long)m + g.per - 1) / g.per;
@@ -858,9 +1188,8 @@ cudaError_t launch_accumulate(const uint32_t* payload, const Bin* rows,
     xs = (awave + ys - 1) / ys;
   }
   kernel<<<dim3((unsigned)(xs > 0 ? xs : 1), (unsigned)ys), g.threads, asmem,
-           st>>>(payload, rows, counts,
-                 static_cast<typename Mode<kQ8>::Acc*>(accum), f, b, active,
-                 width, g.group, g.span, g.nranges, g.per);
+           st>>>(payload, rows, counts, static_cast<Acc*>(accum), f, b,
+                 active, width, g.group, g.per);
   return cudaGetLastError();
 }
 
@@ -905,13 +1234,8 @@ int launch_gather(const Bin* rows, const void* leaf, const void* stats,
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
-  err = g.global
-            ? launch_accumulate<kQ8, true, Bin>(payload, rows, counts, accum,
-                                                f, m, b, active, width, g,
-                                                sms, st)
-            : launch_accumulate<kQ8, false, Bin>(payload, rows, counts,
-                                                 accum, f, m, b, active,
-                                                 width, g, sms, st);
+  err = launch_accumulate<kQ8, Bin>(payload, rows, counts, accum, f, m, b,
+                                    active, width, g, sms, st);
   if (err != cudaSuccess) return (int)err;
   return launch_reduce(kQ8, dp, raw, accum, comp, 0, amax_bits, out, p, f, b,
                        exp_rows, st);
@@ -978,14 +1302,15 @@ int gather_mode(bool q8, bool dp, const void* rows, const void* leaf,
 
 // A launch's geometry from the entry points' arguments; an impossible one
 // is refused (cudaErrorInvalidValue) before anything runs.
-bool make_geo(int f, int b, int group, int span, int nranges, long long per,
-              int threads, int global, Geo* g) {
-  *g = Geo{group, span, nranges, per, threads, global};
-  return group >= 1 && span >= 1 && nranges >= 1 &&
-         (long long)span * nranges >= b && (long long)span * (nranges - 1) < b
-         && threads >= 32 && threads <= kThreads && threads % 32 == 0 &&
-         group <= threads && (global == 0 || nranges == 1) && per >= 0 &&
-         f >= 1;
+bool make_geo(int f, int b, int bin_bytes, int group, int span, int cluster,
+              long long per, int ygrid, int threads, Geo* g) {
+  *g = Geo{group, span, cluster, per, ygrid, threads};
+  return group >= 1 && span >= 1 && cluster >= 1 && cluster <= kMaxCluster
+         && (long long)span * cluster >= b
+         && (long long)span * (cluster - 1) < b && threads >= 32
+         && threads <= kThreads && threads % 32 == 0 && group <= threads
+         && (cluster == 1 || (group == 1 && bin_bytes > 1))
+         && per >= 0 && ygrid >= 0 && f >= 1;
 }
 
 }  // namespace
@@ -1003,23 +1328,26 @@ bool make_geo(int f, int b, int group, int span, int nranges, long long per,
 // words; `out` p * f * b * 3 float32 (f32), double (f64), int32 (q8) or,
 // with `raw` != 0 (the integer-planes mode of the f32 mode), int64 sums
 // left unconverted. The geometry: `group` features share a block, whose
-// plane holds `span` bins of each (B cut into `nranges` ranges), `per`
-// rows a block (0: one wave), `threads` a block, `global` != 0 the global
-// form (no planes in shared memory, nranges 1). `exp_rows` is the row
-// count the fixed-point exponent is taken over (n for a pass of its own;
-// the gang's rows when several ranks' planes are to be added).
+// plane holds `span` bins of each, B cut into the `cluster` CTAs of a
+// cluster past one block's plane (then `rows` is the feature-major binsT,
+// f * n elements, and the clusters' rows `per` each, or n cut into `ygrid`
+// ranges), `per` rows a block (0: one wave), `threads` a block.
+// `exp_rows` is the row count the fixed-point exponent is taken over (n
+// for a pass of its own; the gang's rows when several ranks' planes are
+// to be added).
 extern "C" int hist_full_launch(const void* rows, const void* leaf,
                                 const void* stats, void* amax_bits,
                                 int compute_amax, void* scratch,
                                 long long scratch_bytes, void* accum,
                                 void* out, int q8, int bin_bytes, int dp,
                                 int n, int f, int p, int b, int slot,
-                                int target, int group, int span, int nranges,
-                                long long per, int threads, int global,
+                                int target, int group, int span, int cluster,
+                                long long per, int ygrid, int threads,
                                 int width, long long exp_rows, int raw,
                                 void* stream) {
   Geo g;
-  if (!make_geo(f, b, group, span, nranges, per, threads, global, &g))
+  if (!make_geo(f, b, bin_bytes, group, span, cluster, per, ygrid, threads,
+                &g))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaMemsetAsync(scratch, 0, (size_t)scratch_bytes, st);
@@ -1042,7 +1370,8 @@ extern "C" int hist_full_launch(const void* rows, const void* leaf,
 // Gather form over idx[m] (entries outside [0, n) are padding; a null idx
 // is the implicit rung 0..m-1, the full form of a tile with several
 // computed slots), `q8`, `bin_bytes`, `dp` and the geometry as
-// hist_full_launch (`per` 0: one wave of accumulate blocks). `rows` the
+// hist_full_launch (`per` 0: one wave of accumulate blocks, or with a
+// cluster `ygrid` cluster rows over the payload). `rows` the
 // bins row-major, n * `width` elements of the bin type (feature f of row
 // r at r * width + f); `slotmap` l + p int32: each leaf's compact slot
 // (-1: not computed), then each slot's compact index (-1: none);
@@ -1062,12 +1391,13 @@ extern "C" int hist_gather_launch(const void* rows, const void* leaf,
                                   void* payload, void* accum, void* out,
                                   int q8, int bin_bytes, int dp, int n, int f,
                                   int m, int p, int b, int l, int active,
-                                  int group, int span, int nranges,
-                                  long long per, int threads, int global,
+                                  int group, int span, int cluster,
+                                  long long per, int ygrid, int threads,
                                   int width, int tile, long long exp_rows,
                                   int raw, void* stream) {
   Geo g;
-  if (!make_geo(f, b, group, span, nranges, per, threads, global, &g))
+  if (!make_geo(f, b, bin_bytes, group, span, cluster, per, ygrid, threads,
+                &g))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaMemsetAsync(scratch, 0, (size_t)scratch_bytes, st);
@@ -1110,4 +1440,45 @@ extern "C" int hist_convert_launch(const void* acc, const void* amax_bits,
     hist_convert<float><<<blocks, 256, 0, st>>>(
         a, k, static_cast<float*>(out), cells, rows);
   return (int)cudaGetLastError();
+}
+
+// Clusters of the cluster form the card holds at once for the accumulate
+// kernel of a pass (`full` != 0 the full form's, else the gather form's;
+// `q8`, `bin_bytes` 2 or 4) at `cluster` CTAs of `threads` threads and
+// `span` bins: written to `clusters` (0: the card cannot place one).
+// Returns the cudaError of the query.
+extern "C" int hist_cluster_occupancy(int full, int q8, int bin_bytes,
+                                      int cluster, int span, int threads,
+                                      int* clusters) {
+  const size_t smem = cluster_smem(q8 != 0, span);
+  int got;
+  if (full)
+    got = q8 ? (bin_bytes == 4
+                    ? active_clusters(full_cluster<true, uint32_t>,
+                                      cluster, threads, smem)
+                    : active_clusters(full_cluster<true, uint16_t>,
+                                      cluster, threads, smem))
+             : (bin_bytes == 4
+                    ? active_clusters(full_cluster<false, uint32_t>,
+                                      cluster, threads, smem)
+                    : active_clusters(full_cluster<false, uint16_t>,
+                                      cluster, threads, smem));
+  else
+    got = q8 ? (bin_bytes == 4
+                    ? active_clusters(gather_cluster<true, uint32_t>,
+                                      cluster, threads, smem)
+                    : active_clusters(gather_cluster<true, uint16_t>,
+                                      cluster, threads, smem))
+             : (bin_bytes == 4
+                    ? active_clusters(gather_cluster<false, uint32_t>,
+                                      cluster, threads, smem)
+                    : active_clusters(gather_cluster<false, uint16_t>,
+                                      cluster, threads, smem));
+  if (got < 0) {
+    *clusters = 0;
+    const int err = (int)cudaGetLastError();
+    return err != 0 ? err : (int)cudaErrorInvalidConfiguration;
+  }
+  *clusters = got;
+  return 0;
 }

@@ -132,7 +132,12 @@
 // lane keeping its best over its chunks. Same arithmetic, same
 // missing-value handling and tie order, so the table stays bitwise the
 // plain version. The plane is read twice, and the scan of the totals is
-// one warp's; PERF.md has its time against the bound.
+// one warp's; PERF.md has its time against the bound. A design that held
+// every chunk in registers across a thread-block cluster of CTAs (the
+// chunk totals shared through distributed shared memory, the plane read
+// once) was bitwise this one but slower in the f32 and monotone modes at
+// every B (1.77x at 65,535); PERF.md has its numbers and what to measure
+// before it is tried again.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>

@@ -29,10 +29,12 @@ Hopper that is two hand-written CUDA kernels (``csrc/``):
   up to 32,768, int32 bins up to ``MAX_BINS_DEVICE`` = 65,536, what
   ``max_bin`` 65,535 and a NaN bin can make). Where one feature's [B, 3]
   plane fits a block's shared memory a block holds a group of features'
-  planes; past that (~8,400 bins in f32) a feature's bins are cut into
-  ranges that fit and a block accumulates one (row range, feature, bin
-  range), or (the ``global`` form) every add goes straight to the global
-  integer sums (``HistGeometry``, ``bin_ranges``). ``plane=True`` marks a
+  planes; past that (~8,400 bins in f32) a thread-block cluster holds a
+  feature's plane in its CTAs' pooled shared memory, each CTA a bin range,
+  and every (row, feature) adds at its bin's owner through distributed
+  shared memory (``full_cluster`` / ``gather_cluster``, plain version
+  ``cluster_accumulate_plain``; ``HistGeometry``, ``bin_ranges``,
+  ``cluster_rows``). ``plane=True`` marks a
   launch of the classic path (the plane-only kernels 3-4). Each mode
   counts its own launches: ``launches``, ``gather_launches`` and
   ``launches_plane`` for f32 at uint8 bins, each with ``_q8`` for q8,
@@ -49,8 +51,8 @@ Hopper that is two hand-written CUDA kernels (``csrc/``):
   the scan in XLA's three-level block order; above 4,096 (``_wider``) a
   warp takes several chunks in turn and the scan has a fourth level.
 
-The launch geometry of ``hist_tile``'s accumulate kernels (rows a block,
-threads a block, the form past a block's shared memory) is
+The launch geometry of ``hist_tile``'s accumulate kernels (rows a block
+or a cluster, threads a block) is
 ``HistGeometry``; ``autotune_hist`` times candidates on the card and keeps
 the fastest per shape bucket (every candidate gives the same bits), and
 ``traffic_model`` counts the bytes of a pass of each form (the kernels'
@@ -268,13 +270,15 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
         ll = ctypes.c_longlong
         lib.hist_full_launch.argtypes = ([vp] * 4 + [ci, vp, ll]
                                          + [vp] * 2 + [ci] * 12
-                                         + [ll, ci, ci, ci, ll, ci, vp])
+                                         + [ll] + [ci] * 3 + [ll, ci, vp])
         lib.hist_full_launch.restype = ci
         lib.hist_gather_launch.argtypes = ([vp] * 6 + [ci, vp, ll]
                                            + [vp] * 4 + [ci] * 13
-                                           + [ll, ci, ci, ci, ci, ll, ci,
-                                              vp])
+                                           + [ll] + [ci] * 4 + [ll, ci, vp])
         lib.hist_gather_launch.restype = ci
+        lib.hist_cluster_occupancy.argtypes = [ci] * 6 + [
+            ctypes.POINTER(ctypes.c_int)]
+        lib.hist_cluster_occupancy.restype = ci
         lib.hist_convert_launch.argtypes = [vp] * 3 + [ll, ll, ci, vp]
         lib.hist_convert_launch.restype = ci
     elif name == "split_epilogue":
@@ -606,14 +610,109 @@ def full_accumulate_plain(binsT: torch.Tensor, leaf_ids: torch.Tensor,
             if q8:
                 cell = _block_cells(vals[r], bins, num_bins)
             else:
-                lo_sum = _block_cells(lo[r], bins, num_bins)
-                hi_word = (_block_cells(hi[r], bins, num_bins)
-                           + (lo_sum >> 32))
-                hi_word = ((hi_word + 2 ** 31) & 0xFFFFFFFF) - 2 ** 31
-                cell = hi_word * 2 ** 32 + (lo_sum & 0xFFFFFFFF)
+                cell = _split_words(_block_cells(lo[r], bins, num_bins),
+                                    _block_cells(hi[r], bins, num_bins))
             sums[g0 * num_bins:(g0 + gf) * num_bins] += cell
     planes = sums.reshape(f, num_bins, _STATS)
     out[slot] = planes if q8 else _from_fixed(planes, k, finite, dtype)
+    return out
+
+
+def _split_words(lo_sum: torch.Tensor, hi_sum: torch.Tensor) -> torch.Tensor:
+    """The int64 value of add_split cells whose low words added up to
+    ``lo_sum`` and high words to ``hi_sum`` (each an exact int64 sum): the
+    low word's carries go to the high word, both modulo 2^32."""
+    hi_word = hi_sum + (lo_sum >> 32)
+    hi_word = ((hi_word + 2 ** 31) & 0xFFFFFFFF) - 2 ** 31
+    return hi_word * 2 ** 32 + (lo_sum & 0xFFFFFFFF)
+
+
+def cluster_accumulate_plain(binsT: torch.Tensor, leaf_ids: torch.Tensor,
+                             stats: torch.Tensor, chan: torch.Tensor,
+                             num_slots: int, num_bins: int, num_leaves: int,
+                             idx: Optional[torch.Tensor] = None,
+                             amax: Optional[torch.Tensor] = None,
+                             ygrid: int = 2, threads: int = _FULL_THREADS,
+                             dtype: torch.dtype = torch.float32,
+                             rows: Optional[int] = None,
+                             raw: bool = False) -> torch.Tensor:
+    """Plain version of ``hist_tile``'s cluster form (``full_cluster``,
+    ``gather_cluster``: a feature's bins past one block's plane), its
+    decomposition written out: a feature's plane over the ``bin_ranges``
+    CTAs of a cluster, CTA k owning bins [k*span, k*span + span); the
+    pass's rows (the full form: all N, the slot's leaf kept; the gather
+    form: the rung's partition, ``gather_partition_plain``) cut into
+    ``ygrid`` cluster row ranges, each shared among the cluster's CTAs (the
+    full form's 128-row warp chunks dealt out CTA by CTA, the gather form's
+    rows a CTA's ``threads`` at a time); each (row, feature) added at the
+    cell of the CTA that owns its bin (f32: the add_split words of the
+    fixed-point value, scale 2^k from ``amax``, by default max|stat| over
+    all N rows, and the pass's or ``rows`` rows; q8: int32); each CTA's
+    cells flushed into the int64 (q8: int32) sums per cluster range and
+    slot; one conversion to ``dtype`` (``raw``: the int64 sums). Bitwise
+    ``hist_tile_exact``. Returns [P, F, B, 3]."""
+    f, n = binsT.shape
+    dev = binsT.device
+    q8 = stats.dtype == torch.int8
+    lanes, comp = _slot_table(chan, num_slots, num_leaves)
+    active = int((comp >= 0).sum())
+    full = idx is None and active <= 1
+    span, cluster = bin_ranges(num_bins, q8, full, threads)
+    m = n if idx is None else idx.shape[0]
+    if q8:
+        vals = stats.to(torch.int32)
+    else:
+        vals, k, finite = _to_fixed(stats, _absmax(stats) if amax is None
+                                    else amax, m if rows is None else rows)
+        lo_w, hi_w = vals & 0xFFFFFFFF, vals >> 32
+    runs = []                     # (slot c, the run's rows, their reader)
+    if full:
+        on = np.flatnonzero(comp == 0)
+        per = -(-(-(-n // ygrid)) // 32) * 32
+        chunks = cluster * (threads // 32)
+        for r0 in range(0, n, per) if on.size else ():
+            r = r0 + torch.nonzero(
+                leaf_ids[r0:r0 + per] == int(lanes[on[0]])).reshape(-1)
+            runs.append((0, r, ((r - r0) // 128) % chunks // (threads // 32)))
+    else:
+        offsets, kept = gather_partition_plain(leaf_ids, chan, num_slots,
+                                               num_leaves, idx)
+        total = int(offsets[-1])
+        per = max(-(-total // ygrid), 512)
+        for j0 in range(0, total, per):
+            for c in range(active):
+                a = max(j0, int(offsets[c]))
+                z = min(j0 + per, total, int(offsets[c + 1]))
+                if a < z:
+                    j = torch.arange(a, z, device=dev)
+                    runs.append((c, kept[a:z], (j - a) // threads % cluster))
+    sums = torch.zeros((max(active, 1), f, num_bins, _STATS),
+                       dtype=vals.dtype, device=dev)
+    for c, r, reader in runs:
+        for feat in range(f):
+            bins = binsT[feat, r].to(torch.int64)
+            for owner in range(cluster):
+                lo = owner * span
+                bs = min(span, num_bins - lo)
+                own = (bins >= lo) & (bins < lo + bs)
+                words = [torch.zeros((bs, _STATS), dtype=vals.dtype,
+                                     device=dev) for _ in range(2)]
+                for kk in range(cluster):           # every reader's adds
+                    sel = own & (reader == kk)
+                    at = bins[sel] - lo
+                    if q8:
+                        words[0].index_add_(0, at, vals[r[sel]])
+                    else:
+                        words[0].index_add_(0, at, lo_w[r[sel]])
+                        words[1].index_add_(0, at, hi_w[r[sel]])
+                cells = words[0] if q8 else _split_words(*words)
+                sums[c, feat, lo:lo + bs] += cells          # the flush
+    out = torch.zeros((num_slots, f, num_bins, _STATS),
+                      dtype=torch.int32 if q8 else torch.int64 if raw
+                      else dtype, device=dev)
+    planes = sums if q8 or raw else _from_fixed(sums, k, finite, dtype)
+    for slot in np.flatnonzero(comp >= 0):
+        out[int(slot)] = planes[int(comp[slot])]
     return out
 
 
@@ -643,40 +742,19 @@ def kernel_sums_on_cpu():
 
 class HistGeometry(NamedTuple):
     """The launch geometry of ``hist_tile``'s accumulate kernels (the full
-    form's ``full_accumulate``, the gather form's ``gather_accumulate``):
-    ``block_rows`` rows a block (0: one wave of the card's SMs times the
-    occupancy, at least 512 rows a block), ``threads`` a block (a multiple
-    of 32 up to 1,024), and the ``form`` a feature whose bins do not fit
-    one block's shared memory takes: ``smem`` (the bin-range split: ranges
-    of bins that fit, a block each), ``global`` (no shared-memory planes:
-    every add a global integer atomic) or ``auto`` (``default_form``).
-    Every geometry gives the same planes: the sums are fixed-point
-    integers."""
+    form's ``full_accumulate``, the gather form's ``gather_accumulate``,
+    and past one block's plane ``full_cluster`` / ``gather_cluster``):
+    ``block_rows`` rows a block or a cluster (0: one wave of the card's
+    SMs times the occupancy, at least 512 rows a block; for clusters the
+    row ranges of ``cluster_rows``) and ``threads`` a block (a multiple of
+    32 up to 1,024). Every geometry gives the same planes: the sums are
+    fixed-point integers."""
     block_rows: int = 0
     threads: int = 1024
-    form: str = "auto"
 
 
 DEFAULT_GEOMETRY = HistGeometry()
-HIST_FORMS = ("auto", "smem", "global")
-# the split's ranges from which ``auto`` takes the global form (8-byte
-# cells only): chip_smoke.py forms_wider on an H100 (uniform and skewed
-# bins, the root pass and 2- and 21-slot rungs) has the global form at
-# 0.53-0.77 of the split's time at 65,535 bins in f32 (7-8 ranges), one
-# case of six slower (1.46x, the skewed root); at 16,383 (2 ranges), and
-# in q8 at 65,535 (4 ranges), it is up to 3.3x slower
-GLOBAL_FORM_RANGES = 7
-
-
-def default_form(num_bins: int, q8: bool) -> str:
-    """The form ``auto`` takes for a pass at ``num_bins``: ``global`` for
-    8-byte cells (f32, f64, integer planes) whose feature the gather
-    form cuts into ``GLOBAL_FORM_RANGES`` ranges or more, else ``smem``
-    (which is no split at all where a feature's plane fits a block)."""
-    if q8:
-        return "smem"
-    return ("global" if bin_ranges(num_bins, False, False)[1]
-            >= GLOBAL_FORM_RANGES else "smem")
+MAX_CLUSTER = 8             # CTAs of a cluster: the portable size
 
 
 def _plane_room(q8: bool, full: bool, threads: int) -> int:
@@ -689,12 +767,13 @@ def _plane_room(q8: bool, full: bool, threads: int) -> int:
 
 def bin_ranges(num_bins: int, q8: bool, full: bool,
                threads: int = 1024) -> Tuple[int, int]:
-    """(bins a block's plane holds, ranges of them over B): one range when
-    one feature's [B, 3] plane fits a block's shared memory (cells of 8
-    bytes in f32 mode, 4 in q8), else the fewest ranges of equal width
-    that fit (``full``: the full form's block, whose staged rows take room
-    too). 65,535 bins in f32: 8 ranges of 8,192 in the full form, 7 of
-    9,363 in the gather form."""
+    """(bins a CTA's plane holds, CTAs of the cluster that holds a
+    feature's plane): one when one feature's [B, 3] plane fits a block's
+    shared memory (cells of 8 bytes in f32 mode, 4 in q8), else the fewest
+    CTAs of equal bin ranges that fit (``full``: the full form's block,
+    whose staged rows take room too): 2 at 16,384 bins in f32, 4 at
+    65,536 in q8, 8 at 65,536 in f32 (ranges of 8,192) in the full form, 7
+    of 9,363 in the gather form."""
     check_bins_cap(num_bins)
     fit = _plane_room(q8, full, threads) // (_STATS * (4 if q8 else 8))
     nranges = -(-num_bins // fit)
@@ -767,15 +846,56 @@ def full_layout(num_features: int, num_bins: int,
 
 def launch_shape(num_features: int, num_bins: int, q8: bool, full: bool,
                  geometry: HistGeometry) -> Tuple[int, int, int]:
-    """(features a block, bins a block's plane, ranges of them) of an
-    accumulate launch under ``geometry`` (its form resolved: ``smem`` or
-    ``global``): the global form keeps no plane, so a block takes up to
-    ``threads`` features and all their bins."""
-    if geometry.form == "global":
-        return min(num_features, geometry.threads), num_bins, 1
-    span, nranges = bin_ranges(num_bins, q8, full, geometry.threads)
+    """(features a block, bins a CTA's plane, CTAs a cluster) of an
+    accumulate launch under ``geometry``: past one block's plane a
+    cluster of ``bin_ranges`` CTAs a feature."""
+    span, cluster = bin_ranges(num_bins, q8, full, geometry.threads)
     return (_group(num_features, num_bins, q8, full, geometry.threads),
-            span, nranges)
+            span, cluster)
+
+
+def cluster_rows(num_features: int, wave: int) -> int:
+    """Row ranges a feature's clusters split the pass's rows into: the
+    grid of ``num_features`` x rows clusters fills whole waves of the
+    ``wave`` clusters the card holds at once as nearly as it can (the
+    share of the last wave's slots used, highest first; the fewest ranges
+    on a tie: each range flushes its plane once), at most twice as many
+    clusters as one wave's slots. ``wave`` < 1: the card places none,
+    which is refused."""
+    if wave < 1:
+        raise ValueError("cluster_rows: no cluster can be placed")
+    most = max(1, -(-2 * wave // num_features))
+    return max(range(1, most + 1), key=lambda y: (
+        num_features * y / (-(-num_features * y // wave) * wave), -y))
+
+
+_waves: Dict[tuple, int] = {}       # (full, q8, bin_bytes, cluster, span,
+                                    # threads) -> clusters the card holds
+
+
+def cluster_wave(lib, full: bool, q8: bool, bin_bytes: int, cluster: int,
+                 span: int, threads: int) -> int:
+    """Clusters of the cluster form's accumulate kernel the card holds at
+    once (``cudaOccupancyMaxActiveClusters``), kept per shape; raises
+    naming the shape where the card cannot place one (no other form
+    stands in)."""
+    key = (bool(full), bool(q8), int(bin_bytes), int(cluster), int(span),
+           int(threads))
+    if key not in _waves:
+        got = ctypes.c_int(0)
+        err = lib.hist_cluster_occupancy(int(full), int(q8), int(bin_bytes),
+                                         int(cluster), int(span),
+                                         int(threads), ctypes.byref(got))
+        _raise_on(err, "hist_cluster_occupancy")
+        if got.value < 1:
+            raise RuntimeError(
+                f"hist_tile: the card cannot place a cluster of {cluster} "
+                f"CTAs of {threads} threads and {span} bins "
+                f"({span * _STATS * (4 if q8 else 8)} bytes of shared "
+                f"memory each; {'full' if full else 'gather'} form, "
+                f"{'q8' if q8 else 'f32'}, {bin_bytes}-byte bins)")
+        _waves[key] = got.value
+    return _waves[key]
 
 
 def bins_by_row(binsT: torch.Tensor, width: int) -> torch.Tensor:
@@ -824,8 +944,8 @@ def hist_tile(binsT: torch.Tensor, leaf_ids: torch.Tensor,
     computes it once, and without it every launch computes it. int16
     ``binsT`` selects the wide mode (up to 32,768 bins), int32 its wider
     bins (up to ``MAX_BINS_DEVICE``). ``geometry``: the accumulate
-    launches' ``HistGeometry`` (None: ``DEFAULT_GEOMETRY``; the form
-    ``auto`` is ``default_form``'s); it changes no bit of the planes.
+    launches' ``HistGeometry`` (None: ``DEFAULT_GEOMETRY``); it changes
+    no bit of the planes.
     ``sweep``: a launch of ``autotune_hist``'s timing passes, counted in
     ``autotune_hist.launches`` alone (a training's ``hist_tile``
     counters then hold its own passes).
@@ -846,11 +966,10 @@ def hist_tile(binsT: torch.Tensor, leaf_ids: torch.Tensor,
     wide = binsT.dtype != torch.uint8
     dp = dtype == torch.float64
     geo = DEFAULT_GEOMETRY if geometry is None else HistGeometry(*geometry)
-    _check(geo.form in HIST_FORMS and geo.block_rows >= 0
+    _check(geo.block_rows >= 0
            and 32 <= geo.threads <= 1024 and geo.threads % 32 == 0,
            f"hist_tile: geometry {tuple(geo)} outside the kernels' "
-           f"(block_rows >= 0, threads a multiple of 32 up to 1,024, form "
-           f"one of {HIST_FORMS})")
+           f"(block_rows >= 0, threads a multiple of 32 up to 1,024)")
     raw = raw and not q8
     _check(not raw or (plane and not dp), "hist_tile: the integer-planes "
            "mode is a plane-only launch of the f32 mode")
@@ -868,6 +987,11 @@ def hist_tile(binsT: torch.Tensor, leaf_ids: torch.Tensor,
                                    num_bins, num_leaves, idx, amax, rows=rows,
                                    raw=True)
         if kernel_sums_active() and not q8:
+            if idx is None and bin_ranges(num_bins, False, True)[1] > 1:
+                return cluster_accumulate_plain(binsT, leaf_ids, stats, chan,
+                                                num_slots, num_bins,
+                                                num_leaves, amax=amax,
+                                                dtype=dtype, rows=rows)
             if idx is None:
                 return full_accumulate_plain(binsT, leaf_ids, stats, chan,
                                              num_slots, num_bins,
@@ -922,8 +1046,6 @@ def hist_tile(binsT: torch.Tensor, leaf_ids: torch.Tensor,
     lib = _lib("hist_tile")
     stream = torch.cuda.current_stream(dev).cuda_stream
     full = idx is None and active <= 1
-    if geo.form == "auto":
-        geo = geo._replace(form=default_form(num_bins, q8))
     shape = launch_shape(f, num_bins, q8, full, geo)
     if full:
         err = _launch_full(lib, binsT, leaf_ids, stats, lanes, comp_np, amax,
@@ -934,8 +1056,8 @@ def hist_tile(binsT: torch.Tensor, leaf_ids: torch.Tensor,
                              idx, amax, out, q8, dp, n, f, m, num_slots,
                              num_bins, num_leaves, active, stream, exp_rows,
                              raw, geo, shape)
-    # _wider: one feature's plane does not fit a block (either form)
-    split = bin_ranges(num_bins, q8, full, geo.threads)[1] > 1
+    # _wider: one feature's plane does not fit a block (a cluster's)
+    split = shape[2] > 1
     sfx = ("_wider" if split else "_wide" if wide else "") + (
         "_q8" if q8 else "_dp" if dp else "_raw" if raw else "")
     if sweep:
@@ -954,13 +1076,23 @@ def _launch_full(lib, binsT, leaf_ids, stats, lanes, comp_np, amax, out,
                  q8, dp, n, f, p, b, stream, exp_rows, raw, geo,
                  shape) -> int:
     """The full-row form of a tile with one computed slot: full_accumulate
-    over the row-major bins, convert (csrc/hist_tile.cu); a tile with none
+    over the row-major bins (past one block's plane full_cluster over the
+    feature-major ``binsT``, in ``cluster_rows`` row ranges), convert
+    (csrc/hist_tile.cu); a tile with none
     launches the convert alone, which writes zeros. No slot table on the
     device (the slot and its leaf go as arguments) and one scratch buffer,
     zeroed by the launcher (the integer sums and stat_absmax's words when
     ``amax`` is None); no host sync. Returns the launcher's cudaError."""
-    group, span, nranges = shape
-    rows = bins_by_row(binsT, _row_width(f))
+    group, span, cluster = shape
+    ygrid = 0
+    if cluster > 1:             # the clusters read the feature-major bins
+        rows, width = binsT, n
+        ygrid = cluster_rows(f, cluster_wave(lib, True, q8,
+                                             binsT.element_size(), cluster,
+                                             span, geo.threads))
+    else:
+        rows = bins_by_row(binsT, _row_width(f))
+        width = rows.shape[1]
     on = np.flatnonzero(comp_np == 0)
     slot, target = (int(on[0]), int(lanes[on[0]])) if on.size else (-1, -1)
     amax_off = -(-f * b * _STATS * (4 if q8 else 8) // 8) * 8
@@ -972,8 +1104,8 @@ def _launch_full(lib, binsT, leaf_ids, stats, lanes, comp_np, amax, out,
         None if q8 else (base + amax_off if amax is None else _ptr(amax)),
         int(amax is None and not q8), base, scratch.numel() * 8, base,
         _ptr(out), int(q8), rows.element_size(), int(dp), n, f, p, b, slot,
-        target, group, span, nranges, geo.block_rows, geo.threads,
-        int(geo.form == "global"), rows.shape[1], exp_rows, int(raw), stream)
+        target, group, span, cluster, geo.block_rows, ygrid, geo.threads,
+        width, exp_rows, int(raw), stream)
 
 
 def _launch_gather(lib, binsT, leaf_ids, stats, lanes, comp_np, idx, amax,
@@ -989,8 +1121,10 @@ def _launch_gather(lib, binsT, leaf_ids, stats, lanes, comp_np, idx, amax,
     slot counts and cursors, and stat_absmax's words when ``amax`` is
     None); no host sync. Returns the launcher's cudaError."""
     dev = binsT.device
-    group, span, nranges = shape
+    group, span, cluster = shape
     rows = bins_by_row(binsT, _row_width(f))
+    ygrid = 0 if cluster == 1 else cluster_rows(f, cluster_wave(
+        lib, False, q8, rows.element_size(), cluster, span, geo.threads))
     table = np.full((l + p,), -1, dtype=np.int32)
     table[lanes[comp_np >= 0]] = comp_np[comp_np >= 0]
     table[l:] = comp_np
@@ -1009,8 +1143,8 @@ def _launch_gather(lib, binsT, leaf_ids, stats, lanes, comp_np, idx, amax,
         int(amax is None and not q8), base, scratch.numel() * 8,
         base + cnt_off, _ptr(payload), base, _ptr(out), int(q8),
         rows.element_size(), int(dp), n, f, m, p, b, l, active, group, span,
-        nranges, geo.block_rows, geo.threads, int(geo.form == "global"),
-        rows.shape[1], _SCATTER_TILE, exp_rows, int(raw), stream)
+        cluster, geo.block_rows, ygrid, geo.threads, rows.shape[1],
+        _SCATTER_TILE, exp_rows, int(raw), stream)
 
 
 def hist_convert(acc: torch.Tensor, amax: torch.Tensor, rows: int,
@@ -1098,17 +1232,19 @@ def traffic_model(n: int, f: int, b: int, p: int, s: int = _STATS,
       planes, every full plane written, the candidates and small tables.
 
     What the kernels themselves move (``full_kernels``, ``gather_kernels``):
-    the full form reads every row's leaf and stats once a block row
-    (feature group x bin range) and the tile rows' bins once a bin range,
-    adds into the [f, b, s] integer sums (8 bytes a cell in f32, 4 in q8)
-    and converts them; the gather form's ``gather_count`` reads the rung's
-    ids and leaves, ``gather_scatter`` reads them again with the tile
-    rows' stats and writes the payload (32 bytes a row in f32, 8 in q8),
-    ``gather_accumulate`` reads the payload once a block row and the bins
-    once a bin range, and the convert reads the sums and writes the
-    planes. ``ranges`` / ``gather_ranges`` are the bin ranges a feature is
-    cut into (``bin_ranges``); ``split_rows``: the bytes the bin-range
-    split's repeated row reads add to the full form."""
+    the full form reads every row's leaf and stats once a feature group
+    (the features a block holds, or past one block's plane one feature a
+    cluster) and the tile rows' bins once (the cluster form: every row's,
+    from the feature-major bins), adds into the [f, b, s] integer sums (8
+    bytes a cell in f32, 4 in q8) and converts them; the gather form's
+    ``gather_count`` reads the rung's ids and leaves, ``gather_scatter``
+    reads them again with the tile rows' stats and writes the payload (32
+    bytes a row in f32, 8 in q8), the accumulate reads the payload once a
+    feature group and the bins once, and the convert reads the sums and
+    writes the planes. ``cluster`` / ``gather_cluster`` are the CTAs of
+    the cluster that holds a feature's plane (``bin_ranges``; 1 where it
+    fits one block). The clusters' flushes (each cluster row range's
+    nonzero cells, integer atomics in L2) are not counted."""
     stat_b, out_b = _MODE_BYTES[mode]
     q8 = mode == "q8"
     t = n if tile_rows is None else int(tile_rows)
@@ -1120,27 +1256,25 @@ def traffic_model(n: int, f: int, b: int, p: int, s: int = _STATS,
     out["epilogue"] = ((tr + d + p) * f * b * s * 4 + p * f * 12 * 4
                        + p * 8 * 4 + f * 8 * 4 + 8 * 4 + (12 if q8 else 0))
     acc_b = 4 if q8 else 8
-    span, nranges = bin_ranges(b, q8, True, threads)
+    cluster = bin_ranges(b, q8, True, threads)[1]
     groups = -(-f // _group(f, b, q8, True, threads))
     sums = f * b * s * acc_b
-    out["ranges"] = nranges
-    out["full_kernels"] = (groups * nranges * n * (4 + s * stat_b)
-                           + nranges * t * f * bin_bytes + 2 * sums + planes)
-    out["split_rows"] = ((nranges - 1) * (groups * n * (4 + s * stat_b)
-                                          + t * f * bin_bytes))
+    out["cluster"] = cluster
+    out["full_kernels"] = (groups * n * (4 + s * stat_b)
+                           + (n if cluster > 1 else t) * f * bin_bytes
+                           + 2 * sums + planes)
     if gathered_rows is not None:
         m = int(gathered_rows)
         out["gather"] = 4 * m + 4 * t + tile_bytes + planes
-        gspan, granges = bin_ranges(b, q8, False, threads)
         ggroups = -(-f // _group(f, b, q8, False, threads))
         payload = 8 if q8 else 32
         active = sums * max(1, p // 2)
-        out["gather_ranges"] = granges
+        out["gather_cluster"] = bin_ranges(b, q8, False, threads)[1]
         out["gather_kernels"] = (
             8 * m                                        # gather_count
             + 8 * m + t * s * stat_b + t * payload       # gather_scatter
-            + ggroups * granges * t * payload            # accumulate
-            + granges * t * f * bin_bytes + active
+            + ggroups * t * payload                      # accumulate
+            + t * f * bin_bytes + active
             + active + planes)                           # the convert
     return out
 
@@ -1154,40 +1288,52 @@ THREAD_CANDIDATES = (1024, 512)
 SWEEP_REPS = 3                           # timed runs a candidate, best kept
 
 
+# the passes a tree launches, each with its weight in a candidate's time:
+# the root pass and the gather passes at the compaction ladder's rungs (the
+# default hist_compaction_ladder [0.5, 0.125] of the rows), as many as a
+# tree of chip_smoke.py's train configuration (255 leaves, max_bin 255,
+# Higgs-shaped rows) launches, cut to 65,536 rows
+# (tests/test_torch_autotune.py counts them). The mix follows the data and
+# the leaves; SWEEP_SLACK holds each pass on its own, whatever the
+# weights.
+TREE_PASSES = (("root", None, 1.0), ("rung_0.5", 0.5, 7.5),
+               ("rung_0.125", 0.125, 7.5))
+SWEEP_SLACK = 1.05       # a kept geometry's pass against the default's
+# rows the sweep times its passes on: a full 2M-row pass (a 262,144-row
+# sample kept 512 threads a block at B = 255, 1.3-1.5x the default's
+# device time on the full passes: PERF.md)
+SWEEP_ROWS = 1 << 21
+
+
 def hist_candidates(num_features: int, num_bins: int, q8: bool,
                     block_candidates=BLOCK_CANDIDATES):
-    """The geometries ``autotune_hist`` times: each rows-a-block and
-    threads-a-block pair in the form ``default_form`` takes (the first is
-    ``DEFAULT_GEOMETRY`` with that form resolved, the choice without a
-    sweep), and where a feature's bins do not fit one block the other
-    form, one wave, at each threads-a-block."""
-    form = default_form(num_bins, q8)
-    cands = [HistGeometry(blk, th, form) for th in THREAD_CANDIDATES
-             for blk in block_candidates]
-    if bin_ranges(num_bins, q8, False)[1] > 1 or \
-            bin_ranges(num_bins, q8, True)[1] > 1:
-        other = "smem" if form == "global" else "global"
-        cands += [HistGeometry(0, th, other) for th in THREAD_CANDIDATES]
-    return cands
+    """The geometries ``autotune_hist`` times: each rows-a-block (past one
+    block's plane, rows a cluster) and threads-a-block pair; the first is
+    ``DEFAULT_GEOMETRY``, the choice without a sweep."""
+    check_bins_cap(num_bins)
+    return [HistGeometry(blk, th) for th in THREAD_CANDIDATES
+            for blk in block_candidates]
 
 
 def autotune_pass(binsT: torch.Tensor, num_bins: int, q8: bool,
                   sample_rows: int):
-    """The sweep's passes on a sampled prefix of ``binsT``'s rows: the
-    root pass (one computed slot, every row) and a gather pass over every
-    other row as the fused path's tile lays it out (the structural tile's
-    slots, the even ones computed: 21 leaves, whose integer sums decide
-    whether the global form's atomics stay in L2); ones as stats. A
-    geometry's rows a block shrink with the sample (k of N rows: rows a
-    block x k / N, at least 32), so each pass launches the grid the full
-    pass would, and each block flushes as many planes as there: a fixed
-    count at the sample's size would time a quarter of the blocks a
-    2M-row pass takes. Returns a function of a geometry that runs both
-    and returns their planes (each launch counted in
-    ``autotune_hist.launches``)."""
+    """The sweep's passes on a sampled prefix of ``binsT``'s rows, as a
+    tree launches them (``TREE_PASSES``): the root pass (one computed
+    slot, every row) and a gather pass at each of the ladder's rungs (the
+    rung's share of the sample, every second or eighth row, laid out as
+    the fused path's tile: the structural tile's slots, the even ones
+    computed, 21 leaves); ones as stats. A geometry's rows a block
+    shrink with the sample (k of N rows: rows a block x k / N, at least
+    32), so each pass launches the grid the full pass would, and each
+    block flushes as many planes as there: a fixed count at the sample's
+    size would time a quarter of the blocks a 2M-row pass takes. Returns
+    a function of a geometry that runs every pass and returns their
+    planes (each launch counted in ``autotune_hist.launches``); its
+    ``passes`` maps each pass's name to a function of a geometry that
+    runs that pass alone, and ``weights`` each name to its weight."""
     f, n = binsT.shape
     k = max(1, min(n, int(sample_rows)))
-    sub = binsT[:, :k].contiguous()
+    sub = binsT if k == n else binsT[:, :k].contiguous()
     dev = binsT.device
     stats = torch.ones((k, _STATS), dtype=torch.int8 if q8
                        else torch.float32, device=dev)
@@ -1195,43 +1341,60 @@ def autotune_pass(binsT: torch.Tensor, num_bins: int, q8: bool,
     half = max(1, tile // 2)
     leaf = ((torch.arange(k, device=dev) // 2) % half).to(torch.int32)
     zero = torch.zeros_like(leaf)
-    idx = torch.arange(0, k, 2, dtype=torch.int32, device=dev)
     root = chan_leaf_table(torch.tensor([0, -1], dtype=torch.int32))
     sel = torch.full((tile,), -1, dtype=torch.int32)
     sel[0::2] = torch.arange(half, dtype=torch.int32)
     pairs = chan_leaf_table(sel)
 
-    def run(geo):
+    def scaled(geo):
         if geo.block_rows:
             geo = geo._replace(block_rows=max(32, geo.block_rows * k // n))
-        return (hist_tile(sub, zero, stats, root, 2, num_bins, 2,
-                          geometry=geo, sweep=True),
-                hist_tile(sub, leaf, stats, pairs, tile, num_bins, half, idx,
-                          geometry=geo, sweep=True))
+        return geo
+
+    def one(name, share):
+        if share is None:
+            return lambda geo: hist_tile(sub, zero, stats, root, 2, num_bins,
+                                         2, geometry=scaled(geo), sweep=True)
+        idx = torch.arange(0, k, round(1 / share), dtype=torch.int32,
+                           device=dev)
+        return lambda geo: hist_tile(sub, leaf, stats, pairs, tile, num_bins,
+                                     half, idx, geometry=scaled(geo),
+                                     sweep=True)
+    passes = {name: one(name, share) for name, share, _ in TREE_PASSES}
+
+    def run(geo):
+        return tuple(fn(geo) for fn in passes.values())
+    run.passes = passes
+    run.weights = {name: w for name, _, w in TREE_PASSES}
     return run
 
 
 def autotune_hist(binsT: torch.Tensor, num_bins: int, q8: bool = False,
-                  epilogue: bool = False, sample_rows: int = 262144,
+                  epilogue: bool = False, sample_rows: int = SWEEP_ROWS,
                   block_candidates=BLOCK_CANDIDATES,
                   force_measure: bool = False) -> dict:
     """Measured launch geometry of ``hist_tile`` for this shape bucket (the
     JAX package's ``autotune_hist``): on a CUDA tensor, time each of
-    ``hist_candidates`` on the root pass and a gather pass over a sampled
-    prefix of ``sample_rows`` rows (the best of ``SWEEP_REPS`` runs after
-    one warm run, CUDA events), and keep the fastest per (F, B, log2 row
-    bucket, q8, epilogue). Every candidate gives the same planes (the sums
-    are fixed-point integers), so the choice changes no bit. ``epilogue``
-    keys the cache on the pass's form as the JAX package does (a geometry
-    tuned for the plane-only pass never rides into the fused one); the
-    epilogue launch itself takes no geometry. The leaf batch is
-    structural (``structural_tile_leaves``). Off the card it returns the
-    defaults without timing (``force_measure`` times on the host, for
-    tests). Returns ``{"block", "threads", "form", "tile_leaves",
-    "epilogue", "times_ms"}`` (0 and "" keep the defaults)."""
+    ``hist_candidates`` on each pass of ``autotune_pass`` over a sampled
+    prefix of ``sample_rows`` rows (each pass the best of ``SWEEP_REPS``
+    runs after one warm run, CUDA events), a candidate's time the passes'
+    times weighted by how often a tree launches each (``TREE_PASSES``),
+    and keep the fastest per (F, B, log2 row bucket, q8, epilogue) -- but
+    only where none of its passes takes more than ``SWEEP_SLACK`` times
+    the default's (the first candidate's), else the default. Every
+    candidate gives the same planes (the sums are fixed-point integers),
+    so the choice changes no bit. ``epilogue`` keys the cache on the
+    pass's form as the JAX package does (a geometry tuned for the
+    plane-only pass never rides into the fused one); the epilogue launch
+    itself takes no geometry. The leaf batch is structural
+    (``structural_tile_leaves``). Off the card it returns the defaults
+    without timing (``force_measure`` times on the host, for tests).
+    Returns ``{"block", "threads", "tile_leaves", "epilogue", "times_ms",
+    "pass_ms"}`` (0 keeps the defaults; ``times_ms`` a
+    candidate's weighted time, ``pass_ms`` its passes')."""
     tile = structural_tile_leaves()
     if binsT.device.type != "cuda" and not force_measure:
-        return {"block": 0, "threads": 0, "form": "", "tile_leaves": 0,
+        return {"block": 0, "threads": 0, "tile_leaves": 0,
                 "epilogue": bool(epilogue), "times_ms": {}}
     f, n = binsT.shape
     key = (f, int(num_bins), max(n, 1).bit_length(), bool(q8),
@@ -1241,33 +1404,45 @@ def autotune_hist(binsT: torch.Tensor, num_bins: int, q8: bool = False,
         return hit
     run = autotune_pass(binsT, num_bins, q8, sample_rows)
     cuda = binsT.device.type == "cuda"
-    times = {}
-    for geo in hist_candidates(f, num_bins, q8, block_candidates):
-        run(geo)                                 # warm (and the build)
+
+    def best_ms(fn, geo):
         best = float("inf")
         for _ in range(SWEEP_REPS):
             if cuda:
                 ev = [torch.cuda.Event(enable_timing=True) for _ in "ab"]
                 ev[0].record()
-                run(geo)
+                fn(geo)
                 ev[1].record()
                 ev[1].synchronize()
                 best = min(best, ev[0].elapsed_time(ev[1]))
             else:
                 t0 = time.perf_counter()
-                run(geo)
+                fn(geo)
                 best = min(best, (time.perf_counter() - t0) * 1e3)
-        times[geo] = best
+        return best
+    cands = hist_candidates(f, num_bins, q8, block_candidates)
+    passes, times = {}, {}
+    for geo in cands:
+        run(geo)                                 # warm (and the build)
+        passes[geo] = {name: best_ms(fn, geo)
+                       for name, fn in run.passes.items()}
+        times[geo] = sum(run.weights[name] * ms
+                         for name, ms in passes[geo].items())
     win = min(times, key=times.get)
+    if any(ms > SWEEP_SLACK * passes[cands[0]][name]
+           for name, ms in passes[win].items()):
+        win = cands[0]
     from ..utils import log
     log.info("hist_tile autotune: " + ", ".join(
-        f"rows{g.block_rows}/t{g.threads}/{g.form}={ms:.3f}ms"
+        f"rows{g.block_rows}/t{g.threads}={ms:.3f}ms"
         for g, ms in times.items())
         + f" -> {tuple(win)} (F={f}, B={num_bins}, q8={q8}, "
         f"epilogue={epilogue}, {min(n, sample_rows)} sampled rows)")
+    name = lambda g: "/".join(map(str, g))
     out = {"block": win.block_rows, "threads": win.threads,
-           "form": win.form, "tile_leaves": tile, "epilogue": bool(epilogue),
-           "times_ms": {"/".join(map(str, g)): ms for g, ms in times.items()}}
+           "tile_leaves": tile, "epilogue": bool(epilogue),
+           "times_ms": {name(g): ms for g, ms in times.items()},
+           "pass_ms": {name(g): ms for g, ms in passes.items()}}
     _tuned[key] = out
     return out
 
@@ -1277,8 +1452,9 @@ def tuned_geometry(tuned: dict) -> Optional[HistGeometry]:
     defaults)."""
     if not tuned or not tuned.get("threads"):
         return None
-    return HistGeometry(int(tuned["block"]), int(tuned["threads"]),
-                        str(tuned["form"]))
+    # a trainer state of an older tree may name a form ("form"): there is
+    # one form now, and its rows and threads stand
+    return HistGeometry(int(tuned["block"]), int(tuned["threads"]))
 
 
 # ------------------------------------------------------------- split_epilogue

@@ -40,7 +40,7 @@ def test_autotune_off_the_card_returns_the_defaults_untimed(monkeypatch):
                         lambda *a, **k: called.append(1))
     binsT = torch.zeros((3, 100), dtype=torch.uint8)
     out = cuda_hist.autotune_hist(binsT, 255, epilogue=True)
-    assert out == {"block": 0, "threads": 0, "form": "", "tile_leaves": 0,
+    assert out == {"block": 0, "threads": 0, "tile_leaves": 0,
                    "epilogue": True, "times_ms": {}}
     assert not called and cuda_hist.tuned_geometry(out) is None
 
@@ -72,27 +72,115 @@ def test_every_candidate_gives_the_same_planes(b):
     binsT = torch.as_tensor(rng.randint(0, b, (3, 900)), dtype=dt)
     run = cuda_hist.autotune_pass(binsT, b, False, 600)
     cands = cuda_hist.hist_candidates(3, b, False)
-    form = cuda_hist.default_form(b, False)
-    assert cands[0] == cuda_hist.DEFAULT_GEOMETRY._replace(form=form)
-    assert {g.form for g in cands} == ({"smem", "global"} if b > 8448
-                                       else {"smem"})
+    assert cands[0] == cuda_hist.DEFAULT_GEOMETRY
+    assert len(set(cands)) == len(cands)
     ref = run(cands[0])
     for g in cands[1:]:
         for a, r in zip(run(g), ref):
             assert torch.equal(a, r)
 
 
-@pytest.mark.parametrize("b,q8,form", [
-    (255, False, "smem"), (16383, False, "smem"), (40000, False, "smem"),
-    (58000, False, "global"), (65535, False, "global"),
-    (65535, True, "smem")])
-def test_the_default_form_follows_the_split_ranges(b, q8, form):
-    """Without a sweep a pass takes the global form only for 8-byte cells
-    cut into GLOBAL_FORM_RANGES ranges or more (65,535 bins in f32), where
-    the card measured it faster; the split everywhere else."""
-    assert cuda_hist.default_form(b, q8) == form
-    ranges = cuda_hist.bin_ranges(b, q8, False)[1]
-    assert (ranges >= cuda_hist.GLOBAL_FORM_RANGES) == (form == "global")
+@pytest.mark.parametrize("b,q8,cluster", [
+    (255, False, 1), (16383, False, 2), (40000, False, 5),
+    (58000, False, 7), (65535, False, 8), (65535, True, 4)])
+def test_the_default_form_follows_the_split_ranges(b, q8, cluster):
+    """Every pass takes the one form there is, shared-memory planes: one
+    block's plane where a feature's fits, past it a cluster of as many
+    CTAs as the bin ranges that fit a block (at most MAX_CLUSTER; the
+    card measured it ahead of the global form, which went: PERF.md);
+    a geometry ridden in with the old form keeps its rows and threads."""
+    f = 28
+    shape = cuda_hist.launch_shape(f, b, q8, True, cuda_hist.DEFAULT_GEOMETRY)
+    assert shape[1:] == cuda_hist.bin_ranges(b, q8, True)
+    assert shape[2] == cluster <= cuda_hist.MAX_CLUSTER
+    assert (cluster > 1) == (b * 3 * (4 if q8 else 8) > 202_752)
+    assert cuda_hist.tuned_geometry({"block": 8192, "threads": 512,
+                                     "form": "global"}) == \
+        cuda_hist.HistGeometry(8192, 512)
+
+
+def _timed_sweep(monkeypatch, costs):
+    """autotune_hist measured on the host with a clock that advances by
+    ``costs[(block_rows, threads)][pass]`` ms a pass (the root pass, the
+    gather pass at the 0.5 and at the 0.125 rung of the sample)."""
+    import types
+    clock = [0.0]
+    k = 8000
+
+    def fake(binsT, leaf, stats, chan, p, b, l, idx=None, geometry=None,
+             **kw):
+        kind = ("root" if idx is None else
+                "rung_0.5" if idx.shape[0] == k // 2 else "rung_0.125")
+        clock[0] += costs[(geometry.block_rows, geometry.threads)][kind] / 1e3
+        return torch.zeros(1)
+    monkeypatch.setattr(cuda_hist, "hist_tile", fake)
+    monkeypatch.setattr(cuda_hist, "time", types.SimpleNamespace(
+        perf_counter=lambda: clock[0]))
+    cuda_hist._tuned.clear()
+    binsT = torch.zeros((3, k), dtype=torch.uint8)
+    try:
+        return cuda_hist.autotune_hist(binsT, 255, sample_rows=k,
+                                       force_measure=True)
+    finally:
+        cuda_hist._tuned.clear()
+
+
+def test_the_sweep_weights_the_passes_as_a_tree_launches_them(monkeypatch):
+    """A candidate's time is its root pass plus its gather passes at the
+    ladder's rungs, each weighted by the passes of it a tree launches
+    (TREE_PASSES: 1, 7.5, 7.5). A fast root does not buy a slower 0.5
+    rung, a pass a tree launches 7.5 times; a candidate with a pass more
+    than SWEEP_SLACK over the default's is not kept even when its
+    weighted time wins."""
+    flat = {"root": 1.0, "rung_0.5": 1.0, "rung_0.125": 1.0}
+    costs = {(blk, th): dict(flat) for blk in cuda_hist.BLOCK_CANDIDATES
+             for th in cuda_hist.THREAD_CANDIDATES}
+    # the old weighting (one root, one gather pass) would keep 32768/1024
+    costs[(32768, 1024)] = {"root": 0.1, "rung_0.5": 1.2, "rung_0.125": 1.0}
+    costs[(8192, 1024)] = {"root": 0.5, "rung_0.5": 1.02,
+                           "rung_0.125": 1.02}
+    out = _timed_sweep(monkeypatch, costs)
+    w = {name: wt for name, _, wt in cuda_hist.TREE_PASSES}
+    assert w == {"root": 1.0, "rung_0.5": 7.5, "rung_0.125": 7.5}
+    for geo, ms in out["times_ms"].items():
+        blk, th = geo.split("/")
+        want = sum(w[n] * c for n, c in costs[(int(blk), int(th))].items())
+        assert abs(ms - want) < 1e-6, geo
+        assert out["pass_ms"][geo].keys() == w.keys()
+    assert (out["block"], out["threads"]) == (8192, 1024)
+    # a win on the weighted time with one pass 6% over the default's
+    costs[(8192, 1024)] = {"root": 0.2, "rung_0.5": 1.06,
+                           "rung_0.125": 0.9}
+    out = _timed_sweep(monkeypatch, costs)
+    assert out["times_ms"]["8192/1024"] < out["times_ms"]["0/1024"]
+    assert (out["block"], out["threads"]) == (0, 1024)
+
+
+def test_tree_passes_are_what_train_launches(monkeypatch):
+    """TREE_PASSES is the count of passes a tree launches at each rung in
+    chip_smoke.py's train configuration (255 leaves, max_bin 255, its
+    Higgs-shaped rows) cut to 65,536 rows: one root pass (the full form)
+    and the gather passes at the ladder's 0.5 and 0.125 rungs, counted
+    over two trees."""
+    import chip_smoke
+    n, rounds = 65536, 2
+    X, y = chip_smoke.higgs_like(n, 0)
+    rungs = {-(-int(round(n * share)) // 64) * 64: name
+             for name, share, _ in cuda_hist.TREE_PASSES if share}
+    seen = {name: 0 for name, _, _ in cuda_hist.TREE_PASSES}
+    real = cuda_hist.hist_tile
+
+    def counted(binsT, leaf_ids, stats, chan, num_slots, num_bins,
+                num_leaves, idx=None, *a, **k):
+        seen["root" if idx is None else rungs[idx.shape[0]]] += 1
+        return real(binsT, leaf_ids, stats, chan, num_slots, num_bins,
+                    num_leaves, idx, *a, **k)
+    monkeypatch.setattr(cuda_hist, "hist_tile", counted)
+    params = dict(chip_smoke.PARAMS, device_type="cpu")
+    b = lt.train(params, lt.Dataset(X, label=y, params=params), rounds)
+    assert [t.num_leaves for t in b._boosting.host_trees] == [255] * rounds
+    assert {name: c / rounds for name, c in seen.items()} == \
+        {name: w for name, _, w in cuda_hist.TREE_PASSES}
 
 
 def test_the_sweep_launches_the_full_pass_grid(monkeypatch):
@@ -104,12 +192,13 @@ def test_the_sweep_launches_the_full_pass_grid(monkeypatch):
                         lambda *a, geometry=None, **k: seen.append(geometry))
     binsT = torch.zeros((3, 80_000), dtype=torch.uint8)
     run = cuda_hist.autotune_pass(binsT, 255, False, 10_000)
-    for geo, rows in ((cuda_hist.HistGeometry(32768, 512, "smem"), 4096),
+    for geo, rows in ((cuda_hist.HistGeometry(32768, 512), 4096),
                       (cuda_hist.HistGeometry(128), 32),
-                      (cuda_hist.HistGeometry(0, 1024, "global"), 0)):
+                      (cuda_hist.HistGeometry(0, 512), 0)):
         seen.clear()
         run(geo)
-        assert seen == [geo._replace(block_rows=rows)] * 2
+        assert seen == [geo._replace(block_rows=rows)] * len(
+            cuda_hist.TREE_PASSES)
 
 
 def test_hist_block_wins_over_the_sweep(monkeypatch):
@@ -171,17 +260,15 @@ def test_a_ridden_dict_of_the_other_form_is_measured_again(monkeypatch):
 
     def sweep(binsT, num_bins, q8=False, epilogue=False, **kw):
         calls.append(epilogue)
-        return {"block": 8192, "threads": 512, "form": "smem",
+        return {"block": 8192, "threads": 512,
                 "tile_leaves": 42, "epilogue": epilogue, "times_ms": {}}
     monkeypatch.setattr(cuda_hist, "autotune_hist", sweep)
     ridden = dict(state["hist_tuned"], epilogue=False, block=4096,
                   threads=1024, form="smem")
     g.set_trainer_state(dict(state, hist_tuned=ridden))
-    assert g._hist_tuning(False)[1] == cuda_hist.HistGeometry(4096, 1024,
-                                                              "smem")
+    assert g._hist_tuning(False)[1] == cuda_hist.HistGeometry(4096, 1024)
     assert calls == []                       # the same form rides as is
-    assert g._hist_tuning(True)[1] == cuda_hist.HistGeometry(8192, 512,
-                                                             "smem")
+    assert g._hist_tuning(True)[1] == cuda_hist.HistGeometry(8192, 512)
     assert calls == [True] and g._hist_tuned["epilogue"] is True
 
 
@@ -197,8 +284,13 @@ def test_traffic_model_counts_by_hand():
     assert q["full"] == 4 * n + n * (2 * f + 3) + planes
     assert q["epilogue"] == t["epilogue"] + 12
     wide = cuda_hist.traffic_model(n, f, 65535, p, bin_bytes=4)
-    assert wide["ranges"] == 8 and wide["split_rows"] > 0
-    assert cuda_hist.traffic_model(n, f, 255, p)["split_rows"] == 0
+    # the cluster form reads each row's leaf and stats once a feature and
+    # every row's bins once
+    assert wide["cluster"] == 8
+    assert wide["full_kernels"] == (f * n * 16 + n * f * 4
+                                    + 2 * f * 65535 * 3 * 8
+                                    + p * f * 65535 * 3 * 4)
+    assert cuda_hist.traffic_model(n, f, 255, p)["cluster"] == 1
     assert cuda_hist.traffic_model(n, f, b, p, mode="f64")["full"] == \
         4 * n + n * (f + 12) + planes * 2
 

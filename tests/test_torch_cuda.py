@@ -53,7 +53,7 @@ launches equal and counted apart from the uint8 mode; the epilogue's wide
 mode at B = 257 to 4,096, f32 and q8, unconstrained and monotone, on
 random planes and the edge cases, bitwise its plain version and a second
 launch. Past one block's plane (B = 8,191 to 65,535, int16 and int32
-bins): ``hist_tile``'s bin-range split, its global form and another
+bins): ``hist_tile``'s cluster form (on skewed bins too) and another
 rows-and-threads geometry in the three forms, f32 and q8, bitwise
 ``hist_tile_exact`` or the exact sums and two launches equal, the
 integer-planes mode too; the wider epilogue (B = 4,097 to 65,536) in its
@@ -966,8 +966,6 @@ def _wider_inputs(n, f, b, leaves, seed, q8):
 
 
 WIDER_GEOMETRIES = {"default": None,
-                    "global": cuda_hist.HistGeometry(form="global"),
-                    "smem": cuda_hist.HistGeometry(form="smem"),
                     "rows4096_t512": cuda_hist.HistGeometry(4096, 512)}
 
 
@@ -976,10 +974,11 @@ WIDER_GEOMETRIES = {"default": None,
 @pytest.mark.parametrize("form", ["root", "slots", "gather"])
 @pytest.mark.parametrize("b", [8191, 16383, 40000, 65535])
 def test_hist_tile_wider_matches_plain(dev, b, form, q8, geo):
-    """Bins past what one block's shared memory holds (the bin-range
-    split, or the global form), int16 and int32 bins: bitwise
-    ``hist_tile_exact`` (f32) or the exact plain sums (q8), two launches
-    equal, counted as ``_wider`` where a feature's bins span blocks."""
+    """Bins past what one block's shared memory holds (a cluster of CTAs
+    holding a feature's plane), int16 and int32 bins:
+    bitwise ``hist_tile_exact`` (f32) or the exact plain sums (q8), two
+    launches equal, counted as ``_wider`` where a feature's bins span
+    blocks."""
     n, f = 60_001, 5
     p = 1 if form == "root" else 42
     leaves = p + 5
@@ -1009,6 +1008,32 @@ def test_hist_tile_wider_matches_plain(dev, b, form, q8, geo):
     assert torch.equal(k.view(torch.int32), again.view(torch.int32))
 
 
+@pytest.mark.parametrize("q8", [False, True], ids=["f32", "q8"])
+@pytest.mark.parametrize("form", ["root", "slots", "gather"])
+@pytest.mark.parametrize("b", [16383, 65535])
+def test_hist_tile_cluster_skewed_bins_match_exact(dev, b, form, q8):
+    """Skewed bins (80% of the rows in bin 0): the lanes of a warp that
+    add to one cell of the cluster merge first; the planes bitwise
+    ``hist_tile_exact`` (f32) or the exact sums (q8), two launches
+    equal."""
+    n, f = 60_001, 5
+    p = 1 if form == "root" else 42
+    binsT, leaf, stats = _wider_inputs(n, f, b, p + 5, b + 7, q8)
+    binsT[:, torch.arange(n) % 5 != 0] = 0
+    chan = cuda_hist.chan_leaf_table(torch.arange(p, dtype=torch.int32))
+    idx = None
+    if form == "gather":
+        idx = torch.nonzero(leaf < 9).reshape(-1).to(torch.int32).to(dev)
+    args = [t.to(dev) for t in (binsT, leaf, stats, chan)]
+    ref = (cuda_hist.hist_tile_plain(*args, p, b, p + 5, idx) if q8
+           else cuda_hist.hist_tile_exact(*args, p, b, p + 5, idx))
+    k = cuda_hist.hist_tile(*args, p, b, p + 5, idx)
+    again = cuda_hist.hist_tile(*args, p, b, p + 5, idx)
+    torch.cuda.synchronize()
+    assert torch.equal(k.view(torch.int32), ref.view(torch.int32))
+    assert torch.equal(k.view(torch.int32), again.view(torch.int32))
+
+
 @pytest.mark.parametrize("form", ["root", "gather"])
 def test_hist_tile_wider_integer_planes_match_exact(dev, form):
     """The integer-planes mode (``raw``) of a split feature at B = 16,383:
@@ -1031,9 +1056,9 @@ def test_hist_tile_wider_integer_planes_match_exact(dev, form):
         assert torch.equal(k, ref)
 
 
-# the wider epilogue (B > 4,096: a warp takes chunks in turn, XLA's scan
-# a fourth level): B on the edges of 16 chunks and of 256-chunk groups,
-# one plane, a few, the main path's tile, and the edge cases
+# the wider epilogue (B > 4,096: a cluster of CTAs, a warp a chunk, XLA's
+# scan a fourth level): B on the edges of 16 chunks and of 256-chunk
+# groups, one plane, a few, the main path's tile, and the edge cases
 WIDER_BINS = (4097, 4352, 8191, 8192, 8193, 16383, 40000, 65535, 65536)
 WIDER_EPI = ([(6, 6, b, None) for b in WIDER_BINS]
              + [(42, 28, 8191, None), (42, 28, 16383, None),
